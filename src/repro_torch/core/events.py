@@ -1,0 +1,236 @@
+"""EventTensor — the full-event inter-layer carrier (dense payload).
+
+Binary spikes plus the per-tile occupancy map the fused fire kernel
+emitted while writing them, its 8-row chunk refinement, and (lazily) the
+map's `TileCSR`. Consumers take an EventTensor in place of a dense spike
+tensor and skip their own occupancy pre-pass.
+
+Occupancy contract (as in `repro.core.events`): `occupancy[i, j]` covers
+tile (i, j) of the zero-padded (rows, K) = (prod(shape[:-1]), shape[-1])
+flattening of `spikes` under `tiling`. Counts are upper bounds with an
+exact zero set: a zero guarantees the tile holds no events, while
+propagated maps (`window_occupancy`) may over-count. `chunks` holds the
+same counts per (8-row, tile_k-lane) block, shape (MT*16, KT); only window
+propagation reads it.
+
+Survival rules: a reshape that keeps the trailing axis keeps the maps;
+one that changes it drops them. Conv im2col and pooling propagate the
+maps through `window_occupancy` on the small map, never by re-scanning
+the spikes. The packed payload of `repro` is not ported yet (ROADMAP
+queue 1, item 12).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from .econv import conv_pads
+from .spikes import build_csr
+
+CHUNK = 8    # fine-map row granularity: the fire kernel's row chunk
+
+
+class EventTensor:
+    """Binary spikes + producer-emitted per-tile occupancy. `occupancy=None`
+    is a valid degenerate state (metadata lost to a transform)."""
+
+    __slots__ = ("spikes", "occupancy", "tiling", "chunks", "_csr_cache")
+
+    def __init__(self, spikes: torch.Tensor,
+                 occupancy: Optional[torch.Tensor],
+                 tiling: Tuple[int, int] = (128, 128),
+                 chunks: Optional[torch.Tensor] = None):
+        self.spikes = spikes
+        self.occupancy = occupancy
+        self.tiling = tuple(tiling)
+        self.chunks = chunks
+        self._csr_cache = None
+        if occupancy is not None:
+            want = self.expected_map_shape(*self.tiling)
+            if tuple(occupancy.shape) != want:
+                raise ValueError(
+                    f"EventTensor occupancy shape {tuple(occupancy.shape)} "
+                    f"does not cover spikes {tuple(self.shape)} under "
+                    f"tiling {self.tiling} (expected {want})")
+            if chunks is not None and tuple(chunks.shape) != (
+                    want[0] * (self.tiling[0] // CHUNK), want[1]):
+                raise ValueError(
+                    f"EventTensor chunk map {tuple(chunks.shape)} does not "
+                    f"refine occupancy {want} at {CHUNK}-row granularity")
+
+    # ------------------------------------------------------- array facade
+    @property
+    def shape(self):
+        return tuple(self.spikes.shape)
+
+    @property
+    def ndim(self):
+        return self.spikes.ndim
+
+    @property
+    def rows(self) -> int:
+        return math.prod(self.shape[:-1])
+
+    def expected_map_shape(self, tile_m: int, tile_k: int) -> Tuple[int, int]:
+        k = self.shape[-1]
+        return (-(-self.rows // tile_m), -(-k // tile_k))
+
+    def dense(self) -> torch.Tensor:
+        """The dense spike view."""
+        return self.spikes
+
+    def occupancy_for(self, tile_m: int,
+                      tile_k: int) -> Optional[torch.Tensor]:
+        """The carried map, validated for a consumer tiling: None when no
+        map is carried, ValueError when it was built for another tiling
+        or tile grid."""
+        if self.occupancy is None:
+            return None
+        if (tile_m, tile_k) != self.tiling:
+            raise ValueError(
+                f"EventTensor occupancy built for tiling {self.tiling} "
+                f"used with tiling {(tile_m, tile_k)}")
+        want = self.expected_map_shape(tile_m, tile_k)
+        if tuple(self.occupancy.shape) != want:
+            raise ValueError(
+                f"EventTensor occupancy shape "
+                f"{tuple(self.occupancy.shape)} does not match tile grid "
+                f"{want} for spikes {self.shape}")
+        return self.occupancy
+
+    def csr(self, tile_m: int = 128, tile_k: int = 128):
+        """Lazily build (and cache per instance) the `TileCSR` compaction
+        of the carried map; None when no map is carried."""
+        occ = self.occupancy_for(tile_m, tile_k)
+        if occ is None:
+            return None
+        if self._csr_cache is None:
+            self._csr_cache = build_csr(occ, tile_m, tile_k)
+        return self._csr_cache
+
+    def reshape(self, *shape) -> "EventTensor":
+        """Reshape the spikes; the carried maps survive iff the trailing
+        axis is preserved (rows regroup, addresses don't move), else they
+        are dropped."""
+        if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+            shape = tuple(shape[0])
+        spikes = self.spikes.reshape(tuple(int(d) for d in shape))
+        keep = spikes.ndim > 0 and spikes.shape[-1] == self.shape[-1]
+        return EventTensor(spikes, self.occupancy if keep else None,
+                           self.tiling, self.chunks if keep else None)
+
+
+def as_spikes(x):
+    """Dense view of a tensor-or-EventTensor operand."""
+    return x.dense() if isinstance(x, EventTensor) else x
+
+
+# ----------------------------------------------- occupancy propagation
+def window_occupancy(et: EventTensor, window: Tuple[int, int], stride: int,
+                     out_hw: Tuple[int, int], out_k: int,
+                     padding: str = "SAME"):
+    """Propagate a carried map through a raster-monotone spatial window
+    transform (im2col patch extraction, pooling) without touching the
+    spikes.
+
+    `et.spikes` is (N, H, W, C)-shaped (lead axes folded into N); output
+    position (n, y, x) reads the input window anchored at
+    n*H*W + y*stride*W + x*stride. Each output chunk's bound is the sum of
+    the input chunk counts its windows can reach: one cumsum over the
+    small chunk map and two gathers. The reach is asymmetric (back by the
+    leading SAME pad, forward by the rest of the window) and clamped to
+    the owning image. Returns (tile map (MT_out, KT_out), chunk map
+    (MT_out*16, KT_out)), both int32, or (None, None). The arithmetic
+    stays on the map's device, so a CUDA map needs no host sync.
+    """
+    occ = et.occupancy_for(*et.tiling)
+    if occ is None or et.ndim < 4:
+        return None, None
+    kh, kw = window
+    h, w_, _ = et.shape[-3:]
+    n = math.prod(et.shape[:-3])
+    ho, wo = out_hw
+    tm, tk = et.tiling
+    per = tm // CHUNK
+    out_rows = n * ho * wo
+    mt_out = -(-out_rows // tm)
+    kt_out = -(-out_k // tk)
+    # Input counts at chunk granularity (a coarse-only carrier spreads each
+    # tile's count over its 16 chunks: still conservative).
+    if et.chunks is not None:
+        cnt8 = et.chunks.sum(dim=1, dtype=torch.int64)
+    else:
+        cnt8 = occ.sum(dim=1, dtype=torch.int64).repeat_interleave(per)
+    in_chunks = cnt8.shape[0]
+    # XLA's SAME convention puts floor(pad/2) first; VALID pads nothing.
+    if padding == "SAME":
+        pad_top = max((ho - 1) * stride + kh - h, 0) // 2
+        pad_left = max((wo - 1) * stride + kw - w_, 0) // 2
+    else:
+        pad_top = pad_left = 0
+    back_halo = pad_top * w_ + pad_left
+    fwd_halo = (kh - 1 - pad_top) * w_ + (kw - 1 - pad_left)
+    out_chunks = mt_out * per
+    ar = torch.arange(out_chunks, device=occ.device, dtype=torch.int64)
+    q_lo = CHUNK * ar
+    q_hi = torch.clamp(q_lo + CHUNK - 1, max=out_rows - 1)
+    q_lo = torch.clamp(q_lo, max=out_rows - 1)   # zero-pad tail chunks below
+
+    def reach(q, sign):
+        n_i, rem = q // (ho * wo), q % (ho * wo)
+        y, x = rem // wo, rem % wo
+        a = n_i * (h * w_) + (y * stride) * w_ + x * stride
+        if sign < 0:
+            return torch.maximum(a - back_halo, n_i * (h * w_))
+        return torch.minimum(a + fwd_halo, (n_i + 1) * (h * w_) - 1)
+
+    csum = torch.cat([cnt8.new_zeros(1), torch.cumsum(cnt8, 0)])
+    lo = torch.clamp(reach(q_lo, -1) // CHUNK, 0, in_chunks)
+    hi = torch.clamp(reach(q_hi, +1) // CHUNK + 1, 0, in_chunks)
+    live = (CHUNK * ar) < out_rows
+    bound = ((csum[hi] - csum[lo]) * live).to(torch.int32)
+    chunks_out = bound[:, None].expand(out_chunks, kt_out).contiguous()
+    occ_out = chunks_out.reshape(mt_out, per, kt_out).sum(
+        dim=1, dtype=torch.int32)
+    return occ_out, chunks_out
+
+
+def conv_patch_occupancy(et: EventTensor, w_shape: Tuple[int, ...],
+                         stride: int,
+                         padding: str) -> Optional[torch.Tensor]:
+    """Carried map for the im2col patch matrix of a conv over `et`
+    ((N,H,W,C) spikes, HWIO weights): rows = output positions, K =
+    C*kh*kw. None when no map is carried or the geometry is unsupported."""
+    if et.occupancy is None or et.ndim < 4 or padding not in ("SAME",
+                                                              "VALID"):
+        return None
+    kh, kw, ci, _ = w_shape
+    h, w_ = et.shape[-3:-1]
+    out = (conv_pads(h, kh, stride, padding)[0],
+           conv_pads(w_, kw, stride, padding)[0])
+    if out[0] <= 0 or out[1] <= 0:
+        return None
+    occ, _ = window_occupancy(et, (kh, kw), stride, out, ci * kh * kw,
+                              padding)
+    return occ
+
+
+def max_pool_events(et, pool: int):
+    """Spatial max-pool (VALID) of (..., H, W, C) spikes with the carried
+    maps propagated (chunk-granular window dilation) instead of dropped.
+    Accepts a dense tensor too (returns a dense tensor)."""
+    s = as_spikes(et)
+    h, w_, c = s.shape[-3:]
+    ho, wo = h // pool, w_ // pool
+    win = s[..., :ho * pool, :wo * pool, :].reshape(
+        s.shape[:-3] + (ho, pool, wo, pool, c))
+    pooled = win.amax(dim=(-4, -2))
+    if not isinstance(et, EventTensor):
+        return pooled
+    if et.occupancy is None or et.ndim < 4:
+        return EventTensor(pooled, None, et.tiling)
+    occ, chunks = window_occupancy(et, (pool, pool), pool, (ho, wo), c,
+                                   padding="VALID")
+    return EventTensor(pooled, occ, et.tiling, chunks)

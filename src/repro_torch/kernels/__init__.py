@@ -1,0 +1,15 @@
+"""Hand-written CUDA kernels for Hopper and their wrappers.
+
+  lif_scan.py      csrc/lif.cu               fused LIF, with/without counts
+  spike_matmul.py  csrc/spike_matmul_csr.cu  event-compacted CSR matmul
+  sdsa_kernel.py   csrc/sdsa.cu              packed OR-form attention
+  ref.py           plain PyTorch oracles
+  ops.py           shape plumbing around the kernels
+  dispatch.py      the backend registry model code calls
+
+Each wrapper counts its launches (`launch_counts`), so a run can show
+that its main path went through the kernels.
+"""
+from ._build import launch_counts, reset_launch_counts
+
+__all__ = ["launch_counts", "reset_launch_counts"]

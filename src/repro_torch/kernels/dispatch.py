@@ -1,0 +1,427 @@
+"""Backend dispatch registry for the SpikingFormer hot-path ops.
+
+Model code calls ops only through this registry; each op has a plain
+PyTorch oracle (`ref`) and the hand-written CUDA kernels (`cuda`):
+
+  op            backends     cuda realization
+  ------------  -----------  --------------------------------------------
+  lif_scan      ref | cuda   csrc/lif.cu, no-counts mode
+  lif_scan_occ  ref | cuda   csrc/lif.cu, counts mode (+ 16:1 map sum)
+  spike_matmul  ref | cuda   csrc/spike_matmul_csr.cu on the carried map
+  sdsa          ref | cuda   csrc/sdsa.cu on packed words (mode="or")
+  econv         ref | cuda   im2col + csrc/spike_matmul_csr.cu
+
+Selection order per call:
+  1. an explicit override — the `use_backend(...)` context or the
+     ``EXSPIKE_BACKEND`` env var (``ref`` for all ops, or a comma list of
+     ``op=backend`` entries). It runs the named backend on whatever
+     device the tensors lie on: the kernel wrappers take their plain
+     version for CPU tensors, which is how the CPU tests walk the kernel
+     path;
+  2. otherwise the highest-priority backend registered for the platform
+     of the call's first tensor (``cpu`` or ``cuda``).
+A `supports` gate that refuses a call raises; the warn-and-degrade
+chains of `repro`'s registry, and its mesh, hybrid, guard and packed
+payload routing, are not ported yet.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import functools
+import os
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+ENV_VAR = "EXSPIKE_BACKEND"
+REF = "ref"
+CUDA = "cuda"
+ALL_PLATFORMS = ("cpu", "cuda")
+
+
+@dataclasses.dataclass(frozen=True)
+class Backend:
+    """One registered implementation of an op. `supports(*args, **kw)`
+    returns a reason string when it cannot take the call (None: it can);
+    `platforms` are the devices it is auto-selected on."""
+    name: str
+    fn: Callable
+    platforms: Tuple[str, ...] = ALL_PLATFORMS
+    priority: int = 0
+    supports: Optional[Callable[..., Optional[str]]] = None
+
+    def unsupported_reason(self, *args, **kwargs) -> Optional[str]:
+        if self.supports is None:
+            return None
+        return self.supports(*args, **kwargs)
+
+
+@dataclasses.dataclass
+class OpSpec:
+    name: str
+    make_example: Callable[[torch.device], Tuple[tuple, dict]]
+    backends: Dict[str, Backend] = dataclasses.field(default_factory=dict)
+
+
+_REGISTRY: Dict[str, OpSpec] = {}
+_OVERRIDES: list = []   # stack of {op_or_None: backend_name} dicts
+
+
+# ----------------------------------------------------------- registration
+def register_op(name: str, make_example) -> None:
+    if name not in _REGISTRY:
+        _REGISTRY[name] = OpSpec(name=name, make_example=make_example)
+
+
+def register(op: str, name: str, *, platforms=ALL_PLATFORMS, priority=0,
+             supports=None):
+    """Decorator: register `fn` as backend `name` for `op`."""
+    def deco(fn):
+        if op not in _REGISTRY:
+            raise KeyError(f"unknown op {op!r}; register_op it first")
+        _REGISTRY[op].backends[name] = Backend(
+            name=name, fn=fn, platforms=tuple(platforms), priority=priority,
+            supports=supports)
+        return fn
+    return deco
+
+
+def op_names() -> Tuple[str, ...]:
+    return tuple(_REGISTRY)
+
+
+def backend_names(op: str) -> Tuple[str, ...]:
+    return tuple(_REGISTRY[op].backends)
+
+
+# -------------------------------------------------------------- overrides
+@functools.lru_cache(maxsize=8)
+def _parse_env(value: str) -> Tuple[Tuple[Optional[str], str], ...]:
+    """'ref' -> ((None,'ref'),); 'sdsa=cuda,ref' -> per-op + global."""
+    out = []
+    for part in value.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" in part:
+            op, be = part.split("=", 1)
+            out.append((op.strip(), be.strip()))
+        else:
+            out.append((None, part))
+    return tuple(out)
+
+
+def _override_for(op: str) -> Optional[str]:
+    for frame in reversed(_OVERRIDES):
+        if op in frame:
+            return frame[op]
+        if None in frame:
+            return frame[None]
+    env = os.environ.get(ENV_VAR, "")
+    if env:
+        glob = None
+        for o, be in _parse_env(env):
+            if o == op:
+                return be
+            if o is None:
+                glob = be
+        return glob
+    return None
+
+
+@contextlib.contextmanager
+def use_backend(name: str, op: Optional[str] = None):
+    """Force backend `name` for one op (or all ops when op=None)."""
+    _OVERRIDES.append({op: name})
+    try:
+        yield
+    finally:
+        _OVERRIDES.pop()
+
+
+# -------------------------------------------------------------- resolution
+def _platform(args) -> str:
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            return a.device.type
+    raise TypeError("dispatch needs at least one tensor argument")
+
+
+def resolve(op: str, *args, **kwargs) -> Backend:
+    """The backend `dispatch` would run for these inputs."""
+    spec = _REGISTRY[op]
+    override = _override_for(op)
+    if override is not None:
+        be = spec.backends.get(override)
+        if be is None:
+            raise KeyError(f"op {op!r} has no backend {override!r}; "
+                           f"registered: {backend_names(op)}")
+    else:
+        platform = _platform(args)
+        be = max((b for b in spec.backends.values()
+                  if platform in b.platforms),
+                 key=lambda b: b.priority, default=None)
+        if be is None:
+            raise RuntimeError(f"op {op!r} has no backend for platform "
+                               f"{platform!r}")
+    reason = be.unsupported_reason(*args, **kwargs)
+    if reason is not None:
+        raise ValueError(f"backend {be.name!r} for op {op!r} cannot take "
+                         f"this call: {reason}")
+    return be
+
+
+def dispatch(op: str, *args, **kwargs):
+    """Run `op` on the resolved backend."""
+    return resolve(op, *args, **kwargs).fn(*args, **kwargs)
+
+
+def resolved_backends(device="cuda") -> Dict[str, str]:
+    """op -> name of the backend that would run each op's example inputs
+    on `device` under the current overrides (startup log)."""
+    from repro_torch import resolve_device
+    dev = resolve_device(device)
+    out = {}
+    for op, spec in _REGISTRY.items():
+        ex_args, ex_kwargs = spec.make_example(dev)
+        out[op] = resolve(op, *ex_args, **ex_kwargs).name
+    return out
+
+
+def _binary(shape, p: float, device) -> torch.Tensor:
+    g = torch.Generator().manual_seed(0)
+    return (torch.rand(shape, generator=g) < p).float().to(device)
+
+
+# ======================================================================
+# Op definitions + backend implementations
+# ======================================================================
+# ------------------------------------------------------------- lif_scan
+register_op("lif_scan", lambda dev: (
+    (2.0 * torch.randn(4, 3, 40, generator=torch.Generator().manual_seed(0))
+     .to(dev),), {"decay": 0.5, "v_th": 1.0, "soft_reset": True}))
+
+
+@register("lif_scan", REF, priority=0)
+def _lif_ref(x, **kwargs):
+    from repro_torch.kernels.ref import lif_scan_ref
+    return lif_scan_ref(x, **kwargs)
+
+
+@register("lif_scan", CUDA, platforms=("cuda",), priority=20)
+def _lif_cuda(x, *, decay=0.5, v_th=1.0, soft_reset=True,
+              surrogate_alpha=2.0):
+    from repro_torch.kernels import ops
+    return ops.lif(x, decay=decay, v_th=v_th, soft_reset=soft_reset,
+                   surrogate_alpha=surrogate_alpha)
+
+
+# --------------------------------------------------------- lif_scan_occ
+# The full-event producer: fire AND emit the spikes' (128, 128) per-tile
+# occupancy map plus its 8-row chunk refinement. Returns (spikes, map,
+# chunks).
+register_op("lif_scan_occ", lambda dev: (
+    (2.0 * torch.randn(3, 8, 40, generator=torch.Generator().manual_seed(0))
+     .to(dev),), {"decay": 0.5, "v_th": 1.0, "soft_reset": True}))
+
+
+def _ref_chunk_occupancy(s):
+    from repro_torch.core.spikes import tile_occupancy
+    from repro_torch.kernels.ops import _pad_to
+    s2, _ = _pad_to(s.reshape(-1, s.shape[-1]), 0, 128)
+    s2, _ = _pad_to(s2, 1, 128)
+    return tile_occupancy(s2, 8, 128)
+
+
+@register("lif_scan_occ", REF, priority=0)
+def _lif_occ_ref(x, *, decay=0.5, v_th=1.0, soft_reset=True,
+                 surrogate_alpha=2.0):
+    s = _lif_ref(x, decay=decay, v_th=v_th, soft_reset=soft_reset,
+                 surrogate_alpha=surrogate_alpha)
+    # One chunk-granular pre-pass; the tile map is its 16:1 aggregation
+    # (identical to the fused kernel's emission, counts and all).
+    chunks = _ref_chunk_occupancy(s)
+    occ = chunks.reshape(-1, 16, chunks.shape[1]).sum(dim=1,
+                                                      dtype=torch.int32)
+    return s, occ, chunks
+
+
+def _lif_occ_supports(x, **kwargs) -> Optional[str]:
+    del kwargs
+    r = 1
+    for d in x.shape[1:-1]:
+        r *= d
+    if r % 8:
+        return (f"fused occupancy emission needs the middle axes to fill "
+                f"8-row chunks, got R={r}")
+    return None
+
+
+@register("lif_scan_occ", CUDA, platforms=("cuda",), priority=20,
+          supports=_lif_occ_supports)
+def _lif_occ_cuda(x, *, decay=0.5, v_th=1.0, soft_reset=True,
+                  surrogate_alpha=2.0):
+    from repro_torch.kernels import ops
+    return ops.lif_occ(x, decay=decay, v_th=v_th, soft_reset=soft_reset,
+                       surrogate_alpha=surrogate_alpha)
+
+
+# --------------------------------------------------------- spike_matmul
+def _spike_matmul_example(dev):
+    s = _binary((2, 48, 96), 0.3, dev)
+    w = torch.randn(96, 56, generator=torch.Generator().manual_seed(1))
+    return (s, w.to(dev)), {}
+
+
+register_op("spike_matmul", _spike_matmul_example)
+
+
+@register("spike_matmul", REF, priority=0)
+def _spike_matmul_ref(s, w, occupancy=None):
+    del occupancy    # metadata for the event kernel; the oracle is dense
+    from repro_torch.kernels.ref import spike_matmul_ref
+    return spike_matmul_ref(s, w)
+
+
+@register("spike_matmul", CUDA, platforms=("cuda",), priority=20)
+def _spike_matmul_csr(s, w, occupancy=None):
+    # Event-compacted tile walk; a carried `occupancy` replaces the dense
+    # pre-pass (the work list compacts from the small map).
+    from repro_torch.kernels import ops
+    return ops.spike_matmul_csr(s, w, occupancy=occupancy)
+
+
+# ------------------------------------------------------------------ sdsa
+def _sdsa_example(dev):
+    return tuple(_binary((2, 3, 24, 40), 0.4, dev) for _ in range(3)), \
+        {"mode": "or"}
+
+
+register_op("sdsa", _sdsa_example)
+
+
+def _sdsa_or_only(q, k, v, *, mode="or") -> Optional[str]:
+    del q, k, v
+    if mode != "or":
+        return f"packed bitwise path supports mode='or' only, got {mode!r}"
+    return None
+
+
+@register("sdsa", REF, priority=0)
+def _sdsa_ref(q, k, v, *, mode="or"):
+    from repro_torch.core.sdsa import sdsa_jnp
+    return sdsa_jnp(q, k, v, mode=mode)
+
+
+@register("sdsa", CUDA, platforms=("cuda",), priority=20,
+          supports=_sdsa_or_only)
+def _sdsa_cuda(q, k, v, *, mode="or"):
+    del mode
+    from repro_torch.kernels import ops
+    return ops.sdsa_or(q, k, v)
+
+
+# ----------------------------------------------------------------- econv
+def _econv_example(dev):
+    s = _binary((2, 8, 8, 6), 0.25, dev)
+    w = torch.randn(3, 3, 6, 10, generator=torch.Generator().manual_seed(1))
+    return (s, w.to(dev)), {"stride": 1, "padding": "SAME"}
+
+
+register_op("econv", _econv_example)
+
+
+@register("econv", REF, priority=0)
+def _econv_ref(s, w, *, stride=1, padding="SAME", occupancy=None):
+    del occupancy    # dense conv: no event metadata consumed
+    from repro_torch.core.econv import tconv
+    return tconv(s, w, stride=stride, padding=padding)
+
+
+def econv_patches(s: torch.Tensor, kh: int, kw: int, stride: int,
+                  padding: str) -> torch.Tensor:
+    """im2col of NHWC `s`: (N*Ho*Wo, Ci*kh*kw) patch rows with features
+    ordered (Ci, kh, kw), as lax's `conv_general_dilated_patches` (and
+    `F.unfold` on NCHW) order them."""
+    from repro_torch.core.econv import pad_nchw
+    x = pad_nchw(s.permute(0, 3, 1, 2), kh, kw, stride, padding)
+    cols = torch.nn.functional.unfold(x, (kh, kw), stride=stride)
+    return cols.transpose(1, 2).reshape(-1, cols.shape[1]).contiguous()
+
+
+@register("econv", CUDA, platforms=("cuda",), priority=20)
+def _econv_cuda(s, w, *, stride=1, padding="SAME", occupancy=None):
+    """im2col + the CSR spike matmul: binary patches of a binary map stay
+    binary, so the event matmul is the conv, and patch-row tiles with no
+    events cost no work. `occupancy` is a map for the PATCH matrix — the
+    input map propagated through the im2col window
+    (`core.events.conv_patch_occupancy`), never a re-scan of the
+    kh*kw-times larger patch tensor."""
+    from repro_torch.core.econv import conv_pads
+    from repro_torch.kernels import ops
+    kh, kw, ci, co = w.shape
+    ho = conv_pads(s.shape[1], kh, stride, padding)[0]
+    wo = conv_pads(s.shape[2], kw, stride, padding)[0]
+    patches = econv_patches(s, kh, kw, stride, padding)
+    w2 = w.permute(2, 0, 1, 3).reshape(ci * kh * kw, co)
+    out = ops.spike_matmul_csr(patches, w2.float(), occupancy=occupancy)
+    return out.reshape(s.shape[0], ho, wo, co)
+
+
+# ======================================================================
+# Public entry points (EventTensor-aware)
+# ======================================================================
+# Full-event operands: an `EventTensor` carries spikes plus their map;
+# unpack it into (spikes, occupancy-kwarg) for the registered backends.
+# Event backends consume the carried map, oracles ignore it, and either
+# way the values are identical — occupancy only gates what is provably
+# zero. A map carried for the wrong tiling raises before resolution.
+def _event_args(s, kw=None):
+    from repro_torch.core.events import EventTensor
+    kw = dict(kw or {})
+    if isinstance(s, EventTensor):
+        occ = s.occupancy_for(128, 128)
+        if occ is not None:
+            kw["occupancy"] = occ
+        s = s.spikes
+    return s, kw
+
+
+def lif_scan(x, *, decay=0.5, v_th=1.0, soft_reset=True, surrogate_alpha=2.0):
+    return dispatch("lif_scan", x, decay=decay, v_th=v_th,
+                    soft_reset=soft_reset, surrogate_alpha=surrogate_alpha)
+
+
+def lif_scan_occ(x, *, decay=0.5, v_th=1.0, soft_reset=True,
+                 surrogate_alpha=2.0):
+    """Fire + emit the occupancy maps: returns (spikes, (128,128) tile
+    map, 8-row chunk map) — wrap in an EventTensor via
+    `models.layers.lif_fire_events`."""
+    return dispatch("lif_scan_occ", x, decay=decay, v_th=v_th,
+                    soft_reset=soft_reset, surrogate_alpha=surrogate_alpha)
+
+
+def spike_matmul(s, w):
+    s, kw = _event_args(s)
+    return dispatch("spike_matmul", s, w, **kw)
+
+
+def sdsa(q, k, v, *, mode="or"):
+    from repro_torch.core.events import as_spikes
+    return dispatch("sdsa", as_spikes(q), as_spikes(k), as_spikes(v),
+                    mode=mode)
+
+
+def econv(s, w, *, stride=1, padding="SAME"):
+    from repro_torch.core.events import EventTensor, conv_patch_occupancy
+    kw = {"stride": stride, "padding": padding}
+    if isinstance(s, EventTensor):
+        # The carried map is for the INPUT flattening — the im2col patch
+        # matrix has different rows/K, so the map is propagated through
+        # the window, not passed through as-is.
+        occ = conv_patch_occupancy(s, w.shape, stride, padding)
+        if occ is not None:
+            kw["occupancy"] = occ
+        s = s.spikes
+    return dispatch("econv", s, w, **kw)

@@ -1,0 +1,138 @@
+"""Public wrappers around the kernels: shape plumbing, packing and the
+event-metadata hand-off, so model code can call them on arbitrary shapes.
+
+Each wrapper launches its CUDA kernel for CUDA tensors and the kernel's
+plain version for CPU tensors (the choice is made by the kernel module
+from the tensor's device, nowhere else).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.events import EventTensor
+from repro_torch.core.spikes import (PACK, TileCSR, build_csr, pack_spikes,
+                                     tile_occupancy, unpack_spikes)
+from . import lif_scan, sdsa_kernel, spike_matmul as _csr
+
+
+def _pad_to(x: torch.Tensor, axis: int, mult: int):
+    """Zero-pad `axis` of `x` up to a multiple of `mult`; returns
+    (padded, original size)."""
+    size = x.shape[axis]
+    pad = (-size) % mult
+    if pad == 0:
+        return x, size
+    widths = [0, 0] * x.ndim
+    widths[2 * (x.ndim - 1 - axis % x.ndim) + 1] = pad
+    return F.pad(x, widths), size
+
+
+def lif(x: torch.Tensor, decay: float = 0.5, v_th: float = 1.0,
+        soft_reset: bool = True, surrogate_alpha: float = 2.0) -> torch.Tensor:
+    """Fused LIF over the leading time axis, any trailing shape. The kernel
+    walks neurons flat, so no padding to lane multiples is needed."""
+    del surrogate_alpha        # forward only: read by the training slice
+    t = x.shape[0]
+    out = lif_scan.lif(x.reshape(t, -1).contiguous(), decay=decay,
+                       v_th=v_th, soft_reset=soft_reset)
+    return out.reshape(x.shape)
+
+
+def lif_occ(x: torch.Tensor, decay: float = 0.5, v_th: float = 1.0,
+            soft_reset: bool = True, surrogate_alpha: float = 2.0):
+    """Fused LIF that also emits the (128, 128)-tiled occupancy map of its
+    own spike output — the full-event producer.
+
+    x: (T, ..., K) drive -> (spikes (T, ..., K),
+    occupancy (ceil(T*R/128), ceil(K/128)) int32,
+    chunks (ceil(T*R/128)*16, ceil(K/128)) int32), R = prod of the middle
+    axes, which must divide by 8. The maps come from the kernel's per-chunk
+    counts plus a reduction over the small count map, never a re-read of
+    the spikes.
+    """
+    del surrogate_alpha
+    t, k = x.shape[0], x.shape[-1]
+    r = math.prod(x.shape[1:-1])
+    if r % 8:
+        raise ValueError(f"middle axes {tuple(x.shape[1:-1])} (R={r}) must "
+                         f"divide by 8")
+    s, cnt = lif_scan.lif_counts(x.reshape(t, r, k).contiguous(),
+                                 decay=decay, v_th=v_th,
+                                 soft_reset=soft_reset)
+    # (T, R/8, KT) chunk counts -> (ceil(T*R/128), KT) matmul tiles: the
+    # flattened chunk (t, a) sits at t*(R/8)+a, so 16 consecutive chunks
+    # are one 128-row tile (zero-padded tail chunks match the consumers'
+    # zero-padded rows).
+    kt = cnt.shape[-1]
+    cnt2, _ = _pad_to(cnt.reshape(t * (r // 8), kt), 0, 16)
+    occ = cnt2.reshape(-1, 16, kt).sum(dim=1, dtype=torch.int32)
+    return s.reshape(x.shape), occ, cnt2
+
+
+def sdsa_or(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """OR-form SDSA on dense binary (..., N, d) tensors; bit-packed inside
+    and run through the packed kernel."""
+    lead = q.shape[:-2]
+    n, d = q.shape[-2:]
+    block_n = min(256, n + (-n) % 8)
+
+    def prep(x):
+        x, _ = _pad_to(x.reshape(-1, n, d), 2, PACK)
+        x, _ = _pad_to(pack_spikes(x, axis=-1), 1, block_n)
+        return x.contiguous()
+
+    out_p = sdsa_kernel.sdsa_packed(prep(q), prep(k), prep(v))
+    out = unpack_spikes(out_p, axis=-1, dtype=q.dtype)[:, :n, :d]
+    return out.reshape(lead + (n, d))
+
+
+def padded_occupancy(s: torch.Tensor, block_m: int = 128,
+                     block_k: int = 128) -> torch.Tensor:
+    """The occupancy pre-pass as the matmul consumers tile it: lead axes
+    flattened into rows, rows and K zero-padded to the tiling."""
+    k = s.shape[-1]
+    s2, _ = _pad_to(s.reshape(-1, k), 0, block_m)
+    s2, _ = _pad_to(s2, 1, block_k)
+    return tile_occupancy(s2, block_m, block_k)
+
+
+def _check_map(occupancy: torch.Tensor, grid) -> None:
+    if tuple(occupancy.shape) != tuple(grid):
+        raise ValueError(
+            f"occupancy map {tuple(occupancy.shape)} does not match the "
+            f"padded {tuple(grid)} tile grid — built for a different "
+            f"flattening or tiling")
+
+
+def spike_matmul_csr(s, w: torch.Tensor, csr: TileCSR | None = None, *,
+                     occupancy: torch.Tensor | None = None) -> torch.Tensor:
+    """Event-compacted spike matmul for (..., M, K) x (K, N) on the
+    128x128 tile grid.
+
+    `s` may be an `EventTensor` (carried map + cached work list). `csr`:
+    a precomputed `TileCSR` for this tiling. `occupancy`: a precomputed
+    map for callers holding occupancy but no work list; the compaction
+    runs on the small map and the dense `tile_occupancy` pass is skipped.
+    A map or work list for another tile grid is rejected.
+    """
+    tile = _csr.TILE
+    if isinstance(s, EventTensor):
+        if csr is None and occupancy is None:
+            csr = s.csr(tile, tile)          # None when no map is carried
+        s = s.spikes
+    lead = s.shape[:-2]
+    m, k = s.shape[-2:]
+    n = w.shape[-1]
+    s2 = s.reshape(-1, k).contiguous()
+    grid = (-(-s2.shape[0] // tile), -(-k // tile))
+    if csr is None:
+        if occupancy is None:
+            occupancy = padded_occupancy(s2, tile, tile)
+        else:
+            _check_map(occupancy, grid)
+        csr = build_csr(occupancy, tile, tile)
+    out = _csr.spike_matmul_csr(s2, w.float().contiguous(), csr)
+    return out.reshape(lead + (m, n))

@@ -1,0 +1,43 @@
+"""Plain PyTorch oracles for the kernels (the allclose targets)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.lif import LIFConfig, lif_scan as _lif_scan_core
+
+
+def lif_scan_ref(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
+                 soft_reset: bool = True,
+                 surrogate_alpha: float = 2.0) -> torch.Tensor:
+    """Oracle for the LIF kernel: the core loop implementation."""
+    cfg = LIFConfig(decay=decay, v_th=v_th, soft_reset=soft_reset,
+                    surrogate_alpha=surrogate_alpha)
+    return _lif_scan_core(x.float(), cfg).to(x.dtype)
+
+
+def sdsa_status_ref(k_packed: torch.Tensor,
+                    v_packed: torch.Tensor) -> torch.Tensor:
+    """OR-reduce over N of K AND V, on packed words: (BH, N, dw) ->
+    (BH, dw) uint32."""
+    kv = k_packed.view(torch.int32) & v_packed.view(torch.int32)
+    while kv.shape[1] > 1:                       # pairwise OR tree over N
+        if kv.shape[1] % 2:
+            kv = torch.nn.functional.pad(kv, (0, 0, 0, 1))
+        kv = kv[:, 0::2] | kv[:, 1::2]
+    return kv[:, 0].view(torch.uint32)
+
+
+def sdsa_apply_ref(q_packed: torch.Tensor,
+                   status: torch.Tensor) -> torch.Tensor:
+    """out = Q AND status, broadcast over N."""
+    out = q_packed.view(torch.int32) & status.view(torch.int32)[:, None, :]
+    return out.view(torch.uint32)
+
+
+def sdsa_packed_ref(q_packed, k_packed, v_packed):
+    return sdsa_apply_ref(q_packed, sdsa_status_ref(k_packed, v_packed))
+
+
+def spike_matmul_ref(s: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Oracle for the spike matmul: plain dense fp32 matmul."""
+    return torch.matmul(s.float(), w.float()).to(w.dtype)

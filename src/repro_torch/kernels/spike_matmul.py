@@ -1,0 +1,72 @@
+"""Event-compacted spike matmul over a CSR-of-tiles work list.
+
+`spike_matmul_csr(s, w, csr)` computes s @ w summing only the occupied
+(m-tile, k-tile) steps of `csr` (a `core.spikes.TileCSR` over the
+128x128 tile grid of s). On a CUDA tensor it launches
+`csrc/spike_matmul_csr.cu`; on a CPU tensor it runs the plain version.
+Both accept any (M, K) x (K, N): ragged edge tiles are masked, never
+padded.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.spikes import TileCSR
+from . import _build
+
+TILE = 128     # map / work-list tiling (rows and k)
+
+
+def csr_tile_gate(csr: TileCSR, mt: int, kt: int) -> torch.Tensor:
+    """(MT, KT) bool: True where the work list has an occupied step. Walks
+    each row's steps row_ptr[r]:row_ptr[r+1], as the kernel does; dummy
+    steps (occ 0) and padding steps past row_ptr[MT] gate nothing."""
+    steps = torch.arange(csr.n_steps, device=csr.row_ptr.device)
+    row = torch.searchsorted(csr.row_ptr[1:].long(), steps, right=True)
+    live = (steps < csr.row_ptr[-1]) & (csr.occ > 0)
+    gate = torch.zeros(mt * kt, dtype=torch.int32, device=steps.device)
+    flat = row.clamp(max=mt - 1) * kt + csr.tile_k_idx.long()
+    gate.index_put_((flat,), live.to(torch.int32), accumulate=True)
+    return gate.reshape(mt, kt) > 0
+
+
+def spike_matmul_csr_plain(s: torch.Tensor, w: torch.Tensor,
+                           csr: TileCSR) -> torch.Tensor:
+    """Plain version: zero the spike tiles the work list does not visit,
+    then one dense fp32 matmul."""
+    m, k = s.shape
+    mt, kt = -(-m // TILE), -(-k // TILE)
+    gate = csr_tile_gate(csr, mt, kt)
+    mask = gate.repeat_interleave(TILE, 0).repeat_interleave(TILE, 1)
+    return torch.matmul(s.float() * mask[:m, :k], w.float())
+
+
+def spike_matmul_csr(s: torch.Tensor, w: torch.Tensor,
+                     csr: TileCSR) -> torch.Tensor:
+    """s: (M, K) f32 spikes, w: (K, N) f32 -> (M, N) f32."""
+    if s.ndim != 2 or w.ndim != 2 or s.shape[1] != w.shape[0]:
+        raise ValueError(f"spike_matmul_csr needs (M, K) x (K, N), got "
+                         f"{tuple(s.shape)} x {tuple(w.shape)}")
+    m, k = s.shape
+    n = w.shape[1]
+    mt, kt = -(-m // TILE), -(-k // TILE)
+    csr.check_compatible(TILE, TILE, mt, kt)
+    if csr.n_rows != mt:
+        raise ValueError(f"csr has {csr.n_rows} m-tile rows, input needs {mt}")
+    if not s.is_cuda:
+        return spike_matmul_csr_plain(s, w, csr)
+    row_ptr, kidx, occ = csr.row_ptr, csr.tile_k_idx, csr.occ
+    _build.require_cuda("spike_matmul_csr", s, w, dtype=torch.float32)
+    _build.require_cuda("spike_matmul_csr", row_ptr, kidx, occ,
+                        dtype=torch.int32)
+    if row_ptr.device != s.device:
+        raise ValueError("spike_matmul_csr: work list and operands lie on "
+                         "different devices")
+    out = torch.empty((m, n), dtype=torch.float32, device=s.device)
+    lib = _build.library()
+    _build.LAUNCHES["spike_matmul_csr"] += 1
+    _build.check(lib.spike_matmul_csr_forward(
+        s.data_ptr(), w.data_ptr(), out.data_ptr(), row_ptr.data_ptr(),
+        kidx.data_ptr(), occ.data_ptr(), m, k, n, mt, _build.stream()),
+        "spike_matmul_csr")
+    return out

@@ -1,0 +1,91 @@
+"""The CUDA kernels against their plain PyTorch versions, on a card.
+
+Torch-only (no JAX), so it runs on the GPU machine:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Every test is marked `cuda` and skips where no CUDA device is present.
+Spikes, counts and SDSA words must match exactly; the CSR matmul within
+1e-5 * max|plain| + 1e-5 (fp32 summation order).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.spikes import build_csr, pack_spikes
+from repro_torch.kernels import launch_counts, lif_scan, ops, \
+    reset_launch_counts, sdsa_kernel, spike_matmul
+
+torch.set_num_threads(1)
+
+
+def _clustered(rng, m, k, tile_p=0.5, p=0.3, tile=128):
+    tiles = rng.random((-(-m // tile), -(-k // tile))) < tile_p
+    mask = np.kron(tiles, np.ones((tile, tile)))[:m, :k]
+    return ((rng.random((m, k)) < p) * mask).astype(np.float32)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_cuda_lif_kernels_match_plain(cuda_device):
+    x = (torch.randn(4, 64, 200, generator=torch.Generator().manual_seed(0))
+         + 0.3).to(cuda_device)
+    s, cnt = lif_scan.lif_counts(x, decay=0.5, v_th=0.5)
+    ps, pcnt = lif_scan.lif_counts_plain(x, decay=0.5, v_th=0.5)
+    assert torch.equal(s, ps) and torch.equal(cnt, pcnt)
+    for decay in (0.5, 0.3):
+        flat = x.reshape(4, -1)
+        assert torch.equal(lif_scan.lif(flat, decay=decay, v_th=0.5),
+                           lif_scan.lif_plain(flat, decay=decay, v_th=0.5))
+
+
+@pytest.mark.cuda
+def test_cuda_sdsa_kernel_matches_plain(cuda_device):
+    g = torch.Generator().manual_seed(1)
+    q, k, v = (pack_spikes((torch.rand(64, 40, 96, generator=g) < 0.3)
+                           .float()).to(cuda_device) for _ in range(3))
+    got = sdsa_kernel.sdsa_packed(q, k, v)
+    want = sdsa_kernel.sdsa_packed_plain(q, k, v)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(256, 256, 128), (300, 200, 60),
+                                   (1000, 432, 96)])
+def test_cuda_csr_kernel_matches_plain(cuda_device, m, k, n):
+    rng = np.random.default_rng(m)
+    s = torch.from_numpy(_clustered(rng, m, k)).to(cuda_device)
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)
+                         ).to(cuda_device)
+    csr = build_csr(ops.padded_occupancy(s), 128, 128)
+    got = spike_matmul.spike_matmul_csr(s, w, csr)
+    want = spike_matmul.spike_matmul_csr_plain(s, w, csr)
+    tol = 1e-5 * want.abs().max().item() + 1e-5
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_count_each_launch(cuda_device):
+    reset_launch_counts()
+    x = torch.ones(2, 8, 130, device=cuda_device)
+    lif_scan.lif(x.reshape(2, -1))
+    lif_scan.lif_counts(x)
+    assert launch_counts() == {"lif": 1, "lif_counts": 1,
+                               "spike_matmul_csr": 0, "sdsa_or": 0}
+
+
+@pytest.mark.cuda
+def test_cuda_csr_kernel_writes_zeros_for_empty_rows(cuda_device):
+    s = torch.ones(300, 200, device=cuda_device)
+    w = torch.ones(200, 40, device=cuda_device)
+    occ = torch.tensor([[1, 0], [0, 0], [0, 3]], dtype=torch.int32,
+                       device=cuda_device)
+    out = ops.spike_matmul_csr(s, w, occupancy=occ)
+    assert torch.all(out[:128] == 128) and torch.all(out[128:256] == 0)
+    assert torch.all(out[256:] == 72)
