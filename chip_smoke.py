@@ -6,18 +6,30 @@
 Phases, each printed on its own line:
   (a) the card (nvidia-smi name and power limit), torch and CUDA versions,
       and the build of every CUDA kernel from `src/repro_torch/csrc`;
-  (b) each kernel at the main path's largest shapes (B=32, T=4) against
-      its plain PyTorch version on the same card: LIF exact (both modes),
-      packed SDSA bit for bit, the CSR matmul within
+  (b) each inference kernel at the main path's largest shapes (B=32, T=4)
+      against its plain PyTorch version on the same card: LIF exact (both
+      modes), packed SDSA bit for bit, the CSR matmul within
       1e-5 * max|ref| + 1e-5; with kernel, plain, library and bound times;
-  (c) SpikingFormer-4-384 (T=4, v_th=0.5, random weights from a seed) on
-      4 batches of 32 images through the port's entry points, once on the
-      kernels and once under `use_backend("ref")`: finite logits, exactly
-      12 lif-counts, 13 lif, 11 CSR and 4 SDSA launches per forward, no
-      dense occupancy pre-pass, every registry call agreeing with `ref` on
-      the same inputs, and the free-running per-stage spike drift within
-      FREE_RUNNING_SPIKE_TOL; then a per-op device-time breakdown of one
-      forward;
+  (e) the training kernels (LIF forward with residual, with and without
+      counts, and the surrogate backward) at the stage-1 drive, equal to
+      their plain versions bit for bit, with the same times;
+  (c) SpikingFormer-4-384 inference (T=4, v_th=0.5, random weights from a
+      seed) on 4 batches of 32 images through the port's entry points
+      under `torch.inference_mode()`, once on the kernels and once under
+      `use_backend("ref")`: finite logits, exactly 12 lif-counts, 13 lif,
+      11 CSR and 4 SDSA launches per forward, no dense occupancy pre-pass,
+      every registry call agreeing with `ref` on the same inputs, and the
+      free-running per-stage spike drift within FREE_RUNNING_SPIKE_TOL;
+      then a per-op device-time breakdown of one forward;
+  (f) SpikingFormer-4-384 training: 3 AdamW steps (cross-entropy,
+      `torch.autograd.grad` over the parameter leaves, `adamw.update`) on
+      `class_images` batches of 32, on the kernels: finite losses and
+      gradients, no all-zero gradient leaf, exactly 13 lif-fwd, 12
+      lif-counts-fwd, 25 lif-bwd, 11 CSR and 4 SDSA launches per step and
+      no primal LIF launch; every registry call's backward agreeing with
+      `ref`'s on the same inputs and cotangent (SAME_INPUT_GRAD_TOL); the
+      same 3 steps on `ref` printed beside them; then a per-op forward and
+      backward device-time breakdown of one step;
   (d) one JSON line listing every kernel with its launches, error and
       times.
 The last line is {"ok": true, "device": {...}}. Any failed check exits
@@ -40,10 +52,22 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 FP32_FLOPS = 67e12               # H100 SXM fp32, CUDA cores
 SEED = 0
 B, T, DEPTH, DIM, HEADS, V_TH = 32, 4, 4, 384, 8, 0.5
+TRAIN_STEPS, LR = 3, 1e-3
 EXPECTED_LAUNCHES = {"lif_counts": 12, "lif": 13, "spike_matmul_csr": 11,
                      "sdsa_or": 4}
+# Per training step: every fire runs the residual forward and the
+# surrogate backward; the matmul backwards are plain products and SDSA's
+# and econv's replay `ref`, so the forward kernels launch once per call.
+EXPECTED_TRAIN_LAUNCHES = {"lif_fwd": 13, "lif_counts_fwd": 12,
+                           "lif_bwd": 25, "spike_matmul_csr": 11,
+                           "sdsa_or": 4, "lif": 0, "lif_counts": 0}
+INFERENCE_KERNELS = ("lif_counts", "lif", "spike_matmul_csr", "sdsa_or")
+TRAINING_KERNELS = ("lif_fwd", "lif_counts_fwd", "lif_bwd")
 SOURCES = {"lif": "src/repro_torch/csrc/lif.cu",
            "lif_counts": "src/repro_torch/csrc/lif.cu",
+           "lif_fwd": "src/repro_torch/csrc/lif.cu",
+           "lif_counts_fwd": "src/repro_torch/csrc/lif.cu",
+           "lif_bwd": "src/repro_torch/csrc/lif.cu",
            "spike_matmul_csr": "src/repro_torch/csrc/spike_matmul_csr.cu",
            "sdsa_or": "src/repro_torch/csrc/sdsa.cu"}
 # Same inputs, one op call: the fire and attention ops are exact, the
@@ -57,8 +81,17 @@ SAME_INPUT_TOL = {"lif_scan": 0.0, "lif_scan_occ": 0.0, "sdsa": 0.0,
 # stage. On the H100 a handful of stage-1 ties (4 of 12.6M spikes) grew
 # to 0.17% by stage 10 while every op agreed on identical inputs.
 FREE_RUNNING_SPIKE_TOL = 1e-2
+# Same inputs and cotangent, one op's backward, max |delta| / max|ref|:
+# the LIF kernel and ref's autograd associate the reset term differently;
+# the matmul rule and ref's matmul backward sum in other orders; SDSA's
+# kernel backend replays ref itself.
+SAME_INPUT_GRAD_TOL = {"lif_scan": 1e-5, "lif_scan_occ": 1e-5,
+                       "spike_matmul": 1e-5, "econv": 1e-5, "sdsa": 0.0}
 REPLACES = {"lif": "src/repro/kernels/lif_scan.py:36",
             "lif_counts": "src/repro/kernels/lif_scan.py:191",
+            "lif_fwd": "src/repro/kernels/lif_scan.py:87",
+            "lif_counts_fwd": "src/repro/kernels/lif_scan.py:209",
+            "lif_bwd": "src/repro/kernels/lif_scan.py:107",
             "spike_matmul_csr": "src/repro/kernels/spike_matmul.py:156",
             "sdsa_or": "src/repro/kernels/sdsa_kernel.py:29"}
 
@@ -231,6 +264,43 @@ def phase_csr(torch, gen, device, results):
     results["spike_matmul_csr"]["max_abs_err"] = worst
 
 
+# ------------------------------------------------------------ phase (e)
+def phase_train_kernels(torch, gen, device, results):
+    """The training kernels at the stage-1 drive (T, B*32*32, 96): each
+    must equal its plain version bit for bit (both round every operation
+    on its own, in the same order)."""
+    from repro_torch.kernels import lif_scan
+    kw = dict(decay=0.5, v_th=V_TH, soft_reset=True)
+    x = (0.6 * torch.randn((T, B * 1024, 96), generator=gen) + 0.2).to(device)
+    g = torch.randn((T, B * 1024, 96), generator=gen).to(device)
+    x2 = x.reshape(T, -1)
+    _, vres = lif_scan.lif_fwd_plain(x, **kw)
+    cases = (
+        ("lif_fwd", lambda: lif_scan.lif_fwd(x2, **kw),
+         lambda: lif_scan.lif_fwd_plain(x2, **kw), 5),
+        ("lif_counts_fwd", lambda: lif_scan.lif_counts_fwd(x, **kw),
+         lambda: lif_scan.lif_counts_fwd_plain(x, **kw), 5),
+        ("lif_bwd", lambda: (lif_scan.lif_bwd(vres, g, **kw),),
+         lambda: (lif_scan.lif_bwd_plain(vres, g, **kw),), 11))
+    elems = x.numel()
+    for name, fn, plain, flops in cases:
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(got, want))
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"{name} kernel disagrees with its plain version (max |d| "
+              f"{err})")
+        n_bytes = sum(t.numel() * t.element_size() for t in got) + \
+            (2 if name == "lif_bwd" else 1) * elems * 4
+        b_ms, by = bound_ms(n_bytes, flops * elems)
+        results[name] = dict(max_abs_err=err, ms=cuda_ms(torch, fn),
+                             plain_ms=cuda_ms(torch, plain, reps=5),
+                             bound_ms=b_ms, bound_by=by, library_ms=None,
+                             shape=list(x.shape))
+        emit("kernel", name=name, **results[name])
+
+
 # ------------------------------------------------------------ phase (c)
 @contextlib.contextmanager
 def shadow_ref(torch, dispatch):
@@ -296,7 +366,7 @@ def phase_breakdown(torch, params, x, cfg):
     stop = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
-    with op_timeline(torch, dispatch) as marks:
+    with torch.inference_mode(), op_timeline(torch, dispatch) as marks:
         sf.spikingformer_apply(params, x, n_heads=HEADS, spiking_cfg=cfg)
     stop.record()
     host_s = time.perf_counter() - t0
@@ -331,7 +401,7 @@ def phase_end_to_end(torch, device):
         reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with watch_occupancy_prepasses() as pre:
+        with torch.inference_mode(), watch_occupancy_prepasses() as pre:
             logits, stats = sf.spikingformer_apply(
                 params, x, n_heads=HEADS, spiking_cfg=cfg, collect_stats=True)
         torch.cuda.synchronize()
@@ -344,7 +414,7 @@ def phase_end_to_end(torch, device):
         for name in totals:
             totals[name] += counts[name]
         t0 = time.perf_counter()
-        with dispatch.use_backend(dispatch.REF):
+        with torch.inference_mode(), dispatch.use_backend(dispatch.REF):
             ref_logits, ref_stats = sf.spikingformer_apply(
                 params, x, n_heads=HEADS, spiking_cfg=cfg, collect_stats=True)
         torch.cuda.synchronize()
@@ -356,7 +426,7 @@ def phase_end_to_end(torch, device):
                        .mean().item(),
                        differing_share=(a != r).float().mean().item())
                   for i, (a, r) in enumerate(zip(stats, ref_stats))]
-        with shadow_ref(torch, dispatch) as shadow:
+        with torch.inference_mode(), shadow_ref(torch, dispatch) as shadow:
             sf.spikingformer_apply(params, x, n_heads=HEADS, spiking_cfg=cfg)
         emit("end_to_end", batch=batch,
              max_abs_dlogits=(logits - ref_logits).abs().max().item(),
@@ -371,6 +441,271 @@ def phase_end_to_end(torch, device):
                   f"stage {st['stage']}: {st['differing_share']} of spikes "
                   f"differ")
     phase_breakdown(torch, params, x, cfg)
+    return totals
+
+
+# ------------------------------------------------------------ phase (f)
+def leaf_names(tree, prefix=""):
+    """Names of the leaves of a param tree, in `adamw.leaves` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def fresh_params(torch, device):
+    """SpikingFormer-4-384 params from SEED, every leaf an autograd leaf."""
+    from repro_torch.models import spikingformer as sf
+    from repro_torch.optim import adamw
+    params = sf.spikingformer_init(
+        DEPTH, DIM, generator=torch.Generator().manual_seed(SEED),
+        device=device)
+    for leaf in adamw.leaves(params):
+        leaf.requires_grad_(True)
+    return params
+
+
+def train_batch(torch, step, device):
+    from repro_torch.data.synthetic import class_images
+    b = class_images(SEED, 0, step, B)
+    return (torch.from_numpy(b["image"]).to(device),
+            torch.from_numpy(b["label"]).long().to(device))
+
+
+def train_loss(torch, params, batch, cfg):
+    """Mean softmax cross-entropy of SpikingFormer's logits."""
+    from repro_torch.models import spikingformer as sf
+    logits = sf.spikingformer_apply(params, batch[0], n_heads=HEADS,
+                                    spiking_cfg=cfg)
+    return torch.nn.functional.cross_entropy(logits, batch[1])
+
+
+def train_step(torch, params, opt, batch, cfg):
+    """One step: loss, gradients over the leaves, in-place AdamW update
+    with a constant schedule. Returns (loss, grads, new optimizer state)."""
+    from repro_torch.optim import adamw, schedule
+    leaves = adamw.leaves(params)
+    loss = train_loss(torch, params, batch, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    _, opt = adamw.update(list(grads), opt, leaves, adamw.AdamWConfig(lr=LR),
+                          schedule.constant(opt.step))
+    return loss.detach(), grads, opt
+
+
+@contextlib.contextmanager
+def shadow_vjp(torch, dispatch):
+    """While active, every differentiable registry call records its inputs
+    and, when the backward reaches it, its output cotangent. After the
+    backward, `same_input_vjp_errors` replays each call's backward on the
+    kernel backend and on `ref` with those inputs and that cotangent."""
+    orig = dispatch.dispatch
+    calls: list = []
+
+    def record(op, *args, **kwargs):
+        out = orig(op, *args, **kwargs)
+        first = out[0] if isinstance(out, tuple) else out
+        if first.requires_grad:
+            entry = [op, [a.detach() for a in args], kwargs, None]
+            calls.append(entry)
+
+            def hook(g, entry=entry):
+                entry[3] = g.detach().clone()
+            first.register_hook(hook)
+        return out
+
+    dispatch.dispatch = record
+    try:
+        yield calls
+    finally:
+        dispatch.dispatch = orig
+
+
+def same_input_vjp_errors(torch, dispatch, calls):
+    """op -> worst max |d_kernel - d_ref| / max |d_ref| over its calls and
+    inputs, for the recorded inputs and cotangents."""
+    errs: dict = {}
+    for op, args, kwargs, g in calls:
+        if g is None:
+            continue
+        kernel = dispatch.resolve(op, *args, **kwargs)
+        check(kernel.name == dispatch.CUDA, f"{op} resolved to {kernel.name}")
+        pulled = []
+        for be in (kernel, dispatch.get_backend(op, dispatch.REF)):
+            xs = [a.clone().requires_grad_(a.is_floating_point())
+                  for a in args]
+            with torch.enable_grad():
+                out = be.fn(*xs, **kwargs)
+                out = out[0] if isinstance(out, tuple) else out
+                diff = [x for x in xs if x.requires_grad]
+                pulled.append(torch.autograd.grad(out, diff, g))
+        err = max(((a - r).abs().max() / (r.abs().max() + 1e-30)).item()
+                  for a, r in zip(*pulled))
+        errs[op] = max(errs.get(op, 0.0), err)
+    return errs
+
+
+@contextlib.contextmanager
+def step_timeline(torch, dispatch):
+    """`op_timeline` for a training step: CUDA events bracket every
+    registry call's forward, and pass-through autograd nodes mark when its
+    output cotangent arrives and when its input cotangents are ready, so
+    the backward splits per op too (other ready backward work can land
+    inside an op's interval)."""
+    class Mark(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, event, *xs):
+            ctx.event = event
+            return tuple(x.view_as(x) for x in xs)
+
+        @staticmethod
+        def backward(ctx, *gs):
+            ctx.event.record()
+            recorded.add(id(ctx.event))
+            return (None,) + gs
+
+    orig = dispatch.dispatch
+    fwd: list = []
+    bwd: list = []
+    recorded: set = set()
+
+    def timed(op, *args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        b_start = torch.cuda.Event(enable_timing=True)
+        b_stop = torch.cuda.Event(enable_timing=True)
+        args = list(args)
+        diff = [i for i, a in enumerate(args) if a.requires_grad]
+        if diff:
+            for i, a in zip(diff, Mark.apply(b_stop, *(args[i]
+                                                       for i in diff))):
+                args[i] = a
+        start.record()
+        out = orig(op, *args, **kwargs)
+        stop.record()
+        fwd.append((op, start, stop))
+        if diff:
+            first = out[0] if isinstance(out, tuple) else out
+            (marked,) = Mark.apply(b_start, first)
+            out = (marked,) + tuple(out[1:]) if isinstance(out, tuple) \
+                else marked
+            bwd.append((op, b_start, b_stop))
+        return out
+
+    dispatch.dispatch = timed
+    try:
+        yield fwd, bwd, recorded
+    finally:
+        dispatch.dispatch = orig
+
+
+def phase_train_breakdown(torch, params, opt, cfg, device):
+    """One training step on the kernels: device span, host time, per-op
+    forward and backward device time, the optimizer update."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.optim import adamw, schedule
+    batch = train_batch(torch, TRAIN_STEPS, device)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    with step_timeline(torch, dispatch) as (fwd, bwd, recorded):
+        leaves = adamw.leaves(params)
+        loss = train_loss(torch, params, batch, cfg)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, leaves)
+    ev[2].record()
+    adamw.update(list(grads), opt, leaves, adamw.AdamWConfig(lr=LR),
+                 schedule.constant(opt.step))
+    ev[3].record()
+    host_s = time.perf_counter() - t0
+    ev[3].synchronize()
+    per_fwd: dict = {}
+    per_bwd: dict = {}
+    for op, a, b in fwd:
+        per_fwd[op] = per_fwd.get(op, 0.0) + a.elapsed_time(b)
+    for op, a, b in bwd:
+        if id(a) in recorded and id(b) in recorded:
+            per_bwd[op] = per_bwd.get(op, 0.0) + a.elapsed_time(b)
+    span = ev[0].elapsed_time(ev[3])
+    emit("train_breakdown", device_span_ms=span, host_ms=host_s * 1e3,
+         forward_ms=ev[0].elapsed_time(ev[1]),
+         backward_ms=ev[1].elapsed_time(ev[2]),
+         optimizer_ms=ev[2].elapsed_time(ev[3]),
+         per_op_forward_ms=per_fwd, per_op_backward_ms=per_bwd,
+         rest_ms=span - sum(per_fwd.values()) - sum(per_bwd.values()) -
+         ev[2].elapsed_time(ev[3]), calls=len(fwd))
+
+
+def phase_train(torch, device):
+    """3 AdamW steps of SpikingFormer-4-384 on the kernels, gated; the same
+    steps on `ref`, printed; the same-input backward check; a breakdown."""
+    from repro_torch.configs.base import SpikingConfig
+    from repro_torch.kernels import dispatch, launch_counts, \
+        reset_launch_counts
+    from repro_torch.optim import adamw
+    cfg = SpikingConfig(t_steps=T, lif_vth=V_TH)
+    batches = [train_batch(torch, i, device) for i in range(TRAIN_STEPS)]
+    runs = {}
+    totals = {name: 0 for name in TRAINING_KERNELS}
+    for backend in (dispatch.CUDA, dispatch.REF):
+        params = fresh_params(torch, device)
+        names = leaf_names(params)
+        opt = adamw.init(params, adamw.AdamWConfig(lr=LR))
+        losses, grads, seconds = [], [], []
+        for i, batch in enumerate(batches):
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with dispatch.use_backend(backend):
+                loss, g, opt = train_step(torch, params, opt, batch, cfg)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            counts = launch_counts()
+            losses.append(loss.item())
+            grads.append(g)
+            if backend != dispatch.CUDA:
+                continue
+            check({k: counts[k] for k in EXPECTED_TRAIN_LAUNCHES} ==
+                  EXPECTED_TRAIN_LAUNCHES,
+                  f"launches per training step {counts} != "
+                  f"{EXPECTED_TRAIN_LAUNCHES}")
+            for name in totals:
+                totals[name] += counts[name]
+            check(bool(torch.isfinite(loss)), f"step {i}: loss {loss}")
+            for name, leaf in zip(names, g):
+                check(bool(torch.isfinite(leaf).all()),
+                      f"step {i}: gradient of {name} not finite")
+                check(bool((leaf != 0).any()),
+                      f"step {i}: gradient of {name} is all zero")
+        runs[backend] = dict(losses=losses, grads=grads, seconds=seconds,
+                             params=params, opt=opt)
+    kern, ref = runs[dispatch.CUDA], runs[dispatch.REF]
+    for i in range(TRAIN_STEPS):
+        rel = {n: ((a - r).norm() / (r.norm() + 1e-30)).item()
+               for n, a, r in zip(names, kern["grads"][i], ref["grads"][i])}
+        emit("train_step", step=i, loss=kern["losses"][i],
+             ref_loss=ref["losses"][i], step_s=kern["seconds"][i],
+             ref_step_s=ref["seconds"][i], max_grad_rel_l2=max(rel.values()),
+             grad_rel_l2=rel)
+    emit("train_launches", per_step=EXPECTED_TRAIN_LAUNCHES, totals=totals)
+
+    params = fresh_params(torch, device)
+    with shadow_vjp(torch, dispatch) as calls:
+        loss = train_loss(torch, params, batches[0], cfg)
+        torch.autograd.grad(loss, adamw.leaves(params))
+    errs = same_input_vjp_errors(torch, dispatch, calls)
+    emit("train_same_input_vjp", calls=len(calls), errors=errs,
+         limits=SAME_INPUT_GRAD_TOL)
+    check(set(errs) == set(SAME_INPUT_GRAD_TOL),
+          f"same-input backward check saw ops {sorted(errs)}")
+    for op, err in errs.items():
+        check(err <= SAME_INPUT_GRAD_TOL[op],
+              f"{op}'s backward on the kernels differs from ref's on the "
+              f"same inputs by {err} > {SAME_INPUT_GRAD_TOL[op]}")
+    phase_train_breakdown(torch, kern["params"], kern["opt"], cfg, device)
     return totals
 
 
@@ -394,9 +729,11 @@ def main() -> int:
     phase_lif(torch, gen, device, results)
     phase_sdsa(torch, gen, device, results)
     phase_csr(torch, gen, device, results)
+    phase_train_kernels(torch, gen, device, results)
     totals = phase_end_to_end(torch, device)
+    totals.update(phase_train(torch, device))
     kernels = []
-    for name in ("lif_counts", "lif", "spike_matmul_csr", "sdsa_or"):
+    for name in INFERENCE_KERNELS + TRAINING_KERNELS:
         r = results[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCES[name], "replaces": REPLACES[name],

@@ -1,10 +1,12 @@
 """ExSpike in PyTorch with hand-written CUDA kernels for NVIDIA Hopper.
 
 The port of `repro` (JAX + Pallas for TPU), with the same module layout:
-`configs`, `core`, `kernels`, `models`. Model code reaches kernels only
-through the backend registry (`repro_torch.kernels.dispatch`): on CUDA
-tensors the hand-written kernels under `csrc/` run, on CPU tensors the
-plain PyTorch oracles do.
+`configs`, `core`, `data`, `kernels`, `models`, `optim`. Model code
+reaches kernels only through the backend registry
+(`repro_torch.kernels.dispatch`): on CUDA tensors the hand-written
+kernels under `csrc/` run, on CPU tensors the plain PyTorch oracles do.
+Every registry op is differentiable (surrogate gradients), so the same
+resolution serves inference and training.
 
 Public functions keep the JAX package's layouts: activations NHWC, conv
 weights HWIO, matmul weights (d_in, d_out), attention (..., N, d).

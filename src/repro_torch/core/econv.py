@@ -6,6 +6,8 @@ convention (the smaller half first).
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
@@ -30,25 +32,53 @@ def pad_nchw(x: torch.Tensor, kh: int, kw: int, stride: int,
     return F.pad(x, (pl, pr, pt, pb))
 
 
+@contextlib.contextmanager
+def _fp32_convolutions():
+    """cuDNN's TF32 off for the calls inside (restored after): TF32 keeps
+    ~3 decimal digits and would move spikes that sit near the threshold."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+class _FP32Conv2d(torch.autograd.Function):
+    """`F.conv2d` (NCHW, no padding) whose forward AND backward run in full
+    fp32: autograd's own conv backward would run after the flag is
+    restored, in TF32."""
+
+    @staticmethod
+    def forward(ctx, x, wt, stride):
+        ctx.save_for_backward(x, wt)
+        ctx.stride = stride
+        with _fp32_convolutions():
+            return F.conv2d(x, wt, stride=stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wt = ctx.saved_tensors
+        dx = dw = None
+        with _fp32_convolutions():
+            if ctx.needs_input_grad[0]:
+                dx = torch.nn.grad.conv2d_input(x.shape, wt, g,
+                                                stride=ctx.stride)
+            if ctx.needs_input_grad[1]:
+                dw = torch.nn.grad.conv2d_weight(x, wt.shape, g,
+                                                 stride=ctx.stride)
+        return dx, dw, None
+
+
 def tconv(s: torch.Tensor, w: torch.Tensor, stride: int = 1,
           padding: str = "SAME") -> torch.Tensor:
     """TConv oracle. s: (N,H,W,Ci); w: (kh,kw,Ci,Co) -> (N,Ho,Wo,Co).
 
-    A dense convolution in full fp32: cuDNN's TF32 is switched off around
-    the call on CUDA, since TF32 keeps ~3 decimal digits and would move
-    spikes that sit near the threshold."""
+    A dense convolution in full fp32, forward and backward (cuDNN's TF32
+    is switched off around both)."""
     kh, kw = w.shape[:2]
     x = pad_nchw(s.to(w.dtype).permute(0, 3, 1, 2), kh, kw, stride, padding)
-    wt = w.permute(3, 2, 0, 1)
-    if not x.is_cuda:
-        out = F.conv2d(x, wt, stride=stride)
-    else:
-        prev = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = False
-        try:
-            out = F.conv2d(x, wt, stride=stride)
-        finally:
-            torch.backends.cudnn.allow_tf32 = prev
+    out = _FP32Conv2d.apply(x, w.permute(3, 2, 0, 1), stride)
     return out.permute(0, 2, 3, 1).contiguous()
 
 

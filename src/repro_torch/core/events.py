@@ -220,13 +220,23 @@ def conv_patch_occupancy(et: EventTensor, w_shape: Tuple[int, ...],
 def max_pool_events(et, pool: int):
     """Spatial max-pool (VALID) of (..., H, W, C) spikes with the carried
     maps propagated (chunk-granular window dilation) instead of dropped.
-    Accepts a dense tensor too (returns a dense tensor)."""
+    Accepts a dense tensor too (returns a dense tensor).
+
+    The gradient of each window goes whole to its FIRST maximum in
+    row-major window order, as the VJP of `lax.reduce_window(max)`
+    (select-and-scatter) sends it; `amax` would split it over ties, and
+    binary spikes tie in almost every window."""
     s = as_spikes(et)
     h, w_, c = s.shape[-3:]
     ho, wo = h // pool, w_ // pool
+    lead = s.ndim - 3
     win = s[..., :ho * pool, :wo * pool, :].reshape(
         s.shape[:-3] + (ho, pool, wo, pool, c))
-    pooled = win.amax(dim=(-4, -2))
+    # (..., ho, wo, c, pool*pool): the window flattened row-major, so
+    # argmax (the first maximal index) picks select-and-scatter's element.
+    flat = win.permute(*range(lead), lead, lead + 2, lead + 4, lead + 1,
+                       lead + 3).reshape(s.shape[:-3] + (ho, wo, c, -1))
+    pooled = flat.gather(-1, flat.argmax(dim=-1, keepdim=True)).squeeze(-1)
     if not isinstance(et, EventTensor):
         return pooled
     if et.occupancy is None or et.ndim < 4:

@@ -4,9 +4,10 @@
     s[t]   = Heaviside(v[t+1] - v_th)
     reset:  soft: v <- v - s * v_th;   hard: v <- v * (1 - s)
 
-The temporal loop here is a plain Python loop over T (the oracle);
-`repro_torch.kernels.lif_scan` is the CUDA kernel that keeps `v` in a
-register across the loop.
+The temporal loop here is a plain Python loop over T (the oracle), whose
+autograd carries the ATan surrogate gradient of `core.surrogate.spike`;
+`repro_torch.kernels.lif_scan` holds the CUDA kernels that keep `v` in a
+register across the loop, forward and reversed-time backward.
 """
 from __future__ import annotations
 
@@ -42,7 +43,8 @@ def lif_scan(x: torch.Tensor, cfg: LIFConfig = LIFConfig(),
              v0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Run LIF over the leading time axis. x: (T, ...) -> spikes (T, ...)."""
     v = torch.zeros_like(x[0]) if v0 is None else v0
-    out = torch.empty_like(x)
+    out = []
     for t in range(x.shape[0]):
-        v, out[t] = lif_step(v, x[t], cfg)
-    return out
+        v, s = lif_step(v, x[t], cfg)
+        out.append(s)
+    return torch.stack(out)

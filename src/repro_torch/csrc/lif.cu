@@ -1,50 +1,67 @@
-// Fused LIF scan over the leading time axis, with or without per-tile
-// event counts.
+// Fused LIF scan over the leading time axis: the forward with or without
+// per-tile event counts, each with or without the membrane residual that
+// training saves, and the reversed-time ATan surrogate backward.
 //
-// Replaces: src/repro/kernels/lif_scan.py::_lif_kernel (lif_scan_pallas)
-//           and ::_lif_occ_kernel (_lif_occ_pallas).
-// Bound on the H100: bytes. Each call reads T*P f32 drive values and
-//           writes T*P f32 spikes (P neurons per step); it does a few
-//           flops per element, far below the card's ~20 flop/byte ridge.
-// Design:   one thread per neuron keeps its membrane potential in a
-//           register across the T loop, so the membrane never touches
-//           device memory (the TPU kernel kept it in VMEM scratch).
-//           Neighbouring threads own neighbouring neurons, so every load
-//           and store is coalesced. The counts mode lays a (8 rows x 128
-//           lanes) block over each (row chunk, lane tile) of the TPU
-//           kernel's count map and reduces its spikes exactly: a warp
-//           ballot + popcount per warp, then a 32-entry shared-memory sum.
-//           The count map therefore has the same layout as
-//           _lif_occ_pallas, (T, R/8, ceil(K/128)); lanes past K (the
+// Replaces: src/repro/kernels/lif_scan.py::_lif_kernel (lif_scan_pallas),
+//           ::_lif_occ_kernel (_lif_occ_pallas), ::_lif_fwd_kernel
+//           (_lif_fwd_pallas), ::_lif_occ_fwd_kernel (_lif_occ_pallas with
+//           emit_vres) and ::_lif_bwd_kernel (_lif_bwd_pallas).
+// Bound on the H100: bytes. The forward reads T*P f32 drive values and
+//           writes T*P f32 spikes (P neurons per step), plus T*P f32
+//           residuals in the residual mode; the backward reads the
+//           residuals and the spike cotangent (2*T*P f32) and writes the
+//           drive cotangent (T*P f32). Each does a few to ~12 flops per
+//           element, far below the card's ~20 flop/byte ridge.
+// Design:   one thread per neuron keeps its membrane potential (backward:
+//           the membrane cotangent u) in a register across the T loop, so
+//           the state never touches device memory (the TPU kernels kept
+//           it in VMEM scratch). Neighbouring threads own neighbouring
+//           neurons, so every load and store is coalesced. The residual
+//           mode is a template flag: the same step, plus one store of the
+//           pre-reset membrane, so spikes and counts equal the primal
+//           kernel's and the primal pays nothing for it. The counts mode
+//           lays a (8 rows x 128 lanes) block over each (row chunk, lane
+//           tile) of the TPU kernel's count map and reduces its spikes
+//           exactly: a warp ballot + popcount per warp, then a 32-entry
+//           shared-memory sum. The count map therefore has the same layout
+//           as _lif_occ_pallas, (T, R/8, ceil(K/128)); lanes past K (the
 //           TPU wrapper's zero pad to 128) exist only as idle threads and
 //           never fire, so no padded copy of the drive is made.
-//           v*decay + x is rounded twice (__fmul_rn, __fadd_rn) like the
-//           plain PyTorch version: a contracted FMA could flip a spike
-//           that sits exactly at the threshold when decay is not 0.5.
+//           Every operation is rounded on its own (__f*_rn, no FMA
+//           contraction) in the order of the plain PyTorch versions in
+//           kernels/lif_scan.py, so spikes, residuals and cotangents equal
+//           them bit for bit: a contracted v*decay + x could flip a spike
+//           that sits exactly at the threshold.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+// One forward step; `vv` receives the pre-reset membrane.
 __device__ __forceinline__ float lif_step(float& v, float x, float decay,
-                                          float v_th, bool soft_reset) {
-  const float vv = __fadd_rn(__fmul_rn(v, decay), x);
+                                          float v_th, bool soft_reset,
+                                          float& vv) {
+  vv = __fadd_rn(__fmul_rn(v, decay), x);
   const float s = vv >= v_th ? 1.0f : 0.0f;
   v = soft_reset ? __fsub_rn(vv, __fmul_rn(s, v_th))
                  : __fmul_rn(vv, __fsub_rn(1.0f, s));
   return s;
 }
 
-// x, s: (T, P) contiguous. One thread per neuron, grid-stride over P.
+// x, s (and vres): (T, P) contiguous. One thread per neuron, grid-stride.
+template <bool kResidual>
 __global__ void lif_kernel(const float* __restrict__ x, float* __restrict__ s,
-                           int64_t t_steps, int64_t p, float decay,
-                           float v_th, bool soft_reset) {
+                           float* __restrict__ vres, int64_t t_steps,
+                           int64_t p, float decay, float v_th,
+                           bool soft_reset) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < p;
        i += stride) {
     float v = 0.0f;
     for (int64_t t = 0; t < t_steps; ++t) {
-      s[t * p + i] = lif_step(v, x[t * p + i], decay, v_th, soft_reset);
+      float vv;
+      s[t * p + i] = lif_step(v, x[t * p + i], decay, v_th, soft_reset, vv);
+      if (kResidual) vres[t * p + i] = vv;
     }
   }
 }
@@ -52,14 +69,16 @@ __global__ void lif_kernel(const float* __restrict__ x, float* __restrict__ s,
 constexpr int kLanes = 128;  // lane tile (the map's K tiling)
 constexpr int kChunk = 8;    // row chunk (the TPU kernel's block_m)
 
-// x, s: (T, R, K) contiguous; counts: (T, R/8, ceil(K/128)) int32.
-// Block (128, 8): threadIdx.x = lane in the tile, threadIdx.y = row in
-// the chunk. grid = (R/8, ceil(K/128)): chunks on x, which has no 65535
+// x, s (and vres): (T, R, K) contiguous; counts: (T, R/8, ceil(K/128))
+// int32. Block (128, 8): threadIdx.x = lane in the tile, threadIdx.y = row
+// in the chunk. grid = (R/8, ceil(K/128)): chunks on x, which has no 65535
 // limit.
+template <bool kResidual>
 __global__ void __launch_bounds__(kLanes * kChunk)
 lif_counts_kernel(const float* __restrict__ x, float* __restrict__ s,
-                  int* __restrict__ counts, int64_t t_steps, int64_t rows,
-                  int64_t k, float decay, float v_th, bool soft_reset) {
+                  int* __restrict__ counts, float* __restrict__ vres,
+                  int64_t t_steps, int64_t rows, int64_t k, float decay,
+                  float v_th, bool soft_reset) {
   __shared__ int partial[2][kLanes * kChunk / 32];
   const int64_t chunk = blockIdx.x;
   const int64_t lane = (int64_t)blockIdx.y * kLanes + threadIdx.x;
@@ -74,8 +93,10 @@ lif_counts_kernel(const float* __restrict__ x, float* __restrict__ s,
     float sp = 0.0f;
     if (live) {
       const int64_t off = (t * rows + row) * k + lane;
-      sp = lif_step(v, x[off], decay, v_th, soft_reset);
+      float vv;
+      sp = lif_step(v, x[off], decay, v_th, soft_reset, vv);
       s[off] = sp;
+      if (kResidual) vres[off] = vv;
     }
     const unsigned fired = __ballot_sync(0xffffffffu, sp != 0.0f);
     int* slot = partial[t & 1];
@@ -93,30 +114,114 @@ lif_counts_kernel(const float* __restrict__ x, float* __restrict__ s,
   }
 }
 
+// vres, g, dx: (T, P) contiguous. Reversed scan, per step t (the TPU
+// kernel's order, repro/kernels/lif_scan.py:107-138):
+//   sg     = (alpha/2) / (1 + (pi/2*alpha * (V[t] - v_th))^2)
+//   dreset = 1 - v_th*sg (soft)  |  (1 - S[t]) - V[t]*sg (hard)
+//   dv     = g[t]*sg + u*dreset;  dx[t] = dv;  u = decay*dv
+__global__ void lif_bwd_kernel(const float* __restrict__ vres,
+                               const float* __restrict__ g,
+                               float* __restrict__ dx, int64_t t_steps,
+                               int64_t p, float decay, float v_th,
+                               bool soft_reset, float half_alpha,
+                               float half_pi_alpha) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < p;
+       i += stride) {
+    float u = 0.0f;
+    for (int64_t t = t_steps - 1; t >= 0; --t) {
+      const int64_t off = t * p + i;
+      const float v = vres[off];
+      const float d = __fmul_rn(half_pi_alpha, __fsub_rn(v, v_th));
+      const float sg = __fdiv_rn(half_alpha, __fadd_rn(1.0f, __fmul_rn(d, d)));
+      float dreset;
+      if (soft_reset) {
+        dreset = __fsub_rn(1.0f, __fmul_rn(v_th, sg));
+      } else {
+        const float s = v >= v_th ? 1.0f : 0.0f;
+        dreset = __fsub_rn(__fsub_rn(1.0f, s), __fmul_rn(v, sg));
+      }
+      const float dv = __fadd_rn(__fmul_rn(g[off], sg), __fmul_rn(u, dreset));
+      dx[off] = dv;
+      u = __fmul_rn(decay, dv);
+    }
+  }
+}
+
+int flat_blocks(int64_t p, int threads) {
+  const int64_t want = (p + threads - 1) / threads;
+  return (int)(want < 65535 * 32 ? want : 65535 * 32);
+}
+
+template <bool kResidual>
+int launch_lif(const float* x, float* s, float* vres, int64_t t_steps,
+               int64_t p, float decay, float v_th, int soft_reset,
+               void* stream) {
+  if (p > 0) {
+    const int threads = 256;
+    lif_kernel<kResidual><<<flat_blocks(p, threads), threads, 0,
+                            (cudaStream_t)stream>>>(
+        x, s, vres, t_steps, p, decay, v_th, soft_reset != 0);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool kResidual>
+int launch_lif_counts(const float* x, float* s, int* counts, float* vres,
+                      int64_t t_steps, int64_t rows, int64_t k, float decay,
+                      float v_th, int soft_reset, void* stream) {
+  if (rows > 0 && k > 0) {
+    dim3 block(kLanes, kChunk);
+    dim3 grid((unsigned)(rows / kChunk), (unsigned)((k + kLanes - 1) / kLanes));
+    lif_counts_kernel<kResidual><<<grid, block, 0, (cudaStream_t)stream>>>(
+        x, s, counts, vres, t_steps, rows, k, decay, v_th, soft_reset != 0);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int lif_forward(const float* x, float* s, int64_t t_steps,
                            int64_t p, float decay, float v_th,
                            int soft_reset, void* stream) {
-  if (p > 0) {
-    const int threads = 256;
-    const int64_t want = (p + threads - 1) / threads;
-    const int blocks = (int)(want < 65535 * 32 ? want : 65535 * 32);
-    lif_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        x, s, t_steps, p, decay, v_th, soft_reset != 0);
-  }
-  return (int)cudaGetLastError();
+  return launch_lif<false>(x, s, nullptr, t_steps, p, decay, v_th,
+                           soft_reset, stream);
+}
+
+extern "C" int lif_fwd_forward(const float* x, float* s, float* vres,
+                               int64_t t_steps, int64_t p, float decay,
+                               float v_th, int soft_reset, void* stream) {
+  return launch_lif<true>(x, s, vres, t_steps, p, decay, v_th, soft_reset,
+                          stream);
 }
 
 extern "C" int lif_counts_forward(const float* x, float* s, int* counts,
                                   int64_t t_steps, int64_t rows, int64_t k,
                                   float decay, float v_th, int soft_reset,
                                   void* stream) {
-  if (rows > 0 && k > 0) {
-    dim3 block(kLanes, kChunk);
-    dim3 grid((unsigned)(rows / kChunk), (unsigned)((k + kLanes - 1) / kLanes));
-    lif_counts_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        x, s, counts, t_steps, rows, k, decay, v_th, soft_reset != 0);
+  return launch_lif_counts<false>(x, s, counts, nullptr, t_steps, rows, k,
+                                  decay, v_th, soft_reset, stream);
+}
+
+extern "C" int lif_counts_fwd_forward(const float* x, float* s, int* counts,
+                                      float* vres, int64_t t_steps,
+                                      int64_t rows, int64_t k, float decay,
+                                      float v_th, int soft_reset,
+                                      void* stream) {
+  return launch_lif_counts<true>(x, s, counts, vres, t_steps, rows, k, decay,
+                                 v_th, soft_reset, stream);
+}
+
+extern "C" int lif_backward(const float* vres, const float* g, float* dx,
+                            int64_t t_steps, int64_t p, float decay,
+                            float v_th, int soft_reset, float half_alpha,
+                            float half_pi_alpha, void* stream) {
+  if (p > 0) {
+    const int threads = 256;
+    lif_bwd_kernel<<<flat_blocks(p, threads), threads, 0,
+                     (cudaStream_t)stream>>>(
+        vres, g, dx, t_steps, p, decay, v_th, soft_reset != 0, half_alpha,
+        half_pi_alpha);
   }
   return (int)cudaGetLastError();
 }

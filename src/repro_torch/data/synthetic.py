@@ -1,0 +1,31 @@
+"""Synthetic image data (no external datasets), the port's own copy of
+`repro.data.synthetic.class_images`: procedurally generated CIFAR-shaped
+images with class-dependent texture statistics, seeded per
+(seed, shard, step), so a batch is regenerated exactly. numpy only; the
+caller moves the arrays to its device.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+
+def _rng(seed: int, shard: int, step: int) -> np.random.Generator:
+    return np.random.default_rng(
+        np.random.SeedSequence([seed, shard, step]))
+
+
+def class_images(seed: int, shard: int, step: int, batch: int, img: int = 32,
+                 channels: int = 3, n_classes: int = 10) -> dict:
+    """Class-conditional textured images (B,H,W,C) in [0,1] + labels."""
+    rng = _rng(seed, shard, step)
+    labels = rng.integers(0, n_classes, batch)
+    yy, xx = np.mgrid[0:img, 0:img].astype(np.float32) / img
+    imgs = np.empty((batch, img, img, channels), np.float32)
+    for i, c in enumerate(labels):
+        fx, fy = 1 + c % 5, 1 + c // 5
+        base = 0.5 + 0.35 * np.sin(2 * np.pi * (fx * xx + fy * yy))
+        noise = rng.normal(0, 0.1, (img, img, channels))
+        phase = 2 * np.pi * np.arange(channels) / channels + c
+        imgs[i] = np.clip(
+            base[..., None] * (0.8 + 0.2 * np.cos(phase)) + noise, 0, 1)
+    return {"image": imgs, "label": labels.astype(np.int32)}

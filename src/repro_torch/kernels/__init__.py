@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels for Hopper and their wrappers.
 
-  lif_scan.py      csrc/lif.cu               fused LIF, with/without counts
+  lif_scan.py      csrc/lif.cu               fused LIF, with/without counts,
+                                             with/without the residual;
+                                             surrogate backward
   spike_matmul.py  csrc/spike_matmul_csr.cu  event-compacted CSR matmul
   sdsa_kernel.py   csrc/sdsa.cu              packed OR-form attention
   ref.py           plain PyTorch oracles

@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 BUILD_DIR_ENV = "REPRO_TORCH_BUILD_DIR"
 
 # Launch counts per kernel wrapper (reset with `reset_launch_counts`).
-LAUNCHES: Dict[str, int] = {"lif": 0, "lif_counts": 0,
+LAUNCHES: Dict[str, int] = {"lif": 0, "lif_counts": 0, "lif_fwd": 0,
+                            "lif_counts_fwd": 0, "lif_bwd": 0,
                             "spike_matmul_csr": 0, "sdsa_or": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -44,7 +45,11 @@ _I = ctypes.c_int
 # C entry point -> argument types (every pointer and the stream as void*).
 SIGNATURES = {
     "lif_forward": (_P, _P, _I64, _I64, _F, _F, _I, _P),
+    "lif_fwd_forward": (_P, _P, _P, _I64, _I64, _F, _F, _I, _P),
     "lif_counts_forward": (_P, _P, _P, _I64, _I64, _I64, _F, _F, _I, _P),
+    "lif_counts_fwd_forward": (_P, _P, _P, _P, _I64, _I64, _I64, _F, _F, _I,
+                               _P),
+    "lif_backward": (_P, _P, _P, _I64, _I64, _F, _F, _I, _F, _F, _P),
     "sdsa_or_forward": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
     "spike_matmul_csr_forward": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                                  _I64, _P),
@@ -158,7 +163,14 @@ def stream() -> int:
 
 def require_cuda(name: str, *tensors: torch.Tensor, dtype=None) -> None:
     """Check that every tensor lies on one CUDA device, is contiguous and
-    (when given) has `dtype`; the kernels take nothing else."""
+    (when given) has `dtype`; the kernels take nothing else. A kernel's
+    output is invisible to autograd, so an operand that autograd records
+    is refused too: differentiable callers go through the registry (whose
+    `autograd.Function`s launch the kernels with recording off)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel would cut the autograd graph; call it "
+            f"through repro_torch.kernels.dispatch, or under no_grad")
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":

@@ -23,6 +23,17 @@ Selection order per call:
 A `supports` gate that refuses a call raises; the warn-and-degrade
 chains of `repro`'s registry, and its mesh, hybrid, guard and packed
 payload routing, are not ported yet.
+
+Gradient contract (as in `repro`): every backend declares how autograd
+goes through it, so training resolves backends exactly as inference does.
+``differentiable=True``: autograd through `fn` itself gives the `ref`
+oracle's (surrogate) gradients — the oracles, and the fire kernels, whose
+`autograd.Function` runs the surrogate backward kernel. ``vjp="ref"``:
+the backward replays `ref`'s autograd on the saved inputs (SDSA keeps the
+tie splitting of `amax`; econv replays the dense conv). ``vjp=<rule>``:
+an explicit ``(saved_args, static_kwargs, g) -> grads`` rule
+(`_matmul_bwd`). Tensor kwargs (the carried `occupancy` map) are
+metadata and get no gradient.
 """
 from __future__ import annotations
 
@@ -50,6 +61,7 @@ class Backend:
     platforms: Tuple[str, ...] = ALL_PLATFORMS
     priority: int = 0
     supports: Optional[Callable[..., Optional[str]]] = None
+    differentiable: bool = False
 
     def unsupported_reason(self, *args, **kwargs) -> Optional[str]:
         if self.supports is None:
@@ -74,15 +86,78 @@ def register_op(name: str, make_example) -> None:
         _REGISTRY[name] = OpSpec(name=name, make_example=make_example)
 
 
+class _CustomVJP(torch.autograd.Function):
+    """Runs a backend forward with autograd off and a declared rule
+    backward: the `ref` oracle's replayed autograd or an explicit rule."""
+
+    @staticmethod
+    def forward(ctx, op, fn, rule, static, aux, *args):
+        ctx.op, ctx.rule, ctx.static, ctx.aux = op, rule, static, aux
+        ctx.save_for_backward(*args)
+        return fn(*args, **static, **aux)
+
+    @staticmethod
+    def backward(ctx, g):
+        args = ctx.saved_tensors
+        if ctx.rule == REF:
+            ref_fn = _REGISTRY[ctx.op].backends[REF].fn
+            with torch.enable_grad():
+                inputs = [a.detach().requires_grad_(need) for a, need in
+                          zip(args, ctx.needs_input_grad[5:])]
+                out = ref_fn(*inputs, **ctx.static, **ctx.aux)
+                pulled = iter(torch.autograd.grad(
+                    out, [a for a in inputs if a.requires_grad], g))
+            grads = [next(pulled) if a.requires_grad else None
+                     for a in inputs]
+        else:
+            grads = [d if need else None for d, need in zip(
+                ctx.rule(args, ctx.static, g), ctx.needs_input_grad[5:])]
+        return (None,) * 5 + tuple(grads)
+
+
+def _wrap_vjp(op: str, fn, rule):
+    """Make `fn` differentiable under a declared backward rule (see the
+    module docstring). Tensor-valued kwargs are non-differentiated aux
+    operands; the rest are static."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        aux = {k: v for k, v in kwargs.items()
+               if isinstance(v, torch.Tensor)}
+        static = {k: v for k, v in kwargs.items() if k not in aux}
+        return _CustomVJP.apply(op, fn, rule, static, aux, *args)
+    return wrapper
+
+
+def _matmul_bwd(res, kwargs, g):
+    """Transpose rule for `out = s @ w` with leading batch axes on s:
+    ds = g @ w.T and dw = sum over rows of s^T g, in fp32 — the dense
+    oracle's cotangents everywhere, also in the tiles the event walk
+    skipped (autograd through the gated plain version would give ds = 0
+    there)."""
+    del kwargs
+    s, w = res
+    gf = g.float()
+    ds = torch.matmul(gf, w.float().T).to(s.dtype)
+    dw = torch.matmul(s.reshape(-1, s.shape[-1]).float().T,
+                      gf.reshape(-1, gf.shape[-1])).to(w.dtype)
+    return ds, dw
+
+
 def register(op: str, name: str, *, platforms=ALL_PLATFORMS, priority=0,
-             supports=None):
-    """Decorator: register `fn` as backend `name` for `op`."""
+             supports=None, differentiable=False, vjp=None):
+    """Decorator: register `fn` as backend `name` for `op`.
+
+    Gradient contract: ``differentiable=True`` when autograd through `fn`
+    gives the `ref` oracle's gradients, or ``vjp="ref"`` /
+    ``vjp=<rule>`` to wrap `fn` in a `torch.autograd.Function` (see
+    `_wrap_vjp`); wrapped backends are differentiable by definition."""
     def deco(fn):
         if op not in _REGISTRY:
             raise KeyError(f"unknown op {op!r}; register_op it first")
         _REGISTRY[op].backends[name] = Backend(
-            name=name, fn=fn, platforms=tuple(platforms), priority=priority,
-            supports=supports)
+            name=name, fn=_wrap_vjp(op, fn, vjp) if vjp is not None else fn,
+            platforms=tuple(platforms), priority=priority, supports=supports,
+            differentiable=differentiable or vjp is not None)
         return fn
     return deco
 
@@ -93,6 +168,20 @@ def op_names() -> Tuple[str, ...]:
 
 def backend_names(op: str) -> Tuple[str, ...]:
     return tuple(_REGISTRY[op].backends)
+
+
+def differentiable_backend_names(op: str) -> Tuple[str, ...]:
+    """Backends of `op` declaring the gradient contract."""
+    return tuple(n for n, b in _REGISTRY[op].backends.items()
+                 if b.differentiable)
+
+
+def get_backend(op: str, name: str) -> Backend:
+    try:
+        return _REGISTRY[op].backends[name]
+    except KeyError:
+        raise KeyError(f"op {op!r} has no backend {name!r}; "
+                       f"registered: {backend_names(op)}") from None
 
 
 # -------------------------------------------------------------- overrides
@@ -153,10 +242,7 @@ def resolve(op: str, *args, **kwargs) -> Backend:
     spec = _REGISTRY[op]
     override = _override_for(op)
     if override is not None:
-        be = spec.backends.get(override)
-        if be is None:
-            raise KeyError(f"op {op!r} has no backend {override!r}; "
-                           f"registered: {backend_names(op)}")
+        be = get_backend(op, override)
     else:
         platform = _platform(args)
         be = max((b for b in spec.backends.values()
@@ -203,13 +289,14 @@ register_op("lif_scan", lambda dev: (
      .to(dev),), {"decay": 0.5, "v_th": 1.0, "soft_reset": True}))
 
 
-@register("lif_scan", REF, priority=0)
+@register("lif_scan", REF, priority=0, differentiable=True)
 def _lif_ref(x, **kwargs):
     from repro_torch.kernels.ref import lif_scan_ref
     return lif_scan_ref(x, **kwargs)
 
 
-@register("lif_scan", CUDA, platforms=("cuda",), priority=20)
+@register("lif_scan", CUDA, platforms=("cuda",), priority=20,
+          differentiable=True)
 def _lif_cuda(x, *, decay=0.5, v_th=1.0, soft_reset=True,
               surrogate_alpha=2.0):
     from repro_torch.kernels import ops
@@ -234,7 +321,7 @@ def _ref_chunk_occupancy(s):
     return tile_occupancy(s2, 8, 128)
 
 
-@register("lif_scan_occ", REF, priority=0)
+@register("lif_scan_occ", REF, priority=0, differentiable=True)
 def _lif_occ_ref(x, *, decay=0.5, v_th=1.0, soft_reset=True,
                  surrogate_alpha=2.0):
     s = _lif_ref(x, decay=decay, v_th=v_th, soft_reset=soft_reset,
@@ -259,7 +346,7 @@ def _lif_occ_supports(x, **kwargs) -> Optional[str]:
 
 
 @register("lif_scan_occ", CUDA, platforms=("cuda",), priority=20,
-          supports=_lif_occ_supports)
+          supports=_lif_occ_supports, differentiable=True)
 def _lif_occ_cuda(x, *, decay=0.5, v_th=1.0, soft_reset=True,
                   surrogate_alpha=2.0):
     from repro_torch.kernels import ops
@@ -277,14 +364,15 @@ def _spike_matmul_example(dev):
 register_op("spike_matmul", _spike_matmul_example)
 
 
-@register("spike_matmul", REF, priority=0)
+@register("spike_matmul", REF, priority=0, differentiable=True)
 def _spike_matmul_ref(s, w, occupancy=None):
     del occupancy    # metadata for the event kernel; the oracle is dense
     from repro_torch.kernels.ref import spike_matmul_ref
     return spike_matmul_ref(s, w)
 
 
-@register("spike_matmul", CUDA, platforms=("cuda",), priority=20)
+@register("spike_matmul", CUDA, platforms=("cuda",), priority=20,
+          vjp=_matmul_bwd)
 def _spike_matmul_csr(s, w, occupancy=None):
     # Event-compacted tile walk; a carried `occupancy` replaces the dense
     # pre-pass (the work list compacts from the small map).
@@ -308,14 +396,14 @@ def _sdsa_or_only(q, k, v, *, mode="or") -> Optional[str]:
     return None
 
 
-@register("sdsa", REF, priority=0)
+@register("sdsa", REF, priority=0, differentiable=True)
 def _sdsa_ref(q, k, v, *, mode="or"):
     from repro_torch.core.sdsa import sdsa_jnp
     return sdsa_jnp(q, k, v, mode=mode)
 
 
 @register("sdsa", CUDA, platforms=("cuda",), priority=20,
-          supports=_sdsa_or_only)
+          supports=_sdsa_or_only, vjp=REF)
 def _sdsa_cuda(q, k, v, *, mode="or"):
     del mode
     from repro_torch.kernels import ops
@@ -332,7 +420,7 @@ def _econv_example(dev):
 register_op("econv", _econv_example)
 
 
-@register("econv", REF, priority=0)
+@register("econv", REF, priority=0, differentiable=True)
 def _econv_ref(s, w, *, stride=1, padding="SAME", occupancy=None):
     del occupancy    # dense conv: no event metadata consumed
     from repro_torch.core.econv import tconv
@@ -350,7 +438,7 @@ def econv_patches(s: torch.Tensor, kh: int, kw: int, stride: int,
     return cols.transpose(1, 2).reshape(-1, cols.shape[1]).contiguous()
 
 
-@register("econv", CUDA, platforms=("cuda",), priority=20)
+@register("econv", CUDA, platforms=("cuda",), priority=20, vjp=REF)
 def _econv_cuda(s, w, *, stride=1, padding="SAME", occupancy=None):
     """im2col + the CSR spike matmul: binary patches of a binary map stay
     binary, so the event matmul is the conv, and patch-row tiles with no

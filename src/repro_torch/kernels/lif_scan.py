@@ -2,21 +2,29 @@
 
 `lif` fires a (T, P) drive; `lif_counts` fires a (T, R, K) drive and also
 emits the int32 event count of every (t, 8-row chunk, 128-lane tile), the
-layout of `repro`'s `_lif_occ_pallas`. On a CUDA tensor each wrapper
-launches `csrc/lif.cu`; on a CPU tensor it runs the plain version.
+layout of `repro`'s `_lif_occ_pallas`. `lif_fwd` and `lif_counts_fwd` are
+the same with the pre-reset membrane residual `vres` (T, ...) f32 added,
+and `lif_bwd(vres, g)` is the reversed-time ATan surrogate backward. On a
+CUDA tensor each wrapper launches `csrc/lif.cu`; on a CPU tensor it runs
+its plain version.
+
+`LIFScanSG` and `LIFScanOccSG` are the differentiable fires (the port of
+`lif_scan_pallas_sg` / `lif_scan_occ_pallas_sg`): their `run` takes the
+residual kernel and records the surrogate backward only while autograd
+records the drive, and takes the primal kernel otherwise, so inference
+pays nothing for differentiability.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from repro_torch.core.surrogate import atan_surrogate
 from . import _build
-from .ref import lif_scan_ref
 
 CHUNK = 8      # row chunk of the count map
 LANES = 128    # lane tile of the count map
-
-
-lif_plain = lif_scan_ref   # plain version: the core loop over T
 
 
 def chunk_counts(s: torch.Tensor) -> torch.Tensor:
@@ -30,11 +38,72 @@ def chunk_counts(s: torch.Tensor) -> torch.Tensor:
     return (blocks != 0).sum(dim=(2, 4), dtype=torch.int32)
 
 
+# ------------------------------------------------------ plain versions
+def lif_fwd_plain(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
+                  soft_reset: bool = True):
+    """Plain version of the residual mode: the kernel's step, op by op, in
+    its order -> (spikes, pre-reset membrane vres)."""
+    v = torch.zeros_like(x[0])
+    s = torch.empty_like(x)
+    vres = torch.empty_like(x)
+    for t in range(x.shape[0]):
+        v = decay * v + x[t]
+        vres[t] = v
+        s[t] = (v >= v_th).to(x.dtype)
+        v = v - s[t] * v_th if soft_reset else v * (1.0 - s[t])
+    return s, vres
+
+
+def lif_plain(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
+              soft_reset: bool = True) -> torch.Tensor:
+    return lif_fwd_plain(x, decay=decay, v_th=v_th, soft_reset=soft_reset)[0]
+
+
+def lif_counts_fwd_plain(x: torch.Tensor, *, decay: float = 0.5,
+                         v_th: float = 1.0, soft_reset: bool = True):
+    """Plain version of the counts + residual mode: fire, then count per
+    chunk -> (spikes, counts, vres)."""
+    s, vres = lif_fwd_plain(x, decay=decay, v_th=v_th, soft_reset=soft_reset)
+    return s, chunk_counts(s), vres
+
+
 def lif_counts_plain(x: torch.Tensor, *, decay: float = 0.5,
                      v_th: float = 1.0, soft_reset: bool = True):
     """Plain version of the counts mode: fire, then count per chunk."""
     s = lif_plain(x, decay=decay, v_th=v_th, soft_reset=soft_reset)
     return s, chunk_counts(s)
+
+
+def lif_bwd_plain(vres: torch.Tensor, g: torch.Tensor, *, decay: float = 0.5,
+                  v_th: float = 1.0, soft_reset: bool = True,
+                  surrogate_alpha: float = 2.0) -> torch.Tensor:
+    """Plain version of the backward: the kernel's reversed scan, op by op
+    in its order (`repro/kernels/lif_scan.py:107-138`)."""
+    dx = torch.empty_like(g)
+    u = torch.zeros_like(g[0])
+    for t in reversed(range(g.shape[0])):
+        v = vres[t]
+        sg = atan_surrogate(v - v_th, surrogate_alpha)
+        if soft_reset:
+            dreset = 1.0 - v_th * sg
+        else:
+            dreset = (1.0 - (v >= v_th).to(v.dtype)) - v * sg
+        dv = g[t] * sg + u * dreset
+        dx[t] = dv
+        u = decay * dv
+    return dx
+
+
+# ------------------------------------------------------------ wrappers
+def _flat(x: torch.Tensor):
+    t = x.shape[0]
+    return t, (x.numel() // t if t else 0)
+
+
+def _check_counts_shape(name: str, x: torch.Tensor) -> None:
+    if x.ndim != 3 or x.shape[1] % CHUNK:
+        raise ValueError(f"{name} needs (T, R, K) with R % {CHUNK} == 0, "
+                         f"got {tuple(x.shape)}")
 
 
 def lif(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
@@ -44,8 +113,7 @@ def lif(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
         return lif_plain(x, decay=decay, v_th=v_th, soft_reset=soft_reset)
     _build.require_cuda("lif", x, dtype=torch.float32)
     s = torch.empty_like(x)
-    t = x.shape[0]
-    p = x.numel() // t if t else 0
+    t, p = _flat(x)
     lib = _build.library()
     _build.LAUNCHES["lif"] += 1
     _build.check(lib.lif_forward(x.data_ptr(), s.data_ptr(), t, p,
@@ -54,13 +122,28 @@ def lif(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
     return s
 
 
+def lif_fwd(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
+            soft_reset: bool = True):
+    """x: (T, ...) f32 drive -> (spikes, pre-reset membrane vres f32)."""
+    if not x.is_cuda:
+        return lif_fwd_plain(x, decay=decay, v_th=v_th, soft_reset=soft_reset)
+    _build.require_cuda("lif_fwd", x, dtype=torch.float32)
+    s = torch.empty_like(x)
+    vres = torch.empty_like(x)
+    t, p = _flat(x)
+    lib = _build.library()
+    _build.LAUNCHES["lif_fwd"] += 1
+    _build.check(lib.lif_fwd_forward(
+        x.data_ptr(), s.data_ptr(), vres.data_ptr(), t, p, float(decay),
+        float(v_th), int(soft_reset), _build.stream()), "lif_fwd")
+    return s, vres
+
+
 def lif_counts(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
                soft_reset: bool = True):
     """x: (T, R, K) f32 drive with R % 8 == 0 -> (spikes (T, R, K),
     counts (T, R/8, ceil(K/128)) int32)."""
-    if x.ndim != 3 or x.shape[1] % CHUNK:
-        raise ValueError(f"lif_counts needs (T, R, K) with R % {CHUNK} == 0, "
-                         f"got {tuple(x.shape)}")
+    _check_counts_shape("lif_counts", x)
     if not x.is_cuda:
         return lif_counts_plain(x, decay=decay, v_th=v_th,
                                 soft_reset=soft_reset)
@@ -75,3 +158,112 @@ def lif_counts(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
         x.data_ptr(), s.data_ptr(), counts.data_ptr(), t, r, k, float(decay),
         float(v_th), int(soft_reset), _build.stream()), "lif_counts")
     return s, counts
+
+
+def lif_counts_fwd(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
+                   soft_reset: bool = True):
+    """`lif_counts` plus the residual: -> (spikes, counts, vres f32)."""
+    _check_counts_shape("lif_counts_fwd", x)
+    if not x.is_cuda:
+        return lif_counts_fwd_plain(x, decay=decay, v_th=v_th,
+                                    soft_reset=soft_reset)
+    _build.require_cuda("lif_counts_fwd", x, dtype=torch.float32)
+    t, r, k = x.shape
+    s = torch.empty_like(x)
+    vres = torch.empty_like(x)
+    counts = torch.empty((t, r // CHUNK, -(-k // LANES)), dtype=torch.int32,
+                         device=x.device)
+    lib = _build.library()
+    _build.LAUNCHES["lif_counts_fwd"] += 1
+    _build.check(lib.lif_counts_fwd_forward(
+        x.data_ptr(), s.data_ptr(), counts.data_ptr(), vres.data_ptr(), t, r,
+        k, float(decay), float(v_th), int(soft_reset), _build.stream()),
+        "lif_counts_fwd")
+    return s, counts, vres
+
+
+def lif_bwd(vres: torch.Tensor, g: torch.Tensor, *, decay: float = 0.5,
+            v_th: float = 1.0, soft_reset: bool = True,
+            surrogate_alpha: float = 2.0) -> torch.Tensor:
+    """vres, g: (T, ...) f32 -> dx, the drive's cotangent."""
+    if vres.shape != g.shape:
+        raise ValueError(f"lif_bwd: vres {tuple(vres.shape)} and g "
+                         f"{tuple(g.shape)} differ")
+    if not g.is_cuda:
+        return lif_bwd_plain(vres, g, decay=decay, v_th=v_th,
+                             soft_reset=soft_reset,
+                             surrogate_alpha=surrogate_alpha)
+    _build.require_cuda("lif_bwd", vres, g, dtype=torch.float32)
+    dx = torch.empty_like(g)
+    t, p = _flat(g)
+    lib = _build.library()
+    _build.LAUNCHES["lif_bwd"] += 1
+    _build.check(lib.lif_backward(
+        vres.data_ptr(), g.data_ptr(), dx.data_ptr(), t, p, float(decay),
+        float(v_th), int(soft_reset), surrogate_alpha / 2.0,
+        0.5 * math.pi * surrogate_alpha, _build.stream()), "lif_bwd")
+    return dx
+
+
+# ------------------------------------------------- differentiable fires
+def _records(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _surrogate_backward(ctx, g):
+    (vres,) = ctx.saved_tensors
+    return lif_bwd(vres, g.contiguous(), **ctx.cfg), None, None, None, None
+
+
+class LIFScanSG(torch.autograd.Function):
+    """Differentiable fire of a (T, ...) drive: the residual kernel
+    forward, the surrogate kernel backward. Call `LIFScanSG.run`."""
+
+    @staticmethod
+    def forward(ctx, x, decay, v_th, soft_reset, surrogate_alpha):
+        s, vres = lif_fwd(x, decay=decay, v_th=v_th, soft_reset=soft_reset)
+        ctx.save_for_backward(vres)
+        ctx.cfg = dict(decay=decay, v_th=v_th, soft_reset=soft_reset,
+                       surrogate_alpha=surrogate_alpha)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        return _surrogate_backward(ctx, g)
+
+    @staticmethod
+    def run(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
+            soft_reset: bool = True,
+            surrogate_alpha: float = 2.0) -> torch.Tensor:
+        if _records(x):
+            return LIFScanSG.apply(x, decay, v_th, soft_reset,
+                                   surrogate_alpha)
+        return lif(x, decay=decay, v_th=v_th, soft_reset=soft_reset)
+
+
+class LIFScanOccSG(torch.autograd.Function):
+    """`LIFScanSG` with the chunk counts: (spikes, counts); the counts are
+    metadata and carry no gradient. Call `LIFScanOccSG.run`."""
+
+    @staticmethod
+    def forward(ctx, x, decay, v_th, soft_reset, surrogate_alpha):
+        s, counts, vres = lif_counts_fwd(x, decay=decay, v_th=v_th,
+                                         soft_reset=soft_reset)
+        ctx.save_for_backward(vres)
+        ctx.mark_non_differentiable(counts)
+        ctx.cfg = dict(decay=decay, v_th=v_th, soft_reset=soft_reset,
+                       surrogate_alpha=surrogate_alpha)
+        return s, counts
+
+    @staticmethod
+    def backward(ctx, g, g_counts):
+        del g_counts                 # the counts carry no gradient
+        return _surrogate_backward(ctx, g)
+
+    @staticmethod
+    def run(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
+            soft_reset: bool = True, surrogate_alpha: float = 2.0):
+        if _records(x):
+            return LIFScanOccSG.apply(x, decay, v_th, soft_reset,
+                                      surrogate_alpha)
+        return lif_counts(x, decay=decay, v_th=v_th, soft_reset=soft_reset)

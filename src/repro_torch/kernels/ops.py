@@ -33,11 +33,12 @@ def _pad_to(x: torch.Tensor, axis: int, mult: int):
 def lif(x: torch.Tensor, decay: float = 0.5, v_th: float = 1.0,
         soft_reset: bool = True, surrogate_alpha: float = 2.0) -> torch.Tensor:
     """Fused LIF over the leading time axis, any trailing shape. The kernel
-    walks neurons flat, so no padding to lane multiples is needed."""
-    del surrogate_alpha        # forward only: read by the training slice
+    walks neurons flat, so no padding to lane multiples is needed.
+    Differentiable: the surrogate backward kernel runs under autograd."""
     t = x.shape[0]
-    out = lif_scan.lif(x.reshape(t, -1).contiguous(), decay=decay,
-                       v_th=v_th, soft_reset=soft_reset)
+    out = lif_scan.LIFScanSG.run(x.reshape(t, -1).contiguous(), decay=decay,
+                                 v_th=v_th, soft_reset=soft_reset,
+                                 surrogate_alpha=surrogate_alpha)
     return out.reshape(x.shape)
 
 
@@ -51,17 +52,18 @@ def lif_occ(x: torch.Tensor, decay: float = 0.5, v_th: float = 1.0,
     chunks (ceil(T*R/128)*16, ceil(K/128)) int32), R = prod of the middle
     axes, which must divide by 8. The maps come from the kernel's per-chunk
     counts plus a reduction over the small count map, never a re-read of
-    the spikes.
+    the spikes. The spikes are differentiable (surrogate backward kernel);
+    the maps are metadata and carry no gradient.
     """
-    del surrogate_alpha
     t, k = x.shape[0], x.shape[-1]
     r = math.prod(x.shape[1:-1])
     if r % 8:
         raise ValueError(f"middle axes {tuple(x.shape[1:-1])} (R={r}) must "
                          f"divide by 8")
-    s, cnt = lif_scan.lif_counts(x.reshape(t, r, k).contiguous(),
-                                 decay=decay, v_th=v_th,
-                                 soft_reset=soft_reset)
+    s, cnt = lif_scan.LIFScanOccSG.run(x.reshape(t, r, k).contiguous(),
+                                       decay=decay, v_th=v_th,
+                                       soft_reset=soft_reset,
+                                       surrogate_alpha=surrogate_alpha)
     # (T, R/8, KT) chunk counts -> (ceil(T*R/128), KT) matmul tiles: the
     # flattened chunk (t, a) sits at t*(R/8)+a, so 16 consecutive chunks
     # are one 128-row tile (zero-padded tail chunks match the consumers'

@@ -4,8 +4,12 @@ A Spiking Patch Splitting (SPS) conv stem downsamples 32x32 images into
 8x8 = 64 tokens of dimension D, then L encoder blocks of spike-driven
 self-attention (SSA, the Attention Core's OR form) and a spiking MLP
 (FFN), with membrane-shortcut residuals and a rate-decoded head.
-Inference forward only; the params are a plain dict of tensors with the
-same tree and layouts as `repro.models.spikingformer`.
+The params are a plain dict of tensors with the same tree and layouts as
+`repro.models.spikingformer`. `spikingformer_apply` is differentiable
+(surrogate gradients through every registry op); inference callers enter
+`torch.inference_mode()` themselves. A training step is composed by the
+caller, as in `repro`: cross-entropy of the logits, `torch.autograd.grad`
+over the parameter leaves, `optim.adamw.update`.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from repro_torch.core.econv import econv, tconv
 from repro_torch.core.events import max_pool_events
 from repro_torch.core.lif import LIFConfig
 from repro_torch.kernels import dispatch
+from repro_torch.optim.adamw import AdamWState
 from .cnn import _conv_init
 from .layers import dense_init, hybrid_scope, lif_fire, lif_fire_events
 
@@ -51,15 +56,41 @@ def spikingformer_init(depth: int, dim: int, n_classes: int = 10,
     return p
 
 
-def params_from_numpy(tree, device="cuda") -> Params:
+def params_from_numpy(tree, device="cuda"):
     """A `repro` param tree (leaves passed through `np.asarray`) as port
-    params on `device`: same nesting, same layouts, float32 tensors."""
+    params on `device`: same nesting, same layouts, float32 tensors. A
+    `repro` AdamW state (`step`, `mu`, `nu`) comes across as the port's
+    `AdamWState`, keeping an integer step and bfloat16 moments."""
     dev = resolve_device(device)
+    if isinstance(tree, tuple) and getattr(tree, "_fields", None) == \
+            AdamWState._fields:
+        return AdamWState(
+            step=torch.tensor(int(np.asarray(tree[0])), dtype=torch.int32,
+                              device=dev),
+            mu=params_from_numpy(tree[1], dev),
+            nu=params_from_numpy(tree[2], dev))
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_numpy(v, dev) for v in tree]
-    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(dev)
+    arr = np.asarray(tree)
+    out = torch.from_numpy(arr.astype(np.float32)).to(dev)
+    # numpy has no bfloat16 of its own: such leaves arrive as ml_dtypes'
+    # type, whose values f32 holds exactly, so the round trip is lossless.
+    return out.to(torch.bfloat16) if arr.dtype.name == "bfloat16" else out
+
+
+def params_to_numpy(tree):
+    """Port params (or an `AdamWState`) as the same tree of numpy arrays;
+    bfloat16 leaves come back as float32 (numpy has no bfloat16)."""
+    if isinstance(tree, AdamWState):
+        return AdamWState(*(params_to_numpy(v) for v in tree))
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def spikingformer_apply(p: Params, x: torch.Tensor, n_heads: int = 8,
@@ -73,7 +104,7 @@ def spikingformer_apply(p: Params, x: torch.Tensor, n_heads: int = 8,
             "(ROADMAP queue 1, item 12)")
     if x.device != p["head"].device:
         raise ValueError(f"input on {x.device}, params on {p['head'].device}")
-    with torch.no_grad(), hybrid_scope(spiking_cfg):
+    with hybrid_scope(spiking_cfg):
         return _spikingformer_body(p, x, n_heads, spiking_cfg, collect_stats)
 
 

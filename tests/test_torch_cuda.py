@@ -5,8 +5,9 @@ Torch-only (no JAX), so it runs on the GPU machine:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Every test is marked `cuda` and skips where no CUDA device is present.
-Spikes, counts and SDSA words must match exactly; the CSR matmul within
-1e-5 * max|plain| + 1e-5 (fp32 summation order).
+Spikes, counts, membrane residuals, LIF drive cotangents and SDSA words
+must match exactly; the CSR matmul within 1e-5 * max|plain| + 1e-5 (fp32
+summation order).
 """
 import numpy as np
 import pytest
@@ -76,7 +77,8 @@ def test_cuda_wrappers_count_each_launch(cuda_device):
     x = torch.ones(2, 8, 130, device=cuda_device)
     lif_scan.lif(x.reshape(2, -1))
     lif_scan.lif_counts(x)
-    assert launch_counts() == {"lif": 1, "lif_counts": 1,
+    assert launch_counts() == {"lif": 1, "lif_counts": 1, "lif_fwd": 0,
+                               "lif_counts_fwd": 0, "lif_bwd": 0,
                                "spike_matmul_csr": 0, "sdsa_or": 0}
 
 
@@ -89,3 +91,60 @@ def test_cuda_csr_kernel_writes_zeros_for_empty_rows(cuda_device):
     out = ops.spike_matmul_csr(s, w, occupancy=occ)
     assert torch.all(out[:128] == 128) and torch.all(out[128:256] == 0)
     assert torch.all(out[256:] == 72)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decay", [0.5, 0.3])
+@pytest.mark.parametrize("soft", [True, False])
+@pytest.mark.parametrize("k", [200, 128, 37])
+def test_cuda_training_lif_kernels_match_plain(cuda_device, decay, soft, k):
+    """Residual forwards and the surrogate backward, ragged K included."""
+    gen = torch.Generator().manual_seed(k)
+    x = (torch.randn(4, 64, k, generator=gen) + 0.3).to(cuda_device)
+    g = torch.randn(4, 64, k, generator=gen).to(cuda_device)
+    kw = dict(decay=decay, v_th=0.5, soft_reset=soft)
+    for got, want in ((lif_scan.lif_fwd(x, **kw),
+                       lif_scan.lif_fwd_plain(x, **kw)),
+                      (lif_scan.lif_counts_fwd(x, **kw),
+                       lif_scan.lif_counts_fwd_plain(x, **kw))):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    _, vres = lif_scan.lif_fwd_plain(x, **kw)
+    for alpha in (2.0, 3.0):
+        assert torch.equal(
+            lif_scan.lif_bwd(vres, g, surrogate_alpha=alpha, **kw),
+            lif_scan.lif_bwd_plain(vres, g, surrogate_alpha=alpha, **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_training_wrappers_count_each_launch(cuda_device):
+    reset_launch_counts()
+    x = torch.ones(2, 8, 130, device=cuda_device)
+    _, vres = lif_scan.lif_fwd(x)
+    lif_scan.lif_counts_fwd(x)
+    lif_scan.lif_bwd(vres, x)
+    assert launch_counts() == {"lif": 0, "lif_counts": 0, "lif_fwd": 1,
+                               "lif_counts_fwd": 1, "lif_bwd": 1,
+                               "spike_matmul_csr": 0, "sdsa_or": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sg", [lif_scan.LIFScanSG, lif_scan.LIFScanOccSG])
+def test_cuda_fire_takes_the_residual_kernel_only_under_grad(cuda_device,
+                                                             sg):
+    primal, residual = (("lif", "lif_fwd") if sg is lif_scan.LIFScanSG
+                        else ("lif_counts", "lif_counts_fwd"))
+    x = (torch.randn(4, 16, 96, generator=torch.Generator().manual_seed(2))
+         .to(cuda_device).requires_grad_(True))
+    reset_launch_counts()
+    with torch.inference_mode():
+        sg.run(x)
+    assert launch_counts()[primal] == 1 and launch_counts()[residual] == 0
+    reset_launch_counts()
+    out = sg.run(x)
+    s = out[0] if isinstance(out, tuple) else out
+    (dx,) = torch.autograd.grad(s.sum(), x)
+    counts = launch_counts()
+    assert (counts[primal], counts[residual], counts["lif_bwd"]) == (0, 1, 1)
+    _, vres = lif_scan.lif_fwd_plain(x.detach())
+    assert torch.equal(dx, lif_scan.lif_bwd_plain(vres, torch.ones_like(x)))

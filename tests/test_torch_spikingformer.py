@@ -77,9 +77,10 @@ def _run_port(case, monkeypatch=None):
                 drives.append(x.detach().clone())
                 return _orig(x, *a, **kw)
             monkeypatch.setattr(dispatch, name, rec)
-    logits, stats = tsf.spikingformer_apply(
-        case["params"], case["x"], n_heads=case["heads"],
-        spiking_cfg=case["cfg"], collect_stats=True)
+    with torch.inference_mode():
+        logits, stats = tsf.spikingformer_apply(
+            case["params"], case["x"], n_heads=case["heads"],
+            spiking_cfg=case["cfg"], collect_stats=True)
     return logits, stats, drives
 
 
