@@ -21,6 +21,20 @@ Phases, each printed on its own line:
       every registry call agreeing with `ref` on the same inputs, and the
       free-running per-stage spike drift within FREE_RUNNING_SPIKE_TOL;
       then a per-op device-time breakdown of one forward;
+  (g) the predicated spike matmul (kernel 10) at SegNet-64's two
+      transposed-conv patch matmuls, (131072x288)x(288x16) and
+      (524288x144)x(144x2), on the model's own patch maps and on data
+      with 50% occupied tiles: within 1e-5 * max|ref| + 1e-5 of its plain
+      version, with kernel, plain, library and bound times;
+  (h) the paper's CNNs end to end (VGG11 and ResNet18 on 32x32
+      `class_images`, SegNet on 64x64 `seg_batch` images; B=32, T=4,
+      v_th=0.5, random weights from a seed), 2 batches each, on the
+      kernels and on `ref`: finite outputs, exact launches per forward
+      (CNN_LAUNCHES, every other kernel 0), the dense occupancy pre-passes
+      only where no map exists (CNN_PREPASSES), every registry call
+      agreeing with `ref` on the same inputs, per-layer spike drift within
+      FREE_RUNNING_SPIKE_TOL; per-layer spike rates; then a per-op
+      device-time breakdown of one forward on each;
   (f) SpikingFormer-4-384 training: 3 AdamW steps (cross-entropy,
       `torch.autograd.grad` over the parameter leaves, `adamw.update`) on
       `class_images` batches of 32, on the kernels: finite losses and
@@ -30,8 +44,9 @@ Phases, each printed on its own line:
       `ref`'s on the same inputs and cotangent (SAME_INPUT_GRAD_TOL); the
       same 3 steps on `ref` printed beside them; then a per-op forward and
       backward device-time breakdown of one step;
-  (d) one JSON line listing every kernel with its launches, error and
-      times.
+  (d) one JSON line listing every kernel with its launches on the main
+      paths ((c) and (h) for inference kernels, (f) for the training
+      ones), error and times.
 The last line is {"ok": true, "device": {...}}. Any failed check exits
 nonzero before it; without a CUDA device, or without the repo's `src`
 beside this file, the script exits nonzero and prints no result.
@@ -54,6 +69,7 @@ SEED = 0
 B, T, DEPTH, DIM, HEADS, V_TH = 32, 4, 4, 384, 8, 0.5
 TRAIN_STEPS, LR = 3, 1e-3
 EXPECTED_LAUNCHES = {"lif_counts": 12, "lif": 13, "spike_matmul_csr": 11,
+                     "spike_matmul_pred": 0,
                      "sdsa_or": 4}
 # Per training step: every fire runs the residual forward and the
 # surrogate backward; the matmul backwards are plain products and SDSA's
@@ -61,7 +77,20 @@ EXPECTED_LAUNCHES = {"lif_counts": 12, "lif": 13, "spike_matmul_csr": 11,
 EXPECTED_TRAIN_LAUNCHES = {"lif_fwd": 13, "lif_counts_fwd": 12,
                            "lif_bwd": 25, "spike_matmul_csr": 11,
                            "sdsa_or": 4, "lif": 0, "lif_counts": 0}
-INFERENCE_KERNELS = ("lif_counts", "lif", "spike_matmul_csr", "sdsa_or")
+# Per CNN forward (T=4, B=32); every kernel not named launches 0 times.
+CNN_LAUNCHES = {
+    "vgg11": {"spike_matmul_csr": 8, "lif_counts": 8},
+    "resnet18": {"spike_matmul_csr": 20, "lif_counts": 17},
+    "segnet": {"spike_matmul_csr": 4, "lif_counts": 5,
+               "spike_matmul_pred": 2},
+}
+# Dense occupancy pre-passes per CNN forward on the kernels: the
+# direct-coded input, and SegNet's two transposed convs (zero-insertion
+# leaves no map to carry).
+CNN_PREPASSES = {"vgg11": 1, "resnet18": 1, "segnet": 3}
+CNN_BATCHES = 2
+INFERENCE_KERNELS = ("lif_counts", "lif", "spike_matmul_csr",
+                     "spike_matmul_pred", "sdsa_or")
 TRAINING_KERNELS = ("lif_fwd", "lif_counts_fwd", "lif_bwd")
 SOURCES = {"lif": "src/repro_torch/csrc/lif.cu",
            "lif_counts": "src/repro_torch/csrc/lif.cu",
@@ -69,11 +98,12 @@ SOURCES = {"lif": "src/repro_torch/csrc/lif.cu",
            "lif_counts_fwd": "src/repro_torch/csrc/lif.cu",
            "lif_bwd": "src/repro_torch/csrc/lif.cu",
            "spike_matmul_csr": "src/repro_torch/csrc/spike_matmul_csr.cu",
+           "spike_matmul_pred": "src/repro_torch/csrc/spike_matmul.cu",
            "sdsa_or": "src/repro_torch/csrc/sdsa.cu"}
 # Same inputs, one op call: the fire and attention ops are exact, the
 # matmul-form ops agree to fp32 summation order (relative to max|ref|).
 SAME_INPUT_TOL = {"lif_scan": 0.0, "lif_scan_occ": 0.0, "sdsa": 0.0,
-                  "spike_matmul": 1e-5, "econv": 1e-5}
+                  "spike_matmul": 1e-5, "econv": 1e-5, "tconv": 1e-5}
 # Free-running kernel forward vs ref forward, share of differing spikes
 # per stage. Not 1e-3: a spike whose membrane sits within fp32 rounding of
 # the threshold flips when the summation order changes (econv's CSR walk
@@ -93,6 +123,7 @@ REPLACES = {"lif": "src/repro/kernels/lif_scan.py:36",
             "lif_counts_fwd": "src/repro/kernels/lif_scan.py:209",
             "lif_bwd": "src/repro/kernels/lif_scan.py:107",
             "spike_matmul_csr": "src/repro/kernels/spike_matmul.py:156",
+            "spike_matmul_pred": "src/repro/kernels/spike_matmul.py:48",
             "sdsa_or": "src/repro/kernels/sdsa_kernel.py:29"}
 
 
@@ -357,17 +388,17 @@ def op_timeline(torch, dispatch):
         dispatch.dispatch = orig
 
 
-def phase_breakdown(torch, params, x, cfg):
-    """One kernel forward: device span, per-op device time, host time."""
+def forward_breakdown(torch, forward) -> dict:
+    """One forward (`forward()`, under `torch.inference_mode()`): device
+    span, host time to enqueue it, per-op device time, and the rest."""
     from repro_torch.kernels import dispatch
-    from repro_torch.models import spikingformer as sf
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
     with torch.inference_mode(), op_timeline(torch, dispatch) as marks:
-        sf.spikingformer_apply(params, x, n_heads=HEADS, spiking_cfg=cfg)
+        forward()
     stop.record()
     host_s = time.perf_counter() - t0
     stop.synchronize()
@@ -375,9 +406,16 @@ def phase_breakdown(torch, params, x, cfg):
     for op, a, b in marks:
         per_op[op] = per_op.get(op, 0.0) + a.elapsed_time(b)
     span = start.elapsed_time(stop)
-    emit("breakdown", device_span_ms=span, host_enqueue_ms=host_s * 1e3,
-         per_op_ms=per_op, rest_ms=span - sum(per_op.values()),
-         calls=len(marks))
+    return dict(device_span_ms=span, host_enqueue_ms=host_s * 1e3,
+                per_op_ms=per_op, rest_ms=span - sum(per_op.values()),
+                calls=len(marks))
+
+
+def phase_breakdown(torch, params, x, cfg):
+    """One kernel forward of SpikingFormer: its breakdown."""
+    from repro_torch.models import spikingformer as sf
+    emit("breakdown", **forward_breakdown(torch, lambda: sf.spikingformer_apply(
+        params, x, n_heads=HEADS, spiking_cfg=cfg)))
 
 
 def phase_end_to_end(torch, device):
@@ -395,7 +433,7 @@ def phase_end_to_end(torch, device):
     params = sf.spikingformer_init(DEPTH, DIM, generator=gen, device=device)
     cfg = SpikingConfig(t_steps=T, lif_vth=V_TH)
     img_gen = torch.Generator().manual_seed(SEED + 1)
-    totals = {name: 0 for name in EXPECTED_LAUNCHES}
+    totals = {name: 0 for name in INFERENCE_KERNELS}
     for batch in range(4):
         x = torch.rand((B, 32, 32, 3), generator=img_gen).to(device)
         reset_launch_counts()
@@ -441,6 +479,153 @@ def phase_end_to_end(torch, device):
                   f"stage {st['stage']}: {st['differing_share']} of spikes "
                   f"differ")
     phase_breakdown(torch, params, x, cfg)
+    return totals
+
+
+# ------------------------------------------------------------ phase (g)
+def cnn_setup(torch, name, device):
+    """(config, forward(x, collect_stats), batch(i)) of one paper CNN at
+    T=4, v_th=0.5, with random weights from SEED."""
+    import dataclasses
+    from repro_torch.configs.base import SpikingConfig
+    from repro_torch.configs.registry import paper_cnn_configs
+    from repro_torch.data.synthetic import class_images, seg_batch
+    from repro_torch.models import cnn
+    cfg = dataclasses.replace(paper_cnn_configs()[name],
+                              spiking=SpikingConfig(t_steps=T, lif_vth=V_TH))
+    params = getattr(cnn, f"{name}_init")(
+        cfg, generator=torch.Generator().manual_seed(SEED), device=device)
+    apply = getattr(cnn, f"{name}_apply")
+
+    def batch(i):
+        b = seg_batch(SEED, 0, i, B, img=cfg.img) if name == "segnet" else \
+            class_images(SEED, 0, i, B, img=cfg.img)
+        return torch.from_numpy(b["image"]).to(device)
+
+    def forward(x, collect_stats=False):
+        return apply(cfg, params, x, collect_stats=collect_stats)
+    return cfg, forward, batch
+
+
+def phase_pred(torch, gen, device, results):
+    """Kernel 10 at SegNet-64's two tconv patch matmuls: the model's own
+    patch matrices and maps (captured from one forward), and clustered
+    data with 50% occupied tiles at the same shapes."""
+    from repro_torch.kernels import ops, spike_matmul
+    _, forward, batch = cnn_setup(torch, "segnet", device)
+    captured = []
+    orig = spike_matmul.spike_matmul_pred
+
+    def capture(s, w, occ):
+        captured.append((s.clone(), w.clone(), occ.clone()))
+        return orig(s, w, occ)
+    spike_matmul.spike_matmul_pred = capture
+    try:
+        with torch.inference_mode():
+            forward(batch(0))
+    finally:
+        spike_matmul.spike_matmul_pred = orig
+    check(len(captured) == 2, f"SegNet ran {len(captured)} predicated "
+          f"matmuls, expected 2")
+    worst, recs = 0.0, []
+    for label, (s, w, occ) in zip(("tconv1", "tconv2"), captured):
+        m, k = s.shape
+        n = w.shape[1]
+        syn = clustered_spikes(torch, m, k, gen, device)
+        for data, s_in, occ_in in (("model", s, occ),
+                                   ("clustered50", syn,
+                                    ops.padded_occupancy(syn))):
+            out = spike_matmul.spike_matmul_pred(s_in, w, occ_in)
+            ref = spike_matmul.spike_matmul_pred_plain(s_in, w, occ_in)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            tol = 1e-5 * ref.abs().max().item() + 1e-5
+            check(err <= tol, f"predicated kernel off by {err} > {tol} "
+                  f"({label}, {data})")
+            worst = max(worst, err)
+            flops, n_bytes = csr_work(torch, occ_in, m, k, n)
+            b_ms, by = bound_ms(n_bytes + occ_in.numel() * 4, flops)
+            rec = dict(max_abs_err=err, tolerance=tol,
+                       ms=cuda_ms(torch, lambda: spike_matmul.spike_matmul_pred(
+                           s_in, w, occ_in)),
+                       plain_ms=cuda_ms(
+                           torch, lambda: spike_matmul.spike_matmul_pred_plain(
+                               s_in, w, occ_in), reps=5),
+                       bound_ms=b_ms, bound_by=by,
+                       library_ms=cuda_ms(torch, lambda: torch.matmul(s_in, w)),
+                       occupied_share=(occ_in > 0).float().mean().item(),
+                       shape=[m, k, n])
+            emit("kernel", name="spike_matmul_pred", case=f"{label}_{data}",
+                 **rec)
+            recs.append((label, data, rec))
+    results["spike_matmul_pred"] = dict(
+        [r for label, data, r in recs if (label, data) ==
+         ("tconv2", "model")][0], max_abs_err=worst)
+
+
+# ------------------------------------------------------------ phase (h)
+def phase_cnn(torch, device):
+    """VGG11, ResNet18 and SegNet-64 forwards on the kernels, gated, and on
+    `ref`; per-layer spike rates and drift; a breakdown of each."""
+    from repro_torch.core.spikes import watch_occupancy_prepasses
+    from repro_torch.kernels import dispatch, launch_counts, \
+        reset_launch_counts
+    totals: dict = {}
+    for name, expected in CNN_LAUNCHES.items():
+        cfg, forward, batch = cnn_setup(torch, name, device)
+        for i in range(CNN_BATCHES):
+            x = batch(i)
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode(), watch_occupancy_prepasses() as pre:
+                out, stats = forward(x, collect_stats=True)
+            torch.cuda.synchronize()
+            kernel_s = time.perf_counter() - t0
+            counts = launch_counts()
+            want = {k: expected.get(k, 0) for k in counts}
+            check(counts == want, f"{name}: launches per forward {counts} "
+                  f"!= {want}")
+            check(pre["calls"] == CNN_PREPASSES[name],
+                  f"{name}: {pre['calls']} dense occupancy pre-passes, "
+                  f"expected {CNN_PREPASSES[name]}")
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            t0 = time.perf_counter()
+            with torch.inference_mode(), dispatch.use_backend(dispatch.REF):
+                ref_out, ref_stats = forward(x, collect_stats=True)
+            torch.cuda.synchronize()
+            ref_s = time.perf_counter() - t0
+            shape = (B, cfg.img, cfg.img, 2) if name == "segnet" else \
+                (B, cfg.n_classes)
+            check(tuple(out.shape) == shape and
+                  bool(torch.isfinite(out).all()),
+                  f"{name}: output {tuple(out.shape)} not finite / != {shape}")
+            layers = [dict(layer=j, spike_rate=a.float().mean().item(),
+                           differing_share=(a != r).float().mean().item())
+                      for j, (a, r) in enumerate(zip(stats, ref_stats))]
+            with torch.inference_mode(), shadow_ref(torch, dispatch) as shadow:
+                forward(x)
+            emit("cnn", model=name, batch=i,
+                 max_abs_dout=(out - ref_out).abs().max().item(),
+                 kernel_forward_s=kernel_s, ref_forward_s=ref_s,
+                 launches=counts, prepasses=pre["calls"], layers=layers,
+                 same_input_ops=shadow)
+            for op, err in shadow.items():
+                check(err <= SAME_INPUT_TOL[op],
+                      f"{name}: {op} on the kernels differs from ref on the "
+                      f"same inputs by {err} > {SAME_INPUT_TOL[op]}")
+            for st in layers:
+                check(st["differing_share"] <= FREE_RUNNING_SPIKE_TOL,
+                      f"{name} layer {st['layer']}: "
+                      f"{st['differing_share']} of spikes differ")
+        for backend in (dispatch.CUDA, dispatch.REF):
+            with dispatch.use_backend(backend):
+                for _ in range(3):                        # warm forwards
+                    with torch.inference_mode():
+                        forward(x)
+                emit("cnn_breakdown", model=name, backend=backend,
+                     **forward_breakdown(torch, lambda: forward(x)))
     return totals
 
 
@@ -730,7 +915,10 @@ def main() -> int:
     phase_sdsa(torch, gen, device, results)
     phase_csr(torch, gen, device, results)
     phase_train_kernels(torch, gen, device, results)
+    phase_pred(torch, gen, device, results)
     totals = phase_end_to_end(torch, device)
+    for name, n in phase_cnn(torch, device).items():
+        totals[name] = totals.get(name, 0) + n
     totals.update(phase_train(torch, device))
     kernels = []
     for name in INFERENCE_KERNELS + TRAINING_KERNELS:

@@ -1,7 +1,9 @@
-"""Config schema (the SpikingConfig subset the SpikingFormer path reads)."""
+"""Config schema: the `SpikingConfig` knobs and the paper CNNs'
+`CNNLayer` / `CNNConfig`, with `repro`'s field names and defaults."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -20,3 +22,25 @@ class SpikingConfig:
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class CNNLayer:
+    kind: str                   # conv|tconv|maxpool|avgpool
+    out_ch: int = 0
+    kernel: int = 3
+    stride: int = 1
+    pool: int = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class CNNConfig:
+    """Paper's own workloads (VGG11/ResNet18/SegNet)."""
+    name: str
+    layers: Tuple[CNNLayer, ...]
+    in_ch: int = 3
+    img: int = 32
+    n_classes: int = 10
+    fc_pool: int = 2            # avgpool before FC (EAFC target)
+    direct_coding_bits: int = 8
+    spiking: SpikingConfig = SpikingConfig(t_steps=4)

@@ -20,11 +20,11 @@ import torch
 PACK = 32  # bits per packed word
 
 # --------------------------------------------------- pre-pass instrumentation
-# `tile_occupancy` is the standalone dense occupancy pre-pass: a full read
-# of a spike-sized tensor just to learn which tiles hold events. Between
-# spiking layers the full-event pipeline never runs it (the fire stage
-# emits the maps); the watcher stack lets tests count the pre-passes a
-# code path paid for.
+# `tile_occupancy` (and its in-place ragged form) is the standalone dense
+# occupancy pre-pass: a full read of a spike-sized tensor just to learn
+# which tiles hold events. Between spiking layers the full-event pipeline
+# never runs it (the fire stage emits the maps); the watcher stack lets
+# tests count the pre-passes a code path paid for.
 _PREPASS_WATCHERS: list = []
 
 
@@ -94,11 +94,32 @@ def tile_occupancy(s: torch.Tensor, tile_m: int, tile_k: int) -> torch.Tensor:
     m, k = s.shape[-2], s.shape[-1]
     if m % tile_m or k % tile_k:
         raise ValueError(f"shape ({m},{k}) not tileable by ({tile_m},{tile_k})")
+    # Whole row tiles never straddle two leading-axis slices, so the
+    # slices fold into rows and the map unfolds again.
+    occ = ragged_tile_occupancy(s.reshape(-1, k), tile_m, tile_k)
+    return occ.reshape(tuple(s.shape[:-2]) + (m // tile_m, k // tile_k))
+
+
+def ragged_tile_occupancy(s: torch.Tensor, tile_m: int,
+                          tile_k: int) -> torch.Tensor:
+    """`tile_occupancy` of an (M, K) matrix zero-padded to the tiling,
+    counted in place: the ragged edge tiles count the events they hold,
+    which is what the padded copy would count (padding adds zeros), so
+    the map is identical without the copy. -> (ceil(M/tile_m),
+    ceil(K/tile_k)) int32."""
+    m, k = s.shape
     for rec in _PREPASS_WATCHERS:
         rec["calls"] += 1
         rec["elements"] += s.numel()
-    t = s.reshape(s.shape[:-2] + (m // tile_m, tile_m, k // tile_k, tile_k))
-    return (t != 0).sum(dim=(-3, -1), dtype=torch.int32)
+    kf = k - k % tile_k
+    per_row = [torch.count_nonzero(
+        s[:, :kf].unflatten(1, (kf // tile_k, tile_k)), dim=-1)]
+    if kf < k:
+        per_row.append(torch.count_nonzero(s[:, kf:], dim=-1)[:, None])
+    per_row = torch.cat(per_row, dim=1)                   # (M, KT) counts
+    per_row = torch.nn.functional.pad(per_row, (0, 0, 0, (-m) % tile_m))
+    return per_row.reshape(-1, tile_m, per_row.shape[1]).sum(
+        dim=1, dtype=torch.int32)
 
 
 class TileCSR(NamedTuple):

@@ -1,0 +1,114 @@
+// The register-blocked fp32 tile loop shared by the spike matmul kernels
+// (csrc/spike_matmul_csr.cu, csrc/spike_matmul.cu).
+//
+// A block owns one 128-row x BN-column output tile. Each occupied
+// 128-deep k-tile streams its s tile and w tile through shared memory in
+// 16-deep slices; thread (tx, ty) of the TX x TY grid accumulates the
+// RM x RN outputs at rows ty + TY*i and columns tx + TX*j with fmaf, in
+// k order. Ragged edges (M, K or N not multiples of the tile) are masked
+// on load and store, and a slice that lies wholly past K is not staged at
+// all (it would add fmaf(0, 0, acc) = acc), so callers never materialise
+// padded copies.
+#pragma once
+
+#include <stdint.h>
+
+namespace tile_fma {
+
+constexpr int kTile = 128;          // map tile (rows and k)
+constexpr int kSlice = 16;          // k depth staged per shared-memory pass
+constexpr int kPadA = 4;            // breaks bank conflicts on the A stores
+
+template <int BN, int RM, int RN>
+struct Shape {
+  static_assert(kTile % RM == 0 && BN % RN == 0, "tile must split evenly");
+  static constexpr int kTY = kTile / RM;
+  static constexpr int kTX = BN / RN;
+  static constexpr int kThreads = kTX * kTY;
+};
+
+template <int BN>
+struct Staging {
+  float a[kSlice][kTile + kPadA];   // s slice, k-major
+  float b[kSlice][BN];              // w slice
+};
+
+template <int RM, int RN>
+__device__ __forceinline__ void zero(float (&acc)[RM][RN]) {
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j) acc[i][j] = 0.0f;
+}
+
+// acc += s[m0:m0+128, k0:k0+128] @ w[k0:k0+128, n0:n0+BN], masked to
+// (m, k, n). Every thread of the block must call it (it synchronises).
+template <int BN, int RM, int RN>
+__device__ __forceinline__ void accumulate_tile(
+    Staging<BN>& st, const float* __restrict__ s,
+    const float* __restrict__ w, int64_t m0, int64_t n0, int64_t k0,
+    int64_t m, int64_t k, int64_t n, float (&acc)[RM][RN]) {
+  using S = Shape<BN, RM, RN>;
+  const int tid = threadIdx.x;
+  const int tx = tid % S::kTX, ty = tid / S::kTX;
+  for (int kk = 0; kk < kTile; kk += kSlice) {
+    if (k0 + kk >= k) break;
+#pragma unroll
+    for (int l = 0; l < (kTile * kSlice + S::kThreads - 1) / S::kThreads;
+         ++l) {
+      const int e = tid + l * S::kThreads;
+      // The guard vanishes at compile time when the threads split the
+      // slice evenly (a run-time guard there doubled the kernel's time).
+      if ((kTile * kSlice) % S::kThreads == 0 || e < kTile * kSlice) {
+        const int r = e / kSlice, c = e % kSlice;
+        const int64_t gr = m0 + r, gc = k0 + kk + c;
+        st.a[c][r] = (gr < m && gc < k) ? s[gr * k + gc] : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int l = 0; l < (BN * kSlice + S::kThreads - 1) / S::kThreads; ++l) {
+      const int e = tid + l * S::kThreads;
+      if ((BN * kSlice) % S::kThreads == 0 || e < BN * kSlice) {
+        const int r = e / BN, c = e % BN;
+        const int64_t gk = k0 + kk + r, gn = n0 + c;
+        st.b[r][c] = (gk < k && gn < n) ? w[gk * n + gn] : 0.0f;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < kSlice; ++c) {
+      float a[RM], b[RN];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) a[i] = st.a[c][ty + S::kTY * i];
+#pragma unroll
+      for (int j = 0; j < RN; ++j) b[j] = st.b[c][tx + S::kTX * j];
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+}
+
+// out[m0:m0+128, n0:n0+BN] = acc, masked to (m, n).
+template <int BN, int RM, int RN>
+__device__ __forceinline__ void store_tile(float* __restrict__ out,
+                                           int64_t m0, int64_t n0, int64_t m,
+                                           int64_t n,
+                                           const float (&acc)[RM][RN]) {
+  using S = Shape<BN, RM, RN>;
+  const int tx = threadIdx.x % S::kTX, ty = threadIdx.x / S::kTX;
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int64_t r = m0 + ty + S::kTY * i;
+    if (r >= m) continue;
+#pragma unroll
+    for (int j = 0; j < RN; ++j) {
+      const int64_t c = n0 + tx + S::kTX * j;
+      if (c < n) out[r * n + c] = acc[i][j];
+    }
+  }
+}
+
+}  // namespace tile_fma

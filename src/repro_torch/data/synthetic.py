@@ -1,6 +1,7 @@
 """Synthetic image data (no external datasets), the port's own copy of
-`repro.data.synthetic.class_images`: procedurally generated CIFAR-shaped
-images with class-dependent texture statistics, seeded per
+`repro.data.synthetic`'s `class_images` (procedurally generated
+CIFAR-shaped images with class-dependent texture statistics) and
+`seg_batch` (a lane-like segmentation task), seeded per
 (seed, shard, step), so a batch is regenerated exactly. numpy only; the
 caller moves the arrays to its device.
 """
@@ -29,3 +30,21 @@ def class_images(seed: int, shard: int, step: int, batch: int, img: int = 32,
         imgs[i] = np.clip(
             base[..., None] * (0.8 + 0.2 * np.cos(phase)) + noise, 0, 1)
     return {"image": imgs, "label": labels.astype(np.int32)}
+
+
+def seg_batch(seed: int, shard: int, step: int, batch: int,
+              img: int = 64) -> dict:
+    """Lane-like segmentation task: diagonal stripe masks (B,H,W) in {0,1}
+    over noisy (B,H,W,3) images in [0,1], the lane brightened."""
+    rng = _rng(seed, shard, step)
+    imgs = rng.normal(0.5, 0.15, (batch, img, img, 3)).astype(np.float32)
+    masks = np.zeros((batch, img, img), np.int32)
+    yy, xx = np.mgrid[0:img, 0:img]
+    for i in range(batch):
+        slope = rng.uniform(-1, 1)
+        offset = rng.uniform(0.3, 0.7) * img
+        width = rng.uniform(2, 6)
+        lane = np.abs(yy - (slope * (xx - img / 2) + offset)) < width
+        masks[i] = lane
+        imgs[i, lane] += 0.4
+    return {"image": np.clip(imgs, 0, 1), "mask": masks}

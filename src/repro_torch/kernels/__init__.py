@@ -4,6 +4,8 @@
                                              with/without the residual;
                                              surrogate backward
   spike_matmul.py  csrc/spike_matmul_csr.cu  event-compacted CSR matmul
+                   csrc/spike_matmul.cu      predicated (map-gated) matmul
+                   (both on csrc/tile_fma.cuh, the shared tile loop)
   sdsa_kernel.py   csrc/sdsa.cu              packed OR-form attention
   ref.py           plain PyTorch oracles
   ops.py           shape plumbing around the kernels

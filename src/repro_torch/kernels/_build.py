@@ -3,7 +3,8 @@
 Each `*.cu` file exposes a plain C interface and is compiled by `nvcc`
 for Hopper (`sm_90a`); the objects are linked into one shared library
 that is loaded with `ctypes`. The library lands in a build directory keyed
-by a hash of the sources and flags, so a changed source rebuilds and an
+by a hash of the sources (the `*.cuh` headers they share included) and
+flags, so a changed source rebuilds and an
 unchanged one loads at once. The build happens at first use, never at
 import: a machine without `nvcc` or a card imports this module fine.
 
@@ -33,7 +34,8 @@ BUILD_DIR_ENV = "REPRO_TORCH_BUILD_DIR"
 # Launch counts per kernel wrapper (reset with `reset_launch_counts`).
 LAUNCHES: Dict[str, int] = {"lif": 0, "lif_counts": 0, "lif_fwd": 0,
                             "lif_counts_fwd": 0, "lif_bwd": 0,
-                            "spike_matmul_csr": 0, "sdsa_or": 0}
+                            "spike_matmul_csr": 0, "spike_matmul_pred": 0,
+                            "sdsa_or": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
@@ -53,6 +55,8 @@ SIGNATURES = {
     "sdsa_or_forward": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
     "spike_matmul_csr_forward": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                                  _I64, _P),
+    "spike_matmul_pred_forward": (_P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                                  _P),
 }
 
 
@@ -86,7 +90,7 @@ def _nvcc() -> str:
 
 def _sources_key(sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

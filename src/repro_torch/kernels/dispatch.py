@@ -1,15 +1,24 @@
-"""Backend dispatch registry for the SpikingFormer hot-path ops.
+"""Backend dispatch registry for the SpikingFormer and CNN hot-path ops.
 
 Model code calls ops only through this registry; each op has a plain
-PyTorch oracle (`ref`) and the hand-written CUDA kernels (`cuda`):
+PyTorch oracle (`ref`) and the hand-written CUDA kernels (`cuda`), plus
+manual routes (`auto=False`, reached only by an override):
 
-  op            backends     cuda realization
-  ------------  -----------  --------------------------------------------
-  lif_scan      ref | cuda   csrc/lif.cu, no-counts mode
-  lif_scan_occ  ref | cuda   csrc/lif.cu, counts mode (+ 16:1 map sum)
-  spike_matmul  ref | cuda   csrc/spike_matmul_csr.cu on the carried map
-  sdsa          ref | cuda   csrc/sdsa.cu on packed words (mode="or")
-  econv         ref | cuda   im2col + csrc/spike_matmul_csr.cu
+  op            backend    realization
+  ------------  ---------  ----------------------------------------------
+  lif_scan      cuda       csrc/lif.cu, no-counts mode
+  lif_scan_occ  cuda       csrc/lif.cu, counts mode (+ 16:1 map sum)
+  spike_matmul  cuda       csrc/spike_matmul_csr.cu on the carried map
+                cuda-pred  csrc/spike_matmul.cu, predicated (manual)
+  sdsa          cuda       csrc/sdsa.cu on packed words (mode="or")
+  econv         cuda       im2col + csrc/spike_matmul_csr.cu
+                cuda-pred  im2col + csrc/spike_matmul.cu (manual)
+                jnp        per-event scatter, `econv_scatter` (manual)
+  tconv         cuda       zero-insertion + im2col + csrc/spike_matmul.cu
+                jnp        zero-insertion + dense conv (manual)
+
+(`tconv` is the transposed conv of SegNet's decoder; the dense forward
+conv oracle of `econv` is `core.econv.tconv`, the paper's "TConv".)
 
 Selection order per call:
   1. an explicit override — the `use_backend(...)` context or the
@@ -18,8 +27,9 @@ Selection order per call:
      device the tensors lie on: the kernel wrappers take their plain
      version for CPU tensors, which is how the CPU tests walk the kernel
      path;
-  2. otherwise the highest-priority backend registered for the platform
-     of the call's first tensor (``cpu`` or ``cuda``).
+  2. otherwise the highest-priority automatic (``auto=True``) backend
+     registered for the platform of the call's first tensor (``cpu`` or
+     ``cuda``).
 A `supports` gate that refuses a call raises; the warn-and-degrade
 chains of `repro`'s registry, and its mesh, hybrid, guard and packed
 payload routing, are not ported yet.
@@ -48,6 +58,7 @@ import torch
 ENV_VAR = "EXSPIKE_BACKEND"
 REF = "ref"
 CUDA = "cuda"
+CUDA_PRED = "cuda-pred"
 ALL_PLATFORMS = ("cpu", "cuda")
 
 
@@ -55,11 +66,13 @@ ALL_PLATFORMS = ("cpu", "cuda")
 class Backend:
     """One registered implementation of an op. `supports(*args, **kw)`
     returns a reason string when it cannot take the call (None: it can);
-    `platforms` are the devices it is auto-selected on."""
+    `platforms` are the devices it is auto-selected on; an ``auto=False``
+    backend is never auto-selected, only named by an override."""
     name: str
     fn: Callable
     platforms: Tuple[str, ...] = ALL_PLATFORMS
     priority: int = 0
+    auto: bool = True
     supports: Optional[Callable[..., Optional[str]]] = None
     differentiable: bool = False
 
@@ -144,8 +157,10 @@ def _matmul_bwd(res, kwargs, g):
 
 
 def register(op: str, name: str, *, platforms=ALL_PLATFORMS, priority=0,
-             supports=None, differentiable=False, vjp=None):
-    """Decorator: register `fn` as backend `name` for `op`.
+             auto=True, supports=None, differentiable=False, vjp=None):
+    """Decorator: register `fn` as backend `name` for `op`. ``auto=False``
+    keeps it out of priority resolution: only `use_backend` or
+    ``EXSPIKE_BACKEND`` reach it.
 
     Gradient contract: ``differentiable=True`` when autograd through `fn`
     gives the `ref` oracle's gradients, or ``vjp="ref"`` /
@@ -156,8 +171,8 @@ def register(op: str, name: str, *, platforms=ALL_PLATFORMS, priority=0,
             raise KeyError(f"unknown op {op!r}; register_op it first")
         _REGISTRY[op].backends[name] = Backend(
             name=name, fn=_wrap_vjp(op, fn, vjp) if vjp is not None else fn,
-            platforms=tuple(platforms), priority=priority, supports=supports,
-            differentiable=differentiable or vjp is not None)
+            platforms=tuple(platforms), priority=priority, auto=auto,
+            supports=supports, differentiable=differentiable or vjp is not None)
         return fn
     return deco
 
@@ -246,7 +261,7 @@ def resolve(op: str, *args, **kwargs) -> Backend:
     else:
         platform = _platform(args)
         be = max((b for b in spec.backends.values()
-                  if platform in b.platforms),
+                  if b.auto and platform in b.platforms),
                  key=lambda b: b.priority, default=None)
         if be is None:
             raise RuntimeError(f"op {op!r} has no backend for platform "
@@ -380,6 +395,13 @@ def _spike_matmul_csr(s, w, occupancy=None):
     return ops.spike_matmul_csr(s, w, occupancy=occupancy)
 
 
+@register("spike_matmul", CUDA_PRED, auto=False, vjp=_matmul_bwd)
+def _spike_matmul_pred(s, w, occupancy=None):
+    # Predicated dense grid: every tile visited, the map gates the product.
+    from repro_torch.kernels import ops
+    return ops.spike_matmul(s, w, occupancy=occupancy)
+
+
 # ------------------------------------------------------------------ sdsa
 def _sdsa_example(dev):
     return tuple(_binary((2, 3, 24, 40), 0.4, dev) for _ in range(3)), \
@@ -438,23 +460,103 @@ def econv_patches(s: torch.Tensor, kh: int, kw: int, stride: int,
     return cols.transpose(1, 2).reshape(-1, cols.shape[1]).contiguous()
 
 
-@register("econv", CUDA, platforms=("cuda",), priority=20, vjp=REF)
-def _econv_cuda(s, w, *, stride=1, padding="SAME", occupancy=None):
-    """im2col + the CSR spike matmul: binary patches of a binary map stay
-    binary, so the event matmul is the conv, and patch-row tiles with no
-    events cost no work. `occupancy` is a map for the PATCH matrix — the
+def _econv_im2col(s, w, stride, padding, matmul, occupancy=None):
+    """im2col + an occupancy-skipping spike matmul: binary patches of a
+    binary map stay binary, so the event matmul is the conv, and patch
+    tiles with no events cost no work. `matmul` picks the kernel (the
+    event-compacted `ops.spike_matmul_csr` or the predicated
+    `ops.spike_matmul`). `occupancy` is a map for the PATCH matrix — the
     input map propagated through the im2col window
     (`core.events.conv_patch_occupancy`), never a re-scan of the
     kh*kw-times larger patch tensor."""
     from repro_torch.core.econv import conv_pads
-    from repro_torch.kernels import ops
     kh, kw, ci, co = w.shape
     ho = conv_pads(s.shape[1], kh, stride, padding)[0]
     wo = conv_pads(s.shape[2], kw, stride, padding)[0]
     patches = econv_patches(s, kh, kw, stride, padding)
     w2 = w.permute(2, 0, 1, 3).reshape(ci * kh * kw, co)
-    out = ops.spike_matmul_csr(patches, w2.float(), occupancy=occupancy)
+    out = matmul(patches, w2.float(), occupancy=occupancy)
     return out.reshape(s.shape[0], ho, wo, co)
+
+
+@register("econv", CUDA, platforms=("cuda",), priority=20, vjp=REF)
+def _econv_cuda(s, w, *, stride=1, padding="SAME", occupancy=None):
+    from repro_torch.kernels import ops
+    return _econv_im2col(s, w, stride, padding, ops.spike_matmul_csr,
+                         occupancy)
+
+
+@register("econv", CUDA_PRED, auto=False, vjp=REF)
+def _econv_pred(s, w, *, stride=1, padding="SAME", occupancy=None):
+    from repro_torch.kernels import ops
+    return _econv_im2col(s, w, stride, padding, ops.spike_matmul, occupancy)
+
+
+def _econv_scatter_supports(s, w, *, stride=1, padding="SAME", **kwargs):
+    del s, kwargs
+    kh, kw = w.shape[:2]
+    if kh % 2 == 0 or kw % 2 == 0:
+        return f"event scatter needs odd kernels, got {(kh, kw)}"
+    if stride != 1 or padding != "SAME":
+        return f"event scatter is stride-1/SAME only, got {stride}/{padding}"
+    return None
+
+
+# Event extraction + index_add_ scatter: the faithful Algorithm 1 form.
+# Its backward replays the dense conv (`vjp="ref"`), as in `repro`.
+@register("econv", "jnp", auto=False, supports=_econv_scatter_supports,
+          vjp=REF)
+def _econv_scatter(s, w, *, stride=1, padding="SAME", occupancy=None):
+    del stride, padding, occupancy
+    from repro_torch.core.econv import econv_scatter
+    return econv_scatter(s, w)
+
+
+# ----------------------------------------------------------------- tconv
+# The transposed conv of SegNet's decoder (16TC3, 2TC3). Zero-insertion
+# dilates event addresses but keeps the events binary, so its kernel form
+# is im2col + the predicated spike matmul; the patch map comes from a
+# dense pre-pass (no map survives the zero-insertion).
+def _tconv_example(dev):
+    s = _binary((2, 6, 6, 5), 0.3, dev)
+    w = torch.randn(3, 3, 5, 4, generator=torch.Generator().manual_seed(1))
+    return (s, w.to(dev)), {"stride": 2, "padding": "SAME"}
+
+
+register_op("tconv", _tconv_example)
+
+
+def _tconv_pad_supports(s, w, *, stride=2, padding="SAME") -> Optional[str]:
+    del s, w
+    if padding not in ("SAME", "VALID"):
+        return f"upsample form supports SAME/VALID, got {padding!r}"
+    if stride < 1:
+        return f"stride must be >= 1, got {stride}"
+    return None
+
+
+@register("tconv", REF, priority=0, differentiable=True)
+def _tconv_ref(s, w, *, stride=2, padding="SAME"):
+    from repro_torch.core.econv import conv_transpose_ref
+    return conv_transpose_ref(s, w, stride=stride, padding=padding)
+
+
+# Zero-insertion + stride-1 conv: the same linear map as the oracle, so
+# autograd through it gives ref's cotangents.
+@register("tconv", "jnp", auto=False, supports=_tconv_pad_supports,
+          differentiable=True)
+def _tconv_upsampled(s, w, *, stride=2, padding="SAME"):
+    from repro_torch.core.econv import conv_transpose_upsampled
+    return conv_transpose_upsampled(s, w, stride=stride, padding=padding)
+
+
+@register("tconv", CUDA, platforms=("cuda",), priority=20,
+          supports=_tconv_pad_supports, vjp=REF)
+def _tconv_cuda(s, w, *, stride=2, padding="SAME"):
+    from repro_torch.core.econv import upsample_events
+    from repro_torch.kernels import ops
+    up = upsample_events(s, stride, w.shape[0], w.shape[1], padding)
+    return _econv_im2col(up, w, 1, "VALID", ops.spike_matmul)
 
 
 # ======================================================================
@@ -513,3 +615,11 @@ def econv(s, w, *, stride=1, padding="SAME"):
             kw["occupancy"] = occ
         s = s.spikes
     return dispatch("econv", s, w, **kw)
+
+
+def tconv(s, w, *, stride=2, padding="SAME"):
+    """Transposed conv. Zero-insertion dilates event addresses, so a
+    carried map does not survive: the dense view only (the documented
+    invalidation rule)."""
+    from repro_torch.core.events import as_spikes
+    return dispatch("tconv", as_spikes(s), w, stride=stride, padding=padding)

@@ -14,7 +14,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.events import EventTensor
 from repro_torch.core.spikes import (PACK, TileCSR, build_csr, pack_spikes,
-                                     tile_occupancy, unpack_spikes)
+                                     ragged_tile_occupancy, unpack_spikes)
 from . import lif_scan, sdsa_kernel, spike_matmul as _csr
 
 
@@ -94,11 +94,10 @@ def sdsa_or(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def padded_occupancy(s: torch.Tensor, block_m: int = 128,
                      block_k: int = 128) -> torch.Tensor:
     """The occupancy pre-pass as the matmul consumers tile it: lead axes
-    flattened into rows, rows and K zero-padded to the tiling."""
-    k = s.shape[-1]
-    s2, _ = _pad_to(s.reshape(-1, k), 0, block_m)
-    s2, _ = _pad_to(s2, 1, block_k)
-    return tile_occupancy(s2, block_m, block_k)
+    flattened into rows, rows and K zero-padded to the tiling (counted in
+    place, without a padded copy)."""
+    return ragged_tile_occupancy(s.reshape(-1, s.shape[-1]), block_m,
+                                 block_k)
 
 
 def _check_map(occupancy: torch.Tensor, grid) -> None:
@@ -107,6 +106,35 @@ def _check_map(occupancy: torch.Tensor, grid) -> None:
             f"occupancy map {tuple(occupancy.shape)} does not match the "
             f"padded {tuple(grid)} tile grid — built for a different "
             f"flattening or tiling")
+
+
+def spike_matmul(s, w: torch.Tensor, *,
+                 occupancy: torch.Tensor | None = None) -> torch.Tensor:
+    """Predicated spike matmul for (..., M, K) x (K, N) on the 128x128
+    tile grid: every tile is visited and the map gates its product.
+
+    `s` may be an `EventTensor`, whose carried map replaces the pre-pass;
+    an explicit `occupancy` wins over it. A supplied map is validated
+    against the padded tile grid of the flattened s and never re-derived;
+    the dense pre-pass runs only when no map is given. Ragged M, K and N
+    are masked in the kernel (no padded operand copies).
+    """
+    tile = _csr.TILE
+    if isinstance(s, EventTensor):
+        if occupancy is None:
+            occupancy = s.occupancy_for(tile, tile)
+        s = s.spikes
+    lead = s.shape[:-2]
+    m, k = s.shape[-2:]
+    n = w.shape[-1]
+    s2 = s.reshape(-1, k).float().contiguous()
+    if occupancy is None:
+        occupancy = padded_occupancy(s2, tile, tile)
+    else:
+        _check_map(occupancy, (-(-s2.shape[0] // tile), -(-k // tile)))
+    out = _csr.spike_matmul_pred(s2, w.float().contiguous(),
+                                 occupancy.to(torch.int32).contiguous())
+    return out.reshape(lead + (m, n))
 
 
 def spike_matmul_csr(s, w: torch.Tensor, csr: TileCSR | None = None, *,

@@ -1,11 +1,12 @@
-"""Event-compacted spike matmul over a CSR-of-tiles work list.
+"""Occupancy-skipping spike matmuls on the 128x128 tile grid of s.
 
-`spike_matmul_csr(s, w, csr)` computes s @ w summing only the occupied
-(m-tile, k-tile) steps of `csr` (a `core.spikes.TileCSR` over the
-128x128 tile grid of s). On a CUDA tensor it launches
-`csrc/spike_matmul_csr.cu`; on a CPU tensor it runs the plain version.
-Both accept any (M, K) x (K, N): ragged edge tiles are masked, never
-padded.
+`spike_matmul_csr(s, w, csr)` is event-compacted: it sums only the
+occupied (m-tile, k-tile) steps of `csr` (a `core.spikes.TileCSR`) and
+launches `csrc/spike_matmul_csr.cu`. `spike_matmul_pred(s, w, occ)` is
+predicated: every (m-tile, n-tile) block walks all k-tiles and the map
+gates each product; it launches `csrc/spike_matmul.cu`. On a CPU tensor
+each runs its plain version. All accept any (M, K) x (K, N): ragged edge
+tiles are masked, never padded.
 """
 from __future__ import annotations
 
@@ -30,15 +31,22 @@ def csr_tile_gate(csr: TileCSR, mt: int, kt: int) -> torch.Tensor:
     return gate.reshape(mt, kt) > 0
 
 
+def spike_matmul_pred_plain(s: torch.Tensor, w: torch.Tensor,
+                            occ: torch.Tensor) -> torch.Tensor:
+    """Plain version of the predicated kernel: zero the spike tiles whose
+    map count is 0, then one dense fp32 matmul over the rest."""
+    m, k = s.shape
+    mask = (occ > 0).repeat_interleave(TILE, 0).repeat_interleave(TILE, 1)
+    return torch.matmul(s.float() * mask[:m, :k], w.float())
+
+
 def spike_matmul_csr_plain(s: torch.Tensor, w: torch.Tensor,
                            csr: TileCSR) -> torch.Tensor:
-    """Plain version: zero the spike tiles the work list does not visit,
-    then one dense fp32 matmul."""
+    """Plain version of the CSR kernel: the predicated plain version on
+    the tiles the work list visits."""
     m, k = s.shape
-    mt, kt = -(-m // TILE), -(-k // TILE)
-    gate = csr_tile_gate(csr, mt, kt)
-    mask = gate.repeat_interleave(TILE, 0).repeat_interleave(TILE, 1)
-    return torch.matmul(s.float() * mask[:m, :k], w.float())
+    return spike_matmul_pred_plain(
+        s, w, csr_tile_gate(csr, -(-m // TILE), -(-k // TILE)))
 
 
 def spike_matmul_csr(s: torch.Tensor, w: torch.Tensor,
@@ -69,4 +77,34 @@ def spike_matmul_csr(s: torch.Tensor, w: torch.Tensor,
         s.data_ptr(), w.data_ptr(), out.data_ptr(), row_ptr.data_ptr(),
         kidx.data_ptr(), occ.data_ptr(), m, k, n, mt, _build.stream()),
         "spike_matmul_csr")
+    return out
+
+
+def spike_matmul_pred(s: torch.Tensor, w: torch.Tensor,
+                      occ: torch.Tensor) -> torch.Tensor:
+    """s: (M, K) f32 spikes (binary, or multi-bit at a coded input),
+    w: (K, N) f32, occ: (ceil(M/128), ceil(K/128)) int32 per-tile event
+    counts -> (M, N) f32."""
+    if s.ndim != 2 or w.ndim != 2 or s.shape[1] != w.shape[0]:
+        raise ValueError(f"spike_matmul_pred needs (M, K) x (K, N), got "
+                         f"{tuple(s.shape)} x {tuple(w.shape)}")
+    m, k = s.shape
+    n = w.shape[1]
+    grid = (-(-m // TILE), -(-k // TILE))
+    if tuple(occ.shape) != grid:
+        raise ValueError(f"occupancy map {tuple(occ.shape)} does not match "
+                         f"the {grid} tile grid of {tuple(s.shape)}")
+    if not s.is_cuda:
+        return spike_matmul_pred_plain(s, w, occ)
+    _build.require_cuda("spike_matmul_pred", s, w, dtype=torch.float32)
+    _build.require_cuda("spike_matmul_pred", occ, dtype=torch.int32)
+    if occ.device != s.device:
+        raise ValueError("spike_matmul_pred: map and operands lie on "
+                         "different devices")
+    out = torch.empty((m, n), dtype=torch.float32, device=s.device)
+    lib = _build.library()
+    _build.LAUNCHES["spike_matmul_pred"] += 1
+    _build.check(lib.spike_matmul_pred_forward(
+        s.data_ptr(), w.data_ptr(), out.data_ptr(), occ.data_ptr(), m, k, n,
+        grid[1], _build.stream()), "spike_matmul_pred")
     return out

@@ -6,10 +6,13 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core.events import EventTensor
 from repro_torch.core.lif import LIFConfig
+from repro_torch.optim.adamw import AdamWState
 
 
 def dense_init(d_in: int, d_out: int, *, generator: torch.Generator,
@@ -57,3 +60,47 @@ def lif_fire_events(x: torch.Tensor, lif_cfg: LIFConfig,
         soft_reset=lif_cfg.soft_reset,
         surrogate_alpha=lif_cfg.surrogate_alpha)
     return EventTensor(s, occ, chunks=chunks)
+
+
+def params_from_numpy(tree, device="cuda"):
+    """A `repro` param tree (leaves passed through `np.asarray`) as port
+    params on `device`: same nesting, same layouts, float32 tensors.
+    `None` placeholders (VGG11's pooling slots) stay `None` and Python
+    `int` / `bool` leaves (ResNet18's block `stride`) stay themselves. A
+    `repro` AdamW state (`step`, `mu`, `nu`) comes across as the port's
+    `AdamWState`, keeping an integer step and bfloat16 moments."""
+    dev = resolve_device(device)
+    if tree is None or isinstance(tree, (bool, int)):
+        return tree
+    if isinstance(tree, tuple) and getattr(tree, "_fields", None) == \
+            AdamWState._fields:
+        return AdamWState(
+            step=torch.tensor(int(np.asarray(tree[0])), dtype=torch.int32,
+                              device=dev),
+            mu=params_from_numpy(tree[1], dev),
+            nu=params_from_numpy(tree[2], dev))
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, dev) for v in tree]
+    arr = np.asarray(tree)
+    out = torch.from_numpy(arr.astype(np.float32)).to(dev)
+    # numpy has no bfloat16 of its own: such leaves arrive as ml_dtypes'
+    # type, whose values f32 holds exactly, so the round trip is lossless.
+    return out.to(torch.bfloat16) if arr.dtype.name == "bfloat16" else out
+
+
+def params_to_numpy(tree):
+    """Port params (or an `AdamWState`) as the same tree of numpy arrays;
+    bfloat16 leaves come back as float32 (numpy has no bfloat16), `None`
+    and `int` / `bool` leaves as themselves."""
+    if tree is None or isinstance(tree, (bool, int)):
+        return tree
+    if isinstance(tree, AdamWState):
+        return AdamWState(*(params_to_numpy(v) for v in tree))
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -15,7 +15,6 @@ from __future__ import annotations
 
 from typing import Any, Dict, List
 
-import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -24,9 +23,11 @@ from repro_torch.core.econv import econv, tconv
 from repro_torch.core.events import max_pool_events
 from repro_torch.core.lif import LIFConfig
 from repro_torch.kernels import dispatch
-from repro_torch.optim.adamw import AdamWState
 from .cnn import _conv_init
 from .layers import dense_init, hybrid_scope, lif_fire, lif_fire_events
+# The param tree converters live in `layers` (shared with the CNNs) and
+# stay importable from here.
+from .layers import params_from_numpy, params_to_numpy  # noqa: F401
 
 Params = Dict[str, Any]
 
@@ -54,43 +55,6 @@ def spikingformer_init(depth: int, dim: int, n_classes: int = 10,
                 ("w_fc2", 4 * dim, dim))})
     p["head"] = dense_init(dim, n_classes, generator=g, device=dev)
     return p
-
-
-def params_from_numpy(tree, device="cuda"):
-    """A `repro` param tree (leaves passed through `np.asarray`) as port
-    params on `device`: same nesting, same layouts, float32 tensors. A
-    `repro` AdamW state (`step`, `mu`, `nu`) comes across as the port's
-    `AdamWState`, keeping an integer step and bfloat16 moments."""
-    dev = resolve_device(device)
-    if isinstance(tree, tuple) and getattr(tree, "_fields", None) == \
-            AdamWState._fields:
-        return AdamWState(
-            step=torch.tensor(int(np.asarray(tree[0])), dtype=torch.int32,
-                              device=dev),
-            mu=params_from_numpy(tree[1], dev),
-            nu=params_from_numpy(tree[2], dev))
-    if isinstance(tree, dict):
-        return {k: params_from_numpy(v, dev) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [params_from_numpy(v, dev) for v in tree]
-    arr = np.asarray(tree)
-    out = torch.from_numpy(arr.astype(np.float32)).to(dev)
-    # numpy has no bfloat16 of its own: such leaves arrive as ml_dtypes'
-    # type, whose values f32 holds exactly, so the round trip is lossless.
-    return out.to(torch.bfloat16) if arr.dtype.name == "bfloat16" else out
-
-
-def params_to_numpy(tree):
-    """Port params (or an `AdamWState`) as the same tree of numpy arrays;
-    bfloat16 leaves come back as float32 (numpy has no bfloat16)."""
-    if isinstance(tree, AdamWState):
-        return AdamWState(*(params_to_numpy(v) for v in tree))
-    if isinstance(tree, dict):
-        return {k: params_to_numpy(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [params_to_numpy(v) for v in tree]
-    t = tree.detach().cpu()
-    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def spikingformer_apply(p: Params, x: torch.Tensor, n_heads: int = 8,

@@ -6,8 +6,8 @@ Torch-only (no JAX), so it runs on the GPU machine:
 
 Every test is marked `cuda` and skips where no CUDA device is present.
 Spikes, counts, membrane residuals, LIF drive cotangents and SDSA words
-must match exactly; the CSR matmul within 1e-5 * max|plain| + 1e-5 (fp32
-summation order).
+must match exactly; the CSR and predicated matmuls within
+1e-5 * max|plain| + 1e-5 (fp32 summation order).
 """
 import numpy as np
 import pytest
@@ -71,6 +71,52 @@ def test_cuda_csr_kernel_matches_plain(cuda_device, m, k, n):
     assert (got - want).abs().max().item() <= tol
 
 
+def _pred_case(rng, m, k, n, device, multi_bit=False):
+    s = _clustered(rng, m, k)
+    s[128:256] = 0                                # an all-empty m-tile row
+    if multi_bit:                                 # a coded input's values
+        s *= rng.integers(-128, 128, size=s.shape).astype(np.float32) / 127
+    w = rng.normal(size=(k, n)).astype(np.float32)
+    return (torch.from_numpy(s).to(device), torch.from_numpy(w).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,multi_bit", [
+    (512, 256, 128, False),          # aligned
+    (300, 200, 60, False),           # ragged M, K and N
+    (1000, 144, 2, False),           # N = 2 (SegNet's last tconv)
+    (600, 288, 16, False),           # N = 16 (SegNet's first tconv)
+    (400, 300, 40, True),            # multi-bit s
+])
+def test_cuda_pred_kernel_matches_plain(cuda_device, m, k, n, multi_bit):
+    rng = np.random.default_rng(m + n)
+    s, w = _pred_case(rng, m, k, n, cuda_device, multi_bit)
+    occ = ops.padded_occupancy(s)
+    assert (occ[1] == 0).all() and (occ > 0).any()
+    for the_map in (occ, torch.ones_like(occ)):
+        got = spike_matmul.spike_matmul_pred(s, w, the_map)
+        want = spike_matmul.spike_matmul_pred_plain(s, w, the_map)
+        tol = 1e-5 * want.abs().max().item() + 1e-5
+        assert (got - want).abs().max().item() <= tol
+        assert torch.all(got[128:256] == 0)
+
+
+@pytest.mark.cuda
+def test_cuda_pred_kernel_gates_on_the_map(cuda_device):
+    """A tile the map calls empty contributes nothing, even if it holds
+    events; a row with no occupied tile writes zeros."""
+    s = torch.ones(300, 200, device=cuda_device)
+    w = torch.ones(200, 2, device=cuda_device)
+    occ = torch.tensor([[1, 0], [0, 0], [0, 3]], dtype=torch.int32,
+                       device=cuda_device)
+    out = ops.spike_matmul(s, w, occupancy=occ)
+    assert torch.all(out[:128] == 128) and torch.all(out[128:256] == 0)
+    assert torch.all(out[256:] == 72)
+    reset_launch_counts()
+    ops.spike_matmul(s, w)
+    assert launch_counts()["spike_matmul_pred"] == 1
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_count_each_launch(cuda_device):
     reset_launch_counts()
@@ -79,7 +125,8 @@ def test_cuda_wrappers_count_each_launch(cuda_device):
     lif_scan.lif_counts(x)
     assert launch_counts() == {"lif": 1, "lif_counts": 1, "lif_fwd": 0,
                                "lif_counts_fwd": 0, "lif_bwd": 0,
-                               "spike_matmul_csr": 0, "sdsa_or": 0}
+                               "spike_matmul_csr": 0, "spike_matmul_pred": 0,
+                               "sdsa_or": 0}
 
 
 @pytest.mark.cuda
@@ -125,7 +172,8 @@ def test_cuda_training_wrappers_count_each_launch(cuda_device):
     lif_scan.lif_bwd(vres, x)
     assert launch_counts() == {"lif": 0, "lif_counts": 0, "lif_fwd": 1,
                                "lif_counts_fwd": 1, "lif_bwd": 1,
-                               "spike_matmul_csr": 0, "sdsa_or": 0}
+                               "spike_matmul_csr": 0, "spike_matmul_pred": 0,
+                               "sdsa_or": 0}
 
 
 @pytest.mark.cuda

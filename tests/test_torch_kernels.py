@@ -196,12 +196,42 @@ def test_econv_kernel_path_matches_jax(stride, padding):
 
 
 # -------------------------------------------------------------- dispatch
+REGISTRY = {"lif_scan": {"ref", "cuda"}, "lif_scan_occ": {"ref", "cuda"},
+            "spike_matmul": {"ref", "cuda", "cuda-pred"},
+            "sdsa": {"ref", "cuda"},
+            "econv": {"ref", "cuda", "cuda-pred", "jnp"},
+            "tconv": {"ref", "cuda", "jnp"}}
+MANUAL = {("spike_matmul", "cuda-pred"), ("econv", "cuda-pred"),
+          ("econv", "jnp"), ("tconv", "jnp")}
+
+
 def test_cpu_resolves_every_op_to_ref():
     assert set(dispatch.resolved_backends("cpu").values()) == {"ref"}
-    assert set(dispatch.op_names()) == {"lif_scan", "lif_scan_occ",
-                                        "spike_matmul", "sdsa", "econv"}
+    assert set(dispatch.op_names()) == set(REGISTRY)
     for op in dispatch.op_names():
-        assert set(dispatch.backend_names(op)) == {"ref", "cuda"}
+        assert set(dispatch.backend_names(op)) == REGISTRY[op]
+        for name in REGISTRY[op]:
+            assert dispatch.get_backend(op, name).auto == \
+                ((op, name) not in MANUAL), (op, name)
+
+
+@pytest.mark.parametrize("op", sorted(REGISTRY))
+def test_every_backend_matches_ref_on_the_same_inputs(op):
+    """Each op's example inputs through every registered backend on CPU
+    tensors (the kernel routes run their plain versions): fire ops and
+    SDSA exactly, the matmul-form ops within 1e-5."""
+    args, kwargs = dispatch._REGISTRY[op].make_example(torch.device("cpu"))
+    want = dispatch.get_backend(op, "ref").fn(*args, **kwargs)
+    for name in dispatch.backend_names(op):
+        with dispatch.use_backend(name, op=op):
+            got = dispatch.dispatch(op, *args, **kwargs)
+        pairs = zip(got, want) if isinstance(want, tuple) else [(got, want)]
+        for a, b in pairs:
+            if op in ("lif_scan", "lif_scan_occ", "sdsa"):
+                assert torch.equal(a, b), (op, name)
+            else:
+                np.testing.assert_allclose(a.numpy(), b.numpy(), atol=ATOL,
+                                           rtol=ATOL, err_msg=f"{op} {name}")
 
 
 def test_overrides_context_env_and_per_op(monkeypatch):

@@ -82,10 +82,17 @@ def _jax_vjp(fn, inputs, g, backend=None):
 # ------------------------------------------------- R1: gradient contract
 def test_every_backend_declares_gradient_contract():
     """Training resolves backends as inference does, so every backend the
-    resolver can pick must be differentiable."""
+    resolver can pick, or an override can name, must be differentiable."""
     for op in dispatch.op_names():
         assert set(dispatch.differentiable_backend_names(op)) == \
             set(dispatch.backend_names(op)), op
+    assert {"tconv", "econv", "spike_matmul"} <= set(dispatch.op_names())
+    assert set(dispatch.differentiable_backend_names("tconv")) == \
+        {"ref", "jnp", "cuda"}
+    assert {"cuda-pred", "jnp"} <= set(
+        dispatch.differentiable_backend_names("econv"))
+    assert "cuda-pred" in dispatch.differentiable_backend_names(
+        "spike_matmul")
 
 
 def test_kernel_launch_refuses_operands_autograd_records():
@@ -160,7 +167,7 @@ def test_spike_matmul_gradient_in_skipped_tiles_matches_jax():
 
     def port(a, b):
         return dispatch.spike_matmul(tev.EventTensor(a, occ), b)
-    for be in ("cuda", "ref"):
+    for be in ("cuda", "cuda-pred", "ref"):
         ds, dw = _port_vjp(port, [s, w], g, be)
         _close(ds, want[0], 1e-5, f"ds {be}")
         _close(dw, want[1], 1e-5, f"dw {be}")
@@ -185,7 +192,8 @@ def test_econv_gradient_with_carried_map_matches_jax(stride):
     def port(a, b):
         return dispatch.econv(tev.EventTensor(a, occ, chunks=chunks), b,
                               stride=stride)
-    for be in ("cuda", "ref"):
+    for be in ("cuda", "cuda-pred", "ref") + (("jnp",) if stride == 1
+                                                else ()):
         for got, ref, name in zip(_port_vjp(port, [s, w], g, be), want,
                                   ("ds", "dw")):
             _close(got, ref, 1e-5, f"{name} {be}")
