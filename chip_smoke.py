@@ -44,9 +44,23 @@ Phases, each printed on its own line:
       `ref`'s on the same inputs and cotangent (SAME_INPUT_GRAD_TOL); the
       same 3 steps on `ref` printed beside them; then a per-op forward and
       backward device-time breakdown of one step;
+  (i) APEC on SpikingFormer-4-384's own spike maps (one forward at
+      B=32, T=4, captured): the packed decompose kernel (kernel 19)
+      exactly equal to its plain version for g = 2, 4, 8 on the FFN fc1
+      input and the stage-1 patch matrix; the fused union-CSR APEC
+      matmul (kernel 17, g = 2) within 1e-5 * max|ref| + 1e-5 of its
+      plain version at fc1, fc2 and stage 1, on the model's maps and on
+      data with 50% occupied tiles, with kernel, plain, library and bound
+      times; then `core.apec.apec_matmul` on the FFN inputs and the
+      stage-1 patch matrix for g = 2 and 4, with the carried map and on
+      the bare spikes: finite, within 1e-5 * max|ref| + 1e-5 of the CSR
+      matmul on the same spikes, exactly 1 decompose and 1 fused launch
+      per call, 0 dense pre-passes with the map and 2 without, its
+      device ms beside the CSR route's; and `apec_stats` (G2, G4, G8)
+      of every fire of the forward;
   (d) one JSON line listing every kernel with its launches on the main
       paths ((c) and (h) for inference kernels, (f) for the training
-      ones), error and times.
+      ones, (i) for the APEC ones), error and times.
 The last line is {"ok": true, "device": {...}}. Any failed check exits
 nonzero before it; without a CUDA device, or without the repo's `src`
 beside this file, the script exits nonzero and prints no result.
@@ -54,7 +68,9 @@ beside this file, the script exits nonzero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -92,6 +108,9 @@ CNN_BATCHES = 2
 INFERENCE_KERNELS = ("lif_counts", "lif", "spike_matmul_csr",
                      "spike_matmul_pred", "sdsa_or")
 TRAINING_KERNELS = ("lif_fwd", "lif_counts_fwd", "lif_bwd")
+APEC_KERNELS = ("apec_decompose", "apec_matmul_csr")
+APEC_PATH_GROUPS = (2, 4)
+APEC_STAT_GROUPS = (2, 4, 8)
 SOURCES = {"lif": "src/repro_torch/csrc/lif.cu",
            "lif_counts": "src/repro_torch/csrc/lif.cu",
            "lif_fwd": "src/repro_torch/csrc/lif.cu",
@@ -99,7 +118,9 @@ SOURCES = {"lif": "src/repro_torch/csrc/lif.cu",
            "lif_bwd": "src/repro_torch/csrc/lif.cu",
            "spike_matmul_csr": "src/repro_torch/csrc/spike_matmul_csr.cu",
            "spike_matmul_pred": "src/repro_torch/csrc/spike_matmul.cu",
-           "sdsa_or": "src/repro_torch/csrc/sdsa.cu"}
+           "sdsa_or": "src/repro_torch/csrc/sdsa.cu",
+           "apec_decompose": "src/repro_torch/csrc/apec.cu",
+           "apec_matmul_csr": "src/repro_torch/csrc/apec_matmul_csr.cu"}
 # Same inputs, one op call: the fire and attention ops are exact, the
 # matmul-form ops agree to fp32 summation order (relative to max|ref|).
 SAME_INPUT_TOL = {"lif_scan": 0.0, "lif_scan_occ": 0.0, "sdsa": 0.0,
@@ -124,7 +145,9 @@ REPLACES = {"lif": "src/repro/kernels/lif_scan.py:36",
             "lif_bwd": "src/repro/kernels/lif_scan.py:107",
             "spike_matmul_csr": "src/repro/kernels/spike_matmul.py:156",
             "spike_matmul_pred": "src/repro/kernels/spike_matmul.py:48",
-            "sdsa_or": "src/repro/kernels/sdsa_kernel.py:29"}
+            "sdsa_or": "src/repro/kernels/sdsa_kernel.py:29",
+            "apec_decompose": "src/repro/kernels/apec_kernel.py:21",
+            "apec_matmul_csr": "src/repro/kernels/spike_matmul.py:581"}
 
 
 class SmokeFailure(RuntimeError):
@@ -248,16 +271,25 @@ def phase_sdsa(torch, gen, device, results):
     emit("kernel", name="sdsa_or", **results["sdsa_or"])
 
 
-def csr_work(torch, occ, m, k, n):
+def csr_work(torch, occ, m, k, n, occ_ov=None, g=1):
     """(flops, bytes) this map's occupied tiles need: each occupied tile's
     rows x k-columns x N FMAs, its spike bytes, the weight rows of every
-    k-tile used once, and the output written once."""
+    k-tile used once, and the output written once. `occ_ov`: APEC's
+    overlap map on the same grid (tiles of rows/g rows), whose occupied
+    tiles add their own FMAs and spike bytes; a k-tile that either operand
+    uses reads its weight rows once."""
     rows = torch.clamp(m - 128 * torch.arange(occ.shape[0]), max=128)
     cols = torch.clamp(k - 128 * torch.arange(occ.shape[1]), max=128)
-    area = (rows[:, None] * cols[None, :]) * (occ.cpu() > 0)
-    k_used = (cols * (occ.cpu() > 0).any(0)).sum().item()
-    return 2.0 * area.sum().item() * n, \
-        4.0 * (area.sum().item() + k_used * n + m * n)
+    area = rows[:, None] * cols[None, :]
+    live = occ.cpu() > 0
+    elems = (area * live).sum().item()
+    used = live.any(0)
+    if occ_ov is not None:
+        live_ov = occ_ov.cpu() > 0
+        elems += (area * live_ov).sum().item() / g
+        used = used | live_ov.any(0)
+    k_used = (cols * used).sum().item()
+    return 2.0 * elems * n, 4.0 * (elems + k_used * n + m * n)
 
 
 def phase_csr(torch, gen, device, results):
@@ -894,6 +926,241 @@ def phase_train(torch, device):
     return totals
 
 
+# ------------------------------------------------------------ phase (i)
+def apec_capture(torch, device):
+    """One SpikingFormer-4-384 forward (B=32, T=4, v_th=0.5, seed 0) on
+    the kernels, recording block 0's FFN inputs (spikes, weights, carried
+    map), the stage-1 econv input and its propagated patch map, and every
+    fire's spikes."""
+    from repro_torch.configs.base import SpikingConfig
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import spikingformer as sf
+    params = sf.spikingformer_init(
+        DEPTH, DIM, generator=torch.Generator().manual_seed(SEED),
+        device=device)
+    x = torch.rand((B, 32, 32, 3),
+                   generator=torch.Generator().manual_seed(SEED + 1)
+                   ).to(device)
+    cap = {"spike_matmul": [], "econv": [], "fires": []}
+    orig = dispatch.dispatch
+
+    def record(op, *args, **kwargs):
+        out = orig(op, *args, **kwargs)
+        if op in ("spike_matmul", "econv"):
+            cap[op].append((args[0], args[1], kwargs.get("occupancy")))
+        elif op.startswith("lif"):
+            cap["fires"].append(out[0] if isinstance(out, tuple) else out)
+        return out
+    dispatch.dispatch = record
+    try:
+        with torch.inference_mode():
+            sf.spikingformer_apply(params, x, n_heads=HEADS,
+                                   spiking_cfg=SpikingConfig(t_steps=T,
+                                                             lif_vth=V_TH))
+    finally:
+        dispatch.dispatch = orig
+    torch.cuda.synchronize()
+    return cap
+
+
+def phase_apec_decompose(torch, cap, results):
+    """Kernel 19 against its plain version, exactly, at the packed FFN fc1
+    input and the packed stage-1 patch matrix, g = 2, 4, 8."""
+    from repro_torch.core.spikes import pack_spikes_padded
+    from repro_torch.kernels import apec_kernel, dispatch
+    s_fc1 = cap["spike_matmul"][0][0]
+    s_conv, w_conv, _ = cap["econv"][0]
+    patches = dispatch.econv_patches(s_conv, w_conv.shape[0],
+                                     w_conv.shape[1], 1, "SAME")
+    for label, dense in (("ffn_fc1", s_fc1.reshape(-1, s_fc1.shape[-1])),
+                         ("econv_stage1", patches)):
+        words = pack_spikes_padded(dense).contiguous()
+        p, dw = words.shape
+        for g in APEC_STAT_GROUPS:
+            got = apec_kernel.apec_decompose_packed(words, g)
+            want = apec_kernel.apec_decompose_packed_plain(words, g)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                      for a, b in zip(got, want)),
+                  f"apec_decompose kernel disagrees with its plain version "
+                  f"({label}, g={g})")
+            b_ms, by = bound_ms(4.0 * (2 * p * dw + p // g * dw))
+            rec = dict(max_abs_err=0.0,
+                       ms=cuda_ms(torch, lambda: apec_kernel
+                                  .apec_decompose_packed(words, g)),
+                       plain_ms=cuda_ms(torch, lambda: apec_kernel
+                                        .apec_decompose_packed_plain(
+                                            words, g), reps=5),
+                       bound_ms=b_ms, bound_by=by, library_ms=None,
+                       shape=[p, dw])
+            emit("kernel", name="apec_decompose", case=f"{label}_g{g}",
+                 **rec)
+            if (label, g) == ("econv_stage1", 2):
+                results["apec_decompose"] = rec
+
+
+def phase_apec_matmul_kernel(torch, gen, cap, results):
+    """Kernel 17 (g = 2) against its plain version at FFN fc1, fc2 and the
+    stage-1 patch matmul, on the model's spikes and on clustered data."""
+    from repro_torch.core.spikes import ragged_tile_occupancy
+    from repro_torch.kernels import dispatch, ops, spike_matmul
+    g = 2
+    (s1, w1, _), (s2, w2, _) = cap["spike_matmul"][:2]
+    s_conv, w_conv, _ = cap["econv"][0]
+    kh, kw, ci, co = w_conv.shape
+    cases = (("ffn_fc1", s1.reshape(-1, s1.shape[-1]), w1),
+             ("ffn_fc2", s2.reshape(-1, s2.shape[-1]), w2),
+             ("econv_stage1",
+              dispatch.econv_patches(s_conv, kh, kw, 1, "SAME"),
+              w_conv.permute(2, 0, 1, 3).reshape(ci * kh * kw, co)))
+    worst = 0.0
+    for label, s_model, w in cases:
+        m, k = s_model.shape
+        n = w.shape[1]
+        w = w.float().contiguous()
+        syn = clustered_spikes(torch, m, k, gen, s_model.device)
+        for data, s in (("model", s_model), ("clustered50", syn)):
+            ov, res = ops.apec_decompose(s, g)
+            res, ov = res.contiguous(), ov.contiguous()
+            csr, occ_r, occ_o = ops.apec_union_worklist(res, ov, g)
+            args = (res, ov, w, g, csr, occ_r, occ_o)
+            kernel = functools.partial(spike_matmul.apec_matmul_csr, *args)
+            plain = functools.partial(spike_matmul.apec_matmul_csr_plain,
+                                      *args)
+            out, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            tol = 1e-5 * ref.abs().max().item() + 1e-5
+            check(err <= tol, f"APEC CSR kernel off by {err} > {tol} "
+                  f"({label}, {data})")
+            worst = max(worst, err)
+            map_r = ops.padded_occupancy(res)
+            map_o = ragged_tile_occupancy(ov, 128 // g, 128)
+            flops, n_bytes = csr_work(torch, map_r, m, k, n, map_o, g)
+            b_ms, by = bound_ms(n_bytes, flops)
+            rec = dict(max_abs_err=err, tolerance=tol,
+                       ms=cuda_ms(torch, kernel),
+                       plain_ms=cuda_ms(torch, plain, reps=5),
+                       bound_ms=b_ms, bound_by=by,
+                       bytes_bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+                       ops_bound_ms=flops / FP32_FLOPS * 1e3,
+                       library_ms=cuda_ms(torch, functools.partial(
+                           torch.matmul, s, w)),
+                       residual_occupied_share=(map_r > 0).float().mean()
+                       .item(),
+                       overlap_occupied_share=(map_o > 0).float().mean()
+                       .item(),
+                       overlap_density=ov.mean().item(),
+                       spike_density=s.mean().item(), g=g,
+                       shape=[m, k, n])
+            emit("kernel", name="apec_matmul_csr", case=f"{label}_{data}",
+                 **rec)
+            if (label, data) == ("econv_stage1", "model"):
+                results["apec_matmul_csr"] = rec
+    results["apec_matmul_csr"]["max_abs_err"] = worst
+
+
+def phase_apec_path(torch, cap):
+    """`core.apec.apec_matmul` on the FFN inputs (EventTensors with their
+    carried maps) and the stage-1 patch matrix (with its propagated map),
+    g = 2 and 4, with the map and bare; launches, pre-passes and agreement
+    with the CSR matmul on the same spikes, and both routes' device ms."""
+    from repro_torch.core import apec
+    from repro_torch.core.events import EventTensor
+    from repro_torch.core.spikes import watch_occupancy_prepasses
+    from repro_torch.kernels import dispatch, launch_counts, ops, \
+        reset_launch_counts
+    (s1, w1, m1), (s2, w2, m2) = cap["spike_matmul"][:2]
+    s_conv, w_conv, m_conv = cap["econv"][0]
+    kh, kw, ci, co = w_conv.shape
+    patches = dispatch.econv_patches(s_conv, kh, kw, 1, "SAME")
+    inputs = (("ffn_fc1", EventTensor(s1, m1), w1),
+              ("ffn_fc2", EventTensor(s2, m2), w2),
+              ("econv_stage1", EventTensor(patches, m_conv),
+               w_conv.permute(2, 0, 1, 3).reshape(ci * kh * kw, co)
+               .contiguous()))
+    totals = {name: 0 for name in APEC_KERNELS}
+    for label, et, w in inputs:
+        check(et.occupancy is not None, f"{label}: no carried map")
+        with torch.inference_mode():
+            csr_out = ops.spike_matmul_csr(et, w)
+        csr_ms = cuda_ms(torch, lambda: ops.spike_matmul_csr(et, w))
+        tol = 1e-5 * csr_out.abs().max().item() + 1e-5
+        flat = et.spikes.reshape(-1, et.shape[-1])
+        for g in APEC_PATH_GROUPS:
+            # The route's decompose step alone (pack, kernel 19, unpack).
+            rec = dict(case=label, g=g, csr_ms=csr_ms, tolerance=tol,
+                       decompose_ms=cuda_ms(
+                           torch, lambda: ops.apec_decompose(flat, g)))
+            for form, operand, prepasses in (("carried", et, 0),
+                                             ("bare", et.spikes, 2)):
+                reset_launch_counts()
+                torch.cuda.synchronize()
+                with torch.inference_mode(), \
+                        watch_occupancy_prepasses() as pre:
+                    out = apec.apec_matmul(operand, w, g)
+                torch.cuda.synchronize()
+                counts = launch_counts()
+                want = {name: int(name in APEC_KERNELS) for name in counts}
+                check(counts == want, f"{label} g={g} {form}: launches "
+                      f"{counts} != {want}")
+                check(pre["calls"] == prepasses,
+                      f"{label} g={g} {form}: {pre['calls']} dense "
+                      f"pre-passes, expected {prepasses}")
+                for name in totals:
+                    totals[name] += counts[name]
+                check(tuple(out.shape) == tuple(csr_out.shape) and
+                      bool(torch.isfinite(out).all()),
+                      f"{label} g={g} {form}: output not finite / shape "
+                      f"{tuple(out.shape)}")
+                err = (out - csr_out).abs().max().item()
+                check(err <= tol, f"{label} g={g} {form}: APEC off the CSR "
+                      f"matmul by {err} > {tol}")
+                with torch.inference_mode():
+                    rec[f"{form}_ms"] = cuda_ms(
+                        torch, lambda: apec.apec_matmul(operand, w, g))
+                rec[f"{form}_max_abs_err"] = err
+                rec[f"{form}_launches"] = {n: counts[n] for n in
+                                           APEC_KERNELS}
+                rec[f"{form}_prepasses"] = pre["calls"]
+            emit("apec_path", **rec)
+    return totals
+
+
+def phase_apec_stats(torch, cap):
+    """`apec_stats` for G2, G4, G8 on every fire of the captured forward;
+    positions are tokens or row-major pixels of each image and step."""
+    from repro_torch.core.apec import apec_stats
+    layers = []
+    for i, s in enumerate(cap["fires"]):
+        flat = s.reshape(-1, math.prod(s.shape[2:-1]), s.shape[-1])
+        row = dict(fire=i, shape=list(s.shape),
+                   spike_rate=s.float().mean().item())
+        for g in APEC_STAT_GROUPS:
+            st = apec_stats(flat, g)
+            row[f"G{g}"] = dict(
+                reduction_ratio=st.reduction_ratio.item(),
+                overlap_mean=st.overlap_mean.item(),
+                eliminated_share=(st.eliminated /
+                                  st.events_before.clamp(min=1.0)).item())
+        layers.append(row)
+    emit("apec_stats", layers=layers)
+
+
+def phase_apec(torch, gen, device, results):
+    """Phase (i): both APEC kernels against their plain versions, the
+    public entry point on the model's spike maps, and the statistics."""
+    cap = apec_capture(torch, device)
+    check(len(cap["spike_matmul"]) == 2 * DEPTH and len(cap["econv"]) == 3,
+          f"captured {len(cap['spike_matmul'])} spike matmuls and "
+          f"{len(cap['econv'])} econvs")
+    phase_apec_decompose(torch, cap, results)
+    phase_apec_matmul_kernel(torch, gen, cap, results)
+    totals = phase_apec_path(torch, cap)
+    phase_apec_stats(torch, cap)
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -920,8 +1187,9 @@ def main() -> int:
     for name, n in phase_cnn(torch, device).items():
         totals[name] = totals.get(name, 0) + n
     totals.update(phase_train(torch, device))
+    totals.update(phase_apec(torch, gen, device, results))
     kernels = []
-    for name in INFERENCE_KERNELS + TRAINING_KERNELS:
+    for name in INFERENCE_KERNELS + TRAINING_KERNELS + APEC_KERNELS:
         r = results[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCES[name], "replaces": REPLACES[name],

@@ -6,6 +6,9 @@
   spike_matmul.py  csrc/spike_matmul_csr.cu  event-compacted CSR matmul
                    csrc/spike_matmul.cu      predicated (map-gated) matmul
                    (both on csrc/tile_fma.cuh, the shared tile loop)
+                   csrc/apec_matmul_csr.cu   APEC's fused residual + overlap
+                                             matmul on a union work list
+  apec_kernel.py   csrc/apec.cu              APEC overlap/residual on words
   sdsa_kernel.py   csrc/sdsa.cu              packed OR-form attention
   ref.py           plain PyTorch oracles
   ops.py           shape plumbing around the kernels

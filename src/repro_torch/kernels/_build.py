@@ -35,7 +35,8 @@ BUILD_DIR_ENV = "REPRO_TORCH_BUILD_DIR"
 LAUNCHES: Dict[str, int] = {"lif": 0, "lif_counts": 0, "lif_fwd": 0,
                             "lif_counts_fwd": 0, "lif_bwd": 0,
                             "spike_matmul_csr": 0, "spike_matmul_pred": 0,
-                            "sdsa_or": 0}
+                            "sdsa_or": 0, "apec_decompose": 0,
+                            "apec_matmul_csr": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
@@ -57,6 +58,9 @@ SIGNATURES = {
                                  _I64, _P),
     "spike_matmul_pred_forward": (_P, _P, _P, _P, _I64, _I64, _I64, _I64,
                                   _P),
+    "apec_decompose_forward": (_P, _P, _P, _I64, _I64, _I64, _P),
+    "apec_matmul_csr_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                                _I64, _I64, _I64, _P),
 }
 
 

@@ -16,6 +16,12 @@ manual routes (`auto=False`, reached only by an override):
                 jnp        per-event scatter, `econv_scatter` (manual)
   tconv         cuda       zero-insertion + im2col + csrc/spike_matmul.cu
                 jnp        zero-insertion + dense conv (manual)
+  apec_matmul   cuda       csrc/apec.cu + csrc/apec_matmul_csr.cu (union
+                           work list, both products in one pass)
+                cuda-pred  csrc/apec.cu + two csrc/spike_matmul.cu launches
+                           (manual)
+                jnp        overlap-reuse dense form, `core.apec` (auto on
+                           every platform, above `ref`, as in `repro`)
 
 (`tconv` is the transposed conv of SegNet's decoder; the dense forward
 conv oracle of `econv` is `core.econv.tconv`, the paper's "TConv".)
@@ -402,6 +408,69 @@ def _spike_matmul_pred(s, w, occupancy=None):
     return ops.spike_matmul(s, w, occupancy=occupancy)
 
 
+# ---------------------------------------------------------- apec_matmul
+def _apec_example(dev):
+    s = _binary((2, 16, 48), 0.4, dev)
+    w = torch.randn(48, 24, generator=torch.Generator().manual_seed(1))
+    return (s, w.to(dev)), {"g": 2}
+
+
+register_op("apec_matmul", _apec_example)
+
+
+def _apec_divisibility(s, w, *, g=2, **kwargs) -> Optional[str]:
+    del w, kwargs
+    if s.shape[-2] % g:
+        return f"positions {s.shape[-2]} not divisible by group {g}"
+    return None
+
+
+@register("apec_matmul", REF, priority=0, differentiable=True)
+def _apec_matmul_ref(s, w, *, g=2, occupancy=None):
+    del g, occupancy    # the oracle is the plain dense accumulation s @ w
+    return torch.matmul(s.float(), w.float()).to(w.dtype)
+
+
+# The overlap/residual decomposition equals s @ w in value but not under
+# autodiff (amin would split cotangents between tied group members), so
+# the explicit transpose rule supplies the exact gradients.
+@register("apec_matmul", "jnp", priority=10, supports=_apec_divisibility,
+          vjp=_matmul_bwd)
+def _apec_matmul_jnp(s, w, *, g=2, occupancy=None):
+    del occupancy       # the dense form gates on nothing
+    from repro_torch.core.apec import apec_matmul_jnp
+    return apec_matmul_jnp(s, w, g)
+
+
+@register("apec_matmul", CUDA_PRED, auto=False, supports=_apec_divisibility,
+          vjp=_matmul_bwd)
+def _apec_matmul_pred(s, w, *, g=2, occupancy=None):
+    # Packed decompose, then two predicated matmuls and a repeat.
+    from repro_torch.kernels import ops
+    return ops.apec_matmul(s, w, g=g, occupancy=occupancy)
+
+
+def _apec_csr_supports(s, w, *, g=2, **kwargs) -> Optional[str]:
+    # The fused kernel maps each output row tile onto a (128/g)-row
+    # overlap tile, so g must divide the 128-row tile, and its overlap
+    # accumulator gives each of 16 thread rows 8/g rows: g is 2, 4 or 8.
+    del kwargs
+    reason = _apec_divisibility(s, w, g=g)
+    if reason is None and g not in (2, 4, 8):
+        reason = f"the fused kernel takes groups of 2, 4 or 8, got {g}"
+    return reason
+
+
+@register("apec_matmul", CUDA, platforms=("cuda",), priority=20,
+          supports=_apec_csr_supports, vjp=_matmul_bwd)
+def _apec_matmul_csr(s, w, *, g=2, occupancy=None):
+    # Fused event-compacted APEC: union work list, overlap partial sums
+    # added into the g member rows in-kernel. A carried map IS the union
+    # gate (an s tile is occupied iff its res or ov tile is).
+    from repro_torch.kernels import ops
+    return ops.apec_matmul_csr(s, w, g=g, occupancy=occupancy)
+
+
 # ------------------------------------------------------------------ sdsa
 def _sdsa_example(dev):
     return tuple(_binary((2, 3, 24, 40), 0.4, dev) for _ in range(3)), \
@@ -595,6 +664,11 @@ def lif_scan_occ(x, *, decay=0.5, v_th=1.0, soft_reset=True,
 def spike_matmul(s, w):
     s, kw = _event_args(s)
     return dispatch("spike_matmul", s, w, **kw)
+
+
+def apec_matmul(s, w, *, g=2):
+    s, kw = _event_args(s, {"g": g})
+    return dispatch("apec_matmul", s, w, **kw)
 
 
 def sdsa(q, k, v, *, mode="or"):

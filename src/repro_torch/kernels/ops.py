@@ -15,7 +15,7 @@ import torch.nn.functional as F
 from repro_torch.core.events import EventTensor
 from repro_torch.core.spikes import (PACK, TileCSR, build_csr, pack_spikes,
                                      ragged_tile_occupancy, unpack_spikes)
-from . import lif_scan, sdsa_kernel, spike_matmul as _csr
+from . import apec_kernel, lif_scan, sdsa_kernel, spike_matmul as _csr
 
 
 def _pad_to(x: torch.Tensor, axis: int, mult: int):
@@ -166,3 +166,143 @@ def spike_matmul_csr(s, w: torch.Tensor, csr: TileCSR | None = None, *,
         csr = build_csr(occupancy, tile, tile)
     out = _csr.spike_matmul_csr(s2, w.float().contiguous(), csr)
     return out.reshape(lead + (m, n))
+
+
+# ------------------------------------------------------------------ APEC
+def apec_decompose(s: torch.Tensor, g: int = 2):
+    """Dense binary (P, C) spikes -> (overlap (P/g, C), residual (P, C))
+    through the packed bitwise kernel. P must divide by g. Only the packing
+    pads (C up to whole 32-bit words); the kernel takes any word count."""
+    p, c = s.shape
+    if p % g:
+        raise ValueError(f"positions {p} not divisible by group {g}")
+    sp, _ = _pad_to(s, 1, PACK)
+    ov_p, res_p = apec_kernel.apec_decompose_packed(
+        pack_spikes(sp, axis=-1).contiguous(), g)
+    ov = unpack_spikes(ov_p, axis=-1, dtype=s.dtype)[:, :c]
+    res = unpack_spikes(res_p, axis=-1, dtype=s.dtype)[:, :c]
+    return ov, res
+
+
+def _group_occupancy(occ, g: int, rows: int, block_m: int = 128):
+    """Conservative overlap-operand map derived from the carried map of
+    the undecomposed spikes: the overlap tile at row-tile i unions group
+    members living in s row-tiles [g*i, g*i+g) (AND-of-group is a subset
+    of each member, so a zero s-tile group guarantees a zero overlap
+    tile). Only derivable when the row tiling regroups exactly
+    (rows % (block_m*g) == 0); otherwise None (the caller re-derives)."""
+    if occ is None or rows % (block_m * g):
+        return None
+    mt = occ.shape[0]
+    return occ.reshape(mt // g, g, occ.shape[1]).sum(dim=1,
+                                                     dtype=torch.int32)
+
+
+def apec_matmul(s, w: torch.Tensor, g: int = 2, *, decomposed=None,
+                occ_res: torch.Tensor | None = None,
+                occ_ov: torch.Tensor | None = None,
+                occupancy: torch.Tensor | None = None) -> torch.Tensor:
+    """APEC matmul on the predicated route: the packed decompose kernel,
+    then two occupancy-gated matmuls (`spike_matmul`, the predicated
+    kernel) with the overlap partial sums reused across each group's
+    members.
+
+    s: (..., P, C) binary (or an `EventTensor`) with P % g == 0; w: (C, F)
+    -> (..., P, F). Leading axes are flattened into the position axis
+    (each row contributes whole groups when P divides by g).
+    ``decomposed=(residual, overlap)`` (flattened (R, C) / (R/g, C)) skips
+    the decompose, with per-operand maps ``occ_res`` / ``occ_ov``. A
+    carried ``occupancy`` (of the undecomposed s) gates both products
+    conservatively: residual tiles are a subset of s tiles, and the
+    overlap map folds g s-row-tiles (`_group_occupancy`).
+    """
+    if isinstance(s, EventTensor):
+        if occupancy is None:
+            occupancy = s.occupancy_for(_csr.TILE, _csr.TILE)
+        s = s.spikes
+    lead = s.shape[:-2]
+    p, c = s.shape[-2:]
+    if p % g:
+        raise ValueError(f"positions {p} not divisible by group {g}")
+    s2 = s.reshape(-1, c)
+    if decomposed is None:
+        ov, res = apec_decompose(s2, g)              # packed bitwise kernel
+    else:
+        res, ov = decomposed
+    if occupancy is not None and occ_res is None:
+        occ_res = occupancy                          # res tiles <= s tiles
+        if occ_ov is None:
+            occ_ov = _group_occupancy(occupancy, g, s2.shape[0])
+    psum_ov = spike_matmul(ov, w, occupancy=occ_ov)      # cached sums
+    psum_res = spike_matmul(res, w, occupancy=occ_res)   # residuals
+    out = psum_res + psum_ov.repeat_interleave(g, 0)     # reuse
+    return out.reshape(lead + (p, w.shape[-1])).to(w.dtype)
+
+
+def apec_union_worklist(res: torch.Tensor, ov: torch.Tensor, g: int,
+                        occupancy: torch.Tensor | None = None,
+                        csr: TileCSR | None = None):
+    """(union `TileCSR`, residual per-step counts, overlap per-step counts)
+    for the fused APEC kernel on the 128 x 128 grid of res.
+
+    Without a map, one dense pre-pass per operand (residual tiles 128 x
+    128, overlap tiles 128/g x 128, the same grid) and the work list of
+    their sum: a k-tile enters when either operand's tile holds events,
+    and each dot is gated by its own counts. A carried map of the
+    UNDECOMPOSED spikes is the union gate itself (an s tile holds events
+    iff its residual or overlap tile does): it is checked against the grid,
+    the work list compacts from it (or `csr`, its cached compaction, is
+    used) and both dots are gated on it, with no dense pre-pass."""
+    tile = _csr.TILE
+    grid = (-(-res.shape[0] // tile), -(-res.shape[1] // tile))
+    if occupancy is not None:
+        _check_map(occupancy, grid)
+        if csr is None:
+            csr = build_csr(occupancy, tile, tile)
+        gate = (occupancy[csr.tile_m_idx.long(), csr.tile_k_idx.long()]
+                * csr.valid).to(torch.int32)
+        return csr, gate, gate
+    occ_res = ragged_tile_occupancy(res, tile, tile)
+    occ_ov = ragged_tile_occupancy(ov, tile // g, tile)
+    csr = build_csr(occ_res + occ_ov, tile, tile)
+    steps = (csr.tile_m_idx.long(), csr.tile_k_idx.long())
+    return (csr, (occ_res[steps] * csr.valid).to(torch.int32),
+            (occ_ov[steps] * csr.valid).to(torch.int32))
+
+
+def apec_matmul_csr(s, w: torch.Tensor, g: int = 2, *,
+                    occupancy: torch.Tensor | None = None) -> torch.Tensor:
+    """APEC matmul fused into one event-compacted kernel pass.
+
+    The packed decompose kernel, then one union work list
+    (`apec_union_worklist`) and one launch of the fused kernel, in which
+    each weight k-tile is staged once and feeds the residual AND overlap
+    dots, and the overlap partial sum lands in its group's g output rows in
+    the epilogue (no repeat pass).
+
+    `s` may be an `EventTensor` (its carried map and cached work list), and
+    `occupancy` a precomputed map of the UNDECOMPOSED spikes: either
+    replaces the two dense pre-passes. Ragged rows, K and N are masked in
+    the kernel (no padded copies).
+    """
+    tile = _csr.TILE
+    csr = None
+    if isinstance(s, EventTensor):
+        if occupancy is None:
+            occupancy = s.occupancy_for(tile, tile)
+            csr = s.csr(tile, tile)                  # None without a map
+        s = s.spikes
+    lead = s.shape[:-2]
+    p, c = s.shape[-2:]
+    if p % g:
+        raise ValueError(f"positions {p} not divisible by group {g}")
+    if tile % g:
+        raise ValueError(f"block_m {tile} not divisible by group {g}")
+    s2 = s.reshape(-1, c)
+    ov, res = apec_decompose(s2, g)                  # packed bitwise kernel
+    csr, occ_res, occ_ov = apec_union_worklist(res, ov, g, occupancy, csr)
+    out = _csr.apec_matmul_csr(res.float().contiguous(),
+                               ov.float().contiguous(),
+                               w.float().contiguous(), g, csr, occ_res,
+                               occ_ov)
+    return out.reshape(lead + (p, w.shape[-1])).to(w.dtype)

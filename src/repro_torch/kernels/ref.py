@@ -41,3 +41,17 @@ def sdsa_packed_ref(q_packed, k_packed, v_packed):
 def spike_matmul_ref(s: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Oracle for the spike matmul: plain dense fp32 matmul."""
     return torch.matmul(s.float(), w.float()).to(w.dtype)
+
+
+def apec_decompose_packed_ref(s_packed: torch.Tensor, g: int):
+    """Oracle for the APEC decompose kernel on packed words: (P, dw) ->
+    (overlap (P/g, dw), residual (P, dw)), overlap = AND over each group
+    of g adjacent rows, residual_i = s_i AND NOT overlap. Bitwise ops on
+    the int32 view are bit-exact for the uint32 words."""
+    p, dw = s_packed.shape
+    grp = s_packed.view(torch.int32).reshape(p // g, g, dw)
+    ov = grp[:, 0, :]
+    for i in range(1, g):
+        ov = ov & grp[:, i, :]
+    res = (grp & ~ov[:, None, :]).reshape(p, dw)
+    return ov.view(torch.uint32), res.view(torch.uint32)

@@ -4,9 +4,12 @@
 occupied (m-tile, k-tile) steps of `csr` (a `core.spikes.TileCSR`) and
 launches `csrc/spike_matmul_csr.cu`. `spike_matmul_pred(s, w, occ)` is
 predicated: every (m-tile, n-tile) block walks all k-tiles and the map
-gates each product; it launches `csrc/spike_matmul.cu`. On a CPU tensor
-each runs its plain version. All accept any (M, K) x (K, N): ragged edge
-tiles are masked, never padded.
+gates each product; it launches `csrc/spike_matmul.cu`.
+`apec_matmul_csr(res, ov, w, g, csr, occ_res, occ_ov)` is APEC's fused
+pair of products over a union work list; it launches
+`csrc/apec_matmul_csr.cu`. On a CPU tensor each runs its plain version.
+All accept any (M, K) x (K, N): ragged edge tiles are masked, never
+padded.
 """
 from __future__ import annotations
 
@@ -18,26 +21,36 @@ from . import _build
 TILE = 128     # map / work-list tiling (rows and k)
 
 
-def csr_tile_gate(csr: TileCSR, mt: int, kt: int) -> torch.Tensor:
+def csr_tile_gate(csr: TileCSR, mt: int, kt: int,
+                  occ: torch.Tensor | None = None) -> torch.Tensor:
     """(MT, KT) bool: True where the work list has an occupied step. Walks
     each row's steps row_ptr[r]:row_ptr[r+1], as the kernel does; dummy
-    steps (occ 0) and padding steps past row_ptr[MT] gate nothing."""
+    steps (occ 0) and padding steps past row_ptr[MT] gate nothing. `occ`:
+    per-step counts to gate on instead of `csr.occ` (one operand's counts
+    on a union work list)."""
+    occ = csr.occ if occ is None else occ
     steps = torch.arange(csr.n_steps, device=csr.row_ptr.device)
     row = torch.searchsorted(csr.row_ptr[1:].long(), steps, right=True)
-    live = (steps < csr.row_ptr[-1]) & (csr.occ > 0)
+    live = (steps < csr.row_ptr[-1]) & (occ > 0)
     gate = torch.zeros(mt * kt, dtype=torch.int32, device=steps.device)
     flat = row.clamp(max=mt - 1) * kt + csr.tile_k_idx.long()
     gate.index_put_((flat,), live.to(torch.int32), accumulate=True)
     return gate.reshape(mt, kt) > 0
 
 
+def _gated(s: torch.Tensor, gate: torch.Tensor,
+           tile_m: int = TILE) -> torch.Tensor:
+    """s with the (tile_m, 128) tiles whose gate is 0 (or False) zeroed."""
+    m, k = s.shape
+    mask = (gate > 0).repeat_interleave(tile_m, 0).repeat_interleave(TILE, 1)
+    return s.float() * mask[:m, :k]
+
+
 def spike_matmul_pred_plain(s: torch.Tensor, w: torch.Tensor,
                             occ: torch.Tensor) -> torch.Tensor:
     """Plain version of the predicated kernel: zero the spike tiles whose
     map count is 0, then one dense fp32 matmul over the rest."""
-    m, k = s.shape
-    mask = (occ > 0).repeat_interleave(TILE, 0).repeat_interleave(TILE, 1)
-    return torch.matmul(s.float() * mask[:m, :k], w.float())
+    return torch.matmul(_gated(s, occ), w.float())
 
 
 def spike_matmul_csr_plain(s: torch.Tensor, w: torch.Tensor,
@@ -107,4 +120,70 @@ def spike_matmul_pred(s: torch.Tensor, w: torch.Tensor,
     _build.check(lib.spike_matmul_pred_forward(
         s.data_ptr(), w.data_ptr(), out.data_ptr(), occ.data_ptr(), m, k, n,
         grid[1], _build.stream()), "spike_matmul_pred")
+    return out
+
+
+def apec_matmul_csr_plain(res: torch.Tensor, ov: torch.Tensor,
+                          w: torch.Tensor, g: int, csr: TileCSR,
+                          occ_res: torch.Tensor,
+                          occ_ov: torch.Tensor) -> torch.Tensor:
+    """Plain version of the fused APEC kernel: each operand's tiles gated
+    by its own per-step counts on the union work list (residual tiles
+    128 x 128, overlap tiles 128/g x 128 on the same grid), then
+    res @ w + repeat_interleave(ov @ w, g) in dense fp32."""
+    m, k = res.shape
+    mt, kt = -(-m // TILE), -(-k // TILE)
+    wf = w.float()
+    psum_res = torch.matmul(_gated(res, csr_tile_gate(csr, mt, kt, occ_res)),
+                            wf)
+    psum_ov = torch.matmul(_gated(ov, csr_tile_gate(csr, mt, kt, occ_ov),
+                                  TILE // g), wf)
+    return psum_res + psum_ov.repeat_interleave(g, 0)
+
+
+def apec_matmul_csr(res: torch.Tensor, ov: torch.Tensor, w: torch.Tensor,
+                    g: int, csr: TileCSR, occ_res_steps: torch.Tensor,
+                    occ_ov_steps: torch.Tensor) -> torch.Tensor:
+    """res: (M, K) f32 residual spikes (group members adjacent), ov:
+    (M/g, K) f32 overlap spikes, w: (K, N) f32; `csr` a union work list on
+    the 128 x 128 grid of res (a step where either operand's tile holds
+    events), `occ_res_steps` / `occ_ov_steps` (cap,) int32 per-step counts
+    of each operand -> (M, N) f32 = res @ w + repeat(ov @ w, g)."""
+    if res.ndim != 2 or ov.ndim != 2 or w.ndim != 2 or \
+            res.shape[1] != w.shape[0] or ov.shape[1] != w.shape[0]:
+        raise ValueError(f"apec_matmul_csr needs (M, K), (M/g, K) x (K, N), "
+                         f"got {tuple(res.shape)}, {tuple(ov.shape)} x "
+                         f"{tuple(w.shape)}")
+    m, k = res.shape
+    n = w.shape[1]
+    if g not in (2, 4, 8) or m % g or ov.shape[0] * g != m:
+        raise ValueError(f"apec_matmul_csr takes g in (2, 4, 8) with M % g "
+                         f"== 0 and M/g overlap rows, got g={g}, M={m}, "
+                         f"{ov.shape[0]} overlap rows")
+    mt, kt = -(-m // TILE), -(-k // TILE)
+    csr.check_compatible(TILE, TILE, mt, kt)
+    if csr.n_rows != mt:
+        raise ValueError(f"csr has {csr.n_rows} m-tile rows, input needs {mt}")
+    if occ_res_steps.shape != (csr.n_steps,) or \
+            occ_ov_steps.shape != (csr.n_steps,):
+        raise ValueError(f"per-step counts {tuple(occ_res_steps.shape)} / "
+                         f"{tuple(occ_ov_steps.shape)} do not match the "
+                         f"work list's {csr.n_steps} steps")
+    if not res.is_cuda:
+        return apec_matmul_csr_plain(res, ov, w, g, csr, occ_res_steps,
+                                     occ_ov_steps)
+    _build.require_cuda("apec_matmul_csr", res, ov, w, dtype=torch.float32)
+    _build.require_cuda("apec_matmul_csr", csr.row_ptr, csr.tile_k_idx,
+                        occ_res_steps, occ_ov_steps, dtype=torch.int32)
+    if csr.row_ptr.device != res.device:
+        raise ValueError("apec_matmul_csr: work list and operands lie on "
+                         "different devices")
+    out = torch.empty((m, n), dtype=torch.float32, device=res.device)
+    lib = _build.library()
+    _build.LAUNCHES["apec_matmul_csr"] += 1
+    _build.check(lib.apec_matmul_csr_forward(
+        res.data_ptr(), ov.data_ptr(), w.data_ptr(), out.data_ptr(),
+        csr.row_ptr.data_ptr(), csr.tile_k_idx.data_ptr(),
+        occ_res_steps.data_ptr(), occ_ov_steps.data_ptr(), m, k, n, mt, g,
+        _build.stream()), "apec_matmul_csr")
     return out

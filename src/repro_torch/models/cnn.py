@@ -101,11 +101,14 @@ RESNET18_STAGES = ((64, 2, 1), (128, 2, 2), (256, 2, 2), (512, 2, 2))
 
 
 def _conv_init(k: int, ci: int, co: int, *, generator: torch.Generator,
-               device="cpu") -> torch.Tensor:
-    """He-scaled normal (k, k, ci, co) HWIO conv weights."""
+               device="cuda") -> torch.Tensor:
+    """He-scaled normal (k, k, ci, co) HWIO conv weights, drawn on the CPU
+    and moved to `device` (CUDA unless asked otherwise; a CUDA request
+    without a card raises)."""
+    dev = resolve_device(device)
     scale = (2.0 / (k * k * ci)) ** 0.5
     w = torch.randn((k, k, ci, co), generator=generator) * scale
-    return w.to(device)
+    return w.to(dev)
 
 
 def _fc_init(d_in: int, n_out: int, *, generator: torch.Generator,

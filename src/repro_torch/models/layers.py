@@ -16,12 +16,15 @@ from repro_torch.optim.adamw import AdamWState
 
 
 def dense_init(d_in: int, d_out: int, *, generator: torch.Generator,
-               device="cpu") -> torch.Tensor:
-    """Truncated-normal (±2 sigma) Glorot-scaled (d_in, d_out) weights."""
+               device="cuda") -> torch.Tensor:
+    """Truncated-normal (±2 sigma) Glorot-scaled (d_in, d_out) weights,
+    drawn on the CPU and moved to `device` (CUDA unless asked otherwise;
+    a CUDA request without a card raises)."""
+    dev = resolve_device(device)
     scale = (2.0 / (d_in + d_out)) ** 0.5
     w = torch.empty((d_in, d_out), dtype=torch.float32)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (w * scale).to(device)
+    return (w * scale).to(dev)
 
 
 def hybrid_scope(spiking_cfg):

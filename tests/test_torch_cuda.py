@@ -5,17 +5,18 @@ Torch-only (no JAX), so it runs on the GPU machine:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Every test is marked `cuda` and skips where no CUDA device is present.
-Spikes, counts, membrane residuals, LIF drive cotangents and SDSA words
-must match exactly; the CSR and predicated matmuls within
-1e-5 * max|plain| + 1e-5 (fp32 summation order).
+Spikes, counts, membrane residuals, LIF drive cotangents, SDSA words and
+APEC overlap/residual words must match exactly; the CSR, predicated and
+fused APEC matmuls within 1e-5 * max|plain| + 1e-5 (fp32 summation
+order).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.spikes import build_csr, pack_spikes
-from repro_torch.kernels import launch_counts, lif_scan, ops, \
-    reset_launch_counts, sdsa_kernel, spike_matmul
+from repro_torch.kernels import apec_kernel, dispatch, launch_counts, \
+    lif_scan, ops, reset_launch_counts, sdsa_kernel, spike_matmul
 
 torch.set_num_threads(1)
 
@@ -126,7 +127,8 @@ def test_cuda_wrappers_count_each_launch(cuda_device):
     assert launch_counts() == {"lif": 1, "lif_counts": 1, "lif_fwd": 0,
                                "lif_counts_fwd": 0, "lif_bwd": 0,
                                "spike_matmul_csr": 0, "spike_matmul_pred": 0,
-                               "sdsa_or": 0}
+                               "sdsa_or": 0, "apec_decompose": 0,
+                               "apec_matmul_csr": 0}
 
 
 @pytest.mark.cuda
@@ -173,7 +175,8 @@ def test_cuda_training_wrappers_count_each_launch(cuda_device):
     assert launch_counts() == {"lif": 0, "lif_counts": 0, "lif_fwd": 1,
                                "lif_counts_fwd": 1, "lif_bwd": 1,
                                "spike_matmul_csr": 0, "spike_matmul_pred": 0,
-                               "sdsa_or": 0}
+                               "sdsa_or": 0, "apec_decompose": 0,
+                               "apec_matmul_csr": 0}
 
 
 @pytest.mark.cuda
@@ -196,3 +199,80 @@ def test_cuda_fire_takes_the_residual_kernel_only_under_grad(cuda_device,
     assert (counts[primal], counts[residual], counts["lif_bwd"]) == (0, 1, 1)
     _, vres = lif_scan.lif_fwd_plain(x.detach())
     assert torch.equal(dx, lif_scan.lif_bwd_plain(vres, torch.ones_like(x)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,dw,g", [(64, 12, 2), (256, 14, 4), (64, 13, 8),
+                                    (96, 4, 8), (30, 5, 3), (32, 1, 2)])
+def test_cuda_apec_decompose_kernel_matches_plain(cuda_device, p, dw, g):
+    """Every vector width (16-byte, 8-byte, one word), a ragged dw and a
+    run-time g; words with the sign bit set included."""
+    rng = np.random.default_rng(p * dw + g)
+    words = torch.from_numpy(rng.integers(0, 2 ** 32, size=(p, dw),
+                                          dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32))
+    words = words.view(torch.uint32).to(cuda_device)
+    got = apec_kernel.apec_decompose_packed(words, g)
+    want = apec_kernel.apec_decompose_packed_plain(words, g)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_apec_decompose_kernel_takes_unaligned_words(cuda_device):
+    """A view 4 bytes into its storage cannot take 16-byte vectors."""
+    rng = np.random.default_rng(7)
+    flat = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, size=64 * 8 + 1,
+                                         dtype=np.int64).astype(np.int32))
+    words = flat.to(cuda_device)[1:].view(64, 8).view(torch.uint32)
+    got = apec_kernel.apec_decompose_packed(words, 2)
+    want = apec_kernel.apec_decompose_packed_plain(words, 2)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,g", [(256, 256, 128, 2), (260, 200, 40, 4),
+                                     (1000, 432, 96, 2), (512, 384, 130, 8)])
+@pytest.mark.parametrize("carried", [False, True])
+def test_cuda_apec_matmul_csr_kernel_matches_plain(cuda_device, m, k, n, g,
+                                                   carried):
+    rng = np.random.default_rng(m + n + g)
+    s = _clustered(rng, m, k)
+    s[128:256] = 0                                # an all-empty m-tile row
+    s = torch.from_numpy(s).to(cuda_device)
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)
+                         ).to(cuda_device)
+    ov, res = ops.apec_decompose(s, g)
+    res, ov = res.contiguous(), ov.contiguous()
+    occ = ops.padded_occupancy(s) if carried else None
+    csr, occ_r, occ_o = ops.apec_union_worklist(res, ov, g, occ)
+    args = (res, ov, w, g, csr, occ_r, occ_o)
+    got = spike_matmul.apec_matmul_csr(*args)
+    want = spike_matmul.apec_matmul_csr_plain(*args)
+    tol = 1e-5 * want.abs().max().item() + 1e-5
+    assert (got - want).abs().max().item() <= tol
+    assert torch.all(got[128:256] == 0)
+    assert (got - s @ w).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,launches", [
+    ("cuda", {"apec_decompose": 1, "apec_matmul_csr": 1}),
+    ("cuda-pred", {"apec_decompose": 1, "spike_matmul_pred": 2})])
+def test_cuda_apec_route_launches_each_kernel_once(cuda_device, backend,
+                                                   launches):
+    rng = np.random.default_rng(3)
+    s = torch.from_numpy(_clustered(rng, 2 * 300, 200).reshape(2, 300, 200)
+                         ).to(cuda_device)
+    w = torch.from_numpy(rng.normal(size=(200, 70)).astype(np.float32)
+                         ).to(cuda_device)
+    for g in (2, 4):
+        reset_launch_counts()
+        with dispatch.use_backend(backend, op="apec_matmul"):
+            out = dispatch.apec_matmul(s, w, g=g)
+        counts = launch_counts()
+        assert {k: v for k, v in counts.items() if v} == launches
+        want = s @ w
+        assert (out - want).abs().max().item() <= \
+            1e-5 * want.abs().max().item() + 1e-5
