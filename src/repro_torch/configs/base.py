@@ -18,7 +18,8 @@ class SpikingConfig:
     hybrid: bool = False        # density-adaptive dense/event routing
                                 # (not ported yet: raises, ROADMAP q1 #13)
     packed: bool = False        # uint32 words as inter-layer payload
-                                # (not ported yet: raises, ROADMAP q1 #12)
+                                # (inference only: the words carry no
+                                # gradient)
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)

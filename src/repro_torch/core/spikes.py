@@ -1,4 +1,5 @@
-"""Spike-tensor utilities: bit-packing, tile occupancy, CSR-of-tiles.
+"""Spike-tensor utilities: bit-packing, popcount, tile occupancy,
+CSR-of-tiles.
 
 Packed words cross public boundaries as `torch.uint32` (bit i of word w =
 channel w*32 + i, pad bits zero). Shifts, `~` and reductions are not
@@ -6,8 +7,10 @@ implemented for uint32 on every PyTorch device, so the arithmetic runs in
 int64/int32 and the words are reinterpreted (`.view`) as uint32.
 
 Occupancy maps count events per (tile_m, tile_k) tile of a flattened
-(rows, K) spike matrix; `TileCSR` drains a map into the work list the
-event-compacted CSR matmul kernel walks.
+(rows, K) spike matrix, from the dense spikes (`tile_occupancy`) or from
+the words' popcounts (`packed_tile_occupancy`, 32x fewer bytes read);
+`TileCSR` drains a map into the work list the event-compacted CSR matmul
+kernel walks.
 """
 from __future__ import annotations
 
@@ -28,16 +31,33 @@ PACK = 32  # bits per packed word
 _PREPASS_WATCHERS: list = []
 
 
+# The packed payload's own pre-pass (`packed_tile_occupancy`, popcounts of
+# the words) is 32x cheaper and is counted apart, so a run can tell where
+# no map could be carried without mistaking it for a dense re-scan.
+_WORD_PREPASS_WATCHERS: list = []
+
+
 @contextlib.contextmanager
-def watch_occupancy_prepasses():
-    """Context manager yielding a mutable record of `tile_occupancy` calls
-    made while active: {"calls": n, "elements": total input elements}."""
+def _watch(stack: list):
     rec = {"calls": 0, "elements": 0}
-    _PREPASS_WATCHERS.append(rec)
+    stack.append(rec)
     try:
         yield rec
     finally:
-        _PREPASS_WATCHERS.remove(rec)
+        stack.remove(rec)
+
+
+def watch_occupancy_prepasses():
+    """Context manager yielding a mutable record of `tile_occupancy` calls
+    made while active: {"calls": n, "elements": total input elements}."""
+    return _watch(_PREPASS_WATCHERS)
+
+
+def watch_word_prepasses():
+    """Context manager yielding a mutable record of word-popcount
+    occupancy pre-passes (`packed_tile_occupancy`) made while active:
+    {"calls": n, "elements": total input words}."""
+    return _watch(_WORD_PREPASS_WATCHERS)
 
 
 def pack_spikes(s: torch.Tensor, axis: int = -1) -> torch.Tensor:
@@ -70,6 +90,24 @@ def unpack_spikes(p: torch.Tensor, axis: int = -1,
     return torch.movedim(out, -1, axis)
 
 
+def unpack_spikes_padded(p: torch.Tensor, k: int,
+                         dtype=torch.float32) -> torch.Tensor:
+    """Inverse of `pack_spikes_padded` along the last axis: the first `k`
+    channels of the words."""
+    return unpack_spikes(p, axis=-1, dtype=dtype)[..., :k]
+
+
+def popcount(p: torch.Tensor) -> torch.Tensor:
+    """Per-word population count of packed spikes -> int32 of p's shape.
+    A SWAR bit count (torch has no popcount op), on the words widened to
+    int64 so no shift sign-extends."""
+    x = p.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (((x * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
+
+
 def packed_width(k: int) -> int:
     """Number of uint32 words covering `k` bits (ceil division)."""
     return -(-int(k) // PACK)
@@ -84,6 +122,44 @@ def pack_spikes_padded(s: torch.Tensor, axis: int = -1) -> torch.Tensor:
     if pad:
         s = torch.nn.functional.pad(s, (0, pad))
     return torch.movedim(pack_spikes(s, axis=-1), -1, axis)
+
+
+def packed_tile_occupancy(p: torch.Tensor, tile_m: int, tile_k: int,
+                          k: Optional[int] = None) -> torch.Tensor:
+    """`tile_occupancy` computed from uint32 words: `p` is a (..., M, KW)
+    packed matrix and the map covers the unpacked (M, KW*32) matrix tiled
+    (tile_m, tile_k), with the counts `tile_occupancy` gives on the dense
+    tensor. `k` (the logical channel count) only validates the word
+    width; pad bits are zero by the `pack_spikes_padded` contract. Ticks
+    the word pre-pass watchers, never the dense ones."""
+    m, kw = p.shape[-2], p.shape[-1]
+    if k is not None and packed_width(k) != kw:
+        raise ValueError(f"packed width {kw} words does not cover k={k} "
+                         f"(want {packed_width(k)})")
+    if tile_k % PACK:
+        raise ValueError(f"tile_k {tile_k} not a multiple of {PACK}")
+    if m % tile_m or kw % (tile_k // PACK):
+        raise ValueError(f"packed shape ({m},{kw}) not tileable by "
+                         f"({tile_m},{tile_k // PACK})")
+    occ = ragged_packed_tile_occupancy(p.reshape(-1, kw), tile_m, tile_k)
+    return occ.reshape(tuple(p.shape[:-2]) + (m // tile_m,
+                                              kw * PACK // tile_k))
+
+
+def ragged_packed_tile_occupancy(p: torch.Tensor, tile_m: int,
+                                 tile_k: int) -> torch.Tensor:
+    """`packed_tile_occupancy` of an (M, KW) word matrix zero-padded to the
+    tiling, counted in place (ragged edge tiles count what they hold) ->
+    (ceil(M/tile_m), ceil(KW*32/tile_k)) int32."""
+    m, kw = p.shape
+    for rec in _WORD_PREPASS_WATCHERS:
+        rec["calls"] += 1
+        rec["elements"] += p.numel()
+    per = tile_k // PACK
+    cnt = popcount(p)
+    cnt = torch.nn.functional.pad(cnt, (0, (-kw) % per, 0, (-m) % tile_m))
+    return cnt.reshape(cnt.shape[0] // tile_m, tile_m, -1, per).sum(
+        dim=(1, 3), dtype=torch.int32)
 
 
 def tile_occupancy(s: torch.Tensor, tile_m: int, tile_k: int) -> torch.Tensor:

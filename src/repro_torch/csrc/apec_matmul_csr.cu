@@ -1,9 +1,13 @@
 // Fused APEC matmul over a union CSR-of-tiles work list:
-// out = res @ w + repeat(ov @ w, g) along the rows.
+// out = res @ w + repeat(ov @ w, g) along the rows, with res and ov as f32
+// spikes or as uint32 words.
 //
 // Replaces: src/repro/kernels/spike_matmul.py::_apec_matmul_csr_kernel
 //           and ::_apec_matmul_csr_pipe_kernel (apec_matmul_csr_pallas,
-//           pipeline=False/True; both compute the same function).
+//           pipeline=False/True; both compute the same function), and, on
+//           words, ::_apec_matmul_packed_csr_kernel and
+//           ::_apec_matmul_packed_csr_pipe_kernel
+//           (apec_matmul_packed_csr_pallas, pipeline=False/True).
 // Bound on the H100: operations at the main path's densities. An occupied
 //           residual step costs 2*128*128*N flops and an occupied overlap
 //           step 2*(128/g)*128*N, against 64 KB and 64/g KB of spikes:
@@ -31,9 +35,17 @@
 //           load and store; no operand is padded. g is 2, 4 or 8 (a
 //           template parameter). The loop is this file's own, so kernels
 //           10 and 11 keep their code; a cp.async/TMA ring (the TPU's
-//           prefetching twin) is later work.
+//           prefetching twin) is later work. Both operands are read
+//           through tile_fma.cuh's loaders: the packed form stages each
+//           live operand's word tile (128 x 4 and 128/g x 4 words) once
+//           per step and unpacks bits into the same slices, so its sums
+//           equal the f32 form's on the same spikes.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "tile_fma.cuh"
 
 namespace {
 
@@ -54,11 +66,13 @@ union Smem {
   float ovsum[kTile / G][kTile];          // epilogue: overlap sums
 };
 
-template <int G>
+// `ra` / `oa`: tile_fma.cuh loaders of the residual (M rows) and the
+// overlap (M/g rows); the packed ones' word tiles live in this block's
+// shared memory (their `tile` is set here).
+template <int G, class RA, class OA>
 __global__ void __launch_bounds__(kThreads)
-apec_csr_kernel(const float* __restrict__ res, const float* __restrict__ ov,
-                const float* __restrict__ w, float* __restrict__ out,
-                const int* __restrict__ row_ptr,
+apec_csr_kernel(RA ra, OA oa, const float* __restrict__ w,
+                float* __restrict__ out, const int* __restrict__ row_ptr,
                 const int* __restrict__ tile_k_idx,
                 const int* __restrict__ occ_res,
                 const int* __restrict__ occ_ov, int64_t m, int64_t k,
@@ -66,12 +80,18 @@ apec_csr_kernel(const float* __restrict__ res, const float* __restrict__ ov,
   constexpr int kRo = kTile / G;      // overlap rows per tile
   constexpr int kRMo = kRo / kT;      // overlap rows per thread
   static_assert(kRMo >= 1 && kRo % kT == 0, "g must be 2, 4 or 8");
+  constexpr bool kPacked = !std::is_same<RA, tile_fma::DenseA>::value;
   __shared__ Smem<G> sm;
+  __shared__ uint32_t words_r[kPacked ? kTile * tile_fma::kTileWords : 1];
+  __shared__ uint32_t words_o[kPacked ? kRo * tile_fma::kTileWords : 1];
+  if constexpr (kPacked) {
+    ra.tile = words_r;
+    oa.tile = words_o;
+  }
   const int tid = threadIdx.x;
   const int tx = tid % kT, ty = tid / kT;
   const int64_t m0 = (int64_t)blockIdx.x * kTile;
   const int64_t mo0 = (int64_t)blockIdx.x * kRo;
-  const int64_t mg = m / G;
   const int64_t n0 = (int64_t)blockIdx.y * kTile;
   float acc[kR][kR], acco[kRMo][kR];
 #pragma unroll
@@ -88,6 +108,8 @@ apec_csr_kernel(const float* __restrict__ res, const float* __restrict__ ov,
     const bool live_r = occ_res[step] > 0, live_o = occ_ov[step] > 0;
     if (!live_r && !live_o) continue;          // dummy step: no events
     const int64_t k0 = (int64_t)tile_k_idx[step] * kTile;
+    if (live_r) ra.begin(m0, k0);          // step-uniform: all threads
+    if (live_o) oa.begin(mo0, k0);
     for (int kk = 0; kk < kTile; kk += kSlice) {
       if (k0 + kk >= k) break;                 // slice wholly past K
 #pragma unroll
@@ -102,8 +124,7 @@ apec_csr_kernel(const float* __restrict__ res, const float* __restrict__ ov,
         for (int l = 0; l < kTile * kSlice / kThreads; ++l) {
           const int e = tid + l * kThreads;
           const int r = e / kSlice, c = e % kSlice;
-          const int64_t gr = m0 + r, gc = k0 + kk + c;
-          sm.st.a[c][r] = (gr < m && gc < k) ? res[gr * k + gc] : 0.0f;
+          sm.st.a[c][r] = ra.at(m0, k0, r, kk + c);
         }
       }
       if (live_o) {
@@ -111,8 +132,7 @@ apec_csr_kernel(const float* __restrict__ res, const float* __restrict__ ov,
         for (int l = 0; l < kRo * kSlice / kThreads; ++l) {
           const int e = tid + l * kThreads;
           const int r = e / kSlice, c = e % kSlice;
-          const int64_t gr = mo0 + r, gc = k0 + kk + c;
-          sm.st.ao[c][r] = (gr < mg && gc < k) ? ov[gr * k + gc] : 0.0f;
+          sm.st.ao[c][r] = oa.at(mo0, k0, r, kk + c);
         }
       }
       __syncthreads();
@@ -168,16 +188,15 @@ apec_csr_kernel(const float* __restrict__ res, const float* __restrict__ ov,
   }
 }
 
-template <int G>
-void launch(const float* res, const float* ov, const float* w, float* out,
-            const int* row_ptr, const int* tile_k_idx, const int* occ_res,
-            const int* occ_ov, int64_t m, int64_t k, int64_t n, int64_t mt,
-            cudaStream_t stream) {
+template <int G, class RA, class OA>
+void launch(RA ra, OA oa, const float* w, float* out, const int* row_ptr,
+            const int* tile_k_idx, const int* occ_res, const int* occ_ov,
+            int64_t m, int64_t k, int64_t n, int64_t mt, cudaStream_t stream) {
   // m-tile rows on x (no 65535 limit); neighbouring blocks share the
   // n-tile's weight slices in L2.
   dim3 grid((unsigned)mt, (unsigned)((n + kTile - 1) / kTile));
   apec_csr_kernel<G><<<grid, kThreads, 0, stream>>>(
-      res, ov, w, out, row_ptr, tile_k_idx, occ_res, occ_ov, m, k, n);
+      ra, oa, w, out, row_ptr, tile_k_idx, occ_res, occ_ov, m, k, n);
 }
 
 }  // namespace
@@ -195,18 +214,53 @@ extern "C" int apec_matmul_csr_forward(const float* res, const float* ov,
   if (m % g != 0) return (int)cudaErrorInvalidValue;
   if (m > 0 && n > 0) {
     cudaStream_t st = (cudaStream_t)stream;
+    const tile_fma::DenseA ra{res, m, k}, oa{ov, m / g, k};
     switch (g) {
       case 2:
-        launch<2>(res, ov, w, out, row_ptr, tile_k_idx, occ_res, occ_ov, m,
+        launch<2>(ra, oa, w, out, row_ptr, tile_k_idx, occ_res, occ_ov, m,
                   k, n, mt, st);
         break;
       case 4:
-        launch<4>(res, ov, w, out, row_ptr, tile_k_idx, occ_res, occ_ov, m,
+        launch<4>(ra, oa, w, out, row_ptr, tile_k_idx, occ_res, occ_ov, m,
                   k, n, mt, st);
         break;
       case 8:
-        launch<8>(res, ov, w, out, row_ptr, tile_k_idx, occ_res, occ_ov, m,
+        launch<8>(ra, oa, w, out, row_ptr, tile_k_idx, occ_res, occ_ov, m,
                   k, n, mt, st);
+        break;
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// The same on words: res (M, KW) and ov (M/g, KW) uint32 covering
+// K <= 32*KW columns (bits past K zero); the rest as above.
+extern "C" int apec_matmul_packed_csr_forward(
+    const uint32_t* res, const uint32_t* ov, const float* w, float* out,
+    const int* row_ptr, const int* tile_k_idx, const int* occ_res,
+    const int* occ_ov, int64_t m, int64_t kw, int64_t k, int64_t n,
+    int64_t mt, int64_t g, void* stream) {
+  if (m % g != 0) return (int)cudaErrorInvalidValue;
+  if (m > 0 && n > 0) {
+    cudaStream_t st = (cudaStream_t)stream;
+    const tile_fma::PackedA<kTile> ra{res, m, kw, nullptr};
+    switch (g) {
+      case 2:
+        launch<2>(ra, tile_fma::PackedA<kTile / 2>{ov, m / 2, kw, nullptr},
+                  w, out, row_ptr, tile_k_idx, occ_res, occ_ov, m, k, n, mt,
+                  st);
+        break;
+      case 4:
+        launch<4>(ra, tile_fma::PackedA<kTile / 4>{ov, m / 4, kw, nullptr},
+                  w, out, row_ptr, tile_k_idx, occ_res, occ_ov, m, k, n, mt,
+                  st);
+        break;
+      case 8:
+        launch<8>(ra, tile_fma::PackedA<kTile / 8>{ov, m / 8, kw, nullptr},
+                  w, out, row_ptr, tile_k_idx, occ_res, occ_ov, m, k, n, mt,
+                  st);
         break;
       default:
         return (int)cudaErrorInvalidValue;

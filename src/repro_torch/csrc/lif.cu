@@ -1,17 +1,22 @@
 // Fused LIF scan over the leading time axis: the forward with or without
 // per-tile event counts, each with or without the membrane residual that
-// training saves, and the reversed-time ATan surrogate backward.
+// training saves, the packed fire that writes uint32 words instead of
+// spikes, and the reversed-time ATan surrogate backward.
 //
 // Replaces: src/repro/kernels/lif_scan.py::_lif_kernel (lif_scan_pallas),
 //           ::_lif_occ_kernel (_lif_occ_pallas), ::_lif_fwd_kernel
 //           (_lif_fwd_pallas), ::_lif_occ_fwd_kernel (_lif_occ_pallas with
-//           emit_vres) and ::_lif_bwd_kernel (_lif_bwd_pallas).
+//           emit_vres), ::_lif_occ_packed_kernel
+//           (lif_scan_occ_packed_pallas) and ::_lif_bwd_kernel
+//           (_lif_bwd_pallas).
 // Bound on the H100: bytes. The forward reads T*P f32 drive values and
 //           writes T*P f32 spikes (P neurons per step), plus T*P f32
-//           residuals in the residual mode; the backward reads the
-//           residuals and the spike cotangent (2*T*P f32) and writes the
-//           drive cotangent (T*P f32). Each does a few to ~12 flops per
-//           element, far below the card's ~20 flop/byte ridge.
+//           residuals in the residual mode; the packed fire writes T*P/8
+//           bytes of words instead of the spikes, so it moves 4.125
+//           bytes per element against the counts mode's 8; the backward
+//           reads the residuals and the spike cotangent (2*T*P f32) and
+//           writes the drive cotangent (T*P f32). Each does a few to ~12
+//           flops per element, far below the card's ~20 flop/byte ridge.
 // Design:   one thread per neuron keeps its membrane potential (backward:
 //           the membrane cotangent u) in a register across the T loop, so
 //           the state never touches device memory (the TPU kernels kept
@@ -26,7 +31,13 @@
 //           shared-memory sum. The count map therefore has the same layout
 //           as _lif_occ_pallas, (T, R/8, ceil(K/128)); lanes past K (the
 //           TPU wrapper's zero pad to 128) exist only as idle threads and
-//           never fire, so no padded copy of the drive is made.
+//           never fire, so no padded copy of the drive is made. In that
+//           block each warp covers 32 consecutive lanes of one row,
+//           starting at a multiple of 32, so the ballot the counts take
+//           IS the packed word (bit i = lane 32w+i): the packed mode
+//           stores it from lane 0 of the warp, for words below
+//           ceil(K/32), and writes no f32 spike. Idle lanes past K give
+//           zero tail bits, as `pack_spikes_padded` pads.
 //           Every operation is rounded on its own (__f*_rn, no FMA
 //           contraction) in the order of the plain PyTorch versions in
 //           kernels/lif_scan.py, so spikes, residuals and cotangents equal
@@ -70,15 +81,16 @@ constexpr int kLanes = 128;  // lane tile (the map's K tiling)
 constexpr int kChunk = 8;    // row chunk (the TPU kernel's block_m)
 
 // x, s (and vres): (T, R, K) contiguous; counts: (T, R/8, ceil(K/128))
-// int32. Block (128, 8): threadIdx.x = lane in the tile, threadIdx.y = row
-// in the chunk. grid = (R/8, ceil(K/128)): chunks on x, which has no 65535
-// limit.
-template <bool kResidual>
+// int32; words (packed mode, instead of s): (T, R, ceil(K/32)) uint32.
+// Block (128, 8): threadIdx.x = lane in the tile, threadIdx.y = row in the
+// chunk. grid = (R/8, ceil(K/128)): chunks on x, which has no 65535 limit.
+template <bool kResidual, bool kPacked>
 __global__ void __launch_bounds__(kLanes * kChunk)
 lif_counts_kernel(const float* __restrict__ x, float* __restrict__ s,
                   int* __restrict__ counts, float* __restrict__ vres,
-                  int64_t t_steps, int64_t rows, int64_t k, float decay,
-                  float v_th, bool soft_reset) {
+                  uint32_t* __restrict__ words, int64_t t_steps,
+                  int64_t rows, int64_t k, float decay, float v_th,
+                  bool soft_reset) {
   __shared__ int partial[2][kLanes * kChunk / 32];
   const int64_t chunk = blockIdx.x;
   const int64_t lane = (int64_t)blockIdx.y * kLanes + threadIdx.x;
@@ -95,12 +107,19 @@ lif_counts_kernel(const float* __restrict__ x, float* __restrict__ s,
       const int64_t off = (t * rows + row) * k + lane;
       float vv;
       sp = lif_step(v, x[off], decay, v_th, soft_reset, vv);
-      s[off] = sp;
+      if (!kPacked) s[off] = sp;
       if (kResidual) vres[off] = vv;
     }
     const unsigned fired = __ballot_sync(0xffffffffu, sp != 0.0f);
     int* slot = partial[t & 1];
-    if ((tid & 31) == 0) slot[warp] = __popc(fired);
+    if ((tid & 31) == 0) {
+      slot[warp] = __popc(fired);
+      if (kPacked) {
+        const int64_t kw = (k + 31) / 32;
+        const int64_t word = lane / 32;   // lane % 32 == 0 here
+        if (word < kw) words[(t * rows + row) * kw + word] = fired;
+      }
+    }
     __syncthreads();
     // Safe with one barrier per step: the next step writes the other
     // slot, and the step after that waits at its barrier for this read.
@@ -166,15 +185,18 @@ int launch_lif(const float* x, float* s, float* vres, int64_t t_steps,
   return (int)cudaGetLastError();
 }
 
-template <bool kResidual>
+template <bool kResidual, bool kPacked>
 int launch_lif_counts(const float* x, float* s, int* counts, float* vres,
-                      int64_t t_steps, int64_t rows, int64_t k, float decay,
-                      float v_th, int soft_reset, void* stream) {
+                      uint32_t* words, int64_t t_steps, int64_t rows,
+                      int64_t k, float decay, float v_th, int soft_reset,
+                      void* stream) {
   if (rows > 0 && k > 0) {
     dim3 block(kLanes, kChunk);
     dim3 grid((unsigned)(rows / kChunk), (unsigned)((k + kLanes - 1) / kLanes));
-    lif_counts_kernel<kResidual><<<grid, block, 0, (cudaStream_t)stream>>>(
-        x, s, counts, vres, t_steps, rows, k, decay, v_th, soft_reset != 0);
+    lif_counts_kernel<kResidual, kPacked>
+        <<<grid, block, 0, (cudaStream_t)stream>>>(
+            x, s, counts, vres, words, t_steps, rows, k, decay, v_th,
+            soft_reset != 0);
   }
   return (int)cudaGetLastError();
 }
@@ -199,8 +221,20 @@ extern "C" int lif_counts_forward(const float* x, float* s, int* counts,
                                   int64_t t_steps, int64_t rows, int64_t k,
                                   float decay, float v_th, int soft_reset,
                                   void* stream) {
-  return launch_lif_counts<false>(x, s, counts, nullptr, t_steps, rows, k,
-                                  decay, v_th, soft_reset, stream);
+  return launch_lif_counts<false, false>(x, s, counts, nullptr, nullptr,
+                                         t_steps, rows, k, decay, v_th,
+                                         soft_reset, stream);
+}
+
+// words: (T, R, ceil(K/32)) uint32, written instead of the spikes.
+extern "C" int lif_counts_packed_forward(const float* x, uint32_t* words,
+                                         int* counts, int64_t t_steps,
+                                         int64_t rows, int64_t k,
+                                         float decay, float v_th,
+                                         int soft_reset, void* stream) {
+  return launch_lif_counts<false, true>(x, nullptr, counts, nullptr, words,
+                                        t_steps, rows, k, decay, v_th,
+                                        soft_reset, stream);
 }
 
 extern "C" int lif_counts_fwd_forward(const float* x, float* s, int* counts,
@@ -208,8 +242,9 @@ extern "C" int lif_counts_fwd_forward(const float* x, float* s, int* counts,
                                       int64_t rows, int64_t k, float decay,
                                       float v_th, int soft_reset,
                                       void* stream) {
-  return launch_lif_counts<true>(x, s, counts, vres, t_steps, rows, k, decay,
-                                 v_th, soft_reset, stream);
+  return launch_lif_counts<true, false>(x, s, counts, vres, nullptr,
+                                        t_steps, rows, k, decay, v_th,
+                                        soft_reset, stream);
 }
 
 extern "C" int lif_backward(const float* vres, const float* g, float* dx,

@@ -41,12 +41,13 @@ pred_matmul_kernel(const float* __restrict__ s, const float* __restrict__ w,
   const int64_t m0 = (int64_t)blockIdx.x * kTile;
   const int64_t n0 = (int64_t)blockIdx.y * BN;
   const int* row = occ + (int64_t)blockIdx.x * kt;
+  tile_fma::DenseA a{s, m, k};
   float acc[RM][RN];
   tile_fma::zero(acc);
   for (int j = 0; j < (int)kt; ++j) {    // an int index: faster than int64
     if (row[j] <= 0) continue;                   // empty tile: gated off
-    tile_fma::accumulate_tile<BN, RM, RN>(st, s, w, m0, n0,
-                                          (int64_t)j * kTile, m, k, n, acc);
+    tile_fma::accumulate_tile<BN, RM, RN>(st, a, w, m0, n0,
+                                          (int64_t)j * kTile, k, n, acc);
   }
   tile_fma::store_tile<BN, RM, RN>(out, m0, n0, m, n, acc);
 }

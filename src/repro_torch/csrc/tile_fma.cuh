@@ -1,5 +1,6 @@
 // The register-blocked fp32 tile loop shared by the spike matmul kernels
-// (csrc/spike_matmul_csr.cu, csrc/spike_matmul.cu).
+// (csrc/spike_matmul_csr.cu, csrc/spike_matmul.cu), and the spike-operand
+// loaders they and csrc/apec_matmul_csr.cu read through.
 //
 // A block owns one 128-row x BN-column output tile. Each occupied
 // 128-deep k-tile streams its s tile and w tile through shared memory in
@@ -9,6 +10,14 @@
 // on load and store, and a slice that lies wholly past K is not staged at
 // all (it would add fmaf(0, 0, acc) = acc), so callers never materialise
 // padded copies.
+//
+// The spike operand comes through a loader: `DenseA` reads f32 spikes,
+// `PackedA` uint32 words (bit i of word w = column 32w+i), whose
+// (rows x 4)-word tile it stages in shared memory once per occupied step
+// (2 KB for 128 rows, against 64 KB of f32) and unpacks bit by bit into
+// the same slices. A bit is 1.0f or 0.0f, and fmaf(1, w, acc) = acc + w,
+// fmaf(0, w, acc) = acc, so both loaders give the same sums in the same
+// order.
 #pragma once
 
 #include <stdint.h>
@@ -33,6 +42,46 @@ struct Staging {
   float b[kSlice][BN];              // w slice
 };
 
+constexpr int kTileWords = kTile / 32;   // uint32 words per k-tile row
+
+// f32 spikes, (M, K) row-major.
+struct DenseA {
+  const float* __restrict__ s;
+  int64_t m, k;
+  __device__ __forceinline__ void begin(int64_t, int64_t) {}
+  // The spike at row m0 + r, column k0 + c; 0 past the edges.
+  __device__ __forceinline__ float at(int64_t m0, int64_t k0, int r,
+                                      int c) const {
+    const int64_t gr = m0 + r, gc = k0 + c;
+    return (gr < m && gc < k) ? s[gr * k + gc] : 0.0f;
+  }
+};
+
+// uint32 words of binary spikes, (M, KW) row-major. Bits past the
+// matmul's K need no mask: they meet weight rows the B loads zero, and
+// fmaf(b, 0, acc) = acc. `tile` is ROWS x kTileWords words of shared
+// memory.
+template <int ROWS>
+struct PackedA {
+  const uint32_t* __restrict__ p;
+  int64_t m, kw;
+  uint32_t* tile;
+  // Stage the step's word tile; every thread of the block must call it
+  // (it synchronises), after the previous step's last read.
+  __device__ __forceinline__ void begin(int64_t m0, int64_t k0) {
+    for (int e = threadIdx.x; e < ROWS * kTileWords; e += blockDim.x) {
+      const int64_t gr = m0 + e / kTileWords;
+      const int64_t gw = k0 / 32 + e % kTileWords;
+      tile[e] = (gr < m && gw < kw) ? p[gr * kw + gw] : 0u;
+    }
+    __syncthreads();
+  }
+  __device__ __forceinline__ float at(int64_t, int64_t, int r,
+                                      int c) const {
+    return (float)((tile[r * kTileWords + (c >> 5)] >> (c & 31)) & 1u);
+  }
+};
+
 template <int RM, int RN>
 __device__ __forceinline__ void zero(float (&acc)[RM][RN]) {
 #pragma unroll
@@ -42,15 +91,16 @@ __device__ __forceinline__ void zero(float (&acc)[RM][RN]) {
 }
 
 // acc += s[m0:m0+128, k0:k0+128] @ w[k0:k0+128, n0:n0+BN], masked to
-// (m, k, n). Every thread of the block must call it (it synchronises).
-template <int BN, int RM, int RN>
+// (m, k, n), with s read through loader `a`. Every thread of the block
+// must call it (it synchronises).
+template <int BN, int RM, int RN, class A>
 __device__ __forceinline__ void accumulate_tile(
-    Staging<BN>& st, const float* __restrict__ s,
-    const float* __restrict__ w, int64_t m0, int64_t n0, int64_t k0,
-    int64_t m, int64_t k, int64_t n, float (&acc)[RM][RN]) {
+    Staging<BN>& st, A& a, const float* __restrict__ w, int64_t m0,
+    int64_t n0, int64_t k0, int64_t k, int64_t n, float (&acc)[RM][RN]) {
   using S = Shape<BN, RM, RN>;
   const int tid = threadIdx.x;
   const int tx = tid % S::kTX, ty = tid / S::kTX;
+  a.begin(m0, k0);
   for (int kk = 0; kk < kTile; kk += kSlice) {
     if (k0 + kk >= k) break;
 #pragma unroll
@@ -61,8 +111,7 @@ __device__ __forceinline__ void accumulate_tile(
       // slice evenly (a run-time guard there doubled the kernel's time).
       if ((kTile * kSlice) % S::kThreads == 0 || e < kTile * kSlice) {
         const int r = e / kSlice, c = e % kSlice;
-        const int64_t gr = m0 + r, gc = k0 + kk + c;
-        st.a[c][r] = (gr < m && gc < k) ? s[gr * k + gc] : 0.0f;
+        st.a[c][r] = a.at(m0, k0, r, kk + c);
       }
     }
 #pragma unroll
@@ -77,15 +126,15 @@ __device__ __forceinline__ void accumulate_tile(
     __syncthreads();
 #pragma unroll
     for (int c = 0; c < kSlice; ++c) {
-      float a[RM], b[RN];
+      float av[RM], b[RN];
 #pragma unroll
-      for (int i = 0; i < RM; ++i) a[i] = st.a[c][ty + S::kTY * i];
+      for (int i = 0; i < RM; ++i) av[i] = st.a[c][ty + S::kTY * i];
 #pragma unroll
       for (int j = 0; j < RN; ++j) b[j] = st.b[c][tx + S::kTX * j];
 #pragma unroll
       for (int i = 0; i < RM; ++i)
 #pragma unroll
-        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(av[i], b[j], acc[i][j]);
     }
     __syncthreads();
   }

@@ -1,13 +1,17 @@
 """Hand-written CUDA kernels for Hopper and their wrappers.
 
   lif_scan.py      csrc/lif.cu               fused LIF, with/without counts,
-                                             with/without the residual;
+                                             with/without the residual,
+                                             packed (words, no spikes);
                                              surrogate backward
-  spike_matmul.py  csrc/spike_matmul_csr.cu  event-compacted CSR matmul
+  spike_matmul.py  csrc/spike_matmul_csr.cu  event-compacted CSR matmul, on
+                                             f32 spikes or packed words
                    csrc/spike_matmul.cu      predicated (map-gated) matmul
-                   (both on csrc/tile_fma.cuh, the shared tile loop)
+                   (both on csrc/tile_fma.cuh, the shared tile loop and
+                   its f32 / word spike loaders)
                    csrc/apec_matmul_csr.cu   APEC's fused residual + overlap
-                                             matmul on a union work list
+                                             matmul on a union work list,
+                                             on f32 spikes or packed words
   apec_kernel.py   csrc/apec.cu              APEC overlap/residual on words
   sdsa_kernel.py   csrc/sdsa.cu              packed OR-form attention
   ref.py           plain PyTorch oracles

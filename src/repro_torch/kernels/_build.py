@@ -36,7 +36,9 @@ LAUNCHES: Dict[str, int] = {"lif": 0, "lif_counts": 0, "lif_fwd": 0,
                             "lif_counts_fwd": 0, "lif_bwd": 0,
                             "spike_matmul_csr": 0, "spike_matmul_pred": 0,
                             "sdsa_or": 0, "apec_decompose": 0,
-                            "apec_matmul_csr": 0}
+                            "apec_matmul_csr": 0, "lif_counts_packed": 0,
+                            "spike_matmul_packed_csr": 0,
+                            "apec_matmul_packed_csr": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
@@ -52,15 +54,21 @@ SIGNATURES = {
     "lif_counts_forward": (_P, _P, _P, _I64, _I64, _I64, _F, _F, _I, _P),
     "lif_counts_fwd_forward": (_P, _P, _P, _P, _I64, _I64, _I64, _F, _F, _I,
                                _P),
+    "lif_counts_packed_forward": (_P, _P, _P, _I64, _I64, _I64, _F, _F, _I,
+                                  _P),
     "lif_backward": (_P, _P, _P, _I64, _I64, _F, _F, _I, _F, _F, _P),
     "sdsa_or_forward": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
     "spike_matmul_csr_forward": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                                  _I64, _P),
+    "spike_matmul_packed_csr_forward": (_P, _P, _P, _P, _P, _P, _I64, _I64,
+                                        _I64, _I64, _I64, _P),
     "spike_matmul_pred_forward": (_P, _P, _P, _P, _I64, _I64, _I64, _I64,
                                   _P),
     "apec_decompose_forward": (_P, _P, _P, _I64, _I64, _I64, _P),
     "apec_matmul_csr_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                                 _I64, _I64, _I64, _P),
+    "apec_matmul_packed_csr_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                                       _I64, _I64, _I64, _I64, _I64, _P),
 }
 
 

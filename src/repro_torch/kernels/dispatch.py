@@ -4,24 +4,32 @@ Model code calls ops only through this registry; each op has a plain
 PyTorch oracle (`ref`) and the hand-written CUDA kernels (`cuda`), plus
 manual routes (`auto=False`, reached only by an override):
 
-  op            backend    realization
-  ------------  ---------  ----------------------------------------------
-  lif_scan      cuda       csrc/lif.cu, no-counts mode
-  lif_scan_occ  cuda       csrc/lif.cu, counts mode (+ 16:1 map sum)
-  spike_matmul  cuda       csrc/spike_matmul_csr.cu on the carried map
-                cuda-pred  csrc/spike_matmul.cu, predicated (manual)
-  sdsa          cuda       csrc/sdsa.cu on packed words (mode="or")
-  econv         cuda       im2col + csrc/spike_matmul_csr.cu
-                cuda-pred  im2col + csrc/spike_matmul.cu (manual)
-                jnp        per-event scatter, `econv_scatter` (manual)
-  tconv         cuda       zero-insertion + im2col + csrc/spike_matmul.cu
-                jnp        zero-insertion + dense conv (manual)
-  apec_matmul   cuda       csrc/apec.cu + csrc/apec_matmul_csr.cu (union
-                           work list, both products in one pass)
-                cuda-pred  csrc/apec.cu + two csrc/spike_matmul.cu launches
-                           (manual)
-                jnp        overlap-reuse dense form, `core.apec` (auto on
-                           every platform, above `ref`, as in `repro`)
+  op            backend      realization
+  ------------  -----------  --------------------------------------------
+  lif_scan      cuda         csrc/lif.cu, no-counts mode
+  lif_scan_occ  cuda         csrc/lif.cu, counts mode (+ 16:1 map sum);
+                             packed=True: its packed mode (words, no
+                             spikes)
+  spike_matmul  cuda         csrc/spike_matmul_csr.cu on the carried map
+                cuda-packed  csrc/spike_matmul_csr.cu's word kernel
+                             (packed payload)
+                cuda-pred    csrc/spike_matmul.cu, predicated (manual)
+  sdsa          cuda         csrc/sdsa.cu on packed words (mode="or")
+  econv         cuda         im2col + csrc/spike_matmul_csr.cu
+                cuda-packed  word-domain im2col + the word kernel
+                             (packed payload)
+                cuda-pred    im2col + csrc/spike_matmul.cu (manual)
+                jnp          per-event scatter, `econv_scatter` (manual)
+  tconv         cuda         zero-insertion + im2col + csrc/spike_matmul.cu
+                jnp          zero-insertion + dense conv (manual)
+  apec_matmul   cuda         csrc/apec.cu + csrc/apec_matmul_csr.cu (union
+                             work list, both products in one pass)
+                cuda-packed  csrc/apec.cu + csrc/apec_matmul_csr.cu's word
+                             kernel (packed payload)
+                cuda-pred    csrc/apec.cu + two csrc/spike_matmul.cu launches
+                             (manual)
+                jnp          overlap-reuse dense form, `core.apec` (auto on
+                             every platform, above `ref`, as in `repro`)
 
 (`tconv` is the transposed conv of SegNet's decoder; the dense forward
 conv oracle of `econv` is `core.econv.tconv`, the paper's "TConv".)
@@ -35,10 +43,20 @@ Selection order per call:
      path;
   2. otherwise the highest-priority automatic (``auto=True``) backend
      registered for the platform of the call's first tensor (``cpu`` or
-     ``cuda``).
+     ``cuda``) and for the call's payload.
 A `supports` gate that refuses a call raises; the warn-and-degrade
-chains of `repro`'s registry, and its mesh, hybrid, guard and packed
-payload routing, are not ported yet.
+chains of `repro`'s registry, and its mesh, hybrid and guard routing, are
+not ported yet.
+
+Payload routing (as in `repro`): a call whose spike operand is uint32
+words carries the ``packed_k=`` kwarg (the logical channel count, threaded
+from a packed `EventTensor`). Automatic selection takes it only to a
+backend declaring ``payload=("packed",)`` and never takes a dense call
+there. On the card a packed call lands on its packed kernel or raises;
+on the CPU, which has no packed backend, it lands on `ref`. Wherever a
+packed call reaches a dense backend (that `ref`, or an explicit
+override), the words are unpacked by an explicit shim that warns once
+and is attributed ``<backend>+unpack``.
 
 Gradient contract (as in `repro`): every backend declares how autograd
 goes through it, so training resolves backends exactly as inference does.
@@ -49,7 +67,8 @@ the backward replays `ref`'s autograd on the saved inputs (SDSA keeps the
 tie splitting of `amax`; econv replays the dense conv). ``vjp=<rule>``:
 an explicit ``(saved_args, static_kwargs, g) -> grads`` rule
 (`_matmul_bwd`). Tensor kwargs (the carried `occupancy` map) are
-metadata and get no gradient.
+metadata and get no gradient, and so are packed words: the weights'
+gradients flow through the unpacked values.
 """
 from __future__ import annotations
 
@@ -57,15 +76,20 @@ import contextlib
 import dataclasses
 import functools
 import os
+import warnings
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+
+from repro_torch.core.spikes import unpack_spikes_padded
 
 ENV_VAR = "EXSPIKE_BACKEND"
 REF = "ref"
 CUDA = "cuda"
 CUDA_PRED = "cuda-pred"
+CUDA_PACKED = "cuda-packed"
 ALL_PLATFORMS = ("cpu", "cuda")
+PACKED_OPS = ("spike_matmul", "econv", "apec_matmul")   # take packed_k=
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +97,9 @@ class Backend:
     """One registered implementation of an op. `supports(*args, **kw)`
     returns a reason string when it cannot take the call (None: it can);
     `platforms` are the devices it is auto-selected on; an ``auto=False``
-    backend is never auto-selected, only named by an override."""
+    backend is never auto-selected, only named by an override; `payload`
+    names the spike payloads it is auto-selected for ("dense" f32 spikes,
+    "packed" uint32 words)."""
     name: str
     fn: Callable
     platforms: Tuple[str, ...] = ALL_PLATFORMS
@@ -81,6 +107,7 @@ class Backend:
     auto: bool = True
     supports: Optional[Callable[..., Optional[str]]] = None
     differentiable: bool = False
+    payload: Tuple[str, ...] = ("dense",)
 
     def unsupported_reason(self, *args, **kwargs) -> Optional[str]:
         if self.supports is None:
@@ -120,10 +147,14 @@ class _CustomVJP(torch.autograd.Function):
         args = ctx.saved_tensors
         if ctx.rule == REF:
             ref_fn = _REGISTRY[ctx.op].backends[REF].fn
+            static = dict(ctx.static)
+            pk = static.pop("packed_k", None)
+            if pk is not None:           # replay on the unpacked words
+                args = (unpack_spikes_padded(args[0], pk),) + tuple(args[1:])
             with torch.enable_grad():
                 inputs = [a.detach().requires_grad_(need) for a, need in
                           zip(args, ctx.needs_input_grad[5:])]
-                out = ref_fn(*inputs, **ctx.static, **ctx.aux)
+                out = ref_fn(*inputs, **static, **ctx.aux)
                 pulled = iter(torch.autograd.grad(
                     out, [a for a in inputs if a.requires_grad], g))
             grads = [next(pulled) if a.requires_grad else None
@@ -152,21 +183,28 @@ def _matmul_bwd(res, kwargs, g):
     ds = g @ w.T and dw = sum over rows of s^T g, in fp32 — the dense
     oracle's cotangents everywhere, also in the tiles the event walk
     skipped (autograd through the gated plain version would give ds = 0
-    there)."""
-    del kwargs
+    there). Packed words (``packed_k``) get no cotangent; dw comes from
+    their unpacked values."""
     s, w = res
     gf = g.float()
-    ds = torch.matmul(gf, w.float().T).to(s.dtype)
+    pk = kwargs.get("packed_k")
+    if pk is not None:
+        s = unpack_spikes_padded(s, pk)
+        ds = None
+    else:
+        ds = torch.matmul(gf, w.float().T).to(s.dtype)
     dw = torch.matmul(s.reshape(-1, s.shape[-1]).float().T,
                       gf.reshape(-1, gf.shape[-1])).to(w.dtype)
     return ds, dw
 
 
 def register(op: str, name: str, *, platforms=ALL_PLATFORMS, priority=0,
-             auto=True, supports=None, differentiable=False, vjp=None):
+             auto=True, supports=None, differentiable=False, vjp=None,
+             payload=("dense",)):
     """Decorator: register `fn` as backend `name` for `op`. ``auto=False``
     keeps it out of priority resolution: only `use_backend` or
-    ``EXSPIKE_BACKEND`` reach it.
+    ``EXSPIKE_BACKEND`` reach it. ``payload=("packed",)`` makes it the
+    automatic choice for packed-word calls (and never for dense ones).
 
     Gradient contract: ``differentiable=True`` when autograd through `fn`
     gives the `ref` oracle's gradients, or ``vjp="ref"`` /
@@ -178,7 +216,8 @@ def register(op: str, name: str, *, platforms=ALL_PLATFORMS, priority=0,
         _REGISTRY[op].backends[name] = Backend(
             name=name, fn=_wrap_vjp(op, fn, vjp) if vjp is not None else fn,
             platforms=tuple(platforms), priority=priority, auto=auto,
-            supports=supports, differentiable=differentiable or vjp is not None)
+            supports=supports, differentiable=differentiable or vjp is not None,
+            payload=tuple(payload))
         return fn
     return deco
 
@@ -258,24 +297,51 @@ def _platform(args) -> str:
     raise TypeError("dispatch needs at least one tensor argument")
 
 
+_WARNED: set = set()
+
+
+def _unpack_shim(op: str, be: Backend) -> Backend:
+    """`be` behind an explicit unpack of packed words: the words become the
+    dense f32 spikes of their `packed_k` channels and the marker is
+    consumed. Warns once per (op, backend); attributed ``+unpack``."""
+    if (op, be.name) not in _WARNED:
+        _WARNED.add((op, be.name))
+        warnings.warn(f"exspike dispatch: packed payload for op {op!r} "
+                      f"reaches the dense backend {be.name!r}; unpacking "
+                      f"the words (explicit unpack shim)", RuntimeWarning,
+                      stacklevel=4)
+
+    @functools.wraps(be.fn)
+    def fn(s, *rest, packed_k, **kw):
+        return be.fn(unpack_spikes_padded(s, packed_k), *rest, **kw)
+    return dataclasses.replace(be, fn=fn, name=f"{be.name}+unpack")
+
+
 def resolve(op: str, *args, **kwargs) -> Backend:
     """The backend `dispatch` would run for these inputs."""
     spec = _REGISTRY[op]
     override = _override_for(op)
+    packed = kwargs.get("packed_k") is not None
     if override is not None:
         be = get_backend(op, override)
     else:
         platform = _platform(args)
+        want = "packed" if packed else "dense"
         be = max((b for b in spec.backends.values()
-                  if b.auto and platform in b.platforms),
+                  if b.auto and platform in b.platforms
+                  and want in b.payload),
                  key=lambda b: b.priority, default=None)
+        if be is None and packed and platform == "cpu":
+            be = spec.backends[REF]          # no packed backend on the CPU
         if be is None:
-            raise RuntimeError(f"op {op!r} has no backend for platform "
-                               f"{platform!r}")
+            raise RuntimeError(f"op {op!r} has no {want}-payload backend "
+                               f"for platform {platform!r}")
     reason = be.unsupported_reason(*args, **kwargs)
     if reason is not None:
         raise ValueError(f"backend {be.name!r} for op {op!r} cannot take "
                          f"this call: {reason}")
+    if packed and "packed" not in be.payload:
+        be = _unpack_shim(op, be)
     return be
 
 
@@ -284,14 +350,29 @@ def dispatch(op: str, *args, **kwargs):
     return resolve(op, *args, **kwargs).fn(*args, **kwargs)
 
 
-def resolved_backends(device="cuda") -> Dict[str, str]:
+def _packed_example(op: str, dev):
+    """`op`'s example inputs with the spike operand as packed words."""
+    from repro_torch.core.spikes import pack_spikes_padded
+    args, kwargs = _REGISTRY[op].make_example(dev)
+    s = args[0]
+    return ((pack_spikes_padded(s),) + tuple(args[1:]),
+            {**kwargs, "packed_k": s.shape[-1]})
+
+
+def resolved_backends(device="cuda", *, packed: bool = False
+                      ) -> Dict[str, str]:
     """op -> name of the backend that would run each op's example inputs
-    on `device` under the current overrides (startup log)."""
+    on `device` under the current overrides (startup log). ``packed``:
+    the ops that take a packed payload (`PACKED_OPS`) are resolved on
+    packed words, as a `SpikingConfig(packed=True)` forward calls them."""
     from repro_torch import resolve_device
     dev = resolve_device(device)
     out = {}
     for op, spec in _REGISTRY.items():
-        ex_args, ex_kwargs = spec.make_example(dev)
+        if packed and op in PACKED_OPS:
+            ex_args, ex_kwargs = _packed_example(op, dev)
+        else:
+            ex_args, ex_kwargs = spec.make_example(dev)
         out[op] = resolve(op, *ex_args, **ex_kwargs).name
     return out
 
@@ -344,14 +425,18 @@ def _ref_chunk_occupancy(s):
 
 @register("lif_scan_occ", REF, priority=0, differentiable=True)
 def _lif_occ_ref(x, *, decay=0.5, v_th=1.0, soft_reset=True,
-                 surrogate_alpha=2.0):
-    s = _lif_ref(x, decay=decay, v_th=v_th, soft_reset=soft_reset,
-                 surrogate_alpha=surrogate_alpha)
+                 surrogate_alpha=2.0, packed=False):
+    s = _lif_ref(x.detach() if packed else x, decay=decay, v_th=v_th,
+                 soft_reset=soft_reset, surrogate_alpha=surrogate_alpha)
     # One chunk-granular pre-pass; the tile map is its 16:1 aggregation
     # (identical to the fused kernel's emission, counts and all).
     chunks = _ref_chunk_occupancy(s)
     occ = chunks.reshape(-1, 16, chunks.shape[1]).sum(dim=1,
                                                       dtype=torch.int32)
+    if packed:
+        # The forward-only packed emission, oracle form: fire, then pack.
+        from repro_torch.core.spikes import pack_spikes_padded
+        return pack_spikes_padded(s), occ, chunks
     return s, occ, chunks
 
 
@@ -369,10 +454,10 @@ def _lif_occ_supports(x, **kwargs) -> Optional[str]:
 @register("lif_scan_occ", CUDA, platforms=("cuda",), priority=20,
           supports=_lif_occ_supports, differentiable=True)
 def _lif_occ_cuda(x, *, decay=0.5, v_th=1.0, soft_reset=True,
-                  surrogate_alpha=2.0):
+                  surrogate_alpha=2.0, packed=False):
     from repro_torch.kernels import ops
     return ops.lif_occ(x, decay=decay, v_th=v_th, soft_reset=soft_reset,
-                       surrogate_alpha=surrogate_alpha)
+                       surrogate_alpha=surrogate_alpha, packed=packed)
 
 
 # --------------------------------------------------------- spike_matmul
@@ -399,6 +484,16 @@ def _spike_matmul_csr(s, w, occupancy=None):
     # pre-pass (the work list compacts from the small map).
     from repro_torch.kernels import ops
     return ops.spike_matmul_csr(s, w, occupancy=occupancy)
+
+
+@register("spike_matmul", CUDA_PACKED, platforms=("cuda",), priority=30,
+          vjp=_matmul_bwd, payload=("packed",))
+def _spike_matmul_packed(s, w, occupancy=None, packed_k=None):
+    # The CSR walk on packed words: each occupied word tile unpacks on
+    # chip. Dense spikes (packed_k=None) are packed at entry.
+    from repro_torch.kernels import ops
+    return ops.spike_matmul_packed(s, w, packed_k=packed_k,
+                                   occupancy=occupancy)
 
 
 @register("spike_matmul", CUDA_PRED, auto=False, vjp=_matmul_bwd)
@@ -469,6 +564,16 @@ def _apec_matmul_csr(s, w, *, g=2, occupancy=None):
     # gate (an s tile is occupied iff its res or ov tile is).
     from repro_torch.kernels import ops
     return ops.apec_matmul_csr(s, w, g=g, occupancy=occupancy)
+
+
+@register("apec_matmul", CUDA_PACKED, platforms=("cuda",), priority=30,
+          supports=_apec_csr_supports, vjp=_matmul_bwd, payload=("packed",))
+def _apec_matmul_packed(s, w, *, g=2, occupancy=None, packed_k=None):
+    # The fused kernel on words end to end: decompose on the words, union
+    # work list, both operands' word tiles unpacked on chip.
+    from repro_torch.kernels import ops
+    return ops.apec_matmul_packed(s, w, g=g, packed_k=packed_k,
+                                  occupancy=occupancy)
 
 
 # ------------------------------------------------------------------ sdsa
@@ -555,6 +660,18 @@ def _econv_cuda(s, w, *, stride=1, padding="SAME", occupancy=None):
                          occupancy)
 
 
+@register("econv", CUDA_PACKED, platforms=("cuda",), priority=30, vjp=REF,
+          payload=("packed",))
+def _econv_packed(s, w, *, stride=1, padding="SAME", occupancy=None,
+                  packed_k=None):
+    # Word-domain im2col (strided slices of the padded words) + the packed
+    # CSR kernel; `ops.econv_packed` relays the weights to the patch
+    # feature order.
+    from repro_torch.kernels import ops
+    return ops.econv_packed(s, w, stride=stride, padding=padding,
+                            packed_k=packed_k, occupancy=occupancy)
+
+
 @register("econv", CUDA_PRED, auto=False, vjp=REF)
 def _econv_pred(s, w, *, stride=1, padding="SAME", occupancy=None):
     from repro_torch.kernels import ops
@@ -635,7 +752,16 @@ def _tconv_cuda(s, w, *, stride=2, padding="SAME"):
 # unpack it into (spikes, occupancy-kwarg) for the registered backends.
 # Event backends consume the carried map, oracles ignore it, and either
 # way the values are identical — occupancy only gates what is provably
-# zero. A map carried for the wrong tiling raises before resolution.
+# zero. A map carried for the wrong tiling raises before resolution. A
+# packed-only EventTensor hands over its words and the `packed_k` marker
+# that routes the call to the packed backends.
+def _payload(s, kw):
+    if s.is_packed:
+        kw["packed_k"] = s.feature_size
+        return s.packed
+    return s.spikes
+
+
 def _event_args(s, kw=None):
     from repro_torch.core.events import EventTensor
     kw = dict(kw or {})
@@ -643,7 +769,7 @@ def _event_args(s, kw=None):
         occ = s.occupancy_for(128, 128)
         if occ is not None:
             kw["occupancy"] = occ
-        s = s.spikes
+        s = _payload(s, kw)
     return s, kw
 
 
@@ -653,12 +779,15 @@ def lif_scan(x, *, decay=0.5, v_th=1.0, soft_reset=True, surrogate_alpha=2.0):
 
 
 def lif_scan_occ(x, *, decay=0.5, v_th=1.0, soft_reset=True,
-                 surrogate_alpha=2.0):
+                 surrogate_alpha=2.0, packed=False):
     """Fire + emit the occupancy maps: returns (spikes, (128,128) tile
     map, 8-row chunk map) — wrap in an EventTensor via
-    `models.layers.lif_fire_events`."""
+    `models.layers.lif_fire_events`. With ``packed=True`` the first
+    element is the uint32 words instead (forward only: the kernel writes
+    words and counts, and no f32 spike tensor)."""
     return dispatch("lif_scan_occ", x, decay=decay, v_th=v_th,
-                    soft_reset=soft_reset, surrogate_alpha=surrogate_alpha)
+                    soft_reset=soft_reset, surrogate_alpha=surrogate_alpha,
+                    packed=packed)
 
 
 def spike_matmul(s, w):
@@ -687,7 +816,7 @@ def econv(s, w, *, stride=1, padding="SAME"):
         occ = conv_patch_occupancy(s, w.shape, stride, padding)
         if occ is not None:
             kw["occupancy"] = occ
-        s = s.spikes
+        s = _payload(s, kw)
     return dispatch("econv", s, w, **kw)
 
 

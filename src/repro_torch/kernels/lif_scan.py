@@ -2,7 +2,10 @@
 
 `lif` fires a (T, P) drive; `lif_counts` fires a (T, R, K) drive and also
 emits the int32 event count of every (t, 8-row chunk, 128-lane tile), the
-layout of `repro`'s `_lif_occ_pallas`. `lif_fwd` and `lif_counts_fwd` are
+layout of `repro`'s `_lif_occ_pallas`; `lif_counts_packed` emits the same
+counts with the spikes as uint32 words (T, R, ceil(K/32)) and no f32
+spike tensor, forward only (`repro`'s `lif_scan_occ_packed_pallas`).
+`lif_fwd` and `lif_counts_fwd` are
 the same with the pre-reset membrane residual `vres` (T, ...) f32 added,
 and `lif_bwd(vres, g)` is the reversed-time ATan surrogate backward. On a
 CUDA tensor each wrapper launches `csrc/lif.cu`; on a CPU tensor it runs
@@ -20,6 +23,7 @@ import math
 
 import torch
 
+from repro_torch.core.spikes import pack_spikes_padded
 from repro_torch.core.surrogate import atan_surrogate
 from . import _build
 
@@ -72,6 +76,15 @@ def lif_counts_plain(x: torch.Tensor, *, decay: float = 0.5,
     """Plain version of the counts mode: fire, then count per chunk."""
     s = lif_plain(x, decay=decay, v_th=v_th, soft_reset=soft_reset)
     return s, chunk_counts(s)
+
+
+def lif_counts_packed_plain(x: torch.Tensor, *, decay: float = 0.5,
+                            v_th: float = 1.0, soft_reset: bool = True):
+    """Plain version of the packed mode: fire, pack the spikes (pad bits
+    zero), count per chunk -> (words, counts)."""
+    s, counts = lif_counts_plain(x, decay=decay, v_th=v_th,
+                                 soft_reset=soft_reset)
+    return pack_spikes_padded(s), counts
 
 
 def lif_bwd_plain(vres: torch.Tensor, g: torch.Tensor, *, decay: float = 0.5,
@@ -158,6 +171,29 @@ def lif_counts(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
         x.data_ptr(), s.data_ptr(), counts.data_ptr(), t, r, k, float(decay),
         float(v_th), int(soft_reset), _build.stream()), "lif_counts")
     return s, counts
+
+
+def lif_counts_packed(x: torch.Tensor, *, decay: float = 0.5,
+                      v_th: float = 1.0, soft_reset: bool = True):
+    """x: (T, R, K) f32 drive with R % 8 == 0 -> (words (T, R, ceil(K/32))
+    uint32, counts (T, R/8, ceil(K/128)) int32). Forward only."""
+    _check_counts_shape("lif_counts_packed", x)
+    if not x.is_cuda:
+        return lif_counts_packed_plain(x, decay=decay, v_th=v_th,
+                                       soft_reset=soft_reset)
+    _build.require_cuda("lif_counts_packed", x, dtype=torch.float32)
+    t, r, k = x.shape
+    words = torch.empty((t, r, -(-k // 32)), dtype=torch.uint32,
+                        device=x.device)
+    counts = torch.empty((t, r // CHUNK, -(-k // LANES)), dtype=torch.int32,
+                         device=x.device)
+    lib = _build.library()
+    _build.LAUNCHES["lif_counts_packed"] += 1
+    _build.check(lib.lif_counts_packed_forward(
+        x.data_ptr(), words.data_ptr(), counts.data_ptr(), t, r, k,
+        float(decay), float(v_th), int(soft_reset), _build.stream()),
+        "lif_counts_packed")
+    return words, counts
 
 
 def lif_counts_fwd(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,

@@ -12,8 +12,11 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.econv import conv_pads
 from repro_torch.core.events import EventTensor
 from repro_torch.core.spikes import (PACK, TileCSR, build_csr, pack_spikes,
+                                     pack_spikes_padded, packed_width,
+                                     ragged_packed_tile_occupancy,
                                      ragged_tile_occupancy, unpack_spikes)
 from . import apec_kernel, lif_scan, sdsa_kernel, spike_matmul as _csr
 
@@ -43,7 +46,8 @@ def lif(x: torch.Tensor, decay: float = 0.5, v_th: float = 1.0,
 
 
 def lif_occ(x: torch.Tensor, decay: float = 0.5, v_th: float = 1.0,
-            soft_reset: bool = True, surrogate_alpha: float = 2.0):
+            soft_reset: bool = True, surrogate_alpha: float = 2.0,
+            packed: bool = False):
     """Fused LIF that also emits the (128, 128)-tiled occupancy map of its
     own spike output — the full-event producer.
 
@@ -54,16 +58,27 @@ def lif_occ(x: torch.Tensor, decay: float = 0.5, v_th: float = 1.0,
     counts plus a reduction over the small count map, never a re-read of
     the spikes. The spikes are differentiable (surrogate backward kernel);
     the maps are metadata and carry no gradient.
+
+    ``packed=True`` is the forward-only packed fire: the first element is
+    the uint32 words (T, ..., ceil(K/32)) that the kernel writes instead
+    of spikes (the drive is detached, as `repro` stops its gradient); the
+    maps are the same.
     """
     t, k = x.shape[0], x.shape[-1]
     r = math.prod(x.shape[1:-1])
     if r % 8:
         raise ValueError(f"middle axes {tuple(x.shape[1:-1])} (R={r}) must "
                          f"divide by 8")
-    s, cnt = lif_scan.LIFScanOccSG.run(x.reshape(t, r, k).contiguous(),
-                                       decay=decay, v_th=v_th,
-                                       soft_reset=soft_reset,
-                                       surrogate_alpha=surrogate_alpha)
+    xr = x.reshape(t, r, k).contiguous()
+    if packed:
+        s, cnt = lif_scan.lif_counts_packed(xr.detach(), decay=decay,
+                                            v_th=v_th, soft_reset=soft_reset)
+        payload = s.reshape(tuple(x.shape[:-1]) + (packed_width(k),))
+    else:
+        s, cnt = lif_scan.LIFScanOccSG.run(xr, decay=decay, v_th=v_th,
+                                           soft_reset=soft_reset,
+                                           surrogate_alpha=surrogate_alpha)
+        payload = s.reshape(x.shape)
     # (T, R/8, KT) chunk counts -> (ceil(T*R/128), KT) matmul tiles: the
     # flattened chunk (t, a) sits at t*(R/8)+a, so 16 consecutive chunks
     # are one 128-row tile (zero-padded tail chunks match the consumers'
@@ -71,7 +86,7 @@ def lif_occ(x: torch.Tensor, decay: float = 0.5, v_th: float = 1.0,
     kt = cnt.shape[-1]
     cnt2, _ = _pad_to(cnt.reshape(t * (r // 8), kt), 0, 16)
     occ = cnt2.reshape(-1, 16, kt).sum(dim=1, dtype=torch.int32)
-    return s.reshape(x.shape), occ, cnt2
+    return payload, occ, cnt2
 
 
 def sdsa_or(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -241,9 +256,10 @@ def apec_matmul(s, w: torch.Tensor, g: int = 2, *, decomposed=None,
 
 def apec_union_worklist(res: torch.Tensor, ov: torch.Tensor, g: int,
                         occupancy: torch.Tensor | None = None,
-                        csr: TileCSR | None = None):
+                        csr: TileCSR | None = None, *, packed: bool = False):
     """(union `TileCSR`, residual per-step counts, overlap per-step counts)
-    for the fused APEC kernel on the 128 x 128 grid of res.
+    for the fused APEC kernel on the 128 x 128 grid of res (of the spikes
+    they carry, for `packed` words, whose pre-passes are word popcounts).
 
     Without a map, one dense pre-pass per operand (residual tiles 128 x
     128, overlap tiles 128/g x 128, the same grid) and the work list of
@@ -254,7 +270,8 @@ def apec_union_worklist(res: torch.Tensor, ov: torch.Tensor, g: int,
     the work list compacts from it (or `csr`, its cached compaction, is
     used) and both dots are gated on it, with no dense pre-pass."""
     tile = _csr.TILE
-    grid = (-(-res.shape[0] // tile), -(-res.shape[1] // tile))
+    k = res.shape[1] * (PACK if packed else 1)
+    grid = (-(-res.shape[0] // tile), -(-k // tile))
     if occupancy is not None:
         _check_map(occupancy, grid)
         if csr is None:
@@ -262,8 +279,9 @@ def apec_union_worklist(res: torch.Tensor, ov: torch.Tensor, g: int,
         gate = (occupancy[csr.tile_m_idx.long(), csr.tile_k_idx.long()]
                 * csr.valid).to(torch.int32)
         return csr, gate, gate
-    occ_res = ragged_tile_occupancy(res, tile, tile)
-    occ_ov = ragged_tile_occupancy(ov, tile // g, tile)
+    count = ragged_packed_tile_occupancy if packed else ragged_tile_occupancy
+    occ_res = count(res, tile, tile)
+    occ_ov = count(ov, tile // g, tile)
     csr = build_csr(occ_res + occ_ov, tile, tile)
     steps = (csr.tile_m_idx.long(), csr.tile_k_idx.long())
     return (csr, (occ_res[steps] * csr.valid).to(torch.int32),
@@ -306,3 +324,130 @@ def apec_matmul_csr(s, w: torch.Tensor, g: int = 2, *,
                                w.float().contiguous(), g, csr, occ_res,
                                occ_ov)
     return out.reshape(lead + (p, w.shape[-1])).to(w.dtype)
+
+
+# ------------------------------------------------------- packed payload
+# The packed wrappers take uint32 words with ``packed_k=`` the logical
+# channel count (how dispatch threads a packed EventTensor), a packed
+# EventTensor, or a dense binary operand (packed here, as `repro`'s do, so
+# the registry's dense example inputs reach them). Forward only: the words
+# carry no gradient. Ragged rows, K and N are masked in the kernels, so
+# nothing is padded beyond the 32-bit words.
+def _as_words(s, packed_k: int | None):
+    """The spike operand as uint32 words (..., ceil(K/32)) -> (words, K).
+    Pre-packed words are checked against `packed_width(packed_k)`, never
+    reinterpreted; dense spikes are packed (pad bits zero)."""
+    if isinstance(s, EventTensor):
+        if s.is_packed:
+            return s.packed, s.feature_size
+        s, packed_k = s.spikes, None
+    if packed_k is None:
+        return pack_spikes_padded(s.detach()), s.shape[-1]
+    if s.dtype != torch.uint32 or s.shape[-1] != packed_width(packed_k):
+        raise ValueError(
+            f"packed operand {tuple(s.shape)} {s.dtype} does not carry "
+            f"packed_k={packed_k} channels as {packed_width(packed_k)} "
+            f"uint32 words")
+    return s, int(packed_k)
+
+
+def _packed_rows(s, packed_k: int | None,
+                 occupancy: torch.Tensor | None):
+    """The spike operand as flattened (R, ceil(K/32)) words -> (words, K,
+    lead shape, logical rows, occupancy, the carried map unless one is
+    given)."""
+    if isinstance(s, EventTensor) and occupancy is None:
+        occupancy = s.occupancy_for(_csr.TILE, _csr.TILE)
+    words, k = _as_words(s, packed_k)
+    kw = words.shape[-1]
+    return (words.reshape(-1, kw).contiguous(), k, tuple(words.shape[:-2]),
+            words.shape[-2], occupancy)
+
+
+def _check_weight_rows(w: torch.Tensor, k: int) -> None:
+    if w.shape[0] != k:
+        raise ValueError(f"weights have {w.shape[0]} rows, the packed operand "
+                         f"carries {k} channels")
+
+
+def spike_matmul_packed(s, w: torch.Tensor, *, packed_k: int | None = None,
+                        csr: TileCSR | None = None,
+                        occupancy: torch.Tensor | None = None
+                        ) -> torch.Tensor:
+    """Event-compacted spike matmul on the packed payload: (..., M,
+    ceil(K/32)) words with ``packed_k=K`` (or a packed `EventTensor`, or
+    dense spikes) times (K, N) -> (..., M, N). The work list is the f32
+    route's (tile indices are payload-agnostic); a carried or explicit
+    `occupancy` skips the word popcount pre-pass."""
+    p2, k, lead, m, occupancy = _packed_rows(s, packed_k, occupancy)
+    _check_weight_rows(w, k)
+    tile = _csr.TILE
+    if csr is None:
+        if occupancy is None:
+            occupancy = ragged_packed_tile_occupancy(p2, tile, tile)
+        else:
+            _check_map(occupancy, (-(-p2.shape[0] // tile), -(-k // tile)))
+        csr = build_csr(occupancy, tile, tile)
+    out = _csr.spike_matmul_packed_csr(p2, w.float().contiguous(), csr)
+    return out.reshape(lead + (m, w.shape[-1]))
+
+
+def apec_matmul_packed(s, w: torch.Tensor, g: int = 2, *,
+                       packed_k: int | None = None,
+                       occupancy: torch.Tensor | None = None
+                       ) -> torch.Tensor:
+    """The fused APEC matmul without leaving the words: the decompose
+    kernel on the words, a union work list (the carried map gates both
+    operands; without one, each operand's word popcount map), and the
+    packed fused kernel, which unpacks both operands' tiles on chip."""
+    p2, k, lead, p_pos, occupancy = _packed_rows(s, packed_k, occupancy)
+    _check_weight_rows(w, k)
+    if p2.shape[0] % g:
+        raise ValueError(f"positions {p2.shape[0]} not divisible by "
+                         f"group {g}")
+    ov_p, res_p = apec_kernel.apec_decompose_packed(p2, g)
+    csr, occ_res, occ_ov = apec_union_worklist(res_p, ov_p, g, occupancy,
+                                               packed=True)
+    out = _csr.apec_matmul_packed_csr(res_p, ov_p, w.float().contiguous(), g,
+                                      csr, occ_res, occ_ov)
+    return out.reshape(lead + (p_pos, w.shape[-1])).to(w.dtype)
+
+
+def econv_packed(s, w: torch.Tensor, *, stride: int = 1,
+                 padding: str = "SAME", packed_k: int | None = None,
+                 occupancy: torch.Tensor | None = None) -> torch.Tensor:
+    """Event conv with the payload packed end to end: (N, H, W, ceil(Ci/32))
+    words with ``packed_k=Ci`` (or a packed `EventTensor`, or dense
+    spikes) and HWIO weights -> (N, Ho, Wo, Co).
+
+    im2col runs on the words: channels are the packed axis, so a spatial
+    window of the word array is the packed patch, and kh*kw strided
+    slices of the zero-padded words give (N*Ho*Wo, kh*kw*ciw) patch rows
+    in feature order (kh, kw, ci-words). The weights are relaid to match:
+    ci zero-padded to ciw*32 (the phantom channels meet zero weights),
+    then (kh, kw, ci_pad, co). A carried `occupancy` (the dense patch
+    matrix's map) is honoured only when ci % 32 == 0, where the two
+    k-tilings coincide; otherwise the word popcount pre-pass runs.
+    """
+    p, ci = _as_words(s, packed_k)
+    kh, kw_, ci_w, co = w.shape
+    if ci_w != ci:
+        raise ValueError(f"weights expect {ci_w} input channels, packed "
+                         f"operand carries {ci}")
+    n, h, wdt, ciw = p.shape
+    ho, pt, pb = conv_pads(h, kh, stride, padding)
+    wo, pl, pr = conv_pads(wdt, kw_, stride, padding)
+    pp = F.pad(p.view(torch.int32), (0, 0, pl, pr, pt, pb))
+    patches = torch.cat(
+        [pp[:, dy:dy + (ho - 1) * stride + 1:stride,
+            dx:dx + (wo - 1) * stride + 1:stride, :]
+         for dy in range(kh) for dx in range(kw_)], dim=-1)
+    patches = patches.reshape(n * ho * wo, kh * kw_ * ciw).view(torch.uint32)
+    ci_pad = ciw * PACK
+    w2 = F.pad(w.float(), (0, 0, 0, ci_pad - ci)).reshape(kh * kw_ * ci_pad,
+                                                          co)
+    if occupancy is not None and ci % PACK:
+        occupancy = None               # the dense patch tiling does not align
+    out = spike_matmul_packed(patches, w2, packed_k=kh * kw_ * ci_pad,
+                              occupancy=occupancy)
+    return out.reshape(n, ho, wo, co)

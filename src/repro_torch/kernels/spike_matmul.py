@@ -7,15 +7,19 @@ predicated: every (m-tile, n-tile) block walks all k-tiles and the map
 gates each product; it launches `csrc/spike_matmul.cu`.
 `apec_matmul_csr(res, ov, w, g, csr, occ_res, occ_ov)` is APEC's fused
 pair of products over a union work list; it launches
-`csrc/apec_matmul_csr.cu`. On a CPU tensor each runs its plain version.
-All accept any (M, K) x (K, N): ragged edge tiles are masked, never
-padded.
+`csrc/apec_matmul_csr.cu`. `spike_matmul_packed_csr` and
+`apec_matmul_packed_csr` are the same two kernels with the spike operands
+as uint32 words ((M, ceil(K/32)), bit i of word w = column 32w+i), each
+word tile unpacked on chip. On a CPU tensor each runs its plain version
+(the packed ones unpack, then run the f32 plain version). All accept any
+(M, K) x (K, N): ragged edge tiles are masked, never padded.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.spikes import TileCSR
+from repro_torch.core.spikes import (TileCSR, packed_width,
+                                     unpack_spikes_padded)
 from . import _build
 
 TILE = 128     # map / work-list tiling (rows and k)
@@ -186,4 +190,117 @@ def apec_matmul_csr(res: torch.Tensor, ov: torch.Tensor, w: torch.Tensor,
         csr.row_ptr.data_ptr(), csr.tile_k_idx.data_ptr(),
         occ_res_steps.data_ptr(), occ_ov_steps.data_ptr(), m, k, n, mt, g,
         _build.stream()), "apec_matmul_csr")
+    return out
+
+
+# ------------------------------------------------------------- packed
+def _check_words(name: str, k: int, *words: torch.Tensor) -> None:
+    for p in words:
+        if p.ndim != 2 or p.dtype != torch.uint32 or \
+                p.shape[1] != packed_width(k):
+            raise ValueError(
+                f"{name} needs (rows, {packed_width(k)}) uint32 words for "
+                f"K={k}, got {tuple(p.shape)} {p.dtype}")
+
+
+def spike_matmul_packed_csr_plain(p: torch.Tensor, w: torch.Tensor,
+                                  csr: TileCSR) -> torch.Tensor:
+    """Plain version of the packed CSR kernel: unpack, then the f32 CSR
+    kernel's plain version."""
+    return spike_matmul_csr_plain(unpack_spikes_padded(p, w.shape[0]), w,
+                                  csr)
+
+
+def spike_matmul_packed_csr(p: torch.Tensor, w: torch.Tensor,
+                            csr: TileCSR) -> torch.Tensor:
+    """p: (M, ceil(K/32)) uint32 words of binary spikes, w: (K, N) f32 ->
+    (M, N) f32, `csr` a work list on the 128 x 128 grid of the unpacked
+    (M, K) matrix."""
+    if w.ndim != 2:
+        raise ValueError(f"spike_matmul_packed_csr needs (K, N) weights, got "
+                         f"{tuple(w.shape)}")
+    k, n = w.shape
+    _check_words("spike_matmul_packed_csr", k, p)
+    m, kw = p.shape
+    mt, kt = -(-m // TILE), -(-k // TILE)
+    csr.check_compatible(TILE, TILE, mt, kt)
+    if csr.n_rows != mt:
+        raise ValueError(f"csr has {csr.n_rows} m-tile rows, input needs {mt}")
+    if not p.is_cuda:
+        return spike_matmul_packed_csr_plain(p, w, csr)
+    _build.require_cuda("spike_matmul_packed_csr", p, dtype=torch.uint32)
+    _build.require_cuda("spike_matmul_packed_csr", w, dtype=torch.float32)
+    _build.require_cuda("spike_matmul_packed_csr", csr.row_ptr,
+                        csr.tile_k_idx, csr.occ, dtype=torch.int32)
+    if w.device != p.device or csr.row_ptr.device != p.device:
+        raise ValueError("spike_matmul_packed_csr: operands and work list "
+                         "lie on different devices")
+    out = torch.empty((m, n), dtype=torch.float32, device=p.device)
+    lib = _build.library()
+    _build.LAUNCHES["spike_matmul_packed_csr"] += 1
+    _build.check(lib.spike_matmul_packed_csr_forward(
+        p.data_ptr(), w.data_ptr(), out.data_ptr(), csr.row_ptr.data_ptr(),
+        csr.tile_k_idx.data_ptr(), csr.occ.data_ptr(), m, kw, k, n, mt,
+        _build.stream()), "spike_matmul_packed_csr")
+    return out
+
+
+def apec_matmul_packed_csr_plain(res: torch.Tensor, ov: torch.Tensor,
+                                 w: torch.Tensor, g: int, csr: TileCSR,
+                                 occ_res: torch.Tensor,
+                                 occ_ov: torch.Tensor) -> torch.Tensor:
+    """Plain version of the packed APEC kernel: unpack both operands, then
+    the f32 APEC kernel's plain version."""
+    k = w.shape[0]
+    return apec_matmul_csr_plain(unpack_spikes_padded(res, k),
+                                 unpack_spikes_padded(ov, k), w, g, csr,
+                                 occ_res, occ_ov)
+
+
+def apec_matmul_packed_csr(res: torch.Tensor, ov: torch.Tensor,
+                           w: torch.Tensor, g: int, csr: TileCSR,
+                           occ_res_steps: torch.Tensor,
+                           occ_ov_steps: torch.Tensor) -> torch.Tensor:
+    """`apec_matmul_csr` on words: res (M, ceil(K/32)) and ov
+    (M/g, ceil(K/32)) uint32, w (K, N) f32 -> (M, N) f32 =
+    res @ w + repeat(ov @ w, g)."""
+    if w.ndim != 2:
+        raise ValueError(f"apec_matmul_packed_csr needs (K, N) weights, got "
+                         f"{tuple(w.shape)}")
+    k, n = w.shape
+    _check_words("apec_matmul_packed_csr", k, res, ov)
+    m, kw = res.shape
+    if g not in (2, 4, 8) or m % g or ov.shape[0] * g != m:
+        raise ValueError(f"apec_matmul_packed_csr takes g in (2, 4, 8) with "
+                         f"M % g == 0 and M/g overlap rows, got g={g}, "
+                         f"M={m}, {ov.shape[0]} overlap rows")
+    mt, kt = -(-m // TILE), -(-k // TILE)
+    csr.check_compatible(TILE, TILE, mt, kt)
+    if csr.n_rows != mt:
+        raise ValueError(f"csr has {csr.n_rows} m-tile rows, input needs {mt}")
+    if occ_res_steps.shape != (csr.n_steps,) or \
+            occ_ov_steps.shape != (csr.n_steps,):
+        raise ValueError(f"per-step counts {tuple(occ_res_steps.shape)} / "
+                         f"{tuple(occ_ov_steps.shape)} do not match the "
+                         f"work list's {csr.n_steps} steps")
+    if not res.is_cuda:
+        return apec_matmul_packed_csr_plain(res, ov, w, g, csr,
+                                            occ_res_steps, occ_ov_steps)
+    _build.require_cuda("apec_matmul_packed_csr", res, ov,
+                        dtype=torch.uint32)
+    _build.require_cuda("apec_matmul_packed_csr", w, dtype=torch.float32)
+    _build.require_cuda("apec_matmul_packed_csr", csr.row_ptr,
+                        csr.tile_k_idx, occ_res_steps, occ_ov_steps,
+                        dtype=torch.int32)
+    if w.device != res.device or csr.row_ptr.device != res.device:
+        raise ValueError("apec_matmul_packed_csr: operands and work list "
+                         "lie on different devices")
+    out = torch.empty((m, n), dtype=torch.float32, device=res.device)
+    lib = _build.library()
+    _build.LAUNCHES["apec_matmul_packed_csr"] += 1
+    _build.check(lib.apec_matmul_packed_csr_forward(
+        res.data_ptr(), ov.data_ptr(), w.data_ptr(), out.data_ptr(),
+        csr.row_ptr.data_ptr(), csr.tile_k_idx.data_ptr(),
+        occ_res_steps.data_ptr(), occ_ov_steps.data_ptr(), m, kw, k, n, mt,
+        g, _build.stream()), "apec_matmul_packed_csr")
     return out

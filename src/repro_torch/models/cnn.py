@@ -12,7 +12,10 @@ ops) with micro-timesteps folded into the batch axis. The first layer
 eats the direct-coded (multi-bit) drive; the kernels count its nonzeros
 for the map, never its sum. From the first fire on the stream is
 full-event: each fire emits spikes with their maps, pooling and strided
-convs carry them, and the next conv consumes them.
+convs carry them, and the next conv consumes them. With
+`SpikingConfig(packed=True)` the fires emit uint32 words instead, pooling
+ORs them and the convs take them; the EAFC head, ResNet18's identity
+shortcut and SegNet's transposed convs unpack explicitly (`.dense()`).
 
 The params are plain dicts with the same tree and layouts as `repro`'s
 (VGG11's pooling slots are `None`, ResNet18's blocks carry an `int`
@@ -43,7 +46,8 @@ def _fire(drive: torch.Tensor, lif: LIFConfig,
           packed: bool = False) -> EventTensor:
     """Fire stage with fused metadata emission: spikes and occupancy
     leave the LIF together (`lif_scan_occ`), so the next conv's event
-    kernel consumes the carried map instead of re-scanning."""
+    kernel consumes the carried map instead of re-scanning. `packed=True`
+    emits uint32 words as the payload (no f32 spikes between layers)."""
     return lif_fire_events(drive, lif, packed=packed)
 
 
@@ -57,7 +61,10 @@ def _conv_seq(s, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
 
 
 def _tconv_seq(s, w: torch.Tensor, stride: int) -> torch.Tensor:
-    """(T,B,H,W,C) spikes through the registry `tconv` (transposed conv)."""
+    """(T,B,H,W,C) spikes through the registry `tconv` (transposed conv).
+    Zero-insertion moves every event, so `tconv` takes the dense view: a
+    packed payload is unpacked there (`as_spikes`, the explicit
+    `.dense()`)."""
     t, b = s.shape[:2]
     out = conv_transpose(s.reshape((t * b,) + tuple(s.shape[2:])), w,
                          stride=stride)

@@ -52,16 +52,20 @@ def lif_fire_events(x: torch.Tensor, lif_cfg: LIFConfig,
     """Fire AND carry the event metadata: the full-event producer. The
     fused kernel emits the (128, 128) per-tile occupancy map and its
     8-row chunk refinement while it writes the spikes; the returned
-    `EventTensor` lets the next event op skip its occupancy pre-pass."""
-    if packed:
-        raise NotImplementedError(
-            "packed spike payloads wait for the packed-payload port "
-            "(ROADMAP queue 1, item 12)")
+    `EventTensor` lets the next event op skip its occupancy pre-pass.
+
+    `packed=True` makes uint32 words the payload: the kernel writes the
+    words instead of f32 spikes (the maps as before), the returned
+    EventTensor is packed-only (`spikes=None`), and dispatch routes it to
+    the packed backends. Forward only: the words carry no gradient."""
     from repro_torch.kernels import dispatch
     s, occ, chunks = dispatch.lif_scan_occ(
         x, decay=lif_cfg.decay, v_th=lif_cfg.v_th,
         soft_reset=lif_cfg.soft_reset,
-        surrogate_alpha=lif_cfg.surrogate_alpha)
+        surrogate_alpha=lif_cfg.surrogate_alpha, packed=packed)
+    if packed:
+        return EventTensor(None, occ, chunks=chunks, packed=s,
+                           feature_size=x.shape[-1])
     return EventTensor(s, occ, chunks=chunks)
 
 

@@ -9,7 +9,8 @@ The params are a plain dict of tensors with the same tree and layouts as
 (surrogate gradients through every registry op); inference callers enter
 `torch.inference_mode()` themselves. A training step is composed by the
 caller, as in `repro`: cross-entropy of the logits, `torch.autograd.grad`
-over the parameter leaves, `optim.adamw.update`.
+over the parameter leaves, `optim.adamw.update`. `SpikingConfig(packed=
+True)` carries uint32 words between the spiking layers (inference only).
 """
 from __future__ import annotations
 
@@ -62,10 +63,6 @@ def spikingformer_apply(p: Params, x: torch.Tensor, n_heads: int = 8,
                         collect_stats: bool = False):
     """x: (B, 32, 32, C) on the params' device -> logits (B, n_classes)
     [, spike maps per stage]."""
-    if getattr(spiking_cfg, "packed", False):
-        raise NotImplementedError(
-            "SpikingConfig(packed=True) waits for the packed-payload port "
-            "(ROADMAP queue 1, item 12)")
     if x.device != p["head"].device:
         raise ValueError(f"input on {x.device}, params on {p['head'].device}")
     with hybrid_scope(spiking_cfg):
@@ -83,13 +80,16 @@ def _spikingformer_body(p, x, n_heads, spiking_cfg, collect_stats):
     # eats the direct-coded (multi-bit) image and stays a dense conv; from
     # stage 1 on the stream is full-event: each fire emits spikes with
     # their maps, the (T,B)->(T*B) fold and the pooling carry the maps,
-    # and each econv consumes them instead of re-deriving occupancy.
+    # and each econv consumes them instead of re-deriving occupancy. In
+    # packed mode the fires emit uint32 words, the pooling ORs them and
+    # the econvs take them (no f32 spikes between the stages).
+    packed = spiking_cfg.packed
     for i, w in enumerate(p["sps"]):
         tb = tuple(s.shape[:2])
         flat = s.reshape((-1,) + tuple(s.shape[2:]))
         drive = tconv(flat, w) if i == 0 else econv(flat, w)
         drive = drive.reshape(tb + tuple(drive.shape[1:]))
-        s = lif_fire_events(drive, lif)
+        s = lif_fire_events(drive, lif, packed=packed)
         if i in (1, 2):
             s = max_pool_events(s, 2)
         if collect_stats:
@@ -98,6 +98,8 @@ def _spikingformer_body(p, x, n_heads, spiking_cfg, collect_stats):
     dim = s.shape[-1]
     n_tok = s.shape[2] * s.shape[3]
     tokens = s.reshape(t, b, n_tok, dim)         # (T,B,N,D), map survives
+    # The membrane stream is continuous from here on: `.dense()` is the
+    # explicit unpack at the SPS/transformer boundary.
     x_mp = tokens.dense()
 
     for blk in p["blocks"]:
@@ -114,9 +116,11 @@ def _spikingformer_body(p, x, n_heads, spiking_cfg, collect_stats):
             stats.append(attn)
         x_mp = x_mp + attn @ blk["w_o"]
         # Spiking MLP (FFN): full-event — both fires carry their maps and
-        # both projections consume them through the registry matmul.
-        h = lif_fire_events(x_mp, lif)
-        h = lif_fire_events(dispatch.spike_matmul(h, blk["w_fc1"]), lif)
+        # both projections consume them through the registry matmul (on
+        # words in packed mode; q/k/v above stay dense into SDSA).
+        h = lif_fire_events(x_mp, lif, packed=packed)
+        h = lif_fire_events(dispatch.spike_matmul(h, blk["w_fc1"]), lif,
+                            packed=packed)
         if collect_stats:
             stats.append(h.dense())
         x_mp = x_mp + dispatch.spike_matmul(h, blk["w_fc2"])

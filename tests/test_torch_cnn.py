@@ -185,10 +185,9 @@ def test_unported_modes_raise_with_their_roadmap_item():
     p = tcnn.segnet_init(cfg, generator=torch.Generator().manual_seed(0),
                          device="cpu")
     x = torch.zeros(2, 16, 16, 3)
-    for spiking, item in ((SpikingConfig(t_steps=2, packed=True), "item 12"),
-                          (SpikingConfig(t_steps=2, hybrid=True), "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            tcnn.segnet_apply(dataclasses.replace(cfg, spiking=spiking), p, x)
+    spiking = SpikingConfig(t_steps=2, hybrid=True)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tcnn.segnet_apply(dataclasses.replace(cfg, spiking=spiking), p, x)
 
 
 # ------------------------------------------------------- direct coding

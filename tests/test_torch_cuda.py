@@ -5,16 +5,19 @@ Torch-only (no JAX), so it runs on the GPU machine:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Every test is marked `cuda` and skips where no CUDA device is present.
-Spikes, counts, membrane residuals, LIF drive cotangents, SDSA words and
-APEC overlap/residual words must match exactly; the CSR, predicated and
-fused APEC matmuls within 1e-5 * max|plain| + 1e-5 (fp32 summation
-order).
+Spikes, counts, membrane residuals, LIF drive cotangents, SDSA words,
+APEC overlap/residual words and the packed fire's words must match
+exactly; the CSR, predicated and fused APEC matmuls, f32 and packed,
+within 1e-5 * max|plain| + 1e-5 (fp32 summation order).
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.spikes import build_csr, pack_spikes
+from repro_torch.core.events import EventTensor
+from repro_torch.core.spikes import (build_csr, pack_spikes,
+                                     pack_spikes_padded,
+                                     ragged_packed_tile_occupancy)
 from repro_torch.kernels import apec_kernel, dispatch, launch_counts, \
     lif_scan, ops, reset_launch_counts, sdsa_kernel, spike_matmul
 
@@ -124,11 +127,14 @@ def test_cuda_wrappers_count_each_launch(cuda_device):
     x = torch.ones(2, 8, 130, device=cuda_device)
     lif_scan.lif(x.reshape(2, -1))
     lif_scan.lif_counts(x)
+    lif_scan.lif_counts_packed(x)
     assert launch_counts() == {"lif": 1, "lif_counts": 1, "lif_fwd": 0,
                                "lif_counts_fwd": 0, "lif_bwd": 0,
                                "spike_matmul_csr": 0, "spike_matmul_pred": 0,
                                "sdsa_or": 0, "apec_decompose": 0,
-                               "apec_matmul_csr": 0}
+                               "apec_matmul_csr": 0, "lif_counts_packed": 1,
+                               "spike_matmul_packed_csr": 0,
+                               "apec_matmul_packed_csr": 0}
 
 
 @pytest.mark.cuda
@@ -176,7 +182,9 @@ def test_cuda_training_wrappers_count_each_launch(cuda_device):
                                "lif_counts_fwd": 1, "lif_bwd": 1,
                                "spike_matmul_csr": 0, "spike_matmul_pred": 0,
                                "sdsa_or": 0, "apec_decompose": 0,
-                               "apec_matmul_csr": 0}
+                               "apec_matmul_csr": 0, "lif_counts_packed": 0,
+                               "spike_matmul_packed_csr": 0,
+                               "apec_matmul_packed_csr": 0}
 
 
 @pytest.mark.cuda
@@ -276,3 +284,102 @@ def test_cuda_apec_route_launches_each_kernel_once(cuda_device, backend,
         want = s @ w
         assert (out - want).abs().max().item() <= \
             1e-5 * want.abs().max().item() + 1e-5
+
+
+# ------------------------------------------------------ packed payload
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [48, 96, 200, 37])
+def test_cuda_packed_fire_matches_plain(cuda_device, k):
+    """Words and counts exactly, and the words equal the packed spikes of
+    the counts-mode kernel on the same drive."""
+    x = (torch.randn(4, 64, k, generator=torch.Generator().manual_seed(k))
+         + 0.3).to(cuda_device)
+    words, cnt = lif_scan.lif_counts_packed(x, decay=0.5, v_th=0.5)
+    pw, pcnt = lif_scan.lif_counts_packed_plain(x, decay=0.5, v_th=0.5)
+    assert words.dtype == torch.uint32 and words.shape == (4, 64, -(-k // 32))
+    assert torch.equal(words.view(torch.int32), pw.view(torch.int32))
+    assert torch.equal(cnt, pcnt)
+    s, _ = lif_scan.lif_counts(x, decay=0.5, v_th=0.5)
+    assert torch.equal(words.view(torch.int32),
+                       pack_spikes_padded(s).view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(256, 256, 128), (300, 200, 60),
+                                   (1000, 384, 96), (260, 576, 40)])
+def test_cuda_packed_csr_kernel_matches_plain_and_kernel_11(cuda_device, m,
+                                                            k, n):
+    """On the same spikes and k order the packed kernel's sums are kernel
+    11's, bit for bit."""
+    rng = np.random.default_rng(m + k)
+    s = _clustered(rng, m, k)
+    s[128:256] = 0                                # an all-empty m-tile row
+    s = torch.from_numpy(s).to(cuda_device)
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)
+                         ).to(cuda_device)
+    p = pack_spikes_padded(s)
+    csr = build_csr(ragged_packed_tile_occupancy(p, 128, 128), 128, 128)
+    got = spike_matmul.spike_matmul_packed_csr(p, w, csr)
+    want = spike_matmul.spike_matmul_packed_csr_plain(p, w, csr)
+    tol = 1e-5 * want.abs().max().item() + 1e-5
+    assert (got - want).abs().max().item() <= tol
+    assert torch.equal(got, spike_matmul.spike_matmul_csr(s, w, csr))
+    assert torch.all(got[128:256] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,g", [(256, 256, 128, 2), (260, 200, 40, 4),
+                                     (1000, 432, 96, 2), (512, 384, 130, 8)])
+@pytest.mark.parametrize("carried", [False, True])
+def test_cuda_packed_apec_kernel_matches_plain(cuda_device, m, k, n, g,
+                                               carried):
+    rng = np.random.default_rng(m + n + g)
+    s = _clustered(rng, m, k)
+    s[128:256] = 0
+    s = torch.from_numpy(s).to(cuda_device)
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)
+                         ).to(cuda_device)
+    p = pack_spikes_padded(s)
+    ov, res = apec_kernel.apec_decompose_packed(p, g)
+    occ = ops.padded_occupancy(s) if carried else None
+    csr, occ_r, occ_o = ops.apec_union_worklist(res, ov, g, occ, packed=True)
+    args = (res, ov, w, g, csr, occ_r, occ_o)
+    got = spike_matmul.apec_matmul_packed_csr(*args)
+    want = spike_matmul.apec_matmul_packed_csr_plain(*args)
+    tol = 1e-5 * want.abs().max().item() + 1e-5
+    assert (got - want).abs().max().item() <= tol
+    assert (got - s @ w).abs().max().item() <= tol
+    assert torch.all(got[128:256] == 0)
+
+
+@pytest.mark.cuda
+def test_cuda_packed_routes_launch_their_kernels(cuda_device):
+    """A packed EventTensor on the card resolves to `cuda-packed` and
+    launches the word kernels, once per call; a dense call does not."""
+    rng = np.random.default_rng(5)
+    s = torch.from_numpy(_clustered(rng, 512, 96)).to(cuda_device)
+    w = torch.from_numpy(rng.normal(size=(96, 70)).astype(np.float32)
+                         ).to(cuda_device)
+    wc = torch.from_numpy(rng.normal(size=(3, 3, 96, 8)).astype(np.float32)
+                          ).to(cuda_device)
+    et = EventTensor.from_spikes(s, pack=True)
+    assert dispatch.resolved_backends(cuda_device, packed=True)[
+        "spike_matmul"] == dispatch.CUDA_PACKED
+    cases = ((lambda: dispatch.spike_matmul(et, w), s @ w,
+              {"spike_matmul_packed_csr": 1}),
+             (lambda: dispatch.apec_matmul(et, w, g=2), s @ w,
+              {"apec_decompose": 1, "apec_matmul_packed_csr": 1}),
+             (lambda: dispatch.econv(et.reshape(8, 8, 8, 96), wc),
+              dispatch.get_backend("econv", "ref").fn(s.reshape(8, 8, 8, 96),
+                                                      wc),
+              {"spike_matmul_packed_csr": 1}),
+             (lambda: dispatch.spike_matmul(s, w), s @ w,
+              {"spike_matmul_csr": 1}))
+    for fn, want, launches in cases:
+        reset_launch_counts()
+        with torch.inference_mode():
+            out = fn()
+        torch.cuda.synchronize()
+        assert {k: v for k, v in launch_counts().items() if v} == launches
+        assert (out - want).abs().max().item() <= \
+            1e-4 * want.abs().max().item() + 1e-4

@@ -197,11 +197,12 @@ def test_econv_kernel_path_matches_jax(stride, padding):
 
 # -------------------------------------------------------------- dispatch
 REGISTRY = {"lif_scan": {"ref", "cuda"}, "lif_scan_occ": {"ref", "cuda"},
-            "spike_matmul": {"ref", "cuda", "cuda-pred"},
+            "spike_matmul": {"ref", "cuda", "cuda-packed", "cuda-pred"},
             "sdsa": {"ref", "cuda"},
-            "econv": {"ref", "cuda", "cuda-pred", "jnp"},
+            "econv": {"ref", "cuda", "cuda-packed", "cuda-pred", "jnp"},
             "tconv": {"ref", "cuda", "jnp"},
-            "apec_matmul": {"ref", "jnp", "cuda", "cuda-pred"}}
+            "apec_matmul": {"ref", "jnp", "cuda", "cuda-packed",
+                            "cuda-pred"}}
 MANUAL = {("spike_matmul", "cuda-pred"), ("econv", "cuda-pred"),
           ("econv", "jnp"), ("tconv", "jnp"), ("apec_matmul", "cuda-pred")}
 # As in repro, APEC's overlap-reuse form sits above `ref` on every
