@@ -8,7 +8,8 @@ Phases, each printed on its own line:
       and the build of every CUDA kernel from `src/repro_torch/csrc`;
   (b) each inference kernel at the main path's largest shapes (B=32, T=4)
       against its plain PyTorch version on the same card: LIF exact (both
-      modes), packed SDSA bit for bit, the CSR matmul within
+      modes, and the counts and packed modes at a ragged R=12), packed
+      SDSA bit for bit, the CSR matmul within
       1e-5 * max|ref| + 1e-5; with kernel, plain, library and bound times;
   (e) the training kernels (LIF forward with residual, with and without
       counts, and the surrogate backward) at the stage-1 drive, equal to
@@ -33,7 +34,9 @@ Phases, each printed on its own line:
       (CNN_LAUNCHES, every other kernel 0), the dense occupancy pre-passes
       only where no map exists (CNN_PREPASSES), every registry call
       agreeing with `ref` on the same inputs, per-layer spike drift within
-      FREE_RUNNING_SPIKE_TOL; per-layer spike rates; then a per-op
+      FREE_RUNNING_SPIKE_TOL; per-layer spike rates; VGG11 also at B=1
+      and B=3, whose 2x2 fires have a ragged R = 4B, with the same exact
+      launches and registry calls equal to `ref`; then a per-op
       device-time breakdown of one forward on each;
   (f) SpikingFormer-4-384 training: 3 AdamW steps (cross-entropy,
       `torch.autograd.grad` over the parameter leaves, `adamw.update`) on
@@ -51,7 +54,8 @@ Phases, each printed on its own line:
       matmul (kernel 17, g = 2) within 1e-5 * max|ref| + 1e-5 of its
       plain version at fc1, fc2 and stage 1, on the model's maps and on
       data with 50% occupied tiles, with kernel, plain, library and bound
-      times; then `core.apec.apec_matmul` on the FFN inputs and the
+      times; kernels 17 and 15 at g = 16 and 128 on fc1, against their
+      plain versions; then `core.apec.apec_matmul` on the FFN inputs and the
       stage-1 patch matrix for g = 2 and 4, with the carried map and on
       the bare spikes: finite, within 1e-5 * max|ref| + 1e-5 of the CSR
       matmul on the same spikes, exactly 1 decompose and 1 fused launch
@@ -78,10 +82,32 @@ Phases, each printed on its own line:
       kernel forward within FREE_RUNNING_SPIKE_TOL (against the packed
       `ref` forward: reported); a breakdown of the packed and the dense
       SpikingFormer forward in turns;
+  (k) the spiking LM, TinyLlama-1.1B at full width (22 layers, d 2048,
+      32 heads / 4 KV heads, d_ff 5632, vocab 32000, T=2, v_th 1.0; bf16
+      weights from seed 0): (k1) the causal-status kernel (TPU row 9) at
+      (BH, N, dw) = (256, 1024, 2), (32, 32768, 2) and a ragged N=1000,
+      on kv bits at 1/(4N) so the status still changes in the last chunks
+      (checked), and the bf16 LIF fire at the decode and prefill drives, each bit for
+      bit against its plain version, with kernel, plain, library
+      (`torch.cummax` for the status) and bound times; (k2) `prefill` of
+      8 `markov_tokens` prompts of 1024 tokens under
+      `torch.inference_mode()`, on the kernels and on `ref`: finite
+      logits, exactly LM_PREFILL_LAUNCHES per prefill (every other kernel
+      0), every registry call equal to `ref` on the same inputs, per-layer
+      spike drift within FREE_RUNNING_SPIKE_TOL, per-layer spike rates;
+      (k3) serving on 8 slots: `prefill_chunked` of 8 prompts of ragged
+      lengths 65-128 (right-padded to 128), then 16 greedy `decode_step`s
+      at per-slot positions, with exactly LM_DECODE_LAUNCHES per decode
+      step; slot 3 decoded with every other slot empty (its state moved
+      into a fresh pool by `merge_slot_state`) gives the pool's tokens;
+      the share of tokens equal to `ref`'s serve; and `prefill` against
+      `prefill_chunked` on equal-length prompts (max |dlogits| and spike
+      drift, reported);
   (d) one JSON line listing every kernel with its launches on the main
       paths ((c) and (h) for inference kernels, (f) for the training
-      ones, (i) for the APEC ones, (j) for the packed ones), error and
-      times.
+      ones, (i) for the APEC ones, (j) for the packed ones, (k) for the
+      LM ones), error and times.
+Each phase prints its wall time on a `phase_time` line.
 The last line is {"ok": true, "device": {...}}. Any failed check exits
 nonzero before it; without a CUDA device, or without the repo's `src`
 beside this file, the script exits nonzero and prints no result.
@@ -126,6 +152,8 @@ CNN_LAUNCHES = {
 # leaves no map to carry).
 CNN_PREPASSES = {"vgg11": 1, "resnet18": 1, "segnet": 3}
 CNN_BATCHES = 2
+# VGG11 batches whose 2x2 fires have R = 4B rows, not a multiple of 8.
+RAGGED_BATCHES = (1, 3)
 INFERENCE_KERNELS = ("lif_counts", "lif", "spike_matmul_csr",
                      "spike_matmul_pred", "sdsa_or")
 TRAINING_KERNELS = ("lif_fwd", "lif_counts_fwd", "lif_bwd")
@@ -153,6 +181,15 @@ PACKED_LAUNCHES = {
 # SegNet's 8 and 16); the dense ones where no map exists.
 PACKED_PREPASSES = {"spikingformer": (0, 1), "vgg11": (1, 0),
                     "resnet18": (1, 0), "segnet": (3, 2)}
+LM_KERNELS = ("sdsa_causal", "lif_bf16")
+LM_ARCH = "tinyllama-1.1b"
+LM_BATCH, LM_PROMPT, LM_SERVE_PAD, LM_NEW = 8, 1024, 128, 16
+LM_SOLO_SLOT = 3
+# Per prefill / per decode step, 22 layers: each runs 6 fires (ln1, q, k,
+# v, ln2, the MLP's hidden) and the prefill one causal SDSA; every other
+# kernel launches 0 times.
+LM_PREFILL_LAUNCHES = {"lif_bf16": 6 * 22, "sdsa_causal": 22}
+LM_DECODE_LAUNCHES = {"lif_bf16": 6 * 22}
 SOURCES = {"lif": "src/repro_torch/csrc/lif.cu",
            "lif_counts": "src/repro_torch/csrc/lif.cu",
            "lif_fwd": "src/repro_torch/csrc/lif.cu",
@@ -167,11 +204,14 @@ SOURCES = {"lif": "src/repro_torch/csrc/lif.cu",
            "spike_matmul_packed_csr":
                "src/repro_torch/csrc/spike_matmul_csr.cu",
            "apec_matmul_packed_csr":
-               "src/repro_torch/csrc/apec_matmul_csr.cu"}
+               "src/repro_torch/csrc/apec_matmul_csr.cu",
+           "sdsa_causal": "src/repro_torch/csrc/sdsa_causal.cu",
+           "lif_bf16": "src/repro_torch/csrc/lif.cu"}
 # Same inputs, one op call: the fire and attention ops are exact, the
 # matmul-form ops agree to fp32 summation order (relative to max|ref|).
 SAME_INPUT_TOL = {"lif_scan": 0.0, "lif_scan_occ": 0.0, "sdsa": 0.0,
-                  "spike_matmul": 1e-5, "econv": 1e-5, "tconv": 1e-5}
+                  "causal_sdsa": 0.0, "spike_matmul": 1e-5, "econv": 1e-5,
+                  "tconv": 1e-5}
 # Free-running kernel forward vs ref forward, share of differing spikes
 # per stage. Not 1e-3: a spike whose membrane sits within fp32 rounding of
 # the threshold flips when the summation order changes (econv's CSR walk
@@ -197,7 +237,9 @@ REPLACES = {"lif": "src/repro/kernels/lif_scan.py:36",
             "apec_matmul_csr": "src/repro/kernels/spike_matmul.py:581",
             "lif_counts_packed": "src/repro/kernels/lif_scan.py:262",
             "spike_matmul_packed_csr": "src/repro/kernels/spike_matmul.py:296",
-            "apec_matmul_packed_csr": "src/repro/kernels/spike_matmul.py:423"}
+            "apec_matmul_packed_csr": "src/repro/kernels/spike_matmul.py:423",
+            "sdsa_causal": "src/repro/kernels/sdsa_kernel.py:104",
+            "lif_bf16": "src/repro/kernels/lif_scan.py:36"}
 
 
 class SmokeFailure(RuntimeError):
@@ -277,6 +319,18 @@ def phase_lif(torch, gen, device, results):
                 (cnt - cnt_ref).abs().max().item())
     check(torch.equal(s, s_ref) and torch.equal(cnt, cnt_ref),
           "lif_counts kernel disagrees with its plain version")
+    # A ragged R (VGG11's 2x2 fire at B=3: R = 12): masked rows, chunks of
+    # the flattened rows that span steps.
+    xr = x[:, :12, :].contiguous()
+    for got, want in ((lif_scan.lif_counts(xr, **kw),
+                       lif_scan.lif_counts_plain(xr, **kw)),
+                      (lif_scan.lif_counts_packed(xr, **kw),
+                       lif_scan.lif_counts_packed_plain(xr, **kw))):
+        check(all(a.shape == b.shape and torch.equal(
+            a.view(torch.int32) if a.dtype == torch.uint32 else a,
+            b.view(torch.int32) if b.dtype == torch.uint32 else b)
+            for a, b in zip(got, want)),
+            "lif_counts kernel disagrees with its plain version at R=12")
     x2 = x.reshape(T, -1)
     s2 = lif_scan.lif(x2, **kw)
     err = (s2 - lif_scan.lif_plain(x2, **kw)).abs().max().item()
@@ -706,6 +760,10 @@ def phase_cnn(torch, device):
                 check(st["differing_share"] <= FREE_RUNNING_SPIKE_TOL,
                       f"{name} layer {st['layer']}: "
                       f"{st['differing_share']} of spikes differ")
+        if name == "vgg11":
+            for k, v in vgg11_ragged(torch, dispatch, forward, x,
+                                     expected).items():
+                totals[k] = totals.get(k, 0) + v
         for backend in (dispatch.CUDA, dispatch.REF):
             with dispatch.use_backend(backend):
                 for _ in range(3):                        # warm forwards
@@ -713,6 +771,36 @@ def phase_cnn(torch, device):
                         forward(x)
                 emit("cnn_breakdown", model=name, backend=backend,
                      **forward_breakdown(torch, lambda: forward(x)))
+    return totals
+
+
+def vgg11_ragged(torch, dispatch, forward, x, expected):
+    """VGG11 at batches whose 2x2 fires have R = 4B rows, not a multiple
+    of 8: the same kernels launch as at B=32 (the fire masks the ragged
+    rows), and every registry call equals `ref` on the same inputs."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    totals: dict = {}
+    for b in RAGGED_BATCHES:
+        reset_launch_counts()
+        with torch.inference_mode():
+            out = forward(x[:b])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = {k: expected.get(k, 0) for k in counts}
+        check(counts == want, f"vgg11 B={b}: launches per forward {counts} "
+              f"!= {want}")
+        check(tuple(out.shape) == (b, 10) and bool(torch.isfinite(out).all()),
+              f"vgg11 B={b}: output {tuple(out.shape)} not finite")
+        with torch.inference_mode(), shadow_ref(torch, dispatch) as shadow:
+            forward(x[:b])
+        emit("cnn_ragged", model="vgg11", batch=b, launches=counts,
+             same_input_ops=shadow)
+        for op, err in shadow.items():
+            check(err <= SAME_INPUT_TOL[op],
+                  f"vgg11 B={b}: {op} on the kernels differs from ref on "
+                  f"the same inputs by {err} > {SAME_INPUT_TOL[op]}")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
     return totals
 
 
@@ -1115,6 +1203,42 @@ def phase_apec_matmul_kernel(torch, gen, cap, results):
     results["apec_matmul_csr"]["max_abs_err"] = worst
 
 
+APEC_WIDE_GROUPS = (16, 128)
+
+
+def phase_apec_groups(torch, cap):
+    """Kernels 17 and 15 at the group sizes whose overlap tile has fewer
+    rows than the block has thread rows (128/g = 8 and 1), on the FFN fc1
+    spikes: within 1e-5 * max|ref| + 1e-5 of their plain versions."""
+    from repro_torch.core.spikes import pack_spikes_padded
+    from repro_torch.kernels import apec_kernel, ops, spike_matmul
+    s1, w1, _ = cap["spike_matmul"][0]
+    s = s1.reshape(-1, s1.shape[-1]).float().contiguous()
+    w = w1.float().contiguous()
+    words = pack_spikes_padded(s).contiguous()
+    for g in APEC_WIDE_GROUPS:
+        ov, res = ops.apec_decompose(s, g)
+        res, ov = res.contiguous(), ov.contiguous()
+        ov_p, res_p = apec_kernel.apec_decompose_packed(words, g)
+        for name, kernel, plain, args in (
+                ("apec_matmul_csr", spike_matmul.apec_matmul_csr,
+                 spike_matmul.apec_matmul_csr_plain,
+                 (res, ov, w, g) + ops.apec_union_worklist(res, ov, g)),
+                ("apec_matmul_packed_csr", spike_matmul.apec_matmul_packed_csr,
+                 spike_matmul.apec_matmul_packed_csr_plain,
+                 (res_p, ov_p, w, g) + ops.apec_union_worklist(
+                     res_p, ov_p, g, packed=True))):
+            out, ref = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            tol = 1e-5 * ref.abs().max().item() + 1e-5
+            check(err <= tol, f"{name} off by {err} > {tol} at g={g}")
+            emit("kernel", name=name, case=f"ffn_fc1_g{g}", g=g,
+                 max_abs_err=err, tolerance=tol,
+                 ms=cuda_ms(torch, functools.partial(kernel, *args)),
+                 overlap_density=ov.mean().item(), shape=list(s.shape))
+
+
 def phase_apec_path(torch, cap):
     """`core.apec.apec_matmul` on the FFN inputs (EventTensors with their
     carried maps) and the stage-1 patch matrix (with its propagated map),
@@ -1211,6 +1335,7 @@ def phase_apec(torch, gen, device, results):
           f"{len(cap['econv'])} econvs")
     phase_apec_decompose(torch, cap, results)
     phase_apec_matmul_kernel(torch, gen, cap, results)
+    phase_apec_groups(torch, cap)
     totals = phase_apec_path(torch, cap)
     phase_apec_stats(torch, cap)
     return totals
@@ -1642,6 +1767,314 @@ def phase_packed(torch, gen, device, results):
     return totals
 
 
+# ------------------------------------------------------------ phase (k)
+@contextlib.contextmanager
+def capture_fires(torch, dispatch, against=None):
+    """While active, every `lif_scan` registry call's spikes are recorded
+    as booleans; with `against` (an earlier capture of the same calls),
+    each call's share of spikes differing from it is recorded instead."""
+    orig = dispatch.dispatch
+    rec: list = []
+
+    def record(op, *args, **kwargs):
+        out = orig(op, *args, **kwargs)
+        if op == "lif_scan":
+            fired = out != 0
+            if against is None:
+                rec.append(fired)
+            else:
+                rec.append((fired != against[len(rec)]).float().mean()
+                           .item())
+        return out
+
+    dispatch.dispatch = record
+    try:
+        yield rec
+    finally:
+        dispatch.dispatch = orig
+
+
+FIRE_NAMES = ("ln1", "q", "k", "v", "ln2", "hidden")
+
+
+def per_layer(values, n_layers):
+    """Per-call values (6 fires per layer, in layer order) by layer."""
+    per = len(FIRE_NAMES)
+    check(len(values) == per * n_layers,
+          f"{len(values)} fires for {n_layers} layers")
+    return [dict(zip(FIRE_NAMES, values[per * i:per * (i + 1)]))
+            for i in range(n_layers)]
+
+
+def phase_lm_kernels(torch, device, results):
+    """(k1): the causal-status kernel (row 9) and the bf16 fire (row 1's
+    bf16 instance) against their plain versions, bit for bit, at the LM's
+    shapes."""
+    from repro_torch.core.spikes import pack_spikes, unpack_spikes
+    from repro_torch.kernels import lif_scan, sdsa_kernel
+    dgen = torch.Generator(device=device).manual_seed(SEED)
+    for label, (bh, n, dw) in (("prefill_b8_n1024", (256, 1024, 2)),
+                               ("prefill_32k_b1", (32, 32768, 2)),
+                               ("ragged_n1000", (256, 1000, 2))):
+        # 1/(4N) per bit: a column's first bit falls anywhere in the
+        # sequence, so the prefix-OR keeps changing in the last chunks and
+        # the carry across every chunk is checked (at a fixed density the
+        # status saturates within a few hundred tokens).
+        bits = torch.rand((bh, n, 32 * dw), generator=dgen,
+                          device=device) < 1 / (4 * n)
+        kv = pack_spikes(bits).contiguous()
+        out = sdsa_kernel.sdsa_causal_status(kv)
+        want = sdsa_kernel.sdsa_causal_status_plain(kv)
+        torch.cuda.synchronize()
+        wi = want.view(torch.int32)
+        late = wi[:, n // 2:] != wi[:, n // 2 - 1:-1]
+        check(not bool((wi == -1).all()) and bool(late.any()),
+              f"sdsa_causal check ({label}) saturates: it cannot tell a "
+              f"carry fault")
+        check(torch.equal(out.view(torch.int32), wi),
+              f"sdsa_causal kernel disagrees with its plain version "
+              f"({label})")
+        dense = unpack_spikes(kv, dtype=torch.bfloat16)
+        b_ms, by = bound_ms(2 * kv.numel() * 4)
+        rec = dict(max_abs_err=0.0,
+                   ms=cuda_ms(torch, lambda: sdsa_kernel.sdsa_causal_status(
+                       kv)),
+                   plain_ms=cuda_ms(torch, lambda: sdsa_kernel
+                                    .sdsa_causal_status_plain(kv), reps=5),
+                   bound_ms=b_ms, bound_by=by,
+                   library_ms=cuda_ms(torch, lambda: torch.cummax(dense,
+                                                                  dim=1)),
+                   shape=[bh, n, dw])
+        emit("kernel", name="sdsa_causal", case=label,
+             ones_share=bits.float().mean().item(),
+             status_ones_share=unpack_spikes(want).mean().item(),
+             late_turn_ons=int(late.sum().item()), **rec)
+        if label == "prefill_b8_n1024":
+            results["sdsa_causal"] = rec
+    kw = dict(decay=0.5, v_th=1.0, soft_reset=True)
+    for label, p in (("decode_hidden", LM_BATCH * 5632),
+                     ("prefill_hidden", LM_BATCH * LM_PROMPT * 5632)):
+        x = (torch.randn((2, p), generator=dgen, device=device) * 0.8
+             + 0.6).bfloat16()
+        out = lif_scan.lif(x, **kw)
+        want = lif_scan.lif_plain(x, **kw)
+        torch.cuda.synchronize()
+        check(out.dtype == torch.bfloat16 and torch.equal(out, want),
+              f"lif_bf16 kernel disagrees with its plain version ({label})")
+        b_ms, by = bound_ms(4 * x.numel())
+        rec = dict(max_abs_err=0.0,
+                   ms=cuda_ms(torch, lambda: lif_scan.lif(x, **kw)),
+                   plain_ms=cuda_ms(torch, lambda: lif_scan.lif_plain(
+                       x, **kw), reps=3),
+                   bound_ms=b_ms, bound_by=by, library_ms=None,
+                   shape=list(x.shape))
+        emit("kernel", name="lif_bf16", case=label, **rec)
+        if label == "prefill_hidden":
+            results["lif_bf16"] = rec
+
+
+def lm_launch_check(counts, expected, what):
+    want = {k: expected.get(k, 0) for k in counts}
+    check(counts == want, f"launches per {what} {counts} != {want}")
+
+
+def phase_lm_prefill(torch, device, cfg, params):
+    """(k2): prefill of 8 x 1024 tokens on the kernels and on ref."""
+    from repro_torch.data.synthetic import markov_tokens
+    from repro_torch.kernels import dispatch, launch_counts, \
+        reset_launch_counts
+    from repro_torch.models import lm
+    tokens = torch.from_numpy(markov_tokens(
+        SEED, 0, 0, LM_BATCH, LM_PROMPT, cfg.vocab)[:, :LM_PROMPT]).long() \
+        .to(device)
+    with torch.inference_mode():
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with capture_fires(torch, dispatch) as fires:
+            logits = lm.prefill(cfg, params, tokens, True)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = launch_counts()
+        lm_launch_check(counts, LM_PREFILL_LAUNCHES, "prefill")
+        check(tuple(logits.shape) == (LM_BATCH, cfg.vocab) and
+              bool(torch.isfinite(logits).all()), "prefill logits not finite")
+        t0 = time.perf_counter()
+        lm.prefill(cfg, params, tokens, True)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with dispatch.use_backend(dispatch.REF), \
+                capture_fires(torch, dispatch, against=fires) as drift:
+            ref_logits = lm.prefill(cfg, params, tokens, True)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        with shadow_ref(torch, dispatch) as shadow:
+            lm.prefill(cfg, params, tokens, True)
+    rates = per_layer([f.float().mean().item() for f in fires],
+                      cfg.n_layers)
+    drifts = per_layer(drift, cfg.n_layers)
+    emit("lm_prefill", batch=LM_BATCH, tokens=LM_PROMPT,
+         first_prefill_s=first_s, kernel_prefill_s=kernel_s,
+         ref_prefill_s=ref_s, launches=counts,
+         max_abs_dlogits=(logits - ref_logits).abs().max().item(),
+         max_abs_logits=ref_logits.abs().max().item(),
+         same_input_ops=shadow,
+         layers=[dict(layer=i, spike_rate=r,
+                      differing_share=max(d.values()))
+                 for i, (r, d) in enumerate(zip(rates, drifts))])
+    for op, err in shadow.items():
+        check(err <= SAME_INPUT_TOL[op],
+              f"{op} on the kernels differs from ref on the same inputs "
+              f"by {err} > {SAME_INPUT_TOL[op]}")
+    worst = max(max(d.values()) for d in drifts)
+    check(worst <= FREE_RUNNING_SPIKE_TOL,
+          f"LM prefill: {worst} of a fire's spikes differ from ref")
+    emit("lm_prefill_breakdown", **forward_breakdown(
+        torch, lambda: lm.prefill(cfg, params, tokens, True)))
+    return dict(counts)
+
+
+def lm_serve(torch, cfg, params, tokens, lengths, counted=False):
+    """prefill_chunked + LM_NEW greedy decode steps at per-slot positions:
+    (generated tokens (B, 1 + LM_NEW), [launch counts of prefill_chunked,
+    then of each decode step] when `counted`)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import lm
+    reset_launch_counts()
+    last, state = lm.prefill_chunked(cfg, params, tokens, lengths, True,
+                                     LM_SERVE_PAD + LM_NEW)
+    chunked = [launch_counts()] if counted else []
+    gen, per_step = lm_decode(torch, cfg, params, state, last.argmax(-1),
+                              lengths.clone(), counted)
+    return gen, chunked + per_step
+
+
+def lm_decode(torch, cfg, params, state, token, pos, counted=False):
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import lm
+    out, per_step = [token], []
+    for _ in range(LM_NEW):
+        if counted:
+            reset_launch_counts()
+        logits, state = lm.decode_step(cfg, params, state, token, pos, True)
+        if counted:
+            per_step.append(launch_counts())
+        token = logits.argmax(-1)
+        pos = pos + 1
+        out.append(token)
+    return torch.stack(out, 1), per_step
+
+
+def phase_lm_serve(torch, device, cfg, params):
+    """(k3): 8 ragged requests served on 8 slots, on the kernels and on
+    ref; slot 3 alone; prefill against prefill_chunked."""
+    import numpy as np
+    from repro_torch.data.synthetic import markov_tokens
+    from repro_torch.kernels import dispatch, reset_launch_counts
+    from repro_torch.models import lm
+    rng = np.random.default_rng(SEED)
+    lengths_np = rng.integers(LM_SERVE_PAD // 2 + 1, LM_SERVE_PAD + 1,
+                              LM_BATCH)
+    prompts = markov_tokens(SEED + 1, 0, 0, LM_BATCH, LM_SERVE_PAD,
+                            cfg.vocab)[:, :LM_SERVE_PAD]
+    prompts[np.arange(LM_SERVE_PAD)[None, :] >= lengths_np[:, None]] = 0
+    tokens = torch.from_numpy(prompts).long().to(device)
+    lengths = torch.from_numpy(lengths_np).to(device)
+    with torch.inference_mode():
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen, counted = lm_serve(torch, cfg, params, tokens, lengths,
+                                counted=True)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        chunked, per_step = counted[0], counted[1:]
+        # prefill_chunked is LM_SERVE_PAD decode steps
+        lm_launch_check(chunked, {k: v * LM_SERVE_PAD for k, v in
+                                  LM_DECODE_LAUNCHES.items()},
+                        "prefill_chunked")
+        for counts in per_step:
+            lm_launch_check(counts, LM_DECODE_LAUNCHES, "decode step")
+        with dispatch.use_backend(dispatch.REF):
+            ref_gen, _ = lm_serve(torch, cfg, params, tokens, lengths)
+        # Slot 3 alone: the same 8-slot shapes with every other slot
+        # empty, its state moved into a fresh pool through merge_slot_state.
+        solo_tokens = torch.zeros_like(tokens)
+        solo_tokens[LM_SOLO_SLOT] = tokens[LM_SOLO_SLOT]
+        solo_len = torch.ones_like(lengths)
+        solo_len[LM_SOLO_SLOT] = lengths[LM_SOLO_SLOT]
+        last, state = lm.prefill_chunked(cfg, params, solo_tokens, solo_len,
+                                         True, LM_SERVE_PAD + LM_NEW)
+        one = [st._replace(sdsa=type(st.sdsa)(
+            st.sdsa.status[:, LM_SOLO_SLOT:LM_SOLO_SLOT + 1])) for st in state]
+        pool = lm.merge_slot_state(
+            lm.init_decode_state(cfg, LM_BATCH, LM_SERVE_PAD + LM_NEW, True,
+                                 device=device), one, LM_SOLO_SLOT)
+        token = torch.zeros(LM_BATCH, dtype=torch.long, device=device)
+        token[LM_SOLO_SLOT] = last[LM_SOLO_SLOT].argmax()
+        pos = torch.zeros_like(lengths)
+        pos[LM_SOLO_SLOT] = lengths[LM_SOLO_SLOT]
+        solo_gen, _ = lm_decode(torch, cfg, params, pool, token, pos)
+        # prefill against prefill_chunked on equal-length prompts
+        eq = tokens[:, :LM_SERVE_PAD // 2]
+        with capture_fires(torch, dispatch) as full_fires:
+            full = lm.prefill(cfg, params, eq, True)
+        with capture_fires(torch, dispatch) as step_fires:
+            streamed, _ = lm.prefill_chunked(
+                cfg, params, eq, torch.full_like(lengths, eq.shape[1]), True,
+                eq.shape[1])
+        torch.cuda.synchronize()
+    emit("lm_decode_breakdown", **forward_breakdown(
+        torch, lambda: lm.decode_step(cfg, params, pool, token, pos, True)))
+    per = len(full_fires)
+    drift = [(torch.stack(step_fires[c::per], dim=2) != full_fires[c])
+             .float().mean().item() for c in range(per)]
+    check(torch.equal(solo_gen[LM_SOLO_SLOT], gen[LM_SOLO_SLOT]),
+          f"slot {LM_SOLO_SLOT} decoded alone gives other tokens than in "
+          f"the pool")
+    check(bool((gen >= 0).all()) and gen.shape == (LM_BATCH, 1 + LM_NEW),
+          "serve produced no tokens")
+    emit("lm_serve", slots=LM_BATCH, prompt_lengths=lengths_np.tolist(),
+         new_tokens=LM_NEW, kernel_serve_s=kernel_s,
+         prefill_chunked_launches=chunked, decode_launches=per_step[0],
+         solo_slot=LM_SOLO_SLOT, solo_equal=True,
+         tokens_equal_ref_share=(gen == ref_gen).float().mean().item(),
+         prefill_vs_chunked=dict(
+             tokens=int(eq.shape[1]),
+             max_abs_dlogits=(full - streamed).abs().max().item(),
+             max_abs_logits=full.abs().max().item(),
+             max_layer_spike_drift=max(max(d.values()) for d in per_layer(
+                 drift, cfg.n_layers))))
+    return {k: chunked[k] + sum(c[k] for c in per_step) for k in chunked}
+
+
+def phase_lm(torch, device, results):
+    """Phase (k): the spiking LM on the card."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import lm
+    cfg = get_config(LM_ARCH)
+    phase_lm_kernels(torch, device, results)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=SEED, device=device)
+    torch.cuda.synchronize()
+    emit("lm_setup", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         params=lm.param_count(cfg), init_s=time.perf_counter() - t0,
+         allow_bf16_reduced_precision_reduction=torch.backends.cuda.matmul
+         .allow_bf16_reduced_precision_reduction,
+         resolved={op: dispatch.resolved_backends(device)[op]
+                   for op in ("lif_scan", "causal_sdsa")})
+    totals = {name: 0 for name in LM_KERNELS}
+    for name, n in phase_lm_prefill(torch, device, cfg, params).items():
+        if name in totals:
+            totals[name] += n
+    for name, n in phase_lm_serve(torch, device, cfg, params).items():
+        if name in totals:
+            totals[name] += n
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1655,24 +2088,35 @@ def main() -> int:
         return 3
     torch.backends.cuda.matmul.allow_tf32 = False   # plain fp32 yardsticks
     device = torch.device("cuda", 0)
-    phase_device(torch)
-    phase_build()
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        emit("phase_time", name=name, seconds=time.perf_counter() - t0)
+        return out
+
+    t_start = time.perf_counter()
+    timed("a_device", phase_device, torch)
+    timed("a_build", phase_build)
     gen = torch.Generator().manual_seed(SEED)
     results: dict = {}
-    phase_lif(torch, gen, device, results)
-    phase_sdsa(torch, gen, device, results)
-    phase_csr(torch, gen, device, results)
-    phase_train_kernels(torch, gen, device, results)
-    phase_pred(torch, gen, device, results)
-    totals = phase_end_to_end(torch, device)
-    for name, n in phase_cnn(torch, device).items():
+    timed("b_lif", phase_lif, torch, gen, device, results)
+    timed("b_sdsa", phase_sdsa, torch, gen, device, results)
+    timed("b_csr", phase_csr, torch, gen, device, results)
+    timed("e_train_kernels", phase_train_kernels, torch, gen, device, results)
+    timed("g_pred", phase_pred, torch, gen, device, results)
+    totals = timed("c_end_to_end", phase_end_to_end, torch, device)
+    for name, n in timed("h_cnn", phase_cnn, torch, device).items():
         totals[name] = totals.get(name, 0) + n
-    totals.update(phase_train(torch, device))
-    totals.update(phase_apec(torch, gen, device, results))
-    totals.update(phase_packed(torch, gen, device, results))
+    totals.update(timed("f_train", phase_train, torch, device))
+    totals.update(timed("i_apec", phase_apec, torch, gen, device, results))
+    totals.update(timed("j_packed", phase_packed, torch, gen, device,
+                        results))
+    totals.update(timed("k_lm", phase_lm, torch, device, results))
+    emit("phase_time", name="total", seconds=time.perf_counter() - t_start)
     kernels = []
     for name in INFERENCE_KERNELS + TRAINING_KERNELS + APEC_KERNELS + \
-            PACKED_KERNELS:
+            PACKED_KERNELS + LM_KERNELS:
         r = results[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCES[name], "replaces": REPLACES[name],

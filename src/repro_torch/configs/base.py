@@ -1,9 +1,12 @@
-"""Config schema: the `SpikingConfig` knobs and the paper CNNs'
-`CNNLayer` / `CNNConfig`, with `repro`'s field names and defaults."""
+"""Config schema with `repro`'s field names and defaults: the
+`SpikingConfig` knobs, the LM architectures' `LMConfig` (with the
+data-only `MoESpec`, `HybridSpec` and `XLSTMSpec` it names) and the
+assigned `ShapeSpec` cells, and the paper CNNs' `CNNLayer` / `CNNConfig`.
+"""
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -16,13 +19,110 @@ class SpikingConfig:
     sdsa_mode: str = "or"       # "or" (paper Fig. 6) | "sum" (trainable)
     apec_group: int = 2         # paper's default G2
     hybrid: bool = False        # density-adaptive dense/event routing
-                                # (not ported yet: raises, ROADMAP q1 #13)
+                                # (not ported yet: raises, ROADMAP queue 1
+                                # item 4)
     packed: bool = False        # uint32 words as inter-layer payload
                                 # (inference only: the words carry no
                                 # gradient)
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    """Mixture-of-experts FFN layout (data only: the MoE layers are not
+    ported yet, ROADMAP queue 1 item 5)."""
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared: int = 0           # always-on shared experts (qwen2-moe)
+    moe_every: int = 1          # MoE FFN on layers l % moe_every == moe_offset
+    moe_offset: int = 0
+    capacity_factor: float = 1.25
+    pad_experts_to: int = 0     # pad the expert bank (not the router)
+
+    @property
+    def bank_size(self) -> int:
+        return max(self.n_experts, self.pad_experts_to)
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridSpec:
+    """jamba: 1 attention per `period` layers, rest Mamba (data only)."""
+    period: int = 8
+    attn_index: int = 3
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class XLSTMSpec:
+    """xLSTM[m:s] interleave: one sLSTM per `period` (data only)."""
+    period: int = 8
+    slstm_index: int = 7
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    """One LM architecture, field for field as `repro.configs.base`. The
+    distribution and memory knobs are kept so the configs compare equal;
+    the port reads only the model's shape and `spiking`."""
+    name: str
+    family: str                 # dense|moe|hybrid|ssm|audio|vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: Optional[int] = None
+    moe: Optional[MoESpec] = None
+    hybrid: Optional[HybridSpec] = None
+    xlstm: Optional[XLSTMSpec] = None
+    qk_norm: bool = False
+    sliding_window: Optional[int] = None
+    encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    encoder_seq: int = 0        # stub frontend positions feeding the encoder
+    n_frontend_tokens: int = 0  # stub embeds prepended to the decoder (vlm)
+    rope_theta: float = 1e6
+    spiking: SpikingConfig = SpikingConfig()
+    remat: str = "full"         # none|full|dots
+    microbatches: int = 1
+    opt_state_dtype: str = "float32"
+    fsdp: bool = False
+    tp2d: bool = False
+    moe_dispatch_groups: int = 1
+    moe_shard_map: bool = False
+    decode_masked_update: bool = True
+    pure_fsdp: bool = False
+    loss_chunk: int = 512
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or (self.d_model // self.n_heads)
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned input-shape cell."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # train|prefill|decode|long_decode
+
+
+SHAPES: Tuple[ShapeSpec, ...] = (
+    ShapeSpec("train_4k", 4_096, 256, "train"),
+    ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    ShapeSpec("long_500k", 524_288, 1, "long_decode"),
+)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -26,14 +26,18 @@
 //           tx + 16 j, as csrc/tile_fma.cuh lays them out), and the
 //           overlap's 128/g-row tile into a second, (8/g) x 8 block with
 //           its own mapping (rows ty + 16 i), so each overlap product is
-//           computed once per group, never g times. Dummy steps (counts
+//           computed once per group, never g times. For g >= 16 the
+//           overlap tile has 128/g <= 8 rows, fewer than the 16 thread
+//           rows: thread row ty < 128/g owns overlap row ty (a 1 x 8
+//           block) and the other thread rows skip the overlap dot, so
+//           every group size that divides 128 keeps the same k order. Dummy steps (counts
 //           0) zero empty rows; padding steps past row_ptr[MT] are never
 //           reached. The epilogue parks the overlap sums in shared memory
 //           (aliasing the staging buffers) and writes acc_res[i] +
 //           acc_ov[i / g] for every row i: the repeat happens here, with
 //           no pass over the full output. Ragged M, K and N are masked on
-//           load and store; no operand is padded. g is 2, 4 or 8 (a
-//           template parameter). The loop is this file's own, so kernels
+//           load and store; no operand is padded. g is any divisor of 128 above 1
+//           (a template parameter: 2, 4, ..., 128). The loop is this file's own, so kernels
 //           10 and 11 keep their code; a cp.async/TMA ring (the TPU's
 //           prefetching twin) is later work. Both operands are read
 //           through tile_fma.cuh's loaders: the packed form stages each
@@ -78,8 +82,11 @@ apec_csr_kernel(RA ra, OA oa, const float* __restrict__ w,
                 const int* __restrict__ occ_ov, int64_t m, int64_t k,
                 int64_t n) {
   constexpr int kRo = kTile / G;      // overlap rows per tile
-  constexpr int kRMo = kRo / kT;      // overlap rows per thread
-  static_assert(kRMo >= 1 && kRo % kT == 0, "g must be 2, 4 or 8");
+  // Overlap rows per thread: 8/g for g <= 8; for g >= 16 one, held only
+  // by the thread rows ty < kRo.
+  constexpr int kRMo = kRo >= kT ? kRo / kT : 1;
+  static_assert(kTile % G == 0 && (kRo % kT == 0 || kRo < kT),
+                "g must divide 128");
   constexpr bool kPacked = !std::is_same<RA, tile_fma::DenseA>::value;
   __shared__ Smem<G> sm;
   __shared__ uint32_t words_r[kPacked ? kTile * tile_fma::kTileWords : 1];
@@ -90,6 +97,7 @@ apec_csr_kernel(RA ra, OA oa, const float* __restrict__ w,
   }
   const int tid = threadIdx.x;
   const int tx = tid % kT, ty = tid / kT;
+  const bool ov_rows = kRo >= kT || ty < kRo;   // holds overlap rows
   const int64_t m0 = (int64_t)blockIdx.x * kTile;
   const int64_t mo0 = (int64_t)blockIdx.x * kRo;
   const int64_t n0 = (int64_t)blockIdx.y * kTile;
@@ -129,10 +137,13 @@ apec_csr_kernel(RA ra, OA oa, const float* __restrict__ w,
       }
       if (live_o) {
 #pragma unroll
-        for (int l = 0; l < kRo * kSlice / kThreads; ++l) {
+        for (int l = 0; l < (kRo * kSlice + kThreads - 1) / kThreads; ++l) {
           const int e = tid + l * kThreads;
-          const int r = e / kSlice, c = e % kSlice;
-          sm.st.ao[c][r] = oa.at(mo0, k0, r, kk + c);
+          // Compile-time true when the threads split the slice evenly.
+          if ((kRo * kSlice) % kThreads == 0 || e < kRo * kSlice) {
+            const int r = e / kSlice, c = e % kSlice;
+            sm.st.ao[c][r] = oa.at(mo0, k0, r, kk + c);
+          }
         }
       }
       __syncthreads();
@@ -151,7 +162,7 @@ apec_csr_kernel(RA ra, OA oa, const float* __restrict__ w,
             for (int j = 0; j < kR; ++j)
               acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
         }
-        if (live_o) {
+        if (live_o && ov_rows) {
           float a[kRMo];
 #pragma unroll
           for (int i = 0; i < kRMo; ++i) a[i] = sm.st.ao[c][ty + kT * i];
@@ -169,11 +180,13 @@ apec_csr_kernel(RA ra, OA oa, const float* __restrict__ w,
   // Epilogue: overlap row o of the tile serves residual rows o*G..o*G+G-1
   // (128 % G == 0, so groups never straddle two tiles).
   __syncthreads();
+  if (ov_rows) {
 #pragma unroll
-  for (int i = 0; i < kRMo; ++i)
+    for (int i = 0; i < kRMo; ++i)
 #pragma unroll
-    for (int j = 0; j < kR; ++j)
-      sm.ovsum[ty + kT * i][tx + kT * j] = acco[i][j];
+      for (int j = 0; j < kR; ++j)
+        sm.ovsum[ty + kT * i][tx + kT * j] = acco[i][j];
+  }
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < kR; ++i) {
@@ -199,11 +212,28 @@ void launch(RA ra, OA oa, const float* w, float* out, const int* row_ptr,
       ra, oa, w, out, row_ptr, tile_k_idx, occ_res, occ_ov, m, k, n);
 }
 
+// Calls fn(std::integral_constant<int, G>) for the group size g, one of
+// the divisors of 128 above 1 (at g = 1 the epilogue's overlap tile would
+// need 64 KB of static shared memory); false for any other g.
+template <class Fn>
+bool dispatch_g(int64_t g, Fn&& fn) {
+  switch (g) {
+    case 2: fn(std::integral_constant<int, 2>{}); return true;
+    case 4: fn(std::integral_constant<int, 4>{}); return true;
+    case 8: fn(std::integral_constant<int, 8>{}); return true;
+    case 16: fn(std::integral_constant<int, 16>{}); return true;
+    case 32: fn(std::integral_constant<int, 32>{}); return true;
+    case 64: fn(std::integral_constant<int, 64>{}); return true;
+    case 128: fn(std::integral_constant<int, 128>{}); return true;
+    default: return false;
+  }
+}
+
 }  // namespace
 
 // res: (M, K) f32, ov: (M/g, K) f32, w: (K, N) f32, out: (M, N) f32;
 // row_ptr: (MT+1,), tile_k_idx / occ_res / occ_ov: (cap,) int32 with
-// MT = ceil(M/128); g in {2, 4, 8}.
+// MT = ceil(M/128); g in {2, 4, ..., 128}.
 extern "C" int apec_matmul_csr_forward(const float* res, const float* ov,
                                        const float* w, float* out,
                                        const int* row_ptr,
@@ -211,26 +241,15 @@ extern "C" int apec_matmul_csr_forward(const float* res, const float* ov,
                                        const int* occ_res, const int* occ_ov,
                                        int64_t m, int64_t k, int64_t n,
                                        int64_t mt, int64_t g, void* stream) {
-  if (m % g != 0) return (int)cudaErrorInvalidValue;
+  if (g < 1 || m % g != 0) return (int)cudaErrorInvalidValue;
   if (m > 0 && n > 0) {
     cudaStream_t st = (cudaStream_t)stream;
     const tile_fma::DenseA ra{res, m, k}, oa{ov, m / g, k};
-    switch (g) {
-      case 2:
-        launch<2>(ra, oa, w, out, row_ptr, tile_k_idx, occ_res, occ_ov, m,
-                  k, n, mt, st);
-        break;
-      case 4:
-        launch<4>(ra, oa, w, out, row_ptr, tile_k_idx, occ_res, occ_ov, m,
-                  k, n, mt, st);
-        break;
-      case 8:
-        launch<8>(ra, oa, w, out, row_ptr, tile_k_idx, occ_res, occ_ov, m,
-                  k, n, mt, st);
-        break;
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
+    if (!dispatch_g(g, [&](auto gc) {
+          launch<decltype(gc)::value>(ra, oa, w, out, row_ptr, tile_k_idx,
+                                      occ_res, occ_ov, m, k, n, mt, st);
+        }))
+      return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
@@ -242,29 +261,17 @@ extern "C" int apec_matmul_packed_csr_forward(
     const int* row_ptr, const int* tile_k_idx, const int* occ_res,
     const int* occ_ov, int64_t m, int64_t kw, int64_t k, int64_t n,
     int64_t mt, int64_t g, void* stream) {
-  if (m % g != 0) return (int)cudaErrorInvalidValue;
+  if (g < 1 || m % g != 0) return (int)cudaErrorInvalidValue;
   if (m > 0 && n > 0) {
     cudaStream_t st = (cudaStream_t)stream;
     const tile_fma::PackedA<kTile> ra{res, m, kw, nullptr};
-    switch (g) {
-      case 2:
-        launch<2>(ra, tile_fma::PackedA<kTile / 2>{ov, m / 2, kw, nullptr},
-                  w, out, row_ptr, tile_k_idx, occ_res, occ_ov, m, k, n, mt,
-                  st);
-        break;
-      case 4:
-        launch<4>(ra, tile_fma::PackedA<kTile / 4>{ov, m / 4, kw, nullptr},
-                  w, out, row_ptr, tile_k_idx, occ_res, occ_ov, m, k, n, mt,
-                  st);
-        break;
-      case 8:
-        launch<8>(ra, tile_fma::PackedA<kTile / 8>{ov, m / 8, kw, nullptr},
-                  w, out, row_ptr, tile_k_idx, occ_res, occ_ov, m, k, n, mt,
-                  st);
-        break;
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
+    if (!dispatch_g(g, [&](auto gc) {
+          constexpr int G = decltype(gc)::value;
+          launch<G>(ra, tile_fma::PackedA<kTile / G>{ov, m / G, kw, nullptr},
+                    w, out, row_ptr, tile_k_idx, occ_res, occ_ov, m, k, n,
+                    mt, st);
+        }))
+      return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,9 @@
 // Fused LIF scan over the leading time axis: the forward with or without
 // per-tile event counts, each with or without the membrane residual that
 // training saves, the packed fire that writes uint32 words instead of
-// spikes, and the reversed-time ATan surrogate backward.
+// spikes, and the reversed-time ATan surrogate backward. The plain
+// forward also takes bf16 drives (the LM's element type) and writes bf16
+// spikes, with the membrane kept in f32 as the TPU kernel keeps it.
 //
 // Replaces: src/repro/kernels/lif_scan.py::_lif_kernel (lif_scan_pallas),
 //           ::_lif_occ_kernel (_lif_occ_pallas), ::_lif_fwd_kernel
@@ -13,7 +15,8 @@
 //           writes T*P f32 spikes (P neurons per step), plus T*P f32
 //           residuals in the residual mode; the packed fire writes T*P/8
 //           bytes of words instead of the spikes, so it moves 4.125
-//           bytes per element against the counts mode's 8; the backward
+//           bytes per element against the counts mode's 8; the bf16
+//           forward moves 2 + 2 bytes per element; the backward
 //           reads the residuals and the spike cotangent (2*T*P f32) and
 //           writes the drive cotangent (T*P f32). Each does a few to ~12
 //           flops per element, far below the card's ~20 flop/byte ridge.
@@ -28,8 +31,14 @@
 //           lays a (8 rows x 128 lanes) block over each (row chunk, lane
 //           tile) of the TPU kernel's count map and reduces its spikes
 //           exactly: a warp ballot + popcount per warp, then a 32-entry
-//           shared-memory sum. The count map therefore has the same layout
-//           as _lif_occ_pallas, (T, R/8, ceil(K/128)); lanes past K (the
+//           shared-memory sum. The count map counts the 8-row chunks of
+//           the flattened (T*R, K) spikes, (ceil(T*R/8), ceil(K/128)):
+//           with R % 8 == 0 that is _lif_occ_pallas's (T, R/8, ...)
+//           layout flattened. A ragged R (VGG11's 2x2 fires at odd batch)
+//           masks the rows past R in the last block of each step, and a
+//           chunk then spans two steps or two blocks, so each warp adds its
+//           popcount to the chunk with an integer atomicAdd into a zeroed
+//           map (exact, so order does not matter). Lanes past K (the
 //           TPU wrapper's zero pad to 128) exist only as idle threads and
 //           never fire, so no padded copy of the drive is made. In that
 //           block each warp covers 32 consecutive lanes of one row,
@@ -43,6 +52,7 @@
 //           kernels/lif_scan.py, so spikes, residuals and cotangents equal
 //           them bit for bit: a contracted v*decay + x could flip a spike
 //           that sits exactly at the threshold.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,9 +69,25 @@ __device__ __forceinline__ float lif_step(float& v, float x, float decay,
   return s;
 }
 
-// x, s (and vres): (T, P) contiguous. One thread per neuron, grid-stride.
-template <bool kResidual>
-__global__ void lif_kernel(const float* __restrict__ x, float* __restrict__ s,
+// Element type of the drive and the spikes: f32, or bf16 widened to f32
+// on load (exact) and narrowed on store (0 and 1 are exact in bf16).
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename E>
+__device__ __forceinline__ E narrow(float x);
+template <>
+__device__ __forceinline__ float narrow<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x, s (and vres): (T, P) contiguous, x and s of element type E, the
+// membrane (and vres) f32. One thread per neuron, grid-stride.
+template <typename E, bool kResidual>
+__global__ void lif_kernel(const E* __restrict__ x, E* __restrict__ s,
                            float* __restrict__ vres, int64_t t_steps,
                            int64_t p, float decay, float v_th,
                            bool soft_reset) {
@@ -71,7 +97,8 @@ __global__ void lif_kernel(const float* __restrict__ x, float* __restrict__ s,
     float v = 0.0f;
     for (int64_t t = 0; t < t_steps; ++t) {
       float vv;
-      s[t * p + i] = lif_step(v, x[t * p + i], decay, v_th, soft_reset, vv);
+      s[t * p + i] = narrow<E>(
+          lif_step(v, widen(x[t * p + i]), decay, v_th, soft_reset, vv));
       if (kResidual) vres[t * p + i] = vv;
     }
   }
@@ -80,10 +107,12 @@ __global__ void lif_kernel(const float* __restrict__ x, float* __restrict__ s,
 constexpr int kLanes = 128;  // lane tile (the map's K tiling)
 constexpr int kChunk = 8;    // row chunk (the TPU kernel's block_m)
 
-// x, s (and vres): (T, R, K) contiguous; counts: (T, R/8, ceil(K/128))
-// int32; words (packed mode, instead of s): (T, R, ceil(K/32)) uint32.
-// Block (128, 8): threadIdx.x = lane in the tile, threadIdx.y = row in the
-// chunk. grid = (R/8, ceil(K/128)): chunks on x, which has no 65535 limit.
+// x, s (and vres): (T, R, K) contiguous; counts: (ceil(T*R/8),
+// ceil(K/128)) int32, zeroed by the caller when R % 8 != 0; words (packed
+// mode, instead of s): (T, R, ceil(K/32)) uint32. Block (128, 8):
+// threadIdx.x = lane in the tile, threadIdx.y = row in the block.
+// grid = (ceil(R/8), ceil(K/128)): row blocks on x, which has no 65535
+// limit.
 template <bool kResidual, bool kPacked>
 __global__ void __launch_bounds__(kLanes * kChunk)
 lif_counts_kernel(const float* __restrict__ x, float* __restrict__ s,
@@ -95,7 +124,8 @@ lif_counts_kernel(const float* __restrict__ x, float* __restrict__ s,
   const int64_t chunk = blockIdx.x;
   const int64_t lane = (int64_t)blockIdx.y * kLanes + threadIdx.x;
   const int64_t row = chunk * kChunk + threadIdx.y;
-  const bool live = lane < k;
+  const bool live = lane < k && row < rows;
+  const bool ragged = rows % kChunk != 0;
   const int tid = threadIdx.y * kLanes + threadIdx.x;
   const int warp = tid / 32;
   const int64_t chunks = gridDim.x;
@@ -113,13 +143,20 @@ lif_counts_kernel(const float* __restrict__ x, float* __restrict__ s,
     const unsigned fired = __ballot_sync(0xffffffffu, sp != 0.0f);
     int* slot = partial[t & 1];
     if ((tid & 31) == 0) {
-      slot[warp] = __popc(fired);
-      if (kPacked) {
+      if (kPacked && row < rows) {
         const int64_t kw = (k + 31) / 32;
         const int64_t word = lane / 32;   // lane % 32 == 0 here
         if (word < kw) words[(t * rows + row) * kw + word] = fired;
       }
+      // A warp covers 32 lanes of one row, so its whole popcount belongs
+      // to that row's chunk of the flattened rows.
+      if (!ragged)
+        slot[warp] = __popc(fired);
+      else if (fired != 0u)
+        atomicAdd(&counts[((t * rows + row) / kChunk) * kt + blockIdx.y],
+                  __popc(fired));
     }
+    if (ragged) continue;   // uniform over the grid: no barrier is skipped
     __syncthreads();
     // Safe with one barrier per step: the next step writes the other
     // slot, and the step after that waits at its barrier for this read.
@@ -172,14 +209,13 @@ int flat_blocks(int64_t p, int threads) {
   return (int)(want < 65535 * 32 ? want : 65535 * 32);
 }
 
-template <bool kResidual>
-int launch_lif(const float* x, float* s, float* vres, int64_t t_steps,
-               int64_t p, float decay, float v_th, int soft_reset,
-               void* stream) {
+template <typename E, bool kResidual>
+int launch_lif(const E* x, E* s, float* vres, int64_t t_steps, int64_t p,
+               float decay, float v_th, int soft_reset, void* stream) {
   if (p > 0) {
     const int threads = 256;
-    lif_kernel<kResidual><<<flat_blocks(p, threads), threads, 0,
-                            (cudaStream_t)stream>>>(
+    lif_kernel<E, kResidual><<<flat_blocks(p, threads), threads, 0,
+                               (cudaStream_t)stream>>>(
         x, s, vres, t_steps, p, decay, v_th, soft_reset != 0);
   }
   return (int)cudaGetLastError();
@@ -192,7 +228,8 @@ int launch_lif_counts(const float* x, float* s, int* counts, float* vres,
                       void* stream) {
   if (rows > 0 && k > 0) {
     dim3 block(kLanes, kChunk);
-    dim3 grid((unsigned)(rows / kChunk), (unsigned)((k + kLanes - 1) / kLanes));
+    dim3 grid((unsigned)((rows + kChunk - 1) / kChunk),
+              (unsigned)((k + kLanes - 1) / kLanes));
     lif_counts_kernel<kResidual, kPacked>
         <<<grid, block, 0, (cudaStream_t)stream>>>(
             x, s, counts, vres, words, t_steps, rows, k, decay, v_th,
@@ -206,15 +243,23 @@ int launch_lif_counts(const float* x, float* s, int* counts, float* vres,
 extern "C" int lif_forward(const float* x, float* s, int64_t t_steps,
                            int64_t p, float decay, float v_th,
                            int soft_reset, void* stream) {
-  return launch_lif<false>(x, s, nullptr, t_steps, p, decay, v_th,
-                           soft_reset, stream);
+  return launch_lif<float, false>(x, s, nullptr, t_steps, p, decay, v_th,
+                                  soft_reset, stream);
+}
+
+// x, s: (T, P) bf16; the membrane stays f32 in a register.
+extern "C" int lif_bf16_forward(const __nv_bfloat16* x, __nv_bfloat16* s,
+                                int64_t t_steps, int64_t p, float decay,
+                                float v_th, int soft_reset, void* stream) {
+  return launch_lif<__nv_bfloat16, false>(x, s, nullptr, t_steps, p, decay,
+                                          v_th, soft_reset, stream);
 }
 
 extern "C" int lif_fwd_forward(const float* x, float* s, float* vres,
                                int64_t t_steps, int64_t p, float decay,
                                float v_th, int soft_reset, void* stream) {
-  return launch_lif<true>(x, s, vres, t_steps, p, decay, v_th, soft_reset,
-                          stream);
+  return launch_lif<float, true>(x, s, vres, t_steps, p, decay, v_th,
+                                 soft_reset, stream);
 }
 
 extern "C" int lif_counts_forward(const float* x, float* s, int* counts,

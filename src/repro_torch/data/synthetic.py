@@ -1,5 +1,6 @@
-"""Synthetic image data (no external datasets), the port's own copy of
-`repro.data.synthetic`'s `class_images` (procedurally generated
+"""Synthetic data (no external datasets), the port's own copy of
+`repro.data.synthetic`'s `markov_tokens` (order-1 Markov token
+sequences, the LM prompts), `class_images` (procedurally generated
 CIFAR-shaped images with class-dependent texture statistics) and
 `seg_batch` (a lane-like segmentation task), seeded per
 (seed, shard, step), so a batch is regenerated exactly. numpy only; the
@@ -13,6 +14,23 @@ import numpy as np
 def _rng(seed: int, shard: int, step: int) -> np.random.Generator:
     return np.random.default_rng(
         np.random.SeedSequence([seed, shard, step]))
+
+
+def markov_tokens(seed: int, shard: int, step: int, batch: int, seq: int,
+                  vocab: int) -> np.ndarray:
+    """Order-1 Markov token batch (B, S+1) int32: each token t is followed
+    by (a*t + b) mod V with probability 0.8, else by a uniform token."""
+    rng = _rng(seed, shard, step)
+    a = 6364136223846793005 % vocab or 1
+    b = seed % vocab
+    out = np.empty((batch, seq + 1), np.int64)
+    out[:, 0] = rng.integers(0, vocab, batch)
+    greedy = rng.random((batch, seq)) < 0.8
+    rand = rng.integers(0, vocab, (batch, seq))
+    for i in range(seq):
+        nxt = (a * out[:, i] + b) % vocab
+        out[:, i + 1] = np.where(greedy[:, i], nxt, rand[:, i])
+    return out.astype(np.int32)
 
 
 def class_images(seed: int, shard: int, step: int, batch: int, img: int = 32,

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper and their wrappers.
 
-  lif_scan.py      csrc/lif.cu               fused LIF, with/without counts,
+  lif_scan.py      csrc/lif.cu               fused LIF (f32 or bf16),
+                                             with/without counts,
                                              with/without the residual,
                                              packed (words, no spikes);
                                              surrogate backward
@@ -14,6 +15,9 @@
                                              on f32 spikes or packed words
   apec_kernel.py   csrc/apec.cu              APEC overlap/residual on words
   sdsa_kernel.py   csrc/sdsa.cu              packed OR-form attention
+                   csrc/sdsa_causal.cu       causal (LM) status: the
+                                             prefix-OR over tokens of
+                                             packed kv words
   ref.py           plain PyTorch oracles
   ops.py           shape plumbing around the kernels
   dispatch.py      the backend registry model code calls

@@ -38,7 +38,8 @@ LAUNCHES: Dict[str, int] = {"lif": 0, "lif_counts": 0, "lif_fwd": 0,
                             "sdsa_or": 0, "apec_decompose": 0,
                             "apec_matmul_csr": 0, "lif_counts_packed": 0,
                             "spike_matmul_packed_csr": 0,
-                            "apec_matmul_packed_csr": 0}
+                            "apec_matmul_packed_csr": 0, "sdsa_causal": 0,
+                            "lif_bf16": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
@@ -50,6 +51,7 @@ _I = ctypes.c_int
 # C entry point -> argument types (every pointer and the stream as void*).
 SIGNATURES = {
     "lif_forward": (_P, _P, _I64, _I64, _F, _F, _I, _P),
+    "lif_bf16_forward": (_P, _P, _I64, _I64, _F, _F, _I, _P),
     "lif_fwd_forward": (_P, _P, _P, _I64, _I64, _F, _F, _I, _P),
     "lif_counts_forward": (_P, _P, _P, _I64, _I64, _I64, _F, _F, _I, _P),
     "lif_counts_fwd_forward": (_P, _P, _P, _P, _I64, _I64, _I64, _F, _F, _I,
@@ -58,6 +60,7 @@ SIGNATURES = {
                                   _P),
     "lif_backward": (_P, _P, _P, _I64, _I64, _F, _F, _I, _F, _F, _P),
     "sdsa_or_forward": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
+    "sdsa_causal_forward": (_P, _P, _I64, _I64, _I64, _P),
     "spike_matmul_csr_forward": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                                  _I64, _P),
     "spike_matmul_packed_csr_forward": (_P, _P, _P, _P, _P, _P, _I64, _I64,

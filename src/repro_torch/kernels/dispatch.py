@@ -15,6 +15,9 @@ manual routes (`auto=False`, reached only by an override):
                              (packed payload)
                 cuda-pred    csrc/spike_matmul.cu, predicated (manual)
   sdsa          cuda         csrc/sdsa.cu on packed words (mode="or")
+  causal_sdsa   cuda         word T-fold + csrc/sdsa_causal.cu's prefix-OR
+                             + word Q AND (mode="or")
+                jnp          the same word ops in plain PyTorch (manual)
   econv         cuda         im2col + csrc/spike_matmul_csr.cu
                 cuda-packed  word-domain im2col + the word kernel
                              (packed payload)
@@ -34,29 +37,44 @@ manual routes (`auto=False`, reached only by an override):
 (`tconv` is the transposed conv of SegNet's decoder; the dense forward
 conv oracle of `econv` is `core.econv.tconv`, the paper's "TConv".)
 
-Selection order per call:
+Selection order per call (`repro`'s resolution walk on CPU tensors):
   1. an explicit override — the `use_backend(...)` context or the
      ``EXSPIKE_BACKEND`` env var (``ref`` for all ops, or a comma list of
      ``op=backend`` entries). It runs the named backend on whatever
      device the tensors lie on: the kernel wrappers take their plain
      version for CPU tensors, which is how the CPU tests walk the kernel
-     path;
-  2. otherwise the highest-priority automatic (``auto=True``) backend
-     registered for the platform of the call's first tensor (``cpu`` or
-     ``cuda``) and for the call's payload.
-A `supports` gate that refuses a call raises; the warn-and-degrade
-chains of `repro`'s registry, and its mesh, hybrid and guard routing, are
-not ported yet.
+     path. When its `supports` gate refuses the call, resolution walks
+     the backend's declared ``fallback=`` chain (``cuda-packed`` ->
+     ``cuda`` -> ``cuda-pred`` for the matmul-form ops, as `repro`'s
+     ``packed-csr`` -> ``pallas-csr`` -> ``pallas``) and ends at `ref`;
+     an unknown name lands on `ref` too;
+  2. otherwise the automatic (``auto=True``) backends registered for the
+     platform of the call's first tensor (``cpu`` or ``cuda``) and for the
+     call's payload, in priority order: the first whose gate accepts the
+     call runs, and when every one refuses, `ref` does.
+Every degrade warns once per (op, from, to) edge (`reset_fallback_warnings`
+re-arms them) and is attributed ``<chosen><-<requested>``
+(`resolve_with_attribution`, `watch_resolutions`); a platform or payload
+that a backend does not take is filtered silently. The mesh, hybrid and
+guard routing of `repro`'s registry are not ported yet.
+
+On the card (CUDA tensors) a degrade may only move from one kernel route
+to another (`KERNEL_ROUTES`, along the declared chain, under automatic
+selection too). Where the walk would end at a plain route (`ref`, `jnp`,
+or `ref` behind the unpack shim), or the override names no registered
+backend, resolution raises with the reason: a plain version never stands
+in for a kernel on the card. An explicit override that names a plain
+route still runs it. A kernel that fails to build or launch raises
+everywhere.
 
 Payload routing (as in `repro`): a call whose spike operand is uint32
 words carries the ``packed_k=`` kwarg (the logical channel count, threaded
 from a packed `EventTensor`). Automatic selection takes it only to a
-backend declaring ``payload=("packed",)`` and never takes a dense call
-there. On the card a packed call lands on its packed kernel or raises;
-on the CPU, which has no packed backend, it lands on `ref`. Wherever a
-packed call reaches a dense backend (that `ref`, or an explicit
-override), the words are unpacked by an explicit shim that warns once
-and is attributed ``<backend>+unpack``.
+backend declaring ``payload=("packed",)`` (or, on the CPU, to `ref`) and
+never takes a dense call there. Wherever a packed call reaches a dense
+backend (`ref` on the CPU, a degrade, or an explicit override), the words
+are unpacked by an explicit shim that warns once and is attributed
+``<backend>+unpack``.
 
 Gradient contract (as in `repro`): every backend declares how autograd
 goes through it, so training resolves backends exactly as inference does.
@@ -90,6 +108,8 @@ CUDA_PRED = "cuda-pred"
 CUDA_PACKED = "cuda-packed"
 ALL_PLATFORMS = ("cpu", "cuda")
 PACKED_OPS = ("spike_matmul", "econv", "apec_matmul")   # take packed_k=
+# The routes whose wrappers launch a hand-written kernel on CUDA tensors.
+KERNEL_ROUTES = (CUDA, CUDA_PACKED, CUDA_PRED)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,7 +119,8 @@ class Backend:
     `platforms` are the devices it is auto-selected on; an ``auto=False``
     backend is never auto-selected, only named by an override; `payload`
     names the spike payloads it is auto-selected for ("dense" f32 spikes,
-    "packed" uint32 words)."""
+    "packed" uint32 words); `fallback` names the backend a refused call
+    degrades to (see `register`)."""
     name: str
     fn: Callable
     platforms: Tuple[str, ...] = ALL_PLATFORMS
@@ -108,6 +129,7 @@ class Backend:
     supports: Optional[Callable[..., Optional[str]]] = None
     differentiable: bool = False
     payload: Tuple[str, ...] = ("dense",)
+    fallback: Optional[str] = None
 
     def unsupported_reason(self, *args, **kwargs) -> Optional[str]:
         if self.supports is None:
@@ -200,11 +222,16 @@ def _matmul_bwd(res, kwargs, g):
 
 def register(op: str, name: str, *, platforms=ALL_PLATFORMS, priority=0,
              auto=True, supports=None, differentiable=False, vjp=None,
-             payload=("dense",)):
+             fallback=None, payload=("dense",)):
     """Decorator: register `fn` as backend `name` for `op`. ``auto=False``
     keeps it out of priority resolution: only `use_backend` or
     ``EXSPIKE_BACKEND`` reach it. ``payload=("packed",)`` makes it the
     automatic choice for packed-word calls (and never for dense ones).
+
+    ``fallback``: the backend a call degrades to when this backend's
+    `supports` gate refuses it (chained until some backend accepts; `ref`
+    stays the terminal fallback). Automatic selection already falls
+    through by priority and walks a chain only for packed calls.
 
     Gradient contract: ``differentiable=True`` when autograd through `fn`
     gives the `ref` oracle's gradients, or ``vjp="ref"`` /
@@ -217,7 +244,7 @@ def register(op: str, name: str, *, platforms=ALL_PLATFORMS, priority=0,
             name=name, fn=_wrap_vjp(op, fn, vjp) if vjp is not None else fn,
             platforms=tuple(platforms), priority=priority, auto=auto,
             supports=supports, differentiable=differentiable or vjp is not None,
-            payload=tuple(payload))
+            fallback=fallback, payload=tuple(payload))
         return fn
     return deco
 
@@ -242,6 +269,13 @@ def get_backend(op: str, name: str) -> Backend:
     except KeyError:
         raise KeyError(f"op {op!r} has no backend {name!r}; "
                        f"registered: {backend_names(op)}") from None
+
+
+def example_inputs(op: str, device="cuda") -> Tuple[tuple, dict]:
+    """Small (args, kwargs) for `op` on `device`, the parity harness's
+    inputs (deterministic: drawn from fixed seeds)."""
+    from repro_torch import resolve_device
+    return _REGISTRY[op].make_example(resolve_device(device))
 
 
 # -------------------------------------------------------------- overrides
@@ -297,52 +331,197 @@ def _platform(args) -> str:
     raise TypeError("dispatch needs at least one tensor argument")
 
 
+# Degrade warnings fire once per (op, from-backend, to-backend, route) per
+# process, so a model that makes the same refused call in every layer
+# shows the one warning that matters; `reset_fallback_warnings()` re-arms
+# every edge.
 _WARNED: set = set()
 
 
-def _unpack_shim(op: str, be: Backend) -> Backend:
+def reset_fallback_warnings() -> None:
+    _WARNED.clear()
+
+
+def _warn_once(op: str, src: str, dst: str, msg: str, stacklevel: int = 3,
+               route: Optional[str] = None) -> None:
+    key = (op, src, dst, route)
+    if key in _WARNED:
+        return
+    _WARNED.add(key)
+    warnings.warn(msg, RuntimeWarning, stacklevel=stacklevel + 1)
+
+
+# Observers appended by `watch_resolutions`: every resolution records
+# {"op", "backend", "attribution"}.
+_RESOLUTION_WATCHERS: list = []
+
+
+@contextlib.contextmanager
+def watch_resolutions():
+    """Yields a list that receives one ``{"op", "backend", "attribution"}``
+    record per resolution while the context is active (one per call: the
+    port resolves eagerly)."""
+    rec: list = []
+    _RESOLUTION_WATCHERS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RESOLUTION_WATCHERS.remove(rec)
+
+
+def _fallback(op: str, wanted: str, reason: str, on_card: bool) -> Backend:
+    """`ref` in place of `wanted`, warned once; on the card, an error: the
+    plain version never stands in for a kernel there."""
+    if on_card:
+        raise ValueError(f"exspike dispatch: backend {wanted!r} for op "
+                         f"{op!r} cannot take this call on the card "
+                         f"({reason}), and no kernel route is left to "
+                         f"degrade to")
+    _warn_once(op, wanted, REF,
+               f"exspike dispatch: backend {wanted!r} for op {op!r} "
+               f"unavailable ({reason}); falling back to {REF!r}",
+               stacklevel=6)
+    return _REGISTRY[op].backends[REF]
+
+
+def _walk_fallback_chain(op: str, spec: OpSpec, be: Backend,
+                         reason: Optional[str],
+                         reason_of) -> Tuple[Backend, Optional[str]]:
+    """Degrade along the declared fallback chain while `reason_of`
+    refuses, warning once per edge. Returns the last backend reached and
+    its reason (None iff some link accepted the call)."""
+    seen = {be.name}
+    while reason is not None and be.fallback is not None \
+            and be.fallback not in seen:
+        nxt = spec.backends.get(be.fallback)
+        if nxt is None:
+            break
+        _warn_once(op, be.name, nxt.name,
+                   f"exspike dispatch: backend {be.name!r} for op {op!r} "
+                   f"unavailable ({reason}); degrading to {nxt.name!r}",
+                   stacklevel=6)
+        seen.add(nxt.name)
+        be, reason = nxt, reason_of(nxt)
+    return be, reason
+
+
+def _resolve_payload_blind(op: str, *args,
+                           **kwargs) -> Tuple[Backend, str]:
+    spec = _REGISTRY[op]
+    platform = _platform(args)
+    on_card = platform == "cuda"
+
+    def reason_of(be: Backend) -> Optional[str]:
+        return be.unsupported_reason(*args, **kwargs)
+
+    def attributed(be: Backend, requested: Optional[str]):
+        if requested is None or requested == be.name:
+            return be, be.name
+        return be, f"{be.name}<-{requested}"
+
+    def walk(be: Backend, reason: Optional[str]):
+        # The declared chain, so a refused call lands on the nearest
+        # comparable kernel; on the card only a kernel route may end it.
+        be, reason = _walk_fallback_chain(op, spec, be, reason, reason_of)
+        if reason is None and on_card and be.name not in KERNEL_ROUTES:
+            reason = f"the chain ends at the plain route {be.name!r}"
+        return be, reason
+
+    override = _override_for(op)
+    if override is not None:
+        be = spec.backends.get(override)
+        if be is None:
+            return attributed(_fallback(op, override, "not registered",
+                                        on_card), override)
+        reason = reason_of(be)
+        if reason is None:     # runs as named, a plain route on the card too
+            return attributed(be, override)
+        be, reason = walk(be, reason)
+        if reason is not None:
+            return attributed(_fallback(op, be.name, reason, on_card),
+                              override)
+        return attributed(be, override)
+    # Platform and payload filtering are silent: a dense call never
+    # auto-selects a packed-only backend and vice versa (on the CPU a
+    # packed call that finds no packed candidate lands on `ref` behind the
+    # unpack shim; on the card it raises).
+    want = "packed" if kwargs.get("packed_k") is not None else "dense"
+    candidates = sorted(
+        (b for b in spec.backends.values()
+         if b.auto and platform in b.platforms
+         and (want in b.payload or b.name == REF)),
+        key=lambda b: -b.priority)
+    cap_failure = None
+    for be in candidates:
+        if be.name == REF:
+            break
+        reason = reason_of(be)
+        if reason is None and (cap_failure is None or not on_card):
+            return attributed(be, cap_failure[0] if cap_failure else None)
+        if cap_failure is None:
+            cap_failure = (be.name, reason)
+    if cap_failure is not None:
+        if want == "packed" or on_card:
+            # The refused backend's declared chain keeps the call on the
+            # nearest kernel (for a packed call the shim makes the densify
+            # explicit).
+            be, reason = walk(spec.backends[cap_failure[0]], cap_failure[1])
+            if reason is None:
+                return attributed(be, cap_failure[0])
+        # A capability failure degrading to the oracle would hide lost
+        # kernel coverage: warn (platform filtering stays silent).
+        return attributed(_fallback(op, *cap_failure, on_card),
+                          cap_failure[0])
+    if on_card and want == "packed":
+        raise RuntimeError(f"exspike dispatch: op {op!r} has no "
+                           f"packed-payload backend for this call on the "
+                           f"card")
+    return attributed(spec.backends[REF], None)
+
+
+def _unpack_shim(be: Backend) -> Backend:
     """`be` behind an explicit unpack of packed words: the words become the
     dense f32 spikes of their `packed_k` channels and the marker is
-    consumed. Warns once per (op, backend); attributed ``+unpack``."""
-    if (op, be.name) not in _WARNED:
-        _WARNED.add((op, be.name))
-        warnings.warn(f"exspike dispatch: packed payload for op {op!r} "
-                      f"reaches the dense backend {be.name!r}; unpacking "
-                      f"the words (explicit unpack shim)", RuntimeWarning,
-                      stacklevel=4)
-
+    consumed. Attributed ``+unpack``."""
     @functools.wraps(be.fn)
     def fn(s, *rest, packed_k, **kw):
         return be.fn(unpack_spikes_padded(s, packed_k), *rest, **kw)
     return dataclasses.replace(be, fn=fn, name=f"{be.name}+unpack")
 
 
+def resolve_with_attribution(op: str, *args,
+                             **kwargs) -> Tuple[Backend, str]:
+    """The backend `dispatch` would run for these inputs, and its
+    attribution: the backend's name, suffixed ``<-requested`` when
+    resolution degraded from a preferred backend (an override's chain, or
+    a refused automatic candidate), and ``+unpack`` after the name when a
+    packed payload reaches a dense backend. `resolve` /
+    `resolve_attribution` are its two projections. On the card it raises
+    where the walk would leave the kernel routes (see the module doc)."""
+    be, attribution = _resolve_payload_blind(op, *args, **kwargs)
+    if kwargs.get("packed_k") is not None and "packed" not in be.payload:
+        _warn_once(op, "packed", be.name,
+                   f"exspike dispatch: packed payload for op {op!r} "
+                   f"reaches the dense backend {be.name!r}; unpacking the "
+                   f"words (explicit unpack shim)", stacklevel=4,
+                   route="payload")
+        shim = _unpack_shim(be)
+        attribution = shim.name + attribution[len(be.name):]
+        be = shim
+    for rec in _RESOLUTION_WATCHERS:
+        rec.append({"op": op, "backend": be.name,
+                    "attribution": attribution})
+    return be, attribution
+
+
 def resolve(op: str, *args, **kwargs) -> Backend:
     """The backend `dispatch` would run for these inputs."""
-    spec = _REGISTRY[op]
-    override = _override_for(op)
-    packed = kwargs.get("packed_k") is not None
-    if override is not None:
-        be = get_backend(op, override)
-    else:
-        platform = _platform(args)
-        want = "packed" if packed else "dense"
-        be = max((b for b in spec.backends.values()
-                  if b.auto and platform in b.platforms
-                  and want in b.payload),
-                 key=lambda b: b.priority, default=None)
-        if be is None and packed and platform == "cpu":
-            be = spec.backends[REF]          # no packed backend on the CPU
-        if be is None:
-            raise RuntimeError(f"op {op!r} has no {want}-payload backend "
-                               f"for platform {platform!r}")
-    reason = be.unsupported_reason(*args, **kwargs)
-    if reason is not None:
-        raise ValueError(f"backend {be.name!r} for op {op!r} cannot take "
-                         f"this call: {reason}")
-    if packed and "packed" not in be.payload:
-        be = _unpack_shim(op, be)
-    return be
+    return resolve_with_attribution(op, *args, **kwargs)[0]
+
+
+def resolve_attribution(op: str, *args, **kwargs) -> str:
+    """``name``, or ``name<-requested`` after a degrade."""
+    return resolve_with_attribution(op, *args, **kwargs)[1]
 
 
 def dispatch(op: str, *args, **kwargs):
@@ -361,24 +540,50 @@ def _packed_example(op: str, dev):
 
 def resolved_backends(device="cuda", *, packed: bool = False
                       ) -> Dict[str, str]:
-    """op -> name of the backend that would run each op's example inputs
-    on `device` under the current overrides (startup log). ``packed``:
-    the ops that take a packed payload (`PACKED_OPS`) are resolved on
-    packed words, as a `SpikingConfig(packed=True)` forward calls them."""
+    """op -> attribution of the backend that would run each op's example
+    inputs on `device` under the current overrides (startup log): the
+    name, or ``name<-requested`` after a degrade. ``packed``: the ops
+    that take a packed payload (`PACKED_OPS`) are resolved on packed
+    words, as a `SpikingConfig(packed=True)` forward calls them. A
+    read-only snapshot: its degrade warnings are muted and the warn-once
+    ledger is restored, so a later real degrade still warns."""
     from repro_torch import resolve_device
     dev = resolve_device(device)
     out = {}
-    for op, spec in _REGISTRY.items():
-        if packed and op in PACKED_OPS:
-            ex_args, ex_kwargs = _packed_example(op, dev)
-        else:
-            ex_args, ex_kwargs = spec.make_example(dev)
-        out[op] = resolve(op, *ex_args, **ex_kwargs).name
+    saved = set(_WARNED)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            for op, spec in _REGISTRY.items():
+                if packed and op in PACKED_OPS:
+                    ex_args, ex_kwargs = _packed_example(op, dev)
+                else:
+                    ex_args, ex_kwargs = spec.make_example(dev)
+                out[op] = resolve_attribution(op, *ex_args, **ex_kwargs)
+    finally:
+        _WARNED.clear()
+        _WARNED.update(saved)
     return out
 
 
-def _binary(shape, p: float, device) -> torch.Tensor:
-    g = torch.Generator().manual_seed(0)
+def table() -> str:
+    """Human-readable registry dump: per op, each backend with its
+    priority, manual flag, gradient contract, packed payload and declared
+    fallback."""
+    lines = []
+    for op, spec in _REGISTRY.items():
+        bes = ", ".join(
+            f"{b.name}(p{b.priority}{'' if b.auto else ',manual'}"
+            f"{',grad' if b.differentiable else ''}"
+            f"{',packed' if 'packed' in b.payload else ''}"
+            f"{f',->{b.fallback}' if b.fallback else ''})"
+            for b in sorted(spec.backends.values(), key=lambda b: -b.priority))
+        lines.append(f"{op:14s} -> {bes}")
+    return "\n".join(lines)
+
+
+def _binary(shape, p: float, device, seed: int = 0) -> torch.Tensor:
+    g = torch.Generator().manual_seed(seed)
     return (torch.rand(shape, generator=g) < p).float().to(device)
 
 
@@ -440,19 +645,8 @@ def _lif_occ_ref(x, *, decay=0.5, v_th=1.0, soft_reset=True,
     return s, occ, chunks
 
 
-def _lif_occ_supports(x, **kwargs) -> Optional[str]:
-    del kwargs
-    r = 1
-    for d in x.shape[1:-1]:
-        r *= d
-    if r % 8:
-        return (f"fused occupancy emission needs the middle axes to fill "
-                f"8-row chunks, got R={r}")
-    return None
-
-
 @register("lif_scan_occ", CUDA, platforms=("cuda",), priority=20,
-          supports=_lif_occ_supports, differentiable=True)
+          differentiable=True)
 def _lif_occ_cuda(x, *, decay=0.5, v_th=1.0, soft_reset=True,
                   surrogate_alpha=2.0, packed=False):
     from repro_torch.kernels import ops
@@ -478,7 +672,7 @@ def _spike_matmul_ref(s, w, occupancy=None):
 
 
 @register("spike_matmul", CUDA, platforms=("cuda",), priority=20,
-          vjp=_matmul_bwd)
+          vjp=_matmul_bwd, fallback=CUDA_PRED)
 def _spike_matmul_csr(s, w, occupancy=None):
     # Event-compacted tile walk; a carried `occupancy` replaces the dense
     # pre-pass (the work list compacts from the small map).
@@ -487,7 +681,7 @@ def _spike_matmul_csr(s, w, occupancy=None):
 
 
 @register("spike_matmul", CUDA_PACKED, platforms=("cuda",), priority=30,
-          vjp=_matmul_bwd, payload=("packed",))
+          vjp=_matmul_bwd, fallback=CUDA, payload=("packed",))
 def _spike_matmul_packed(s, w, occupancy=None, packed_k=None):
     # The CSR walk on packed words: each occupied word tile unpacks on
     # chip. Dense spikes (packed_k=None) are packed at entry.
@@ -547,17 +741,18 @@ def _apec_matmul_pred(s, w, *, g=2, occupancy=None):
 
 def _apec_csr_supports(s, w, *, g=2, **kwargs) -> Optional[str]:
     # The fused kernel maps each output row tile onto a (128/g)-row
-    # overlap tile, so g must divide the 128-row tile, and its overlap
-    # accumulator gives each of 16 thread rows 8/g rows: g is 2, 4 or 8.
+    # overlap tile, so the group size must divide the 128-row tile (as
+    # `repro`'s `_apec_csr_supports`); g = 1, where APEC groups nothing,
+    # is left to the other routes.
     del kwargs
     reason = _apec_divisibility(s, w, g=g)
-    if reason is None and g not in (2, 4, 8):
-        reason = f"the fused kernel takes groups of 2, 4 or 8, got {g}"
+    if reason is None and (g < 2 or 128 % g):
+        reason = f"group {g} does not divide the 128-row tile, or is 1"
     return reason
 
 
 @register("apec_matmul", CUDA, platforms=("cuda",), priority=20,
-          supports=_apec_csr_supports, vjp=_matmul_bwd)
+          supports=_apec_csr_supports, vjp=_matmul_bwd, fallback=CUDA_PRED)
 def _apec_matmul_csr(s, w, *, g=2, occupancy=None):
     # Fused event-compacted APEC: union work list, overlap partial sums
     # added into the g member rows in-kernel. A carried map IS the union
@@ -567,7 +762,8 @@ def _apec_matmul_csr(s, w, *, g=2, occupancy=None):
 
 
 @register("apec_matmul", CUDA_PACKED, platforms=("cuda",), priority=30,
-          supports=_apec_csr_supports, vjp=_matmul_bwd, payload=("packed",))
+          supports=_apec_csr_supports, vjp=_matmul_bwd, fallback=CUDA,
+          payload=("packed",))
 def _apec_matmul_packed(s, w, *, g=2, occupancy=None, packed_k=None):
     # The fused kernel on words end to end: decompose on the words, union
     # work list, both operands' word tiles unpacked on chip.
@@ -604,6 +800,45 @@ def _sdsa_cuda(q, k, v, *, mode="or"):
     del mode
     from repro_torch.kernels import ops
     return ops.sdsa_or(q, k, v)
+
+
+# ----------------------------------------------------------- causal_sdsa
+# The LM's attention: (T, ..., N, d) spikes, status accumulated over
+# micro-steps and tokens j <= i (a prefix-OR).
+def _causal_sdsa_example(dev):
+    return tuple(_binary((2, 2, 2, 12, 40), 0.4, dev, seed=i)
+                 for i in range(3)), {"mode": "or"}
+
+
+register_op("causal_sdsa", _causal_sdsa_example)
+
+
+def _causal_or_only(q, k, v, *, mode="or") -> Optional[str]:
+    del q, k, v
+    if mode != "or":
+        return f"packed causal path supports mode='or' only, got {mode!r}"
+    return None
+
+
+@register("causal_sdsa", REF, priority=0, differentiable=True)
+def _causal_sdsa_ref(q, k, v, *, mode="or"):
+    from repro_torch.core.sdsa import causal_sdsa_jnp
+    return causal_sdsa_jnp(q, k, v, mode=mode)
+
+
+@register("causal_sdsa", "jnp", priority=5, auto=False,
+          supports=_causal_or_only, vjp=REF)
+def _causal_sdsa_packed(q, k, v, *, mode="or"):
+    from repro_torch.core.sdsa import causal_sdsa_packed_jnp
+    return causal_sdsa_packed_jnp(q, k, v, mode=mode)
+
+
+@register("causal_sdsa", CUDA, platforms=("cuda",), priority=20,
+          supports=_causal_or_only, vjp=REF)
+def _causal_sdsa_cuda(q, k, v, *, mode="or"):
+    del mode
+    from repro_torch.kernels import ops
+    return ops.causal_sdsa_or(q, k, v)
 
 
 # ----------------------------------------------------------------- econv
@@ -653,7 +888,8 @@ def _econv_im2col(s, w, stride, padding, matmul, occupancy=None):
     return out.reshape(s.shape[0], ho, wo, co)
 
 
-@register("econv", CUDA, platforms=("cuda",), priority=20, vjp=REF)
+@register("econv", CUDA, platforms=("cuda",), priority=20, vjp=REF,
+          fallback=CUDA_PRED)
 def _econv_cuda(s, w, *, stride=1, padding="SAME", occupancy=None):
     from repro_torch.kernels import ops
     return _econv_im2col(s, w, stride, padding, ops.spike_matmul_csr,
@@ -661,7 +897,7 @@ def _econv_cuda(s, w, *, stride=1, padding="SAME", occupancy=None):
 
 
 @register("econv", CUDA_PACKED, platforms=("cuda",), priority=30, vjp=REF,
-          payload=("packed",))
+          fallback=CUDA, payload=("packed",))
 def _econv_packed(s, w, *, stride=1, padding="SAME", occupancy=None,
                   packed_k=None):
     # Word-domain im2col (strided slices of the padded words) + the packed
@@ -803,6 +1039,12 @@ def apec_matmul(s, w, *, g=2):
 def sdsa(q, k, v, *, mode="or"):
     from repro_torch.core.events import as_spikes
     return dispatch("sdsa", as_spikes(q), as_spikes(k), as_spikes(v),
+                    mode=mode)
+
+
+def causal_sdsa(q, k, v, *, mode="or"):
+    from repro_torch.core.events import as_spikes
+    return dispatch("causal_sdsa", as_spikes(q), as_spikes(k), as_spikes(v),
                     mode=mode)
 
 

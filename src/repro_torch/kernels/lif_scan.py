@@ -1,8 +1,10 @@
 """Fused temporal LIF scan: CUDA kernel wrappers and their plain versions.
 
-`lif` fires a (T, P) drive; `lif_counts` fires a (T, R, K) drive and also
-emits the int32 event count of every (t, 8-row chunk, 128-lane tile), the
-layout of `repro`'s `_lif_occ_pallas`; `lif_counts_packed` emits the same
+`lif` fires a (T, P) drive, f32 or bf16 (bf16 spikes out, the membrane
+kept in f32, as `repro`'s `_lif_kernel` reads `x.dtype`); `lif_counts` fires a (T, R, K) drive and also
+emits the int32 event count of every (8-row chunk, 128-lane tile) of the
+flattened (T*R, K) spikes (`repro`'s `_lif_occ_pallas` layout flattened,
+for any R); `lif_counts_packed` emits the same
 counts with the spikes as uint32 words (T, R, ceil(K/32)) and no f32
 spike tensor, forward only (`repro`'s `lif_scan_occ_packed_pallas`).
 `lif_fwd` and `lif_counts_fwd` are
@@ -32,14 +34,14 @@ LANES = 128    # lane tile of the count map
 
 
 def chunk_counts(s: torch.Tensor) -> torch.Tensor:
-    """(T, R, K) spikes -> (T, R/8, ceil(K/128)) int32 event counts per
-    (t, 8-row chunk, 128-lane tile). Lanes past K count as silent."""
-    t, r, k = s.shape
-    pad = (-k) % LANES
-    if pad:
-        s = torch.nn.functional.pad(s, (0, pad))
-    blocks = s.reshape(t, r // CHUNK, CHUNK, -1, LANES)
-    return (blocks != 0).sum(dim=(2, 4), dtype=torch.int32)
+    """(T, R, K) spikes -> (ceil(T*R/8), ceil(K/128)) int32 event counts
+    per (8-row chunk, 128-lane tile) of the flattened (T*R, K) rows. Rows
+    past T*R and lanes past K count as silent."""
+    s = s.reshape(-1, s.shape[-1])
+    s = torch.nn.functional.pad(s, (0, (-s.shape[1]) % LANES,
+                                    0, (-s.shape[0]) % CHUNK))
+    blocks = s.reshape(-1, CHUNK, s.shape[1] // LANES, LANES)
+    return (blocks != 0).sum(dim=(1, 3), dtype=torch.int32)
 
 
 # ------------------------------------------------------ plain versions
@@ -60,7 +62,10 @@ def lif_fwd_plain(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
 
 def lif_plain(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
               soft_reset: bool = True) -> torch.Tensor:
-    return lif_fwd_plain(x, decay=decay, v_th=v_th, soft_reset=soft_reset)[0]
+    """The kernel's step in f32 (a bf16 drive widened exactly), spikes
+    returned in the drive's dtype."""
+    return lif_fwd_plain(x.float(), decay=decay, v_th=v_th,
+                         soft_reset=soft_reset)[0].to(x.dtype)
 
 
 def lif_counts_fwd_plain(x: torch.Tensor, *, decay: float = 0.5,
@@ -114,24 +119,38 @@ def _flat(x: torch.Tensor):
 
 
 def _check_counts_shape(name: str, x: torch.Tensor) -> None:
-    if x.ndim != 3 or x.shape[1] % CHUNK:
-        raise ValueError(f"{name} needs (T, R, K) with R % {CHUNK} == 0, "
-                         f"got {tuple(x.shape)}")
+    if x.ndim != 3:
+        raise ValueError(f"{name} needs a (T, R, K) drive, got "
+                         f"{tuple(x.shape)}")
+
+
+def _counts_out(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's count map for a (T, R, K) drive; zeroed when R is
+    ragged, where the kernel adds into it."""
+    t, r, k = x.shape
+    shape = (-(-t * r // CHUNK), -(-k // LANES))
+    alloc = torch.zeros if r % CHUNK else torch.empty
+    return alloc(shape, dtype=torch.int32, device=x.device)
 
 
 def lif(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
         soft_reset: bool = True) -> torch.Tensor:
-    """x: (T, ...) f32 drive -> spikes of the same shape."""
+    """x: (T, ...) f32 or bf16 drive -> spikes of the same shape and dtype.
+    bf16 drives launch the bf16 instance of the kernel, counted apart as
+    ``lif_bf16``."""
     if not x.is_cuda:
         return lif_plain(x, decay=decay, v_th=v_th, soft_reset=soft_reset)
-    _build.require_cuda("lif", x, dtype=torch.float32)
+    bf16 = x.dtype == torch.bfloat16
+    name = "lif_bf16" if bf16 else "lif"
+    _build.require_cuda(name, x, dtype=torch.bfloat16 if bf16
+                        else torch.float32)
     s = torch.empty_like(x)
     t, p = _flat(x)
     lib = _build.library()
-    _build.LAUNCHES["lif"] += 1
-    _build.check(lib.lif_forward(x.data_ptr(), s.data_ptr(), t, p,
-                                 float(decay), float(v_th), int(soft_reset),
-                                 _build.stream()), "lif")
+    entry = lib.lif_bf16_forward if bf16 else lib.lif_forward
+    _build.LAUNCHES[name] += 1
+    _build.check(entry(x.data_ptr(), s.data_ptr(), t, p, float(decay),
+                       float(v_th), int(soft_reset), _build.stream()), name)
     return s
 
 
@@ -154,8 +173,8 @@ def lif_fwd(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
 
 def lif_counts(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
                soft_reset: bool = True):
-    """x: (T, R, K) f32 drive with R % 8 == 0 -> (spikes (T, R, K),
-    counts (T, R/8, ceil(K/128)) int32)."""
+    """x: (T, R, K) f32 drive -> (spikes (T, R, K), counts
+    (ceil(T*R/8), ceil(K/128)) int32 over the flattened rows)."""
     _check_counts_shape("lif_counts", x)
     if not x.is_cuda:
         return lif_counts_plain(x, decay=decay, v_th=v_th,
@@ -163,8 +182,7 @@ def lif_counts(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
     _build.require_cuda("lif_counts", x, dtype=torch.float32)
     t, r, k = x.shape
     s = torch.empty_like(x)
-    counts = torch.empty((t, r // CHUNK, -(-k // LANES)), dtype=torch.int32,
-                         device=x.device)
+    counts = _counts_out(x)
     lib = _build.library()
     _build.LAUNCHES["lif_counts"] += 1
     _build.check(lib.lif_counts_forward(
@@ -175,8 +193,8 @@ def lif_counts(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
 
 def lif_counts_packed(x: torch.Tensor, *, decay: float = 0.5,
                       v_th: float = 1.0, soft_reset: bool = True):
-    """x: (T, R, K) f32 drive with R % 8 == 0 -> (words (T, R, ceil(K/32))
-    uint32, counts (T, R/8, ceil(K/128)) int32). Forward only."""
+    """x: (T, R, K) f32 drive -> (words (T, R, ceil(K/32)) uint32, counts
+    (ceil(T*R/8), ceil(K/128)) int32). Forward only."""
     _check_counts_shape("lif_counts_packed", x)
     if not x.is_cuda:
         return lif_counts_packed_plain(x, decay=decay, v_th=v_th,
@@ -185,8 +203,7 @@ def lif_counts_packed(x: torch.Tensor, *, decay: float = 0.5,
     t, r, k = x.shape
     words = torch.empty((t, r, -(-k // 32)), dtype=torch.uint32,
                         device=x.device)
-    counts = torch.empty((t, r // CHUNK, -(-k // LANES)), dtype=torch.int32,
-                         device=x.device)
+    counts = _counts_out(x)
     lib = _build.library()
     _build.LAUNCHES["lif_counts_packed"] += 1
     _build.check(lib.lif_counts_packed_forward(
@@ -207,8 +224,7 @@ def lif_counts_fwd(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
     t, r, k = x.shape
     s = torch.empty_like(x)
     vres = torch.empty_like(x)
-    counts = torch.empty((t, r // CHUNK, -(-k // LANES)), dtype=torch.int32,
-                         device=x.device)
+    counts = _counts_out(x)
     lib = _build.library()
     _build.LAUNCHES["lif_counts_fwd"] += 1
     _build.check(lib.lif_counts_fwd_forward(

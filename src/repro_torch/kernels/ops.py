@@ -54,10 +54,11 @@ def lif_occ(x: torch.Tensor, decay: float = 0.5, v_th: float = 1.0,
     x: (T, ..., K) drive -> (spikes (T, ..., K),
     occupancy (ceil(T*R/128), ceil(K/128)) int32,
     chunks (ceil(T*R/128)*16, ceil(K/128)) int32), R = prod of the middle
-    axes, which must divide by 8. The maps come from the kernel's per-chunk
-    counts plus a reduction over the small count map, never a re-read of
-    the spikes. The spikes are differentiable (surrogate backward kernel);
-    the maps are metadata and carry no gradient.
+    axes (any R: the chunks are 8-row chunks of the flattened (T*R, K)
+    spikes, as the matmul consumes them). The maps come from the kernel's
+    per-chunk counts plus a reduction over the small count map, never a
+    re-read of the spikes. The spikes are differentiable (surrogate
+    backward kernel); the maps are metadata and carry no gradient.
 
     ``packed=True`` is the forward-only packed fire: the first element is
     the uint32 words (T, ..., ceil(K/32)) that the kernel writes instead
@@ -66,9 +67,6 @@ def lif_occ(x: torch.Tensor, decay: float = 0.5, v_th: float = 1.0,
     """
     t, k = x.shape[0], x.shape[-1]
     r = math.prod(x.shape[1:-1])
-    if r % 8:
-        raise ValueError(f"middle axes {tuple(x.shape[1:-1])} (R={r}) must "
-                         f"divide by 8")
     xr = x.reshape(t, r, k).contiguous()
     if packed:
         s, cnt = lif_scan.lif_counts_packed(xr.detach(), decay=decay,
@@ -79,14 +77,19 @@ def lif_occ(x: torch.Tensor, decay: float = 0.5, v_th: float = 1.0,
                                            soft_reset=soft_reset,
                                            surrogate_alpha=surrogate_alpha)
         payload = s.reshape(x.shape)
-    # (T, R/8, KT) chunk counts -> (ceil(T*R/128), KT) matmul tiles: the
-    # flattened chunk (t, a) sits at t*(R/8)+a, so 16 consecutive chunks
-    # are one 128-row tile (zero-padded tail chunks match the consumers'
-    # zero-padded rows).
+    # (ceil(T*R/8), KT) chunk counts -> (ceil(T*R/128), KT) matmul tiles:
+    # 16 consecutive chunks are one 128-row tile (zero-padded tail chunks
+    # match the consumers' zero-padded rows).
     kt = cnt.shape[-1]
-    cnt2, _ = _pad_to(cnt.reshape(t * (r // 8), kt), 0, 16)
+    cnt2, _ = _pad_to(cnt, 0, 16)
     occ = cnt2.reshape(-1, 16, kt).sum(dim=1, dtype=torch.int32)
     return payload, occ, cnt2
+
+
+def _packed_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    """(..., N, d) binary -> (prod(...), N, ceil(d/32)) uint32 words, the
+    d axis zero-padded to whole words."""
+    return pack_spikes_padded(x.reshape(-1, n, d)).contiguous()
 
 
 def sdsa_or(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -97,13 +100,41 @@ def sdsa_or(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     block_n = min(256, n + (-n) % 8)
 
     def prep(x):
-        x, _ = _pad_to(x.reshape(-1, n, d), 2, PACK)
-        x, _ = _pad_to(pack_spikes(x, axis=-1), 1, block_n)
-        return x.contiguous()
+        return _pad_to(_packed_heads(x, n, d), 1, block_n)[0].contiguous()
 
     out_p = sdsa_kernel.sdsa_packed(prep(q), prep(k), prep(v))
     out = unpack_spikes(out_p, axis=-1, dtype=q.dtype)[:, :n, :d]
     return out.reshape(lead + (n, d))
+
+
+def causal_sdsa_words(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      scan) -> torch.Tensor:
+    """Causal OR-form SDSA on dense binary (T, ..., N, d) tensors, T the
+    micro-step axis and N the token axis, through uint32 words: pack, OR
+    the kv words over T, `scan` ((BH, N, dw) words -> their prefix-OR
+    over N), AND with Q, unpack."""
+    t = q.shape[0]
+    lead = q.shape[1:-2]
+    n, d = q.shape[-2:]
+    qp, kp, vp = (_packed_heads(x, n, d).view(torch.int32).reshape(
+        (t, -1) + (n, packed_width(d))) for x in (q, k, v))
+    kv = kp[0] & vp[0]
+    for i in range(1, t):
+        kv = kv | (kp[i] & vp[i])
+    status = scan(kv.view(torch.uint32))
+    out = (qp & status.view(torch.int32)[None]).view(torch.uint32)
+    return unpack_spikes(out, axis=-1, dtype=q.dtype)[..., :d].reshape(
+        (t,) + lead + (n, d))
+
+
+def causal_sdsa_or(q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor) -> torch.Tensor:
+    """Causal (LM) OR-form SDSA on dense binary (T, ..., N, d) tensors:
+    status[i] = OR over micro-steps and tokens j <= i of K AND V,
+    out[t, i] = Q[t, i] AND status[i]. The prefix-OR over tokens runs in
+    the causal-status kernel (any N, no padding); the T-fold and the Q
+    AND are word ops around it."""
+    return causal_sdsa_words(q, k, v, sdsa_kernel.sdsa_causal_status)
 
 
 def padded_occupancy(s: torch.Tensor, block_m: int = 128,

@@ -38,6 +38,20 @@ def sdsa_packed_ref(q_packed, k_packed, v_packed):
     return sdsa_apply_ref(q_packed, sdsa_status_ref(k_packed, v_packed))
 
 
+def sdsa_causal_status_ref(kv_packed: torch.Tensor) -> torch.Tensor:
+    """Prefix-OR over the token axis of packed kv words: (BH, N, dw) ->
+    (BH, N, dw) uint32, out[b, i] = OR over j <= i of kv[b, j]. A
+    doubling (Hillis-Steele) scan on the int32 view: log2(N) shifted ORs,
+    bit-exact for the uint32 words."""
+    x = kv_packed.view(torch.int32)
+    n = x.shape[1]
+    shift = 1
+    while shift < n:
+        x = torch.cat([x[:, :shift], x[:, shift:] | x[:, :-shift]], dim=1)
+        shift *= 2
+    return x.contiguous().view(torch.uint32)
+
+
 def spike_matmul_ref(s: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Oracle for the spike matmul: plain dense fp32 matmul."""
     return torch.matmul(s.float(), w.float()).to(w.dtype)

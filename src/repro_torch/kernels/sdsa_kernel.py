@@ -1,18 +1,22 @@
 """Spike-driven self-attention (OR form) on bit-packed spike words.
 
 `sdsa_packed(q, k, v)` takes (BH, N, dw) uint32 words and returns
-Q AND (OR over N of K AND V). On a CUDA tensor it launches the fused
-`csrc/sdsa.cu` kernel; on a CPU tensor it runs the plain version.
+Q AND (OR over N of K AND V). `sdsa_causal_status(kv)` takes (BH, N, dw)
+uint32 kv words and returns their prefix-OR over the token axis, the
+causal (LM) status. On a CUDA tensor each launches its kernel
+(`csrc/sdsa.cu`, `csrc/sdsa_causal.cu`); on a CPU tensor it runs the
+plain version.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .ref import sdsa_packed_ref
+from .ref import sdsa_causal_status_ref, sdsa_packed_ref
 
 
 sdsa_packed_plain = sdsa_packed_ref   # plain version: AND, OR tree, AND
+sdsa_causal_status_plain = sdsa_causal_status_ref   # doubling OR scan
 
 
 def sdsa_packed(q: torch.Tensor, k: torch.Tensor,
@@ -31,4 +35,23 @@ def sdsa_packed(q: torch.Tensor, k: torch.Tensor,
     _build.check(lib.sdsa_or_forward(q.data_ptr(), k.data_ptr(),
                                      v.data_ptr(), out.data_ptr(), bh, n, dw,
                                      _build.stream()), "sdsa_or")
+    return out
+
+
+def sdsa_causal_status(kv: torch.Tensor) -> torch.Tensor:
+    """(BH, N, dw) uint32 kv words -> (BH, N, dw) uint32: out[b, i] = OR
+    over tokens j <= i of kv[b, j]. Any N (no padding to a block)."""
+    if kv.ndim != 3 or kv.dtype != torch.uint32:
+        raise ValueError(f"sdsa_causal_status needs (BH, N, dw) uint32 "
+                         f"words, got {tuple(kv.shape)} {kv.dtype}")
+    if not kv.is_cuda:
+        return sdsa_causal_status_plain(kv)
+    _build.require_cuda("sdsa_causal", kv, dtype=torch.uint32)
+    bh, n, dw = kv.shape
+    out = torch.empty_like(kv)
+    lib = _build.library()
+    _build.LAUNCHES["sdsa_causal"] += 1
+    _build.check(lib.sdsa_causal_forward(kv.data_ptr(), out.data_ptr(), bh,
+                                         n, dw, _build.stream()),
+                 "sdsa_causal")
     return out

@@ -127,6 +127,12 @@ def spike_matmul_pred(s: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def _apec_group_ok(g: int) -> bool:
+    """The fused kernels' group sizes: every g > 1 dividing the 128-row
+    tile (a group never straddles two output tiles)."""
+    return 1 < g <= TILE and TILE % g == 0
+
+
 def apec_matmul_csr_plain(res: torch.Tensor, ov: torch.Tensor,
                           w: torch.Tensor, g: int, csr: TileCSR,
                           occ_res: torch.Tensor,
@@ -160,10 +166,10 @@ def apec_matmul_csr(res: torch.Tensor, ov: torch.Tensor, w: torch.Tensor,
                          f"{tuple(w.shape)}")
     m, k = res.shape
     n = w.shape[1]
-    if g not in (2, 4, 8) or m % g or ov.shape[0] * g != m:
-        raise ValueError(f"apec_matmul_csr takes g in (2, 4, 8) with M % g "
-                         f"== 0 and M/g overlap rows, got g={g}, M={m}, "
-                         f"{ov.shape[0]} overlap rows")
+    if not _apec_group_ok(g) or m % g or ov.shape[0] * g != m:
+        raise ValueError(f"apec_matmul_csr takes g > 1 dividing {TILE} with "
+                         f"M % g == 0 and M/g overlap rows, got g={g}, "
+                         f"M={m}, {ov.shape[0]} overlap rows")
     mt, kt = -(-m // TILE), -(-k // TILE)
     csr.check_compatible(TILE, TILE, mt, kt)
     if csr.n_rows != mt:
@@ -270,10 +276,10 @@ def apec_matmul_packed_csr(res: torch.Tensor, ov: torch.Tensor,
     k, n = w.shape
     _check_words("apec_matmul_packed_csr", k, res, ov)
     m, kw = res.shape
-    if g not in (2, 4, 8) or m % g or ov.shape[0] * g != m:
-        raise ValueError(f"apec_matmul_packed_csr takes g in (2, 4, 8) with "
-                         f"M % g == 0 and M/g overlap rows, got g={g}, "
-                         f"M={m}, {ov.shape[0]} overlap rows")
+    if not _apec_group_ok(g) or m % g or ov.shape[0] * g != m:
+        raise ValueError(f"apec_matmul_packed_csr takes g > 1 dividing "
+                         f"{TILE} with M % g == 0 and M/g overlap rows, got "
+                         f"g={g}, M={m}, {ov.shape[0]} overlap rows")
     mt, kt = -(-m // TILE), -(-k // TILE)
     csr.check_compatible(TILE, TILE, mt, kt)
     if csr.n_rows != mt:

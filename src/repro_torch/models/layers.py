@@ -1,5 +1,5 @@
 """Shared model layers: params as plain dicts of tensors, pure apply
-functions. Spiking layers take and return an explicit leading T axis
+functions: inits, RMS norm, the LIF fire helpers and the MLP. Spiking layers take and return an explicit leading T axis
 (micro-timesteps); LIF is the only op that couples timesteps.
 """
 from __future__ import annotations
@@ -15,16 +15,41 @@ from repro_torch.core.lif import LIFConfig
 from repro_torch.optim.adamw import AdamWState
 
 
-def dense_init(d_in: int, d_out: int, *, generator: torch.Generator,
-               device="cuda") -> torch.Tensor:
-    """Truncated-normal (±2 sigma) Glorot-scaled (d_in, d_out) weights,
-    drawn on the CPU and moved to `device` (CUDA unless asked otherwise;
-    a CUDA request without a card raises)."""
+def dense_init(d_in: int, d_out: int, dtype=torch.float32, *,
+               generator: torch.Generator, device="cuda") -> torch.Tensor:
+    """Truncated-normal (±2 sigma) Glorot-scaled (d_in, d_out) weights in
+    `dtype`, drawn in f32 on the generator's device and moved to `device`
+    (CUDA unless asked otherwise; a CUDA request without a card raises).
+    The SpikingFormer and CNN callers keep f32 and a CPU generator; the
+    LM's pass bf16, `repro`'s default there."""
     dev = resolve_device(device)
     scale = (2.0 / (d_in + d_out)) ** 0.5
-    w = torch.empty((d_in, d_out), dtype=torch.float32)
+    w = torch.empty((d_in, d_out), dtype=torch.float32,
+                    device=generator.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (w * scale).to(dev)
+    return (w * scale).to(dev, dtype)
+
+
+def embed_init(vocab: int, d: int, dtype=torch.bfloat16, *,
+               generator: torch.Generator, device="cuda") -> torch.Tensor:
+    """(vocab, d) embedding: truncated normal (±2 sigma) times 0.02."""
+    dev = resolve_device(device)
+    w = torch.empty((vocab, d), dtype=torch.float32, device=generator.device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (w * 0.02).to(dev, dtype)
+
+
+# ------------------------------------------------------------------- norms
+def rmsnorm_init(d: int, device="cuda") -> dict:
+    return {"scale": torch.ones((d,), dtype=torch.float32,
+                                device=resolve_device(device))}
+
+
+def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm in f32, returned in `x`'s dtype."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
 
 
 def hybrid_scope(spiking_cfg):
@@ -34,7 +59,7 @@ def hybrid_scope(spiking_cfg):
     if getattr(spiking_cfg, "hybrid", False):
         raise NotImplementedError(
             "SpikingConfig(hybrid=True) waits for the hybrid router port "
-            "(ROADMAP queue 1, item 13)")
+            "(ROADMAP queue 1, item 4)")
     return contextlib.nullcontext()
 
 
@@ -67,6 +92,39 @@ def lif_fire_events(x: torch.Tensor, lif_cfg: LIFConfig,
         return EventTensor(None, occ, chunks=chunks, packed=s,
                            feature_size=x.shape[-1])
     return EventTensor(s, occ, chunks=chunks)
+
+
+# --------------------------------------------------------------- the MLP
+def mlp_init(d_model: int, d_ff: int, dtype=torch.bfloat16, *,
+             generator: torch.Generator, device="cuda") -> dict:
+    return {"w_gate": dense_init(d_model, d_ff, dtype, generator=generator,
+                                 device=device),
+            "w_up": dense_init(d_model, d_ff, dtype, generator=generator,
+                               device=device),
+            "w_down": dense_init(d_ff, d_model, dtype, generator=generator,
+                                 device=device)}
+
+
+def mlp_apply(p: dict, x: torch.Tensor, spiking: bool,
+              lif_cfg: LIFConfig | None = None) -> torch.Tensor:
+    """SwiGLU in dense mode; in spiking mode (x binary (T, ...)) the hidden
+    drive x @ w_gate + x @ w_up is fired through LIF and down-projected,
+    so every matmul sees binary activations (the LIF threshold stands in
+    for the SiLU gate). The `EventTensor` form of `repro` is not reached
+    from the LM and is not ported."""
+    if isinstance(x, EventTensor):
+        raise NotImplementedError(
+            "mlp_apply on an EventTensor is not ported (the LM passes "
+            "dense spikes)")
+    if spiking:
+        h = x @ p["w_gate"].to(x.dtype)
+        h = h + x @ p["w_up"].to(x.dtype)
+        h = lif_fire(h, lif_cfg)
+        return h @ p["w_down"].to(h.dtype)
+    g = x @ p["w_gate"].to(x.dtype)
+    u = x @ p["w_up"].to(x.dtype)
+    return (torch.nn.functional.silu(g.float()).to(x.dtype) * u) \
+        @ p["w_down"].to(x.dtype)
 
 
 def params_from_numpy(tree, device="cuda"):

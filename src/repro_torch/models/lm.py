@@ -1,0 +1,363 @@
+"""The spiking LM from one `LMConfig`: full-sequence prefill and streaming
+decode, with `repro.models.lm`'s names, signatures and param-tree layout.
+
+A model is a repeated pattern of blocks scanned over `n_groups`
+repetitions with stacked params: ``params["blocks"]`` is a list (one
+entry per pattern position) of dicts whose leaves carry a leading
+``n_groups`` axis, exactly `repro`'s tree, so `params_from_numpy` carries
+a `repro` tree across unchanged. Every decode-state leaf is
+``(n_groups, B, ...)``: the slot batch is axis 1, which the slot-state
+surgery of the serve loop indexes.
+
+Ported: dense-pattern configs (one attention + MLP block) in spiking
+mode, where every matmul sees LIF-fired binary activations, attention is
+SDSA (O(N) prefill through the causal prefix-OR, O(d) decode state) and
+the hidden state is rate-decoded (mean over the T micro-steps). Not
+ported yet, and refused with their ROADMAP items: the dense ANN baseline
+(`spiking=False`: softmax GQA, KV cache, RoPE), MoE, hybrid (Mamba),
+xLSTM and encoder-decoder configs.
+"""
+from __future__ import annotations
+
+from typing import Any, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import LMConfig
+from repro_torch.core.lif import LIFConfig
+from . import transformer as tfm
+from .layers import (dense_init, embed_init, lif_fire, mlp_apply, mlp_init,
+                     rmsnorm, rmsnorm_init)
+
+CONFIG_ITEM = "ROADMAP queue 1 item 5"
+
+
+# ------------------------------------------------------------ pattern plan
+class BlockSpec(NamedTuple):
+    kind: str          # attn | mamba | mlstm | slstm
+    ffn: str           # mlp | moe | none
+
+
+def layer_pattern(cfg: LMConfig) -> Tuple[List[BlockSpec], int]:
+    """(pattern, n_groups) with n_layers == len(pattern) * n_groups. Only
+    the dense pattern, one attention + MLP block, is ported."""
+    for field, what in (("xlstm", "xLSTM"), ("hybrid", "hybrid (Mamba)"),
+                        ("moe", "MoE")):
+        if getattr(cfg, field) is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: {what} blocks are not ported yet "
+                f"({CONFIG_ITEM})")
+    if cfg.encoder_decoder or cfg.n_frontend_tokens or cfg.encoder_seq:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder and frontend configs are not "
+            f"ported yet ({CONFIG_ITEM})")
+    return [BlockSpec("attn", "mlp")], cfg.n_layers
+
+
+def lif_cfg_of(cfg: LMConfig) -> LIFConfig:
+    return LIFConfig(decay=cfg.spiking.lif_decay, v_th=cfg.spiking.lif_vth)
+
+
+def _check_spiking(spiking: bool) -> None:
+    if not spiking:
+        raise NotImplementedError(
+            f"the dense ANN baseline (spiking=False: softmax GQA, KV cache, "
+            f"RoPE) is not ported yet ({tfm.DENSE_ATTENTION_ITEM})")
+
+
+# ----------------------------------------------------------- tree helpers
+def _tree_map(fn, *trees):
+    """`fn` over the tensor leaves of matching dict / list / tuple /
+    NamedTuple trees; None leaves stay None."""
+    t0 = trees[0]
+    if t0 is None:
+        return None
+    if isinstance(t0, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, tuple) and hasattr(t0, "_fields"):
+        return type(t0)(*(_tree_map(fn, *xs) for xs in zip(*trees)))
+    if isinstance(t0, (list, tuple)):
+        return type(t0)(_tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def _tree_leaves_with_path(tree, path: str = ""):
+    if tree is None:
+        return
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tree_leaves_with_path(v, f"{path}[{k!r}]")
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for k, v in zip(tree._fields, tree):
+            yield from _tree_leaves_with_path(v, f"{path}.{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _tree_leaves_with_path(v, f"{path}[{i}]")
+    else:
+        yield path, tree
+
+
+def _group(tree, g: int):
+    """Group `g`'s slice of a stacked (n_groups, ...) tree (views)."""
+    return _tree_map(lambda x: x[g], tree)
+
+
+def _stack(trees: list):
+    return _tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+# ------------------------------------------------------------------- init
+def _block_init(cfg: LMConfig, spec: BlockSpec, generator: torch.Generator,
+                device) -> dict:
+    return {
+        "ln1": rmsnorm_init(cfg.d_model, device),
+        "attn": tfm.attn_init(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                              cfg.head_dim, cfg.qk_norm,
+                              generator=generator, device=device),
+        "ln2": rmsnorm_init(cfg.d_model, device),
+        "mlp": mlp_init(cfg.d_model, cfg.d_ff, generator=generator,
+                        device=device),
+    }
+
+
+def init_params(cfg: LMConfig, seed: int = 0, device="cuda") -> dict:
+    """Random params from `seed`, in `repro`'s dtypes (bf16 matrices, f32
+    norm scales) and stacked layout. The weights are drawn on `device` by
+    a `torch.Generator` that lives there (1.1B values drawn on the CPU
+    would take many seconds), so one seed gives the same weights on every
+    run on one kind of device, and different ones on the CPU and the card;
+    parity with `repro` goes through `params_from_numpy` instead."""
+    dev = resolve_device(device)
+    pattern, n_groups = layer_pattern(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {
+        "embed": embed_init(cfg.vocab, cfg.d_model, generator=gen,
+                            device=dev),
+        "blocks": [_stack([_block_init(cfg, spec, gen, dev)
+                           for _ in range(n_groups)]) for spec in pattern],
+        "final_norm": rmsnorm_init(cfg.d_model, dev),
+        "lm_head": dense_init(cfg.d_model, cfg.vocab, torch.bfloat16,
+                              generator=gen, device=dev),
+    }
+
+
+def param_count(cfg: LMConfig) -> int:
+    """Number of parameters, from the shapes alone."""
+    _, n_groups = layer_pattern(cfg)
+    d, hd = cfg.d_model, cfg.head_dim
+    block = (2 * d + d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+             + cfg.n_heads * hd * d + 3 * d * cfg.d_ff
+             + (2 * hd if cfg.qk_norm else 0))
+    return 2 * cfg.vocab * d + d + n_groups * block
+
+
+# -------------------------------------------------------- full sequence
+def _apply_block(cfg: LMConfig, spec: BlockSpec, p: dict, x: torch.Tensor,
+                 spiking: bool, *, causal: bool = True) -> torch.Tensor:
+    """Full-sequence block. x: (T, B, N, D) spikes' residual stream."""
+    _check_spiking(spiking)
+    lif = lif_cfg_of(cfg)
+    s = lif_fire(rmsnorm(p["ln1"], x), lif)
+    x = x + tfm.attention_sdsa(
+        p["attn"], s, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+        d_head=cfg.head_dim, lif_cfg=lif, mode=cfg.spiking.sdsa_mode,
+        causal=causal)
+    h = lif_fire(rmsnorm(p["ln2"], x), lif)
+    return x + mlp_apply(p["mlp"], h, spiking=True, lif_cfg=lif)
+
+
+def _run_blocks(cfg, blocks, x, spiking, pattern, n_groups, causal):
+    for g in range(n_groups):
+        for i, spec in enumerate(pattern):
+            x = _apply_block(cfg, spec, _group(blocks[i], g), x, spiking,
+                             causal=causal)
+    return x
+
+
+def _rate_decode(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the T micro-steps, accumulated in f32 and returned in
+    x's dtype (as `jnp.mean` does on bf16)."""
+    return x.float().mean(dim=0).to(x.dtype)
+
+
+def forward_hidden(cfg: LMConfig, params: dict, tokens: torch.Tensor,
+                   spiking: bool, frontend: Optional[torch.Tensor] = None,
+                   causal: bool = True) -> torch.Tensor:
+    """tokens (B, N) -> final hidden (B, N, D), T-averaged."""
+    _check_spiking(spiking)
+    if frontend is not None:
+        raise NotImplementedError(f"frontend embeddings are not ported yet "
+                                  f"({CONFIG_ITEM})")
+    pattern, n_groups = layer_pattern(cfg)
+    x = params["embed"][tokens]                              # (B, N, D)
+    x = x[None].expand((cfg.spiking.t_steps,) + tuple(x.shape))
+    x = _run_blocks(cfg, params["blocks"], x, spiking, pattern, n_groups,
+                    causal)
+    return rmsnorm(params["final_norm"], _rate_decode(x))
+
+
+def _logits(params: dict, h: torch.Tensor) -> torch.Tensor:
+    return (h @ params["lm_head"].to(h.dtype)).float()
+
+
+def prefill(cfg: LMConfig, params: dict, tokens: torch.Tensor, spiking: bool,
+            frontend: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence prefill: last-position logits (B, vocab) f32."""
+    hidden = forward_hidden(cfg, params, tokens, spiking, frontend=frontend)
+    return _logits(params, hidden[:, -1, :])
+
+
+# ---------------------------------------------------------------- serving
+class LayerState(NamedTuple):
+    """Union state for one pattern position (unused fields are None)."""
+    kv: Any = None          # dense attention's KV cache (not ported)
+    sdsa: Any = None        # tfm.SDSAState      (spiking attn decode)
+    mamba: Any = None
+    mlstm: Any = None
+    slstm: Any = None
+    cross_kv: Any = None
+    cross_status: Any = None
+
+
+def init_state(cfg: LMConfig, spec: BlockSpec, b: int, s: int,
+               spiking: bool, n_groups: int, device="cuda") -> LayerState:
+    """Stacked (n_groups, b, ...) decode state for one pattern position;
+    `s` (the sequence capacity) sizes only the dense KV cache."""
+    del s, spec
+    _check_spiking(spiking)
+    st = tfm.sdsa_state_init(b, cfg.n_heads, cfg.head_dim, device=device)
+    return LayerState(sdsa=_tree_map(
+        lambda x: x[None].expand((n_groups,) + tuple(x.shape)).contiguous(),
+        st))
+
+
+def init_decode_state(cfg: LMConfig, b: int, s: int, spiking: bool,
+                      device="cuda") -> list:
+    """Decode-state layout contract (the serve loop relies on it): a list
+    of `LayerState`, one per pattern position, and EVERY tensor leaf is
+    ``(n_groups, b, ...)`` — the slot batch is axis 1 of every leaf.
+    `reset_slot_state` / `merge_slot_state` index that axis structurally."""
+    pattern, n_groups = layer_pattern(cfg)
+    return [init_state(cfg, spec, b, s, spiking, n_groups, device)
+            for spec in pattern]
+
+
+def _apply_block_decode(cfg, spec, p, st: LayerState, x, pos, spiking):
+    del spec, pos                      # SDSA decode is position-free
+    _check_spiking(spiking)
+    lif = lif_cfg_of(cfg)
+    s = lif_fire(rmsnorm(p["ln1"], x), lif)                  # (T, B, D)
+    a, new_sdsa = tfm.attention_sdsa_decode(
+        p["attn"], s, st.sdsa, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+        d_head=cfg.head_dim, lif_cfg=lif, mode=cfg.spiking.sdsa_mode)
+    x = x + a
+    h = lif_fire(rmsnorm(p["ln2"], x), lif)
+    x = x + mlp_apply(p["mlp"], h, spiking=True, lif_cfg=lif)
+    return x, st._replace(sdsa=new_sdsa)
+
+
+def decode_step(cfg: LMConfig, params: dict, state: list,
+                token: torch.Tensor, pos, spiking: bool):
+    """One serving step. token: (B,) int; pos: a scalar or per-slot (B,)
+    positions (each slot decodes at its own position; the spiking state is
+    position-free, so pos only keeps the contract of the dense path).
+
+    Returns (logits (B, vocab) f32, new state): each layer's O(d) SDSA
+    status takes the token's K AND V."""
+    pattern, n_groups = layer_pattern(cfg)
+    pos = torch.broadcast_to(torch.as_tensor(pos, device=token.device),
+                             token.shape)
+    x = params["embed"][token]                               # (B, D)
+    x = x[None].expand((cfg.spiking.t_steps,) + tuple(x.shape))
+    per_group: List[List[LayerState]] = [[] for _ in pattern]
+    for g in range(n_groups):
+        for i, spec in enumerate(pattern):
+            x, st = _apply_block_decode(cfg, spec,
+                                        _group(params["blocks"][i], g),
+                                        _group(state[i], g), x, pos, spiking)
+            per_group[i].append(st)
+    h = rmsnorm(params["final_norm"], _rate_decode(x))
+    return _logits(params, h), [_stack(sts) for sts in per_group]
+
+
+def prefill_with_state(cfg: LMConfig, params: dict, tokens: torch.Tensor,
+                       spiking: bool, max_seq: Optional[int] = None):
+    """Streaming prefill producing the decode state: `decode_step` over the
+    prompt. Returns (last-position logits, state ready at pos = N)."""
+    b, n = tokens.shape
+    state = init_decode_state(cfg, b, max_seq or n, spiking,
+                              device=tokens.device)
+    logits = None
+    for i in range(n):
+        logits, state = decode_step(cfg, params, state, tokens[:, i], i,
+                                    spiking)
+    return logits, state
+
+
+def prefill_chunked(cfg: LMConfig, params: dict, tokens: torch.Tensor,
+                    length, spiking: bool, max_seq: int):
+    """Bucketed streaming prefill for continuous-batching admission.
+
+    tokens: (B, L) prompts right-padded to a shared length L; length: (B,)
+    true lengths (0 < length <= L). Runs `decode_step` over the L
+    positions and masks every state write (and the last-logit capture) to
+    steps ``i < length`` per slot, so a pad token leaves the slot's state
+    bitwise unchanged. Returns (last-position logits (B, vocab), decode
+    state positioned at ``pos = length`` per slot)."""
+    b, pad_len = tokens.shape
+    state = init_decode_state(cfg, b, max_seq, spiking, device=tokens.device)
+    length = torch.as_tensor(length, dtype=torch.int64, device=tokens.device)
+    last = torch.zeros((b, cfg.vocab), dtype=torch.float32,
+                       device=tokens.device)
+    for i in range(pad_len):
+        logits, new_state = decode_step(
+            cfg, params, state, tokens[:, i],
+            torch.full((b,), i, device=tokens.device), spiking)
+        live = i < length                                    # (B,)
+
+        def sel(new, old):
+            # leaves are (n_groups, B, ...): mask on the slot axis (1)
+            return torch.where(live.reshape((1, b) + (1,) * (new.ndim - 2)),
+                               new, old)
+        state = _tree_map(sel, new_state, state)
+        last = torch.where(live[:, None], logits, last)
+    return last, state
+
+
+# ----------------------------------------------- slot-state surgery (serve)
+def _check_slot_leaf(path: str, leaf, n_slots: int) -> None:
+    if leaf.ndim < 2 or leaf.shape[1] != n_slots:
+        raise ValueError(
+            f"decode-state leaf at {path} has shape {tuple(leaf.shape)} — "
+            f"not slot-batched (expected (n_groups, {n_slots}, ...)). The "
+            f"decode-state contract (init_decode_state) puts the slot batch "
+            f"at axis 1 of every leaf; refusing to shape-guess.")
+
+
+def reset_slot_state(state: list, slot: int, n_slots: int) -> list:
+    """Zero slot `slot` of every decode-state leaf, by the documented
+    layout (every leaf ``(n_groups, n_slots, ...)``): a leaf that breaks
+    the contract raises instead of being skipped or zeroed by a
+    coincidental dimension. In spiking mode this is O(d) per layer."""
+    for path, leaf in _tree_leaves_with_path(state):
+        _check_slot_leaf(path, leaf, n_slots)
+
+    def zero(x):
+        x = x.clone()
+        x[:, slot] = 0
+        return x
+    return _tree_map(zero, state)
+
+
+def merge_slot_state(pool_state: list, single_state: list, slot) -> list:
+    """Scatter a freshly prefilled single-request state (leaves
+    ``(n_groups, 1, ...)``) into slot `slot` of the pool state (leaves
+    ``(n_groups, n_slots, ...)``). Every leaf of the slot is overwritten,
+    so admission never inherits a previous occupant's status: merge IS
+    the reset. Returns new tensors (the pool state is not written)."""
+    def put(pool, one):
+        pool = pool.clone()
+        pool[:, slot] = one[:, 0].to(pool.dtype)
+        return pool
+    return _tree_map(put, pool_state, single_state)

@@ -8,6 +8,8 @@ gradients within 1e-5 of `jax.grad` of the JAX `ref`. On CPU tensors the
 port's kernel wrappers run their plain versions; the CUDA kernels are held
 against those in `test_torch_cuda.py`.
 """
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -264,13 +266,32 @@ def test_apec_csr_rejects_bad_groups_maps_and_counts():
                                                           dtype=torch.int32))
     ov, res = ops.apec_decompose(s, 2)
     csr, occ_r, occ_o = ops.apec_union_worklist(res, ov, 2)
-    with pytest.raises(ValueError, match="g in"):
-        spike_matmul.apec_matmul_csr(res, ov[:8], w, 32, csr, occ_r, occ_o)
+    with pytest.raises(ValueError, match="dividing 128"):
+        spike_matmul.apec_matmul_csr(res, ov[:1], w, 256, csr, occ_r, occ_o)
     with pytest.raises(ValueError, match="per-step counts"):
         spike_matmul.apec_matmul_csr(res, ov, w, 2, csr, occ_r[:1], occ_o)
-    with dispatch.use_backend("cuda", op="apec_matmul"):
-        with pytest.raises(ValueError, match="2, 4 or 8"):
-            dispatch.apec_matmul(s, w, g=16)
+    # Every g dividing 128 runs on the fused kernel (as repro's
+    # pallas-csr); a g that does not degrades along the declared chain to
+    # the predicated route with a warning, as repro's degrades to pallas.
+    js, jw = jnp.asarray(s.numpy()), jnp.asarray(w.numpy())
+    dispatch.reset_fallback_warnings()
+    jdispatch.reset_fallback_warnings()
+    for g, want, jwant in (
+            (16, "cuda", "pallas-csr-interpret"),
+            (256, "cuda-pred<-cuda",
+             "pallas-interpret<-pallas-csr-interpret")):
+        with dispatch.use_backend("cuda", op="apec_matmul"), \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _close(dispatch.apec_matmul(s, w, g=g), s.numpy() @ w.numpy())
+            assert dispatch.resolve_attribution("apec_matmul", s, w,
+                                                g=g) == want
+        assert bool(caught) == (g == 256)
+        with jdispatch.use_backend("pallas-csr-interpret", op="apec_matmul"), \
+                warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            assert jdispatch.resolve_attribution("apec_matmul", js, jw,
+                                                 g=g) == jwant
 
 
 @pytest.mark.parametrize("rows,g", [(512, 2), (1024, 4), (260, 2)])

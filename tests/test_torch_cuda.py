@@ -5,9 +5,9 @@ Torch-only (no JAX), so it runs on the GPU machine:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Every test is marked `cuda` and skips where no CUDA device is present.
-Spikes, counts, membrane residuals, LIF drive cotangents, SDSA words,
-APEC overlap/residual words and the packed fire's words must match
-exactly; the CSR, predicated and fused APEC matmuls, f32 and packed,
+Spikes (f32 and bf16), counts, membrane residuals, LIF drive cotangents,
+SDSA and causal-status words, APEC overlap/residual words and the packed
+fire's words must match exactly; the CSR, predicated and fused APEC matmuls, f32 and packed,
 within 1e-5 * max|plain| + 1e-5 (fp32 summation order).
 """
 import numpy as np
@@ -48,6 +48,30 @@ def test_cuda_lif_kernels_match_plain(cuda_device):
         flat = x.reshape(4, -1)
         assert torch.equal(lif_scan.lif(flat, decay=decay, v_th=0.5),
                            lif_scan.lif_plain(flat, decay=decay, v_th=0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 12, 200), (2, 4, 130), (3, 1, 37),
+                                   (2, 20, 256)])
+def test_cuda_lif_counts_take_ragged_rows(cuda_device, shape):
+    """R % 8 != 0: the rows past R are masked and the chunks of the
+    flattened rows (which span steps) count exactly, in the counts, the
+    residual and the packed modes."""
+    x = (torch.randn(shape, generator=torch.Generator().manual_seed(7))
+         + 0.3).to(cuda_device)
+    for got, want in ((lif_scan.lif_counts(x, decay=0.5, v_th=0.5),
+                       lif_scan.lif_counts_plain(x, decay=0.5, v_th=0.5)),
+                      (lif_scan.lif_counts_fwd(x, decay=0.5, v_th=0.5),
+                       lif_scan.lif_counts_fwd_plain(x, decay=0.5,
+                                                     v_th=0.5)),
+                      (lif_scan.lif_counts_packed(x, decay=0.5, v_th=0.5),
+                       lif_scan.lif_counts_packed_plain(x, decay=0.5,
+                                                        v_th=0.5))):
+        for a, b in zip(got, want):
+            assert a.shape == b.shape
+            if a.dtype == torch.uint32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -128,13 +152,17 @@ def test_cuda_wrappers_count_each_launch(cuda_device):
     lif_scan.lif(x.reshape(2, -1))
     lif_scan.lif_counts(x)
     lif_scan.lif_counts_packed(x)
+    lif_scan.lif(x.reshape(2, -1).bfloat16())
+    sdsa_kernel.sdsa_causal_status(torch.zeros(2, 5, 2, dtype=torch.uint32,
+                                               device=cuda_device))
     assert launch_counts() == {"lif": 1, "lif_counts": 1, "lif_fwd": 0,
                                "lif_counts_fwd": 0, "lif_bwd": 0,
                                "spike_matmul_csr": 0, "spike_matmul_pred": 0,
                                "sdsa_or": 0, "apec_decompose": 0,
                                "apec_matmul_csr": 0, "lif_counts_packed": 1,
                                "spike_matmul_packed_csr": 0,
-                               "apec_matmul_packed_csr": 0}
+                               "apec_matmul_packed_csr": 0, "sdsa_causal": 1,
+                               "lif_bf16": 1}
 
 
 @pytest.mark.cuda
@@ -184,7 +212,8 @@ def test_cuda_training_wrappers_count_each_launch(cuda_device):
                                "sdsa_or": 0, "apec_decompose": 0,
                                "apec_matmul_csr": 0, "lif_counts_packed": 0,
                                "spike_matmul_packed_csr": 0,
-                               "apec_matmul_packed_csr": 0}
+                               "apec_matmul_packed_csr": 0, "sdsa_causal": 0,
+                               "lif_bf16": 0}
 
 
 @pytest.mark.cuda
@@ -241,7 +270,9 @@ def test_cuda_apec_decompose_kernel_takes_unaligned_words(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n,g", [(256, 256, 128, 2), (260, 200, 40, 4),
-                                     (1000, 432, 96, 2), (512, 384, 130, 8)])
+                                     (1000, 432, 96, 2), (512, 384, 130, 8),
+                                     (1024, 200, 40, 16),
+                                     (1024, 300, 70, 128)])
 @pytest.mark.parametrize("carried", [False, True])
 def test_cuda_apec_matmul_csr_kernel_matches_plain(cuda_device, m, k, n, g,
                                                    carried):
@@ -329,7 +360,9 @@ def test_cuda_packed_csr_kernel_matches_plain_and_kernel_11(cuda_device, m,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n,g", [(256, 256, 128, 2), (260, 200, 40, 4),
-                                     (1000, 432, 96, 2), (512, 384, 130, 8)])
+                                     (1000, 432, 96, 2), (512, 384, 130, 8),
+                                     (1024, 200, 40, 16),
+                                     (1024, 300, 70, 128)])
 @pytest.mark.parametrize("carried", [False, True])
 def test_cuda_packed_apec_kernel_matches_plain(cuda_device, m, k, n, g,
                                                carried):
@@ -383,3 +416,54 @@ def test_cuda_packed_routes_launch_their_kernels(cuda_device):
         assert {k: v for k, v in launch_counts().items() if v} == launches
         assert (out - want).abs().max().item() <= \
             1e-4 * want.abs().max().item() + 1e-4
+
+
+# ------------------------------------------------------------ the LM path
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,n,dw", [(256, 1024, 2), (32, 32768, 2),
+                                     (7, 1000, 2), (3, 1, 1), (5, 77, 3)])
+def test_cuda_sdsa_causal_kernel_matches_plain(cuda_device, bh, n, dw):
+    """Bits at 1/(4N) per bit, so a column's first bit falls anywhere in
+    the sequence and the prefix-OR does not saturate after the first
+    chunk: later chunks still turn bits on, and the carry across them is
+    checked."""
+    g = torch.Generator().manual_seed(n + dw)
+    bits = (torch.rand((bh, n, 32 * dw), generator=g) < 1 / (4 * n)).float()
+    kv = pack_spikes(bits).to(cuda_device)
+    got = sdsa_kernel.sdsa_causal_status(kv)
+    want = sdsa_kernel.sdsa_causal_status_plain(kv)
+    assert not bool((want == 0xFFFFFFFF).all())
+    if n >= 1024:
+        late = want[:, n // 2:].view(torch.int32)
+        assert bool((late != want[:, n // 2 - 1:-1].view(torch.int32)).any())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 8, 1024, 2048), (2, 8, 1000),
+                                   (2, 37)])
+def test_cuda_lif_bf16_kernel_matches_plain(cuda_device, shape):
+    g = torch.Generator().manual_seed(len(shape))
+    x = (torch.randn(shape, generator=g) * 0.8 + 0.6).bfloat16()
+    x.view(-1)[:6] = torch.tensor([1.0, 0.5, 2.0, 0.99609375, 1.0078125, 0])
+    x = x.to(cuda_device).reshape(shape[0], -1)
+    reset_launch_counts()
+    got = lif_scan.lif(x)
+    assert launch_counts()["lif_bf16"] == 1 and launch_counts()["lif"] == 0
+    want = lif_scan.lif_plain(x)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_causal_sdsa_route_launches_the_kernel(cuda_device):
+    g = torch.Generator().manual_seed(4)
+    q, k, v = ((torch.rand((2, 2, 4, 300, 64), generator=g) < 0.2)
+               .bfloat16().to(cuda_device) for _ in range(3))
+    assert dispatch.resolve_attribution("causal_sdsa", q, k, v) == "cuda"
+    reset_launch_counts()
+    got = dispatch.causal_sdsa(q, k, v)
+    assert launch_counts()["sdsa_causal"] == 1
+    with dispatch.use_backend("ref"):
+        want = dispatch.causal_sdsa(q, k, v)
+    assert torch.equal(got, want)

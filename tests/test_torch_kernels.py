@@ -15,6 +15,7 @@ import torch
 
 from repro.core import events as jev
 from repro.core.spikes import pack_spikes as jpack
+from repro.core.spikes import pack_spikes_padded as jpack_padded
 from repro.kernels import dispatch as jdispatch
 from repro.kernels import ops as jops
 from repro.kernels.sdsa_kernel import sdsa_packed as jsdsa_packed
@@ -65,19 +66,35 @@ def test_lif_occ_maps_match_jax_kernel(shape):
 
 
 def test_lif_counts_plain_matches_jax_count_layout():
-    """The (T, R/8, ceil(K/128)) per-chunk layout of _lif_occ_pallas."""
+    """The (T, R/8, ceil(K/128)) per-chunk layout of _lif_occ_pallas,
+    flattened to (T*R/8, ceil(K/128)) chunks of the (T*R, K) rows."""
     from repro.kernels.lif_scan import lif_scan_occ_pallas_sg
     x = (np.random.default_rng(2).normal(size=(3, 16, 256)) + 0.5
          ).astype(np.float32)
     ws, wcnt = lif_scan_occ_pallas_sg(jnp.asarray(x), 0.5, 1.0)
     s, cnt = lif_scan.lif_counts(torch.from_numpy(x), decay=0.5, v_th=1.0)
     _eq(s, ws)
-    _eq(cnt, wcnt)
+    _eq(cnt, np.asarray(wcnt).reshape(-1, wcnt.shape[-1]))
 
 
-def test_lif_occ_rejects_ragged_rows():
-    with pytest.raises(ValueError):
-        ops.lif_occ(torch.zeros(2, 3, 5, 16))
+@pytest.mark.parametrize("shape", [(2, 3, 5, 16), (4, 1, 2, 2, 300),
+                                   (3, 12, 130)])
+def test_lif_occ_takes_ragged_rows(shape):
+    """R % 8 != 0 (VGG11's 2x2 fires at an odd batch): the chunks of the
+    flattened rows span steps, and spikes and both maps equal `repro`'s
+    `ref` (where `repro` gates its kernel off)."""
+    x = (np.random.default_rng(3).normal(size=shape) + 0.6
+         ).astype(np.float32)
+    want = jdispatch.get_backend("lif_scan_occ", "ref").fn(
+        jnp.asarray(x), decay=0.5, v_th=1.0)
+    got = ops.lif_occ(torch.from_numpy(x), decay=0.5, v_th=1.0)
+    for a, b in zip(got, want):
+        _eq(a, b)
+    words, occ, chunks = ops.lif_occ(torch.from_numpy(x), decay=0.5,
+                                     v_th=1.0, packed=True)
+    _eq(words, jpack_padded(jnp.asarray(want[0])))
+    _eq(occ, want[1])
+    _eq(chunks, want[2])
 
 
 # ------------------------------------------------------------------ SDSA
@@ -199,12 +216,14 @@ def test_econv_kernel_path_matches_jax(stride, padding):
 REGISTRY = {"lif_scan": {"ref", "cuda"}, "lif_scan_occ": {"ref", "cuda"},
             "spike_matmul": {"ref", "cuda", "cuda-packed", "cuda-pred"},
             "sdsa": {"ref", "cuda"},
+            "causal_sdsa": {"ref", "jnp", "cuda"},
             "econv": {"ref", "cuda", "cuda-packed", "cuda-pred", "jnp"},
             "tconv": {"ref", "cuda", "jnp"},
             "apec_matmul": {"ref", "jnp", "cuda", "cuda-packed",
                             "cuda-pred"}}
 MANUAL = {("spike_matmul", "cuda-pred"), ("econv", "cuda-pred"),
-          ("econv", "jnp"), ("tconv", "jnp"), ("apec_matmul", "cuda-pred")}
+          ("econv", "jnp"), ("tconv", "jnp"), ("apec_matmul", "cuda-pred"),
+          ("causal_sdsa", "jnp")}
 # As in repro, APEC's overlap-reuse form sits above `ref` on every
 # platform, so the CPU resolves it there; every other op falls to `ref`.
 CPU_RESOLUTION = {op: "ref" for op in REGISTRY} | {"apec_matmul": "jnp"}
@@ -232,7 +251,7 @@ def test_every_backend_matches_ref_on_the_same_inputs(op):
             got = dispatch.dispatch(op, *args, **kwargs)
         pairs = zip(got, want) if isinstance(want, tuple) else [(got, want)]
         for a, b in pairs:
-            if op in ("lif_scan", "lif_scan_occ", "sdsa"):
+            if op in ("lif_scan", "lif_scan_occ", "sdsa", "causal_sdsa"):
                 assert torch.equal(a, b), (op, name)
             else:
                 np.testing.assert_allclose(a.numpy(), b.numpy(), atol=ATOL,
@@ -250,17 +269,24 @@ def test_overrides_context_env_and_per_op(monkeypatch):
     assert got["lif_scan"] == "ref" and got["spike_matmul"] == "cuda"
 
 
-def test_supports_gate_miss_raises_instead_of_degrading():
+def test_supports_gate_miss_raises_instead_of_degrading(monkeypatch):
+    """On the card (the platform read as `cuda`) a refused gate raises
+    instead of degrading to a plain route, and so does an unknown
+    override name; the same calls on CPU tensors degrade as in `repro`
+    (`test_torch_dispatch.py`). A ragged fire has no gate: it runs its
+    kernel."""
+    monkeypatch.setattr(dispatch, "_platform", lambda args: "cuda")
     q = torch.zeros(2, 4, 8)
+    x = torch.zeros(2, 3, 16)
+    with pytest.raises(ValueError, match="mode='or'"):
+        dispatch.sdsa(q, q, q, mode="sum")
     with dispatch.use_backend("cuda"):
         with pytest.raises(ValueError, match="mode='or'"):
             dispatch.sdsa(q, q, q, mode="sum")
-        with pytest.raises(ValueError, match="8-row"):
-            dispatch.lif_scan_occ(torch.zeros(2, 3, 16))
-    with dispatch.use_backend("no-such-backend"):
-        with pytest.raises(KeyError):
-            dispatch.lif_scan(torch.zeros(2, 3))
-    assert dispatch.sdsa(q, q, q, mode="sum").shape == q.shape
+        assert dispatch.resolve_attribution("lif_scan_occ", x) == "cuda"
+    with dispatch.use_backend("no-such-backend"), \
+            pytest.raises(ValueError, match="not registered"):
+        dispatch.lif_scan(torch.zeros(2, 3))
 
 
 def test_plain_versions_do_not_count_launches():

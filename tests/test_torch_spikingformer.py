@@ -129,7 +129,7 @@ def test_unported_modes_raise_with_their_roadmap_item():
     p = tsf.spikingformer_init(1, 32, generator=torch.Generator()
                                .manual_seed(0), device="cpu")
     x = torch.zeros(1, 32, 32, 3)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match=r"queue 1, item 4\)"):
         tsf.spikingformer_apply(p, x, spiking_cfg=SpikingConfig(hybrid=True))
 
 
