@@ -9,8 +9,14 @@ Phases, each printed on its own line:
   (b) each inference kernel at the main path's largest shapes (B=32, T=4)
       against its plain PyTorch version on the same card: LIF exact (both
       modes, and the counts and packed modes at a ragged R=12), packed
-      SDSA bit for bit, the CSR matmul within
-      1e-5 * max|ref| + 1e-5; with kernel, plain, library and bound times;
+      SDSA bit for bit; the CSR matmuls at SpikingFormer-4-384's stage-1
+      patch matmul (131072x432)x(432x96), FFN fc1 (8192x384)x(384x1536)
+      and fc2 (8192x1536)x(1536x384) on data with 50% occupied tiles: the
+      serial kernels 11 (f32) and 13 (words) and the pipelined kernels 12
+      and 14, each within 1e-5 * max|ref| + 1e-5 of its plain version and
+      all four equal bit for bit, with its distance from the fp64 product
+      (`err64`), kernel, plain and cuBLAS fp32 times and the fp32-FMA,
+      split-TF32 tensor-core and byte bounds;
   (e) the training kernels (LIF forward with residual, with and without
       counts, and the surrogate backward) at the stage-1 drive, equal to
       their plain versions bit for bit, with the same times;
@@ -18,10 +24,15 @@ Phases, each printed on its own line:
       seed) on 4 batches of 32 images through the port's entry points
       under `torch.inference_mode()`, once on the kernels and once under
       `use_backend("ref")`: finite logits, exactly 12 lif-counts, 13 lif,
-      11 CSR and 4 SDSA launches per forward, no dense occupancy pre-pass,
+      11 pipelined CSR (kernel 12) and 4 SDSA launches per forward, no
+      dense occupancy pre-pass,
       every registry call agreeing with `ref` on the same inputs, and the
       free-running per-stage spike drift within FREE_RUNNING_SPIKE_TOL;
-      then a per-op device-time breakdown of one forward;
+      then one forward on the serial CSR kernel by override
+      (`use_backend("cuda")` for spike_matmul and econv: exactly 11
+      kernel-11 launches, none of kernel 12), its spike drift against
+      `ref` gated as above and against the pipelined forward reported,
+      and a per-op device-time breakdown of one forward on each route;
   (g) the predicated spike matmul (kernel 10) at SegNet-64's two
       transposed-conv patch matmuls, (131072x288)x(288x16) and
       (524288x144)x(144x2), on the model's own patch maps and on data
@@ -42,7 +53,8 @@ Phases, each printed on its own line:
       `torch.autograd.grad` over the parameter leaves, `adamw.update`) on
       `class_images` batches of 32, on the kernels: finite losses and
       gradients, no all-zero gradient leaf, exactly 13 lif-fwd, 12
-      lif-counts-fwd, 25 lif-bwd, 11 CSR and 4 SDSA launches per step and
+      lif-counts-fwd, 25 lif-bwd, 11 pipelined CSR and 4 SDSA launches per
+      step and
       no primal LIF launch; every registry call's backward agreeing with
       `ref`'s on the same inputs and cotangent (SAME_INPUT_GRAD_TOL); the
       same 3 steps on `ref` printed beside them; then a per-op forward and
@@ -54,7 +66,7 @@ Phases, each printed on its own line:
       matmul (kernel 17, g = 2) within 1e-5 * max|ref| + 1e-5 of its
       plain version at fc1, fc2 and stage 1, on the model's maps and on
       data with 50% occupied tiles, with kernel, plain, library and bound
-      times; kernels 17 and 15 at g = 16 and 128 on fc1, against their
+      times; kernels 17 and 15 at g = 1, 16 and 128 on fc1, against their
       plain versions; then `core.apec.apec_matmul` on the FFN inputs and the
       stage-1 patch matrix for g = 2 and 4, with the carried map and on
       the bare spikes: finite, within 1e-5 * max|ref| + 1e-5 of the CSR
@@ -75,13 +87,16 @@ Phases, each printed on its own line:
       1 fused launch, no pre-pass, no pack or unpack) beside the dense
       APEC, CSR and packed CSR routes; then SpikingFormer-4-384 (4
       batches of 32) and VGG11, ResNet18, SegNet-64 (one batch of 32)
-      packed forwards on the kernels and on `ref`: finite outputs, every
+      packed forwards on the kernels (kernel 14; the coded conv on 12) and
+      on `ref`: finite outputs, every
       fire's output packed-only, exact launches (PACKED_LAUNCHES), dense
       and word pre-passes (PACKED_PREPASSES), every registry call equal to
       `ref` on the same inputs, per-stage spike drift against the dense
       kernel forward within FREE_RUNNING_SPIKE_TOL (against the packed
       `ref` forward: reported); a breakdown of the packed and the dense
-      SpikingFormer forward in turns;
+      SpikingFormer forward in turns; one packed SpikingFormer forward on
+      the serial word kernel by override (`use_backend("cuda-packed")`:
+      exactly 11 kernel-13 launches);
   (k) the spiking LM, TinyLlama-1.1B at full width (22 layers, d 2048,
       32 heads / 4 KV heads, d_ff 5632, vocab 32000, T=2, v_th 1.0; bf16
       weights from seed 0): (k1) the causal-status kernel (TPU row 9) at
@@ -128,23 +143,32 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 FP32_FLOPS = 67e12               # H100 SXM fp32, CUDA cores
+TF32_FLOPS = 495e12              # H100 SXM TF32, tensor cores, dense
+# TF32 MMAs per product of a split-TF32 design (w = hi + lo; binary spikes
+# exact): printed as the tensor-core bound beside the fp32 bound the CSR
+# kernels run at (csrc/tile_mma.cuh says why they stay on fp32 FMA).
+SPLIT_PASSES = 2
 SEED = 0
 B, T, DEPTH, DIM, HEADS, V_TH = 32, 4, 4, 384, 8, 0.5
 TRAIN_STEPS, LR = 3, 1e-3
-EXPECTED_LAUNCHES = {"lif_counts": 12, "lif": 13, "spike_matmul_csr": 11,
-                     "spike_matmul_pred": 0,
-                     "sdsa_or": 4}
+EXPECTED_LAUNCHES = {"lif_counts": 12, "lif": 13,
+                     "spike_matmul_csr_pipe": 11, "spike_matmul_csr": 0,
+                     "spike_matmul_pred": 0, "sdsa_or": 4}
+# The same forward with spike_matmul and econv pinned to the serial kernel.
+SERIAL_LAUNCHES = {**EXPECTED_LAUNCHES, "spike_matmul_csr_pipe": 0,
+                   "spike_matmul_csr": 11}
 # Per training step: every fire runs the residual forward and the
 # surrogate backward; the matmul backwards are plain products and SDSA's
 # and econv's replay `ref`, so the forward kernels launch once per call.
 EXPECTED_TRAIN_LAUNCHES = {"lif_fwd": 13, "lif_counts_fwd": 12,
-                           "lif_bwd": 25, "spike_matmul_csr": 11,
-                           "sdsa_or": 4, "lif": 0, "lif_counts": 0}
+                           "lif_bwd": 25, "spike_matmul_csr_pipe": 11,
+                           "spike_matmul_csr": 0, "sdsa_or": 4, "lif": 0,
+                           "lif_counts": 0}
 # Per CNN forward (T=4, B=32); every kernel not named launches 0 times.
 CNN_LAUNCHES = {
-    "vgg11": {"spike_matmul_csr": 8, "lif_counts": 8},
-    "resnet18": {"spike_matmul_csr": 20, "lif_counts": 17},
-    "segnet": {"spike_matmul_csr": 4, "lif_counts": 5,
+    "vgg11": {"spike_matmul_csr_pipe": 8, "lif_counts": 8},
+    "resnet18": {"spike_matmul_csr_pipe": 20, "lif_counts": 17},
+    "segnet": {"spike_matmul_csr_pipe": 4, "lif_counts": 5,
                "spike_matmul_pred": 2},
 }
 # Dense occupancy pre-passes per CNN forward on the kernels: the
@@ -155,26 +179,36 @@ CNN_BATCHES = 2
 # VGG11 batches whose 2x2 fires have R = 4B rows, not a multiple of 8.
 RAGGED_BATCHES = (1, 3)
 INFERENCE_KERNELS = ("lif_counts", "lif", "spike_matmul_csr",
-                     "spike_matmul_pred", "sdsa_or")
+                     "spike_matmul_csr_pipe", "spike_matmul_pred", "sdsa_or")
 TRAINING_KERNELS = ("lif_fwd", "lif_counts_fwd", "lif_bwd")
 APEC_KERNELS = ("apec_decompose", "apec_matmul_csr")
 APEC_PATH_GROUPS = (2, 4)
 APEC_STAT_GROUPS = (2, 4, 8)
 PACKED_KERNELS = ("lif_counts_packed", "spike_matmul_packed_csr",
-                  "apec_matmul_packed_csr")
+                  "spike_matmul_packed_csr_pipe", "apec_matmul_packed_csr")
 # Per packed forward (T=4, B=32); every kernel not named launches 0 times.
 # The direct-coded first conv stays a dense econv (its drive is not
-# binary); SegNet's transposed convs unpack and run kernel 10.
+# binary) on kernel 12; SegNet's transposed convs unpack and run kernel 10.
 PACKED_LAUNCHES = {
     "spikingformer": {"lif_counts_packed": 12, "lif": 13,
-                      "spike_matmul_packed_csr": 11, "sdsa_or": 4},
-    "vgg11": {"spike_matmul_csr": 1, "spike_matmul_packed_csr": 7,
+                      "spike_matmul_packed_csr_pipe": 11, "sdsa_or": 4},
+    "vgg11": {"spike_matmul_csr_pipe": 1, "spike_matmul_packed_csr_pipe": 7,
               "lif_counts_packed": 8},
-    "resnet18": {"spike_matmul_csr": 1, "spike_matmul_packed_csr": 19,
+    "resnet18": {"spike_matmul_csr_pipe": 1,
+                 "spike_matmul_packed_csr_pipe": 19,
                  "lif_counts_packed": 17},
-    "segnet": {"spike_matmul_csr": 1, "spike_matmul_packed_csr": 3,
+    "segnet": {"spike_matmul_csr_pipe": 1, "spike_matmul_packed_csr_pipe": 3,
                "spike_matmul_pred": 2, "lif_counts_packed": 5},
 }
+# The packed SpikingFormer forward pinned to the serial word kernel.
+PACKED_SERIAL_LAUNCHES = {**PACKED_LAUNCHES["spikingformer"],
+                          "spike_matmul_packed_csr_pipe": 0,
+                          "spike_matmul_packed_csr": 11}
+# The pipelined CSR kernels' shapes: SpikingFormer-4-384's stage-1 patch
+# matmul and FFN fc1 / fc2 (T=4, B=32).
+CSR_SHAPES = (("econv_stage1", (T * B * 1024, 432, 96)),
+              ("ffn_fc1", (T * B * 64, DIM, 4 * DIM)),
+              ("ffn_fc2", (T * B * 64, 4 * DIM, DIM)))
 # (dense, word) occupancy pre-passes per packed forward: the word pass
 # runs where an econv's input channels are not a multiple of 32 (no
 # carried map lines up with the word patches: SpikingFormer's ci=48,
@@ -196,6 +230,10 @@ SOURCES = {"lif": "src/repro_torch/csrc/lif.cu",
            "lif_counts_fwd": "src/repro_torch/csrc/lif.cu",
            "lif_bwd": "src/repro_torch/csrc/lif.cu",
            "spike_matmul_csr": "src/repro_torch/csrc/spike_matmul_csr.cu",
+           "spike_matmul_csr_pipe":
+               "src/repro_torch/csrc/spike_matmul_csr_pipe.cu",
+           "spike_matmul_packed_csr_pipe":
+               "src/repro_torch/csrc/spike_matmul_csr_pipe.cu",
            "spike_matmul_pred": "src/repro_torch/csrc/spike_matmul.cu",
            "sdsa_or": "src/repro_torch/csrc/sdsa.cu",
            "apec_decompose": "src/repro_torch/csrc/apec.cu",
@@ -231,6 +269,9 @@ REPLACES = {"lif": "src/repro/kernels/lif_scan.py:36",
             "lif_counts_fwd": "src/repro/kernels/lif_scan.py:209",
             "lif_bwd": "src/repro/kernels/lif_scan.py:107",
             "spike_matmul_csr": "src/repro/kernels/spike_matmul.py:156",
+            "spike_matmul_csr_pipe": "src/repro/kernels/spike_matmul.py:181",
+            "spike_matmul_packed_csr_pipe":
+                "src/repro/kernels/spike_matmul.py:318",
             "spike_matmul_pred": "src/repro/kernels/spike_matmul.py:48",
             "sdsa_or": "src/repro/kernels/sdsa_kernel.py:29",
             "apec_decompose": "src/repro/kernels/apec_kernel.py:21",
@@ -249,6 +290,27 @@ class SmokeFailure(RuntimeError):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SmokeFailure(what)
+
+
+def card_routes(dispatch, packed: bool = False) -> dict:
+    """op -> the backend automatic selection must pick on the card: the
+    pipelined kernels for the CSR-matmul ops, `cuda` (`cuda-packed` for
+    packed APEC) for the rest."""
+    piped = dispatch.CUDA_PACKED_PIPE if packed else dispatch.CUDA_PIPE
+    other = {"apec_matmul": dispatch.CUDA_PACKED} if packed else {}
+    return {op: piped if op in ("spike_matmul", "econv") else
+            other.get(op, dispatch.CUDA) for op in dispatch.op_names()}
+
+
+@contextlib.contextmanager
+def pinned(dispatch, backend):
+    """spike_matmul and econv pinned to `backend` (the serial kernels by
+    override); None pins nothing (automatic selection)."""
+    with contextlib.ExitStack() as stack:
+        if backend is not None:
+            for op in ("spike_matmul", "econv"):
+                stack.enter_context(dispatch.use_backend(backend, op=op))
+        yield
 
 
 def emit(phase: str, **fields) -> None:
@@ -398,38 +460,70 @@ def csr_work(torch, occ, m, k, n, occ_ov=None, g=1, spike_bytes=4.0):
 
 
 def phase_csr(torch, gen, device, results):
-    from repro_torch.core.spikes import build_csr
-    from repro_torch.kernels import ops, spike_matmul
-    worst = 0.0
-    for label, (m, k, n) in (("econv_stage1", (T * B * 1024, 432, 96)),
-                             ("ffn_fc1", (T * B * 64, DIM, 4 * DIM))):
+    """The CSR matmuls at CSR_SHAPES on data with 50% occupied tiles: the
+    serial kernels 11 and 13 and the pipelined kernels 12 and 14, f32 and
+    words on the same spikes and work list, each against its plain
+    version and all four equal bit for bit (one fmaf chain in k order),
+    beside cuBLAS fp32 on the f32 spikes. Kernel 13's main numbers stay
+    phase (j)'s, on the model's words."""
+    from repro_torch.core.spikes import build_csr, pack_spikes_padded
+    from repro_torch.kernels import ops, spike_matmul as sm
+    worst: dict = {}
+    kernels = (
+        ("spike_matmul_csr", sm.spike_matmul_csr, sm.spike_matmul_csr_plain,
+         False),
+        ("spike_matmul_csr_pipe", sm.spike_matmul_csr_pipe,
+         sm.spike_matmul_csr_pipe_plain, False),
+        ("spike_matmul_packed_csr", sm.spike_matmul_packed_csr,
+         sm.spike_matmul_packed_csr_plain, True),
+        ("spike_matmul_packed_csr_pipe", sm.spike_matmul_packed_csr_pipe,
+         sm.spike_matmul_packed_csr_pipe_plain, True))
+    for label, (m, k, n) in CSR_SHAPES:
         s = clustered_spikes(torch, m, k, gen, device)
         w = (torch.randn((k, n), generator=gen) / k ** 0.5).to(device)
         occ = ops.padded_occupancy(s)
         csr = build_csr(occ, 128, 128)
-        out = spike_matmul.spike_matmul_csr(s, w, csr)
-        ref = spike_matmul.spike_matmul_csr_plain(s, w, csr)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        tol = 1e-5 * ref.abs().max().item() + 1e-5
-        check(err <= tol, f"CSR kernel off by {err} > {tol} ({label})")
-        worst = max(worst, err)
-        flops, n_bytes = csr_work(torch, occ, m, k, n)
-        b_ms, by = bound_ms(n_bytes, flops)
-        rec = dict(max_abs_err=err, tolerance=tol,
-                   ms=cuda_ms(torch, lambda: spike_matmul.spike_matmul_csr(
-                       s, w, csr)),
-                   plain_ms=cuda_ms(
-                       torch, lambda: spike_matmul.spike_matmul_csr_plain(
-                           s, w, csr), reps=5),
-                   bound_ms=b_ms, bound_by=by,
-                   library_ms=cuda_ms(torch, lambda: torch.matmul(s, w)),
-                   occupied_share=(occ > 0).float().mean().item(),
-                   shape=[m, k, n])
-        emit("kernel", name="spike_matmul_csr", case=label, **rec)
-        if label == "econv_stage1":
-            results["spike_matmul_csr"] = rec
-    results["spike_matmul_csr"]["max_abs_err"] = worst
+        p = pack_spikes_padded(s).contiguous()
+        library_ms = cuda_ms(torch, lambda: torch.matmul(s, w))
+        exact = torch.matmul(s.double(), w.double())
+        outs = []
+        for name, kernel, plain, packed in kernels:
+            a = p if packed else s
+            out = kernel(a, w, csr)
+            outs.append(out)
+            ref = plain(a, w, csr)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            tol = 1e-5 * ref.abs().max().item() + 1e-5
+            check(err <= tol, f"{name} off by {err} > {tol} ({label})")
+            # Distance from the fp64 product, relative to its max |value|.
+            err64 = ((out.double() - exact).abs().max() /
+                     exact.abs().max()).item()
+            worst[name] = max(worst.get(name, 0.0), err)
+            flops, n_bytes = csr_work(torch, occ, m, k, n,
+                                      spike_bytes=1 / 8 if packed else 4.0)
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            t_fp32 = flops / FP32_FLOPS * 1e3
+            t_tc = SPLIT_PASSES * flops / TF32_FLOPS * 1e3
+            rec = dict(max_abs_err=err, tolerance=tol, err64=err64,
+                       ms=cuda_ms(torch, functools.partial(kernel, a, w, csr)),
+                       plain_ms=cuda_ms(torch, functools.partial(
+                           plain, a, w, csr), reps=3, warmup=1),
+                       bound_ms=max(t_bytes, t_fp32),
+                       bound_by="bytes" if t_bytes >= t_fp32 else
+                       "operations",
+                       bytes_bound_ms=t_bytes, fp32_ops_bound_ms=t_fp32,
+                       tensor_core_ops_bound_ms=t_tc, library_ms=library_ms,
+                       occupied_share=(occ > 0).float().mean().item(),
+                       shape=[m, k, n])
+            emit("kernel", name=name, case=label, **rec)
+            if label == "econv_stage1" and name != "spike_matmul_packed_csr":
+                results[name] = rec
+        check(all(torch.equal(o, outs[0]) for o in outs),
+              f"CSR kernels 11-14 differ bit for bit ({label})")
+    for name, err in worst.items():
+        if name in results:
+            results[name]["max_abs_err"] = err
 
 
 # ------------------------------------------------------------ phase (e)
@@ -553,10 +647,15 @@ def forward_breakdown(torch, forward) -> dict:
 
 
 def phase_breakdown(torch, params, x, cfg):
-    """One kernel forward of SpikingFormer: its breakdown."""
+    """One kernel forward of SpikingFormer on each CSR route (pipelined,
+    serial, serial, pipelined): its breakdown."""
+    from repro_torch.kernels import dispatch
     from repro_torch.models import spikingformer as sf
-    emit("breakdown", **forward_breakdown(torch, lambda: sf.spikingformer_apply(
-        params, x, n_heads=HEADS, spiking_cfg=cfg)))
+    for route in (None, dispatch.CUDA, dispatch.CUDA, None):
+        with pinned(dispatch, route):
+            emit("breakdown", csr_route=route or dispatch.CUDA_PIPE,
+                 **forward_breakdown(torch, lambda: sf.spikingformer_apply(
+                     params, x, n_heads=HEADS, spiking_cfg=cfg)))
 
 
 def phase_end_to_end(torch, device):
@@ -568,7 +667,7 @@ def phase_end_to_end(torch, device):
     from repro_torch.models import spikingformer as sf
     resolved = dispatch.resolved_backends(device)
     emit("resolution", backends=resolved)
-    check(set(resolved.values()) == {dispatch.CUDA},
+    check(resolved == card_routes(dispatch),
           f"ops not resolved to the kernels on the card: {resolved}")
     gen = torch.Generator().manual_seed(SEED)
     params = sf.spikingformer_init(DEPTH, DIM, generator=gen, device=device)
@@ -619,6 +718,30 @@ def phase_end_to_end(torch, device):
             check(st["differing_share"] <= FREE_RUNNING_SPIKE_TOL,
                   f"stage {st['stage']}: {st['differing_share']} of spikes "
                   f"differ")
+    # The serial kernel 11 by override, on the last batch.
+    reset_launch_counts()
+    with torch.inference_mode(), pinned(dispatch, dispatch.CUDA):
+        ser_logits, ser_stats = sf.spikingformer_apply(
+            params, x, n_heads=HEADS, spiking_cfg=cfg, collect_stats=True)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check({k: counts[k] for k in SERIAL_LAUNCHES} == SERIAL_LAUNCHES,
+          f"serial forward launches {counts} != {SERIAL_LAUNCHES}")
+    # Gated against `ref`, as the forward above; against the pipelined
+    # forward reported (it compounds both routes' tie flips).
+    drift = [(a != b).float().mean().item()
+             for a, b in zip(ser_stats, ref_stats)]
+    drift_pipe = [(a != b).float().mean().item()
+                  for a, b in zip(ser_stats, stats)]
+    emit("serial_forward", launches=counts, stage_differing_share=drift,
+         stage_differing_share_pipe=drift_pipe,
+         max_abs_dlogits=(ser_logits - ref_logits).abs().max().item(),
+         max_abs_dlogits_pipe=(ser_logits - logits).abs().max().item())
+    check(bool(torch.isfinite(ser_logits).all()) and
+          max(drift) <= FREE_RUNNING_SPIKE_TOL,
+          f"serial forward: logits not finite or spike drift {max(drift)}")
+    for name in totals:
+        totals[name] += counts[name]
     phase_breakdown(torch, params, x, cfg)
     return totals
 
@@ -764,12 +887,14 @@ def phase_cnn(torch, device):
             for k, v in vgg11_ragged(torch, dispatch, forward, x,
                                      expected).items():
                 totals[k] = totals.get(k, 0) + v
-        for backend in (dispatch.CUDA, dispatch.REF):
-            with dispatch.use_backend(backend):
+        for backend in (None, dispatch.CUDA, dispatch.REF):
+            with contextlib.nullcontext() if backend is None else \
+                    dispatch.use_backend(backend):
                 for _ in range(3):                        # warm forwards
                     with torch.inference_mode():
                         forward(x)
-                emit("cnn_breakdown", model=name, backend=backend,
+                emit("cnn_breakdown", model=name,
+                     backend=backend or "automatic",
                      **forward_breakdown(torch, lambda: forward(x)))
     return totals
 
@@ -891,7 +1016,8 @@ def same_input_vjp_errors(torch, dispatch, calls):
         if g is None:
             continue
         kernel = dispatch.resolve(op, *args, **kwargs)
-        check(kernel.name == dispatch.CUDA, f"{op} resolved to {kernel.name}")
+        check(kernel.name == card_routes(dispatch)[op],
+              f"{op} resolved to {kernel.name}")
         pulled = []
         for be in (kernel, dispatch.get_backend(op, dispatch.REF)):
             xs = [a.clone().requires_grad_(a.is_floating_point())
@@ -1010,7 +1136,7 @@ def phase_train(torch, device):
     batches = [train_batch(torch, i, device) for i in range(TRAIN_STEPS)]
     runs = {}
     totals = {name: 0 for name in TRAINING_KERNELS}
-    for backend in (dispatch.CUDA, dispatch.REF):
+    for backend in (None, dispatch.REF):
         params = fresh_params(torch, device)
         names = leaf_names(params)
         opt = adamw.init(params, adamw.AdamWConfig(lr=LR))
@@ -1019,14 +1145,15 @@ def phase_train(torch, device):
             reset_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with dispatch.use_backend(backend):
+            with contextlib.nullcontext() if backend is None else \
+                    dispatch.use_backend(backend):
                 loss, g, opt = train_step(torch, params, opt, batch, cfg)
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
             counts = launch_counts()
             losses.append(loss.item())
             grads.append(g)
-            if backend != dispatch.CUDA:
+            if backend is not None:
                 continue
             check({k: counts[k] for k in EXPECTED_TRAIN_LAUNCHES} ==
                   EXPECTED_TRAIN_LAUNCHES,
@@ -1042,7 +1169,7 @@ def phase_train(torch, device):
                       f"step {i}: gradient of {name} is all zero")
         runs[backend] = dict(losses=losses, grads=grads, seconds=seconds,
                              params=params, opt=opt)
-    kern, ref = runs[dispatch.CUDA], runs[dispatch.REF]
+    kern, ref = runs[None], runs[dispatch.REF]
     for i in range(TRAIN_STEPS):
         rel = {n: ((a - r).norm() / (r.norm() + 1e-30)).item()
                for n, a, r in zip(names, kern["grads"][i], ref["grads"][i])}
@@ -1203,13 +1330,14 @@ def phase_apec_matmul_kernel(torch, gen, cap, results):
     results["apec_matmul_csr"]["max_abs_err"] = worst
 
 
-APEC_WIDE_GROUPS = (16, 128)
+# g = 1 needs the 64 KB epilogue tile in dynamic shared memory; at 16 and
+# 128 the overlap tile has fewer rows (8, 1) than the block thread rows.
+APEC_WIDE_GROUPS = (1, 16, 128)
 
 
 def phase_apec_groups(torch, cap):
-    """Kernels 17 and 15 at the group sizes whose overlap tile has fewer
-    rows than the block has thread rows (128/g = 8 and 1), on the FFN fc1
-    spikes: within 1e-5 * max|ref| + 1e-5 of their plain versions."""
+    """Kernels 17 and 15 at APEC_WIDE_GROUPS on the FFN fc1 spikes: within
+    1e-5 * max|ref| + 1e-5 of their plain versions."""
     from repro_torch.core.spikes import pack_spikes_padded
     from repro_torch.kernels import apec_kernel, ops, spike_matmul
     s1, w1, _ = cap["spike_matmul"][0]
@@ -1264,11 +1392,14 @@ def phase_apec_path(torch, cap):
         with torch.inference_mode():
             csr_out = ops.spike_matmul_csr(et, w)
         csr_ms = cuda_ms(torch, lambda: ops.spike_matmul_csr(et, w))
+        csr_pipe_ms = cuda_ms(torch, lambda: ops.spike_matmul_csr(
+            et, w, pipeline=True))
         tol = 1e-5 * csr_out.abs().max().item() + 1e-5
         flat = et.spikes.reshape(-1, et.shape[-1])
         for g in APEC_PATH_GROUPS:
             # The route's decompose step alone (pack, kernel 19, unpack).
-            rec = dict(case=label, g=g, csr_ms=csr_ms, tolerance=tol,
+            rec = dict(case=label, g=g, csr_ms=csr_ms,
+                       csr_pipe_ms=csr_pipe_ms, tolerance=tol,
                        decompose_ms=cuda_ms(
                            torch, lambda: ops.apec_decompose(flat, g)))
             for form, operand, prepasses in (("carried", et, 0),
@@ -1382,7 +1513,8 @@ def phase_packed_fire(torch, gen, device, results):
 def packed_capture(torch, device):
     """One packed SpikingFormer-4-384 forward (B=32, T=4, seed 0) on the
     kernels, recording every registry call (op, args, kwargs) and the
-    operands of every packed CSR launch (words, weights, work list)."""
+    operands of every packed CSR launch (words, weights, work list; the
+    forward launches the pipelined kernel 14)."""
     from repro_torch.configs.base import SpikingConfig
     from repro_torch.kernels import dispatch, spike_matmul
     from repro_torch.models import spikingformer as sf
@@ -1394,7 +1526,7 @@ def packed_capture(torch, device):
                    ).to(device)
     cap = {"calls": [], "csr": []}
     orig_dispatch = dispatch.dispatch
-    orig_kernel = spike_matmul.spike_matmul_packed_csr
+    orig_kernel = spike_matmul.spike_matmul_packed_csr_pipe
 
     def record(op, *args, **kwargs):
         cap["calls"].append((op, args, kwargs))
@@ -1404,7 +1536,7 @@ def packed_capture(torch, device):
         cap["csr"].append((p, w, csr))
         return orig_kernel(p, w, csr)
     dispatch.dispatch = record
-    spike_matmul.spike_matmul_packed_csr = kernel
+    spike_matmul.spike_matmul_packed_csr_pipe = kernel
     try:
         with torch.inference_mode():
             sf.spikingformer_apply(params, x, n_heads=HEADS,
@@ -1412,7 +1544,7 @@ def packed_capture(torch, device):
                                        t_steps=T, lif_vth=V_TH, packed=True))
     finally:
         dispatch.dispatch = orig_dispatch
-        spike_matmul.spike_matmul_packed_csr = orig_kernel
+        spike_matmul.spike_matmul_packed_csr_pipe = orig_kernel
     torch.cuda.synchronize()
     check(len(cap["csr"]) == 3 + 2 * DEPTH,
           f"captured {len(cap['csr'])} packed CSR launches")
@@ -1596,7 +1728,12 @@ def phase_packed_apec(torch, cap, results):
                 csr_ms=cuda_ms(torch, lambda: ops.spike_matmul_csr(
                     dense_et, w)),
                 packed_csr_ms=cuda_ms(torch, lambda: ops.spike_matmul_packed(
-                    et, w)))
+                    et, w)),
+                csr_pipe_ms=cuda_ms(torch, lambda: ops.spike_matmul_csr(
+                    dense_et, w, pipeline=True)),
+                packed_csr_pipe_ms=cuda_ms(
+                    torch, lambda: ops.spike_matmul_packed(et, w,
+                                                           pipeline=True)))
         emit("packed_apec_path", case=label, g=g, carried=occ is not None,
              word_prepasses=wpre["calls"], launches={
                  n_: counts[n_] for n_ in ("apec_decompose",
@@ -1696,13 +1833,13 @@ def phase_packed_models(torch, device):
     dense forward breakdowns in turns (dense, packed, packed, dense)."""
     import dataclasses
     from repro_torch.configs.base import SpikingConfig
-    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import dispatch, launch_counts, \
+        reset_launch_counts
     from repro_torch.models import cnn
     from repro_torch.models import spikingformer as sf
     resolved = dispatch.resolved_backends(device, packed=True)
     emit("packed_resolution", backends=resolved)
-    check(all(be == (dispatch.CUDA_PACKED if op in dispatch.PACKED_OPS
-                     else dispatch.CUDA) for op, be in resolved.items()),
+    check(resolved == card_routes(dispatch, packed=True),
           f"packed calls not resolved to the packed kernels: {resolved}")
     totals = {name: 0 for name in PACKED_KERNELS}
     params = sf.spikingformer_init(DEPTH, DIM, generator=torch.Generator()
@@ -1720,6 +1857,35 @@ def phase_packed_models(torch, device):
                                       sf, (B, 10))
         for name in totals:
             totals[name] += counts[name]
+    # The serial word kernel 13 by override, on the last batch.
+    reset_launch_counts()
+    with torch.inference_mode(), pinned(dispatch, dispatch.CUDA_PACKED):
+        ser_out, ser_stats = sf_forward(x, True, True)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {k: PACKED_SERIAL_LAUNCHES.get(k, 0) for k in counts}
+    check(counts == want, f"packed serial forward launches {counts} != "
+          f"{want}")
+    # Gated against the dense serial forward (kernel 13's sums are kernel
+    # 11's on the same spikes); against the packed pipelined one reported.
+    with torch.inference_mode():
+        out, stats = sf_forward(x, True, True)
+        with pinned(dispatch, dispatch.CUDA):
+            dense_out, dense_stats = sf_forward(x, False, True)
+    drift = [(a != b).float().mean().item()
+             for a, b in zip(ser_stats, dense_stats)]
+    drift_pipe = [(a != b).float().mean().item()
+                  for a, b in zip(ser_stats, stats)]
+    emit("packed_serial_forward", launches=counts,
+         stage_differing_share=drift, stage_differing_share_pipe=drift_pipe,
+         max_abs_dlogits=(ser_out - dense_out).abs().max().item(),
+         max_abs_dlogits_pipe=(ser_out - out).abs().max().item())
+    check(bool(torch.isfinite(ser_out).all()) and
+          max(drift) <= FREE_RUNNING_SPIKE_TOL,
+          f"packed serial forward: logits not finite or spike drift "
+          f"{max(drift)}")
+    for name in totals:
+        totals[name] += counts[name]
     for name in ("vgg11", "resnet18", "segnet"):
         cfg, _, batch = cnn_setup(torch, name, device)
         cnn_params = getattr(cnn, f"{name}_init")(

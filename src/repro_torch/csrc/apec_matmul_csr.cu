@@ -36,10 +36,14 @@
 //           (aliasing the staging buffers) and writes acc_res[i] +
 //           acc_ov[i / g] for every row i: the repeat happens here, with
 //           no pass over the full output. Ragged M, K and N are masked on
-//           load and store; no operand is padded. g is any divisor of 128 above 1
-//           (a template parameter: 2, 4, ..., 128). The loop is this file's own, so kernels
-//           10 and 11 keep their code; a cp.async/TMA ring (the TPU's
-//           prefetching twin) is later work. Both operands are read
+//           load and store; no operand is padded. g is any divisor of 128
+//           (a template parameter: 1, 2, ..., 128). The staging union
+//           lives in dynamic shared memory, opted in past 48 KB
+//           (tile_fma::allow_dynamic_smem): at g = 1 its 128 x 128 f32
+//           epilogue tile is 64 KB. The loop is this file's own, so kernels
+//           10 and 11 keep their code; the TPU's prefetching twins
+//           (rows 18 and 16) are still to port onto csrc/tile_mma.cuh's
+//           cp.async ring. Both operands are read
 //           through tile_fma.cuh's loaders: the packed form stages each
 //           live operand's word tile (128 x 4 and 128/g x 4 words) once
 //           per step and unpacks bits into the same slices, so its sums
@@ -88,7 +92,8 @@ apec_csr_kernel(RA ra, OA oa, const float* __restrict__ w,
   static_assert(kTile % G == 0 && (kRo % kT == 0 || kRo < kT),
                 "g must divide 128");
   constexpr bool kPacked = !std::is_same<RA, tile_fma::DenseA>::value;
-  __shared__ Smem<G> sm;
+  extern __shared__ __align__(16) unsigned char apec_smem[];
+  Smem<G>& sm = *reinterpret_cast<Smem<G>*>(apec_smem);
   __shared__ uint32_t words_r[kPacked ? kTile * tile_fma::kTileWords : 1];
   __shared__ uint32_t words_o[kPacked ? kRo * tile_fma::kTileWords : 1];
   if constexpr (kPacked) {
@@ -202,22 +207,28 @@ apec_csr_kernel(RA ra, OA oa, const float* __restrict__ w,
 }
 
 template <int G, class RA, class OA>
-void launch(RA ra, OA oa, const float* w, float* out, const int* row_ptr,
-            const int* tile_k_idx, const int* occ_res, const int* occ_ov,
-            int64_t m, int64_t k, int64_t n, int64_t mt, cudaStream_t stream) {
+cudaError_t launch(RA ra, OA oa, const float* w, float* out,
+                   const int* row_ptr, const int* tile_k_idx,
+                   const int* occ_res, const int* occ_ov, int64_t m,
+                   int64_t k, int64_t n, int64_t mt, cudaStream_t stream) {
+  auto kernel = apec_csr_kernel<G, RA, OA>;
+  constexpr int kBytes = sizeof(Smem<G>);
+  const cudaError_t err = tile_fma::allow_dynamic_smem(kernel, kBytes);
+  if (err != cudaSuccess) return err;
   // m-tile rows on x (no 65535 limit); neighbouring blocks share the
   // n-tile's weight slices in L2.
   dim3 grid((unsigned)mt, (unsigned)((n + kTile - 1) / kTile));
-  apec_csr_kernel<G><<<grid, kThreads, 0, stream>>>(
+  kernel<<<grid, kThreads, kBytes, stream>>>(
       ra, oa, w, out, row_ptr, tile_k_idx, occ_res, occ_ov, m, k, n);
+  return cudaSuccess;
 }
 
 // Calls fn(std::integral_constant<int, G>) for the group size g, one of
-// the divisors of 128 above 1 (at g = 1 the epilogue's overlap tile would
-// need 64 KB of static shared memory); false for any other g.
+// the divisors of 128; false for any other g.
 template <class Fn>
 bool dispatch_g(int64_t g, Fn&& fn) {
   switch (g) {
+    case 1: fn(std::integral_constant<int, 1>{}); return true;
     case 2: fn(std::integral_constant<int, 2>{}); return true;
     case 4: fn(std::integral_constant<int, 4>{}); return true;
     case 8: fn(std::integral_constant<int, 8>{}); return true;
@@ -233,7 +244,7 @@ bool dispatch_g(int64_t g, Fn&& fn) {
 
 // res: (M, K) f32, ov: (M/g, K) f32, w: (K, N) f32, out: (M, N) f32;
 // row_ptr: (MT+1,), tile_k_idx / occ_res / occ_ov: (cap,) int32 with
-// MT = ceil(M/128); g in {2, 4, ..., 128}.
+// MT = ceil(M/128); g in {1, 2, 4, ..., 128}.
 extern "C" int apec_matmul_csr_forward(const float* res, const float* ov,
                                        const float* w, float* out,
                                        const int* row_ptr,
@@ -245,11 +256,14 @@ extern "C" int apec_matmul_csr_forward(const float* res, const float* ov,
   if (m > 0 && n > 0) {
     cudaStream_t st = (cudaStream_t)stream;
     const tile_fma::DenseA ra{res, m, k}, oa{ov, m / g, k};
+    cudaError_t err = cudaSuccess;
     if (!dispatch_g(g, [&](auto gc) {
-          launch<decltype(gc)::value>(ra, oa, w, out, row_ptr, tile_k_idx,
-                                      occ_res, occ_ov, m, k, n, mt, st);
+          err = launch<decltype(gc)::value>(ra, oa, w, out, row_ptr,
+                                            tile_k_idx, occ_res, occ_ov, m,
+                                            k, n, mt, st);
         }))
       return (int)cudaErrorInvalidValue;
+    if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }
@@ -265,13 +279,16 @@ extern "C" int apec_matmul_packed_csr_forward(
   if (m > 0 && n > 0) {
     cudaStream_t st = (cudaStream_t)stream;
     const tile_fma::PackedA<kTile> ra{res, m, kw, nullptr};
+    cudaError_t err = cudaSuccess;
     if (!dispatch_g(g, [&](auto gc) {
           constexpr int G = decltype(gc)::value;
-          launch<G>(ra, tile_fma::PackedA<kTile / G>{ov, m / G, kw, nullptr},
-                    w, out, row_ptr, tile_k_idx, occ_res, occ_ov, m, k, n,
-                    mt, st);
+          err = launch<G>(ra,
+                          tile_fma::PackedA<kTile / G>{ov, m / G, kw, nullptr},
+                          w, out, row_ptr, tile_k_idx, occ_res, occ_ov, m, k,
+                          n, mt, st);
         }))
       return (int)cudaErrorInvalidValue;
+    if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }

@@ -1,20 +1,22 @@
-// Event-compacted spike matmul: out = s @ w over the occupied
-// (m-tile, k-tile) steps of a CSR-of-tiles work list, with s as f32
-// spikes or as uint32 words.
+// Event-compacted spike matmul, serial form: out = s @ w over the
+// occupied (m-tile, k-tile) steps of a CSR-of-tiles work list, with s as
+// f32 spikes or as uint32 words, in fp32 FMA.
 //
 // Replaces: src/repro/kernels/spike_matmul.py::_spike_matmul_csr_kernel
-//           and ::_spike_matmul_csr_pipe_kernel (spike_matmul_csr_pallas,
-//           pipeline=False/True; both compute the same function), and, on
-//           words, ::_spike_matmul_packed_csr_kernel (+ _unpack_tile) and
-//           ::_spike_matmul_packed_csr_pipe_kernel
-//           (spike_matmul_packed_csr_pallas, pipeline=False/True).
+//           (spike_matmul_csr_pallas, pipeline=False; :156) and, on words,
+//           ::_spike_matmul_packed_csr_kernel (+ _unpack_tile;
+//           spike_matmul_packed_csr_pallas, pipeline=False; :296). Their
+//           pipelined twins (pipeline=True, :181 and :318) are
+//           csrc/spike_matmul_csr_pipe.cu, which the registry picks on
+//           the card; these kernels stay the `cuda` / `cuda-packed`
+//           routes, reached by override and by a degrade.
 // Bound on the H100: operations, at the main path's densities. An
 //           occupied 128x128 tile costs 2*128*128*N flops against
 //           128*128*4 bytes of spikes, ~N/2 flops per byte, above the
 //           fp32 ridge (67 TFLOP/s over 3.35 TB/s, ~20) for every N the
-//           model uses (96..1536). The work is fp32 FMA on the CUDA cores:
-//           tensor cores would need TF32 (or a 3-pass split) to hold the
-//           1e-5 parity contract, which is later work.
+//           model uses (96..1536). The work is fp32 FMA on the CUDA cores
+//           (csrc/tile_mma.cuh says why the pipelined twins stay there
+//           too).
 // Design:   grid (m-tile row, n-tile); each block owns one 128x128 output
 //           tile and walks its row's steps row_ptr[r]..row_ptr[r+1] in
 //           order, the loop that replaces the TPU's sequential grid axis.
@@ -22,9 +24,10 @@
 //           so an empty row writes zeros; padding steps past row_ptr[MT]
 //           are never reached. Each occupied step runs the shared tile
 //           loop (tile_fma.cuh): 256 threads, an 8x8 register block each,
-//           ragged edges masked. The map and work-list tiling stays
-//           128x128, the occupancy contract; a cp.async/TMA multi-stage
-//           ring is later work. The packed form is the same kernel with
+//           ragged edges masked, slices staged synchronously (the
+//           cp.async ring is csrc/tile_mma.cuh's). The map and work-list
+//           tiling stays 128x128, the occupancy contract. The packed form
+//           is the same kernel with
 //           tile_fma.cuh's word loader: each occupied step stages the
 //           (128 x 4)-word tile (2 KB, against the f32 tile's 64 KB) and
 //           builds each 16-deep slice from 16 bits of one word, so the

@@ -1,6 +1,10 @@
-// The register-blocked fp32 tile loop shared by the spike matmul kernels
-// (csrc/spike_matmul_csr.cu, csrc/spike_matmul.cu), and the spike-operand
-// loaders they and csrc/apec_matmul_csr.cu read through.
+// The register-blocked fp32 tile loop of the serial spike matmul kernels
+// (csrc/spike_matmul_csr.cu, csrc/spike_matmul.cu), the spike-operand
+// loaders they and csrc/apec_matmul_csr.cu read through, and the dynamic
+// shared-memory opt-in that csrc/apec_matmul_csr.cu and csrc/tile_mma.cuh
+// launch with. The pipelined kernels (TPU rows 12 and 14) feed the same
+// fmaf arithmetic from csrc/tile_mma.cuh's cp.async ring instead of this
+// loop's synchronous staging.
 //
 // A block owns one 128-row x BN-column output tile. Each occupied
 // 128-deep k-tile streams its s tile and w tile through shared memory in
@@ -20,9 +24,20 @@
 // order.
 #pragma once
 
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace tile_fma {
+
+// Lets `kernel` launch with `bytes` of dynamic shared memory, past the
+// 48 KB a launch gets without asking (up to 227 KB on the H100). Callers
+// launch with the same byte count and return the error it gives.
+template <class Kernel>
+inline cudaError_t allow_dynamic_smem(Kernel* kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
 
 constexpr int kTile = 128;          // map tile (rows and k)
 constexpr int kSlice = 16;          // k depth staged per shared-memory pass

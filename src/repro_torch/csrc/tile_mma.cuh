@@ -1,0 +1,295 @@
+// The Hopper tile loop of the pipelined CSR spike matmuls
+// (csrc/spike_matmul_csr_pipe.cu): a cp.async ring of k-slices, gated by
+// the work list's per-step counts, feeding an fp32 FMA loop.
+//
+// A block owns one 128-row m-tile x BN output columns and walks its row's
+// work-list steps row_ptr[r]..row_ptr[r+1] as kSlice-deep k-slices. Each
+// ring stage holds one slice: the spike slice (f32 spikes, or one uint32
+// word per row) and the weight slice (kSlice x BN f32). The issue side
+// (`RowCursor`) runs kStages-1 slices ahead of compute, across step
+// boundaries within the row. The gate contract of the TPU kernels'
+// `_weight_prefetch` (src/repro/kernels/spike_matmul.py:116) holds: a step
+// with occ == 0 issues no copy, every committed group holds one slice's
+// copies, and the consumer waits on exactly the groups that were
+// committed (`wait_pending`, never on an unissued group).
+// tests/test_torch_pipe.py holds the CPU twin of this schedule
+// (`kernels/spike_matmul.py::ring_schedule`) to that contract.
+//
+// Compute is fp32 FMA on the CUDA cores, each output summed in k order
+// with fmaf, as kernel 11 (csrc/tile_fma.cuh) and cuBLAS's fp32 GEMM sum
+// it: the results equal theirs bit for bit, binary or multi-bit spikes,
+// f32 or words. A split-TF32 tensor-core loop (w = hi + lo, two
+// mma.sync.m16n8k8 per fragment, each k8 step's or slice's MMAs summed
+// from zero and added in fp32) ran 1.8-2.5x faster than kernel 11 and sat
+// closer to the fp64 product than it, but rounds in another order than
+// `ref`'s cuDNN convolution; the CNN forwards' spike drift against `ref`
+// (a threshold tie flips, and the flip cascades) then broke its 1e-2 gate
+// at ResNet18's deep layers (H100, chip_smoke). Bitwise equality keeps
+// every drift gate where kernel 11 held it.
+//
+// 256 threads as 16 x 16; thread (tx, ty) accumulates rows ty + 16 i
+// (i < 8) and columns tx + 16 j (j < BN/16), kernel 11's layout, so a
+// warp's spike reads are two broadcast rows and its weight reads 16
+// consecutive words. Shared-memory rows are padded (A: 32+4 floats, B:
+// BN+8 floats). Ragged M, K and N are zero-filled on copy (cp.async
+// src-size 0) and masked on store: no operand is padded. A row of f32
+// spikes or weights whose length is not a multiple of 4 (K = 27 at the
+// coded conv, N = 2) is copied in 4-byte pieces instead of 16-byte ones.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <initializer_list>
+
+#include "tile_fma.cuh"
+
+namespace tile_mma {
+
+constexpr int kTile = tile_fma::kTile;   // work-list tile (rows and k)
+constexpr int kSlice = 32;       // k depth of one ring stage: one word a row
+constexpr int kStages = 3;       // ring depth (kernels/spike_matmul.py:
+                                 // PIPE_STAGES mirrors it)
+constexpr int kThreads = 256;
+constexpr int kT = 16;           // threads a side
+constexpr int kRM = kTile / kT;  // rows a thread accumulates
+constexpr int kPadA = 4;
+constexpr int kPadB = 8;
+static_assert(kStages >= 2 && kStages <= 4, "wait_pending covers 0..2");
+
+// ------------------------------------------------------------ cp.async
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes, or zeros when `in` is false (the source is then not read).
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 4 : 0));
+}
+
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Blocks until at most `pending` committed groups are still in flight.
+__device__ __forceinline__ void wait_pending(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::); break;
+    default: asm volatile("cp.async.wait_group 2;\n" ::); break;
+  }
+}
+
+// ------------------------------------------------------------ work list
+// Walks one m-tile row's occupied steps slice by slice: the ring's issue
+// side (and, as a count, its consume side). Every thread holds its own
+// copy and moves it identically, so the walk is block-uniform.
+struct RowCursor {
+  const int* __restrict__ occ;
+  const int* __restrict__ kidx;
+  int step, end, kk;
+  int64_t k;
+
+  __device__ RowCursor(const int* occ_, const int* kidx_, int beg, int end_,
+                       int64_t k_)
+      : occ(occ_), kidx(kidx_), step(beg), end(end_), kk(0), k(k_) {
+    settle();
+  }
+  // Skips dummy steps (occ == 0): they issue no copy.
+  __device__ void settle() {
+    while (step < end && occ[step] <= 0) ++step;
+    kk = 0;
+  }
+  __device__ bool valid() const { return step < end; }
+  __device__ int64_t k0() const { return (int64_t)kidx[step] * kTile + kk; }
+  // The next slice: within the step while it lies before K, else the
+  // next occupied step's first.
+  __device__ void next() {
+    kk += kSlice;
+    if (kk >= kTile || k0() >= k) {
+      ++step;
+      settle();
+    }
+  }
+};
+
+// ------------------------------------------------------- spike loaders
+// f32 spikes (M, K) row-major. `vec`: rows may be copied 16 bytes at a
+// time (K % 4 == 0 and s 16-byte aligned).
+struct DenseSpikes {
+  const float* __restrict__ s;
+  int64_t m, k;
+  bool vec;
+  static constexpr int kRow = kSlice + kPadA;
+  static constexpr int kStageBytes = kTile * kRow * 4;
+
+  __device__ void issue(unsigned char* stage, int64_t m0, int64_t k0) const {
+    float* a = reinterpret_cast<float*>(stage);
+    for (int e = threadIdx.x; e < kTile * (kSlice / 4); e += kThreads) {
+      const int r = e / (kSlice / 4), c = (e % (kSlice / 4)) * 4;
+      const int64_t gr = m0 + r, gc = k0 + c;
+      float* dst = a + r * kRow + c;
+      if (vec) {
+        const bool in = gr < m && gc < k;
+        cp16(dst, in ? s + gr * k + gc : s, in);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const bool in = gr < m && gc + q < k;
+          cp4(dst + q, in ? s + gr * k + gc + q : s, in);
+        }
+      }
+    }
+  }
+  // Thread row ty's view of the stage; `at(rows, i, c)` is the spike at
+  // row ty + 16 i, column c of the slice.
+  struct Rows {
+    const float* p;
+  };
+  __device__ __forceinline__ Rows rows(const unsigned char* stage,
+                                       int ty) const {
+    return {reinterpret_cast<const float*>(stage) + ty * kRow};
+  }
+  __device__ __forceinline__ static float at(const Rows& r, int i, int c) {
+    return r.p[i * kT * kRow + c];
+  }
+};
+
+// uint32 words of binary spikes (M, KW) row-major, bit i of word w =
+// column 32w+i (core/spikes.py::pack_spikes). A kSlice-deep slice is one
+// word per row; a thread holds its 8 rows' words in registers and unpacks
+// bits straight into its operands (a bit becomes 1.0f or 0.0f), no f32
+// spike tile is ever staged. Bits past K meet zero-filled weight rows.
+struct PackedSpikes {
+  const uint32_t* __restrict__ p;
+  int64_t m, kw;
+  static constexpr int kStageBytes = kTile * 4;
+
+  __device__ void issue(unsigned char* stage, int64_t m0, int64_t k0) const {
+    uint32_t* words = reinterpret_cast<uint32_t*>(stage);
+    const int64_t gw = k0 / 32;
+    for (int r = threadIdx.x; r < kTile; r += kThreads) {
+      const int64_t gr = m0 + r;
+      const bool in = gr < m && gw < kw;
+      cp4(words + r, in ? p + gr * kw + gw : p, in);
+    }
+  }
+  struct Rows {
+    uint32_t w[kRM];
+  };
+  __device__ __forceinline__ Rows rows(const unsigned char* stage,
+                                       int ty) const {
+    const uint32_t* words = reinterpret_cast<const uint32_t*>(stage);
+    Rows r;
+#pragma unroll
+    for (int i = 0; i < kRM; ++i) r.w[i] = words[ty + kT * i];
+    return r;
+  }
+  __device__ __forceinline__ static float at(const Rows& r, int i, int c) {
+    return (r.w[i] >> c) & 1u ? 1.0f : 0.0f;
+  }
+};
+
+// ------------------------------------------------------- weight slices
+template <int BN>
+struct WeightSlice {
+  static constexpr int kRow = BN + kPadB;
+  static constexpr int kStageBytes = kSlice * kRow * 4;
+
+  // w[k0:k0+kSlice, n0:n0+BN] into `stage`, zeros past K and N. `vec`:
+  // N % 4 == 0 and w 16-byte aligned.
+  __device__ static void issue(unsigned char* stage, const float* w,
+                               int64_t k0, int64_t n0, int64_t k, int64_t n,
+                               bool vec) {
+    float* b = reinterpret_cast<float*>(stage);
+    for (int e = threadIdx.x; e < kSlice * (BN / 4); e += kThreads) {
+      const int r = e / (BN / 4), c = (e % (BN / 4)) * 4;
+      const int64_t gk = k0 + r, gn = n0 + c;
+      float* dst = b + r * kRow + c;
+      if (vec) {
+        const bool in = gk < k && gn < n;
+        cp16(dst, in ? w + gk * n + gn : w, in);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const bool in = gk < k && gn + q < n;
+          cp4(dst + q, in ? w + gk * n + gn + q : w, in);
+        }
+      }
+    }
+  }
+};
+
+// ------------------------------------------------------------- compute
+// acc += spike slice @ weight slice for thread (tx, ty): acc[i][j] is row
+// ty + 16 i, column tx + 16 j, and each is summed with fmaf in k order.
+template <int BN, class A>
+__device__ __forceinline__ void fma_slice(const A& a,
+                                          const unsigned char* a_stage,
+                                          const unsigned char* b_stage,
+                                          float (&acc)[kRM][BN / kT]) {
+  constexpr int kRN = BN / kT;
+  const int tx = threadIdx.x % kT, ty = threadIdx.x / kT;
+  const float* bs = reinterpret_cast<const float*>(b_stage) + tx;
+  const typename A::Rows rows = a.rows(a_stage, ty);
+// Unrolled 8 deep, not 32: fully unrolled, the word loader's bit tests
+  // spill registers at BN = 64 (ptxas, sm_90a).
+#pragma unroll 8
+  for (int c = 0; c < kSlice; ++c) {
+    float av[kRM], bv[kRN];
+#pragma unroll
+    for (int i = 0; i < kRM; ++i) av[i] = A::at(rows, i, c);
+#pragma unroll
+    for (int j = 0; j < kRN; ++j)
+      bv[j] = bs[c * WeightSlice<BN>::kRow + kT * j];
+#pragma unroll
+    for (int i = 0; i < kRM; ++i)
+#pragma unroll
+      for (int j = 0; j < kRN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// out[m0.., n0..] = acc for thread (tx, ty), masked to (m, n).
+template <int BN>
+__device__ __forceinline__ void store_acc(float* __restrict__ out, int64_t m0,
+                                          int64_t n0, int64_t m, int64_t n,
+                                          const float (&acc)[kRM][BN / kT]) {
+  const int tx = threadIdx.x % kT, ty = threadIdx.x / kT;
+#pragma unroll
+  for (int i = 0; i < kRM; ++i) {
+    const int64_t r = m0 + ty + kT * i;
+    if (r >= m) continue;
+#pragma unroll
+    for (int j = 0; j < BN / kT; ++j) {
+      const int64_t c = n0 + tx + kT * j;
+      if (c < n) out[r * n + c] = acc[i][j];
+    }
+  }
+}
+
+// The n-tile width for N: the one of 128, 96, 64, 32 that pads N least
+// (the wider on a tie); 64 in place of 128 where the grid would hold
+// fewer than two blocks per SM and N pads no worse.
+inline int pick_bn(int64_t n, int64_t mt) {
+  auto padded = [n](int bn) { return (n + bn - 1) / bn * bn; };
+  int best = 128;
+  for (int bn : {96, 64, 32})
+    if (padded(bn) < padded(best)) best = bn;
+  if (best == 128 && padded(64) == padded(128)) {
+    int dev = 0, sms = 132;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (mt * ((n + 127) / 128) < 2 * (int64_t)sms) best = 64;
+  }
+  return best;
+}
+
+}  // namespace tile_mma

@@ -39,7 +39,8 @@ LAUNCHES: Dict[str, int] = {"lif": 0, "lif_counts": 0, "lif_fwd": 0,
                             "apec_matmul_csr": 0, "lif_counts_packed": 0,
                             "spike_matmul_packed_csr": 0,
                             "apec_matmul_packed_csr": 0, "sdsa_causal": 0,
-                            "lif_bf16": 0}
+                            "lif_bf16": 0, "spike_matmul_csr_pipe": 0,
+                            "spike_matmul_packed_csr_pipe": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
@@ -65,6 +66,10 @@ SIGNATURES = {
                                  _I64, _P),
     "spike_matmul_packed_csr_forward": (_P, _P, _P, _P, _P, _P, _I64, _I64,
                                         _I64, _I64, _I64, _P),
+    "spike_matmul_csr_pipe_forward": (_P, _P, _P, _P, _P, _P, _I64, _I64,
+                                      _I64, _I64, _P),
+    "spike_matmul_packed_csr_pipe_forward": (_P, _P, _P, _P, _P, _P, _I64,
+                                             _I64, _I64, _I64, _I64, _P),
     "spike_matmul_pred_forward": (_P, _P, _P, _P, _I64, _I64, _I64, _I64,
                                   _P),
     "apec_decompose_forward": (_P, _P, _P, _I64, _I64, _I64, _P),

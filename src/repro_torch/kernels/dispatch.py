@@ -10,7 +10,10 @@ manual routes (`auto=False`, reached only by an override):
   lif_scan_occ  cuda         csrc/lif.cu, counts mode (+ 16:1 map sum);
                              packed=True: its packed mode (words, no
                              spikes)
-  spike_matmul  cuda         csrc/spike_matmul_csr.cu on the carried map
+  spike_matmul  cuda-pipe    csrc/spike_matmul_csr_pipe.cu on the carried
+                             map (cp.async ring; kernel 11's sums)
+                cuda-packed-pipe  its word kernel (packed payload)
+                cuda         csrc/spike_matmul_csr.cu, serial fp32
                 cuda-packed  csrc/spike_matmul_csr.cu's word kernel
                              (packed payload)
                 cuda-pred    csrc/spike_matmul.cu, predicated (manual)
@@ -18,8 +21,11 @@ manual routes (`auto=False`, reached only by an override):
   causal_sdsa   cuda         word T-fold + csrc/sdsa_causal.cu's prefix-OR
                              + word Q AND (mode="or")
                 jnp          the same word ops in plain PyTorch (manual)
-  econv         cuda         im2col + csrc/spike_matmul_csr.cu
-                cuda-packed  word-domain im2col + the word kernel
+  econv         cuda-pipe    im2col + csrc/spike_matmul_csr_pipe.cu
+                cuda-packed-pipe  word-domain im2col + its word kernel
+                             (packed payload)
+                cuda         im2col + csrc/spike_matmul_csr.cu
+                cuda-packed  word-domain im2col + the serial word kernel
                              (packed payload)
                 cuda-pred    im2col + csrc/spike_matmul.cu (manual)
                 jnp          per-event scatter, `econv_scatter` (manual)
@@ -44,9 +50,10 @@ Selection order per call (`repro`'s resolution walk on CPU tensors):
      device the tensors lie on: the kernel wrappers take their plain
      version for CPU tensors, which is how the CPU tests walk the kernel
      path. When its `supports` gate refuses the call, resolution walks
-     the backend's declared ``fallback=`` chain (``cuda-packed`` ->
-     ``cuda`` -> ``cuda-pred`` for the matmul-form ops, as `repro`'s
-     ``packed-csr`` -> ``pallas-csr`` -> ``pallas``) and ends at `ref`;
+     the backend's declared ``fallback=`` chain (``cuda-packed-pipe`` ->
+     ``cuda-packed`` -> ``cuda`` -> ``cuda-pred`` and ``cuda-pipe`` ->
+     ``cuda`` for the matmul-form ops, as `repro`'s ``packed-csr-pipe``
+     -> ``packed-csr`` -> ``pallas-csr`` -> ``pallas``) and ends at `ref`;
      an unknown name lands on `ref` too;
   2. otherwise the automatic (``auto=True``) backends registered for the
      platform of the call's first tensor (``cpu`` or ``cuda``) and for the
@@ -106,10 +113,12 @@ REF = "ref"
 CUDA = "cuda"
 CUDA_PRED = "cuda-pred"
 CUDA_PACKED = "cuda-packed"
+CUDA_PIPE = "cuda-pipe"
+CUDA_PACKED_PIPE = "cuda-packed-pipe"
 ALL_PLATFORMS = ("cpu", "cuda")
 PACKED_OPS = ("spike_matmul", "econv", "apec_matmul")   # take packed_k=
 # The routes whose wrappers launch a hand-written kernel on CUDA tensors.
-KERNEL_ROUTES = (CUDA, CUDA_PACKED, CUDA_PRED)
+KERNEL_ROUTES = (CUDA_PACKED_PIPE, CUDA_PIPE, CUDA_PACKED, CUDA, CUDA_PRED)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -690,6 +699,26 @@ def _spike_matmul_packed(s, w, occupancy=None, packed_k=None):
                                    occupancy=occupancy)
 
 
+# The pipelined kernels rank above the serial ones, as `repro`'s
+# pallas-csr-pipe (26) and packed-csr-pipe (31) above pallas-csr (25) and
+# packed-csr (30): automatic selection on the card resolves to them, and a
+# refused call degrades to the serial kernel of its payload.
+@register("spike_matmul", CUDA_PIPE, platforms=("cuda",), priority=26,
+          vjp=_matmul_bwd, fallback=CUDA)
+def _spike_matmul_csr_pipe(s, w, occupancy=None):
+    from repro_torch.kernels import ops
+    return ops.spike_matmul_csr(s, w, occupancy=occupancy, pipeline=True)
+
+
+@register("spike_matmul", CUDA_PACKED_PIPE, platforms=("cuda",),
+          priority=31, vjp=_matmul_bwd, fallback=CUDA_PACKED,
+          payload=("packed",))
+def _spike_matmul_packed_pipe(s, w, occupancy=None, packed_k=None):
+    from repro_torch.kernels import ops
+    return ops.spike_matmul_packed(s, w, packed_k=packed_k,
+                                   occupancy=occupancy, pipeline=True)
+
+
 @register("spike_matmul", CUDA_PRED, auto=False, vjp=_matmul_bwd)
 def _spike_matmul_pred(s, w, occupancy=None):
     # Predicated dense grid: every tile visited, the map gates the product.
@@ -742,12 +771,11 @@ def _apec_matmul_pred(s, w, *, g=2, occupancy=None):
 def _apec_csr_supports(s, w, *, g=2, **kwargs) -> Optional[str]:
     # The fused kernel maps each output row tile onto a (128/g)-row
     # overlap tile, so the group size must divide the 128-row tile (as
-    # `repro`'s `_apec_csr_supports`); g = 1, where APEC groups nothing,
-    # is left to the other routes.
+    # `repro`'s `_apec_csr_supports`; g = 1 included).
     del kwargs
     reason = _apec_divisibility(s, w, g=g)
-    if reason is None and (g < 2 or 128 % g):
-        reason = f"group {g} does not divide the 128-row tile, or is 1"
+    if reason is None and 128 % g:
+        reason = f"group {g} does not divide the 128-row tile"
     return reason
 
 
@@ -906,6 +934,24 @@ def _econv_packed(s, w, *, stride=1, padding="SAME", occupancy=None,
     from repro_torch.kernels import ops
     return ops.econv_packed(s, w, stride=stride, padding=padding,
                             packed_k=packed_k, occupancy=occupancy)
+
+
+@register("econv", CUDA_PIPE, platforms=("cuda",), priority=26, vjp=REF,
+          fallback=CUDA)
+def _econv_pipe(s, w, *, stride=1, padding="SAME", occupancy=None):
+    from repro_torch.kernels import ops
+    return _econv_im2col(s, w, stride, padding, functools.partial(
+        ops.spike_matmul_csr, pipeline=True), occupancy)
+
+
+@register("econv", CUDA_PACKED_PIPE, platforms=("cuda",), priority=31,
+          vjp=REF, fallback=CUDA_PACKED, payload=("packed",))
+def _econv_packed_pipe(s, w, *, stride=1, padding="SAME", occupancy=None,
+                       packed_k=None):
+    from repro_torch.kernels import ops
+    return ops.econv_packed(s, w, stride=stride, padding=padding,
+                            packed_k=packed_k, occupancy=occupancy,
+                            pipeline=True)
 
 
 @register("econv", CUDA_PRED, auto=False, vjp=REF)

@@ -184,7 +184,8 @@ def spike_matmul(s, w: torch.Tensor, *,
 
 
 def spike_matmul_csr(s, w: torch.Tensor, csr: TileCSR | None = None, *,
-                     occupancy: torch.Tensor | None = None) -> torch.Tensor:
+                     occupancy: torch.Tensor | None = None,
+                     pipeline: bool = False) -> torch.Tensor:
     """Event-compacted spike matmul for (..., M, K) x (K, N) on the
     128x128 tile grid.
 
@@ -192,7 +193,9 @@ def spike_matmul_csr(s, w: torch.Tensor, csr: TileCSR | None = None, *,
     a precomputed `TileCSR` for this tiling. `occupancy`: a precomputed
     map for callers holding occupancy but no work list; the compaction
     runs on the small map and the dense `tile_occupancy` pass is skipped.
-    A map or work list for another tile grid is rejected.
+    A map or work list for another tile grid is rejected. `pipeline=True`
+    runs the pipelined kernel (`spike_matmul_csr_pipe`) on the
+    same work list, as `repro`'s flag selects its prefetching kernel.
     """
     tile = _csr.TILE
     if isinstance(s, EventTensor):
@@ -210,7 +213,8 @@ def spike_matmul_csr(s, w: torch.Tensor, csr: TileCSR | None = None, *,
         else:
             _check_map(occupancy, grid)
         csr = build_csr(occupancy, tile, tile)
-    out = _csr.spike_matmul_csr(s2, w.float().contiguous(), csr)
+    kernel = _csr.spike_matmul_csr_pipe if pipeline else _csr.spike_matmul_csr
+    out = kernel(s2, w.float().contiguous(), csr)
     return out.reshape(lead + (m, n))
 
 
@@ -403,13 +407,14 @@ def _check_weight_rows(w: torch.Tensor, k: int) -> None:
 
 def spike_matmul_packed(s, w: torch.Tensor, *, packed_k: int | None = None,
                         csr: TileCSR | None = None,
-                        occupancy: torch.Tensor | None = None
-                        ) -> torch.Tensor:
+                        occupancy: torch.Tensor | None = None,
+                        pipeline: bool = False) -> torch.Tensor:
     """Event-compacted spike matmul on the packed payload: (..., M,
     ceil(K/32)) words with ``packed_k=K`` (or a packed `EventTensor`, or
     dense spikes) times (K, N) -> (..., M, N). The work list is the f32
     route's (tile indices are payload-agnostic); a carried or explicit
-    `occupancy` skips the word popcount pre-pass."""
+    `occupancy` skips the word popcount pre-pass. `pipeline=True` runs the
+    pipelined word kernel (`spike_matmul_packed_csr_pipe`)."""
     p2, k, lead, m, occupancy = _packed_rows(s, packed_k, occupancy)
     _check_weight_rows(w, k)
     tile = _csr.TILE
@@ -419,7 +424,9 @@ def spike_matmul_packed(s, w: torch.Tensor, *, packed_k: int | None = None,
         else:
             _check_map(occupancy, (-(-p2.shape[0] // tile), -(-k // tile)))
         csr = build_csr(occupancy, tile, tile)
-    out = _csr.spike_matmul_packed_csr(p2, w.float().contiguous(), csr)
+    kernel = _csr.spike_matmul_packed_csr_pipe if pipeline else \
+        _csr.spike_matmul_packed_csr
+    out = kernel(p2, w.float().contiguous(), csr)
     return out.reshape(lead + (m, w.shape[-1]))
 
 
@@ -446,7 +453,8 @@ def apec_matmul_packed(s, w: torch.Tensor, g: int = 2, *,
 
 def econv_packed(s, w: torch.Tensor, *, stride: int = 1,
                  padding: str = "SAME", packed_k: int | None = None,
-                 occupancy: torch.Tensor | None = None) -> torch.Tensor:
+                 occupancy: torch.Tensor | None = None,
+                 pipeline: bool = False) -> torch.Tensor:
     """Event conv with the payload packed end to end: (N, H, W, ceil(Ci/32))
     words with ``packed_k=Ci`` (or a packed `EventTensor`, or dense
     spikes) and HWIO weights -> (N, Ho, Wo, Co).
@@ -459,6 +467,7 @@ def econv_packed(s, w: torch.Tensor, *, stride: int = 1,
     then (kh, kw, ci_pad, co). A carried `occupancy` (the dense patch
     matrix's map) is honoured only when ci % 32 == 0, where the two
     k-tilings coincide; otherwise the word popcount pre-pass runs.
+    `pipeline=True` runs the pipelined word kernel.
     """
     p, ci = _as_words(s, packed_k)
     kh, kw_, ci_w, co = w.shape
@@ -480,5 +489,5 @@ def econv_packed(s, w: torch.Tensor, *, stride: int = 1,
     if occupancy is not None and ci % PACK:
         occupancy = None               # the dense patch tiling does not align
     out = spike_matmul_packed(patches, w2, packed_k=kh * kw_ * ci_pad,
-                              occupancy=occupancy)
+                              occupancy=occupancy, pipeline=pipeline)
     return out.reshape(n, ho, wo, co)

@@ -5,14 +5,19 @@ occupied (m-tile, k-tile) steps of `csr` (a `core.spikes.TileCSR`) and
 launches `csrc/spike_matmul_csr.cu`. `spike_matmul_pred(s, w, occ)` is
 predicated: every (m-tile, n-tile) block walks all k-tiles and the map
 gates each product; it launches `csrc/spike_matmul.cu`.
+`spike_matmul_csr_pipe(s, w, csr)` is the same function, with the same
+sums, on the pipelined kernel `csrc/spike_matmul_csr_pipe.cu` (a
+cp.async ring of 32-deep k-slices); its plain version walks the ring's
+schedule (`ring_schedule`) and checks it (`check_ring_trace`).
 `apec_matmul_csr(res, ov, w, g, csr, occ_res, occ_ov)` is APEC's fused
 pair of products over a union work list; it launches
-`csrc/apec_matmul_csr.cu`. `spike_matmul_packed_csr` and
-`apec_matmul_packed_csr` are the same two kernels with the spike operands
-as uint32 words ((M, ceil(K/32)), bit i of word w = column 32w+i), each
-word tile unpacked on chip. On a CPU tensor each runs its plain version
-(the packed ones unpack, then run the f32 plain version). All accept any
-(M, K) x (K, N): ragged edge tiles are masked, never padded.
+`csrc/apec_matmul_csr.cu`. `spike_matmul_packed_csr`,
+`spike_matmul_packed_csr_pipe` and `apec_matmul_packed_csr` are the same
+kernels with the spike operands as uint32 words ((M, ceil(K/32)), bit i
+of word w = column 32w+i), each word tile unpacked on chip. On a CPU
+tensor each runs its plain version (the packed ones unpack, then run the
+f32 plain version). All accept any (M, K) x (K, N): ragged edge tiles are
+masked, never padded.
 """
 from __future__ import annotations
 
@@ -23,6 +28,8 @@ from repro_torch.core.spikes import (TileCSR, packed_width,
 from . import _build
 
 TILE = 128     # map / work-list tiling (rows and k)
+PIPE_SLICE = 32    # k depth of a ring stage (csrc/tile_mma.cuh: kSlice)
+PIPE_STAGES = 3    # ring depth (csrc/tile_mma.cuh: kStages)
 
 
 def csr_tile_gate(csr: TileCSR, mt: int, kt: int,
@@ -66,11 +73,12 @@ def spike_matmul_csr_plain(s: torch.Tensor, w: torch.Tensor,
         s, w, csr_tile_gate(csr, -(-m // TILE), -(-k // TILE)))
 
 
-def spike_matmul_csr(s: torch.Tensor, w: torch.Tensor,
-                     csr: TileCSR) -> torch.Tensor:
-    """s: (M, K) f32 spikes, w: (K, N) f32 -> (M, N) f32."""
+def _csr_matmul(name: str, s: torch.Tensor, w: torch.Tensor, csr: TileCSR,
+                plain) -> torch.Tensor:
+    """Checks, then the kernel `name` (C entry `<name>_forward`) on CUDA
+    tensors or `plain` on CPU ones."""
     if s.ndim != 2 or w.ndim != 2 or s.shape[1] != w.shape[0]:
-        raise ValueError(f"spike_matmul_csr needs (M, K) x (K, N), got "
+        raise ValueError(f"{name} needs (M, K) x (K, N), got "
                          f"{tuple(s.shape)} x {tuple(w.shape)}")
     m, k = s.shape
     n = w.shape[1]
@@ -79,22 +87,157 @@ def spike_matmul_csr(s: torch.Tensor, w: torch.Tensor,
     if csr.n_rows != mt:
         raise ValueError(f"csr has {csr.n_rows} m-tile rows, input needs {mt}")
     if not s.is_cuda:
-        return spike_matmul_csr_plain(s, w, csr)
+        return plain(s, w, csr)
     row_ptr, kidx, occ = csr.row_ptr, csr.tile_k_idx, csr.occ
-    _build.require_cuda("spike_matmul_csr", s, w, dtype=torch.float32)
-    _build.require_cuda("spike_matmul_csr", row_ptr, kidx, occ,
-                        dtype=torch.int32)
+    _build.require_cuda(name, s, w, dtype=torch.float32)
+    _build.require_cuda(name, row_ptr, kidx, occ, dtype=torch.int32)
     if row_ptr.device != s.device:
-        raise ValueError("spike_matmul_csr: work list and operands lie on "
-                         "different devices")
+        raise ValueError(f"{name}: work list and operands lie on "
+                         f"different devices")
     out = torch.empty((m, n), dtype=torch.float32, device=s.device)
     lib = _build.library()
-    _build.LAUNCHES["spike_matmul_csr"] += 1
-    _build.check(lib.spike_matmul_csr_forward(
+    _build.LAUNCHES[name] += 1
+    _build.check(getattr(lib, f"{name}_forward")(
         s.data_ptr(), w.data_ptr(), out.data_ptr(), row_ptr.data_ptr(),
-        kidx.data_ptr(), occ.data_ptr(), m, k, n, mt, _build.stream()),
-        "spike_matmul_csr")
+        kidx.data_ptr(), occ.data_ptr(), m, k, n, mt, _build.stream()), name)
     return out
+
+
+def spike_matmul_csr(s: torch.Tensor, w: torch.Tensor,
+                     csr: TileCSR) -> torch.Tensor:
+    """s: (M, K) f32 spikes, w: (K, N) f32 -> (M, N) f32."""
+    return _csr_matmul("spike_matmul_csr", s, w, csr, spike_matmul_csr_plain)
+
+
+# ----------------------------------------------------------- the ring
+def ring_schedule(occ, kidx, k: int, stages: int = PIPE_STAGES) -> list:
+    """The copy ring of csrc/tile_mma.cuh over one m-tile row's work-list
+    steps (`occ`, `kidx`: the row's per-step counts and k-tile indices, in
+    order), run as the kernel runs it. A cursor skips steps with
+    occ <= 0 (they issue nothing) and issues PIPE_SLICE-deep k-slices of
+    the rest, each as one committed group into slot `issued % stages`,
+    `stages - 1` ahead of compute and across step boundaries. For slice
+    `done` the consumer waits with `issued - done - 1` groups allowed in
+    flight, refills the slot that slice `done - 1` freed, then computes.
+
+    Returns the trace: ("issue", slot, (step, k0)), ("wait", slot,
+    pending) and ("compute", slot) events in program order."""
+    n_steps = len(occ)
+    trace = []
+
+    def settle(st):
+        while st < n_steps and occ[st] <= 0:
+            st += 1
+        return st, 0
+    step, kk = settle(0)
+
+    def issue(slot):
+        nonlocal step, kk
+        trace.append(("issue", slot, (step, kidx[step] * TILE + kk)))
+        kk += PIPE_SLICE
+        if kk >= TILE or kidx[step] * TILE + kk >= k:
+            step, kk = settle(step + 1)
+
+    issued = 0
+    while issued < stages - 1 and step < n_steps:
+        issue(issued)
+        issued += 1
+    done = 0
+    while done < issued:
+        trace.append(("wait", done % stages, issued - done - 1))
+        if step < n_steps:
+            issue(issued % stages)
+            issued += 1
+        trace.append(("compute", done % stages))
+        done += 1
+    return trace
+
+
+def check_ring_trace(trace: list, occ, kidx, k: int,
+                     stages: int = PIPE_STAGES) -> list:
+    """Holds a `ring_schedule` trace to the gate contract of `repro`'s
+    `_weight_prefetch` and returns the computed (step, k0) slices in
+    order. Raises RuntimeError unless: the issued slices are exactly every
+    PIPE_SLICE-deep slice before K of the steps with occ > 0, in order (no
+    copy for a dummy step); each issued slice is waited on once and
+    computed once, in issue order; a wait allows in flight only the groups
+    committed after its slice, at most `stages - 2`; and a slot is
+    refilled only after its previous slice was computed."""
+    want = [(st, kidx[st] * TILE + kk) for st in range(len(occ))
+            if occ[st] > 0
+            for kk in range(0, TILE, PIPE_SLICE) if kidx[st] * TILE + kk < k]
+    issued, slot_of, computed = [], {}, []
+    busy = [None] * stages           # slot -> index of the slice it holds
+    waited = 0
+
+    def fail(what):
+        raise RuntimeError(f"copy ring schedule broken: {what}")
+    for ev in trace:
+        if ev[0] == "issue":
+            _, slot, item = ev
+            if busy[slot] is not None:
+                fail(f"slot {slot} refilled before slice {busy[slot]} "
+                     f"was computed")
+            busy[slot] = len(issued)
+            slot_of[len(issued)] = slot
+            issued.append(item)
+        elif ev[0] == "wait":
+            _, slot, pending = ev
+            if waited >= len(issued) or slot_of[waited] != slot:
+                fail(f"wait {waited} on slot {slot} matches no issued slice")
+            if (pending != len(issued) - waited - 1
+                    or not 0 <= pending <= stages - 2):
+                fail(f"wait {waited} allows {pending} groups in flight with "
+                     f"{len(issued)} issued")
+            waited += 1
+        else:
+            _, slot = ev
+            idx = len(computed)
+            if (idx >= waited or slot_of.get(idx) != slot
+                    or busy[slot] != idx):
+                fail(f"slice {idx} computed before its wait or off its slot")
+            busy[slot] = None
+            computed.append(issued[idx])
+    if issued != want:
+        fail(f"issued {issued}, the occupied steps need {want}")
+    if waited != len(issued) or computed != issued:
+        fail(f"{len(issued)} issued, {waited} waited, {len(computed)} "
+             f"computed")
+    return computed
+
+
+def _ring_columns(csr: TileCSR, m: int, k: int) -> torch.Tensor:
+    """(M, K) bool: the spike entries the ring computes, from each m-tile
+    row's checked schedule (slices of PIPE_SLICE columns)."""
+    mt = -(-m // TILE)
+    row_ptr = csr.row_ptr.tolist()
+    occ, kidx = csr.occ.tolist(), csr.tile_k_idx.tolist()
+    cols = torch.zeros((mt, k), dtype=torch.bool)
+    for r in range(mt):
+        b, e = row_ptr[r], row_ptr[r + 1]
+        trace = ring_schedule(occ[b:e], kidx[b:e], k)
+        for _, k0 in check_ring_trace(trace, occ[b:e], kidx[b:e], k):
+            cols[r, k0:k0 + PIPE_SLICE] = True
+    return cols.repeat_interleave(TILE, 0)[:m]
+
+
+def spike_matmul_csr_pipe_plain(s: torch.Tensor, w: torch.Tensor,
+                                csr: TileCSR) -> torch.Tensor:
+    """Plain version of the pipelined CSR kernel: the CPU twin of its copy
+    ring (`ring_schedule`, held to the gate contract by
+    `check_ring_trace`) gates the spikes the ring computes, then one dense
+    fp32 matmul, the product of `spike_matmul_csr_plain`."""
+    m, k = s.shape
+    cols = _ring_columns(csr, m, k).to(s.device)
+    return torch.matmul(s.float() * cols, w.float())
+
+
+def spike_matmul_csr_pipe(s: torch.Tensor, w: torch.Tensor,
+                          csr: TileCSR) -> torch.Tensor:
+    """`spike_matmul_csr` on the pipelined kernel: s (M, K)
+    f32 spikes, w (K, N) f32 -> (M, N) f32."""
+    return _csr_matmul("spike_matmul_csr_pipe", s, w, csr,
+                       spike_matmul_csr_pipe_plain)
 
 
 def spike_matmul_pred(s: torch.Tensor, w: torch.Tensor,
@@ -128,9 +271,9 @@ def spike_matmul_pred(s: torch.Tensor, w: torch.Tensor,
 
 
 def _apec_group_ok(g: int) -> bool:
-    """The fused kernels' group sizes: every g > 1 dividing the 128-row
-    tile (a group never straddles two output tiles)."""
-    return 1 < g <= TILE and TILE % g == 0
+    """The fused kernels' group sizes: every g dividing the 128-row tile
+    (a group never straddles two output tiles), g = 1 included."""
+    return 1 <= g <= TILE and TILE % g == 0
 
 
 def apec_matmul_csr_plain(res: torch.Tensor, ov: torch.Tensor,
@@ -167,7 +310,7 @@ def apec_matmul_csr(res: torch.Tensor, ov: torch.Tensor, w: torch.Tensor,
     m, k = res.shape
     n = w.shape[1]
     if not _apec_group_ok(g) or m % g or ov.shape[0] * g != m:
-        raise ValueError(f"apec_matmul_csr takes g > 1 dividing {TILE} with "
+        raise ValueError(f"apec_matmul_csr takes g dividing {TILE} with "
                          f"M % g == 0 and M/g overlap rows, got g={g}, "
                          f"M={m}, {ov.shape[0]} overlap rows")
     mt, kt = -(-m // TILE), -(-k // TILE)
@@ -217,38 +360,62 @@ def spike_matmul_packed_csr_plain(p: torch.Tensor, w: torch.Tensor,
                                   csr)
 
 
-def spike_matmul_packed_csr(p: torch.Tensor, w: torch.Tensor,
-                            csr: TileCSR) -> torch.Tensor:
-    """p: (M, ceil(K/32)) uint32 words of binary spikes, w: (K, N) f32 ->
-    (M, N) f32, `csr` a work list on the 128 x 128 grid of the unpacked
-    (M, K) matrix."""
+def _packed_csr_matmul(name: str, p: torch.Tensor, w: torch.Tensor,
+                       csr: TileCSR, plain) -> torch.Tensor:
+    """Checks, then the word kernel `name` on CUDA tensors or `plain` on
+    CPU ones."""
     if w.ndim != 2:
-        raise ValueError(f"spike_matmul_packed_csr needs (K, N) weights, got "
+        raise ValueError(f"{name} needs (K, N) weights, got "
                          f"{tuple(w.shape)}")
     k, n = w.shape
-    _check_words("spike_matmul_packed_csr", k, p)
+    _check_words(name, k, p)
     m, kw = p.shape
     mt, kt = -(-m // TILE), -(-k // TILE)
     csr.check_compatible(TILE, TILE, mt, kt)
     if csr.n_rows != mt:
         raise ValueError(f"csr has {csr.n_rows} m-tile rows, input needs {mt}")
     if not p.is_cuda:
-        return spike_matmul_packed_csr_plain(p, w, csr)
-    _build.require_cuda("spike_matmul_packed_csr", p, dtype=torch.uint32)
-    _build.require_cuda("spike_matmul_packed_csr", w, dtype=torch.float32)
-    _build.require_cuda("spike_matmul_packed_csr", csr.row_ptr,
-                        csr.tile_k_idx, csr.occ, dtype=torch.int32)
+        return plain(p, w, csr)
+    _build.require_cuda(name, p, dtype=torch.uint32)
+    _build.require_cuda(name, w, dtype=torch.float32)
+    _build.require_cuda(name, csr.row_ptr, csr.tile_k_idx, csr.occ,
+                        dtype=torch.int32)
     if w.device != p.device or csr.row_ptr.device != p.device:
-        raise ValueError("spike_matmul_packed_csr: operands and work list "
-                         "lie on different devices")
+        raise ValueError(f"{name}: operands and work list lie on different "
+                         f"devices")
     out = torch.empty((m, n), dtype=torch.float32, device=p.device)
     lib = _build.library()
-    _build.LAUNCHES["spike_matmul_packed_csr"] += 1
-    _build.check(lib.spike_matmul_packed_csr_forward(
+    _build.LAUNCHES[name] += 1
+    _build.check(getattr(lib, f"{name}_forward")(
         p.data_ptr(), w.data_ptr(), out.data_ptr(), csr.row_ptr.data_ptr(),
         csr.tile_k_idx.data_ptr(), csr.occ.data_ptr(), m, kw, k, n, mt,
-        _build.stream()), "spike_matmul_packed_csr")
+        _build.stream()), name)
     return out
+
+
+def spike_matmul_packed_csr(p: torch.Tensor, w: torch.Tensor,
+                            csr: TileCSR) -> torch.Tensor:
+    """p: (M, ceil(K/32)) uint32 words of binary spikes, w: (K, N) f32 ->
+    (M, N) f32, `csr` a work list on the 128 x 128 grid of the unpacked
+    (M, K) matrix."""
+    return _packed_csr_matmul("spike_matmul_packed_csr", p, w, csr,
+                              spike_matmul_packed_csr_plain)
+
+
+def spike_matmul_packed_csr_pipe_plain(p: torch.Tensor, w: torch.Tensor,
+                                       csr: TileCSR) -> torch.Tensor:
+    """Plain version of the pipelined word kernel: unpack, then the
+    pipelined f32 kernel's plain version (its ring twin included)."""
+    return spike_matmul_csr_pipe_plain(unpack_spikes_padded(p, w.shape[0]),
+                                       w, csr)
+
+
+def spike_matmul_packed_csr_pipe(p: torch.Tensor, w: torch.Tensor,
+                                 csr: TileCSR) -> torch.Tensor:
+    """`spike_matmul_packed_csr` on the pipelined kernel, which unpacks
+    the words in registers."""
+    return _packed_csr_matmul("spike_matmul_packed_csr_pipe", p, w, csr,
+                              spike_matmul_packed_csr_pipe_plain)
 
 
 def apec_matmul_packed_csr_plain(res: torch.Tensor, ov: torch.Tensor,
@@ -277,7 +444,7 @@ def apec_matmul_packed_csr(res: torch.Tensor, ov: torch.Tensor,
     _check_words("apec_matmul_packed_csr", k, res, ov)
     m, kw = res.shape
     if not _apec_group_ok(g) or m % g or ov.shape[0] * g != m:
-        raise ValueError(f"apec_matmul_packed_csr takes g > 1 dividing "
+        raise ValueError(f"apec_matmul_packed_csr takes g dividing "
                          f"{TILE} with M % g == 0 and M/g overlap rows, got "
                          f"g={g}, M={m}, {ov.shape[0]} overlap rows")
     mt, kt = -(-m // TILE), -(-k // TILE)

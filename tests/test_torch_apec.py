@@ -18,6 +18,7 @@ import torch
 
 from repro.core import apec as japec
 from repro.core import events as jev
+from repro.core import spikes as jsp
 from repro.kernels import dispatch as jdispatch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
@@ -25,7 +26,8 @@ from repro.kernels.apec_kernel import apec_decompose_packed as \
     japec_decompose_packed
 from repro_torch.core import apec as tapec
 from repro_torch.core import events as tev
-from repro_torch.core.spikes import build_csr, watch_occupancy_prepasses
+from repro_torch.core.spikes import (build_csr, pack_spikes_padded,
+                                     watch_occupancy_prepasses)
 from repro_torch.kernels import apec_kernel, dispatch, launch_counts, ops, \
     reset_launch_counts, spike_matmul
 
@@ -196,7 +198,7 @@ def _apec_case(seed, m=260, k=200, n=40):
     return s, w
 
 
-@pytest.mark.parametrize("g", [2, 4])
+@pytest.mark.parametrize("g", [1, 2, 4])
 @pytest.mark.parametrize("carried", [False, True])
 def test_apec_matmul_csr_matches_jax_worklist_and_output(g, carried,
                                                          monkeypatch):
@@ -292,6 +294,42 @@ def test_apec_csr_rejects_bad_groups_maps_and_counts():
             warnings.simplefilter("ignore")
             assert jdispatch.resolve_attribution("apec_matmul", js, jw,
                                                  g=g) == jwant
+
+
+def test_apec_fused_kernels_take_g1_as_the_reference():
+    """At g = 1 (APEC groups nothing: every spike is overlap) the fused
+    routes, f32 and packed, accept the call as `repro`'s
+    `_apec_csr_supports` does, and the fused plain versions on the union
+    work list give `apec_matmul_csr_pallas(..., g=1, interpret=True)`'s
+    values on the same numpy inputs."""
+    from repro.kernels.spike_matmul import apec_matmul_csr_pallas
+    s, w = _apec_case(71, m=256, k=256, n=128)
+    ts, tw = _t(s), _t(w)
+    js, jw = jnp.asarray(s), jnp.asarray(w)
+    assert jdispatch._apec_csr_supports(js, jw, g=1) is None
+    words = pack_spikes_padded(ts)
+    for name, args, kw in (("cuda", (ts, tw), {"g": 1}),
+                           ("cuda-packed", (words, tw),
+                            {"g": 1, "packed_k": 256})):
+        assert dispatch.get_backend("apec_matmul", name) \
+            .unsupported_reason(*args, **kw) is None
+    jov, jres = jops.apec_decompose(js, 1)
+    occ_r = jsp.tile_occupancy(jres, 128, 128)
+    occ_o = jsp.tile_occupancy(jov, 128, 128)
+    jcsr = jsp.occupancy_to_csr(occ_r + occ_o, tiling=(128, 128))
+    steps = (jcsr.tile_m_idx, jcsr.tile_k_idx)
+    want = apec_matmul_csr_pallas(
+        jres, jov, jw, 1, jcsr,
+        (occ_r[steps] * jcsr.valid).astype(jnp.int32),
+        (occ_o[steps] * jcsr.valid).astype(jnp.int32), interpret=True)
+    ov, res = ops.apec_decompose(ts, 1)
+    csr, cr, co = ops.apec_union_worklist(res, ov, 1)
+    _close(spike_matmul.apec_matmul_csr(res, ov, tw, 1, csr, cr, co), want)
+    ov_p, res_p = apec_kernel.apec_decompose_packed(words, 1)
+    csr_p, cr_p, co_p = ops.apec_union_worklist(res_p, ov_p, 1, packed=True)
+    _close(spike_matmul.apec_matmul_packed_csr(res_p, ov_p, tw, 1, csr_p,
+                                               cr_p, co_p), want)
+    _close(want, s @ w)
 
 
 @pytest.mark.parametrize("rows,g", [(512, 2), (1024, 4), (260, 2)])

@@ -8,7 +8,8 @@ Every test is marked `cuda` and skips where no CUDA device is present.
 Spikes (f32 and bf16), counts, membrane residuals, LIF drive cotangents,
 SDSA and causal-status words, APEC overlap/residual words and the packed
 fire's words must match exactly; the CSR, predicated and fused APEC matmuls, f32 and packed,
-within 1e-5 * max|plain| + 1e-5 (fp32 summation order).
+within 1e-5 * max|plain| + 1e-5 (fp32 summation order); the pipelined
+CSR kernels equal the serial one bit for bit (the same fmaf chain).
 """
 import numpy as np
 import pytest
@@ -162,7 +163,38 @@ def test_cuda_wrappers_count_each_launch(cuda_device):
                                "apec_matmul_csr": 0, "lif_counts_packed": 1,
                                "spike_matmul_packed_csr": 0,
                                "apec_matmul_packed_csr": 0, "sdsa_causal": 1,
-                               "lif_bf16": 1}
+                               "lif_bf16": 1, "spike_matmul_csr_pipe": 0,
+                               "spike_matmul_packed_csr_pipe": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,multi_bit", [
+    (256, 256, 128, False),          # aligned
+    (300, 200, 60, False),           # ragged M, K and N
+    (1000, 432, 96, False),          # stage 1's K and N (BN = 96)
+    (600, 1536, 384, False),         # fc2's K and N
+    (300, 27, 64, True),             # the coded conv: K = 27, multi-bit s
+    (1000, 144, 2, False),           # N = 2: 4-byte weight copies
+    (260, 384, 1536, False),         # fc1's N
+])
+def test_cuda_csr_pipe_kernels_match_plain(cuda_device, m, k, n, multi_bit):
+    """The pipelined kernels, f32 and words, against their plain versions,
+    and bit for bit kernel 11 on the same spikes and work list."""
+    rng = np.random.default_rng(m + k + n)
+    s, w = _pred_case(rng, m, k, n, cuda_device, multi_bit)
+    csr = build_csr(ops.padded_occupancy(s), 128, 128)
+    got = spike_matmul.spike_matmul_csr_pipe(s, w, csr)
+    want = spike_matmul.spike_matmul_csr_pipe_plain(s, w, csr)
+    tol = 1e-5 * want.abs().max().item() + 1e-5
+    assert (got - want).abs().max().item() <= tol
+    assert torch.equal(got, spike_matmul.spike_matmul_csr(s, w, csr))
+    assert torch.all(got[128:256] == 0)
+    if not multi_bit:
+        p = pack_spikes_padded(s)
+        got_p = spike_matmul.spike_matmul_packed_csr_pipe(p, w, csr)
+        want_p = spike_matmul.spike_matmul_packed_csr_pipe_plain(p, w, csr)
+        assert (got_p - want_p).abs().max().item() <= tol
+        assert torch.equal(got_p, got)
 
 
 @pytest.mark.cuda
@@ -171,9 +203,10 @@ def test_cuda_csr_kernel_writes_zeros_for_empty_rows(cuda_device):
     w = torch.ones(200, 40, device=cuda_device)
     occ = torch.tensor([[1, 0], [0, 0], [0, 3]], dtype=torch.int32,
                        device=cuda_device)
-    out = ops.spike_matmul_csr(s, w, occupancy=occ)
-    assert torch.all(out[:128] == 128) and torch.all(out[128:256] == 0)
-    assert torch.all(out[256:] == 72)
+    for pipeline in (False, True):
+        out = ops.spike_matmul_csr(s, w, occupancy=occ, pipeline=pipeline)
+        assert torch.all(out[:128] == 128) and torch.all(out[128:256] == 0)
+        assert torch.all(out[256:] == 72)
 
 
 @pytest.mark.cuda
@@ -213,7 +246,8 @@ def test_cuda_training_wrappers_count_each_launch(cuda_device):
                                "apec_matmul_csr": 0, "lif_counts_packed": 0,
                                "spike_matmul_packed_csr": 0,
                                "apec_matmul_packed_csr": 0, "sdsa_causal": 0,
-                               "lif_bf16": 0}
+                               "lif_bf16": 0, "spike_matmul_csr_pipe": 0,
+                               "spike_matmul_packed_csr_pipe": 0}
 
 
 @pytest.mark.cuda
@@ -272,7 +306,8 @@ def test_cuda_apec_decompose_kernel_takes_unaligned_words(cuda_device):
 @pytest.mark.parametrize("m,k,n,g", [(256, 256, 128, 2), (260, 200, 40, 4),
                                      (1000, 432, 96, 2), (512, 384, 130, 8),
                                      (1024, 200, 40, 16),
-                                     (1024, 300, 70, 128)])
+                                     (1024, 300, 70, 128),
+                                     (300, 384, 1536, 1)])
 @pytest.mark.parametrize("carried", [False, True])
 def test_cuda_apec_matmul_csr_kernel_matches_plain(cuda_device, m, k, n, g,
                                                    carried):
@@ -362,7 +397,8 @@ def test_cuda_packed_csr_kernel_matches_plain_and_kernel_11(cuda_device, m,
 @pytest.mark.parametrize("m,k,n,g", [(256, 256, 128, 2), (260, 200, 40, 4),
                                      (1000, 432, 96, 2), (512, 384, 130, 8),
                                      (1024, 200, 40, 16),
-                                     (1024, 300, 70, 128)])
+                                     (1024, 300, 70, 128),
+                                     (300, 384, 1536, 1)])
 @pytest.mark.parametrize("carried", [False, True])
 def test_cuda_packed_apec_kernel_matches_plain(cuda_device, m, k, n, g,
                                                carried):
@@ -387,8 +423,10 @@ def test_cuda_packed_apec_kernel_matches_plain(cuda_device, m, k, n, g,
 
 @pytest.mark.cuda
 def test_cuda_packed_routes_launch_their_kernels(cuda_device):
-    """A packed EventTensor on the card resolves to `cuda-packed` and
-    launches the word kernels, once per call; a dense call does not."""
+    """A packed EventTensor on the card resolves to `cuda-packed-pipe`
+    and launches the word kernels, once per call; a dense call does not
+    (it resolves to `cuda-pipe`); the serial routes stay reachable by
+    override."""
     rng = np.random.default_rng(5)
     s = torch.from_numpy(_clustered(rng, 512, 96)).to(cuda_device)
     w = torch.from_numpy(rng.normal(size=(96, 70)).astype(np.float32)
@@ -397,17 +435,30 @@ def test_cuda_packed_routes_launch_their_kernels(cuda_device):
                           ).to(cuda_device)
     et = EventTensor.from_spikes(s, pack=True)
     assert dispatch.resolved_backends(cuda_device, packed=True)[
-        "spike_matmul"] == dispatch.CUDA_PACKED
+        "spike_matmul"] == dispatch.CUDA_PACKED_PIPE
+    assert dispatch.resolved_backends(cuda_device)["spike_matmul"] == \
+        dispatch.CUDA_PIPE
+
+    def serial(fn, name):
+        def run():
+            with dispatch.use_backend(name, op="spike_matmul"):
+                return fn()
+        return run
     cases = ((lambda: dispatch.spike_matmul(et, w), s @ w,
-              {"spike_matmul_packed_csr": 1}),
+              {"spike_matmul_packed_csr_pipe": 1}),
              (lambda: dispatch.apec_matmul(et, w, g=2), s @ w,
               {"apec_decompose": 1, "apec_matmul_packed_csr": 1}),
              (lambda: dispatch.econv(et.reshape(8, 8, 8, 96), wc),
               dispatch.get_backend("econv", "ref").fn(s.reshape(8, 8, 8, 96),
                                                       wc),
-              {"spike_matmul_packed_csr": 1}),
+              {"spike_matmul_packed_csr_pipe": 1}),
              (lambda: dispatch.spike_matmul(s, w), s @ w,
-              {"spike_matmul_csr": 1}))
+              {"spike_matmul_csr_pipe": 1}),
+             (serial(lambda: dispatch.spike_matmul(et, w),
+                     dispatch.CUDA_PACKED), s @ w,
+              {"spike_matmul_packed_csr": 1}),
+             (serial(lambda: dispatch.spike_matmul(s, w), dispatch.CUDA),
+              s @ w, {"spike_matmul_csr": 1}))
     for fn, want, launches in cases:
         reset_launch_counts()
         with torch.inference_mode():

@@ -69,6 +69,10 @@ def _chain_edges():
 # ------------------------------------------------------------ the chains
 def test_declared_chains_mirror_the_reference():
     assert set(_chain_edges()) == {
+        ("spike_matmul", "cuda-packed-pipe", "cuda-packed"),
+        ("spike_matmul", "cuda-pipe", "cuda"),
+        ("econv", "cuda-packed-pipe", "cuda-packed"),
+        ("econv", "cuda-pipe", "cuda"),
         ("spike_matmul", "cuda-packed", "cuda"),
         ("spike_matmul", "cuda", "cuda-pred"),
         ("econv", "cuda-packed", "cuda"),
@@ -79,6 +83,8 @@ def test_declared_chains_mirror_the_reference():
     for op in dispatch.op_names():
         assert op in text
     assert "cuda-packed(p30,grad,packed,->cuda)" in text
+    assert "cuda-packed-pipe(p31,grad,packed,->cuda-packed)" in text
+    assert "cuda-pipe(p26,grad,->cuda)" in text
 
 
 @pytest.mark.parametrize("op,name,nxt", _chain_edges())
@@ -371,11 +377,11 @@ def test_a_kernel_that_fails_to_build_or_launch_still_raises(monkeypatch,
 
 
 # ----------------------------------------------------- APEC group sizes
-@pytest.mark.parametrize("g", [16, 128])
+@pytest.mark.parametrize("g", [1, 16, 128])
 @pytest.mark.parametrize("packed", [False, True])
 def test_apec_fused_routes_take_every_group_dividing_128(g, packed,
                                                          monkeypatch):
-    """At g=16 and g=128 the fused routes accept the call with no warning
+    """At g=1, 16 and 128 the fused routes accept the call with no warning
     (automatic selection on the card and the override alike) and their
     plain versions equal repro's pallas-csr-interpret output."""
     rng = np.random.default_rng(g)

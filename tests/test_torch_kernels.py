@@ -214,10 +214,12 @@ def test_econv_kernel_path_matches_jax(stride, padding):
 
 # -------------------------------------------------------------- dispatch
 REGISTRY = {"lif_scan": {"ref", "cuda"}, "lif_scan_occ": {"ref", "cuda"},
-            "spike_matmul": {"ref", "cuda", "cuda-packed", "cuda-pred"},
+            "spike_matmul": {"ref", "cuda", "cuda-packed", "cuda-pred",
+                             "cuda-pipe", "cuda-packed-pipe"},
             "sdsa": {"ref", "cuda"},
             "causal_sdsa": {"ref", "jnp", "cuda"},
-            "econv": {"ref", "cuda", "cuda-packed", "cuda-pred", "jnp"},
+            "econv": {"ref", "cuda", "cuda-packed", "cuda-pred", "jnp",
+                      "cuda-pipe", "cuda-packed-pipe"},
             "tconv": {"ref", "cuda", "jnp"},
             "apec_matmul": {"ref", "jnp", "cuda", "cuda-packed",
                             "cuda-pred"}}

@@ -275,22 +275,29 @@ def test_apec_matmul_packed_matches_jax(g, carried):
 def test_dense_calls_never_resolve_to_a_packed_backend(card_routing,
                                                       monkeypatch):
     """With the platform read as `cuda` (no card here), dense calls land
-    on `cuda` and packed calls on `cuda-packed`; a packed call with no
-    packed backend on the card raises instead of unpacking."""
+    on `cuda` (`cuda-pipe` for the CSR-matmul ops) and packed calls on
+    `cuda-packed` (`cuda-packed-pipe`); a packed call with no packed
+    backend on the card raises instead of unpacking."""
     dense = dispatch.resolved_backends("cpu")
     packed = dispatch.resolved_backends("cpu", packed=True)
+    piped = ("spike_matmul", "econv")
     for op in dispatch.PACKED_OPS:
-        assert dense[op] == dispatch.CUDA, op
-        assert packed[op] == dispatch.CUDA_PACKED, op
-        be = dispatch.get_backend(op, dispatch.CUDA_PACKED)
-        assert be.payload == ("packed",) and be.platforms == ("cuda",)
+        assert dense[op] == (dispatch.CUDA_PIPE if op in piped
+                             else dispatch.CUDA), op
+        assert packed[op] == (dispatch.CUDA_PACKED_PIPE if op in piped
+                              else dispatch.CUDA_PACKED), op
+        for name in (dispatch.CUDA_PACKED, dispatch.CUDA_PACKED_PIPE):
+            if name in dispatch.backend_names(op):
+                be = dispatch.get_backend(op, name)
+                assert be.payload == ("packed",) and \
+                    be.platforms == ("cuda",)
     assert {op: b for op, b in packed.items()
             if op not in dispatch.PACKED_OPS} == \
         {op: b for op, b in dense.items() if op not in dispatch.PACKED_OPS}
-    be = dispatch.get_backend("spike_matmul", dispatch.CUDA_PACKED)
-    monkeypatch.setitem(dispatch._REGISTRY["spike_matmul"].backends,
-                        dispatch.CUDA_PACKED,
-                        dataclasses.replace(be, auto=False))
+    for name in (dispatch.CUDA_PACKED, dispatch.CUDA_PACKED_PIPE):
+        be = dispatch.get_backend("spike_matmul", name)
+        monkeypatch.setitem(dispatch._REGISTRY["spike_matmul"].backends,
+                            name, dataclasses.replace(be, auto=False))
     args, kwargs = dispatch._packed_example("spike_matmul",
                                             torch.device("cpu"))
     with pytest.raises(RuntimeError, match="packed-payload backend"):
@@ -428,5 +435,5 @@ def test_packed_segnet_matches_jax(card_routing, monkeypatch):
                                rtol=MODEL_TOL)
     assert len(fires) == 5
     assert all(f.spikes is None for f in fires)
-    assert routes == {("econv", "cuda"), ("econv", "cuda-packed"),
+    assert routes == {("econv", "cuda-pipe"), ("econv", "cuda-packed-pipe"),
                       ("tconv", "cuda"), ("lif_scan_occ", "cuda")}
