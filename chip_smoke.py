@@ -63,17 +63,23 @@ Phases, each printed on its own line:
       B=32, T=4, captured): the packed decompose kernel (kernel 19)
       exactly equal to its plain version for g = 2, 4, 8 on the FFN fc1
       input and the stage-1 patch matrix; the fused union-CSR APEC
-      matmul (kernel 17, g = 2) within 1e-5 * max|ref| + 1e-5 of its
-      plain version at fc1, fc2 and stage 1, on the model's maps and on
-      data with 50% occupied tiles, with kernel, plain, library and bound
-      times; kernels 17 and 15 at g = 1, 16 and 128 on fc1, against their
-      plain versions; then `core.apec.apec_matmul` on the FFN inputs and the
+      matmuls, serial (kernel 17) and pipelined (kernel 18), g = 2, each
+      within 1e-5 * max|ref| + 1e-5 of its plain version at fc1, fc2 and
+      stage 1, on the model's maps and on data with 50% occupied tiles,
+      kernel 18 equal to kernel 17 bit for bit, with kernel (timed in
+      turns 17, 18, 18, 17), plain, library (cuBLAS fp32 on the
+      unpacked spikes) and bound times; kernels 17 / 18 and 15 / 16 at
+      g = 1, 16 and 128 on fc1, against their plain versions and each
+      other; then `core.apec.apec_matmul` on the FFN inputs and the
       stage-1 patch matrix for g = 2 and 4, with the carried map and on
       the bare spikes: finite, within 1e-5 * max|ref| + 1e-5 of the CSR
-      matmul on the same spikes, exactly 1 decompose and 1 fused launch
-      per call, 0 dense pre-passes with the map and 2 without, its
-      device ms beside the CSR route's; and `apec_stats` (G2, G4, G8)
-      of every fire of the forward;
+      matmul on the same spikes, exactly 1 decompose and 1 kernel-18
+      launch per call (APEC_LAUNCHES), 0 dense pre-passes with the map
+      and 2 without, and one call on kernel 17 by override
+      (`use_backend("cuda", op="apec_matmul")`: APEC_SERIAL_LAUNCHES);
+      the route's device ms beside the serial route's and the CSR
+      routes'; and `apec_stats` (G2, G4, G8) of every fire of the
+      forward;
   (j) packed payloads (`SpikingConfig(packed=True)`, uint32 words between
       the spiking layers): the packed fire (kernel 6) at the stage-1 drive
       and at stage 0's K=48, words and counts equal to its plain version
@@ -81,10 +87,14 @@ Phases, each printed on its own line:
       (kernel 13) at the packed stage-1 patch matrix, fc1 and fc2 on the
       model's maps and on data with 50% occupied tiles, within
       1e-5 * max|ref| + 1e-5 of its plain version, and at fc1/fc2 against
-      kernel 11 on the same spikes; the packed APEC matmul (kernel 15,
-      g=2) at fc1 and fc2 on the forward's packed inputs, and
+      kernel 11 on the same spikes; the packed APEC matmuls, serial
+      (kernel 15) and pipelined (kernel 16), g=2, at fc1, fc2 and stage 1
+      on the forward's packed inputs, each against its plain version and
+      16 equal to 15 bit for bit, timed in turns; and
       `core.apec.apec_matmul` on them with the carried map (1 decompose +
-      1 fused launch, no pre-pass, no pack or unpack) beside the dense
+      1 kernel-16 launch, PACKED_APEC_LAUNCHES, no pre-pass, no pack or
+      unpack), once on kernel 15 by override (`use_backend("cuda-packed",
+      op="apec_matmul")`, equal to kernel 16's output), beside the dense
       APEC, CSR and packed CSR routes; then SpikingFormer-4-384 (4
       batches of 32) and VGG11, ResNet18, SegNet-64 (one batch of 32)
       packed forwards on the kernels (kernel 14; the coded conv on 12) and
@@ -121,7 +131,8 @@ Phases, each printed on its own line:
   (d) one JSON line listing every kernel with its launches on the main
       paths ((c) and (h) for inference kernels, (f) for the training
       ones, (i) for the APEC ones, (j) for the packed ones, (k) for the
-      LM ones), error and times.
+      LM ones; the serial kernels 11, 13, 15 and 17 by their override
+      calls), error and times (rows 16 and 18: kernels 16 and 18).
 Each phase prints its wall time on a `phase_time` line.
 The last line is {"ok": true, "device": {...}}. Any failed check exits
 nonzero before it; without a CUDA device, or without the repo's `src`
@@ -181,11 +192,21 @@ RAGGED_BATCHES = (1, 3)
 INFERENCE_KERNELS = ("lif_counts", "lif", "spike_matmul_csr",
                      "spike_matmul_csr_pipe", "spike_matmul_pred", "sdsa_or")
 TRAINING_KERNELS = ("lif_fwd", "lif_counts_fwd", "lif_bwd")
-APEC_KERNELS = ("apec_decompose", "apec_matmul_csr")
+APEC_KERNELS = ("apec_decompose", "apec_matmul_csr", "apec_matmul_csr_pipe")
+# Per `core.apec.apec_matmul` call on the card (every other kernel 0):
+# the pipelined kernel 18 automatically, the serial kernel 17 by
+# override; the packed calls likewise kernels 16 and 15.
+APEC_LAUNCHES = {"apec_decompose": 1, "apec_matmul_csr_pipe": 1}
+APEC_SERIAL_LAUNCHES = {"apec_decompose": 1, "apec_matmul_csr": 1}
+PACKED_APEC_LAUNCHES = {"apec_decompose": 1,
+                        "apec_matmul_packed_csr_pipe": 1}
+PACKED_APEC_SERIAL_LAUNCHES = {"apec_decompose": 1,
+                               "apec_matmul_packed_csr": 1}
 APEC_PATH_GROUPS = (2, 4)
 APEC_STAT_GROUPS = (2, 4, 8)
 PACKED_KERNELS = ("lif_counts_packed", "spike_matmul_packed_csr",
-                  "spike_matmul_packed_csr_pipe", "apec_matmul_packed_csr")
+                  "spike_matmul_packed_csr_pipe", "apec_matmul_packed_csr",
+                  "apec_matmul_packed_csr_pipe")
 # Per packed forward (T=4, B=32); every kernel not named launches 0 times.
 # The direct-coded first conv stays a dense econv (its drive is not
 # binary) on kernel 12; SegNet's transposed convs unpack and run kernel 10.
@@ -243,6 +264,10 @@ SOURCES = {"lif": "src/repro_torch/csrc/lif.cu",
                "src/repro_torch/csrc/spike_matmul_csr.cu",
            "apec_matmul_packed_csr":
                "src/repro_torch/csrc/apec_matmul_csr.cu",
+           "apec_matmul_csr_pipe":
+               "src/repro_torch/csrc/apec_matmul_csr_pipe.cu",
+           "apec_matmul_packed_csr_pipe":
+               "src/repro_torch/csrc/apec_matmul_csr_pipe.cu",
            "sdsa_causal": "src/repro_torch/csrc/sdsa_causal.cu",
            "lif_bf16": "src/repro_torch/csrc/lif.cu"}
 # Same inputs, one op call: the fire and attention ops are exact, the
@@ -279,6 +304,9 @@ REPLACES = {"lif": "src/repro/kernels/lif_scan.py:36",
             "lif_counts_packed": "src/repro/kernels/lif_scan.py:262",
             "spike_matmul_packed_csr": "src/repro/kernels/spike_matmul.py:296",
             "apec_matmul_packed_csr": "src/repro/kernels/spike_matmul.py:423",
+            "apec_matmul_csr_pipe": "src/repro/kernels/spike_matmul.py:616",
+            "apec_matmul_packed_csr_pipe":
+                "src/repro/kernels/spike_matmul.py:460",
             "sdsa_causal": "src/repro/kernels/sdsa_kernel.py:104",
             "lif_bf16": "src/repro/kernels/lif_scan.py:36"}
 
@@ -294,12 +322,11 @@ def check(ok: bool, what: str) -> None:
 
 def card_routes(dispatch, packed: bool = False) -> dict:
     """op -> the backend automatic selection must pick on the card: the
-    pipelined kernels for the CSR-matmul ops, `cuda` (`cuda-packed` for
-    packed APEC) for the rest."""
+    pipelined kernels for the CSR-matmul ops and APEC, `cuda` for the
+    rest."""
     piped = dispatch.CUDA_PACKED_PIPE if packed else dispatch.CUDA_PIPE
-    other = {"apec_matmul": dispatch.CUDA_PACKED} if packed else {}
-    return {op: piped if op in ("spike_matmul", "econv") else
-            other.get(op, dispatch.CUDA) for op in dispatch.op_names()}
+    return {op: piped if op in ("spike_matmul", "econv", "apec_matmul")
+            else dispatch.CUDA for op in dispatch.op_names()}
 
 
 @contextlib.contextmanager
@@ -330,6 +357,14 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def turns_ms(torch, fa, fb) -> tuple:
+    """Device ms of `fa` and `fb` timed in turns (a, b, b, a), each the
+    mean of its two turns: a comparison inside one call on one card."""
+    a1, b1 = cuda_ms(torch, fa), cuda_ms(torch, fb)
+    b2, a2 = cuda_ms(torch, fb), cuda_ms(torch, fa)
+    return (a1 + a2) / 2, (b1 + b2) / 2
 
 
 def bound_ms(n_bytes: float, flops: float = 0.0):
@@ -1269,12 +1304,39 @@ def phase_apec_decompose(torch, cap, results):
                 results["apec_decompose"] = rec
 
 
+APEC_PAIRS = (("apec_matmul_csr", "apec_matmul_csr_pipe"),
+              ("apec_matmul_packed_csr", "apec_matmul_packed_csr_pipe"))
+
+
+def apec_pair(torch, serial, pipe, args, what):
+    """The serial APEC kernel `serial` (17 or 15) and its pipelined twin
+    `pipe` (18 or 16) on the same call: each within 1e-5 * max|ref| +
+    1e-5 of its plain version, the twin equal to the serial kernel bit for
+    bit. Returns ({name: (error, tolerance, plain version)}, max |delta|)."""
+    from repro_torch.kernels import spike_matmul
+    got = {}
+    for name in (serial, pipe):
+        plain = getattr(spike_matmul, name + "_plain")
+        out, ref = getattr(spike_matmul, name)(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = 1e-5 * ref.abs().max().item() + 1e-5
+        check(err <= tol, f"{name} off by {err} > {tol} ({what})")
+        got[name] = (out, err, tol, plain)
+    delta = (got[pipe][0] - got[serial][0]).abs().max().item()
+    check(delta == 0.0, f"{pipe} differs from {serial} by {delta} ({what})")
+    return {n: v[1:] for n, v in got.items()}, delta
+
+
 def phase_apec_matmul_kernel(torch, gen, cap, results):
-    """Kernel 17 (g = 2) against its plain version at FFN fc1, fc2 and the
-    stage-1 patch matmul, on the model's spikes and on clustered data."""
+    """Kernels 17 and 18 (g = 2) at FFN fc1, fc2 and the stage-1 patch
+    matmul, on the model's spikes and on clustered data: each against its
+    plain version, 18 against 17 bit for bit, timed in turns beside
+    cuBLAS fp32 on the same spikes."""
     from repro_torch.core.spikes import ragged_tile_occupancy
     from repro_torch.kernels import dispatch, ops, spike_matmul
     g = 2
+    serial, pipe = APEC_PAIRS[0]
     (s1, w1, _), (s2, w2, _) = cap["spike_matmul"][:2]
     s_conv, w_conv, _ = cap["econv"][0]
     kh, kw, ci, co = w_conv.shape
@@ -1283,7 +1345,7 @@ def phase_apec_matmul_kernel(torch, gen, cap, results):
              ("econv_stage1",
               dispatch.econv_patches(s_conv, kh, kw, 1, "SAME"),
               w_conv.permute(2, 0, 1, 3).reshape(ci * kh * kw, co)))
-    worst = 0.0
+    worst = {serial: 0.0, pipe: 0.0}
     for label, s_model, w in cases:
         m, k = s_model.shape
         n = w.shape[1]
@@ -1292,42 +1354,40 @@ def phase_apec_matmul_kernel(torch, gen, cap, results):
         for data, s in (("model", s_model), ("clustered50", syn)):
             ov, res = ops.apec_decompose(s, g)
             res, ov = res.contiguous(), ov.contiguous()
-            csr, occ_r, occ_o = ops.apec_union_worklist(res, ov, g)
-            args = (res, ov, w, g, csr, occ_r, occ_o)
-            kernel = functools.partial(spike_matmul.apec_matmul_csr, *args)
-            plain = functools.partial(spike_matmul.apec_matmul_csr_plain,
-                                      *args)
-            out, ref = kernel(), plain()
-            torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
-            tol = 1e-5 * ref.abs().max().item() + 1e-5
-            check(err <= tol, f"APEC CSR kernel off by {err} > {tol} "
-                  f"({label}, {data})")
-            worst = max(worst, err)
+            args = (res, ov, w, g) + ops.apec_union_worklist(res, ov, g)
+            errs, delta = apec_pair(torch, serial, pipe, args,
+                                    f"{label}, {data}")
             map_r = ops.padded_occupancy(res)
             map_o = ragged_tile_occupancy(ov, 128 // g, 128)
             flops, n_bytes = csr_work(torch, map_r, m, k, n, map_o, g)
             b_ms, by = bound_ms(n_bytes, flops)
-            rec = dict(max_abs_err=err, tolerance=tol,
-                       ms=cuda_ms(torch, kernel),
-                       plain_ms=cuda_ms(torch, plain, reps=5),
-                       bound_ms=b_ms, bound_by=by,
-                       bytes_bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
-                       ops_bound_ms=flops / FP32_FLOPS * 1e3,
-                       library_ms=cuda_ms(torch, functools.partial(
-                           torch.matmul, s, w)),
-                       residual_occupied_share=(map_r > 0).float().mean()
-                       .item(),
-                       overlap_occupied_share=(map_o > 0).float().mean()
-                       .item(),
-                       overlap_density=ov.mean().item(),
-                       spike_density=s.mean().item(), g=g,
-                       shape=[m, k, n])
-            emit("kernel", name="apec_matmul_csr", case=f"{label}_{data}",
-                 **rec)
-            if (label, data) == ("econv_stage1", "model"):
-                results["apec_matmul_csr"] = rec
-    results["apec_matmul_csr"]["max_abs_err"] = worst
+            library_ms = cuda_ms(torch, functools.partial(torch.matmul, s, w))
+            times = turns_ms(torch, functools.partial(
+                spike_matmul.apec_matmul_csr, *args), functools.partial(
+                spike_matmul.apec_matmul_csr_pipe, *args))
+            for name, ms in zip((serial, pipe), times):
+                err, tol, plain = errs[name]
+                worst[name] = max(worst[name], err)
+                rec = dict(max_abs_err=err, tolerance=tol, ms=ms,
+                           plain_ms=cuda_ms(torch, functools.partial(
+                               plain, *args), reps=3, warmup=1),
+                           bound_ms=b_ms, bound_by=by,
+                           bytes_bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+                           ops_bound_ms=flops / FP32_FLOPS * 1e3,
+                           library_ms=library_ms,
+                           kernel17_max_abs_delta=delta,
+                           residual_occupied_share=(map_r > 0).float()
+                           .mean().item(),
+                           overlap_occupied_share=(map_o > 0).float()
+                           .mean().item(),
+                           overlap_density=ov.mean().item(),
+                           spike_density=s.mean().item(), g=g,
+                           shape=[m, k, n])
+                emit("kernel", name=name, case=f"{label}_{data}", **rec)
+                if (label, data) == ("econv_stage1", "model"):
+                    results[name] = rec
+    for name, err in worst.items():
+        results[name]["max_abs_err"] = err
 
 
 # g = 1 needs the 64 KB epilogue tile in dynamic shared memory; at 16 and
@@ -1336,8 +1396,9 @@ APEC_WIDE_GROUPS = (1, 16, 128)
 
 
 def phase_apec_groups(torch, cap):
-    """Kernels 17 and 15 at APEC_WIDE_GROUPS on the FFN fc1 spikes: within
-    1e-5 * max|ref| + 1e-5 of their plain versions."""
+    """Kernels 17 / 18 (f32) and 15 / 16 (words) at APEC_WIDE_GROUPS on the
+    FFN fc1 spikes: within 1e-5 * max|ref| + 1e-5 of their plain versions,
+    18 equal to 17 and 16 to 15 bit for bit, timed in turns."""
     from repro_torch.core.spikes import pack_spikes_padded
     from repro_torch.kernels import apec_kernel, ops, spike_matmul
     s1, w1, _ = cap["spike_matmul"][0]
@@ -1348,30 +1409,28 @@ def phase_apec_groups(torch, cap):
         ov, res = ops.apec_decompose(s, g)
         res, ov = res.contiguous(), ov.contiguous()
         ov_p, res_p = apec_kernel.apec_decompose_packed(words, g)
-        for name, kernel, plain, args in (
-                ("apec_matmul_csr", spike_matmul.apec_matmul_csr,
-                 spike_matmul.apec_matmul_csr_plain,
-                 (res, ov, w, g) + ops.apec_union_worklist(res, ov, g)),
-                ("apec_matmul_packed_csr", spike_matmul.apec_matmul_packed_csr,
-                 spike_matmul.apec_matmul_packed_csr_plain,
-                 (res_p, ov_p, w, g) + ops.apec_union_worklist(
-                     res_p, ov_p, g, packed=True))):
-            out, ref = kernel(*args), plain(*args)
-            torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
-            tol = 1e-5 * ref.abs().max().item() + 1e-5
-            check(err <= tol, f"{name} off by {err} > {tol} at g={g}")
-            emit("kernel", name=name, case=f"ffn_fc1_g{g}", g=g,
-                 max_abs_err=err, tolerance=tol,
-                 ms=cuda_ms(torch, functools.partial(kernel, *args)),
-                 overlap_density=ov.mean().item(), shape=list(s.shape))
+        for (serial, pipe), args in zip(APEC_PAIRS, (
+                (res, ov, w, g) + ops.apec_union_worklist(res, ov, g),
+                (res_p, ov_p, w, g) + ops.apec_union_worklist(
+                    res_p, ov_p, g, packed=True))):
+            errs, delta = apec_pair(torch, serial, pipe, args, f"g={g}")
+            times = turns_ms(torch, functools.partial(
+                getattr(spike_matmul, serial), *args), functools.partial(
+                getattr(spike_matmul, pipe), *args))
+            for name, ms in zip((serial, pipe), times):
+                emit("kernel", name=name, case=f"ffn_fc1_g{g}", g=g,
+                     max_abs_err=errs[name][0], tolerance=errs[name][1],
+                     ms=ms, serial_max_abs_delta=delta,
+                     overlap_density=ov.mean().item(), shape=list(s.shape))
 
 
 def phase_apec_path(torch, cap):
     """`core.apec.apec_matmul` on the FFN inputs (EventTensors with their
     carried maps) and the stage-1 patch matrix (with its propagated map),
-    g = 2 and 4, with the map and bare; launches, pre-passes and agreement
-    with the CSR matmul on the same spikes, and both routes' device ms."""
+    g = 2 and 4, with the map and bare: exactly APEC_LAUNCHES (kernel 18),
+    the pre-passes, agreement with the CSR matmul on the same spikes; one
+    call on kernel 17 by override (APEC_SERIAL_LAUNCHES); the route's,
+    the serial route's and the CSR routes' device ms."""
     from repro_torch.core import apec
     from repro_torch.core.events import EventTensor
     from repro_torch.core.spikes import watch_occupancy_prepasses
@@ -1387,6 +1446,19 @@ def phase_apec_path(torch, cap):
                w_conv.permute(2, 0, 1, 3).reshape(ci * kh * kw, co)
                .contiguous()))
     totals = {name: 0 for name in APEC_KERNELS}
+
+    def counted(fn, want, what):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        with torch.inference_mode(), watch_occupancy_prepasses() as pre:
+            out = fn()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check(counts == {name: want.get(name, 0) for name in counts},
+              f"{what}: launches {counts} != {want}")
+        for name in totals:
+            totals[name] += counts[name]
+        return out, pre["calls"]
     for label, et, w in inputs:
         check(et.occupancy is not None, f"{label}: no carried map")
         with torch.inference_mode():
@@ -1404,36 +1476,37 @@ def phase_apec_path(torch, cap):
                            torch, lambda: ops.apec_decompose(flat, g)))
             for form, operand, prepasses in (("carried", et, 0),
                                              ("bare", et.spikes, 2)):
-                reset_launch_counts()
-                torch.cuda.synchronize()
-                with torch.inference_mode(), \
-                        watch_occupancy_prepasses() as pre:
-                    out = apec.apec_matmul(operand, w, g)
-                torch.cuda.synchronize()
-                counts = launch_counts()
-                want = {name: int(name in APEC_KERNELS) for name in counts}
-                check(counts == want, f"{label} g={g} {form}: launches "
-                      f"{counts} != {want}")
-                check(pre["calls"] == prepasses,
-                      f"{label} g={g} {form}: {pre['calls']} dense "
-                      f"pre-passes, expected {prepasses}")
-                for name in totals:
-                    totals[name] += counts[name]
+                what = f"{label} g={g} {form}"
+                out, pre = counted(lambda: apec.apec_matmul(operand, w, g),
+                                   APEC_LAUNCHES, what)
+                check(pre == prepasses, f"{what}: {pre} dense pre-passes, "
+                      f"expected {prepasses}")
                 check(tuple(out.shape) == tuple(csr_out.shape) and
                       bool(torch.isfinite(out).all()),
-                      f"{label} g={g} {form}: output not finite / shape "
+                      f"{what}: output not finite / shape "
                       f"{tuple(out.shape)}")
                 err = (out - csr_out).abs().max().item()
-                check(err <= tol, f"{label} g={g} {form}: APEC off the CSR "
-                      f"matmul by {err} > {tol}")
+                check(err <= tol, f"{what}: APEC off the CSR matmul by "
+                      f"{err} > {tol}")
                 with torch.inference_mode():
                     rec[f"{form}_ms"] = cuda_ms(
                         torch, lambda: apec.apec_matmul(operand, w, g))
                 rec[f"{form}_max_abs_err"] = err
-                rec[f"{form}_launches"] = {n: counts[n] for n in
-                                           APEC_KERNELS}
-                rec[f"{form}_prepasses"] = pre["calls"]
-            emit("apec_path", **rec)
+                rec[f"{form}_prepasses"] = pre
+            # The serial kernel 17 by override, carried map.
+            with dispatch.use_backend(dispatch.CUDA, op="apec_matmul"):
+                ser, _ = counted(lambda: apec.apec_matmul(et, w, g),
+                                 APEC_SERIAL_LAUNCHES, f"{label} g={g} "
+                                 f"serial")
+                with torch.inference_mode():
+                    rec["serial_carried_ms"] = cuda_ms(
+                        torch, lambda: apec.apec_matmul(et, w, g))
+            err = (ser - csr_out).abs().max().item()
+            check(err <= tol, f"{label} g={g} serial: APEC off the CSR "
+                  f"matmul by {err} > {tol}")
+            rec["serial_max_abs_err"] = err
+            emit("apec_path", launches=APEC_LAUNCHES,
+                 serial_launches=APEC_SERIAL_LAUNCHES, **rec)
     return totals
 
 
@@ -1637,24 +1710,42 @@ def count_pack_calls():
 
 
 def phase_packed_apec(torch, cap, results):
-    """Kernel 15 (g=2) at fc1 and fc2 on the forward's packed inputs and
-    at the packed stage-1 patch matrix, and `core.apec.apec_matmul` on
-    them (fc1/fc2 with the carried map; stage 1 bare, as its econv has no
-    map to carry), beside the dense APEC route, the CSR route and the
-    packed CSR route on the same spikes."""
+    """Kernels 15 and 16 (g=2) at fc1 and fc2 on the forward's packed
+    inputs and at the packed stage-1 patch matrix: each against its plain
+    version, 16 against 15 bit for bit, timed in turns; and
+    `core.apec.apec_matmul` on them (fc1/fc2 with the carried map; stage
+    1 bare, as its econv has no map to carry): exactly
+    PACKED_APEC_LAUNCHES (kernel 16), one call on kernel 15 by override,
+    beside the dense APEC, CSR and packed CSR routes on the same
+    spikes."""
     from repro_torch.core import apec
     from repro_torch.core.events import EventTensor
     from repro_torch.core.spikes import (ragged_packed_tile_occupancy,
                                          watch_occupancy_prepasses,
                                          watch_word_prepasses)
-    from repro_torch.kernels import (apec_kernel, launch_counts, ops,
-                                     reset_launch_counts, spike_matmul)
+    from repro_torch.kernels import (apec_kernel, dispatch, launch_counts,
+                                     ops, reset_launch_counts, spike_matmul)
     g = 2
+    serial, pipe = APEC_PAIRS[1]
     ffn = [(args[0], args[1], kw["occupancy"]) for op, args, kw in
            cap["calls"] if op == "spike_matmul"][:2]
     stage1 = cap["csr"][0][:2] + (None,)
     totals = {name: 0 for name in PACKED_KERNELS}
-    worst = 0.0
+    worst = {serial: 0.0, pipe: 0.0}
+
+    def counted(fn, want, what):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        with torch.inference_mode(), watch_occupancy_prepasses() as pre, \
+                watch_word_prepasses() as wpre, count_pack_calls() as packs:
+            out = fn()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check(counts == {name: want.get(name, 0) for name in counts},
+              f"{what}: packed APEC launches {counts} != {want}")
+        for name in totals:
+            totals[name] += counts[name]
+        return out, pre["calls"], wpre["calls"], packs["calls"]
     for label, (words, w, occ) in zip(("ffn_fc1", "ffn_fc2", "econv_stage1"),
                                       ffn + [stage1]):
         k, n = w.shape
@@ -1663,66 +1754,64 @@ def phase_packed_apec(torch, cap, results):
         p2 = words.reshape(-1, words.shape[-1]).contiguous()
         m = p2.shape[0]
         ov, res = apec_kernel.apec_decompose_packed(p2, g)
-        csr, occ_r, occ_o = ops.apec_union_worklist(res, ov, g, packed=True)
-        call = (res, ov, w, g, csr, occ_r, occ_o)
-        out = spike_matmul.apec_matmul_packed_csr(*call)
-        ref = spike_matmul.apec_matmul_packed_csr_plain(*call)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        tol = 1e-5 * ref.abs().max().item() + 1e-5
-        check(err <= tol, f"packed APEC kernel off by {err} > {tol} "
-              f"({label})")
-        worst = max(worst, err)
+        call = (res, ov, w, g) + ops.apec_union_worklist(res, ov, g,
+                                                         packed=True)
+        errs, delta = apec_pair(torch, serial, pipe, call, label)
         map_r = ragged_packed_tile_occupancy(res, 128, 128)
         map_o = ragged_packed_tile_occupancy(ov, 128 // g, 128)
         flops, n_bytes = csr_work(torch, map_r, m, k, n, map_o, g,
                                   spike_bytes=1 / 8)
         b_ms, by = bound_ms(n_bytes, flops)
         flat = dense_et.spikes.reshape(-1, k)
-        rec = dict(max_abs_err=err, tolerance=tol,
-                   ms=cuda_ms(torch, functools.partial(
-                       spike_matmul.apec_matmul_packed_csr, *call)),
-                   plain_ms=cuda_ms(torch, functools.partial(
-                       spike_matmul.apec_matmul_packed_csr_plain, *call),
-                       reps=5),
-                   bound_ms=b_ms, bound_by=by,
-                   library_ms=cuda_ms(torch, functools.partial(
-                       torch.matmul, flat, w)),
-                   residual_occupied_share=(map_r > 0).float().mean().item(),
-                   overlap_occupied_share=(map_o > 0).float().mean().item(),
-                   g=g, shape=[m, p2.shape[1], k, n])
-        emit("kernel", name="apec_matmul_packed_csr", case=label, **rec)
-        if label == "ffn_fc1":
-            results["apec_matmul_packed_csr"] = rec
+        library_ms = cuda_ms(torch, functools.partial(torch.matmul, flat, w))
+        times = turns_ms(torch, functools.partial(
+            spike_matmul.apec_matmul_packed_csr, *call), functools.partial(
+            spike_matmul.apec_matmul_packed_csr_pipe, *call))
+        for name, ms in zip((serial, pipe), times):
+            err, tol, plain = errs[name]
+            worst[name] = max(worst[name], err)
+            rec = dict(max_abs_err=err, tolerance=tol, ms=ms,
+                       plain_ms=cuda_ms(torch, functools.partial(
+                           plain, *call), reps=3, warmup=1),
+                       bound_ms=b_ms, bound_by=by,
+                       bytes_bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+                       ops_bound_ms=flops / FP32_FLOPS * 1e3,
+                       library_ms=library_ms, kernel15_max_abs_delta=delta,
+                       residual_occupied_share=(map_r > 0).float().mean()
+                       .item(),
+                       overlap_occupied_share=(map_o > 0).float().mean()
+                       .item(),
+                       g=g, shape=[m, p2.shape[1], k, n])
+            emit("kernel", name=name, case=label, **rec)
+            if label == "ffn_fc1":
+                results[name] = rec
         # The public entry point on the packed EventTensor, carried map.
         with torch.inference_mode():
             csr_out = ops.spike_matmul_csr(dense_et, w)
-        reset_launch_counts()
-        torch.cuda.synchronize()
-        with torch.inference_mode(), watch_occupancy_prepasses() as pre, \
-                watch_word_prepasses() as wpre, count_pack_calls() as packs:
-            got = apec.apec_matmul(et, w, g)
-        torch.cuda.synchronize()
-        counts = launch_counts()
-        want = {name: int(name in ("apec_decompose", "apec_matmul_packed_csr"))
-                for name in counts}
-        check(counts == want, f"{label}: packed APEC launches {counts}")
-        check(pre["calls"] == 0 and wpre["calls"] == (0 if occ is not None
-                                                      else 2) and
-              packs["calls"] == 0, f"{label}: packed APEC route ran "
-              f"{pre['calls']} dense and {wpre['calls']} word pre-passes and "
-              f"{packs['calls']} packs or unpacks")
-        for name in totals:
-            totals[name] += counts[name]
+        got, pre, wpre, packs = counted(lambda: apec.apec_matmul(et, w, g),
+                                        PACKED_APEC_LAUNCHES, label)
+        check(pre == 0 and wpre == (0 if occ is not None else 2) and
+              packs == 0, f"{label}: packed APEC route ran {pre} dense and "
+              f"{wpre} word pre-passes and {packs} packs or unpacks")
         route_err = (got - csr_out).abs().max().item()
         route_tol = 1e-5 * csr_out.abs().max().item() + 1e-5
         check(bool(torch.isfinite(got).all()) and route_err <= route_tol,
               f"{label}: packed APEC route off the CSR matmul by "
               f"{route_err} > {route_tol}")
+        # The serial kernel 15 by override.
+        with dispatch.use_backend(dispatch.CUDA_PACKED, op="apec_matmul"):
+            ser, *_ = counted(lambda: apec.apec_matmul(et, w, g),
+                              PACKED_APEC_SERIAL_LAUNCHES, f"{label} serial")
+            with torch.inference_mode():
+                serial_ms = cuda_ms(torch, lambda: apec.apec_matmul(et, w,
+                                                                    g))
+        check(torch.equal(ser, got), f"{label}: the packed APEC route on "
+              f"kernel 15 differs from kernel 16's")
         with torch.inference_mode():
             routes = dict(
                 packed_apec_ms=cuda_ms(torch, lambda: apec.apec_matmul(
                     et, w, g)),
+                packed_apec_serial_ms=serial_ms,
                 dense_apec_ms=cuda_ms(torch, lambda: apec.apec_matmul(
                     dense_et, w, g)),
                 csr_ms=cuda_ms(torch, lambda: ops.spike_matmul_csr(
@@ -1735,11 +1824,11 @@ def phase_packed_apec(torch, cap, results):
                     torch, lambda: ops.spike_matmul_packed(et, w,
                                                            pipeline=True)))
         emit("packed_apec_path", case=label, g=g, carried=occ is not None,
-             word_prepasses=wpre["calls"], launches={
-                 n_: counts[n_] for n_ in ("apec_decompose",
-                                           "apec_matmul_packed_csr")},
+             word_prepasses=wpre, launches=PACKED_APEC_LAUNCHES,
+             serial_launches=PACKED_APEC_SERIAL_LAUNCHES,
              max_abs_err=route_err, tolerance=route_tol, **routes)
-    results["apec_matmul_packed_csr"]["max_abs_err"] = worst
+    for name, err in worst.items():
+        results[name]["max_abs_err"] = err
     return totals
 
 
@@ -1922,8 +2011,8 @@ def phase_packed_models(torch, device):
 
 
 def phase_packed(torch, gen, device, results):
-    """Phase (j): the three packed kernels against their plain versions,
-    the packed APEC route, and the packed model forwards."""
+    """Phase (j): the packed kernels against their plain versions, the
+    packed APEC route, and the packed model forwards."""
     phase_packed_fire(torch, gen, device, results)
     cap = packed_capture(torch, device)
     phase_packed_csr(torch, gen, cap, results)

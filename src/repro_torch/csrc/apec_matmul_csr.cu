@@ -3,11 +3,11 @@
 // spikes or as uint32 words.
 //
 // Replaces: src/repro/kernels/spike_matmul.py::_apec_matmul_csr_kernel
-//           and ::_apec_matmul_csr_pipe_kernel (apec_matmul_csr_pallas,
-//           pipeline=False/True; both compute the same function), and, on
-//           words, ::_apec_matmul_packed_csr_kernel and
-//           ::_apec_matmul_packed_csr_pipe_kernel
-//           (apec_matmul_packed_csr_pallas, pipeline=False/True).
+//           (apec_matmul_csr_pallas, pipeline=False) and, on words,
+//           ::_apec_matmul_packed_csr_kernel (apec_matmul_packed_csr_pallas,
+//           pipeline=False). Their prefetching twins (pipeline=True) are
+//           csrc/apec_matmul_csr_pipe.cu, the routes picked on the card;
+//           this serial kernel stays reachable by override.
 // Bound on the H100: operations at the main path's densities. An occupied
 //           residual step costs 2*128*128*N flops and an occupied overlap
 //           step 2*(128/g)*128*N, against 64 KB and 64/g KB of spikes:
@@ -30,24 +30,21 @@
 //           overlap tile has 128/g <= 8 rows, fewer than the 16 thread
 //           rows: thread row ty < 128/g owns overlap row ty (a 1 x 8
 //           block) and the other thread rows skip the overlap dot, so
-//           every group size that divides 128 keeps the same k order. Dummy steps (counts
-//           0) zero empty rows; padding steps past row_ptr[MT] are never
-//           reached. The epilogue parks the overlap sums in shared memory
-//           (aliasing the staging buffers) and writes acc_res[i] +
-//           acc_ov[i / g] for every row i: the repeat happens here, with
-//           no pass over the full output. Ragged M, K and N are masked on
-//           load and store; no operand is padded. g is any divisor of 128
-//           (a template parameter: 1, 2, ..., 128). The staging union
-//           lives in dynamic shared memory, opted in past 48 KB
-//           (tile_fma::allow_dynamic_smem): at g = 1 its 128 x 128 f32
-//           epilogue tile is 64 KB. The loop is this file's own, so kernels
-//           10 and 11 keep their code; the TPU's prefetching twins
-//           (rows 18 and 16) are still to port onto csrc/tile_mma.cuh's
-//           cp.async ring. Both operands are read
-//           through tile_fma.cuh's loaders: the packed form stages each
-//           live operand's word tile (128 x 4 and 128/g x 4 words) once
-//           per step and unpacks bits into the same slices, so its sums
-//           equal the f32 form's on the same spikes.
+//           every group size that divides 128 keeps the same k order.
+//           Dummy steps (counts 0) zero empty rows; padding steps past
+//           row_ptr[MT] are never reached. The epilogue parks the overlap sums
+//           in shared memory (aliasing the staging buffers) and writes
+//           acc_res[i] + acc_ov[i / g] for every row i: the repeat happens
+//           here, with no pass over the full output. Ragged M, K and N are
+//           masked on load and store; no operand is padded. g is any divisor of
+//           128 (a template parameter: 1, 2, ..., 128). The staging union lives
+//           in dynamic shared memory, opted in past 48 KB
+//           (tile_fma::allow_dynamic_smem): at g = 1 its 128 x 128 f32 epilogue
+//           tile is 64 KB. The loop is this file's own, so kernels 10 and 11
+//           keep their code. Both operands are read through tile_fma.cuh's
+//           loaders: the packed form stages each live operand's word tile (128
+//           x 4 and 128/g x 4 words) once per step and unpacks bits into the
+//           same slices, so its sums equal the f32 form's on the same spikes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -223,23 +220,6 @@ cudaError_t launch(RA ra, OA oa, const float* w, float* out,
   return cudaSuccess;
 }
 
-// Calls fn(std::integral_constant<int, G>) for the group size g, one of
-// the divisors of 128; false for any other g.
-template <class Fn>
-bool dispatch_g(int64_t g, Fn&& fn) {
-  switch (g) {
-    case 1: fn(std::integral_constant<int, 1>{}); return true;
-    case 2: fn(std::integral_constant<int, 2>{}); return true;
-    case 4: fn(std::integral_constant<int, 4>{}); return true;
-    case 8: fn(std::integral_constant<int, 8>{}); return true;
-    case 16: fn(std::integral_constant<int, 16>{}); return true;
-    case 32: fn(std::integral_constant<int, 32>{}); return true;
-    case 64: fn(std::integral_constant<int, 64>{}); return true;
-    case 128: fn(std::integral_constant<int, 128>{}); return true;
-    default: return false;
-  }
-}
-
 }  // namespace
 
 // res: (M, K) f32, ov: (M/g, K) f32, w: (K, N) f32, out: (M, N) f32;
@@ -257,7 +237,7 @@ extern "C" int apec_matmul_csr_forward(const float* res, const float* ov,
     cudaStream_t st = (cudaStream_t)stream;
     const tile_fma::DenseA ra{res, m, k}, oa{ov, m / g, k};
     cudaError_t err = cudaSuccess;
-    if (!dispatch_g(g, [&](auto gc) {
+    if (!tile_fma::dispatch_group(g, [&](auto gc) {
           err = launch<decltype(gc)::value>(ra, oa, w, out, row_ptr,
                                             tile_k_idx, occ_res, occ_ov, m,
                                             k, n, mt, st);
@@ -280,7 +260,7 @@ extern "C" int apec_matmul_packed_csr_forward(
     cudaStream_t st = (cudaStream_t)stream;
     const tile_fma::PackedA<kTile> ra{res, m, kw, nullptr};
     cudaError_t err = cudaSuccess;
-    if (!dispatch_g(g, [&](auto gc) {
+    if (!tile_fma::dispatch_group(g, [&](auto gc) {
           constexpr int G = decltype(gc)::value;
           err = launch<G>(ra,
                           tile_fma::PackedA<kTile / G>{ov, m / G, kw, nullptr},

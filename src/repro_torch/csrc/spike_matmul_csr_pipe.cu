@@ -53,8 +53,8 @@ csr_pipe_kernel(A a, const float* __restrict__ w, float* __restrict__ out,
 #pragma unroll
     for (int j = 0; j < BN / kT; ++j) acc[i][j] = 0.0f;
 
-  RowCursor cur(occ, tile_k_idx, row_ptr[blockIdx.x],
-                row_ptr[blockIdx.x + 1], k);
+  RowCursor<OneGate> cur(OneGate{occ}, tile_k_idx, row_ptr[blockIdx.x],
+                         row_ptr[blockIdx.x + 1], k);
   auto issue = [&](int slot) {
     unsigned char* stage = ring + slot * kStage;
     a.issue(stage, m0, cur.k0());
@@ -123,8 +123,8 @@ extern "C" int spike_matmul_csr_pipe_forward(
     const int* tile_k_idx, const int* occ, int64_t m, int64_t k, int64_t n,
     int64_t mt, void* stream) {
   const bool vec = k % 4 == 0 && (uintptr_t)s % 16 == 0;
-  return launch(DenseSpikes{s, m, k, vec}, w, out, row_ptr, tile_k_idx, occ,
-                m, k, n, mt, stream);
+  return launch(DenseSpikes<>{s, m, k, vec}, w, out, row_ptr, tile_k_idx,
+                occ, m, k, n, mt, stream);
 }
 
 // p: (M, KW) uint32 words covering K <= 32*KW columns (bits past K zero),
@@ -134,6 +134,6 @@ extern "C" int spike_matmul_packed_csr_pipe_forward(
     const uint32_t* p, const float* w, float* out, const int* row_ptr,
     const int* tile_k_idx, const int* occ, int64_t m, int64_t kw, int64_t k,
     int64_t n, int64_t mt, void* stream) {
-  return launch(PackedSpikes{p, m, kw}, w, out, row_ptr, tile_k_idx, occ, m,
-                k, n, mt, stream);
+  return launch(PackedSpikes<>{p, m, kw}, w, out, row_ptr, tile_k_idx, occ,
+                m, k, n, mt, stream);
 }

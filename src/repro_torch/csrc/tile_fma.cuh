@@ -1,10 +1,10 @@
 // The register-blocked fp32 tile loop of the serial spike matmul kernels
 // (csrc/spike_matmul_csr.cu, csrc/spike_matmul.cu), the spike-operand
 // loaders they and csrc/apec_matmul_csr.cu read through, and the dynamic
-// shared-memory opt-in that csrc/apec_matmul_csr.cu and csrc/tile_mma.cuh
-// launch with. The pipelined kernels (TPU rows 12 and 14) feed the same
-// fmaf arithmetic from csrc/tile_mma.cuh's cp.async ring instead of this
-// loop's synchronous staging.
+// shared-memory opt-in and the group-size dispatch that csrc/apec_matmul_csr.cu
+// and csrc/tile_mma.cuh launch with. The pipelined kernels (TPU rows 12,
+// 14, 16 and 18) feed the same fmaf arithmetic from csrc/tile_mma.cuh's
+// cp.async ring instead of this loop's synchronous staging.
 //
 // A block owns one 128-row x BN-column output tile. Each occupied
 // 128-deep k-tile streams its s tile and w tile through shared memory in
@@ -27,6 +27,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace tile_fma {
 
 // Lets `kernel` launch with `bytes` of dynamic shared memory, past the
@@ -37,6 +39,24 @@ inline cudaError_t allow_dynamic_smem(Kernel* kernel, int bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               bytes);
+}
+
+// Calls fn(std::integral_constant<int, G>) for APEC's group size g, one
+// of the divisors of 128 (a group never straddles two 128-row tiles);
+// false for any other g.
+template <class Fn>
+bool dispatch_group(int64_t g, Fn&& fn) {
+  switch (g) {
+    case 1: fn(std::integral_constant<int, 1>{}); return true;
+    case 2: fn(std::integral_constant<int, 2>{}); return true;
+    case 4: fn(std::integral_constant<int, 4>{}); return true;
+    case 8: fn(std::integral_constant<int, 8>{}); return true;
+    case 16: fn(std::integral_constant<int, 16>{}); return true;
+    case 32: fn(std::integral_constant<int, 32>{}); return true;
+    case 64: fn(std::integral_constant<int, 64>{}); return true;
+    case 128: fn(std::integral_constant<int, 128>{}); return true;
+    default: return false;
+  }
 }
 
 constexpr int kTile = 128;          // map tile (rows and k)

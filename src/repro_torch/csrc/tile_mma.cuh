@@ -5,15 +5,19 @@
 // A block owns one 128-row m-tile x BN output columns and walks its row's
 // work-list steps row_ptr[r]..row_ptr[r+1] as kSlice-deep k-slices. Each
 // ring stage holds one slice: the spike slice (f32 spikes, or one uint32
-// word per row) and the weight slice (kSlice x BN f32). The issue side
-// (`RowCursor`) runs kStages-1 slices ahead of compute, across step
-// boundaries within the row. The gate contract of the TPU kernels'
-// `_weight_prefetch` (src/repro/kernels/spike_matmul.py:116) holds: a step
-// with occ == 0 issues no copy, every committed group holds one slice's
-// copies, and the consumer waits on exactly the groups that were
+// word per row) and the weight slice (kSlice x BN f32); APEC's stages
+// (csrc/apec_matmul_csr_pipe.cu) hold a residual slice, an overlap slice
+// of 128/g rows and the weight slice. The issue side (`RowCursor`) runs
+// kStages-1 slices ahead of compute, across step boundaries within the
+// row. The gate contract of the TPU kernels' `_weight_prefetch`
+// (src/repro/kernels/spike_matmul.py:116) holds: a step whose gate is
+// dead (occ == 0; for APEC both counts 0) issues no copy, an operand
+// whose count is 0 is not copied, every committed group holds one
+// slice's copies, and the consumer waits on exactly the groups that were
 // committed (`wait_pending`, never on an unissued group).
-// tests/test_torch_pipe.py holds the CPU twin of this schedule
-// (`kernels/spike_matmul.py::ring_schedule`) to that contract.
+// tests/test_torch_pipe.py and tests/test_torch_apec_pipe.py hold the CPU
+// twin of this schedule (`kernels/spike_matmul.py::ring_schedule`) to
+// that contract.
 //
 // Compute is fp32 FMA on the CUDA cores, each output summed in k order
 // with fmaf, as kernel 11 (csrc/tile_fma.cuh) and cuBLAS's fp32 GEMM sum
@@ -89,29 +93,55 @@ __device__ __forceinline__ void wait_pending(int pending) {
 }
 
 // ------------------------------------------------------------ work list
-// Walks one m-tile row's occupied steps slice by slice: the ring's issue
-// side (and, as a count, its consume side). Every thread holds its own
-// copy and moves it identically, so the walk is block-uniform.
-struct RowCursor {
+// A step's gate: the operands whose tile holds events at the step, as a
+// bit mask (bit 0 the spike operand, or APEC's residual; bit 1 APEC's
+// overlap). A step whose mask is 0 issues no copy.
+struct OneGate {
   const int* __restrict__ occ;
+  __device__ __forceinline__ unsigned live(int step) const {
+    return occ[step] > 0 ? 1u : 0u;
+  }
+};
+
+// APEC's union gate, `repro`'s `gate(u)` = occ_res[u] > 0 | occ_ov[u] > 0
+// (src/repro/kernels/spike_matmul.py:633).
+struct UnionGate {
+  const int* __restrict__ occ_res;
+  const int* __restrict__ occ_ov;
+  __device__ __forceinline__ unsigned live(int step) const {
+    return (occ_res[step] > 0 ? 1u : 0u) | (occ_ov[step] > 0 ? 2u : 0u);
+  }
+};
+
+// Walks one m-tile row's live steps slice by slice: the ring's issue
+// side (and, as a count, its consume side). `live` is the current step's
+// gate mask, which tells the issuer what to copy. Every thread holds its
+// own copy and moves it identically, so the walk is block-uniform.
+template <class Gate>
+struct RowCursor {
+  Gate gate;
   const int* __restrict__ kidx;
   int step, end, kk;
+  unsigned live;
   int64_t k;
 
-  __device__ RowCursor(const int* occ_, const int* kidx_, int beg, int end_,
+  __device__ RowCursor(Gate gate_, const int* kidx_, int beg, int end_,
                        int64_t k_)
-      : occ(occ_), kidx(kidx_), step(beg), end(end_), kk(0), k(k_) {
+      : gate(gate_), kidx(kidx_), step(beg), end(end_), kk(0), live(0),
+        k(k_) {
     settle();
   }
-  // Skips dummy steps (occ == 0): they issue no copy.
+  // Skips dead steps (mask 0, e.g. dummy steps of empty rows): they issue
+  // no copy.
   __device__ void settle() {
-    while (step < end && occ[step] <= 0) ++step;
+    for (; step < end; ++step)
+      if ((live = gate.live(step)) != 0u) break;
     kk = 0;
   }
   __device__ bool valid() const { return step < end; }
   __device__ int64_t k0() const { return (int64_t)kidx[step] * kTile + kk; }
   // The next slice: within the step while it lies before K, else the
-  // next occupied step's first.
+  // next live step's first.
   __device__ void next() {
     kk += kSlice;
     if (kk >= kTile || k0() >= k) {
@@ -122,18 +152,30 @@ struct RowCursor {
 };
 
 // ------------------------------------------------------- spike loaders
+// Each loader stages ROWS rows of a slice: 128 for a spike operand or
+// APEC's residual, 128/g for APEC's overlap. A thread row ty holds rows
+// ty + 16 i, i < kRowsPerThread; below 16 rows (g >= 16) only the thread
+// rows ty < ROWS hold one, and the others must not read the stage.
+template <int ROWS>
+constexpr int rows_per_thread() {
+  static_assert(ROWS >= 1 && kTile % ROWS == 0, "ROWS must divide 128");
+  return ROWS >= kT ? ROWS / kT : 1;
+}
+
 // f32 spikes (M, K) row-major. `vec`: rows may be copied 16 bytes at a
 // time (K % 4 == 0 and s 16-byte aligned).
+template <int ROWS = kTile>
 struct DenseSpikes {
   const float* __restrict__ s;
   int64_t m, k;
   bool vec;
+  static constexpr int kRowsPerThread = rows_per_thread<ROWS>();
   static constexpr int kRow = kSlice + kPadA;
-  static constexpr int kStageBytes = kTile * kRow * 4;
+  static constexpr int kStageBytes = ROWS * kRow * 4;
 
   __device__ void issue(unsigned char* stage, int64_t m0, int64_t k0) const {
     float* a = reinterpret_cast<float*>(stage);
-    for (int e = threadIdx.x; e < kTile * (kSlice / 4); e += kThreads) {
+    for (int e = threadIdx.x; e < ROWS * (kSlice / 4); e += kThreads) {
       const int r = e / (kSlice / 4), c = (e % (kSlice / 4)) * 4;
       const int64_t gr = m0 + r, gc = k0 + c;
       float* dst = a + r * kRow + c;
@@ -165,32 +207,34 @@ struct DenseSpikes {
 
 // uint32 words of binary spikes (M, KW) row-major, bit i of word w =
 // column 32w+i (core/spikes.py::pack_spikes). A kSlice-deep slice is one
-// word per row; a thread holds its 8 rows' words in registers and unpacks
+// word per row; a thread holds its rows' words in registers and unpacks
 // bits straight into its operands (a bit becomes 1.0f or 0.0f), no f32
 // spike tile is ever staged. Bits past K meet zero-filled weight rows.
+template <int ROWS = kTile>
 struct PackedSpikes {
   const uint32_t* __restrict__ p;
   int64_t m, kw;
-  static constexpr int kStageBytes = kTile * 4;
+  static constexpr int kRowsPerThread = rows_per_thread<ROWS>();
+  static constexpr int kStageBytes = ROWS * 4;
 
   __device__ void issue(unsigned char* stage, int64_t m0, int64_t k0) const {
     uint32_t* words = reinterpret_cast<uint32_t*>(stage);
     const int64_t gw = k0 / 32;
-    for (int r = threadIdx.x; r < kTile; r += kThreads) {
+    for (int r = threadIdx.x; r < ROWS; r += kThreads) {
       const int64_t gr = m0 + r;
       const bool in = gr < m && gw < kw;
       cp4(words + r, in ? p + gr * kw + gw : p, in);
     }
   }
   struct Rows {
-    uint32_t w[kRM];
+    uint32_t w[kRowsPerThread];
   };
   __device__ __forceinline__ Rows rows(const unsigned char* stage,
                                        int ty) const {
     const uint32_t* words = reinterpret_cast<const uint32_t*>(stage);
     Rows r;
 #pragma unroll
-    for (int i = 0; i < kRM; ++i) r.w[i] = words[ty + kT * i];
+    for (int i = 0; i < kRowsPerThread; ++i) r.w[i] = words[ty + kT * i];
     return r;
   }
   __device__ __forceinline__ static float at(const Rows& r, int i, int c) {
@@ -230,12 +274,14 @@ struct WeightSlice {
 
 // ------------------------------------------------------------- compute
 // acc += spike slice @ weight slice for thread (tx, ty): acc[i][j] is row
-// ty + 16 i, column tx + 16 j, and each is summed with fmaf in k order.
-template <int BN, class A>
+// ty + 16 i of the loader's rows, column tx + 16 j, and each is summed
+// with fmaf in k order.
+template <int BN, class A, int RM>
 __device__ __forceinline__ void fma_slice(const A& a,
                                           const unsigned char* a_stage,
                                           const unsigned char* b_stage,
-                                          float (&acc)[kRM][BN / kT]) {
+                                          float (&acc)[RM][BN / kT]) {
+  static_assert(RM == A::kRowsPerThread, "acc rows are the loader's");
   constexpr int kRN = BN / kT;
   const int tx = threadIdx.x % kT, ty = threadIdx.x / kT;
   const float* bs = reinterpret_cast<const float*>(b_stage) + tx;
@@ -244,14 +290,14 @@ __device__ __forceinline__ void fma_slice(const A& a,
   // spill registers at BN = 64 (ptxas, sm_90a).
 #pragma unroll 8
   for (int c = 0; c < kSlice; ++c) {
-    float av[kRM], bv[kRN];
+    float av[RM], bv[kRN];
 #pragma unroll
-    for (int i = 0; i < kRM; ++i) av[i] = A::at(rows, i, c);
+    for (int i = 0; i < RM; ++i) av[i] = A::at(rows, i, c);
 #pragma unroll
     for (int j = 0; j < kRN; ++j)
       bv[j] = bs[c * WeightSlice<BN>::kRow + kT * j];
 #pragma unroll
-    for (int i = 0; i < kRM; ++i)
+    for (int i = 0; i < RM; ++i)
 #pragma unroll
       for (int j = 0; j < kRN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
   }

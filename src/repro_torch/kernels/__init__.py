@@ -13,6 +13,12 @@
                    csrc/apec_matmul_csr.cu   APEC's fused residual + overlap
                                              matmul on a union work list,
                                              on f32 spikes or packed words
+                   csrc/spike_matmul_csr_pipe.cu, csrc/apec_matmul_csr_pipe.cu
+                                             the CSR and APEC matmuls, the
+                                             same sums, fed by
+                                             csrc/tile_mma.cuh's cp.async
+                                             ring (the routes picked on
+                                             the card)
   apec_kernel.py   csrc/apec.cu              APEC overlap/residual on words
   sdsa_kernel.py   csrc/sdsa.cu              packed OR-form attention
                    csrc/sdsa_causal.cu       causal (LM) status: the

@@ -40,7 +40,9 @@ LAUNCHES: Dict[str, int] = {"lif": 0, "lif_counts": 0, "lif_fwd": 0,
                             "spike_matmul_packed_csr": 0,
                             "apec_matmul_packed_csr": 0, "sdsa_causal": 0,
                             "lif_bf16": 0, "spike_matmul_csr_pipe": 0,
-                            "spike_matmul_packed_csr_pipe": 0}
+                            "spike_matmul_packed_csr_pipe": 0,
+                            "apec_matmul_csr_pipe": 0,
+                            "apec_matmul_packed_csr_pipe": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
@@ -77,6 +79,11 @@ SIGNATURES = {
                                 _I64, _I64, _I64, _P),
     "apec_matmul_packed_csr_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _I64,
                                        _I64, _I64, _I64, _I64, _I64, _P),
+    "apec_matmul_csr_pipe_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                                     _I64, _I64, _I64, _I64, _P),
+    "apec_matmul_packed_csr_pipe_forward": (_P, _P, _P, _P, _P, _P, _P, _P,
+                                            _I64, _I64, _I64, _I64, _I64,
+                                            _I64, _P),
 }
 
 

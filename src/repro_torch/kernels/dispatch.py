@@ -31,8 +31,12 @@ manual routes (`auto=False`, reached only by an override):
                 jnp          per-event scatter, `econv_scatter` (manual)
   tconv         cuda         zero-insertion + im2col + csrc/spike_matmul.cu
                 jnp          zero-insertion + dense conv (manual)
-  apec_matmul   cuda         csrc/apec.cu + csrc/apec_matmul_csr.cu (union
-                             work list, both products in one pass)
+  apec_matmul   cuda-pipe    csrc/apec.cu + csrc/apec_matmul_csr_pipe.cu
+                             (union work list, both products in one
+                             pass on the cp.async ring; kernel 17's sums)
+                cuda-packed-pipe  csrc/apec.cu + its word kernel (packed
+                             payload)
+                cuda         csrc/apec.cu + csrc/apec_matmul_csr.cu, serial
                 cuda-packed  csrc/apec.cu + csrc/apec_matmul_csr.cu's word
                              kernel (packed payload)
                 cuda-pred    csrc/apec.cu + two csrc/spike_matmul.cu launches
@@ -52,8 +56,9 @@ Selection order per call (`repro`'s resolution walk on CPU tensors):
      path. When its `supports` gate refuses the call, resolution walks
      the backend's declared ``fallback=`` chain (``cuda-packed-pipe`` ->
      ``cuda-packed`` -> ``cuda`` -> ``cuda-pred`` and ``cuda-pipe`` ->
-     ``cuda`` for the matmul-form ops, as `repro`'s ``packed-csr-pipe``
-     -> ``packed-csr`` -> ``pallas-csr`` -> ``pallas``) and ends at `ref`;
+     ``cuda`` for the matmul-form ops and APEC, as `repro`'s
+     ``packed-csr-pipe`` -> ``packed-csr`` -> ``pallas-csr`` ->
+     ``pallas``) and ends at `ref`;
      an unknown name lands on `ref` too;
   2. otherwise the automatic (``auto=True``) backends registered for the
      platform of the call's first tensor (``cpu`` or ``cuda``) and for the
@@ -798,6 +803,25 @@ def _apec_matmul_packed(s, w, *, g=2, occupancy=None, packed_k=None):
     from repro_torch.kernels import ops
     return ops.apec_matmul_packed(s, w, g=g, packed_k=packed_k,
                                   occupancy=occupancy)
+
+
+# The pipelined fused kernels rank above the serial ones, as `repro`'s
+# pallas-csr-pipe (26) and packed-csr-pipe (31) above pallas-csr (25) and
+# packed-csr (30) for `apec_matmul`.
+@register("apec_matmul", CUDA_PIPE, platforms=("cuda",), priority=26,
+          supports=_apec_csr_supports, vjp=_matmul_bwd, fallback=CUDA)
+def _apec_matmul_csr_pipe(s, w, *, g=2, occupancy=None):
+    from repro_torch.kernels import ops
+    return ops.apec_matmul_csr(s, w, g=g, occupancy=occupancy, pipeline=True)
+
+
+@register("apec_matmul", CUDA_PACKED_PIPE, platforms=("cuda",), priority=31,
+          supports=_apec_csr_supports, vjp=_matmul_bwd, fallback=CUDA_PACKED,
+          payload=("packed",))
+def _apec_matmul_packed_pipe(s, w, *, g=2, occupancy=None, packed_k=None):
+    from repro_torch.kernels import ops
+    return ops.apec_matmul_packed(s, w, g=g, packed_k=packed_k,
+                                  occupancy=occupancy, pipeline=True)
 
 
 # ------------------------------------------------------------------ sdsa

@@ -324,7 +324,8 @@ def apec_union_worklist(res: torch.Tensor, ov: torch.Tensor, g: int,
 
 
 def apec_matmul_csr(s, w: torch.Tensor, g: int = 2, *,
-                    occupancy: torch.Tensor | None = None) -> torch.Tensor:
+                    occupancy: torch.Tensor | None = None,
+                    pipeline: bool = False) -> torch.Tensor:
     """APEC matmul fused into one event-compacted kernel pass.
 
     The packed decompose kernel, then one union work list
@@ -336,7 +337,9 @@ def apec_matmul_csr(s, w: torch.Tensor, g: int = 2, *,
     `s` may be an `EventTensor` (its carried map and cached work list), and
     `occupancy` a precomputed map of the UNDECOMPOSED spikes: either
     replaces the two dense pre-passes. Ragged rows, K and N are masked in
-    the kernel (no padded copies).
+    the kernel (no padded copies). `pipeline=True` runs the pipelined
+    kernel (`apec_matmul_csr_pipe`) on the same work list, as `repro`'s
+    flag selects its prefetching kernel.
     """
     tile = _csr.TILE
     csr = None
@@ -354,10 +357,9 @@ def apec_matmul_csr(s, w: torch.Tensor, g: int = 2, *,
     s2 = s.reshape(-1, c)
     ov, res = apec_decompose(s2, g)                  # packed bitwise kernel
     csr, occ_res, occ_ov = apec_union_worklist(res, ov, g, occupancy, csr)
-    out = _csr.apec_matmul_csr(res.float().contiguous(),
-                               ov.float().contiguous(),
-                               w.float().contiguous(), g, csr, occ_res,
-                               occ_ov)
+    kernel = _csr.apec_matmul_csr_pipe if pipeline else _csr.apec_matmul_csr
+    out = kernel(res.float().contiguous(), ov.float().contiguous(),
+                 w.float().contiguous(), g, csr, occ_res, occ_ov)
     return out.reshape(lead + (p, w.shape[-1])).to(w.dtype)
 
 
@@ -432,12 +434,14 @@ def spike_matmul_packed(s, w: torch.Tensor, *, packed_k: int | None = None,
 
 def apec_matmul_packed(s, w: torch.Tensor, g: int = 2, *,
                        packed_k: int | None = None,
-                       occupancy: torch.Tensor | None = None
-                       ) -> torch.Tensor:
+                       occupancy: torch.Tensor | None = None,
+                       pipeline: bool = False) -> torch.Tensor:
     """The fused APEC matmul without leaving the words: the decompose
     kernel on the words, a union work list (the carried map gates both
     operands; without one, each operand's word popcount map), and the
-    packed fused kernel, which unpacks both operands' tiles on chip."""
+    packed fused kernel, which unpacks both operands' tiles on chip.
+    `pipeline=True` runs the pipelined word kernel
+    (`apec_matmul_packed_csr_pipe`)."""
     p2, k, lead, p_pos, occupancy = _packed_rows(s, packed_k, occupancy)
     _check_weight_rows(w, k)
     if p2.shape[0] % g:
@@ -446,8 +450,10 @@ def apec_matmul_packed(s, w: torch.Tensor, g: int = 2, *,
     ov_p, res_p = apec_kernel.apec_decompose_packed(p2, g)
     csr, occ_res, occ_ov = apec_union_worklist(res_p, ov_p, g, occupancy,
                                                packed=True)
-    out = _csr.apec_matmul_packed_csr(res_p, ov_p, w.float().contiguous(), g,
-                                      csr, occ_res, occ_ov)
+    kernel = _csr.apec_matmul_packed_csr_pipe if pipeline else \
+        _csr.apec_matmul_packed_csr
+    out = kernel(res_p, ov_p, w.float().contiguous(), g, csr, occ_res,
+                 occ_ov)
     return out.reshape(lead + (p_pos, w.shape[-1])).to(w.dtype)
 
 

@@ -11,10 +11,13 @@ cp.async ring of 32-deep k-slices); its plain version walks the ring's
 schedule (`ring_schedule`) and checks it (`check_ring_trace`).
 `apec_matmul_csr(res, ov, w, g, csr, occ_res, occ_ov)` is APEC's fused
 pair of products over a union work list; it launches
-`csrc/apec_matmul_csr.cu`. `spike_matmul_packed_csr`,
-`spike_matmul_packed_csr_pipe` and `apec_matmul_packed_csr` are the same
-kernels with the spike operands as uint32 words ((M, ceil(K/32)), bit i
-of word w = column 32w+i), each word tile unpacked on chip. On a CPU
+`csrc/apec_matmul_csr.cu`, and `apec_matmul_csr_pipe` the same function
+on the ring (`csrc/apec_matmul_csr_pipe.cu`, the schedule's union-gated
+twin checked in its plain version). `spike_matmul_packed_csr`,
+`spike_matmul_packed_csr_pipe`, `apec_matmul_packed_csr` and
+`apec_matmul_packed_csr_pipe` are the same kernels with the spike
+operands as uint32 words ((M, ceil(K/32)), bit i of word w = column
+32w+i), each word tile unpacked on chip. On a CPU
 tensor each runs its plain version (the packed ones unpack, then run the
 f32 plain version). All accept any (M, K) x (K, N): ragged edge tiles are
 masked, never padded.
@@ -110,7 +113,8 @@ def spike_matmul_csr(s: torch.Tensor, w: torch.Tensor,
 
 
 # ----------------------------------------------------------- the ring
-def ring_schedule(occ, kidx, k: int, stages: int = PIPE_STAGES) -> list:
+def ring_schedule(occ, kidx, k: int, stages: int = PIPE_STAGES,
+                  occ_ov=None) -> list:
     """The copy ring of csrc/tile_mma.cuh over one m-tile row's work-list
     steps (`occ`, `kidx`: the row's per-step counts and k-tile indices, in
     order), run as the kernel runs it. A cursor skips steps with
@@ -120,20 +124,34 @@ def ring_schedule(occ, kidx, k: int, stages: int = PIPE_STAGES) -> list:
     `done` the consumer waits with `issued - done - 1` groups allowed in
     flight, refills the slot that slice `done - 1` freed, then computes.
 
-    Returns the trace: ("issue", slot, (step, k0)), ("wait", slot,
-    pending) and ("compute", slot) events in program order."""
+    With `occ_ov` (APEC's overlap counts; `occ` the residual's, on a union
+    work list) the gate is the union: a step is live when either count is
+    positive, each issue copies the operands whose count is positive and
+    records them, (residual, overlap), and each compute carries the flags
+    of the slot it computes, as the kernel's flags travel with the slot.
+
+    Returns the trace: ("issue", slot, (step, k0)[, copied]), ("wait",
+    slot, pending) and ("compute", slot[, live]) events in program
+    order."""
     n_steps = len(occ)
+    union = occ_ov is not None
+    flags = [None] * stages
     trace = []
 
+    def live(st):
+        return (occ[st] > 0, occ_ov[st] > 0) if union else (occ[st] > 0,)
+
     def settle(st):
-        while st < n_steps and occ[st] <= 0:
+        while st < n_steps and not any(live(st)):
             st += 1
         return st, 0
     step, kk = settle(0)
 
     def issue(slot):
         nonlocal step, kk
-        trace.append(("issue", slot, (step, kidx[step] * TILE + kk)))
+        flags[slot] = live(step)
+        trace.append(("issue", slot, (step, kidx[step] * TILE + kk))
+                     + ((flags[slot],) if union else ()))
         kk += PIPE_SLICE
         if kk >= TILE or kidx[step] * TILE + kk >= k:
             step, kk = settle(step + 1)
@@ -148,25 +166,37 @@ def ring_schedule(occ, kidx, k: int, stages: int = PIPE_STAGES) -> list:
         if step < n_steps:
             issue(issued % stages)
             issued += 1
-        trace.append(("compute", done % stages))
+        trace.append(("compute", done % stages)
+                     + ((flags[done % stages],) if union else ()))
         done += 1
     return trace
 
 
 def check_ring_trace(trace: list, occ, kidx, k: int,
-                     stages: int = PIPE_STAGES) -> list:
+                     stages: int = PIPE_STAGES, occ_ov=None) -> list:
     """Holds a `ring_schedule` trace to the gate contract of `repro`'s
     `_weight_prefetch` and returns the computed (step, k0) slices in
     order. Raises RuntimeError unless: the issued slices are exactly every
-    PIPE_SLICE-deep slice before K of the steps with occ > 0, in order (no
-    copy for a dummy step); each issued slice is waited on once and
-    computed once, in issue order; a wait allows in flight only the groups
+    PIPE_SLICE-deep slice before K of the live steps, in order (no copy
+    for a dead step); each issued slice is waited on once and computed
+    once, in issue order; a wait allows in flight only the groups
     committed after its slice, at most `stages - 2`; and a slot is
-    refilled only after its previous slice was computed."""
+    refilled only after its previous slice was computed.
+
+    With `occ_ov` (the union gate) a step is live when either count is
+    positive, and the check also refuses a residual copy on a step with
+    `occ` 0, an overlap copy on a step with `occ_ov` 0, a live operand
+    left uncopied, and a compute whose flags are not its slice's copies
+    (a dot on stale ring contents); it returns ((step, k0), (residual,
+    overlap)) per computed slice."""
+    union = occ_ov is not None
+
+    def live(st):
+        return (occ[st] > 0, occ_ov[st] > 0) if union else (occ[st] > 0,)
     want = [(st, kidx[st] * TILE + kk) for st in range(len(occ))
-            if occ[st] > 0
+            if any(live(st))
             for kk in range(0, TILE, PIPE_SLICE) if kidx[st] * TILE + kk < k]
-    issued, slot_of, computed = [], {}, []
+    issued, copied, slot_of, computed = [], [], {}, []
     busy = [None] * stages           # slot -> index of the slice it holds
     waited = 0
 
@@ -174,10 +204,21 @@ def check_ring_trace(trace: list, occ, kidx, k: int,
         raise RuntimeError(f"copy ring schedule broken: {what}")
     for ev in trace:
         if ev[0] == "issue":
-            _, slot, item = ev
+            slot, item = ev[1], ev[2]
             if busy[slot] is not None:
                 fail(f"slot {slot} refilled before slice {busy[slot]} "
                      f"was computed")
+            if union:
+                st = item[0]
+                if not 0 <= st < len(occ):
+                    fail(f"issue of step {st} outside the row")
+                for name, got, want_op in zip(("residual", "overlap"),
+                                              ev[3], live(st)):
+                    if got != want_op:
+                        fail(f"{name} {'copied' if got else 'not copied'} "
+                             f"at step {st} whose count is "
+                             f"{'0' if got else 'positive'}")
+                copied.append(tuple(ev[3]))
             busy[slot] = len(issued)
             slot_of[len(issued)] = slot
             issued.append(item)
@@ -191,34 +232,49 @@ def check_ring_trace(trace: list, occ, kidx, k: int,
                      f"{len(issued)} issued")
             waited += 1
         else:
-            _, slot = ev
+            slot = ev[1]
             idx = len(computed)
             if (idx >= waited or slot_of.get(idx) != slot
                     or busy[slot] != idx):
                 fail(f"slice {idx} computed before its wait or off its slot")
+            if union and tuple(ev[2]) != copied[idx]:
+                fail(f"slice {idx} computed with flags {ev[2]}, its copies "
+                     f"were {copied[idx]}")
             busy[slot] = None
-            computed.append(issued[idx])
+            computed.append((issued[idx], copied[idx]) if union
+                            else issued[idx])
     if issued != want:
-        fail(f"issued {issued}, the occupied steps need {want}")
-    if waited != len(issued) or computed != issued:
+        fail(f"issued {issued}, the live steps need {want}")
+    if waited != len(issued) or len(computed) != len(issued):
         fail(f"{len(issued)} issued, {waited} waited, {len(computed)} "
              f"computed")
     return computed
 
 
-def _ring_columns(csr: TileCSR, m: int, k: int) -> torch.Tensor:
-    """(M, K) bool: the spike entries the ring computes, from each m-tile
-    row's checked schedule (slices of PIPE_SLICE columns)."""
-    mt = -(-m // TILE)
+def _ring_columns(csr: TileCSR, k: int, occ=None,
+                  occ_ov=None) -> torch.Tensor:
+    """(operands, MT, K) bool: per operand, the columns of each m-tile
+    row that the ring computes for it, from the row's checked schedule
+    (slices of PIPE_SLICE columns). `occ`: per-step counts to gate on
+    instead of `csr.occ`; with `occ_ov` (APEC's union gate) the result
+    holds the residual's columns, then the overlap's."""
+    mt = csr.n_rows
     row_ptr = csr.row_ptr.tolist()
-    occ, kidx = csr.occ.tolist(), csr.tile_k_idx.tolist()
-    cols = torch.zeros((mt, k), dtype=torch.bool)
+    kidx = csr.tile_k_idx.tolist()
+    occ = (csr.occ if occ is None else occ).tolist()
+    ov = None if occ_ov is None else occ_ov.tolist()
+    cols = torch.zeros((1 if ov is None else 2, mt, k), dtype=torch.bool)
     for r in range(mt):
         b, e = row_ptr[r], row_ptr[r + 1]
-        trace = ring_schedule(occ[b:e], kidx[b:e], k)
-        for _, k0 in check_ring_trace(trace, occ[b:e], kidx[b:e], k):
-            cols[r, k0:k0 + PIPE_SLICE] = True
-    return cols.repeat_interleave(TILE, 0)[:m]
+        args = (occ[b:e], kidx[b:e], k)
+        kw = {} if ov is None else {"occ_ov": ov[b:e]}
+        for item in check_ring_trace(ring_schedule(*args, **kw), *args,
+                                     **kw):
+            (_, k0), live = (item, (True,)) if ov is None else item
+            for op, on in enumerate(live):
+                if on:
+                    cols[op, r, k0:k0 + PIPE_SLICE] = True
+    return cols
 
 
 def spike_matmul_csr_pipe_plain(s: torch.Tensor, w: torch.Tensor,
@@ -228,8 +284,8 @@ def spike_matmul_csr_pipe_plain(s: torch.Tensor, w: torch.Tensor,
     `check_ring_trace`) gates the spikes the ring computes, then one dense
     fp32 matmul, the product of `spike_matmul_csr_plain`."""
     m, k = s.shape
-    cols = _ring_columns(csr, m, k).to(s.device)
-    return torch.matmul(s.float() * cols, w.float())
+    cols = _ring_columns(csr, k)[0].repeat_interleave(TILE, 0)[:m]
+    return torch.matmul(s.float() * cols.to(s.device), w.float())
 
 
 def spike_matmul_csr_pipe(s: torch.Tensor, w: torch.Tensor,
@@ -276,6 +332,14 @@ def _apec_group_ok(g: int) -> bool:
     return 1 <= g <= TILE and TILE % g == 0
 
 
+def _apec_product(res: torch.Tensor, ov: torch.Tensor, w: torch.Tensor,
+                  g: int) -> torch.Tensor:
+    """res @ w + repeat_interleave(ov @ w, g) in dense fp32."""
+    wf = w.float()
+    return torch.matmul(res.float(), wf) + \
+        torch.matmul(ov.float(), wf).repeat_interleave(g, 0)
+
+
 def apec_matmul_csr_plain(res: torch.Tensor, ov: torch.Tensor,
                           w: torch.Tensor, g: int, csr: TileCSR,
                           occ_res: torch.Tensor,
@@ -286,12 +350,78 @@ def apec_matmul_csr_plain(res: torch.Tensor, ov: torch.Tensor,
     res @ w + repeat_interleave(ov @ w, g) in dense fp32."""
     m, k = res.shape
     mt, kt = -(-m // TILE), -(-k // TILE)
-    wf = w.float()
-    psum_res = torch.matmul(_gated(res, csr_tile_gate(csr, mt, kt, occ_res)),
-                            wf)
-    psum_ov = torch.matmul(_gated(ov, csr_tile_gate(csr, mt, kt, occ_ov),
-                                  TILE // g), wf)
-    return psum_res + psum_ov.repeat_interleave(g, 0)
+    return _apec_product(_gated(res, csr_tile_gate(csr, mt, kt, occ_res)),
+                         _gated(ov, csr_tile_gate(csr, mt, kt, occ_ov),
+                                TILE // g), w, g)
+
+
+def apec_matmul_csr_pipe_plain(res: torch.Tensor, ov: torch.Tensor,
+                               w: torch.Tensor, g: int, csr: TileCSR,
+                               occ_res: torch.Tensor,
+                               occ_ov: torch.Tensor) -> torch.Tensor:
+    """Plain version of the pipelined APEC kernel: the union-gated twin of
+    its copy ring (`ring_schedule(..., occ_ov=)`, checked) gates each
+    operand's columns by the slices the ring copies and computes for it,
+    then the fused kernel's dense fp32 product."""
+    m, k = res.shape
+    cols = _ring_columns(csr, k, occ_res, occ_ov).to(res.device)
+    return _apec_product(
+        res.float() * cols[0].repeat_interleave(TILE, 0)[:m],
+        ov.float() * cols[1].repeat_interleave(TILE // g, 0)[:ov.shape[0]],
+        w, g)
+
+
+def _apec_matmul(name: str, res: torch.Tensor, ov: torch.Tensor,
+                 w: torch.Tensor, g: int, csr: TileCSR,
+                 occ_res: torch.Tensor, occ_ov: torch.Tensor, plain, *,
+                 packed: bool) -> torch.Tensor:
+    """Checks, then the fused APEC kernel `name` (C entry `<name>_forward`)
+    on CUDA tensors or `plain` on CPU ones; `packed`: res and ov are
+    uint32 words."""
+    if w.ndim != 2:
+        raise ValueError(f"{name} needs (K, N) weights, got "
+                         f"{tuple(w.shape)}")
+    k, n = w.shape
+    if packed:
+        _check_words(name, k, res, ov)
+    elif res.ndim != 2 or ov.ndim != 2 or res.shape[1] != k or \
+            ov.shape[1] != k:
+        raise ValueError(f"{name} needs (M, K), (M/g, K) x (K, N), got "
+                         f"{tuple(res.shape)}, {tuple(ov.shape)} x "
+                         f"{tuple(w.shape)}")
+    m = res.shape[0]
+    if not _apec_group_ok(g) or m % g or ov.shape[0] * g != m:
+        raise ValueError(f"{name} takes g dividing {TILE} with M % g == 0 "
+                         f"and M/g overlap rows, got g={g}, M={m}, "
+                         f"{ov.shape[0]} overlap rows")
+    mt, kt = -(-m // TILE), -(-k // TILE)
+    csr.check_compatible(TILE, TILE, mt, kt)
+    if csr.n_rows != mt:
+        raise ValueError(f"csr has {csr.n_rows} m-tile rows, input needs {mt}")
+    if occ_res.shape != (csr.n_steps,) or occ_ov.shape != (csr.n_steps,):
+        raise ValueError(f"per-step counts {tuple(occ_res.shape)} / "
+                         f"{tuple(occ_ov.shape)} do not match the "
+                         f"work list's {csr.n_steps} steps")
+    if not res.is_cuda:
+        return plain(res, ov, w, g, csr, occ_res, occ_ov)
+    _build.require_cuda(name, res, ov,
+                        dtype=torch.uint32 if packed else torch.float32)
+    _build.require_cuda(name, w, dtype=torch.float32)
+    _build.require_cuda(name, csr.row_ptr, csr.tile_k_idx, occ_res, occ_ov,
+                        dtype=torch.int32)
+    if w.device != res.device or csr.row_ptr.device != res.device:
+        raise ValueError(f"{name}: operands and work list lie on different "
+                         f"devices")
+    out = torch.empty((m, n), dtype=torch.float32, device=res.device)
+    dims = (m, res.shape[1], k, n) if packed else (m, k, n)
+    lib = _build.library()
+    _build.LAUNCHES[name] += 1
+    _build.check(getattr(lib, f"{name}_forward")(
+        res.data_ptr(), ov.data_ptr(), w.data_ptr(), out.data_ptr(),
+        csr.row_ptr.data_ptr(), csr.tile_k_idx.data_ptr(),
+        occ_res.data_ptr(), occ_ov.data_ptr(), *dims, mt, g,
+        _build.stream()), name)
+    return out
 
 
 def apec_matmul_csr(res: torch.Tensor, ov: torch.Tensor, w: torch.Tensor,
@@ -302,44 +432,19 @@ def apec_matmul_csr(res: torch.Tensor, ov: torch.Tensor, w: torch.Tensor,
     the 128 x 128 grid of res (a step where either operand's tile holds
     events), `occ_res_steps` / `occ_ov_steps` (cap,) int32 per-step counts
     of each operand -> (M, N) f32 = res @ w + repeat(ov @ w, g)."""
-    if res.ndim != 2 or ov.ndim != 2 or w.ndim != 2 or \
-            res.shape[1] != w.shape[0] or ov.shape[1] != w.shape[0]:
-        raise ValueError(f"apec_matmul_csr needs (M, K), (M/g, K) x (K, N), "
-                         f"got {tuple(res.shape)}, {tuple(ov.shape)} x "
-                         f"{tuple(w.shape)}")
-    m, k = res.shape
-    n = w.shape[1]
-    if not _apec_group_ok(g) or m % g or ov.shape[0] * g != m:
-        raise ValueError(f"apec_matmul_csr takes g dividing {TILE} with "
-                         f"M % g == 0 and M/g overlap rows, got g={g}, "
-                         f"M={m}, {ov.shape[0]} overlap rows")
-    mt, kt = -(-m // TILE), -(-k // TILE)
-    csr.check_compatible(TILE, TILE, mt, kt)
-    if csr.n_rows != mt:
-        raise ValueError(f"csr has {csr.n_rows} m-tile rows, input needs {mt}")
-    if occ_res_steps.shape != (csr.n_steps,) or \
-            occ_ov_steps.shape != (csr.n_steps,):
-        raise ValueError(f"per-step counts {tuple(occ_res_steps.shape)} / "
-                         f"{tuple(occ_ov_steps.shape)} do not match the "
-                         f"work list's {csr.n_steps} steps")
-    if not res.is_cuda:
-        return apec_matmul_csr_plain(res, ov, w, g, csr, occ_res_steps,
-                                     occ_ov_steps)
-    _build.require_cuda("apec_matmul_csr", res, ov, w, dtype=torch.float32)
-    _build.require_cuda("apec_matmul_csr", csr.row_ptr, csr.tile_k_idx,
-                        occ_res_steps, occ_ov_steps, dtype=torch.int32)
-    if csr.row_ptr.device != res.device:
-        raise ValueError("apec_matmul_csr: work list and operands lie on "
-                         "different devices")
-    out = torch.empty((m, n), dtype=torch.float32, device=res.device)
-    lib = _build.library()
-    _build.LAUNCHES["apec_matmul_csr"] += 1
-    _build.check(lib.apec_matmul_csr_forward(
-        res.data_ptr(), ov.data_ptr(), w.data_ptr(), out.data_ptr(),
-        csr.row_ptr.data_ptr(), csr.tile_k_idx.data_ptr(),
-        occ_res_steps.data_ptr(), occ_ov_steps.data_ptr(), m, k, n, mt, g,
-        _build.stream()), "apec_matmul_csr")
-    return out
+    return _apec_matmul("apec_matmul_csr", res, ov, w, g, csr,
+                        occ_res_steps, occ_ov_steps, apec_matmul_csr_plain,
+                        packed=False)
+
+
+def apec_matmul_csr_pipe(res: torch.Tensor, ov: torch.Tensor,
+                         w: torch.Tensor, g: int, csr: TileCSR,
+                         occ_res_steps: torch.Tensor,
+                         occ_ov_steps: torch.Tensor) -> torch.Tensor:
+    """`apec_matmul_csr` on the pipelined kernel (the same sums)."""
+    return _apec_matmul("apec_matmul_csr_pipe", res, ov, w, g, csr,
+                        occ_res_steps, occ_ov_steps,
+                        apec_matmul_csr_pipe_plain, packed=False)
 
 
 # ------------------------------------------------------------- packed
@@ -430,6 +535,19 @@ def apec_matmul_packed_csr_plain(res: torch.Tensor, ov: torch.Tensor,
                                  occ_res, occ_ov)
 
 
+def apec_matmul_packed_csr_pipe_plain(res: torch.Tensor, ov: torch.Tensor,
+                                      w: torch.Tensor, g: int, csr: TileCSR,
+                                      occ_res: torch.Tensor,
+                                      occ_ov: torch.Tensor) -> torch.Tensor:
+    """Plain version of the pipelined packed APEC kernel: unpack both
+    operands, then the pipelined f32 APEC kernel's plain version (its
+    ring twin included)."""
+    k = w.shape[0]
+    return apec_matmul_csr_pipe_plain(unpack_spikes_padded(res, k),
+                                      unpack_spikes_padded(ov, k), w, g, csr,
+                                      occ_res, occ_ov)
+
+
 def apec_matmul_packed_csr(res: torch.Tensor, ov: torch.Tensor,
                            w: torch.Tensor, g: int, csr: TileCSR,
                            occ_res_steps: torch.Tensor,
@@ -437,43 +555,17 @@ def apec_matmul_packed_csr(res: torch.Tensor, ov: torch.Tensor,
     """`apec_matmul_csr` on words: res (M, ceil(K/32)) and ov
     (M/g, ceil(K/32)) uint32, w (K, N) f32 -> (M, N) f32 =
     res @ w + repeat(ov @ w, g)."""
-    if w.ndim != 2:
-        raise ValueError(f"apec_matmul_packed_csr needs (K, N) weights, got "
-                         f"{tuple(w.shape)}")
-    k, n = w.shape
-    _check_words("apec_matmul_packed_csr", k, res, ov)
-    m, kw = res.shape
-    if not _apec_group_ok(g) or m % g or ov.shape[0] * g != m:
-        raise ValueError(f"apec_matmul_packed_csr takes g dividing "
-                         f"{TILE} with M % g == 0 and M/g overlap rows, got "
-                         f"g={g}, M={m}, {ov.shape[0]} overlap rows")
-    mt, kt = -(-m // TILE), -(-k // TILE)
-    csr.check_compatible(TILE, TILE, mt, kt)
-    if csr.n_rows != mt:
-        raise ValueError(f"csr has {csr.n_rows} m-tile rows, input needs {mt}")
-    if occ_res_steps.shape != (csr.n_steps,) or \
-            occ_ov_steps.shape != (csr.n_steps,):
-        raise ValueError(f"per-step counts {tuple(occ_res_steps.shape)} / "
-                         f"{tuple(occ_ov_steps.shape)} do not match the "
-                         f"work list's {csr.n_steps} steps")
-    if not res.is_cuda:
-        return apec_matmul_packed_csr_plain(res, ov, w, g, csr,
-                                            occ_res_steps, occ_ov_steps)
-    _build.require_cuda("apec_matmul_packed_csr", res, ov,
-                        dtype=torch.uint32)
-    _build.require_cuda("apec_matmul_packed_csr", w, dtype=torch.float32)
-    _build.require_cuda("apec_matmul_packed_csr", csr.row_ptr,
-                        csr.tile_k_idx, occ_res_steps, occ_ov_steps,
-                        dtype=torch.int32)
-    if w.device != res.device or csr.row_ptr.device != res.device:
-        raise ValueError("apec_matmul_packed_csr: operands and work list "
-                         "lie on different devices")
-    out = torch.empty((m, n), dtype=torch.float32, device=res.device)
-    lib = _build.library()
-    _build.LAUNCHES["apec_matmul_packed_csr"] += 1
-    _build.check(lib.apec_matmul_packed_csr_forward(
-        res.data_ptr(), ov.data_ptr(), w.data_ptr(), out.data_ptr(),
-        csr.row_ptr.data_ptr(), csr.tile_k_idx.data_ptr(),
-        occ_res_steps.data_ptr(), occ_ov_steps.data_ptr(), m, kw, k, n, mt,
-        g, _build.stream()), "apec_matmul_packed_csr")
-    return out
+    return _apec_matmul("apec_matmul_packed_csr", res, ov, w, g, csr,
+                        occ_res_steps, occ_ov_steps,
+                        apec_matmul_packed_csr_plain, packed=True)
+
+
+def apec_matmul_packed_csr_pipe(res: torch.Tensor, ov: torch.Tensor,
+                                w: torch.Tensor, g: int, csr: TileCSR,
+                                occ_res_steps: torch.Tensor,
+                                occ_ov_steps: torch.Tensor) -> torch.Tensor:
+    """`apec_matmul_packed_csr` on the pipelined kernel, which unpacks
+    both operands' words in registers."""
+    return _apec_matmul("apec_matmul_packed_csr_pipe", res, ov, w, g, csr,
+                        occ_res_steps, occ_ov_steps,
+                        apec_matmul_packed_csr_pipe_plain, packed=True)

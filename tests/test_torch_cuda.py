@@ -7,9 +7,10 @@ Torch-only (no JAX), so it runs on the GPU machine:
 Every test is marked `cuda` and skips where no CUDA device is present.
 Spikes (f32 and bf16), counts, membrane residuals, LIF drive cotangents,
 SDSA and causal-status words, APEC overlap/residual words and the packed
-fire's words must match exactly; the CSR, predicated and fused APEC matmuls, f32 and packed,
-within 1e-5 * max|plain| + 1e-5 (fp32 summation order); the pipelined
-CSR kernels equal the serial one bit for bit (the same fmaf chain).
+fire's words must match exactly; the CSR, predicated and fused APEC
+matmuls, f32 and packed, within 1e-5 * max|plain| + 1e-5 (fp32 summation
+order); the pipelined CSR and APEC kernels equal the serial ones bit for
+bit (the same fmaf chains).
 """
 import numpy as np
 import pytest
@@ -164,7 +165,9 @@ def test_cuda_wrappers_count_each_launch(cuda_device):
                                "spike_matmul_packed_csr": 0,
                                "apec_matmul_packed_csr": 0, "sdsa_causal": 1,
                                "lif_bf16": 1, "spike_matmul_csr_pipe": 0,
-                               "spike_matmul_packed_csr_pipe": 0}
+                               "spike_matmul_packed_csr_pipe": 0,
+                               "apec_matmul_csr_pipe": 0,
+                               "apec_matmul_packed_csr_pipe": 0}
 
 
 @pytest.mark.cuda
@@ -247,7 +250,9 @@ def test_cuda_training_wrappers_count_each_launch(cuda_device):
                                "spike_matmul_packed_csr": 0,
                                "apec_matmul_packed_csr": 0, "sdsa_causal": 0,
                                "lif_bf16": 0, "spike_matmul_csr_pipe": 0,
-                               "spike_matmul_packed_csr_pipe": 0}
+                               "spike_matmul_packed_csr_pipe": 0,
+                               "apec_matmul_csr_pipe": 0,
+                               "apec_matmul_packed_csr_pipe": 0}
 
 
 @pytest.mark.cuda
@@ -331,7 +336,49 @@ def test_cuda_apec_matmul_csr_kernel_matches_plain(cuda_device, m, k, n, g,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,g", [(256, 256, 128, 2), (260, 200, 40, 4),
+                                     (1000, 432, 96, 2), (512, 384, 130, 8),
+                                     (1024, 200, 40, 16),
+                                     (1024, 300, 70, 128),
+                                     (300, 384, 1536, 1)])
+@pytest.mark.parametrize("carried", [False, True])
+def test_cuda_apec_pipe_kernels_match_plain_and_serial(cuda_device, m, k, n,
+                                                       g, carried):
+    """Kernels 18 (f32) and 16 (words) against their plain versions, and
+    bit for bit kernels 17 and 15 on the same spikes and work list (the
+    same fmaf chains); the words' sums equal the f32 ones."""
+    rng = np.random.default_rng(m + n + g)
+    s = _clustered(rng, m, k)
+    grp = s.reshape(m // g, g, k)
+    grp[::3] = grp[::3, :1]                   # overlapping groups
+    s = grp.reshape(m, k)
+    s[128:256] = 0                            # an all-empty m-tile row
+    s = torch.from_numpy(s).to(cuda_device)
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)
+                         ).to(cuda_device)
+    occ = ops.padded_occupancy(s) if carried else None
+    ov, res = ops.apec_decompose(s, g)
+    res, ov = res.contiguous(), ov.contiguous()
+    args = (res, ov, w, g) + ops.apec_union_worklist(res, ov, g, occ)
+    got = spike_matmul.apec_matmul_csr_pipe(*args)
+    want = spike_matmul.apec_matmul_csr_pipe_plain(*args)
+    tol = 1e-5 * want.abs().max().item() + 1e-5
+    assert (got - want).abs().max().item() <= tol
+    assert torch.equal(got, spike_matmul.apec_matmul_csr(*args))
+    assert torch.all(got[128:256] == 0)
+    ov_p, res_p = apec_kernel.apec_decompose_packed(pack_spikes_padded(s), g)
+    pargs = (res_p, ov_p, w, g) + ops.apec_union_worklist(
+        res_p, ov_p, g, occ, packed=True)
+    got_p = spike_matmul.apec_matmul_packed_csr_pipe(*pargs)
+    want_p = spike_matmul.apec_matmul_packed_csr_pipe_plain(*pargs)
+    assert (got_p - want_p).abs().max().item() <= tol
+    assert torch.equal(got_p, spike_matmul.apec_matmul_packed_csr(*pargs))
+    assert torch.equal(got_p, got)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("backend,launches", [
+    ("cuda-pipe", {"apec_decompose": 1, "apec_matmul_csr_pipe": 1}),
     ("cuda", {"apec_decompose": 1, "apec_matmul_csr": 1}),
     ("cuda-pred", {"apec_decompose": 1, "spike_matmul_pred": 2})])
 def test_cuda_apec_route_launches_each_kernel_once(cuda_device, backend,
@@ -425,8 +472,8 @@ def test_cuda_packed_apec_kernel_matches_plain(cuda_device, m, k, n, g,
 def test_cuda_packed_routes_launch_their_kernels(cuda_device):
     """A packed EventTensor on the card resolves to `cuda-packed-pipe`
     and launches the word kernels, once per call; a dense call does not
-    (it resolves to `cuda-pipe`); the serial routes stay reachable by
-    override."""
+    (it resolves to `cuda-pipe`), APEC included; the serial routes stay
+    reachable by override."""
     rng = np.random.default_rng(5)
     s = torch.from_numpy(_clustered(rng, 512, 96)).to(cuda_device)
     w = torch.from_numpy(rng.normal(size=(96, 70)).astype(np.float32)
@@ -439,15 +486,17 @@ def test_cuda_packed_routes_launch_their_kernels(cuda_device):
     assert dispatch.resolved_backends(cuda_device)["spike_matmul"] == \
         dispatch.CUDA_PIPE
 
-    def serial(fn, name):
+    def serial(fn, name, op="spike_matmul"):
         def run():
-            with dispatch.use_backend(name, op="spike_matmul"):
+            with dispatch.use_backend(name, op=op):
                 return fn()
         return run
     cases = ((lambda: dispatch.spike_matmul(et, w), s @ w,
               {"spike_matmul_packed_csr_pipe": 1}),
              (lambda: dispatch.apec_matmul(et, w, g=2), s @ w,
-              {"apec_decompose": 1, "apec_matmul_packed_csr": 1}),
+              {"apec_decompose": 1, "apec_matmul_packed_csr_pipe": 1}),
+             (lambda: dispatch.apec_matmul(s, w, g=2), s @ w,
+              {"apec_decompose": 1, "apec_matmul_csr_pipe": 1}),
              (lambda: dispatch.econv(et.reshape(8, 8, 8, 96), wc),
               dispatch.get_backend("econv", "ref").fn(s.reshape(8, 8, 8, 96),
                                                       wc),
@@ -458,7 +507,13 @@ def test_cuda_packed_routes_launch_their_kernels(cuda_device):
                      dispatch.CUDA_PACKED), s @ w,
               {"spike_matmul_packed_csr": 1}),
              (serial(lambda: dispatch.spike_matmul(s, w), dispatch.CUDA),
-              s @ w, {"spike_matmul_csr": 1}))
+              s @ w, {"spike_matmul_csr": 1}),
+             (serial(lambda: dispatch.apec_matmul(et, w, g=2),
+                     dispatch.CUDA_PACKED, op="apec_matmul"), s @ w,
+              {"apec_decompose": 1, "apec_matmul_packed_csr": 1}),
+             (serial(lambda: dispatch.apec_matmul(s, w, g=2), dispatch.CUDA,
+                     op="apec_matmul"), s @ w,
+              {"apec_decompose": 1, "apec_matmul_csr": 1}))
     for fn, want, launches in cases:
         reset_launch_counts()
         with torch.inference_mode():

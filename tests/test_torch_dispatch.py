@@ -77,6 +77,8 @@ def test_declared_chains_mirror_the_reference():
         ("spike_matmul", "cuda", "cuda-pred"),
         ("econv", "cuda-packed", "cuda"),
         ("econv", "cuda", "cuda-pred"),
+        ("apec_matmul", "cuda-packed-pipe", "cuda-packed"),
+        ("apec_matmul", "cuda-pipe", "cuda"),
         ("apec_matmul", "cuda-packed", "cuda"),
         ("apec_matmul", "cuda", "cuda-pred")}
     text = dispatch.table()
@@ -223,11 +225,12 @@ def test_on_the_card_automatic_selection_stays_on_the_kernels(monkeypatch):
     with pytest.raises(ValueError, match="mode='or'.*no kernel route"):
         dispatch.resolve("sdsa", q, q, q, mode="sum")
     s, w = torch.zeros(2, 256, 32), torch.zeros(32, 8)
-    # the fused route refuses g=256; the predicated kernel takes it (where
-    # the CPU, and repro, would run the overlap-reuse `jnp` form)
+    # the fused routes (pipelined, then serial) refuse g=256; the
+    # predicated kernel takes it (where the CPU, and repro, would run the
+    # overlap-reuse `jnp` form)
     with pytest.warns(RuntimeWarning, match="degrading to 'cuda-pred'"):
         assert dispatch.resolve_attribution("apec_matmul", s, w, g=256) == \
-            "cuda-pred<-cuda"
+            "cuda-pred<-cuda-pipe"
     with pytest.raises(ValueError, match="not divisible"):
         dispatch.resolve("apec_matmul", torch.zeros(2, 10, 32), w, g=3)
 
@@ -382,8 +385,9 @@ def test_a_kernel_that_fails_to_build_or_launch_still_raises(monkeypatch,
 def test_apec_fused_routes_take_every_group_dividing_128(g, packed,
                                                          monkeypatch):
     """At g=1, 16 and 128 the fused routes accept the call with no warning
-    (automatic selection on the card and the override alike) and their
-    plain versions equal repro's pallas-csr-interpret output."""
+    (automatic selection on the card, which picks the pipelined route,
+    and the serial route's override alike) and their plain versions equal
+    repro's pallas-csr-interpret output."""
     rng = np.random.default_rng(g)
     m, k, n = 1024, 200, 40
     s = _clustered(rng, m, k)
@@ -397,6 +401,7 @@ def test_apec_fused_routes_take_every_group_dividing_128(g, packed,
             {"g": g, "packed_k": k}, "cuda-packed"
     else:
         args, kw, name = (ts, tw), {"g": g}, "cuda"
+    auto = name + "-pipe"
     want = np.asarray(jops.apec_matmul_csr(jnp.asarray(s), jnp.asarray(w),
                                            g))
     with warnings.catch_warnings():
@@ -407,7 +412,7 @@ def test_apec_fused_routes_take_every_group_dividing_128(g, packed,
             got = dispatch.dispatch("apec_matmul", *args, **kw)
         monkeypatch.setattr(dispatch, "_platform", lambda a: "cuda")
         assert dispatch.resolve_attribution("apec_matmul", *args,
-                                            **kw) == name
+                                            **kw) == auto
     tol = 1e-5 * np.abs(want).max() + 1e-5
     assert np.abs(got.numpy() - want).max() <= tol
     _close(got, s @ w)

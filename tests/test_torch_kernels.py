@@ -222,7 +222,7 @@ REGISTRY = {"lif_scan": {"ref", "cuda"}, "lif_scan_occ": {"ref", "cuda"},
                       "cuda-pipe", "cuda-packed-pipe"},
             "tconv": {"ref", "cuda", "jnp"},
             "apec_matmul": {"ref", "jnp", "cuda", "cuda-packed",
-                            "cuda-pred"}}
+                            "cuda-pred", "cuda-pipe", "cuda-packed-pipe"}}
 MANUAL = {("spike_matmul", "cuda-pred"), ("econv", "cuda-pred"),
           ("econv", "jnp"), ("tconv", "jnp"), ("apec_matmul", "cuda-pred"),
           ("causal_sdsa", "jnp")}

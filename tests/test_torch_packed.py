@@ -70,8 +70,9 @@ def _jwords(a):
 @pytest.fixture
 def card_routing(monkeypatch):
     """Automatic selection as on the card (the platform read as `cuda`):
-    dense calls land on `cuda`, packed ones on `cuda-packed`, and the
-    kernel wrappers run their plain versions on the CPU tensors."""
+    dense calls land on `cuda`, packed ones on `cuda-packed` (their
+    `-pipe` routes for the CSR-matmul ops and APEC), and the kernel
+    wrappers run their plain versions on the CPU tensors."""
     monkeypatch.setattr(dispatch, "_platform", lambda args: "cuda")
 
 
@@ -275,12 +276,12 @@ def test_apec_matmul_packed_matches_jax(g, carried):
 def test_dense_calls_never_resolve_to_a_packed_backend(card_routing,
                                                       monkeypatch):
     """With the platform read as `cuda` (no card here), dense calls land
-    on `cuda` (`cuda-pipe` for the CSR-matmul ops) and packed calls on
-    `cuda-packed` (`cuda-packed-pipe`); a packed call with no packed
-    backend on the card raises instead of unpacking."""
+    on `cuda` (`cuda-pipe` for the CSR-matmul ops and APEC) and packed
+    calls on `cuda-packed` (`cuda-packed-pipe`); a packed call with no
+    packed backend on the card raises instead of unpacking."""
     dense = dispatch.resolved_backends("cpu")
     packed = dispatch.resolved_backends("cpu", packed=True)
-    piped = ("spike_matmul", "econv")
+    piped = ("spike_matmul", "econv", "apec_matmul")
     for op in dispatch.PACKED_OPS:
         assert dense[op] == (dispatch.CUDA_PIPE if op in piped
                              else dispatch.CUDA), op
