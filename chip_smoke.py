@@ -66,13 +66,15 @@ Phases, each printed on its own line:
       matmuls, serial (kernel 17) and pipelined (kernel 18), g = 2, each
       within 1e-5 * max|ref| + 1e-5 of its plain version at fc1, fc2 and
       stage 1, on the model's maps and on data with 50% occupied tiles,
-      kernel 18 equal to kernel 17 bit for bit, with kernel (timed in
-      turns 17, 18, 18, 17), plain, library (cuBLAS fp32 on the
-      unpacked spikes) and bound times; kernels 17 / 18 and 15 / 16 at
-      g = 1, 16 and 128 on fc1, against their plain versions and each
-      other; then `core.apec.apec_matmul` on the FFN inputs and the
-      stage-1 patch matrix for g = 2 and 4, with the carried map and on
-      the bare spikes: finite, within 1e-5 * max|ref| + 1e-5 of the CSR
+      kernel 18 (tensor cores) no further from the fp64 product
+      (`err64`) than twice kernel 17 (fmaf chain), kernel 16 on the same
+      spikes' words equal to 18 bit for bit, with kernel (timed in turns
+      17, 18, 18, 17), plain, library (cuBLAS fp32 on the unpacked
+      spikes) and bound times (18's by bf16 tensor-core operations, the
+      fp32 bound beside); kernels 17 / 18 and 15 / 16 at g = 1, 16 and
+      128 on fc1 under the same gates; then `core.apec.apec_matmul` on
+      the FFN inputs and the stage-1 patch matrix for g = 2 and 4, with
+      the carried map and on the bare spikes: finite, within 1e-5 * max|ref| + 1e-5 of the CSR
       matmul on the same spikes, exactly 1 decompose and 1 kernel-18
       launch per call (APEC_LAUNCHES), 0 dense pre-passes with the map
       and 2 without, and one call on kernel 17 by override
@@ -89,12 +91,14 @@ Phases, each printed on its own line:
       1e-5 * max|ref| + 1e-5 of its plain version, and at fc1/fc2 against
       kernel 11 on the same spikes; the packed APEC matmuls, serial
       (kernel 15) and pipelined (kernel 16), g=2, at fc1, fc2 and stage 1
-      on the forward's packed inputs, each against its plain version and
-      16 equal to 15 bit for bit, timed in turns; and
+      on the forward's packed inputs, each against its plain version, 16
+      within twice 15's `err64` and equal to kernel 18 on the same spikes
+      unpacked bit for bit, timed in turns; and
       `core.apec.apec_matmul` on them with the carried map (1 decompose +
       1 kernel-16 launch, PACKED_APEC_LAUNCHES, no pre-pass, no pack or
       unpack), once on kernel 15 by override (`use_backend("cuda-packed",
-      op="apec_matmul")`, equal to kernel 16's output), beside the dense
+      op="apec_matmul")`, within 1e-5 * max|ref| + 1e-5 of the CSR
+      matmul), beside the dense
       APEC, CSR and packed CSR routes; then SpikingFormer-4-384 (4
       batches of 32) and VGG11, ResNet18, SegNet-64 (one batch of 32)
       packed forwards on the kernels (kernel 14; the coded conv on 12) and
@@ -154,7 +158,11 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 FP32_FLOPS = 67e12               # H100 SXM fp32, CUDA cores
+BF16_TC_FLOPS = 989e12           # H100 SXM bf16, tensor cores, dense
 TF32_FLOPS = 495e12              # H100 SXM TF32, tensor cores, dense
+# bf16 MMAs per fp32 product in the pipelined APEC kernels 18 / 16: binary
+# spikes times the exact split w = hi + mid + lo (csrc/tile_tc.cuh).
+APEC_SPLIT_PARTS = 3
 # TF32 MMAs per product of a split-TF32 design (w = hi + lo; binary spikes
 # exact): printed as the tensor-core bound beside the fp32 bound the CSR
 # kernels run at (csrc/tile_mma.cuh says why they stay on fp32 FMA).
@@ -367,11 +375,29 @@ def turns_ms(torch, fa, fb) -> tuple:
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
-def bound_ms(n_bytes: float, flops: float = 0.0):
-    """(least time in ms, what bounds it) on the H100's published peaks."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+def bound_ms(n_bytes: float, flops: float = 0.0,
+             flops_per_s: float = FP32_FLOPS):
+    """(least time in ms, what bounds it) on the H100's published peaks:
+    `flops` at `flops_per_s` (fp32 FMA unless given) or `n_bytes` over
+    HBM."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / flops_per_s
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
         "operations"
+
+
+def err64(out, exact) -> float:
+    """max |out - exact| / max |exact| against an fp64 product (the
+    absolute distance where `exact` is all zero)."""
+    scale = exact.abs().max().item()
+    err = (out.double() - exact).abs().max().item()
+    return err / scale if scale else err
+
+
+def apec_exact(torch, res, ov, w, g):
+    """res @ w + repeat(ov @ w, g) in fp64 (f32 operands; unpack words
+    first)."""
+    wd = w.double()
+    return res.double() @ wd + (ov.double() @ wd).repeat_interleave(g, 0)
 
 
 # ------------------------------------------------------------ phase (a)
@@ -1308,11 +1334,13 @@ APEC_PAIRS = (("apec_matmul_csr", "apec_matmul_csr_pipe"),
               ("apec_matmul_packed_csr", "apec_matmul_packed_csr_pipe"))
 
 
-def apec_pair(torch, serial, pipe, args, what):
-    """The serial APEC kernel `serial` (17 or 15) and its pipelined twin
-    `pipe` (18 or 16) on the same call: each within 1e-5 * max|ref| +
-    1e-5 of its plain version, the twin equal to the serial kernel bit for
-    bit. Returns ({name: (error, tolerance, plain version)}, max |delta|)."""
+def apec_pair(torch, serial, pipe, args, exact, what):
+    """The serial APEC kernel `serial` (17 or 15, an fmaf chain) and its
+    pipelined twin `pipe` (18 or 16, the tensor cores) on the same call:
+    each within 1e-5 * max|ref| + 1e-5 of its plain version, and the
+    twin's distance from the fp64 product `exact` (`err64`) at most twice
+    the serial kernel's (2^-23 where that is 0). Returns ({name: (error,
+    tolerance, plain version, err64)}, the twin's output)."""
     from repro_torch.kernels import spike_matmul
     got = {}
     for name in (serial, pipe):
@@ -1322,18 +1350,30 @@ def apec_pair(torch, serial, pipe, args, what):
         err = (out - ref).abs().max().item()
         tol = 1e-5 * ref.abs().max().item() + 1e-5
         check(err <= tol, f"{name} off by {err} > {tol} ({what})")
-        got[name] = (out, err, tol, plain)
-    delta = (got[pipe][0] - got[serial][0]).abs().max().item()
-    check(delta == 0.0, f"{pipe} differs from {serial} by {delta} ({what})")
-    return {n: v[1:] for n, v in got.items()}, delta
+        got[name] = (out, err, tol, plain, err64(out, exact))
+    e_pipe, e_ser = got[pipe][-1], got[serial][-1]
+    limit = 2 * e_ser if e_ser > 0 else 2.0 ** -23
+    check(e_pipe <= limit, f"{pipe} is {e_pipe} from the fp64 product, "
+          f"over {limit} (twice {serial}'s {e_ser}; {what})")
+    return {n: v[1:] for n, v in got.items()}, got[pipe][0]
+
+
+def same_bits(torch, a, b, what):
+    """Kernels 18 and 16 on the same spikes: equal bit for bit (the same A
+    bits into the same MMAs)."""
+    torch.cuda.synchronize()
+    delta = (a - b).abs().max().item()
+    check(torch.equal(a, b), f"kernels 18 and 16 differ by {delta} ({what})")
 
 
 def phase_apec_matmul_kernel(torch, gen, cap, results):
     """Kernels 17 and 18 (g = 2) at FFN fc1, fc2 and the stage-1 patch
     matmul, on the model's spikes and on clustered data: each against its
-    plain version, 18 against 17 bit for bit, timed in turns beside
-    cuBLAS fp32 on the same spikes."""
-    from repro_torch.core.spikes import ragged_tile_occupancy
+    plain version and the fp64 product (18 within twice 17's distance),
+    kernel 16 on the same spikes' words equal to 18 bit for bit, 17 and
+    18 timed in turns beside cuBLAS fp32 on the same spikes."""
+    from repro_torch.core.spikes import (pack_spikes_padded,
+                                         ragged_tile_occupancy)
     from repro_torch.kernels import dispatch, ops, spike_matmul
     g = 2
     serial, pipe = APEC_PAIRS[0]
@@ -1354,28 +1394,29 @@ def phase_apec_matmul_kernel(torch, gen, cap, results):
         for data, s in (("model", s_model), ("clustered50", syn)):
             ov, res = ops.apec_decompose(s, g)
             res, ov = res.contiguous(), ov.contiguous()
-            args = (res, ov, w, g) + ops.apec_union_worklist(res, ov, g)
-            errs, delta = apec_pair(torch, serial, pipe, args,
-                                    f"{label}, {data}")
+            work = ops.apec_union_worklist(res, ov, g)
+            args = (res, ov, w, g) + work
+            what = f"{label}, {data}"
+            errs, got = apec_pair(torch, serial, pipe, args,
+                                  apec_exact(torch, res, ov, w, g), what)
+            same_bits(torch, got, spike_matmul.apec_matmul_packed_csr_pipe(
+                pack_spikes_padded(res).contiguous(),
+                pack_spikes_padded(ov).contiguous(), w, g, *work), what)
             map_r = ops.padded_occupancy(res)
             map_o = ragged_tile_occupancy(ov, 128 // g, 128)
             flops, n_bytes = csr_work(torch, map_r, m, k, n, map_o, g)
-            b_ms, by = bound_ms(n_bytes, flops)
             library_ms = cuda_ms(torch, functools.partial(torch.matmul, s, w))
             times = turns_ms(torch, functools.partial(
                 spike_matmul.apec_matmul_csr, *args), functools.partial(
                 spike_matmul.apec_matmul_csr_pipe, *args))
             for name, ms in zip((serial, pipe), times):
-                err, tol, plain = errs[name]
+                err, tol, plain, e64 = errs[name]
                 worst[name] = max(worst[name], err)
-                rec = dict(max_abs_err=err, tolerance=tol, ms=ms,
+                rec = dict(max_abs_err=err, tolerance=tol, err64=e64, ms=ms,
                            plain_ms=cuda_ms(torch, functools.partial(
                                plain, *args), reps=3, warmup=1),
-                           bound_ms=b_ms, bound_by=by,
-                           bytes_bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
-                           ops_bound_ms=flops / FP32_FLOPS * 1e3,
+                           **apec_bounds(name == pipe, n_bytes, flops),
                            library_ms=library_ms,
-                           kernel17_max_abs_delta=delta,
                            residual_occupied_share=(map_r > 0).float()
                            .mean().item(),
                            overlap_occupied_share=(map_o > 0).float()
@@ -1390,6 +1431,22 @@ def phase_apec_matmul_kernel(torch, gen, cap, results):
         results[name]["max_abs_err"] = err
 
 
+def apec_bounds(tensor_cores: bool, n_bytes: float, flops: float) -> dict:
+    """An APEC kernel's bound fields: the serial kernels 17 / 15 run fp32
+    FMAs (flops over FP32_FLOPS); the pipelined 18 / 16 run
+    APEC_SPLIT_PARTS bf16 MMAs per product (over BF16_TC_FLOPS), with the
+    fp32 bound printed beside. Either against the bytes."""
+    b_ms, by = bound_ms(n_bytes, APEC_SPLIT_PARTS * flops, BF16_TC_FLOPS) \
+        if tensor_cores else bound_ms(n_bytes, flops)
+    rec = dict(bound_ms=b_ms, bound_by=by,
+               bytes_bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+               fp32_ops_bound_ms=flops / FP32_FLOPS * 1e3)
+    if tensor_cores:
+        rec["tensor_core_ops_bound_ms"] = \
+            APEC_SPLIT_PARTS * flops / BF16_TC_FLOPS * 1e3
+    return rec
+
+
 # g = 1 needs the 64 KB epilogue tile in dynamic shared memory; at 16 and
 # 128 the overlap tile has fewer rows (8, 1) than the block thread rows.
 APEC_WIDE_GROUPS = (1, 16, 128)
@@ -1398,7 +1455,8 @@ APEC_WIDE_GROUPS = (1, 16, 128)
 def phase_apec_groups(torch, cap):
     """Kernels 17 / 18 (f32) and 15 / 16 (words) at APEC_WIDE_GROUPS on the
     FFN fc1 spikes: within 1e-5 * max|ref| + 1e-5 of their plain versions,
-    18 equal to 17 and 16 to 15 bit for bit, timed in turns."""
+    18 and 16 within twice 17's and 15's distance from the fp64 product
+    and equal to each other bit for bit, timed in turns."""
     from repro_torch.core.spikes import pack_spikes_padded
     from repro_torch.kernels import apec_kernel, ops, spike_matmul
     s1, w1, _ = cap["spike_matmul"][0]
@@ -1409,19 +1467,24 @@ def phase_apec_groups(torch, cap):
         ov, res = ops.apec_decompose(s, g)
         res, ov = res.contiguous(), ov.contiguous()
         ov_p, res_p = apec_kernel.apec_decompose_packed(words, g)
+        exact = apec_exact(torch, res, ov, w, g)
+        twins = []
         for (serial, pipe), args in zip(APEC_PAIRS, (
                 (res, ov, w, g) + ops.apec_union_worklist(res, ov, g),
                 (res_p, ov_p, w, g) + ops.apec_union_worklist(
                     res_p, ov_p, g, packed=True))):
-            errs, delta = apec_pair(torch, serial, pipe, args, f"g={g}")
+            errs, got = apec_pair(torch, serial, pipe, args, exact,
+                                  f"g={g}")
+            twins.append(got)
             times = turns_ms(torch, functools.partial(
                 getattr(spike_matmul, serial), *args), functools.partial(
                 getattr(spike_matmul, pipe), *args))
             for name, ms in zip((serial, pipe), times):
                 emit("kernel", name=name, case=f"ffn_fc1_g{g}", g=g,
                      max_abs_err=errs[name][0], tolerance=errs[name][1],
-                     ms=ms, serial_max_abs_delta=delta,
+                     err64=errs[name][3], ms=ms,
                      overlap_density=ov.mean().item(), shape=list(s.shape))
+        same_bits(torch, *twins, f"g={g}")
 
 
 def phase_apec_path(torch, cap):
@@ -1712,7 +1775,9 @@ def count_pack_calls():
 def phase_packed_apec(torch, cap, results):
     """Kernels 15 and 16 (g=2) at fc1 and fc2 on the forward's packed
     inputs and at the packed stage-1 patch matrix: each against its plain
-    version, 16 against 15 bit for bit, timed in turns; and
+    version and the fp64 product (16 within twice 15's distance), kernel
+    18 on the same spikes unpacked equal to 16 bit for bit, 15 and 16
+    timed in turns; and
     `core.apec.apec_matmul` on them (fc1/fc2 with the carried map; stage
     1 bare, as its econv has no map to carry): exactly
     PACKED_APEC_LAUNCHES (kernel 16), one call on kernel 15 by override,
@@ -1721,6 +1786,7 @@ def phase_packed_apec(torch, cap, results):
     from repro_torch.core import apec
     from repro_torch.core.events import EventTensor
     from repro_torch.core.spikes import (ragged_packed_tile_occupancy,
+                                         unpack_spikes_padded,
                                          watch_occupancy_prepasses,
                                          watch_word_prepasses)
     from repro_torch.kernels import (apec_kernel, dispatch, launch_counts,
@@ -1754,29 +1820,31 @@ def phase_packed_apec(torch, cap, results):
         p2 = words.reshape(-1, words.shape[-1]).contiguous()
         m = p2.shape[0]
         ov, res = apec_kernel.apec_decompose_packed(p2, g)
-        call = (res, ov, w, g) + ops.apec_union_worklist(res, ov, g,
-                                                         packed=True)
-        errs, delta = apec_pair(torch, serial, pipe, call, label)
+        work = ops.apec_union_worklist(res, ov, g, packed=True)
+        call = (res, ov, w, g) + work
+        dense_res, dense_ov = (unpack_spikes_padded(x, k).contiguous()
+                               for x in (res, ov))
+        errs, got16 = apec_pair(torch, serial, pipe, call, apec_exact(
+            torch, dense_res, dense_ov, w, g), label)
+        same_bits(torch, spike_matmul.apec_matmul_csr_pipe(
+            dense_res, dense_ov, w, g, *work), got16, label)
         map_r = ragged_packed_tile_occupancy(res, 128, 128)
         map_o = ragged_packed_tile_occupancy(ov, 128 // g, 128)
         flops, n_bytes = csr_work(torch, map_r, m, k, n, map_o, g,
                                   spike_bytes=1 / 8)
-        b_ms, by = bound_ms(n_bytes, flops)
         flat = dense_et.spikes.reshape(-1, k)
         library_ms = cuda_ms(torch, functools.partial(torch.matmul, flat, w))
         times = turns_ms(torch, functools.partial(
             spike_matmul.apec_matmul_packed_csr, *call), functools.partial(
             spike_matmul.apec_matmul_packed_csr_pipe, *call))
         for name, ms in zip((serial, pipe), times):
-            err, tol, plain = errs[name]
+            err, tol, plain, e64 = errs[name]
             worst[name] = max(worst[name], err)
-            rec = dict(max_abs_err=err, tolerance=tol, ms=ms,
+            rec = dict(max_abs_err=err, tolerance=tol, err64=e64, ms=ms,
                        plain_ms=cuda_ms(torch, functools.partial(
                            plain, *call), reps=3, warmup=1),
-                       bound_ms=b_ms, bound_by=by,
-                       bytes_bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
-                       ops_bound_ms=flops / FP32_FLOPS * 1e3,
-                       library_ms=library_ms, kernel15_max_abs_delta=delta,
+                       **apec_bounds(name == pipe, n_bytes, flops),
+                       library_ms=library_ms,
                        residual_occupied_share=(map_r > 0).float().mean()
                        .item(),
                        overlap_occupied_share=(map_o > 0).float().mean()
@@ -1805,8 +1873,10 @@ def phase_packed_apec(torch, cap, results):
             with torch.inference_mode():
                 serial_ms = cuda_ms(torch, lambda: apec.apec_matmul(et, w,
                                                                     g))
-        check(torch.equal(ser, got), f"{label}: the packed APEC route on "
-              f"kernel 15 differs from kernel 16's")
+        serial_err = (ser - csr_out).abs().max().item()
+        check(bool(torch.isfinite(ser).all()) and serial_err <= route_tol,
+              f"{label}: packed APEC route on kernel 15 off the CSR matmul "
+              f"by {serial_err} > {route_tol}")
         with torch.inference_mode():
             routes = dict(
                 packed_apec_ms=cuda_ms(torch, lambda: apec.apec_matmul(
@@ -1826,7 +1896,8 @@ def phase_packed_apec(torch, cap, results):
         emit("packed_apec_path", case=label, g=g, carried=occ is not None,
              word_prepasses=wpre, launches=PACKED_APEC_LAUNCHES,
              serial_launches=PACKED_APEC_SERIAL_LAUNCHES,
-             max_abs_err=route_err, tolerance=route_tol, **routes)
+             max_abs_err=route_err, serial_max_abs_err=serial_err,
+             tolerance=route_tol, **routes)
     for name, err in worst.items():
         results[name]["max_abs_err"] = err
     return totals

@@ -1,14 +1,17 @@
 // The Hopper tile loop of the pipelined CSR spike matmuls
 // (csrc/spike_matmul_csr_pipe.cu): a cp.async ring of k-slices, gated by
-// the work list's per-step counts, feeding an fp32 FMA loop.
+// the work list's per-step counts, feeding an fp32 FMA loop; and the ring,
+// loaders and weight slices that the pipelined APEC matmuls
+// (csrc/apec_matmul_csr_pipe.cu) feed into csrc/tile_tc.cuh's tensor-core
+// loop instead.
 //
 // A block owns one 128-row m-tile x BN output columns and walks its row's
 // work-list steps row_ptr[r]..row_ptr[r+1] as kSlice-deep k-slices. Each
 // ring stage holds one slice: the spike slice (f32 spikes, or one uint32
 // word per row) and the weight slice (kSlice x BN f32); APEC's stages
-// (csrc/apec_matmul_csr_pipe.cu) hold a residual slice, an overlap slice
-// of 128/g rows and the weight slice. The issue side (`RowCursor`) runs
-// kStages-1 slices ahead of compute, across step boundaries within the
+// hold a residual slice, an overlap slice of 128/g rows and the weight
+// slice, in a ring one stage deeper. The issue side (`RowCursor`) runs
+// stages-1 slices ahead of compute, across step boundaries within the
 // row. The gate contract of the TPU kernels' `_weight_prefetch`
 // (src/repro/kernels/spike_matmul.py:116) holds: a step whose gate is
 // dead (occ == 0; for APEC both counts 0) issues no copy, an operand
@@ -19,23 +22,26 @@
 // twin of this schedule (`kernels/spike_matmul.py::ring_schedule`) to
 // that contract.
 //
-// Compute is fp32 FMA on the CUDA cores, each output summed in k order
-// with fmaf, as kernel 11 (csrc/tile_fma.cuh) and cuBLAS's fp32 GEMM sum
-// it: the results equal theirs bit for bit, binary or multi-bit spikes,
-// f32 or words. A split-TF32 tensor-core loop (w = hi + lo, two
+// The CSR kernels' compute (`fma_slice`) is fp32 FMA on the CUDA cores,
+// each output summed in k order with fmaf, as kernel 11
+// (csrc/tile_fma.cuh) and cuBLAS's fp32 GEMM sum it: the results equal
+// theirs bit for bit, binary or multi-bit spikes, f32 or words. A
+// split-TF32 tensor-core loop (w = hi + lo, two
 // mma.sync.m16n8k8 per fragment, each k8 step's or slice's MMAs summed
 // from zero and added in fp32) ran 1.8-2.5x faster than kernel 11 and sat
 // closer to the fp64 product than it, but rounds in another order than
 // `ref`'s cuDNN convolution; the CNN forwards' spike drift against `ref`
 // (a threshold tie flips, and the flip cascades) then broke its 1e-2 gate
 // at ResNet18's deep layers (H100, chip_smoke). Bitwise equality keeps
-// every drift gate where kernel 11 held it.
+// every drift gate where kernel 11 held it. No model calls APEC, so no
+// drift gate sees the APEC kernels: their tensor-core loop is held to
+// its plain version and to the fp64 product instead.
 //
-// 256 threads as 16 x 16; thread (tx, ty) accumulates rows ty + 16 i
-// (i < 8) and columns tx + 16 j (j < BN/16), kernel 11's layout, so a
-// warp's spike reads are two broadcast rows and its weight reads 16
-// consecutive words. Shared-memory rows are padded (A: 32+4 floats, B:
-// BN+8 floats). Ragged M, K and N are zero-filled on copy (cp.async
+// 256 threads as 16 x 16; in the CSR kernels thread (tx, ty) accumulates
+// rows ty + 16 i (i < 8) and columns tx + 16 j (j < BN/16), kernel 11's
+// layout, so a warp's spike reads are two broadcast rows and its weight
+// reads 16 consecutive words. Shared-memory rows are padded (A: 32+4
+// floats, B: BN+8 floats; the APEC kernels pass tile_tc.cuh's pads). Ragged M, K and N are zero-filled on copy (cp.async
 // src-size 0) and masked on store: no operand is padded. A row of f32
 // spikes or weights whose length is not a multiple of 4 (K = 27 at the
 // coded conv, N = 2) is copied in 4-byte pieces instead of 16-byte ones.
@@ -163,14 +169,15 @@ constexpr int rows_per_thread() {
 }
 
 // f32 spikes (M, K) row-major. `vec`: rows may be copied 16 bytes at a
-// time (K % 4 == 0 and s 16-byte aligned).
-template <int ROWS = kTile>
+// time (K % 4 == 0 and s 16-byte aligned). Staged rows are kSlice + PAD
+// floats (PAD a multiple of 4).
+template <int ROWS = kTile, int PAD = kPadA>
 struct DenseSpikes {
   const float* __restrict__ s;
   int64_t m, k;
   bool vec;
   static constexpr int kRowsPerThread = rows_per_thread<ROWS>();
-  static constexpr int kRow = kSlice + kPadA;
+  static constexpr int kRow = kSlice + PAD;
   static constexpr int kStageBytes = ROWS * kRow * 4;
 
   __device__ void issue(unsigned char* stage, int64_t m0, int64_t k0) const {
@@ -243,9 +250,10 @@ struct PackedSpikes {
 };
 
 // ------------------------------------------------------- weight slices
-template <int BN>
+// Staged rows are BN + PAD floats (PAD a multiple of 4).
+template <int BN, int PAD = kPadB>
 struct WeightSlice {
-  static constexpr int kRow = BN + kPadB;
+  static constexpr int kRow = BN + PAD;
   static constexpr int kStageBytes = kSlice * kRow * 4;
 
   // w[k0:k0+kSlice, n0:n0+BN] into `stage`, zeros past K and N. `vec`:

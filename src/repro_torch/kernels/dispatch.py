@@ -33,7 +33,8 @@ manual routes (`auto=False`, reached only by an override):
                 jnp          zero-insertion + dense conv (manual)
   apec_matmul   cuda-pipe    csrc/apec.cu + csrc/apec_matmul_csr_pipe.cu
                              (union work list, both products in one
-                             pass on the cp.async ring; kernel 17's sums)
+                             pass on the cp.async ring, on the tensor
+                             cores: an exact bf16 split of the weights)
                 cuda-packed-pipe  csrc/apec.cu + its word kernel (packed
                              payload)
                 cuda         csrc/apec.cu + csrc/apec_matmul_csr.cu, serial

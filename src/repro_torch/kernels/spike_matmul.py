@@ -33,6 +33,8 @@ from . import _build
 TILE = 128     # map / work-list tiling (rows and k)
 PIPE_SLICE = 32    # k depth of a ring stage (csrc/tile_mma.cuh: kSlice)
 PIPE_STAGES = 3    # ring depth (csrc/tile_mma.cuh: kStages)
+# The APEC kernels' ring depth (csrc/apec_matmul_csr_pipe.cu: kApecStages).
+APEC_PIPE_STAGES = 4
 
 
 def csr_tile_gate(csr: TileCSR, mt: int, kt: int,
@@ -251,13 +253,13 @@ def check_ring_trace(trace: list, occ, kidx, k: int,
     return computed
 
 
-def _ring_columns(csr: TileCSR, k: int, occ=None,
-                  occ_ov=None) -> torch.Tensor:
+def _ring_columns(csr: TileCSR, k: int, occ=None, occ_ov=None,
+                  stages: int = PIPE_STAGES) -> torch.Tensor:
     """(operands, MT, K) bool: per operand, the columns of each m-tile
-    row that the ring computes for it, from the row's checked schedule
-    (slices of PIPE_SLICE columns). `occ`: per-step counts to gate on
-    instead of `csr.occ`; with `occ_ov` (APEC's union gate) the result
-    holds the residual's columns, then the overlap's."""
+    row that the ring (`stages` deep) computes for it, from the row's
+    checked schedule (slices of PIPE_SLICE columns). `occ`: per-step
+    counts to gate on instead of `csr.occ`; with `occ_ov` (APEC's union
+    gate) the result holds the residual's columns, then the overlap's."""
     mt = csr.n_rows
     row_ptr = csr.row_ptr.tolist()
     kidx = csr.tile_k_idx.tolist()
@@ -267,7 +269,9 @@ def _ring_columns(csr: TileCSR, k: int, occ=None,
     for r in range(mt):
         b, e = row_ptr[r], row_ptr[r + 1]
         args = (occ[b:e], kidx[b:e], k)
-        kw = {} if ov is None else {"occ_ov": ov[b:e]}
+        kw = {"stages": stages}
+        if ov is not None:
+            kw["occ_ov"] = ov[b:e]
         for item in check_ring_trace(ring_schedule(*args, **kw), *args,
                                      **kw):
             (_, k0), live = (item, (True,)) if ov is None else item
@@ -360,15 +364,32 @@ def apec_matmul_csr_pipe_plain(res: torch.Tensor, ov: torch.Tensor,
                                occ_res: torch.Tensor,
                                occ_ov: torch.Tensor) -> torch.Tensor:
     """Plain version of the pipelined APEC kernel: the union-gated twin of
-    its copy ring (`ring_schedule(..., occ_ov=)`, checked) gates each
-    operand's columns by the slices the ring copies and computes for it,
-    then the fused kernel's dense fp32 product."""
+    its copy ring (`ring_schedule(..., occ_ov=, stages=APEC_PIPE_STAGES)`,
+    checked) gates each operand's columns by the slices the ring copies
+    and computes for it, then the fused kernel's dense fp32 product (the
+    kernel sums the same products on the tensor cores, `split_bf16x3`)."""
     m, k = res.shape
-    cols = _ring_columns(csr, k, occ_res, occ_ov).to(res.device)
+    cols = _ring_columns(csr, k, occ_res, occ_ov,
+                         APEC_PIPE_STAGES).to(res.device)
     return _apec_product(
         res.float() * cols[0].repeat_interleave(TILE, 0)[:m],
         ov.float() * cols[1].repeat_interleave(TILE // g, 0)[:ov.shape[0]],
         w, g)
+
+
+def split_bf16x3(w: torch.Tensor) -> tuple:
+    """(hi, mid, lo), f32 tensors of bf16 values with hi + mid + lo == w
+    exactly: hi = RN_bf16(w), mid = RN_bf16(w - hi), lo = RN_bf16(w - hi -
+    mid), the split the pipelined APEC kernels make of their weights
+    (csrc/tile_tc.cuh). Each part takes the next 8 of w's 24 significant
+    bits, so both subtractions are exact; every part is a normal number
+    for |w| >= 2^-100."""
+    def part(x):
+        return x.to(torch.bfloat16).float()
+    w = w.float()
+    hi = part(w)
+    mid = part(w - hi)
+    return hi, mid, part(w - hi - mid)
 
 
 def _apec_matmul(name: str, res: torch.Tensor, ov: torch.Tensor,

@@ -11,9 +11,11 @@ contract by `check_ring_trace`), then the fp32 product. Outputs agree
 within 1e-5 * max|ref| + 1e-5, the parity contract, for every tested
 group size, with a carried map and without, on ragged M, K and N. A
 property test holds the union ring to the contract on random work lists.
-The kernels themselves are held to their plain versions, and to the
-serial kernels 17 and 15 bit for bit, on a card in
-tests/test_torch_cuda.py.
+The kernels themselves (tensor cores, an exact bf16 split of the
+weights) are held on a card in tests/test_torch_cuda.py to their plain
+versions, to twice the serial kernels' distance from the fp64 product,
+and to each other bit for bit; tests/test_torch_apec_tc.py holds the
+split on the CPU.
 """
 import dataclasses
 import warnings

@@ -9,8 +9,11 @@ Spikes (f32 and bf16), counts, membrane residuals, LIF drive cotangents,
 SDSA and causal-status words, APEC overlap/residual words and the packed
 fire's words must match exactly; the CSR, predicated and fused APEC
 matmuls, f32 and packed, within 1e-5 * max|plain| + 1e-5 (fp32 summation
-order); the pipelined CSR and APEC kernels equal the serial ones bit for
-bit (the same fmaf chains).
+order); the pipelined CSR kernels equal the serial ones bit for bit (the
+same fmaf chains). The pipelined APEC kernels sum on the tensor cores (an
+exact bf16 split of the weights): their distance from the fp64 product
+is at most twice the serial kernels' on the same inputs (2^-23 where
+theirs is 0), and the word kernel equals the f32 one bit for bit.
 """
 import numpy as np
 import pytest
@@ -30,6 +33,21 @@ def _clustered(rng, m, k, tile_p=0.5, p=0.3, tile=128):
     tiles = rng.random((-(-m // tile), -(-k // tile))) < tile_p
     mask = np.kron(tiles, np.ones((tile, tile)))[:m, :k]
     return ((rng.random((m, k)) < p) * mask).astype(np.float32)
+
+
+def _err64(out, exact):
+    """max |out - exact| / max |exact| (0 where both are all zero)."""
+    scale = exact.abs().max().item()
+    err = (out.double() - exact).abs().max().item()
+    return err / scale if scale else err
+
+
+def _within_twice(got, serial, exact):
+    """The tensor-core kernel's fp64 distance against the serial fmaf
+    kernel's on the same inputs: at most twice it, or 2^-23 where it is
+    0."""
+    e_tc, e_ser = _err64(got, exact), _err64(serial, exact)
+    return e_tc <= (2 * e_ser if e_ser > 0 else 2.0 ** -23)
 
 
 @pytest.fixture
@@ -344,9 +362,10 @@ def test_cuda_apec_matmul_csr_kernel_matches_plain(cuda_device, m, k, n, g,
 @pytest.mark.parametrize("carried", [False, True])
 def test_cuda_apec_pipe_kernels_match_plain_and_serial(cuda_device, m, k, n,
                                                        g, carried):
-    """Kernels 18 (f32) and 16 (words) against their plain versions, and
-    bit for bit kernels 17 and 15 on the same spikes and work list (the
-    same fmaf chains); the words' sums equal the f32 ones."""
+    """Kernels 18 (f32) and 16 (words) against their plain versions, no
+    further from the fp64 product than twice kernels 17 and 15 on the
+    same spikes and work list, and equal to each other bit for bit (the
+    same A bits and MMAs)."""
     rng = np.random.default_rng(m + n + g)
     s = _clustered(rng, m, k)
     grp = s.reshape(m // g, g, k)
@@ -359,12 +378,13 @@ def test_cuda_apec_pipe_kernels_match_plain_and_serial(cuda_device, m, k, n,
     occ = ops.padded_occupancy(s) if carried else None
     ov, res = ops.apec_decompose(s, g)
     res, ov = res.contiguous(), ov.contiguous()
+    exact = s.double() @ w.double()
     args = (res, ov, w, g) + ops.apec_union_worklist(res, ov, g, occ)
     got = spike_matmul.apec_matmul_csr_pipe(*args)
     want = spike_matmul.apec_matmul_csr_pipe_plain(*args)
     tol = 1e-5 * want.abs().max().item() + 1e-5
     assert (got - want).abs().max().item() <= tol
-    assert torch.equal(got, spike_matmul.apec_matmul_csr(*args))
+    assert _within_twice(got, spike_matmul.apec_matmul_csr(*args), exact)
     assert torch.all(got[128:256] == 0)
     ov_p, res_p = apec_kernel.apec_decompose_packed(pack_spikes_padded(s), g)
     pargs = (res_p, ov_p, w, g) + ops.apec_union_worklist(
@@ -372,8 +392,34 @@ def test_cuda_apec_pipe_kernels_match_plain_and_serial(cuda_device, m, k, n,
     got_p = spike_matmul.apec_matmul_packed_csr_pipe(*pargs)
     want_p = spike_matmul.apec_matmul_packed_csr_pipe_plain(*pargs)
     assert (got_p - want_p).abs().max().item() <= tol
-    assert torch.equal(got_p, spike_matmul.apec_matmul_packed_csr(*pargs))
+    assert _within_twice(got_p, spike_matmul.apec_matmul_packed_csr(*pargs),
+                         exact)
     assert torch.equal(got_p, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,g", [(256, 256, 128, 2), (1000, 432, 96, 2),
+                                     (1024, 300, 70, 16)])
+def test_cuda_apec_pipe_kernel_takes_integer_counts(cuda_device, m, k, n, g):
+    """Kernel 18 on f32 operands holding spike counts 0..3 (exact in
+    bf16, so every product stays exact): within the contract of its plain
+    version and within twice kernel 17's distance from the fp64
+    product."""
+    rng = np.random.default_rng(m + k + g)
+    res = _clustered(rng, m, k) * rng.integers(1, 4, size=(m, k))
+    ov = _clustered(rng, m // g, k) * rng.integers(1, 4, size=(m // g, k))
+    res = torch.from_numpy(res.astype(np.float32)).to(cuda_device)
+    ov = torch.from_numpy(ov.astype(np.float32)).to(cuda_device)
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)
+                         ).to(cuda_device)
+    args = (res, ov, w, g) + ops.apec_union_worklist(res, ov, g)
+    got = spike_matmul.apec_matmul_csr_pipe(*args)
+    want = spike_matmul.apec_matmul_csr_pipe_plain(*args)
+    assert (got - want).abs().max().item() <= \
+        1e-5 * want.abs().max().item() + 1e-5
+    exact = res.double() @ w.double() + (ov.double() @ w.double()
+                                          ).repeat_interleave(g, 0)
+    assert _within_twice(got, spike_matmul.apec_matmul_csr(*args), exact)
 
 
 @pytest.mark.cuda
