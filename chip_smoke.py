@@ -15,8 +15,11 @@ Phases, each printed on its own line:
       serial kernels 11 (f32) and 13 (words) and the pipelined kernels 12
       and 14, each within 1e-5 * max|ref| + 1e-5 of its plain version and
       all four equal bit for bit, with its distance from the fp64 product
-      (`err64`), kernel, plain and cuBLAS fp32 times and the fp32-FMA,
-      split-TF32 tensor-core and byte bounds;
+      (`err64`), kernel, plain and cuBLAS fp32 times, the bound (one
+      fp32 instruction a nonzero spike of a live tile and a column,
+      against the bytes; `spike_bounds`) with the dense-tile fp32-FMA and
+      split-TF32 tensor-core bounds beside, and kernel 14's launch (n-tile
+      width, thread tile, grid, waves, as its C library reports it);
   (e) the training kernels (LIF forward with residual, with and without
       counts, and the surrogate backward) at the stage-1 drive, equal to
       their plain versions bit for bit, with the same times;
@@ -37,7 +40,10 @@ Phases, each printed on its own line:
       transposed-conv patch matmuls, (131072x288)x(288x16) and
       (524288x144)x(144x2), on the model's own patch maps and on data
       with 50% occupied tiles: within 1e-5 * max|ref| + 1e-5 of its plain
-      version, with kernel, plain, library and bound times;
+      version and equal bit for bit to the pipelined CSR kernel 12 on the
+      same spikes and `build_csr` of the same map, with its `err64`,
+      kernel and cuBLAS fp32 times taken in turns, kernel 12's, plain and
+      bound times and the achieved bytes a second;
   (h) the paper's CNNs end to end (VGG11 and ResNet18 on 32x32
       `class_images`, SegNet on 64x64 `seg_batch` images; B=32, T=4,
       v_th=0.5, random weights from a seed), 2 batches each, on the
@@ -520,13 +526,39 @@ def csr_work(torch, occ, m, k, n, occ_ov=None, g=1, spike_bytes=4.0):
     return 2.0 * elems * n, spike_bytes * elems + 4.0 * (k_used * n + m * n)
 
 
+def live_nonzeros(torch, s, occ) -> int:
+    """The nonzero spikes of `s` (M, K) inside the map's live 128 x 128
+    tiles: the spikes a CSR or predicated matmul must take in."""
+    m, k = s.shape
+    live = (occ > 0).repeat_interleave(128, 0).repeat_interleave(128, 1)
+    return int(((s != 0) & live[:m, :k]).sum().item())
+
+
+def spike_bounds(n_bytes: float, nnz: int, n: int,
+                 dense_flops: float) -> dict:
+    """A spike matmul's bound fields. Its operations are one fp32
+    instruction a nonzero spike of a live tile and a column: an fmaf on an
+    f32 spike, or an add under a set bit, which takes the same issue slot
+    (so 2 * nnz * N flops at FP32_FLOPS, which counts an FMA as two),
+    against the bytes. Beside: the FMAs over every element of the live
+    tiles (`dense_flops`), what the f32 kernels' dense tile loops issue."""
+    flops = 2.0 * nnz * n
+    b_ms, by = bound_ms(n_bytes, flops)
+    return dict(bound_ms=b_ms, bound_by=by,
+                bytes_bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+                fp32_ops_bound_ms=flops / FP32_FLOPS * 1e3,
+                dense_fp32_ops_bound_ms=dense_flops / FP32_FLOPS * 1e3)
+
+
 def phase_csr(torch, gen, device, results):
     """The CSR matmuls at CSR_SHAPES on data with 50% occupied tiles: the
     serial kernels 11 and 13 and the pipelined kernels 12 and 14, f32 and
     words on the same spikes and work list, each against its plain
     version and all four equal bit for bit (one fmaf chain in k order),
-    beside cuBLAS fp32 on the f32 spikes. Kernel 13's main numbers stay
-    phase (j)'s, on the model's words."""
+    beside cuBLAS fp32 on the f32 spikes; kernel 14's launch (n-tile
+    width, thread tile, grid, waves of two blocks an SM, as its C library
+    reports it) beside its times. Kernel 13's main numbers stay phase
+    (j)'s, on the model's words."""
     from repro_torch.core.spikes import build_csr, pack_spikes_padded
     from repro_torch.kernels import ops, spike_matmul as sm
     worst: dict = {}
@@ -547,6 +579,7 @@ def phase_csr(torch, gen, device, results):
         p = pack_spikes_padded(s).contiguous()
         library_ms = cuda_ms(torch, lambda: torch.matmul(s, w))
         exact = torch.matmul(s.double(), w.double())
+        nnz = live_nonzeros(torch, s, occ)
         outs = []
         for name, kernel, plain, packed in kernels:
             a = p if packed else s
@@ -563,20 +596,17 @@ def phase_csr(torch, gen, device, results):
             worst[name] = max(worst.get(name, 0.0), err)
             flops, n_bytes = csr_work(torch, occ, m, k, n,
                                       spike_bytes=1 / 8 if packed else 4.0)
-            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-            t_fp32 = flops / FP32_FLOPS * 1e3
             t_tc = SPLIT_PASSES * flops / TF32_FLOPS * 1e3
             rec = dict(max_abs_err=err, tolerance=tol, err64=err64,
                        ms=cuda_ms(torch, functools.partial(kernel, a, w, csr)),
                        plain_ms=cuda_ms(torch, functools.partial(
                            plain, a, w, csr), reps=3, warmup=1),
-                       bound_ms=max(t_bytes, t_fp32),
-                       bound_by="bytes" if t_bytes >= t_fp32 else
-                       "operations",
-                       bytes_bound_ms=t_bytes, fp32_ops_bound_ms=t_fp32,
+                       **spike_bounds(n_bytes, nnz, n, flops),
                        tensor_core_ops_bound_ms=t_tc, library_ms=library_ms,
                        occupied_share=(occ > 0).float().mean().item(),
                        shape=[m, k, n])
+            if name == "spike_matmul_packed_csr_pipe":
+                rec["launch"] = sm.packed_pipe_launch(n, -(-m // 128))
             emit("kernel", name=name, case=label, **rec)
             if label == "econv_stage1" and name != "spike_matmul_packed_csr":
                 results[name] = rec
@@ -835,7 +865,13 @@ def cnn_setup(torch, name, device):
 def phase_pred(torch, gen, device, results):
     """Kernel 10 at SegNet-64's two tconv patch matmuls: the model's own
     patch matrices and maps (captured from one forward), and clustered
-    data with 50% occupied tiles at the same shapes."""
+    data with 50% occupied tiles at the same shapes. Each case: within
+    1e-5 * max|ref| + 1e-5 of its plain version, equal bit for bit to the
+    pipelined CSR kernel 12 on the same spikes and `build_csr` of the same
+    map (one fmaf chain in k order), its distance from the fp64 product
+    (`err64`), kernel 10 and cuBLAS fp32 timed in turns, kernel 12's time
+    beside them."""
+    from repro_torch.core.spikes import build_csr
     from repro_torch.kernels import ops, spike_matmul
     _, forward, batch = cnn_setup(torch, "segnet", device)
     captured = []
@@ -860,24 +896,40 @@ def phase_pred(torch, gen, device, results):
         for data, s_in, occ_in in (("model", s, occ),
                                    ("clustered50", syn,
                                     ops.padded_occupancy(syn))):
-            out = spike_matmul.spike_matmul_pred(s_in, w, occ_in)
+            pred = functools.partial(spike_matmul.spike_matmul_pred, s_in, w,
+                                     occ_in)
+            csr = build_csr(occ_in, 128, 128)
+            pipe = functools.partial(spike_matmul.spike_matmul_csr_pipe,
+                                     s_in, w, csr)
+            out = pred()
             ref = spike_matmul.spike_matmul_pred_plain(s_in, w, occ_in)
+            out12 = pipe()
             torch.cuda.synchronize()
             err = (out - ref).abs().max().item()
             tol = 1e-5 * ref.abs().max().item() + 1e-5
             check(err <= tol, f"predicated kernel off by {err} > {tol} "
                   f"({label}, {data})")
+            check(torch.equal(out, out12), f"kernel 10 differs from kernel "
+                  f"12 bit for bit ({label}, {data})")
             worst = max(worst, err)
             flops, n_bytes = csr_work(torch, occ_in, m, k, n)
-            b_ms, by = bound_ms(n_bytes + occ_in.numel() * 4, flops)
+            n_bytes += occ_in.numel() * 4
+            ms, library_ms = turns_ms(
+                torch, pred, functools.partial(torch.matmul, s_in, w))
             rec = dict(max_abs_err=err, tolerance=tol,
-                       ms=cuda_ms(torch, lambda: spike_matmul.spike_matmul_pred(
-                           s_in, w, occ_in)),
+                       err64=err64(out, torch.matmul(s_in.double(),
+                                                     w.double())),
+                       ms=ms,
                        plain_ms=cuda_ms(
-                           torch, lambda: spike_matmul.spike_matmul_pred_plain(
-                               s_in, w, occ_in), reps=5),
-                       bound_ms=b_ms, bound_by=by,
-                       library_ms=cuda_ms(torch, lambda: torch.matmul(s_in, w)),
+                           torch, functools.partial(
+                               spike_matmul.spike_matmul_pred_plain, s_in, w,
+                               occ_in), reps=5),
+                       **spike_bounds(n_bytes,
+                                      live_nonzeros(torch, s_in, occ_in), n,
+                                      flops),
+                       library_ms=library_ms,
+                       kernel12_ms=cuda_ms(torch, pipe),
+                       bytes_per_s=n_bytes / (ms * 1e-3),
                        occupied_share=(occ_in > 0).float().mean().item(),
                        shape=[m, k, n])
             emit("kernel", name="spike_matmul_pred", case=f"{label}_{data}",
@@ -1719,14 +1771,15 @@ def phase_packed_csr(torch, gen, cap, results):
             worst = max(worst, err)
             occ = ragged_packed_tile_occupancy(p, 128, 128)
             flops, n_bytes = csr_work(torch, occ, m, k, n, spike_bytes=1 / 8)
-            b_ms, by = bound_ms(n_bytes, flops)
             rec = dict(max_abs_err=err, tolerance=tol,
                        ms=cuda_ms(torch, lambda: spike_matmul
                                   .spike_matmul_packed_csr(p, w, csr)),
                        plain_ms=cuda_ms(torch, lambda: spike_matmul
                                         .spike_matmul_packed_csr_plain(
                                             p, w, csr), reps=5),
-                       bound_ms=b_ms, bound_by=by,
+                       **spike_bounds(n_bytes,
+                                      live_nonzeros(torch, dense, occ), n,
+                                      flops),
                        library_ms=cuda_ms(torch, functools.partial(
                            torch.matmul, dense, w)),
                        occupied_share=(occ > 0).float().mean().item(),

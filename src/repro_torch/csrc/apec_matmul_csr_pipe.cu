@@ -53,7 +53,8 @@
 //           a barrier frees the ring, the overlap sums are parked in it,
 //           and each row writes acc + ovsum[lr / g]: the repeat happens in
 //           the epilogue. BN (128, 96, 64, 32; at most 96 at g = 1) comes
-//           from `pick_bn` (full waves); ragged M, K and N are zero-filled
+//           from `tile_mma::pick_bn_waves` (whole waves of one block
+//           an SM); ragged M, K and N are zero-filled
 //           on copy and masked on store, no operand is padded; g is any
 //           divisor of 128 (a template parameter). One block of 8 warps
 //           an SM; `mma.sync` peaks near half the bf16 rate, and `wgmma`
@@ -255,30 +256,6 @@ apec_pipe_kernel(RA ra, OA oa, const float* __restrict__ w,
     }
 }
 
-// The n-tile width: the one of 128, 96, 64, 32 (up to `max_bn`) with the
-// least estimated time, full waves of one block an SM times (BN + 32) (a
-// block's MMAs and weight copies grow with its columns; its spike copies
-// and A fragments do not), the wider on a tie. fc2's (8192 x 1536) x
-// (1536 x 384) takes 96: 256 blocks, two full waves on 132 SMs, where 128
-// leaves 1.45.
-inline int pick_bn(int64_t n, int64_t mt, int max_bn) {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  int best = 0;
-  int64_t best_cost = 0;
-  for (int bn : {128, 96, 64, 32}) {
-    if (bn > max_bn) continue;
-    const int64_t blocks = mt * ((n + bn - 1) / bn);
-    const int64_t cost = (blocks + sms - 1) / sms * (bn + 32);
-    if (best == 0 || cost < best_cost) {
-      best = bn;
-      best_cost = cost;
-    }
-  }
-  return best;
-}
-
 template <int G, int BN, class RA, class OA>
 cudaError_t launch_bn(RA ra, OA oa, const float* w, float* out,
                       const int* row_ptr, const int* tile_k_idx,
@@ -318,7 +295,7 @@ int launch(Make&& make, const float* w, float* out, const int* row_ptr,
           ops.first, ops.second, w, out, row_ptr, tile_k_idx, occ_res,
           occ_ov, m, k, n, mt, st);
     };
-    switch (pick_bn(n, mt, kMaxBN)) {
+    switch (tile_mma::pick_bn_waves(n, mt, 1, kMaxBN)) {
       case 128:
         if constexpr (kMaxBN >= 128) run(std::integral_constant<int, 128>{});
         break;

@@ -1,9 +1,11 @@
-// The Hopper tile loop of the pipelined CSR spike matmuls
+// The Hopper tile loops of the pipelined CSR spike matmuls
 // (csrc/spike_matmul_csr_pipe.cu): a cp.async ring of k-slices, gated by
-// the work list's per-step counts, feeding an fp32 FMA loop; and the ring,
-// loaders and weight slices that the pipelined APEC matmuls
-// (csrc/apec_matmul_csr_pipe.cu) feed into csrc/tile_tc.cuh's tensor-core
-// loop instead.
+// the work list's per-step counts, feeding an fp32 FMA loop on f32 spikes
+// (`fma_slice`) or predicated fadds on words (`add_word_slice`); the ring
+// the predicated kernel's narrow path (csrc/spike_matmul.cu) walks over a
+// map row (`TileIndex`); and the ring, loaders and weight slices that the
+// pipelined APEC matmuls (csrc/apec_matmul_csr_pipe.cu) feed into
+// csrc/tile_tc.cuh's tensor-core loop instead.
 //
 // A block owns one 128-row m-tile x BN output columns and walks its row's
 // work-list steps row_ptr[r]..row_ptr[r+1] as kSlice-deep k-slices. Each
@@ -18,33 +20,41 @@
 // whose count is 0 is not copied, every committed group holds one
 // slice's copies, and the consumer waits on exactly the groups that were
 // committed (`wait_pending`, never on an unissued group).
-// tests/test_torch_pipe.py and tests/test_torch_apec_pipe.py hold the CPU
-// twin of this schedule (`kernels/spike_matmul.py::ring_schedule`) to
-// that contract.
+// tests/test_torch_pipe.py, tests/test_torch_apec_pipe.py and
+// tests/test_torch_stream.py hold the CPU twin of this schedule
+// (`kernels/spike_matmul.py::ring_schedule`) to that contract.
 //
-// The CSR kernels' compute (`fma_slice`) is fp32 FMA on the CUDA cores,
-// each output summed in k order with fmaf, as kernel 11
-// (csrc/tile_fma.cuh) and cuBLAS's fp32 GEMM sum it: the results equal
-// theirs bit for bit, binary or multi-bit spikes, f32 or words. A
-// split-TF32 tensor-core loop (w = hi + lo, two
-// mma.sync.m16n8k8 per fragment, each k8 step's or slice's MMAs summed
-// from zero and added in fp32) ran 1.8-2.5x faster than kernel 11 and sat
-// closer to the fp64 product than it, but rounds in another order than
-// `ref`'s cuDNN convolution; the CNN forwards' spike drift against `ref`
-// (a threshold tie flips, and the flip cascades) then broke its 1e-2 gate
-// at ResNet18's deep layers (H100, chip_smoke). Bitwise equality keeps
-// every drift gate where kernel 11 held it. No model calls APEC, so no
-// drift gate sees the APEC kernels: their tensor-core loop is held to
-// its plain version and to the fp64 product instead.
+// The CSR kernels' compute is fp32 on the CUDA cores, each output summed
+// in k order one rounding at a time, as kernel 11 (csrc/tile_fma.cuh) and
+// cuBLAS's fp32 GEMM sum it: the results equal theirs bit for bit,
+// binary or multi-bit spikes, f32 or words. A split-TF32 tensor-core loop
+// (w = hi + lo, two mma.sync.m16n8k8 per fragment, each k8 step's or
+// slice's MMAs summed from zero and added in fp32) ran 1.8-2.5x faster
+// than kernel 11 and sat closer to the fp64 product than it, but rounds in
+// another order than `ref`'s cuDNN convolution; the CNN forwards' spike
+// drift against `ref` (a threshold tie flips, and the flip cascades) then
+// broke its 1e-2 gate at ResNet18's deep layers (H100, chip_smoke).
+// Bitwise equality keeps every drift gate where kernel 11 held it. No
+// model calls APEC, so no drift gate sees the APEC kernels: their
+// tensor-core loop is held to its plain version and to the fp64 product
+// instead.
 //
-// 256 threads as 16 x 16; in the CSR kernels thread (tx, ty) accumulates
-// rows ty + 16 i (i < 8) and columns tx + 16 j (j < BN/16), kernel 11's
-// layout, so a warp's spike reads are two broadcast rows and its weight
-// reads 16 consecutive words. Shared-memory rows are padded (A: 32+4
-// floats, B: BN+8 floats; the APEC kernels pass tile_tc.cuh's pads). Ragged M, K and N are zero-filled on copy (cp.async
-// src-size 0) and masked on store: no operand is padded. A row of f32
-// spikes or weights whose length is not a multiple of 4 (K = 27 at the
-// coded conv, N = 2) is copied in 4-byte pieces instead of 16-byte ones.
+// 256 threads. On f32 spikes (`fma_slice`) thread (tx, ty) of 16 x 16
+// accumulates rows ty + 16 i (i < 8) and columns tx + 16 j (j < BN/16),
+// kernel 11's layout, so a warp's spike reads are two broadcast rows and
+// its weight reads 16 consecutive words. On words (`add_word_slice`,
+// `WordTile`) a thread holds fewer rows and more columns: RM x CN = 8 x 8
+// at BN = 128, 4 x 12 at 96, 4 x 8 at 64, 2 x 8 at 32, the columns in runs
+// of 4, so its weight reads are LDS.128 without bank conflicts and one
+// bit test of a row's word predicates CN fadds (a set bit adds the weight
+// row, fadd(acc, w) = fmaf(1, w, acc); a clear one adds nothing, as
+// fmaf(0, w, acc) = acc: kernel 11's chain, with no float made of the
+// bit). Shared-memory rows are padded (A: 32+4 floats, B: BN+8 floats;
+// the APEC kernels pass tile_tc.cuh's pads). Ragged M, K and N are
+// zero-filled on copy (cp.async src-size 0) and masked on store: no
+// operand is padded. A row of f32 spikes or weights whose length is not a
+// multiple of 4 (K = 27 at the coded conv, N = 2) is copied in 4-byte
+// pieces instead of 16-byte ones.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -119,19 +129,26 @@ struct UnionGate {
   }
 };
 
+// A dense map row as a work list: step j is k-tile j (the predicated
+// kernel, csrc/spike_matmul.cu, gates on the map row itself).
+struct TileIndex {
+  __device__ __forceinline__ int operator[](int step) const { return step; }
+};
+
 // Walks one m-tile row's live steps slice by slice: the ring's issue
 // side (and, as a count, its consume side). `live` is the current step's
-// gate mask, which tells the issuer what to copy. Every thread holds its
-// own copy and moves it identically, so the walk is block-uniform.
-template <class Gate>
+// gate mask, which tells the issuer what to copy; `kidx[step]` is the
+// step's k-tile. Every thread holds its own copy and moves it
+// identically, so the walk is block-uniform.
+template <class Gate, class Index = const int*>
 struct RowCursor {
   Gate gate;
-  const int* __restrict__ kidx;
+  Index kidx;
   int step, end, kk;
   unsigned live;
   int64_t k;
 
-  __device__ RowCursor(Gate gate_, const int* kidx_, int beg, int end_,
+  __device__ RowCursor(Gate gate_, Index kidx_, int beg, int end_,
                        int64_t k_)
       : gate(gate_), kidx(kidx_), step(beg), end(end_), kk(0), live(0),
         k(k_) {
@@ -214,14 +231,14 @@ struct DenseSpikes {
 
 // uint32 words of binary spikes (M, KW) row-major, bit i of word w =
 // column 32w+i (core/spikes.py::pack_spikes). A kSlice-deep slice is one
-// word per row; a thread holds its rows' words in registers and unpacks
-// bits straight into its operands (a bit becomes 1.0f or 0.0f), no f32
-// spike tile is ever staged. Bits past K meet zero-filled weight rows.
+// word per row, staged as is: no f32 spike tile is ever built. The CSR
+// word kernel tests its rows' bits straight from the words
+// (`add_word_slice`); the APEC kernels build bf16 fragments from them
+// (csrc/tile_tc.cuh). Bits past K meet zero-filled weight rows.
 template <int ROWS = kTile>
 struct PackedSpikes {
   const uint32_t* __restrict__ p;
   int64_t m, kw;
-  static constexpr int kRowsPerThread = rows_per_thread<ROWS>();
   static constexpr int kStageBytes = ROWS * 4;
 
   __device__ void issue(unsigned char* stage, int64_t m0, int64_t k0) const {
@@ -232,20 +249,6 @@ struct PackedSpikes {
       const bool in = gr < m && gw < kw;
       cp4(words + r, in ? p + gr * kw + gw : p, in);
     }
-  }
-  struct Rows {
-    uint32_t w[kRowsPerThread];
-  };
-  __device__ __forceinline__ Rows rows(const unsigned char* stage,
-                                       int ty) const {
-    const uint32_t* words = reinterpret_cast<const uint32_t*>(stage);
-    Rows r;
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) r.w[i] = words[ty + kT * i];
-    return r;
-  }
-  __device__ __forceinline__ static float at(const Rows& r, int i, int c) {
-    return (r.w[i] >> c) & 1u ? 1.0f : 0.0f;
   }
 };
 
@@ -294,8 +297,9 @@ __device__ __forceinline__ void fma_slice(const A& a,
   const int tx = threadIdx.x % kT, ty = threadIdx.x / kT;
   const float* bs = reinterpret_cast<const float*>(b_stage) + tx;
   const typename A::Rows rows = a.rows(a_stage, ty);
-// Unrolled 8 deep, not 32: fully unrolled, the word loader's bit tests
-  // spill registers at BN = 64 (ptxas, sm_90a).
+  // Unrolled 8 deep, not 32: fully unrolled, the bit tests of the word
+  // loader, which once shared this loop, spilled registers at BN = 64
+  // (ptxas, sm_90a); the f32 kernel keeps the depth it was measured at.
 #pragma unroll 8
   for (int c = 0; c < kSlice; ++c) {
     float av[RM], bv[kRN];
@@ -329,6 +333,124 @@ __device__ __forceinline__ void store_acc(float* __restrict__ out, int64_t m0,
   }
 }
 
+// ------------------------------------------------- word compute (words)
+// The CSR word kernel's thread tile: RM rows x CN columns, the columns in
+// CN/4 runs of 4. Thread t is column group cg = t % G and row group
+// rg = t / G (G = BN / CN column groups, RG = 128 / RM row groups,
+// G * RG = 256); it holds rows rg + RG i and columns 4 cg + 4 G q + 0..3.
+// A warp's weight reads for one run are then G consecutive 16-byte chunks
+// (LDS.128 without bank conflicts, broadcast over its row groups), and
+// one bit test serves CN >= 8 columns.
+template <int BN>
+struct WordTile {
+  static constexpr int kRM = BN == 128 ? 8 : BN == 32 ? 2 : 4;
+  static constexpr int kCN = BN == 96 ? 12 : 8;
+  static constexpr int kG = BN / kCN;
+  static constexpr int kRG = kTile / kRM;
+  static constexpr int kRuns = kCN / 4;
+  static_assert(kG * kRG == kThreads && kG * kCN == BN, "256 threads");
+};
+
+// acc += w, each lane of the four rounded on its own, where `bit` is not
+// 0; nothing where it is: predicated adds, no branch and no float made of
+// the bit.
+__device__ __forceinline__ void add_if(uint32_t bit, float4& acc,
+                                       const float4& w) {
+  asm("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %8, 0;\n\t"
+      "@p add.rn.f32 %0, %0, %4;\n\t@p add.rn.f32 %1, %1, %5;\n\t"
+      "@p add.rn.f32 %2, %2, %6;\n\t@p add.rn.f32 %3, %3, %7;\n\t}"
+      : "+f"(acc.x), "+f"(acc.y), "+f"(acc.z), "+f"(acc.w)
+      : "f"(w.x), "f"(w.y), "f"(w.z), "f"(w.w), "r"(bit));
+}
+
+// acc += word slice @ weight slice for this thread: a set bit c of row
+// i's word adds weight row c to acc[i], a clear one adds nothing. Since
+// fadd(acc, w) = fmaf(1, w, acc) and fmaf(0, w, acc) = acc, each output is
+// the f32 kernel's fmaf chain in k order, bit for bit. Rounds of 8 k
+// columns, the words shifted 8 bits a round, so every test is a constant
+// mask; the slice's four rounds unrolled but at BN = 128.
+template <int BN>
+__device__ __forceinline__ void add_word_slice(
+    const unsigned char* a_stage, const unsigned char* b_stage,
+    float4 (&acc)[WordTile<BN>::kRM][WordTile<BN>::kRuns]) {
+  using T = WordTile<BN>;
+  constexpr int kRow = WeightSlice<BN>::kRow;
+  const int cg = threadIdx.x % T::kG, rg = threadIdx.x / T::kG;
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(a_stage) + rg;
+  const float* b = reinterpret_cast<const float*>(b_stage) + 4 * cg;
+  uint32_t bits[T::kRM];
+#pragma unroll
+  for (int i = 0; i < T::kRM; ++i) bits[i] = words[T::kRG * i];
+  auto round = [&](int c0) {      // k columns c0 .. c0 + 7
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      float4 wv[T::kRuns];
+#pragma unroll
+      for (int q = 0; q < T::kRuns; ++q)
+        wv[q] = *reinterpret_cast<const float4*>(b + (c0 + u) * kRow +
+                                                 4 * T::kG * q);
+#pragma unroll
+      for (int i = 0; i < T::kRM; ++i) {
+        const uint32_t bit = bits[i] & (1u << u);
+#pragma unroll
+        for (int q = 0; q < T::kRuns; ++q) add_if(bit, acc[i][q], wv[q]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < T::kRM; ++i) bits[i] >>= 8;
+  };
+  if constexpr (BN == 128) {     // fully unrolled, the 8 x 8 tile ran
+#pragma unroll 1                 // slower on the H100
+    for (int c0 = 0; c0 < kSlice; c0 += 8) round(c0);
+  } else {
+#pragma unroll
+    for (int c0 = 0; c0 < kSlice; c0 += 8) round(c0);
+  }
+}
+
+// out[m0.., n0..] = acc for this thread, masked to (m, n); float4 stores
+// where N % 4 == 0 and out is 16-byte aligned (a run then lies wholly
+// inside N or past it).
+template <int BN>
+__device__ __forceinline__ void store_word_acc(
+    float* __restrict__ out, int64_t m0, int64_t n0, int64_t m, int64_t n,
+    const float4 (&acc)[WordTile<BN>::kRM][WordTile<BN>::kRuns]) {
+  using T = WordTile<BN>;
+  const int cg = threadIdx.x % T::kG, rg = threadIdx.x / T::kG;
+  const bool vec = n % 4 == 0 && (uintptr_t)out % 16 == 0;
+#pragma unroll
+  for (int i = 0; i < T::kRM; ++i) {
+    const int64_t r = m0 + rg + T::kRG * i;
+    if (r >= m) continue;
+#pragma unroll
+    for (int q = 0; q < T::kRuns; ++q) {
+      const int64_t c = n0 + 4 * cg + 4 * T::kG * q;
+      float* o = out + r * n + c;
+      const float4 v = acc[i][q];
+      if (vec) {
+        if (c < n) *reinterpret_cast<float4*>(o) = v;
+      } else {
+        if (c < n) o[0] = v.x;
+        if (c + 1 < n) o[1] = v.y;
+        if (c + 2 < n) o[2] = v.z;
+        if (c + 3 < n) o[3] = v.w;
+      }
+    }
+  }
+}
+
+// The card's SM count, read once per process (the pickers below run on
+// every launch; the port's cards are all alike).
+inline int sm_count() {
+  static const int sms = [] {
+    int dev = 0, count = 132;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    return count;
+  }();
+  return sms;
+}
+
 // The n-tile width for N: the one of 128, 96, 64, 32 that pads N least
 // (the wider on a tie); 64 in place of 128 where the grid would hold
 // fewer than two blocks per SM and N pads no worse.
@@ -337,11 +459,34 @@ inline int pick_bn(int64_t n, int64_t mt) {
   int best = 128;
   for (int bn : {96, 64, 32})
     if (padded(bn) < padded(best)) best = bn;
-  if (best == 128 && padded(64) == padded(128)) {
-    int dev = 0, sms = 132;
-    if (cudaGetDevice(&dev) == cudaSuccess)
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (mt * ((n + 127) / 128) < 2 * (int64_t)sms) best = 64;
+  if (best == 128 && padded(64) == padded(128) &&
+      mt * ((n + 127) / 128) < 2 * (int64_t)sm_count())
+    best = 64;
+  return best;
+}
+
+// The n-tile width for whole waves: the one of 128, 96, 64, 32 (up to
+// `max_bn`) with the least estimated time, ceil(blocks / (per_sm * SMs))
+// waves times (BN + 32) (a block's adds or MMAs and its weight copies grow
+// with its columns; its spike copies, bit tests and barriers do not), the
+// wider on a tie. `per_sm`: the blocks an SM holds (the kernel's
+// __launch_bounds__). The APEC kernels 18 / 16 take it at one block an SM,
+// the word kernel 14 at two. fc2's 64 m-tiles x N = 384 take BN = 96,
+// 256 blocks, in both: whole waves on 132 SMs, where 128 (one block an
+// SM) and 64 (two) leave 1.45 waves.
+inline int pick_bn_waves(int64_t n, int64_t mt, int per_sm,
+                         int max_bn = 128) {
+  const int64_t slots = (int64_t)per_sm * sm_count();
+  int best = 0;
+  int64_t best_cost = 0;
+  for (int bn : {128, 96, 64, 32}) {
+    if (bn > max_bn) continue;
+    const int64_t blocks = mt * ((n + bn - 1) / bn);
+    const int64_t cost = (blocks + slots - 1) / slots * (bn + 32);
+    if (best == 0 || cost < best_cost) {
+      best = bn;
+      best_cost = cost;
+    }
   }
   return best;
 }

@@ -74,6 +74,7 @@ SIGNATURES = {
                                              _I64, _I64, _I64, _I64, _P),
     "spike_matmul_pred_forward": (_P, _P, _P, _P, _I64, _I64, _I64, _I64,
                                   _P),
+    "spike_matmul_packed_csr_pipe_launch": (_I64, _I64, _P),
     "apec_decompose_forward": (_P, _P, _P, _I64, _I64, _I64, _P),
     "apec_matmul_csr_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                                 _I64, _I64, _I64, _P),

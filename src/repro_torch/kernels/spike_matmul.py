@@ -3,8 +3,9 @@
 `spike_matmul_csr(s, w, csr)` is event-compacted: it sums only the
 occupied (m-tile, k-tile) steps of `csr` (a `core.spikes.TileCSR`) and
 launches `csrc/spike_matmul_csr.cu`. `spike_matmul_pred(s, w, occ)` is
-predicated: every (m-tile, n-tile) block walks all k-tiles and the map
-gates each product; it launches `csrc/spike_matmul.cu`.
+predicated: every m-tile row walks all its k-tiles and the map gates
+each product; it launches `csrc/spike_matmul.cu`, which streams the live
+k-tiles of a row through a copy ring of its own for N <= 16.
 `spike_matmul_csr_pipe(s, w, csr)` is the same function, with the same
 sums, on the pipelined kernel `csrc/spike_matmul_csr_pipe.cu` (a
 cp.async ring of 32-deep k-slices); its plain version walks the ring's
@@ -17,12 +18,14 @@ twin checked in its plain version). `spike_matmul_packed_csr`,
 `spike_matmul_packed_csr_pipe`, `apec_matmul_packed_csr` and
 `apec_matmul_packed_csr_pipe` are the same kernels with the spike
 operands as uint32 words ((M, ceil(K/32)), bit i of word w = column
-32w+i), each word tile unpacked on chip. On a CPU
+32w+i), each word tile read on chip. On a CPU
 tensor each runs its plain version (the packed ones unpack, then run the
 f32 plain version). All accept any (M, K) x (K, N): ragged edge tiles are
 masked, never padded.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -528,6 +531,20 @@ def spike_matmul_packed_csr(p: torch.Tensor, w: torch.Tensor,
                               spike_matmul_packed_csr_plain)
 
 
+def packed_pipe_launch(n: int, mt: int) -> dict:
+    """The launch the pipelined word kernel makes for N columns and MT
+    m-tile rows, as its C library reports it: n-tile width, the rows and
+    columns a thread holds, grid, blocks and waves (blocks over the card's
+    SMs times the blocks an SM holds). Needs a card."""
+    got = (ctypes.c_int * 5)()
+    _build.check(_build.library().spike_matmul_packed_csr_pipe_launch(
+        n, mt, got), "spike_matmul_packed_csr_pipe_launch")
+    bn, rows, cols, sms, per_sm = got
+    blocks = mt * -(-n // bn)
+    return {"bn": bn, "thread_tile": [rows, cols], "grid": [mt, -(-n // bn)],
+            "blocks": blocks, "waves": blocks / (per_sm * sms)}
+
+
 def spike_matmul_packed_csr_pipe_plain(p: torch.Tensor, w: torch.Tensor,
                                        csr: TileCSR) -> torch.Tensor:
     """Plain version of the pipelined word kernel: unpack, then the
@@ -538,8 +555,9 @@ def spike_matmul_packed_csr_pipe_plain(p: torch.Tensor, w: torch.Tensor,
 
 def spike_matmul_packed_csr_pipe(p: torch.Tensor, w: torch.Tensor,
                                  csr: TileCSR) -> torch.Tensor:
-    """`spike_matmul_packed_csr` on the pipelined kernel, which unpacks
-    the words in registers."""
+    """`spike_matmul_packed_csr` on the pipelined kernel, which tests the
+    words' bits in registers and adds the weight rows of the set ones
+    (the same sums as kernel 12 on the unpacked spikes)."""
     return _packed_csr_matmul("spike_matmul_packed_csr_pipe", p, w, csr,
                               spike_matmul_packed_csr_pipe_plain)
 

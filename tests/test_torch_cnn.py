@@ -292,7 +292,8 @@ def _clustered(rng, m, k, tile_p=0.5, p=0.3, tile=128):
 
 
 @pytest.mark.parametrize("m,k,n", [(300, 200, 60), (256, 256, 128),
-                                   (260, 130, 2)])
+                                   (260, 130, 2),
+                                   (260, 288, 16)])    # SegNet tconv1's K, N
 def test_pred_plain_matches_jax_pallas_interpret(m, k, n):
     """The kernel's plain version (through `ops.spike_matmul`, which masks
     ragged tiles instead of padding) against `spike_matmul_pallas` in

@@ -166,6 +166,84 @@ def test_cuda_pred_kernel_gates_on_the_map(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,multi_bit", [
+    (1000, 144, 2, False),           # SegNet tconv2's K and N
+    (600, 288, 16, False),           # SegNet tconv1's K and N
+    (300, 200, 60, False),           # ragged M, K and N (the wide path)
+    (300, 27, 16, True),             # multi-bit s, K = 27: 4-byte copies
+    (300, 200, 3, False),            # N short of its 4-wide tile
+])
+def test_cuda_pred_kernel_equals_kernel_12(cuda_device, m, k, n, multi_bit):
+    """Kernel 10 (each map row's live k-tiles streamed in order) equals the
+    pipelined CSR kernel 12 on the same spikes and `build_csr` of the same
+    map bit for bit: one fmaf chain in k order an output. The all-empty
+    m-tile row writes zeros."""
+    rng = np.random.default_rng(m + k + n + 1)
+    s, w = _pred_case(rng, m, k, n, cuda_device, multi_bit)
+    occ = ops.padded_occupancy(s)
+    gated = occ.clone()
+    gated[0, 0] = 0                                # gated off, events or not
+    for the_map in (occ, gated):
+        got = spike_matmul.spike_matmul_pred(s, w, the_map)
+        csr = build_csr(the_map, 128, 128)
+        assert torch.equal(got, spike_matmul.spike_matmul_csr_pipe(s, w, csr))
+        assert torch.all(got[128:256] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [
+    (64 * 128, 256, 384),            # fc2's N on 64 m-tiles: BN = 96
+    (4000, 432, 96),                 # stage 1's K and N
+    (1000, 300, 70),                 # ragged M, K and N
+    (300, 200, 61),                  # N % 4 != 0: scalar stores
+])
+def test_cuda_word_kernel_equals_kernels_12_and_13(cuda_device, m, k, n):
+    """The pipelined word kernel's predicated adds against its plain
+    version, and bit for bit kernel 12 (f32 spikes) and kernel 13 (the
+    serial word kernel) on the same spikes and work list."""
+    rng = np.random.default_rng(m + k + n)
+    s = _clustered(rng, m, k)
+    s[128:256] = 0                                # an all-empty m-tile row
+    s = torch.from_numpy(s).to(cuda_device)
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)
+                         ).to(cuda_device)
+    p = pack_spikes_padded(s)
+    csr = build_csr(ragged_packed_tile_occupancy(p, 128, 128), 128, 128)
+    got = spike_matmul.spike_matmul_packed_csr_pipe(p, w, csr)
+    want = spike_matmul.spike_matmul_packed_csr_pipe_plain(p, w, csr)
+    tol = 1e-5 * want.abs().max().item() + 1e-5
+    assert (got - want).abs().max().item() <= tol
+    assert torch.equal(got, spike_matmul.spike_matmul_csr_pipe(s, w, csr))
+    assert torch.equal(got, spike_matmul.spike_matmul_packed_csr(p, w, csr))
+    assert torch.all(got[128:256] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,n,mt,bn,blocks", [
+    ("econv_stage1", 96, 1024, 96, 1024),
+    ("ffn_fc1", 1536, 64, 128, 768),
+    ("ffn_fc2", 384, 64, 96, 256),
+])
+def test_cuda_word_kernel_picks_whole_waves(cuda_device, label, n, mt, bn,
+                                            blocks):
+    """The launch the word kernel's C library reports at SpikingFormer-4-384's
+    three CSR shapes (T=4, B=32) on an H100 SXM's 132 SMs, two blocks an
+    SM: fc2 takes BN = 96, 256 blocks in one wave, where kernel 12's
+    `pick_bn` takes 64 and 1.45 waves."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    if sms != 132:
+        pytest.skip(f"the expected picks are an H100 SXM's; this card has "
+                    f"{sms} SMs")
+    got = spike_matmul.packed_pipe_launch(n, mt)
+    assert (got["bn"], got["blocks"]) == (bn, blocks), label
+    assert got["grid"] == [mt, -(-n // bn)]
+    assert got["thread_tile"] == {128: [8, 8], 96: [4, 12]}[bn]
+    assert got["waves"] == blocks / 264
+    if label == "ffn_fc2":
+        assert got["waves"] <= 1.0
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_count_each_launch(cuda_device):
     reset_launch_counts()
     x = torch.ones(2, 8, 130, device=cuda_device)
