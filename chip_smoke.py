@@ -381,6 +381,31 @@ def turns_ms(torch, fa, fb) -> tuple:
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
+def graph_ms(torch, fn, reps: int = 20) -> float:
+    """Device ms of one call of `fn`: `reps` calls captured in one CUDA
+    graph and replayed, so the host's enqueue of each call (the Python
+    wrapper, the ctypes call) is not in the time, as it is in
+    `cuda_ms`."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm, off the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
 def bound_ms(n_bytes: float, flops: float = 0.0,
              flops_per_s: float = FP32_FLOPS):
     """(least time in ms, what bounds it) on the H100's published peaks:
@@ -464,6 +489,22 @@ def phase_lif(torch, gen, device, results):
     s2 = lif_scan.lif(x2, **kw)
     err = (s2 - lif_scan.lif_plain(x2, **kw)).abs().max().item()
     check(err == 0.0, "lif kernel disagrees with its plain version")
+    # The fire's scalar path: P % 8 != 0, rows that do not start 16-byte
+    # aligned (a view one element into its storage), and a ragged tail
+    # behind aligned vectors (T = 1).
+    flat = x.reshape(-1)[:2 * 1003 + 1]
+    for dt in (torch.float32, torch.bfloat16):
+        buf = flat.to(dt)
+        for xs in (buf[:-1].view(2, 1003), buf[1:].view(2, 1003),
+                   buf[:1003].view(1, 1003)):
+            check(torch.equal(lif_scan.lif(xs, **kw),
+                              lif_scan.lif_plain(xs, **kw)),
+                  f"lif kernel disagrees with its plain version at P = "
+                  f"1003 ({dt}, offset {xs.storage_offset()})")
+    got, want = lif_scan.lif_fwd(flat[1:].view(2, 1003), **kw), \
+        lif_scan.lif_fwd_plain(flat[1:].view(2, 1003), **kw)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "lif_fwd kernel disagrees with its plain version at P = 1003")
     n_bytes = 2 * x.numel() * 4
     for name, fn, plain, extra, e in (
             ("lif_counts", lambda: lif_scan.lif_counts(x, **kw),
@@ -555,10 +596,11 @@ def phase_csr(torch, gen, device, results):
     serial kernels 11 and 13 and the pipelined kernels 12 and 14, f32 and
     words on the same spikes and work list, each against its plain
     version and all four equal bit for bit (one fmaf chain in k order),
-    beside cuBLAS fp32 on the f32 spikes; kernel 14's launch (n-tile
-    width, thread tile, grid, waves of two blocks an SM, as its C library
-    reports it) beside its times. Kernel 13's main numbers stay phase
-    (j)'s, on the model's words."""
+    beside cuBLAS fp32 on the f32 spikes (timed in turns with kernel 12);
+    kernels 12 and 14's launches (n-tile width, thread tile, grid, waves
+    of two blocks an SM, as their C library reports them) beside their
+    times. Kernel 13's main numbers stay phase (j)'s, on the model's
+    words."""
     from repro_torch.core.spikes import build_csr, pack_spikes_padded
     from repro_torch.kernels import ops, spike_matmul as sm
     worst: dict = {}
@@ -597,16 +639,24 @@ def phase_csr(torch, gen, device, results):
             flops, n_bytes = csr_work(torch, occ, m, k, n,
                                       spike_bytes=1 / 8 if packed else 4.0)
             t_tc = SPLIT_PASSES * flops / TF32_FLOPS * 1e3
-            rec = dict(max_abs_err=err, tolerance=tol, err64=err64,
-                       ms=cuda_ms(torch, functools.partial(kernel, a, w, csr)),
+            call = functools.partial(kernel, a, w, csr)
+            if name == "spike_matmul_csr_pipe":     # cuBLAS in turns
+                ms, cublas_ms = turns_ms(torch, call, functools.partial(
+                    torch.matmul, s, w))
+            else:
+                ms, cublas_ms = cuda_ms(torch, call), library_ms
+            rec = dict(max_abs_err=err, tolerance=tol, err64=err64, ms=ms,
                        plain_ms=cuda_ms(torch, functools.partial(
                            plain, a, w, csr), reps=3, warmup=1),
                        **spike_bounds(n_bytes, nnz, n, flops),
-                       tensor_core_ops_bound_ms=t_tc, library_ms=library_ms,
+                       tensor_core_ops_bound_ms=t_tc, library_ms=cublas_ms,
                        occupied_share=(occ > 0).float().mean().item(),
                        shape=[m, k, n])
-            if name == "spike_matmul_packed_csr_pipe":
-                rec["launch"] = sm.packed_pipe_launch(n, -(-m // 128))
+            launch = {"spike_matmul_csr_pipe": sm.pipe_launch,
+                      "spike_matmul_packed_csr_pipe": sm.packed_pipe_launch
+                      }.get(name)
+            if launch:
+                rec["launch"] = launch(n, -(-m // 128))
             emit("kernel", name=name, case=label, **rec)
             if label == "econv_stage1" and name != "spike_matmul_packed_csr":
                 results[name] = rec
@@ -2241,8 +2291,11 @@ def phase_lm_kernels(torch, device, results):
         check(out.dtype == torch.bfloat16 and torch.equal(out, want),
               f"lif_bf16 kernel disagrees with its plain version ({label})")
         b_ms, by = bound_ms(4 * x.numel())
+        # ms: back-to-back wrapper calls, the host's enqueue included;
+        # device_ms: the kernel alone (a CUDA graph of 20 launches).
         rec = dict(max_abs_err=0.0,
                    ms=cuda_ms(torch, lambda: lif_scan.lif(x, **kw)),
+                   device_ms=graph_ms(torch, lambda: lif_scan.lif(x, **kw)),
                    plain_ms=cuda_ms(torch, lambda: lif_scan.lif_plain(
                        x, **kw), reps=3),
                    bound_ms=b_ms, bound_by=by, library_ms=None,

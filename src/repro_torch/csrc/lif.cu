@@ -20,11 +20,28 @@
 //           reads the residuals and the spike cotangent (2*T*P f32) and
 //           writes the drive cotangent (T*P f32). Each does a few to ~12
 //           flops per element, far below the card's ~20 flop/byte ridge.
-// Design:   one thread per neuron keeps its membrane potential (backward:
-//           the membrane cotangent u) in a register across the T loop, so
-//           the state never touches device memory (the TPU kernels kept
-//           it in VMEM scratch). Neighbouring threads own neighbouring
-//           neurons, so every load and store is coalesced. The residual
+//           At the LM's prefill fire, (2, 8*1024*5632) bf16, the bytes
+//           take 0.110 ms on 3.35 TB/s; a thread a neuron with 2-byte
+//           loads, one dependent load-fire-store a step, took 0.255
+//           (chip_smoke, NVIDIA H100 80GB HBM3, 700.00 W): one small load
+//           in flight a thread is too little to cover the memory latency.
+//           Streamed as below it takes 0.126, as long as a device copy of
+//           the same bytes (tools/stream_probe.py, the same card).
+// Design:   each thread keeps its membrane potential (backward: the
+//           membrane cotangent u) in registers across the T loop, so the
+//           state never touches device memory (the TPU kernels kept it
+//           in VMEM scratch). The plain forward (`lif_kernel`, f32, bf16
+//           and residual) streams: a thread owns one 16-byte vector of
+//           neurons (4 f32 or 8 bf16), issues the 16-byte loads of all
+//           its steps (up to 4 at once; the LM fires T = 2, SpikingFormer
+//           T = 4) before the first step's arithmetic, and writes each
+//           step's spikes and residuals as 16-byte stores; one vector a
+//           thread, so the grid fills all 132 SMs in waves of blocks. A
+//           drive whose rows are not all 16-byte aligned, or the ragged
+//           tail of P, takes a scalar path in the same kernel, the same
+//           steps one element at a time. The backward is one thread a
+//           neuron; neighbouring threads own neighbouring neurons (or
+//           vectors), so every load and store is coalesced. The residual
 //           mode is a template flag: the same step, plus one store of the
 //           pre-reset membrane, so spikes and counts equal the primal
 //           kernel's and the primal pays nothing for it. The counts mode
@@ -84,22 +101,112 @@ __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+// 16 bytes of E as four 32-bit words: 4 f32 or 8 bf16 lanes. Lane i of
+// a bf16 vector is half-word i (little-endian), widened exactly by a
+// shift, as __bfloat162float widens.
+template <typename E>
+struct Lanes;
+template <>
+struct Lanes<float> {
+  static constexpr int kN = 4;
+  __device__ static float get(const uint32_t (&w)[4], int i) {
+    return __uint_as_float(w[i]);
+  }
+  __device__ static void put(uint32_t (&w)[4], int i, float x) {
+    w[i] = __float_as_uint(x);
+  }
+};
+template <>
+struct Lanes<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  __device__ static float get(const uint32_t (&w)[4], int i) {
+    return __uint_as_float(i % 2 ? w[i / 2] & 0xffff0000u : w[i / 2] << 16);
+  }
+  __device__ static void put(uint32_t (&w)[4], int i, float x) {
+    const uint32_t h = __bfloat16_as_ushort(narrow<__nv_bfloat16>(x));
+    w[i / 2] = i % 2 ? (w[i / 2] & 0xffffu) | (h << 16) : h;
+  }
+};
+
+__device__ __forceinline__ void load16(uint32_t (&w)[4], const void* p) {
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+}
+__device__ __forceinline__ void store16(void* p, const uint32_t (&w)[4]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+constexpr int kFireThreads = 128;
+constexpr int kGroup = 4;   // steps whose loads a thread issues together
+
 // x, s (and vres): (T, P) contiguous, x and s of element type E, the
-// membrane (and vres) f32. One thread per neuron, grid-stride.
+// membrane (and vres) f32. Thread j owns neurons [V j, V j + V), one
+// 16-byte vector (V = 16 / sizeof(E)); one vector a thread (grid-stride
+// past flat_blocks' cap). It issues the loads of up to kGroup steps
+// before the first of their steps' arithmetic, then fires them in order
+// and stores each step's spikes (and residuals) as 16-byte stores. `vec`: every row of x, s and vres starts 16-byte
+// aligned (pointers aligned, and P % V == 0 or T == 1); where it is not,
+// or at a ragged tail (n0 + V > P), the thread loads and stores its
+// neurons one element at a time, in the same order.
 template <typename E, bool kResidual>
-__global__ void lif_kernel(const E* __restrict__ x, E* __restrict__ s,
-                           float* __restrict__ vres, int64_t t_steps,
-                           int64_t p, float decay, float v_th,
-                           bool soft_reset) {
+__global__ void __launch_bounds__(kFireThreads)
+lif_kernel(const E* __restrict__ x, E* __restrict__ s,
+           float* __restrict__ vres, int64_t t_steps, int64_t p,
+           float decay, float v_th, bool soft_reset, bool vec) {
+  using L = Lanes<E>;
+  constexpr int V = L::kN;
+  const int64_t nvec = (p + V - 1) / V;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < p;
-       i += stride) {
-    float v = 0.0f;
-    for (int64_t t = 0; t < t_steps; ++t) {
-      float vv;
-      s[t * p + i] = narrow<E>(
-          lif_step(v, widen(x[t * p + i]), decay, v_th, soft_reset, vv));
-      if (kResidual) vres[t * p + i] = vv;
+  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < nvec;
+       j += stride) {
+    const int64_t n0 = j * V;
+    float v[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = 0.0f;
+    if (vec && n0 + V <= p) {
+      for (int64_t t0 = 0; t0 < t_steps; t0 += kGroup) {
+        uint32_t in[kGroup][4];
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g)
+          if (t0 + g < t_steps) load16(in[g], x + (t0 + g) * p + n0);
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) {
+          if (t0 + g >= t_steps) break;
+          const int64_t off = (t0 + g) * p + n0;
+          uint32_t sp[4] = {0u, 0u, 0u, 0u};
+          float vv[V];
+#pragma unroll
+          for (int i = 0; i < V; ++i)
+            L::put(sp, i, lif_step(v[i], L::get(in[g], i), decay, v_th,
+                                   soft_reset, vv[i]));
+          store16(s + off, sp);
+          if (kResidual) {
+#pragma unroll
+            for (int q = 0; q < V / 4; ++q) {
+              const uint32_t r[4] = {
+                  __float_as_uint(vv[4 * q]), __float_as_uint(vv[4 * q + 1]),
+                  __float_as_uint(vv[4 * q + 2]),
+                  __float_as_uint(vv[4 * q + 3])};
+              store16(vres + off + 4 * q, r);
+            }
+          }
+        }
+      }
+    } else {
+      for (int64_t t = 0; t < t_steps; ++t) {
+        float xs[V];
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          xs[i] = n0 + i < p ? widen(x[t * p + n0 + i]) : 0.0f;
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          if (n0 + i >= p) break;
+          float vv;
+          s[t * p + n0 + i] = narrow<E>(
+              lif_step(v[i], xs[i], decay, v_th, soft_reset, vv));
+          if (kResidual) vres[t * p + n0 + i] = vv;
+        }
+      }
     }
   }
 }
@@ -209,14 +316,18 @@ int flat_blocks(int64_t p, int threads) {
   return (int)(want < 65535 * 32 ? want : 65535 * 32);
 }
 
+bool aligned16(const void* ptr) { return (uintptr_t)ptr % 16 == 0; }
+
 template <typename E, bool kResidual>
 int launch_lif(const E* x, E* s, float* vres, int64_t t_steps, int64_t p,
                float decay, float v_th, int soft_reset, void* stream) {
-  if (p > 0) {
-    const int threads = 256;
-    lif_kernel<E, kResidual><<<flat_blocks(p, threads), threads, 0,
-                               (cudaStream_t)stream>>>(
-        x, s, vres, t_steps, p, decay, v_th, soft_reset != 0);
+  if (p > 0 && t_steps > 0) {
+    constexpr int V = Lanes<E>::kN;
+    const bool vec = (p % V == 0 || t_steps == 1) && aligned16(x) &&
+                     aligned16(s) && (!kResidual || aligned16(vres));
+    lif_kernel<E, kResidual><<<flat_blocks((p + V - 1) / V, kFireThreads),
+                               kFireThreads, 0, (cudaStream_t)stream>>>(
+        x, s, vres, t_steps, p, decay, v_th, soft_reset != 0, vec);
   }
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,11 @@
 // The Hopper tile loops of the pipelined CSR spike matmuls
 // (csrc/spike_matmul_csr_pipe.cu): a cp.async ring of k-slices, gated by
 // the work list's per-step counts, feeding an fp32 FMA loop on f32 spikes
-// (`fma_slice`) or predicated fadds on words (`add_word_slice`); the ring
-// the predicated kernel's narrow path (csrc/spike_matmul.cu) walks over a
-// map row (`TileIndex`); and the ring, loaders and weight slices that the
-// pipelined APEC matmuls (csrc/apec_matmul_csr_pipe.cu) feed into
-// csrc/tile_tc.cuh's tensor-core loop instead.
+// (`fma_tile_slice`) or predicated fadds on words (`add_word_slice`);
+// the ring the predicated kernel's narrow path (csrc/spike_matmul.cu)
+// walks over a map row (`TileIndex`); and the ring, loaders and weight
+// slices that the pipelined APEC matmuls (csrc/apec_matmul_csr_pipe.cu)
+// feed into csrc/tile_tc.cuh's tensor-core loop instead.
 //
 // A block owns one 128-row m-tile x BN output columns and walks its row's
 // work-list steps row_ptr[r]..row_ptr[r+1] as kSlice-deep k-slices. Each
@@ -39,22 +39,26 @@
 // tensor-core loop is held to its plain version and to the fp64 product
 // instead.
 //
-// 256 threads. On f32 spikes (`fma_slice`) thread (tx, ty) of 16 x 16
-// accumulates rows ty + 16 i (i < 8) and columns tx + 16 j (j < BN/16),
-// kernel 11's layout, so a warp's spike reads are two broadcast rows and
-// its weight reads 16 consecutive words. On words (`add_word_slice`,
-// `WordTile`) a thread holds fewer rows and more columns: RM x CN = 8 x 8
-// at BN = 128, 4 x 12 at 96, 4 x 8 at 64, 2 x 8 at 32, the columns in runs
-// of 4, so its weight reads are LDS.128 without bank conflicts and one
-// bit test of a row's word predicates CN fadds (a set bit adds the weight
-// row, fadd(acc, w) = fmaf(1, w, acc); a clear one adds nothing, as
-// fmaf(0, w, acc) = acc: kernel 11's chain, with no float made of the
-// bit). Shared-memory rows are padded (A: 32+4 floats, B: BN+8 floats;
-// the APEC kernels pass tile_tc.cuh's pads). Ragged M, K and N are
+// 256 threads, each holding few rows and many columns of the block
+// (`ThreadTile`): RM x CN = 8 x 8 at BN = 128, 4 x 12 at 96, 4 x 8 at 64,
+// 2 x 8 at 32, the columns in runs of 4, so its weight reads are LDS.128
+// without bank conflicts, broadcast over the warp's row groups. On f32
+// spikes (`fma_tile_slice`) a thread reads each of its rows' spikes 4
+// k-columns at a time (LDS.128; a warp's rows are consecutive, 36 floats
+// apart, so their pieces fall on disjoint banks) and runs RM x CN fmafs a
+// k-column: 16 FMAs a shared-memory load at BN = 128, 12 at 96, 10.7 at
+// 64, where kernel 11's 16 x 16 layout of 8 rows x BN/16 columns runs 4
+// at 128 and 3.4 at 96. On words (`add_word_slice`) one bit test of a
+// row's word predicates CN fadds (a set bit adds the weight row, fadd(acc,
+// w) = fmaf(1, w, acc); a clear one adds nothing, as fmaf(0, w, acc) =
+// acc: kernel 11's chain, with no float made of the bit). A slice's
+// 16-byte copies are unrolled, each thread stepping one pointer a pass.
+// Shared-memory rows are padded (A: 32+4 floats, B: BN+8 floats; the
+// APEC kernels pass tile_tc.cuh's pads). Ragged M, K and N are
 // zero-filled on copy (cp.async src-size 0) and masked on store: no
-// operand is padded. A row of f32 spikes or weights whose length is not a
-// multiple of 4 (K = 27 at the coded conv, N = 2) is copied in 4-byte
-// pieces instead of 16-byte ones.
+// operand is padded. A row of f32 spikes or weights whose
+// length is not a multiple of 4 (K = 27 at the coded conv, N = 2) is
+// copied in 4-byte pieces instead of 16-byte ones.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -71,8 +75,6 @@ constexpr int kSlice = 32;       // k depth of one ring stage: one word a row
 constexpr int kStages = 3;       // ring depth (kernels/spike_matmul.py:
                                  // PIPE_STAGES mirrors it)
 constexpr int kThreads = 256;
-constexpr int kT = 16;           // threads a side
-constexpr int kRM = kTile / kT;  // rows a thread accumulates
 constexpr int kPadA = 4;
 constexpr int kPadB = 8;
 static_assert(kStages >= 2 && kStages <= 4, "wait_pending covers 0..2");
@@ -176,56 +178,58 @@ struct RowCursor {
 
 // ------------------------------------------------------- spike loaders
 // Each loader stages ROWS rows of a slice: 128 for a spike operand or
-// APEC's residual, 128/g for APEC's overlap. A thread row ty holds rows
-// ty + 16 i, i < kRowsPerThread; below 16 rows (g >= 16) only the thread
-// rows ty < ROWS hold one, and the others must not read the stage.
-template <int ROWS>
-constexpr int rows_per_thread() {
-  static_assert(ROWS >= 1 && kTile % ROWS == 0, "ROWS must divide 128");
-  return ROWS >= kT ? ROWS / kT : 1;
-}
+// APEC's residual, 128/g for APEC's overlap.
 
 // f32 spikes (M, K) row-major. `vec`: rows may be copied 16 bytes at a
 // time (K % 4 == 0 and s 16-byte aligned). Staged rows are kSlice + PAD
-// floats (PAD a multiple of 4).
+// floats (PAD a multiple of 4, so every row starts 16-byte aligned).
 template <int ROWS = kTile, int PAD = kPadA>
 struct DenseSpikes {
+  static_assert(ROWS >= 1 && kTile % ROWS == 0, "ROWS must divide 128");
+  static_assert(PAD % 4 == 0, "rows 16-byte aligned");
   const float* __restrict__ s;
   int64_t m, k;
   bool vec;
-  static constexpr int kRowsPerThread = rows_per_thread<ROWS>();
   static constexpr int kRow = kSlice + PAD;
   static constexpr int kStageBytes = ROWS * kRow * 4;
 
+  // 16-byte copies: thread t takes chunks t + 256 i, unrolled, so a
+  // slice's copies issue back to back (rolled, they cost kernel 12 3-5%
+  // of its time and kernel 18 a sixth on an NVIDIA H100 80GB HBM3 at
+  // 700 W), stepping one pointer a pass: per-pass offsets, which the
+  // compiler keeps live across the compute, spilled kernel 12's 8 x 8
+  // tile (ptxas, sm_90a). The 4-byte path is a plain loop.
   __device__ void issue(unsigned char* stage, int64_t m0, int64_t k0) const {
     float* a = reinterpret_cast<float*>(stage);
-    for (int e = threadIdx.x; e < ROWS * (kSlice / 4); e += kThreads) {
+    constexpr int kChunks = ROWS * (kSlice / 4);
+    if (vec) {
+      constexpr int kStep = kThreads / (kSlice / 4);   // rows a pass
+      const int r0 = threadIdx.x / (kSlice / 4);
+      const int c = threadIdx.x % (kSlice / 4) * 4;
+      const bool kin = k0 + c < k;
+      const float* src = s + (m0 + r0) * k + k0 + c;
+      float* dst = a + r0 * kRow + c;
+      int64_t row = m0 + r0;
+#pragma unroll
+      for (int i = 0; i < (kChunks + kThreads - 1) / kThreads; ++i) {
+        if (kChunks % kThreads != 0 && r0 + kStep * i >= ROWS) break;
+        const bool in = kin && row < m;
+        cp16(dst, in ? src : s, in);
+        src += kStep * k;
+        dst += kStep * kRow;
+        row += kStep;
+      }
+      return;
+    }
+    for (int e = threadIdx.x; e < kChunks; e += kThreads) {
       const int r = e / (kSlice / 4), c = (e % (kSlice / 4)) * 4;
       const int64_t gr = m0 + r, gc = k0 + c;
-      float* dst = a + r * kRow + c;
-      if (vec) {
-        const bool in = gr < m && gc < k;
-        cp16(dst, in ? s + gr * k + gc : s, in);
-      } else {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const bool in = gr < m && gc + q < k;
-          cp4(dst + q, in ? s + gr * k + gc + q : s, in);
-        }
+      for (int q = 0; q < 4; ++q) {
+        const bool in = gr < m && gc + q < k;
+        cp4(a + r * kRow + c + q, in ? s + gr * k + gc + q : s, in);
       }
     }
-  }
-  // Thread row ty's view of the stage; `at(rows, i, c)` is the spike at
-  // row ty + 16 i, column c of the slice.
-  struct Rows {
-    const float* p;
-  };
-  __device__ __forceinline__ Rows rows(const unsigned char* stage,
-                                       int ty) const {
-    return {reinterpret_cast<const float*>(stage) + ty * kRow};
-  }
-  __device__ __forceinline__ static float at(const Rows& r, int i, int c) {
-    return r.p[i * kT * kRow + c];
   }
 };
 
@@ -260,89 +264,67 @@ struct WeightSlice {
   static constexpr int kStageBytes = kSlice * kRow * 4;
 
   // w[k0:k0+kSlice, n0:n0+BN] into `stage`, zeros past K and N. `vec`:
-  // N % 4 == 0 and w 16-byte aligned.
+  // N % 4 == 0 and w 16-byte aligned; its 16-byte copies unrolled as the
+  // spike loader's, one pointer stepped a pass where a pass covers whole
+  // rows (BN = 32, 64, 128).
   __device__ static void issue(unsigned char* stage, const float* w,
                                int64_t k0, int64_t n0, int64_t k, int64_t n,
                                bool vec) {
     float* b = reinterpret_cast<float*>(stage);
-    for (int e = threadIdx.x; e < kSlice * (BN / 4); e += kThreads) {
-      const int r = e / (BN / 4), c = (e % (BN / 4)) * 4;
-      const int64_t gk = k0 + r, gn = n0 + c;
-      float* dst = b + r * kRow + c;
-      if (vec) {
-        const bool in = gk < k && gn < n;
-        cp16(dst, in ? w + gk * n + gn : w, in);
+    constexpr int kChunks = kSlice * (BN / 4);
+    if (vec) {
+      static_assert(kChunks % kThreads == 0, "whole passes of the block");
+      if constexpr (kThreads % (BN / 4) == 0) {   // a pass: whole rows
+        constexpr int kStep = kThreads / (BN / 4);
+        const int r0 = threadIdx.x / (BN / 4);
+        const int c = threadIdx.x % (BN / 4) * 4;
+        const bool nin = n0 + c < n;
+        const float* src = w + (k0 + r0) * n + n0 + c;
+        float* dst = b + r0 * kRow + c;
+        int64_t row = k0 + r0;
+#pragma unroll
+        for (int i = 0; i < kChunks / kThreads; ++i) {
+          const bool in = nin && row < k;
+          cp16(dst, in ? src : w, in);
+          src += kStep * n;
+          dst += kStep * kRow;
+          row += kStep;
+        }
       } else {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const bool in = gk < k && gn + q < n;
-          cp4(dst + q, in ? w + gk * n + gn + q : w, in);
+        for (int i = 0; i < kChunks / kThreads; ++i) {
+          const int e = threadIdx.x + kThreads * i;
+          const int r = e / (BN / 4), c = (e % (BN / 4)) * 4;
+          const int64_t gk = k0 + r, gn = n0 + c;
+          const bool in = gk < k && gn < n;
+          cp16(b + r * kRow + c, in ? w + gk * n + gn : w, in);
         }
+      }
+      return;
+    }
+    for (int e = threadIdx.x; e < kChunks; e += kThreads) {
+      const int r = e / (BN / 4), c = (e % (BN / 4)) * 4;
+      const int64_t gk = k0 + r, gn = n0 + c;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const bool in = gk < k && gn + q < n;
+        cp4(b + r * kRow + c + q, in ? w + gk * n + gn + q : w, in);
       }
     }
   }
 };
 
 // ------------------------------------------------------------- compute
-// acc += spike slice @ weight slice for thread (tx, ty): acc[i][j] is row
-// ty + 16 i of the loader's rows, column tx + 16 j, and each is summed
-// with fmaf in k order.
-template <int BN, class A, int RM>
-__device__ __forceinline__ void fma_slice(const A& a,
-                                          const unsigned char* a_stage,
-                                          const unsigned char* b_stage,
-                                          float (&acc)[RM][BN / kT]) {
-  static_assert(RM == A::kRowsPerThread, "acc rows are the loader's");
-  constexpr int kRN = BN / kT;
-  const int tx = threadIdx.x % kT, ty = threadIdx.x / kT;
-  const float* bs = reinterpret_cast<const float*>(b_stage) + tx;
-  const typename A::Rows rows = a.rows(a_stage, ty);
-  // Unrolled 8 deep, not 32: fully unrolled, the bit tests of the word
-  // loader, which once shared this loop, spilled registers at BN = 64
-  // (ptxas, sm_90a); the f32 kernel keeps the depth it was measured at.
-#pragma unroll 8
-  for (int c = 0; c < kSlice; ++c) {
-    float av[RM], bv[kRN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) av[i] = A::at(rows, i, c);
-#pragma unroll
-    for (int j = 0; j < kRN; ++j)
-      bv[j] = bs[c * WeightSlice<BN>::kRow + kT * j];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < kRN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// out[m0.., n0..] = acc for thread (tx, ty), masked to (m, n).
-template <int BN>
-__device__ __forceinline__ void store_acc(float* __restrict__ out, int64_t m0,
-                                          int64_t n0, int64_t m, int64_t n,
-                                          const float (&acc)[kRM][BN / kT]) {
-  const int tx = threadIdx.x % kT, ty = threadIdx.x / kT;
-#pragma unroll
-  for (int i = 0; i < kRM; ++i) {
-    const int64_t r = m0 + ty + kT * i;
-    if (r >= m) continue;
-#pragma unroll
-    for (int j = 0; j < BN / kT; ++j) {
-      const int64_t c = n0 + tx + kT * j;
-      if (c < n) out[r * n + c] = acc[i][j];
-    }
-  }
-}
-
-// ------------------------------------------------- word compute (words)
-// The CSR word kernel's thread tile: RM rows x CN columns, the columns in
-// CN/4 runs of 4. Thread t is column group cg = t % G and row group
+// The CSR kernels' thread tile: RM rows x CN columns, the columns in CN/4
+// runs of 4. Thread t is column group cg = t % G and row group
 // rg = t / G (G = BN / CN column groups, RG = 128 / RM row groups,
 // G * RG = 256); it holds rows rg + RG i and columns 4 cg + 4 G q + 0..3.
 // A warp's weight reads for one run are then G consecutive 16-byte chunks
 // (LDS.128 without bank conflicts, broadcast over its row groups), and
-// one bit test serves CN >= 8 columns.
+// its spike reads (f32) or bit tests (words) of one row serve CN >= 8
+// columns.
 template <int BN>
-struct WordTile {
+struct ThreadTile {
   static constexpr int kRM = BN == 128 ? 8 : BN == 32 ? 2 : 4;
   static constexpr int kCN = BN == 96 ? 12 : 8;
   static constexpr int kG = BN / kCN;
@@ -350,6 +332,66 @@ struct WordTile {
   static constexpr int kRuns = kCN / 4;
   static_assert(kG * kRG == kThreads && kG * kCN == BN, "256 threads");
 };
+
+template <int BN>
+using TileAcc = float4[ThreadTile<BN>::kRM][ThreadTile<BN>::kRuns];
+
+// acc += a * w lane by lane, one fmaf a lane.
+__device__ __forceinline__ void fma4(float a, const float4& w, float4& acc) {
+  acc.x = fmaf(a, w.x, acc.x);
+  acc.y = fmaf(a, w.y, acc.y);
+  acc.z = fmaf(a, w.z, acc.z);
+  acc.w = fmaf(a, w.w, acc.w);
+}
+
+// The spike at column u of a four-column piece.
+__device__ __forceinline__ float piece_at(const float4& p, int u) {
+  return u == 0 ? p.x : u == 1 ? p.y : u == 2 ? p.z : p.w;
+}
+
+// acc += f32 spike slice @ weight slice for this thread: each output an
+// fmaf chain in k order, one rounding a product, as kernel 11 and cuBLAS
+// fp32 sum it; any spike value (the coded conv's multi-bit drive), no
+// test of it. Per 4 k-columns: one LDS.128 of each row's piece, then per
+// column the CN/4 weight runs and RM x CN fmafs.
+template <int BN>
+__device__ __forceinline__ void fma_tile_slice(const unsigned char* a_stage,
+                                               const unsigned char* b_stage,
+                                               TileAcc<BN>& acc) {
+  using T = ThreadTile<BN>;
+  constexpr int kRowA = DenseSpikes<>::kRow;
+  constexpr int kRow = WeightSlice<BN>::kRow;
+  const int cg = threadIdx.x % T::kG, rg = threadIdx.x / T::kG;
+  const float* a = reinterpret_cast<const float*>(a_stage) + rg * kRowA;
+  const float* b = reinterpret_cast<const float*>(b_stage) + 4 * cg;
+  auto piece = [&](int c0) {      // k columns c0 .. c0 + 3
+    float4 av[T::kRM];
+#pragma unroll
+    for (int i = 0; i < T::kRM; ++i)
+      av[i] = *reinterpret_cast<const float4*>(a + T::kRG * i * kRowA + c0);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float4 wv[T::kRuns];
+#pragma unroll
+      for (int q = 0; q < T::kRuns; ++q)
+        wv[q] = *reinterpret_cast<const float4*>(b + (c0 + u) * kRow +
+                                                 4 * T::kG * q);
+#pragma unroll
+      for (int i = 0; i < T::kRM; ++i) {
+        const float s = piece_at(av[i], u);
+#pragma unroll
+        for (int q = 0; q < T::kRuns; ++q) fma4(s, wv[q], acc[i][q]);
+      }
+    }
+  };
+  if constexpr (T::kRM == 8) {   // 64 sums and 32 spikes: unrolled 2
+#pragma unroll 1                 // deep, the 8 x 8 tile spilled (ptxas)
+    for (int c0 = 0; c0 < kSlice; c0 += 4) piece(c0);
+  } else {
+#pragma unroll 2
+    for (int c0 = 0; c0 < kSlice; c0 += 4) piece(c0);
+  }
+}
 
 // acc += w, each lane of the four rounded on its own, where `bit` is not
 // 0; nothing where it is: predicated adds, no branch and no float made of
@@ -370,10 +412,10 @@ __device__ __forceinline__ void add_if(uint32_t bit, float4& acc,
 // columns, the words shifted 8 bits a round, so every test is a constant
 // mask; the slice's four rounds unrolled but at BN = 128.
 template <int BN>
-__device__ __forceinline__ void add_word_slice(
-    const unsigned char* a_stage, const unsigned char* b_stage,
-    float4 (&acc)[WordTile<BN>::kRM][WordTile<BN>::kRuns]) {
-  using T = WordTile<BN>;
+__device__ __forceinline__ void add_word_slice(const unsigned char* a_stage,
+                                               const unsigned char* b_stage,
+                                               TileAcc<BN>& acc) {
+  using T = ThreadTile<BN>;
   constexpr int kRow = WeightSlice<BN>::kRow;
   const int cg = threadIdx.x % T::kG, rg = threadIdx.x / T::kG;
   const uint32_t* words = reinterpret_cast<const uint32_t*>(a_stage) + rg;
@@ -412,10 +454,10 @@ __device__ __forceinline__ void add_word_slice(
 // where N % 4 == 0 and out is 16-byte aligned (a run then lies wholly
 // inside N or past it).
 template <int BN>
-__device__ __forceinline__ void store_word_acc(
-    float* __restrict__ out, int64_t m0, int64_t n0, int64_t m, int64_t n,
-    const float4 (&acc)[WordTile<BN>::kRM][WordTile<BN>::kRuns]) {
-  using T = WordTile<BN>;
+__device__ __forceinline__ void store_tile(float* __restrict__ out,
+                                           int64_t m0, int64_t n0, int64_t m,
+                                           int64_t n, const TileAcc<BN>& acc) {
+  using T = ThreadTile<BN>;
   const int cg = threadIdx.x % T::kG, rg = threadIdx.x / T::kG;
   const bool vec = n % 4 == 0 && (uintptr_t)out % 16 == 0;
 #pragma unroll
@@ -451,29 +493,15 @@ inline int sm_count() {
   return sms;
 }
 
-// The n-tile width for N: the one of 128, 96, 64, 32 that pads N least
-// (the wider on a tie); 64 in place of 128 where the grid would hold
-// fewer than two blocks per SM and N pads no worse.
-inline int pick_bn(int64_t n, int64_t mt) {
-  auto padded = [n](int bn) { return (n + bn - 1) / bn * bn; };
-  int best = 128;
-  for (int bn : {96, 64, 32})
-    if (padded(bn) < padded(best)) best = bn;
-  if (best == 128 && padded(64) == padded(128) &&
-      mt * ((n + 127) / 128) < 2 * (int64_t)sm_count())
-    best = 64;
-  return best;
-}
-
 // The n-tile width for whole waves: the one of 128, 96, 64, 32 (up to
 // `max_bn`) with the least estimated time, ceil(blocks / (per_sm * SMs))
 // waves times (BN + 32) (a block's adds or MMAs and its weight copies grow
 // with its columns; its spike copies, bit tests and barriers do not), the
 // wider on a tie. `per_sm`: the blocks an SM holds (the kernel's
 // __launch_bounds__). The APEC kernels 18 / 16 take it at one block an SM,
-// the word kernel 14 at two. fc2's 64 m-tiles x N = 384 take BN = 96,
-// 256 blocks, in both: whole waves on 132 SMs, where 128 (one block an
-// SM) and 64 (two) leave 1.45 waves.
+// the CSR kernels 12 and 14 at two. fc2's 64 m-tiles x N = 384 take
+// BN = 96, 256 blocks, in all: whole waves on 132 SMs, where 128 (one
+// block an SM) and 64 (two) leave 1.45 waves.
 inline int pick_bn_waves(int64_t n, int64_t mt, int per_sm,
                          int max_bn = 128) {
   const int64_t slots = (int64_t)per_sm * sm_count();

@@ -46,71 +46,18 @@ using tile_mma::kTile;
 // k rows a warp reads per column land 8 banks apart).
 constexpr int kPadA = 8;
 constexpr int kPadB = 4;
-constexpr int kThreads = tile_mma::kThreads;
 
 // ------------------------------------------------------------- copies
-// The loaders of csrc/tile_mma.cuh with the padded rows above and an
-// issue side fixed at compile time: 16-byte chunk e = tid + 256 i of a
-// slice sits at a row and column fixed by e, so a copy costs an address
-// and a predicate, and a slice's copies issue back to back (unrolled;
-// rolled, they cost the f32 kernel a sixth of its time on the H100). The
-// spike rows step from one per-thread pointer, which keeps the widest
-// instance's registers from spilling. Rows whose length is not a
-// multiple of 4 floats (or an unaligned operand) take the generic
-// 4-byte path.
+// The loaders of csrc/tile_mma.cuh (their 16-byte copies unrolled, one
+// pointer stepped a pass) with the padded rows above.
 template <int ROWS>
-struct Dense : tile_mma::DenseSpikes<ROWS, kPadA> {
-  using Base = tile_mma::DenseSpikes<ROWS, kPadA>;
-  __host__ __device__ Dense(const float* s, int64_t m, int64_t k, bool vec)
-      : Base{s, m, k, vec} {}
-  __device__ void issue(unsigned char* stage, int64_t m0, int64_t k0) const {
-    if (!this->vec) {
-      Base::issue(stage, m0, k0);
-      return;
-    }
-    constexpr int kChunks = ROWS * (kSlice / 4);
-    constexpr int kStep = kThreads / (kSlice / 4);   // rows a pass
-    const int r0 = threadIdx.x / (kSlice / 4);
-    const int c = threadIdx.x % (kSlice / 4) * 4;
-    const bool kin = k0 + c < this->k;
-    const float* src = this->s + (m0 + r0) * this->k + k0 + c;
-    float* dst = reinterpret_cast<float*>(stage) + r0 * Base::kRow + c;
-#pragma unroll
-    for (int i = 0; i < (kChunks + kThreads - 1) / kThreads; ++i) {
-      if (kChunks % kThreads != 0 && r0 + kStep * i >= ROWS) break;
-      const bool in = kin && m0 + r0 + kStep * i < this->m;
-      tile_mma::cp16(dst + kStep * i * Base::kRow,
-                     in ? src + (int64_t)kStep * i * this->k : this->s, in);
-    }
-  }
-};
+using Dense = tile_mma::DenseSpikes<ROWS, kPadA>;
 
 template <int ROWS>
 using Packed = tile_mma::PackedSpikes<ROWS>;
 
 template <int BN>
-struct Weights : tile_mma::WeightSlice<BN, kPadB> {
-  using Base = tile_mma::WeightSlice<BN, kPadB>;
-  __device__ static void issue(unsigned char* stage, const float* w,
-                               int64_t k0, int64_t n0, int64_t k, int64_t n,
-                               bool vec) {
-    if (!vec) {
-      Base::issue(stage, w, k0, n0, k, n, vec);
-      return;
-    }
-    constexpr int kChunks = kSlice * (BN / 4);
-    static_assert(kChunks % kThreads == 0, "whole passes of the block");
-    float* b = reinterpret_cast<float*>(stage);
-#pragma unroll
-    for (int i = 0; i < kChunks / kThreads; ++i) {
-      const int e = threadIdx.x + kThreads * i;
-      const int r = e / (BN / 4), c = (e % (BN / 4)) * 4;
-      const int64_t gk = k0 + r, gn = n0 + c;
-      const bool in = gk < k && gn < n;
-      tile_mma::cp16(b + r * Base::kRow + c, in ? w + gk * n + gn : w, in);
-    }
-  }
-};
+using Weights = tile_mma::WeightSlice<BN, kPadB>;
 
 // ---------------------------------------------------------- work list
 // One m-tile row's union work list, staged in shared memory once per

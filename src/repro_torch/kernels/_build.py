@@ -74,6 +74,7 @@ SIGNATURES = {
                                              _I64, _I64, _I64, _I64, _P),
     "spike_matmul_pred_forward": (_P, _P, _P, _P, _I64, _I64, _I64, _I64,
                                   _P),
+    "spike_matmul_csr_pipe_launch": (_I64, _I64, _P),
     "spike_matmul_packed_csr_pipe_launch": (_I64, _I64, _P),
     "apec_decompose_forward": (_P, _P, _P, _I64, _I64, _I64, _P),
     "apec_matmul_csr_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
@@ -116,20 +117,20 @@ def _nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
-def _sources_key(sources) -> str:
+def _sources_key(sources, csrc: Path) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in [*sources, *sorted(CSRC.glob("*.cuh"))]:
+    for src in [*sources, *sorted(csrc.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile every source (one `nvcc` per file, all started together),
-    link one shared library, and return its path. Reuses a library built
-    from identical sources."""
-    sources = sorted(CSRC.glob("*.cu"))
-    out_dir = build_dir() / _sources_key(sources)
+def build(verbose: bool = False, csrc: Path = CSRC) -> Path:
+    """Compile every source of `csrc` (one `nvcc` per file, all started
+    together), link one shared library, and return its path. Reuses a
+    library built from identical sources."""
+    sources = sorted(csrc.glob("*.cu"))
+    out_dir = build_dir() / _sources_key(sources, csrc)
     lib_path = out_dir / "librepro_torch_kernels.so"
     if lib_path.exists():
         BUILD_INFO.update(path=str(lib_path), seconds=0.0, cached=True)

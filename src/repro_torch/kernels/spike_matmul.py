@@ -531,18 +531,27 @@ def spike_matmul_packed_csr(p: torch.Tensor, w: torch.Tensor,
                               spike_matmul_packed_csr_plain)
 
 
-def packed_pipe_launch(n: int, mt: int) -> dict:
-    """The launch the pipelined word kernel makes for N columns and MT
-    m-tile rows, as its C library reports it: n-tile width, the rows and
-    columns a thread holds, grid, blocks and waves (blocks over the card's
-    SMs times the blocks an SM holds). Needs a card."""
+def _pipe_launch(entry: str, n: int, mt: int) -> dict:
+    """The launch a pipelined CSR kernel makes for N columns and MT m-tile
+    rows, as its C library's `entry` reports it: n-tile width, the rows
+    and columns a thread holds, grid, blocks and waves (blocks over the
+    card's SMs times the blocks an SM holds). Needs a card."""
     got = (ctypes.c_int * 5)()
-    _build.check(_build.library().spike_matmul_packed_csr_pipe_launch(
-        n, mt, got), "spike_matmul_packed_csr_pipe_launch")
+    _build.check(getattr(_build.library(), entry)(n, mt, got), entry)
     bn, rows, cols, sms, per_sm = got
     blocks = mt * -(-n // bn)
     return {"bn": bn, "thread_tile": [rows, cols], "grid": [mt, -(-n // bn)],
             "blocks": blocks, "waves": blocks / (per_sm * sms)}
+
+
+def pipe_launch(n: int, mt: int) -> dict:
+    """The f32 kernel's launch (`_pipe_launch`)."""
+    return _pipe_launch("spike_matmul_csr_pipe_launch", n, mt)
+
+
+def packed_pipe_launch(n: int, mt: int) -> dict:
+    """The word kernel's launch (`_pipe_launch`)."""
+    return _pipe_launch("spike_matmul_packed_csr_pipe_launch", n, mt)
 
 
 def spike_matmul_packed_csr_pipe_plain(p: torch.Tensor, w: torch.Tensor,

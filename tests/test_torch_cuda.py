@@ -228,8 +228,8 @@ def test_cuda_word_kernel_picks_whole_waves(cuda_device, label, n, mt, bn,
                                             blocks):
     """The launch the word kernel's C library reports at SpikingFormer-4-384's
     three CSR shapes (T=4, B=32) on an H100 SXM's 132 SMs, two blocks an
-    SM: fc2 takes BN = 96, 256 blocks in one wave, where kernel 12's
-    `pick_bn` takes 64 and 1.45 waves."""
+    SM: fc2 takes BN = 96, 256 blocks in one wave, where BN = 64 (the
+    width that pads N least) leaves 1.45 waves."""
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     if sms != 132:
         pytest.skip(f"the expected picks are an H100 SXM's; this card has "
@@ -241,6 +241,84 @@ def test_cuda_word_kernel_picks_whole_waves(cuda_device, label, n, mt, bn,
     assert got["waves"] == blocks / 264
     if label == "ffn_fc2":
         assert got["waves"] <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,multi_bit,bn", [
+    (8192 + 37, 200, 1536, False, 128),  # ragged M and K, fc1's N
+    (8192 - 50, 300, 384, False, 96),    # fc2's N on 64 m-tiles
+    (25600 - 3, 130, 61, False, 64),     # N % 4 != 0: 4-byte copies
+    (1000, 144, 2, False, 32),           # N = 2
+    (300, 27, 64, True, 32),             # the coded conv: K = 27, multi-bit
+    (1000, 300, 70, False, 32),          # ragged M, K and N
+])
+def test_cuda_kernel_12_equals_kernel_11_at_each_bn(cuda_device, m, k, n,
+                                                     multi_bit, bn):
+    """Kernel 12 on its thread tile against kernel 11 (the serial fmaf
+    kernel) bit for bit at each n-tile width it picks, and zeros for an
+    empty m-tile row. The widths are an H100 SXM's picks (132 SMs); on
+    another card the equalities still hold at whatever it picks."""
+    rng = np.random.default_rng(m + k + n)
+    s, w = _pred_case(rng, m, k, n, cuda_device, multi_bit)
+    csr = build_csr(ops.padded_occupancy(s), 128, 128)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    if sms == 132:
+        assert spike_matmul.pipe_launch(n, -(-m // 128))["bn"] == bn
+    got = spike_matmul.spike_matmul_csr_pipe(s, w, csr)
+    assert torch.equal(got, spike_matmul.spike_matmul_csr(s, w, csr))
+    assert torch.all(got[128:256] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,n,mt,bn,blocks", [
+    ("econv_stage1", 96, 1024, 96, 1024),
+    ("ffn_fc1", 1536, 64, 128, 768),
+    ("ffn_fc2", 384, 64, 96, 256),
+])
+def test_cuda_f32_kernel_picks_whole_waves(cuda_device, label, n, mt, bn,
+                                           blocks):
+    """Kernel 12's launch from its C library at SpikingFormer-4-384's three
+    CSR shapes (T=4, B=32) on an H100 SXM's 132 SMs: the word kernel's
+    picks (one template, two blocks an SM), fc2 in one wave at BN = 96."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    if sms != 132:
+        pytest.skip(f"the expected picks are an H100 SXM's; this card has "
+                    f"{sms} SMs")
+    got = spike_matmul.pipe_launch(n, mt)
+    assert got == spike_matmul.packed_pipe_launch(n, mt)
+    assert (got["bn"], got["blocks"]) == (bn, blocks), label
+    assert got["grid"] == [mt, -(-n // bn)]
+    assert got["thread_tile"] == {128: [8, 8], 96: [4, 12]}[bn]
+    assert got["waves"] == blocks / 264
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("p", [5, 1003, 4096, 8 * 1000 + 3])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_streaming_fire_matches_plain(cuda_device, t, p, offset):
+    """The streaming fire, f32 and bf16, and its residual mode against
+    their plain versions bit for bit at T = 1..5 (T = 5 loads in two
+    groups), P < 8, P % 8 != 0 (the scalar path; at T = 1 the ragged tail
+    behind whole vectors) and on drives whose rows do not start 16-byte
+    aligned (a view one element into its storage)."""
+    g = torch.Generator().manual_seed(t * p + offset)
+    buf = (torch.randn(t * p + offset, generator=g) * 0.8 + 0.5)
+    buf[offset:offset + 4] = torch.tensor([1.0, 0.5, 2.0, 0.25])
+    kw = dict(decay=0.5, v_th=1.0)
+    for dt in (torch.float32, torch.bfloat16):
+        x = buf.to(dt).to(cuda_device)[offset:].view(t, p)
+        assert x.storage_offset() == offset
+        for soft in (True, False):
+            got = lif_scan.lif(x, soft_reset=soft, **kw)
+            assert got.dtype == dt
+            assert torch.equal(got, lif_scan.lif_plain(x, soft_reset=soft,
+                                                       **kw))
+    xf = buf.to(cuda_device)[offset:].view(t, p)
+    for soft in (True, False):
+        for a, b in zip(lif_scan.lif_fwd(xf, soft_reset=soft, **kw),
+                        lif_scan.lif_fwd_plain(xf, soft_reset=soft, **kw)):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

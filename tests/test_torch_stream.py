@@ -13,11 +13,12 @@ keeps. The product is held to `repro`'s `spike_matmul_pallas` in
 interpret mode in tests/test_torch_cnn.py, and the kernel to kernel 12
 bit for bit on a card in tests/test_torch_cuda.py.
 
-Kernel 14's word path (csrc/tile_mma.cuh: WordTile, add_word_slice)
-covers each block's outputs once with its thread tiles, and picks its
-n-tile width (`tile_mma::pick_bn_waves`) for the blocks an SM its
-launch bounds give; the picks themselves are read from the C library on
-a card in tests/test_torch_cuda.py.
+Kernels 12 and 14 (csrc/tile_mma.cuh: ThreadTile, fma_tile_slice,
+add_word_slice) cover each block's outputs once with their thread
+tiles, and pick their n-tile width (`tile_mma::pick_bn_waves`) for the
+blocks an SM their launch bounds give; the picks themselves are read
+from the C library on a card in tests/test_torch_cuda.py, and kernel
+12's f32 reads are checked in tests/test_torch_tile.py.
 """
 import re
 from pathlib import Path
@@ -153,31 +154,32 @@ def test_pred_ring_is_the_csr_kernels_ring():
         in src
 
 
-# --------------------------------------------------- kernel 14's launch
-# WordTile's (rows, columns) a thread holds per n-tile width
+# ------------------------------------------ kernels 12 and 14's launch
+# ThreadTile's (rows, columns) a thread holds per n-tile width
 # (csrc/tile_mma.cuh; checked against the source below).
 WORD_TILES = {128: (8, 8), 96: (4, 12), 64: (4, 8), 32: (2, 8)}
 
 
 @pytest.mark.parametrize("source,kernel,picker", [
-    ("spike_matmul_csr_pipe.cu", "csr_pipe_word_kernel",
-     r"pick_bn_waves\(n, mt, kWordBlocksPerSM\)"),
+    ("spike_matmul_csr_pipe.cu", "csr_pipe_kernel",
+     r"pick_bn_waves\(n, mt, kBlocksPerSM\)"),
     ("apec_matmul_csr_pipe.cu", "apec_pipe_kernel",
      r"pick_bn_waves\(n, mt, 1, kMaxBN\)"),
 ])
 def test_wave_picker_counts_the_blocks_an_sm_the_kernel_declares(
         source, kernel, picker):
-    """Kernels 14 and 18 / 16 share one n-tile picker; each asks it for
-    whole waves of as many blocks an SM as its __launch_bounds__ give."""
+    """Kernels 12 / 14 (one template, f32 spikes or words) and 18 / 16
+    share one n-tile picker; each asks it for whole waves of as many
+    blocks an SM as its __launch_bounds__ give."""
     src = (CSRC / source).read_text()
     bounds = re.search(r"__launch_bounds__\(kThreads, (\w+)\)\s*"
                        + kernel + r"\(", src)
     assert bounds, f"{kernel}'s launch bounds moved"
     per_sm = bounds.group(1)
-    if per_sm == "kWordBlocksPerSM":
-        per_sm = re.search(r"constexpr int kWordBlocksPerSM = (\d+);",
+    if per_sm == "kBlocksPerSM":
+        per_sm = re.search(r"constexpr int kBlocksPerSM = (\d+);",
                            src).group(1)
-    assert per_sm == ("2" if kernel == "csr_pipe_word_kernel" else "1")
+    assert per_sm == ("2" if kernel == "csr_pipe_kernel" else "1")
     assert re.search(picker, src)
     assert "inline int pick_bn(" not in src
     assert "cudaDeviceGetAttribute" not in src
@@ -185,7 +187,7 @@ def test_wave_picker_counts_the_blocks_an_sm_the_kernel_declares(
 
 @pytest.mark.parametrize("bn", sorted(WORD_TILES))
 def test_word_thread_tiles_cover_each_output_once(bn):
-    """WordTile's layout (thread t: column group t % G, row group t // G;
+    """ThreadTile's layout (thread t: column group t % G, row group t // G;
     rows rg + RG i, columns 4 cg + 4 G q + 0..3) covers the block's
     128 x BN outputs exactly once with 256 threads, each holding at least
     8 columns in runs of 4."""
@@ -204,6 +206,6 @@ def test_word_thread_tiles_cover_each_output_once(bn):
     table = re.search(r"kRM = (BN == 128 \? 8 : BN == 32 \? 2 : 4);"
                       r"\s*static constexpr int kCN = (BN == 96 \? 12 : 8);",
                       src)
-    assert table, "WordTile's table moved: update WORD_TILES"
+    assert table, "ThreadTile's table moved: update WORD_TILES"
     assert rm == (8 if bn == 128 else 2 if bn == 32 else 4)
     assert cn == (12 if bn == 96 else 8)

@@ -1,22 +1,38 @@
 #!/usr/bin/env python3
-"""Time the predicated spike matmul (kernel 10, csrc/spike_matmul.cu) and
-the pipelined word kernel (kernel 14, csrc/spike_matmul_csr_pipe.cu) on
-the card, each beside what it must beat, in turns in one process.
+"""Time the streaming kernels on the card, each beside what it must beat,
+in turns in one process, optionally against other builds of the kernel
+library.
 
-    python3 tools/stream_probe.py       # from the root of a checkout
+    python3 tools/stream_probe.py [NAME=CSRC_DIR ...]
 
-Kernel 10 at SegNet-64's tconv shapes, (131072x288)x(288x16) and
-(524288x144)x(144x2), on a map with every tile occupied (as the model's
-maps nearly are) and on clustered data with 50% occupied tiles: kernel 10
-and cuBLAS fp32 in turns, kernel 12 on `build_csr` of the same map (its
-result must equal kernel 10's bit for bit), the byte bound and the bytes
-a second kernel 10 reaches. Kernel 14 at SpikingFormer-4-384's stage 1,
-fc1 and fc2 on clustered data with 50% occupied tiles: kernels 12 and 14
-in turns, cuBLAS fp32, the launch kernel 14 picks, and the three results
-equal bit for bit. Prints the card's name and power limit, then one JSON
-line per case; exits nonzero on a mismatch."""
+Kernel 10 (the predicated spike matmul, csrc/spike_matmul.cu) at
+SegNet-64's tconv shapes, (131072x288)x(288x16) and (524288x144)x(144x2),
+on a map with every tile occupied (as the model's maps nearly are) and on
+clustered data with 50% occupied tiles: kernel 10 and cuBLAS fp32 in
+turns, kernel 12 on `build_csr` of the same map (its result must equal
+kernel 10's bit for bit), the byte bound and the bytes a second kernel 10
+reaches. Kernels 12 and 14 (the pipelined CSR matmul on f32 spikes and
+on words, csrc/spike_matmul_csr_pipe.cu) at SpikingFormer-4-384's stage
+1, fc1 and fc2 (T=4, B=32) on clustered data with 50% occupied tiles:
+each with cuBLAS fp32 in turns, the launch its C library reports, and
+kernels 12, 13 and 14 equal bit for bit. The plain LIF fire
+(csrc/lif.cu `lif_kernel`) at SpikingFormer's stage-1 drive (4,
+32*1024*96) f32, plain and residual, and the LM's hidden drives (2,
+8*5632) and (2, 8*1024*5632) bf16: back-to-back calls (`ms`), the kernel
+alone in a CUDA graph (`device_ms`), the byte bound and a device copy of
+the same bytes (`Tensor.copy_`).
+
+Each CSRC_DIR is another tree's `src/repro_torch/csrc` (an older commit
+unpacked with `git archive`, or a patched copy), built here with this
+checkout's flags; its kernels 12 and 14 and fires are timed in turns with
+this checkout's (this, other, other, this) and must give the same bits.
+Prints the card's name and power limit, the ptxas registers and spills
+of each fresh build's kernel-12/14 and fire instances, then one JSON line
+per case; exits nonzero on a mismatch."""
+import ctypes
 import functools
 import json
+import re
 import sys
 from pathlib import Path
 
@@ -26,6 +42,78 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402  (puts the repo's src on the path)
 
 TCONV_SHAPES = (("tconv1", (131072, 288, 16)), ("tconv2", (524288, 144, 2)))
+
+ENTRIES = ("spike_matmul_csr_pipe_forward",
+           "spike_matmul_packed_csr_pipe_forward", "lif_forward",
+           "lif_bf16_forward", "lif_fwd_forward")
+PTXAS_KERNELS = ("csr_pipe_kernel", "lif_kernel")
+LIF_KW = dict(decay=0.5, v_th=1.0, soft_reset=1)
+
+
+def ptxas_summary(log: str) -> list:
+    """[(entry, registers, spill stores, spill loads)] of the kernels in
+    PTXAS_KERNELS, read from an `nvcc -Xptxas -v` log."""
+    rows, entry, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry, spills = m.group(1), (0, 0)
+            continue
+        if entry is None or not any(k in entry for k in PTXAS_KERNELS):
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rows.append((entry, int(m.group(1)), *spills))
+            entry = None
+    return rows
+
+
+def load_other(csrc: Path):
+    from repro_torch.kernels import _build
+    lib = ctypes.CDLL(str(_build.build(csrc=csrc)))
+    for name in ENTRIES:
+        fn = getattr(lib, name)
+        fn.argtypes = list(_build.SIGNATURES[name])
+        fn.restype = ctypes.c_int
+    return lib, _build.BUILD_INFO.get("log", "")
+
+
+def csr_call(lib, s, w, csr, out):
+    from repro_torch.kernels import _build
+    m, k = s.shape
+    n = w.shape[1]
+    _build.check(lib.spike_matmul_csr_pipe_forward(
+        s.data_ptr(), w.data_ptr(), out.data_ptr(), csr.row_ptr.data_ptr(),
+        csr.tile_k_idx.data_ptr(), csr.occ.data_ptr(), m, k, n, -(-m // 128),
+        _build.stream()), "spike_matmul_csr_pipe")
+    return out
+
+
+def word_call(lib, p, w, csr, k, out):
+    from repro_torch.kernels import _build
+    m, kw = p.shape
+    n = w.shape[1]
+    _build.check(lib.spike_matmul_packed_csr_pipe_forward(
+        p.data_ptr(), w.data_ptr(), out.data_ptr(), csr.row_ptr.data_ptr(),
+        csr.tile_k_idx.data_ptr(), csr.occ.data_ptr(), m, kw, k, n,
+        -(-m // 128), _build.stream()), "spike_matmul_packed_csr_pipe")
+    return out
+
+
+def fire_call(lib, entry, x, s, vres=None):
+    from repro_torch.kernels import _build
+    t, p = x.shape
+    args = [x.data_ptr(), s.data_ptr()]
+    if vres is not None:
+        args.append(vres.data_ptr())
+    _build.check(getattr(lib, entry)(*args, t, p, LIF_KW["decay"],
+                                     LIF_KW["v_th"], LIF_KW["soft_reset"],
+                                     _build.stream()), entry)
+    return (s,) if vres is None else (s, vres)
 
 
 def probe_pred(torch, gen, device):
@@ -60,49 +148,117 @@ def probe_pred(torch, gen, device):
     return True
 
 
-def probe_words(torch, gen, device):
+def probe_csr(torch, gen, device, this, others):
     from repro_torch.core.spikes import build_csr, pack_spikes_padded
     from repro_torch.kernels import ops, spike_matmul as sm
+    ok = True
     for label, (m, k, n) in cs.CSR_SHAPES:
         s = cs.clustered_spikes(torch, m, k, gen, device)
         w = (torch.randn((k, n), generator=gen) / k ** 0.5).to(device)
         occ = ops.padded_occupancy(s)
         csr = build_csr(occ, 128, 128)
         p = pack_spikes_padded(s).contiguous()
-        k12 = functools.partial(sm.spike_matmul_csr_pipe, s, w, csr)
-        k14 = functools.partial(sm.spike_matmul_packed_csr_pipe, p, w, csr)
-        same = torch.equal(k12(), k14()) and torch.equal(
-            k14(), sm.spike_matmul_packed_csr(p, w, csr))
-        ms12, ms14 = cs.turns_ms(torch, k12, k14)
-        flops, n_bytes = cs.csr_work(torch, occ, m, k, n, spike_bytes=1 / 8)
-        print(json.dumps({
-            "kernel": "spike_matmul_packed_csr_pipe", "case": label,
-            "ms": ms14, "kernel12_ms": ms12,
-            "cublas_ms": cs.cuda_ms(torch, functools.partial(
-                torch.matmul, s, w)),
-            **cs.spike_bounds(n_bytes, cs.live_nonzeros(torch, s, occ), n,
-                              flops),
-            "launch": sm.packed_pipe_launch(n, -(-m // 128)),
-            "equal_to_kernels_12_13": same,
-            "occupied_share": (occ > 0).float().mean().item()}), flush=True)
-        if not same:
-            return False
-    return True
+        k13 = sm.spike_matmul_packed_csr(p, w, csr)
+        flops, _ = cs.csr_work(torch, occ, m, k, n)
+        nnz = cs.live_nonzeros(torch, s, occ)
+        libs = (("this", this), *others.items())
+        for kernel, call, a, launch, spike_bytes in (
+                ("spike_matmul_csr_pipe", csr_call, s, sm.pipe_launch, 4.0),
+                ("spike_matmul_packed_csr_pipe",
+                 functools.partial(word_call, k=k), p, sm.packed_pipe_launch,
+                 1 / 8)):
+            outs = {name: torch.empty((m, n), device=device)
+                    for name, _ in libs}
+            run = {name: functools.partial(call, lib, a, w, csr,
+                                           out=outs[name])
+                   for name, lib in libs}
+            ms, cublas_ms = cs.turns_ms(torch, run["this"], functools.partial(
+                torch.matmul, s, w))
+            same = torch.equal(run["this"](), k13)
+            _, n_bytes = cs.csr_work(torch, occ, m, k, n,
+                                     spike_bytes=spike_bytes)
+            rec = {"kernel": kernel, "case": label, "ms": ms,
+                   "cublas_ms": cublas_ms, "launch": launch(n, -(-m // 128)),
+                   **cs.spike_bounds(n_bytes, nnz, n, flops),
+                   "equal_to_kernel_13": same,
+                   "occupied_share": (occ > 0).float().mean().item()}
+            ok &= same
+            for name in others:
+                t, o = cs.turns_ms(torch, run["this"], run[name])
+                same = torch.equal(outs["this"], outs[name])
+                rec[name] = {"ms": o, "this_ms": t, "equal": same}
+                ok &= same
+            print(json.dumps(rec), flush=True)
+    return ok
 
 
-def main() -> int:
+def probe_fires(torch, device, this, others):
+    dgen = torch.Generator(device=device).manual_seed(cs.SEED)
+    cases = (("lif_forward", "stage1_f32", (cs.T, cs.B * 1024 * 96),
+              torch.float32, False),
+             ("lif_fwd_forward", "stage1_f32", (cs.T, cs.B * 1024 * 96),
+              torch.float32, True),
+             ("lif_bf16_forward", "decode_hidden", (2, cs.LM_BATCH * 5632),
+              torch.bfloat16, False),
+             ("lif_bf16_forward", "prefill_hidden",
+              (2, cs.LM_BATCH * cs.LM_PROMPT * 5632), torch.bfloat16, False))
+    ok = True
+    for entry, label, shape, dt, residual in cases:
+        x = (torch.randn(shape, generator=dgen, device=device) * 0.8
+             + 0.6).to(dt)
+        outs = {name: (torch.empty_like(x), torch.empty(
+            shape, device=device) if residual else None)
+            for name in ("this", *others)}
+        run = {name: functools.partial(fire_call, lib, entry, x,
+                                       *outs[name])
+               for name, lib in (("this", this), *others.items())}
+        n_bytes = x.numel() * x.element_size() * 2 + (
+            x.numel() * 4 if residual else 0)
+        rec = {"kernel": entry, "case": label, "shape": list(shape),
+               "ms": cs.cuda_ms(torch, run["this"]),
+               "device_ms": cs.graph_ms(torch, run["this"]),
+               "bound_ms": n_bytes / cs.HBM_BYTES_PER_S * 1e3}
+        if not residual:      # the same bytes, read once and written once
+            dst = torch.empty_like(x)
+            rec["copy_ms"] = cs.cuda_ms(torch, functools.partial(
+                dst.copy_, x))
+        for name in others:
+            a, b = cs.turns_ms(torch, run["this"], run[name])
+            same = all(torch.equal(p, q) for p, q in zip(
+                run["this"](), run[name]()))
+            rec[name] = {"ms": b, "this_ms": a, "equal": same}
+            ok &= same
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        print(json.dumps(rec), flush=True)
+    return ok
+
+
+def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
         print("stream_probe: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import _build
     device = torch.device("cuda", 0)
     cs.phase_device(torch)
-    cs.phase_build()
+    this = _build.library()
+    logs = {"this": _build.BUILD_INFO.get("log", "")}
+    others = {}
+    for arg in argv:
+        name, _, path = arg.partition("=")
+        others[name], logs[name] = load_other(Path(path).resolve())
+    for name, log in logs.items():
+        for entry, regs, st, ld in ptxas_summary(log):
+            print(json.dumps({"build": name, "entry": entry,
+                              "registers": regs, "spill_stores": st,
+                              "spill_loads": ld}), flush=True)
     gen = torch.Generator().manual_seed(cs.SEED)
-    ok = probe_pred(torch, gen, device) and probe_words(torch, gen, device)
+    ok = probe_pred(torch, gen, device)
+    ok &= probe_csr(torch, gen, device, this, others)
+    ok &= probe_fires(torch, device, this, others)
     return 0 if ok else 1
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
