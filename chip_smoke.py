@@ -7,9 +7,11 @@ Phases, each printed on its own line:
   (a) the card (nvidia-smi name and power limit), torch and CUDA versions,
       and the build of every CUDA kernel from `src/repro_torch/csrc`;
   (b) each inference kernel at the main path's largest shapes (B=32, T=4)
-      against its plain PyTorch version on the same card: LIF exact (both
-      modes, and the counts and packed modes at a ragged R=12), packed
-      SDSA bit for bit; the CSR matmuls at SpikingFormer-4-384's stage-1
+      against its plain PyTorch version on the same card: LIF exact; the
+      counts fires (rows 4 and 5, `lif_counts` and `lif_counts_fwd`)
+      bit for bit at every drive of FIRE_DRIVES (the models' widths,
+      K = 37, an unaligned drive, R = 12), each with its launch from the
+      C library; packed SDSA bit for bit; the CSR matmuls at SpikingFormer-4-384's stage-1
       patch matmul (131072x432)x(432x96), FFN fc1 (8192x384)x(384x1536)
       and fc2 (8192x1536)x(1536x384) on data with 50% occupied tiles: the
       serial kernels 11 (f32) and 13 (words) and the pipelined kernels 12
@@ -55,7 +57,8 @@ Phases, each printed on its own line:
       and B=3, whose 2x2 fires have a ragged R = 4B, with the same exact
       launches and registry calls equal to `ref`; then a per-op
       device-time breakdown of one forward on each;
-  (f) SpikingFormer-4-384 training: 3 AdamW steps (cross-entropy,
+  (f) SpikingFormer-4-384 training (cuDNN set deterministic, so the
+      losses are one value from run to run): 3 AdamW steps (cross-entropy,
       `torch.autograd.grad` over the parameter leaves, `adamw.update`) on
       `class_images` batches of 32, on the kernels: finite losses and
       gradients, no all-zero gradient leaf, exactly 13 lif-fwd, 12
@@ -89,9 +92,9 @@ Phases, each printed on its own line:
       routes'; and `apec_stats` (G2, G4, G8) of every fire of the
       forward;
   (j) packed payloads (`SpikingConfig(packed=True)`, uint32 words between
-      the spiking layers): the packed fire (kernel 6) at the stage-1 drive
-      and at stage 0's K=48, words and counts equal to its plain version
-      and to the packed spikes of the counts kernel; the packed CSR matmul
+      the spiking layers): the packed fire (kernel 6) at every drive of
+      FIRE_DRIVES, words and counts equal to its plain version and the
+      words to the packed spikes of the counts kernel; the packed CSR matmul
       (kernel 13) at the packed stage-1 patch matrix, fc1 and fc2 on the
       model's maps and on data with 50% occupied tiles, within
       1e-5 * max|ref| + 1e-5 of its plain version, and at fc1/fc2 against
@@ -259,6 +262,19 @@ LM_SOLO_SLOT = 3
 # kernel launches 0 times.
 LM_PREFILL_LAUNCHES = {"lif_bf16": 6 * 22, "sdsa_causal": 22}
 LM_DECODE_LAUNCHES = {"lif_bf16": 6 * 22}
+# The counts fires' drives (rows 4, 5 and 6; T=4, B=32): SpikingFormer-
+# 4-384's stage-1 and stage-0 patch fires, SegNet-64's first conv, VGG11's
+# first conv and the FFN's fc1 fire; a width K % 4 != 0 (the kernel's
+# scalar path); R = 12 (VGG11's 2x2 fire at B = 3: chunks span steps).
+FIRE_DRIVES = (("sps_stage1", (T, B * 1024, 96)),
+               ("sps_stage0", (T, B * 1024, 48)),
+               ("segnet_conv1", (T, B * 4096, 8)),
+               ("vgg11_conv1", (T, B * 1024, 64)),
+               ("ffn_fc1", (T, B * 64, 4 * DIM)),
+               ("k37", (T, 4096, 37)),
+               ("offset1", (T, 2048, 96)),
+               ("r12", (T, 12, 96)),
+               ("r12_k8", (T, 12, 8)))
 SOURCES = {"lif": "src/repro_torch/csrc/lif.cu",
            "lif_counts": "src/repro_torch/csrc/lif.cu",
            "lif_fwd": "src/repro_torch/csrc/lif.cu",
@@ -462,29 +478,65 @@ def clustered_spikes(torch, m, k, gen, device, tile_p=0.5, p=0.2):
     return s.float().to(device)
 
 
+def as_int32(t):
+    """uint32 words as an int32 view (the dtype torch.equal compares)."""
+    import torch
+    return t.view(torch.int32) if t.dtype == torch.uint32 else t
+
+
+def fire_drive(torch, label, shape, gen, device):
+    """A counts fire's drive from `gen`; "offset1" lies one element into
+    its storage, so no row starts 16-byte aligned (the scalar path)."""
+    n = math.prod(shape) + (label == "offset1")
+    x = (0.6 * torch.randn((n,), generator=gen, device=gen.device)
+         + 0.2).to(device)
+    return x[n - math.prod(shape):].view(shape)
+
+
+def counts_case(torch, name, label, x, kw):
+    """One counts fire (`lif_counts`, `lif_counts_packed` or
+    `lif_counts_fwd`) on the drive `x`, gated bit for bit against its
+    plain version: -> (outputs, the `kernel` line's record: back-to-back
+    wrapper calls `ms`, the calls alone in a CUDA graph `device_ms`)."""
+    from repro_torch.kernels import lif_scan
+    fn, plain = getattr(lif_scan, name), getattr(lif_scan, name + "_plain")
+    got, want = fn(x, **kw), plain(x, **kw)
+    torch.cuda.synchronize()
+    check(all(a.shape == b.shape for a, b in zip(got, want)),
+          f"{name} kernel's output shapes differ ({label})")
+    err = max((as_int32(a).double() - as_int32(b).double()).abs().max()
+              .item() if a.numel() else 0.0 for a, b in zip(got, want))
+    check(all(torch.equal(as_int32(a), as_int32(b))
+              for a, b in zip(got, want)),
+          f"{name} kernel disagrees with its plain version ({label}, max "
+          f"|d| {err})")
+    n_bytes = x.numel() * 4 + sum(t.numel() * t.element_size() for t in got)
+    b_ms, by = bound_ms(n_bytes)
+    rec = dict(max_abs_err=err, ms=cuda_ms(torch, lambda: fn(x, **kw)),
+               device_ms=graph_ms(torch, lambda: fn(x, **kw)),
+               plain_ms=cuda_ms(torch, lambda: plain(x, **kw), reps=5),
+               bound_ms=b_ms, bound_by=by, library_ms=None,
+               shape=list(x.shape),
+               launch=lif_scan.counts_launch(x.shape[1], x.shape[2], name))
+    emit("kernel", name=name, case=label, **rec)
+    return got, rec
+
+
 def phase_lif(torch, gen, device, results):
     from repro_torch.kernels import lif_scan
     kw = dict(decay=0.5, v_th=V_TH, soft_reset=True)
     x = (0.6 * torch.randn((T, B * 1024, 96), generator=gen) + 0.2).to(device)
-    s, cnt = lif_scan.lif_counts(x, **kw)
-    s_ref, cnt_ref = lif_scan.lif_counts_plain(x, **kw)
-    torch.cuda.synchronize()
-    err_c = max((s - s_ref).abs().max().item(),
-                (cnt - cnt_ref).abs().max().item())
-    check(torch.equal(s, s_ref) and torch.equal(cnt, cnt_ref),
-          "lif_counts kernel disagrees with its plain version")
-    # A ragged R (VGG11's 2x2 fire at B=3: R = 12): masked rows, chunks of
-    # the flattened rows that span steps.
-    xr = x[:, :12, :].contiguous()
-    for got, want in ((lif_scan.lif_counts(xr, **kw),
-                       lif_scan.lif_counts_plain(xr, **kw)),
-                      (lif_scan.lif_counts_packed(xr, **kw),
-                       lif_scan.lif_counts_packed_plain(xr, **kw))):
-        check(all(a.shape == b.shape and torch.equal(
-            a.view(torch.int32) if a.dtype == torch.uint32 else a,
-            b.view(torch.int32) if b.dtype == torch.uint32 else b)
-            for a, b in zip(got, want)),
-            "lif_counts kernel disagrees with its plain version at R=12")
+    # Rows 4 and 5 at every drive of FIRE_DRIVES (the stage-1 drive drawn
+    # above, R = 12 cut from it; the rest from their own generator).
+    fgen = torch.Generator(device=device).manual_seed(SEED)
+    for label, shape in FIRE_DRIVES:
+        xd = x if label == "sps_stage1" else \
+            x[:, :12, :].contiguous() if label == "r12" else \
+            fire_drive(torch, label, shape, fgen, device)
+        for name in ("lif_counts", "lif_counts_fwd"):
+            _, rec = counts_case(torch, name, label, xd, kw)
+            if label == "sps_stage1" and name == "lif_counts":
+                results[name] = rec
     x2 = x.reshape(T, -1)
     s2 = lif_scan.lif(x2, **kw)
     err = (s2 - lif_scan.lif_plain(x2, **kw)).abs().max().item()
@@ -505,19 +557,14 @@ def phase_lif(torch, gen, device, results):
         lif_scan.lif_fwd_plain(flat[1:].view(2, 1003), **kw)
     check(all(torch.equal(a, b) for a, b in zip(got, want)),
           "lif_fwd kernel disagrees with its plain version at P = 1003")
-    n_bytes = 2 * x.numel() * 4
-    for name, fn, plain, extra, e in (
-            ("lif_counts", lambda: lif_scan.lif_counts(x, **kw),
-             lambda: lif_scan.lif_counts_plain(x, **kw), cnt.numel() * 4,
-             err_c),
-            ("lif", lambda: lif_scan.lif(x2, **kw),
-             lambda: lif_scan.lif_plain(x2, **kw), 0, err)):
-        b_ms, by = bound_ms(n_bytes + extra)
-        results[name] = dict(max_abs_err=e, ms=cuda_ms(torch, fn),
-                             plain_ms=cuda_ms(torch, plain, reps=5),
-                             bound_ms=b_ms, bound_by=by, library_ms=None,
-                             shape=list(x.shape))
-        emit("kernel", name=name, **results[name])
+    b_ms, by = bound_ms(2 * x.numel() * 4)
+    results["lif"] = dict(max_abs_err=err,
+                          ms=cuda_ms(torch, lambda: lif_scan.lif(x2, **kw)),
+                          plain_ms=cuda_ms(torch, lambda: lif_scan.lif_plain(
+                              x2, **kw), reps=5),
+                          bound_ms=b_ms, bound_by=by, library_ms=None,
+                          shape=list(x.shape))
+    emit("kernel", name="lif", **results["lif"])
 
 
 def phase_sdsa(torch, gen, device, results):
@@ -1711,39 +1758,26 @@ def phase_apec(torch, gen, device, results):
 
 # ------------------------------------------------------------ phase (j)
 def phase_packed_fire(torch, gen, device, results):
-    """Kernel 6 at the stage-1 drive (T, B*32*32, 96) and at stage 0's
-    K=48: words and counts equal to its plain version, and the words equal
-    to the packed spikes of kernel 4 on the same drive."""
+    """Kernel 6 at every drive of FIRE_DRIVES: words and counts equal to
+    its plain version, and the words equal to the packed spikes of kernel
+    4 on the same drive (the stage-1 and stage-0 drives drawn from `gen`
+    as before, the rest from their own generator)."""
     from repro_torch.core.spikes import pack_spikes_padded
     from repro_torch.kernels import lif_scan
     kw = dict(decay=0.5, v_th=V_TH, soft_reset=True)
-    for label, k in (("sps_stage1", 96), ("sps_stage0", 48)):
-        x = (0.6 * torch.randn((T, B * 1024, k), generator=gen) + 0.2).to(
-            device)
-        words, cnt = lif_scan.lif_counts_packed(x, **kw)
-        pw, pcnt = lif_scan.lif_counts_packed_plain(x, **kw)
+    drawn = {label: (0.6 * torch.randn(shape, generator=gen) + 0.2).to(
+        device) for label, shape in FIRE_DRIVES[:2]}
+    fgen = torch.Generator(device=device).manual_seed(SEED + 1)
+    for label, shape in FIRE_DRIVES:
+        x = drawn[label] if label in drawn else \
+            fire_drive(torch, label, shape, fgen, device)
+        (words, _), rec = counts_case(torch, "lif_counts_packed", label, x,
+                                      kw)
         s, _ = lif_scan.lif_counts(x, **kw)
         torch.cuda.synchronize()
-        check(torch.equal(words.view(torch.int32), pw.view(torch.int32)) and
-              torch.equal(cnt, pcnt), f"packed fire disagrees with its "
-              f"plain version ({label})")
-        check(torch.equal(words.view(torch.int32),
-                          pack_spikes_padded(s).view(torch.int32)),
+        check(torch.equal(as_int32(words), as_int32(pack_spikes_padded(s))),
               f"packed fire's words are not the counts kernel's spikes "
               f"packed ({label})")
-        n_bytes = x.numel() * 4 + words.numel() * 4 + cnt.numel() * 4
-        b_ms, by = bound_ms(n_bytes)
-        rec = dict(max_abs_err=0.0,
-                   ms=cuda_ms(torch, lambda: lif_scan.lif_counts_packed(
-                       x, **kw)),
-                   plain_ms=cuda_ms(torch, lambda: lif_scan
-                                    .lif_counts_packed_plain(x, **kw),
-                                    reps=5),
-                   counts_kernel_ms=cuda_ms(torch, lambda: lif_scan
-                                            .lif_counts(x, **kw)),
-                   bound_ms=b_ms, bound_by=by, library_ms=None,
-                   shape=list(x.shape))
-        emit("kernel", name="lif_counts_packed", case=label, **rec)
         if label == "sps_stage1":
             results["lif_counts_packed"] = rec
 
@@ -2540,7 +2574,15 @@ def main() -> int:
     totals = timed("c_end_to_end", phase_end_to_end, torch, device)
     for name, n in timed("h_cnn", phase_cnn, torch, device).items():
         totals[name] = totals.get(name, 0) + n
-    totals.update(timed("f_train", phase_train, torch, device))
+    # cuDNN's SPS-conv backward picks its algorithm per call and may sum
+    # in another order from run to run; deterministic algorithms make
+    # the three training steps' losses one value in every run.
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        totals.update(timed("f_train", phase_train, torch, device))
+    finally:
+        torch.backends.cudnn.deterministic = was
     totals.update(timed("i_apec", phase_apec, torch, gen, device, results))
     totals.update(timed("j_packed", phase_packed, torch, gen, device,
                         results))

@@ -27,6 +27,13 @@
 //           in flight a thread is too little to cover the memory latency.
 //           Streamed as below it takes 0.126, as long as a device copy of
 //           the same bytes (tools/stream_probe.py, the same card).
+//           The counts fire at SpikingFormer's stage-1 drive (4, 32768,
+//           96) took 0.077 ms (0.072 packed) as a thread a lane with
+//           4-byte loads, 1024-thread blocks of 128 lanes (62-94% of them
+//           idle below K = 128) and a barrier a step; streamed as below
+//           it takes 0.041, a device copy of its bytes 0.037, and the
+//           packed fire 0.027, as long as a sum of the drive (0.025:
+//           the read alone; tools/stream_probe.py, the same card).
 // Design:   each thread keeps its membrane potential (backward: the
 //           membrane cotangent u) in registers across the T loop, so the
 //           state never touches device memory (the TPU kernels kept it
@@ -44,26 +51,43 @@
 //           vectors), so every load and store is coalesced. The residual
 //           mode is a template flag: the same step, plus one store of the
 //           pre-reset membrane, so spikes and counts equal the primal
-//           kernel's and the primal pays nothing for it. The counts mode
-//           lays a (8 rows x 128 lanes) block over each (row chunk, lane
-//           tile) of the TPU kernel's count map and reduces its spikes
-//           exactly: a warp ballot + popcount per warp, then a 32-entry
-//           shared-memory sum. The count map counts the 8-row chunks of
-//           the flattened (T*R, K) spikes, (ceil(T*R/8), ceil(K/128)):
-//           with R % 8 == 0 that is _lif_occ_pallas's (T, R/8, ...)
-//           layout flattened. A ragged R (VGG11's 2x2 fires at odd batch)
-//           masks the rows past R in the last block of each step, and a
-//           chunk then spans two steps or two blocks, so each warp adds its
-//           popcount to the chunk with an integer atomicAdd into a zeroed
-//           map (exact, so order does not matter). Lanes past K (the
-//           TPU wrapper's zero pad to 128) exist only as idle threads and
-//           never fire, so no padded copy of the drive is made. In that
-//           block each warp covers 32 consecutive lanes of one row,
-//           starting at a multiple of 32, so the ballot the counts take
-//           IS the packed word (bit i = lane 32w+i): the packed mode
-//           stores it from lane 0 of the warp, for words below
-//           ceil(K/32), and writes no f32 spike. Idle lanes past K give
-//           zero tail bits, as `pack_spikes_padded` pads.
+//           kernel's and the primal pays nothing for it.
+//           The counts kernel (`lif_counts_kernel`: counts, packed, and
+//           counts + residual) streams the same way: a thread owns one
+//           16-byte vector (4 lanes) of one row, issues its steps' loads
+//           first and stores spikes and residuals as 16-byte vectors.
+//           The count map counts the 8-row chunks of the flattened
+//           (T*R, K) spikes per 128-lane tile, (ceil(T*R/8),
+//           ceil(K/128)): with R % 8 == 0 that is _lif_occ_pallas's
+//           (T, R/8, ...) layout flattened. Threads lie over live lanes
+//           only: a row takes its tile's vectors in whole word groups (8
+//           vectors = 32 lanes) from 32 lanes on, a power of two of
+//           vectors below, and narrow rows share a warp (K = 8: 16 rows
+//           a warp), so at most a quarter of the threads idle at the
+//           models' widths (K = 48, 96, 192); the earlier block of 128
+//           lanes x 8 rows idled 94% of them at K = 8. A block holds
+//           whole 8-row chunks of one tile and walks items in a
+//           grid-stride loop over one wave of blocks. Counts take no
+//           barrier a step: each thread pops its 4 spikes, a warp sums
+//           the lanes of one chunk (`__reduce_add_sync`, or a shuffle
+//           tree where 16 or 8 lanes make a chunk), and one barrier
+//           after each group of steps sums a chunk's warps from shared
+//           memory and stores the count. A ragged R (VGG11's 2x2 fires
+//           at odd batch) puts a chunk across two steps or two blocks:
+//           the lanes of a warp that share a count cell
+//           (`__match_any_sync`) sum their popcounts and one adds the
+//           sum with an integer atomicAdd into a map the caller zeroed
+//           (exact, so order does not matter). The packed mode builds
+//           each word in registers (bit i = lane 32w+i): a thread
+//           shifts its 4-bit nibble to bits 4j of its group, three
+//           `__shfl_xor_sync` rounds OR the group's 8 nibbles (fewer for
+//           a row under 32 lanes), the group's first thread stores the
+//           word, and no f32 spike is written; lanes past K give zero
+//           bits, as `pack_spikes_padded` pads. K % 4 != 0 or an
+//           unaligned operand takes a scalar instance of the kernel,
+//           the same steps one element at a time. Lanes past K (the
+//           TPU wrapper's zero pad to 128) are never loaded, so no
+//           padded copy of the drive is made.
 //           Every operation is rounded on its own (__f*_rn, no FMA
 //           contraction) in the order of the plain PyTorch versions in
 //           kernels/lif_scan.py, so spikes, residuals and cotangents equal
@@ -72,6 +96,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tile_mma.cuh"
 
 namespace {
 
@@ -211,68 +237,184 @@ lif_kernel(const E* __restrict__ x, E* __restrict__ s,
   }
 }
 
-constexpr int kLanes = 128;  // lane tile (the map's K tiling)
-constexpr int kChunk = 8;    // row chunk (the TPU kernel's block_m)
+constexpr int kLanes = 128;            // lane tile (the map's K tiling)
+constexpr int kChunk = 8;              // row chunk (the TPU kernel's block_m)
+constexpr int kTileVecs = kLanes / 4;  // 16-byte vectors a lane tile
+constexpr int kWordVecs = 8;           // vectors a uint32 word (32 lanes)
+constexpr int kCountThreads = 256;     // the most threads a counts block holds
+
+// The counts kernel's layout for K lanes. A thread owns one vector (4
+// lanes) of one row; a row takes `slots` threads in each lane tile: the
+// tile's vectors, rounded up to whole word groups of 8 vectors from 32
+// lanes on, or to a power of two below (SegNet's K = 8: 2 slots, so a
+// warp holds 16 rows). A block holds `chunks` 8-row chunks of one lane
+// tile, kChunk * chunks * slots threads (256, or 192 at 24 slots); its
+// thread i takes row i / slots of the block and vector i % slots of the
+// tile. Lanes past K are idle only where K is not a whole word group past
+// 32 lanes or a power of two below.
+struct CountsLayout {
+  int slots, chunks, threads;
+  int64_t kt;   // lane tiles, ceil(K/128)
+};
+
+inline CountsLayout counts_layout(int64_t k) {
+  const int64_t v = (k + 3) / 4;
+  int slots = 1;
+  if (v >= kTileVecs)
+    slots = kTileVecs;
+  else if (v >= kWordVecs)
+    slots = (int)((v + kWordVecs - 1) / kWordVecs * kWordVecs);
+  else
+    while (slots < v) slots *= 2;
+  const int fit = kCountThreads / (kChunk * slots);
+  const int chunks = fit > 1 ? fit : 1;
+  return {slots, chunks, kChunk * chunks * slots, (k + kLanes - 1) / kLanes};
+}
 
 // x, s (and vres): (T, R, K) contiguous; counts: (ceil(T*R/8),
 // ceil(K/128)) int32, zeroed by the caller when R % 8 != 0; words (packed
-// mode, instead of s): (T, R, ceil(K/32)) uint32. Block (128, 8):
-// threadIdx.x = lane in the tile, threadIdx.y = row in the block.
-// grid = (ceil(R/8), ceil(K/128)): row blocks on x, which has no 65535
-// limit.
-template <bool kResidual, bool kPacked>
-__global__ void __launch_bounds__(kLanes * kChunk)
+// mode, instead of s): (T, R, ceil(K/32)) uint32. Items are (8 * chunks
+// rows, one lane tile), taken by the blocks in a grid-stride loop. Each
+// thread loads the 16-byte vectors of up to kGroup steps before the
+// first step's arithmetic and stores its spikes (and residuals) as
+// 16-byte vectors; kVec false (K % 4 != 0 or an operand not 16-byte
+// aligned) takes the same steps one element at a time.
+// Counts: with R % 8 == 0 (kWhole) a block holds whole chunks: a
+// chunk's lanes of a warp (all 32, or 8 * slots at 1-2 slots) sum their
+// popcounts, one lane puts the sum in shared memory, and after each step
+// group one barrier lets a thread a (step, chunk) add its segments and
+// store the count. A ragged R puts chunks across steps and blocks: the lanes of a
+// warp that share a count cell (`__match_any_sync`) sum their popcounts
+// and one of them adds the sum to the zeroed map (an exact integer
+// atomicAdd). Words: the 4-bit nibbles of a word group's threads, OR-ed
+// over log2(8) shuffle rounds (fewer below 32 lanes); the group's first
+// thread stores the word.
+template <bool kResidual, bool kPacked, bool kVec, bool kWhole>
+__global__ void __launch_bounds__(kCountThreads)
 lif_counts_kernel(const float* __restrict__ x, float* __restrict__ s,
                   int* __restrict__ counts, float* __restrict__ vres,
                   uint32_t* __restrict__ words, int64_t t_steps,
                   int64_t rows, int64_t k, float decay, float v_th,
-                  bool soft_reset) {
-  __shared__ int partial[2][kLanes * kChunk / 32];
-  const int64_t chunk = blockIdx.x;
-  const int64_t lane = (int64_t)blockIdx.y * kLanes + threadIdx.x;
-  const int64_t row = chunk * kChunk + threadIdx.y;
-  const bool live = lane < k && row < rows;
-  const bool ragged = rows % kChunk != 0;
-  const int tid = threadIdx.y * kLanes + threadIdx.x;
-  const int warp = tid / 32;
-  const int64_t chunks = gridDim.x;
-  const int64_t kt = gridDim.y;
-  float v = 0.0f;
-  for (int64_t t = 0; t < t_steps; ++t) {
-    float sp = 0.0f;
-    if (live) {
-      const int64_t off = (t * rows + row) * k + lane;
-      float vv;
-      sp = lif_step(v, x[off], decay, v_th, soft_reset, vv);
-      if (!kPacked) s[off] = sp;
-      if (kResidual) vres[off] = vv;
-    }
-    const unsigned fired = __ballot_sync(0xffffffffu, sp != 0.0f);
-    int* slot = partial[t & 1];
-    if ((tid & 31) == 0) {
-      if (kPacked && row < rows) {
-        const int64_t kw = (k + 31) / 32;
-        const int64_t word = lane / 32;   // lane % 32 == 0 here
-        if (word < kw) words[(t * rows + row) * kw + word] = fired;
+                  bool soft_reset, CountsLayout lay) {
+  // Warp-segment sums of a step group, double-buffered so one barrier a
+  // group keeps the next group's writes off the sums still being read.
+  __shared__ int part[2][kGroup][kCountThreads / kChunk];
+  const int tid = threadIdx.x;
+  const int slot = tid % lay.slots;
+  const int row_in = tid / lay.slots;
+  const int wg = lay.slots < kWordVecs ? lay.slots : kWordVecs;
+  const int seg = kChunk * lay.slots < 32 ? kChunk * lay.slots : 32;
+  const int segs = kChunk * lay.slots / seg;   // warp segments a chunk
+  const int sum_g = tid / lay.chunks, sum_ch = tid % lay.chunks;
+  const int64_t kw = (k + 31) / 32;
+  const int64_t plane = rows * k;     // elements a step
+  const int64_t wplane = rows * kw;   // words a step
+  const int64_t block_rows = (int64_t)kChunk * lay.chunks;
+  const int64_t row_blocks = (rows + block_rows - 1) / block_rows;
+  // Items (row block, tile), row-major, stepped by the grid with no
+  // division an item.
+  const int64_t kt = lay.kt;
+  const int64_t step_rb = gridDim.x / kt, step_tile = gridDim.x % kt;
+  int64_t rb = blockIdx.x / kt, tile = blockIdx.x % kt;
+  int parity = 0;
+  while (rb < row_blocks) {
+    const int64_t row0 = rb * block_rows;
+    const int64_t row = row0 + row_in;
+    const int vidx = (int)tile * kTileVecs + slot;
+    const int64_t n0 = 4 * (int64_t)vidx;
+    const int lanes =
+        row < rows && n0 < k ? (k - n0 < 4 ? (int)(k - n0) : 4) : 0;
+    const int64_t at = row * k + n0;   // the thread's lane 0 at step 0
+    const int word = vidx / kWordVecs;
+    const bool stores_word = slot % wg == 0 && row < rows && word < kw;
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int64_t t0 = 0; t0 < t_steps; t0 += kGroup, parity ^= 1) {
+      // The vector path issues its steps' loads first; the scalar path
+      // loads each lane at its step.
+      uint32_t in[kGroup][4];
+      if (kVec) {
+        const float* xq = x + t0 * plane + at;
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g, xq += plane)
+          if (lanes != 0 && t0 + g < t_steps) load16(in[g], xq);
       }
-      // A warp covers 32 lanes of one row, so its whole popcount belongs
-      // to that row's chunk of the flattened rows.
-      if (!ragged)
-        slot[warp] = __popc(fired);
-      else if (fired != 0u)
-        atomicAdd(&counts[((t * rows + row) / kChunk) * kt + blockIdx.y],
-                  __popc(fired));
+      int64_t off = t0 * plane + at;
+      uint32_t* wq = words + t0 * wplane + row * kw + word;
+      int64_t trow = t0 * rows + row;   // the flattened row (ragged R)
+#pragma unroll
+      for (int g = 0; g < kGroup;
+           ++g, off += plane, wq += wplane, trow += rows) {
+        if (t0 + g >= t_steps) break;   // uniform over the grid
+        uint32_t nib = 0u;
+        if (lanes != 0 && kVec) {
+          uint32_t sp[4], vv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float r;
+            const float f = lif_step(v[i], __uint_as_float(in[g][i]), decay,
+                                     v_th, soft_reset, r);
+            sp[i] = __float_as_uint(f);
+            vv[i] = __float_as_uint(r);
+            if (f != 0.0f) nib |= 1u << i;
+          }
+          if (!kPacked) store16(s + off, sp);
+          if (kResidual) store16(vres + off, vv);
+        } else if (lanes != 0) {   // the scalar path: a lane at a time
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (i < lanes) {
+              float r;
+              const float f =
+                  lif_step(v[i], x[off + i], decay, v_th, soft_reset, r);
+              if (f != 0.0f) nib |= 1u << i;
+              if (!kPacked) s[off + i] = f;
+              if (kResidual) vres[off + i] = r;
+            }
+          }
+        }
+        if (kPacked) {
+          // Bit i of word w is lane 32w + i: thread j of the group holds
+          // bits 4j .. 4j + 3. Groups start at multiples of wg in a warp.
+          uint32_t w = nib << (4 * (slot % wg));
+          for (int o = 1; o < wg; o <<= 1)
+            w |= __shfl_xor_sync(0xffffffffu, w, o);
+          if (stores_word) *wq = w;
+        }
+        int c = __popc(nib);
+        if (kWhole) {
+          if (seg == 32) {
+            c = __reduce_add_sync(0xffffffffu, c);
+          } else {
+            for (int o = seg / 2; o > 0; o >>= 1)
+              c += __shfl_xor_sync(0xffffffffu, c, o);
+          }
+          if ((tid & (seg - 1)) == 0) part[parity][g][tid / seg] = c;
+        } else {
+          const long long cell =
+              row < rows ? (long long)(trow / kChunk * kt + tile) : -1ll;
+          const unsigned peers = __match_any_sync(0xffffffffu, cell);
+          c = __reduce_add_sync(peers, c);
+          if (cell >= 0 && c != 0 && (tid & 31) == __ffs(peers) - 1)
+            atomicAdd(counts + cell, c);
+        }
+      }
+      if (kWhole) {
+        __syncthreads();
+        const int64_t first = row0 + (int64_t)sum_ch * kChunk;
+        if (tid < kGroup * lay.chunks && t0 + sum_g < t_steps &&
+            first < rows) {
+          int c = 0;
+          for (int q = 0; q < segs; ++q)
+            c += part[parity][sum_g][sum_ch * segs + q];
+          counts[((t0 + sum_g) * rows + first) / kChunk * kt + tile] = c;
+        }
+      }
     }
-    if (ragged) continue;   // uniform over the grid: no barrier is skipped
-    __syncthreads();
-    // Safe with one barrier per step: the next step writes the other
-    // slot, and the step after that waits at its barrier for this read.
-    if (warp == 0) {
-      int c = slot[tid];
-      for (int d = 16; d > 0; d >>= 1)
-        c += __shfl_down_sync(0xffffffffu, c, d);
-      if (tid == 0)
-        counts[(t * chunks + chunk) * kt + blockIdx.y] = c;
+    rb += step_rb;
+    tile += step_tile;
+    if (tile >= kt) {
+      tile -= kt;
+      ++rb;
     }
   }
 }
@@ -332,20 +474,74 @@ int launch_lif(const E* x, E* s, float* vres, int64_t t_steps, int64_t p,
   return (int)cudaGetLastError();
 }
 
+template <bool kResidual, bool kPacked, bool kVec, bool kWhole>
+int counts_blocks_per_sm(int threads) {
+  static int cached[2] = {0, 0};   // 192 and 256 threads
+  int& n = cached[threads == kCountThreads];
+  if (n == 0 && cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &n, lif_counts_kernel<kResidual, kPacked, kVec, kWhole>,
+                    threads, 0) != cudaSuccess)
+    n = 1;
+  return n > 0 ? n : 1;
+}
+
+// The grid: every block an SM can hold, on every SM (one whole wave),
+// or one block an item where there are fewer items.
+template <bool kResidual, bool kPacked, bool kVec, bool kWhole>
+int64_t counts_grid(const CountsLayout& lay, int64_t rows) {
+  const int64_t block_rows = (int64_t)kChunk * lay.chunks;
+  const int64_t items = (rows + block_rows - 1) / block_rows * lay.kt;
+  const int64_t wave =
+      (int64_t)counts_blocks_per_sm<kResidual, kPacked, kVec, kWhole>(
+          lay.threads) * tile_mma::sm_count();
+  return items < wave ? items : wave;
+}
+
+template <bool kResidual, bool kPacked, bool kVec, bool kWhole>
+void launch_counts(const float* x, float* s, int* counts, float* vres,
+                   uint32_t* words, int64_t t_steps, int64_t rows,
+                   int64_t k, float decay, float v_th, int soft_reset,
+                   const CountsLayout& lay, cudaStream_t stream) {
+  lif_counts_kernel<kResidual, kPacked, kVec, kWhole>
+      <<<(unsigned)counts_grid<kResidual, kPacked, kVec, kWhole>(lay, rows),
+         lay.threads, 0, stream>>>(x, s, counts, vres, words, t_steps, rows,
+                                   k, decay, v_th, soft_reset != 0, lay);
+}
+
 template <bool kResidual, bool kPacked>
 int launch_lif_counts(const float* x, float* s, int* counts, float* vres,
                       uint32_t* words, int64_t t_steps, int64_t rows,
                       int64_t k, float decay, float v_th, int soft_reset,
                       void* stream) {
-  if (rows > 0 && k > 0) {
-    dim3 block(kLanes, kChunk);
-    dim3 grid((unsigned)((rows + kChunk - 1) / kChunk),
-              (unsigned)((k + kLanes - 1) / kLanes));
-    lif_counts_kernel<kResidual, kPacked>
-        <<<grid, block, 0, (cudaStream_t)stream>>>(
-            x, s, counts, vres, words, t_steps, rows, k, decay, v_th,
-            soft_reset != 0);
+  if (rows > 0 && k > 0 && t_steps > 0) {
+    const CountsLayout lay = counts_layout(k);
+    const bool vec = k % 4 == 0 && aligned16(x) &&
+                     (kPacked || aligned16(s)) &&
+                     (!kResidual || aligned16(vres));
+    const bool whole = rows % kChunk == 0;
+    (vec ? whole ? launch_counts<kResidual, kPacked, true, true>
+                 : launch_counts<kResidual, kPacked, true, false>
+         : whole ? launch_counts<kResidual, kPacked, false, true>
+                 : launch_counts<kResidual, kPacked, false, false>)(
+        x, s, counts, vres, words, t_steps, rows, k, decay, v_th, soft_reset,
+        lay, (cudaStream_t)stream);
   }
+  return (int)cudaGetLastError();
+}
+
+// out = {slots, chunks, threads, lane tiles, grid, SMs, blocks an SM}:
+// the launch (16-byte vectors, R % 8 == 0) of mode 0 (counts), 1
+// (packed) or 2 (counts + residual).
+template <bool kResidual, bool kPacked>
+int report_counts_launch(int64_t rows, int64_t k, int* out) {
+  const CountsLayout lay = counts_layout(k);
+  out[0] = lay.slots;
+  out[1] = lay.chunks;
+  out[2] = lay.threads;
+  out[3] = (int)lay.kt;
+  out[4] = (int)counts_grid<kResidual, kPacked, true, true>(lay, rows);
+  out[5] = tile_mma::sm_count();
+  out[6] = counts_blocks_per_sm<kResidual, kPacked, true, true>(lay.threads);
   return (int)cudaGetLastError();
 }
 
@@ -401,6 +597,18 @@ extern "C" int lif_counts_fwd_forward(const float* x, float* s, int* counts,
   return launch_lif_counts<true, false>(x, s, counts, vres, nullptr,
                                         t_steps, rows, k, decay, v_th,
                                         soft_reset, stream);
+}
+
+// The launch of `lif_counts_kernel` for R rows of K lanes: out = {slots,
+// chunks, threads, lane tiles, grid, SMs, blocks an SM} (7 ints); mode 0
+// is the counts mode, 1 the packed, 2 counts + residual.
+extern "C" int lif_counts_launch(int64_t rows, int64_t k, int mode,
+                                 int* out) {
+  switch (mode) {
+    case 1: return report_counts_launch<false, true>(rows, k, out);
+    case 2: return report_counts_launch<true, false>(rows, k, out);
+    default: return report_counts_launch<false, false>(rows, k, out);
+  }
 }
 
 extern "C" int lif_backward(const float* vres, const float* g, float* dx,

@@ -61,6 +61,7 @@ SIGNATURES = {
                                _P),
     "lif_counts_packed_forward": (_P, _P, _P, _I64, _I64, _I64, _F, _F, _I,
                                   _P),
+    "lif_counts_launch": (_I64, _I64, _I, _P),
     "lif_backward": (_P, _P, _P, _I64, _I64, _F, _F, _I, _F, _F, _P),
     "sdsa_or_forward": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
     "sdsa_causal_forward": (_P, _P, _I64, _I64, _I64, _P),

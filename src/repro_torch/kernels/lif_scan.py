@@ -21,6 +21,7 @@ pays nothing for differentiability.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -31,6 +32,9 @@ from . import _build
 
 CHUNK = 8      # row chunk of the count map
 LANES = 128    # lane tile of the count map
+WORD_VECS = 8          # 4-lane vectors a uint32 word (csrc/lif.cu kWordVecs)
+COUNT_THREADS = 256    # the most threads a counts block holds (kCountThreads)
+COUNTS_MODES = {"lif_counts": 0, "lif_counts_packed": 1, "lif_counts_fwd": 2}
 
 
 def chunk_counts(s: torch.Tensor) -> torch.Tensor:
@@ -42,6 +46,41 @@ def chunk_counts(s: torch.Tensor) -> torch.Tensor:
                                     0, (-s.shape[0]) % CHUNK))
     blocks = s.reshape(-1, CHUNK, s.shape[1] // LANES, LANES)
     return (blocks != 0).sum(dim=(1, 3), dtype=torch.int32)
+
+
+def counts_layout(k: int) -> dict:
+    """`csrc/lif.cu`'s `counts_layout` for K lanes: a thread owns one
+    4-lane vector of one row; `slots`, the threads a row takes in a lane
+    tile (the tile's vectors rounded up to whole 8-vector word groups
+    from 32 lanes on, to a power of two below); `chunks`, the 8-row
+    chunks a block holds; `threads` a block; `kt` lane tiles."""
+    v, tile_vecs = -(-k // 4), LANES // 4
+    if v >= tile_vecs:
+        slots = tile_vecs
+    elif v >= WORD_VECS:
+        slots = -(-v // WORD_VECS) * WORD_VECS
+    else:
+        slots = 1 << (v - 1).bit_length()
+    chunks = max(1, COUNT_THREADS // (CHUNK * slots))
+    return {"slots": slots, "chunks": chunks,
+            "threads": CHUNK * chunks * slots, "kt": -(-k // LANES)}
+
+
+def counts_launch(rows: int, k: int, name: str = "lif_counts") -> dict:
+    """The launch the counts kernel `name` makes for R rows of K lanes, as
+    its C library reports it: the layout, the grid (every block an SM
+    holds on every SM, or one block an item), its items, and the share of
+    a block's threads whose lanes all lie past K. Needs a card."""
+    got = (ctypes.c_int * 7)()
+    _build.check(_build.library().lif_counts_launch(
+        rows, k, COUNTS_MODES[name], got), "lif_counts_launch")
+    slots, chunks, threads, kt, grid, sms, per_sm = got
+    items = -(-rows // (CHUNK * chunks)) * kt
+    live = sum(min(slots, max(0, -(-(k - j * LANES) // 4)))
+               for j in range(kt))
+    return {"slots": slots, "chunks": chunks, "threads": threads, "kt": kt,
+            "grid": grid, "items": items, "sms": sms, "blocks_per_sm": per_sm,
+            "idle_lane_share": 1 - live / (kt * slots)}
 
 
 # ------------------------------------------------------ plain versions

@@ -94,6 +94,46 @@ def test_cuda_lif_counts_take_ragged_rows(cuda_device, shape):
             assert torch.equal(a, b)
 
 
+# The counts fires' drives at T = 4, B = 32 (SpikingFormer-4-384's stage
+# 1 and 0, SegNet-64's and VGG11's first convs, the FFN's fc1 fire), a
+# width K % 4 != 0, R = 12, and a drive one element into its storage.
+COUNTS_DRIVES = [((4, 32768, 96), 0), ((4, 32768, 48), 0),
+                 ((4, 131072, 8), 0), ((4, 32768, 64), 0),
+                 ((4, 2048, 1536), 0), ((4, 4096, 37), 0), ((4, 12, 96), 0),
+                 ((4, 12, 8), 0), ((4, 2048, 96), 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,offset", COUNTS_DRIVES)
+def test_cuda_counts_fires_at_the_model_drives(cuda_device, shape, offset):
+    """Rows 4, 5 and 6 bit for bit with their plain versions, the words
+    equal to row 4's spikes packed, and the launch the C library reports
+    equal to `lif_scan.counts_layout`."""
+    n = int(np.prod(shape))
+    buf = (torch.randn(n + offset, generator=torch.Generator().manual_seed(
+        shape[2])) * 0.6 + 0.2).to(cuda_device)
+    x = buf[offset:].view(shape)
+    kw = dict(decay=0.5, v_th=0.5)
+    for name in ("lif_counts", "lif_counts_fwd", "lif_counts_packed"):
+        got = getattr(lif_scan, name)(x, **kw)
+        want = getattr(lif_scan, name + "_plain")(x, **kw)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape
+            if a.dtype == torch.uint32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), name
+        launch = lif_scan.counts_launch(shape[1], shape[2], name)
+        layout = lif_scan.counts_layout(shape[2])
+        assert {k: launch[k] for k in layout} == layout
+        assert launch["grid"] <= launch["items"]
+        assert launch["grid"] in (launch["items"], launch["sms"] *
+                                  launch["blocks_per_sm"])
+    words, _ = lif_scan.lif_counts_packed(x, **kw)
+    s, _ = lif_scan.lif_counts(x, **kw)
+    assert torch.equal(words.view(torch.int32),
+                       pack_spikes_padded(s).view(torch.int32))
+
+
 @pytest.mark.cuda
 def test_cuda_sdsa_kernel_matches_plain(cuda_device):
     g = torch.Generator().manual_seed(1)

@@ -3,7 +3,8 @@
 in turns in one process, optionally against other builds of the kernel
 library.
 
-    python3 tools/stream_probe.py [NAME=CSRC_DIR ...]
+    python3 tools/stream_probe.py [--only=pred,csr,fires,counts]
+                                  [NAME=CSRC_DIR ...]
 
 Kernel 10 (the predicated spike matmul, csrc/spike_matmul.cu) at
 SegNet-64's tconv shapes, (131072x288)x(288x16) and (524288x144)x(144x2),
@@ -20,12 +21,16 @@ kernels 12, 13 and 14 equal bit for bit. The plain LIF fire
 32*1024*96) f32, plain and residual, and the LM's hidden drives (2,
 8*5632) and (2, 8*1024*5632) bf16: back-to-back calls (`ms`), the kernel
 alone in a CUDA graph (`device_ms`), the byte bound and a device copy of
-the same bytes (`Tensor.copy_`).
+the same bytes (`Tensor.copy_`). The counts fires (csrc/lif.cu
+`lif_counts_kernel`: rows 4, 6 and 5) at chip_smoke's FIRE_DRIVES, each
+with its launch, `device_ms`, the byte bound, a device copy moving as
+many bytes and a sum of the drive (`read_ms`, its bytes read once). `--only` runs the named probes alone.
 
 Each CSRC_DIR is another tree's `src/repro_torch/csrc` (an older commit
 unpacked with `git archive`, or a patched copy), built here with this
-checkout's flags; its kernels 12 and 14 and fires are timed in turns with
-this checkout's (this, other, other, this) and must give the same bits.
+checkout's flags; its kernels 12 and 14, fires and counts fires are timed
+in turns with this checkout's (this, other, other, this) and must give
+the same bits.
 Prints the card's name and power limit, the ptxas registers and spills
 of each fresh build's kernel-12/14 and fire instances, then one JSON line
 per case; exits nonzero on a mismatch."""
@@ -45,8 +50,14 @@ TCONV_SHAPES = (("tconv1", (131072, 288, 16)), ("tconv2", (524288, 144, 2)))
 
 ENTRIES = ("spike_matmul_csr_pipe_forward",
            "spike_matmul_packed_csr_pipe_forward", "lif_forward",
-           "lif_bf16_forward", "lif_fwd_forward")
-PTXAS_KERNELS = ("csr_pipe_kernel", "lif_kernel")
+           "lif_bf16_forward", "lif_fwd_forward", "lif_counts_forward",
+           "lif_counts_packed_forward", "lif_counts_fwd_forward")
+PTXAS_KERNELS = ("csr_pipe_kernel", "lif_kernel", "lif_counts_kernel")
+# The counts fires (rows 4, 6 and 5): C entry -> wrapper name.
+COUNTS_ENTRIES = (("lif_counts_forward", "lif_counts"),
+                  ("lif_counts_packed_forward", "lif_counts_packed"),
+                  ("lif_counts_fwd_forward", "lif_counts_fwd"))
+PROBES = ("pred", "csr", "fires", "counts")
 LIF_KW = dict(decay=0.5, v_th=1.0, soft_reset=1)
 
 
@@ -114,6 +125,78 @@ def fire_call(lib, entry, x, s, vres=None):
                                      LIF_KW["v_th"], LIF_KW["soft_reset"],
                                      _build.stream()), entry)
     return (s,) if vres is None else (s, vres)
+
+
+def counts_outputs(torch, name, x):
+    """The buffers a counts fire writes for the (T, R, K) drive x."""
+    t, r, k = x.shape
+    out = {"counts": torch.zeros((-(-t * r // 8), -(-k // 128)),
+                                 dtype=torch.int32, device=x.device)}
+    if name == "lif_counts_packed":
+        out["words"] = torch.empty((t, r, -(-k // 32)), dtype=torch.int32,
+                                   device=x.device)
+    else:
+        out["s"] = torch.empty_like(x)
+    if name == "lif_counts_fwd":
+        out["vres"] = torch.empty_like(x)
+    return out
+
+
+def counts_call(lib, entry, x, out):
+    """One launch of a counts fire into `out`; a ragged R zeroes the map
+    first, as the wrapper does (the kernel adds into it)."""
+    from repro_torch.kernels import _build
+    t, r, k = x.shape
+    if r % 8:
+        out["counts"].zero_()
+    ptrs = [x.data_ptr()]
+    ptrs += [out["words" if "words" in out else "s"].data_ptr(),
+             out["counts"].data_ptr()]
+    if "vres" in out:
+        ptrs.append(out["vres"].data_ptr())
+    _build.check(getattr(lib, entry)(*ptrs, t, r, k, LIF_KW["decay"],
+                                     LIF_KW["v_th"], LIF_KW["soft_reset"],
+                                     _build.stream()), entry)
+    return tuple(out.values())
+
+
+def probe_counts(torch, device, this, others):
+    """Rows 4, 6 and 5 at chip_smoke's FIRE_DRIVES: this build's kernel
+    (`ms`, `device_ms` in a CUDA graph), each other build's in turns, a
+    device copy of as many bytes (`copy_ms`) and the byte bound; every
+    build's outputs must be the same bits."""
+    from repro_torch.kernels import lif_scan
+    dgen = torch.Generator(device=device).manual_seed(cs.SEED)
+    ok = True
+    for label, shape in cs.FIRE_DRIVES:
+        x = cs.fire_drive(torch, label, shape, dgen, device)
+        for entry, name in COUNTS_ENTRIES:
+            outs = {b: counts_outputs(torch, name, x)
+                    for b in ("this", *others)}
+            run = {b: functools.partial(counts_call, lib, entry, x, outs[b])
+                   for b, lib in (("this", this), *others.items())}
+            n_bytes = x.numel() * 4 + sum(
+                t.numel() * t.element_size() for t in outs["this"].values())
+            half = torch.empty(n_bytes // 8, device=device)
+            dst = torch.empty_like(half)
+            rec = {"kernel": entry, "case": label, "shape": list(shape),
+                   "ms": cs.cuda_ms(torch, run["this"]),
+                   "device_ms": cs.graph_ms(torch, run["this"]),
+                   "copy_ms": cs.cuda_ms(torch, functools.partial(
+                       dst.copy_, half)),
+                   "read_ms": cs.cuda_ms(torch, x.sum),
+                   "bound_ms": n_bytes / cs.HBM_BYTES_PER_S * 1e3,
+                   "launch": lif_scan.counts_launch(shape[1], shape[2],
+                                                    name)}
+            for b in others:
+                a, o = cs.turns_ms(torch, run["this"], run[b])
+                same = all(torch.equal(p, q) for p, q in zip(
+                    run["this"](), run[b]()))
+                rec[b] = {"ms": o, "this_ms": a, "equal": same}
+                ok &= same
+            rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+            print(json.dumps(rec), flush=True)
+    return ok
 
 
 def probe_pred(torch, gen, device):
@@ -244,8 +327,11 @@ def main(argv) -> int:
     cs.phase_device(torch)
     this = _build.library()
     logs = {"this": _build.BUILD_INFO.get("log", "")}
-    others = {}
+    others, only = {}, PROBES
     for arg in argv:
+        if arg.startswith("--only="):
+            only = tuple(arg[len("--only="):].split(","))
+            continue
         name, _, path = arg.partition("=")
         others[name], logs[name] = load_other(Path(path).resolve())
     for name, log in logs.items():
@@ -254,9 +340,15 @@ def main(argv) -> int:
                               "registers": regs, "spill_stores": st,
                               "spill_loads": ld}), flush=True)
     gen = torch.Generator().manual_seed(cs.SEED)
-    ok = probe_pred(torch, gen, device)
-    ok &= probe_csr(torch, gen, device, this, others)
-    ok &= probe_fires(torch, device, this, others)
+    ok = True
+    if "pred" in only:
+        ok &= probe_pred(torch, gen, device)
+    if "csr" in only:
+        ok &= probe_csr(torch, gen, device, this, others)
+    if "fires" in only:
+        ok &= probe_fires(torch, device, this, others)
+    if "counts" in only:
+        ok &= probe_counts(torch, device, this, others)
     return 0 if ok else 1
 
 
