@@ -11,7 +11,11 @@ Phases, each printed on its own line:
       counts fires (rows 4 and 5, `lif_counts` and `lif_counts_fwd`)
       bit for bit at every drive of FIRE_DRIVES (the models' widths,
       K = 37, an unaligned drive, R = 12), each with its launch from the
-      C library; packed SDSA bit for bit; the CSR matmuls at SpikingFormer-4-384's stage-1
+      C library; SDSA (rows 7-8) bit for bit: the word entry
+      `sdsa_packed` at (1024, 64, 2) words and the spike entry
+      `sdsa_or_spikes` on SpikingFormer's (4, 32, 8, 64, 48) head views,
+      each with `ms`, `device_ms` (a CUDA graph) and plain times; the CSR
+      matmuls at SpikingFormer-4-384's stage-1
       patch matmul (131072x432)x(432x96), FFN fc1 (8192x384)x(384x1536)
       and fc2 (8192x1536)x(1536x384) on data with 50% occupied tiles: the
       serial kernels 11 (f32) and 13 (words) and the pipelined kernels 12
@@ -125,8 +129,10 @@ Phases, each printed on its own line:
       weights from seed 0): (k1) the causal-status kernel (TPU row 9) at
       (BH, N, dw) = (256, 1024, 2), (32, 32768, 2) and a ragged N=1000,
       on kv bits at 1/(4N) so the status still changes in the last chunks
-      (checked), and the bf16 LIF fire at the decode and prefill drives, each bit for
-      bit against its plain version, with kernel, plain, library
+      (checked), the spike entry `causal_sdsa_spikes` on one prefill
+      layer's (2, 8, 32, 1024, 64) bf16 head views, and the bf16 LIF fire
+      at the decode and prefill drives, each bit for bit against its
+      plain version, with kernel (`ms`, `device_ms`), plain, library
       (`torch.cummax` for the status) and bound times; (k2) `prefill` of
       8 `markov_tokens` prompts of 1024 tokens under
       `torch.inference_mode()`, on the kernels and on `ref`: finite
@@ -567,6 +573,38 @@ def phase_lif(torch, gen, device, results):
     emit("kernel", name="lif", **results["lif"])
 
 
+def head_spikes(torch, gen, shape, p, dtype, device):
+    """(T, B, N, H, dh) spikes at rate p -> the models' head-transposed
+    (T, B, H, N, dh) view (`models/spikingformer.py`, `transformer.py`)."""
+    s = torch.rand(shape, generator=gen, device=gen.device) < p
+    return s.to(dtype).to(device).transpose(2, 3)
+
+
+def sdsa_spike_case(torch, name, label, fn, plain, args, library=None):
+    """One SDSA spike entry (`sdsa_or_spikes` or `causal_sdsa_spikes`) on
+    the models' views, bit for bit against its plain version and laid out
+    like q: -> the `kernel` line's record (back-to-back wrapper calls
+    `ms`, the calls alone in a CUDA graph `device_ms`, plain, library and
+    byte-bound times)."""
+    got, want = fn(*args), plain(*args)
+    torch.cuda.synchronize()
+    check(got.stride() == args[0].stride() and got.dtype == args[0].dtype,
+          f"{name} output is not laid out like q ({label})")
+    check(torch.equal(got, want),
+          f"{name} kernel disagrees with its plain version ({label}, "
+          f"{int((got != want).sum().item())} elements)")
+    b_ms, by = bound_ms(4 * got.numel() * got.element_size())
+    rec = dict(max_abs_err=0.0, ms=cuda_ms(torch, lambda: fn(*args)),
+               device_ms=graph_ms(torch, lambda: fn(*args)),
+               plain_ms=cuda_ms(torch, lambda: plain(*args), reps=5),
+               bound_ms=b_ms, bound_by=by,
+               library_ms=None if library is None else cuda_ms(torch,
+                                                               library),
+               shape=list(args[0].shape), dtype=str(args[0].dtype))
+    emit("kernel", name=name, case=label, entry=fn.__name__, **rec)
+    return rec
+
+
 def phase_sdsa(torch, gen, device, results):
     from repro_torch.core.spikes import pack_spikes
     from repro_torch.kernels import sdsa_kernel
@@ -583,13 +621,21 @@ def phase_sdsa(torch, gen, device, results):
     check(torch.equal(out.view(torch.int32), ref.view(torch.int32)),
           "sdsa kernel disagrees with its plain version")
     b_ms, by = bound_ms(4 * q.numel() * 4)
-    results["sdsa_or"] = dict(
-        max_abs_err=0.0, ms=cuda_ms(torch, lambda: sdsa_kernel.sdsa_packed(
-            q, k, v)),
-        plain_ms=cuda_ms(torch, lambda: sdsa_kernel.sdsa_packed_plain(
-            q, k, v), reps=5),
-        bound_ms=b_ms, bound_by=by, library_ms=None, shape=list(q.shape))
-    emit("kernel", name="sdsa_or", **results["sdsa_or"])
+    emit("kernel", name="sdsa_or", case="words", entry="sdsa_packed",
+         max_abs_err=0.0,
+         ms=cuda_ms(torch, lambda: sdsa_kernel.sdsa_packed(q, k, v)),
+         device_ms=graph_ms(torch, lambda: sdsa_kernel.sdsa_packed(q, k, v)),
+         plain_ms=cuda_ms(torch, lambda: sdsa_kernel.sdsa_packed_plain(
+             q, k, v), reps=5),
+         bound_ms=b_ms, bound_by=by, library_ms=None, shape=list(q.shape))
+    # The main path's call: SpikingFormer-4-384's SSA, (T, B, H, N, dh)
+    # views of its q, k, v fires (f32).
+    sgen = torch.Generator(device=device).manual_seed(SEED)
+    qkv = [head_spikes(torch, sgen, (T, B, n, HEADS, d), 0.3, torch.float32,
+                       device) for _ in range(3)]
+    results["sdsa_or"] = sdsa_spike_case(
+        torch, "sdsa_or", "spikingformer", sdsa_kernel.sdsa_or_spikes,
+        sdsa_kernel.sdsa_or_spikes_plain, qkv)
 
 
 def csr_work(torch, occ, m, k, n, occ_ov=None, g=1, spike_bytes=4.0):
@@ -2302,6 +2348,8 @@ def phase_lm_kernels(torch, device, results):
         rec = dict(max_abs_err=0.0,
                    ms=cuda_ms(torch, lambda: sdsa_kernel.sdsa_causal_status(
                        kv)),
+                   device_ms=graph_ms(torch, lambda: sdsa_kernel
+                                      .sdsa_causal_status(kv)),
                    plain_ms=cuda_ms(torch, lambda: sdsa_kernel
                                     .sdsa_causal_status_plain(kv), reps=5),
                    bound_ms=b_ms, bound_by=by,
@@ -2309,11 +2357,27 @@ def phase_lm_kernels(torch, device, results):
                                                                   dim=1)),
                    shape=[bh, n, dw])
         emit("kernel", name="sdsa_causal", case=label,
+             entry="sdsa_causal_status",
              ones_share=bits.float().mean().item(),
              status_ones_share=unpack_spikes(want).mean().item(),
              late_turn_ons=int(late.sum().item()), **rec)
-        if label == "prefill_b8_n1024":
-            results["sdsa_causal"] = rec
+    # The main path's call: one LM layer's causal SDSA in prefill, (T, B,
+    # H, N, dh) views of its bf16 q, k, v fires; kv at 1/(4N) a channel
+    # and token, so the status still turns on in the last chunks
+    # (checked); library: torch.cummax of the folded kv over the tokens.
+    sgen = torch.Generator(device=device).manual_seed(SEED + 1)
+    shape = (2, LM_BATCH, LM_PROMPT, 32, 64)
+    q = head_spikes(torch, sgen, shape, 0.2, torch.bfloat16, device)
+    k, v = (head_spikes(torch, sgen, shape, (1 / (8 * LM_PROMPT)) ** 0.5,
+                        torch.bfloat16, device) for _ in range(2))
+    kv = ((k != 0) & (v != 0)).any(0).to(torch.bfloat16)
+    seen = kv.to(torch.uint8).cummax(-2).values
+    check(bool((seen[..., -1, :] > seen[..., LM_PROMPT // 2, :]).any()),
+          "causal spike check saturates: it cannot tell a carry fault")
+    results["sdsa_causal"] = sdsa_spike_case(
+        torch, "sdsa_causal", "lm_prefill", sdsa_kernel.causal_sdsa_spikes,
+        sdsa_kernel.causal_sdsa_spikes_plain, (q, k, v),
+        library=lambda: torch.cummax(kv, dim=-2))
     kw = dict(decay=0.5, v_th=1.0, soft_reset=True)
     for label, p in (("decode_hidden", LM_BATCH * 5632),
                      ("prefill_hidden", LM_BATCH * LM_PROMPT * 5632)):

@@ -42,7 +42,7 @@ def sdsa_jnp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def sdsa(q, k, v, mode: str = "or") -> torch.Tensor:
     """Full SDSA routed through the backend registry: the dense oracle on
-    CPU tensors, the packed CUDA kernel on CUDA tensors."""
+    CPU tensors, the SDSA kernel on CUDA tensors."""
     from repro_torch.kernels import dispatch
     return dispatch.sdsa(q, k, v, mode=mode)
 

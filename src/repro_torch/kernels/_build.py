@@ -63,8 +63,9 @@ SIGNATURES = {
                                   _P),
     "lif_counts_launch": (_I64, _I64, _I, _P),
     "lif_backward": (_P, _P, _P, _I64, _I64, _F, _F, _I, _F, _F, _P),
-    "sdsa_or_forward": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
-    "sdsa_causal_forward": (_P, _P, _I64, _I64, _I64, _P),
+    "sdsa_or_strided_forward": (_P, _P, _P, _P, _P, _P),
+    "sdsa_causal_strided_forward": (_P, _P, _P, _P, _P, _P, _P),
+    "sdsa_capture_id": (_P, _P),
     "spike_matmul_csr_forward": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                                  _I64, _P),
     "spike_matmul_packed_csr_forward": (_P, _P, _P, _P, _P, _P, _I64, _I64,

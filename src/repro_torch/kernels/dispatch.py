@@ -17,10 +17,13 @@ manual routes (`auto=False`, reached only by an override):
                 cuda-packed  csrc/spike_matmul_csr.cu's word kernel
                              (packed payload)
                 cuda-pred    csrc/spike_matmul.cu, predicated (manual)
-  sdsa          cuda         csrc/sdsa.cu on packed words (mode="or")
-  causal_sdsa   cuda         word T-fold + csrc/sdsa_causal.cu's prefix-OR
-                             + word Q AND (mode="or")
-                jnp          the same word ops in plain PyTorch (manual)
+  sdsa          cuda         csrc/sdsa.cu on the spikes as they lie, one
+                             launch (mode="or")
+  causal_sdsa   cuda         csrc/sdsa_causal.cu on the spikes as they
+                             lie: T-fold, prefix-OR and Q AND in one
+                             launch (mode="or")
+                jnp          word T-fold, prefix-OR and Q AND in plain
+                             PyTorch (manual)
   econv         cuda-pipe    im2col + csrc/spike_matmul_csr_pipe.cu
                 cuda-packed-pipe  word-domain im2col + its word kernel
                              (packed payload)

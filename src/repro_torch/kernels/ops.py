@@ -93,8 +93,19 @@ def _packed_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
 
 
 def sdsa_or(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """OR-form SDSA on dense binary (..., N, d) tensors; bit-packed inside
-    and run through the packed kernel."""
+    """OR-form SDSA on dense binary (..., N, d) tensors. On the card one
+    launch reads the spikes where they lie (`sdsa_or_spikes`); on the CPU
+    they are bit-packed and run through the word entry's plain version."""
+    if q.is_cuda:
+        return sdsa_kernel.sdsa_or_spikes(q, k, v)
+    return sdsa_or_words(q, k, v, sdsa_kernel.sdsa_packed)
+
+
+def sdsa_or_words(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  kernel) -> torch.Tensor:
+    """OR-form SDSA on dense binary (..., N, d) tensors through uint32
+    words: pack, pad N to the TPU kernel's block, `kernel` ((BH, N, dw)
+    words x3 -> Q AND status words), unpack."""
     lead = q.shape[:-2]
     n, d = q.shape[-2:]
     block_n = min(256, n + (-n) % 8)
@@ -102,7 +113,7 @@ def sdsa_or(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     def prep(x):
         return _pad_to(_packed_heads(x, n, d), 1, block_n)[0].contiguous()
 
-    out_p = sdsa_kernel.sdsa_packed(prep(q), prep(k), prep(v))
+    out_p = kernel(prep(q), prep(k), prep(v))
     out = unpack_spikes(out_p, axis=-1, dtype=q.dtype)[:, :n, :d]
     return out.reshape(lead + (n, d))
 
@@ -131,9 +142,13 @@ def causal_sdsa_or(q: torch.Tensor, k: torch.Tensor,
                    v: torch.Tensor) -> torch.Tensor:
     """Causal (LM) OR-form SDSA on dense binary (T, ..., N, d) tensors:
     status[i] = OR over micro-steps and tokens j <= i of K AND V,
-    out[t, i] = Q[t, i] AND status[i]. The prefix-OR over tokens runs in
-    the causal-status kernel (any N, no padding); the T-fold and the Q
-    AND are word ops around it."""
+    out[t, i] = Q[t, i] AND status[i]. On the card one launch of the
+    causal kernel reads the spikes where they lie (`causal_sdsa_spikes`:
+    T-fold, prefix-OR over tokens and the Q AND, any N); on the CPU the
+    words route runs around the causal-status word entry's plain
+    version."""
+    if q.is_cuda:
+        return sdsa_kernel.causal_sdsa_spikes(q, k, v)
     return causal_sdsa_words(q, k, v, sdsa_kernel.sdsa_causal_status)
 
 

@@ -815,3 +815,109 @@ def test_cuda_causal_sdsa_route_launches_the_kernel(cuda_device):
     with dispatch.use_backend("ref"):
         want = dispatch.causal_sdsa(q, k, v)
     assert torch.equal(got, want)
+
+
+# ---------------------------------- the SDSA spike entries (TPU rows 7-9)
+def _head_view(g, shape, p, dtype, device, offset=0):
+    """(T, B, N, H, dh) spikes at rate p -> the models' (T, B, H, N, dh)
+    view; `offset` elements into its storage (the scalar path)."""
+    n = int(np.prod(shape))
+    flat = torch.zeros(offset + n, dtype=dtype)
+    flat[offset:] = (torch.rand(n, generator=g) < p).to(dtype)
+    return flat.to(device)[offset:].view(shape).transpose(2, 3)
+
+
+# (name, (T, B, N, H, dh), dtype, kv rate, offset): SpikingFormer-4-384's
+# SSA, the LM's prefill, a ragged N, the 32k row, the scalar path.
+SPIKE_CASES = [
+    ("spikingformer", (4, 32, 64, 8, 48), torch.float32, 0.3, 0),
+    ("lm_prefill", (2, 8, 1024, 32, 64), torch.bfloat16, 1 / 4096, 0),
+    ("ragged_n1000", (2, 2, 1000, 32, 64), torch.bfloat16, 1 / 4000, 0),
+    ("n32768", (2, 1, 32768, 32, 64), torch.bfloat16, 1 / 131072, 0),
+    ("f32_lm", (2, 2, 777, 4, 64), torch.float32, 1 / 3000, 0),
+    ("unaligned", (2, 2, 300, 3, 40), torch.bfloat16, 1 / 1200, 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape,dtype,p,offset", SPIKE_CASES)
+def test_cuda_sdsa_spike_entries_match_plain(cuda_device, name, shape,
+                                             dtype, p, offset):
+    """Both spike entries on the models' head-transposed views equal their
+    plain versions bit for bit; kv at a low rate, so the causal status
+    still changes in the last chunks (checked) and the look-back's carry
+    across every chunk is held. The outputs keep q's layout."""
+    g = torch.Generator().manual_seed(len(name))
+    q = _head_view(g, shape, 0.3, dtype, cuda_device, offset)
+    k, v = (_head_view(g, shape, p ** 0.5, dtype, cuda_device, offset)
+            for _ in range(2))
+    reset_launch_counts()
+    got = sdsa_kernel.causal_sdsa_spikes(q, k, v)
+    assert launch_counts()["sdsa_causal"] == 1
+    want = sdsa_kernel.causal_sdsa_spikes_plain(q, k, v)
+    status = ((k != 0) & (v != 0)).any(0).to(torch.uint8).cummax(-2).values
+    assert shape[2] < 512 or bool(
+        (status[..., -1, :] > status[..., shape[2] // 2, :]).any())
+    assert got.stride() == q.stride() and got.dtype == dtype
+    assert torch.equal(got, want)
+    got = sdsa_kernel.sdsa_or_spikes(q, k, v)
+    assert launch_counts()["sdsa_or"] == 1
+    assert got.stride() == q.stride()
+    assert torch.equal(got, sdsa_kernel.sdsa_or_spikes_plain(q, k, v))
+
+
+@pytest.mark.cuda
+def test_cuda_sdsa_entries_refuse_what_the_kernels_cannot_take(cuda_device):
+    x = torch.zeros(2, 3, 8, 40, device=cuda_device)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        sdsa_kernel.sdsa_or_spikes(x, x, x.bfloat16())
+    with pytest.raises(ValueError, match="unit-stride channel"):
+        y = x.transpose(2, 3)
+        sdsa_kernel.causal_sdsa_spikes(y, y, y)
+    with pytest.raises(RuntimeError, match="autograd"):
+        z = x.clone().requires_grad_()
+        sdsa_kernel.sdsa_or_spikes(z, z, z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,shape,dtype", [
+    ("sdsa", (4, 32, 64, 8, 48), torch.float32),
+    ("causal_sdsa", (2, 8, 1024, 32, 64), torch.bfloat16),
+    ("causal_sdsa", (2, 2, 333, 32, 64), torch.float32)])
+def test_cuda_sdsa_route_is_one_launch_and_no_packing(cuda_device,
+                                                      monkeypatch, op,
+                                                      shape, dtype):
+    """`dispatch.sdsa` / `dispatch.causal_sdsa` on the card: one kernel
+    launch a call, no `pack_spikes`, `pack_spikes_padded` or
+    `unpack_spikes` call, and the registry's `ref` on the same inputs."""
+    from repro_torch.core import spikes as core_spikes
+    calls = []
+
+    def counted(name, fn):
+        def wrap(*a, **kw):
+            calls.append(name)
+            return fn(*a, **kw)
+        return wrap
+
+    for mod in (core_spikes, ops):
+        for name in ("pack_spikes", "pack_spikes_padded", "unpack_spikes"):
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name,
+                                    counted(name, getattr(mod, name)))
+    g = torch.Generator().manual_seed(len(shape))
+    q, k, v = (_head_view(g, shape, 0.2, dtype, cuda_device)
+               for _ in range(3))
+    if op == "sdsa":
+        q = q.flatten(0, 1)          # (T*B, H, N, dh): the folded SSA call
+        k, v = k.flatten(0, 1), v.flatten(0, 1)
+    assert dispatch.resolve_attribution(op, q, k, v) == "cuda"
+    reset_launch_counts()
+    with torch.inference_mode():
+        got = getattr(dispatch, op)(q, k, v)
+    counts = launch_counts()
+    kernel = "sdsa_or" if op == "sdsa" else "sdsa_causal"
+    assert counts[kernel] == 1 and sum(counts.values()) == 1
+    assert calls == []
+    with dispatch.use_backend("ref"):
+        want = getattr(dispatch, op)(q, k, v)
+    assert torch.equal(got, want)

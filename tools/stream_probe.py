@@ -3,7 +3,7 @@
 in turns in one process, optionally against other builds of the kernel
 library.
 
-    python3 tools/stream_probe.py [--only=pred,csr,fires,counts]
+    python3 tools/stream_probe.py [--only=pred,csr,fires,counts,sdsa]
                                   [NAME=CSRC_DIR ...]
 
 Kernel 10 (the predicated spike matmul, csrc/spike_matmul.cu) at
@@ -24,13 +24,19 @@ alone in a CUDA graph (`device_ms`), the byte bound and a device copy of
 the same bytes (`Tensor.copy_`). The counts fires (csrc/lif.cu
 `lif_counts_kernel`: rows 4, 6 and 5) at chip_smoke's FIRE_DRIVES, each
 with its launch, `device_ms`, the byte bound, a device copy moving as
-many bytes and a sum of the drive (`read_ms`, its bytes read once). `--only` runs the named probes alone.
+many bytes and a sum of the drive (`read_ms`, its bytes read once). The
+SDSA kernels (csrc/sdsa.cu, csrc/sdsa_causal.cu: rows 7-8 and 9) at
+chip_smoke's shapes, their word entries and their spike entries on the
+models' head views, each with `device_ms`, the plain version, a device
+copy of the same bytes and (row 9) `torch.cummax`; an older build's
+spike ops run the word route around its word kernels (pack, pad, kernel,
+unpack), as its registry did. `--only` runs the named probes alone.
 
 Each CSRC_DIR is another tree's `src/repro_torch/csrc` (an older commit
 unpacked with `git archive`, or a patched copy), built here with this
-checkout's flags; its kernels 12 and 14, fires and counts fires are timed
-in turns with this checkout's (this, other, other, this) and must give
-the same bits.
+checkout's flags; its kernels 12 and 14, fires, counts fires and SDSA
+entries are timed in turns with this checkout's (this, other, other,
+this) and must give the same bits.
 Prints the card's name and power limit, the ptxas registers and spills
 of each fresh build's kernel-12/14 and fire instances, then one JSON line
 per case; exits nonzero on a mismatch."""
@@ -52,12 +58,22 @@ ENTRIES = ("spike_matmul_csr_pipe_forward",
            "spike_matmul_packed_csr_pipe_forward", "lif_forward",
            "lif_bf16_forward", "lif_fwd_forward", "lif_counts_forward",
            "lif_counts_packed_forward", "lif_counts_fwd_forward")
-PTXAS_KERNELS = ("csr_pipe_kernel", "lif_kernel", "lif_counts_kernel")
+PTXAS_KERNELS = ("csr_pipe_kernel", "lif_kernel", "lif_counts_kernel",
+                 "sdsa_or_kernel", "sdsa_causal_kernel")
 # The counts fires (rows 4, 6 and 5): C entry -> wrapper name.
 COUNTS_ENTRIES = (("lif_counts_forward", "lif_counts"),
                   ("lif_counts_packed_forward", "lif_counts_packed"),
                   ("lif_counts_fwd_forward", "lif_counts_fwd"))
-PROBES = ("pred", "csr", "fires", "counts")
+PROBES = ("pred", "csr", "fires", "counts", "sdsa")
+# The SDSA kernels' word entries before they read spikes (an older build):
+# C entry -> argument types.
+OLD_SDSA_SIGNATURES = {
+    "sdsa_or_forward": (ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 3 +
+    (ctypes.c_void_p,),
+    "sdsa_causal_forward": (ctypes.c_void_p,) * 2 + (ctypes.c_int64,) * 3 +
+    (ctypes.c_void_p,)}
+NEW_SDSA_ENTRIES = ("sdsa_or_strided_forward", "sdsa_causal_strided_forward",
+                    "sdsa_capture_id")
 LIF_KW = dict(decay=0.5, v_th=1.0, soft_reset=1)
 
 
@@ -86,9 +102,12 @@ def ptxas_summary(log: str) -> list:
 def load_other(csrc: Path):
     from repro_torch.kernels import _build
     lib = ctypes.CDLL(str(_build.build(csrc=csrc)))
-    for name in ENTRIES:
+    sdsa = NEW_SDSA_ENTRIES if hasattr(lib, NEW_SDSA_ENTRIES[0]) else \
+        tuple(OLD_SDSA_SIGNATURES)
+    for name in ENTRIES + sdsa:
         fn = getattr(lib, name)
-        fn.argtypes = list(_build.SIGNATURES[name])
+        fn.argtypes = list(_build.SIGNATURES.get(name) or
+                           OLD_SDSA_SIGNATURES[name])
         fn.restype = ctypes.c_int
     return lib, _build.BUILD_INFO.get("log", "")
 
@@ -316,6 +335,133 @@ def probe_fires(torch, device, this, others):
     return ok
 
 
+def sdsa_entries(torch, lib):
+    """(word OR, word causal status, spike OR, spike causal) callables of
+    one build: this tree's entries on `lib`; for a build from before the
+    spike entries, its word kernels and, for the spike ops, the word route
+    around them (pack, pad, kernel, unpack: `ops.sdsa_or_words`,
+    `ops.causal_sdsa_words`), as that tree's registry ran them."""
+    from repro_torch.kernels import _build, ops, sdsa_kernel as sk
+    if lib is _build.library():       # this tree: its wrappers as called
+        return (sk.sdsa_packed, sk.sdsa_causal_status, sk.sdsa_or_spikes,
+                sk.causal_sdsa_spikes)
+    if hasattr(lib, NEW_SDSA_ENTRIES[0]):
+        def w_or(q, k, v):
+            return sk._launch(False, q, k, v, torch.empty_like(q), lib=lib)
+
+        def w_causal(kv):
+            return sk._launch(True, kv, kv, kv, torch.empty_like(kv),
+                              words=True, lib=lib)
+
+        def s_causal(q, k, v):
+            return sk._launch(True, q, k, v, torch.empty_like(q), lib=lib)
+        return w_or, w_causal, w_or, s_causal
+
+    def w_or(q, k, v):
+        out = torch.empty_like(q)
+        _build.check(lib.sdsa_or_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *q.shape, _build.stream()), "sdsa_or")
+        return out
+
+    def w_causal(kv):
+        out = torch.empty_like(kv)
+        _build.check(lib.sdsa_causal_forward(
+            kv.data_ptr(), out.data_ptr(), *kv.shape, _build.stream()),
+            "sdsa_causal")
+        return out
+    return (w_or, w_causal,
+            lambda q, k, v: ops.sdsa_or_words(q, k, v, w_or),
+            lambda q, k, v: ops.causal_sdsa_words(q, k, v, w_causal))
+
+
+def probe_sdsa(torch, device, this, others):
+    """The SDSA kernels at chip_smoke's shapes: the word entries (row 7-8
+    at (1024, 64, 2); row 9 at (256, 1024, 2), (32, 32768, 2), (256, 1000,
+    2)) and the spike entries on the models' head views (SpikingFormer's
+    (4, 32, 8, 64, 48) f32; one LM prefill layer's (2, 8, 32, 1024, 64)
+    bf16 and its 32k row (2, 1, 32, 32768, 64)): `ms` (back-to-back
+    calls), `device_ms` (a CUDA graph), the plain version, the byte bound,
+    a device copy of the same bytes (`copy_ms`), for row 9
+    `torch.cummax`; each other build in turns (this, other, other, this),
+    the same bits."""
+    from repro_torch.core.spikes import pack_spikes, unpack_spikes
+    from repro_torch.kernels import sdsa_kernel as sk
+    dgen = torch.Generator(device=device).manual_seed(cs.SEED)
+    libs = {"this": this, **others}
+    entries = {name: sdsa_entries(torch, lib) for name, lib in libs.items()}
+
+    def words(shape, p):
+        bits = torch.rand(shape[:-1] + (32 * shape[-1],), generator=dgen,
+                          device=device) < p
+        return pack_spikes(bits).contiguous()
+
+    def heads(shape, p, dtype):
+        return cs.head_spikes(torch, dgen, shape, p, dtype, device)
+
+    cases = [("word_or", "spikingformer", 0,
+              [words((1024, 64, 2), 0.3) for _ in range(3)],
+              sk.sdsa_packed_plain, None)]
+    for label, shape in (("prefill_b8_n1024", (256, 1024, 2)),
+                         ("prefill_32k_b1", (32, 32768, 2)),
+                         ("ragged_n1000", (256, 1000, 2))):
+        kv = words(shape, 1 / (4 * shape[1]))
+        dense = unpack_spikes(kv, dtype=torch.bfloat16)
+        cases.append(("word_causal", label, 1, [kv],
+                      sk.sdsa_causal_status_plain,
+                      functools.partial(torch.cummax, dense, dim=1)))
+    cases.append(("spike_or", "spikingformer", 2,
+                  [heads((cs.T, cs.B, 64, cs.HEADS, cs.DIM // cs.HEADS),
+                         0.3, torch.float32) for _ in range(3)],
+                  sk.sdsa_or_spikes_plain, None))
+    for label, shape in (("lm_prefill", (2, cs.LM_BATCH, cs.LM_PROMPT, 32,
+                                         64)),
+                         ("lm_32k_b1", (2, 1, 32768, 32, 64))):
+        p = (1 / (8 * shape[2])) ** 0.5
+        q, k, v = heads(shape, 0.2, torch.bfloat16), \
+            heads(shape, p, torch.bfloat16), heads(shape, p, torch.bfloat16)
+        kv = ((k != 0) & (v != 0)).any(0).to(torch.bfloat16)
+        cases.append(("spike_causal", label, 3, [q, k, v],
+                      sk.causal_sdsa_spikes_plain,
+                      functools.partial(torch.cummax, kv, dim=-2)))
+    ok = True
+    for kind, label, slot, args, plain, library in cases:
+        run = {name: functools.partial(e[slot], *args)
+               for name, e in entries.items()}
+        got = run["this"]()
+        same = torch.equal(got.view(torch.int32) if got.dtype ==
+                           torch.uint32 else got,
+                           plain(*args).view(torch.int32) if got.dtype ==
+                           torch.uint32 else plain(*args))
+        ok &= same
+        n_bytes = sum(a.numel() * a.element_size() for a in args) + \
+            got.numel() * got.element_size()
+        half = torch.empty(n_bytes // 8, device=device)
+        dst = torch.empty_like(half)
+        rec = {"kernel": kind, "case": label, "shape": list(args[0].shape),
+               "equal_to_plain": same, "ms": cs.cuda_ms(torch, run["this"]),
+               "device_ms": cs.graph_ms(torch, run["this"]),
+               "plain_ms": cs.cuda_ms(torch, functools.partial(plain, *args),
+                                      reps=5),
+               "copy_ms": cs.cuda_ms(torch, functools.partial(dst.copy_,
+                                                              half)),
+               "bound_ms": n_bytes / cs.HBM_BYTES_PER_S * 1e3}
+        if library is not None:
+            rec["cummax_ms"] = cs.cuda_ms(torch, library)
+        for name in others:
+            a, b = cs.turns_ms(torch, run["this"], run[name])
+            mine, theirs = run["this"](), run[name]()
+            eq = torch.equal(mine.view(torch.int32), theirs.view(
+                torch.int32)) if mine.dtype == torch.uint32 else \
+                torch.equal(mine, theirs)
+            rec[name] = {"ms": b, "this_ms": a, "equal": eq,
+                         "device_ms": cs.graph_ms(torch, run[name])}
+            ok &= eq
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        print(json.dumps(rec), flush=True)
+    return ok
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -349,6 +495,8 @@ def main(argv) -> int:
         ok &= probe_fires(torch, device, this, others)
     if "counts" in only:
         ok &= probe_counts(torch, device, this, others)
+    if "sdsa" in only:
+        ok &= probe_sdsa(torch, device, this, others)
     return 0 if ok else 1
 
 
