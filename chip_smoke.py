@@ -79,13 +79,16 @@ Phases, each printed on its own line:
       matmuls, serial (kernel 17) and pipelined (kernel 18), g = 2, each
       within 1e-5 * max|ref| + 1e-5 of its plain version at fc1, fc2 and
       stage 1, on the model's maps and on data with 50% occupied tiles,
-      kernel 18 (tensor cores) no further from the fp64 product
-      (`err64`) than twice kernel 17 (fmaf chain), kernel 16 on the same
-      spikes' words equal to 18 bit for bit, with kernel (timed in turns
-      17, 18, 18, 17), plain, library (cuBLAS fp32 on the unpacked
-      spikes) and bound times (18's by bf16 tensor-core operations, the
-      fp32 bound beside); kernels 17 / 18 and 15 / 16 at g = 1, 16 and
-      128 on fc1 under the same gates; then `core.apec.apec_matmul` on
+      kernel 17 (an event walk) equal bit for bit to its k-order fmaf
+      chain (`apec_matmul_csr_chain_plain`), kernel 18 (tensor cores) no
+      further from the fp64 product (`err64`) than twice kernel 17,
+      kernels 15 and 16 on the same spikes' words equal to 17 and 18 bit
+      for bit, with kernel (timed in turns 17, 18, 18, 17), plain,
+      library (cuBLAS fp32 on the unpacked spikes) and bound times (17's
+      by its events, `events` and `events_before` printed, the dense-tile
+      FMAs beside; 18's by bf16 tensor-core operations, the fp32 bound
+      beside); kernels 17 / 18 and 15 / 16 at g = 1, 16 and 128 on fc1
+      under the same gates, 17 == 15; then `core.apec.apec_matmul` on
       the FFN inputs and the stage-1 patch matrix for g = 2 and 4, with
       the carried map and on the bare spikes: finite, within 1e-5 * max|ref| + 1e-5 of the CSR
       matmul on the same spikes, exactly 1 decompose and 1 kernel-18
@@ -104,9 +107,10 @@ Phases, each printed on its own line:
       1e-5 * max|ref| + 1e-5 of its plain version, and at fc1/fc2 against
       kernel 11 on the same spikes; the packed APEC matmuls, serial
       (kernel 15) and pipelined (kernel 16), g=2, at fc1, fc2 and stage 1
-      on the forward's packed inputs, each against its plain version, 16
-      within twice 15's `err64` and equal to kernel 18 on the same spikes
-      unpacked bit for bit, timed in turns; and
+      on the forward's packed inputs, each against its plain version, 15
+      equal to its k-order chain, 16 within twice 15's `err64`, 15 and 16
+      equal to kernels 17 and 18 on the same spikes unpacked bit for bit,
+      timed in turns (15's bound by its events); and
       `core.apec.apec_matmul` on them with the carried map (1 decompose +
       1 kernel-16 launch, PACKED_APEC_LAUNCHES, no pre-pass, no pack or
       unpack), once on kernel 15 by override (`use_backend("cuda-packed",
@@ -660,11 +664,12 @@ def csr_work(torch, occ, m, k, n, occ_ov=None, g=1, spike_bytes=4.0):
     return 2.0 * elems * n, spike_bytes * elems + 4.0 * (k_used * n + m * n)
 
 
-def live_nonzeros(torch, s, occ) -> int:
-    """The nonzero spikes of `s` (M, K) inside the map's live 128 x 128
-    tiles: the spikes a CSR or predicated matmul must take in."""
+def live_nonzeros(torch, s, occ, tile_m: int = 128) -> int:
+    """The nonzero spikes of `s` (M, K) inside the map's live tile_m x 128
+    tiles: the spikes a CSR or predicated matmul must take in (APEC's
+    overlap: tiles of 128/g rows)."""
     m, k = s.shape
-    live = (occ > 0).repeat_interleave(128, 0).repeat_interleave(128, 1)
+    live = (occ > 0).repeat_interleave(tile_m, 0).repeat_interleave(128, 1)
     return int(((s != 0) & live[:m, :k]).sum().item())
 
 
@@ -1530,12 +1535,14 @@ APEC_PAIRS = (("apec_matmul_csr", "apec_matmul_csr_pipe"),
 
 
 def apec_pair(torch, serial, pipe, args, exact, what):
-    """The serial APEC kernel `serial` (17 or 15, an fmaf chain) and its
+    """The serial APEC kernel `serial` (17 or 15, an event walk) and its
     pipelined twin `pipe` (18 or 16, the tensor cores) on the same call:
-    each within 1e-5 * max|ref| + 1e-5 of its plain version, and the
-    twin's distance from the fp64 product `exact` (`err64`) at most twice
-    the serial kernel's (2^-23 where that is 0). Returns ({name: (error,
-    tolerance, plain version, err64)}, the twin's output)."""
+    each within 1e-5 * max|ref| + 1e-5 of its plain version, the serial
+    kernel equal bit for bit to its k-order chain (`<serial>_chain_plain`:
+    the spikes are binary), and the twin's distance from the fp64 product
+    `exact` (`err64`) at most twice the serial kernel's (2^-23 where that
+    is 0). Returns ({name: (error, tolerance, plain version, err64)},
+    {name: output})."""
     from repro_torch.kernels import spike_matmul
     got = {}
     for name in (serial, pipe):
@@ -1546,27 +1553,44 @@ def apec_pair(torch, serial, pipe, args, exact, what):
         tol = 1e-5 * ref.abs().max().item() + 1e-5
         check(err <= tol, f"{name} off by {err} > {tol} ({what})")
         got[name] = (out, err, tol, plain, err64(out, exact))
+    same_bits(torch, got[serial][0], getattr(
+        spike_matmul, serial + "_chain_plain")(*args),
+        f"{serial} and its k-order chain", what)
     e_pipe, e_ser = got[pipe][-1], got[serial][-1]
     limit = 2 * e_ser if e_ser > 0 else 2.0 ** -23
     check(e_pipe <= limit, f"{pipe} is {e_pipe} from the fp64 product, "
           f"over {limit} (twice {serial}'s {e_ser}; {what})")
-    return {n: v[1:] for n, v in got.items()}, got[pipe][0]
+    return {n: v[1:] for n, v in got.items()}, {n: v[0] for n, v in
+                                                 got.items()}
 
 
-def same_bits(torch, a, b, what):
-    """Kernels 18 and 16 on the same spikes: equal bit for bit (the same A
-    bits into the same MMAs)."""
+def same_bits(torch, a, b, pair, what):
+    """Two kernels (or a kernel and its chain) on the same spikes: equal
+    bit for bit. Kernels 18 and 16 build the same A bits into the same
+    MMAs; kernels 17 and 15 walk the same events in the same order."""
     torch.cuda.synchronize()
     delta = (a - b).abs().max().item()
-    check(torch.equal(a, b), f"kernels 18 and 16 differ by {delta} ({what})")
+    check(torch.equal(a, b), f"{pair} differ by {delta} ({what})")
+
+
+def apec_events(torch, s, res, ov, map_r, map_o, g) -> dict:
+    """The events an APEC matmul walks: the nonzeros of the residual in
+    its live 128 x 128 tiles and of the overlap in its live 128/g x 128
+    tiles (`events`), and the spikes before decomposition
+    (`events_before`)."""
+    return dict(events=live_nonzeros(torch, res, map_r) +
+                live_nonzeros(torch, ov, map_o, 128 // g),
+                events_before=int((s != 0).sum().item()))
 
 
 def phase_apec_matmul_kernel(torch, gen, cap, results):
     """Kernels 17 and 18 (g = 2) at FFN fc1, fc2 and the stage-1 patch
     matmul, on the model's spikes and on clustered data: each against its
     plain version and the fp64 product (18 within twice 17's distance),
-    kernel 16 on the same spikes' words equal to 18 bit for bit, 17 and
-    18 timed in turns beside cuBLAS fp32 on the same spikes."""
+    17 equal to its k-order chain, kernels 15 and 16 on the same spikes'
+    words equal to 17 and 18 bit for bit, 17 and 18 timed in turns
+    beside cuBLAS fp32 on the same spikes; 17's bound counts its events
+    (`apec_events`)."""
     from repro_torch.core.spikes import (pack_spikes_padded,
                                          ragged_tile_occupancy)
     from repro_torch.kernels import dispatch, ops, spike_matmul
@@ -1594,12 +1618,15 @@ def phase_apec_matmul_kernel(torch, gen, cap, results):
             what = f"{label}, {data}"
             errs, got = apec_pair(torch, serial, pipe, args,
                                   apec_exact(torch, res, ov, w, g), what)
-            same_bits(torch, got, spike_matmul.apec_matmul_packed_csr_pipe(
-                pack_spikes_padded(res).contiguous(),
-                pack_spikes_padded(ov).contiguous(), w, g, *work), what)
+            words = (pack_spikes_padded(res).contiguous(),
+                     pack_spikes_padded(ov).contiguous(), w, g) + work
+            for name, kernel in zip((serial, pipe), APEC_PAIRS[1]):
+                same_bits(torch, got[name], getattr(spike_matmul, kernel)(
+                    *words), f"{name} and {kernel}", what)
             map_r = ops.padded_occupancy(res)
             map_o = ragged_tile_occupancy(ov, 128 // g, 128)
             flops, n_bytes = csr_work(torch, map_r, m, k, n, map_o, g)
+            events = apec_events(torch, s, res, ov, map_r, map_o, g)
             library_ms = cuda_ms(torch, functools.partial(torch.matmul, s, w))
             times = turns_ms(torch, functools.partial(
                 spike_matmul.apec_matmul_csr, *args), functools.partial(
@@ -1610,8 +1637,9 @@ def phase_apec_matmul_kernel(torch, gen, cap, results):
                 rec = dict(max_abs_err=err, tolerance=tol, err64=e64, ms=ms,
                            plain_ms=cuda_ms(torch, functools.partial(
                                plain, *args), reps=3, warmup=1),
-                           **apec_bounds(name == pipe, n_bytes, flops),
-                           library_ms=library_ms,
+                           **apec_bounds(name == pipe, n_bytes, flops,
+                                         events["events"], n),
+                           **events, library_ms=library_ms,
                            residual_occupied_share=(map_r > 0).float()
                            .mean().item(),
                            overlap_occupied_share=(map_o > 0).float()
@@ -1626,20 +1654,23 @@ def phase_apec_matmul_kernel(torch, gen, cap, results):
         results[name]["max_abs_err"] = err
 
 
-def apec_bounds(tensor_cores: bool, n_bytes: float, flops: float) -> dict:
-    """An APEC kernel's bound fields: the serial kernels 17 / 15 run fp32
-    FMAs (flops over FP32_FLOPS); the pipelined 18 / 16 run
-    APEC_SPLIT_PARTS bf16 MMAs per product (over BF16_TC_FLOPS), with the
-    fp32 bound printed beside. Either against the bytes."""
-    b_ms, by = bound_ms(n_bytes, APEC_SPLIT_PARTS * flops, BF16_TC_FLOPS) \
-        if tensor_cores else bound_ms(n_bytes, flops)
-    rec = dict(bound_ms=b_ms, bound_by=by,
-               bytes_bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
-               fp32_ops_bound_ms=flops / FP32_FLOPS * 1e3)
+def apec_bounds(tensor_cores: bool, n_bytes: float, flops: float,
+                events: int, n: int) -> dict:
+    """An APEC kernel's bound fields, against the bytes. The serial
+    kernels 17 / 15 walk events: one fp32 instruction an event and a
+    column (2 * events * N flops at FP32_FLOPS, as `spike_bounds` counts
+    rows 10-14), the FMAs over every element of the live tiles (`flops`)
+    beside (`dense_fp32_ops_bound_ms`). The pipelined 18 / 16 run
+    APEC_SPLIT_PARTS bf16 MMAs per dense product (over BF16_TC_FLOPS),
+    with the dense fp32 bound beside."""
     if tensor_cores:
-        rec["tensor_core_ops_bound_ms"] = \
-            APEC_SPLIT_PARTS * flops / BF16_TC_FLOPS * 1e3
-    return rec
+        b_ms, by = bound_ms(n_bytes, APEC_SPLIT_PARTS * flops, BF16_TC_FLOPS)
+        return dict(bound_ms=b_ms, bound_by=by,
+                    bytes_bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+                    fp32_ops_bound_ms=flops / FP32_FLOPS * 1e3,
+                    tensor_core_ops_bound_ms=APEC_SPLIT_PARTS * flops /
+                    BF16_TC_FLOPS * 1e3)
+    return spike_bounds(n_bytes, events, n, flops)
 
 
 # g = 1 needs the 64 KB epilogue tile in dynamic shared memory; at 16 and
@@ -1650,8 +1681,9 @@ APEC_WIDE_GROUPS = (1, 16, 128)
 def phase_apec_groups(torch, cap):
     """Kernels 17 / 18 (f32) and 15 / 16 (words) at APEC_WIDE_GROUPS on the
     FFN fc1 spikes: within 1e-5 * max|ref| + 1e-5 of their plain versions,
-    18 and 16 within twice 17's and 15's distance from the fp64 product
-    and equal to each other bit for bit, timed in turns."""
+    17 and 15 equal to their k-order chains, 18 and 16 within twice 17's
+    and 15's distance from the fp64 product, 17 == 15 and 18 == 16 bit
+    for bit, timed in turns."""
     from repro_torch.core.spikes import pack_spikes_padded
     from repro_torch.kernels import apec_kernel, ops, spike_matmul
     s1, w1, _ = cap["spike_matmul"][0]
@@ -1670,7 +1702,7 @@ def phase_apec_groups(torch, cap):
                     res_p, ov_p, g, packed=True))):
             errs, got = apec_pair(torch, serial, pipe, args, exact,
                                   f"g={g}")
-            twins.append(got)
+            twins.append((got[serial], got[pipe]))
             times = turns_ms(torch, functools.partial(
                 getattr(spike_matmul, serial), *args), functools.partial(
                 getattr(spike_matmul, pipe), *args))
@@ -1679,7 +1711,9 @@ def phase_apec_groups(torch, cap):
                      max_abs_err=errs[name][0], tolerance=errs[name][1],
                      err64=errs[name][3], ms=ms,
                      overlap_density=ov.mean().item(), shape=list(s.shape))
-        same_bits(torch, *twins, f"g={g}")
+        for (a, b), pair in zip(zip(*twins), ("kernels 17 and 15",
+                                              "kernels 18 and 16")):
+            same_bits(torch, a, b, pair, f"g={g}")
 
 
 def phase_apec_path(torch, cap):
@@ -1958,9 +1992,10 @@ def count_pack_calls():
 def phase_packed_apec(torch, cap, results):
     """Kernels 15 and 16 (g=2) at fc1 and fc2 on the forward's packed
     inputs and at the packed stage-1 patch matrix: each against its plain
-    version and the fp64 product (16 within twice 15's distance), kernel
-    18 on the same spikes unpacked equal to 16 bit for bit, 15 and 16
-    timed in turns; and
+    version and the fp64 product (16 within twice 15's distance), 15
+    equal to its k-order chain, kernels 17 and 18 on the same spikes
+    unpacked equal to 15 and 16 bit for bit, 15 and 16 timed in turns
+    (15's bound counts its events); and
     `core.apec.apec_matmul` on them (fc1/fc2 with the carried map; stage
     1 bare, as its econv has no map to carry): exactly
     PACKED_APEC_LAUNCHES (kernel 16), one call on kernel 15 by override,
@@ -2007,14 +2042,18 @@ def phase_packed_apec(torch, cap, results):
         call = (res, ov, w, g) + work
         dense_res, dense_ov = (unpack_spikes_padded(x, k).contiguous()
                                for x in (res, ov))
-        errs, got16 = apec_pair(torch, serial, pipe, call, apec_exact(
+        errs, got = apec_pair(torch, serial, pipe, call, apec_exact(
             torch, dense_res, dense_ov, w, g), label)
-        same_bits(torch, spike_matmul.apec_matmul_csr_pipe(
-            dense_res, dense_ov, w, g, *work), got16, label)
+        for name, kernel in zip((serial, pipe), APEC_PAIRS[0]):
+            same_bits(torch, getattr(spike_matmul, kernel)(
+                dense_res, dense_ov, w, g, *work), got[name],
+                f"{kernel} and {name}", label)
         map_r = ragged_packed_tile_occupancy(res, 128, 128)
         map_o = ragged_packed_tile_occupancy(ov, 128 // g, 128)
         flops, n_bytes = csr_work(torch, map_r, m, k, n, map_o, g,
                                   spike_bytes=1 / 8)
+        events = apec_events(torch, unpack_spikes_padded(p2, k), dense_res,
+                             dense_ov, map_r, map_o, g)
         flat = dense_et.spikes.reshape(-1, k)
         library_ms = cuda_ms(torch, functools.partial(torch.matmul, flat, w))
         times = turns_ms(torch, functools.partial(
@@ -2026,8 +2065,9 @@ def phase_packed_apec(torch, cap, results):
             rec = dict(max_abs_err=err, tolerance=tol, err64=e64, ms=ms,
                        plain_ms=cuda_ms(torch, functools.partial(
                            plain, *call), reps=3, warmup=1),
-                       **apec_bounds(name == pipe, n_bytes, flops),
-                       library_ms=library_ms,
+                       **apec_bounds(name == pipe, n_bytes, flops,
+                                     events["events"], n),
+                       **events, library_ms=library_ms,
                        residual_occupied_share=(map_r > 0).float().mean()
                        .item(),
                        overlap_occupied_share=(map_o > 0).float().mean()

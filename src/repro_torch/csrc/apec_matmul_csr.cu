@@ -1,6 +1,7 @@
 // Fused APEC matmul over a union CSR-of-tiles work list:
 // out = res @ w + repeat(ov @ w, g) along the rows, with res and ov as f32
-// spikes or as uint32 words.
+// spikes or as uint32 words, summed as an event walk: one weight-row
+// accumulate per residual or overlap spike.
 //
 // Replaces: src/repro/kernels/spike_matmul.py::_apec_matmul_csr_kernel
 //           (apec_matmul_csr_pallas, pipeline=False) and, on words,
@@ -8,216 +9,454 @@
 //           pipeline=False). Their prefetching twins (pipeline=True) are
 //           csrc/apec_matmul_csr_pipe.cu, the routes picked on the card;
 //           this serial kernel stays reachable by override.
-// Bound on the H100: operations at the main path's densities. An occupied
-//           residual step costs 2*128*128*N flops and an occupied overlap
-//           step 2*(128/g)*128*N, against 64 KB and 64/g KB of spikes:
-//           about N/2 flops per byte, above the fp32 ridge (67 TFLOP/s
-//           over 3.35 TB/s, ~20) for every N the model uses (96..1536).
-//           fp32 FMA on the CUDA cores, for the 1e-5 parity contract
-//           (tensor cores would need TF32 or a 3-pass split).
-// Design:   grid (m-tile row, n-tile), 256 threads; each block owns one
-//           128 x 128 output tile and walks its row's steps
-//           row_ptr[r]..row_ptr[r+1] in order (the TPU's sequential grid
-//           axis). The union work list visits a k-tile when either
-//           operand's tile holds events; per-step counts gate each dot.
-//           At a step the block stages the 16-deep weight slice ONCE and
-//           feeds it to both dots: the residual's 128-row tile into an
-//           8 x 8 register block per thread (rows ty + 16 i, columns
-//           tx + 16 j, as csrc/tile_fma.cuh lays them out), and the
-//           overlap's 128/g-row tile into a second, (8/g) x 8 block with
-//           its own mapping (rows ty + 16 i), so each overlap product is
-//           computed once per group, never g times. For g >= 16 the
-//           overlap tile has 128/g <= 8 rows, fewer than the 16 thread
-//           rows: thread row ty < 128/g owns overlap row ty (a 1 x 8
-//           block) and the other thread rows skip the overlap dot, so
-//           every group size that divides 128 keeps the same k order.
-//           Dummy steps (counts 0) zero empty rows; padding steps past
-//           row_ptr[MT] are never reached. The epilogue parks the overlap sums
-//           in shared memory (aliasing the staging buffers) and writes
-//           acc_res[i] + acc_ov[i / g] for every row i: the repeat happens
-//           here, with no pass over the full output. Ragged M, K and N are
-//           masked on load and store; no operand is padded. g is any divisor of
-//           128 (a template parameter: 1, 2, ..., 128). The staging union lives
-//           in dynamic shared memory, opted in past 48 KB
-//           (tile_fma::allow_dynamic_smem): at g = 1 its 128 x 128 f32 epilogue
-//           tile is 64 KB. The loop is this file's own, so kernels 10 and 11
-//           keep their code. Both operands are read through tile_fma.cuh's
-//           loaders: the packed form stages each live operand's word tile (128
-//           x 4 and 128/g x 4 words) once per step and unpacks bits into the
-//           same slices, so its sums equal the f32 form's on the same spikes.
+// Bound on the H100: after decomposition both operands are binary (or small
+//           counts), so the work the function needs is one accumulate of a
+//           BN-wide weight row per event, a nonzero of res or ov in a live
+//           tile: 2 * events * N flops over 67 TFLOP/s (fp32), or the
+//           bytes (spikes, weight rows of the used k-tiles, the output).
+//           APEC exists to shrink that event count, so this kernel's time
+//           follows it. Each event reads its 512-byte weight row from shared
+//           memory (an LDS.128 a lane, four passes of 128 bytes) for 128
+//           adds: about 4 clocks of an SM an event, a quarter of the add
+//           rate. A dense tile of FMAs would run every element of every
+//           live tile, 1.5x the dense product at g = 2.
+// Numbers:  each output is the dense loop's fmaf chain: acc = fmaf(v,
+//           w[k][c], acc) in k order (the steps ascend in k, the events
+//           within a step), v the f32 spike (any value: the counts the
+//           tests feed) or 1.0 on words. A zero spike is skipped: the dense
+//           chain's fmaf(0, w, acc) leaves acc as it is (w finite; acc is
+//           never -0, it starts at +0), so the sums equal the dense loop's,
+//           and the f32 and word kernels equal each other, bit for bit. The
+//           residual and overlap sums stay apart and the output is
+//           acc_res[i] + acc_ov[i / g].
+// Design:   grid (m-tile row, n-tile), 512 threads as 16 warps, one block an
+//           SM. Each block walks its row's steps row_ptr[r]..row_ptr[r+1] in
+//           order (the TPU's sequential grid axis); a step is live when
+//           either operand's count is positive (`tile_mma::UnionGate`), a
+//           dead one is skipped. A live step's weight rows w[k0:k0+128,
+//           n0:n0+BN] are staged in shared memory once (16-byte cp.async,
+//           zeros past K and N), double-buffered across live steps, and both
+//           operands' events read them: one barrier a step. A warp takes one
+//           row at a time (residual rows warp + 16 i, then overlap rows
+//           warp + 16 i, so clustered rows spread over the warps) and its lanes
+//           split the BN columns, four a lane. The row's four 32-bit words of
+//           the step are the same in every lane: on words a lane loads one
+//           (row, word) of the next live step while the current one is
+//           walked, and each row's words come by shuffle; on f32 spikes the
+//           warp loads a row's 128 values coalesced, three rows ahead of its
+//           walk (two at g = 1), and takes `__ballot_sync(x != 0)`. A binary
+//           row (`walk_binary`) writes its events in order to the warp's list
+//           in shared memory, each lane its own columns' bits at their ranks,
+//           and reads the list four indices at a time: four LDS.128 in
+//           flight, then their adds in order. A row holding other values
+//           (counts) walks its bits one at a time with the value by
+//           `__shfl_sync` (`walk_valued`). The walk loops are kept rolled:
+//           unrolled (11,456 instructions in the g = 2 word instance) they
+//           ran no faster and held more registers. Each overlap row is walked
+//           once a group, never g times; a step whose operand count is 0
+//           walks nothing of it, and a carried map's empty operand reads as
+//           zero words. The epilogue parks the overlap sums in the weight
+//           buffers and writes acc_res + ovsum[r / g] (float4 stores where
+//           N % 4 == 0): the repeat happens there. BN (128, 96, 64, 32) comes
+//           from `tile_mma::pick_bn_waves` at one block an SM; lanes past BN
+//           read column 0's weights and store nothing. Ragged M, K and N are
+//           masked, no operand is padded; g is any divisor of 128 (a template
+//           parameter).
+// Measured: the walk runs near 5 clocks of an SM an event, near its
+//           shared-memory passes; about 40% of the time is around it (the
+//           steps' staging, the lists, block starts). Bulk (TMA) weight
+//           copies, persistent blocks, 32 warps and 8-index batches each
+//           ran no faster on an NVIDIA H100 80GB HBM3 (PERF.md, Findings).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
-#include "tile_fma.cuh"
+#include "tile_mma.cuh"
 
 namespace {
 
-constexpr int kTile = 128;   // map tile (rows and k), output tile width
-constexpr int kSlice = 16;   // k depth staged per shared-memory pass
-constexpr int kPad = 4;      // breaks bank conflicts on the A stores
-constexpr int kT = 16;       // threads per side (16 x 16 = 256)
-constexpr int kThreads = kT * kT;
-constexpr int kR = kTile / kT;   // 8 rows / columns per thread
+constexpr int kTile = 128;                 // map tile (rows and k)
+constexpr int kWarps = 16;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRowsW = kTile / kWarps;     // residual rows a warp
+constexpr int kWords = kTile / 32;         // spike words a row a step
+constexpr int kAhead = 3;                  // f32 rows loaded ahead of walk
+constexpr int kBatch = 4;                  // weight rows loaded at once
+// The f32 g = 1 instance holds the most accumulators (128 rows of each
+// operand a block): it loads 2 rows ahead and 2 weight rows at once, or
+// it spills.
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(kRowsW * kWords == 32, "a residual word a lane a step");
 
+// A warp's rows of one m-tile: kRowsW residual rows, then kOvW overlap
+// rows (below 16 overlap rows, g >= 16, the warps past them hold none).
 template <int G>
-union Smem {
-  struct {
-    float a[kSlice][kTile + kPad];        // residual slice, k-major
-    float ao[kSlice][kTile / G + kPad];   // overlap slice, k-major
-    float b[kSlice][kTile];               // weight slice
-  } st;
-  float ovsum[kTile / G][kTile];          // epilogue: overlap sums
+struct Rows {
+  static_assert(G >= 1 && kTile % G == 0, "g must divide 128");
+  static constexpr int kRo = kTile / G;                       // overlap rows
+  static constexpr int kOvW = (kRo + kWarps - 1) / kWarps;
+  static constexpr int kSeq = kRowsW + kOvW;
 };
 
-// `ra` / `oa`: tile_fma.cuh loaders of the residual (M rows) and the
-// overlap (M/g rows); the packed ones' word tiles live in this block's
-// shared memory (their `tile` is set here).
-template <int G, class RA, class OA>
-__global__ void __launch_bounds__(kThreads)
-apec_csr_kernel(RA ra, OA oa, const float* __restrict__ w,
-                float* __restrict__ out, const int* __restrict__ row_ptr,
-                const int* __restrict__ tile_k_idx,
-                const int* __restrict__ occ_res,
-                const int* __restrict__ occ_ov, int64_t m, int64_t k,
-                int64_t n) {
-  constexpr int kRo = kTile / G;      // overlap rows per tile
-  // Overlap rows per thread: 8/g for g <= 8; for g >= 16 one, held only
-  // by the thread rows ty < kRo.
-  constexpr int kRMo = kRo >= kT ? kRo / kT : 1;
-  static_assert(kTile % G == 0 && (kRo % kT == 0 || kRo < kT),
-                "g must divide 128");
-  constexpr bool kPacked = !std::is_same<RA, tile_fma::DenseA>::value;
-  extern __shared__ __align__(16) unsigned char apec_smem[];
-  Smem<G>& sm = *reinterpret_cast<Smem<G>*>(apec_smem);
-  __shared__ uint32_t words_r[kPacked ? kTile * tile_fma::kTileWords : 1];
-  __shared__ uint32_t words_o[kPacked ? kRo * tile_fma::kTileWords : 1];
-  if constexpr (kPacked) {
-    ra.tile = words_r;
-    oa.tile = words_o;
-  }
-  const int tid = threadIdx.x;
-  const int tx = tid % kT, ty = tid / kT;
-  const bool ov_rows = kRo >= kT || ty < kRo;   // holds overlap rows
-  const int64_t m0 = (int64_t)blockIdx.x * kTile;
-  const int64_t mo0 = (int64_t)blockIdx.x * kRo;
-  const int64_t n0 = (int64_t)blockIdx.y * kTile;
-  float acc[kR][kR], acco[kRMo][kR];
-#pragma unroll
-  for (int i = 0; i < kR; ++i)
-#pragma unroll
-    for (int j = 0; j < kR; ++j) acc[i][j] = 0.0f;
-#pragma unroll
-  for (int i = 0; i < kRMo; ++i)
-#pragma unroll
-    for (int j = 0; j < kR; ++j) acco[i][j] = 0.0f;
+__device__ __forceinline__ void add4(float4& acc, const float4& b) {
+  acc.x += b.x;
+  acc.y += b.y;
+  acc.z += b.z;
+  acc.w += b.w;
+}
 
-  const int beg = row_ptr[blockIdx.x], end = row_ptr[blockIdx.x + 1];
-  for (int step = beg; step < end; ++step) {
-    const bool live_r = occ_res[step] > 0, live_o = occ_ov[step] > 0;
-    if (!live_r && !live_o) continue;          // dummy step: no events
-    const int64_t k0 = (int64_t)tile_k_idx[step] * kTile;
-    if (live_r) ra.begin(m0, k0);          // step-uniform: all threads
-    if (live_o) oa.begin(mo0, k0);
-    for (int kk = 0; kk < kTile; kk += kSlice) {
-      if (k0 + kk >= k) break;                 // slice wholly past K
+// acc += v_j * w[j] for each set bit j of `bits`, in ascending j, v_j
+// being lane j's `x` (f32 spikes of any value), one event at a time; `wq`
+// points at this lane's four columns of the slice's first weight row.
+__device__ __forceinline__ void walk_valued(uint32_t bits, float x,
+                                            const float* wq, int bn,
+                                            float4& acc) {
+#pragma unroll 1
+  while (bits) {
+    const int j = __ffs(bits) - 1;
+    bits &= bits - 1;
+    const float v = __shfl_sync(kFull, x, j);
+    const float4 b = *reinterpret_cast<const float4*>(wq + j * bn);
+    acc.x = fmaf(v, b.x, acc.x);
+    acc.y = fmaf(v, b.y, acc.y);
+    acc.z = fmaf(v, b.z, acc.z);
+    acc.w = fmaf(v, b.w, acc.w);
+  }
+}
+
+// acc += w[j] for each set bit j of a row's step words `bits` (binary
+// spikes; fadd(acc, w) = fmaf(1, w, acc)), in ascending j; `wt` points at
+// this lane's four columns of the step's first weight row. The warp
+// first writes the row's events (columns within the step, ascending) to
+// its `list` in shared memory, each lane placing its own columns' set
+// bits at their ranks; then every lane reads the list B indices at a
+// time and adds their weight rows in order, B loads in flight (one event
+// at a time, a warp waits out each load).
+template <int B>
+__device__ __forceinline__ void walk_binary(const uint32_t (&bits)[kWords],
+                                            uint8_t* list, const float* wt,
+                                            int bn, float4& acc) {
+  static_assert(B == 2 || B == 4, "a batch is one 16- or 32-bit list read");
+  const int lane = threadIdx.x % 32;
+  const uint32_t below = (1u << lane) - 1u;
+  int count = 0;
+  __syncwarp();                  // the warp's last walk has read the list
 #pragma unroll
-      for (int l = 0; l < kTile * kSlice / kThreads; ++l) {
-        const int e = tid + l * kThreads;
-        const int r = e / kTile, c = e % kTile;
-        const int64_t gk = k0 + kk + r, gn = n0 + c;
-        sm.st.b[r][c] = (gk < k && gn < n) ? w[gk * n + gn] : 0.0f;
+  for (int q = 0; q < kWords; ++q) {
+    if (bits[q] >> lane & 1u)
+      list[count + __popc(bits[q] & below)] = (uint8_t)(32 * q + lane);
+    count += __popc(bits[q]);
+  }
+  __syncwarp();
+  int e = 0;
+#pragma unroll 1
+  for (; e + B <= count; e += B) {
+    const uint32_t js = B == 4 ? *reinterpret_cast<const uint32_t*>(list + e)
+                               : *reinterpret_cast<const uint16_t*>(list + e);
+    float4 b[B];
+#pragma unroll
+    for (int u = 0; u < B; ++u)
+      b[u] = *reinterpret_cast<const float4*>(wt + (js >> 8 * u & 0xffu) * bn);
+#pragma unroll
+    for (int u = 0; u < B; ++u) add4(acc, b[u]);
+  }
+#pragma unroll 1
+  for (; e < count; ++e)
+    add4(acc, *reinterpret_cast<const float4*>(wt + list[e] * bn));
+}
+
+// Stages w[k0:k0+128, n0:n0+bn] into `dst` (rows of bn floats), zeros
+// past K and N; one cp.async group's copies. `vec`: N % 4 == 0 and w
+// 16-byte aligned, else 4-byte copies.
+__device__ __forceinline__ void stage_weights(float* dst,
+                                              const float* __restrict__ w,
+                                              int64_t k0, int64_t n0,
+                                              int64_t k, int64_t n, int bn,
+                                              bool vec) {
+  const int per_row = bn / 4;
+  for (int e = threadIdx.x; e < kTile * per_row; e += kThreads) {
+    const int r = e / per_row, c = e % per_row * 4;
+    const int64_t gk = k0 + r, gn = n0 + c;
+    float* d = dst + r * bn + c;
+    if (vec) {
+      const bool in = gk < k && gn < n;
+      tile_mma::cp16(d, in ? w + gk * n + gn : w, in);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const bool in = gk < k && gn + u < n;
+        tile_mma::cp4(d + u, in ? w + gk * n + gn + u : w, in);
       }
-      if (live_r) {
-#pragma unroll
-        for (int l = 0; l < kTile * kSlice / kThreads; ++l) {
-          const int e = tid + l * kThreads;
-          const int r = e / kSlice, c = e % kSlice;
-          sm.st.a[c][r] = ra.at(m0, k0, r, kk + c);
-        }
-      }
-      if (live_o) {
-#pragma unroll
-        for (int l = 0; l < (kRo * kSlice + kThreads - 1) / kThreads; ++l) {
-          const int e = tid + l * kThreads;
-          // Compile-time true when the threads split the slice evenly.
-          if ((kRo * kSlice) % kThreads == 0 || e < kRo * kSlice) {
-            const int r = e / kSlice, c = e % kSlice;
-            sm.st.ao[c][r] = oa.at(mo0, k0, r, kk + c);
-          }
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int c = 0; c < kSlice; ++c) {
-        float b[kR];
-#pragma unroll
-        for (int j = 0; j < kR; ++j) b[j] = sm.st.b[c][tx + kT * j];
-        if (live_r) {
-          float a[kR];
-#pragma unroll
-          for (int i = 0; i < kR; ++i) a[i] = sm.st.a[c][ty + kT * i];
-#pragma unroll
-          for (int i = 0; i < kR; ++i)
-#pragma unroll
-            for (int j = 0; j < kR; ++j)
-              acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
-        if (live_o && ov_rows) {
-          float a[kRMo];
-#pragma unroll
-          for (int i = 0; i < kRMo; ++i) a[i] = sm.st.ao[c][ty + kT * i];
-#pragma unroll
-          for (int i = 0; i < kRMo; ++i)
-#pragma unroll
-            for (int j = 0; j < kR; ++j)
-              acco[i][j] = fmaf(a[i], b[j], acco[i][j]);
-        }
-      }
-      __syncthreads();
     }
+  }
+  tile_mma::commit();
+}
+
+// The block's view of one launch.
+struct Problem {
+  const void* res;        // (m, kcols) f32 spikes or uint32 words
+  const void* ov;         // (m / g, kcols)
+  const float* w;         // (k, n)
+  float* out;             // (m, n)
+  const int* row_ptr;
+  const int* tile_k_idx;
+  tile_mma::UnionGate gate;
+  int64_t m, kcols, k, n;
+  int bn;
+  bool vec_w, vec_out;
+};
+
+// f32 spikes: this lane's values of entry t of a warp's walk through the
+// step at k0 (columns k0 + 32 q + lane), zeros where the entry's operand is
+// dead at the step (`lv`), the row lies past its operand or the column
+// past K.
+template <int G>
+__device__ __forceinline__ void load_entry(float (&x)[kWords],
+                                           const Problem& p, int t,
+                                           int64_t k0, unsigned lv) {
+  using R = Rows<G>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const float* s;
+  int64_t row, rows;
+  bool live;
+  if (t < kRowsW) {
+    s = static_cast<const float*>(p.res);
+    row = (int64_t)blockIdx.x * kTile + warp + kWarps * t;
+    rows = p.m;
+    live = lv & 1u;
+  } else {
+    const int o = warp + kWarps * (t - kRowsW);
+    s = static_cast<const float*>(p.ov);
+    row = (int64_t)blockIdx.x * R::kRo + o;
+    rows = p.m / G;
+    live = (lv & 2u) && o < R::kRo;
+  }
+  live = live && row < rows;
+  const float* src = s + (live ? row * p.k + k0 + lane : 0);
+#pragma unroll
+  for (int q = 0; q < kWords; ++q)
+    x[q] = live && k0 + 32 * q + lane < p.k ? __ldg(src + 32 * q) : 0.0f;
+}
+
+// Words: this lane's (row, word) of the step at k0 for the operand at
+// `s` (rows from `row0`, `nrows` of them in the tile): lane l holds row
+// warp + 16 (l / 4)'s word l % 4; zero where the operand is dead (`live`
+// false) or the row or word lies past it.
+__device__ __forceinline__ uint32_t load_words(const uint32_t* __restrict__ s,
+                                               int64_t rows, int64_t kw,
+                                               int64_t row0, int nrows,
+                                               int64_t k0, bool live) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r = warp + kWarps * (lane / kWords);
+  const int64_t row = row0 + r, gw = k0 / 32 + lane % kWords;
+  return live && r < nrows && row < rows && gw < kw ? __ldg(s + row * kw + gw)
+                                                    : 0u;
+}
+
+template <int G, bool kPacked>
+__global__ void __launch_bounds__(kThreads, 1)
+apec_walk_kernel(Problem p) {
+  using R = Rows<G>;
+  constexpr int kB = kPacked || G > 1 ? kBatch : 2;
+  constexpr int kAh = G > 1 ? kAhead : 2;
+  extern __shared__ __align__(16) float smem[];   // 2 x 128 x bn weights
+  __shared__ __align__(4) uint8_t lists[kWarps][kTile];   // event lists
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bn = p.bn;
+  const int64_t m0 = (int64_t)blockIdx.x * kTile;
+  const int64_t mo0 = (int64_t)blockIdx.x * R::kRo;
+  const int64_t n0 = (int64_t)blockIdx.y * bn;
+  const int c = 4 * lane;                          // this lane's columns
+  const bool on = c < bn && n0 + c < p.n;
+  uint8_t* list = lists[warp];
+  float4 acc_r[kRowsW], acc_o[R::kOvW];
+#pragma unroll
+  for (int i = 0; i < kRowsW; ++i) acc_r[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int i = 0; i < R::kOvW; ++i) acc_o[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  const int end = p.row_ptr[blockIdx.x + 1];
+  auto settle = [&](int step, unsigned& lv) {      // the next live step
+    for (; step < end; ++step)
+      if ((lv = p.gate.live(step)) != 0u) break;
+    return step;
+  };
+  auto k0_of = [&](int step) {
+    return step < end ? (int64_t)p.tile_k_idx[step] * kTile : (int64_t)0;
+  };
+  unsigned lv = 0;
+  int step = settle(p.row_ptr[blockIdx.x], lv);
+  int64_t k0 = k0_of(step);
+  if (step < end) stage_weights(smem, p.w, k0, n0, p.k, p.n, bn, p.vec_w);
+  // The walk's operands for the current step, loaded ahead: on words one
+  // residual and one overlap word a lane; on f32 the first kAh entries.
+  uint32_t wr = 0, wo = 0;
+  float xs[kAh][kWords];
+  if constexpr (kPacked) {
+    const auto* res = static_cast<const uint32_t*>(p.res);
+    const auto* ov = static_cast<const uint32_t*>(p.ov);
+    wr = load_words(res, p.m, p.kcols, m0, kTile, k0, lv & 1u);
+    wo = load_words(ov, p.m / G, p.kcols, mo0, R::kRo, k0, lv & 2u);
+  } else {
+#pragma unroll
+    for (int a = 0; a < kAh; ++a) load_entry<G>(xs[a], p, a, k0, lv);
+  }
+  int buf = 0;
+  while (step < end) {
+    unsigned nlv = 0;
+    const int nxt = settle(step + 1, nlv);
+    const int64_t nk0 = k0_of(nxt);
+    tile_mma::wait_pending(0);
+    __syncthreads();         // this step's weights landed; the other buffer
+                             // is free (every warp left the last step)
+    if (nxt < end)
+      stage_weights(smem + (buf ^ 1) * kTile * bn, p.w, nk0, n0, p.k, p.n,
+                    bn, p.vec_w);
+    // Lanes past BN read column 0's weights (their sums go nowhere), so
+    // the walk has no per-lane branch.
+    const float* wt = smem + buf * kTile * bn + (c < bn ? c : 0);
+    const int64_t left = p.k - k0;                 // live columns a step
+    if constexpr (kPacked) {
+      const auto* res = static_cast<const uint32_t*>(p.res);
+      const auto* ov = static_cast<const uint32_t*>(p.ov);
+      const uint32_t nwr = load_words(res, p.m, p.kcols, m0, kTile, nk0,
+                                      nlv & 1u);
+      const uint32_t nwo = load_words(ov, p.m / G, p.kcols, mo0, R::kRo,
+                                      nk0, nlv & 2u);
+      if (lv & 1u) {
+#pragma unroll
+        for (int i = 0; i < kRowsW; ++i) {
+          uint32_t bits[kWords];
+#pragma unroll
+          for (int q = 0; q < kWords; ++q)
+            bits[q] = 32 * q < left ? __shfl_sync(kFull, wr, kWords * i + q)
+                                    : 0u;
+          walk_binary<kB>(bits, list, wt, bn, acc_r[i]);
+        }
+      }
+      if (lv & 2u) {
+#pragma unroll
+        for (int i = 0; i < R::kOvW; ++i)
+          if (warp + kWarps * i < R::kRo) {
+            uint32_t bits[kWords];
+#pragma unroll
+            for (int q = 0; q < kWords; ++q)
+              bits[q] = 32 * q < left
+                            ? __shfl_sync(kFull, wo, kWords * i + q)
+                            : 0u;
+            walk_binary<kB>(bits, list, wt, bn, acc_o[i]);
+          }
+      }
+      wr = nwr;
+      wo = nwo;
+    } else {
+      // Entries t = 0 .. kSeq-1 in turn, each loaded kAh entries
+      // before its walk; the last ones load the next live step's first.
+#pragma unroll
+      for (int t = 0; t < R::kSeq; ++t) {
+        float x[kWords];
+#pragma unroll
+        for (int q = 0; q < kWords; ++q) x[q] = xs[0][q];
+#pragma unroll
+        for (int a = 0; a + 1 < kAh; ++a)
+#pragma unroll
+          for (int q = 0; q < kWords; ++q) xs[a][q] = xs[a + 1][q];
+        if (t + kAh < R::kSeq)
+          load_entry<G>(xs[kAh - 1], p, t + kAh, k0, lv);
+        else
+          load_entry<G>(xs[kAh - 1], p, t + kAh - R::kSeq, nk0, nlv);
+        float4& acc = t < kRowsW ? acc_r[t < kRowsW ? t : 0]
+                                 : acc_o[t < kRowsW ? 0 : t - kRowsW];
+        // Binary rows (the spikes APEC takes) walk their event list; a
+        // row holding any other value (counts) walks with the values.
+        uint32_t bits[kWords];
+        bool valued = false;
+#pragma unroll
+        for (int q = 0; q < kWords; ++q) {
+          bits[q] = __ballot_sync(kFull, x[q] != 0.0f);
+          valued |= x[q] != 0.0f && x[q] != 1.0f;
+        }
+        if (__any_sync(kFull, valued)) {
+#pragma unroll
+          for (int q = 0; q < kWords; ++q)
+            walk_valued(bits[q], x[q], wt + 32 * q * bn, bn, acc);
+        } else {
+          walk_binary<kB>(bits, list, wt, bn, acc);
+        }
+      }
+    }
+    step = nxt;
+    lv = nlv;
+    k0 = nk0;
+    buf ^= 1;
   }
 
   // Epilogue: overlap row o of the tile serves residual rows o*G..o*G+G-1
-  // (128 % G == 0, so groups never straddle two tiles).
+  // (128 % G == 0, so groups never straddle two tiles). No copy is in
+  // flight: the last live step staged nothing.
   __syncthreads();
-  if (ov_rows) {
+  float* ovsum = smem;                             // kRo x bn
+  if (c < bn) {
 #pragma unroll
-    for (int i = 0; i < kRMo; ++i)
-#pragma unroll
-      for (int j = 0; j < kR; ++j)
-        sm.ovsum[ty + kT * i][tx + kT * j] = acco[i][j];
+    for (int i = 0; i < R::kOvW; ++i) {
+      const int o = warp + kWarps * i;
+      if (o < R::kRo) *reinterpret_cast<float4*>(ovsum + o * bn + c) = acc_o[i];
+    }
   }
   __syncthreads();
+  if (!on) return;
 #pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    const int lr = ty + kT * i;
-    const int64_t r = m0 + lr;
-    if (r >= m) continue;
+  for (int i = 0; i < kRowsW; ++i) {
+    const int r = warp + kWarps * i;
+    const int64_t gr = m0 + r;
+    if (gr >= p.m) break;                          // rows ascend in i
+    const float4 o = *reinterpret_cast<const float4*>(ovsum + r / G * bn + c);
+    const float4 v = make_float4(acc_r[i].x + o.x, acc_r[i].y + o.y,
+                                 acc_r[i].z + o.z, acc_r[i].w + o.w);
+    float* dst = p.out + gr * p.n + n0 + c;
+    if (p.vec_out) {
+      *reinterpret_cast<float4*>(dst) = v;
+    } else {
+      const float vs[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-    for (int j = 0; j < kR; ++j) {
-      const int64_t c = n0 + tx + kT * j;
-      if (c < n) out[r * n + c] = acc[i][j] + sm.ovsum[lr / G][tx + kT * j];
+      for (int u = 0; u < 4; ++u)
+        if (n0 + c + u < p.n) dst[u] = vs[u];
     }
   }
 }
 
-template <int G, class RA, class OA>
-cudaError_t launch(RA ra, OA oa, const float* w, float* out,
-                   const int* row_ptr, const int* tile_k_idx,
-                   const int* occ_res, const int* occ_ov, int64_t m,
-                   int64_t k, int64_t n, int64_t mt, cudaStream_t stream) {
-  auto kernel = apec_csr_kernel<G, RA, OA>;
-  constexpr int kBytes = sizeof(Smem<G>);
-  const cudaError_t err = tile_fma::allow_dynamic_smem(kernel, kBytes);
+bool aligned16(const void* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+}
+
+template <int G, bool kPacked>
+cudaError_t launch(Problem p, int64_t mt, cudaStream_t stream) {
+  auto kernel = apec_walk_kernel<G, kPacked>;
+  const int bytes = 2 * kTile * p.bn * (int)sizeof(float);
+  const cudaError_t err = tile_fma::allow_dynamic_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   // m-tile rows on x (no 65535 limit); neighbouring blocks share the
-  // n-tile's weight slices in L2.
-  dim3 grid((unsigned)mt, (unsigned)((n + kTile - 1) / kTile));
-  kernel<<<grid, kThreads, kBytes, stream>>>(
-      ra, oa, w, out, row_ptr, tile_k_idx, occ_res, occ_ov, m, k, n);
+  // n-tile's weight rows in L2.
+  dim3 grid((unsigned)mt, (unsigned)((p.n + p.bn - 1) / p.bn));
+  kernel<<<grid, kThreads, bytes, stream>>>(p);
   return cudaSuccess;
+}
+
+template <bool kPacked>
+int forward(Problem p, int64_t mt, int64_t g, void* stream) {
+  if (g < 1 || p.m % g != 0) return (int)cudaErrorInvalidValue;
+  if (p.m > 0 && p.n > 0) {
+    p.bn = tile_mma::pick_bn_waves(p.n, mt, 1);
+    p.vec_w = p.n % 4 == 0 && aligned16(p.w);
+    p.vec_out = p.n % 4 == 0 && aligned16(p.out);
+    cudaError_t err = cudaSuccess;
+    if (!tile_fma::dispatch_group(g, [&](auto gc) {
+          err = launch<decltype(gc)::value, kPacked>(
+              p, mt, (cudaStream_t)stream);
+        }))
+      return (int)cudaErrorInvalidValue;
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -232,20 +471,10 @@ extern "C" int apec_matmul_csr_forward(const float* res, const float* ov,
                                        const int* occ_res, const int* occ_ov,
                                        int64_t m, int64_t k, int64_t n,
                                        int64_t mt, int64_t g, void* stream) {
-  if (g < 1 || m % g != 0) return (int)cudaErrorInvalidValue;
-  if (m > 0 && n > 0) {
-    cudaStream_t st = (cudaStream_t)stream;
-    const tile_fma::DenseA ra{res, m, k}, oa{ov, m / g, k};
-    cudaError_t err = cudaSuccess;
-    if (!tile_fma::dispatch_group(g, [&](auto gc) {
-          err = launch<decltype(gc)::value>(ra, oa, w, out, row_ptr,
-                                            tile_k_idx, occ_res, occ_ov, m,
-                                            k, n, mt, st);
-        }))
-      return (int)cudaErrorInvalidValue;
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaGetLastError();
+  return forward<false>(Problem{res, ov, w, out, row_ptr, tile_k_idx,
+                                {occ_res, occ_ov}, m, k, k, n, 0, false,
+                                false},
+                        mt, g, stream);
 }
 
 // The same on words: res (M, KW) and ov (M/g, KW) uint32 covering
@@ -255,20 +484,8 @@ extern "C" int apec_matmul_packed_csr_forward(
     const int* row_ptr, const int* tile_k_idx, const int* occ_res,
     const int* occ_ov, int64_t m, int64_t kw, int64_t k, int64_t n,
     int64_t mt, int64_t g, void* stream) {
-  if (g < 1 || m % g != 0) return (int)cudaErrorInvalidValue;
-  if (m > 0 && n > 0) {
-    cudaStream_t st = (cudaStream_t)stream;
-    const tile_fma::PackedA<kTile> ra{res, m, kw, nullptr};
-    cudaError_t err = cudaSuccess;
-    if (!tile_fma::dispatch_group(g, [&](auto gc) {
-          constexpr int G = decltype(gc)::value;
-          err = launch<G>(ra,
-                          tile_fma::PackedA<kTile / G>{ov, m / G, kw, nullptr},
-                          w, out, row_ptr, tile_k_idx, occ_res, occ_ov, m, k,
-                          n, mt, st);
-        }))
-      return (int)cudaErrorInvalidValue;
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaGetLastError();
+  return forward<true>(Problem{res, ov, w, out, row_ptr, tile_k_idx,
+                               {occ_res, occ_ov}, m, kw, k, n, 0, false,
+                               false},
+                       mt, g, stream);
 }

@@ -1,9 +1,8 @@
 // The register-blocked fp32 tile loop of the serial spike matmul kernels:
 // the CSR kernels 11 and 13 (csrc/spike_matmul_csr.cu) and the predicated
 // kernel 10's wide path, N > 16 (csrc/spike_matmul.cu); the spike-operand
-// loaders they and csrc/apec_matmul_csr.cu read through; and the dynamic
-// shared-memory opt-in and the group-size dispatch that every pipelined
-// or fused kernel launches with. The pipelined kernels (TPU rows 12, 14,
+// loaders they read through; and the dynamic shared-memory opt-in and the
+// group-size dispatch that every pipelined or fused kernel launches with. The pipelined kernels (TPU rows 12, 14,
 // 16 and 18) and kernel 10's narrow path (N <= 16, SegNet's tconvs) feed
 // the same fmaf arithmetic, or its equal, from csrc/tile_mma.cuh's
 // cp.async ring instead of this loop's synchronous staging (rows 16 and

@@ -12,7 +12,8 @@
                    its f32 / word spike loaders)
                    csrc/apec_matmul_csr.cu   APEC's fused residual + overlap
                                              matmul on a union work list,
-                                             on f32 spikes or packed words
+                                             on f32 spikes or packed words,
+                                             as an event walk
                    csrc/spike_matmul_csr_pipe.cu, csrc/apec_matmul_csr_pipe.cu
                                              the CSR and APEC matmuls, the
                                              same sums, fed by

@@ -12,7 +12,9 @@ cp.async ring of 32-deep k-slices); its plain version walks the ring's
 schedule (`ring_schedule`) and checks it (`check_ring_trace`).
 `apec_matmul_csr(res, ov, w, g, csr, occ_res, occ_ov)` is APEC's fused
 pair of products over a union work list; it launches
-`csrc/apec_matmul_csr.cu`, and `apec_matmul_csr_pipe` the same function
+`csrc/apec_matmul_csr.cu`, an event walk whose sums
+`apec_matmul_csr_chain_plain` repeats bit for bit (a k-order chain), and
+`apec_matmul_csr_pipe` the same function
 on the ring (`csrc/apec_matmul_csr_pipe.cu`, the schedule's union-gated
 twin checked in its plain version). `spike_matmul_packed_csr`,
 `spike_matmul_packed_csr_pipe`, `apec_matmul_packed_csr` and
@@ -362,6 +364,30 @@ def apec_matmul_csr_plain(res: torch.Tensor, ov: torch.Tensor,
                                 TILE // g), w, g)
 
 
+def apec_matmul_csr_chain_plain(res: torch.Tensor, ov: torch.Tensor,
+                                w: torch.Tensor, g: int, csr: TileCSR,
+                                occ_res: torch.Tensor,
+                                occ_ov: torch.Tensor) -> torch.Tensor:
+    """The serial APEC kernel's arithmetic: each operand gated by its own
+    per-step counts as `apec_matmul_csr_plain` gates it, then every output
+    summed one k column at a time in k order, acc = acc + v * w[k], the
+    residual and overlap sums apart and added last (acc_res +
+    repeat_interleave(acc_ov, g)). On binary spikes each term is the
+    kernel's fmaf(v, w[k], acc), a zero v adding nothing, so the result is
+    the kernel's bit for bit (multi-bit spikes round v * w first)."""
+    m, k = res.shape
+    mt, kt = -(-m // TILE), -(-k // TILE)
+    r = _gated(res, csr_tile_gate(csr, mt, kt, occ_res))
+    o = _gated(ov, csr_tile_gate(csr, mt, kt, occ_ov), TILE // g)
+    wf = w.float()
+    acc_r = torch.zeros((m, w.shape[1]), device=res.device)
+    acc_o = torch.zeros((ov.shape[0], w.shape[1]), device=res.device)
+    for c in range(k):
+        acc_r.add_(r[:, c, None] * wf[c])
+        acc_o.add_(o[:, c, None] * wf[c])
+    return acc_r + acc_o.repeat_interleave(g, 0)
+
+
 def apec_matmul_csr_pipe_plain(res: torch.Tensor, ov: torch.Tensor,
                                w: torch.Tensor, g: int, csr: TileCSR,
                                occ_res: torch.Tensor,
@@ -581,6 +607,18 @@ def apec_matmul_packed_csr_plain(res: torch.Tensor, ov: torch.Tensor,
     return apec_matmul_csr_plain(unpack_spikes_padded(res, k),
                                  unpack_spikes_padded(ov, k), w, g, csr,
                                  occ_res, occ_ov)
+
+
+def apec_matmul_packed_csr_chain_plain(res: torch.Tensor, ov: torch.Tensor,
+                                       w: torch.Tensor, g: int,
+                                       csr: TileCSR, occ_res: torch.Tensor,
+                                       occ_ov: torch.Tensor) -> torch.Tensor:
+    """The packed APEC kernel's arithmetic: unpack both operands, then
+    `apec_matmul_csr_chain_plain` (the kernel's sums bit for bit)."""
+    k = w.shape[0]
+    return apec_matmul_csr_chain_plain(unpack_spikes_padded(res, k),
+                                       unpack_spikes_padded(ov, k), w, g,
+                                       csr, occ_res, occ_ov)
 
 
 def apec_matmul_packed_csr_pipe_plain(res: torch.Tensor, ov: torch.Tensor,

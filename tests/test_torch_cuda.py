@@ -10,7 +10,9 @@ SDSA and causal-status words, APEC overlap/residual words and the packed
 fire's words must match exactly; the CSR, predicated and fused APEC
 matmuls, f32 and packed, within 1e-5 * max|plain| + 1e-5 (fp32 summation
 order); the pipelined CSR kernels equal the serial ones bit for bit (the
-same fmaf chains). The pipelined APEC kernels sum on the tensor cores (an
+same fmaf chains), and the serial APEC kernels (event walks) equal their
+k-order chain plain versions and each other bit for bit on binary
+spikes. The pipelined APEC kernels sum on the tensor cores (an
 exact bf16 split of the weights): their distance from the fp64 product
 is at most twice the serial kernels' on the same inputs (2^-23 where
 theirs is 0), and the word kernel equals the f32 one bit for bit.
@@ -22,7 +24,8 @@ import torch
 from repro_torch.core.events import EventTensor
 from repro_torch.core.spikes import (build_csr, pack_spikes,
                                      pack_spikes_padded,
-                                     ragged_packed_tile_occupancy)
+                                     ragged_packed_tile_occupancy,
+                                     unpack_spikes_padded)
 from repro_torch.kernels import apec_kernel, dispatch, launch_counts, \
     lif_scan, ops, reset_launch_counts, sdsa_kernel, spike_matmul
 
@@ -547,6 +550,8 @@ def test_cuda_apec_matmul_csr_kernel_matches_plain(cuda_device, m, k, n, g,
     assert (got - want).abs().max().item() <= tol
     assert torch.all(got[128:256] == 0)
     assert (got - s @ w).abs().max().item() <= tol
+    # The event walk is the k-order fmaf chain, bit for bit.
+    assert torch.equal(got, spike_matmul.apec_matmul_csr_chain_plain(*args))
 
 
 @pytest.mark.cuda
@@ -591,6 +596,9 @@ def test_cuda_apec_pipe_kernels_match_plain_and_serial(cuda_device, m, k, n,
     assert _within_twice(got_p, spike_matmul.apec_matmul_packed_csr(*pargs),
                          exact)
     assert torch.equal(got_p, got)
+    # Kernels 17 and 15 on the same spikes: the same walk, bit for bit.
+    assert torch.equal(spike_matmul.apec_matmul_packed_csr(*pargs),
+                       spike_matmul.apec_matmul_csr(*args))
 
 
 @pytest.mark.cuda
@@ -708,6 +716,12 @@ def test_cuda_packed_apec_kernel_matches_plain(cuda_device, m, k, n, g,
     assert (got - want).abs().max().item() <= tol
     assert (got - s @ w).abs().max().item() <= tol
     assert torch.all(got[128:256] == 0)
+    assert torch.equal(
+        got, spike_matmul.apec_matmul_packed_csr_chain_plain(*args))
+    k = w.shape[0]
+    assert torch.equal(got, spike_matmul.apec_matmul_csr(
+        unpack_spikes_padded(res, k).contiguous(),
+        unpack_spikes_padded(ov, k).contiguous(), w, g, csr, occ_r, occ_o))
 
 
 @pytest.mark.cuda

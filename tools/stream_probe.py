@@ -3,7 +3,7 @@
 in turns in one process, optionally against other builds of the kernel
 library.
 
-    python3 tools/stream_probe.py [--only=pred,csr,fires,counts,sdsa]
+    python3 tools/stream_probe.py [--only=pred,csr,fires,counts,sdsa,apec]
                                   [NAME=CSRC_DIR ...]
 
 Kernel 10 (the predicated spike matmul, csrc/spike_matmul.cu) at
@@ -30,16 +30,24 @@ chip_smoke's shapes, their word entries and their spike entries on the
 models' head views, each with `device_ms`, the plain version, a device
 copy of the same bytes and (row 9) `torch.cummax`; an older build's
 spike ops run the word route around its word kernels (pack, pad, kernel,
-unpack), as its registry did. `--only` runs the named probes alone.
+unpack), as its registry did. The serial APEC kernels (csrc/
+apec_matmul_csr.cu: rows 17 and 15) at g = 2 on SpikingFormer-4-384's
+fc1, fc2 and stage-1 spikes (one forward, as chip_smoke's phase (i)
+captures it) and on clustered data with 50% occupied tiles: kernel 17
+with cuBLAS fp32 in turns, kernel 15 on the same spikes' words, each
+equal bit for bit to the k-order chain
+(`spike_matmul.apec_matmul_csr_chain_plain`), with the pipelined kernel
+(18 or 16) beside, the events, the event and dense-tile bounds. `--only`
+runs the named probes alone.
 
 Each CSRC_DIR is another tree's `src/repro_torch/csrc` (an older commit
 unpacked with `git archive`, or a patched copy), built here with this
-checkout's flags; its kernels 12 and 14, fires, counts fires and SDSA
-entries are timed in turns with this checkout's (this, other, other,
-this) and must give the same bits.
+checkout's flags; its kernels 12 and 14, fires, counts fires, SDSA
+entries and serial APEC kernels are timed in turns with this checkout's
+(this, other, other, this) and must give the same bits.
 Prints the card's name and power limit, the ptxas registers and spills
-of each fresh build's kernel-12/14 and fire instances, then one JSON line
-per case; exits nonzero on a mismatch."""
+of each fresh build's kernel-12/14, fire, SDSA and serial APEC instances,
+then one JSON line per case; exits nonzero on a mismatch."""
 import ctypes
 import functools
 import json
@@ -54,17 +62,21 @@ import chip_smoke as cs  # noqa: E402  (puts the repo's src on the path)
 
 TCONV_SHAPES = (("tconv1", (131072, 288, 16)), ("tconv2", (524288, 144, 2)))
 
+# The serial APEC kernels 17 and 15 (the same signatures in every build).
+APEC_ENTRIES = ("apec_matmul_csr_forward", "apec_matmul_packed_csr_forward")
 ENTRIES = ("spike_matmul_csr_pipe_forward",
            "spike_matmul_packed_csr_pipe_forward", "lif_forward",
            "lif_bf16_forward", "lif_fwd_forward", "lif_counts_forward",
-           "lif_counts_packed_forward", "lif_counts_fwd_forward")
+           "lif_counts_packed_forward", "lif_counts_fwd_forward") + \
+    APEC_ENTRIES
 PTXAS_KERNELS = ("csr_pipe_kernel", "lif_kernel", "lif_counts_kernel",
-                 "sdsa_or_kernel", "sdsa_causal_kernel")
+                 "sdsa_or_kernel", "sdsa_causal_kernel", "apec_walk_kernel",
+                 "apec_csr_kernel")
 # The counts fires (rows 4, 6 and 5): C entry -> wrapper name.
 COUNTS_ENTRIES = (("lif_counts_forward", "lif_counts"),
                   ("lif_counts_packed_forward", "lif_counts_packed"),
                   ("lif_counts_fwd_forward", "lif_counts_fwd"))
-PROBES = ("pred", "csr", "fires", "counts", "sdsa")
+PROBES = ("pred", "csr", "fires", "counts", "sdsa", "apec")
 # The SDSA kernels' word entries before they read spikes (an older build):
 # C entry -> argument types.
 OLD_SDSA_SIGNATURES = {
@@ -462,6 +474,98 @@ def probe_sdsa(torch, device, this, others):
     return ok
 
 
+def apec_call(lib, entry, res, ov, w, g, work, k, out):
+    """One launch of a serial APEC kernel (`entry`, one of APEC_ENTRIES)
+    of `lib` into `out`."""
+    from repro_torch.kernels import _build
+    csr, occ_r, occ_o = work
+    m, n = res.shape[0], w.shape[1]
+    dims = (m, res.shape[1], k, n) if entry == APEC_ENTRIES[1] else (m, k, n)
+    _build.check(getattr(lib, entry)(
+        res.data_ptr(), ov.data_ptr(), w.data_ptr(), out.data_ptr(),
+        csr.row_ptr.data_ptr(), csr.tile_k_idx.data_ptr(), occ_r.data_ptr(),
+        occ_o.data_ptr(), *dims, -(-m // 128), g, _build.stream()), entry)
+    return out
+
+
+def probe_apec(torch, gen, device, this, others):
+    """Kernels 17 (f32) and 15 (words) at g = 2 on the model's fc1, fc2
+    and stage-1 spikes and on clustered data: `ms` with cuBLAS fp32 on
+    the spikes in turns, each other build in turns (this, other, other,
+    this), the pipelined kernel of the same form (18 or 16), the events,
+    the bounds (`chip_smoke.apec_bounds`); every build's output equal to
+    the k-order chain bit for bit."""
+    from repro_torch.core.spikes import (pack_spikes_padded,
+                                         ragged_tile_occupancy)
+    from repro_torch.kernels import dispatch, ops, spike_matmul as sm
+    g = 2
+    cap = cs.apec_capture(torch, device)
+    (s1, w1, _), (s2, w2, _) = cap["spike_matmul"][:2]
+    s_conv, w_conv, _ = cap["econv"][0]
+    kh, kw, ci, co = w_conv.shape
+    cases = (("ffn_fc1", s1.reshape(-1, s1.shape[-1]), w1),
+             ("ffn_fc2", s2.reshape(-1, s2.shape[-1]), w2),
+             ("econv_stage1",
+              dispatch.econv_patches(s_conv, kh, kw, 1, "SAME"),
+              w_conv.permute(2, 0, 1, 3).reshape(ci * kh * kw, co)))
+    libs = (("this", this), *others.items())
+    ok = True
+    for label, s_model, w in cases:
+        m, k = s_model.shape
+        n = w.shape[1]
+        w = w.float().contiguous()
+        syn = cs.clustered_spikes(torch, m, k, gen, device)
+        for data, s in (("model", s_model.float().contiguous()),
+                        ("clustered50", syn)):
+            ov, res = ops.apec_decompose(s, g)
+            res, ov = res.contiguous(), ov.contiguous()
+            work = ops.apec_union_worklist(res, ov, g)
+            map_r = ops.padded_occupancy(res)
+            map_o = ragged_tile_occupancy(ov, 128 // g, 128)
+            flops, _ = cs.csr_work(torch, map_r, m, k, n, map_o, g)
+            events = cs.apec_events(torch, s, res, ov, map_r, map_o, g)
+            chain = sm.apec_matmul_csr_chain_plain(res, ov, w, g, *work)
+            words = (pack_spikes_padded(res).contiguous(),
+                     pack_spikes_padded(ov).contiguous())
+            for entry, operands, pipe, spike_bytes in (
+                    (APEC_ENTRIES[0], (res, ov), sm.apec_matmul_csr_pipe,
+                     4.0),
+                    (APEC_ENTRIES[1], words, sm.apec_matmul_packed_csr_pipe,
+                     1 / 8)):
+                outs = {name: torch.empty((m, n), device=device)
+                        for name, _ in libs}
+                run = {name: functools.partial(apec_call, lib, entry,
+                                               *operands, w, g, work, k,
+                                               outs[name])
+                       for name, lib in libs}
+                ms, cublas_ms = cs.turns_ms(torch, run["this"],
+                                            functools.partial(torch.matmul,
+                                                              s, w))
+                _, n_bytes = cs.csr_work(torch, map_r, m, k, n, map_o, g,
+                                         spike_bytes=spike_bytes)
+                rec = {"kernel": entry[:-len("_forward")],
+                       "case": f"{label}_{data}", "ms": ms,
+                       "cublas_ms": cublas_ms,
+                       "pipe_ms": cs.cuda_ms(torch, functools.partial(
+                           pipe, *operands, w, g, *work)),
+                       **cs.apec_bounds(False, n_bytes, flops,
+                                        events["events"], n),
+                       **events, "shape": [m, k, n]}
+                for name in others:
+                    t, o = cs.turns_ms(torch, run["this"], run[name])
+                    rec[name] = {"ms": o, "this_ms": t}
+                for name, _ in libs:
+                    same = torch.equal(run[name](), chain)
+                    ok &= same
+                    if name == "this":
+                        rec["equal_to_chain"] = same
+                    else:
+                        rec[name]["equal_to_chain"] = same
+                rec["bound_share"] = rec["bound_ms"] / ms
+                print(json.dumps(rec), flush=True)
+    return ok
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -497,6 +601,8 @@ def main(argv) -> int:
         ok &= probe_counts(torch, device, this, others)
     if "sdsa" in only:
         ok &= probe_sdsa(torch, device, this, others)
+    if "apec" in only:
+        ok &= probe_apec(torch, gen, device, this, others)
     return 0 if ok else 1
 
 
