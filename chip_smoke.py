@@ -18,10 +18,12 @@ Phases, each printed on its own line:
       matmuls at SpikingFormer-4-384's stage-1
       patch matmul (131072x432)x(432x96), FFN fc1 (8192x384)x(384x1536)
       and fc2 (8192x1536)x(1536x384) on data with 50% occupied tiles: the
-      serial kernels 11 (f32) and 13 (words) and the pipelined kernels 12
-      and 14, each within 1e-5 * max|ref| + 1e-5 of its plain version and
-      all four equal bit for bit, with its distance from the fp64 product
-      (`err64`), kernel, plain and cuBLAS fp32 times, the bound (one
+      serial kernels 11 (f32) and 13 (words), event walks, and the
+      pipelined kernels 12 and 14, each within 1e-5 * max|ref| + 1e-5 of
+      its plain version, 11 and 13 equal bit for bit to their k-order
+      chains (`spike_matmul_csr_chain_plain`, packed twin), and all four
+      equal bit for bit, with the live events, its distance from the fp64
+      product (`err64`), kernel, plain and cuBLAS fp32 times, the bound (one
       fp32 instruction a nonzero spike of a live tile and a column,
       against the bytes; `spike_bounds`) with the dense-tile fp32-FMA and
       split-TF32 tensor-core bounds beside, and kernel 14's launch (n-tile
@@ -104,8 +106,10 @@ Phases, each printed on its own line:
       words to the packed spikes of the counts kernel; the packed CSR matmul
       (kernel 13) at the packed stage-1 patch matrix, fc1 and fc2 on the
       model's maps and on data with 50% occupied tiles, within
-      1e-5 * max|ref| + 1e-5 of its plain version, and at fc1/fc2 against
-      kernel 11 on the same spikes; the packed APEC matmuls, serial
+      1e-5 * max|ref| + 1e-5 of its plain version, and it and kernel 11 on
+      the same spikes unpacked equal bit for bit to each other and to their
+      k-order chains, with both times and the live events; the packed
+      APEC matmuls, serial
       (kernel 15) and pipelined (kernel 16), g=2, at fc1, fc2 and stage 1
       on the forward's packed inputs, each against its plain version, 15
       equal to its k-order chain, 16 within twice 15's `err64`, 15 and 16
@@ -691,10 +695,12 @@ def spike_bounds(n_bytes: float, nnz: int, n: int,
 
 def phase_csr(torch, gen, device, results):
     """The CSR matmuls at CSR_SHAPES on data with 50% occupied tiles: the
-    serial kernels 11 and 13 and the pipelined kernels 12 and 14, f32 and
-    words on the same spikes and work list, each against its plain
-    version and all four equal bit for bit (one fmaf chain in k order),
-    beside cuBLAS fp32 on the f32 spikes (timed in turns with kernel 12);
+    serial kernels 11 and 13 (event walks) and the pipelined kernels 12
+    and 14, f32 and words on the same spikes and work list, each against
+    its plain version, 11 and 13 equal bit for bit to their k-order chains
+    (`*_chain_plain`), and all four equal bit for bit (one fmaf chain in k
+    order), beside cuBLAS fp32 on the f32 spikes (timed in turns with
+    kernel 12) and the live events (`events`, what 11 and 13 walk);
     kernels 12 and 14's launches (n-tile width, thread tile, grid, waves
     of two blocks an SM, as their C library reports them) beside their
     times. Kernel 13's main numbers stay phase (j)'s, on the model's
@@ -730,6 +736,10 @@ def phase_csr(torch, gen, device, results):
             err = (out - ref).abs().max().item()
             tol = 1e-5 * ref.abs().max().item() + 1e-5
             check(err <= tol, f"{name} off by {err} > {tol} ({label})")
+            chain = getattr(sm, name + "_chain_plain", None)
+            if chain:                   # the walks: their k-order chain
+                same_bits(torch, out, chain(a, w, csr),
+                          f"{name} and its k-order chain", label)
             # Distance from the fp64 product, relative to its max |value|.
             err64 = ((out.double() - exact).abs().max() /
                      exact.abs().max()).item()
@@ -748,6 +758,7 @@ def phase_csr(torch, gen, device, results):
                            plain, a, w, csr), reps=3, warmup=1),
                        **spike_bounds(n_bytes, nnz, n, flops),
                        tensor_core_ops_bound_ms=t_tc, library_ms=cublas_ms,
+                       events=nnz,
                        occupied_share=(occ > 0).float().mean().item(),
                        shape=[m, k, n])
             launch = {"spike_matmul_csr_pipe": sm.pipe_launch,
@@ -1906,7 +1917,9 @@ def packed_capture(torch, device):
 def phase_packed_csr(torch, gen, cap, results):
     """Kernel 13 at the packed stage-1 patch matrix, fc1 and fc2: the
     model's words and work lists, and clustered data with 50% occupied
-    tiles; at fc1/fc2 also against kernel 11 on the same spikes."""
+    tiles; at each, kernels 13 and 11 (on the same spikes unpacked) equal
+    bit for bit to each other and to their k-order chains, with their
+    times and the live events they walk."""
     from repro_torch.core.spikes import (build_csr, pack_spikes_padded,
                                          ragged_packed_tile_occupancy,
                                          unpack_spikes)
@@ -1932,8 +1945,18 @@ def phase_packed_csr(torch, gen, cap, results):
             tol = 1e-5 * ref.abs().max().item() + 1e-5
             check(err <= tol, f"packed CSR kernel off by {err} > {tol} "
                   f"({label}, {data})")
+            what = f"{label}, {data}"
+            chain = spike_matmul.spike_matmul_packed_csr_chain_plain
+            same_bits(torch, out, chain(p, w, csr),
+                      "spike_matmul_packed_csr and its k-order chain", what)
+            k11 = spike_matmul.spike_matmul_csr(dense, w, csr)
+            chain = spike_matmul.spike_matmul_csr_chain_plain
+            same_bits(torch, k11, chain(dense, w, csr),
+                      "spike_matmul_csr and its k-order chain", what)
+            same_bits(torch, out, k11, "kernels 13 and 11", what)
             worst = max(worst, err)
             occ = ragged_packed_tile_occupancy(p, 128, 128)
+            nnz = live_nonzeros(torch, dense, occ)
             flops, n_bytes = csr_work(torch, occ, m, k, n, spike_bytes=1 / 8)
             rec = dict(max_abs_err=err, tolerance=tol,
                        ms=cuda_ms(torch, lambda: spike_matmul
@@ -1941,20 +1964,14 @@ def phase_packed_csr(torch, gen, cap, results):
                        plain_ms=cuda_ms(torch, lambda: spike_matmul
                                         .spike_matmul_packed_csr_plain(
                                             p, w, csr), reps=5),
-                       **spike_bounds(n_bytes,
-                                      live_nonzeros(torch, dense, occ), n,
-                                      flops),
+                       **spike_bounds(n_bytes, nnz, n, flops),
                        library_ms=cuda_ms(torch, functools.partial(
                            torch.matmul, dense, w)),
+                       kernel11_ms=cuda_ms(torch, functools.partial(
+                           spike_matmul.spike_matmul_csr, dense, w, csr)),
+                       events=nnz,
                        occupied_share=(occ > 0).float().mean().item(),
                        shape=[m, p.shape[1], k, n])
-            if label != "econv_stage1":
-                rec["kernel11_max_abs_delta"] = (
-                    out - spike_matmul.spike_matmul_csr(dense, w, csr)
-                ).abs().max().item()
-                rec["kernel11_ms"] = cuda_ms(
-                    torch, lambda: spike_matmul.spike_matmul_csr(dense, w,
-                                                                 csr))
             emit("kernel", name="spike_matmul_packed_csr",
                  case=f"{label}_{data}", **rec)
             if (label, data) == ("econv_stage1", "model"):

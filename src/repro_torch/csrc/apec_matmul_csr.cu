@@ -1,7 +1,9 @@
 // Fused APEC matmul over a union CSR-of-tiles work list:
 // out = res @ w + repeat(ov @ w, g) along the rows, with res and ov as f32
 // spikes or as uint32 words, summed as an event walk: one weight-row
-// accumulate per residual or overlap spike.
+// accumulate per residual or overlap spike. The walk's pieces (event
+// lists, weight staging, word loads) are csrc/event_walk.cuh's, shared with
+// the serial CSR kernels 11 and 13 (csrc/spike_matmul_csr.cu).
 //
 // Replaces: src/repro/kernels/spike_matmul.py::_apec_matmul_csr_kernel
 //           (apec_matmul_csr_pallas, pipeline=False) and, on words,
@@ -70,22 +72,27 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "tile_mma.cuh"
+#include "event_walk.cuh"
 
 namespace {
 
-constexpr int kTile = 128;                 // map tile (rows and k)
-constexpr int kWarps = 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsW = kTile / kWarps;     // residual rows a warp
-constexpr int kWords = kTile / 32;         // spike words a row a step
+using event_walk::kBatch;
+using event_walk::kRowsW;
+using event_walk::kThreads;
+using event_walk::kTile;
+using event_walk::kWarps;
+using event_walk::kWords;
+using event_walk::load_words;
+using event_walk::row_words;
+using event_walk::stage_weights;
+using event_walk::store4;
+using event_walk::walk_binary;
+using event_walk::walk_f32_row;
+
 constexpr int kAhead = 3;                  // f32 rows loaded ahead of walk
-constexpr int kBatch = 4;                  // weight rows loaded at once
 // The f32 g = 1 instance holds the most accumulators (128 rows of each
 // operand a block): it loads 2 rows ahead and 2 weight rows at once, or
 // it spills.
-constexpr unsigned kFull = 0xffffffffu;
-static_assert(kRowsW * kWords == 32, "a residual word a lane a step");
 
 // A warp's rows of one m-tile: kRowsW residual rows, then kOvW overlap
 // rows (below 16 overlap rows, g >= 16, the warps past them hold none).
@@ -96,100 +103,6 @@ struct Rows {
   static constexpr int kOvW = (kRo + kWarps - 1) / kWarps;
   static constexpr int kSeq = kRowsW + kOvW;
 };
-
-__device__ __forceinline__ void add4(float4& acc, const float4& b) {
-  acc.x += b.x;
-  acc.y += b.y;
-  acc.z += b.z;
-  acc.w += b.w;
-}
-
-// acc += v_j * w[j] for each set bit j of `bits`, in ascending j, v_j
-// being lane j's `x` (f32 spikes of any value), one event at a time; `wq`
-// points at this lane's four columns of the slice's first weight row.
-__device__ __forceinline__ void walk_valued(uint32_t bits, float x,
-                                            const float* wq, int bn,
-                                            float4& acc) {
-#pragma unroll 1
-  while (bits) {
-    const int j = __ffs(bits) - 1;
-    bits &= bits - 1;
-    const float v = __shfl_sync(kFull, x, j);
-    const float4 b = *reinterpret_cast<const float4*>(wq + j * bn);
-    acc.x = fmaf(v, b.x, acc.x);
-    acc.y = fmaf(v, b.y, acc.y);
-    acc.z = fmaf(v, b.z, acc.z);
-    acc.w = fmaf(v, b.w, acc.w);
-  }
-}
-
-// acc += w[j] for each set bit j of a row's step words `bits` (binary
-// spikes; fadd(acc, w) = fmaf(1, w, acc)), in ascending j; `wt` points at
-// this lane's four columns of the step's first weight row. The warp
-// first writes the row's events (columns within the step, ascending) to
-// its `list` in shared memory, each lane placing its own columns' set
-// bits at their ranks; then every lane reads the list B indices at a
-// time and adds their weight rows in order, B loads in flight (one event
-// at a time, a warp waits out each load).
-template <int B>
-__device__ __forceinline__ void walk_binary(const uint32_t (&bits)[kWords],
-                                            uint8_t* list, const float* wt,
-                                            int bn, float4& acc) {
-  static_assert(B == 2 || B == 4, "a batch is one 16- or 32-bit list read");
-  const int lane = threadIdx.x % 32;
-  const uint32_t below = (1u << lane) - 1u;
-  int count = 0;
-  __syncwarp();                  // the warp's last walk has read the list
-#pragma unroll
-  for (int q = 0; q < kWords; ++q) {
-    if (bits[q] >> lane & 1u)
-      list[count + __popc(bits[q] & below)] = (uint8_t)(32 * q + lane);
-    count += __popc(bits[q]);
-  }
-  __syncwarp();
-  int e = 0;
-#pragma unroll 1
-  for (; e + B <= count; e += B) {
-    const uint32_t js = B == 4 ? *reinterpret_cast<const uint32_t*>(list + e)
-                               : *reinterpret_cast<const uint16_t*>(list + e);
-    float4 b[B];
-#pragma unroll
-    for (int u = 0; u < B; ++u)
-      b[u] = *reinterpret_cast<const float4*>(wt + (js >> 8 * u & 0xffu) * bn);
-#pragma unroll
-    for (int u = 0; u < B; ++u) add4(acc, b[u]);
-  }
-#pragma unroll 1
-  for (; e < count; ++e)
-    add4(acc, *reinterpret_cast<const float4*>(wt + list[e] * bn));
-}
-
-// Stages w[k0:k0+128, n0:n0+bn] into `dst` (rows of bn floats), zeros
-// past K and N; one cp.async group's copies. `vec`: N % 4 == 0 and w
-// 16-byte aligned, else 4-byte copies.
-__device__ __forceinline__ void stage_weights(float* dst,
-                                              const float* __restrict__ w,
-                                              int64_t k0, int64_t n0,
-                                              int64_t k, int64_t n, int bn,
-                                              bool vec) {
-  const int per_row = bn / 4;
-  for (int e = threadIdx.x; e < kTile * per_row; e += kThreads) {
-    const int r = e / per_row, c = e % per_row * 4;
-    const int64_t gk = k0 + r, gn = n0 + c;
-    float* d = dst + r * bn + c;
-    if (vec) {
-      const bool in = gk < k && gn < n;
-      tile_mma::cp16(d, in ? w + gk * n + gn : w, in);
-    } else {
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const bool in = gk < k && gn + u < n;
-        tile_mma::cp4(d + u, in ? w + gk * n + gn + u : w, in);
-      }
-    }
-  }
-  tile_mma::commit();
-}
 
 // The block's view of one launch.
 struct Problem {
@@ -235,21 +148,6 @@ __device__ __forceinline__ void load_entry(float (&x)[kWords],
 #pragma unroll
   for (int q = 0; q < kWords; ++q)
     x[q] = live && k0 + 32 * q + lane < p.k ? __ldg(src + 32 * q) : 0.0f;
-}
-
-// Words: this lane's (row, word) of the step at k0 for the operand at
-// `s` (rows from `row0`, `nrows` of them in the tile): lane l holds row
-// warp + 16 (l / 4)'s word l % 4; zero where the operand is dead (`live`
-// false) or the row or word lies past it.
-__device__ __forceinline__ uint32_t load_words(const uint32_t* __restrict__ s,
-                                               int64_t rows, int64_t kw,
-                                               int64_t row0, int nrows,
-                                               int64_t k0, bool live) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r = warp + kWarps * (lane / kWords);
-  const int64_t row = row0 + r, gw = k0 / 32 + lane % kWords;
-  return live && r < nrows && row < rows && gw < kw ? __ldg(s + row * kw + gw)
-                                                    : 0u;
 }
 
 template <int G, bool kPacked>
@@ -326,10 +224,7 @@ apec_walk_kernel(Problem p) {
 #pragma unroll
         for (int i = 0; i < kRowsW; ++i) {
           uint32_t bits[kWords];
-#pragma unroll
-          for (int q = 0; q < kWords; ++q)
-            bits[q] = 32 * q < left ? __shfl_sync(kFull, wr, kWords * i + q)
-                                    : 0u;
+          row_words(bits, wr, i, left);
           walk_binary<kB>(bits, list, wt, bn, acc_r[i]);
         }
       }
@@ -338,11 +233,7 @@ apec_walk_kernel(Problem p) {
         for (int i = 0; i < R::kOvW; ++i)
           if (warp + kWarps * i < R::kRo) {
             uint32_t bits[kWords];
-#pragma unroll
-            for (int q = 0; q < kWords; ++q)
-              bits[q] = 32 * q < left
-                            ? __shfl_sync(kFull, wo, kWords * i + q)
-                            : 0u;
+            row_words(bits, wo, i, left);
             walk_binary<kB>(bits, list, wt, bn, acc_o[i]);
           }
       }
@@ -368,20 +259,7 @@ apec_walk_kernel(Problem p) {
                                  : acc_o[t < kRowsW ? 0 : t - kRowsW];
         // Binary rows (the spikes APEC takes) walk their event list; a
         // row holding any other value (counts) walks with the values.
-        uint32_t bits[kWords];
-        bool valued = false;
-#pragma unroll
-        for (int q = 0; q < kWords; ++q) {
-          bits[q] = __ballot_sync(kFull, x[q] != 0.0f);
-          valued |= x[q] != 0.0f && x[q] != 1.0f;
-        }
-        if (__any_sync(kFull, valued)) {
-#pragma unroll
-          for (int q = 0; q < kWords; ++q)
-            walk_valued(bits[q], x[q], wt + 32 * q * bn, bn, acc);
-        } else {
-          walk_binary<kB>(bits, list, wt, bn, acc);
-        }
+        walk_f32_row<kB>(x, list, wt, bn, acc);
       }
     }
     step = nxt;
@@ -412,20 +290,8 @@ apec_walk_kernel(Problem p) {
     const float4 o = *reinterpret_cast<const float4*>(ovsum + r / G * bn + c);
     const float4 v = make_float4(acc_r[i].x + o.x, acc_r[i].y + o.y,
                                  acc_r[i].z + o.z, acc_r[i].w + o.w);
-    float* dst = p.out + gr * p.n + n0 + c;
-    if (p.vec_out) {
-      *reinterpret_cast<float4*>(dst) = v;
-    } else {
-      const float vs[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (n0 + c + u < p.n) dst[u] = vs[u];
-    }
+    store4(p.out + gr * p.n + n0 + c, v, n0 + c, p.n, p.vec_out);
   }
-}
-
-bool aligned16(const void* ptr) {
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
 template <int G, bool kPacked>
@@ -446,8 +312,8 @@ int forward(Problem p, int64_t mt, int64_t g, void* stream) {
   if (g < 1 || p.m % g != 0) return (int)cudaErrorInvalidValue;
   if (p.m > 0 && p.n > 0) {
     p.bn = tile_mma::pick_bn_waves(p.n, mt, 1);
-    p.vec_w = p.n % 4 == 0 && aligned16(p.w);
-    p.vec_out = p.n % 4 == 0 && aligned16(p.out);
+    p.vec_w = p.n % 4 == 0 && event_walk::aligned16(p.w);
+    p.vec_out = p.n % 4 == 0 && event_walk::aligned16(p.out);
     cudaError_t err = cudaSuccess;
     if (!tile_fma::dispatch_group(g, [&](auto gc) {
           err = launch<decltype(gc)::value, kPacked>(

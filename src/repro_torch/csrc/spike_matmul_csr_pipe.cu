@@ -23,12 +23,12 @@
 //           kStages stages of one 32-deep k-slice each, the spike slice
 //           (f32, or one word a row) and the weight slice arriving by
 //           cp.async kStages-1 slices ahead of compute, across step
-//           boundaries, so no thread stalls on its own loads as kernel
-//           11's synchronous staging does. Steps with occ == 0 (dummy
+//           boundaries, so no thread stalls on its own loads. Steps with occ == 0 (dummy
 //           steps of empty rows) issue no copy; an empty row writes
 //           zeros; padding steps past row_ptr[MT] are never reached. Each
-//           output is an fmaf chain in k order, kernel 11's arithmetic:
-//           the result equals kernel 11's (and cuBLAS fp32's) bit for bit
+//           output is an fmaf chain in k order, the arithmetic of kernel
+//           11's event walk (which skips the zero spikes): the result
+//           equals kernel 11's (and cuBLAS fp32's) bit for bit
 //           (tile_mma.cuh says why not tensor cores).
 //           Both loaders share one thread tile (`tile_mma::ThreadTile`):
 //           a thread holds few rows and many columns in runs of 4 (8 x 8

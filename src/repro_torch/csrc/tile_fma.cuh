@@ -1,12 +1,13 @@
-// The register-blocked fp32 tile loop of the serial spike matmul kernels:
-// the CSR kernels 11 and 13 (csrc/spike_matmul_csr.cu) and the predicated
-// kernel 10's wide path, N > 16 (csrc/spike_matmul.cu); the spike-operand
-// loaders they read through; and the dynamic shared-memory opt-in and the
-// group-size dispatch that every pipelined or fused kernel launches with. The pipelined kernels (TPU rows 12, 14,
-// 16 and 18) and kernel 10's narrow path (N <= 16, SegNet's tconvs) feed
-// the same fmaf arithmetic, or its equal, from csrc/tile_mma.cuh's
-// cp.async ring instead of this loop's synchronous staging (rows 16 and
-// 18 sum on the tensor cores, csrc/tile_tc.cuh).
+// The register-blocked fp32 tile loop of the predicated kernel 10's wide
+// path, N > 16 (csrc/spike_matmul.cu), with its f32 spike loader; and the
+// dynamic shared-memory opt-in and the group-size dispatch that the
+// pipelined, fused and walking kernels launch with. Kernel 10's narrow
+// path (N <= 16, SegNet's tconvs) and the pipelined kernels (TPU rows 12,
+// 14, 16 and 18) feed the same fmaf arithmetic, or its equal, from
+// csrc/tile_mma.cuh's cp.async ring instead of this loop's synchronous
+// staging (rows 16 and 18 sum on the tensor cores, csrc/tile_tc.cuh); the
+// serial CSR and APEC kernels (rows 11, 13, 15 and 17) walk the spikes'
+// events instead (csrc/event_walk.cuh), with the same sums.
 //
 // A block owns one 128-row x BN-column output tile. Each occupied
 // 128-deep k-tile streams its s tile and w tile through shared memory in
@@ -15,15 +16,8 @@
 // k order. Ragged edges (M, K or N not multiples of the tile) are masked
 // on load and store, and a slice that lies wholly past K is not staged at
 // all (it would add fmaf(0, 0, acc) = acc), so callers never materialise
-// padded copies.
-//
-// The spike operand comes through a loader: `DenseA` reads f32 spikes,
-// `PackedA` uint32 words (bit i of word w = column 32w+i), whose
-// (rows x 4)-word tile it stages in shared memory once per occupied step
-// (2 KB for 128 rows, against 64 KB of f32) and unpacks bit by bit into
-// the same slices. A bit is 1.0f or 0.0f, and fmaf(1, w, acc) = acc + w,
-// fmaf(0, w, acc) = acc, so both loaders give the same sums in the same
-// order.
+// padded copies. The spike operand comes through a loader, `DenseA`, which
+// reads f32 spikes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -79,43 +73,15 @@ struct Staging {
   float b[kSlice][BN];              // w slice
 };
 
-constexpr int kTileWords = kTile / 32;   // uint32 words per k-tile row
-
 // f32 spikes, (M, K) row-major.
 struct DenseA {
   const float* __restrict__ s;
   int64_t m, k;
-  __device__ __forceinline__ void begin(int64_t, int64_t) {}
   // The spike at row m0 + r, column k0 + c; 0 past the edges.
   __device__ __forceinline__ float at(int64_t m0, int64_t k0, int r,
                                       int c) const {
     const int64_t gr = m0 + r, gc = k0 + c;
     return (gr < m && gc < k) ? s[gr * k + gc] : 0.0f;
-  }
-};
-
-// uint32 words of binary spikes, (M, KW) row-major. Bits past the
-// matmul's K need no mask: they meet weight rows the B loads zero, and
-// fmaf(b, 0, acc) = acc. `tile` is ROWS x kTileWords words of shared
-// memory.
-template <int ROWS>
-struct PackedA {
-  const uint32_t* __restrict__ p;
-  int64_t m, kw;
-  uint32_t* tile;
-  // Stage the step's word tile; every thread of the block must call it
-  // (it synchronises), after the previous step's last read.
-  __device__ __forceinline__ void begin(int64_t m0, int64_t k0) {
-    for (int e = threadIdx.x; e < ROWS * kTileWords; e += blockDim.x) {
-      const int64_t gr = m0 + e / kTileWords;
-      const int64_t gw = k0 / 32 + e % kTileWords;
-      tile[e] = (gr < m && gw < kw) ? p[gr * kw + gw] : 0u;
-    }
-    __syncthreads();
-  }
-  __device__ __forceinline__ float at(int64_t, int64_t, int r,
-                                      int c) const {
-    return (float)((tile[r * kTileWords + (c >> 5)] >> (c & 31)) & 1u);
   }
 };
 
@@ -132,12 +98,11 @@ __device__ __forceinline__ void zero(float (&acc)[RM][RN]) {
 // must call it (it synchronises).
 template <int BN, int RM, int RN, class A>
 __device__ __forceinline__ void accumulate_tile(
-    Staging<BN>& st, A& a, const float* __restrict__ w, int64_t m0,
+    Staging<BN>& st, const A& a, const float* __restrict__ w, int64_t m0,
     int64_t n0, int64_t k0, int64_t k, int64_t n, float (&acc)[RM][RN]) {
   using S = Shape<BN, RM, RN>;
   const int tid = threadIdx.x;
   const int tx = tid % S::kTX, ty = tid / S::kTX;
-  a.begin(m0, k0);
   for (int kk = 0; kk < kTile; kk += kSlice) {
     if (k0 + kk >= k) break;
 #pragma unroll

@@ -25,9 +25,10 @@
 // (`kernels/spike_matmul.py::ring_schedule`) to that contract.
 //
 // The CSR kernels' compute is fp32 on the CUDA cores, each output summed
-// in k order one rounding at a time, as kernel 11 (csrc/tile_fma.cuh) and
-// cuBLAS's fp32 GEMM sum it: the results equal theirs bit for bit,
-// binary or multi-bit spikes, f32 or words. A split-TF32 tensor-core loop
+// in k order one rounding at a time, as the serial kernels' event walk
+// (csrc/event_walk.cuh: kernels 11 and 13 skip the zero spikes, which add
+// nothing) and cuBLAS's fp32 GEMM sum it: the results equal theirs bit
+// for bit, binary or multi-bit spikes, f32 or words. A split-TF32 tensor-core loop
 // (w = hi + lo, two mma.sync.m16n8k8 per fragment, each k8 step's or
 // slice's MMAs summed from zero and added in fp32) ran 1.8-2.5x faster
 // than kernel 11 and sat closer to the fp64 product than it, but rounds in
@@ -47,8 +48,8 @@
 // k-columns at a time (LDS.128; a warp's rows are consecutive, 36 floats
 // apart, so their pieces fall on disjoint banks) and runs RM x CN fmafs a
 // k-column: 16 FMAs a shared-memory load at BN = 128, 12 at 96, 10.7 at
-// 64, where kernel 11's 16 x 16 layout of 8 rows x BN/16 columns runs 4
-// at 128 and 3.4 at 96. On words (`add_word_slice`) one bit test of a
+// 64, where csrc/tile_fma.cuh's 16 x 16 layout of 8 rows x BN/16 columns
+// (kernel 10's wide path) runs 4 at 128 and 3.4 at 96. On words (`add_word_slice`) one bit test of a
 // row's word predicates CN fadds (a set bit adds the weight row, fadd(acc,
 // w) = fmaf(1, w, acc); a clear one adds nothing, as fmaf(0, w, acc) =
 // acc: kernel 11's chain, with no float made of the bit). A slice's

@@ -6,10 +6,12 @@
                                              packed (words, no spikes);
                                              surrogate backward
   spike_matmul.py  csrc/spike_matmul_csr.cu  event-compacted CSR matmul, on
-                                             f32 spikes or packed words
+                                             f32 spikes or packed words,
+                                             as an event walk
+                                             (csrc/event_walk.cuh)
                    csrc/spike_matmul.cu      predicated (map-gated) matmul
-                   (both on csrc/tile_fma.cuh, the shared tile loop and
-                   its f32 / word spike loaders)
+                                             (its wide path on
+                                             csrc/tile_fma.cuh's tile loop)
                    csrc/apec_matmul_csr.cu   APEC's fused residual + overlap
                                              matmul on a union work list,
                                              on f32 spikes or packed words,

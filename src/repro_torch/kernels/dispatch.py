@@ -14,6 +14,7 @@ manual routes (`auto=False`, reached only by an override):
                              map (cp.async ring; kernel 11's sums)
                 cuda-packed-pipe  its word kernel (packed payload)
                 cuda         csrc/spike_matmul_csr.cu, serial fp32
+                             event walk (kernel 11)
                 cuda-packed  csrc/spike_matmul_csr.cu's word kernel
                              (packed payload)
                 cuda-pred    csrc/spike_matmul.cu, predicated (manual)

@@ -2,28 +2,29 @@
 
 `spike_matmul_csr(s, w, csr)` is event-compacted: it sums only the
 occupied (m-tile, k-tile) steps of `csr` (a `core.spikes.TileCSR`) and
-launches `csrc/spike_matmul_csr.cu`. `spike_matmul_pred(s, w, occ)` is
-predicated: every m-tile row walks all its k-tiles and the map gates
-each product; it launches `csrc/spike_matmul.cu`, which streams the live
-k-tiles of a row through a copy ring of its own for N <= 16.
-`spike_matmul_csr_pipe(s, w, csr)` is the same function, with the same
-sums, on the pipelined kernel `csrc/spike_matmul_csr_pipe.cu` (a
-cp.async ring of 32-deep k-slices); its plain version walks the ring's
-schedule (`ring_schedule`) and checks it (`check_ring_trace`).
-`apec_matmul_csr(res, ov, w, g, csr, occ_res, occ_ov)` is APEC's fused
-pair of products over a union work list; it launches
-`csrc/apec_matmul_csr.cu`, an event walk whose sums
-`apec_matmul_csr_chain_plain` repeats bit for bit (a k-order chain), and
-`apec_matmul_csr_pipe` the same function
-on the ring (`csrc/apec_matmul_csr_pipe.cu`, the schedule's union-gated
-twin checked in its plain version). `spike_matmul_packed_csr`,
+launches `csrc/spike_matmul_csr.cu`, an event walk (one weight-row add
+per nonzero spike, csrc/event_walk.cuh) whose sums
+`spike_matmul_csr_chain_plain` repeats bit for bit (a k-order fmaf
+chain). `spike_matmul_pred(s, w, occ)` is predicated: every m-tile row
+walks all its k-tiles and the map gates each product; it launches
+`csrc/spike_matmul.cu`, which streams the live k-tiles of a row through
+a copy ring of its own for N <= 16. `spike_matmul_csr_pipe(s, w, csr)`
+is the same function, with the same sums, on the pipelined kernel
+`csrc/spike_matmul_csr_pipe.cu` (a cp.async ring of 32-deep k-slices);
+its plain version walks the ring's schedule (`ring_schedule`) and checks
+it (`check_ring_trace`). `apec_matmul_csr(res, ov, w, g, csr, occ_res,
+occ_ov)` is APEC's fused pair of products over a union work list; it
+launches `csrc/apec_matmul_csr.cu`, the same event walk over both
+operands, whose sums `apec_matmul_csr_chain_plain` repeats bit for bit,
+and `apec_matmul_csr_pipe` the same function on the ring
+(`csrc/apec_matmul_csr_pipe.cu`, the schedule's union-gated twin checked
+in its plain version). `spike_matmul_packed_csr`,
 `spike_matmul_packed_csr_pipe`, `apec_matmul_packed_csr` and
 `apec_matmul_packed_csr_pipe` are the same kernels with the spike
 operands as uint32 words ((M, ceil(K/32)), bit i of word w = column
-32w+i), each word tile read on chip. On a CPU
-tensor each runs its plain version (the packed ones unpack, then run the
-f32 plain version). All accept any (M, K) x (K, N): ragged edge tiles are
-masked, never padded.
+32w+i), each word tile read on chip. On a CPU tensor each runs its plain
+version (the packed ones unpack, then run the f32 plain version). All
+accept any (M, K) x (K, N): ragged edge tiles are masked, never padded.
 """
 from __future__ import annotations
 
@@ -81,6 +82,51 @@ def spike_matmul_csr_plain(s: torch.Tensor, w: torch.Tensor,
     m, k = s.shape
     return spike_matmul_pred_plain(
         s, w, csr_tile_gate(csr, -(-m // TILE), -(-k // TILE)))
+
+
+def _fmaf(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fmaf(a, b, c) of f32 tensors (broadcast), rounded once as the
+    card's fused multiply-add rounds it. a * b is exact in fp64; the sum
+    is taken in fp64 rounded to odd (TwoSum's error term picks the odd
+    neighbour of an inexact sum), which rounds to the same f32 as the exact
+    value, since fp64 keeps more than 24 + 1 bits."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    even = (s.contiguous().view(torch.int64) & 1) == 0
+    away = torch.where(err > 0, torch.inf, -torch.inf).to(s)
+    return torch.where((err != 0) & even, torch.nextafter(s, away), s).float()
+
+
+def _fmaf_chain(s: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """s @ w summed one k column at a time in k order, acc = fmaf(s[:, k],
+    w[k], acc) from acc = +0: the serial kernels' arithmetic. On binary s
+    each term is exact (acc + w or acc + 0), so f32 adds stand in for the
+    fused ones."""
+    wf = w.float()
+    acc = torch.zeros((s.shape[0], w.shape[1]), device=s.device)
+    binary = bool(((s == 0) | (s == 1)).all())
+    for c in range(s.shape[1]):
+        if binary:
+            acc.add_(s[:, c, None] * wf[c])
+        else:
+            acc = _fmaf(s[:, c, None], wf[c], acc)
+    return acc
+
+
+def spike_matmul_csr_chain_plain(s: torch.Tensor, w: torch.Tensor,
+                                 csr: TileCSR) -> torch.Tensor:
+    """The serial CSR kernel's arithmetic: s gated by the work list's
+    occupied tiles, as `spike_matmul_csr_plain` gates it, then every output
+    summed one k column at a time in k order, acc = fmaf(v, w[k], acc)
+    (`_fmaf_chain`). The kernel skips zero spikes, which add nothing for
+    finite w, so its result equals this bit for bit, binary or multi-bit
+    spikes."""
+    m, k = s.shape
+    return _fmaf_chain(_gated(s, csr_tile_gate(csr, -(-m // TILE),
+                                               -(-k // TILE))), w)
 
 
 def _csr_matmul(name: str, s: torch.Tensor, w: torch.Tensor, csr: TileCSR,
@@ -369,23 +415,17 @@ def apec_matmul_csr_chain_plain(res: torch.Tensor, ov: torch.Tensor,
                                 occ_res: torch.Tensor,
                                 occ_ov: torch.Tensor) -> torch.Tensor:
     """The serial APEC kernel's arithmetic: each operand gated by its own
-    per-step counts as `apec_matmul_csr_plain` gates it, then every output
-    summed one k column at a time in k order, acc = acc + v * w[k], the
-    residual and overlap sums apart and added last (acc_res +
-    repeat_interleave(acc_ov, g)). On binary spikes each term is the
-    kernel's fmaf(v, w[k], acc), a zero v adding nothing, so the result is
-    the kernel's bit for bit (multi-bit spikes round v * w first)."""
+    per-step counts as `apec_matmul_csr_plain` gates it, then each summed
+    as the serial CSR kernel sums it (`_fmaf_chain`: one k column at a time
+    in k order, acc = fmaf(v, w[k], acc)), the residual and overlap sums
+    apart and added last (acc_res + repeat_interleave(acc_ov, g)). The
+    kernel skips zero spikes, which add nothing, so its result equals this
+    bit for bit."""
     m, k = res.shape
     mt, kt = -(-m // TILE), -(-k // TILE)
     r = _gated(res, csr_tile_gate(csr, mt, kt, occ_res))
     o = _gated(ov, csr_tile_gate(csr, mt, kt, occ_ov), TILE // g)
-    wf = w.float()
-    acc_r = torch.zeros((m, w.shape[1]), device=res.device)
-    acc_o = torch.zeros((ov.shape[0], w.shape[1]), device=res.device)
-    for c in range(k):
-        acc_r.add_(r[:, c, None] * wf[c])
-        acc_o.add_(o[:, c, None] * wf[c])
-    return acc_r + acc_o.repeat_interleave(g, 0)
+    return _fmaf_chain(r, w) + _fmaf_chain(o, w).repeat_interleave(g, 0)
 
 
 def apec_matmul_csr_pipe_plain(res: torch.Tensor, ov: torch.Tensor,
@@ -513,6 +553,14 @@ def spike_matmul_packed_csr_plain(p: torch.Tensor, w: torch.Tensor,
     kernel's plain version."""
     return spike_matmul_csr_plain(unpack_spikes_padded(p, w.shape[0]), w,
                                   csr)
+
+
+def spike_matmul_packed_csr_chain_plain(p: torch.Tensor, w: torch.Tensor,
+                                        csr: TileCSR) -> torch.Tensor:
+    """The packed CSR kernel's arithmetic: unpack, then
+    `spike_matmul_csr_chain_plain` (the kernel's sums bit for bit)."""
+    return spike_matmul_csr_chain_plain(unpack_spikes_padded(p, w.shape[0]),
+                                        w, csr)
 
 
 def _packed_csr_matmul(name: str, p: torch.Tensor, w: torch.Tensor,

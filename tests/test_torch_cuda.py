@@ -10,9 +10,9 @@ SDSA and causal-status words, APEC overlap/residual words and the packed
 fire's words must match exactly; the CSR, predicated and fused APEC
 matmuls, f32 and packed, within 1e-5 * max|plain| + 1e-5 (fp32 summation
 order); the pipelined CSR kernels equal the serial ones bit for bit (the
-same fmaf chains), and the serial APEC kernels (event walks) equal their
-k-order chain plain versions and each other bit for bit on binary
-spikes. The pipelined APEC kernels sum on the tensor cores (an
+same fmaf chains), and the serial CSR and APEC kernels (event walks)
+equal their k-order chain plain versions and each other bit for bit
+(the CSR ones on multi-bit spikes too), with no register spill. The pipelined APEC kernels sum on the tensor cores (an
 exact bf16 split of the weights): their distance from the fp64 product
 is at most twice the serial kernels' on the same inputs (2^-23 where
 theirs is 0), and the word kernel equals the f32 one bit for bit.
@@ -427,6 +427,100 @@ def test_cuda_csr_kernel_writes_zeros_for_empty_rows(cuda_device):
         out = ops.spike_matmul_csr(s, w, occupancy=occ, pipeline=pipeline)
         assert torch.all(out[:128] == 128) and torch.all(out[128:256] == 0)
         assert torch.all(out[256:] == 72)
+
+
+def _walk_case(rng, m, k, n, device, form, gate):
+    """Kernel 11's or 13's operands: clustered spikes with an all-empty
+    m-tile row (multi-bit values for `form` "multibit", words for
+    "packed") and a work list from the operand's own map, from the map an
+    `EventTensor` carries ("carried"), or from the own map with one live
+    step's count set to 0 ("dummy": its tile's spikes must add nothing)."""
+    s, w = _pred_case(rng, m, k, n, device, form == "multibit")
+    packed = form == "packed"
+    a = pack_spikes_padded(s) if packed else s
+    if gate == "carried":
+        csr = EventTensor.from_spikes(s, pack=packed).csr(128, 128)
+    else:
+        csr = build_csr(ops.padded_occupancy(s), 128, 128)
+    if gate == "dummy":
+        occ = csr.occ.clone()
+        occ[0] = 0
+        csr = csr._replace(occ=occ)
+    return a, w, csr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(300, 200, 70), (1000, 432, 96),
+                                   (260, 576, 33), (384, 1536, 130),
+                                   (512, 384, 1536), (1024, 27, 48)])
+@pytest.mark.parametrize("form", ["f32", "multibit", "packed"])
+@pytest.mark.parametrize("gate", ["own", "carried", "dummy"])
+def test_cuda_csr_walks_equal_their_chain(cuda_device, m, k, n, form, gate):
+    """Kernels 11 (f32 spikes, any value) and 13 (words) walk their events
+    in k order: equal bit for bit to the k-order fmaf chain, at ragged M,
+    K and N (N % 4 != 0 included), zeros on the empty m-tile row, nothing
+    from a step whose count is 0."""
+    rng = np.random.default_rng(m + k + n)
+    a, w, csr = _walk_case(rng, m, k, n, cuda_device, form, gate)
+    if form == "packed":
+        got = spike_matmul.spike_matmul_packed_csr(a, w, csr)
+        chain = spike_matmul.spike_matmul_packed_csr_chain_plain(a, w, csr)
+        want = spike_matmul.spike_matmul_packed_csr_plain(a, w, csr)
+    else:
+        got = spike_matmul.spike_matmul_csr(a, w, csr)
+        chain = spike_matmul.spike_matmul_csr_chain_plain(a, w, csr)
+        want = spike_matmul.spike_matmul_csr_plain(a, w, csr)
+    assert torch.equal(got, chain)
+    tol = 1e-5 * want.abs().max().item() + 1e-5
+    assert (got - want).abs().max().item() <= tol
+    assert torch.all(got[128:256] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(300, 200, 70), (1000, 432, 96),
+                                   (384, 1536, 130), (512, 384, 1536)])
+@pytest.mark.parametrize("gate", ["own", "carried", "dummy"])
+def test_cuda_csr_kernels_11_to_14_are_one_chain(cuda_device, m, k, n, gate):
+    """The same binary spikes and work list through the serial walks (11,
+    13) and the pipelined tiles (12, 14): one fmaf chain in k order, so all
+    four are equal bit for bit."""
+    rng = np.random.default_rng(m + n)
+    s, w, csr = _walk_case(rng, m, k, n, cuda_device, "f32", gate)
+    p = pack_spikes_padded(s)
+    outs = (spike_matmul.spike_matmul_csr(s, w, csr),
+            spike_matmul.spike_matmul_packed_csr(p, w, csr),
+            spike_matmul.spike_matmul_csr_pipe(s, w, csr),
+            spike_matmul.spike_matmul_packed_csr_pipe(p, w, csr))
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+@pytest.mark.cuda
+def test_cuda_walk_instances_do_not_spill(cuda_device, tmp_path):
+    """Every event-walk instance (kernels 11, 13, 15 and 17) compiles
+    without a register spill: ptxas's report for each file's walk
+    entries, built with the library's own flags."""
+    import re
+    import subprocess
+
+    from repro_torch.kernels import _build
+    entries = 0
+    for name, kernel in (("spike_matmul_csr.cu", "csr_walk_kernel"),
+                         ("apec_matmul_csr.cu", "apec_walk_kernel")):
+        log = subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-c", str(_build.CSRC / name),
+             "-o", str(tmp_path / (name + ".o"))], capture_output=True,
+            text=True, check=True)
+        entry = None
+        for line in (log.stdout + log.stderr).splitlines():
+            found = re.search(r"Compiling entry function '(\w+)'", line)
+            if found:
+                entry = found.group(1) if kernel in found.group(1) else None
+            elif entry and "spill" in line:
+                assert re.search(r"\b0 bytes spill stores, 0 bytes spill "
+                                 r"loads", line), (entry, line)
+                entries += 1
+                entry = None
+    assert entries == 4 + 16      # CSR: 2 forms x 1, 2 blocks an SM; APEC: 8 g x 2
 
 
 @pytest.mark.cuda

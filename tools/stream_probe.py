@@ -16,7 +16,15 @@ reaches. Kernels 12 and 14 (the pipelined CSR matmul on f32 spikes and
 on words, csrc/spike_matmul_csr_pipe.cu) at SpikingFormer-4-384's stage
 1, fc1 and fc2 (T=4, B=32) on clustered data with 50% occupied tiles:
 each with cuBLAS fp32 in turns, the launch its C library reports, and
-kernels 12, 13 and 14 equal bit for bit. The plain LIF fire
+kernels 12, 13 and 14 equal bit for bit; and the serial kernels 11 and
+13 (csrc/spike_matmul_csr.cu, event walks) at the same shapes, at the
+packed stage-1 width (K = 576), and on
+SpikingFormer-4-384's fc1, fc2 and stage-1 spikes (one forward, as
+chip_smoke's phase (i) captures it): kernel 11 or 13 with cuBLAS fp32 in
+turns, the pipelined kernel of the same form beside, the live events and
+density, the event and dense-tile bounds, each equal bit for bit to the
+k-order chain (`spike_matmul.spike_matmul_csr_chain_plain`). The plain
+LIF fire
 (csrc/lif.cu `lif_kernel`) at SpikingFormer's stage-1 drive (4,
 32*1024*96) f32, plain and residual, and the LM's hidden drives (2,
 8*5632) and (2, 8*1024*5632) bf16: back-to-back calls (`ms`), the kernel
@@ -42,11 +50,14 @@ runs the named probes alone.
 
 Each CSRC_DIR is another tree's `src/repro_torch/csrc` (an older commit
 unpacked with `git archive`, or a patched copy), built here with this
-checkout's flags; its kernels 12 and 14, fires, counts fires, SDSA
+checkout's flags; its kernels 11 to 14, fires, counts fires, SDSA
 entries and serial APEC kernels are timed in turns with this checkout's
-(this, other, other, this) and must give the same bits.
+(this, other, other, this) and must give the same bits. A patched copy
+may hold only the sources it changes (each probe takes the builds that
+export its C entries); a build that fails to compile is printed, left
+out, and makes the run fail.
 Prints the card's name and power limit, the ptxas registers and spills
-of each fresh build's kernel-12/14, fire, SDSA and serial APEC instances,
+of each fresh build's kernel-11 to 14, fire, SDSA and serial APEC instances,
 then one JSON line per case; exits nonzero on a mismatch."""
 import ctypes
 import functools
@@ -61,17 +72,23 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402  (puts the repo's src on the path)
 
 TCONV_SHAPES = (("tconv1", (131072, 288, 16)), ("tconv2", (524288, 144, 2)))
+# Phase (j)'s packed stage-1 patch matrix: 9 x 64 columns, the 48
+# channels zero-padded to whole 32-bit words.
+PACKED_STAGE1 = ("econv_stage1_k576", (cs.T * cs.B * 1024, 576, 96))
 
 # The serial APEC kernels 17 and 15 (the same signatures in every build).
 APEC_ENTRIES = ("apec_matmul_csr_forward", "apec_matmul_packed_csr_forward")
-ENTRIES = ("spike_matmul_csr_pipe_forward",
+# The serial CSR kernels 11 and 13 (likewise).
+WALK_ENTRIES = ("spike_matmul_csr_forward",
+                "spike_matmul_packed_csr_forward")
+ENTRIES = WALK_ENTRIES + ("spike_matmul_csr_pipe_forward",
            "spike_matmul_packed_csr_pipe_forward", "lif_forward",
            "lif_bf16_forward", "lif_fwd_forward", "lif_counts_forward",
            "lif_counts_packed_forward", "lif_counts_fwd_forward") + \
     APEC_ENTRIES
 PTXAS_KERNELS = ("csr_pipe_kernel", "lif_kernel", "lif_counts_kernel",
                  "sdsa_or_kernel", "sdsa_causal_kernel", "apec_walk_kernel",
-                 "apec_csr_kernel")
+                 "apec_csr_kernel", "csr_walk_kernel", "csr_matmul_kernel")
 # The counts fires (rows 4, 6 and 5): C entry -> wrapper name.
 COUNTS_ENTRIES = (("lif_counts_forward", "lif_counts"),
                   ("lif_counts_packed_forward", "lif_counts_packed"),
@@ -117,6 +134,8 @@ def load_other(csrc: Path):
     sdsa = NEW_SDSA_ENTRIES if hasattr(lib, NEW_SDSA_ENTRIES[0]) else \
         tuple(OLD_SDSA_SIGNATURES)
     for name in ENTRIES + sdsa:
+        if not hasattr(lib, name):          # a build of only some sources
+            continue
         fn = getattr(lib, name)
         fn.argtypes = list(_build.SIGNATURES.get(name) or
                            OLD_SDSA_SIGNATURES[name])
@@ -124,25 +143,24 @@ def load_other(csrc: Path):
     return lib, _build.BUILD_INFO.get("log", "")
 
 
-def csr_call(lib, s, w, csr, out):
-    from repro_torch.kernels import _build
-    m, k = s.shape
-    n = w.shape[1]
-    _build.check(lib.spike_matmul_csr_pipe_forward(
-        s.data_ptr(), w.data_ptr(), out.data_ptr(), csr.row_ptr.data_ptr(),
-        csr.tile_k_idx.data_ptr(), csr.occ.data_ptr(), m, k, n, -(-m // 128),
-        _build.stream()), "spike_matmul_csr_pipe")
-    return out
+def having(others, *entries):
+    """The other builds that export every C entry in `entries` (a patched
+    copy may hold only the sources it changes)."""
+    return {name: lib for name, lib in others.items()
+            if all(hasattr(lib, e) for e in entries)}
 
 
-def word_call(lib, p, w, csr, k, out):
+def csr_call(lib, entry, a, w, csr, k, out):
+    """One launch of the CSR kernel at C entry `entry` of `lib` (kernels
+    11-14: one signature for f32 spikes, one for words, which add their
+    word count) into `out`."""
     from repro_torch.kernels import _build
-    m, kw = p.shape
-    n = w.shape[1]
-    _build.check(lib.spike_matmul_packed_csr_pipe_forward(
-        p.data_ptr(), w.data_ptr(), out.data_ptr(), csr.row_ptr.data_ptr(),
-        csr.tile_k_idx.data_ptr(), csr.occ.data_ptr(), m, kw, k, n,
-        -(-m // 128), _build.stream()), "spike_matmul_packed_csr_pipe")
+    m, n = a.shape[0], w.shape[1]
+    dims = (m, a.shape[1], k, n) if "packed" in entry else (m, k, n)
+    _build.check(getattr(lib, entry)(
+        a.data_ptr(), w.data_ptr(), out.data_ptr(), csr.row_ptr.data_ptr(),
+        csr.tile_k_idx.data_ptr(), csr.occ.data_ptr(), *dims, -(-m // 128),
+        _build.stream()), entry)
     return out
 
 
@@ -276,15 +294,14 @@ def probe_csr(torch, gen, device, this, others):
         flops, _ = cs.csr_work(torch, occ, m, k, n)
         nnz = cs.live_nonzeros(torch, s, occ)
         libs = (("this", this), *others.items())
-        for kernel, call, a, launch, spike_bytes in (
-                ("spike_matmul_csr_pipe", csr_call, s, sm.pipe_launch, 4.0),
-                ("spike_matmul_packed_csr_pipe",
-                 functools.partial(word_call, k=k), p, sm.packed_pipe_launch,
+        for kernel, a, launch, spike_bytes in (
+                ("spike_matmul_csr_pipe", s, sm.pipe_launch, 4.0),
+                ("spike_matmul_packed_csr_pipe", p, sm.packed_pipe_launch,
                  1 / 8)):
             outs = {name: torch.empty((m, n), device=device)
                     for name, _ in libs}
-            run = {name: functools.partial(call, lib, a, w, csr,
-                                           out=outs[name])
+            run = {name: functools.partial(csr_call, lib, kernel + "_forward",
+                                           a, w, csr, k, outs[name])
                    for name, lib in libs}
             ms, cublas_ms = cs.turns_ms(torch, run["this"], functools.partial(
                 torch.matmul, s, w))
@@ -302,6 +319,85 @@ def probe_csr(torch, gen, device, this, others):
                 same = torch.equal(outs["this"], outs[name])
                 rec[name] = {"ms": o, "this_ms": t, "equal": same}
                 ok &= same
+            print(json.dumps(rec), flush=True)
+    return ok
+
+
+def probe_csr_walk(torch, gen, device, this, others):
+    """Kernels 11 (f32) and 13 (words) at CSR_SHAPES and PACKED_STAGE1 on
+    clustered data with 50% occupied tiles and on SpikingFormer-4-384's
+    fc1, fc2 and stage-1 spikes (one forward, as chip_smoke's phase (i)
+    captures it): `ms` with
+    cuBLAS fp32 on the spikes in turns, each other build in turns (this,
+    other, other, this), the pipelined kernel of the same form (12 or 14),
+    the live events, the event and dense-tile bounds
+    (`chip_smoke.spike_bounds`); every build's output equal to the k-order
+    chain bit for bit."""
+    from repro_torch.core.spikes import build_csr, pack_spikes_padded
+    from repro_torch.kernels import dispatch, ops, spike_matmul as sm
+    cap = cs.apec_capture(torch, device)
+    (s1, w1, _), (s2, w2, _) = cap["spike_matmul"][:2]
+    s_conv, w_conv, _ = cap["econv"][0]
+    kh, kw, ci, co = w_conv.shape
+    model = {"ffn_fc1": (s1.reshape(-1, s1.shape[-1]), w1),
+             "ffn_fc2": (s2.reshape(-1, s2.shape[-1]), w2),
+             "econv_stage1": (dispatch.econv_patches(s_conv, kh, kw, 1,
+                                                     "SAME"),
+                              w_conv.permute(2, 0, 1, 3).reshape(
+                                  ci * kh * kw, co))}
+    cases = []
+    for label, (m, k, n) in cs.CSR_SHAPES + (PACKED_STAGE1,):
+        w = (torch.randn((k, n), generator=gen) / k ** 0.5).to(device)
+        cases.append((label, "clustered50",
+                      cs.clustered_spikes(torch, m, k, gen, device), w))
+    for label, (s, w) in model.items():
+        cases.append((label, "model", s.float().contiguous(),
+                      w.float().contiguous()))
+    libs = (("this", this), *others.items())
+    ok = True
+    for label, data, s, w in cases:
+        m, k = s.shape
+        n = w.shape[1]
+        occ = ops.padded_occupancy(s)
+        csr = build_csr(occ, 128, 128)
+        p = pack_spikes_padded(s).contiguous()
+        chain = sm.spike_matmul_csr_chain_plain(s, w, csr)
+        flops, _ = cs.csr_work(torch, occ, m, k, n)
+        nnz = cs.live_nonzeros(torch, s, occ)
+        for entry, a, pipe, spike_bytes in (
+                (WALK_ENTRIES[0], s, sm.spike_matmul_csr_pipe, 4.0),
+                (WALK_ENTRIES[1], p, sm.spike_matmul_packed_csr_pipe,
+                 1 / 8)):
+            outs = {name: torch.empty((m, n), device=device)
+                    for name, _ in libs}
+            run = {name: functools.partial(csr_call, lib, entry, a, w, csr,
+                                           k, outs[name])
+                   for name, lib in libs}
+            ms, cublas_ms = cs.turns_ms(torch, run["this"], functools.partial(
+                torch.matmul, s, w))
+            _, n_bytes = cs.csr_work(torch, occ, m, k, n,
+                                     spike_bytes=spike_bytes)
+            rec = {"kernel": entry[:-len("_forward")],
+                   "case": f"{label}_{data}", "ms": ms,
+                   "cublas_ms": cublas_ms,
+                   "pipe_ms": cs.cuda_ms(torch, functools.partial(
+                       pipe, a, w, csr)),
+                   **cs.spike_bounds(n_bytes, nnz, n, flops),
+                   "events": nnz, "density": nnz / max(
+                       1, (occ > 0).sum().item() * 128 * 128),
+                   "occupied_share": (occ > 0).float().mean().item(),
+                   "shape": [m, k, n]}
+            for name in others:
+                t, o = cs.turns_ms(torch, run["this"], run[name])
+                rec[name] = {"ms": o, "this_ms": t}
+            for name, _ in libs:
+                same = torch.equal(run[name](), chain)
+                ok &= same
+                if name == "this":
+                    rec["equal_to_chain"] = same
+                else:
+                    rec[name]["equal_to_chain"] = same
+            rec["bound_share"] = rec["bound_ms"] / ms
             print(json.dumps(rec), flush=True)
     return ok
 
@@ -577,13 +673,18 @@ def main(argv) -> int:
     cs.phase_device(torch)
     this = _build.library()
     logs = {"this": _build.BUILD_INFO.get("log", "")}
-    others, only = {}, PROBES
+    others, only, failed = {}, PROBES, False
     for arg in argv:
         if arg.startswith("--only="):
             only = tuple(arg[len("--only="):].split(","))
             continue
         name, _, path = arg.partition("=")
-        others[name], logs[name] = load_other(Path(path).resolve())
+        try:
+            others[name], logs[name] = load_other(Path(path).resolve())
+        except RuntimeError as err:          # reported, left out, and fails
+            print(json.dumps({"build": name, "error": str(err)[-4000:]}),
+                  flush=True)
+            failed = True
     for name, log in logs.items():
         for entry, regs, st, ld in ptxas_summary(log):
             print(json.dumps({"build": name, "entry": entry,
@@ -594,16 +695,26 @@ def main(argv) -> int:
     if "pred" in only:
         ok &= probe_pred(torch, gen, device)
     if "csr" in only:
-        ok &= probe_csr(torch, gen, device, this, others)
+        ok &= probe_csr(torch, gen, device, this, having(
+            others, "spike_matmul_csr_pipe_forward",
+            "spike_matmul_packed_csr_pipe_forward"))
+        ok &= probe_csr_walk(torch, gen, device, this,
+                             having(others, *WALK_ENTRIES))
     if "fires" in only:
-        ok &= probe_fires(torch, device, this, others)
+        ok &= probe_fires(torch, device, this, having(
+            others, "lif_forward", "lif_fwd_forward", "lif_bf16_forward"))
     if "counts" in only:
-        ok &= probe_counts(torch, device, this, others)
+        ok &= probe_counts(torch, device, this, having(
+            others, *(entry for entry, _ in COUNTS_ENTRIES)))
     if "sdsa" in only:
-        ok &= probe_sdsa(torch, device, this, others)
+        ok &= probe_sdsa(torch, device, this, {
+            name: lib for name, lib in others.items()
+            if hasattr(lib, "sdsa_or_forward") or
+            hasattr(lib, NEW_SDSA_ENTRIES[0])})
     if "apec" in only:
-        ok &= probe_apec(torch, gen, device, this, others)
-    return 0 if ok else 1
+        ok &= probe_apec(torch, gen, device, this,
+                         having(others, *APEC_ENTRIES))
+    return 0 if ok and not failed else 1
 
 
 if __name__ == "__main__":
