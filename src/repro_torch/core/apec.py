@@ -18,9 +18,9 @@ with overhead M_ov ~ C_o * k^2 * w_acc bits of partial-sum storage
 (Eq. 4). Higher-order overlap |O_G| shrinks with g, so G2 wins in
 practice (paper Fig. 7).
 
-On the card the decomposition runs on packed words
-(`kernels/apec_kernel.py`) and the two products share one pass over the
-weight tiles (`kernels/spike_matmul.py::apec_matmul_csr`); this module is
+On the card the decomposition is one kernel launch on the spikes where
+they lie (`kernels/apec_kernel.py`) and the two products share one pass
+over the weight tiles (`kernels/spike_matmul.py::apec_matmul_csr`); this module is
 the dense form and the public entry point.
 """
 from __future__ import annotations

@@ -22,7 +22,8 @@
                                              csrc/tile_mma.cuh's cp.async
                                              ring (the routes picked on
                                              the card)
-  apec_kernel.py   csrc/apec.cu              APEC overlap/residual on words
+  apec_kernel.py   csrc/apec.cu              APEC overlap/residual on the
+                                             spikes, or on words
   sdsa_kernel.py   csrc/sdsa.cu              packed OR-form attention
                    csrc/sdsa_causal.cu       causal (LM) status: the
                                              prefix-OR over tokens of

@@ -42,7 +42,8 @@ LAUNCHES: Dict[str, int] = {"lif": 0, "lif_counts": 0, "lif_fwd": 0,
                             "lif_bf16": 0, "spike_matmul_csr_pipe": 0,
                             "spike_matmul_packed_csr_pipe": 0,
                             "apec_matmul_csr_pipe": 0,
-                            "apec_matmul_packed_csr_pipe": 0}
+                            "apec_matmul_packed_csr_pipe": 0,
+                            "apec_decompose_spikes": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
@@ -79,6 +80,8 @@ SIGNATURES = {
     "spike_matmul_csr_pipe_launch": (_I64, _I64, _P),
     "spike_matmul_packed_csr_pipe_launch": (_I64, _I64, _P),
     "apec_decompose_forward": (_P, _P, _P, _I64, _I64, _I64, _P),
+    "apec_decompose_spikes_forward": (_P, _P, _P, _I64, _I64, _I64, _I64, _I,
+                                      _P),
     "apec_matmul_csr_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                                 _I64, _I64, _I64, _P),
     "apec_matmul_packed_csr_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _I64,

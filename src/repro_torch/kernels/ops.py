@@ -14,7 +14,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.econv import conv_pads
 from repro_torch.core.events import EventTensor
-from repro_torch.core.spikes import (PACK, TileCSR, build_csr, pack_spikes,
+from repro_torch.core.spikes import (PACK, TileCSR, build_csr,
                                      pack_spikes_padded, packed_width,
                                      ragged_packed_tile_occupancy,
                                      ragged_tile_occupancy, unpack_spikes)
@@ -235,18 +235,11 @@ def spike_matmul_csr(s, w: torch.Tensor, csr: TileCSR | None = None, *,
 
 # ------------------------------------------------------------------ APEC
 def apec_decompose(s: torch.Tensor, g: int = 2):
-    """Dense binary (P, C) spikes -> (overlap (P/g, C), residual (P, C))
-    through the packed bitwise kernel. P must divide by g. Only the packing
-    pads (C up to whole 32-bit words); the kernel takes any word count."""
-    p, c = s.shape
-    if p % g:
-        raise ValueError(f"positions {p} not divisible by group {g}")
-    sp, _ = _pad_to(s, 1, PACK)
-    ov_p, res_p = apec_kernel.apec_decompose_packed(
-        pack_spikes(sp, axis=-1).contiguous(), g)
-    ov = unpack_spikes(ov_p, axis=-1, dtype=s.dtype)[:, :c]
-    res = unpack_spikes(res_p, axis=-1, dtype=s.dtype)[:, :c]
-    return ov, res
+    """Dense (P, C) spikes -> (overlap (P/g, C), residual (P, C)) as ones
+    and zeros in s's dtype. P must divide by g. On the card one launch of
+    the spike entry reads the spikes where they lie; nothing is padded,
+    packed or unpacked."""
+    return apec_kernel.apec_decompose_spikes(s, g)
 
 
 def _group_occupancy(occ, g: int, rows: int, block_m: int = 128):
@@ -267,8 +260,8 @@ def apec_matmul(s, w: torch.Tensor, g: int = 2, *, decomposed=None,
                 occ_res: torch.Tensor | None = None,
                 occ_ov: torch.Tensor | None = None,
                 occupancy: torch.Tensor | None = None) -> torch.Tensor:
-    """APEC matmul on the predicated route: the packed decompose kernel,
-    then two occupancy-gated matmuls (`spike_matmul`, the predicated
+    """APEC matmul on the predicated route: the decompose kernel on the
+    spikes, then two occupancy-gated matmuls (`spike_matmul`, the predicated
     kernel) with the overlap partial sums reused across each group's
     members.
 
@@ -291,7 +284,7 @@ def apec_matmul(s, w: torch.Tensor, g: int = 2, *, decomposed=None,
         raise ValueError(f"positions {p} not divisible by group {g}")
     s2 = s.reshape(-1, c)
     if decomposed is None:
-        ov, res = apec_decompose(s2, g)              # packed bitwise kernel
+        ov, res = apec_decompose(s2, g)
     else:
         res, ov = decomposed
     if occupancy is not None and occ_res is None:
@@ -343,7 +336,7 @@ def apec_matmul_csr(s, w: torch.Tensor, g: int = 2, *,
                     pipeline: bool = False) -> torch.Tensor:
     """APEC matmul fused into one event-compacted kernel pass.
 
-    The packed decompose kernel, then one union work list
+    The decompose kernel on the spikes, then one union work list
     (`apec_union_worklist`) and one launch of the fused kernel, in which
     each weight k-tile is staged once and feeds the residual AND overlap
     dots, and the overlap partial sum lands in its group's g output rows in
@@ -370,7 +363,7 @@ def apec_matmul_csr(s, w: torch.Tensor, g: int = 2, *,
     if tile % g:
         raise ValueError(f"block_m {tile} not divisible by group {g}")
     s2 = s.reshape(-1, c)
-    ov, res = apec_decompose(s2, g)                  # packed bitwise kernel
+    ov, res = apec_decompose(s2, g)
     csr, occ_res, occ_ov = apec_union_worklist(res, ov, g, occupancy, csr)
     kernel = _csr.apec_matmul_csr_pipe if pipeline else _csr.apec_matmul_csr
     out = kernel(res.float().contiguous(), ov.float().contiguous(),

@@ -6,8 +6,9 @@ Torch-only (no JAX), so it runs on the GPU machine:
 
 Every test is marked `cuda` and skips where no CUDA device is present.
 Spikes (f32 and bf16), counts, membrane residuals, LIF drive cotangents,
-SDSA and causal-status words, APEC overlap/residual words and the packed
-fire's words must match exactly; the CSR, predicated and fused APEC
+SDSA and causal-status words, APEC overlap/residual words and spikes (the
+spike entry also equal to the old pack route) and the packed fire's words
+must match exactly; the CSR, predicated and fused APEC
 matmuls, f32 and packed, within 1e-5 * max|plain| + 1e-5 (fp32 summation
 order); the pipelined CSR kernels equal the serial ones bit for bit (the
 same fmaf chains), and the serial CSR and APEC kernels (event walks)
@@ -384,7 +385,8 @@ def test_cuda_wrappers_count_each_launch(cuda_device):
                                "lif_bf16": 1, "spike_matmul_csr_pipe": 0,
                                "spike_matmul_packed_csr_pipe": 0,
                                "apec_matmul_csr_pipe": 0,
-                               "apec_matmul_packed_csr_pipe": 0}
+                               "apec_matmul_packed_csr_pipe": 0,
+                               "apec_decompose_spikes": 0}
 
 
 @pytest.mark.cuda
@@ -563,7 +565,8 @@ def test_cuda_training_wrappers_count_each_launch(cuda_device):
                                "lif_bf16": 0, "spike_matmul_csr_pipe": 0,
                                "spike_matmul_packed_csr_pipe": 0,
                                "apec_matmul_csr_pipe": 0,
-                               "apec_matmul_packed_csr_pipe": 0}
+                               "apec_matmul_packed_csr_pipe": 0,
+                               "apec_decompose_spikes": 0}
 
 
 @pytest.mark.cuda
@@ -590,7 +593,8 @@ def test_cuda_fire_takes_the_residual_kernel_only_under_grad(cuda_device,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("p,dw,g", [(64, 12, 2), (256, 14, 4), (64, 13, 8),
-                                    (96, 4, 8), (30, 5, 3), (32, 1, 2)])
+                                    (96, 4, 8), (30, 5, 3), (32, 1, 2),
+                                    (131072, 14, 2)])
 def test_cuda_apec_decompose_kernel_matches_plain(cuda_device, p, dw, g):
     """Every vector width (16-byte, 8-byte, one word), a ragged dw and a
     run-time g; words with the sign bit set included."""
@@ -616,6 +620,126 @@ def test_cuda_apec_decompose_kernel_takes_unaligned_words(cuda_device):
     want = apec_kernel.apec_decompose_packed_plain(words, 2)
     for a, b in zip(got, want):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _old_decompose_route(s, g):
+    """The dense decompose route before the spike entry: pad C to whole
+    words, pack, the word kernel, unpack."""
+    c = s.shape[1]
+    sp = torch.nn.functional.pad(s, (0, (-c) % 32))
+    ov, res = apec_kernel.apec_decompose_packed(pack_spikes(sp).contiguous(),
+                                                g)
+    return tuple(unpack_spikes_padded(x, c, dtype=s.dtype)
+                 for x in (ov, res))
+
+
+def _spike_view(rng, case, dtype, device):
+    """(p, c) spikes on the card, laid out as `case` says; values 0 and 1
+    with -0.0, 0.5, 2.0 and NaN mixed in."""
+    p, c, layout = case
+    vals = torch.tensor([0.0, 1.0, 1.0, -0.0, 0.5, 2.0, float("nan")])
+    wide = c + (8 if layout == "strided" else 3 if layout == "stride3" else 0)
+    idx = torch.from_numpy(rng.integers(0, len(vals), size=p * wide + 1))
+    flat = vals[idx].to(dtype).to(device)
+    if layout == "offset1":
+        return flat[1:1 + p * c].view(p, c)
+    x = flat[:p * wide].view(p, wide)
+    return x[:, :c] if layout in ("strided", "stride3") else x
+
+
+# (p, c, layout): 16-byte vectors (f32 C % 4 == 0, bf16 C % 8 == 0), a
+# ragged C, a view one element into its storage, row strides of C + 8
+# (still vectors) and C + 3 (scalar), a tail of fewer groups than a block.
+# Every P divides by every g below.
+SPIKE_CASES = [(480, 384, "contiguous"), (240, 432, "contiguous"),
+               (96, 37, "contiguous"), (144, 384, "offset1"),
+               (144, 384, "strided"), (144, 96, "stride3"),
+               (48, 8, "contiguous")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [2, 4, 8, 1, 3, 16])
+@pytest.mark.parametrize("case", SPIKE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_apec_decompose_spikes_matches_plain(cuda_device, dtype, case,
+                                                  g):
+    """The spike entry equals its plain version and the old pack route bit
+    for bit on every vector path, compile-time and run-time g."""
+    s = _spike_view(np.random.default_rng(case[0] + case[1] + g), case,
+                    dtype, cuda_device)
+    got = apec_kernel.apec_decompose_spikes(s, g)
+    torch.cuda.synchronize()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for a, b, c in zip(got, apec_kernel.apec_decompose_spikes_plain(s, g),
+                       _old_decompose_route(s, g)):
+        assert a.dtype == dtype and a.is_contiguous()
+        assert torch.equal(a.view(bits), b.view(bits))
+        assert torch.equal(a.view(bits), c.view(bits))
+
+
+@pytest.mark.cuda
+def test_cuda_apec_decompose_spikes_takes_wide_groups(cuda_device):
+    """g = 128 (a run-time bound) at the fc1 width, and the stage-1 patch
+    matrix's shape at g = 2."""
+    rng = np.random.default_rng(11)
+    for p, c, g in ((1024, 384, 128), (131072, 432, 2)):
+        s = torch.from_numpy((rng.random((p, c)) < 0.4).astype(np.float32)
+                             ).to(cuda_device)
+        for a, b in zip(apec_kernel.apec_decompose_spikes(s, g),
+                        apec_kernel.apec_decompose_spikes_plain(s, g)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int32,
+                                   torch.float16])
+def test_cuda_apec_decompose_spikes_rejects_other_dtypes(cuda_device, dtype):
+    s = torch.ones(8, 16, dtype=dtype, device=cuda_device)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        apec_kernel.apec_decompose_spikes(s, 2)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.apec_decompose(s, 2)
+    assert sum(launch_counts().values()) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_apec_route_is_one_spike_launch_and_no_packing(cuda_device,
+                                                           monkeypatch):
+    """`core.apec.apec_matmul` on f32 spikes on the card: one spike-entry
+    launch, one kernel-18 launch, no `pack_spikes`, `pack_spikes_padded`
+    or `unpack_spikes` call."""
+    from repro_torch.core import apec
+    from repro_torch.core import spikes as core_spikes
+    calls = []
+
+    def counted(name, fn):
+        def wrap(*a, **kw):
+            calls.append(name)
+            return fn(*a, **kw)
+        return wrap
+
+    for mod in (core_spikes, ops, spike_matmul):
+        for name in ("pack_spikes", "pack_spikes_padded", "unpack_spikes"):
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name,
+                                    counted(name, getattr(mod, name)))
+    rng = np.random.default_rng(12)
+    s = torch.from_numpy(_clustered(rng, 2 * 512, 384).reshape(2, 512, 384)
+                         ).to(cuda_device)
+    w = torch.from_numpy(rng.normal(size=(384, 96)).astype(np.float32)
+                         ).to(cuda_device)
+    for g in (2, 4):
+        reset_launch_counts()
+        with torch.inference_mode():
+            out = apec.apec_matmul(s, w, g)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in launch_counts().items() if v} == \
+            {"apec_decompose_spikes": 1, "apec_matmul_csr_pipe": 1}
+        assert calls == []
+        want = s @ w
+        assert (out - want).abs().max().item() <= \
+            1e-5 * want.abs().max().item() + 1e-5
 
 
 @pytest.mark.cuda
@@ -722,9 +846,9 @@ def test_cuda_apec_pipe_kernel_takes_integer_counts(cuda_device, m, k, n, g):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("backend,launches", [
-    ("cuda-pipe", {"apec_decompose": 1, "apec_matmul_csr_pipe": 1}),
-    ("cuda", {"apec_decompose": 1, "apec_matmul_csr": 1}),
-    ("cuda-pred", {"apec_decompose": 1, "spike_matmul_pred": 2})])
+    ("cuda-pipe", {"apec_decompose_spikes": 1, "apec_matmul_csr_pipe": 1}),
+    ("cuda", {"apec_decompose_spikes": 1, "apec_matmul_csr": 1}),
+    ("cuda-pred", {"apec_decompose_spikes": 1, "spike_matmul_pred": 2})])
 def test_cuda_apec_route_launches_each_kernel_once(cuda_device, backend,
                                                    launches):
     rng = np.random.default_rng(3)
@@ -846,7 +970,7 @@ def test_cuda_packed_routes_launch_their_kernels(cuda_device):
              (lambda: dispatch.apec_matmul(et, w, g=2), s @ w,
               {"apec_decompose": 1, "apec_matmul_packed_csr_pipe": 1}),
              (lambda: dispatch.apec_matmul(s, w, g=2), s @ w,
-              {"apec_decompose": 1, "apec_matmul_csr_pipe": 1}),
+              {"apec_decompose_spikes": 1, "apec_matmul_csr_pipe": 1}),
              (lambda: dispatch.econv(et.reshape(8, 8, 8, 96), wc),
               dispatch.get_backend("econv", "ref").fn(s.reshape(8, 8, 8, 96),
                                                       wc),
@@ -863,7 +987,7 @@ def test_cuda_packed_routes_launch_their_kernels(cuda_device):
               {"apec_decompose": 1, "apec_matmul_packed_csr": 1}),
              (serial(lambda: dispatch.apec_matmul(s, w, g=2), dispatch.CUDA,
                      op="apec_matmul"), s @ w,
-              {"apec_decompose": 1, "apec_matmul_csr": 1}))
+              {"apec_decompose_spikes": 1, "apec_matmul_csr": 1}))
     for fn, want, launches in cases:
         reset_launch_counts()
         with torch.inference_mode():

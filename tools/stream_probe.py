@@ -45,13 +45,19 @@ captures it) and on clustered data with 50% occupied tiles: kernel 17
 with cuBLAS fp32 in turns, kernel 15 on the same spikes' words, each
 equal bit for bit to the k-order chain
 (`spike_matmul.apec_matmul_csr_chain_plain`), with the pipelined kernel
-(18 or 16) beside, the events, the event and dense-tile bounds. `--only`
-runs the named probes alone.
+(18 or 16) beside, the events, the event and dense-tile bounds; and
+before them row 19 (csrc/apec.cu) at g = 2 on the same fc1, fc2 and
+stage-1 spikes: the word entry on their words and the spike entry on the
+spikes, each with `device_ms`, the byte bound and a device copy of the
+same bytes, equal to its plain version (a build from before the spike
+entry runs the old dense route around its word kernel: pad, pack,
+kernel, unpack). `--only` runs the named probes alone.
 
 Each CSRC_DIR is another tree's `src/repro_torch/csrc` (an older commit
 unpacked with `git archive`, or a patched copy), built here with this
 checkout's flags; its kernels 11 to 14, fires, counts fires, SDSA
-entries and serial APEC kernels are timed in turns with this checkout's
+entries, serial APEC kernels and row 19's entries are timed in turns
+with this checkout's
 (this, other, other, this) and must give the same bits. A patched copy
 may hold only the sources it changes (each probe takes the builds that
 export its C entries); a build that fails to compile is printed, left
@@ -78,6 +84,10 @@ PACKED_STAGE1 = ("econv_stage1_k576", (cs.T * cs.B * 1024, 576, 96))
 
 # The serial APEC kernels 17 and 15 (the same signatures in every build).
 APEC_ENTRIES = ("apec_matmul_csr_forward", "apec_matmul_packed_csr_forward")
+# Row 19: the word entry (one signature in every build) and the spike
+# entry (absent from older builds).
+DECOMPOSE_ENTRIES = ("apec_decompose_forward",
+                     "apec_decompose_spikes_forward")
 # The serial CSR kernels 11 and 13 (likewise).
 WALK_ENTRIES = ("spike_matmul_csr_forward",
                 "spike_matmul_packed_csr_forward")
@@ -85,10 +95,11 @@ ENTRIES = WALK_ENTRIES + ("spike_matmul_csr_pipe_forward",
            "spike_matmul_packed_csr_pipe_forward", "lif_forward",
            "lif_bf16_forward", "lif_fwd_forward", "lif_counts_forward",
            "lif_counts_packed_forward", "lif_counts_fwd_forward") + \
-    APEC_ENTRIES
+    APEC_ENTRIES + DECOMPOSE_ENTRIES
 PTXAS_KERNELS = ("csr_pipe_kernel", "lif_kernel", "lif_counts_kernel",
                  "sdsa_or_kernel", "sdsa_causal_kernel", "apec_walk_kernel",
-                 "apec_csr_kernel", "csr_walk_kernel", "csr_matmul_kernel")
+                 "apec_csr_kernel", "csr_walk_kernel", "csr_matmul_kernel",
+                 "apec_kernel")
 # The counts fires (rows 4, 6 and 5): C entry -> wrapper name.
 COUNTS_ENTRIES = (("lif_counts_forward", "lif_counts"),
                   ("lif_counts_packed_forward", "lif_counts_packed"),
@@ -584,7 +595,7 @@ def apec_call(lib, entry, res, ov, w, g, work, k, out):
     return out
 
 
-def probe_apec(torch, gen, device, this, others):
+def probe_apec(torch, gen, cap, this, others):
     """Kernels 17 (f32) and 15 (words) at g = 2 on the model's fc1, fc2
     and stage-1 spikes and on clustered data: `ms` with cuBLAS fp32 on
     the spikes in turns, each other build in turns (this, other, other,
@@ -595,7 +606,7 @@ def probe_apec(torch, gen, device, this, others):
                                          ragged_tile_occupancy)
     from repro_torch.kernels import dispatch, ops, spike_matmul as sm
     g = 2
-    cap = cs.apec_capture(torch, device)
+    device = cap["econv"][0][1].device
     (s1, w1, _), (s2, w2, _) = cap["spike_matmul"][:2]
     s_conv, w_conv, _ = cap["econv"][0]
     kh, kw, ci, co = w_conv.shape
@@ -662,6 +673,92 @@ def probe_apec(torch, gen, device, this, others):
     return ok
 
 
+def decompose_entries(torch, lib):
+    """(word entry, spike entry) of row 19 in one build, each (x, g) ->
+    (overlap, residual): this tree's wrappers as the routes call them; for
+    another build its C entries, and where it has no spike entry (an
+    older build) the old dense route around its word kernel
+    (`chip_smoke.old_decompose_route`), as that tree's
+    `ops.apec_decompose` ran it."""
+    from repro_torch.kernels import _build, apec_kernel
+    if lib is _build.library():
+        return (apec_kernel.apec_decompose_packed,
+                apec_kernel.apec_decompose_spikes)
+
+    def words(x, g):
+        p, dw = x.shape
+        ov = torch.empty((p // g, dw), dtype=x.dtype, device=x.device)
+        res = torch.empty_like(x)
+        _build.check(lib.apec_decompose_forward(
+            x.data_ptr(), ov.data_ptr(), res.data_ptr(), p, dw, g,
+            _build.stream()), "apec_decompose")
+        return ov, res
+
+    def spikes(s, g):
+        p, c = s.shape
+        ov = torch.empty((p // g, c), dtype=s.dtype, device=s.device)
+        res = torch.empty((p, c), dtype=s.dtype, device=s.device)
+        _build.check(lib.apec_decompose_spikes_forward(
+            s.data_ptr(), ov.data_ptr(), res.data_ptr(), p, c, s.stride(0),
+            g, apec_kernel.KIND[s.dtype], _build.stream()),
+            "apec_decompose_spikes")
+        return ov, res
+
+    return words, (spikes if hasattr(lib, DECOMPOSE_ENTRIES[1]) else
+                   functools.partial(cs.old_decompose_route, torch,
+                                     words=words))
+
+
+def probe_decompose(torch, cap, this, others):
+    """Row 19's word and spike entries at g = 2 on SpikingFormer-4-384's
+    fc1, fc2 and stage-1 spikes (and their words): `ms` (back-to-back
+    calls), `device_ms` (a CUDA graph), the byte bound, a device copy of
+    the same bytes; each other build in turns (this, other, other, this),
+    its word kernel and its spike entry or old route, with their
+    `device_ms`; every build's outputs equal to the plain version bit for
+    bit."""
+    from repro_torch.core.spikes import pack_spikes_padded
+    from repro_torch.kernels import apec_kernel, dispatch
+    g = 2
+    (s1, _, _), (s2, _, _) = cap["spike_matmul"][:2]
+    s_conv, w_conv, _ = cap["econv"][0]
+    dense = {"ffn_fc1": s1.reshape(-1, s1.shape[-1]),
+             "ffn_fc2": s2.reshape(-1, s2.shape[-1]),
+             "econv_stage1": dispatch.econv_patches(
+                 s_conv, w_conv.shape[0], w_conv.shape[1], 1, "SAME")}
+    entries = {name: decompose_entries(torch, lib)
+               for name, lib in (("this", this), *others.items())}
+    plains = (apec_kernel.apec_decompose_packed_plain,
+              apec_kernel.apec_decompose_spikes_plain)
+    ok = True
+    for label, s in dense.items():
+        for slot, x in enumerate((pack_spikes_padded(s).contiguous(), s)):
+            want = plains[slot](x, g)
+            run = {name: functools.partial(e[slot], x, g)
+                   for name, e in entries.items()}
+            n_bytes = x.element_size() * (2 * x.numel() + x.numel() // g)
+            rec = {"kernel": ("apec_decompose", "apec_decompose_spikes")[slot],
+                   "case": label, "g": g, "shape": list(x.shape),
+                   "ms": cs.cuda_ms(torch, run["this"]),
+                   "device_ms": cs.graph_ms(torch, run["this"]),
+                   "copy_ms": cs.copy_ms(torch, n_bytes, x.device),
+                   "bound_ms": n_bytes / cs.HBM_BYTES_PER_S * 1e3}
+            for name, fn in run.items():
+                same = all(cs.same_words(torch, a, b)
+                           for a, b in zip(fn(), want))
+                ok &= same
+                if name == "this":
+                    rec["equal_to_plain"] = same
+                    continue
+                a, b = cs.turns_ms(torch, run["this"], fn)
+                rec[name] = {"ms": b, "this_ms": a,
+                             "device_ms": cs.graph_ms(torch, fn),
+                             "equal_to_plain": same}
+            rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+            print(json.dumps(rec), flush=True)
+    return ok
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -712,7 +809,10 @@ def main(argv) -> int:
             if hasattr(lib, "sdsa_or_forward") or
             hasattr(lib, NEW_SDSA_ENTRIES[0])})
     if "apec" in only:
-        ok &= probe_apec(torch, gen, device, this,
+        cap = cs.apec_capture(torch, device)
+        ok &= probe_decompose(torch, cap, this,
+                              having(others, DECOMPOSE_ENTRIES[0]))
+        ok &= probe_apec(torch, gen, cap, this,
                          having(others, *APEC_ENTRIES))
     return 0 if ok and not failed else 1
 
