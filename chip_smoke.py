@@ -161,11 +161,29 @@ Phases, each printed on its own line:
       the share of tokens equal to `ref`'s serve; and `prefill` against
       `prefill_chunked` on equal-length prompts (max |dlogits| and spike
       drift, reported);
+  (l) hybrid dispatch (`SpikingConfig(hybrid=True)`, routes chosen on
+      the card from the carried maps by the H100-calibrated cost model):
+      SpikingFormer-4-384 on (c)'s first batch and VGG11 / ResNet18 on
+      (h)'s, each against its automatic forward: logits and every layer's
+      spikes bit for bit, the same number of host syncs (the sync debug
+      mode), the launches, each hybrid call's route and bucket, and both
+      spans in turns; one CUDA graph of a hybrid `spike_matmul` at
+      HYBRID_GRAPH_SHAPE replayed on a sparse map and a full map, the
+      device flags equal to `event_route_wins` for each (the two differ)
+      and the output within 1e-5 * max|ref| + 1e-5 of the plain
+      version's, with kernel 11's gated launch on and off in device ms;
+      `core.apec.apec_matmul` under hybrid at (i)'s shapes within 1e-5 *
+      max|ref| + 1e-5 of the CSR route; kernel 10 at the forward's fc1,
+      fc2 and stage-1 maps (where hybrid sends the models' calls) equal
+      bit for bit to kernels 11 and 12, timed in turns with them and
+      cuBLAS; one training step under hybrid with the loss and every
+      gradient equal to the automatic step's bit for bit;
   (d) one JSON line listing every kernel with its launches on the main
       paths ((c) and (h) for inference kernels, (f) for the training
       ones, (i) for the APEC ones, (j) for the packed ones, (k) for the
-      LM ones; the serial kernels 11, 13, 15 and 17 by their override
-      calls), error and times (rows 16 and 18: kernels 16 and 18).
+      LM ones, (l) adding its hybrid forwards' and APEC calls'; the
+      serial kernels 11, 13, 15 and 17 by their override calls), error
+      and times (rows 16 and 18: kernels 16 and 18).
 Each phase prints its wall time on a `phase_time` line.
 The last line is {"ok": true, "device": {...}}. Any failed check exits
 nonzero before it; without a CUDA device, or without the repo's `src`
@@ -1026,8 +1044,10 @@ def cnn_setup(torch, name, device):
             class_images(SEED, 0, i, B, img=cfg.img)
         return torch.from_numpy(b["image"]).to(device)
 
-    def forward(x, collect_stats=False):
-        return apply(cfg, params, x, collect_stats=collect_stats)
+    def forward(x, collect_stats=False, hybrid=False):
+        run_cfg = dataclasses.replace(cfg, spiking=dataclasses.replace(
+            cfg.spiking, hybrid=True)) if hybrid else cfg
+        return apply(run_cfg, params, x, collect_stats=collect_stats)
     return cfg, forward, batch
 
 
@@ -2795,6 +2815,376 @@ def phase_lm(torch, device, results):
     return totals
 
 
+# ------------------------------------------------------------ phase (l)
+# Hybrid dispatch's CUDA-graph check: an (8, 48) tile grid, (1024 x 6144)
+# x (6144 x 384), where the calibrated predicate routes the first buckets
+# of `spike_matmul` to the event walk and the rest to kernel 10 (at the
+# models' grids it picks kernel 10 in every bucket, PERF.md section 6).
+HYBRID_GRAPH_SHAPE = (1024, 6144, 384)
+HYBRID_MODELS = ("spikingformer", "vgg11", "resnet18")
+
+
+@contextlib.contextmanager
+def hybrid_calls(dispatch):
+    """Records (op, map, attribution) of every hybrid resolution while
+    active: references only, nothing is read on the host."""
+    calls = []
+    orig = dispatch._hybrid_resolution
+
+    def record(spec, op, kwargs, reason_of):
+        got = orig(spec, op, kwargs, reason_of)
+        if got is not None:
+            calls.append((op, kwargs["occupancy"], got[1]))
+        return got
+    dispatch._hybrid_resolution = record
+    try:
+        yield calls
+    finally:
+        dispatch._hybrid_resolution = orig
+
+
+def hybrid_routes(calls) -> list:
+    """Each recorded call's op, tile grid, occupied tiles, bucket,
+    threshold and the route its flag picked (read from the maps on the
+    host, after the run)."""
+    from repro_torch.core import costmodel
+    out = []
+    for op, occ, attr in calls:
+        mt, kt = occ.shape
+        count = int((occ > 0).sum())
+        bucket = costmodel.pow2_bucket(count)
+        thresh = costmodel.hybrid_event_bucket_threshold(op, mt, kt)
+        out.append(dict(op=op, grid=[mt, kt], occupied=count, bucket=bucket,
+                        threshold=thresh, attribution=attr,
+                        route="cuda" if bucket <= thresh else "cuda-pred"))
+    return out
+
+
+def route_summary(routes) -> dict:
+    """Calls per (op, grid, route, bucket), in the order first seen."""
+    summary: dict = {}
+    for r in routes:
+        key = f"{r['op']} {r['grid'][0]}x{r['grid'][1]} {r['route']} " \
+              f"b{r['bucket']}/t{r['threshold']}"
+        summary[key] = summary.get(key, 0) + 1
+    return summary
+
+
+def sync_count(torch, fn) -> int:
+    """Host syncs `fn` makes (`torch.cuda.set_sync_debug_mode("warn")`)."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in got)
+
+
+def hybrid_model_forwards(torch, device):
+    """(name, forward(hybrid) -> (logits, spikes)) of SpikingFormer-4-384
+    on phase (c)'s first batch and VGG11 / ResNet18 on phase (h)'s."""
+    from repro_torch.configs.base import SpikingConfig
+    from repro_torch.models import spikingformer as sf
+    params = sf.spikingformer_init(
+        DEPTH, DIM, generator=torch.Generator().manual_seed(SEED),
+        device=device)
+    x = torch.rand((B, 32, 32, 3),
+                   generator=torch.Generator().manual_seed(SEED + 1)
+                   ).to(device)
+
+    def sf_forward(hybrid):
+        cfg = SpikingConfig(t_steps=T, lif_vth=V_TH, hybrid=hybrid)
+        with torch.inference_mode():
+            return sf.spikingformer_apply(params, x, n_heads=HEADS,
+                                          spiking_cfg=cfg,
+                                          collect_stats=True)
+    models = [("spikingformer", sf_forward)]
+    for name in HYBRID_MODELS[1:]:
+        _, forward, batch = cnn_setup(torch, name, device)
+        xb = batch(0)
+
+        def cnn_forward(hybrid, forward=forward, xb=xb):
+            with torch.inference_mode():
+                return forward(xb, collect_stats=True, hybrid=hybrid)
+        models.append((name, cnn_forward))
+    return models
+
+
+def phase_hybrid_models(torch, device):
+    """Each model under `SpikingConfig(hybrid=True)` against its automatic
+    forward: logits and every layer's spikes bit for bit, the host syncs
+    of each (equal), the launches, each call's route and bucket, and the
+    two spans in turns."""
+    from repro_torch.kernels import dispatch, launch_counts, \
+        reset_launch_counts
+    totals: dict = {}
+    for name, forward in hybrid_model_forwards(torch, device):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        auto = forward(False)
+        torch.cuda.synchronize()
+        auto_counts = launch_counts()
+        reset_launch_counts()
+        with hybrid_calls(dispatch) as calls:
+            hyb = forward(True)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        check(torch.equal(hyb[0], auto[0]),
+              f"{name}: hybrid logits differ from the automatic forward's")
+        check(len(hyb[1]) == len(auto[1]) and all(
+            torch.equal(a, b) for a, b in zip(hyb[1], auto[1])),
+              f"{name}: hybrid spikes differ from the automatic forward's")
+        syncs = {"auto": sync_count(torch, lambda: forward(False)),
+                 "hybrid": sync_count(torch, lambda: forward(True))}
+        check(syncs["hybrid"] == syncs["auto"],
+              f"{name}: hybrid forward makes {syncs['hybrid']} host syncs, "
+              f"the automatic one {syncs['auto']}")
+        auto_ms, hybrid_ms = turns_ms(torch, lambda: forward(False),
+                                      lambda: forward(True))
+        routes = hybrid_routes(calls)
+        emit("hybrid_forward", model=name, equal_bits=True,
+             launches={k: v for k, v in counts.items() if v},
+             auto_launches={k: v for k, v in auto_counts.items() if v},
+             host_syncs=syncs, span_ms=hybrid_ms, auto_span_ms=auto_ms,
+             hybrid_calls=len(routes), routes=route_summary(routes))
+    return totals
+
+
+def phase_hybrid_graph(torch, device):
+    """One CUDA graph of a hybrid `spike_matmul` at HYBRID_GRAPH_SHAPE,
+    replayed on a sparse map, a full map and the sparse map again: the
+    device flags equal `event_route_wins` for each map and the output the
+    plain version's within 1e-5 * max|ref| + 1e-5. Then the gated kernel
+    11 alone at the same shape, gate on and off, in a CUDA graph each:
+    the gated-off launch's device ms is what a hybrid call pays for the
+    route it does not take."""
+    from repro_torch.core import costmodel
+    from repro_torch.core.spikes import build_csr
+    from repro_torch.kernels import dispatch, ops, spike_matmul
+    m, k, n = HYBRID_GRAPH_SHAPE
+    mt, kt = -(-m // 128), -(-k // 128)
+    thresh = costmodel.hybrid_event_bucket_threshold("spike_matmul", mt, kt)
+    check(0 <= thresh < costmodel.num_buckets(mt * kt) - 1,
+          f"spike_matmul's threshold {thresh} at {mt}x{kt} routes every "
+          f"bucket one way")
+    gen = torch.Generator().manual_seed(SEED + 27)
+    w = torch.randn((k, n), generator=gen).to(device)
+
+    def spikes(n_live):
+        live = torch.zeros(mt * kt, dtype=torch.bool)
+        live[torch.randperm(mt * kt, generator=gen)[:n_live]] = True
+        mask = live.reshape(mt, kt).repeat_interleave(128, 0) \
+            .repeat_interleave(128, 1)
+        return (mask & (torch.rand((m, k), generator=gen) < 0.5)).float() \
+            .to(device)
+    maps = {"sparse": spikes(1), "full": spikes(mt * kt)}
+    s = maps["sparse"].clone()
+    occ = ops.padded_occupancy(s)
+    with dispatch.use_hybrid():
+        be, attr = dispatch.resolve_with_attribution("spike_matmul", s, w,
+                                                     occupancy=occ)
+    check(attr == f"{dispatch.HYBRID}[{dispatch.CUDA}|{dispatch.CUDA_PRED}"
+          f"@b{thresh}]", f"hybrid graph call attributed {attr}")
+    held = {}
+
+    def call():
+        held["flags"] = ops.hybrid_route(occ, thresh)
+        held["out"] = be.fn(s, w, occupancy=occ)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.inference_mode(), torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.inference_mode(), torch.cuda.graph(graph):
+        call()
+    replays = []
+    for label in ("sparse", "full", "sparse"):
+        src = maps[label]
+        s.copy_(src)
+        occ.copy_(ops.padded_occupancy(src))
+        graph.replay()
+        torch.cuda.synchronize()
+        count = int((occ > 0).sum())
+        bucket = costmodel.pow2_bucket(count)
+        event = costmodel.event_route_wins(
+            "spike_matmul", costmodel.bucket_representative(bucket, mt * kt),
+            mt, kt)
+        flags = held["flags"].tolist()
+        check(flags == [int(event), int(not event)],
+              f"graph replay on the {label} map: device flags {flags}, "
+              f"host decision event={event}")
+        ref = spike_matmul.spike_matmul_pred_plain(src, w, occ)
+        err = (held["out"] - ref).abs().max().item()
+        tol = 1e-5 * ref.abs().max().item() + 1e-5
+        check(err <= tol, f"graph replay on the {label} map off by {err}")
+        replays.append(dict(map=label, occupied=count, bucket=bucket,
+                            event_route=event, flags=flags,
+                            max_abs_err=err, tolerance=tol))
+    check(replays[0]["event_route"] != replays[1]["event_route"],
+          "the graph's two maps take the same route")
+    csr = build_csr(occ, 128, 128)
+    out = torch.empty((m, n), device=device)
+    gate = torch.tensor([1, 0], dtype=torch.int32, device=device)
+    gated = {label: graph_ms(torch, functools.partial(
+        spike_matmul.spike_matmul_csr, s, w, csr, route=gate[i:i + 1],
+        out=out)) for i, label in enumerate(("on", "off"))}
+    emit("hybrid_graph", shape=[m, k, n], grid=[mt, kt], threshold=thresh,
+         attribution=attr, replays=replays,
+         gated_on_device_ms=gated["on"], gated_off_device_ms=gated["off"])
+
+
+def phase_hybrid_apec(torch, cap):
+    """`core.apec.apec_matmul` under `use_hybrid` (g = 2) on phase (i)'s
+    FFN inputs and stage-1 patch matrix with their carried maps: within
+    1e-5 * max|ref| + 1e-5 of the CSR route (kernel 17) on the same
+    spikes, with each call's route and bucket."""
+    from repro_torch.core import apec
+    from repro_torch.core.events import EventTensor
+    from repro_torch.kernels import dispatch, launch_counts, ops, \
+        reset_launch_counts
+    (s1, w1, m1), (s2, w2, m2) = cap["spike_matmul"][:2]
+    s_conv, w_conv, m_conv = cap["econv"][0]
+    kh, kw, ci, co = w_conv.shape
+    patches = dispatch.econv_patches(s_conv, kh, kw, 1, "SAME")
+    totals: dict = {}
+    for label, s, occ, w in (
+            ("ffn_fc1", s1, m1, w1), ("ffn_fc2", s2, m2, w2),
+            ("econv_stage1", patches, m_conv,
+             w_conv.permute(2, 0, 1, 3).reshape(ci * kh * kw, co)
+             .contiguous())):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        with torch.inference_mode(), dispatch.use_hybrid(), \
+                hybrid_calls(dispatch) as calls:
+            out = apec.apec_matmul(EventTensor(s, occ), w, g=2)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        with torch.inference_mode():
+            ref = ops.apec_matmul_csr(s, w, 2, occupancy=occ)
+        err = (out - ref).abs().max().item()
+        tol = 1e-5 * ref.abs().max().item() + 1e-5
+        check(err <= tol, f"hybrid APEC at {label} off the CSR route by "
+              f"{err} > {tol}")
+        emit("hybrid_apec", case=label, shape=[*s.shape, w.shape[1]],
+             max_abs_err=err, tolerance=tol,
+             launches={k: v for k, v in counts.items() if v},
+             routes=hybrid_routes(calls))
+    return totals
+
+
+def phase_hybrid_train(torch, device):
+    """One SpikingFormer-4-384 training step under `hybrid=True` against
+    the automatic step on the same parameters and batch (cuDNN
+    deterministic): the loss and every gradient leaf bit for bit."""
+    from repro_torch.configs.base import SpikingConfig
+    from repro_torch.optim import adamw
+    batch = train_batch(torch, 0, device)
+    steps = {}
+    for hybrid in (False, True):
+        params = fresh_params(torch, device)
+        opt = adamw.init(params, adamw.AdamWConfig(lr=LR))
+        cfg = SpikingConfig(t_steps=T, lif_vth=V_TH, hybrid=hybrid)
+        loss, grads, _ = train_step(torch, params, opt, batch, cfg)
+        torch.cuda.synchronize()
+        steps[hybrid] = (loss, grads)
+    (l_auto, g_auto), (l_hyb, g_hyb) = steps[False], steps[True]
+    check(torch.equal(l_auto, l_hyb), f"hybrid step loss {l_hyb.item()} != "
+          f"{l_auto.item()}")
+    check(all(torch.equal(a, b) for a, b in zip(g_auto, g_hyb)),
+          "hybrid step gradients differ from the automatic step's")
+    emit("hybrid_train_step", loss=l_hyb.item(), equal_bits=True,
+         leaves=len(g_hyb))
+
+
+def phase_hybrid_kernel10(torch, cap):
+    """Kernel 10 where hybrid sends the models' dense calls: the
+    SpikingFormer-4-384 forward's FFN fc1 and fc2 inputs and its stage-1
+    patch matrix with their carried maps (N = 1536, 384, 96: the wide
+    path). Each: within 1e-5 * max|ref| + 1e-5 of its plain version and
+    equal bit for bit to kernels 11 and 12 on the same spikes and
+    `build_csr` of the map; device ms from a CUDA graph of kernels 10, 11
+    and 12 and cuBLAS fp32 in turns (10, 11, 12, cuBLAS, then back), and
+    the bound."""
+    from repro_torch.core.spikes import build_csr
+    from repro_torch.kernels import dispatch, spike_matmul
+    (s1, w1, m1), (s2, w2, m2) = cap["spike_matmul"][:2]
+    s_conv, w_conv, m_conv = cap["econv"][0]
+    kh, kw, ci, co = w_conv.shape
+    patches = dispatch.econv_patches(s_conv, kh, kw, 1, "SAME")
+    for label, s, occ, w in (
+            ("ffn_fc1", s1, m1, w1), ("ffn_fc2", s2, m2, w2),
+            ("econv_stage1", patches, m_conv,
+             w_conv.permute(2, 0, 1, 3).reshape(ci * kh * kw, co)
+             .contiguous())):
+        s = s.reshape(-1, s.shape[-1]).float().contiguous()
+        w = w.float().contiguous()
+        occ = occ.to(torch.int32).contiguous()
+        m, k = s.shape
+        n = w.shape[1]
+        csr = build_csr(occ, 128, 128)
+        fns = {"k10": functools.partial(spike_matmul.spike_matmul_pred, s, w,
+                                        occ),
+               "k11": functools.partial(spike_matmul.spike_matmul_csr, s, w,
+                                        csr),
+               "k12": functools.partial(spike_matmul.spike_matmul_csr_pipe, s,
+                                        w, csr),
+               "cublas": functools.partial(torch.matmul, s, w)}
+        out = fns["k10"]()
+        ref = spike_matmul.spike_matmul_pred_plain(s, w, occ)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = 1e-5 * ref.abs().max().item() + 1e-5
+        check(err <= tol, f"kernel 10 at {label} off by {err} > {tol}")
+        check(torch.equal(out, fns["k11"]()) and torch.equal(out, fns["k12"]()),
+              f"kernel 10 differs from kernels 11 / 12 at {label}")
+        first = {name: graph_ms(torch, fn) for name, fn in fns.items()}
+        second = {name: graph_ms(torch, fn)
+                  for name, fn in reversed(list(fns.items()))}
+        ms = {name: (first[name] + second[name]) / 2 for name in fns}
+        flops, n_bytes = csr_work(torch, occ, m, k, n)
+        n_bytes += occ.numel() * 4
+        rec = dict(max_abs_err=err, tolerance=tol, ms=ms["k10"],
+                   plain_ms=cuda_ms(torch, functools.partial(
+                       spike_matmul.spike_matmul_pred_plain, s, w, occ),
+                       reps=5),
+                   **spike_bounds(n_bytes, live_nonzeros(torch, s, occ), n,
+                                  flops),
+                   library_ms=ms["cublas"], kernel11_ms=ms["k11"],
+                   kernel12_ms=ms["k12"],
+                   occupied_share=(occ > 0).float().mean().item(),
+                   shape=[m, k, n])
+        emit("kernel", name="spike_matmul_pred", case=f"{label}_model",
+             **rec)
+
+
+def phase_hybrid(torch, device):
+    """(l) hybrid dispatch on the card: the models, the CUDA graph, APEC,
+    one training step, and kernel 10 at the models' dense shapes."""
+    totals = phase_hybrid_models(torch, device)
+    phase_hybrid_graph(torch, device)
+    cap = apec_capture(torch, device)
+    for k, v in phase_hybrid_apec(torch, cap).items():
+        totals[k] = totals.get(k, 0) + v
+    phase_hybrid_kernel10(torch, cap)
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        phase_hybrid_train(torch, device)
+    finally:
+        torch.backends.cudnn.deterministic = was
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2845,6 +3235,10 @@ def main() -> int:
                            results).items()):
         totals[name] = totals.get(name, 0) + n
     totals.update(timed("k_lm", phase_lm, torch, device, results))
+    # Hybrid dispatch's forwards launch kernels 10, 11 and 17 (rows 10, 11
+    # and 17) where the carried maps send them.
+    for name, n in timed("l_hybrid", phase_hybrid, torch, device).items():
+        totals[name] = totals.get(name, 0) + n
     emit("phase_time", name="total", seconds=time.perf_counter() - t_start)
     kernels = []
     for name in INFERENCE_KERNELS + TRAINING_KERNELS + APEC_KERNELS + \

@@ -19,8 +19,7 @@ class SpikingConfig:
     sdsa_mode: str = "or"       # "or" (paper Fig. 6) | "sum" (trainable)
     apec_group: int = 2         # paper's default G2
     hybrid: bool = False        # density-adaptive dense/event routing
-                                # (not ported yet: raises, ROADMAP queue 1
-                                # item 4)
+                                # (`kernels.dispatch.use_hybrid`)
     packed: bool = False        # uint32 words as inter-layer payload
                                 # (inference only: the words carry no
                                 # gradient)

@@ -108,6 +108,24 @@ def popcount(p: torch.Tensor) -> torch.Tensor:
     return (((x * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
 
 
+def event_count(s: torch.Tensor) -> torch.Tensor:
+    """Total number of active events in a binary spike tensor (a 0-d int
+    tensor on s's device: the sum of the spikes as integers, as `repro`
+    counts them)."""
+    return s.to(torch.int32).sum(dtype=torch.int32)
+
+
+def sparsity(s: torch.Tensor) -> torch.Tensor:
+    """Fraction of zeros (the paper's per-layer 'input sparsity', Fig. 2):
+    1 - mean of the spikes in f32, a 0-d tensor on s's device."""
+    return 1.0 - s.float().mean()
+
+
+def to_binary(x: torch.Tensor) -> torch.Tensor:
+    """Clamp any tensor to exact {0,1} in its own dtype (defensive)."""
+    return (x > 0).to(x.dtype)
+
+
 def packed_width(k: int) -> int:
     """Number of uint32 words covering `k` bits (ceil division)."""
     return -(-int(k) // PACK)
@@ -174,6 +192,13 @@ def tile_occupancy(s: torch.Tensor, tile_m: int, tile_k: int) -> torch.Tensor:
     # slices fold into rows and the map unfolds again.
     occ = ragged_tile_occupancy(s.reshape(-1, k), tile_m, tile_k)
     return occ.reshape(tuple(s.shape[:-2]) + (m // tile_m, k // tile_k))
+
+
+def occupancy_fraction(s: torch.Tensor, tile_m: int,
+                       tile_k: int) -> torch.Tensor:
+    """Fraction of non-empty tiles of `tile_occupancy` (predicts the
+    tile-skip speedup), a 0-d f32 tensor on s's device."""
+    return (tile_occupancy(s, tile_m, tile_k) > 0).float().mean()
 
 
 def ragged_tile_occupancy(s: torch.Tensor, tile_m: int,
@@ -315,6 +340,15 @@ def occupancy_to_csr(occ: torch.Tensor, cap: Optional[int] = None,
     return TileCSR(row_ptr, (steps // kt).to(torch.int32),
                    (steps % kt).to(torch.int32), occ_steps.to(torch.int32),
                    live.to(torch.int32), tiling, (mt, kt))
+
+
+def tile_csr(s: torch.Tensor, tile_m: int, tile_k: int,
+             cap: Optional[int] = None) -> TileCSR:
+    """Occupancy pre-pass + CSR compaction of an (M, K) spike matrix
+    (`occupancy_to_csr`: a CUDA matrix's map compacts on the card,
+    dense-cap, with no host read)."""
+    return occupancy_to_csr(tile_occupancy(s, tile_m, tile_k), cap=cap,
+                            tiling=(tile_m, tile_k))
 
 
 def build_csr(occ: torch.Tensor, block_m: int, block_k: int) -> TileCSR:

@@ -69,6 +69,11 @@
 //           steps' staging, the lists, block starts). Bulk (TMA) weight
 //           copies, persistent blocks, 32 warps and 8-index batches each
 //           ran no faster on an NVIDIA H100 80GB HBM3 (PERF.md, Findings).
+// Route gate: `apec_matmul_csr_routed_forward` takes a device int `route`;
+//           every block returns at entry when it reads 0, writing nothing.
+//           Hybrid dispatch launches this kernel and the predicated route's
+//           kernel-10 launches behind one flag computed on the card from
+//           the carried map (no host read). A null `route` always runs.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -116,6 +121,7 @@ struct Problem {
   int64_t m, kcols, k, n;
   int bn;
   bool vec_w, vec_out;
+  const int* route = nullptr;   // run only where *route != 0 (null: always)
 };
 
 // f32 spikes: this lane's values of entry t of a warp's walk through the
@@ -153,6 +159,7 @@ __device__ __forceinline__ void load_entry(float (&x)[kWords],
 template <int G, bool kPacked>
 __global__ void __launch_bounds__(kThreads, 1)
 apec_walk_kernel(Problem p) {
+  if (p.route != nullptr && *p.route == 0) return;  // the other route runs
   using R = Rows<G>;
   constexpr int kB = kPacked || G > 1 ? kBatch : 2;
   constexpr int kAh = G > 1 ? kAhead : 2;
@@ -340,6 +347,20 @@ extern "C" int apec_matmul_csr_forward(const float* res, const float* ov,
   return forward<false>(Problem{res, ov, w, out, row_ptr, tile_k_idx,
                                 {occ_res, occ_ov}, m, k, k, n, 0, false,
                                 false},
+                        mt, g, stream);
+}
+
+// The same, gated: runs only where the device int `route` is nonzero, and
+// otherwise writes nothing (hybrid dispatch's event route, launched beside
+// the predicated route's two kernel-10 launches behind one flag).
+extern "C" int apec_matmul_csr_routed_forward(
+    const float* res, const float* ov, const float* w, float* out,
+    const int* row_ptr, const int* tile_k_idx, const int* occ_res,
+    const int* occ_ov, int64_t m, int64_t k, int64_t n, int64_t mt,
+    int64_t g, const int* route, void* stream) {
+  return forward<false>(Problem{res, ov, w, out, row_ptr, tile_k_idx,
+                                {occ_res, occ_ov}, m, k, k, n, 0, false,
+                                false, route},
                         mt, g, stream);
 }
 

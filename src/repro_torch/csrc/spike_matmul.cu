@@ -44,6 +44,13 @@
 // Design, N > 16 (hybrid routing's dense side): grid (m-tile row, 128-wide
 //           n-tile), csrc/tile_fma.cuh's synchronous tile loop, the same
 //           chain.
+// Route gate: `spike_matmul_pred_routed_forward` takes a device int
+//           `route`; every block returns at entry when it reads 0, so the
+//           launch writes nothing. Hybrid dispatch launches this kernel
+//           and the event walk (csrc/spike_matmul_csr.cu) behind one flag
+//           computed on the card from the carried map, so the route is
+//           chosen with no host read (and a CUDA graph of the call picks it
+//           from the map present at replay). A null `route` always runs.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -186,8 +193,9 @@ __global__ void __launch_bounds__(Pred<BN>::kThreads, 4)
 pred_stream_kernel(const float* __restrict__ s, const float* __restrict__ w,
                    float* __restrict__ out, const int* __restrict__ occ,
                    int64_t m, int64_t k, int64_t n, int kt, bool vec_s,
-                   bool vec_w) {
+                   bool vec_w, const int* __restrict__ route) {
   using P = Pred<BN>;
+  if (route != nullptr && *route == 0) return;      // the other route runs
   static_assert(P::kCols == 2 || P::kCols % 4 == 0, "float2 or float4 rows");
   extern __shared__ __align__(16) unsigned char ring[];
   const int64_t m0 = (int64_t)blockIdx.x * kTile;
@@ -242,7 +250,7 @@ pred_stream_kernel(const float* __restrict__ s, const float* __restrict__ w,
 template <int BN>
 int launch_stream(const float* s, const float* w, float* out, const int* occ,
                   int64_t m, int64_t k, int64_t n, int64_t kt,
-                  cudaStream_t stream) {
+                  const int* route, cudaStream_t stream) {
   using P = Pred<BN>;
   auto kernel = pred_stream_kernel<BN>;
   const cudaError_t err = tile_fma::allow_dynamic_smem(kernel, P::kBytes);
@@ -250,7 +258,7 @@ int launch_stream(const float* s, const float* w, float* out, const int* occ,
   const bool vec_s = k % 4 == 0 && (uintptr_t)s % 16 == 0;
   const bool vec_w = n == BN && (uintptr_t)w % 16 == 0;
   kernel<<<(unsigned)((m + kTile - 1) / kTile), P::kThreads, P::kBytes,
-           stream>>>(s, w, out, occ, m, k, n, (int)kt, vec_s, vec_w);
+           stream>>>(s, w, out, occ, m, k, n, (int)kt, vec_s, vec_w, route);
   return (int)cudaGetLastError();
 }
 
@@ -261,8 +269,10 @@ __global__ void __launch_bounds__(
     tile_fma::Shape<kTile, kWideRM, kWideRN>::kThreads)
 pred_matmul_kernel(const float* __restrict__ s, const float* __restrict__ w,
                    float* __restrict__ out, const int* __restrict__ occ,
-                   int64_t m, int64_t k, int64_t n, int64_t kt) {
+                   int64_t m, int64_t k, int64_t n, int64_t kt,
+                   const int* __restrict__ route) {
   __shared__ tile_fma::Staging<kTile> st;
+  if (route != nullptr && *route == 0) return;      // the other route runs
   const int64_t m0 = (int64_t)blockIdx.x * kTile;
   const int64_t n0 = (int64_t)blockIdx.y * kTile;
   const int* row = occ + (int64_t)blockIdx.x * kt;
@@ -277,6 +287,22 @@ pred_matmul_kernel(const float* __restrict__ s, const float* __restrict__ w,
   tile_fma::store_tile<kTile, kWideRM, kWideRN>(out, m0, n0, m, n, acc);
 }
 
+int forward(const float* s, const float* w, float* out, const int* occ,
+            int64_t m, int64_t k, int64_t n, int64_t kt, const int* route,
+            cudaStream_t st) {
+  if (m <= 0 || n <= 0) return (int)cudaGetLastError();
+  if (n <= 2) return launch_stream<2>(s, w, out, occ, m, k, n, kt, route, st);
+  if (n <= 4) return launch_stream<4>(s, w, out, occ, m, k, n, kt, route, st);
+  if (n <= 8) return launch_stream<8>(s, w, out, occ, m, k, n, kt, route, st);
+  if (n <= 16)
+    return launch_stream<16>(s, w, out, occ, m, k, n, kt, route, st);
+  dim3 grid((unsigned)((m + kTile - 1) / kTile),
+            (unsigned)((n + kTile - 1) / kTile));
+  pred_matmul_kernel<<<grid, tile_fma::Shape<kTile, kWideRM, kWideRN>::kThreads,
+                       0, st>>>(s, w, out, occ, m, k, n, kt, route);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // s: (M, K) f32, w: (K, N) f32, out: (M, N) f32; occ: (MT, KT) int32 with
@@ -285,15 +311,16 @@ extern "C" int spike_matmul_pred_forward(const float* s, const float* w,
                                          float* out, const int* occ,
                                          int64_t m, int64_t k, int64_t n,
                                          int64_t kt, void* stream) {
-  if (m <= 0 || n <= 0) return (int)cudaGetLastError();
-  cudaStream_t st = (cudaStream_t)stream;
-  if (n <= 2) return launch_stream<2>(s, w, out, occ, m, k, n, kt, st);
-  if (n <= 4) return launch_stream<4>(s, w, out, occ, m, k, n, kt, st);
-  if (n <= 8) return launch_stream<8>(s, w, out, occ, m, k, n, kt, st);
-  if (n <= 16) return launch_stream<16>(s, w, out, occ, m, k, n, kt, st);
-  dim3 grid((unsigned)((m + kTile - 1) / kTile),
-            (unsigned)((n + kTile - 1) / kTile));
-  pred_matmul_kernel<<<grid, tile_fma::Shape<kTile, kWideRM, kWideRN>::kThreads,
-                       0, st>>>(s, w, out, occ, m, k, n, kt);
-  return (int)cudaGetLastError();
+  return forward(s, w, out, occ, m, k, n, kt, nullptr, (cudaStream_t)stream);
+}
+
+// The same, gated: runs only where the device int `route` is nonzero, and
+// otherwise writes nothing.
+extern "C" int spike_matmul_pred_routed_forward(const float* s,
+                                                const float* w, float* out,
+                                                const int* occ, int64_t m,
+                                                int64_t k, int64_t n,
+                                                int64_t kt, const int* route,
+                                                void* stream) {
+  return forward(s, w, out, occ, m, k, n, kt, route, (cudaStream_t)stream);
 }

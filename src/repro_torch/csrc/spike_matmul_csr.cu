@@ -61,6 +61,12 @@
 //           0's weights and store nothing. The epilogue writes out = acc
 //           (float4 stores where N % 4 == 0). Ragged M, K and N are masked;
 //           no operand is padded.
+// Route gate: `spike_matmul_csr_routed_forward` takes a device int
+//           `route`; every block returns at entry when it reads 0, writing
+//           nothing. Hybrid dispatch launches this kernel and the
+//           predicated kernel 10 (csrc/spike_matmul.cu) behind one flag
+//           computed on the card from the carried map (no host read). A
+//           null `route` always runs.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -103,6 +109,7 @@ struct Problem {
   int64_t m, kcols, k, n;
   int bn;
   bool vec_w, vec_out;
+  const int* route = nullptr;   // run only where *route != 0 (null: always)
 };
 
 // f32 spikes: this lane's values of row t of a warp's walk through the
@@ -153,6 +160,7 @@ __device__ __forceinline__ void walk_step(uint32_t word,
 template <bool kPacked, int kBlocks>
 __global__ void __launch_bounds__(kThreads, kBlocks)
 csr_walk_kernel(Problem p) {
+  if (p.route != nullptr && *p.route == 0) return;  // the other route runs
   constexpr int kAhead = Budget<kPacked, kBlocks>::kAhead;
   constexpr int kB = Budget<kPacked, kBlocks>::kB;
   extern __shared__ __align__(16) float smem[];   // 2 x 128 x bn weights
@@ -284,6 +292,17 @@ extern "C" int spike_matmul_csr_forward(const float* s, const float* w,
                                         int64_t n, int64_t mt, void* stream) {
   return forward<false>(Problem{s, w, out, row_ptr, tile_k_idx, {occ}, m, k,
                                 k, n, 0, false, false},
+                        mt, stream);
+}
+
+// The same, gated: runs only where the device int `route` is nonzero, and
+// otherwise writes nothing.
+extern "C" int spike_matmul_csr_routed_forward(
+    const float* s, const float* w, float* out, const int* row_ptr,
+    const int* tile_k_idx, const int* occ, int64_t m, int64_t k, int64_t n,
+    int64_t mt, const int* route, void* stream) {
+  return forward<false>(Problem{s, w, out, row_ptr, tile_k_idx, {occ}, m, k,
+                                k, n, 0, false, false, route},
                         mt, stream);
 }
 

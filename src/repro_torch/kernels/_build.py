@@ -77,6 +77,12 @@ SIGNATURES = {
                                              _I64, _I64, _I64, _I64, _P),
     "spike_matmul_pred_forward": (_P, _P, _P, _P, _I64, _I64, _I64, _I64,
                                   _P),
+    "spike_matmul_pred_routed_forward": (_P, _P, _P, _P, _I64, _I64, _I64,
+                                         _I64, _P, _P),
+    "spike_matmul_csr_routed_forward": (_P, _P, _P, _P, _P, _P, _I64, _I64,
+                                        _I64, _I64, _P, _P),
+    "apec_matmul_csr_routed_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                                       _I64, _I64, _I64, _I64, _P, _P),
     "spike_matmul_csr_pipe_launch": (_I64, _I64, _P),
     "spike_matmul_packed_csr_pipe_launch": (_I64, _I64, _P),
     "apec_decompose_forward": (_P, _P, _P, _I64, _I64, _I64, _P),

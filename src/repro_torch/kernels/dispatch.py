@@ -72,8 +72,40 @@ Selection order per call (`repro`'s resolution walk on CPU tensors):
 Every degrade warns once per (op, from, to) edge (`reset_fallback_warnings`
 re-arms them) and is attributed ``<chosen><-<requested>``
 (`resolve_with_attribution`, `watch_resolutions`); a platform or payload
-that a backend does not take is filtered silently. The mesh, hybrid and
-guard routing of `repro`'s registry are not ported yet.
+that a backend does not take is filtered silently. The mesh and guard
+routing of `repro`'s registry are not ported yet.
+
+Hybrid resolution (`use_hybrid`, ``EXSPIKE_BACKEND=hybrid``, `repro`'s
+density-adaptive routing): a call of `HYBRID_OPS` that carries an
+occupancy map picks between an event route and a dense route from the map's
+occupied-tile count, bucketed in pow2 bands, on the cost model's
+calibrated crossover (`core.costmodel.event_route_wins`, fit on the H100
+sweep `tools/route_sweep_h100.json`). The pair (`_hybrid_route_pair`) is
+the serial event walk `cuda` and its declared non-event fallback
+`cuda-pred`, `repro`'s ``pallas-csr`` and ``pallas``:
+
+  op            event route (cuda)            dense route (cuda-pred)
+  ------------  ----------------------------  ---------------------------
+  spike_matmul  kernel 11 (TPU row 11)        kernel 10 (TPU row 10)
+  apec_matmul   decompose + kernel 17 (row    decompose + two kernel-10
+                17)                           launches + the repeat
+  econv         im2col + kernel 11            im2col + kernel 10
+
+A map on the CPU is read there and the route is chosen in Python,
+attributed ``<route><-hybrid[b<bucket>]``; hybrid is an explicit request,
+so on CPU tensors the chosen route runs its plain versions. A map on the
+card is never read on the host: the call resolves to
+``hybrid[cuda|cuda-pred@b<threshold>]``, whose body launches both routes'
+kernels behind one flag computed on the card (`ops.hybrid_route`), the
+one not chosen returning at block entry; what both routes share (the
+im2col, APEC's decompose) is built once. It is `repro`'s `lax.cond` on the
+bucketed count, and one CUDA graph of a call takes its route from the map
+present at replay. Hybrid disengages (automatic selection, attributed
+``<backend><-hybrid``) without a map, on packed payloads, or without a
+route pair; a blanket `use_hybrid()` leaves the other ops untouched.
+Where one route's gate refuses the call, the other is pinned (warned
+once); where both refuse, the normal walk runs, and on the card it raises
+before it lands on a plain route.
 
 On the card (CUDA tensors) a degrade may only move from one kernel route
 to another (`KERNEL_ROUTES`, along the declared chain, under automatic
@@ -120,6 +152,11 @@ from repro_torch.core.spikes import unpack_spikes_padded
 
 ENV_VAR = "EXSPIKE_BACKEND"
 REF = "ref"
+# Override value selecting density-adaptive hybrid resolution instead of a
+# backend (see `use_hybrid`), and the ops it routes: matmul-form consumers
+# of a carried (MT, KT) occupancy map with an event/dense route pair.
+HYBRID = "hybrid"
+HYBRID_OPS = ("spike_matmul", "apec_matmul", "econv")
 CUDA = "cuda"
 CUDA_PRED = "cuda-pred"
 CUDA_PACKED = "cuda-packed"
@@ -127,8 +164,11 @@ CUDA_PIPE = "cuda-pipe"
 CUDA_PACKED_PIPE = "cuda-packed-pipe"
 ALL_PLATFORMS = ("cpu", "cuda")
 PACKED_OPS = ("spike_matmul", "econv", "apec_matmul")   # take packed_k=
-# The routes whose wrappers launch a hand-written kernel on CUDA tensors.
-KERNEL_ROUTES = (CUDA_PACKED_PIPE, CUDA_PIPE, CUDA_PACKED, CUDA, CUDA_PRED)
+# The routes whose wrappers launch a hand-written kernel on CUDA tensors:
+# the event routes, which walk a work list of occupied tiles, and the
+# predicated `cuda-pred`.
+EVENT_ROUTES = (CUDA_PACKED_PIPE, CUDA_PIPE, CUDA_PACKED, CUDA)
+KERNEL_ROUTES = EVENT_ROUTES + (CUDA_PRED,)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -342,6 +382,22 @@ def use_backend(name: str, op: Optional[str] = None):
         _OVERRIDES.pop()
 
 
+@contextlib.contextmanager
+def use_hybrid(op: Optional[str] = None):
+    """Density-adaptive hybrid resolution (``EXSPIKE_BACKEND=hybrid`` is
+    the env-var spelling): while active, calls of `HYBRID_OPS` (all of
+    them, or `op`) that carry an occupancy map pick between the event and
+    the dense route PER CALL, on the cost model's calibrated crossover at
+    the map's occupied-tile count, bucketed into pow2 bands. A CPU map
+    resolves in Python (attribution ``<route><-hybrid[b<bucket>]``); a
+    CUDA map on the card, with no host read (attribution
+    ``hybrid[<event>|<dense>@b<threshold>]``). Calls hybrid cannot route
+    (no carried map, a packed payload, no route pair) fall through to
+    automatic selection, tagged ``<-hybrid``. See the module doc."""
+    with use_backend(HYBRID, op=op):
+        yield
+
+
 # -------------------------------------------------------------- resolution
 def _platform(args) -> str:
     for a in args:
@@ -424,6 +480,100 @@ def _walk_fallback_chain(op: str, spec: OpSpec, be: Backend,
     return be, reason
 
 
+# ---------------------------------------------------- hybrid resolution
+def _hybrid_route_pair(spec: OpSpec) -> Optional[Tuple[Backend, Backend]]:
+    """(event route, dense route): the highest-priority dense-payload event
+    route whose declared fallback is not an event route, and that fallback
+    (`repro`'s rule: a ``csr`` backend declaring a dense fallback). The
+    pipelined routes declare the serial walk as fallback, so the pair is
+    `cuda` and `cuda-pred`. None when either half is missing (hybrid then
+    disengages). Hybrid is an explicit request, so the pair is not
+    filtered by platform: on CPU tensors it runs the plain versions."""
+    event = max(
+        (b for b in spec.backends.values()
+         if b.name in EVENT_ROUTES and "dense" in b.payload
+         and b.fallback in spec.backends and b.fallback not in EVENT_ROUTES),
+        key=lambda b: b.priority, default=None)
+    if event is None:
+        return None
+    return event, spec.backends[event.fallback]
+
+
+def _hybrid_device_fn(op: str, event_be: Backend, dense_be: Backend,
+                      mt: int, kt: int, threshold: int):
+    """The body of a hybrid call on a CUDA map: both routes' kernels
+    behind the flags `ops.hybrid_route` computes on the card (`repro`'s
+    `lax.cond` on the bucketed count), or one route alone where the
+    threshold routes every bucket of an (mt, kt) map the same way."""
+    from repro_torch.core import costmodel
+    if threshold < 0:
+        return dense_be.fn
+    if threshold >= costmodel.num_buckets(mt * kt) - 1:
+        return event_be.fn
+    body, rule = _HYBRID_BODIES[op]
+    return _wrap_vjp(op, functools.partial(body, threshold=threshold), rule)
+
+
+def _hybrid_resolution(spec: OpSpec, op: str, kwargs,
+                       reason_of) -> Optional[Tuple[Backend, str]]:
+    """Resolve under the HYBRID override. Returns (backend, attribution)
+    or None to disengage (no carried map / packed payload / no route
+    pair); the caller then falls through to automatic selection."""
+    occ = kwargs.get("occupancy")
+    if op not in HYBRID_OPS or occ is None or getattr(occ, "ndim", 0) != 2:
+        return None
+    if kwargs.get("packed_k") is not None:
+        # Packed payloads route by the `payload` capability, not by
+        # density: the word kernels' bytes advantage holds at every
+        # occupancy, so hybrid disengages (as in `repro`).
+        return None
+    pair = _hybrid_route_pair(spec)
+    if pair is None:
+        return None
+    event_be, dense_be = pair
+    event_reason = reason_of(event_be)
+    dense_reason = reason_of(dense_be)
+    if event_reason is not None and dense_reason is not None:
+        return None          # both routes refuse: the normal walk runs
+    if event_reason is not None:
+        _warn_once(op, event_be.name, dense_be.name,
+                   f"exspike dispatch: hybrid event route {event_be.name!r} "
+                   f"for op {op!r} unavailable ({event_reason}); pinning "
+                   f"dense route {dense_be.name!r}", stacklevel=6,
+                   route="event")
+        return dense_be, f"{dense_be.name}<-{HYBRID}"
+    if dense_reason is not None:
+        _warn_once(op, dense_be.name, event_be.name,
+                   f"exspike dispatch: hybrid dense route {dense_be.name!r} "
+                   f"for op {op!r} unavailable ({dense_reason}); pinning "
+                   f"event route {event_be.name!r}", stacklevel=6,
+                   route="dense")
+        return event_be, f"{event_be.name}<-{HYBRID}"
+    from repro_torch.core import costmodel
+    mt, kt = occ.shape
+    if not _device_routed(occ):
+        # A map on the host: pick in Python on the band's representative
+        # count, as `repro` picks for a concrete map.
+        bucket = costmodel.pow2_bucket(int((occ > 0).sum()))
+        rep = costmodel.bucket_representative(bucket, mt * kt)
+        be = event_be if costmodel.event_route_wins(op, rep, mt, kt) \
+            else dense_be
+        return be, f"{be.name}<-{HYBRID}[b{bucket}]"
+    threshold = costmodel.hybrid_event_bucket_threshold(op, mt, kt)
+    routed = Backend(
+        name=f"{HYBRID}[{event_be.name}|{dense_be.name}@b{threshold}]",
+        fn=_hybrid_device_fn(op, event_be, dense_be, mt, kt, threshold),
+        platforms=event_be.platforms, auto=False,
+        differentiable=event_be.differentiable and dense_be.differentiable)
+    return routed, routed.name
+
+
+def _device_routed(occ: torch.Tensor) -> bool:
+    """Whether a hybrid call chooses its route on the map's device (a CUDA
+    map, which the host must not read) rather than in Python."""
+    return occ.is_cuda
+
+
 def _resolve_payload_blind(op: str, *args,
                            **kwargs) -> Tuple[Backend, str]:
     spec = _REGISTRY[op]
@@ -435,6 +585,10 @@ def _resolve_payload_blind(op: str, *args,
 
     def attributed(be: Backend, requested: Optional[str]):
         if requested is None or requested == be.name:
+            if hybrid_requested:
+                # hybrid disengaged: automatic selection ran, and the tag
+                # keeps visible that hybrid was asked for and stepped aside.
+                return be, f"{be.name}<-{HYBRID}"
             return be, be.name
         return be, f"{be.name}<-{requested}"
 
@@ -447,6 +601,16 @@ def _resolve_payload_blind(op: str, *args,
         return be, reason
 
     override = _override_for(op)
+    # Hybrid means something only for the ops with an event/dense pair; on
+    # every other op a blanket use_hybrid() is a plain no-op (automatic
+    # selection, untagged), not a disengage.
+    hybrid_requested = override == HYBRID and op in HYBRID_OPS
+    if override == HYBRID:
+        override = None
+    if hybrid_requested:
+        routed = _hybrid_resolution(spec, op, kwargs, reason_of)
+        if routed is not None:
+            return routed
     if override is not None:
         be = spec.backends.get(override)
         if be is None:
@@ -538,6 +702,10 @@ def resolve(op: str, *args, **kwargs) -> Backend:
     return resolve_with_attribution(op, *args, **kwargs)[0]
 
 
+def resolve_name(op: str, *args, **kwargs) -> str:
+    return resolve(op, *args, **kwargs).name
+
+
 def resolve_attribution(op: str, *args, **kwargs) -> str:
     """``name``, or ``name<-requested`` after a degrade."""
     return resolve_with_attribution(op, *args, **kwargs)[1]
@@ -546,6 +714,17 @@ def resolve_attribution(op: str, *args, **kwargs) -> str:
 def dispatch(op: str, *args, **kwargs):
     """Run `op` on the resolved backend."""
     return resolve(op, *args, **kwargs).fn(*args, **kwargs)
+
+
+def call_backend(op: str, name: str, *args, **kwargs):
+    """Run backend `name` of `op` as registered, erroring (not falling back)
+    when its `supports` gate refuses the call: an unsupported pair is an
+    explicit error, never a silent comparison of `ref` with itself."""
+    be = get_backend(op, name)
+    reason = be.unsupported_reason(*args, **kwargs)
+    if reason is not None:
+        raise ValueError(f"{op}/{name} unsupported: {reason}")
+    return be.fn(*args, **kwargs)
 
 
 def _packed_example(op: str, dev):
@@ -598,6 +777,13 @@ def table() -> str:
             f"{f',->{b.fallback}' if b.fallback else ''})"
             for b in sorted(spec.backends.values(), key=lambda b: -b.priority))
         lines.append(f"{op:14s} -> {bes}")
+        pair = _hybrid_route_pair(spec) if op in HYBRID_OPS else None
+        if pair is not None:
+            from repro_torch.core import costmodel
+            r, h = costmodel.calibrated_route_params(op)
+            lines.append(
+                f"{'':14s}    hybrid: event={pair[0].name} | "
+                f"dense={pair[1].name} (calibrated r={r:.2f}, h={h:.2f})")
     return "\n".join(lines)
 
 
@@ -1054,6 +1240,37 @@ def _tconv_cuda(s, w, *, stride=2, padding="SAME"):
     from repro_torch.kernels import ops
     up = upsample_events(s, stride, w.shape[0], w.shape[1], padding)
     return _econv_im2col(up, w, 1, "VALID", ops.spike_matmul)
+
+
+# ---------------------------------------------------------------- hybrid
+# The bodies of a hybrid call on a CUDA map (`_hybrid_device_fn`): both
+# routes of the pair behind the flags `ops.hybrid_route` computes on the
+# card from the map, with each op's gradient rule (the pair's own).
+def _spike_matmul_hybrid(s, w, occupancy=None, *, threshold):
+    from repro_torch.kernels import ops
+    return ops.spike_matmul_hybrid(
+        s, w, occupancy=occupancy,
+        route=ops.hybrid_route(occupancy, threshold))
+
+
+def _apec_matmul_hybrid(s, w, *, g=2, occupancy=None, threshold):
+    from repro_torch.kernels import ops
+    return ops.apec_matmul_hybrid(
+        s, w, g, occupancy=occupancy,
+        route=ops.hybrid_route(occupancy, threshold))
+
+
+def _econv_hybrid(s, w, *, stride=1, padding="SAME", occupancy=None,
+                  threshold):
+    from repro_torch.kernels import ops
+    route = ops.hybrid_route(occupancy, threshold)
+    return _econv_im2col(s, w, stride, padding, functools.partial(
+        ops.spike_matmul_hybrid, route=route), occupancy)
+
+
+_HYBRID_BODIES = {"spike_matmul": (_spike_matmul_hybrid, _matmul_bwd),
+                  "apec_matmul": (_apec_matmul_hybrid, _matmul_bwd),
+                  "econv": (_econv_hybrid, REF)}
 
 
 # ======================================================================

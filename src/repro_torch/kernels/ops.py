@@ -505,3 +505,82 @@ def econv_packed(s, w: torch.Tensor, *, stride: int = 1,
     out = spike_matmul_packed(patches, w2, packed_k=kh * kw_ * ci_pad,
                               occupancy=occupancy, pipeline=pipeline)
     return out.reshape(n, ho, wo, co)
+
+
+# ---------------------------------------------------------------- hybrid
+# Hybrid dispatch on a CUDA map (`dispatch.use_hybrid`): the event route
+# and the dense route of one call are both launched, each kernel gated by
+# one device int of `hybrid_route`'s flags, so the route is chosen on the
+# card from the carried map with no host read, and a CUDA graph of the
+# call picks it from the map present at replay. What both routes share
+# (econv's im2col, APEC's decompose) is built once.
+def hybrid_route(occupancy: torch.Tensor, threshold: int) -> torch.Tensor:
+    """(2,) int32 [event, dense] flags on the map's device: [1, 0] where the
+    map's occupied-tile count c lies in a pow2 bucket at most `threshold`
+    (`costmodel.pow2_bucket(c) <= threshold`, i.e. c < 2**threshold; no
+    count at threshold -1), else [0, 1]."""
+    event = (occupancy > 0).sum() < ((1 << threshold) if threshold >= 0
+                                     else 0)
+    return torch.stack((event, event.logical_not())).to(torch.int32)
+
+
+def spike_matmul_hybrid(s: torch.Tensor, w: torch.Tensor, *,
+                        occupancy: torch.Tensor,
+                        route: torch.Tensor) -> torch.Tensor:
+    """`spike_matmul_csr` (kernel 11, the event walk) and `spike_matmul`
+    (kernel 10, predicated) on one output, each launch gated by its flag
+    of `route` (`hybrid_route`): the one whose flag is set writes it.
+    s: (..., M, K) spikes, w: (K, N), `occupancy` the carried map of the
+    flattened s."""
+    tile = _csr.TILE
+    lead = s.shape[:-2]
+    m, k = s.shape[-2:]
+    n = w.shape[-1]
+    s2 = s.reshape(-1, k).float().contiguous()
+    _check_map(occupancy, (-(-s2.shape[0] // tile), -(-k // tile)))
+    w2 = w.float().contiguous()
+    out = torch.empty((s2.shape[0], n), dtype=torch.float32, device=s.device)
+    _csr.spike_matmul_csr(s2, w2, build_csr(occupancy, tile, tile),
+                          route=route[0:1], out=out)
+    _csr.spike_matmul_pred(s2, w2, occupancy.to(torch.int32).contiguous(),
+                           route=route[1:2], out=out)
+    return out.reshape(lead + (m, n))
+
+
+def apec_matmul_hybrid(s: torch.Tensor, w: torch.Tensor, g: int = 2, *,
+                       occupancy: torch.Tensor,
+                       route: torch.Tensor) -> torch.Tensor:
+    """`apec_matmul_csr` (kernel 17) and `apec_matmul` (two kernel-10
+    launches and the repeat) behind `route`'s flags, on one decompose of
+    s. Kernel 17 and the residual launch write the same (M, N) sums; the
+    overlap sums start at zero, so on the event route the repeat adds +0
+    to kernel 17's output and changes no bit (its sums are never -0).
+    `occupancy`: the carried map of the undecomposed flattened s."""
+    tile = _csr.TILE
+    lead = s.shape[:-2]
+    p, c = s.shape[-2:]
+    if p % g:
+        raise ValueError(f"positions {p} not divisible by group {g}")
+    if tile % g:
+        raise ValueError(f"block_m {tile} not divisible by group {g}")
+    n = w.shape[-1]
+    s2 = s.reshape(-1, c)
+    ov, res = apec_decompose(s2, g)
+    res, ov = res.float().contiguous(), ov.float().contiguous()
+    w2 = w.float().contiguous()
+    csr, occ_r, occ_o = apec_union_worklist(res, ov, g, occupancy)
+    sums = torch.empty((res.shape[0], n), dtype=torch.float32,
+                       device=s.device)
+    _csr.apec_matmul_csr(res, ov, w2, g, csr, occ_r, occ_o, route=route[0:1],
+                         out=sums)
+    occ_ov = _group_occupancy(occupancy, g, s2.shape[0])
+    if occ_ov is None:
+        occ_ov = padded_occupancy(ov, tile, tile)
+    psum_ov = torch.zeros((ov.shape[0], n), dtype=torch.float32,
+                          device=s.device)
+    _csr.spike_matmul_pred(ov, w2, occ_ov.to(torch.int32).contiguous(),
+                           route=route[1:2], out=psum_ov)
+    _csr.spike_matmul_pred(res, w2, occupancy.to(torch.int32).contiguous(),
+                           route=route[1:2], out=sums)
+    out = sums + psum_ov.repeat_interleave(g, 0)
+    return out.reshape(lead + (p, n)).to(w.dtype)

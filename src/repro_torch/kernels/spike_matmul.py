@@ -25,6 +25,12 @@ operands as uint32 words ((M, ceil(K/32)), bit i of word w = column
 32w+i), each word tile read on chip. On a CPU tensor each runs its plain
 version (the packed ones unpack, then run the f32 plain version). All
 accept any (M, K) x (K, N): ragged edge tiles are masked, never padded.
+`spike_matmul_pred`, `spike_matmul_csr` and `apec_matmul_csr` (rows 10,
+11 and 17) also launch gated: with `route` (a one-element int32 tensor
+on the card) and `out`, every block returns at entry unless the int is
+nonzero, so hybrid dispatch launches both routes of a call behind one
+flag computed on the card (`ops.hybrid_route`) and only the chosen one
+writes `out`.
 """
 from __future__ import annotations
 
@@ -129,10 +135,56 @@ def spike_matmul_csr_chain_plain(s: torch.Tensor, w: torch.Tensor,
                                                -(-k // TILE))), w)
 
 
+def _output(name: str, like: torch.Tensor, shape: tuple,
+            route: torch.Tensor | None,
+            out: torch.Tensor | None) -> torch.Tensor:
+    """The (M, N) f32 output a launch writes: `out` when given (checked),
+    else a new one. A gated launch (`route`, a one-element int32 tensor on
+    the operands' device: run where nonzero) needs `out`, which it leaves
+    untouched when the gate is off."""
+    if route is not None:
+        if out is None:
+            raise ValueError(f"{name}: a gated launch writes into `out`")
+        if route.numel() != 1 or route.dtype != torch.int32 or \
+                route.device != like.device:
+            raise ValueError(f"{name}: `route` must be one int32 on "
+                             f"{like.device}, got {tuple(route.shape)} "
+                             f"{route.dtype} on {route.device}")
+    if out is None:
+        return torch.empty(shape, dtype=torch.float32, device=like.device)
+    if tuple(out.shape) != shape or out.dtype != torch.float32 or \
+            out.device != like.device or not out.is_contiguous():
+        raise ValueError(f"{name}: `out` must be a contiguous {shape} f32 "
+                         f"tensor on {like.device}, got {tuple(out.shape)} "
+                         f"{out.dtype} on {out.device}")
+    return out
+
+
+def _plain_into(result: torch.Tensor, route: torch.Tensor | None,
+                out: torch.Tensor | None) -> torch.Tensor:
+    """A plain version's `result` as the kernel would leave it: copied into
+    `out` unless the gate `route` is off (then `out` stays untouched)."""
+    if out is None:
+        return result
+    if route is None or bool(route.reshape(-1)[0]):
+        out.copy_(result)
+    return out
+
+
+def _routed_entry(lib, name: str, route: torch.Tensor | None):
+    """(C entry, trailing pointer args) of kernel `name`: `<name>_forward`,
+    or `<name>_routed_forward` with the gate's pointer."""
+    if route is None:
+        return getattr(lib, f"{name}_forward"), ()
+    return getattr(lib, f"{name}_routed_forward"), (route.data_ptr(),)
+
+
 def _csr_matmul(name: str, s: torch.Tensor, w: torch.Tensor, csr: TileCSR,
-                plain) -> torch.Tensor:
-    """Checks, then the kernel `name` (C entry `<name>_forward`) on CUDA
-    tensors or `plain` on CPU ones."""
+                plain, *, route: torch.Tensor | None = None,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+    """Checks, then the kernel `name` (C entry `<name>_forward`, or the
+    gated `<name>_routed_forward` when `route` is given) on CUDA tensors
+    or `plain` on CPU ones."""
     if s.ndim != 2 or w.ndim != 2 or s.shape[1] != w.shape[0]:
         raise ValueError(f"{name} needs (M, K) x (K, N), got "
                          f"{tuple(s.shape)} x {tuple(w.shape)}")
@@ -142,27 +194,32 @@ def _csr_matmul(name: str, s: torch.Tensor, w: torch.Tensor, csr: TileCSR,
     csr.check_compatible(TILE, TILE, mt, kt)
     if csr.n_rows != mt:
         raise ValueError(f"csr has {csr.n_rows} m-tile rows, input needs {mt}")
+    out = _output(name, s, (m, n), route, out)
     if not s.is_cuda:
-        return plain(s, w, csr)
+        return _plain_into(plain(s, w, csr), route, out)
     row_ptr, kidx, occ = csr.row_ptr, csr.tile_k_idx, csr.occ
     _build.require_cuda(name, s, w, dtype=torch.float32)
     _build.require_cuda(name, row_ptr, kidx, occ, dtype=torch.int32)
     if row_ptr.device != s.device:
         raise ValueError(f"{name}: work list and operands lie on "
                          f"different devices")
-    out = torch.empty((m, n), dtype=torch.float32, device=s.device)
-    lib = _build.library()
+    entry, gate = _routed_entry(_build.library(), name, route)
     _build.LAUNCHES[name] += 1
-    _build.check(getattr(lib, f"{name}_forward")(
+    _build.check(entry(
         s.data_ptr(), w.data_ptr(), out.data_ptr(), row_ptr.data_ptr(),
-        kidx.data_ptr(), occ.data_ptr(), m, k, n, mt, _build.stream()), name)
+        kidx.data_ptr(), occ.data_ptr(), m, k, n, mt, *gate,
+        _build.stream()), name)
     return out
 
 
-def spike_matmul_csr(s: torch.Tensor, w: torch.Tensor,
-                     csr: TileCSR) -> torch.Tensor:
-    """s: (M, K) f32 spikes, w: (K, N) f32 -> (M, N) f32."""
-    return _csr_matmul("spike_matmul_csr", s, w, csr, spike_matmul_csr_plain)
+def spike_matmul_csr(s: torch.Tensor, w: torch.Tensor, csr: TileCSR, *,
+                     route: torch.Tensor | None = None,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """s: (M, K) f32 spikes, w: (K, N) f32 -> (M, N) f32. With `route` (a
+    one-element int32 tensor) the launch is gated: it writes `out` where
+    the int is nonzero and nothing otherwise (`_output`)."""
+    return _csr_matmul("spike_matmul_csr", s, w, csr, spike_matmul_csr_plain,
+                       route=route, out=out)
 
 
 # ----------------------------------------------------------- the ring
@@ -351,11 +408,13 @@ def spike_matmul_csr_pipe(s: torch.Tensor, w: torch.Tensor,
                        spike_matmul_csr_pipe_plain)
 
 
-def spike_matmul_pred(s: torch.Tensor, w: torch.Tensor,
-                      occ: torch.Tensor) -> torch.Tensor:
+def spike_matmul_pred(s: torch.Tensor, w: torch.Tensor, occ: torch.Tensor,
+                      *, route: torch.Tensor | None = None,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
     """s: (M, K) f32 spikes (binary, or multi-bit at a coded input),
     w: (K, N) f32, occ: (ceil(M/128), ceil(K/128)) int32 per-tile event
-    counts -> (M, N) f32."""
+    counts -> (M, N) f32. `route` / `out`: a gated launch, as in
+    `spike_matmul_csr`."""
     if s.ndim != 2 or w.ndim != 2 or s.shape[1] != w.shape[0]:
         raise ValueError(f"spike_matmul_pred needs (M, K) x (K, N), got "
                          f"{tuple(s.shape)} x {tuple(w.shape)}")
@@ -365,19 +424,19 @@ def spike_matmul_pred(s: torch.Tensor, w: torch.Tensor,
     if tuple(occ.shape) != grid:
         raise ValueError(f"occupancy map {tuple(occ.shape)} does not match "
                          f"the {grid} tile grid of {tuple(s.shape)}")
+    out = _output("spike_matmul_pred", s, (m, n), route, out)
     if not s.is_cuda:
-        return spike_matmul_pred_plain(s, w, occ)
+        return _plain_into(spike_matmul_pred_plain(s, w, occ), route, out)
     _build.require_cuda("spike_matmul_pred", s, w, dtype=torch.float32)
     _build.require_cuda("spike_matmul_pred", occ, dtype=torch.int32)
     if occ.device != s.device:
         raise ValueError("spike_matmul_pred: map and operands lie on "
                          "different devices")
-    out = torch.empty((m, n), dtype=torch.float32, device=s.device)
-    lib = _build.library()
+    entry, gate = _routed_entry(_build.library(), "spike_matmul_pred", route)
     _build.LAUNCHES["spike_matmul_pred"] += 1
-    _build.check(lib.spike_matmul_pred_forward(
+    _build.check(entry(
         s.data_ptr(), w.data_ptr(), out.data_ptr(), occ.data_ptr(), m, k, n,
-        grid[1], _build.stream()), "spike_matmul_pred")
+        grid[1], *gate, _build.stream()), "spike_matmul_pred")
     return out
 
 
@@ -464,10 +523,12 @@ def split_bf16x3(w: torch.Tensor) -> tuple:
 def _apec_matmul(name: str, res: torch.Tensor, ov: torch.Tensor,
                  w: torch.Tensor, g: int, csr: TileCSR,
                  occ_res: torch.Tensor, occ_ov: torch.Tensor, plain, *,
-                 packed: bool) -> torch.Tensor:
-    """Checks, then the fused APEC kernel `name` (C entry `<name>_forward`)
-    on CUDA tensors or `plain` on CPU ones; `packed`: res and ov are
-    uint32 words."""
+                 packed: bool, route: torch.Tensor | None = None,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """Checks, then the fused APEC kernel `name` (C entry `<name>_forward`,
+    or the gated `<name>_routed_forward` when `route` is given) on CUDA
+    tensors or `plain` on CPU ones; `packed`: res and ov are uint32
+    words."""
     if w.ndim != 2:
         raise ValueError(f"{name} needs (K, N) weights, got "
                          f"{tuple(w.shape)}")
@@ -492,8 +553,10 @@ def _apec_matmul(name: str, res: torch.Tensor, ov: torch.Tensor,
         raise ValueError(f"per-step counts {tuple(occ_res.shape)} / "
                          f"{tuple(occ_ov.shape)} do not match the "
                          f"work list's {csr.n_steps} steps")
+    out = _output(name, res, (m, n), route, out)
     if not res.is_cuda:
-        return plain(res, ov, w, g, csr, occ_res, occ_ov)
+        return _plain_into(plain(res, ov, w, g, csr, occ_res, occ_ov), route,
+                           out)
     _build.require_cuda(name, res, ov,
                         dtype=torch.uint32 if packed else torch.float32)
     _build.require_cuda(name, w, dtype=torch.float32)
@@ -502,29 +565,31 @@ def _apec_matmul(name: str, res: torch.Tensor, ov: torch.Tensor,
     if w.device != res.device or csr.row_ptr.device != res.device:
         raise ValueError(f"{name}: operands and work list lie on different "
                          f"devices")
-    out = torch.empty((m, n), dtype=torch.float32, device=res.device)
     dims = (m, res.shape[1], k, n) if packed else (m, k, n)
-    lib = _build.library()
+    entry, gate = _routed_entry(_build.library(), name, route)
     _build.LAUNCHES[name] += 1
-    _build.check(getattr(lib, f"{name}_forward")(
+    _build.check(entry(
         res.data_ptr(), ov.data_ptr(), w.data_ptr(), out.data_ptr(),
         csr.row_ptr.data_ptr(), csr.tile_k_idx.data_ptr(),
-        occ_res.data_ptr(), occ_ov.data_ptr(), *dims, mt, g,
+        occ_res.data_ptr(), occ_ov.data_ptr(), *dims, mt, g, *gate,
         _build.stream()), name)
     return out
 
 
 def apec_matmul_csr(res: torch.Tensor, ov: torch.Tensor, w: torch.Tensor,
                     g: int, csr: TileCSR, occ_res_steps: torch.Tensor,
-                    occ_ov_steps: torch.Tensor) -> torch.Tensor:
+                    occ_ov_steps: torch.Tensor, *,
+                    route: torch.Tensor | None = None,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
     """res: (M, K) f32 residual spikes (group members adjacent), ov:
     (M/g, K) f32 overlap spikes, w: (K, N) f32; `csr` a union work list on
     the 128 x 128 grid of res (a step where either operand's tile holds
     events), `occ_res_steps` / `occ_ov_steps` (cap,) int32 per-step counts
-    of each operand -> (M, N) f32 = res @ w + repeat(ov @ w, g)."""
+    of each operand -> (M, N) f32 = res @ w + repeat(ov @ w, g). `route` /
+    `out`: a gated launch, as in `spike_matmul_csr`."""
     return _apec_matmul("apec_matmul_csr", res, ov, w, g, csr,
                         occ_res_steps, occ_ov_steps, apec_matmul_csr_plain,
-                        packed=False)
+                        packed=False, route=route, out=out)
 
 
 def apec_matmul_csr_pipe(res: torch.Tensor, ov: torch.Tensor,

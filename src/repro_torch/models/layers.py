@@ -53,13 +53,16 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 def hybrid_scope(spiking_cfg):
-    """Dispatch scope a model's apply body runs under: a null context.
-    Density-adaptive hybrid routing (`SpikingConfig.hybrid=True`) is not
-    ported yet and raises."""
+    """Dispatch scope a model's apply body runs under.
+
+    `SpikingConfig.hybrid=True` turns on density-adaptive routing
+    (`dispatch.use_hybrid`): every matmul-form op that receives a carried
+    occupancy map picks the event or the dense route per call from the
+    calibrated cost model, on the card with no host read of the map. Off
+    (the default), resolution is what it was."""
     if getattr(spiking_cfg, "hybrid", False):
-        raise NotImplementedError(
-            "SpikingConfig(hybrid=True) waits for the hybrid router port "
-            "(ROADMAP queue 1, item 4)")
+        from repro_torch.kernels import dispatch
+        return dispatch.use_hybrid()
     return contextlib.nullcontext()
 
 

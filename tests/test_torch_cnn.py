@@ -181,13 +181,24 @@ def test_cnn_kernel_path_prepasses(case):
 
 
 def test_unported_modes_raise_with_their_roadmap_item():
+    """The mode this test held refused, `SpikingConfig(hybrid=True)`
+    (ROADMAP queue 1 item 4), is ported: SegNet runs under it, routing
+    the carried maps' econv calls, and its output equals the default
+    forward's within ATOL (tests/test_torch_hybrid.py holds the models to
+    the automatic forward bit for bit and to repro's)."""
     cfg = paper_cnn_configs()["segnet"]
     p = tcnn.segnet_init(cfg, generator=torch.Generator().manual_seed(0),
                          device="cpu")
-    x = torch.zeros(2, 16, 16, 3)
-    spiking = SpikingConfig(t_steps=2, hybrid=True)
-    with pytest.raises(NotImplementedError, match=r"queue 1, item 4\)"):
-        tcnn.segnet_apply(dataclasses.replace(cfg, spiking=spiking), p, x)
+    x = torch.from_numpy(np.random.default_rng(0).random(
+        (2, 16, 16, 3), dtype=np.float32))
+    out = {}
+    for hybrid in (True, False):
+        spiking = SpikingConfig(t_steps=2, hybrid=hybrid)
+        with torch.inference_mode(), dispatch.watch_resolutions() as rec:
+            out[hybrid] = tcnn.segnet_apply(
+                dataclasses.replace(cfg, spiking=spiking), p, x)
+        assert any("<-hybrid[b" in r["attribution"] for r in rec) == hybrid
+    _close(out[True].numpy(), out[False].numpy())
 
 
 # ------------------------------------------------------- direct coding

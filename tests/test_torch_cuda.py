@@ -1153,3 +1153,163 @@ def test_cuda_sdsa_route_is_one_launch_and_no_packing(cuda_device,
     with dispatch.use_backend("ref"):
         want = getattr(dispatch, op)(q, k, v)
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------- hybrid
+def _gated_cases(rng, dev):
+    """(label, call(route, out)) for the three gated kernels: 10 (its
+    stream path at N = 16 and its wide path), 11 and 17 on clustered
+    spikes, ragged shapes included."""
+    cases = []
+    for m, k, n in ((1024, 384, 1536), (2048, 1536, 384), (4096, 288, 16),
+                    (1000, 300, 50)):
+        s = torch.from_numpy(_clustered(rng, m, k)).to(dev)
+        w = torch.from_numpy(rng.standard_normal((k, n)).astype(
+            np.float32)).to(dev)
+        occ = ops.padded_occupancy(s)
+        csr = build_csr(occ, 128, 128)
+        cases.append((f"k10-{m}x{k}x{n}", lambda r, o, s=s, w=w, occ=occ:
+                      spike_matmul.spike_matmul_pred(s, w, occ, route=r,
+                                                     out=o)))
+        cases.append((f"k11-{m}x{k}x{n}", lambda r, o, s=s, w=w, csr=csr:
+                      spike_matmul.spike_matmul_csr(s, w, csr, route=r,
+                                                    out=o)))
+        if m % 256 == 0:
+            ov, res = ops.apec_decompose(s, 2)
+            work = ops.apec_union_worklist(res, ov, 2, occ)
+            cases.append((f"k17-{m}x{k}x{n}", lambda r, o, res=res, ov=ov,
+                          w=w, work=work: spike_matmul.apec_matmul_csr(
+                              res, ov, w, 2, *work, route=r, out=o)))
+    return cases
+
+
+@pytest.mark.cuda
+def test_cuda_gated_kernels_null_on_off(cuda_device):
+    """Rows 10, 11 and 17 with the gate null, on and off: on equals null
+    bit for bit, off leaves a sentinel-filled output untouched, and each
+    gated call counts one launch."""
+    rng = np.random.default_rng(0)
+    flags = torch.tensor([1, 0], dtype=torch.int32, device=cuda_device)
+    for label, call in _gated_cases(rng, cuda_device):
+        ref = call(None, None)
+        on = torch.full_like(ref, float("nan"))
+        off = torch.full_like(ref, 12345.0)
+        reset_launch_counts()
+        call(flags[0:1], on)
+        call(flags[1:2], off)
+        torch.cuda.synchronize()
+        assert sum(launch_counts().values()) == 2, label
+        assert torch.equal(on, ref), label
+        assert bool((off == 12345.0).all()), label
+
+
+@pytest.mark.cuda
+def test_cuda_device_route_flag_equals_host_decision(cuda_device):
+    from repro_torch.core import costmodel
+    rng = np.random.default_rng(1)
+    for mt, kt in ((64, 12), (64, 3), (1024, 4), (8, 48), (1, 32)):
+        for op in dispatch.HYBRID_OPS:
+            thresh = costmodel.hybrid_event_bucket_threshold(op, mt, kt)
+            for p in (0.0, 0.002, 0.02, 0.2, 0.6, 1.0):
+                occ = torch.from_numpy((rng.random((mt, kt)) < p).astype(
+                    np.int32)).to(cuda_device)
+                count = int((occ > 0).sum())
+                rep = costmodel.bucket_representative(
+                    costmodel.pow2_bucket(count), mt * kt)
+                event = costmodel.event_route_wins(op, rep, mt, kt)
+                flags = ops.hybrid_route(occ, thresh)
+                assert flags.tolist() == [int(event), int(not event)], \
+                    (op, mt, kt, count)
+
+
+def _sync_count(run):
+    """The host syncs `run` makes, counted by the sync debug mode."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in got)
+
+
+@pytest.mark.cuda
+def test_cuda_hybrid_forward_adds_no_host_sync(cuda_device):
+    """A hybrid SpikingFormer forward under the sync debug mode makes no
+    host sync that the automatic forward does not make, and equals it
+    bit for bit."""
+    from repro_torch.configs.base import SpikingConfig
+    from repro_torch.models import spikingformer as sf
+    params = sf.spikingformer_init(2, 64, generator=torch.Generator()
+                                   .manual_seed(0), device=cuda_device)
+    x = torch.rand((4, 32, 32, 3),
+                   generator=torch.Generator().manual_seed(1)).to(
+        cuda_device)
+    out = {}
+
+    def run(hybrid):
+        cfg = SpikingConfig(t_steps=2, lif_vth=0.5, hybrid=hybrid)
+        with torch.inference_mode():
+            out[hybrid] = sf.spikingformer_apply(params, x, n_heads=4,
+                                                 spiking_cfg=cfg)
+    run(True), run(False)                 # warm: build, caches
+    assert _sync_count(lambda: run(True)) <= _sync_count(lambda: run(False))
+    assert torch.equal(out[True], out[False])
+
+
+@pytest.mark.cuda
+def test_cuda_hybrid_graph_takes_the_route_of_the_replayed_map(cuda_device):
+    """One CUDA graph of a hybrid spike_matmul on an (8, 48) map, whose
+    threshold lies inside its buckets, replayed on a sparse map and a full
+    map: the device flag matches `event_route_wins` for each, and the
+    output the replayed route's."""
+    from repro_torch.core import costmodel
+    mt, kt = 8, 48
+    thresh = costmodel.hybrid_event_bucket_threshold("spike_matmul", mt, kt)
+    assert 0 <= thresh < costmodel.num_buckets(mt * kt) - 1
+    rng = np.random.default_rng(2)
+    w = torch.from_numpy(rng.standard_normal((kt * 128, 384)).astype(
+        np.float32)).to(cuda_device)
+
+    def spikes(n_live):
+        live = np.zeros(mt * kt, bool)
+        live[rng.permutation(mt * kt)[:n_live]] = True
+        mask = np.kron(live.reshape(mt, kt), np.ones((128, 128), bool))
+        return torch.from_numpy(((rng.random(mask.shape) < 0.5) & mask)
+                                .astype(np.float32)).to(cuda_device)
+    sparse, full = spikes(1), spikes(mt * kt)
+    s = sparse.clone()
+    occ = ops.padded_occupancy(s)
+    with dispatch.use_hybrid():
+        be, attr = dispatch.resolve_with_attribution("spike_matmul", s, w,
+                                                     occupancy=occ)
+    assert attr == f"hybrid[cuda|cuda-pred@b{thresh}]"
+    holder = {}
+
+    def call():
+        holder["flags"] = ops.hybrid_route(occ, thresh)
+        holder["out"] = be.fn(s, w, occupancy=occ)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.inference_mode(), torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.inference_mode(), torch.cuda.graph(graph):
+        call()
+    for src in (sparse, full, sparse):
+        s.copy_(src)
+        occ.copy_(ops.padded_occupancy(src))
+        graph.replay()
+        torch.cuda.synchronize()
+        count = int((occ > 0).sum())
+        event = costmodel.event_route_wins(
+            "spike_matmul", costmodel.bucket_representative(
+                costmodel.pow2_bucket(count), mt * kt), mt, kt)
+        assert holder["flags"].tolist() == [int(event), int(not event)]
+        ref = spike_matmul.spike_matmul_pred_plain(src, w, occ)
+        err = (holder["out"] - ref).abs().max().item()
+        assert err <= 1e-5 * ref.abs().max().item() + 1e-5

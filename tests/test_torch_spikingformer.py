@@ -126,11 +126,22 @@ def test_port_init_matches_jax_tree_shapes():
 
 
 def test_unported_modes_raise_with_their_roadmap_item():
+    """The mode this test held refused, `SpikingConfig(hybrid=True)`
+    (ROADMAP queue 1 item 4), is ported: it runs, routing the carried
+    maps' calls, and its logits equal the default forward's within ATOL
+    (tests/test_torch_hybrid.py holds it to the automatic forward bit for
+    bit and to repro's)."""
     p = tsf.spikingformer_init(1, 32, generator=torch.Generator()
                                .manual_seed(0), device="cpu")
-    x = torch.zeros(1, 32, 32, 3)
-    with pytest.raises(NotImplementedError, match=r"queue 1, item 4\)"):
-        tsf.spikingformer_apply(p, x, spiking_cfg=SpikingConfig(hybrid=True))
+    x = torch.from_numpy(_images(batch=1))
+    with torch.inference_mode(), dispatch.watch_resolutions() as rec:
+        hybrid = tsf.spikingformer_apply(
+            p, x, spiking_cfg=SpikingConfig(hybrid=True))
+    with torch.inference_mode():
+        auto = tsf.spikingformer_apply(p, x, spiking_cfg=SpikingConfig())
+    assert any("<-hybrid[b" in r["attribution"] for r in rec)
+    np.testing.assert_allclose(hybrid.numpy(), auto.numpy(), atol=ATOL,
+                               rtol=ATOL)
 
 
 def test_cuda_is_the_default_device():

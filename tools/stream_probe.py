@@ -3,7 +3,7 @@
 in turns in one process, optionally against other builds of the kernel
 library.
 
-    python3 tools/stream_probe.py [--only=pred,csr,fires,counts,sdsa,apec]
+    python3 tools/stream_probe.py [--only=pred,csr,fires,counts,sdsa,apec,gate]
                                   [NAME=CSRC_DIR ...]
 
 Kernel 10 (the predicated spike matmul, csrc/spike_matmul.cu) at
@@ -51,7 +51,11 @@ stage-1 spikes: the word entry on their words and the spike entry on the
 spikes, each with `device_ms`, the byte bound and a device copy of the
 same bytes, equal to its plain version (a build from before the spike
 entry runs the old dense route around its word kernel: pad, pack,
-kernel, unpack). `--only` runs the named probes alone.
+kernel, unpack). The gated kernels of hybrid dispatch (`gate`: rows 10,
+11 and 17 on the same fc1, fc2 and stage-1 spikes): each build's ungated
+entry and this build's gated entry with the gate on and off, device ms
+from CUDA graphs in turns, the gate's cost and each other build's time,
+the outputs equal bit for bit. `--only` runs the named probes alone.
 
 Each CSRC_DIR is another tree's `src/repro_torch/csrc` (an older commit
 unpacked with `git archive`, or a patched copy), built here with this
@@ -91,7 +95,14 @@ DECOMPOSE_ENTRIES = ("apec_decompose_forward",
 # The serial CSR kernels 11 and 13 (likewise).
 WALK_ENTRIES = ("spike_matmul_csr_forward",
                 "spike_matmul_packed_csr_forward")
-ENTRIES = WALK_ENTRIES + ("spike_matmul_csr_pipe_forward",
+# The kernels hybrid dispatch gates (rows 10, 11 and 17): entry -> its
+# gated twin (absent from builds before the gate).
+GATED_ENTRIES = {"spike_matmul_pred_forward":
+                 "spike_matmul_pred_routed_forward",
+                 "spike_matmul_csr_forward": "spike_matmul_csr_routed_forward",
+                 "apec_matmul_csr_forward": "apec_matmul_csr_routed_forward"}
+ENTRIES = WALK_ENTRIES + tuple(GATED_ENTRIES) + \
+    tuple(GATED_ENTRIES.values()) + ("spike_matmul_csr_pipe_forward",
            "spike_matmul_packed_csr_pipe_forward", "lif_forward",
            "lif_bf16_forward", "lif_fwd_forward", "lif_counts_forward",
            "lif_counts_packed_forward", "lif_counts_fwd_forward") + \
@@ -104,7 +115,7 @@ PTXAS_KERNELS = ("csr_pipe_kernel", "lif_kernel", "lif_counts_kernel",
 COUNTS_ENTRIES = (("lif_counts_forward", "lif_counts"),
                   ("lif_counts_packed_forward", "lif_counts_packed"),
                   ("lif_counts_fwd_forward", "lif_counts_fwd"))
-PROBES = ("pred", "csr", "fires", "counts", "sdsa", "apec")
+PROBES = ("pred", "csr", "fires", "counts", "sdsa", "apec", "gate")
 # The SDSA kernels' word entries before they read spikes (an older build):
 # C entry -> argument types.
 OLD_SDSA_SIGNATURES = {
@@ -759,6 +770,100 @@ def probe_decompose(torch, cap, this, others):
     return ok
 
 
+def gated_call(lib, entry, args, route):
+    """One launch of a gated kernel's C entry `entry` of `lib` (rows 10,
+    11, 17: `args` its pointer and size arguments), through its gated twin
+    with the device int `route` when one is given."""
+    from repro_torch.kernels import _build
+    if route is None:
+        _build.check(getattr(lib, entry)(*args, _build.stream()), entry)
+    else:
+        twin = GATED_ENTRIES[entry]
+        _build.check(getattr(lib, twin)(*args, route.data_ptr(),
+                                        _build.stream()), twin)
+
+
+def probe_gate(torch, cap, this, others):
+    """Rows 10, 11 and 17 (kernel 10, the predicated matmul; kernel 11,
+    the CSR walk; kernel 17, the APEC walk at g = 2) on SpikingFormer-4-384's
+    fc1, fc2 and stage-1 spikes with their exact maps: each build's
+    ungated entry (`null`) and this build's gated entry with the gate on
+    and off, as device ms from a CUDA graph of 20 launches, in turns
+    (null, on, other builds, then back). `gate_cost` is on / null - 1;
+    each other build's `vs` is this build's null / its time - 1. Every
+    output equal bit for bit to this build's null launch; gated off
+    leaves a sentinel untouched."""
+    from repro_torch.core.spikes import build_csr
+    from repro_torch.kernels import dispatch, ops
+    (s1, w1, _), (s2, w2, _) = cap["spike_matmul"][:2]
+    s_conv, w_conv, _ = cap["econv"][0]
+    kh, kw, ci, co = w_conv.shape
+    model = {"ffn_fc1": (s1.reshape(-1, s1.shape[-1]), w1),
+             "ffn_fc2": (s2.reshape(-1, s2.shape[-1]), w2),
+             "econv_stage1": (dispatch.econv_patches(s_conv, kh, kw, 1,
+                                                     "SAME"),
+                              w_conv.permute(2, 0, 1, 3).reshape(
+                                  ci * kh * kw, co))}
+    dev = s1.device
+    flags = torch.tensor([1, 0], dtype=torch.int32, device=dev)
+    ok = True
+    for label, (s, w) in model.items():
+        s, w = s.float().contiguous(), w.float().contiguous()
+        m, k = s.shape
+        n = w.shape[1]
+        occ = ops.padded_occupancy(s).contiguous()
+        csr = build_csr(occ, 128, 128)
+        ov, res = ops.apec_decompose(s, 2)
+        ov, res = ov.float().contiguous(), res.float().contiguous()
+        csr_a, occ_r, occ_o = ops.apec_union_worklist(res, ov, 2, occ)
+        for entry in GATED_ENTRIES:
+            out = {}
+
+            def args(o, entry=entry):
+                if entry == "spike_matmul_pred_forward":
+                    return (s.data_ptr(), w.data_ptr(), o.data_ptr(),
+                            occ.data_ptr(), m, k, n, occ.shape[1])
+                if entry == "spike_matmul_csr_forward":
+                    return (s.data_ptr(), w.data_ptr(), o.data_ptr(),
+                            csr.row_ptr.data_ptr(),
+                            csr.tile_k_idx.data_ptr(), csr.occ.data_ptr(),
+                            m, k, n, -(-m // 128))
+                return (res.data_ptr(), ov.data_ptr(), w.data_ptr(),
+                        o.data_ptr(), csr_a.row_ptr.data_ptr(),
+                        csr_a.tile_k_idx.data_ptr(), occ_r.data_ptr(),
+                        occ_o.data_ptr(), m, k, n, -(-m // 128), 2)
+            variants = {"null": (this, None), "on": (this, flags[0:1]),
+                        "off": (this, flags[1:2]),
+                        **{name: (lib, None) for name, lib in
+                           having(others, entry).items()}}
+            run = {}
+            for name, (lib, route) in variants.items():
+                out[name] = torch.full((m, n), 12345.0, device=dev)
+                run[name] = functools.partial(gated_call, lib, entry,
+                                              args(out[name]), route)
+                run[name]()
+            torch.cuda.synchronize()
+            order = [name for name in variants if name != "off"]
+            first = {name: cs.graph_ms(torch, run[name]) for name in order}
+            second = {name: cs.graph_ms(torch, run[name])
+                      for name in reversed(order)}
+            ms = {name: (first[name] + second[name]) / 2 for name in order}
+            same = {name: torch.equal(out[name], out["null"])
+                    for name in order}
+            off_untouched = bool((out["off"] == 12345.0).all())
+            ok &= all(same.values()) and off_untouched
+            rec = {"kernel": entry[:-len("_forward")], "case": f"{label}_model",
+                   "shape": [m, k, n], "null_ms": ms["null"],
+                   "on_ms": ms["on"], "off_ms": cs.graph_ms(torch, run["off"]),
+                   "gate_cost": ms["on"] / ms["null"] - 1,
+                   "equal": same, "off_untouched": off_untouched,
+                   "occupied_share": (occ > 0).float().mean().item()}
+            for name in order[2:]:
+                rec[name] = {"ms": ms[name], "vs": ms["null"] / ms[name] - 1}
+            print(json.dumps(rec), flush=True)
+    return ok
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -814,6 +919,8 @@ def main(argv) -> int:
                               having(others, DECOMPOSE_ENTRIES[0]))
         ok &= probe_apec(torch, gen, cap, this,
                          having(others, *APEC_ENTRIES))
+    if "gate" in only:
+        ok &= probe_gate(torch, cs.apec_capture(torch, device), this, others)
     return 0 if ok and not failed else 1
 
 
