@@ -178,10 +178,29 @@ Phases, each printed on its own line:
       bit for bit to kernels 11 and 12, timed in turns with them and
       cuBLAS; one training step under hybrid with the loss and every
       gradient equal to the automatic step's bit for bit;
+  (m) the serve scheduler (`repro_torch.launch.serve`) at TinyLlama-1.1B
+      width (weights from seed 0), in both modes: a `Server` of 8 slots
+      and `max_seq` 256 serving 8 requests of 5-16 `markov_tokens` prompt
+      tokens, 16 new tokens each, admitted in waves (submit 3, step
+      twice, submit 3, step, submit 2, drain): every request done with no
+      retry and no cause, no slot left, 8 admissions, exactly 132
+      `lif_bf16` launches a decode step and 132 x bucket an admission in
+      spiking mode and no launch in dense mode (the launch counters set to
+      0 just before each run and read just after it), requests 0 and 5
+      each served alone in an 8-slot `Server` giving the pool's tokens bit
+      for bit; the spiking traffic on `ref` (its share of equal tokens
+      reported), the dense KV cache's bytes; request 5's slot NaN'd
+      mid-stream (`nan_decode_state`): it retries, ends done with its
+      solo tokens; a `ReplicaPool` of two replicas steering a request
+      away from the preloaded one; `attention_dense` at (B, N, D) = (2,
+      2048, 2048), 32 / 4 heads, bf16, blockwise (kv_block 1024) within
+      DENSE_ATTN_TOL of one block, causal and with a 512 window; a dense
+      `prefill` of 8 x 1024 tokens (finite), in turns with the spiking
+      one. Its lines carry the card's name and power limit;
   (d) one JSON line listing every kernel with its launches on the main
       paths ((c) and (h) for inference kernels, (f) for the training
-      ones, (i) for the APEC ones, (j) for the packed ones, (k) for the
-      LM ones, (l) adding its hybrid forwards' and APEC calls'; the
+      ones, (i) for the APEC ones, (j) for the packed ones, (k) and (m)
+      for the LM ones, (l) adding its hybrid forwards' and APEC calls'; the
       serial kernels 11, 13, 15 and 17 by their override calls), error
       and times (rows 16 and 18: kernels 16 and 18).
 Each phase prints its wall time on a `phase_time` line.
@@ -192,6 +211,7 @@ beside this file, the script exits nonzero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -3185,6 +3205,356 @@ def phase_hybrid(torch, device):
     return totals
 
 
+# ------------------------------------------------------------ phase (m)
+# The serve scheduler (`launch/serve.py`) at TinyLlama-1.1B width: 8
+# requests of 5-16 `markov_tokens` prompt tokens, SERVE_NEW new tokens
+# each, admitted in waves (submit n, then step s times) while earlier
+# ones decode, then drained.
+SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_NEW = 8, 256, 16
+SERVE_PROMPT_LENGTHS = (5, 16)
+SERVE_WAVES = ((3, 2), (3, 1), (2, 0))     # (requests submitted, steps)
+SERVE_SOLO = (0, 5)
+SERVE_POISONED = 5
+# Blockwise against one-block dense attention at the model's attention
+# shape, bf16. The two forms round the softmax weights to bf16 at
+# different points (each block's unnormalised weights, against the
+# normalised row): 2^-9 relative on every weight, on bf16 outputs (2^-8)
+# that then go through the 2048-wide output projection in bf16.
+# BF16_TOL of tests/test_torch_lm.py (one bf16 rounding apart, after
+# sums in other orders), of max|one block|.
+DENSE_ATTN_SHAPE = (2, 2048)                # (B, N) at d 2048, 32 / 4 heads
+DENSE_ATTN_TOL = 2e-2
+
+
+def serve_requests(cfg):
+    """(prompt, max_new) of the 8 requests, from SEED."""
+    import numpy as np
+    from repro_torch.data.synthetic import markov_tokens
+    lo, hi = SERVE_PROMPT_LENGTHS
+    lengths = np.random.default_rng(SEED).integers(lo, hi + 1, SERVE_SLOTS)
+    toks = markov_tokens(SEED + 2, 0, 0, SERVE_SLOTS, hi, cfg.vocab)
+    return [([int(t) for t in toks[i, :n]], SERVE_NEW)
+            for i, n in enumerate(lengths)]
+
+
+def instrument(torch, server, log: list) -> None:
+    """Wrap the server's decode step and admission prefill: each call
+    appends (kind, bucket, the launches it made, wall seconds to its
+    result). Reads the counters only; the run's reset is the caller's."""
+    from repro_torch.kernels import launch_counts
+
+    def wrap(kind, fn):
+        def run(params, *args):
+            before = launch_counts()
+            t0 = time.perf_counter()
+            out = fn(params, *args)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            after = launch_counts()
+            bucket = int(args[0].shape[1]) if kind == "prefill" else None
+            log.append((kind, bucket,
+                        {k: after[k] - before[k] for k in after}, dt))
+            return out
+        return run
+    server._step = wrap("step", server._step)
+    server._prefill = wrap("prefill", server._prefill)
+
+
+def drive(torch, server, reqs, poison=None) -> float:
+    """SERVE_WAVES' staggered admission, then drain: wall seconds. With
+    `poison` (a request index), that request's slot state is NaN'd after
+    the second wave's steps, while it decodes."""
+    from repro_torch.runtime import faults
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    at = 0
+    for n, steps in SERVE_WAVES:
+        for r in reqs[at:at + n]:
+            server.submit(r)
+        at += n
+        for _ in range(steps):
+            server.step()
+        if poison is not None and poison < at and \
+                reqs[poison] in server.slot_req:
+            slot = server.slot_req.index(reqs[poison])
+            server.state = faults.nan_decode_state(server.state, slot=slot)
+            poison = None
+    server.run_until_drained()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def serve_run(torch, cfg, spiking, device, traffic, only=None, poison=None,
+              backend=None):
+    """One Server of SERVE_SLOTS slots over `traffic` (or over the requests
+    `only` of it, alone): (server, requests, call log, wall s, launches of
+    the run). The launch counters are set to 0 just before the run and
+    read just after it."""
+    from repro_torch.kernels import dispatch, launch_counts, \
+        reset_launch_counts
+    from repro_torch.launch.serve import Request, Server
+    server = Server(cfg, n_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+                    spiking=spiking, seed=SEED, device=device)
+    reqs = [Request(rid=i, prompt=list(p), max_new=m)
+            for i, (p, m) in enumerate(traffic)]
+    if only is not None:
+        reqs = [reqs[i] for i in only]
+    log: list = []
+    instrument(torch, server, log)
+    with contextlib.ExitStack() as stack:
+        if backend is not None:
+            stack.enter_context(dispatch.use_backend(backend))
+        reset_launch_counts()
+        if only is None:
+            wall = drive(torch, server, reqs, poison)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for r in reqs:
+                server.submit(r)
+            server.run_until_drained()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = launch_counts()
+    return server, reqs, log, wall, counts
+
+
+def clean_run_checks(server, reqs, log, counts, spiking, what) -> None:
+    """Every request done with its tokens, no retry and no cause; no slot
+    or request left; one admission each; exactly the fire launches a
+    decode step and an admission make (none in dense mode), and none
+    outside the server's calls."""
+    for r in reqs:
+        check(r.state == "done" and r.retries == 0 and
+              r.failure_cause is None and len(r.generated) == r.max_new,
+              f"{what}: request {r.rid} ended {r.state}, {r.retries} "
+              f"retries, cause {r.failure_cause}, {len(r.generated)} tokens")
+    check(all(s is None for s in server.slot_req) and not server.pending
+          and not server.arrivals, f"{what}: a slot or request is left")
+    check(server.prefills_executed == len(reqs),
+          f"{what}: {server.prefills_executed} prefills for {len(reqs)}")
+    per_step = LM_DECODE_LAUNCHES if spiking else {}
+    for kind, bucket, delta, _ in log:
+        want = per_step if kind == "step" else \
+            {k: v * bucket for k, v in per_step.items()}
+        lm_launch_check(delta, want, f"{what} {kind}")
+    total = {k: sum(d[k] for _, _, d, _ in log) for k in counts}
+    check(counts == total, f"{what}: launches outside the server's calls")
+    if spiking:
+        check(counts["lif_bf16"] > 0, f"{what}: the fire kernel never ran")
+
+
+def spans(log) -> dict:
+    """Mean decode-step and admission spans (wall ms to the result)."""
+    steps = [dt for kind, _, _, dt in log if kind == "step"]
+    by_bucket: dict = {}
+    for kind, bucket, _, dt in log:
+        if kind == "prefill":
+            by_bucket.setdefault(str(bucket), []).append(dt * 1e3)
+    return dict(decode_steps=len(steps),
+                mean_decode_step_ms=sum(steps) / len(steps) * 1e3,
+                admission_prefill_ms={b: sum(v) / len(v)
+                                      for b, v in by_bucket.items()},
+                admissions_by_bucket={b: len(v) for b, v in by_bucket.items()})
+
+
+def phase_serve_mode(torch, cfg, device, traffic, spiking, card):
+    """One mode of (m): the staggered traffic on the kernels (gated), the
+    requests SERVE_SOLO each alone in a SERVE_SLOTS-slot server (its
+    tokens bit for bit), and, spiking, the same traffic on `ref`
+    (reported). Returns (pool server, its requests, launches)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import lm
+    mode = "spiking" if spiking else "dense"
+    server, reqs, log, wall, counts = serve_run(torch, cfg, spiking, device,
+                                                traffic)
+    clean_run_checks(server, reqs, log, counts, spiking, mode)
+    for i in SERVE_SOLO:
+        s, (r,), slog, _, scounts = serve_run(torch, cfg, spiking, device,
+                                              traffic, only=(i,))
+        clean_run_checks(s, [r], slog, scounts, spiking, f"{mode} solo {i}")
+        check(r.generated == reqs[i].generated,
+              f"{mode}: request {i} alone gives other tokens than in the "
+              f"pool")
+        counts = {k: counts[k] + scounts[k] for k in counts}
+    ref_share = None
+    if spiking:
+        _, ref_reqs, _, _, _ = serve_run(torch, cfg, spiking, device,
+                                         traffic, backend=dispatch.REF)
+        same = [a == b for r, q in zip(reqs, ref_reqs)
+                for a, b in zip(r.generated, q.generated)]
+        ref_share = sum(same) / len(same)
+    new_tokens = sum(len(r.generated) for r in reqs)
+    step_launches = next(d for k, _, d, _ in log if k == "step")
+    emit("serve_sched", card=card, mode=mode, slots=SERVE_SLOTS,
+         max_seq=SERVE_MAX_SEQ, requests=len(reqs),
+         prompt_lengths=[len(r.prompt) for r in reqs], new_tokens=new_tokens,
+         wall_s=wall, tokens_per_s=new_tokens / wall, **spans(log),
+         fire_launches_per_decode_step=step_launches["lif_bf16"],
+         kv_cache_bytes=sum(t.numel() * t.element_size()
+                            for st in server.state if st.kv is not None
+                            for t in st.kv),
+         solo_requests=list(SERVE_SOLO), solo_equal=True,
+         tokens_equal_ref_share=ref_share,
+         tokens=[r.generated for r in reqs])
+    # One decode step of the drained pool (every slot at position 20):
+    # device span against the host's enqueue.
+    emit("serve_decode_breakdown", card=card, mode=mode,
+         **forward_breakdown(torch, lambda: lm.decode_step(
+             cfg, server.params, server.state,
+             torch.zeros(SERVE_SLOTS, dtype=torch.long, device=device),
+             torch.full((SERVE_SLOTS,), 20, device=device), spiking)))
+    return server, reqs, counts
+
+
+def phase_serve_quarantine(torch, cfg, device, traffic, clean, card):
+    """Request SERVE_POISONED's slot NaN'd mid-stream: it retries and ends
+    done with the tokens it gives alone (= in the clean pool); the other
+    requests run with no retry."""
+    server, reqs, _, wall, counts = serve_run(
+        torch, cfg, True, device, traffic, poison=SERVE_POISONED)
+    bad = reqs[SERVE_POISONED]
+    want = clean[SERVE_POISONED].generated
+    check(bad.retries >= 1 and bad.failure_cause == "nan_logits" and
+          bad.state == "done" and bad.generated == want,
+          f"quarantine: request {SERVE_POISONED} ended {bad.state} after "
+          f"{bad.retries} retries ({bad.failure_cause}), its solo tokens: "
+          f"{bad.generated == want}")
+    for r in reqs:
+        check(r.state == "done" and (r is bad or r.retries == 0),
+              f"quarantine: request {r.rid} ended {r.state} after "
+              f"{r.retries} retries")
+    check(all(s is None for s in server.slot_req),
+          "quarantine: a slot is left")
+    emit("serve_quarantine", card=card, request=SERVE_POISONED,
+         retries=bad.retries, cause=bad.failure_cause, wall_s=wall,
+         prefills=server.prefills_executed,
+         requests_equal_clean_share=sum(
+             r.generated == c.generated for r, c in zip(reqs, clean))
+         / len(reqs), fire_launches=counts["lif_bf16"])
+    return counts
+
+
+def phase_serve_replicas(torch, cfg, device, traffic, card):
+    """Two replicas: replica 0 preloaded with two requests and stepped;
+    the next request goes to replica 1; every request ends done."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import ReplicaPool, Request
+    pool = ReplicaPool(cfg, n_replicas=2, n_slots=2, max_seq=SERVE_MAX_SEQ,
+                       spiking=True, seed=SEED, device=device)
+    reqs = [Request(rid=i, prompt=list(p), max_new=m)
+            for i, (p, m) in enumerate(traffic[:3])]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs[:2]:
+        pool.replicas[0].submit(r)
+    pool.replicas[0].step()
+    loads = [dataclasses.asdict(r.occupancy_load()) for r in pool.replicas]
+    idx = pool.submit(reqs[2])
+    pool.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    check(idx == 1, f"replica pool sent the request to replica {idx}")
+    check(len(pool.finished) == 3 and
+          all(r.state == "done" for r in pool.finished),
+          "replica pool: a request did not finish")
+    check(counts["lif_bf16"] > 0, "replica pool: the fire kernel never ran")
+    emit("serve_replicas", card=card, replicas=2, slots=2, steered_to=idx,
+         loads_at_dispatch=loads,
+         imbalance=pool.imbalance_log[-1].imbalance, wall_s=wall,
+         fire_launches=counts["lif_bf16"])
+    return counts
+
+
+def phase_dense_attention(torch, cfg, params, device, card):
+    """Blockwise (kv_block 1024) against one-block dense attention at the
+    model's attention shape, causal, and with a 512 window that hides the
+    first KV block from the last rows (the recurrence's -inf guard); then
+    a dense prefill of 8 x 1024 tokens, in turns with the spiking one."""
+    from repro_torch.data.synthetic import markov_tokens
+    from repro_torch.models import lm, transformer as tfm
+    from repro_torch.models.layers import rmsnorm
+    b, n = DENSE_ATTN_SHAPE
+    toks = torch.from_numpy(markov_tokens(SEED + 3, 0, 0, b, n, cfg.vocab)
+                            [:, :n]).long().to(device)
+    blk = lm._group(params["blocks"][0], 0)
+    kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
+              rope_theta=cfg.rope_theta, causal=True)
+    cases = []
+    with torch.inference_mode():
+        x = rmsnorm(blk["ln1"], params["embed"][toks])
+        for window in (None, 512):
+            def attend(kv_block):
+                return tfm.attention_dense(blk["attn"], x, window=window,
+                                           kv_block=kv_block, **kw)
+            blockwise, one = attend(1024), attend(4096)
+            torch.cuda.synchronize()
+            diff = (blockwise.float() - one.float()).abs()
+            scale = one.float().abs().max().item()
+            err = diff.max().item()
+            check(bool(torch.isfinite(blockwise).all()) and
+                  err <= DENSE_ATTN_TOL * scale,
+                  f"dense attention, window {window}: blockwise differs "
+                  f"from one block by {err} (max|ref| {scale})")
+            cases.append(dict(
+                window=window, max_abs_err=err, max_abs_ref=scale,
+                tol=DENSE_ATTN_TOL * scale, mean_abs_err=diff.mean().item(),
+                blockwise_ms=cuda_ms(torch, lambda: attend(1024), reps=3,
+                                     warmup=1),
+                one_block_ms=cuda_ms(torch, lambda: attend(4096), reps=3,
+                                     warmup=1)))
+        emit("dense_attention", card=card, shape=[b, n, cfg.d_model],
+             heads=[cfg.n_heads, cfg.n_kv_heads], dtype=str(x.dtype),
+             kv_blocks=[1024, 4096], cases=cases)
+        tokens = torch.from_numpy(markov_tokens(
+            SEED, 0, 0, LM_BATCH, LM_PROMPT, cfg.vocab)[:, :LM_PROMPT]) \
+            .long().to(device)
+        logits = lm.prefill(cfg, params, tokens, False)
+        torch.cuda.synchronize()
+        check(tuple(logits.shape) == (LM_BATCH, cfg.vocab) and
+              bool(torch.isfinite(logits).all()),
+              "dense prefill logits not finite")
+
+        def prefill_s(spiking):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lm.prefill(cfg, params, tokens, spiking)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        turns = [prefill_s(True), prefill_s(False), prefill_s(False),
+                 prefill_s(True)]
+    emit("lm_prefill_dense", card=card, batch=LM_BATCH, tokens=LM_PROMPT,
+         dense_prefill_s=(turns[1] + turns[2]) / 2,
+         spiking_prefill_s=(turns[0] + turns[3]) / 2, in_turns_s=turns,
+         breakdown=forward_breakdown(
+             torch, lambda: lm.prefill(cfg, params, tokens, False)))
+
+
+def phase_serve(torch, device, card):
+    """Phase (m): the serve scheduler at TinyLlama-1.1B width in both
+    modes, quarantine, replicas, and dense attention at the model's
+    shape. Returns the LM kernels' launches on the serve paths."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(LM_ARCH)
+    traffic = serve_requests(cfg)
+    totals = {name: 0 for name in LM_KERNELS}
+
+    def add(counts):
+        for name in totals:
+            totals[name] += counts[name]
+    _, clean, counts = phase_serve_mode(torch, cfg, device, traffic, True,
+                                        card)
+    add(counts)
+    dense, _, counts = phase_serve_mode(torch, cfg, device, traffic, False,
+                                        card)
+    check(not any(counts.values()), f"dense serving launched {counts}")
+    add(phase_serve_quarantine(torch, cfg, device, traffic, clean, card))
+    add(phase_serve_replicas(torch, cfg, device, traffic, card))
+    phase_dense_attention(torch, cfg, dense.params, device, card)
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3206,7 +3576,7 @@ def main() -> int:
         return out
 
     t_start = time.perf_counter()
-    timed("a_device", phase_device, torch)
+    card = timed("a_device", phase_device, torch)
     timed("a_build", phase_build)
     gen = torch.Generator().manual_seed(SEED)
     results: dict = {}
@@ -3238,6 +3608,11 @@ def main() -> int:
     # Hybrid dispatch's forwards launch kernels 10, 11 and 17 (rows 10, 11
     # and 17) where the carried maps send them.
     for name, n in timed("l_hybrid", phase_hybrid, torch, device).items():
+        totals[name] = totals.get(name, 0) + n
+    # The serve scheduler's decode steps and admissions launch the bf16
+    # fire (row 1's bf16 line).
+    for name, n in timed("m_serve", phase_serve, torch, device,
+                         card).items():
         totals[name] = totals.get(name, 0) + n
     emit("phase_time", name="total", seconds=time.perf_counter() - t_start)
     kernels = []

@@ -1,5 +1,6 @@
 """Shared model layers: params as plain dicts of tensors, pure apply
-functions: inits, RMS norm, the LIF fire helpers and the MLP. Spiking layers take and return an explicit leading T axis
+functions: inits, RMS norm, RoPE, the LIF fire helpers and the MLP.
+Spiking layers take and return an explicit leading T axis
 (micro-timesteps); LIF is the only op that couples timesteps.
 """
 from __future__ import annotations
@@ -50,6 +51,29 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
+
+
+# -------------------------------------------------------------------- RoPE
+def rope_angles(positions: torch.Tensor, d_head: int,
+                theta: float = 1e4) -> tuple:
+    """positions (..., N) int -> (sin, cos), each (..., N, d_head / 2) f32.
+    The frequencies are theta ** (arange(0, d_head, 2) / d_head) in f32."""
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32,
+                        device=positions.device) / d_head
+    freqs = 1.0 / (theta ** exps)
+    ang = positions.float()[..., None] * freqs
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor,
+               cos: torch.Tensor) -> torch.Tensor:
+    """x (..., N, H, d_head); sin / cos (..., N, d_head / 2), broadcast over
+    the heads. The head dimension splits into two halves (not even and odd
+    lanes); computed in f32 and returned in x's dtype."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    s, c = sin[..., None, :], cos[..., None, :]
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out.to(x.dtype)
 
 
 def hybrid_scope(spiking_cfg):

@@ -1,5 +1,5 @@
-"""The spiking LM from one `LMConfig`: full-sequence prefill and streaming
-decode, with `repro.models.lm`'s names, signatures and param-tree layout.
+"""The LM from one `LMConfig`: full-sequence prefill and streaming decode,
+with `repro.models.lm`'s names, signatures and param-tree layout.
 
 A model is a repeated pattern of blocks scanned over `n_groups`
 repetitions with stacked params: ``params["blocks"]`` is a list (one
@@ -9,13 +9,14 @@ a `repro` tree across unchanged. Every decode-state leaf is
 ``(n_groups, B, ...)``: the slot batch is axis 1, which the slot-state
 surgery of the serve loop indexes.
 
-Ported: dense-pattern configs (one attention + MLP block) in spiking
-mode, where every matmul sees LIF-fired binary activations, attention is
-SDSA (O(N) prefill through the causal prefix-OR, O(d) decode state) and
-the hidden state is rate-decoded (mean over the T micro-steps). Not
-ported yet, and refused with their ROADMAP items: the dense ANN baseline
-(`spiking=False`: softmax GQA, KV cache, RoPE), MoE, hybrid (Mamba),
-xLSTM and encoder-decoder configs.
+Ported: dense-pattern configs (one attention + MLP block) in both modes.
+Spiking (`spiking=True`, the paper's technique): every matmul sees
+LIF-fired binary activations, attention is SDSA (O(N) prefill through
+the causal prefix-OR, O(d) decode state) and the hidden state is
+rate-decoded (mean over the T micro-steps of a leading T axis). Dense
+(`spiking=False`, the ANN baseline): softmax GQA with RoPE and a KV
+cache, a SwiGLU MLP, no T axis. Not ported yet, and refused with their
+ROADMAP item: MoE, hybrid (Mamba), xLSTM and encoder-decoder configs.
 """
 from __future__ import annotations
 
@@ -57,13 +58,6 @@ def layer_pattern(cfg: LMConfig) -> Tuple[List[BlockSpec], int]:
 
 def lif_cfg_of(cfg: LMConfig) -> LIFConfig:
     return LIFConfig(decay=cfg.spiking.lif_decay, v_th=cfg.spiking.lif_vth)
-
-
-def _check_spiking(spiking: bool) -> None:
-    if not spiking:
-        raise NotImplementedError(
-            f"the dense ANN baseline (spiking=False: softmax GQA, KV cache, "
-            f"RoPE) is not ported yet ({tfm.DENSE_ATTENTION_ITEM})")
 
 
 # ----------------------------------------------------------- tree helpers
@@ -155,16 +149,25 @@ def param_count(cfg: LMConfig) -> int:
 # -------------------------------------------------------- full sequence
 def _apply_block(cfg: LMConfig, spec: BlockSpec, p: dict, x: torch.Tensor,
                  spiking: bool, *, causal: bool = True) -> torch.Tensor:
-    """Full-sequence block. x: (T, B, N, D) spikes' residual stream."""
-    _check_spiking(spiking)
+    """Full-sequence block. x: (T, B, N, D) spiking / (B, N, D) dense."""
     lif = lif_cfg_of(cfg)
-    s = lif_fire(rmsnorm(p["ln1"], x), lif)
-    x = x + tfm.attention_sdsa(
-        p["attn"], s, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-        d_head=cfg.head_dim, lif_cfg=lif, mode=cfg.spiking.sdsa_mode,
-        causal=causal)
-    h = lif_fire(rmsnorm(p["ln2"], x), lif)
-    return x + mlp_apply(p["mlp"], h, spiking=True, lif_cfg=lif)
+    if spiking:
+        s = lif_fire(rmsnorm(p["ln1"], x), lif)
+        a = tfm.attention_sdsa(
+            p["attn"], s, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            d_head=cfg.head_dim, lif_cfg=lif, mode=cfg.spiking.sdsa_mode,
+            causal=causal)
+    else:
+        a = tfm.attention_dense(
+            p["attn"], rmsnorm(p["ln1"], x), n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv_heads, d_head=cfg.head_dim, causal=causal,
+            window=cfg.sliding_window, qk_norm=cfg.qk_norm,
+            rope_theta=cfg.rope_theta)
+    x = x + a
+    h = rmsnorm(p["ln2"], x)
+    if spiking:
+        h = lif_fire(h, lif)
+    return x + mlp_apply(p["mlp"], h, spiking=spiking, lif_cfg=lif)
 
 
 def _run_blocks(cfg, blocks, x, spiking, pattern, n_groups, causal):
@@ -184,17 +187,19 @@ def _rate_decode(x: torch.Tensor) -> torch.Tensor:
 def forward_hidden(cfg: LMConfig, params: dict, tokens: torch.Tensor,
                    spiking: bool, frontend: Optional[torch.Tensor] = None,
                    causal: bool = True) -> torch.Tensor:
-    """tokens (B, N) -> final hidden (B, N, D), T-averaged."""
-    _check_spiking(spiking)
+    """tokens (B, N) -> final hidden (B, N, D) (T-averaged if spiking)."""
     if frontend is not None:
         raise NotImplementedError(f"frontend embeddings are not ported yet "
                                   f"({CONFIG_ITEM})")
     pattern, n_groups = layer_pattern(cfg)
     x = params["embed"][tokens]                              # (B, N, D)
-    x = x[None].expand((cfg.spiking.t_steps,) + tuple(x.shape))
+    if spiking:
+        x = x[None].expand((cfg.spiking.t_steps,) + tuple(x.shape))
     x = _run_blocks(cfg, params["blocks"], x, spiking, pattern, n_groups,
                     causal)
-    return rmsnorm(params["final_norm"], _rate_decode(x))
+    if spiking:
+        x = _rate_decode(x)
+    return rmsnorm(params["final_norm"], x)
 
 
 def _logits(params: dict, h: torch.Tensor) -> torch.Tensor:
@@ -211,7 +216,7 @@ def prefill(cfg: LMConfig, params: dict, tokens: torch.Tensor, spiking: bool,
 # ---------------------------------------------------------------- serving
 class LayerState(NamedTuple):
     """Union state for one pattern position (unused fields are None)."""
-    kv: Any = None          # dense attention's KV cache (not ported)
+    kv: Any = None          # tfm.KVCache        (dense attn decode)
     sdsa: Any = None        # tfm.SDSAState      (spiking attn decode)
     mamba: Any = None
     mlstm: Any = None
@@ -222,14 +227,18 @@ class LayerState(NamedTuple):
 
 def init_state(cfg: LMConfig, spec: BlockSpec, b: int, s: int,
                spiking: bool, n_groups: int, device="cuda") -> LayerState:
-    """Stacked (n_groups, b, ...) decode state for one pattern position;
-    `s` (the sequence capacity) sizes only the dense KV cache."""
-    del s, spec
-    _check_spiking(spiking)
-    st = tfm.sdsa_state_init(b, cfg.n_heads, cfg.head_dim, device=device)
-    return LayerState(sdsa=_tree_map(
-        lambda x: x[None].expand((n_groups,) + tuple(x.shape)).contiguous(),
-        st))
+    """Stacked (n_groups, b, ...) decode state for one pattern position:
+    the SDSA statuses when spiking, else a KV cache of capacity `s`."""
+    del spec
+
+    def stack(tree):
+        return _tree_map(lambda x: x[None].expand(
+            (n_groups,) + tuple(x.shape)).contiguous(), tree)
+    if spiking:
+        return LayerState(sdsa=stack(tfm.sdsa_state_init(
+            b, cfg.n_heads, cfg.head_dim, device=device)))
+    return LayerState(kv=stack(tfm.kv_cache_init(
+        b, s, cfg.n_kv_heads, cfg.head_dim, device=device)))
 
 
 def init_decode_state(cfg: LMConfig, b: int, s: int, spiking: bool,
@@ -244,32 +253,46 @@ def init_decode_state(cfg: LMConfig, b: int, s: int, spiking: bool,
 
 
 def _apply_block_decode(cfg, spec, p, st: LayerState, x, pos, spiking):
-    del spec, pos                      # SDSA decode is position-free
-    _check_spiking(spiking)
+    del spec
     lif = lif_cfg_of(cfg)
-    s = lif_fire(rmsnorm(p["ln1"], x), lif)                  # (T, B, D)
-    a, new_sdsa = tfm.attention_sdsa_decode(
-        p["attn"], s, st.sdsa, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-        d_head=cfg.head_dim, lif_cfg=lif, mode=cfg.spiking.sdsa_mode)
+    if spiking:                        # SDSA decode is position-free
+        s = lif_fire(rmsnorm(p["ln1"], x), lif)              # (T, B, D)
+        a, new_sdsa = tfm.attention_sdsa_decode(
+            p["attn"], s, st.sdsa, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            d_head=cfg.head_dim, lif_cfg=lif, mode=cfg.spiking.sdsa_mode)
+        st = st._replace(sdsa=new_sdsa)
+    else:
+        a, new_kv = tfm.attention_dense_decode(
+            p["attn"], rmsnorm(p["ln1"], x), st.kv, pos,
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
+            window=cfg.sliding_window, qk_norm=cfg.qk_norm,
+            rope_theta=cfg.rope_theta,
+            masked_cache_update=cfg.decode_masked_update)
+        st = st._replace(kv=new_kv)
     x = x + a
-    h = lif_fire(rmsnorm(p["ln2"], x), lif)
-    x = x + mlp_apply(p["mlp"], h, spiking=True, lif_cfg=lif)
-    return x, st._replace(sdsa=new_sdsa)
+    h = rmsnorm(p["ln2"], x)
+    if spiking:
+        h = lif_fire(h, lif)
+    return x + mlp_apply(p["mlp"], h, spiking=spiking, lif_cfg=lif), st
 
 
 def decode_step(cfg: LMConfig, params: dict, state: list,
                 token: torch.Tensor, pos, spiking: bool):
     """One serving step. token: (B,) int; pos: a scalar or per-slot (B,)
-    positions (each slot decodes at its own position; the spiking state is
-    position-free, so pos only keeps the contract of the dense path).
+    positions. Each slot decodes at its own position: in dense mode pos
+    is the KV-cache row written, the RoPE angle and the causal mask's
+    edge (a scalar broadcasts to every slot); the spiking state is
+    position-free.
 
-    Returns (logits (B, vocab) f32, new state): each layer's O(d) SDSA
-    status takes the token's K AND V."""
+    Returns (logits (B, vocab) f32, new state): dense mode writes the KV
+    caches, spiking mode folds the token's K AND V into each layer's O(d)
+    SDSA status."""
     pattern, n_groups = layer_pattern(cfg)
     pos = torch.broadcast_to(torch.as_tensor(pos, device=token.device),
                              token.shape)
     x = params["embed"][token]                               # (B, D)
-    x = x[None].expand((cfg.spiking.t_steps,) + tuple(x.shape))
+    if spiking:
+        x = x[None].expand((cfg.spiking.t_steps,) + tuple(x.shape))
     per_group: List[List[LayerState]] = [[] for _ in pattern]
     for g in range(n_groups):
         for i, spec in enumerate(pattern):
@@ -277,7 +300,9 @@ def decode_step(cfg: LMConfig, params: dict, state: list,
                                         _group(params["blocks"][i], g),
                                         _group(state[i], g), x, pos, spiking)
             per_group[i].append(st)
-    h = rmsnorm(params["final_norm"], _rate_decode(x))
+    if spiking:
+        x = _rate_decode(x)
+    h = rmsnorm(params["final_norm"], x)
     return _logits(params, h), [_stack(sts) for sts in per_group]
 
 
@@ -303,8 +328,9 @@ def prefill_chunked(cfg: LMConfig, params: dict, tokens: torch.Tensor,
     true lengths (0 < length <= L). Runs `decode_step` over the L
     positions and masks every state write (and the last-logit capture) to
     steps ``i < length`` per slot, so a pad token leaves the slot's state
-    bitwise unchanged. Returns (last-position logits (B, vocab), decode
-    state positioned at ``pos = length`` per slot)."""
+    (its KV rows or SDSA status) bitwise unchanged. Returns (last-position
+    logits (B, vocab), decode state positioned at ``pos = length`` per
+    slot)."""
     b, pad_len = tokens.shape
     state = init_decode_state(cfg, b, max_seq, spiking, device=tokens.device)
     length = torch.as_tensor(length, dtype=torch.int64, device=tokens.device)
@@ -339,7 +365,8 @@ def reset_slot_state(state: list, slot: int, n_slots: int) -> list:
     """Zero slot `slot` of every decode-state leaf, by the documented
     layout (every leaf ``(n_groups, n_slots, ...)``): a leaf that breaks
     the contract raises instead of being skipped or zeroed by a
-    coincidental dimension. In spiking mode this is O(d) per layer."""
+    coincidental dimension. In spiking mode this is O(d) per layer; the
+    dense KV cache pays its size."""
     for path, leaf in _tree_leaves_with_path(state):
         _check_slot_leaf(path, leaf, n_slots)
 
@@ -354,8 +381,9 @@ def merge_slot_state(pool_state: list, single_state: list, slot) -> list:
     """Scatter a freshly prefilled single-request state (leaves
     ``(n_groups, 1, ...)``) into slot `slot` of the pool state (leaves
     ``(n_groups, n_slots, ...)``). Every leaf of the slot is overwritten,
-    so admission never inherits a previous occupant's status: merge IS
-    the reset. Returns new tensors (the pool state is not written)."""
+    so admission never inherits a previous occupant's KV rows or SDSA
+    status: merge IS the reset. Returns new tensors (the pool state is not
+    written)."""
     def put(pool, one):
         pool = pool.clone()
         pool[:, slot] = one[:, 0].to(pool.dtype)

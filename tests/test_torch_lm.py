@@ -109,10 +109,6 @@ def test_configs_registry_and_data_match_repro():
 def test_unported_configs_and_modes_raise_with_their_roadmap_items():
     with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         tlm.layer_pattern(jreg.get_reduced("qwen2-moe-a2.7b"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tlm.prefill(TCFG, {}, torch.zeros(1, 2, dtype=torch.long), False)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        ttfm.attention_dense()
 
 
 def test_init_params_defaults_to_cuda_and_matches_repro_tree(jparams):
