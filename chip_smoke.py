@@ -215,6 +215,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -360,7 +361,9 @@ SOURCES = {"lif": "src/repro_torch/csrc/lif.cu",
            "apec_matmul_packed_csr_pipe":
                "src/repro_torch/csrc/apec_matmul_csr_pipe.cu",
            "sdsa_causal": "src/repro_torch/csrc/sdsa_causal.cu",
-           "lif_bf16": "src/repro_torch/csrc/lif.cu"}
+           "lif_bf16": "src/repro_torch/csrc/lif.cu",
+           "lif_fwd_bf16": "src/repro_torch/csrc/lif.cu",
+           "lif_bwd_bf16": "src/repro_torch/csrc/lif.cu"}
 # Same inputs, one op call: the fire and attention ops are exact, the
 # matmul-form ops agree to fp32 summation order (relative to max|ref|).
 SAME_INPUT_TOL = {"lif_scan": 0.0, "lif_scan_occ": 0.0, "sdsa": 0.0,
@@ -400,7 +403,9 @@ REPLACES = {"lif": "src/repro/kernels/lif_scan.py:36",
             "apec_matmul_packed_csr_pipe":
                 "src/repro/kernels/spike_matmul.py:460",
             "sdsa_causal": "src/repro/kernels/sdsa_kernel.py:104",
-            "lif_bf16": "src/repro/kernels/lif_scan.py:36"}
+            "lif_bf16": "src/repro/kernels/lif_scan.py:36",
+            "lif_fwd_bf16": "src/repro/kernels/lif_scan.py:87",
+            "lif_bwd_bf16": "src/repro/kernels/lif_scan.py:107"}
 
 
 class SmokeFailure(RuntimeError):
@@ -1349,7 +1354,8 @@ def same_input_vjp_errors(torch, dispatch, calls):
                 out = out[0] if isinstance(out, tuple) else out
                 diff = [x for x in xs if x.requires_grad]
                 pulled.append(torch.autograd.grad(out, diff, g))
-        err = max(((a - r).abs().max() / (r.abs().max() + 1e-30)).item()
+        err = max(((a.float() - r.float()).abs().max() /
+                   (r.float().abs().max() + 1e-30)).item()
                   for a, r in zip(*pulled))
         errs[op] = max(errs.get(op, 0.0), err)
     return errs
@@ -3555,6 +3561,368 @@ def phase_serve(torch, device, card):
     return totals
 
 
+# ------------------------------------------------------------ phase (n)
+LM_TRAIN_KERNELS = ("lif_fwd_bf16", "lif_bwd_bf16")
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 128, 3
+# (n4): the reduced config's resume check, steps and save interval.
+LM_RESUME_STEPS, LM_RESUME_EVERY = 6, 2
+# Same inputs and cotangent, one op's backward on the LM's bf16 fires:
+# the kernel's dv and `ref`'s f32 autograd associate the reset term
+# differently (SAME_INPUT_GRAD_TOL's 1e-5), then each rounds dx to bf16
+# once, so where the two straddle a rounding boundary they land one bf16
+# ulp apart: at most 2^-7 of the element (8 significant bits). causal
+# SDSA's kernel backend replays `ref` itself.
+LM_SAME_INPUT_GRAD_TOL = {"lif_scan": 2.0 ** -7 + 1e-5, "causal_sdsa": 0.0}
+# The fire drives of rows 2 and 3 bf16 (T = 2): the training step's MLP
+# hidden fire and a d-2048 fire (ln1, ln2) at B = 8, N = 128, (k1)'s
+# prefill hidden drive, and a ragged P behind a 2-byte offset.
+LM_TRAIN_DRIVES = (("train_hidden", LM_TRAIN_BATCH * LM_TRAIN_SEQ * 5632),
+                   ("train_d2048", LM_TRAIN_BATCH * LM_TRAIN_SEQ * 2048),
+                   ("prefill_hidden", LM_BATCH * LM_PROMPT * 5632),
+                   ("ragged_offset1", 100003))
+
+
+def lm_train_launches(cfg) -> dict:
+    """Kernel launches a spiking training step makes, from the model's
+    code: each layer fires FIRE_NAMES through the residual kernel and
+    runs one causal SDSA; `remat` "full" or "dots" runs the forward again
+    in the backward; every fire's surrogate backward runs once, SDSA's
+    backward replays `ref` (no launch). No primal fire."""
+    again = 1 if cfg.remat == "none" else 2
+    fires = len(FIRE_NAMES) * cfg.n_layers
+    return {"lif_fwd_bf16": again * fires, "lif_bwd_bf16": fires,
+            "sdsa_causal": again * cfg.n_layers}
+
+
+def phase_lm_train_kernels(torch, device, results):
+    """(n1): rows 2 and 3 on bf16 drives against their plain versions,
+    bit for bit (spikes, vres, dx), with times and byte bounds."""
+    from repro_torch.kernels import lif_scan
+    kw = dict(decay=0.5, v_th=1.0, soft_reset=True)
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    for label, p in LM_TRAIN_DRIVES:
+        off = 1 if label.startswith("ragged") else 0
+        x = (torch.randn((2 * p + off,), generator=gen, device=device)
+             * 0.8 + 0.6).bfloat16()[off:].view(2, p)
+        g = torch.randn((2 * p + off,), generator=gen, device=device) \
+            .bfloat16()[off:].view(2, p)
+        s, vres = lif_scan.lif_fwd(x, **kw)
+        dx = lif_scan.lif_bwd(vres, g, **kw)
+        ps, pvres = lif_scan.lif_fwd_plain(x, **kw)
+        pdx = lif_scan.lif_bwd_plain(pvres, g, **kw)
+        torch.cuda.synchronize()
+        check(s.dtype == dx.dtype == torch.bfloat16 and
+              vres.dtype == torch.float32, f"{label}: dtypes {s.dtype}, "
+              f"{vres.dtype}, {dx.dtype}")
+        check(torch.equal(s, ps) and torch.equal(vres, pvres),
+              f"lif_fwd_bf16 kernel disagrees with its plain version "
+              f"({label})")
+        check(torch.equal(dx, pdx),
+              f"lif_bwd_bf16 kernel disagrees with its plain version "
+              f"({label})")
+        elems = x.numel()
+        for name, fn, plain, flops in (
+                ("lif_fwd_bf16", lambda: lif_scan.lif_fwd(x, **kw),
+                 lambda: lif_scan.lif_fwd_plain(x, **kw), 5),
+                ("lif_bwd_bf16", lambda: lif_scan.lif_bwd(vres, g, **kw),
+                 lambda: lif_scan.lif_bwd_plain(vres, g, **kw), 11)):
+            # 2 + 2 + 4 bytes an element: fwd reads x, writes s and vres;
+            # bwd reads vres and g, writes dx.
+            b_ms, by = bound_ms(8 * elems, flops * elems)
+            rec = dict(max_abs_err=0.0, ms=cuda_ms(torch, fn),
+                       device_ms=graph_ms(torch, fn),
+                       plain_ms=cuda_ms(torch, plain, reps=3),
+                       bound_ms=b_ms, bound_by=by, library_ms=None,
+                       shape=[2, p])
+            emit("kernel", name=name, case=label, **rec)
+            if label == "train_hidden":
+                results[name] = rec
+
+
+@contextlib.contextmanager
+def counted_steps(torch, steps_mod):
+    """While active, every step function `make_train_step` returns
+    records each call's launches (the counters read before and after
+    it) and its metrics."""
+    from repro_torch.kernels import launch_counts
+    orig = steps_mod.make_train_step
+    log: list = []
+
+    def make(*args, **kwargs):
+        step = orig(*args, **kwargs)
+
+        def counted(*a):
+            before = launch_counts()
+            out = step(*a)
+            after = launch_counts()
+            log.append(({k: after[k] - before[k] for k in after}, out[-1]))
+            return out
+        return counted
+
+    steps_mod.make_train_step = make
+    try:
+        yield log
+    finally:
+        steps_mod.make_train_step = orig
+
+
+@contextlib.contextmanager
+def captured_grads(adamw):
+    """While active, the gradients each `adamw.update` call receives."""
+    orig = adamw.update
+    got: list = []
+
+    def update(grads, *a, **k):
+        got.append([g.detach().clone() for g in adamw.leaves(grads)])
+        return orig(grads, *a, **k)
+
+    adamw.update = update
+    try:
+        yield got
+    finally:
+        adamw.update = orig
+
+
+def lm_train_step_breakdown(torch, cfg, params, opt, batch):
+    """One spiking step as `make_train_step` runs it, its parts bracketed
+    by CUDA events: device span, host enqueue, forward (loss) / backward
+    (`autograd.grad`) / optimizer ms, and the peak of allocated memory."""
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    leaves = adamw.leaves(params)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ev[0].record()
+    loss = lm.loss_fn(cfg, params, batch, True)
+    ev[1].record()
+    grads = torch.autograd.grad(loss, leaves)
+    ev[2].record()
+    adamw.update(list(grads), opt, leaves, adamw.AdamWConfig(lr=LR))
+    ev[3].record()
+    host_s = time.perf_counter() - t0
+    ev[3].synchronize()
+    return dict(device_span_ms=ev[0].elapsed_time(ev[3]),
+                host_enqueue_ms=host_s * 1e3,
+                forward_ms=ev[0].elapsed_time(ev[1]),
+                backward_ms=ev[1].elapsed_time(ev[2]),
+                optimizer_ms=ev[2].elapsed_time(ev[3]),
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+def phase_lm_train_loop(torch, device, cfg, card):
+    """(n2): `train_loop` at full width on the kernels, gated per step."""
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train
+    from repro_torch.kernels import reset_launch_counts, launch_counts
+    per_step = lm_train_launches(cfg)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with counted_steps(torch, steps_mod) as log:
+        out = train.train_loop(cfg, steps=LM_TRAIN_STEPS,
+                               batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+                               seed=SEED, log_every=1, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    totals = launch_counts()
+    check(len(log) == LM_TRAIN_STEPS, f"train_loop ran {len(log)} steps")
+    for i, (counts, metrics) in enumerate(log):
+        lm_launch_check(counts, per_step, f"training step {i}")
+        check(bool(torch.isfinite(metrics["loss"])) and
+              bool(torch.isfinite(metrics["grad_norm"])),
+              f"training step {i}: loss {metrics['loss']}, grad norm "
+              f"{metrics['grad_norm']}")
+    emit("lm_train_loop", card=card, batch=LM_TRAIN_BATCH,
+         seq=LM_TRAIN_SEQ, steps=LM_TRAIN_STEPS, remat=cfg.remat,
+         wall_s=wall, seconds=out["seconds"], losses=out["losses"],
+         grad_norms=[m["grad_norm"].item() for _, m in log],
+         launches_per_step=per_step)
+    return totals, out
+
+
+def phase_lm_train_vs_ref(torch, device, cfg, card):
+    """(n2): one `make_train_step` step from the same params on the
+    kernels and on `ref`: step 0's loss bit for bit, no all-zero gradient
+    leaf, the gradients' per-leaf relative L2 gap (printed); every
+    registry call's backward against `ref`'s on the same inputs; the
+    step's breakdown and the two ways of slicing the stacked layers."""
+    from repro_torch.data import pipeline, synthetic
+    from repro_torch.kernels import dispatch, launch_counts, \
+        reset_launch_counts
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    batch = pipeline.device_put_batch(synthetic.lm_batch(
+        SEED, 0, 0, LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg.vocab), device)
+    params = lm.init_params(cfg, seed=SEED, device=device)
+    names = leaf_names(params)
+    save_bytes = sum(t.numel() * t.element_size()
+                     for t in adamw.leaves(params)) + \
+        2 * 4 * sum(t.numel() for t in adamw.leaves(params)) + 4
+    start = [t.clone() for t in adamw.leaves(params)]
+    opt_cfg = adamw.AdamWConfig(lr=LR)
+    step_fn = steps_mod.make_train_step(cfg, opt_cfg)
+    runs = {}
+    for backend in (None, dispatch.REF):
+        for p, s0 in zip(adamw.leaves(params), start):
+            with torch.no_grad():
+                p.copy_(s0)
+        opt = adamw.init(params, opt_cfg)
+        reset_launch_counts()
+        with captured_grads(adamw) as grads, \
+                (contextlib.nullcontext() if backend is None
+                 else dispatch.use_backend(backend)):
+            _, opt, metrics = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        runs[backend] = (metrics["loss"], grads[0], counts)
+        del opt
+    loss, grads, counts = runs[None]
+    ref_loss, ref_grads, ref_counts = runs[dispatch.REF]
+    lm_launch_check(counts, lm_train_launches(cfg), "make_train_step")
+    check(not any(ref_counts.values()), f"the ref step launched {ref_counts}")
+    for name, g in zip(names, grads):
+        check(bool(torch.isfinite(g).all()), f"gradient of {name} not finite")
+        check(bool((g != 0).any()), f"gradient of {name} is all zero")
+    rel = {n: ((a.float() - r.float()).norm() / (r.float().norm() + 1e-30))
+           .item() for n, a, r in zip(names, grads, ref_grads)}
+    emit("lm_train_step_vs_ref", card=card, loss=loss.item(),
+         ref_loss=ref_loss.item(), loss_equal=bool(torch.equal(loss,
+                                                               ref_loss)),
+         max_grad_rel_l2=max(rel.values()),
+         worst_leaf=max(rel, key=rel.get), grad_rel_l2=rel)
+    check(torch.equal(loss, ref_loss),
+          f"step 0's loss on the kernels {loss.item()!r} != ref's "
+          f"{ref_loss.item()!r}")
+    del grads, ref_grads, runs
+
+    for p, s0 in zip(adamw.leaves(params), start):
+        with torch.no_grad():
+            p.copy_(s0)
+    with shadow_vjp(torch, dispatch) as calls:
+        loss = lm.loss_fn(cfg, params, batch, True)
+        torch.autograd.grad(loss, adamw.leaves(params))
+    errs = same_input_vjp_errors(torch, dispatch, calls)
+    emit("lm_train_same_input_vjp", card=card,
+         calls=sum(1 for c in calls if c[3] is not None), errors=errs,
+         limits=LM_SAME_INPUT_GRAD_TOL)
+    check(set(errs) == set(LM_SAME_INPUT_GRAD_TOL),
+          f"same-input backward check saw ops {sorted(errs)}")
+    for op, err in errs.items():
+        check(err <= LM_SAME_INPUT_GRAD_TOL[op],
+              f"{op}'s backward on the kernels differs from ref's on the "
+              f"same inputs by {err} > {LM_SAME_INPUT_GRAD_TOL[op]}")
+    del calls, start
+
+    # The step's breakdown, then one step with the stacked layers sliced
+    # one by one (`_group`) in turns with `unbind` (`_layer_views`):
+    # slicing adds a zero-filled full-size gradient a layer.
+    opt = adamw.init(params, opt_cfg)
+    emit("lm_train_breakdown", card=card, **lm_train_step_breakdown(
+        torch, cfg, params, opt, batch))
+    views = lm._layer_views
+
+    def sliced(tree, n):
+        return [lm._group(tree, g) for g in range(n)]
+
+    def timed_step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+    ms = {"unbind": [], "slice": []}
+    for way in ("unbind", "slice", "slice", "unbind"):
+        lm._layer_views = views if way == "unbind" else sliced
+        try:
+            ms[way].append(timed_step())
+        finally:
+            lm._layer_views = views
+    emit("lm_train_layer_views", card=card, step_ms=ms,
+         unbind_ms=sum(ms["unbind"]) / 2, slice_ms=sum(ms["slice"]) / 2)
+    return save_bytes
+
+
+def phase_lm_train_dense(torch, device, cfg, card):
+    """(n3): one dense step (`spiking=False`) at full width: finite, no
+    kernel launch."""
+    from repro_torch.data import pipeline, synthetic
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    params = lm.init_params(cfg, seed=SEED, device=device)
+    opt = adamw.init(params, adamw.AdamWConfig(lr=LR))
+    batch = pipeline.device_put_batch(synthetic.lm_batch(
+        SEED, 0, 0, LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg.vocab), device)
+    step_fn = steps_mod.make_train_step(cfg, adamw.AdamWConfig(lr=LR),
+                                        spiking=False)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, metrics = step_fn(params, opt, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    counts = launch_counts()
+    check(not any(counts.values()), f"the dense step launched {counts}")
+    check(bool(torch.isfinite(metrics["loss"])) and
+          bool(torch.isfinite(metrics["grad_norm"])),
+          f"dense step: loss {metrics['loss']}")
+    emit("lm_train_dense", card=card, loss=metrics["loss"].item(),
+         grad_norm=metrics["grad_norm"].item(), step_s=step_s)
+
+
+def phase_lm_train_resume(torch, device, save_bytes, card):
+    """(n4): the reduced config's `train_loop` saving every 2 steps, its
+    newest checkpoint deleted, resumed: the resumed steps' losses equal
+    the uninterrupted run's bit for bit."""
+    import shutil
+    import tempfile
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.launch import train
+    cfg = get_reduced(LM_ARCH)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        kw = dict(steps=LM_RESUME_STEPS, batch=LM_TRAIN_BATCH,
+                  seq=LM_TRAIN_SEQ, seed=SEED, ckpt_dir=tmp,
+                  save_every=LM_RESUME_EVERY, log_every=LM_RESUME_STEPS,
+                  device=device)
+        full = train.train_loop(cfg, **kw)
+        saved = sorted(os.listdir(tmp))
+        newest = saved[-1]
+        shutil.rmtree(os.path.join(tmp, newest))
+        resumed = train.train_loop(cfg, resume=True, **kw)
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    start = LM_RESUME_STEPS - len(resumed["losses"])
+    emit("lm_train_resume", card=card, arch=cfg.name, checkpoints=saved,
+         deleted=newest, resumed_from=start, losses=full["losses"],
+         resumed_losses=resumed["losses"],
+         full_width_save_bytes=save_bytes)
+    check(start == LM_RESUME_STEPS - LM_RESUME_EVERY,
+          f"resumed from step {start}")
+    check(resumed["losses"] == full["losses"][start:],
+          f"resumed losses {resumed['losses']} != "
+          f"{full['losses'][start:]}")
+    check(not os.path.exists(tmp), f"{tmp} left behind")
+
+
+def phase_lm_train(torch, device, results, card):
+    """Phase (n): LM training on the card. Returns the training kernels'
+    launches of `train_loop`'s run."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(LM_ARCH)
+    phase_lm_train_kernels(torch, device, results)
+    totals, _ = phase_lm_train_loop(torch, device, cfg, card)
+    save_bytes = phase_lm_train_vs_ref(torch, device, cfg, card)
+    phase_lm_train_dense(torch, device, cfg, card)
+    phase_lm_train_resume(torch, device, save_bytes, card)
+    return {name: totals[name] for name in LM_TRAIN_KERNELS + LM_KERNELS}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3614,10 +3982,15 @@ def main() -> int:
     for name, n in timed("m_serve", phase_serve, torch, device,
                          card).items():
         totals[name] = totals.get(name, 0) + n
+    # The LM's training loop launches rows 2 and 3 bf16 and, forward and
+    # recompute, the causal SDSA (row 9).
+    for name, n in timed("n_lm_train", phase_lm_train, torch, device,
+                         results, card).items():
+        totals[name] = totals.get(name, 0) + n
     emit("phase_time", name="total", seconds=time.perf_counter() - t_start)
     kernels = []
     for name in INFERENCE_KERNELS + TRAINING_KERNELS + APEC_KERNELS + \
-            PACKED_KERNELS + LM_KERNELS:
+            PACKED_KERNELS + LM_KERNELS + LM_TRAIN_KERNELS:
         r = results[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCES[name], "replaces": REPLACES[name],

@@ -10,7 +10,10 @@ with heads in the leading axes.
 The causal (LM) form pools K AND V over the T micro-steps and accumulates
 it over tokens j <= i (a prefix-OR); its streaming form carries only the
 d-bit status per head (`sdsa_decode_update` / `sdsa_decode_attend`), so
-prefill and token-by-token decode agree exactly.
+prefill and token-by-token decode agree exactly. Its gradient is the
+reference's: `jax.lax.cummax` differentiates as a parallel prefix scan of
+`lax.max`, which splits a tie's cotangent in halves at every combine
+(`prefix_max`).
 """
 from __future__ import annotations
 
@@ -25,6 +28,52 @@ def kv_status_or(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def kv_status_sum(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Stage 1, sum form: integer-valued column accumulation."""
     return (k * v).sum(dim=-2)
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """Along axis 0: even[0], odd[0], even[1], ... (len(even) is len(odd)
+    or one more)."""
+    n = odd.shape[0]
+    pairs = torch.stack([even[:n], odd], 1).reshape((2 * n,) +
+                                                    tuple(odd.shape[1:]))
+    return torch.cat([pairs, even[n:]], 0) if even.shape[0] > n else pairs
+
+
+def _scan_max(e: torch.Tensor) -> torch.Tensor:
+    """Prefix max over axis 0 as `jax.lax.associative_scan(lax.max, e)`
+    combines it, pair by pair; `torch.maximum` splits a tie's gradient in
+    halves as `lax.max` does."""
+    n = e.shape[0]
+    if n < 2:
+        return e
+    odd = _scan_max(torch.maximum(e[0:-1:2], e[1::2]))
+    even = torch.maximum(odd[:-1] if n % 2 == 0 else odd, e[2::2])
+    return _interleave(torch.cat([e[:1], even], 0), odd)
+
+
+class _PrefixMax(torch.autograd.Function):
+    """`torch.cummax` forward; the backward of the reference's scan."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.save_for_backward(x)
+        ctx.dim = dim
+        return torch.cummax(x, dim=dim).values
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        with torch.enable_grad():
+            xs = x.detach().movedim(ctx.dim, 0).requires_grad_(True)
+            out = _scan_max(xs)
+            (dx,) = torch.autograd.grad(out, xs, g.movedim(ctx.dim, 0))
+        return dx.movedim(0, ctx.dim), None
+
+
+def prefix_max(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Running max along `dim` (the causal prefix-OR on {0, 1} spikes),
+    differentiable with `jax.lax.cummax`'s gradient."""
+    return _PrefixMax.apply(x, dim)
 
 
 def sdsa_jnp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -62,7 +111,7 @@ def causal_sdsa_jnp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv = k * v                                     # AND   (T, ..., N, d)
     if mode == "or":
         phase = kv.amax(dim=0)                     # OR over micro-steps
-        status = torch.cummax(phase, dim=phase.ndim - 2).values
+        status = prefix_max(phase, phase.ndim - 2)
     elif mode == "sum":
         status = torch.cumsum(kv.sum(dim=0), dim=-2)
     else:

@@ -2,8 +2,11 @@
 // per-tile event counts, each with or without the membrane residual that
 // training saves, the packed fire that writes uint32 words instead of
 // spikes, and the reversed-time ATan surrogate backward. The plain
-// forward also takes bf16 drives (the LM's element type) and writes bf16
-// spikes, with the membrane kept in f32 as the TPU kernel keeps it.
+// forward, with or without the residual, also takes bf16 drives (the
+// LM's element type) and writes bf16 spikes, with the membrane and the
+// residual kept in f32 as the TPU kernel keeps them; the backward takes a
+// bf16 spike cotangent too, carries the membrane cotangent in f32 and
+// rounds each bf16 dx once, at its store.
 //
 // Replaces: src/repro/kernels/lif_scan.py::_lif_kernel (lif_scan_pallas),
 //           ::_lif_occ_kernel (_lif_occ_pallas), ::_lif_fwd_kernel
@@ -16,9 +19,13 @@
 //           residuals in the residual mode; the packed fire writes T*P/8
 //           bytes of words instead of the spikes, so it moves 4.125
 //           bytes per element against the counts mode's 8; the bf16
-//           forward moves 2 + 2 bytes per element; the backward
-//           reads the residuals and the spike cotangent (2*T*P f32) and
-//           writes the drive cotangent (T*P f32). Each does a few to ~12
+//           forward moves 2 + 2 bytes per element (2 + 2 + 4 with the
+//           residual); the backward reads the residuals and the spike
+//           cotangent (2*T*P f32) and writes the drive cotangent (T*P
+//           f32), 4 + 2 + 2 bytes per element in bf16. At the LM
+//           training step's hidden fire, (2, 8*128*5632), the bf16
+//           residual forward and backward each take 0.0275 ms of bytes
+//           on 3.35 TB/s. Each does a few to ~12
 //           flops per element, far below the card's ~20 flop/byte ridge.
 //           At the LM's prefill fire, (2, 8*1024*5632) bf16, the bytes
 //           take 0.110 ms on 3.35 TB/s; a thread a neuron with 2-byte
@@ -46,8 +53,12 @@
 //           thread, so the grid fills all 132 SMs in waves of blocks. A
 //           drive whose rows are not all 16-byte aligned, or the ragged
 //           tail of P, takes a scalar path in the same kernel, the same
-//           steps one element at a time. The backward is one thread a
-//           neuron; neighbouring threads own neighbouring neurons (or
+//           steps one element at a time. The f32 backward is one thread
+//           a neuron; the bf16 backward (`lif_bwd_bf16_kernel`) is the
+//           forward's stream run backwards: a thread owns one 16-byte
+//           vector of the cotangent (8 neurons) and the two of vres
+//           beside it, and issues the loads of its latest steps first.
+//           Neighbouring threads own neighbouring neurons (or
 //           vectors), so every load and store is coalesced. The residual
 //           mode is a template flag: the same step, plus one store of the
 //           pre-reset membrane, so spikes and counts equal the primal
@@ -419,11 +430,32 @@ lif_counts_kernel(const float* __restrict__ x, float* __restrict__ s,
   }
 }
 
-// vres, g, dx: (T, P) contiguous. Reversed scan, per step t (the TPU
-// kernel's order, repro/kernels/lif_scan.py:107-138):
-//   sg     = (alpha/2) / (1 + (pi/2*alpha * (V[t] - v_th))^2)
-//   dreset = 1 - v_th*sg (soft)  |  (1 - S[t]) - V[t]*sg (hard)
-//   dv     = g[t]*sg + u*dreset;  dx[t] = dv;  u = decay*dv
+// One reversed step of the backward at the pre-reset membrane v and the
+// spike cotangent g (the TPU kernel's order, repro/kernels/lif_scan.py:
+// 107-138):
+//   sg     = (alpha/2) / (1 + (pi/2*alpha * (v - v_th))^2)
+//   dreset = 1 - v_th*sg (soft)  |  (1 - S) - v*sg (hard)
+//   dv     = g*sg + u*dreset;  dx = dv;  u = decay*dv
+__device__ __forceinline__ float lif_bwd_step(float& u, float v, float g,
+                                              float decay, float v_th,
+                                              bool soft_reset,
+                                              float half_alpha,
+                                              float half_pi_alpha) {
+  const float d = __fmul_rn(half_pi_alpha, __fsub_rn(v, v_th));
+  const float sg = __fdiv_rn(half_alpha, __fadd_rn(1.0f, __fmul_rn(d, d)));
+  float dreset;
+  if (soft_reset) {
+    dreset = __fsub_rn(1.0f, __fmul_rn(v_th, sg));
+  } else {
+    const float s = v >= v_th ? 1.0f : 0.0f;
+    dreset = __fsub_rn(__fsub_rn(1.0f, s), __fmul_rn(v, sg));
+  }
+  const float dv = __fadd_rn(__fmul_rn(g, sg), __fmul_rn(u, dreset));
+  u = __fmul_rn(decay, dv);
+  return dv;
+}
+
+// vres, g, dx: (T, P) contiguous f32, one thread a neuron.
 __global__ void lif_bwd_kernel(const float* __restrict__ vres,
                                const float* __restrict__ g,
                                float* __restrict__ dx, int64_t t_steps,
@@ -436,19 +468,71 @@ __global__ void lif_bwd_kernel(const float* __restrict__ vres,
     float u = 0.0f;
     for (int64_t t = t_steps - 1; t >= 0; --t) {
       const int64_t off = t * p + i;
-      const float v = vres[off];
-      const float d = __fmul_rn(half_pi_alpha, __fsub_rn(v, v_th));
-      const float sg = __fdiv_rn(half_alpha, __fadd_rn(1.0f, __fmul_rn(d, d)));
-      float dreset;
-      if (soft_reset) {
-        dreset = __fsub_rn(1.0f, __fmul_rn(v_th, sg));
-      } else {
-        const float s = v >= v_th ? 1.0f : 0.0f;
-        dreset = __fsub_rn(__fsub_rn(1.0f, s), __fmul_rn(v, sg));
+      dx[off] = lif_bwd_step(u, vres[off], g[off], decay, v_th, soft_reset,
+                             half_alpha, half_pi_alpha);
+    }
+  }
+}
+
+// vres f32, g and dx bf16: (T, P) contiguous. The forward's stream run
+// backwards: a thread owns one 16-byte vector of g (8 neurons) and the
+// two 16-byte vectors of vres beside it, issues the loads of up to
+// kGroup steps (the latest first) before their arithmetic, carries the
+// membrane cotangent u in f32 registers and rounds each step's dx once,
+// at its 16-byte store. `vec` and the scalar path as in `lif_kernel`.
+__global__ void __launch_bounds__(kFireThreads)
+lif_bwd_bf16_kernel(const float* __restrict__ vres,
+                    const __nv_bfloat16* __restrict__ g,
+                    __nv_bfloat16* __restrict__ dx, int64_t t_steps,
+                    int64_t p, float decay, float v_th, bool soft_reset,
+                    float half_alpha, float half_pi_alpha, bool vec) {
+  using L = Lanes<__nv_bfloat16>;
+  constexpr int V = L::kN;
+  const int64_t nvec = (p + V - 1) / V;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < nvec;
+       j += stride) {
+    const int64_t n0 = j * V;
+    float u[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) u[i] = 0.0f;
+    if (vec && n0 + V <= p) {
+      for (int64_t t1 = t_steps; t1 > 0; t1 -= kGroup) {
+        uint32_t gin[kGroup][4];
+        uint32_t vin[kGroup][V / 4][4];
+#pragma unroll
+        for (int k = 0; k < kGroup; ++k) {
+          if (t1 - 1 - k < 0) break;
+          const int64_t off = (t1 - 1 - k) * p + n0;
+          load16(gin[k], g + off);
+#pragma unroll
+          for (int q = 0; q < V / 4; ++q) load16(vin[k][q], vres + off + 4 * q);
+        }
+#pragma unroll
+        for (int k = 0; k < kGroup; ++k) {
+          if (t1 - 1 - k < 0) break;
+          uint32_t out[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+          for (int i = 0; i < V; ++i)
+            L::put(out, i, lif_bwd_step(u[i],
+                                        __uint_as_float(vin[k][i / 4][i % 4]),
+                                        L::get(gin[k], i), decay, v_th,
+                                        soft_reset, half_alpha,
+                                        half_pi_alpha));
+          store16(dx + (t1 - 1 - k) * p + n0, out);
+        }
       }
-      const float dv = __fadd_rn(__fmul_rn(g[off], sg), __fmul_rn(u, dreset));
-      dx[off] = dv;
-      u = __fmul_rn(decay, dv);
+    } else {
+      for (int64_t t = t_steps - 1; t >= 0; --t) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          if (n0 + i >= p) break;
+          const int64_t off = t * p + n0 + i;
+          dx[off] = narrow<__nv_bfloat16>(
+              lif_bwd_step(u[i], vres[off], widen(g[off]), decay, v_th,
+                           soft_reset, half_alpha, half_pi_alpha));
+        }
+      }
     }
   }
 }
@@ -569,6 +653,15 @@ extern "C" int lif_fwd_forward(const float* x, float* s, float* vres,
                                  soft_reset, stream);
 }
 
+// x, s: (T, P) bf16; vres (T, P) f32, the membrane as the kernel holds it.
+extern "C" int lif_fwd_bf16_forward(const __nv_bfloat16* x, __nv_bfloat16* s,
+                                    float* vres, int64_t t_steps, int64_t p,
+                                    float decay, float v_th, int soft_reset,
+                                    void* stream) {
+  return launch_lif<__nv_bfloat16, true>(x, s, vres, t_steps, p, decay, v_th,
+                                         soft_reset, stream);
+}
+
 extern "C" int lif_counts_forward(const float* x, float* s, int* counts,
                                   int64_t t_steps, int64_t rows, int64_t k,
                                   float decay, float v_th, int soft_reset,
@@ -621,6 +714,24 @@ extern "C" int lif_backward(const float* vres, const float* g, float* dx,
                      (cudaStream_t)stream>>>(
         vres, g, dx, t_steps, p, decay, v_th, soft_reset != 0, half_alpha,
         half_pi_alpha);
+  }
+  return (int)cudaGetLastError();
+}
+
+// vres: (T, P) f32; g, dx: (T, P) bf16.
+extern "C" int lif_bf16_backward(const float* vres, const __nv_bfloat16* g,
+                                 __nv_bfloat16* dx, int64_t t_steps,
+                                 int64_t p, float decay, float v_th,
+                                 int soft_reset, float half_alpha,
+                                 float half_pi_alpha, void* stream) {
+  if (p > 0 && t_steps > 0) {
+    constexpr int V = Lanes<__nv_bfloat16>::kN;
+    const bool vec = (p % V == 0 || t_steps == 1) && aligned16(vres) &&
+                     aligned16(g) && aligned16(dx);
+    lif_bwd_bf16_kernel<<<flat_blocks((p + V - 1) / V, kFireThreads),
+                          kFireThreads, 0, (cudaStream_t)stream>>>(
+        vres, g, dx, t_steps, p, decay, v_th, soft_reset != 0, half_alpha,
+        half_pi_alpha, vec);
   }
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,3 @@
+"""Data substrate: synthetic generators + sharded prefetching pipeline."""
+from . import pipeline, synthetic
+__all__ = ["pipeline", "synthetic"]

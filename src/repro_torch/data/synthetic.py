@@ -1,6 +1,7 @@
 """Synthetic data (no external datasets), the port's own copy of
 `repro.data.synthetic`'s `markov_tokens` (order-1 Markov token
-sequences, the LM prompts), `class_images` (procedurally generated
+sequences, the LM prompts), `lm_batch` (the LM's next-token training
+batches), `class_images` (procedurally generated
 CIFAR-shaped images with class-dependent texture statistics) and
 `seg_batch` (a lane-like segmentation task), seeded per
 (seed, shard, step), so a batch is regenerated exactly. numpy only; the
@@ -31,6 +32,14 @@ def markov_tokens(seed: int, shard: int, step: int, batch: int, seq: int,
         nxt = (a * out[:, i] + b) % vocab
         out[:, i + 1] = np.where(greedy[:, i], nxt, rand[:, i])
     return out.astype(np.int32)
+
+
+def lm_batch(seed: int, shard: int, step: int, batch: int, seq: int,
+             vocab: int) -> dict:
+    """One LM training batch: tokens (B, S) and their next tokens, the
+    labels (B, S), both int32, cut from one (B, S+1) Markov batch."""
+    toks = markov_tokens(seed, shard, step, batch, seq, vocab)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
 def class_images(seed: int, shard: int, step: int, batch: int, img: int = 32,

@@ -43,7 +43,8 @@ LAUNCHES: Dict[str, int] = {"lif": 0, "lif_counts": 0, "lif_fwd": 0,
                             "spike_matmul_packed_csr_pipe": 0,
                             "apec_matmul_csr_pipe": 0,
                             "apec_matmul_packed_csr_pipe": 0,
-                            "apec_decompose_spikes": 0}
+                            "apec_decompose_spikes": 0, "lif_fwd_bf16": 0,
+                            "lif_bwd_bf16": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
@@ -57,6 +58,7 @@ SIGNATURES = {
     "lif_forward": (_P, _P, _I64, _I64, _F, _F, _I, _P),
     "lif_bf16_forward": (_P, _P, _I64, _I64, _F, _F, _I, _P),
     "lif_fwd_forward": (_P, _P, _P, _I64, _I64, _F, _F, _I, _P),
+    "lif_fwd_bf16_forward": (_P, _P, _P, _I64, _I64, _F, _F, _I, _P),
     "lif_counts_forward": (_P, _P, _P, _I64, _I64, _I64, _F, _F, _I, _P),
     "lif_counts_fwd_forward": (_P, _P, _P, _P, _I64, _I64, _I64, _F, _F, _I,
                                _P),
@@ -64,6 +66,7 @@ SIGNATURES = {
                                   _P),
     "lif_counts_launch": (_I64, _I64, _I, _P),
     "lif_backward": (_P, _P, _P, _I64, _I64, _F, _F, _I, _F, _F, _P),
+    "lif_bf16_backward": (_P, _P, _P, _I64, _I64, _F, _F, _I, _F, _F, _P),
     "sdsa_or_strided_forward": (_P, _P, _P, _P, _P, _P),
     "sdsa_causal_strided_forward": (_P, _P, _P, _P, _P, _P, _P),
     "sdsa_capture_id": (_P, _P),

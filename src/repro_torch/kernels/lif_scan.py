@@ -7,9 +7,10 @@ flattened (T*R, K) spikes (`repro`'s `_lif_occ_pallas` layout flattened,
 for any R); `lif_counts_packed` emits the same
 counts with the spikes as uint32 words (T, R, ceil(K/32)) and no f32
 spike tensor, forward only (`repro`'s `lif_scan_occ_packed_pallas`).
-`lif_fwd` and `lif_counts_fwd` are
+`lif_fwd` (f32 or bf16, as `lif`) and `lif_counts_fwd` are
 the same with the pre-reset membrane residual `vres` (T, ...) f32 added,
-and `lif_bwd(vres, g)` is the reversed-time ATan surrogate backward. On a
+and `lif_bwd(vres, g)` is the reversed-time ATan surrogate backward (g and
+dx f32 or bf16, the membrane cotangent carried in f32). On a
 CUDA tensor each wrapper launches `csrc/lif.cu`; on a CPU tensor it runs
 its plain version.
 
@@ -87,15 +88,19 @@ def counts_launch(rows: int, k: int, name: str = "lif_counts") -> dict:
 def lif_fwd_plain(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
                   soft_reset: bool = True):
     """Plain version of the residual mode: the kernel's step, op by op, in
-    its order -> (spikes, pre-reset membrane vres)."""
-    v = torch.zeros_like(x[0])
+    its order -> (spikes in the drive's dtype, pre-reset membrane vres
+    f32). A bf16 drive is widened exactly and the membrane kept in f32,
+    as `repro`'s `_lif_fwd_kernel` keeps it in its f32 scratch."""
+    xf = x.float()
+    v = torch.zeros_like(xf[0])
     s = torch.empty_like(x)
-    vres = torch.empty_like(x)
+    vres = torch.empty_like(xf)
     for t in range(x.shape[0]):
-        v = decay * v + x[t]
+        v = decay * v + xf[t]
         vres[t] = v
-        s[t] = (v >= v_th).to(x.dtype)
-        v = v - s[t] * v_th if soft_reset else v * (1.0 - s[t])
+        st = (v >= v_th).float()
+        s[t] = st
+        v = v - st * v_th if soft_reset else v * (1.0 - st)
     return s, vres
 
 
@@ -103,8 +108,7 @@ def lif_plain(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
               soft_reset: bool = True) -> torch.Tensor:
     """The kernel's step in f32 (a bf16 drive widened exactly), spikes
     returned in the drive's dtype."""
-    return lif_fwd_plain(x.float(), decay=decay, v_th=v_th,
-                         soft_reset=soft_reset)[0].to(x.dtype)
+    return lif_fwd_plain(x, decay=decay, v_th=v_th, soft_reset=soft_reset)[0]
 
 
 def lif_counts_fwd_plain(x: torch.Tensor, *, decay: float = 0.5,
@@ -135,17 +139,20 @@ def lif_bwd_plain(vres: torch.Tensor, g: torch.Tensor, *, decay: float = 0.5,
                   v_th: float = 1.0, soft_reset: bool = True,
                   surrogate_alpha: float = 2.0) -> torch.Tensor:
     """Plain version of the backward: the kernel's reversed scan, op by op
-    in its order (`repro/kernels/lif_scan.py:107-138`)."""
+    in its order (`repro/kernels/lif_scan.py:107-138`). The membrane
+    cotangent `u` is carried in f32 (a bf16 g widened exactly) and each
+    step's dx rounded once to g's dtype, as the TPU kernel does."""
+    gf = g.float()
     dx = torch.empty_like(g)
-    u = torch.zeros_like(g[0])
+    u = torch.zeros_like(gf[0])
     for t in reversed(range(g.shape[0])):
-        v = vres[t]
+        v = vres[t].float()
         sg = atan_surrogate(v - v_th, surrogate_alpha)
         if soft_reset:
             dreset = 1.0 - v_th * sg
         else:
-            dreset = (1.0 - (v >= v_th).to(v.dtype)) - v * sg
-        dv = g[t] * sg + u * dreset
+            dreset = (1.0 - (v >= v_th).float()) - v * sg
+        dv = gf[t] * sg + u * dreset
         dx[t] = dv
         u = decay * dv
     return dx
@@ -195,18 +202,24 @@ def lif(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
 
 def lif_fwd(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
             soft_reset: bool = True):
-    """x: (T, ...) f32 drive -> (spikes, pre-reset membrane vres f32)."""
+    """x: (T, ...) f32 or bf16 drive -> (spikes in x's dtype, pre-reset
+    membrane vres f32). bf16 drives launch the bf16 instance, counted
+    apart as ``lif_fwd_bf16``."""
     if not x.is_cuda:
         return lif_fwd_plain(x, decay=decay, v_th=v_th, soft_reset=soft_reset)
-    _build.require_cuda("lif_fwd", x, dtype=torch.float32)
+    bf16 = x.dtype == torch.bfloat16
+    name = "lif_fwd_bf16" if bf16 else "lif_fwd"
+    _build.require_cuda(name, x, dtype=torch.bfloat16 if bf16
+                        else torch.float32)
     s = torch.empty_like(x)
-    vres = torch.empty_like(x)
+    vres = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     t, p = _flat(x)
     lib = _build.library()
-    _build.LAUNCHES["lif_fwd"] += 1
-    _build.check(lib.lif_fwd_forward(
-        x.data_ptr(), s.data_ptr(), vres.data_ptr(), t, p, float(decay),
-        float(v_th), int(soft_reset), _build.stream()), "lif_fwd")
+    entry = lib.lif_fwd_bf16_forward if bf16 else lib.lif_fwd_forward
+    _build.LAUNCHES[name] += 1
+    _build.check(entry(x.data_ptr(), s.data_ptr(), vres.data_ptr(), t, p,
+                       float(decay), float(v_th), int(soft_reset),
+                       _build.stream()), name)
     return s, vres
 
 
@@ -276,7 +289,9 @@ def lif_counts_fwd(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
 def lif_bwd(vres: torch.Tensor, g: torch.Tensor, *, decay: float = 0.5,
             v_th: float = 1.0, soft_reset: bool = True,
             surrogate_alpha: float = 2.0) -> torch.Tensor:
-    """vres, g: (T, ...) f32 -> dx, the drive's cotangent."""
+    """vres: (T, ...) f32, g: (T, ...) f32 or bf16 -> dx, the drive's
+    cotangent in g's dtype. A bf16 g launches the bf16 instance (u in f32,
+    dx rounded once), counted apart as ``lif_bwd_bf16``."""
     if vres.shape != g.shape:
         raise ValueError(f"lif_bwd: vres {tuple(vres.shape)} and g "
                          f"{tuple(g.shape)} differ")
@@ -284,15 +299,21 @@ def lif_bwd(vres: torch.Tensor, g: torch.Tensor, *, decay: float = 0.5,
         return lif_bwd_plain(vres, g, decay=decay, v_th=v_th,
                              soft_reset=soft_reset,
                              surrogate_alpha=surrogate_alpha)
-    _build.require_cuda("lif_bwd", vres, g, dtype=torch.float32)
+    bf16 = g.dtype == torch.bfloat16
+    name = "lif_bwd_bf16" if bf16 else "lif_bwd"
+    _build.require_cuda(name, vres, g)
+    if vres.dtype != torch.float32 or not (bf16 or g.dtype == torch.float32):
+        raise ValueError(f"{name}: expected f32 vres and f32 or bf16 g, got "
+                         f"{vres.dtype} and {g.dtype}")
     dx = torch.empty_like(g)
     t, p = _flat(g)
     lib = _build.library()
-    _build.LAUNCHES["lif_bwd"] += 1
-    _build.check(lib.lif_backward(
+    entry = lib.lif_bf16_backward if bf16 else lib.lif_backward
+    _build.LAUNCHES[name] += 1
+    _build.check(entry(
         vres.data_ptr(), g.data_ptr(), dx.data_ptr(), t, p, float(decay),
         float(v_th), int(soft_reset), surrogate_alpha / 2.0,
-        0.5 * math.pi * surrogate_alpha, _build.stream()), "lif_bwd")
+        0.5 * math.pi * surrogate_alpha, _build.stream()), name)
     return dx
 
 

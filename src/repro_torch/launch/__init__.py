@@ -1,2 +1,3 @@
-"""Launchers: the step factories (`steps`) and the serving scheduler
-(`serve`, `python -m repro_torch.launch.serve`)."""
+"""Launchers: the step factories (`steps`), the training loop (`train`,
+`python -m repro_torch.launch.train`) and the serving scheduler (`serve`,
+`python -m repro_torch.launch.serve`)."""

@@ -1,26 +1,100 @@
-"""Step-function factories for serving: prefill, the decode step and the
-bucketed prefill that admits a request.
+"""Step-function factories: the training step, prefill, the decode step
+and the bucketed prefill that admits a request.
 
 Each closes over the config and returns a plain function on tensors
 (there is no jit cache to share: the same function object serves every
-caller). `make_train_step` waits for ROADMAP queue 1 item 6, and a
-device mesh for item 8.
+caller). A device mesh waits for ROADMAP queue 1 item 8.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
+
+import torch
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.models import lm
+from repro_torch.optim import adamw, grad_compress, schedule as sched
 
-MESH_ITEM = "ROADMAP queue 1 item 8"
+MESH_ITEM = lm.MESH_ITEM
 
 
 def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            f"mesh-aware serving (sharded slots and mesh-aware kernel "
+            f"a device mesh (sharded params and slots, mesh-aware kernel "
             f"resolution) is not ported yet ({MESH_ITEM})")
+
+
+def make_train_step(
+    cfg: LMConfig,
+    opt_cfg: Optional[adamw.AdamWConfig] = None,
+    schedule_fn: Callable = sched.constant,
+    spiking: Optional[bool] = None,
+    grad_compression: bool = False,
+    mesh=None,
+) -> Callable:
+    """train_step(params, opt_state, [ef_state,] batch) ->
+    (params, opt_state, [ef_state,] metrics).
+
+    Gradients come from `torch.autograd.grad` over the param leaves (each
+    made an autograd leaf that requires grad, in place, if it is not
+    one); `adamw.update` then writes the params and moments in place, so
+    the returned params are the tensors passed in. With
+    `cfg.microbatches` m > 1 the batch splits into m microbatches along
+    axis 0, their f32 gradients and losses are summed in order and
+    divided by m. `metrics` holds `loss` and `grad_norm` as device
+    tensors: nothing is read to the host inside the step."""
+    _no_mesh(mesh)
+    if opt_cfg is None:
+        opt_cfg = adamw.AdamWConfig(state_dtype=cfg.opt_state_dtype)
+    spk = cfg.spiking.enabled if spiking is None else spiking
+    m = max(1, cfg.microbatches)
+
+    def grads_of(params, batch):
+        leaves = adamw.leaves(params)
+        for p in leaves:
+            if not p.requires_grad:
+                p.requires_grad_(True)
+
+        def one(mb):
+            loss = lm.loss_fn(cfg, params, mb, spk)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+        if m == 1:
+            loss, grads = one(batch)
+        else:
+            micro = {k: v.reshape((m, v.shape[0] // m) + tuple(v.shape[1:]))
+                     for k, v in batch.items()}
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=leaves[0].device)
+            grads = [torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) for p in leaves]
+            for i in range(m):
+                l_i, g_i = one({k: v[i] for k, v in micro.items()})
+                loss = loss + l_i
+                grads = [a + g for a, g in zip(grads, g_i)]
+            loss, grads = loss / m, [g / m for g in grads]
+        return loss, adamw.unflatten(params, grads)
+
+    if not grad_compression:
+        def train_step(params, opt_state, batch):
+            loss, grads = grads_of(params, batch)
+            lr_scale = schedule_fn(opt_state.step)
+            new_params, new_opt = adamw.update(grads, opt_state, params,
+                                               opt_cfg, lr_scale)
+            metrics = {"loss": loss, "grad_norm": adamw.global_norm(grads)}
+            return new_params, new_opt, metrics
+        return train_step
+
+    def train_step_ef(params, opt_state, ef_state, batch):
+        loss, grads = grads_of(params, batch)
+        wire, scales, new_ef = grad_compress.compress(grads, ef_state)
+        grads = grad_compress.decompress(wire, scales)
+        lr_scale = schedule_fn(opt_state.step)
+        new_params, new_opt = adamw.update(grads, opt_state, params, opt_cfg,
+                                           lr_scale)
+        metrics = {"loss": loss, "grad_norm": adamw.global_norm(grads)}
+        return new_params, new_opt, new_ef, metrics
+    return train_step_ef
 
 
 def make_prefill(cfg: LMConfig, spiking: bool, mesh=None) -> Callable:

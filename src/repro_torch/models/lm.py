@@ -1,5 +1,6 @@
 """The LM from one `LMConfig`: full-sequence prefill and streaming decode,
-with `repro.models.lm`'s names, signatures and param-tree layout.
+and the training loss (`loss_fn`, `chunked_ce_loss`), with
+`repro.models.lm`'s names, signatures and param-tree layout.
 
 A model is a repeated pattern of blocks scanned over `n_groups`
 repetitions with stacked params: ``params["blocks"]`` is a list (one
@@ -17,12 +18,22 @@ rate-decoded (mean over the T micro-steps of a leading T axis). Dense
 (`spiking=False`, the ANN baseline): softmax GQA with RoPE and a KV
 cache, a SwiGLU MLP, no T axis. Not ported yet, and refused with their
 ROADMAP item: MoE, hybrid (Mamba), xLSTM and encoder-decoder configs.
+
+Training recomputes as `cfg.remat` says, one group of blocks at a time:
+"none" keeps every activation, "full" recomputes the group's forward in
+the backward (`torch.utils.checkpoint`), "dots" recomputes all but the
+matmul outputs (a selective-checkpoint policy, the port of
+`jax.checkpoint_policies.checkpoint_dots`). The three give the same loss
+and gradients bit for bit; under "full" every fire and SDSA call of the
+forward runs twice a step.
 """
 from __future__ import annotations
 
-from typing import Any, List, NamedTuple, Optional, Tuple
+import functools
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import LMConfig
@@ -32,6 +43,7 @@ from .layers import (dense_init, embed_init, lif_fire, mlp_apply, mlp_init,
                      rmsnorm, rmsnorm_init)
 
 CONFIG_ITEM = "ROADMAP queue 1 item 5"
+MESH_ITEM = "ROADMAP queue 1 item 8"
 
 
 # ------------------------------------------------------------ pattern plan
@@ -95,6 +107,18 @@ def _tree_leaves_with_path(tree, path: str = ""):
 def _group(tree, g: int):
     """Group `g`'s slice of a stacked (n_groups, ...) tree (views)."""
     return _tree_map(lambda x: x[g], tree)
+
+
+def _layer_views(tree, n_groups: int) -> list:
+    """The n_groups per-layer slices of a stacked (n_groups, ...) dict
+    tree, as views from one `torch.unbind` per leaf: under autograd each
+    leaf's gradient is then one stack of the layers' gradients, where
+    slicing layer by layer (`_group`) would add a full-size zero-filled
+    gradient per layer into the leaf's."""
+    if isinstance(tree, dict):
+        per = {k: _layer_views(v, n_groups) for k, v in tree.items()}
+        return [{k: per[k][g] for k in tree} for g in range(n_groups)]
+    return list(torch.unbind(tree, 0))
 
 
 def _stack(trees: list):
@@ -170,11 +194,48 @@ def _apply_block(cfg: LMConfig, spec: BlockSpec, p: dict, x: torch.Tensor,
     return x + mlp_apply(p["mlp"], h, spiking=spiking, lif_cfg=lif)
 
 
+# Matmul outputs: what "dots" keeps and every other remat recomputes.
+_DOT_OPS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    del ctx, args, kwargs
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(cfg: LMConfig, fn):
+    """`fn` recomputed in the backward as `cfg.remat` says (see the module
+    doc). Where autograd records nothing (serving) it runs as it is."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"remat must be none, full or dots, got "
+                         f"{cfg.remat!r}")
+    kw = {} if cfg.remat == "full" else {"context_fn": functools.partial(
+        ckpt.create_selective_checkpoint_contexts, _save_dots)}
+
+    @functools.wraps(fn)
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
+
+
 def _run_blocks(cfg, blocks, x, spiking, pattern, n_groups, causal):
-    for g in range(n_groups):
+    layers = [_layer_views(b, n_groups) for b in blocks]
+
+    def group_body(x, group_params):
         for i, spec in enumerate(pattern):
-            x = _apply_block(cfg, spec, _group(blocks[i], g), x, spiking,
+            x = _apply_block(cfg, spec, group_params[i], x, spiking,
                              causal=causal)
+        return x
+
+    body = _remat_wrap(cfg, group_body)
+    for g in range(n_groups):
+        x = body(x, [per[g] for per in layers])
     return x
 
 
@@ -211,6 +272,60 @@ def prefill(cfg: LMConfig, params: dict, tokens: torch.Tensor, spiking: bool,
     """Full-sequence prefill: last-position logits (B, vocab) f32."""
     hidden = forward_hidden(cfg, params, tokens, spiking, frontend=frontend)
     return _logits(params, hidden[:, -1, :])
+
+
+# ------------------------------------------------------------------- loss
+def _ce_chunk(hh: torch.Tensor, w_head: torch.Tensor, ll: torch.Tensor):
+    """(sum of lse - target over the chunk's labelled positions, their
+    count), both f32; f32 logits from ``hh @ w_head`` in hh's dtype."""
+    logits = (hh @ w_head.to(hh.dtype)).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, ll.clamp_min(0).long()[..., None])[..., 0]
+    mask = (ll >= 0).float()
+    return ((lse - tgt) * mask).sum(), mask.sum()
+
+
+def chunked_ce_loss(hidden: torch.Tensor, w_head: torch.Tensor,
+                    labels: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Cross-entropy without materializing (N, vocab) logits: a loop over
+    sequence chunks, each recomputed in the backward (memory = chunk x
+    vocab). Labels below 0 carry no loss. A chunk that does not divide N
+    falls back to one chunk of N (tiny shapes)."""
+    b, n, d = hidden.shape
+    if n % chunk:
+        chunk = n
+    nc = n // chunk
+    h_c = hidden.reshape(b, nc, chunk, d).transpose(0, 1)
+    l_c = labels.reshape(b, nc, chunk).transpose(0, 1)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(nc):
+        if torch.is_grad_enabled():
+            s, c = ckpt.checkpoint(_ce_chunk, h_c[i], w_head, l_c[i],
+                                   use_reentrant=False)
+        else:
+            s, c = _ce_chunk(h_c[i], w_head, l_c[i])
+        tot = tot + s
+        cnt = cnt + c
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(cfg: LMConfig, params: dict, batch: Dict[str, torch.Tensor],
+            spiking: bool) -> torch.Tensor:
+    """Mean next-token cross-entropy of `batch` {"tokens", "labels"}, both
+    (B, N) integers."""
+    if cfg.pure_fsdp:
+        raise NotImplementedError(
+            f"{cfg.name}: pure_fsdp (the per-layer weight gather of a "
+            f"sharded mesh) is not ported yet ({MESH_ITEM})")
+    if cfg.n_frontend_tokens and "frontend" in batch:
+        raise NotImplementedError(
+            f"{cfg.name}: frontend positions and their labels are not "
+            f"ported yet ({CONFIG_ITEM})")
+    hidden = forward_hidden(cfg, params, batch["tokens"], spiking,
+                            frontend=batch.get("frontend"))
+    return chunked_ce_loss(hidden, params["lm_head"], batch["labels"],
+                           cfg.loss_chunk)
 
 
 # ---------------------------------------------------------------- serving

@@ -49,6 +49,21 @@ def leaves(tree) -> List[torch.Tensor]:
     return [tree]
 
 
+def unflatten(tree, flat) -> Any:
+    """The tree of `tree`'s shape whose leaves are `flat`, in `leaves`
+    order (the inverse of `leaves`)."""
+    it = iter(flat)
+
+    def build(t):
+        if isinstance(t, dict):
+            built = {k: build(t[k]) for k in sorted(t)}
+            return {k: built[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return [build(v) for v in t]
+        return next(it)
+    return build(tree)
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}

@@ -10,13 +10,21 @@ test can assert the scheduler detected exactly the fault it planted:
                      logits for that slot are non-finite and the slot is
                      quarantined
 
+The checkpoint faults write the files of a committed checkpoint, as the
+reference's do:
+
+  truncate_checkpoint    a leaf file cut short (a writer that died
+                         mid-flush); restore must detect it and
+                         `restore_latest` walk back
+  drop_checkpoint_file   a leaf file gone (a lost shard)
+
 The rest of the reference's taxonomy waits for ROADMAP queue 1 item 8:
 `FAULT_CLASSES`, the occupancy under- and overcount, packed bit-flip and
-stale-CSR faults, the checkpoint faults (truncated and dropped leaf
-files) and `GuardViolationError`.
+stale-CSR faults, and `GuardViolationError`.
 """
 from __future__ import annotations
 
+import os
 from typing import Any
 
 import numpy as np
@@ -79,3 +87,32 @@ def nan_decode_state(state: Any, slot: int, seed: int = 0) -> Any:
                            torch.full((), float("nan"), dtype=x.dtype,
                                       device=x.device), x)
     return _tree_map(poison, state)
+
+
+def _leaf_file(ckpt_dir: str, seed: int) -> str:
+    """One leaf file of a checkpoint, chosen by `seed` (the reference's
+    choice)."""
+    leaf_files = sorted(f for f in os.listdir(ckpt_dir)
+                        if f.startswith("leaf_") and f.endswith(".npy"))
+    if not leaf_files:
+        raise ValueError(f"no leaf files under {ckpt_dir}")
+    rng = np.random.default_rng(seed)
+    return os.path.join(ckpt_dir, leaf_files[int(rng.integers(
+        len(leaf_files)))])
+
+
+def truncate_checkpoint(ckpt_dir: str, keep_bytes: int = 64,
+                        seed: int = 0) -> str:
+    """Truncate one leaf file of a committed checkpoint to `keep_bytes`;
+    the manifest still promises the full payload. Returns its path."""
+    target = _leaf_file(ckpt_dir, seed)
+    with open(target, "r+b") as f:
+        f.truncate(keep_bytes)
+    return target
+
+
+def drop_checkpoint_file(ckpt_dir: str, seed: int = 0) -> str:
+    """Delete one leaf file of a committed checkpoint. Returns its path."""
+    target = _leaf_file(ckpt_dir, seed)
+    os.remove(target)
+    return target

@@ -386,7 +386,8 @@ def test_cuda_wrappers_count_each_launch(cuda_device):
                                "spike_matmul_packed_csr_pipe": 0,
                                "apec_matmul_csr_pipe": 0,
                                "apec_matmul_packed_csr_pipe": 0,
-                               "apec_decompose_spikes": 0}
+                               "apec_decompose_spikes": 0,
+                               "lif_fwd_bf16": 0, "lif_bwd_bf16": 0}
 
 
 @pytest.mark.cuda
@@ -566,7 +567,54 @@ def test_cuda_training_wrappers_count_each_launch(cuda_device):
                                "spike_matmul_packed_csr_pipe": 0,
                                "apec_matmul_csr_pipe": 0,
                                "apec_matmul_packed_csr_pipe": 0,
-                               "apec_decompose_spikes": 0}
+                               "apec_decompose_spikes": 0,
+                               "lif_fwd_bf16": 0, "lif_bwd_bf16": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 2, 3, 5])
+@pytest.mark.parametrize("p", [5, 1003, 4096, 8 * 1000 + 3])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_bf16_training_fires_match_plain(cuda_device, t, p, offset):
+    """Rows 2 and 3 on bf16 (the LM's training fires): spikes bf16, vres
+    f32, dx bf16 from an f32 u, bit for bit with their plain versions at
+    T = 1..5, P < 8, P % 8 != 0 (the scalar path) and rows that do not
+    start 16-byte aligned; soft and hard reset, two surrogate alphas."""
+    gen = torch.Generator().manual_seed(t * p + offset)
+    buf = torch.randn(t * p + offset, generator=gen) * 1.3
+    buf[offset:offset + 4] = torch.tensor([1.0, 0.5, 2.0, 0.25])
+    x = buf.bfloat16().to(cuda_device)[offset:].view(t, p)
+    g = (torch.randn(t * p + offset, generator=gen).bfloat16()
+         .to(cuda_device)[offset:].view(t, p))
+    for soft in (True, False):
+        kw = dict(decay=0.5, v_th=1.0, soft_reset=soft)
+        s, vres = lif_scan.lif_fwd(x, **kw)
+        ps, pvres = lif_scan.lif_fwd_plain(x, **kw)
+        assert (s.dtype, vres.dtype) == (torch.bfloat16, torch.float32)
+        assert torch.equal(s, ps) and torch.equal(vres, pvres)
+        assert torch.equal(s, lif_scan.lif(x, **kw))
+        vres_off = torch.empty(t * p + offset, device=cuda_device)[offset:] \
+            .view(t, p).copy_(vres)
+        for alpha in (2.0, 4.0):
+            dx = lif_scan.lif_bwd(vres_off, g, surrogate_alpha=alpha, **kw)
+            assert dx.dtype == torch.bfloat16
+            assert torch.equal(dx, lif_scan.lif_bwd_plain(
+                vres, g, surrogate_alpha=alpha, **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_training_wrappers_count_apart(cuda_device):
+    x = torch.ones(2, 8, 130, device=cuda_device).bfloat16()
+    reset_launch_counts()
+    _, vres = lif_scan.lif_fwd(x)
+    lif_scan.lif_bwd(vres, x)
+    counts = launch_counts()
+    assert (counts["lif_fwd_bf16"], counts["lif_bwd_bf16"]) == (1, 1)
+    assert sum(counts.values()) == 2
+    with pytest.raises(ValueError, match="f32 vres"):
+        lif_scan.lif_bwd(vres.bfloat16(), x)
+    with pytest.raises(ValueError, match="expected"):
+        lif_scan.lif_fwd(x.half())
 
 
 @pytest.mark.cuda
@@ -587,6 +635,23 @@ def test_cuda_fire_takes_the_residual_kernel_only_under_grad(cuda_device,
     (dx,) = torch.autograd.grad(s.sum(), x)
     counts = launch_counts()
     assert (counts[primal], counts[residual], counts["lif_bwd"]) == (0, 1, 1)
+    _, vres = lif_scan.lif_fwd_plain(x.detach())
+    assert torch.equal(dx, lif_scan.lif_bwd_plain(vres, torch.ones_like(x)))
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_fire_under_grad_takes_the_bf16_residual_kernels(
+        cuda_device):
+    x = (torch.randn(2, 16, 96, generator=torch.Generator().manual_seed(3))
+         .bfloat16().to(cuda_device).requires_grad_(True))
+    reset_launch_counts()
+    s = lif_scan.LIFScanSG.run(x)
+    (dx,) = torch.autograd.grad(s.float().sum(), x)
+    counts = launch_counts()
+    assert (counts["lif_bf16"], counts["lif_fwd_bf16"],
+            counts["lif_bwd_bf16"], counts["lif_fwd"],
+            counts["lif_bwd"]) == (0, 1, 1, 0, 0)
+    assert s.dtype == dx.dtype == torch.bfloat16
     _, vres = lif_scan.lif_fwd_plain(x.detach())
     assert torch.equal(dx, lif_scan.lif_bwd_plain(vres, torch.ones_like(x)))
 
