@@ -197,12 +197,33 @@ Phases, each printed on its own line:
       DENSE_ATTN_TOL of one block, causal and with a 512 window; a dense
       `prefill` of 8 x 1024 tokens (finite), in turns with the spiking
       one. Its lines carry the card's name and power limit;
+  (n) LM training at TinyLlama-1.1B width (`train_loop`, the bf16
+      residual fire and surrogate backward, a step against `ref`, a
+      dense step, a resume);
+  (o) the attention-family configs: (o1) qwen2-moe-a2.7b at full width
+      and depth (24 layers, d 2048, 60 routed experts top-4 and 4 shared,
+      bf16 weights from seed 0), a spiking `prefill` of MOE_BATCH x
+      MOE_PROMPT tokens on the kernels, again, and on `ref`: logits
+      equal bit for bit, exactly MOE_PREFILL_LAUNCHES, the dropped
+      assignments, span, enqueue and peak memory; the routed and shared
+      expert fires and the causal SDSA on the prefill's own drives bit
+      for bit against their plain versions (zero drives silent); a dense
+      prefill finite; (o2) its `Server` over MOE_SERVE_REQUESTS
+      staggered requests: clean, MOE_DECODE_LAUNCHES a decode step, the
+      tokens equal on `ref` and on a second run, requests MOE_SOLO alone
+      equal to their `ref` solo runs (against the pool: reported, as an
+      MoE decode step couples its slots); (o3) whisper-medium's
+      `forward_hidden` over 1500 stub frames: WHISPER_LAUNCHES (24
+      encoder `sdsa`), equal to `ref`, the encoder's `sdsa` on its own
+      spikes against its plain version; (o4) REDUCED_ARCHS' prefill and
+      decode steps in both modes, equal to `ref`;
   (d) one JSON line listing every kernel with its launches on the main
       paths ((c) and (h) for inference kernels, (f) for the training
-      ones, (i) for the APEC ones, (j) for the packed ones, (k) and (m)
-      for the LM ones, (l) adding its hybrid forwards' and APEC calls'; the
-      serial kernels 11, 13, 15 and 17 by their override calls), error
-      and times (rows 16 and 18: kernels 16 and 18).
+      ones, (i) for the APEC ones, (j) for the packed ones, (k), (m) and
+      (o) for the LM ones, (l) adding its hybrid forwards' and APEC
+      calls', (n) the training fires'; the serial kernels 11, 13, 15 and
+      17 by their override calls), error and times (rows 16 and 18:
+      kernels 16 and 18).
 Each phase prints its wall time on a `phase_time` line.
 The last line is {"ok": true, "device": {...}}. Any failed check exits
 nonzero before it; without a CUDA device, or without the repo's `src`
@@ -2542,13 +2563,44 @@ def capture_fires(torch, dispatch, against=None):
 FIRE_NAMES = ("ln1", "q", "k", "v", "ln2", "hidden")
 
 
-def per_layer(values, n_layers):
-    """Per-call values (6 fires per layer, in layer order) by layer."""
-    per = len(FIRE_NAMES)
+def per_layer(values, n_layers, names=FIRE_NAMES):
+    """Per-call values (len(names) fires per layer, in layer order) by
+    layer."""
+    per = len(names)
     check(len(values) == per * n_layers,
           f"{len(values)} fires for {n_layers} layers")
-    return [dict(zip(FIRE_NAMES, values[per * i:per * (i + 1)]))
+    return [dict(zip(names, values[per * i:per * (i + 1)]))
             for i in range(n_layers)]
+
+
+def lif_case(torch, label, x, reps=20, plain_reps=3):
+    """The bf16 fire on a drive `x` (T, ...) against its plain version bit
+    for bit, silent where the drive is 0 at every step: the `kernel`
+    line's record (`ms` back-to-back wrapper calls, the host's enqueue
+    included; `device_ms` the kernel alone, `reps` launches in a CUDA
+    graph)."""
+    from repro_torch.kernels import lif_scan
+    kw = dict(decay=0.5, v_th=1.0, soft_reset=True)
+    out = lif_scan.lif(x, **kw)
+    want = lif_scan.lif_plain(x, **kw)
+    torch.cuda.synchronize()
+    check(out.dtype == torch.bfloat16 and torch.equal(out, want),
+          f"lif_bf16 kernel disagrees with its plain version ({label})")
+    silent = (x == 0).all(0)
+    check(not bool((out != 0).any(0)[silent].any()),
+          f"lif_bf16 fires where the drive is 0 ({label})")
+    b_ms, by = bound_ms(4 * x.numel())
+    rec = dict(max_abs_err=0.0,
+               ms=cuda_ms(torch, lambda: lif_scan.lif(x, **kw), reps=reps),
+               device_ms=graph_ms(torch, lambda: lif_scan.lif(x, **kw),
+                                  reps=reps),
+               plain_ms=cuda_ms(torch, lambda: lif_scan.lif_plain(x, **kw),
+                                reps=plain_reps, warmup=1),
+               bound_ms=b_ms, bound_by=by, library_ms=None,
+               shape=list(x.shape), zero_drive_share=silent.float().mean()
+               .item(), spike_share=(out != 0).float().mean().item())
+    emit("kernel", name="lif_bf16", case=label, **rec)
+    return rec
 
 
 def phase_lm_kernels(torch, device, results):
@@ -2556,7 +2608,7 @@ def phase_lm_kernels(torch, device, results):
     bf16 instance) against their plain versions, bit for bit, at the LM's
     shapes."""
     from repro_torch.core.spikes import pack_spikes, unpack_spikes
-    from repro_torch.kernels import lif_scan, sdsa_kernel
+    from repro_torch.kernels import sdsa_kernel
     dgen = torch.Generator(device=device).manual_seed(SEED)
     for label, (bh, n, dw) in (("prefill_b8_n1024", (256, 1024, 2)),
                                ("prefill_32k_b1", (32, 32768, 2)),
@@ -2614,27 +2666,11 @@ def phase_lm_kernels(torch, device, results):
         torch, "sdsa_causal", "lm_prefill", sdsa_kernel.causal_sdsa_spikes,
         sdsa_kernel.causal_sdsa_spikes_plain, (q, k, v),
         library=lambda: torch.cummax(kv, dim=-2))
-    kw = dict(decay=0.5, v_th=1.0, soft_reset=True)
     for label, p in (("decode_hidden", LM_BATCH * 5632),
                      ("prefill_hidden", LM_BATCH * LM_PROMPT * 5632)):
         x = (torch.randn((2, p), generator=dgen, device=device) * 0.8
              + 0.6).bfloat16()
-        out = lif_scan.lif(x, **kw)
-        want = lif_scan.lif_plain(x, **kw)
-        torch.cuda.synchronize()
-        check(out.dtype == torch.bfloat16 and torch.equal(out, want),
-              f"lif_bf16 kernel disagrees with its plain version ({label})")
-        b_ms, by = bound_ms(4 * x.numel())
-        # ms: back-to-back wrapper calls, the host's enqueue included;
-        # device_ms: the kernel alone (a CUDA graph of 20 launches).
-        rec = dict(max_abs_err=0.0,
-                   ms=cuda_ms(torch, lambda: lif_scan.lif(x, **kw)),
-                   device_ms=graph_ms(torch, lambda: lif_scan.lif(x, **kw)),
-                   plain_ms=cuda_ms(torch, lambda: lif_scan.lif_plain(
-                       x, **kw), reps=3),
-                   bound_ms=b_ms, bound_by=by, library_ms=None,
-                   shape=list(x.shape))
-        emit("kernel", name="lif_bf16", case=label, **rec)
+        rec = lif_case(torch, label, x)
         if label == "prefill_hidden":
             results["lif_bf16"] = rec
 
@@ -3266,15 +3302,15 @@ def instrument(torch, server, log: list) -> None:
     server._prefill = wrap("prefill", server._prefill)
 
 
-def drive(torch, server, reqs, poison=None) -> float:
-    """SERVE_WAVES' staggered admission, then drain: wall seconds. With
+def drive(torch, server, reqs, poison=None, waves=SERVE_WAVES) -> float:
+    """`waves`' staggered admission, then drain: wall seconds. With
     `poison` (a request index), that request's slot state is NaN'd after
     the second wave's steps, while it decodes."""
     from repro_torch.runtime import faults
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     at = 0
-    for n, steps in SERVE_WAVES:
+    for n, steps in waves:
         for r in reqs[at:at + n]:
             server.submit(r)
         at += n
@@ -3291,15 +3327,15 @@ def drive(torch, server, reqs, poison=None) -> float:
 
 
 def serve_run(torch, cfg, spiking, device, traffic, only=None, poison=None,
-              backend=None):
-    """One Server of SERVE_SLOTS slots over `traffic` (or over the requests
+              backend=None, slots=SERVE_SLOTS, waves=SERVE_WAVES):
+    """One Server of `slots` slots over `traffic` (or over the requests
     `only` of it, alone): (server, requests, call log, wall s, launches of
     the run). The launch counters are set to 0 just before the run and
     read just after it."""
     from repro_torch.kernels import dispatch, launch_counts, \
         reset_launch_counts
     from repro_torch.launch.serve import Request, Server
-    server = Server(cfg, n_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+    server = Server(cfg, n_slots=slots, max_seq=SERVE_MAX_SEQ,
                     spiking=spiking, seed=SEED, device=device)
     reqs = [Request(rid=i, prompt=list(p), max_new=m)
             for i, (p, m) in enumerate(traffic)]
@@ -3312,7 +3348,7 @@ def serve_run(torch, cfg, spiking, device, traffic, only=None, poison=None,
             stack.enter_context(dispatch.use_backend(backend))
         reset_launch_counts()
         if only is None:
-            wall = drive(torch, server, reqs, poison)
+            wall = drive(torch, server, reqs, poison, waves)
         else:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3325,11 +3361,13 @@ def serve_run(torch, cfg, spiking, device, traffic, only=None, poison=None,
     return server, reqs, log, wall, counts
 
 
-def clean_run_checks(server, reqs, log, counts, spiking, what) -> None:
+def clean_run_checks(server, reqs, log, counts, spiking, what,
+                     per_step=None) -> None:
     """Every request done with its tokens, no retry and no cause; no slot
     or request left; one admission each; exactly the fire launches a
-    decode step and an admission make (none in dense mode), and none
-    outside the server's calls."""
+    decode step and an admission make (`per_step`, LM_DECODE_LAUNCHES
+    unless given; none in dense mode), and none outside the server's
+    calls."""
     for r in reqs:
         check(r.state == "done" and r.retries == 0 and
               r.failure_cause is None and len(r.generated) == r.max_new,
@@ -3339,7 +3377,7 @@ def clean_run_checks(server, reqs, log, counts, spiking, what) -> None:
           and not server.arrivals, f"{what}: a slot or request is left")
     check(server.prefills_executed == len(reqs),
           f"{what}: {server.prefills_executed} prefills for {len(reqs)}")
-    per_step = LM_DECODE_LAUNCHES if spiking else {}
+    per_step = (per_step or LM_DECODE_LAUNCHES) if spiking else {}
     for kind, bucket, delta, _ in log:
         want = per_step if kind == "step" else \
             {k: v * bucket for k, v in per_step.items()}
@@ -3923,6 +3961,422 @@ def phase_lm_train(torch, device, results, card):
     return {name: totals[name] for name in LM_TRAIN_KERNELS + LM_KERNELS}
 
 
+# ------------------------------------------------------------ phase (o)
+# qwen2-moe-a2.7b (arXiv:2407.10671's Qwen1.5-MoE-A2.7B: 24 layers, d 2048,
+# 16 heads, 60 routed experts top-4 of width 1408 and 4 shared, vocab
+# 151936; 14.32B parameters, 28.6 GB in bf16) at its full width and depth.
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_BATCH, MOE_PROMPT = 8, 128
+# Fires a layer, in call order: ln1, q, k, v, ln2, the routed experts'
+# hidden fire (T = 1 over the whole (E, C, F) bank) and the shared experts'
+# (the step's flattened tokens as its time axis). Every layer is MoE.
+MOE_FIRE_NAMES = ("ln1", "q", "k", "v", "ln2", "experts", "shared")
+MOE_PREFILL_LAUNCHES = {"lif_bf16": 7 * 24, "sdsa_causal": 24}
+MOE_DECODE_LAUNCHES = {"lif_bf16": 7 * 24}
+# The scheduler's traffic: 4 requests of 5-16 prompt tokens, 8 new each,
+# in two waves into 4 slots.
+MOE_SERVE_SLOTS, MOE_SERVE_REQUESTS, MOE_SERVE_NEW = 4, 4, 8
+MOE_SERVE_WAVES = ((2, 2), (2, 0))
+MOE_SOLO = (0, 3)
+# whisper-medium (arXiv:2212.04356): 24 encoder and 24 decoder layers, d
+# 1024, 16 heads, 1500 stub frames. Encoder layer: 6 fires and one
+# non-causal `sdsa` on the T-fold (B, H, T * 1500, 64); decoder layer: 6
+# fires, one causal SDSA, and the cross-attention's 4 (k and v of the
+# encoder output at T = 1, its q and the q heads).
+WHISPER_ARCH = "whisper-medium"
+WHISPER_BATCH, WHISPER_TOKENS = 2, 16
+WHISPER_LAUNCHES = {"sdsa_or": 24, "sdsa_causal": 24,
+                    "lif_bf16": 24 * 6 + 24 * 10}
+# The other attention-family configs at their REDUCED sizes (2 layers, d
+# 64): a prefill and 4 decode steps in each mode, on the kernels and on
+# `ref`.
+REDUCED_ARCHS = ("qwen3-4b", "internlm2-20b", "mistral-large-123b",
+                 "mixtral-8x22b", "phi-3-vision-4.2b")
+REDUCED_DECODE_STEPS = 4
+O_KERNELS = ("lif_bf16", "sdsa_causal", "sdsa_or")
+
+
+@contextlib.contextmanager
+def first_calls(dispatch, keys):
+    """While active, the args of the first registry call matching each
+    `keys` entry (name -> predicate(op, args)) are kept, by name."""
+    orig = dispatch.dispatch
+    got: dict = {}
+
+    def keep(op, *args, **kwargs):
+        for name, pred in keys.items():
+            if name not in got and pred(op, args):
+                got[name] = args
+        return orig(op, *args, **kwargs)
+
+    dispatch.dispatch = keep
+    try:
+        yield got
+    finally:
+        dispatch.dispatch = orig
+
+
+@contextlib.contextmanager
+def moe_drops(torch):
+    """While active, each `moe_apply` call records (dropped assignments,
+    all assignments): a host read a call, outside timed runs."""
+    from repro_torch.models import moe
+    orig = moe.moe_apply
+    rec: list = []
+
+    def counted(p, x, **kw):
+        rec.append((moe.dropped_assignments(
+            p, x, top_k=kw["top_k"], capacity_factor=kw["capacity_factor"],
+            dispatch_groups=kw.get("dispatch_groups", 1)),
+            x.numel() // x.shape[-1] * kw["top_k"]))
+        return orig(p, x, **kw)
+
+    moe.moe_apply = counted
+    try:
+        yield rec
+    finally:
+        moe.moe_apply = orig
+
+
+def free_card(torch):
+    """Drop what earlier phases left in the caching allocator: (o) holds
+    28.6 GB of weights."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def phase_moe_prefill(torch, device, card):
+    """(o1): qwen2-moe-a2.7b at full width and depth, spiking prefill of
+    MOE_BATCH x MOE_PROMPT tokens on the kernels, again (bit for bit), on
+    `ref` (bit for bit), with exact launches; dropped assignments; the
+    routed and shared expert fires and the causal SDSA on the prefill's
+    own drives; a dense prefill. Returns the kernels' launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import markov_tokens
+    from repro_torch.kernels import dispatch, launch_counts, \
+        reset_launch_counts, sdsa_kernel
+    from repro_torch.models import lm, moe
+    from repro_torch.optim import adamw
+    cfg = get_config(MOE_ARCH)
+    resident = free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=SEED, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size() for t in
+                      adamw.leaves(params))
+    emit("moe_setup", card=card, arch=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, experts=cfg.moe.n_experts,
+         top_k=cfg.moe.top_k, shared=cfg.moe.n_shared,
+         params=lm.param_count(cfg), param_bytes=param_bytes, init_s=init_s,
+         resident_before_bytes=resident,
+         init_peak_bytes=torch.cuda.max_memory_allocated())
+    tokens = torch.from_numpy(markov_tokens(
+        SEED, 0, 0, MOE_BATCH, MOE_PROMPT, cfg.vocab)[:, :MOE_PROMPT]) \
+        .long().to(device)
+    keys = {"experts": lambda op, a: op == "lif_scan" and a[0].dim() == 4
+            and a[0].shape[0] == 1,
+            "shared": lambda op, a: op == "lif_scan" and a[0].dim() == 2,
+            "sdsa": lambda op, a: op == "causal_sdsa"}
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with capture_fires(torch, dispatch) as fires, \
+                first_calls(dispatch, keys) as drives:
+            logits = lm.prefill(cfg, params, tokens, True)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = launch_counts()
+        lm_launch_check(counts, MOE_PREFILL_LAUNCHES, f"{cfg.name} prefill")
+        check(tuple(logits.shape) == (MOE_BATCH, cfg.vocab) and
+              bool(torch.isfinite(logits).all()),
+              f"{cfg.name} prefill logits not finite")
+        t0 = time.perf_counter()
+        again = lm.prefill(cfg, params, tokens, True)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(torch.equal(again, logits),
+              f"{cfg.name} prefill does not repeat bit for bit")
+        t0 = time.perf_counter()
+        with dispatch.use_backend(dispatch.REF), \
+                capture_fires(torch, dispatch, against=fires) as drift:
+            ref_logits = lm.prefill(cfg, params, tokens, True)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        with moe_drops(torch) as drops:
+            lm.prefill(cfg, params, tokens, True)
+        dense = lm.prefill(cfg, params, tokens, False)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(dense).all()),
+              f"{cfg.name} dense prefill logits not finite")
+    rates = per_layer([f.float().mean().item() for f in fires],
+                      cfg.n_layers, MOE_FIRE_NAMES)
+    diffs = per_layer(drift, cfg.n_layers, MOE_FIRE_NAMES)
+    del fires
+    emit("moe_prefill", card=card, arch=cfg.name, batch=MOE_BATCH,
+         tokens=MOE_PROMPT, first_prefill_s=first_s,
+         kernel_prefill_s=kernel_s, ref_prefill_s=ref_s,
+         launches={k: n for k, n in counts.items() if n}, peak_bytes=peak, logits_equal_ref=bool(torch.equal(logits,
+                                                            ref_logits)),
+         max_abs_dlogits=(logits - ref_logits).abs().max().item(),
+         logits_sha=tensor_sha(torch, logits),
+         dropped_assignments=sum(d for d, _ in drops),
+         assignments=sum(n for _, n in drops),
+         dropped_by_layer=[d for d, _ in drops],
+         capacity=moe.capacity_of(
+             MOE_BATCH * MOE_PROMPT * cfg.spiking.t_steps, cfg.moe.top_k,
+             cfg.moe.n_experts, cfg.moe.capacity_factor),
+         dense_logits_finite=True,
+         layers=[dict(layer=i, spike_rate=r, differing_share=max(d.values()))
+                 for i, (r, d) in enumerate(zip(rates, diffs))])
+    check(torch.equal(logits, ref_logits),
+          f"{cfg.name} prefill: kernel logits differ from ref's by "
+          f"{(logits - ref_logits).abs().max().item()}")
+    emit("moe_prefill_breakdown", card=card, **forward_breakdown(
+        torch, lambda: lm.prefill(cfg, params, tokens, True)))
+    lif_case(torch, "moe_experts", drives["experts"][0])
+    lif_case(torch, "moe_shared", drives["shared"][0], reps=3, plain_reps=1)
+    q, k, v = drives["sdsa"][:3]
+    kv = ((k != 0) & (v != 0)).any(0).to(torch.bfloat16)
+    sdsa_spike_case(torch, "sdsa_causal", "moe_prefill",
+                    sdsa_kernel.causal_sdsa_spikes,
+                    sdsa_kernel.causal_sdsa_spikes_plain, (q, k, v),
+                    library=lambda: torch.cummax(kv, dim=-2))
+    del params, drives, q, k, v, kv
+    free_card(torch)
+    return {name: counts.get(name, 0) for name in O_KERNELS}
+
+
+def tensor_sha(torch, t) -> str:
+    """A digest of a tensor's bytes: two runs compare by it."""
+    import hashlib
+    raw = t.detach().contiguous().view(torch.uint8).cpu().numpy()
+    return hashlib.sha256(raw.tobytes()).hexdigest()[:16]
+
+
+def moe_requests(cfg):
+    """(prompt, max_new) of the MoE scheduler's requests, from SEED."""
+    import numpy as np
+    from repro_torch.data.synthetic import markov_tokens
+    lo, hi = SERVE_PROMPT_LENGTHS
+    lengths = np.random.default_rng(SEED + 4).integers(
+        lo, hi + 1, MOE_SERVE_REQUESTS)
+    toks = markov_tokens(SEED + 5, 0, 0, MOE_SERVE_REQUESTS, hi, cfg.vocab)
+    return [([int(t) for t in toks[i, :n]], MOE_SERVE_NEW)
+            for i, n in enumerate(lengths)]
+
+
+def phase_moe_serve(torch, device, card):
+    """(o2): the serve scheduler at qwen2-moe-a2.7b's full width, spiking:
+    the staggered traffic on the kernels (clean, exact launches), on
+    `ref` (its tokens equal), again on the kernels with the drops counted
+    (its tokens equal); requests MOE_SOLO each alone, on the kernels and
+    on `ref` (equal), against their tokens in the pool (reported: an MoE
+    decode step routes its slots together). Returns the launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import dispatch
+    cfg = get_config(MOE_ARCH)
+    traffic = moe_requests(cfg)
+    kw = dict(slots=MOE_SERVE_SLOTS, waves=MOE_SERVE_WAVES)
+    totals = {name: 0 for name in O_KERNELS}
+
+    def run(**extra):
+        """One Server's run, checked clean on the kernels; the server (its
+        28.6 GB of weights) is freed before the next."""
+        server, reqs, log, wall, counts = serve_run(
+            torch, cfg, True, device, traffic, **kw, **extra)
+        if extra.get("backend") is None:
+            clean_run_checks(server, reqs, log, counts, True,
+                             f"{cfg.name} {extra or 'pool'}",
+                             per_step=MOE_DECODE_LAUNCHES)
+        del server
+        free_card(torch)
+        for name in totals:
+            totals[name] += counts.get(name, 0)
+        return dict(reqs=reqs, log=log, wall=wall)
+
+    pool = run()
+    tokens = [r.generated for r in pool["reqs"]]
+    ref = run(backend=dispatch.REF)
+    with moe_drops(torch) as drops:
+        again = run()
+    solo = {}
+    for i in MOE_SOLO:
+        k_run, r_run = run(only=(i,)), run(only=(i,), backend=dispatch.REF)
+        solo[i] = (k_run["reqs"][0].generated, r_run["reqs"][0].generated)
+    emit("moe_serve", card=card, arch=cfg.name, slots=MOE_SERVE_SLOTS,
+         requests=len(tokens), prompt_lengths=[len(p) for p, _ in traffic],
+         new_tokens=sum(len(t) for t in tokens), wall_s=pool["wall"],
+         tokens_per_s=sum(len(t) for t in tokens) / pool["wall"],
+         **spans(pool["log"]),
+         fire_launches_per_decode_step=next(
+             d for k, _, d, _ in pool["log"] if k == "step")["lif_bf16"],
+         tokens_equal_ref=[r.generated for r in ref["reqs"]] == tokens,
+         repeat_equal=[r.generated for r in again["reqs"]] == tokens,
+         dropped_assignments=sum(d for d, _ in drops),
+         assignments=sum(n for _, n in drops),
+         solo_requests=list(MOE_SOLO),
+         solo_equal_ref=[a == b for a, b in solo.values()],
+         solo_equal_pool=[solo[i][0] == tokens[i] for i in MOE_SOLO],
+         tokens=tokens)
+    check([r.generated for r in ref["reqs"]] == tokens,
+          "moe serve: the kernels' tokens differ from ref's")
+    check([r.generated for r in again["reqs"]] == tokens,
+          "moe serve: a second run gives other tokens")
+    for i, (a, b) in solo.items():
+        check(a == b, f"moe serve: request {i} alone differs from ref's")
+    return totals
+
+
+def phase_whisper(torch, device, card):
+    """(o3): whisper-medium at full width, spiking: `forward_hidden` on
+    WHISPER_TOKENS tokens with a seeded stub frontend of 1500 frames, on
+    the kernels (exact launches: 24 encoder `sdsa`) and on `ref` (equal
+    bit for bit); the encoder's `sdsa` on its own spikes against its
+    plain version."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import markov_tokens
+    from repro_torch.kernels import dispatch, launch_counts, \
+        reset_launch_counts, sdsa_kernel
+    from repro_torch.models import lm
+    cfg = get_config(WHISPER_ARCH)
+    params = lm.init_params(cfg, seed=SEED, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    frontend = torch.randn((WHISPER_BATCH, cfg.encoder_seq, cfg.d_model),
+                           generator=gen, device=device).bfloat16()
+    tokens = torch.from_numpy(markov_tokens(
+        SEED + 7, 0, 0, WHISPER_BATCH, WHISPER_TOKENS, cfg.vocab)
+        [:, :WHISPER_TOKENS]).long().to(device)
+    with torch.inference_mode():
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with first_calls(dispatch, {"sdsa": lambda op, a: op == "sdsa"}) \
+                as drives:
+            out = lm.forward_hidden(cfg, params, tokens, True,
+                                    frontend=frontend)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        counts = launch_counts()
+        lm_launch_check(counts, WHISPER_LAUNCHES, f"{cfg.name} forward")
+        check(tuple(out.shape) == (WHISPER_BATCH, WHISPER_TOKENS,
+                                   cfg.d_model) and
+              bool(torch.isfinite(out).all()),
+              f"{cfg.name} hidden state not finite")
+        with dispatch.use_backend(dispatch.REF):
+            ref = lm.forward_hidden(cfg, params, tokens, True,
+                                    frontend=frontend)
+        torch.cuda.synchronize()
+    emit("whisper_forward", card=card, arch=cfg.name, batch=WHISPER_BATCH,
+         frames=cfg.encoder_seq, tokens=WHISPER_TOKENS,
+         encoder_layers=cfg.n_encoder_layers, kernel_s=kernel_s,
+         launches={k: n for k, n in counts.items() if n}, equal_ref=bool(torch.equal(out, ref)),
+         max_abs_diff=(out.float() - ref.float()).abs().max().item(),
+         sdsa_fold=list(drives["sdsa"][0].shape))
+    check(torch.equal(out, ref),
+          f"{cfg.name}: the kernels' hidden state differs from ref's")
+    q, k, v = drives["sdsa"][:3]
+    sdsa_spike_case(torch, "sdsa_or", "whisper_encoder",
+                    sdsa_kernel.sdsa_or_spikes,
+                    sdsa_kernel.sdsa_or_spikes_plain, (q, k, v))
+    del params, drives, q, k, v
+    free_card(torch)
+    return {name: counts.get(name, 0) for name in O_KERNELS}
+
+
+def phase_reduced_archs(torch, device, card):
+    """(o4): REDUCED_ARCHS at their reduced sizes, both modes: a prefill
+    (phi-3-vision with its stub patch embeddings) and REDUCED_DECODE_STEPS
+    greedy decode steps after a chunked prefill, on the kernels and on
+    `ref`: logits equal bit for bit, the kernels launched in spiking
+    mode and never in dense mode."""
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.data.synthetic import markov_tokens
+    from repro_torch.kernels import dispatch, launch_counts, \
+        reset_launch_counts
+    from repro_torch.models import lm
+    totals = {name: 0 for name in O_KERNELS}
+    for arch in REDUCED_ARCHS:
+        cfg = get_reduced(arch)
+        params = lm.init_params(cfg, seed=SEED, device=device)
+        tokens = torch.from_numpy(markov_tokens(SEED, 0, 0, 2, 12, cfg.vocab)
+                                  [:, :12]).long().to(device)
+        frontend = None
+        if cfg.n_frontend_tokens:
+            frontend = torch.randn(
+                (2, cfg.n_frontend_tokens, cfg.d_model),
+                generator=torch.Generator(device=device).manual_seed(SEED),
+                device=device).bfloat16()
+
+        def run(spiking):
+            logits = lm.prefill(cfg, params, tokens, spiking,
+                                frontend=frontend)
+            last, state = lm.prefill_chunked(
+                cfg, params, tokens, torch.full((2,), 12, device=device),
+                spiking, 12 + REDUCED_DECODE_STEPS)
+            steps, token = [last], last.argmax(-1)
+            pos = torch.full((2,), 12, device=device)
+            for _ in range(REDUCED_DECODE_STEPS):
+                last, state = lm.decode_step(cfg, params, state, token, pos,
+                                             spiking)
+                steps.append(last)
+                token, pos = last.argmax(-1), pos + 1
+            return logits, torch.stack(steps)
+
+        for spiking in (True, False):
+            with torch.inference_mode():
+                reset_launch_counts()
+                logits, steps = run(spiking)
+                torch.cuda.synchronize()
+                counts = launch_counts()
+                with dispatch.use_backend(dispatch.REF):
+                    ref_logits, ref_steps = run(spiking)
+                torch.cuda.synchronize()
+            mode = "spiking" if spiking else "dense"
+            emit("reduced_arch", card=card, arch=arch, mode=mode,
+                 launches={k: n for k, n in counts.items() if n},
+                 finite=bool(torch.isfinite(logits).all() and
+                              torch.isfinite(steps).all()),
+                 prefill_equal_ref=bool(torch.equal(logits, ref_logits)),
+                 decode_equal_ref=bool(torch.equal(steps, ref_steps)))
+            check(bool(torch.isfinite(logits).all()) and
+                  bool(torch.isfinite(steps).all()),
+                  f"{arch} {mode}: logits not finite")
+            check(torch.equal(logits, ref_logits) and
+                  torch.equal(steps, ref_steps),
+                  f"{arch} {mode}: the kernels' logits differ from ref's")
+            if spiking:
+                check(counts["lif_bf16"] > 0 and counts["sdsa_causal"] > 0,
+                      f"{arch}: the LM kernels never ran ({counts})")
+            else:
+                check(not any(counts.values()),
+                      f"{arch} dense launched {counts}")
+            for name in totals:
+                totals[name] += counts.get(name, 0)
+    return totals
+
+
+def phase_archs(torch, device, card):
+    """Phase (o): the attention-family architectures on the card. Returns
+    the LM kernels' launches."""
+    totals = {name: 0 for name in O_KERNELS}
+    for name, fn in (("o1_moe_prefill", phase_moe_prefill),
+                     ("o2_moe_serve", phase_moe_serve),
+                     ("o3_whisper", phase_whisper),
+                     ("o4_reduced", phase_reduced_archs)):
+        t0 = time.perf_counter()
+        for k, n in fn(torch, device, card).items():
+            totals[k] += n
+        emit("phase_time", name=name, seconds=time.perf_counter() - t0)
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3986,6 +4440,12 @@ def main() -> int:
     # recompute, the causal SDSA (row 9).
     for name, n in timed("n_lm_train", phase_lm_train, torch, device,
                          results, card).items():
+        totals[name] = totals.get(name, 0) + n
+    # The attention-family configs launch the bf16 fire (row 1's bf16
+    # line), the causal SDSA (row 9) and, in whisper's encoder, the
+    # non-causal SDSA (rows 7-8).
+    for name, n in timed("o_archs", phase_archs, torch, device,
+                         card).items():
         totals[name] = totals.get(name, 0) + n
     emit("phase_time", name="total", seconds=time.perf_counter() - t_start)
     kernels = []

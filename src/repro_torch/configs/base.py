@@ -30,8 +30,7 @@ class SpikingConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MoESpec:
-    """Mixture-of-experts FFN layout (data only: the MoE layers are not
-    ported yet, ROADMAP queue 1 item 5)."""
+    """Mixture-of-experts FFN layout, built by `models/moe.py`."""
     n_experts: int
     top_k: int
     d_ff_expert: int

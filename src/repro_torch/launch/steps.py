@@ -58,7 +58,10 @@ def make_train_step(
 
         def one(mb):
             loss = lm.loss_fn(cfg, params, mb, spk)
-            return loss.detach(), torch.autograd.grad(loss, leaves)
+            # a leaf the mode never reads (qk-norm scales under SDSA) gets
+            # zeros, as jax.grad gives it
+            return loss.detach(), torch.autograd.grad(
+                loss, leaves, allow_unused=True, materialize_grads=True)
         if m == 1:
             loss, grads = one(batch)
         else:

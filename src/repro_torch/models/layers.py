@@ -1,5 +1,6 @@
 """Shared model layers: params as plain dicts of tensors, pure apply
-functions: inits, RMS norm, RoPE, the LIF fire helpers and the MLP.
+functions: inits, RMS and layer norms, RoPE, the LIF fire helpers and
+the MLP.
 Spiking layers take and return an explicit leading T axis
 (micro-timesteps); LIF is the only op that couples timesteps.
 """
@@ -23,19 +24,35 @@ def dense_init(d_in: int, d_out: int, dtype=torch.float32, *,
     (CUDA unless asked otherwise; a CUDA request without a card raises).
     The SpikingFormer and CNN callers keep f32 and a CPU generator; the
     LM's pass bf16, `repro`'s default there."""
+    return bank_init((), d_in, d_out, dtype, generator=generator,
+                     device=device)
+
+
+def bank_init(lead: tuple, d_in: int, d_out: int, dtype=torch.float32, *,
+              generator: torch.Generator, device="cuda") -> torch.Tensor:
+    """`lead` + (d_in, d_out) weights drawn as `dense_init` draws one
+    matrix (an MoE's expert bank is `lead` = (n_experts,)). On the `meta`
+    device nothing is drawn: shapes only, for `lm.param_count`."""
     dev = resolve_device(device)
     scale = (2.0 / (d_in + d_out)) ** 0.5
-    w = torch.empty((d_in, d_out), dtype=torch.float32,
-                    device=generator.device)
+    w = torch.empty(tuple(lead) + (d_in, d_out), dtype=torch.float32,
+                    device=_draw_device(generator, dev))
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (w * scale).to(dev, dtype)
+
+
+def _draw_device(generator: torch.Generator, dev: torch.device):
+    """Where weights are drawn: the generator's device, or `meta` (no
+    values) when that is the target."""
+    return dev if dev.type == "meta" else generator.device
 
 
 def embed_init(vocab: int, d: int, dtype=torch.bfloat16, *,
                generator: torch.Generator, device="cuda") -> torch.Tensor:
     """(vocab, d) embedding: truncated normal (±2 sigma) times 0.02."""
     dev = resolve_device(device)
-    w = torch.empty((vocab, d), dtype=torch.float32, device=generator.device)
+    w = torch.empty((vocab, d), dtype=torch.float32,
+                    device=_draw_device(generator, dev))
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (w * 0.02).to(dev, dtype)
 
@@ -51,6 +68,21 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
+
+
+def layernorm_init(d: int, device="cuda") -> dict:
+    dev = resolve_device(device)
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=dev),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=dev)}
+
+
+def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm in f32 (biased variance), returned in `x`'s dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    return ((xf - mu) * torch.rsqrt(var + eps) * p["scale"]
+            + p["bias"]).to(x.dtype)
 
 
 # -------------------------------------------------------------------- RoPE

@@ -10,14 +10,23 @@ a `repro` tree across unchanged. Every decode-state leaf is
 ``(n_groups, B, ...)``: the slot batch is axis 1, which the slot-state
 surgery of the serve loop indexes.
 
-Ported: dense-pattern configs (one attention + MLP block) in both modes.
-Spiking (`spiking=True`, the paper's technique): every matmul sees
-LIF-fired binary activations, attention is SDSA (O(N) prefill through
-the causal prefix-OR, O(d) decode state) and the hidden state is
-rate-decoded (mean over the T micro-steps of a leading T axis). Dense
+Ported: the attention family in both modes, that is every pattern of
+attention blocks with an MLP or MoE FFN (`moe_every` / `moe_offset`
+place the MoE layers), qk-norm and sliding windows, the encoder-decoder
+(whisper: a non-causal encoder over stub frame embeddings, per-layer
+cross-attention to its output) and the VLM's stub patch embeddings
+prepended to the decoder stream. Spiking (`spiking=True`, the paper's
+technique): every matmul sees LIF-fired binary activations, attention is
+SDSA (O(N) prefill through the causal prefix-OR, the encoder's
+non-causal OR over all tokens, O(d) decode state) and the hidden state
+is rate-decoded (mean over the T micro-steps of a leading T axis). Dense
 (`spiking=False`, the ANN baseline): softmax GQA with RoPE and a KV
 cache, a SwiGLU MLP, no T axis. Not ported yet, and refused with their
-ROADMAP item: MoE, hybrid (Mamba), xLSTM and encoder-decoder configs.
+ROADMAP item: the hybrid (Mamba) and xLSTM blocks (`models/ssm.py`).
+
+As in the reference, decoding never fills an encoder-decoder's cross
+state: `init_state` makes the cross-attention K / V (dense) or status
+(spiking) zeros and `decode_step` reads them as they are.
 
 Training recomputes as `cfg.remat` says, one group of blocks at a time:
 "none" keeps every activation, "full" recomputes the group's forward in
@@ -38,12 +47,13 @@ from torch.utils import checkpoint as ckpt
 from repro_torch import resolve_device
 from repro_torch.configs.base import LMConfig
 from repro_torch.core.lif import LIFConfig
+from . import moe as moe_lib
 from . import transformer as tfm
 from .layers import (dense_init, embed_init, lif_fire, mlp_apply, mlp_init,
                      rmsnorm, rmsnorm_init)
 
-CONFIG_ITEM = "ROADMAP queue 1 item 5"
-MESH_ITEM = "ROADMAP queue 1 item 8"
+CONFIG_ITEM = "ROADMAP queue 1 item 5 (SSM)"
+MESH_ITEM = moe_lib.MESH_ITEM
 
 
 # ------------------------------------------------------------ pattern plan
@@ -53,19 +63,29 @@ class BlockSpec(NamedTuple):
 
 
 def layer_pattern(cfg: LMConfig) -> Tuple[List[BlockSpec], int]:
-    """(pattern, n_groups) with n_layers == len(pattern) * n_groups. Only
-    the dense pattern, one attention + MLP block, is ported."""
-    for field, what in (("xlstm", "xLSTM"), ("hybrid", "hybrid (Mamba)"),
-                        ("moe", "MoE")):
+    """(pattern, n_groups) with n_layers == len(pattern) * n_groups: one
+    attention block per layer, its FFN an MoE where ``layer %
+    moe.moe_every == moe.moe_offset`` and an MLP elsewhere, the pattern
+    `moe_every` layers long. The hybrid (Mamba) and xLSTM patterns are
+    not ported yet."""
+    for field, what in (("xlstm", "xLSTM"), ("hybrid", "hybrid (Mamba)")):
         if getattr(cfg, field) is not None:
             raise NotImplementedError(
                 f"{cfg.name}: {what} blocks are not ported yet "
                 f"({CONFIG_ITEM})")
-    if cfg.encoder_decoder or cfg.n_frontend_tokens or cfg.encoder_seq:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and frontend configs are not "
-            f"ported yet ({CONFIG_ITEM})")
-    return [BlockSpec("attn", "mlp")], cfg.n_layers
+
+    def ffn_kind(layer_idx: int) -> str:
+        if cfg.moe is None:
+            return "mlp"
+        return "moe" if layer_idx % cfg.moe.moe_every == cfg.moe.moe_offset \
+            else "mlp"
+
+    period = cfg.moe.moe_every if cfg.moe is not None else 1
+    if cfg.n_layers % period:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers is not a "
+                         f"multiple of the pattern's {period}")
+    return [BlockSpec("attn", ffn_kind(i)) for i in range(period)], \
+        cfg.n_layers // period
 
 
 def lif_cfg_of(cfg: LMConfig) -> LIFConfig:
@@ -127,53 +147,120 @@ def _stack(trees: list):
 
 # ------------------------------------------------------------------- init
 def _block_init(cfg: LMConfig, spec: BlockSpec, generator: torch.Generator,
-                device) -> dict:
-    return {
-        "ln1": rmsnorm_init(cfg.d_model, device),
-        "attn": tfm.attn_init(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                              cfg.head_dim, cfg.qk_norm,
-                              generator=generator, device=device),
-        "ln2": rmsnorm_init(cfg.d_model, device),
-        "mlp": mlp_init(cfg.d_model, cfg.d_ff, generator=generator,
-                        device=device),
-    }
+                device, cross: bool) -> dict:
+    kw = dict(generator=generator, device=device)
+    p = {"ln1": rmsnorm_init(cfg.d_model, device),
+         "attn": tfm.attn_init(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.head_dim, cfg.qk_norm, **kw)}
+    if cross:
+        p["cross_ln"] = rmsnorm_init(cfg.d_model, device)
+        p["cross_attn"] = tfm.attn_init(cfg.d_model, cfg.n_heads,
+                                        cfg.n_kv_heads, cfg.head_dim, False,
+                                        **kw)
+    p["ln2"] = rmsnorm_init(cfg.d_model, device)
+    if spec.ffn == "moe":
+        m = cfg.moe
+        p["moe"] = moe_lib.moe_init(cfg.d_model, m.d_ff_expert, m.n_experts,
+                                    m.n_shared, bank_size=m.bank_size, **kw)
+    else:
+        p["mlp"] = mlp_init(cfg.d_model, cfg.d_ff, **kw)
+    return p
+
+
+def _stack_init(cfg: LMConfig, pattern: List[BlockSpec], n_groups: int,
+                generator: torch.Generator, device, cross: bool) -> list:
+    """Per pattern position, its n_groups layers' params stacked on a
+    leading axis. Each layer is drawn, copied into its slice and freed,
+    so the peak is the stack plus one layer (an MoE's expert banks are
+    most of a model)."""
+    out = []
+    for spec in pattern:
+        stacked = None
+        for g in range(n_groups):
+            layer = _block_init(cfg, spec, generator, device, cross)
+            if stacked is None:
+                stacked = _tree_map(lambda x: x.new_empty(
+                    (n_groups,) + tuple(x.shape)), layer)
+            _tree_map(lambda dst, src: dst[g].copy_(src), stacked, layer)
+            del layer
+        out.append(stacked)
+    return out
 
 
 def init_params(cfg: LMConfig, seed: int = 0, device="cuda") -> dict:
     """Random params from `seed`, in `repro`'s dtypes (bf16 matrices, f32
-    norm scales) and stacked layout. The weights are drawn on `device` by
-    a `torch.Generator` that lives there (1.1B values drawn on the CPU
-    would take many seconds), so one seed gives the same weights on every
-    run on one kind of device, and different ones on the CPU and the card;
-    parity with `repro` goes through `params_from_numpy` instead."""
+    norm scales and router) and stacked layout. The weights are drawn on
+    `device` by a `torch.Generator` that lives there (a billion values
+    drawn on the CPU would take many seconds), so one seed gives the same
+    weights on every run on one kind of device, and different ones on
+    the CPU and the card; parity with `repro` goes through
+    `params_from_numpy` instead. On the `meta` device nothing is drawn:
+    the tree's shapes and dtypes only."""
     dev = resolve_device(device)
     pattern, n_groups = layer_pattern(cfg)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    return {
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev) \
+        .manual_seed(seed)
+    p = {
         "embed": embed_init(cfg.vocab, cfg.d_model, generator=gen,
                             device=dev),
-        "blocks": [_stack([_block_init(cfg, spec, gen, dev)
-                           for _ in range(n_groups)]) for spec in pattern],
+        "blocks": _stack_init(cfg, pattern, n_groups, gen, dev,
+                              cross=cfg.encoder_decoder),
         "final_norm": rmsnorm_init(cfg.d_model, dev),
         "lm_head": dense_init(cfg.d_model, cfg.vocab, torch.bfloat16,
                               generator=gen, device=dev),
     }
+    if cfg.encoder_decoder:
+        p["encoder"] = {
+            "blocks": _stack_init(cfg, [BlockSpec("attn", "mlp")],
+                                  cfg.n_encoder_layers, gen, dev,
+                                  cross=False),
+            "final_norm": rmsnorm_init(cfg.d_model, dev)}
+    if cfg.n_frontend_tokens or cfg.encoder_seq:
+        # The stub frontend's projection of precomputed embeddings.
+        p["frontend_proj"] = dense_init(cfg.d_model, cfg.d_model,
+                                        torch.bfloat16, generator=gen,
+                                        device=dev)
+    return p
 
 
 def param_count(cfg: LMConfig) -> int:
-    """Number of parameters, from the shapes alone."""
-    _, n_groups = layer_pattern(cfg)
-    d, hd = cfg.d_model, cfg.head_dim
-    block = (2 * d + d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
-             + cfg.n_heads * hd * d + 3 * d * cfg.d_ff
-             + (2 * hd if cfg.qk_norm else 0))
-    return 2 * cfg.vocab * d + d + n_groups * block
+    """Number of parameters: the leaves of `init_params` on the `meta`
+    device (shapes only, nothing drawn)."""
+    return sum(leaf.numel() for _, leaf in
+               _tree_leaves_with_path(init_params(cfg, device="meta")))
 
 
 # -------------------------------------------------------- full sequence
+def _ffn(cfg: LMConfig, spec: BlockSpec, p: dict, x: torch.Tensor,
+         spiking: bool, decode: bool = False) -> torch.Tensor:
+    """x plus the block's FFN (MLP or MoE) on its ln2-normed (and, when
+    spiking, fired) input. In decode the MoE routes the step's T x B
+    tokens together, as one sequence position each."""
+    lif = lif_cfg_of(cfg)
+    h = rmsnorm(p["ln2"], x)
+    if spiking:
+        h = lif_fire(h, lif)
+    if spec.ffn == "mlp":
+        return x + mlp_apply(p["mlp"], h, spiking=spiking, lif_cfg=lif)
+    m = cfg.moe
+    kw = dict(top_k=m.top_k, capacity_factor=m.capacity_factor,
+              spiking=spiking, lif_cfg=lif)
+    if decode:
+        h = h[..., None, :]
+    if cfg.moe_shard_map:
+        out = moe_lib.moe_apply_shard_map(p["moe"], h, **kw)
+    else:
+        # the reference's decode routes one group, whatever the config
+        groups = 1 if decode else cfg.moe_dispatch_groups
+        out = moe_lib.moe_apply(p["moe"], h, dispatch_groups=groups, **kw)
+    return x + (out[..., 0, :] if decode else out)
+
+
 def _apply_block(cfg: LMConfig, spec: BlockSpec, p: dict, x: torch.Tensor,
-                 spiking: bool, *, causal: bool = True) -> torch.Tensor:
-    """Full-sequence block. x: (T, B, N, D) spiking / (B, N, D) dense."""
+                 spiking: bool, *, causal: bool = True,
+                 enc_kv: Optional[tuple] = None) -> torch.Tensor:
+    """Full-sequence block. x: (T, B, N, D) spiking / (B, N, D) dense;
+    `enc_kv` this layer's cross-attention K / V of the encoder output."""
     lif = lif_cfg_of(cfg)
     if spiking:
         s = lif_fire(rmsnorm(p["ln1"], x), lif)
@@ -188,10 +275,42 @@ def _apply_block(cfg: LMConfig, spec: BlockSpec, p: dict, x: torch.Tensor,
             window=cfg.sliding_window, qk_norm=cfg.qk_norm,
             rope_theta=cfg.rope_theta)
     x = x + a
-    h = rmsnorm(p["ln2"], x)
+    if enc_kv is not None and "cross_attn" in p:
+        x = x + _cross_attn_full(cfg, p, x, enc_kv, spiking)
+    return _ffn(cfg, spec, p, x, spiking)
+
+
+def _cross_attn_full(cfg: LMConfig, p: dict, x: torch.Tensor, enc_kv,
+                     spiking: bool) -> torch.Tensor:
+    """Cross-attention to the encoder's projected keys and values
+    (B, S, KV, dh). Spiking: the status is the OR over encoder positions
+    of K AND V (an amax), and the output Q AND status, for every decoder
+    position; dense: softmax attention over the S positions."""
+    k_enc, v_enc = enc_kv
+    pa = p["cross_attn"]
+    h = rmsnorm(p["cross_ln"], x)
+    rep = cfg.n_heads // cfg.n_kv_heads
     if spiking:
-        h = lif_fire(h, lif)
-    return x + mlp_apply(p["mlp"], h, spiking=spiking, lif_cfg=lif)
+        lif = lif_cfg_of(cfg)
+        q = lif_fire(h, lif)
+        qh = (q @ pa["w_q"].to(q.dtype)).reshape(
+            tuple(q.shape[:-1]) + (cfg.n_heads, cfg.head_dim))
+        qh = lif_fire(qh, lif)
+        status = tfm._repeat_kv((k_enc * v_enc).amax(dim=-3), rep)  # B,H,dh
+        out = qh * status[None, :, None]
+        out = out.reshape(tuple(q.shape[:-1]) + (-1,))
+        return out @ pa["w_o"].to(out.dtype)
+    qh = (h @ pa["w_q"].to(h.dtype)).reshape(
+        tuple(h.shape[:-1]) + (cfg.n_heads, cfg.head_dim))
+    kk = tfm._repeat_kv(k_enc, rep).transpose(-3, -2)     # (B, H, S, dh)
+    vv = tfm._repeat_kv(v_enc, rep).transpose(-3, -2)
+    qq, kk = tfm._promoted(qh.transpose(-3, -2), kk)
+    sc = (qq @ kk.transpose(-1, -2)).float()
+    pr = torch.softmax(sc * cfg.head_dim ** -0.5, dim=-1).to(h.dtype)
+    pr, vv = tfm._promoted(pr, vv)
+    out = (pr @ vv).transpose(-3, -2)
+    out = out.reshape(tuple(h.shape[:-1]) + (cfg.n_heads * cfg.head_dim,))
+    return out @ pa["w_o"].to(out.dtype)
 
 
 # Matmul outputs: what "dots" keeps and every other remat recomputes.
@@ -224,13 +343,21 @@ def _remat_wrap(cfg: LMConfig, fn):
     return wrapped
 
 
-def _run_blocks(cfg, blocks, x, spiking, pattern, n_groups, causal):
+def _run_blocks(cfg, blocks, x, spiking, pattern, n_groups, causal,
+                enc_kv=None):
+    """The groups of blocks in order; with `enc_kv` (the encoder's output)
+    each attention block with a cross-attention first projects it to its
+    own K / V."""
     layers = [_layer_views(b, n_groups) for b in blocks]
 
     def group_body(x, group_params):
         for i, spec in enumerate(pattern):
-            x = _apply_block(cfg, spec, group_params[i], x, spiking,
-                             causal=causal)
+            p = group_params[i]
+            kv = None
+            if enc_kv is not None:
+                kv = _project_enc_kv(cfg, p, enc_kv, spiking)
+            x = _apply_block(cfg, spec, p, x, spiking, causal=causal,
+                             enc_kv=kv)
         return x
 
     body = _remat_wrap(cfg, group_body)
@@ -245,19 +372,66 @@ def _rate_decode(x: torch.Tensor) -> torch.Tensor:
     return x.float().mean(dim=0).to(x.dtype)
 
 
+def _project_enc_kv(cfg: LMConfig, p: dict, enc_hidden: torch.Tensor,
+                    spiking: bool):
+    """This layer's cross K / V (B, S, KV, dh) of the encoder output
+    (B, S, D), fired at T = 1 when spiking; None without a
+    cross-attention."""
+    if "cross_attn" not in p:
+        return None
+    pa, h = p["cross_attn"], enc_hidden
+    lead = tuple(h.shape[:-1]) + (cfg.n_kv_heads, cfg.head_dim)
+    k = (h @ pa["w_k"].to(h.dtype)).reshape(lead)
+    v = (h @ pa["w_v"].to(h.dtype)).reshape(lead)
+    if spiking:
+        lif = lif_cfg_of(cfg)
+        k = lif_fire(k[None], lif)[0]
+        v = lif_fire(v[None], lif)[0]
+    return k, v
+
+
+def _encoder_forward(cfg: LMConfig, params: dict,
+                     frontend: Optional[torch.Tensor],
+                     spiking: bool) -> torch.Tensor:
+    """The whisper-style encoder over stub frame embeddings (B, S, D):
+    non-causal attention blocks with MLPs, rate-decoded when spiking,
+    then its final norm."""
+    if frontend is None:
+        raise ValueError("an encoder-decoder arch needs frontend "
+                         "embeddings")
+    enc = params["encoder"]
+    x = frontend @ params["frontend_proj"].to(frontend.dtype)
+    if spiking:
+        x = x[None].expand((cfg.spiking.t_steps,) + tuple(x.shape))
+    x = _run_blocks(cfg, enc["blocks"], x, spiking,
+                    [BlockSpec("attn", "mlp")], cfg.n_encoder_layers,
+                    causal=False)
+    if spiking:
+        x = _rate_decode(x)
+    return rmsnorm(enc["final_norm"], x)
+
+
 def forward_hidden(cfg: LMConfig, params: dict, tokens: torch.Tensor,
                    spiking: bool, frontend: Optional[torch.Tensor] = None,
                    causal: bool = True) -> torch.Tensor:
-    """tokens (B, N) -> final hidden (B, N, D) (T-averaged if spiking)."""
-    if frontend is not None:
-        raise NotImplementedError(f"frontend embeddings are not ported yet "
-                                  f"({CONFIG_ITEM})")
+    """tokens (B, N) -> final hidden (B, N, D) (T-averaged if spiking).
+
+    `frontend` (B, F, D), precomputed stub embeddings: a decoder-only
+    config (the VLM) projects and prepends them to the token stream, so
+    the hidden state is (B, F + N, D); an encoder-decoder runs its
+    encoder on them and every decoder layer cross-attends to its output."""
     pattern, n_groups = layer_pattern(cfg)
     x = params["embed"][tokens]                              # (B, N, D)
+    if frontend is not None and not cfg.encoder_decoder:
+        fe = frontend @ params["frontend_proj"].to(frontend.dtype)
+        x = torch.cat([fe.to(x.dtype), x], dim=1)
     if spiking:
         x = x[None].expand((cfg.spiking.t_steps,) + tuple(x.shape))
+    enc_kv = None
+    if cfg.encoder_decoder:
+        enc_kv = _encoder_forward(cfg, params, frontend, spiking)
     x = _run_blocks(cfg, params["blocks"], x, spiking, pattern, n_groups,
-                    causal)
+                    causal, enc_kv)
     if spiking:
         x = _rate_decode(x)
     return rmsnorm(params["final_norm"], x)
@@ -313,18 +487,19 @@ def chunked_ce_loss(hidden: torch.Tensor, w_head: torch.Tensor,
 def loss_fn(cfg: LMConfig, params: dict, batch: Dict[str, torch.Tensor],
             spiking: bool) -> torch.Tensor:
     """Mean next-token cross-entropy of `batch` {"tokens", "labels"}, both
-    (B, N) integers."""
+    (B, N) integers, and an optional "frontend" (B, F, D): a VLM's
+    prepended frontend positions carry no loss (their labels are -1)."""
     if cfg.pure_fsdp:
         raise NotImplementedError(
             f"{cfg.name}: pure_fsdp (the per-layer weight gather of a "
             f"sharded mesh) is not ported yet ({MESH_ITEM})")
-    if cfg.n_frontend_tokens and "frontend" in batch:
-        raise NotImplementedError(
-            f"{cfg.name}: frontend positions and their labels are not "
-            f"ported yet ({CONFIG_ITEM})")
     hidden = forward_hidden(cfg, params, batch["tokens"], spiking,
                             frontend=batch.get("frontend"))
-    return chunked_ce_loss(hidden, params["lm_head"], batch["labels"],
+    labels = batch["labels"]
+    if cfg.n_frontend_tokens and "frontend" in batch:
+        pad = labels.new_full((labels.shape[0], cfg.n_frontend_tokens), -1)
+        labels = torch.cat([pad, labels], dim=1)
+    return chunked_ce_loss(hidden, params["lm_head"], labels,
                            cfg.loss_chunk)
 
 
@@ -336,24 +511,38 @@ class LayerState(NamedTuple):
     mamba: Any = None
     mlstm: Any = None
     slstm: Any = None
-    cross_kv: Any = None
-    cross_status: Any = None
+    cross_kv: Any = None    # (k_enc, v_enc) (dense encoder-decoder)
+    cross_status: Any = None  # (B, H, dh) (spiking encoder-decoder)
 
 
 def init_state(cfg: LMConfig, spec: BlockSpec, b: int, s: int,
                spiking: bool, n_groups: int, device="cuda") -> LayerState:
     """Stacked (n_groups, b, ...) decode state for one pattern position:
-    the SDSA statuses when spiking, else a KV cache of capacity `s`."""
+    the SDSA statuses when spiking, else a KV cache of capacity `s`; an
+    encoder-decoder adds its cross state, zeros (the reference never
+    fills it)."""
     del spec
 
     def stack(tree):
         return _tree_map(lambda x: x[None].expand(
             (n_groups,) + tuple(x.shape)).contiguous(), tree)
+    dev = resolve_device(device)
     if spiking:
-        return LayerState(sdsa=stack(tfm.sdsa_state_init(
-            b, cfg.n_heads, cfg.head_dim, device=device)))
-    return LayerState(kv=stack(tfm.kv_cache_init(
-        b, s, cfg.n_kv_heads, cfg.head_dim, device=device)))
+        st = LayerState(sdsa=stack(tfm.sdsa_state_init(
+            b, cfg.n_heads, cfg.head_dim, device=dev)))
+    else:
+        st = LayerState(kv=stack(tfm.kv_cache_init(
+            b, s, cfg.n_kv_heads, cfg.head_dim, device=dev)))
+    if cfg.encoder_decoder:
+        if spiking:
+            st = st._replace(cross_status=stack(torch.zeros(
+                (b, cfg.n_heads, cfg.head_dim), dtype=torch.bfloat16,
+                device=dev)))
+        else:
+            st = st._replace(cross_kv=stack(tuple(torch.zeros(
+                (b, cfg.encoder_seq, cfg.n_kv_heads, cfg.head_dim),
+                dtype=torch.bfloat16, device=dev) for _ in range(2))))
+    return st
 
 
 def init_decode_state(cfg: LMConfig, b: int, s: int, spiking: bool,
@@ -368,14 +557,22 @@ def init_decode_state(cfg: LMConfig, b: int, s: int, spiking: bool,
 
 
 def _apply_block_decode(cfg, spec, p, st: LayerState, x, pos, spiking):
-    del spec
     lif = lif_cfg_of(cfg)
     if spiking:                        # SDSA decode is position-free
         s = lif_fire(rmsnorm(p["ln1"], x), lif)              # (T, B, D)
         a, new_sdsa = tfm.attention_sdsa_decode(
             p["attn"], s, st.sdsa, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
             d_head=cfg.head_dim, lif_cfg=lif, mode=cfg.spiking.sdsa_mode)
+        x = x + a
         st = st._replace(sdsa=new_sdsa)
+        if st.cross_status is not None:
+            pa = p["cross_attn"]
+            q = lif_fire(rmsnorm(p["cross_ln"], x), lif)
+            qh = (q @ pa["w_q"].to(q.dtype)).reshape(
+                tuple(q.shape[:-1]) + (cfg.n_heads, cfg.head_dim))
+            out = lif_fire(qh, lif) * st.cross_status[None].to(q.dtype)
+            out = out.reshape(tuple(q.shape[:-1]) + (-1,))
+            x = x + out @ pa["w_o"].to(x.dtype)
     else:
         a, new_kv = tfm.attention_dense_decode(
             p["attn"], rmsnorm(p["ln1"], x), st.kv, pos,
@@ -383,12 +580,12 @@ def _apply_block_decode(cfg, spec, p, st: LayerState, x, pos, spiking):
             window=cfg.sliding_window, qk_norm=cfg.qk_norm,
             rope_theta=cfg.rope_theta,
             masked_cache_update=cfg.decode_masked_update)
+        x = x + a
         st = st._replace(kv=new_kv)
-    x = x + a
-    h = rmsnorm(p["ln2"], x)
-    if spiking:
-        h = lif_fire(h, lif)
-    return x + mlp_apply(p["mlp"], h, spiking=spiking, lif_cfg=lif), st
+        if st.cross_kv is not None:
+            x = x + _cross_attn_full(cfg, p, x[:, None, :], st.cross_kv,
+                                     False)[:, 0, :]
+    return _ffn(cfg, spec, p, x, spiking, decode=True), st
 
 
 def decode_step(cfg: LMConfig, params: dict, state: list,

@@ -337,13 +337,28 @@ def test_loss_fn_and_every_gradient_leaf_match_jax(trees, spiking, backend,
 
 
 def test_loss_fn_refuses_pure_fsdp_and_frontend_labels():
+    """pure_fsdp waits for the mesh (item 8). Frontend positions are ported
+    since the VLM: they get label -1, so the loss is the mean over the
+    token positions alone, as the reference's."""
     tp = tlm.init_params(TCFG, device="cpu")
     b = _tbatch(_batch(0))
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         tlm.loss_fn(TCFG.replace(pure_fsdp=True), tp, b, True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tlm.loss_fn(TCFG.replace(n_frontend_tokens=4), tp,
-                    b | {"frontend": torch.zeros(2, 4, 8)}, True)
+    cfg = TCFG.replace(n_frontend_tokens=4)
+    tp["frontend_proj"] = torch.eye(TCFG.d_model, dtype=torch.bfloat16)
+    fe = torch.randn(2, 4, TCFG.d_model,
+                     generator=torch.Generator().manual_seed(0))
+    got = tlm.loss_fn(cfg, tp, b | {"frontend": fe}, True)
+    hidden = tlm.forward_hidden(cfg, tp, b["tokens"], True, frontend=fe)
+    labels = torch.cat([torch.full((2, 4), -1), b["labels"]], dim=1)
+    want = tlm.chunked_ce_loss(hidden, tp["lm_head"], labels, cfg.loss_chunk)
+    assert torch.equal(got, want)
+    jcfg = CFG.replace(n_frontend_tokens=4)
+    jp = jax.tree.map(lambda t: jnp.asarray(t.float().numpy()).astype(
+        jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32), tp)
+    jwant = jlm.loss_fn(jcfg, jp, _jbatch(_batch(0)) | {
+        "frontend": jnp.asarray(fe.numpy())}, True)
+    np.testing.assert_allclose(got.item(), float(jwant), rtol=BF16_TOL)
 
 
 # ----------------------------------------------------------------- remat
