@@ -217,10 +217,30 @@ Phases, each printed on its own line:
       encoder `sdsa`), equal to `ref`, the encoder's `sdsa` on its own
       spikes against its plain version; (o4) REDUCED_ARCHS' prefill and
       decode steps in both modes, equal to `ref`;
+  (p) the SSM configs (`models/ssm.py`): (p1) xlstm-350m uncut (24
+      layers, d 1024, 222,763,264 parameters), dense, spiking at the
+      config's lif_vth = 1.0 (silent: the first fire's spike rate printed
+      and equal on both routes) and at XLSTM_FIRING_VTH (its rate must be
+      above 0): a `prefill` of SSM_BATCH x SSM_PROMPT tokens, then
+      `prefill_chunked` over ragged lengths and XLSTM_DECODE_STEPS greedy
+      decode steps, on the kernels and on `ref`: logits and tokens equal
+      bit for bit, exactly XLSTM_LAUNCHES a prefill and a decode step
+      (none dense), the prefill's and a decode step's spans, host enqueue
+      and the scan loops' host and device time, peak memory; the fire on
+      the firing variant's first drive against its plain version; (p2) a
+      `Server` of 8 slots over it, (m)'s traffic, dense and spiking at
+      XLSTM_FIRING_VTH: clean, exact launches, tokens equal on `ref`,
+      each request alone decoding its pool tokens; (p3)
+      jamba-1.5-large-398b at full width over one period (8 layers, 7
+      Mamba and 1 attention, MLP FFNs, 8,998,805,504 parameters) as
+      (p1), JAMBA_PREFILL_LAUNCHES / JAMBA_STEP_LAUNCHES, peak under 80
+      GB, the fire on a Mamba layer's input and the causal SDSA on the
+      attention layer's spikes against their plain versions; (p4) both
+      configs' REDUCED sizes as in (o4);
   (d) one JSON line listing every kernel with its launches on the main
       paths ((c) and (h) for inference kernels, (f) for the training
       ones, (i) for the APEC ones, (j) for the packed ones, (k), (m) and
-      (o) for the LM ones, (l) adding its hybrid forwards' and APEC
+      (o) and (p) for the LM ones, (l) adding its hybrid forwards' and APEC
       calls', (n) the training fires'; the serial kernels 11, 13, 15 and
       17 by their override calls), error and times (rows 16 and 18:
       kernels 16 and 18).
@@ -2573,14 +2593,14 @@ def per_layer(values, n_layers, names=FIRE_NAMES):
             for i in range(n_layers)]
 
 
-def lif_case(torch, label, x, reps=20, plain_reps=3):
-    """The bf16 fire on a drive `x` (T, ...) against its plain version bit
-    for bit, silent where the drive is 0 at every step: the `kernel`
-    line's record (`ms` back-to-back wrapper calls, the host's enqueue
-    included; `device_ms` the kernel alone, `reps` launches in a CUDA
-    graph)."""
+def lif_case(torch, label, x, reps=20, plain_reps=3, v_th=1.0):
+    """The bf16 fire on a drive `x` (T, ...) at threshold `v_th` against
+    its plain version bit for bit, silent where the drive is 0 at every
+    step: the `kernel` line's record (`ms` back-to-back wrapper calls, the
+    host's enqueue included; `device_ms` the kernel alone, `reps` launches
+    in a CUDA graph)."""
     from repro_torch.kernels import lif_scan
-    kw = dict(decay=0.5, v_th=1.0, soft_reset=True)
+    kw = dict(decay=0.5, v_th=v_th, soft_reset=True)
     out = lif_scan.lif(x, **kw)
     want = lif_scan.lif_plain(x, **kw)
     torch.cuda.synchronize()
@@ -2737,29 +2757,32 @@ def phase_lm_prefill(torch, device, cfg, params):
     return dict(counts)
 
 
-def lm_serve(torch, cfg, params, tokens, lengths, counted=False):
-    """prefill_chunked + LM_NEW greedy decode steps at per-slot positions:
-    (generated tokens (B, 1 + LM_NEW), [launch counts of prefill_chunked,
+def lm_serve(torch, cfg, params, tokens, lengths, counted=False,
+             spiking=True, new=LM_NEW, max_seq=LM_SERVE_PAD + LM_NEW):
+    """prefill_chunked + `new` greedy decode steps at per-slot positions:
+    (generated tokens (B, 1 + new), [launch counts of prefill_chunked,
     then of each decode step] when `counted`)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import lm
     reset_launch_counts()
-    last, state = lm.prefill_chunked(cfg, params, tokens, lengths, True,
-                                     LM_SERVE_PAD + LM_NEW)
+    last, state = lm.prefill_chunked(cfg, params, tokens, lengths, spiking,
+                                     max_seq)
     chunked = [launch_counts()] if counted else []
     gen, per_step = lm_decode(torch, cfg, params, state, last.argmax(-1),
-                              lengths.clone(), counted)
+                              lengths.clone(), counted, spiking, new)
     return gen, chunked + per_step
 
 
-def lm_decode(torch, cfg, params, state, token, pos, counted=False):
+def lm_decode(torch, cfg, params, state, token, pos, counted=False,
+              spiking=True, new=LM_NEW):
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import lm
     out, per_step = [token], []
-    for _ in range(LM_NEW):
+    for _ in range(new):
         if counted:
             reset_launch_counts()
-        logits, state = lm.decode_step(cfg, params, state, token, pos, True)
+        logits, state = lm.decode_step(cfg, params, state, token, pos,
+                                       spiking)
         if counted:
             per_step.append(launch_counts())
         token = logits.argmax(-1)
@@ -4290,20 +4313,22 @@ def phase_whisper(torch, device, card):
     return {name: counts.get(name, 0) for name in O_KERNELS}
 
 
-def phase_reduced_archs(torch, device, card):
-    """(o4): REDUCED_ARCHS at their reduced sizes, both modes: a prefill
+def phase_reduced_archs(torch, device, card, archs=REDUCED_ARCHS):
+    """(o4): `archs` at their reduced sizes, both modes: a prefill
     (phi-3-vision with its stub patch embeddings) and REDUCED_DECODE_STEPS
     greedy decode steps after a chunked prefill, on the kernels and on
-    `ref`: logits equal bit for bit, the kernels launched in spiking
-    mode and never in dense mode."""
+    `ref`: logits equal bit for bit, the fire launched in spiking mode,
+    the causal SDSA exactly where the pattern has attention, and no
+    kernel in dense mode."""
     from repro_torch.configs.registry import get_reduced
     from repro_torch.data.synthetic import markov_tokens
     from repro_torch.kernels import dispatch, launch_counts, \
         reset_launch_counts
     from repro_torch.models import lm
     totals = {name: 0 for name in O_KERNELS}
-    for arch in REDUCED_ARCHS:
+    for arch in archs:
         cfg = get_reduced(arch)
+        attends = any(b.kind == "attn" for b in lm.layer_pattern(cfg)[0])
         params = lm.init_params(cfg, seed=SEED, device=device)
         tokens = torch.from_numpy(markov_tokens(SEED, 0, 0, 2, 12, cfg.vocab)
                                   [:, :12]).long().to(device)
@@ -4352,8 +4377,9 @@ def phase_reduced_archs(torch, device, card):
                   torch.equal(steps, ref_steps),
                   f"{arch} {mode}: the kernels' logits differ from ref's")
             if spiking:
-                check(counts["lif_bf16"] > 0 and counts["sdsa_causal"] > 0,
-                      f"{arch}: the LM kernels never ran ({counts})")
+                check(counts["lif_bf16"] > 0 and
+                      (counts["sdsa_causal"] > 0) == attends,
+                      f"{arch}: the LM kernels' launches {counts}")
             else:
                 check(not any(counts.values()),
                       f"{arch} dense launched {counts}")
@@ -4370,6 +4396,366 @@ def phase_archs(torch, device, card):
                      ("o2_moe_serve", phase_moe_serve),
                      ("o3_whisper", phase_whisper),
                      ("o4_reduced", phase_reduced_archs)):
+        t0 = time.perf_counter()
+        for k, n in fn(torch, device, card).items():
+            totals[k] += n
+        emit("phase_time", name=name, seconds=time.perf_counter() - t0)
+    return totals
+
+
+# ------------------------------------------------------------ phase (p)
+# The SSM families. xlstm-350m (arXiv:2405.04517: 24 layers, d 1024, 4
+# heads of 256, an sLSTM every 8th block, vocab 50304; 222,763,264
+# parameters, 0.45 GB in bf16) uncut. Spiking, each block fires its raw
+# residual once (T = 1) and has no FFN and no attention: 24 fires a
+# forward and a decode step. At the config's lif_vth = 1.0 the seeded
+# stream never fires (a reference finding); XLSTM_FIRING_VTH is the
+# variant that does.
+XLSTM_ARCH = "xlstm-350m"
+XLSTM_LAUNCHES = {"lif_bf16": 24}
+XLSTM_FIRING_VTH = 0.02
+XLSTM_DECODE_STEPS = 16
+# jamba-1.5-large-398b (arXiv:2403.19887) at its full widths over one
+# period: 8 layers, 7 Mamba and the attention layer at index 3, each with
+# its 24576-wide MLP (d 8192, d_inner 16384, d_state 16, 64 heads with 8
+# KV heads, vocab 65536; 8,998,805,504 parameters, 18.0 GB in bf16). The
+# period's 4 MoE FFNs (38.7B parameters at this width) do not fit one
+# card beside it. Spiking fires a layer: Mamba's input, ln2 and the MLP's
+# hidden drive (3); attention's input, q, k, v, ln2 and the hidden drive
+# (6); one causal SDSA a prefill.
+JAMBA_ARCH = "jamba-1.5-large-398b"
+JAMBA_LAYERS = 8
+JAMBA_PREFILL_LAUNCHES = {"lif_bf16": 7 * 3 + 6, "sdsa_causal": 1}
+JAMBA_STEP_LAUNCHES = {"lif_bf16": 7 * 3 + 6}
+JAMBA_DECODE_STEPS = 8
+SSM_BATCH, SSM_PROMPT = 8, 128
+# (p4): the two configs at their REDUCED sizes (2 layers, d 64; jamba's
+# with its 4-expert MoE), in (o4)'s manner.
+SSM_REDUCED_ARCHS = (JAMBA_ARCH, XLSTM_ARCH)
+P_KERNELS = ("lif_bf16", "sdsa_causal")
+CARD_MEMORY_BYTES = 80e9
+
+
+def jamba_period_config():
+    """jamba-1.5-large-398b over one period at full width, MLP FFNs."""
+    from repro_torch.configs.registry import get_config
+    return get_config(JAMBA_ARCH).replace(n_layers=JAMBA_LAYERS, moe=None)
+
+
+def with_vth(cfg, v_th):
+    return cfg.replace(spiking=dataclasses.replace(cfg.spiking, lif_vth=v_th))
+
+
+@contextlib.contextmanager
+def recurrence_timeline(torch):
+    """While active, each SSM scan step (`models/ssm.py`'s
+    `_mamba_scan_step`, `_mlstm_step`, `_slstm_step`) adds its host time
+    and a pair of CUDA events: the loops' share of the host's enqueue
+    and of the device span."""
+    from repro_torch.models import ssm
+    names = ("_mamba_scan_step", "_mlstm_step", "_slstm_step")
+    orig = {n: getattr(ssm, n) for n in names}
+    rec = dict(steps=0, host_s=0.0, marks=[])
+
+    def timed(fn):
+        def run(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = fn(*args)
+            stop.record()
+            rec["host_s"] += time.perf_counter() - t0
+            rec["steps"] += 1
+            rec["marks"].append((start, stop))
+            return out
+        return run
+    for n in names:
+        setattr(ssm, n, timed(orig[n]))
+    try:
+        yield rec
+    finally:
+        for n in names:
+            setattr(ssm, n, orig[n])
+
+
+def ssm_breakdown(torch, forward) -> dict:
+    """`forward_breakdown` of one call, plus its scan steps: how many,
+    their host enqueue ms and their summed device ms."""
+    with recurrence_timeline(torch) as rec:
+        out = forward_breakdown(torch, forward)
+    torch.cuda.synchronize()
+    out.update(scan_steps=rec["steps"], scan_host_ms=rec["host_s"] * 1e3,
+               scan_device_ms=sum(a.elapsed_time(b)
+                                  for a, b in rec["marks"]))
+    out["scan_host_share"] = out["scan_host_ms"] / out["host_enqueue_ms"]
+    return out
+
+
+def ssm_tokens(torch, cfg, device, seed):
+    """SSM_BATCH prompts of SSM_PROMPT `markov_tokens`, and ragged lengths
+    in (SSM_PROMPT / 2, SSM_PROMPT] for `prefill_chunked` (the tail of
+    each prompt past its length is pad)."""
+    import numpy as np
+    from repro_torch.data.synthetic import markov_tokens
+    toks = markov_tokens(seed, 0, 0, SSM_BATCH, SSM_PROMPT, cfg.vocab)
+    lengths = np.random.default_rng(seed).integers(
+        SSM_PROMPT // 2 + 1, SSM_PROMPT + 1, SSM_BATCH)
+    return (torch.from_numpy(toks[:, :SSM_PROMPT]).long().to(device),
+            torch.from_numpy(lengths).to(device))
+
+
+def ssm_mode(torch, cfg, params, tokens, lengths, spiking, steps, launches,
+             step_launches, what, card, drives=None):
+    """One mode of an SSM config on the card: a `prefill` (first and
+    again), `prefill_chunked` over the ragged lengths and `steps` greedy
+    decode steps, on the kernels (launches exact: `launches` a prefill,
+    `step_launches` a decode step and a chunked position, none in dense
+    mode)
+    and on `ref` (logits and tokens equal bit for bit); the first fire's
+    spike rate on both routes; the prefill's and a decode step's (on the
+    state after the chunked prefill) breakdowns with the scan steps' host
+    time and their device span, idle gaps included; peak memory. With `drives`
+    (name -> predicate), the first registry calls matching them are kept
+    from the first prefill. Returns (launches, first fire's spike rate,
+    kept calls)."""
+    from repro_torch.kernels import dispatch, launch_counts, \
+        reset_launch_counts
+    from repro_torch.models import lm
+    mode = "spiking" if spiking else "dense"
+    per_step = step_launches if spiking else {}
+    pad = tokens.shape[1]
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with capture_fires(torch, dispatch) as fires, \
+                first_calls(dispatch, drives or {}) as kept:
+            logits = lm.prefill(cfg, params, tokens, spiking)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = launch_counts()
+        lm_launch_check(counts, launches if spiking else {},
+                        f"{what} {mode} prefill")
+        check(tuple(logits.shape) == (tokens.shape[0], cfg.vocab) and
+              bool(torch.isfinite(logits).all()),
+              f"{what} {mode}: prefill logits not finite")
+        t0 = time.perf_counter()
+        again = lm.prefill(cfg, params, tokens, spiking)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(torch.equal(again, logits),
+              f"{what} {mode}: prefill does not repeat bit for bit")
+        reset_launch_counts()
+        last, state = lm.prefill_chunked(cfg, params, tokens, lengths,
+                                         spiking, pad + steps)
+        served = [launch_counts()]
+        gen, per = lm_decode(torch, cfg, params, state, last.argmax(-1),
+                             lengths.clone(), True, spiking, steps)
+        lm_launch_check(served[0], {k: v * pad for k, v in per_step.items()},
+                        f"{what} {mode} prefill_chunked")
+        for c in per:
+            lm_launch_check(c, per_step, f"{what} {mode} decode step")
+        for c in served + per:
+            counts = {k: counts[k] + c[k] for k in counts}
+        t0 = time.perf_counter()
+        with dispatch.use_backend(dispatch.REF), \
+                capture_fires(torch, dispatch) as ref_fires:
+            ref_logits = lm.prefill(cfg, params, tokens, spiking)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        with dispatch.use_backend(dispatch.REF):
+            ref_gen, _ = lm_serve(torch, cfg, params, tokens, lengths, False,
+                                  spiking, steps, pad + steps)
+        torch.cuda.synchronize()
+    rate = fires[0].float().mean().item() if fires else None
+    ref_rate = ref_fires[0].float().mean().item() if ref_fires else None
+    emit("ssm_prefill", card=card, arch=cfg.name, mode=mode,
+         layers=cfg.n_layers, d_model=cfg.d_model, lif_vth=cfg.spiking.lif_vth
+         if spiking else None, batch=tokens.shape[0], tokens=pad,
+         first_prefill_s=first_s, kernel_prefill_s=kernel_s,
+         ref_prefill_s=ref_s, peak_bytes=peak,
+         launches={k: n for k, n in counts.items() if n},
+         first_fire_spike_rate=rate, ref_first_fire_spike_rate=ref_rate,
+         spike_rates=[f.float().mean().item() for f in fires],
+         logits_equal_ref=bool(torch.equal(logits, ref_logits)),
+         tokens_equal_ref=bool(torch.equal(gen, ref_gen)),
+         prompt_lengths=lengths.tolist(), decode_steps=steps,
+         served=gen.tolist())
+    check(torch.equal(logits, ref_logits),
+          f"{what} {mode}: the kernels' prefill logits differ from ref's by "
+          f"{(logits - ref_logits).abs().max().item()}")
+    check(torch.equal(gen, ref_gen),
+          f"{what} {mode}: the kernels' served tokens differ from ref's")
+    check(rate == ref_rate, f"{what} {mode}: first fire's spike rate "
+          f"{rate} on the kernels, {ref_rate} on ref")
+    if spiking:
+        check(counts["lif_bf16"] > 0, f"{what}: the fire kernel never ran")
+    else:
+        check(not any(counts.values()), f"{what} dense launched {counts}")
+    del fires, ref_fires
+    emit("ssm_prefill_breakdown", card=card, arch=cfg.name, mode=mode,
+         **ssm_breakdown(torch, lambda: lm.prefill(cfg, params, tokens,
+                                                   spiking)))
+    pos = lengths.clone()
+    emit("ssm_decode_breakdown", card=card, arch=cfg.name, mode=mode,
+         **ssm_breakdown(torch, lambda: lm.decode_step(
+             cfg, params, state, last.argmax(-1), pos, spiking)))
+    return counts, rate, kept
+
+
+def phase_xlstm(torch, device, card):
+    """(p1): xlstm-350m uncut, dense, spiking at lif_vth = 1.0 (silent:
+    its first fire's rate is printed and must agree between the routes)
+    and spiking at XLSTM_FIRING_VTH (must fire); the bf16 fire on that
+    variant's first drive against its plain version. Returns the
+    launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    cfg = get_config(XLSTM_ARCH)
+    free_card(torch)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=SEED, device=device)
+    torch.cuda.synchronize()
+    emit("ssm_setup", card=card, arch=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, params=lm.param_count(cfg),
+         param_bytes=sum(t.numel() * t.element_size()
+                         for t in adamw.leaves(params)),
+         init_s=time.perf_counter() - t0)
+    tokens, lengths = ssm_tokens(torch, cfg, device, SEED + 8)
+    totals = {name: 0 for name in P_KERNELS}
+    fire = {"fire": lambda op, a: op == "lif_scan"}
+    for mode_cfg, spiking in ((cfg, False), (cfg, True),
+                              (with_vth(cfg, XLSTM_FIRING_VTH), True)):
+        counts, rate, kept = ssm_mode(
+            torch, mode_cfg, params, tokens, lengths, spiking,
+            XLSTM_DECODE_STEPS, XLSTM_LAUNCHES, XLSTM_LAUNCHES, "xlstm-350m",
+            card, drives=fire)
+        if spiking and mode_cfg.spiking.lif_vth == XLSTM_FIRING_VTH:
+            check(rate > 0, f"xlstm-350m at lif_vth {XLSTM_FIRING_VTH}: "
+                  f"the first fire is silent")
+            lif_case(torch, "xlstm_first_fire", kept["fire"][0],
+                     v_th=XLSTM_FIRING_VTH)
+        for name in totals:
+            totals[name] += counts.get(name, 0)
+    del params
+    free_card(torch)
+    return totals
+
+
+def phase_xlstm_serve(torch, device, card):
+    """(p2): a `Server` of SERVE_SLOTS slots over full-width xlstm-350m,
+    dense and spiking at XLSTM_FIRING_VTH: (m)'s traffic clean on the
+    kernels (exact launches), its tokens equal on `ref`, and every
+    request served alone in an 8-slot server decoding its pool tokens.
+    Returns the launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import dispatch
+    base = get_config(XLSTM_ARCH)
+    traffic = serve_requests(base)
+    totals = {name: 0 for name in P_KERNELS}
+    for cfg, spiking in ((base, False),
+                         (with_vth(base, XLSTM_FIRING_VTH), True)):
+        mode = "spiking" if spiking else "dense"
+        server, reqs, log, wall, counts = serve_run(torch, cfg, spiking,
+                                                    device, traffic)
+        clean_run_checks(server, reqs, log, counts, spiking,
+                         f"xlstm {mode}", per_step=XLSTM_LAUNCHES)
+        tokens = [r.generated for r in reqs]
+        del server
+        _, ref_reqs, _, _, _ = serve_run(torch, cfg, spiking, device,
+                                         traffic, backend=dispatch.REF)
+        solo = []
+        for i in range(len(reqs)):
+            s, (r,), slog, _, scounts = serve_run(torch, cfg, spiking,
+                                                  device, traffic, only=(i,))
+            clean_run_checks(s, [r], slog, scounts, spiking,
+                             f"xlstm {mode} solo {i}",
+                             per_step=XLSTM_LAUNCHES)
+            solo.append(r.generated)
+            counts = {k: counts[k] + scounts[k] for k in counts}
+        free_card(torch)
+        new_tokens = sum(len(t) for t in tokens)
+        emit("ssm_serve", card=card, arch=cfg.name, mode=mode,
+             lif_vth=cfg.spiking.lif_vth if spiking else None,
+             slots=SERVE_SLOTS, requests=len(reqs),
+             prompt_lengths=[len(r.prompt) for r in reqs],
+             new_tokens=new_tokens, wall_s=wall,
+             tokens_per_s=new_tokens / wall, **spans(log),
+             launches={k: n for k, n in counts.items() if n},
+             tokens_equal_ref=[r.generated for r in ref_reqs] == tokens,
+             solo_equal_pool=[a == b for a, b in zip(solo, tokens)],
+             tokens=tokens)
+        check([r.generated for r in ref_reqs] == tokens,
+              f"xlstm serve {mode}: the kernels' tokens differ from ref's")
+        for i, (a, b) in enumerate(zip(solo, tokens)):
+            check(a == b, f"xlstm serve {mode}: request {i} alone decodes "
+                  f"other tokens than in the pool")
+        for name in totals:
+            totals[name] += counts.get(name, 0)
+    return totals
+
+
+def phase_jamba(torch, device, card):
+    """(p3): jamba-1.5-large-398b at full width over one period, dense and
+    spiking (`ssm_mode`), peak memory under the card's 80 GB; the bf16
+    fire on a Mamba layer's input drive and the causal SDSA on the
+    attention layer's spikes against their plain versions. Returns the
+    launches."""
+    from repro_torch.kernels import sdsa_kernel
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    cfg = jamba_period_config()
+    resident = free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=SEED, device=device)
+    torch.cuda.synchronize()
+    emit("ssm_setup", card=card, arch=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, d_inner=cfg.hybrid.expand * cfg.d_model,
+         d_state=cfg.hybrid.d_state, params=lm.param_count(cfg),
+         param_bytes=sum(t.numel() * t.element_size()
+                         for t in adamw.leaves(params)),
+         init_s=time.perf_counter() - t0, resident_before_bytes=resident,
+         init_peak_bytes=torch.cuda.max_memory_allocated())
+    tokens, lengths = ssm_tokens(torch, cfg, device, SEED + 9)
+    totals = {name: 0 for name in P_KERNELS}
+    keys = {"mamba_in": lambda op, a: op == "lif_scan",
+            "sdsa": lambda op, a: op == "causal_sdsa"}
+    for spiking in (False, True):
+        counts, _, kept = ssm_mode(
+            torch, cfg, params, tokens, lengths, spiking,
+            JAMBA_DECODE_STEPS, JAMBA_PREFILL_LAUNCHES, JAMBA_STEP_LAUNCHES,
+            "jamba period", card, drives=keys)
+        for name in totals:
+            totals[name] += counts.get(name, 0)
+    peak = torch.cuda.max_memory_allocated()
+    check(peak < CARD_MEMORY_BYTES,
+          f"jamba period: peak {peak} bytes is not under the card's")
+    lif_case(torch, "jamba_mamba_input", kept["mamba_in"][0])
+    q, k, v = kept["sdsa"][:3]
+    kv = ((k != 0) & (v != 0)).any(0).to(torch.bfloat16)
+    sdsa_spike_case(torch, "sdsa_causal", "jamba_prefill",
+                    sdsa_kernel.causal_sdsa_spikes,
+                    sdsa_kernel.causal_sdsa_spikes_plain, (q, k, v),
+                    library=lambda: torch.cummax(kv, dim=-2))
+    del params, kept, q, k, v, kv
+    free_card(torch)
+    return totals
+
+
+def phase_ssm(torch, device, card):
+    """Phase (p): the SSM families on the card. Returns the LM kernels'
+    launches."""
+    totals = {name: 0 for name in O_KERNELS}
+    for name, fn in (("p1_xlstm", phase_xlstm),
+                     ("p2_xlstm_serve", phase_xlstm_serve),
+                     ("p3_jamba", phase_jamba),
+                     ("p4_reduced", functools.partial(
+                         phase_reduced_archs, archs=SSM_REDUCED_ARCHS))):
         t0 = time.perf_counter()
         for k, n in fn(torch, device, card).items():
             totals[k] += n
@@ -4446,6 +4832,10 @@ def main() -> int:
     # non-causal SDSA (rows 7-8).
     for name, n in timed("o_archs", phase_archs, torch, device,
                          card).items():
+        totals[name] = totals.get(name, 0) + n
+    # The SSM configs launch the bf16 fire (row 1's bf16 line) and, in
+    # jamba's attention layer, the causal SDSA (row 9).
+    for name, n in timed("p_ssm", phase_ssm, torch, device, card).items():
         totals[name] = totals.get(name, 0) + n
     emit("phase_time", name="total", seconds=time.perf_counter() - t_start)
     kernels = []

@@ -10,19 +10,34 @@ a `repro` tree across unchanged. Every decode-state leaf is
 ``(n_groups, B, ...)``: the slot batch is axis 1, which the slot-state
 surgery of the serve loop indexes.
 
-Ported: the attention family in both modes, that is every pattern of
-attention blocks with an MLP or MoE FFN (`moe_every` / `moe_offset`
-place the MoE layers), qk-norm and sliding windows, the encoder-decoder
-(whisper: a non-causal encoder over stub frame embeddings, per-layer
-cross-attention to its output) and the VLM's stub patch embeddings
-prepended to the decoder stream. Spiking (`spiking=True`, the paper's
-technique): every matmul sees LIF-fired binary activations, attention is
-SDSA (O(N) prefill through the causal prefix-OR, the encoder's
-non-causal OR over all tokens, O(d) decode state) and the hidden state
-is rate-decoded (mean over the T micro-steps of a leading T axis). Dense
-(`spiking=False`, the ANN baseline): softmax GQA with RoPE and a KV
-cache, a SwiGLU MLP, no T axis. Not ported yet, and refused with their
-ROADMAP item: the hybrid (Mamba) and xLSTM blocks (`models/ssm.py`).
+Ported: every config of the registry in both modes. The attention
+family: patterns of attention blocks with an MLP or MoE FFN (`moe_every`
+/ `moe_offset` place the MoE layers), qk-norm and sliding windows, the
+encoder-decoder (whisper: a non-causal encoder over stub frame
+embeddings, per-layer cross-attention to its output) and the VLM's stub
+patch embeddings prepended to the decoder stream. The SSM families
+(`models/ssm.py`): jamba's hybrid, Mamba blocks with one attention block
+a period, and xLSTM's mLSTM blocks with one sLSTM a period and no FFN.
+Spiking (`spiking=True`, the paper's technique): every matmul sees
+LIF-fired binary activations, attention is SDSA (O(N) prefill through
+the causal prefix-OR, the encoder's non-causal OR over all tokens, O(d)
+decode state), the SSM recurrences carry their O(d * d_state) state, and
+the hidden state is rate-decoded (mean over the T micro-steps of a
+leading T axis). Dense (`spiking=False`, the ANN baseline): softmax GQA
+with RoPE and a KV cache, a SwiGLU MLP, no T axis.
+
+Three reference findings the port keeps, as the reference computes them:
+  * spiking xLSTM fires the raw residual, with no norm before the fire,
+    against `lif_vth = 1.0`; the seeded embeddings (std 0.018) never
+    reach it, so every block returns its zero spikes plus a product of
+    zeros and the hidden state is all zeros (a lower `lif_vth`, such as
+    0.02, fires);
+  * an sLSTM block draws an `ln2` and a 4d/3-wide `mlp` that its "none"
+    FFN never applies (12,582,912 of xlstm-350m's 222,763,264
+    parameters);
+  * spiking mLSTM and sLSTM blocks replace the residual stream with
+    their output, the fired spikes plus the block's product
+    (`mlstm_apply` / `slstm_apply` add their own input).
 
 As in the reference, decoding never fills an encoder-decoder's cross
 state: `init_state` makes the cross-attention K / V (dense) or status
@@ -48,11 +63,11 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import LMConfig
 from repro_torch.core.lif import LIFConfig
 from . import moe as moe_lib
+from . import ssm
 from . import transformer as tfm
 from .layers import (dense_init, embed_init, lif_fire, mlp_apply, mlp_init,
                      rmsnorm, rmsnorm_init)
 
-CONFIG_ITEM = "ROADMAP queue 1 item 5 (SSM)"
 MESH_ITEM = moe_lib.MESH_ITEM
 
 
@@ -63,29 +78,37 @@ class BlockSpec(NamedTuple):
 
 
 def layer_pattern(cfg: LMConfig) -> Tuple[List[BlockSpec], int]:
-    """(pattern, n_groups) with n_layers == len(pattern) * n_groups: one
-    attention block per layer, its FFN an MoE where ``layer %
-    moe.moe_every == moe.moe_offset`` and an MLP elsewhere, the pattern
-    `moe_every` layers long. The hybrid (Mamba) and xLSTM patterns are
-    not ported yet."""
-    for field, what in (("xlstm", "xLSTM"), ("hybrid", "hybrid (Mamba)")):
-        if getattr(cfg, field) is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: {what} blocks are not ported yet "
-                f"({CONFIG_ITEM})")
+    """(pattern, n_groups) with n_layers == len(pattern) * n_groups.
 
-    def ffn_kind(layer_idx: int) -> str:
-        if cfg.moe is None:
-            return "mlp"
-        return "moe" if layer_idx % cfg.moe.moe_every == cfg.moe.moe_offset \
-            else "mlp"
+    xLSTM: `xlstm.period` blocks, the one at `slstm_index` an sLSTM and
+    the rest mLSTM, none with an FFN. Hybrid (jamba): `hybrid.period`
+    blocks, the one at `attn_index` attention and the rest Mamba. Else
+    one attention block per layer, the pattern `moe_every` layers long.
+    Outside xLSTM a layer's FFN is an MoE where ``layer % moe.moe_every
+    == moe.moe_offset`` and an MLP elsewhere."""
+    if cfg.xlstm is not None:
+        period = cfg.xlstm.period
+        pat = [BlockSpec("slstm" if i == cfg.xlstm.slstm_index else "mlstm",
+                         "none") for i in range(period)]
+    else:
+        def ffn_kind(layer_idx: int) -> str:
+            if cfg.moe is None:
+                return "mlp"
+            return "moe" if layer_idx % cfg.moe.moe_every == \
+                cfg.moe.moe_offset else "mlp"
 
-    period = cfg.moe.moe_every if cfg.moe is not None else 1
+        if cfg.hybrid is not None:
+            period = cfg.hybrid.period
+            pat = [BlockSpec("attn" if i == cfg.hybrid.attn_index
+                             else "mamba", ffn_kind(i))
+                   for i in range(period)]
+        else:
+            period = cfg.moe.moe_every if cfg.moe is not None else 1
+            pat = [BlockSpec("attn", ffn_kind(i)) for i in range(period)]
     if cfg.n_layers % period:
         raise ValueError(f"{cfg.name}: {cfg.n_layers} layers is not a "
                          f"multiple of the pattern's {period}")
-    return [BlockSpec("attn", ffn_kind(i)) for i in range(period)], \
-        cfg.n_layers // period
+    return pat, cfg.n_layers // period
 
 
 def lif_cfg_of(cfg: LMConfig) -> LIFConfig:
@@ -148,22 +171,41 @@ def _stack(trees: list):
 # ------------------------------------------------------------------- init
 def _block_init(cfg: LMConfig, spec: BlockSpec, generator: torch.Generator,
                 device, cross: bool) -> dict:
+    """One layer's params, `repro`'s tree: `ln1` before attention and
+    Mamba only (mLSTM and sLSTM norm their input themselves); an sLSTM
+    block also carries the reference's `ln2` and a 4d/3-wide `mlp` that
+    its "none" FFN never applies (a reference finding, kept so the trees
+    and parameter counts match)."""
     kw = dict(generator=generator, device=device)
-    p = {"ln1": rmsnorm_init(cfg.d_model, device),
-         "attn": tfm.attn_init(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                               cfg.head_dim, cfg.qk_norm, **kw)}
-    if cross:
+    p = {}
+    if spec.kind == "attn":
+        p["ln1"] = rmsnorm_init(cfg.d_model, device)
+        p["attn"] = tfm.attn_init(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                  cfg.head_dim, cfg.qk_norm, **kw)
+    elif spec.kind == "mamba":
+        hy = cfg.hybrid
+        p["ln1"] = rmsnorm_init(cfg.d_model, device)
+        p["mamba"] = ssm.mamba_init(cfg.d_model, hy.d_state, hy.d_conv,
+                                    hy.expand, **kw)
+    elif spec.kind == "mlstm":
+        p["mlstm"] = ssm.mlstm_init(cfg.d_model, cfg.n_heads, **kw)
+    elif spec.kind == "slstm":
+        p["slstm"] = ssm.slstm_init(cfg.d_model, cfg.n_heads, **kw)
+        p["ln2"] = rmsnorm_init(cfg.d_model, device)
+        p["mlp"] = mlp_init(cfg.d_model, (4 * cfg.d_model) // 3, **kw)
+    if cross and spec.kind == "attn":
         p["cross_ln"] = rmsnorm_init(cfg.d_model, device)
         p["cross_attn"] = tfm.attn_init(cfg.d_model, cfg.n_heads,
                                         cfg.n_kv_heads, cfg.head_dim, False,
                                         **kw)
-    p["ln2"] = rmsnorm_init(cfg.d_model, device)
-    if spec.ffn == "moe":
+    if spec.ffn == "mlp":
+        p["ln2"] = rmsnorm_init(cfg.d_model, device)
+        p["mlp"] = mlp_init(cfg.d_model, cfg.d_ff, **kw)
+    elif spec.ffn == "moe":
         m = cfg.moe
+        p["ln2"] = rmsnorm_init(cfg.d_model, device)
         p["moe"] = moe_lib.moe_init(cfg.d_model, m.d_ff_expert, m.n_experts,
                                     m.n_shared, bank_size=m.bank_size, **kw)
-    else:
-        p["mlp"] = mlp_init(cfg.d_model, cfg.d_ff, **kw)
     return p
 
 
@@ -260,23 +302,53 @@ def _apply_block(cfg: LMConfig, spec: BlockSpec, p: dict, x: torch.Tensor,
                  spiking: bool, *, causal: bool = True,
                  enc_kv: Optional[tuple] = None) -> torch.Tensor:
     """Full-sequence block. x: (T, B, N, D) spiking / (B, N, D) dense;
-    `enc_kv` this layer's cross-attention K / V of the encoder output."""
+    `enc_kv` this layer's cross-attention K / V of the encoder output.
+
+    Spiking SSM blocks run their recurrence once per micro-step on the
+    fired input (the reference's `jax.vmap` over T). Mamba adds its output
+    to the residual; mLSTM and sLSTM fire the raw residual (no norm
+    before the fire) and their output, the spikes plus the block's
+    product, replaces the stream (`mlstm_apply` / `slstm_apply` add their
+    own input): both as the reference does."""
     lif = lif_cfg_of(cfg)
-    if spiking:
-        s = lif_fire(rmsnorm(p["ln1"], x), lif)
-        a = tfm.attention_sdsa(
-            p["attn"], s, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-            d_head=cfg.head_dim, lif_cfg=lif, mode=cfg.spiking.sdsa_mode,
-            causal=causal)
+    if spec.kind == "attn":
+        if spiking:
+            s = lif_fire(rmsnorm(p["ln1"], x), lif)
+            a = tfm.attention_sdsa(
+                p["attn"], s, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                d_head=cfg.head_dim, lif_cfg=lif,
+                mode=cfg.spiking.sdsa_mode, causal=causal)
+        else:
+            a = tfm.attention_dense(
+                p["attn"], rmsnorm(p["ln1"], x), n_heads=cfg.n_heads,
+                n_kv=cfg.n_kv_heads, d_head=cfg.head_dim, causal=causal,
+                window=cfg.sliding_window, qk_norm=cfg.qk_norm,
+                rope_theta=cfg.rope_theta)
+        x = x + a
+        if enc_kv is not None and "cross_attn" in p:
+            x = x + _cross_attn_full(cfg, p, x, enc_kv, spiking)
+    elif spec.kind == "mamba":
+        hy = cfg.hybrid
+        h = rmsnorm(p["ln1"], x)
+        if spiking:
+            s = lif_fire(h, lif)
+            out = torch.stack([ssm.mamba_apply(p["mamba"], st, None,
+                                               hy.d_state, hy.d_conv)[0]
+                               for st in s])
+        else:
+            out, _ = ssm.mamba_apply(p["mamba"], h, None, hy.d_state,
+                                     hy.d_conv)
+        x = x + out
     else:
-        a = tfm.attention_dense(
-            p["attn"], rmsnorm(p["ln1"], x), n_heads=cfg.n_heads,
-            n_kv=cfg.n_kv_heads, d_head=cfg.head_dim, causal=causal,
-            window=cfg.sliding_window, qk_norm=cfg.qk_norm,
-            rope_theta=cfg.rope_theta)
-    x = x + a
-    if enc_kv is not None and "cross_attn" in p:
-        x = x + _cross_attn_full(cfg, p, x, enc_kv, spiking)
+        apply = getattr(ssm, f"{spec.kind}_apply")
+        if spiking:
+            s = lif_fire(x, lif)
+            x = torch.stack([apply(p[spec.kind], st, cfg.n_heads)[0]
+                             for st in s])
+        else:
+            x, _ = apply(p[spec.kind], x, cfg.n_heads)
+    if spec.ffn == "none":
+        return x
     return _ffn(cfg, spec, p, x, spiking)
 
 
@@ -518,22 +590,33 @@ class LayerState(NamedTuple):
 def init_state(cfg: LMConfig, spec: BlockSpec, b: int, s: int,
                spiking: bool, n_groups: int, device="cuda") -> LayerState:
     """Stacked (n_groups, b, ...) decode state for one pattern position:
-    the SDSA statuses when spiking, else a KV cache of capacity `s`; an
-    encoder-decoder adds its cross state, zeros (the reference never
-    fills it)."""
-    del spec
-
+    an attention block's SDSA statuses when spiking, else its KV cache of
+    capacity `s`; an SSM block's recurrent state (in both modes); an
+    encoder-decoder's attention blocks add their cross state, zeros (the
+    reference never fills it)."""
     def stack(tree):
         return _tree_map(lambda x: x[None].expand(
             (n_groups,) + tuple(x.shape)).contiguous(), tree)
     dev = resolve_device(device)
-    if spiking:
-        st = LayerState(sdsa=stack(tfm.sdsa_state_init(
-            b, cfg.n_heads, cfg.head_dim, device=dev)))
-    else:
-        st = LayerState(kv=stack(tfm.kv_cache_init(
-            b, s, cfg.n_kv_heads, cfg.head_dim, device=dev)))
-    if cfg.encoder_decoder:
+    st = LayerState()
+    if spec.kind == "attn":
+        if spiking:
+            st = st._replace(sdsa=stack(tfm.sdsa_state_init(
+                b, cfg.n_heads, cfg.head_dim, device=dev)))
+        else:
+            st = st._replace(kv=stack(tfm.kv_cache_init(
+                b, s, cfg.n_kv_heads, cfg.head_dim, device=dev)))
+    elif spec.kind == "mamba":
+        hy = cfg.hybrid
+        st = st._replace(mamba=stack(ssm.mamba_state_init(
+            b, cfg.d_model, hy.d_state, hy.d_conv, hy.expand, device=dev)))
+    elif spec.kind == "mlstm":
+        st = st._replace(mlstm=stack(ssm.mlstm_state_init(
+            b, cfg.d_model, cfg.n_heads, device=dev)))
+    elif spec.kind == "slstm":
+        st = st._replace(slstm=stack(ssm.slstm_state_init(
+            b, cfg.d_model, device=dev)))
+    if cfg.encoder_decoder and spec.kind == "attn":
         if spiking:
             st = st._replace(cross_status=stack(torch.zeros(
                 (b, cfg.n_heads, cfg.head_dim), dtype=torch.bfloat16,
@@ -557,8 +640,39 @@ def init_decode_state(cfg: LMConfig, b: int, s: int, spiking: bool,
 
 
 def _apply_block_decode(cfg, spec, p, st: LayerState, x, pos, spiking):
+    """One layer of a decode step. x: (T, B, D) spiking / (B, D) dense.
+    A spiking SSM block steps its recurrence once on the fired input's
+    mean over T and broadcasts its output back over T (the reference's
+    decode; its full-sequence form runs each micro-step)."""
     lif = lif_cfg_of(cfg)
-    if spiking:                        # SDSA decode is position-free
+    if spec.kind == "attn":
+        x, st = _attn_decode(cfg, p, st, x, pos, spiking)
+    elif spec.kind == "mamba":
+        h = rmsnorm(p["ln1"], x)
+        if spiking:
+            h = _rate_decode(lif_fire(h, lif))
+        out, new_m = ssm.mamba_apply(p["mamba"], h[:, None, :], st.mamba,
+                                     cfg.hybrid.d_state, cfg.hybrid.d_conv)
+        x = x + out[:, 0, :].expand(x.shape)
+        st = st._replace(mamba=new_m)
+    else:
+        apply = getattr(ssm, f"{spec.kind}_apply")
+        h = _rate_decode(lif_fire(x, lif)) if spiking else x
+        out, new_s = apply(p[spec.kind], h[:, None, :], cfg.n_heads,
+                           getattr(st, spec.kind))
+        x = out[:, 0, :].expand(x.shape)
+        st = st._replace(**{spec.kind: new_s})
+    if spec.ffn == "none":
+        return x, st
+    return _ffn(cfg, spec, p, x, spiking, decode=True), st
+
+
+def _attn_decode(cfg, p, st: LayerState, x, pos, spiking):
+    """An attention block's decode: SDSA on its O(d) status when spiking
+    (position-free), else dense GQA on the KV cache at `pos`; then the
+    encoder-decoder's cross-attention."""
+    lif = lif_cfg_of(cfg)
+    if spiking:
         s = lif_fire(rmsnorm(p["ln1"], x), lif)              # (T, B, D)
         a, new_sdsa = tfm.attention_sdsa_decode(
             p["attn"], s, st.sdsa, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
@@ -573,19 +687,19 @@ def _apply_block_decode(cfg, spec, p, st: LayerState, x, pos, spiking):
             out = lif_fire(qh, lif) * st.cross_status[None].to(q.dtype)
             out = out.reshape(tuple(q.shape[:-1]) + (-1,))
             x = x + out @ pa["w_o"].to(x.dtype)
-    else:
-        a, new_kv = tfm.attention_dense_decode(
-            p["attn"], rmsnorm(p["ln1"], x), st.kv, pos,
-            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
-            window=cfg.sliding_window, qk_norm=cfg.qk_norm,
-            rope_theta=cfg.rope_theta,
-            masked_cache_update=cfg.decode_masked_update)
-        x = x + a
-        st = st._replace(kv=new_kv)
-        if st.cross_kv is not None:
-            x = x + _cross_attn_full(cfg, p, x[:, None, :], st.cross_kv,
-                                     False)[:, 0, :]
-    return _ffn(cfg, spec, p, x, spiking, decode=True), st
+        return x, st
+    a, new_kv = tfm.attention_dense_decode(
+        p["attn"], rmsnorm(p["ln1"], x), st.kv, pos,
+        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
+        window=cfg.sliding_window, qk_norm=cfg.qk_norm,
+        rope_theta=cfg.rope_theta,
+        masked_cache_update=cfg.decode_masked_update)
+    x = x + a
+    st = st._replace(kv=new_kv)
+    if st.cross_kv is not None:
+        x = x + _cross_attn_full(cfg, p, x[:, None, :], st.cross_kv,
+                                 False)[:, 0, :]
+    return x, st
 
 
 def decode_step(cfg: LMConfig, params: dict, state: list,

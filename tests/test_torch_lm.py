@@ -107,14 +107,31 @@ def test_configs_registry_and_data_match_repro():
 
 
 def test_unported_configs_and_modes_raise_with_their_roadmap_items():
-    """The attention family builds; the SSM blocks (jamba's Mamba, xLSTM)
-    wait for queue 1 item 5's second half."""
+    """Every config's layer pattern builds as the reference's: the
+    attention family, jamba's Mamba / attention hybrid and xLSTM's mLSTM /
+    sLSTM blocks (full and reduced). What is still unported raises naming
+    its ROADMAP item: `pure_fsdp`'s per-layer gather of a sharded mesh
+    (item 8)."""
     pattern, n = tlm.layer_pattern(treg.get_reduced("qwen2-moe-a2.7b"))
     assert [tuple(b) for b in pattern] == [("attn", "moe")] and n == 2
     for arch in ("jamba-1.5-large-398b", "xlstm-350m"):
-        with pytest.raises(NotImplementedError,
-                           match=r"queue 1 item 5 \(SSM\)"):
-            tlm.layer_pattern(treg.get_reduced(arch))
+        for get in ("get_config", "get_reduced"):
+            tpat, tn = tlm.layer_pattern(getattr(treg, get)(arch))
+            jpat, jn = jlm.layer_pattern(getattr(jreg, get)(arch))
+            assert [tuple(b) for b in tpat] == [tuple(b) for b in jpat]
+            assert tn == jn
+    full, _ = tlm.layer_pattern(treg.get_config("xlstm-350m"))
+    assert [b.kind for b in full] == ["mlstm"] * 7 + ["slstm"]
+    assert {b.ffn for b in full} == {"none"}
+    full, _ = tlm.layer_pattern(treg.get_config("jamba-1.5-large-398b"))
+    assert [b.kind for b in full] == ["mamba"] * 3 + ["attn"] + \
+        ["mamba"] * 4
+    assert [b.ffn for b in full] == ["moe", "mlp"] * 4
+    cfg = TCFG.replace(pure_fsdp=True)
+    tp = tlm.init_params(TCFG, seed=0, device="cpu")
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match=r"queue 1 item 8"):
+        tlm.loss_fn(cfg, tp, {"tokens": toks, "labels": toks}, True)
 
 
 def test_init_params_defaults_to_cuda_and_matches_repro_tree(jparams):

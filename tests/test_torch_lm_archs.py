@@ -1,10 +1,13 @@
-"""The attention-family LM architectures in repro_torch against the JAX
-package, on the CPU: qwen2-moe-a2.7b and mixtral-8x22b (MoE FFNs),
-qwen3-4b (qk-norm, decoupled head dim), internlm2-20b, mistral-large-123b,
-phi-3-vision-4.2b (stub patch embeddings prepended) and whisper-medium
-(an encoder over stub frame embeddings, cross-attention in every decoder
-layer), each at its `REDUCED` size, and variants of reduced qwen2-moe
-(MoE on every other layer, two dispatch groups, the shard-map route).
+"""The LM architectures in repro_torch against the JAX package, on the
+CPU: qwen2-moe-a2.7b and mixtral-8x22b (MoE FFNs), qwen3-4b (qk-norm,
+decoupled head dim), internlm2-20b, mistral-large-123b, phi-3-vision-4.2b
+(stub patch embeddings prepended) and whisper-medium (an encoder over
+stub frame embeddings, cross-attention in every decoder layer), each at
+its `REDUCED` size, and variants of reduced qwen2-moe (MoE on every other
+layer, two dispatch groups, the shard-map route); the SSM configs,
+xlstm-350m (mLSTM and sLSTM blocks) and jamba-1.5-large-398b (Mamba and
+attention, MoE FFNs), reduced, and reduced jamba with MLP FFNs only
+("jamba-no-moe").
 
 Params are the reference's `init_params`, moved through
 `params_from_numpy`; tokens and frontend embeddings are numpy, from a
@@ -16,7 +19,12 @@ Tolerances:
     callers run it): hidden states, logits and losses within 1e-5 of
     max|ref|, every gradient leaf within 1e-5 * max|leaf| + 1e-7, the
     spiking decode statuses exact, the dense KV caches (bf16 in both
-    packages) within one bf16 rounding (2^-8 of max|ref|);
+    packages) within one bf16 rounding (2^-8 of max|ref|). The SSM
+    configs' hidden states, logits and f32 recurrent states within 2^-8
+    of max|ref| (SSM_F32_TOL): each scan step rounds its output to bf16
+    whatever the params' dtype (`repro/models/ssm.py:68`, `:155`, `:241`),
+    so a one-ulp f32 difference in a reduction's order can move a whole
+    bf16 step, which later layers read (`tests/test_torch_ssm.py`);
   * bf16 (the configs' dtypes): against the reference run op by op
     (`jax.disable_jit()`), spiking bit for bit, dense within BF16_TOL of
     max|ref| (XLA and oneDNN sum a bf16 product's f32 terms in other
@@ -49,10 +57,12 @@ from repro_torch.models.layers import params_from_numpy
 
 torch.set_num_threads(2)
 F32_TOL = 1e-5
+SSM_F32_TOL = 2.0 ** -8
 BF16_TOL = 2e-2
 ARCHS = ("qwen2-moe-a2.7b", "mixtral-8x22b", "qwen3-4b", "internlm2-20b",
          "mistral-large-123b", "phi-3-vision-4.2b", "whisper-medium")
 SSM_ARCHS = ("jamba-1.5-large-398b", "xlstm-350m")
+SSM_NAMES = SSM_ARCHS + ("jamba-no-moe",)
 _MOE_RED = jreg.get_reduced("qwen2-moe-a2.7b")
 # Reduced qwen2-moe variants: MoE on layers 1, 3 (an [mlp, moe] pattern),
 # two dispatch groups, the shard-map MoE route (no mesh).
@@ -66,7 +76,11 @@ VARIANTS = {
 
 
 def _cfgs(name):
-    """(repro config, port config) of an arch id or a VARIANTS name."""
+    """(repro config, port config) of an arch id, a VARIANTS name or
+    "jamba-no-moe"."""
+    if name == "jamba-no-moe":
+        return (jreg.get_reduced(SSM_ARCHS[0]).replace(moe=None),
+                treg.get_reduced(SSM_ARCHS[0]).replace(moe=None))
     if name in VARIANTS:
         kw = dict(VARIANTS[name])
         moe = kw.pop("moe", None)
@@ -121,6 +135,10 @@ def _inputs(jc, tag, batch=2, seq=12, seed=0):
     return host, jb, tb
 
 
+def _f32_tol(name):
+    return SSM_F32_TOL if name in SSM_NAMES else F32_TOL
+
+
 def _close(got, want, tol):
     got, want = _f(got), _f(want)
     assert got.shape == want.shape
@@ -145,32 +163,30 @@ def test_registry_matches_repro():
 
 @pytest.mark.parametrize("arch", jreg.ARCH_IDS)
 def test_param_count_matches_repro(arch):
-    """The full configs' parameter counts (qwen2-moe: 14.32B), from the
-    port's own tree on the meta device; the SSM blocks are refused."""
+    """The full and reduced configs' parameter counts (qwen2-moe: 14.32B;
+    jamba: 398,553,047,040; xlstm: 222,763,264), from the port's own tree
+    on the meta device."""
     cfg = treg.get_config(arch)
-    if arch in SSM_ARCHS:
-        with pytest.raises(NotImplementedError, match=r"item 5 \(SSM\)"):
-            tlm.param_count(cfg)
-        return
     assert tlm.param_count(cfg) == jlm.param_count(jreg.get_config(arch))
+    assert tlm.param_count(treg.get_reduced(arch)) == \
+        jlm.param_count(jreg.get_reduced(arch))
+    if arch in SSM_ARCHS:
+        assert tlm.param_count(cfg) == {"jamba-1.5-large-398b":
+                                        398_553_047_040,
+                                        "xlstm-350m": 222_763_264}[arch]
 
 
 @pytest.mark.parametrize("arch", jreg.ARCH_IDS)
 def test_layer_pattern_matches_repro(arch):
     for get in ("get_config", "get_reduced"):
         tc = getattr(treg, get)(arch)
-        if arch in SSM_ARCHS:
-            with pytest.raises(NotImplementedError,
-                               match=r"item 5 \(SSM\)"):
-                tlm.layer_pattern(tc)
-            continue
         jpat, jn = jlm.layer_pattern(getattr(jreg, get)(arch))
         tpat, tn = tlm.layer_pattern(tc)
         assert [tuple(s) for s in tpat] == [tuple(s) for s in jpat]
         assert tn == jn
 
 
-@pytest.mark.parametrize("name", ARCHS + tuple(VARIANTS))
+@pytest.mark.parametrize("name", ARCHS + tuple(VARIANTS) + SSM_NAMES)
 def test_init_params_tree_matches_repro(name):
     jc, tc = _cfgs(name)
     jp = jax.eval_shape(lambda k: jlm.init_params(jc, k),
@@ -201,7 +217,7 @@ def test_layernorm_matches_repro():
 
 # ---------------------------------------------------------- full sequence
 @pytest.mark.parametrize("spiking", [True, False], ids=["spiking", "dense"])
-@pytest.mark.parametrize("name", ARCHS + tuple(VARIANTS))
+@pytest.mark.parametrize("name", ARCHS + tuple(VARIANTS) + SSM_NAMES)
 def test_forward_hidden_and_prefill_match_repro(name, spiking):
     """f32 trees: the hidden state (with the VLM's frontend positions) and
     the last-position logits; spiking on the kernels' plain versions
@@ -218,12 +234,12 @@ def test_forward_hidden_and_prefill_match_repro(name, spiking):
         got = tlm.prefill(tc, tp, tb["tokens"], spiking, frontend=fe_t)
     assert got.dtype == torch.float32
     assert got_h.shape[1] == tb["tokens"].shape[1] + jc.n_frontend_tokens
-    _close(got_h, want_h, F32_TOL)
-    _close(got, want, F32_TOL)
+    _close(got_h, want_h, _f32_tol(name))
+    _close(got, want, _f32_tol(name))
 
 
 @pytest.mark.parametrize("spiking", [True, False], ids=["spiking", "dense"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + SSM_NAMES)
 def test_bf16_forward_hidden_matches_repro_op_by_op(arch, spiking):
     jc, tc = _cfgs(arch)
     jp, tp = _trees(arch, "bf16")
@@ -272,8 +288,27 @@ def _jstate_leaves(state):
     return out
 
 
+def _check_state_leaves(tst, jst, spiking, tol):
+    """Every decode-state leaf in the reference's dtype and shape: the
+    bf16 ones exact when spiking (SDSA statuses, Mamba's conv window of
+    spike drives) and within one bf16 rounding in dense mode (KV caches,
+    Mamba's conv window), the f32 ones (the SSM recurrences) within
+    `tol` of max|ref|."""
+    tleaves, jleaves = _state_leaves(tst), _jstate_leaves(jst)
+    assert len(tleaves) == len(jleaves)
+    for a, b in zip(tleaves, jleaves):
+        assert str(a.dtype).replace("torch.", "") == str(b.dtype)
+        assert tuple(a.shape) == b.shape
+        if a.dtype == torch.float32:
+            _close(a, b, tol)
+        elif spiking:
+            np.testing.assert_array_equal(_f(a), _f(b))
+        else:
+            _close(a, b, 2.0 ** -8)
+
+
 @pytest.mark.parametrize("spiking", [True, False], ids=["spiking", "dense"])
-@pytest.mark.parametrize("name", ARCHS + ("moe-every-2",))
+@pytest.mark.parametrize("name", ARCHS + ("moe-every-2",) + SSM_NAMES)
 def test_decode_steps_match_repro(name, spiking):
     """Three slots, four steps at per-slot positions; whisper's cross
     state stays the zeros `init_state` makes, as in the reference."""
@@ -290,15 +325,8 @@ def test_decode_steps_match_repro(name, spiking):
             tl, tst = tlm.decode_step(tc, tp, tst,
                                       torch.from_numpy(toks[:, i]),
                                       torch.from_numpy(pos), spiking)
-        _close(tl, jl, F32_TOL)
-        tleaves, jleaves = _state_leaves(tst), _jstate_leaves(jst)
-        assert len(tleaves) == len(jleaves)
-        for a, b in zip(tleaves, jleaves):
-            assert a.dtype == torch.bfloat16 and tuple(a.shape) == b.shape
-            if spiking:
-                np.testing.assert_array_equal(_f(a), _f(b))
-            else:
-                _close(a, b, 2.0 ** -8)
+        _close(tl, jl, _f32_tol(name))
+        _check_state_leaves(tst, jst, spiking, _f32_tol(name))
     if jc.encoder_decoder:
         cross = [st.cross_status if spiking else st.cross_kv[0]
                  for st in tst]
@@ -306,7 +334,8 @@ def test_decode_steps_match_repro(name, spiking):
 
 
 @pytest.mark.parametrize("spiking", [True, False], ids=["spiking", "dense"])
-@pytest.mark.parametrize("arch", ("qwen2-moe-a2.7b", "whisper-medium"))
+@pytest.mark.parametrize("arch", ("qwen2-moe-a2.7b", "whisper-medium") +
+                         SSM_NAMES)
 def test_prefill_chunked_with_ragged_lengths_matches_repro(arch, spiking):
     jc, tc = _cfgs(arch)
     jp, tp = _trees(arch, "f32")
@@ -317,9 +346,5 @@ def test_prefill_chunked_with_ragged_lengths_matches_repro(arch, spiking):
     with torch.inference_mode():
         tl, tst = tlm.prefill_chunked(tc, tp, torch.from_numpy(toks),
                                       torch.from_numpy(lengths), spiking, 16)
-    _close(tl, jl, F32_TOL)
-    for a, b in zip(_state_leaves(tst), _jstate_leaves(jst)):
-        if spiking:
-            np.testing.assert_array_equal(_f(a), _f(b))
-        else:
-            _close(a, b, 2.0 ** -8)
+    _close(tl, jl, _f32_tol(arch))
+    _check_state_leaves(tst, jst, spiking, _f32_tol(arch))

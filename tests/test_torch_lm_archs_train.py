@@ -3,15 +3,20 @@ package, on the CPU: training and serving. `loss_fn` and every gradient
 leaf (qwen2-moe, phi-3-vision with its frontend labels, whisper through
 its encoder, qwen3 with leaves SDSA never reads), `make_train_step` on
 those unread leaves, the port's `Server` against the reference's on
-reduced qwen2-moe, and the MoE decode step's coupling of the slots, a
-reference finding. Configs, params and inputs as in
-`tests/test_torch_lm_archs.py`, whose helpers this file imports.
+reduced qwen2-moe and reduced xlstm-350m, the MoE decode step's coupling
+of the slots and the spiking xLSTM's silent stream, reference findings.
+Configs, params and inputs as in `tests/test_torch_lm_archs.py`, whose
+helpers this file imports.
 
 Tolerances:
   * f32 trees: losses within 1e-5 relative, every gradient leaf within
-    1e-5 * max|leaf| + 1e-7, logits within 1e-5 of max|ref|;
+    1e-5 * max|leaf| + 1e-7, logits within 1e-5 of max|ref|; the xLSTM's
+    hidden states within 2^-8 of max|ref| (SSM_F32_TOL, for the reason
+    given there);
   * served tokens (f32 trees): equal.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +29,9 @@ from repro_torch.launch import serve as tserve
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import lm as tlm
 from repro_torch.optim import adamw
-from test_torch_lm_archs import F32_TOL, _cfgs, _close, _f, _inputs, _trees
+from repro_torch.kernels import dispatch
+from test_torch_lm_archs import F32_TOL, SSM_F32_TOL, _cfgs, _close, _f, \
+    _inputs, _trees
 
 torch.set_num_threads(2)
 
@@ -158,3 +165,78 @@ def test_moe_decode_step_couples_the_slots_in_both_packages():
         out[other] = (_f(tl)[0], _f(jl)[0])
     assert not np.array_equal(out[5][0], out[6][0])
     assert not np.array_equal(out[5][1], out[6][1])
+
+
+def _vth(cfg, v_th):
+    return cfg.replace(spiking=dataclasses.replace(cfg.spiking, lif_vth=v_th))
+
+
+@pytest.mark.parametrize("mode", ["dense", "spiking", "spiking-vth-0.02"])
+def test_xlstm_server_serves_the_reference_servers_tokens(mode):
+    """Reduced xlstm-350m on 4 slots: the port's Server and the
+    reference's on the same f32 tree and bursty trace give the same
+    tokens, and requests 0 and 3 served alone decode their pool tokens in
+    both packages: an SSM decode state is per slot and nothing couples
+    the slots. Spiking at the config's threshold 1.0 the stream is silent
+    (see the next test) and every request decodes token 0; at 0.02 it
+    fires."""
+    from benchmarks.serve_traces import make_trace
+    jc, tc = _cfgs("xlstm-350m")
+    jp, tp = _trees("xlstm-350m", "f32")
+    spiking = mode != "dense"
+    if mode == "spiking-vth-0.02":
+        jc, tc = _vth(jc, 0.02), _vth(tc, 0.02)
+    trace = make_trace("bursty", seed=1, n_requests=5, vocab=tc.vocab,
+                       prompt_len=(3, 9), max_new=(3, 6), burst_size=3,
+                       burst_gap_s=0.02)
+    runs = {}
+    for pkg, server, req in (("t", tserve.Server, tserve.Request),
+                             ("j", jserve.Server, jserve.Request)):
+        kw = {"device": "cpu"} if pkg == "t" else {}
+        for only in (None, (0,), (3,)):
+            srv = server(tc if pkg == "t" else jc, n_slots=4, max_seq=32,
+                         spiking=spiking, clock=TickClock(), **kw)
+            srv.params = tp if pkg == "t" else jp
+            runs[pkg, only] = _serve(srv, req, trace, only)
+    assert runs["t", None] == runs["j", None]
+    assert all(len(g) > 0 for g in runs["t", None])
+    for i in (0, 3):
+        assert runs["t", (i,)] == runs["j", (i,)]
+        assert runs["t", (i,)][0] == runs["t", None][i]
+    tokens = {t for g in runs["t", None] for t in g}
+    assert (tokens == {0}) == (mode == "spiking")
+
+
+def test_spiking_xlstm_stream_is_silent_at_its_threshold():
+    """Reference finding: the spiking xLSTM fires the raw residual (no
+    norm before the fire) against lif_vth = 1.0, and the seeded
+    embeddings (std 0.02) never reach it. Every fire is silent, each
+    block returns its zero spikes plus a product of zeros, and the final
+    hidden state is all zeros in both packages. At lif_vth = 0.02 the
+    first fire spikes and the packages agree."""
+    jc, tc = _cfgs("xlstm-350m")
+    jp, tp = _trees("xlstm-350m", "f32")
+    _, jb, tb = _inputs(jc, "f32", seq=8)
+    for v_th in (1.0, 0.02):
+        want = jlm.forward_hidden(_vth(jc, v_th), jp, jb["tokens"], True)
+        first: list = []
+        orig = dispatch.lif_scan
+
+        def fire(x, **kw):
+            out = orig(x, **kw)
+            first.append(float(out.float().mean()))
+            return out
+        dispatch.lif_scan = fire
+        try:
+            with torch.inference_mode():
+                got = tlm.forward_hidden(_vth(tc, v_th), tp, tb["tokens"],
+                                         True)
+        finally:
+            dispatch.lif_scan = orig
+        assert len(first) == tc.n_layers
+        if v_th == 1.0:
+            assert not np.any(_f(want)) and not got.any()
+            assert first == [0.0] * tc.n_layers
+        else:
+            assert first[0] > 0 and np.std(_f(want)) > 0.1
+            _close(got, want, SSM_F32_TOL)
