@@ -237,13 +237,37 @@ Phases, each printed on its own line:
       GB, the fire on a Mamba layer's input and the causal SDSA on the
       attention layer's spikes against their plain versions; (p4) both
       configs' REDUCED sizes as in (o4);
+  (q) guarded execution (`dispatch.use_guard`, the maps on the card):
+      (q1) SpikingFormer-4-384 on (c)'s first batch and VGG11 / ResNet18
+      / SegNet-64 on (h)'s, dense and packed, under `off`, `audit` and
+      `repair`: logits and every layer's spikes bit for bit with the
+      unguarded forward, no watcher record, a guarded call in each, the
+      unguarded launches (plus one gated kernel-10 launch a support audit
+      under repair), the same host syncs, and the audit's and repair's
+      spans in turns with the unguarded one; (q2) at (b)'s stage-1 / fc1
+      / fc2 shapes on 50% occupied tiles, `spike_matmul` and
+      `apec_matmul` (g = 2), dense and packed: an undercount all NaN under
+      audit (one record under a watcher), repaired bit for bit
+      (`spike_matmul`) or within 1e-5 * max|ref| + 1e-5 (APEC), a bit
+      flip in an empty tile flagged and repaired to the corrupted
+      payload's product, both also within that bound of an f64 product
+      of the payload's bits, `ops.support_map` equal to a plain per-tile
+      count, an overcount never flagged, a wrong grid raising (econv
+      too), with each mode's ms and `device_ms`; (q3) one CUDA graph of a
+      repaired `spike_matmul` replayed on the clean map, an undercount
+      and the clean map again (the clean output bit for bit each time,
+      where the unguarded undercount differs), kernel 10 gated on and off
+      in device ms; (q4)
+      one training step under repair with an undercount planted in block
+      0's fc1: the loss and every gradient within 1e-5 of the clean step.
+      Each line carries the card's name and power limit;
   (d) one JSON line listing every kernel with its launches on the main
       paths ((c) and (h) for inference kernels, (f) for the training
       ones, (i) for the APEC ones, (j) for the packed ones, (k), (m) and
       (o) and (p) for the LM ones, (l) adding its hybrid forwards' and APEC
-      calls', (n) the training fires'; the serial kernels 11, 13, 15 and
-      17 by their override calls), error and times (rows 16 and 18:
-      kernels 16 and 18).
+      calls', (n) the training fires', (q) its guarded forwards' and
+      fault calls'; the serial kernels 11, 13, 15 and 17 by their override
+      calls), error and times (rows 16 and 18: kernels 16 and 18).
 Each phase prints its wall time on a `phase_time` line.
 The last line is {"ok": true, "device": {...}}. Any failed check exits
 nonzero before it; without a CUDA device, or without the repo's `src`
@@ -497,11 +521,11 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def turns_ms(torch, fa, fb) -> tuple:
+def turns_ms(torch, fa, fb, reps: int = 20) -> tuple:
     """Device ms of `fa` and `fb` timed in turns (a, b, b, a), each the
     mean of its two turns: a comparison inside one call on one card."""
-    a1, b1 = cuda_ms(torch, fa), cuda_ms(torch, fb)
-    b2, a2 = cuda_ms(torch, fb), cuda_ms(torch, fa)
+    a1, b1 = cuda_ms(torch, fa, reps), cuda_ms(torch, fb, reps)
+    b2, a2 = cuda_ms(torch, fb, reps), cuda_ms(torch, fa, reps)
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
@@ -1110,9 +1134,10 @@ def cnn_setup(torch, name, device):
             class_images(SEED, 0, i, B, img=cfg.img)
         return torch.from_numpy(b["image"]).to(device)
 
-    def forward(x, collect_stats=False, hybrid=False):
+    def forward(x, collect_stats=False, hybrid=False, packed=False):
         run_cfg = dataclasses.replace(cfg, spiking=dataclasses.replace(
-            cfg.spiking, hybrid=True)) if hybrid else cfg
+            cfg.spiking, hybrid=hybrid, packed=packed)) \
+            if hybrid or packed else cfg
         return apply(run_cfg, params, x, collect_stats=collect_stats)
     return cfg, forward, batch
 
@@ -4763,6 +4788,512 @@ def phase_ssm(torch, device, card):
     return totals
 
 
+# ------------------------------------------------------------ phase (q)
+# Guarded execution on the card (`dispatch.use_guard`): the maps live on
+# the card, so audit poisons and repair launches kernel 10 behind a flag
+# computed there, with no host read unless a watcher is open.
+GUARD_MODELS = ("spikingformer", "vgg11", "resnet18", "segnet")
+GUARD_OPS = ("spike_matmul", "apec_matmul")
+GUARD_APEC_G = 2
+# The FFN call of the training step whose carried map is undercounted:
+# block 0's fc1 (the first `spike_matmul` with a map in the forward).
+GUARD_PLANT_CALL = 0
+GUARD_TIMING_REPS = 5
+
+
+@contextlib.contextmanager
+def guarded_calls(dispatch):
+    """Counts the calls of `dispatch.dispatch` that the guard wraps while
+    active (an op of `GUARDED_OPS` with a 2-D carried map): yields
+    {"guarded": n, "audited": n}, "audited" the `spike_matmul` /
+    `apec_matmul` ones, whose support the guard checks (one gated kernel-10
+    launch each under repair)."""
+    held = {"guarded": 0, "audited": 0}
+    orig = dispatch.dispatch
+
+    def counted(op, *args, **kwargs):
+        occ = kwargs.get("occupancy")
+        if op in dispatch.GUARDED_OPS and getattr(occ, "ndim", 0) == 2:
+            held["guarded"] += 1
+            held["audited"] += op in GUARD_OPS
+        return orig(op, *args, **kwargs)
+    dispatch.dispatch = counted
+    try:
+        yield held
+    finally:
+        dispatch.dispatch = orig
+
+
+def raises(exc, fn) -> bool:
+    """Whether `fn()` raises `exc` (any other error propagates)."""
+    try:
+        fn()
+    except exc:
+        return True
+    return False
+
+
+def guard_model_forwards(torch, device):
+    """(name, forward(packed) -> (logits, spikes)) of SpikingFormer-4-384
+    on phase (c)'s first batch and VGG11 / ResNet18 / SegNet-64 on phase
+    (h)'s, under `torch.inference_mode()`."""
+    from repro_torch.configs.base import SpikingConfig
+    from repro_torch.models import spikingformer as sf
+    params = sf.spikingformer_init(
+        DEPTH, DIM, generator=torch.Generator().manual_seed(SEED),
+        device=device)
+    x = torch.rand((B, 32, 32, 3),
+                   generator=torch.Generator().manual_seed(SEED + 1)
+                   ).to(device)
+
+    def sf_forward(packed):
+        cfg = SpikingConfig(t_steps=T, lif_vth=V_TH, packed=packed)
+        with torch.inference_mode():
+            return sf.spikingformer_apply(params, x, n_heads=HEADS,
+                                          spiking_cfg=cfg,
+                                          collect_stats=True)
+    models = [("spikingformer", sf_forward)]
+    for name in GUARD_MODELS[1:]:
+        _, forward, batch = cnn_setup(torch, name, device)
+        xb = batch(0)
+
+        def cnn_forward(packed, forward=forward, xb=xb):
+            with torch.inference_mode():
+                return forward(xb, collect_stats=True, packed=packed)
+        models.append((name, cnn_forward))
+    return models
+
+
+def same_forward(torch, got, want) -> bool:
+    """Logits and every layer's spikes (or words) bit for bit."""
+    return torch.equal(got[0], want[0]) and len(got[1]) == len(want[1]) \
+        and all(torch.equal(as_int32(a), as_int32(b))
+                for a, b in zip(got[1], want[1]))
+
+
+def phase_guard_models(torch, device, card):
+    """(q1) Each model, dense and packed, under `off`, `audit` and `repair`
+    against its unguarded forward: logits and every layer's spikes bit for
+    bit, no watcher record, the unguarded launches plus one gated kernel-10
+    launch a support audit under repair (none under audit), the host syncs
+    equal, and the audit's and repair's spans in turns with the unguarded
+    one."""
+    from repro_torch.kernels import dispatch, launch_counts, \
+        reset_launch_counts
+    totals: dict = {}
+
+    def counted(fn):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        return out, {k: v for k, v in counts.items() if v}
+
+    def guarded(mode, forward, packed):
+        def run():
+            with dispatch.use_guard(mode):
+                return forward(packed)
+        return run
+
+    for name, forward in guard_model_forwards(torch, device):
+        for packed in (False, True):
+            base, launches = counted(lambda: forward(packed))
+            runs = {}
+            for mode in dispatch.GUARD_MODES:
+                with guarded_calls(dispatch) as held, \
+                        dispatch.watch_guard_events() as events:
+                    out, counts = counted(guarded(mode, forward, packed))
+                check(held["guarded"] > 0,
+                      f"{name} packed={packed}: no guarded call under {mode}")
+                check(same_forward(torch, out, base),
+                      f"{name} packed={packed}: the forward under {mode} "
+                      f"differs from the unguarded one")
+                check(events == [], f"{name} packed={packed}: {mode} "
+                      f"recorded {events}")
+                want = dict(launches)
+                if mode == "repair" and held["audited"]:
+                    want["spike_matmul_pred"] = \
+                        want.get("spike_matmul_pred", 0) + held["audited"]
+                check(counts == want, f"{name} packed={packed}: launches "
+                      f"under {mode} {counts} != {want}")
+                runs[mode] = dict(guarded_calls=held["guarded"],
+                                  support_audits=held["audited"],
+                                  launches=counts)
+            syncs = {"unguarded": sync_count(torch, lambda: forward(packed))}
+            for mode in dispatch.GUARD_MODES[1:]:
+                syncs[mode] = sync_count(torch, guarded(mode, forward,
+                                                        packed))
+                check(syncs[mode] == syncs["unguarded"],
+                      f"{name} packed={packed}: {syncs[mode]} host syncs "
+                      f"under {mode}, {syncs['unguarded']} unguarded")
+            spans = {}
+            for mode in dispatch.GUARD_MODES[1:]:
+                base_ms, mode_ms = turns_ms(
+                    torch, lambda: forward(packed),
+                    guarded(mode, forward, packed), reps=GUARD_TIMING_REPS)
+                spans[mode] = dict(unguarded_ms=base_ms, ms=mode_ms,
+                                   added_ms=mode_ms - base_ms)
+            emit("guard_forward", model=name, packed=packed, equal_bits=True,
+                 records=0, launches=launches, modes=runs, host_syncs=syncs,
+                 spans=spans, card=card)
+    return totals
+
+
+def undercount_on(torch, occ, seed=SEED):
+    """`faults.undercount_occupancy` of a card map (a host copy), back on
+    the card, with its coordinates."""
+    from repro_torch.runtime import faults
+    bad, coords = faults.undercount_occupancy(occ, 1, seed=seed)
+    return torch.from_numpy(bad).to(occ.device), coords
+
+
+def flipped_in_empty_tile(torch, words, occ, seed=SEED):
+    """`faults.flip_packed_bits` inside the first tile the map claims
+    empty (a host copy of its 128 x 4 words), the rest of the words as
+    they were: the payload gains support the map never counted."""
+    import numpy as np
+    from repro_torch.runtime import faults
+    empty = (occ == 0).nonzero()
+    check(empty.shape[0] > 0, "no empty tile to flip bits in")
+    mt, kt = (int(v) for v in empty[0])
+    rows = slice(mt * 128, mt * 128 + 128)
+    cols = slice(kt * 4, min(kt * 4 + 4, words.shape[1]))
+    sub, flips = faults.flip_packed_bits(words[rows, cols], 4, seed=seed)
+    bad = words.clone()
+    bad[rows, cols] = torch.from_numpy(sub.view(np.int32)).view(
+        torch.uint32).to(words.device)
+    return bad, (mt, kt), flips
+
+
+def word_bits(torch, words):
+    """(rows, 32 * words) int32 0/1: every bit of uint32 words, bit i of
+    word j at column 32 j + i (the pack layout), the pad bits included."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words.view(torch.int32).unsqueeze(-1) >> shifts) & 1
+    return bits.reshape(words.shape[0], -1)
+
+
+def tile_nonzeros(torch, s):
+    """Nonzeros per 128 x 128 tile of a 2-D payload, zero-padded to the
+    grid: a count independent of `ops.support_map`'s."""
+    m, k = s.shape
+    mt, kt = -(-m // 128), -(-k // 128)
+    padded = torch.zeros((mt * 128, kt * 128), dtype=torch.int32,
+                         device=s.device)
+    padded[:m, :k] = (s != 0).to(torch.int32)
+    return padded.reshape(mt, 128, kt, 128).sum((1, 3), dtype=torch.int32)
+
+
+def f64_err(got, want) -> tuple:
+    """(max |got - want|, its bound 1e-5 * max|want| + 1e-5) against an
+    f64 product."""
+    return ((got.double() - want).abs().max().item(),
+            1e-5 * want.abs().max().item() + 1e-5)
+
+
+def phase_guard_kernels(torch, device, card):
+    """(q2) At phase (b)'s stage-1 / fc1 / fc2 shapes, on data with 50%
+    occupied tiles, dense and packed, `spike_matmul` and `apec_matmul`
+    (g = 2) on their automatic routes (kernels 12 / 14, 18 / 16): an
+    undercount under audit all NaN with one record under a watcher;
+    under repair equal to the clean call bit for bit (`spike_matmul`) or
+    within 1e-5 * max|ref| + 1e-5 (`apec_matmul`), where the unguarded
+    call on the undercount differs; a bit flip in an empty tile (packed)
+    flagged by audit and repaired to the corrupted payload's product; the
+    repaired products also within 1e-5 * max|ref| + 1e-5 of an f64 dense
+    product of the payload's bits, and `ops.support_map` equal to a plain
+    per-tile count of those bits (witnesses independent of the guard); an
+    overcount never flagged and equal to the clean call; a wrong grid
+    raising GuardViolationError, econv included. The clean call's ms
+    under each mode in turns with the unguarded one (back-to-back calls,
+    the host's enqueue included), and its `device_ms` under each (a CUDA
+    graph of 10 calls)."""
+    from repro_torch.core.spikes import pack_spikes_padded
+    from repro_torch.kernels import dispatch, launch_counts, ops, \
+        reset_launch_counts
+    from repro_torch.runtime import faults
+    totals: dict = {}
+    gen = torch.Generator().manual_seed(SEED + 32)
+    for label, (m, k, n) in CSR_SHAPES:
+        s = clustered_spikes(torch, m, k, gen, device)
+        w = torch.randn((k, n), generator=gen).to(device)
+        occ = ops.padded_occupancy(s)
+        bad, coords = undercount_on(torch, occ)
+        over = torch.from_numpy(faults.overcount_occupancy(
+            occ, 2, seed=SEED)[0]).to(device)
+        words = pack_spikes_padded(s)
+        flipped, flip_tile, flips = flipped_in_empty_tile(torch, words, occ)
+        bits, flip_bits = word_bits(torch, words), word_bits(torch, flipped)
+        check(torch.equal(bits[:, :k], s.to(torch.int32)),
+              f"{label}: the words' bits are not the spikes")
+        check(torch.equal(ops.support_map(s), tile_nonzeros(torch, s)) and
+              torch.equal(ops.support_map(words, k),
+                          tile_nonzeros(torch, bits)) and
+              torch.equal(ops.support_map(flipped, k),
+                          tile_nonzeros(torch, flip_bits)),
+              f"{label}: support_map off the per-tile count of the payload")
+        dense_ref = s.double() @ w.double()
+        flip_dense = flip_bits[:, :k].double() @ w.double()
+        for op in GUARD_OPS:
+            static = {"g": GUARD_APEC_G} if op == "apec_matmul" else {}
+            for packed in (False, True):
+                payload = words if packed else s
+                kw = dict(static, packed_k=k) if packed else static
+
+                def call(o, p=payload, kw=kw, op=op):
+                    with torch.inference_mode():
+                        return dispatch.dispatch(op, p, w, occupancy=o, **kw)
+
+                def modal(mode, o, p=payload, call=call):
+                    with dispatch.use_guard(mode), \
+                            dispatch.watch_guard_events() as events:
+                        out = call(o, p)
+                    torch.cuda.synchronize()
+                    return out, [(e["kind"], e["action"],
+                                  e.get("traced", False)) for e in events]
+
+                def close(got, want, op=op):
+                    if op == "spike_matmul":
+                        return torch.equal(got, want)
+                    err = (got - want).abs().max().item()
+                    return err <= 1e-5 * want.abs().max().item() + 1e-5
+
+                what = f"{label} {op} packed={packed}"
+                attr = dispatch.resolve_attribution(op, payload, w,
+                                                    occupancy=occ, **kw)
+                clean = call(occ)
+                unguarded = call(bad)
+                check(not torch.equal(unguarded, clean),
+                      f"{what}: the undercount changes nothing unguarded")
+                poisoned, rec = modal("audit", bad)
+                check(bool(poisoned.isnan().all()),
+                      f"{what}: audit of an undercount not all NaN")
+                check(rec == [("undercount", "record", True)],
+                      f"{what}: audit records {rec}")
+                reset_launch_counts()
+                repaired, rec_r = modal("repair", bad)
+                counts = {k: v for k, v in launch_counts().items() if v}
+                for name, v in counts.items():
+                    totals[name] = totals.get(name, 0) + v
+                check(rec_r == [("undercount", "repair", True)],
+                      f"{what}: repair records {rec_r}")
+                check(counts.get("spike_matmul_pred") == 1,
+                      f"{what}: repair launches {counts}")
+                check(close(repaired, clean), f"{what}: the repaired call "
+                      f"is off the clean call")
+                err64, bound64 = f64_err(repaired, dense_ref)
+                check(err64 <= bound64, f"{what}: the repaired call is "
+                      f"{err64} off the f64 product (bound {bound64})")
+                overcounted, rec_o = modal("audit", over)
+                check(rec_o == [] and close(overcounted, clean),
+                      f"{what}: an overcount flagged ({rec_o}) or moved "
+                      f"the output")
+                fields = {}
+                if packed:
+                    flip_ref = call(ops.support_map(flipped, k), flipped)
+                    check(not close(flip_ref, clean),
+                          f"{what}: the bit flip changes nothing")
+                    flip_audit, rec_fa = modal("audit", occ, flipped)
+                    check(bool(flip_audit.isnan().all()) and rec_fa == [
+                        ("undercount", "record", True)],
+                          f"{what}: a bit flip not flagged ({rec_fa})")
+                    flip_rep, rec_fr = modal("repair", occ, flipped)
+                    check(rec_fr == [("undercount", "repair", True)] and
+                          close(flip_rep, flip_ref),
+                          f"{what}: a bit flip not repaired to the "
+                          f"corrupted payload's product")
+                    flip_err, flip_bound = f64_err(flip_rep, flip_dense)
+                    check(flip_err <= flip_bound, f"{what}: the repaired bit "
+                          f"flip is {flip_err} off the f64 product of the "
+                          f"corrupted payload (bound {flip_bound})")
+                    fields = dict(flip_tile=list(flip_tile),
+                                  flips=[list(f) for f in flips],
+                                  flip_f64_err=flip_err)
+                stale = torch.zeros((occ.shape[0] + 1, occ.shape[1]),
+                                    dtype=torch.int32, device=device)
+                with dispatch.use_guard("audit"):
+                    check(raises(dispatch.GuardViolationError,
+                                 lambda: call(stale)),
+                          f"{what}: a wrong grid did not raise")
+                ms, device_ms = {}, {"unguarded": graph_ms(
+                    torch, lambda: call(occ), reps=10)}
+                for mode in ("audit", "repair"):
+                    def timed_call(mode=mode):
+                        with dispatch.use_guard(mode):
+                            return call(occ)
+                    ms[f"unguarded_{mode}"], ms[mode] = turns_ms(
+                        torch, lambda: call(occ), timed_call, reps=10)
+                    device_ms[mode] = graph_ms(torch, timed_call, reps=10)
+                rel = 0.0 if op == "spike_matmul" else \
+                    (repaired - clean).abs().max().item()
+                emit("guard_fault", case=label, op=op, packed=packed,
+                     shape=[m, k, n], attribution=attr,
+                     undercount_tile=[list(c) for c in coords],
+                     occupied_share=(occ > 0).float().mean().item(),
+                     repaired_equal_bits=torch.equal(repaired, clean),
+                     repaired_max_abs_err=rel, repaired_f64_err=err64,
+                     repaired_f64_bound=bound64,
+                     overcount_equal_bits=torch.equal(overcounted, clean),
+                     repair_launches=counts, ms=ms, device_ms=device_ms,
+                     audit_added_ms=ms["audit"] - ms["unguarded_audit"],
+                     repair_added_ms=ms["repair"] - ms["unguarded_repair"],
+                     card=card, **fields)
+    # econv: the static grid check only (its map tiles the patch matrix,
+    # here a (1, 1) grid).
+    x = (torch.rand((2, 8, 8, 6), generator=gen) < 0.3).float().to(device)
+    wc = torch.randn((3, 3, 6, 10), generator=gen).to(device)
+    with dispatch.use_guard("audit"):
+        check(raises(dispatch.GuardViolationError, lambda: dispatch.dispatch(
+            "econv", x, wc, occupancy=torch.zeros(
+                (2, 1), dtype=torch.int32, device=device))),
+              "econv: a wrong grid did not raise")
+    emit("guard_grid", op="econv", raised=True, card=card)
+    return totals
+
+
+def phase_guard_graph(torch, device, card):
+    """(q3) One CUDA graph of a repaired `spike_matmul` at fc1's shape,
+    replayed on the clean map, an undercounted one copied into the same
+    buffer and the clean one again: the clean call's output bit for bit
+    each time (kernel 12 clean, kernel 10 repaired), where the unguarded
+    call on the undercount differs, so the replay on the undercount was
+    repaired. Then kernel 10's gated launch on and off in device ms (a
+    CUDA graph each)."""
+    from repro_torch.kernels import dispatch, ops, spike_matmul
+    m, k, n = CSR_SHAPES[1][1]
+    gen = torch.Generator().manual_seed(SEED + 33)
+    s = clustered_spikes(torch, m, k, gen, device)
+    w = torch.randn((k, n), generator=gen).to(device)
+    clean_map = ops.padded_occupancy(s)
+    bad, _ = undercount_on(torch, clean_map)
+    occ = clean_map.clone()
+    with torch.inference_mode():
+        clean = dispatch.dispatch("spike_matmul", s, w, occupancy=clean_map)
+        dropped = dispatch.dispatch("spike_matmul", s, w, occupancy=bad)
+    check(not torch.equal(dropped, clean),
+          "graph case: the undercount changes nothing unguarded")
+    with dispatch.use_guard("repair"):
+        be, attr = dispatch.resolve_with_attribution("spike_matmul", s, w,
+                                                     occupancy=occ)
+    held = {}
+
+    def call():
+        held["out"] = be.fn(s, w, occupancy=occ)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.inference_mode(), torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.inference_mode(), torch.cuda.graph(graph):
+        call()
+    replays = []
+    for label, src in (("clean", clean_map), ("undercount", bad),
+                       ("clean", clean_map)):
+        occ.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(held["out"], clean),
+              f"graph replay on the {label} map: output off the clean call")
+        replays.append(dict(map=label, equal_bits=True,
+                            repaired=label == "undercount"))
+    s2 = s.reshape(-1, k).contiguous()
+    support = ops.support_map(s2)
+    out = torch.empty((m, n), device=device)
+    gate = torch.tensor([1, 0], dtype=torch.int32, device=device)
+    gated = {label: graph_ms(torch, functools.partial(
+        spike_matmul.spike_matmul_pred, s2, w, support, route=gate[i:i + 1],
+        out=out)) for i, label in enumerate(("on", "off"))}
+    ungated = graph_ms(torch, functools.partial(
+        dispatch.dispatch, "spike_matmul", s, w, occupancy=clean_map))
+    emit("guard_graph", shape=[m, k, n], attribution=attr, replays=replays,
+         gated_on_device_ms=gated["on"], gated_off_device_ms=gated["off"],
+         unguarded_call_device_ms=ungated, card=card)
+
+
+@contextlib.contextmanager
+def planted_undercount(torch, dispatch, index):
+    """The `index`-th `spike_matmul` call with a carried map gets an
+    undercount of its map (`faults.undercount_occupancy` of a host copy);
+    yields the planted tiles."""
+    orig = dispatch.dispatch
+    seen, planted = [0], []
+
+    def plant(op, *args, **kwargs):
+        if op == "spike_matmul" and kwargs.get("occupancy") is not None:
+            if seen[0] == index:
+                kwargs["occupancy"], coords = undercount_on(
+                    torch, kwargs["occupancy"])
+                planted.append(coords)
+            seen[0] += 1
+        return orig(op, *args, **kwargs)
+    dispatch.dispatch = plant
+    try:
+        yield planted
+    finally:
+        dispatch.dispatch = orig
+
+
+def phase_guard_train(torch, device, card):
+    """(q4) One SpikingFormer-4-384 training step under `repair` with an
+    undercount planted in one FFN call against the same step on the clean
+    maps (cuDNN deterministic): the loss and every gradient leaf within
+    1e-5 * max|ref| + 1e-5, one repair recorded."""
+    from repro_torch.configs.base import SpikingConfig
+    from repro_torch.kernels import dispatch
+    from repro_torch.optim import adamw
+    batch = train_batch(torch, 0, device)
+    cfg = SpikingConfig(t_steps=T, lif_vth=V_TH)
+    steps, planted, events = {}, [], []
+    for plant in (False, True):
+        params = fresh_params(torch, device)
+        opt = adamw.init(params, adamw.AdamWConfig(lr=LR))
+        with contextlib.ExitStack() as stack:
+            if plant:
+                planted = stack.enter_context(planted_undercount(
+                    torch, dispatch, GUARD_PLANT_CALL))
+                stack.enter_context(dispatch.use_guard("repair"))
+                events = stack.enter_context(dispatch.watch_guard_events())
+            loss, grads, _ = train_step(torch, params, opt, batch, cfg)
+        torch.cuda.synchronize()
+        steps[plant] = (loss, grads)
+    (l_clean, g_clean), (l_rep, g_rep) = steps[False], steps[True]
+    check(len(planted) == 1 and [e["action"] for e in events] == ["repair"],
+          f"planted {planted}, recorded {events}")
+    loss_err = (l_rep - l_clean).abs().item()
+    check(loss_err <= 1e-5 * l_clean.abs().item() + 1e-5,
+          f"repaired step loss {l_rep.item()} != {l_clean.item()}")
+    errs = [(a - b).abs().max().item() for a, b in zip(g_rep, g_clean)]
+    check(all(e <= 1e-5 * b.abs().max().item() + 1e-5
+              for e, b in zip(errs, g_clean)),
+          f"repaired step gradients off the clean step's by {max(errs)}")
+    emit("guard_train_step", loss=l_rep.item(), clean_loss=l_clean.item(),
+         planted_tile=[list(c) for c in planted[0]],
+         loss_equal_bits=torch.equal(l_rep, l_clean),
+         grads_equal_bits=all(torch.equal(a, b)
+                              for a, b in zip(g_rep, g_clean)),
+         max_abs_grad_err=max(errs), leaves=len(g_rep), card=card)
+
+
+def phase_guard(torch, device, card):
+    """(q) guarded execution on the card: the models under each mode, the
+    fault classes at the CSR shapes, one CUDA graph, one training step."""
+    totals = phase_guard_models(torch, device, card)
+    for k, v in phase_guard_kernels(torch, device, card).items():
+        totals[k] = totals.get(k, 0) + v
+    phase_guard_graph(torch, device, card)
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        phase_guard_train(torch, device, card)
+    finally:
+        torch.backends.cudnn.deterministic = was
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4836,6 +5367,10 @@ def main() -> int:
     # The SSM configs launch the bf16 fire (row 1's bf16 line) and, in
     # jamba's attention layer, the causal SDSA (row 9).
     for name, n in timed("p_ssm", phase_ssm, torch, device, card).items():
+        totals[name] = totals.get(name, 0) + n
+    # Guarded execution: the models under each mode and the fault classes
+    # on the automatic kernels, kernel 10 behind the repair flag.
+    for name, n in timed("q_guard", phase_guard, torch, device, card).items():
         totals[name] = totals.get(name, 0) + n
     emit("phase_time", name="total", seconds=time.perf_counter() - t_start)
     kernels = []

@@ -72,8 +72,8 @@ Selection order per call (`repro`'s resolution walk on CPU tensors):
 Every degrade warns once per (op, from, to) edge (`reset_fallback_warnings`
 re-arms them) and is attributed ``<chosen><-<requested>``
 (`resolve_with_attribution`, `watch_resolutions`); a platform or payload
-that a backend does not take is filtered silently. The mesh and guard
-routing of `repro`'s registry are not ported yet.
+that a backend does not take is filtered silently. The mesh routing of
+`repro`'s registry is not ported yet.
 
 Hybrid resolution (`use_hybrid`, ``EXSPIKE_BACKEND=hybrid``, `repro`'s
 density-adaptive routing): a call of `HYBRID_OPS` that carries an
@@ -125,6 +125,20 @@ backend (`ref` on the CPU, a degrade, or an explicit override), the words
 are unpacked by an explicit shim that warns once and is attributed
 ``<backend>+unpack``.
 
+Guarded execution (`use_guard`, ``EXSPIKE_GUARD``, as in `repro`): a call of
+`GUARDED_OPS` that carries a map is wrapped outermost, after the unpack
+shim and the hybrid resolution, in the active trust policy: ``off`` (the
+default) adds nothing; ``audit`` checks that the map is an upper bound of
+the payload's support; ``repair`` recomputes a violated call on the
+payload alone. Where the map lives picks the semantics: a map on the host
+is read there (audit raises `GuardViolationError`, repair runs the payload
+alone, `repro`'s concrete semantics); a map on the card is never read on
+the host (`repro`'s traced semantics): audit NaN-poisons the outputs with
+one device flag, and repair launches kernel 10 on the payload behind that
+flag (`ops.guard_repair`). Where the payload lives picks the trusted
+route: `ref` on the host, a kernel route on the card (`cuda-pred` for a
+wrong grid or a host map), never `ref`. See `_guard_shim`.
+
 Gradient contract (as in `repro`): every backend declares how autograd
 goes through it, so training resolves backends exactly as inference does.
 ``differentiable=True``: autograd through `fn` itself gives the `ref`
@@ -142,6 +156,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import math
 import os
 import warnings
 from typing import Callable, Dict, Optional, Tuple
@@ -444,6 +459,259 @@ def watch_resolutions():
         _RESOLUTION_WATCHERS.remove(rec)
 
 
+# ------------------------------------------------------------ guard policy
+# The event stack trusts metadata it never re-derives: carried occupancy
+# maps gate which tiles the event kernels visit, and packed uint32 words
+# ARE the payload. An undercounting or stale map drops live spike
+# contributions with no exception. EXSPIKE_GUARD (or the `use_guard`
+# context) threads a trust policy through every call of GUARDED_OPS that
+# carries a map:
+#
+#   off    — (default) trust the metadata: no added work, the same backend
+#            and attribution;
+#   audit  — check that the carried map is a TRUE UPPER BOUND of the
+#            payload's support: an exact any-nonzero per 128 x 128 tile of
+#            dense spikes, a per-word popcount of packed ones, against the
+#            map. A host map that fails raises GuardViolationError; a card
+#            map NaN-poisons the float outputs (no host read);
+#   repair — a violated call stops trusting the metadata and runs on the
+#            payload alone (words unpacked, map dropped), warned once and
+#            attributed `<be>+repaired`: kernel 10 behind the violation
+#            flag for a card map; for a host map, `ref` on a host payload
+#            and `cuda-pred` on a card payload (never a plain version on
+#            the card).
+#
+# Upper bound, not equality: propagated maps (conv windows, pooling)
+# legitimately overcount, so only support where the map claims empty is a
+# violation; overcounts never flag. econv's map tiles the im2col patch
+# matrix, so its audit is the static grid check only.
+GUARD_ENV_VAR = "EXSPIKE_GUARD"
+GUARD_MODES = ("off", "audit", "repair")
+GUARDED_OPS = HYBRID_OPS
+_SUPPORT_AUDITED_OPS = ("spike_matmul", "apec_matmul")
+_GUARD: list = []            # stack pushed by use_guard()
+
+
+class GuardViolationError(ValueError):
+    """A carried occupancy map failed the upper-bound invariant (payload
+    support in a tile the map claims empty) or arrived on the wrong tile
+    grid for its payload (stale / wrong tiling)."""
+
+
+def guard_mode() -> str:
+    """Active guard policy: innermost `use_guard` frame, else the
+    EXSPIKE_GUARD env var, else "off". Read at resolution, which in the
+    eager port is every call; a captured CUDA graph keeps the mode it was
+    captured under."""
+    if _GUARD:
+        return _GUARD[-1]
+    env = os.environ.get(GUARD_ENV_VAR, "").strip().lower()
+    if not env:
+        return "off"
+    if env not in GUARD_MODES:
+        raise ValueError(
+            f"{GUARD_ENV_VAR}={env!r}: expected one of {GUARD_MODES}")
+    return env
+
+
+@contextlib.contextmanager
+def use_guard(mode: str):
+    """Scoped guard policy (see the "guard policy" block above)."""
+    if mode not in GUARD_MODES:
+        raise ValueError(
+            f"guard mode {mode!r}: expected one of {GUARD_MODES}")
+    _GUARD.append(mode)
+    try:
+        yield
+    finally:
+        _GUARD.pop()
+
+
+# Observers appended by `watch_guard_events`: one record per detected
+# violation — {"op", "backend", "kind", "mode", "action", "attribution",
+# "detail"}, plus "traced": True where the violation was detected on the
+# card (the port's counterpart of `repro`'s detection under jit). A card
+# map's flag is read on the host only while a watcher is open.
+_GUARD_WATCHERS: list = []
+
+
+@contextlib.contextmanager
+def watch_guard_events():
+    rec: list = []
+    _GUARD_WATCHERS.append(rec)
+    try:
+        yield rec
+    finally:
+        _GUARD_WATCHERS.remove(rec)
+
+
+def _guard_record(event: dict) -> None:
+    for rec in _GUARD_WATCHERS:
+        rec.append(dict(event))
+
+
+def _guard_grid(op: str, args: tuple, packed_k,
+                kwargs: dict) -> Optional[Tuple[int, int]]:
+    """Expected (MT, KT) 128x128 tile grid of the carried map for this
+    payload — the flattening `ops.padded_occupancy` and the fires' maps use
+    (rows = prod(leading dims), K = logical features). For econv the map
+    tiles the im2col patch matrix, so the grid comes from the conv
+    geometry. None: geometry unknown, skip the static check."""
+    s = args[0]
+    if op == "econv":
+        if len(args) < 2 or getattr(s, "ndim", 0) < 4:
+            return None
+        kh, kw_, ci, _ = (int(d) for d in args[1].shape)
+        h, w_ = int(s.shape[-3]), int(s.shape[-2])
+        stride = int(kwargs.get("stride", 1))
+        padding = kwargs.get("padding", "SAME")
+        if padding == "SAME":
+            ho, wo = -(-h // stride), -(-w_ // stride)
+        elif padding == "VALID":
+            ho, wo = (h - kh) // stride + 1, (w_ - kw_) // stride + 1
+        else:
+            return None
+        rows = math.prod(s.shape[:-3]) * ho * wo
+        k = ci * kh * kw_
+    else:
+        rows = math.prod(s.shape[:-1])
+        k = int(packed_k) if packed_k is not None else int(s.shape[-1])
+    return (-(-rows // 128), -(-k // 128))
+
+
+def _support_violation(s, occupancy, packed_k):
+    """(support, violated): the payload's (MT, KT) int32 per-tile support
+    counts (nonzeros of dense spikes, popcounts of packed words, 4 words a
+    k-tile; counted in place, `ops.support_map`) and a 0-d bool tensor on
+    the payload's device, set where the payload has support in a tile the
+    carried map claims empty. Exact, not sampled: detection must be total
+    for the guard's contract."""
+    from repro_torch.kernels import ops
+    support = ops.support_map(s, packed_k)
+    return support, ((support > 0) & (occupancy == 0)).any()
+
+
+def _repair_route(op: str, args: tuple, kwargs: dict, route: str = REF):
+    """The guard's safe route: trust only the payload — unpack words, drop
+    the map, run `route`: the `ref` oracle for a payload on the host; for
+    one on the card the op's predicated kernel route `cuda-pred` (kernel
+    10 with its own pre-pass of the payload), never a plain version. Both
+    keep the op's gradient contract."""
+    kw = {k: v for k, v in kwargs.items()
+          if k not in ("occupancy", "packed_k", "csr")}
+    s = args[0]
+    pk = kwargs.get("packed_k")
+    if pk is not None:
+        s = unpack_spikes_padded(s, pk)
+    return _REGISTRY[op].backends[route].fn(s, *args[1:], **kw)
+
+
+def _guard_repair_body(inner):
+    """The repair of a call on a card map: the resolved backend on the
+    carried map, then kernel 10 on the payload alone (words unpacked) with
+    its exact support map, launched behind the violation flag
+    (`ops.guard_repair`): where the flag is set its product overwrites the
+    output. The gradient is the matmul rule's, the trusted route's and the
+    unguarded backends' alike."""
+    def body(s, w, *, occupancy, support, flag, packed_k=None, **static):
+        kw = dict(static, occupancy=occupancy)
+        if packed_k is not None:
+            kw["packed_k"] = packed_k
+        out = inner(s, w, **kw)
+        from repro_torch.kernels import ops
+        payload = s if packed_k is None else unpack_spikes_padded(s, packed_k)
+        return ops.guard_repair(payload, w, support, flag, out)
+    return body
+
+
+def _guard_shim(be: Backend, op: str, mode: str) -> Backend:
+    """Wrap a resolved backend in the active guard policy. The backend
+    name/attribution are unchanged (the guard is policy, not routing);
+    detections surface through GuardViolationError / `watch_guard_events`
+    records / the warn-once `<be>+repaired` repair attribution."""
+    inner = be.fn
+    repaired = f"{be.name}+repaired"
+
+    @functools.wraps(inner)
+    def fn(*args, **kwargs):
+        occ = kwargs.get("occupancy")
+        pk = kwargs.get("packed_k")
+        if occ is None or getattr(occ, "ndim", 0) != 2:
+            return inner(*args, **kwargs)
+        # Where the map lives picks a host read or a device flag; where
+        # the payload lives picks the trusted route (a kernel on the card).
+        on_card = _device_routed(occ)
+        trusted = CUDA_PRED if _platform(args) == "cuda" else REF
+        expected = _guard_grid(op, args, pk, kwargs)
+        if expected is not None and tuple(occ.shape) != expected:
+            # Shapes are static: this check reads nothing on the card and
+            # raises in both semantics (inside a CUDA graph capture too).
+            detail = (f"carried map grid {tuple(occ.shape)} != expected "
+                      f"{expected} for the payload (stale/wrong tiling)")
+            if mode == "audit":
+                _guard_record({"op": op, "backend": be.name, "kind": "grid",
+                               "mode": mode, "action": "raise",
+                               "attribution": be.name, "detail": detail})
+                raise GuardViolationError(f"guard[{op}/{be.name}]: {detail}")
+            _guard_record({"op": op, "backend": be.name, "kind": "grid",
+                           "mode": mode, "action": "repair",
+                           "attribution": repaired, "detail": detail})
+            _warn_once(op, be.name, repaired,
+                       f"exspike guard: {detail}; repairing op {op!r} on "
+                       f"the trusted-payload route ({repaired!r})",
+                       route="guard")
+            return _repair_route(op, args, kwargs, trusted)
+        if op not in _SUPPORT_AUDITED_OPS:
+            return inner(*args, **kwargs)
+        support, violated = _support_violation(args[0], occ, pk)
+        detail = ("carried map claims empty tiles that hold payload "
+                  "support (occupancy undercount / corrupted payload)")
+        event = {"op": op, "backend": be.name, "kind": "undercount",
+                 "mode": mode, "detail": detail}
+        if not on_card:
+            if not bool(violated):
+                return inner(*args, **kwargs)
+            if mode == "audit":
+                _guard_record({**event, "action": "raise",
+                               "attribution": be.name})
+                raise GuardViolationError(f"guard[{op}/{be.name}]: {detail}")
+            _guard_record({**event, "action": "repair",
+                           "attribution": repaired})
+            _warn_once(op, be.name, repaired,
+                       f"exspike guard: {detail}; repairing op {op!r} on "
+                       f"the trusted-payload route ({repaired!r})",
+                       route="guard")
+            return _repair_route(op, args, kwargs, trusted)
+        # A map on the card: no data-dependent raise and no host read (a
+        # sync in every guarded call would stall the launch queue):
+        #   audit  — NaN-poison the float outputs when violated, a loud
+        #            sentinel for the downstream NaN guards (the serve
+        #            loop quarantines non-finite logits) instead of a
+        #            plausible wrong number; clean, `* 1` is exact;
+        #   repair — kernel 10 on the payload behind the flag; the answer
+        #            is right either way, and a CUDA graph of the call
+        #            takes the flag from the map present at replay.
+        # The flag is read on the host only while a watcher is open.
+        action = "record" if mode == "audit" else "repair"
+        attribution = be.name if mode == "audit" else repaired
+        if _GUARD_WATCHERS and bool(violated):
+            _guard_record({**event, "action": action, "traced": True,
+                           "attribution": attribution})
+            _warn_once(op, be.name, attribution,
+                       f"exspike guard: {detail} (op {op!r}, detected "
+                       f"on the card"
+                       + ("; repaired on the trusted-payload route"
+                          if mode == "repair" else "") + ")",
+                       route="guard")
+        if mode == "audit":
+            out = inner(*args, **kwargs)
+            return out * torch.where(violated, torch.nan, 1.0).to(out.dtype)
+        return _wrap_vjp(op, _guard_repair_body(inner), _matmul_bwd)(
+            *args, support=support, flag=violated.to(torch.int32).reshape(1),
+            **kwargs)
+    return dataclasses.replace(be, fn=fn)
+
+
 def _fallback(op: str, wanted: str, reason: str, on_card: bool) -> Backend:
     """`ref` in place of `wanted`, warned once; on the card, an error: the
     plain version never stands in for a kernel there."""
@@ -680,7 +948,10 @@ def resolve_with_attribution(op: str, *args,
     a refused automatic candidate), and ``+unpack`` after the name when a
     packed payload reaches a dense backend. `resolve` /
     `resolve_attribution` are its two projections. On the card it raises
-    where the walk would leave the kernel routes (see the module doc)."""
+    where the walk would leave the kernel routes (see the module doc).
+    Under `use_guard("audit" | "repair")` a call of `GUARDED_OPS` with a
+    map gets the guard outermost, with the name and attribution
+    unchanged."""
     be, attribution = _resolve_payload_blind(op, *args, **kwargs)
     if kwargs.get("packed_k") is not None and "packed" not in be.payload:
         _warn_once(op, "packed", be.name,
@@ -691,6 +962,13 @@ def resolve_with_attribution(op: str, *args,
         shim = _unpack_shim(be)
         attribution = shim.name + attribution[len(be.name):]
         be = shim
+    # The guard wraps OUTERMOST, so the audit sees the payload exactly as
+    # carried (packed words before any unpack shim) and also wraps the
+    # hybrid device body. Off (the default) adds nothing.
+    mode = guard_mode()
+    if mode != "off" and op in GUARDED_OPS \
+            and kwargs.get("occupancy") is not None:
+        be = _guard_shim(be, op, mode)
     for rec in _RESOLUTION_WATCHERS:
         rec.append({"op": op, "backend": be.name,
                     "attribution": attribution})

@@ -161,6 +161,20 @@ def padded_occupancy(s: torch.Tensor, block_m: int = 128,
                                  block_k)
 
 
+def support_map(s: torch.Tensor, packed_k: int | None = None
+                ) -> torch.Tensor:
+    """The payload's own (128, 128) tile map, as the guard audits a carried
+    map against it: nonzeros of dense (..., K) spikes, or popcounts of
+    (..., ceil(K/32)) words with ``packed_k`` (4 words a k-tile), the lead
+    axes flattened into rows, counted in place -> (ceil(R/128),
+    ceil(K/128)) int32."""
+    tile = _csr.TILE
+    if packed_k is None:
+        return padded_occupancy(s, tile, tile)
+    return ragged_packed_tile_occupancy(s.reshape(-1, s.shape[-1]), tile,
+                                        tile)
+
+
 def _check_map(occupancy: torch.Tensor, grid) -> None:
     if tuple(occupancy.shape) != tuple(grid):
         raise ValueError(
@@ -584,3 +598,29 @@ def apec_matmul_hybrid(s: torch.Tensor, w: torch.Tensor, g: int = 2, *,
                            route=route[1:2], out=sums)
     out = sums + psum_ov.repeat_interleave(g, 0)
     return out.reshape(lead + (p, n)).to(w.dtype)
+
+
+# ----------------------------------------------------------------- guard
+def guard_repair(payload: torch.Tensor, w: torch.Tensor,
+                 support: torch.Tensor, flag: torch.Tensor,
+                 out: torch.Tensor) -> torch.Tensor:
+    """The guard's trusted route for a call on a card map
+    (`dispatch.use_guard("repair")`): kernel 10 on the payload alone,
+    (..., K) spikes (words already unpacked) times (K, N), gated by
+    `support`, the payload's exact tile map (`support_map`), and launched
+    behind `flag` (one int32 on the card, set where the carried map failed
+    the audit). Where the flag is set the product replaces `out`, the
+    (..., N) output of the call on the carried map; elsewhere `out` comes
+    back unchanged. An f32 contiguous `out` is written in place."""
+    n = w.shape[-1]
+    s2 = payload.reshape(-1, payload.shape[-1]).float().contiguous()
+    w2 = w.float().contiguous()
+    occ = support.to(torch.int32).contiguous()
+    if out.dtype == torch.float32 and out.is_contiguous():
+        _csr.spike_matmul_pred(s2, w2, occ, route=flag, out=out.view(-1, n))
+        return out
+    fixed = torch.empty((s2.shape[0], n), dtype=torch.float32,
+                        device=out.device)
+    _csr.spike_matmul_pred(s2, w2, occ, route=flag, out=fixed)
+    return torch.where(flag.bool(), fixed.reshape(out.shape).to(out.dtype),
+                       out)

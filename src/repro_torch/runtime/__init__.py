@@ -1,5 +1,6 @@
-"""Runtime: the straggler and occupancy-skew signals, and the serve and
-checkpoint faults. Sharding, elastic restart and the rest of the fault
-injectors wait for ROADMAP queue 1 item 8."""
+"""Runtime: the straggler and occupancy-skew signals, and the fault
+injectors (the guard's event faults, the serve and checkpoint faults).
+Sharding and elastic restart wait for ROADMAP queue 1 item 8's sharded
+half."""
 from . import faults, straggler
 __all__ = ["faults", "straggler"]

@@ -1,38 +1,155 @@
-"""Deterministic fault injectors for the serve loop's quarantine.
+"""Deterministic, seedable fault injectors for the guarded-execution layer.
 
-Each injector returns a corrupted copy (the input is never written), so a
-test can assert the scheduler detected exactly the fault it planted:
+Every injector returns a corrupted copy (never in-place: the event faults
+are pure numpy over host copies, the rest copy the tensors they poison),
+keyed by an integer seed, plus the injected coordinates where there are
+any, so a test can assert the guard detected EXACTLY the fault it
+planted. The same seeds give the reference's faults. The taxonomy mirrors
+what the stack trusts:
 
-  nan_params         NaN'd parameter leaves (a poisoned optimizer step or
-                     a corrupt weight load); serve's logit quarantine is
-                     the detector
-  nan_decode_state   NaN'd per-slot decode state; the next decode step's
-                     logits for that slot are non-finite and the slot is
-                     quarantined
+  occupancy_undercount   carried map claims occupied tiles empty — the
+                         event kernels would silently skip live work
+  occupancy_overcount    map claims empty tiles occupied — LEGAL (maps
+                         are upper bounds): wasted tile visits, not
+                         wrong numerics; the audit must NOT flag it
+  packed_bitflip         uint32 spike words gain set bits (0->1 only:
+                         a 1->0 flip keeps the map a valid upper bound
+                         and is invisible to bound checking — documented
+                         detection asymmetry)
+  stale_csr              TileCSR with wrong tiling / map-grid tags — the
+                         consumers' `check_compatible` rejects it loudly
+  nan_params             NaN'd parameter leaves (training/serve poison)
+  nan_decode_state       NaN'd per-slot decode state (serve quarantine)
+  truncated_checkpoint   a leaf file truncated mid-write (crashed/dropped
+                         writer) — restore must detect and walk back
+  dropped_shard          a data-shard group disappears mid-training —
+                         recovered via `elastic.shrunk_mesh` +
+                         `reshard_restore`, which wait for ROADMAP queue 1
+                         item 8's sharded half (no injector here yet)
 
-The checkpoint faults write the files of a committed checkpoint, as the
-reference's do:
-
-  truncate_checkpoint    a leaf file cut short (a writer that died
-                         mid-flush); restore must detect it and
-                         `restore_latest` walk back
-  drop_checkpoint_file   a leaf file gone (a lost shard)
-
-The rest of the reference's taxonomy waits for ROADMAP queue 1 item 8:
-`FAULT_CLASSES`, the occupancy under- and overcount, packed bit-flip and
-stale-CSR faults, and `GuardViolationError`.
+`FAULT_CLASSES` names the full set, in the reference's order. The first
+three classes are detected by the guard (`kernels.dispatch.use_guard`),
+`stale_csr` by `TileCSR.check_compatible`.
 """
 from __future__ import annotations
 
 import os
-from typing import Any
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.models.lm import _tree_map
 
+# Detection home of each class.
+FAULT_CLASSES = (
+    "occupancy_undercount",    # kernels: guard audit/repair
+    "occupancy_overcount",     # kernels: guard no-flag (upper bound)
+    "packed_bitflip",          # kernels: guard audit/repair (popcount)
+    "stale_csr",               # kernels: TileCSR.check_compatible
+    "nan_params",              # serve: NaN/inf logit quarantine
+    "nan_decode_state",        # serve: NaN/inf logit quarantine
+    "truncated_checkpoint",    # checkpoint: CRC/size check + walk-back
+    "dropped_shard",           # runtime: shrunk_mesh + reshard_restore
+)
 
+# Re-export: the guard's violation type lives with the policy.
+from repro_torch.kernels.dispatch import GuardViolationError  # noqa: E402,F401
+
+
+def _host(x) -> np.ndarray:
+    """A numpy copy of a tensor (on any device) or array."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        if x.dtype == torch.uint32:      # words: reinterpret, never convert
+            return x.view(torch.int32).numpy().view(np.uint32).copy()
+        return x.numpy().copy()
+    return np.array(x, copy=True)
+
+
+# ------------------------------------------------------------- occupancy
+def undercount_occupancy(occ, n_tiles: int = 1, seed: int = 0
+                         ) -> Tuple[np.ndarray, List[Tuple[int, int]]]:
+    """Zero `n_tiles` occupied entries of a carried map: the classic
+    silent-drop fault (kernels skip tiles that hold live events).
+    Returns (bad_map, [(mt, kt) coords zeroed])."""
+    bad = _host(occ)
+    occupied = np.argwhere(bad > 0)
+    if occupied.shape[0] == 0:
+        raise ValueError("map has no occupied tiles to undercount")
+    rng = np.random.default_rng(seed)
+    pick = rng.choice(occupied.shape[0],
+                      size=min(n_tiles, occupied.shape[0]), replace=False)
+    coords = [tuple(int(c) for c in occupied[i]) for i in pick]
+    for c in coords:
+        bad[c] = 0
+    return bad, coords
+
+
+def overcount_occupancy(occ, n_tiles: int = 1, seed: int = 0,
+                        count: int = 7
+                        ) -> Tuple[np.ndarray, List[Tuple[int, int]]]:
+    """Claim `n_tiles` empty entries occupied (or inflate occupied counts
+    when no tile is empty). LEGAL under the upper-bound contract: the
+    guard must pass it and the numerics must be unchanged — this is the
+    audit's false-positive control."""
+    bad = _host(occ)
+    empty = np.argwhere(bad == 0)
+    rng = np.random.default_rng(seed)
+    if empty.shape[0] == 0:
+        coords = []
+        bad += count                     # inflate: still an upper bound
+    else:
+        pick = rng.choice(empty.shape[0],
+                          size=min(n_tiles, empty.shape[0]), replace=False)
+        coords = [tuple(int(c) for c in empty[i]) for i in pick]
+        for c in coords:
+            bad[c] = count
+    return bad, coords
+
+
+# ---------------------------------------------------------------- packed
+def flip_packed_bits(words, n_bits: int = 4, seed: int = 0
+                     ) -> Tuple[np.ndarray, List[Tuple[int, ...]]]:
+    """SET `n_bits` random zero bits of a uint32 word tensor (0->1 only).
+    Sets create payload support the carried map never counted, which the
+    guard's popcount audit detects; 1->0 clears keep the map a valid
+    upper bound and are deliberately not injected (bound checking cannot
+    see them — a paired exact-count map would be needed).
+    Returns (corrupted_words, [(word_idx..., bit) flipped])."""
+    w = _host(words)
+    if w.dtype != np.uint32:
+        raise ValueError(f"expected uint32 words, got {w.dtype}")
+    bits = (w[..., None] >> np.arange(32, dtype=np.uint32)) & 1
+    zero_coords = np.argwhere(bits == 0)
+    if zero_coords.shape[0] == 0:
+        raise ValueError("no zero bits to flip")
+    rng = np.random.default_rng(seed)
+    pick = rng.choice(zero_coords.shape[0],
+                      size=min(n_bits, zero_coords.shape[0]), replace=False)
+    flipped = []
+    for i in pick:
+        *idx, bit = (int(c) for c in zero_coords[i])
+        w[tuple(idx)] |= np.uint32(1) << np.uint32(bit)
+        flipped.append(tuple(idx) + (bit,))
+    return w, flipped
+
+
+# ------------------------------------------------------------------- CSR
+def stale_csr(csr, tiling: Optional[Tuple[int, int]] = (64, 64),
+              map_shape: Optional[Tuple[int, int]] = None):
+    """A TileCSR whose compatibility tags no longer match the call site
+    (built for another tiling / another map grid). Consumers reject it
+    via `TileCSR.check_compatible` — the loud path this injector pins."""
+    kw = {}
+    if tiling is not None:
+        kw["tiling"] = tuple(tiling)
+    if map_shape is not None:
+        kw["map_shape"] = tuple(map_shape)
+    return csr._replace(**kw)
+
+
+# ------------------------------------------------------------- NaN poison
 def _is_float_leaf(x) -> bool:
     return isinstance(x, torch.Tensor) and x.is_floating_point()
 
@@ -89,6 +206,7 @@ def nan_decode_state(state: Any, slot: int, seed: int = 0) -> Any:
     return _tree_map(poison, state)
 
 
+# ------------------------------------------------------------ checkpoints
 def _leaf_file(ckpt_dir: str, seed: int) -> str:
     """One leaf file of a checkpoint, chosen by `seed` (the reference's
     choice)."""
