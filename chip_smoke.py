@@ -261,12 +261,41 @@ Phases, each printed on its own line:
       one training step under repair with an undercount planted in block
       0's fc1: the loss and every gradient within 1e-5 of the clean step.
       Each line carries the card's name and power limit;
+  (r) the mesh and sharded event execution on a logical mesh of 8 `data`
+      positions on the one card: (r1) the card's host mesh
+      (`make_host_mesh(device="cuda:0")`) resolves as no mesh;
+      SpikingFormer-4-384 (c's first batch) under `use_mesh(8 positions)`
+      keeps every kernel route, its logits and spikes bit for bit with
+      the meshless forward; VGG11 / ResNet18 / SegNet-64 print each call
+      whose per-shard rows are ragged with its `chosen<-requested`
+      attribution, each degrade warned once, spike drift within
+      FREE_RUNNING_SPIKE_TOL; (r2) `event_op_sharded` at fc1, fc2 and
+      stage 1 on the model's maps and on 50% clustered data with a hot
+      band: `spike_matmul` dense (kernel 12) and packed (14), APEC dense
+      (19 + 18) and packed (19 + 16), static, rebalanced and (CSR) on a
+      caller's `csr_stack`, each equal to the unsharded call (12 / 14 bit
+      for bit, APEC within 1e-5·max|ref| + 1e-5), one launch of the
+      route's kernels a shard, no pre-pass, `spike_matmul`'s rebalanced
+      run (``rebalance=True``: one host read of the card's map, the
+      static run none) strictly below the static imbalance on the hot
+      band and APEC's equal to it (only the work-list route rebalances),
+      host syncs and device ms beside the unsharded call's; 7680 rows
+      walking the chain to kernel 10 (`cuda-pred<-cuda-pipe`); the weight
+      gradient within 1e-5 of max|ref|; (r3) TinyLlama-1.1B's `Server`
+      under both meshes with (m)'s traffic, the meshless tokens and
+      launches exactly, and `python -m repro_torch.launch.serve --mesh`;
+      (r4) `train_loop(mesh=make_host_mesh(device="cuda:0"))` at
+      TinyLlama width, 2 steps, the meshless losses bit for bit; (r5) the
+      reference's elastic drill at its `drill` config: saves at 3, 6, 9,
+      the newest torn, (4, 2) shrunk to (2, 2), restored at step 6,
+      resumed within 0.05 of the healthy run;
   (d) one JSON line listing every kernel with its launches on the main
       paths ((c) and (h) for inference kernels, (f) for the training
       ones, (i) for the APEC ones, (j) for the packed ones, (k), (m) and
       (o) and (p) for the LM ones, (l) adding its hybrid forwards' and APEC
       calls', (n) the training fires', (q) its guarded forwards' and
-      fault calls'; the serial kernels 11, 13, 15 and 17 by their override
+      fault calls', (r) its mesh forwards', sharded calls', serving and
+      training; the serial kernels 11, 13, 15 and 17 by their override
       calls), error and times (rows 16 and 18: kernels 16 and 18).
 Each phase prints its wall time on a `phase_time` line.
 The last line is {"ok": true, "device": {...}}. Any failed check exits
@@ -289,10 +318,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
-FP32_FLOPS = 67e12               # H100 SXM fp32, CUDA cores
-BF16_TC_FLOPS = 989e12           # H100 SXM bf16, tensor cores, dense
-TF32_FLOPS = 495e12              # H100 SXM TF32, tensor cores, dense
+try:
+    # The card's data-sheet rates (H100 SXM: HBM3, fp32 on the CUDA cores,
+    # bf16 / TF32 on the tensor cores, dense): the port's one source.
+    from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_TC_FLOPS
+    from repro_torch.launch.mesh import PEAK_FLOPS_FP32 as FP32_FLOPS
+    from repro_torch.launch.mesh import PEAK_FLOPS_TF32 as TF32_FLOPS
+except ImportError:     # the script without the repo: main() refuses
+    HBM_BYTES_PER_S = FP32_FLOPS = BF16_TC_FLOPS = TF32_FLOPS = None
 # bf16 MMAs per fp32 product in the pipelined APEC kernels 18 / 16: binary
 # spikes times the exact split w = hi + mid + lo (csrc/tile_tc.cuh).
 APEC_SPLIT_PARTS = 3
@@ -2941,8 +2975,8 @@ def hybrid_calls(dispatch):
     calls = []
     orig = dispatch._hybrid_resolution
 
-    def record(spec, op, kwargs, reason_of):
-        got = orig(spec, op, kwargs, reason_of)
+    def record(spec, op, kwargs, *rest):
+        got = orig(spec, op, kwargs, *rest)
         if got is not None:
             calls.append((op, kwargs["occupancy"], got[1]))
         return got
@@ -3375,16 +3409,16 @@ def drive(torch, server, reqs, poison=None, waves=SERVE_WAVES) -> float:
 
 
 def serve_run(torch, cfg, spiking, device, traffic, only=None, poison=None,
-              backend=None, slots=SERVE_SLOTS, waves=SERVE_WAVES):
-    """One Server of `slots` slots over `traffic` (or over the requests
-    `only` of it, alone): (server, requests, call log, wall s, launches of
-    the run). The launch counters are set to 0 just before the run and
-    read just after it."""
+              backend=None, slots=SERVE_SLOTS, waves=SERVE_WAVES, mesh=None):
+    """One Server of `slots` slots (under `mesh`, if given) over `traffic`
+    (or over the requests `only` of it, alone): (server, requests, call
+    log, wall s, launches of the run). The launch counters are set to 0
+    just before the run and read just after it."""
     from repro_torch.kernels import dispatch, launch_counts, \
         reset_launch_counts
     from repro_torch.launch.serve import Request, Server
     server = Server(cfg, n_slots=slots, max_seq=SERVE_MAX_SEQ,
-                    spiking=spiking, seed=SEED, device=device)
+                    spiking=spiking, seed=SEED, device=device, mesh=mesh)
     reqs = [Request(rid=i, prompt=list(p), max_new=m)
             for i, (p, m) in enumerate(traffic)]
     if only is not None:
@@ -5294,6 +5328,550 @@ def phase_guard(torch, device, card):
     return totals
 
 
+# ------------------------------------------------------------ phase (r)
+# Mesh-aware resolution and sharded event execution on a logical mesh of
+# MESH_SHARDS `data` positions on the one card: each shard's rows, work
+# list and kernel launch, not placement across cards.
+MESH_SHARDS = 8
+MESH_APEC_G = 2
+# 7680 rows over 8 shards: 960 a shard, not a multiple of 128.
+MESH_RAGGED_ROWS = 7680
+MESH_REPS = 5
+# Sharded against unsharded where the route is not bit for bit (APEC's
+# tensor-core kernels, the ragged grid's kernel 10): of max|ref|, + 1e-5.
+MESH_TOL = 1e-5
+# The kernels one shard of each sharded route launches.
+MESH_SHARD_LAUNCHES = {
+    ("spike_matmul", False): {"spike_matmul_csr_pipe": 1},
+    ("spike_matmul", True): {"spike_matmul_packed_csr_pipe": 1},
+    ("apec_matmul", False): {"apec_decompose_spikes": 1,
+                             "apec_matmul_csr_pipe": 1},
+    ("apec_matmul", True): {"apec_decompose": 1,
+                            "apec_matmul_packed_csr_pipe": 1}}
+MESH_TRAIN_STEPS = 2
+# The reference's elastic drill (tests/conftest.py `elastic_drill`): its
+# `drill` config, 10 steps saving every 3, two of four data groups lost.
+DRILL_STEPS, DRILL_SAVE_EVERY, DRILL_TOL = 10, 3, 0.05
+
+
+def add_counts(totals: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+
+
+def mesh8(device):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh((MESH_SHARDS, 1), ("data", "model"), devices=device)
+
+
+def mesh_forward(torch, forward, mesh):
+    """One forward (`forward()` -> (out, spikes)) under `use_mesh(mesh)`
+    (none for None), with fresh warn-once edges: its outputs, each
+    registry call's (op, attribution, per-shard rows of its first
+    operand), the degrade warnings and the launches."""
+    import warnings
+    from repro_torch.kernels import dispatch, launch_counts, \
+        reset_launch_counts
+    shapes = []
+    orig = dispatch.dispatch
+
+    def record(op, *args, **kwargs):
+        shapes.append(tuple(args[0].shape))
+        return orig(op, *args, **kwargs)
+    dispatch.reset_fallback_warnings()
+    reset_launch_counts()
+    dispatch.dispatch = record
+    try:
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(torch.inference_mode())
+            seen = stack.enter_context(dispatch.watch_resolutions())
+            warned = stack.enter_context(
+                warnings.catch_warnings(record=True))
+            warnings.simplefilter("always")
+            if mesh is not None:
+                stack.enter_context(dispatch.use_mesh(mesh))
+            out, stats = forward()
+    finally:
+        dispatch.dispatch = orig
+    torch.cuda.synchronize()
+    check(len(seen) == len(shapes), "a registry call resolved twice")
+    n = dispatch.data_shard_count(mesh)
+    calls = [(r["op"], r["attribution"],
+              -(-shape[0] // n) * math.prod(shape[1:-1]))
+             for r, shape in zip(seen, shapes)]
+    return dict(out=out, stats=stats, calls=calls,
+                launches=launch_counts(),
+                warnings=[str(w.message) for w in warned
+                          if issubclass(w.category, RuntimeWarning)])
+
+
+def phase_mesh_resolution(torch, device, card):
+    """(r1): resolution on the host mesh is the meshless one;
+    SpikingFormer-4-384 under an 8-position data mesh keeps every kernel
+    route, bit for bit; the CNNs print their ragged per-shard calls, each
+    degrade warned once, outputs within the drift gate."""
+    from repro_torch.configs.base import SpikingConfig
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import spikingformer as sf
+    host = make_host_mesh(device=device)
+    check(dispatch.data_shard_count(host) == 1,
+          f"the host mesh {host} splits rows")
+    for packed in (False, True):
+        flat = dispatch.resolved_backends(device, packed=packed)
+        on_host = dispatch.resolved_backends(device, packed=packed,
+                                             mesh=host)
+        check(on_host == flat, f"host-mesh resolution {on_host} != {flat}")
+    mesh = mesh8(device)
+    emit("mesh_resolution", card=card, host_mesh=repr(host),
+         host_resolution=dispatch.resolved_backends(device, mesh=host),
+         mesh8_resolution=dispatch.resolved_backends(device, mesh=mesh))
+    totals: dict = {}
+    params = sf.spikingformer_init(
+        DEPTH, DIM, generator=torch.Generator().manual_seed(SEED),
+        device=device)
+    x = torch.rand((B, 32, 32, 3),
+                   generator=torch.Generator().manual_seed(SEED + 1)
+                   ).to(device)
+    cfg = SpikingConfig(t_steps=T, lif_vth=V_TH)
+
+    def sf_forward():
+        return sf.spikingformer_apply(params, x, n_heads=HEADS,
+                                      spiking_cfg=cfg, collect_stats=True)
+    models = [("spikingformer", sf_forward)]
+    for name in ("vgg11", "resnet18", "segnet"):
+        _, forward, batch = cnn_setup(torch, name, device)
+        models.append((name, functools.partial(
+            lambda f, xb: f(xb, collect_stats=True), forward, batch(0))))
+    for name, forward in models:
+        flat = mesh_forward(torch, forward, None)
+        under = mesh_forward(torch, forward, mesh)
+        ragged = [dict(call=i, op=op, attribution=a, shard_rows=rows)
+                  for i, ((op, a, rows), (_, a0, _)) in
+                  enumerate(zip(under["calls"], flat["calls"])) if a != a0]
+        drift = [(a != b).float().mean().item()
+                 for a, b in zip(under["stats"], flat["stats"])]
+        emit("mesh_forward", card=card, model=name, shards=MESH_SHARDS,
+             calls=len(under["calls"]), ragged_calls=ragged,
+             warnings=under["warnings"], launches=under["launches"],
+             meshless_launches=flat["launches"],
+             max_abs_dout=(under["out"] - flat["out"]).abs().max().item(),
+             layer_differing_share=drift)
+        check(len(under["calls"]) == len(flat["calls"]),
+              f"{name}: {len(under['calls'])} registry calls under the "
+              f"mesh, {len(flat['calls'])} without")
+        check(bool(torch.isfinite(under["out"]).all()),
+              f"{name}: outputs under the mesh not finite")
+        for r in ragged:
+            check("<-" in r["attribution"] and r["shard_rows"] % 128,
+                  f"{name}: call {r} moved without a ragged shard grid")
+        check(len(set(under["warnings"])) == len(under["warnings"]),
+              f"{name}: a degrade warned twice: {under['warnings']}")
+        check({r["op"] for r in ragged} == {
+            m.split("for op '")[1].split("'")[0] for m in under["warnings"]
+            if "for op '" in m},
+              f"{name}: the warned ops are not the degraded ones")
+        if name == "spikingformer":
+            check(not ragged and torch.equal(under["out"], flat["out"])
+                  and all(torch.equal(a, b) for a, b in
+                          zip(under["stats"], flat["stats"]))
+                  and under["launches"] == flat["launches"],
+                  "spikingformer under the mesh is not the meshless "
+                  "forward bit for bit")
+        check(max(drift) <= FREE_RUNNING_SPIKE_TOL,
+              f"{name}: spikes under the mesh drift by {max(drift)}")
+        add_counts(totals, under["launches"])
+    return totals
+
+
+def hot_band_spikes(torch, m, k, gen, device):
+    """50% clustered spikes (`clustered_spikes`) whose first eighth of
+    row tiles is fully occupied: the static split loads shard 0 most."""
+    s = clustered_spikes(torch, m, k, gen, device)
+    band = -(-m // 128) // MESH_SHARDS * 128
+    s[:band] = (torch.rand((band, k), generator=gen) < 0.2).float().to(
+        device)
+    return s
+
+
+def mesh_operands(torch, device):
+    """(label, data, spikes, weights, carried map) at fc1, fc2 and stage 1
+    on the model's own maps (one captured forward) and on 50% clustered
+    data with a hot band."""
+    from repro_torch.kernels import dispatch, ops
+    cap = apec_capture(torch, device)
+    (s1, w1, m1), (s2, w2, m2) = cap["spike_matmul"][:2]
+    s_conv, w_conv, m_conv = cap["econv"][0]
+    kh, kw, ci, co = w_conv.shape
+    cases = (("ffn_fc1", s1.reshape(-1, s1.shape[-1]), w1, m1),
+             ("ffn_fc2", s2.reshape(-1, s2.shape[-1]), w2, m2),
+             ("econv_stage1",
+              dispatch.econv_patches(s_conv, kh, kw, 1, "SAME"),
+              w_conv.permute(2, 0, 1, 3).reshape(ci * kh * kw, co), m_conv))
+    gen = torch.Generator().manual_seed(SEED + 7)
+    out = []
+    for label, s, w, occ in cases:
+        w = w.float().contiguous()
+        hot = hot_band_spikes(torch, s.shape[0], s.shape[1], gen, device)
+        out.append((label, "model", s.contiguous(), w, occ))
+        out.append((label, "clustered50_hotband", hot, w,
+                    ops.padded_occupancy(hot)))
+    return out
+
+
+def sharded_call_check(torch, mesh, op, packed, label, data, s, w, occ,
+                       card, totals):
+    """One op and payload at one shape: the unsharded call, then
+    `event_op_sharded` static, rebalanced and (spike_matmul) on a
+    caller's `csr_stack`, each gated: equal to the unsharded output (bit
+    for bit for kernels 12 / 14, APEC within 1e-5·max|ref| + 1e-5), one
+    launch of the route's kernels a shard, no pre-pass; host syncs and
+    device ms beside the unsharded call's."""
+    from repro_torch.core.spikes import (pack_spikes_padded,
+                                         shard_occupancy_to_csr,
+                                         stack_shard_csrs,
+                                         watch_occupancy_prepasses,
+                                         watch_word_prepasses)
+    from repro_torch.kernels import dispatch, launch_counts, \
+        reset_launch_counts
+    from repro_torch.runtime import sharding
+    payload = pack_spikes_padded(s) if packed else s
+    kw = {"packed_k": s.shape[-1]} if packed else {}
+    if op == "apec_matmul":
+        kw["g"] = MESH_APEC_G
+    want = {k: n * MESH_SHARDS
+            for k, n in MESH_SHARD_LAUNCHES[(op, packed)].items()}
+
+    def unsharded():
+        with torch.inference_mode():
+            return dispatch.dispatch(op, payload, w, occupancy=occ, **kw)
+    flat = unsharded()
+    torch.cuda.synchronize()
+    tol = MESH_TOL * flat.abs().max().item() + MESH_TOL
+    variants = [("static", {"occupancy": occ, "rebalance": False}),
+                ("rebalanced", {"occupancy": occ, "rebalance": True})]
+    if op == "spike_matmul":
+        # The caller's own work lists: its one explicit read of the map.
+        variants.append(("csr_stack", {"csr_stack": stack_shard_csrs(
+            shard_occupancy_to_csr(occ.cpu(), MESH_SHARDS,
+                                   tiling=(128, 128), device=s.device))}))
+    else:
+        check(raises(ValueError, lambda: sharding.event_op_sharded(
+            mesh, op, payload, w, csr_stack=object(), **kw)),
+              f"{op}: csr_stack not refused")
+    reports = {}
+    for variant, extra in variants:
+        def sharded(extra=extra, report=False):
+            with torch.inference_mode():
+                return sharding.event_op_sharded(mesh, op, payload, w,
+                                                 with_report=report,
+                                                 **extra, **kw)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        with watch_occupancy_prepasses() as pre, \
+                watch_word_prepasses() as words:
+            out = sharded()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        # The report's per-shard counts run each shard's own pre-pass of
+        # its spikes (as `repro`'s report does): a call apart, uncounted.
+        _, rep = sharded(report=True)
+        what = f"{op} {'packed' if packed else 'dense'} {label} {data} " \
+               f"{variant}"
+        check(counts == {k: want.get(k, 0) for k in counts},
+              f"{what}: launches {counts} != {want}")
+        check(pre["calls"] == 0 and words["calls"] == 0,
+              f"{what}: {pre['calls']} dense and {words['calls']} word "
+              f"pre-passes")
+        err = (out - flat).abs().max().item()
+        same = torch.equal(out, flat)
+        check(same if op == "spike_matmul" else err <= tol,
+              f"{what}: off the unsharded call by {err}")
+        add_counts(totals, counts)
+        syncs = sync_count(torch, sharded)
+        ms, flat_ms = turns_ms(torch, sharded, unsharded, reps=MESH_REPS)
+        imb = rep["occupancy"]
+        reports[variant] = imb
+        rebalances = variant == "rebalanced" and op == "spike_matmul"
+        check(rep["host_reads"] == int(rebalances),
+              f"{what}: {rep['host_reads']} host reads of the map")
+        emit("mesh_sharded", card=card, op=op, packed=packed, case=label,
+             data=data, variant=variant, shards=rep["n_shards"],
+             attribution=rep["attribution"],
+             occupancy_source=rep["occupancy_source"],
+             host_reads=rep["host_reads"], host_syncs=syncs,
+             per_shard=list(imb.per_shard), imbalance=imb.imbalance,
+             pre_per_shard=list(imb.pre_per_shard),
+             pre_imbalance=imb.pre_imbalance, bit_for_bit=same,
+             max_abs_err=err, tolerance=tol, ms=ms, unsharded_ms=flat_ms,
+             launches=counts)
+        check(rep["attribution"] == dispatch.resolve_attribution(
+            op, payload, w, occupancy=occ, **kw),
+              f"{what}: attribution {rep['attribution']}")
+    reb, sta = reports["rebalanced"], reports["static"]
+    if op != "spike_matmul":
+        # Only the work-list route rebalances (as in `repro`).
+        check(not reb.pre_per_shard and reb.imbalance == sta.imbalance,
+              f"{op} {label}: APEC rebalanced ({reb})")
+    elif data != "model":
+        # The hot band: the plan must engage and strictly win.
+        check(bool(reb.pre_per_shard) and reb.imbalance < sta.imbalance
+              and reb.pre_imbalance == sta.imbalance,
+              f"{op} {label}: rebalanced imbalance {reb.imbalance} "
+              f"(pre {reb.pre_per_shard}) not below static "
+              f"{sta.imbalance}")
+
+
+
+def phase_mesh_sharded(torch, device, card):
+    """(r2): `event_op_sharded` at SpikingFormer-4-384's fc1, fc2 and
+    stage-1 shapes over 8 shards: dense (kernel 12), packed (14), APEC
+    dense (19 + 18) and packed (19 + 16), on the model's maps and on a hot
+    band; the ragged 7680-row case; the weight gradient."""
+    import warnings
+    from repro_torch.kernels import dispatch, launch_counts, ops, \
+        reset_launch_counts
+    from repro_torch.runtime import sharding
+    mesh = mesh8(device)
+    totals: dict = {}
+    operands = mesh_operands(torch, device)
+    for label, data, s, w, occ in operands:
+        for op in ("spike_matmul", "apec_matmul"):
+            for packed in (False, True):
+                sharded_call_check(torch, mesh, op, packed, label, data, s,
+                                   w, occ, card, totals)
+    # The ragged grid: 960 rows a shard walk the chain to kernel 10.
+    _, _, s, w, _ = operands[0]
+    s = s[:MESH_RAGGED_ROWS].contiguous()
+    occ = ops.padded_occupancy(s)
+    with torch.inference_mode():
+        flat = dispatch.dispatch("spike_matmul", s, w, occupancy=occ)
+    dispatch.reset_fallback_warnings()
+    reset_launch_counts()
+    with torch.inference_mode(), warnings.catch_warnings(record=True) as \
+            warned:
+        warnings.simplefilter("always")
+        out, rep = sharding.event_op_sharded(mesh, "spike_matmul", s, w,
+                                             occupancy=occ, with_report=True)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    err = (out - flat).abs().max().item()
+    tol = MESH_TOL * flat.abs().max().item() + MESH_TOL
+    emit("mesh_ragged", card=card, rows=MESH_RAGGED_ROWS,
+         attribution=rep["attribution"],
+         occupancy_source=rep["occupancy_source"], launches=counts,
+         warnings=[str(x.message) for x in warned], max_abs_err=err,
+         bit_for_bit=torch.equal(out, flat), tolerance=tol)
+    check(rep["attribution"] == "cuda-pred<-cuda-pipe" and err <= tol,
+          f"ragged shards: {rep['attribution']}, off by {err}")
+    check(counts == {k: MESH_SHARDS if k == "spike_matmul_pred" else 0
+                     for k in counts}, f"ragged shards launched {counts}")
+    add_counts(totals, counts)
+    # The weight gradient through the shards against the unsharded one.
+    for op in ("spike_matmul", "apec_matmul"):
+        # Clones: the captured forward made inference tensors, which
+        # autograd does not save.
+        s, w, occ = (t.clone() for t in operands[0][2:])
+        kw = {"g": MESH_APEC_G} if op == "apec_matmul" else {}
+        g = torch.randn((s.shape[0], w.shape[1]),
+                        generator=torch.Generator().manual_seed(SEED)
+                        ).to(device)
+        grads = []
+        for sharded in (True, False):
+            wr = w.clone().requires_grad_(True)
+            out = sharding.event_op_sharded(mesh, op, s, wr, occupancy=occ,
+                                            **kw) if sharded else \
+                dispatch.dispatch(op, s, wr, occupancy=occ, **kw)
+            grads.append(torch.autograd.grad((out * g).sum(), wr)[0])
+        rel = ((grads[0] - grads[1]).abs().max()
+               / grads[1].abs().max()).item()
+        emit("mesh_grad", card=card, op=op, case="ffn_fc1_model",
+             max_rel_dw=rel)
+        check(rel <= MESH_TOL, f"{op}: sharded dw off by {rel}")
+    return totals
+
+
+def phase_mesh_serve(torch, device, card):
+    """(r3): TinyLlama-1.1B uncut through `Server(mesh=...)` with (m)'s
+    staggered traffic, on the 8-position data mesh and the host mesh:
+    clean, the meshless Server's tokens and launches exactly; the CLI with
+    `--mesh`."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = get_config(LM_ARCH)
+    traffic = serve_requests(cfg)
+    totals: dict = {}
+    _, flat_reqs, log, _, flat_counts = serve_run(torch, cfg, True, device,
+                                                  traffic)
+    add_counts(totals, flat_counts)
+    for name, mesh in (("mesh8", mesh8(device)),
+                       ("host", make_host_mesh(device=device))):
+        server, reqs, log, wall, counts = serve_run(torch, cfg, True, device,
+                                                    traffic, mesh=mesh)
+        clean_run_checks(server, reqs, log, counts, True, f"mesh {name}")
+        same = [r.generated == q.generated for r, q in zip(reqs, flat_reqs)]
+        emit("mesh_serve", card=card, mesh=name,
+             resolved=dispatch.resolved_backends(device, mesh=mesh),
+             wall_s=wall, tokens_equal=all(same), launches=counts,
+             meshless_launches=flat_counts)
+        check(all(same), f"mesh {name}: tokens differ from the meshless "
+              f"Server's")
+        check(counts == flat_counts, f"mesh {name}: launches {counts} != "
+              f"{flat_counts}")
+        add_counts(totals, counts)
+        free_card(torch)
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", LM_ARCH,
+         "--reduced", "--mesh", "--requests", "2", "--max-new", "4"],
+        capture_output=True, text=True, timeout=600, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    lines = cli.stdout.splitlines()
+    emit("mesh_serve_cli", card=card, rc=cli.returncode,
+         first_line=lines[0] if lines else "", stderr=cli.stderr[-2000:])
+    check(cli.returncode == 0 and lines and "(mesh-aware)" in lines[0],
+          f"serve --mesh exited {cli.returncode}")
+    return totals
+
+
+def meshless_train(torch, cfg, device, steps):
+    """`train_loop`'s run without a mesh: the same init, optimizer,
+    schedule and batches through `make_train_step` with no mesh."""
+    from repro_torch.data import pipeline, synthetic
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw, schedule as sched
+    params = lm.init_params(cfg, SEED, device=device)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, state_dtype=cfg.opt_state_dtype)
+    opt = adamw.init(params, opt_cfg)
+    step_fn = steps_mod.make_train_step(cfg, opt_cfg, functools.partial(
+        sched.warmup_cosine, warmup_steps=max(2, steps // 20),
+        total_steps=steps), spiking=cfg.spiking.enabled)
+    losses = []
+    for step in range(steps):
+        batch = pipeline.device_put_batch(synthetic.lm_batch(
+            SEED, 0, step, LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg.vocab), device)
+        params, opt, metrics = step_fn(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+    return losses
+
+
+def phase_mesh_train(torch, device, card):
+    """(r4): `train_loop(mesh=make_host_mesh(device=device))` (the card's
+    host mesh) at TinyLlama-1.1B width,
+    MESH_TRAIN_STEPS steps: the losses of the meshless steps bit for
+    bit."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = get_config(LM_ARCH)
+    reset_launch_counts()
+    out = train.train_loop(cfg, steps=MESH_TRAIN_STEPS, batch=LM_TRAIN_BATCH,
+                           seq=LM_TRAIN_SEQ, seed=SEED, log_every=1,
+                           device=device,
+                           mesh=make_host_mesh(device=device))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    del out["params"], out["opt_state"]
+    free_card(torch)
+    flat = meshless_train(torch, cfg, device, MESH_TRAIN_STEPS)
+    free_card(torch)
+    emit("mesh_train", card=card, losses=out["losses"],
+         meshless_losses=flat, launches=counts)
+    check(out["losses"] == flat, f"train_loop on the host mesh: losses "
+          f"{out['losses']} != meshless {flat}")
+    return counts
+
+
+def drill_loop(torch, cfg, mesh, params, opt, batches, start, stop,
+               mgr=None):
+    """The reference's `_drill_loop`: the same global batches whatever the
+    mesh, a warmup-cosine AdamW step resolved under `mesh`, a save after
+    every `save_every`-th update (labelled with the updates taken)."""
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.optim import adamw, schedule as sched
+    step_fn = steps_mod.make_train_step(
+        cfg, adamw.AdamWConfig(lr=1e-2), functools.partial(
+            sched.warmup_cosine, warmup_steps=2, total_steps=DRILL_STEPS),
+        spiking=False, mesh=mesh)
+    dev = mesh.distinct_devices()[0]
+    losses = []
+    for t in range(start, stop):
+        params, opt, metrics = step_fn(
+            params, opt, pipeline.device_put_batch(batches[t], dev))
+        losses.append(float(metrics["loss"]))
+        if mgr and mgr.should_save(t + 1):
+            mgr.save(t + 1, (params, opt))
+    if mgr:
+        mgr.wait()
+    return losses
+
+
+def phase_mesh_drill(torch, device, card):
+    """(r5): the elastic drill on the card at the reference's `drill`
+    config (the `dropped_shard` fault class): train on a (4, 2) mesh
+    saving at 3, 6 and 9, tear the newest snapshot, shrink to (2, 2),
+    restore walking back to step 6 and resume within 0.05 of the healthy
+    run."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.base import LMConfig, SpikingConfig
+    from repro_torch.data import synthetic
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import elastic, faults
+    cfg = LMConfig(name="drill", family="dense", n_layers=2, d_model=32,
+                   n_heads=4, n_kv_heads=2, d_ff=64, vocab=64,
+                   spiking=SpikingConfig(t_steps=1), remat="none",
+                   loss_chunk=16)
+    batches = [synthetic.lm_batch(0, 0, t, 8, 16, cfg.vocab)
+               for t in range(DRILL_STEPS)]
+
+    def fresh():
+        params = lm.init_params(cfg, seed=0, device=device)
+        return params, adamw.init(params, adamw.AdamWConfig(lr=1e-2))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_drill_")
+    try:
+        mgr = CheckpointManager(tmp, save_every=DRILL_SAVE_EVERY)
+        mesh_a = make_mesh((4, 2), ("data", "model"), devices=device)
+        healthy = drill_loop(torch, cfg, mesh_a, *fresh(), batches, 0,
+                             DRILL_STEPS, mgr)
+        saved = mgr.steps()
+        faults.truncate_checkpoint(os.path.join(tmp, "step_000000009"))
+        plan = elastic.shrunk_mesh((4, 2), ("data", "model"),
+                                   n_failed_data_groups=2)
+        mesh_b = make_mesh(plan.mesh_shape, plan.axis_names, devices=device)
+        step, (p, o) = elastic.reshard_restore(cfg, mgr, fresh(), mesh_b)
+        resumed = drill_loop(torch, cfg, mesh_b, p, o, batches, step,
+                             DRILL_STEPS) if step is not None else []
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("mesh_drill", card=card, saved=saved, shrunk=plan.mesh_shape,
+         microbatch_scale=plan.microbatch_scale, restored_step=step,
+         healthy=healthy, resumed=resumed)
+    check(saved == [3, 6, 9] and plan.mesh_shape == (2, 2) and step == 6,
+          f"drill: saved {saved}, shrunk {plan.mesh_shape}, restored {step}")
+    check(all(math.isfinite(v) and abs(v - h) <= DRILL_TOL * (1 + abs(h))
+              for v, h in zip(resumed, healthy[6:])),
+          f"drill: resumed {resumed} off healthy {healthy[6:]}")
+
+
+def phase_mesh(torch, device, card):
+    """Phase (r): the mesh and sharded event execution. Returns the
+    launches of its gated runs."""
+    totals: dict = {}
+    for fn in (phase_mesh_resolution, phase_mesh_sharded, phase_mesh_serve,
+               phase_mesh_train):
+        add_counts(totals, fn(torch, device, card))
+        free_card(torch)
+    phase_mesh_drill(torch, device, card)
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5371,6 +5949,12 @@ def main() -> int:
     # Guarded execution: the models under each mode and the fault classes
     # on the automatic kernels, kernel 10 behind the repair flag.
     for name, n in timed("q_guard", phase_guard, torch, device, card).items():
+        totals[name] = totals.get(name, 0) + n
+    # The mesh: the models under an 8-position data mesh, every sharded
+    # route once per shard (rows 12, 14, 16, 18, 19; row 10 on the ragged
+    # grid and the degraded CNN calls), the LM's serving and training
+    # under a mesh.
+    for name, n in timed("r_mesh", phase_mesh, torch, device, card).items():
         totals[name] = totals.get(name, 0) + n
     emit("phase_time", name="total", seconds=time.perf_counter() - t_start)
     kernels = []

@@ -372,3 +372,181 @@ def pow2_step_cap(n_steps: int, dense: int) -> int:
     dense bound."""
     n_steps = max(1, int(n_steps))
     return min(int(dense), 1 << (n_steps - 1).bit_length())
+
+
+# -------------------------------------------------------- shard planners
+# The tensor fields of a `TileCSR`, in order.
+CSR_FIELDS = ("row_ptr", "tile_m_idx", "tile_k_idx", "occ", "valid")
+
+
+def _host_map(occ, what: str) -> np.ndarray:
+    """A carried map as a host numpy array. A map on the card is refused:
+    planning reads it, and that read (a host sync) is the caller's to
+    make explicitly (`occ.cpu()`), the port's counterpart of `repro`
+    refusing a tracer here."""
+    if isinstance(occ, torch.Tensor):
+        if occ.device.type != "cpu":
+            raise ValueError(
+                f"{what} is a host pre-pass on the carried occupancy map; "
+                f"the map lies on {occ.device}: pass it to the host "
+                f"explicitly (occ.cpu(), one read of the map)")
+        return occ.detach().numpy()
+    return np.asarray(occ)
+
+
+class RebalancePlan(NamedTuple):
+    """Occupancy-weighted assignment of 128-row tile rows to shards.
+
+    `perm` is a permutation of the map's tile-row indices: shard i owns
+    rows `perm[i*rps:(i+1)*rps]` (rps = MT/n_shards), each shard's slice
+    sorted ascending so a shard's local map keeps global row order. Built
+    from the carried map alone, never from the spikes, and deterministic
+    for a fixed map (ties break on row index, then shard index).
+    `pre`/`post_per_shard` are occupied-tile counts under the static
+    row-contiguous split and under this assignment."""
+    perm: np.ndarray
+    pre_per_shard: tuple
+    post_per_shard: tuple
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.pre_per_shard)
+
+    @property
+    def identity(self) -> bool:
+        return bool((self.perm == np.arange(len(self.perm))).all())
+
+    @property
+    def improves(self) -> bool:
+        """True iff the assignment strictly lowers the most-occupied
+        shard (the max/mean imbalance; the mean does not depend on the
+        split). With one tile row per shard a permutation only relabels
+        shards, so this is False."""
+        return max(self.post_per_shard) < max(self.pre_per_shard)
+
+    def inverse(self) -> np.ndarray:
+        return np.argsort(self.perm)
+
+
+def rebalance_shard_plan(occ, n_shards: int) -> RebalancePlan:
+    """Plan an occupancy-weighted shard split of a host (MT, KT) map.
+
+    Greedy heaviest-first: tile rows sorted by occupied-tile count
+    (descending, row index breaking ties) go to the currently lightest
+    shard with spare capacity (every shard owns exactly MT/n_shards rows,
+    the equal split `launch.mesh.shard_map` hands out). A bounded
+    stolen-tile pass then swaps rows between the heaviest and lightest
+    shards while a swap strictly narrows the max-min spread. `repro`'s
+    algorithm, step for step."""
+    occ_np = _host_map(occ, "rebalance_shard_plan")
+    mt, _ = occ_np.shape
+    if mt % n_shards:
+        raise ValueError(
+            f"occupancy rows {mt} not divisible by {n_shards} shards")
+    rps = mt // n_shards
+    weight = (occ_np > 0).sum(axis=1).astype(np.int64)   # per tile row
+    pre = tuple(int(weight[i * rps:(i + 1) * rps].sum())
+                for i in range(n_shards))
+
+    order = np.lexsort((np.arange(mt), -weight))
+    members: list = [[] for _ in range(n_shards)]
+    load = [0] * n_shards
+    for r in order:
+        i = min((i for i in range(n_shards) if len(members[i]) < rps),
+                key=lambda i: (load[i], i))
+        members[i].append(int(r))
+        load[i] += int(weight[r])
+
+    for _ in range(4 * n_shards):
+        h = max(range(n_shards), key=lambda i: (load[i], i))
+        lo = min(range(n_shards), key=lambda i: (load[i], i))
+        spread = load[h] - load[lo]
+        if spread <= 1:
+            break
+        # The swap pair with the least (post-swap gap, rh, rl), over every
+        # pair whose weight difference d narrows the spread: `repro`'s
+        # double loop as one lexicographic argmin.
+        rh_all = np.repeat(members[h], len(members[lo]))
+        rl_all = np.tile(members[lo], len(members[h]))
+        d = weight[rh_all] - weight[rl_all]
+        ok = (d > 0) & (d < spread)
+        if not ok.any():
+            break
+        rh_ok, rl_ok = rh_all[ok], rl_all[ok]
+        first = np.lexsort((rl_ok, rh_ok, np.abs(spread - 2 * d[ok])))[0]
+        rh, rl = int(rh_ok[first]), int(rl_ok[first])
+        members[h].remove(rh)
+        members[lo].remove(rl)
+        members[h].append(rl)
+        members[lo].append(rh)
+        load[h] += int(weight[rl]) - int(weight[rh])
+        load[lo] += int(weight[rh]) - int(weight[rl])
+
+    members = [sorted(m) for m in members]
+    perm = np.concatenate([np.asarray(m, dtype=np.int64) for m in members])
+    return RebalancePlan(perm=perm, pre_per_shard=pre,
+                         post_per_shard=tuple(int(x) for x in load))
+
+
+def shard_occupancy_to_csr(occ, n_shards: int,
+                           tiling: Optional[tuple] = None, *,
+                           plan: Optional[RebalancePlan] = None,
+                           device=None) -> list:
+    """Per-shard work lists for sharded execution: the host (MT, KT) map
+    split row-contiguously into `n_shards` local (MT/n_shards, KT) maps
+    (or into the rows `plan` assigns each shard), each compacted on its
+    own with `occupancy_to_csr`'s concrete form, all under ONE
+    `pow2_step_cap` sized by the most occupied shard, so every shard's
+    grid is congruent. No shard's list depends on another's map and no
+    spike is read. The lists' tensors go to `device` (default: the CPU);
+    a map on the card is refused (see `_host_map`)."""
+    occ_np = _host_map(occ, "shard_occupancy_to_csr")
+    mt, kt = occ_np.shape
+    if mt % n_shards:
+        raise ValueError(
+            f"occupancy rows {mt} not divisible by {n_shards} shards")
+    rows = mt // n_shards
+    if plan is not None:
+        if len(plan.perm) != mt or plan.n_shards != n_shards:
+            raise ValueError(
+                f"plan covers {len(plan.perm)} rows x {plan.n_shards} "
+                f"shards, map has {mt} rows x {n_shards} shards")
+        locals_ = [occ_np[plan.perm[i * rows:(i + 1) * rows]]
+                   for i in range(n_shards)]
+    else:
+        locals_ = [occ_np[i * rows:(i + 1) * rows] for i in range(n_shards)]
+    maps = [torch.from_numpy(np.ascontiguousarray(o, dtype=np.int32))
+            for o in locals_]
+    exact = [occupancy_to_csr(o, tiling=tiling, dense_cap=False)
+             for o in maps]
+    cap = pow2_step_cap(max(c.n_steps for c in exact), rows * kt)
+    if any(c.n_steps != cap for c in exact):
+        exact = [occupancy_to_csr(o, cap=cap, tiling=tiling,
+                                  dense_cap=False) for o in maps]
+    if device is None:
+        return exact
+    return [c._replace(**{f: getattr(c, f).to(device) for f in CSR_FIELDS})
+            for c in exact]
+
+
+def stack_shard_csrs(csrs: list) -> TileCSR:
+    """Stack per-shard `TileCSR`s (equal caps, which
+    `shard_occupancy_to_csr` guarantees) into one TileCSR with a leading
+    shard axis per field; the tags stay the per-shard ones, so each
+    shard's slice checks against its local tile grid."""
+    caps = {c.n_steps for c in csrs}
+    if len(caps) != 1:
+        raise ValueError(f"per-shard caps differ: {sorted(caps)}")
+    tags = {(c.tiling, c.map_shape) for c in csrs}
+    if len(tags) != 1:
+        raise ValueError(f"per-shard CSR tags differ: {tags}")
+    return TileCSR(*[torch.stack([getattr(c, f) for c in csrs])
+                     for f in CSR_FIELDS],
+                   csrs[0].tiling, csrs[0].map_shape)
+
+
+def unstack_shard_csrs(stack: TileCSR) -> list:
+    """The per-shard `TileCSR`s of a `stack_shard_csrs` stack."""
+    n = stack.row_ptr.shape[0]
+    return [TileCSR(*[getattr(stack, f)[i] for f in CSR_FIELDS],
+                    stack.tiling, stack.map_shape) for i in range(n)]

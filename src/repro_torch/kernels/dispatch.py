@@ -72,8 +72,21 @@ Selection order per call (`repro`'s resolution walk on CPU tensors):
 Every degrade warns once per (op, from, to) edge (`reset_fallback_warnings`
 re-arms them) and is attributed ``<chosen><-<requested>``
 (`resolve_with_attribution`, `watch_resolutions`); a platform or payload
-that a backend does not take is filtered silently. The mesh routing of
-`repro`'s registry is not ported yet.
+that a backend does not take is filtered silently.
+
+Mesh-aware resolution (as in `repro`): under `resolve(..., mesh=)` or an
+ambient `use_mesh(...)` (what `launch.steps` pushes around its step
+functions and `runtime.sharding.event_op_sharded` resolves with), a call
+resolves as if it ran per data shard: the gates run on per-shard shapes
+(`_shard_view`: the first operand's leading axis divided by the shard
+count, `data_shard_count`, the product of the `pod` and `data` axes) and
+only backends declaring `mesh_aware` qualify. The event-compacted
+families carry an extra per-shard gate (`_csr_shard_gate`: each shard's
+rows must fill whole 128-row tiles); a ragged shard grid walks the
+declared chain like any refused gate, warned once and attributed
+``<chosen><-<requested>``. On the card the walk still ends on a kernel
+route or raises. The mesh steers resolution only: placement is the
+caller's (`event_op_sharded` runs each shard's kernel itself).
 
 Hybrid resolution (`use_hybrid`, ``EXSPIKE_BACKEND=hybrid``, `repro`'s
 density-adaptive routing): a call of `HYBRID_OPS` that carries an
@@ -159,7 +172,7 @@ import functools
 import math
 import os
 import warnings
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -204,11 +217,29 @@ class Backend:
     differentiable: bool = False
     payload: Tuple[str, ...] = ("dense",)
     fallback: Optional[str] = None
+    # May this backend run per data shard under a mesh? False (the
+    # default: shard locality is declared, never assumed), True (whenever
+    # `supports` passes on the per-shard shapes), or a callable gate with
+    # the `supports` signature run on those shapes (the event-compacted
+    # families: `_csr_shard_gate`).
+    mesh_aware: Union[bool, Callable[..., Optional[str]]] = False
 
     def unsupported_reason(self, *args, **kwargs) -> Optional[str]:
         if self.supports is None:
             return None
         return self.supports(*args, **kwargs)
+
+    def mesh_unsupported_reason(self, *args, **kwargs) -> Optional[str]:
+        """`unsupported_reason` on PER-SHARD shapes, with the
+        mesh-awareness capability folded in."""
+        if self.mesh_aware is False:
+            return "backend not declared mesh-aware"
+        reason = self.unsupported_reason(*args, **kwargs)
+        if reason is not None:
+            return reason
+        if callable(self.mesh_aware):
+            return self.mesh_aware(*args, **kwargs)
+        return None
 
 
 @dataclasses.dataclass
@@ -296,7 +327,7 @@ def _matmul_bwd(res, kwargs, g):
 
 def register(op: str, name: str, *, platforms=ALL_PLATFORMS, priority=0,
              auto=True, supports=None, differentiable=False, vjp=None,
-             fallback=None, payload=("dense",)):
+             fallback=None, payload=("dense",), mesh_aware=False):
     """Decorator: register `fn` as backend `name` for `op`. ``auto=False``
     keeps it out of priority resolution: only `use_backend` or
     ``EXSPIKE_BACKEND`` reach it. ``payload=("packed",)`` makes it the
@@ -310,7 +341,9 @@ def register(op: str, name: str, *, platforms=ALL_PLATFORMS, priority=0,
     Gradient contract: ``differentiable=True`` when autograd through `fn`
     gives the `ref` oracle's gradients, or ``vjp="ref"`` /
     ``vjp=<rule>`` to wrap `fn` in a `torch.autograd.Function` (see
-    `_wrap_vjp`); wrapped backends are differentiable by definition."""
+    `_wrap_vjp`); wrapped backends are differentiable by definition.
+
+    ``mesh_aware``: the mesh capability (`Backend.mesh_aware`)."""
     def deco(fn):
         if op not in _REGISTRY:
             raise KeyError(f"unknown op {op!r}; register_op it first")
@@ -318,7 +351,8 @@ def register(op: str, name: str, *, platforms=ALL_PLATFORMS, priority=0,
             name=name, fn=_wrap_vjp(op, fn, vjp) if vjp is not None else fn,
             platforms=tuple(platforms), priority=priority, auto=auto,
             supports=supports, differentiable=differentiable or vjp is not None,
-            fallback=fallback, payload=tuple(payload))
+            fallback=fallback, payload=tuple(payload),
+            mesh_aware=mesh_aware)
         return fn
     return deco
 
@@ -411,6 +445,60 @@ def use_hybrid(op: Optional[str] = None):
     automatic selection, tagged ``<-hybrid``. See the module doc."""
     with use_backend(HYBRID, op=op):
         yield
+
+
+# ------------------------------------------------------------ mesh context
+_MESH: list = []   # the stack of ambient meshes `use_mesh` pushes
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Ambient mesh for resolution: while active, `resolve` / `dispatch`
+    treat every call as running per data shard (gates on per-shard
+    shapes, only mesh-aware backends). `mesh` is a `launch.mesh.Mesh`
+    (abstract or not) or a plain int shard count."""
+    _MESH.append(mesh)
+    try:
+        yield
+    finally:
+        _MESH.pop()
+
+
+def ambient_mesh():
+    return _MESH[-1] if _MESH else None
+
+
+def data_shard_count(mesh) -> int:
+    """Number of data shards the row axis splits over: the product of the
+    batch-parallel (`pod`, `data`) axes; the `model` axis shards features
+    and heads, never event rows. Ints pass through; no mesh -> 1."""
+    if mesh is None:
+        return 1
+    if isinstance(mesh, int):
+        return max(1, mesh)
+    shape = getattr(mesh, "shape", None)
+    if hasattr(shape, "get"):
+        n = 1
+        for ax in ("pod", "data"):
+            n *= int(shape.get(ax, 1))
+        return max(1, n)
+    return max(1, int(getattr(mesh, "size", 1)))
+
+
+def _shard_view(args, n_shards: int):
+    """Per-shard stand-ins for the gates: the first operand (the event
+    or activation operand every registered op takes first) as a `meta`
+    tensor with its leading axis divided by the shard count (ceil: a
+    non-dividing axis models padded shards); the rest as they are. Gates
+    read shapes, dtypes and static kwargs only."""
+    if not args or not isinstance(args[0], torch.Tensor) \
+            or args[0].dim() == 0:
+        return args
+    x = args[0]
+    lead = -(-int(x.shape[0]) // n_shards)
+    local = torch.empty((lead,) + tuple(x.shape[1:]), dtype=x.dtype,
+                        device="meta")
+    return (local,) + tuple(args[1:])
 
 
 # -------------------------------------------------------------- resolution
@@ -782,8 +870,8 @@ def _hybrid_device_fn(op: str, event_be: Backend, dense_be: Backend,
     return _wrap_vjp(op, functools.partial(body, threshold=threshold), rule)
 
 
-def _hybrid_resolution(spec: OpSpec, op: str, kwargs,
-                       reason_of) -> Optional[Tuple[Backend, str]]:
+def _hybrid_resolution(spec: OpSpec, op: str, kwargs, reason_of,
+                       n_shards: int = 1) -> Optional[Tuple[Backend, str]]:
     """Resolve under the HYBRID override. Returns (backend, attribution)
     or None to disengage (no carried map / packed payload / no route
     pair); the caller then falls through to automatic selection."""
@@ -819,20 +907,27 @@ def _hybrid_resolution(spec: OpSpec, op: str, kwargs,
         return event_be, f"{event_be.name}<-{HYBRID}"
     from repro_torch.core import costmodel
     mt, kt = occ.shape
+    # Under a mesh each shard routes on its own slice of the map: the
+    # decision is made on the per-shard grid (and count, for a host map).
+    mt_local = mt // n_shards if n_shards > 1 and mt % n_shards == 0 else mt
     if not _device_routed(occ):
         # A map on the host: pick in Python on the band's representative
         # count, as `repro` picks for a concrete map.
-        bucket = costmodel.pow2_bucket(int((occ > 0).sum()))
-        rep = costmodel.bucket_representative(bucket, mt * kt)
-        be = event_be if costmodel.event_route_wins(op, rep, mt, kt) \
+        count = int((occ > 0).sum())
+        bucket = costmodel.pow2_bucket(-(-count // n_shards)
+                                       if n_shards > 1 else count)
+        rep = costmodel.bucket_representative(bucket, mt_local * kt)
+        be = event_be if costmodel.event_route_wins(op, rep, mt_local, kt) \
             else dense_be
         return be, f"{be.name}<-{HYBRID}[b{bucket}]"
-    threshold = costmodel.hybrid_event_bucket_threshold(op, mt, kt)
+    threshold = costmodel.hybrid_event_bucket_threshold(op, mt_local, kt)
     routed = Backend(
         name=f"{HYBRID}[{event_be.name}|{dense_be.name}@b{threshold}]",
-        fn=_hybrid_device_fn(op, event_be, dense_be, mt, kt, threshold),
+        fn=_hybrid_device_fn(op, event_be, dense_be, mt_local, kt,
+                             threshold),
         platforms=event_be.platforms, auto=False,
-        differentiable=event_be.differentiable and dense_be.differentiable)
+        differentiable=event_be.differentiable and dense_be.differentiable,
+        mesh_aware=event_be.mesh_aware)
     return routed, routed.name
 
 
@@ -842,14 +937,20 @@ def _device_routed(occ: torch.Tensor) -> bool:
     return occ.is_cuda
 
 
-def _resolve_payload_blind(op: str, *args,
+def _resolve_payload_blind(op: str, *args, mesh=None,
                            **kwargs) -> Tuple[Backend, str]:
     spec = _REGISTRY[op]
     platform = _platform(args)
     on_card = platform == "cuda"
+    n_shards = data_shard_count(mesh if mesh is not None else ambient_mesh())
+    if n_shards > 1:
+        check_args = _shard_view(args, n_shards)
 
-    def reason_of(be: Backend) -> Optional[str]:
-        return be.unsupported_reason(*args, **kwargs)
+        def reason_of(be: Backend) -> Optional[str]:
+            return be.mesh_unsupported_reason(*check_args, **kwargs)
+    else:
+        def reason_of(be: Backend) -> Optional[str]:
+            return be.unsupported_reason(*args, **kwargs)
 
     def attributed(be: Backend, requested: Optional[str]):
         if requested is None or requested == be.name:
@@ -876,7 +977,7 @@ def _resolve_payload_blind(op: str, *args,
     if override == HYBRID:
         override = None
     if hybrid_requested:
-        routed = _hybrid_resolution(spec, op, kwargs, reason_of)
+        routed = _hybrid_resolution(spec, op, kwargs, reason_of, n_shards)
         if routed is not None:
             return routed
     if override is not None:
@@ -940,7 +1041,7 @@ def _unpack_shim(be: Backend) -> Backend:
     return dataclasses.replace(be, fn=fn, name=f"{be.name}+unpack")
 
 
-def resolve_with_attribution(op: str, *args,
+def resolve_with_attribution(op: str, *args, mesh=None,
                              **kwargs) -> Tuple[Backend, str]:
     """The backend `dispatch` would run for these inputs, and its
     attribution: the backend's name, suffixed ``<-requested`` when
@@ -951,8 +1052,9 @@ def resolve_with_attribution(op: str, *args,
     where the walk would leave the kernel routes (see the module doc).
     Under `use_guard("audit" | "repair")` a call of `GUARDED_OPS` with a
     map gets the guard outermost, with the name and attribution
-    unchanged."""
-    be, attribution = _resolve_payload_blind(op, *args, **kwargs)
+    unchanged. `mesh` (or an ambient `use_mesh`): resolve per data shard
+    (see the module doc)."""
+    be, attribution = _resolve_payload_blind(op, *args, mesh=mesh, **kwargs)
     if kwargs.get("packed_k") is not None and "packed" not in be.payload:
         _warn_once(op, "packed", be.name,
                    f"exspike dispatch: packed payload for op {op!r} "
@@ -975,23 +1077,25 @@ def resolve_with_attribution(op: str, *args,
     return be, attribution
 
 
-def resolve(op: str, *args, **kwargs) -> Backend:
-    """The backend `dispatch` would run for these inputs."""
-    return resolve_with_attribution(op, *args, **kwargs)[0]
+def resolve(op: str, *args, mesh=None, **kwargs) -> Backend:
+    """The backend `dispatch` would run for these inputs (per data shard
+    of `mesh`, or of the ambient `use_mesh` one)."""
+    return resolve_with_attribution(op, *args, mesh=mesh, **kwargs)[0]
 
 
-def resolve_name(op: str, *args, **kwargs) -> str:
-    return resolve(op, *args, **kwargs).name
+def resolve_name(op: str, *args, mesh=None, **kwargs) -> str:
+    return resolve(op, *args, mesh=mesh, **kwargs).name
 
 
-def resolve_attribution(op: str, *args, **kwargs) -> str:
+def resolve_attribution(op: str, *args, mesh=None, **kwargs) -> str:
     """``name``, or ``name<-requested`` after a degrade."""
-    return resolve_with_attribution(op, *args, **kwargs)[1]
+    return resolve_with_attribution(op, *args, mesh=mesh, **kwargs)[1]
 
 
-def dispatch(op: str, *args, **kwargs):
-    """Run `op` on the resolved backend."""
-    return resolve(op, *args, **kwargs).fn(*args, **kwargs)
+def dispatch(op: str, *args, mesh=None, **kwargs):
+    """Run `op` on the resolved backend (`mesh` steers resolution only:
+    it is never passed to the backend)."""
+    return resolve(op, *args, mesh=mesh, **kwargs).fn(*args, **kwargs)
 
 
 def call_backend(op: str, name: str, *args, **kwargs):
@@ -1014,13 +1118,15 @@ def _packed_example(op: str, dev):
             {**kwargs, "packed_k": s.shape[-1]})
 
 
-def resolved_backends(device="cuda", *, packed: bool = False
-                      ) -> Dict[str, str]:
+def resolved_backends(device="cuda", *, packed: bool = False,
+                      mesh=None) -> Dict[str, str]:
     """op -> attribution of the backend that would run each op's example
     inputs on `device` under the current overrides (startup log): the
     name, or ``name<-requested`` after a degrade. ``packed``: the ops
     that take a packed payload (`PACKED_OPS`) are resolved on packed
-    words, as a `SpikingConfig(packed=True)` forward calls them. A
+    words, as a `SpikingConfig(packed=True)` forward calls them. With
+    `mesh` (or an ambient `use_mesh`) resolution is mesh-aware and a
+    per-shard gate's degrade shows as ``name<-requested``. A
     read-only snapshot: its degrade warnings are muted and the warn-once
     ledger is restored, so a later real degrade still warns."""
     from repro_torch import resolve_device
@@ -1035,7 +1141,8 @@ def resolved_backends(device="cuda", *, packed: bool = False
                     ex_args, ex_kwargs = _packed_example(op, dev)
                 else:
                     ex_args, ex_kwargs = spec.make_example(dev)
-                out[op] = resolve_attribution(op, *ex_args, **ex_kwargs)
+                out[op] = resolve_attribution(op, *ex_args, mesh=mesh,
+                                              **ex_kwargs)
     finally:
         _WARNED.clear()
         _WARNED.update(saved)
@@ -1044,13 +1151,14 @@ def resolved_backends(device="cuda", *, packed: bool = False
 
 def table() -> str:
     """Human-readable registry dump: per op, each backend with its
-    priority, manual flag, gradient contract, packed payload and declared
-    fallback."""
+    priority, manual flag, gradient contract, mesh capability, packed
+    payload and declared fallback."""
     lines = []
     for op, spec in _REGISTRY.items():
         bes = ", ".join(
             f"{b.name}(p{b.priority}{'' if b.auto else ',manual'}"
             f"{',grad' if b.differentiable else ''}"
+            f"{',mesh' if b.mesh_aware is not False else ''}"
             f"{',packed' if 'packed' in b.payload else ''}"
             f"{f',->{b.fallback}' if b.fallback else ''})"
             for b in sorted(spec.backends.values(), key=lambda b: -b.priority))
@@ -1073,20 +1181,35 @@ def _binary(shape, p: float, device, seed: int = 0) -> torch.Tensor:
 # ======================================================================
 # Op definitions + backend implementations
 # ======================================================================
+def _csr_shard_gate(s, *rest, block_m: int = 128, **kwargs) -> Optional[str]:
+    """Per-shard gate of the event-compacted families (`mesh_aware`): a
+    shard's flattened rows must fill whole `block_m`-row tiles, so every
+    shard's tile grid is congruent and no shard pays a ragged tile per
+    step. Called on the per-shard view (rows = prod of the leading axes,
+    as the wrappers flatten them; for strided econv the output rows
+    shrink, which only makes the gate conservative)."""
+    del rest, kwargs
+    rows = math.prod(int(d) for d in s.shape[:-1])
+    if rows % block_m:
+        return (f"per-shard rows {rows} do not fill {block_m}-row tiles "
+                f"(ragged per-shard tile grid)")
+    return None
+
+
 # ------------------------------------------------------------- lif_scan
 register_op("lif_scan", lambda dev: (
     (2.0 * torch.randn(4, 3, 40, generator=torch.Generator().manual_seed(0))
      .to(dev),), {"decay": 0.5, "v_th": 1.0, "soft_reset": True}))
 
 
-@register("lif_scan", REF, priority=0, differentiable=True)
+@register("lif_scan", REF, priority=0, differentiable=True, mesh_aware=True)
 def _lif_ref(x, **kwargs):
     from repro_torch.kernels.ref import lif_scan_ref
     return lif_scan_ref(x, **kwargs)
 
 
 @register("lif_scan", CUDA, platforms=("cuda",), priority=20,
-          differentiable=True)
+          differentiable=True, mesh_aware=True)
 def _lif_cuda(x, *, decay=0.5, v_th=1.0, soft_reset=True,
               surrogate_alpha=2.0):
     from repro_torch.kernels import ops
@@ -1111,7 +1234,7 @@ def _ref_chunk_occupancy(s):
     return tile_occupancy(s2, 8, 128)
 
 
-@register("lif_scan_occ", REF, priority=0, differentiable=True)
+@register("lif_scan_occ", REF, priority=0, differentiable=True, mesh_aware=True)
 def _lif_occ_ref(x, *, decay=0.5, v_th=1.0, soft_reset=True,
                  surrogate_alpha=2.0, packed=False):
     s = _lif_ref(x.detach() if packed else x, decay=decay, v_th=v_th,
@@ -1129,7 +1252,7 @@ def _lif_occ_ref(x, *, decay=0.5, v_th=1.0, soft_reset=True,
 
 
 @register("lif_scan_occ", CUDA, platforms=("cuda",), priority=20,
-          differentiable=True)
+          differentiable=True, mesh_aware=True)
 def _lif_occ_cuda(x, *, decay=0.5, v_th=1.0, soft_reset=True,
                   surrogate_alpha=2.0, packed=False):
     from repro_torch.kernels import ops
@@ -1147,7 +1270,7 @@ def _spike_matmul_example(dev):
 register_op("spike_matmul", _spike_matmul_example)
 
 
-@register("spike_matmul", REF, priority=0, differentiable=True)
+@register("spike_matmul", REF, priority=0, differentiable=True, mesh_aware=True)
 def _spike_matmul_ref(s, w, occupancy=None):
     del occupancy    # metadata for the event kernel; the oracle is dense
     from repro_torch.kernels.ref import spike_matmul_ref
@@ -1155,7 +1278,7 @@ def _spike_matmul_ref(s, w, occupancy=None):
 
 
 @register("spike_matmul", CUDA, platforms=("cuda",), priority=20,
-          vjp=_matmul_bwd, fallback=CUDA_PRED)
+          vjp=_matmul_bwd, fallback=CUDA_PRED, mesh_aware=_csr_shard_gate)
 def _spike_matmul_csr(s, w, occupancy=None):
     # Event-compacted tile walk; a carried `occupancy` replaces the dense
     # pre-pass (the work list compacts from the small map).
@@ -1164,7 +1287,8 @@ def _spike_matmul_csr(s, w, occupancy=None):
 
 
 @register("spike_matmul", CUDA_PACKED, platforms=("cuda",), priority=30,
-          vjp=_matmul_bwd, fallback=CUDA, payload=("packed",))
+          vjp=_matmul_bwd, fallback=CUDA, payload=("packed",),
+          mesh_aware=_csr_shard_gate)
 def _spike_matmul_packed(s, w, occupancy=None, packed_k=None):
     # The CSR walk on packed words: each occupied word tile unpacks on
     # chip. Dense spikes (packed_k=None) are packed at entry.
@@ -1178,7 +1302,7 @@ def _spike_matmul_packed(s, w, occupancy=None, packed_k=None):
 # packed-csr (30): automatic selection on the card resolves to them, and a
 # refused call degrades to the serial kernel of its payload.
 @register("spike_matmul", CUDA_PIPE, platforms=("cuda",), priority=26,
-          vjp=_matmul_bwd, fallback=CUDA)
+          vjp=_matmul_bwd, fallback=CUDA, mesh_aware=_csr_shard_gate)
 def _spike_matmul_csr_pipe(s, w, occupancy=None):
     from repro_torch.kernels import ops
     return ops.spike_matmul_csr(s, w, occupancy=occupancy, pipeline=True)
@@ -1186,14 +1310,14 @@ def _spike_matmul_csr_pipe(s, w, occupancy=None):
 
 @register("spike_matmul", CUDA_PACKED_PIPE, platforms=("cuda",),
           priority=31, vjp=_matmul_bwd, fallback=CUDA_PACKED,
-          payload=("packed",))
+          payload=("packed",), mesh_aware=_csr_shard_gate)
 def _spike_matmul_packed_pipe(s, w, occupancy=None, packed_k=None):
     from repro_torch.kernels import ops
     return ops.spike_matmul_packed(s, w, packed_k=packed_k,
                                    occupancy=occupancy, pipeline=True)
 
 
-@register("spike_matmul", CUDA_PRED, auto=False, vjp=_matmul_bwd)
+@register("spike_matmul", CUDA_PRED, auto=False, vjp=_matmul_bwd, mesh_aware=True)
 def _spike_matmul_pred(s, w, occupancy=None):
     # Predicated dense grid: every tile visited, the map gates the product.
     from repro_torch.kernels import ops
@@ -1217,7 +1341,7 @@ def _apec_divisibility(s, w, *, g=2, **kwargs) -> Optional[str]:
     return None
 
 
-@register("apec_matmul", REF, priority=0, differentiable=True)
+@register("apec_matmul", REF, priority=0, differentiable=True, mesh_aware=True)
 def _apec_matmul_ref(s, w, *, g=2, occupancy=None):
     del g, occupancy    # the oracle is the plain dense accumulation s @ w
     return torch.matmul(s.float(), w.float()).to(w.dtype)
@@ -1227,7 +1351,7 @@ def _apec_matmul_ref(s, w, *, g=2, occupancy=None):
 # autodiff (amin would split cotangents between tied group members), so
 # the explicit transpose rule supplies the exact gradients.
 @register("apec_matmul", "jnp", priority=10, supports=_apec_divisibility,
-          vjp=_matmul_bwd)
+          vjp=_matmul_bwd, mesh_aware=True)
 def _apec_matmul_jnp(s, w, *, g=2, occupancy=None):
     del occupancy       # the dense form gates on nothing
     from repro_torch.core.apec import apec_matmul_jnp
@@ -1235,7 +1359,7 @@ def _apec_matmul_jnp(s, w, *, g=2, occupancy=None):
 
 
 @register("apec_matmul", CUDA_PRED, auto=False, supports=_apec_divisibility,
-          vjp=_matmul_bwd)
+          vjp=_matmul_bwd, mesh_aware=True)
 def _apec_matmul_pred(s, w, *, g=2, occupancy=None):
     # Packed decompose, then two predicated matmuls and a repeat.
     from repro_torch.kernels import ops
@@ -1254,7 +1378,8 @@ def _apec_csr_supports(s, w, *, g=2, **kwargs) -> Optional[str]:
 
 
 @register("apec_matmul", CUDA, platforms=("cuda",), priority=20,
-          supports=_apec_csr_supports, vjp=_matmul_bwd, fallback=CUDA_PRED)
+          supports=_apec_csr_supports, vjp=_matmul_bwd, fallback=CUDA_PRED,
+          mesh_aware=_csr_shard_gate)
 def _apec_matmul_csr(s, w, *, g=2, occupancy=None):
     # Fused event-compacted APEC: union work list, overlap partial sums
     # added into the g member rows in-kernel. A carried map IS the union
@@ -1265,7 +1390,7 @@ def _apec_matmul_csr(s, w, *, g=2, occupancy=None):
 
 @register("apec_matmul", CUDA_PACKED, platforms=("cuda",), priority=30,
           supports=_apec_csr_supports, vjp=_matmul_bwd, fallback=CUDA,
-          payload=("packed",))
+          payload=("packed",), mesh_aware=_csr_shard_gate)
 def _apec_matmul_packed(s, w, *, g=2, occupancy=None, packed_k=None):
     # The fused kernel on words end to end: decompose on the words, union
     # work list, both operands' word tiles unpacked on chip.
@@ -1278,7 +1403,8 @@ def _apec_matmul_packed(s, w, *, g=2, occupancy=None, packed_k=None):
 # pallas-csr-pipe (26) and packed-csr-pipe (31) above pallas-csr (25) and
 # packed-csr (30) for `apec_matmul`.
 @register("apec_matmul", CUDA_PIPE, platforms=("cuda",), priority=26,
-          supports=_apec_csr_supports, vjp=_matmul_bwd, fallback=CUDA)
+          supports=_apec_csr_supports, vjp=_matmul_bwd, fallback=CUDA,
+          mesh_aware=_csr_shard_gate)
 def _apec_matmul_csr_pipe(s, w, *, g=2, occupancy=None):
     from repro_torch.kernels import ops
     return ops.apec_matmul_csr(s, w, g=g, occupancy=occupancy, pipeline=True)
@@ -1286,7 +1412,7 @@ def _apec_matmul_csr_pipe(s, w, *, g=2, occupancy=None):
 
 @register("apec_matmul", CUDA_PACKED_PIPE, platforms=("cuda",), priority=31,
           supports=_apec_csr_supports, vjp=_matmul_bwd, fallback=CUDA_PACKED,
-          payload=("packed",))
+          payload=("packed",), mesh_aware=_csr_shard_gate)
 def _apec_matmul_packed_pipe(s, w, *, g=2, occupancy=None, packed_k=None):
     from repro_torch.kernels import ops
     return ops.apec_matmul_packed(s, w, g=g, packed_k=packed_k,
@@ -1309,14 +1435,14 @@ def _sdsa_or_only(q, k, v, *, mode="or") -> Optional[str]:
     return None
 
 
-@register("sdsa", REF, priority=0, differentiable=True)
+@register("sdsa", REF, priority=0, differentiable=True, mesh_aware=True)
 def _sdsa_ref(q, k, v, *, mode="or"):
     from repro_torch.core.sdsa import sdsa_jnp
     return sdsa_jnp(q, k, v, mode=mode)
 
 
 @register("sdsa", CUDA, platforms=("cuda",), priority=20,
-          supports=_sdsa_or_only, vjp=REF)
+          supports=_sdsa_or_only, vjp=REF, mesh_aware=True)
 def _sdsa_cuda(q, k, v, *, mode="or"):
     del mode
     from repro_torch.kernels import ops
@@ -1341,21 +1467,21 @@ def _causal_or_only(q, k, v, *, mode="or") -> Optional[str]:
     return None
 
 
-@register("causal_sdsa", REF, priority=0, differentiable=True)
+@register("causal_sdsa", REF, priority=0, differentiable=True, mesh_aware=True)
 def _causal_sdsa_ref(q, k, v, *, mode="or"):
     from repro_torch.core.sdsa import causal_sdsa_jnp
     return causal_sdsa_jnp(q, k, v, mode=mode)
 
 
 @register("causal_sdsa", "jnp", priority=5, auto=False,
-          supports=_causal_or_only, vjp=REF)
+          supports=_causal_or_only, vjp=REF, mesh_aware=True)
 def _causal_sdsa_packed(q, k, v, *, mode="or"):
     from repro_torch.core.sdsa import causal_sdsa_packed_jnp
     return causal_sdsa_packed_jnp(q, k, v, mode=mode)
 
 
 @register("causal_sdsa", CUDA, platforms=("cuda",), priority=20,
-          supports=_causal_or_only, vjp=REF)
+          supports=_causal_or_only, vjp=REF, mesh_aware=True)
 def _causal_sdsa_cuda(q, k, v, *, mode="or"):
     del mode
     from repro_torch.kernels import ops
@@ -1372,7 +1498,7 @@ def _econv_example(dev):
 register_op("econv", _econv_example)
 
 
-@register("econv", REF, priority=0, differentiable=True)
+@register("econv", REF, priority=0, differentiable=True, mesh_aware=True)
 def _econv_ref(s, w, *, stride=1, padding="SAME", occupancy=None):
     del occupancy    # dense conv: no event metadata consumed
     from repro_torch.core.econv import tconv
@@ -1410,7 +1536,7 @@ def _econv_im2col(s, w, stride, padding, matmul, occupancy=None):
 
 
 @register("econv", CUDA, platforms=("cuda",), priority=20, vjp=REF,
-          fallback=CUDA_PRED)
+          fallback=CUDA_PRED, mesh_aware=_csr_shard_gate)
 def _econv_cuda(s, w, *, stride=1, padding="SAME", occupancy=None):
     from repro_torch.kernels import ops
     return _econv_im2col(s, w, stride, padding, ops.spike_matmul_csr,
@@ -1418,7 +1544,7 @@ def _econv_cuda(s, w, *, stride=1, padding="SAME", occupancy=None):
 
 
 @register("econv", CUDA_PACKED, platforms=("cuda",), priority=30, vjp=REF,
-          fallback=CUDA, payload=("packed",))
+          fallback=CUDA, payload=("packed",), mesh_aware=_csr_shard_gate)
 def _econv_packed(s, w, *, stride=1, padding="SAME", occupancy=None,
                   packed_k=None):
     # Word-domain im2col (strided slices of the padded words) + the packed
@@ -1430,7 +1556,7 @@ def _econv_packed(s, w, *, stride=1, padding="SAME", occupancy=None,
 
 
 @register("econv", CUDA_PIPE, platforms=("cuda",), priority=26, vjp=REF,
-          fallback=CUDA)
+          fallback=CUDA, mesh_aware=_csr_shard_gate)
 def _econv_pipe(s, w, *, stride=1, padding="SAME", occupancy=None):
     from repro_torch.kernels import ops
     return _econv_im2col(s, w, stride, padding, functools.partial(
@@ -1438,7 +1564,8 @@ def _econv_pipe(s, w, *, stride=1, padding="SAME", occupancy=None):
 
 
 @register("econv", CUDA_PACKED_PIPE, platforms=("cuda",), priority=31,
-          vjp=REF, fallback=CUDA_PACKED, payload=("packed",))
+          vjp=REF, fallback=CUDA_PACKED, payload=("packed",),
+          mesh_aware=_csr_shard_gate)
 def _econv_packed_pipe(s, w, *, stride=1, padding="SAME", occupancy=None,
                        packed_k=None):
     from repro_torch.kernels import ops
@@ -1447,7 +1574,7 @@ def _econv_packed_pipe(s, w, *, stride=1, padding="SAME", occupancy=None,
                             pipeline=True)
 
 
-@register("econv", CUDA_PRED, auto=False, vjp=REF)
+@register("econv", CUDA_PRED, auto=False, vjp=REF, mesh_aware=True)
 def _econv_pred(s, w, *, stride=1, padding="SAME", occupancy=None):
     from repro_torch.kernels import ops
     return _econv_im2col(s, w, stride, padding, ops.spike_matmul, occupancy)
@@ -1464,7 +1591,9 @@ def _econv_scatter_supports(s, w, *, stride=1, padding="SAME", **kwargs):
 
 
 # Event extraction + index_add_ scatter: the faithful Algorithm 1 form.
-# Its backward replays the dense conv (`vjp="ref"`), as in `repro`.
+# Its backward replays the dense conv (`vjp="ref"`), as in `repro`. Not
+# mesh-aware, as in `repro`: a mesh refuses it (and, with no declared
+# fallback, the call lands on `ref` on the CPU and raises on the card).
 @register("econv", "jnp", auto=False, supports=_econv_scatter_supports,
           vjp=REF)
 def _econv_scatter(s, w, *, stride=1, padding="SAME", occupancy=None):
@@ -1496,7 +1625,7 @@ def _tconv_pad_supports(s, w, *, stride=2, padding="SAME") -> Optional[str]:
     return None
 
 
-@register("tconv", REF, priority=0, differentiable=True)
+@register("tconv", REF, priority=0, differentiable=True, mesh_aware=True)
 def _tconv_ref(s, w, *, stride=2, padding="SAME"):
     from repro_torch.core.econv import conv_transpose_ref
     return conv_transpose_ref(s, w, stride=stride, padding=padding)
@@ -1505,14 +1634,14 @@ def _tconv_ref(s, w, *, stride=2, padding="SAME"):
 # Zero-insertion + stride-1 conv: the same linear map as the oracle, so
 # autograd through it gives ref's cotangents.
 @register("tconv", "jnp", auto=False, supports=_tconv_pad_supports,
-          differentiable=True)
+          differentiable=True, mesh_aware=True)
 def _tconv_upsampled(s, w, *, stride=2, padding="SAME"):
     from repro_torch.core.econv import conv_transpose_upsampled
     return conv_transpose_upsampled(s, w, stride=stride, padding=padding)
 
 
 @register("tconv", CUDA, platforms=("cuda",), priority=20,
-          supports=_tconv_pad_supports, vjp=REF)
+          supports=_tconv_pad_supports, vjp=REF, mesh_aware=True)
 def _tconv_cuda(s, w, *, stride=2, padding="SAME"):
     from repro_torch.core.econv import upsample_events
     from repro_torch.kernels import ops

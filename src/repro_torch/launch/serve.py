@@ -130,8 +130,12 @@ class Server:
         self.spiking = cfg.spiking.enabled if spiking is None else spiking
         self.mesh = mesh
         self.device = resolve_device(device)
-        # The step functions first: a mesh is refused before any weights
-        # are drawn.
+        # The decode step and the admission prefill resolve their kernels
+        # under the mesh (per-shard gates on the slot batch, the axis a
+        # deployment shards over `data`), so a degrade names itself. The
+        # mesh steers RESOLUTION only, as in the reference: params and
+        # slots stay on `device`. The step functions come first, so a
+        # value that is not a mesh is refused before any weights are drawn.
         self._step = steps_mod.make_serve_step(cfg, self.spiking, mesh=mesh)
         # Bucketed chunked prefill (admission): prompts are padded to a
         # pow2 length bucket, pad steps masked out of the state.
@@ -526,8 +530,10 @@ def main():
                     help="kernel backend override, same grammar as "
                          "EXSPIKE_BACKEND (e.g. 'ref' or 'lif_scan=cuda,ref')")
     ap.add_argument("--mesh", action="store_true",
-                    help="mesh-aware serving: not ported yet "
-                         f"({steps_mod.MESH_ITEM})")
+                    help="resolve kernel dispatch mesh-aware against the "
+                         "host mesh (per-shard gates, degrade attribution "
+                         "printed below); params and slots stay on the "
+                         "device")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: the card; "
                          "'cpu' runs the plain PyTorch versions)")
@@ -536,14 +542,17 @@ def main():
            else registry.get_config(args.arch))
     if args.backend:
         os.environ[dispatch.ENV_VAR] = args.backend
-    if args.mesh:
-        raise NotImplementedError(
-            f"--mesh is not ported yet ({steps_mod.MESH_ITEM})")
     device = resolve_device(args.device)
-    print(f"[serve] kernel backends on {device}: "
-          f"{dispatch.resolved_backends(device)}")
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh(device=device)
+    print(f"[serve] kernel backends"
+          f"{' (mesh-aware)' if mesh is not None else ''} on {device}: "
+          f"{dispatch.resolved_backends(device, mesh=mesh)}")
     kw = dict(n_slots=args.slots,
-              spiking=False if args.dense else None, device=device)
+              spiking=False if args.dense else None, device=device,
+              mesh=mesh)
     server = (ReplicaPool(cfg, n_replicas=args.replicas, **kw)
               if args.replicas > 1 else Server(cfg, **kw))
     rng = np.random.default_rng(0)

@@ -3,10 +3,13 @@ and the bucketed prefill that admits a request.
 
 Each closes over the config and returns a plain function on tensors
 (there is no jit cache to share: the same function object serves every
-caller). A device mesh waits for ROADMAP queue 1 item 8.
+caller). With `mesh=` each resolves its kernels mesh-aware
+(`_under_mesh`); the mesh steers resolution only, and placing params or
+slots on several cards is `launch.mesh.MULTI_PROCESS_ITEM`.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -15,14 +18,27 @@ from repro_torch.configs.base import LMConfig
 from repro_torch.models import lm
 from repro_torch.optim import adamw, grad_compress, schedule as sched
 
-MESH_ITEM = lm.MESH_ITEM
 
+def _under_mesh(fn: Callable, mesh) -> Callable:
+    """`fn` with every registry call inside it resolved mesh-aware: the
+    ambient `dispatch.use_mesh(mesh)` is pushed around each call (per-shard
+    gates, mesh-aware backends only), so a degrade on a ragged shard grid
+    walks its chain and names itself instead of running dense math.
+    `mesh` is a `launch.mesh.Mesh` or an int shard count; None returns
+    `fn` itself."""
+    if mesh is None:
+        return fn
+    from repro_torch.launch.mesh import Mesh
+    if not isinstance(mesh, (Mesh, int)) or isinstance(mesh, bool):
+        raise TypeError(f"mesh must be a launch.mesh.Mesh or a shard "
+                        f"count, got {type(mesh).__name__}")
+    from repro_torch.kernels import dispatch
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"a device mesh (sharded params and slots, mesh-aware kernel "
-            f"resolution) is not ported yet ({MESH_ITEM})")
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with dispatch.use_mesh(mesh):
+            return fn(*args, **kwargs)
+    return wrapped
 
 
 def make_train_step(
@@ -43,8 +59,8 @@ def make_train_step(
     `cfg.microbatches` m > 1 the batch splits into m microbatches along
     axis 0, their f32 gradients and losses are summed in order and
     divided by m. `metrics` holds `loss` and `grad_norm` as device
-    tensors: nothing is read to the host inside the step."""
-    _no_mesh(mesh)
+    tensors: nothing is read to the host inside the step. `mesh`: the
+    step resolves its kernels mesh-aware (`_under_mesh`)."""
     if opt_cfg is None:
         opt_cfg = adamw.AdamWConfig(state_dtype=cfg.opt_state_dtype)
     spk = cfg.spiking.enabled if spiking is None else spiking
@@ -86,7 +102,7 @@ def make_train_step(
                                                opt_cfg, lr_scale)
             metrics = {"loss": loss, "grad_norm": adamw.global_norm(grads)}
             return new_params, new_opt, metrics
-        return train_step
+        return _under_mesh(train_step, mesh)
 
     def train_step_ef(params, opt_state, ef_state, batch):
         loss, grads = grads_of(params, batch)
@@ -97,17 +113,15 @@ def make_train_step(
                                            lr_scale)
         metrics = {"loss": loss, "grad_norm": adamw.global_norm(grads)}
         return new_params, new_opt, new_ef, metrics
-    return train_step_ef
+    return _under_mesh(train_step_ef, mesh)
 
 
 def make_prefill(cfg: LMConfig, spiking: bool, mesh=None) -> Callable:
     """serve_prefill(params, batch {"tokens": (B, N)}) -> last logits."""
-    _no_mesh(mesh)
-
     def serve_prefill(params, batch: Dict[str, Any]):
         return lm.prefill(cfg, params, batch["tokens"], spiking,
                           frontend=batch.get("frontend"))
-    return serve_prefill
+    return _under_mesh(serve_prefill, mesh)
 
 
 def make_serve_step(cfg: LMConfig, spiking: bool, mesh=None) -> Callable:
@@ -116,11 +130,9 @@ def make_serve_step(cfg: LMConfig, spiking: bool, mesh=None) -> Callable:
     `pos` is a scalar (aligned stepping) or a per-slot (B,) vector: the
     continuous-batching serve loop passes its per-slot positions so every
     slot decodes at its own position (see `lm.decode_step`)."""
-    _no_mesh(mesh)
-
     def serve_step(params, state, token, pos):
         return lm.decode_step(cfg, params, state, token, pos, spiking)
-    return serve_step
+    return _under_mesh(serve_step, mesh)
 
 
 def make_prefill_state(cfg: LMConfig, spiking: bool, mesh=None,
@@ -131,9 +143,7 @@ def make_prefill_state(cfg: LMConfig, spiking: bool, mesh=None,
     The bucketed masked prefill the serve scheduler admits requests with:
     pad steps are masked out of every state write. `max_seq` sizes the
     dense KV cache (the O(d) spiking state ignores it)."""
-    _no_mesh(mesh)
-
     def prefill_state(params, tokens, length):
         return lm.prefill_chunked(cfg, params, tokens, length, spiking,
                                   max_seq)
-    return prefill_state
+    return _under_mesh(prefill_state, mesh)

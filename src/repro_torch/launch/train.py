@@ -7,8 +7,13 @@ checkpoints with auto-resume and straggler monitoring. Plain PyTorch on
 one explicit device: the card by default, where the fires and the causal
 SDSA run the hand-written kernels; `device="cpu"` runs their plain
 versions. Asking for the card where there is none raises; nothing falls
-back to the CPU on its own. A device mesh waits for ROADMAP queue 1 item
-8.
+back to the CPU on its own. The step resolves its kernels under a mesh
+(by default `training_mesh`: the host mesh of the training card alone,
+however many cards the host has): one data shard on one card resolves
+as no mesh does. The param specs are computed and validated against the
+mesh, and the data pipeline splits over its `data` axis; a mesh over
+several cards is refused (the port has no data-parallel all-reduce yet:
+`launch.mesh.MULTI_PROCESS_ITEM`).
 
 A checkpoint's step is the number of updates its state has taken, so a
 resumed run starts its data pipeline and schedule at that step and
@@ -25,15 +30,27 @@ import functools
 import time
 from typing import Optional
 
+import torch
+
 from repro_torch import resolve_device
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import registry
 from repro_torch.configs.base import LMConfig
 from repro_torch.data import pipeline, synthetic
 from repro_torch.launch import steps as steps_mod
+from repro_torch.launch.mesh import MULTI_PROCESS_ITEM, Mesh, make_host_mesh
 from repro_torch.models import lm
 from repro_torch.optim import adamw, schedule as sched
+from repro_torch.runtime import sharding
 from repro_torch.runtime.straggler import StragglerMonitor
+
+
+def training_mesh(dev) -> Mesh:
+    """The default mesh of `train_loop`: the host mesh of the training
+    device alone (one position), whatever other cards the host has."""
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return make_host_mesh(device=dev)
 
 
 def train_loop(cfg: LMConfig, *, steps: int = 50, batch: int = 8,
@@ -41,23 +58,36 @@ def train_loop(cfg: LMConfig, *, steps: int = 50, batch: int = 8,
                save_every: int = 20, resume: bool = False,
                log_every: int = 10, lr: float = 1e-3, mesh=None,
                spiking: Optional[bool] = None, device="cuda") -> dict:
-    steps_mod._no_mesh(mesh)
     dev = resolve_device(device)
+    mesh = mesh if mesh is not None else training_mesh(dev)
+    if len(mesh.distinct_devices()) > 1:
+        raise NotImplementedError(
+            f"training over a mesh of {len(mesh.distinct_devices())} "
+            f"devices needs a data-parallel all-reduce "
+            f"({MULTI_PROCESS_ITEM})")
     spk = cfg.spiking.enabled if spiking is None else spiking
+    # Training resolves through the registry as inference does, and under
+    # the mesh: gates run per data shard, and a degrade walks its chain
+    # and names itself ("backend<-requested").
     if spk:
         from repro_torch.kernels import dispatch
-        resolved = " ".join(f"{op}={be}" for op, be in
-                            dispatch.resolved_backends(dev).items())
-        print(f"[train] dispatch backends on {dev}: {resolved}")
+        resolved = " ".join(
+            f"{op}={be}" for op, be in
+            dispatch.resolved_backends(dev, mesh=mesh).items())
+        print(f"[train] dispatch backends on {dev} (mesh-aware): {resolved}")
 
     params = lm.init_params(cfg, seed, device=dev)
+    pspecs = sharding.param_specs(cfg, params, mesh)
+    problems = sharding.validate_specs(params, pspecs, mesh)
+    if problems:
+        raise ValueError(f"param specs do not fit {mesh}: {problems[:3]}")
     opt_cfg = adamw.AdamWConfig(lr=lr, state_dtype=cfg.opt_state_dtype)
     opt_state = adamw.init(params, opt_cfg)
     schedule_fn = functools.partial(
         sched.warmup_cosine, warmup_steps=max(2, steps // 20),
         total_steps=steps)
     step_fn = steps_mod.make_train_step(cfg, opt_cfg, schedule_fn,
-                                        spiking=spk)
+                                        spiking=spk, mesh=mesh)
 
     mgr = CheckpointManager(ckpt_dir, save_every=save_every) \
         if ckpt_dir else None
@@ -71,10 +101,15 @@ def train_loop(cfg: LMConfig, *, steps: int = 50, batch: int = 8,
             start_step = latest
             print(f"[train] resumed from step {latest}")
 
-    def make_batch(shard, step):
-        return synthetic.lm_batch(seed, shard, step, batch, seq, cfg.vocab)
+    # As the reference's loop: the pipeline splits over the mesh's data
+    # axis and this controller feeds shard 0's rows.
+    n_shards = mesh.shape.get("data", 1)
+    local_b = max(1, batch // n_shards)
 
-    pipe = pipeline.ShardedPipeline(make_batch, 1, shard=0,
+    def make_batch(shard, step):
+        return synthetic.lm_batch(seed, shard, step, local_b, seq, cfg.vocab)
+
+    pipe = pipeline.ShardedPipeline(make_batch, n_shards, shard=0,
                                     start_step=start_step).start()
     mon = StragglerMonitor()
     losses = []
@@ -104,7 +139,7 @@ def train_loop(cfg: LMConfig, *, steps: int = 50, batch: int = 8,
         mgr.wait()
     return {"losses": losses, "final_loss": losses[-1] if losses else None,
             "seconds": time.time() - t_start, "params": params,
-            "opt_state": opt_state,
+            "opt_state": opt_state, "mesh": mesh,
             "straggler_flags": mon.flagged_steps}
 
 

@@ -265,11 +265,17 @@ def init_params(cfg: LMConfig, seed: int = 0, device="cuda") -> dict:
     return p
 
 
+def abstract_params(cfg: LMConfig) -> dict:
+    """The param tree on the `meta` device: shapes and dtypes, no memory
+    (the spec rules' stand-in, as `repro`'s ShapeDtypeStruct tree)."""
+    return init_params(cfg, device="meta")
+
+
 def param_count(cfg: LMConfig) -> int:
-    """Number of parameters: the leaves of `init_params` on the `meta`
-    device (shapes only, nothing drawn)."""
+    """Number of parameters: the leaves of `abstract_params` (shapes only,
+    nothing drawn)."""
     return sum(leaf.numel() for _, leaf in
-               _tree_leaves_with_path(init_params(cfg, device="meta")))
+               _tree_leaves_with_path(abstract_params(cfg)))
 
 
 # -------------------------------------------------------- full sequence
@@ -422,6 +428,10 @@ def _run_blocks(cfg, blocks, x, spiking, pattern, n_groups, causal,
     own K / V."""
     layers = [_layer_views(b, n_groups) for b in blocks]
 
+    # The reference gathers each group's weights here under `pure_fsdp`
+    # (`_unshard_weights`, a GSPMD constraint). The single-controller port
+    # holds every weight whole, so under a logical mesh there is nothing
+    # to gather; pure FSDP itself is refused (`loss_fn`, MESH_ITEM).
     def group_body(x, group_params):
         for i, spec in enumerate(pattern):
             p = group_params[i]

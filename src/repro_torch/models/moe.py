@@ -32,9 +32,12 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core.lif import LIFConfig
+from repro_torch.launch.mesh import MULTI_PROCESS_ITEM
 from .layers import bank_init, dense_init, lif_fire, mlp_apply, mlp_init
 
-MESH_ITEM = "ROADMAP queue 1 item 8"
+# What a mesh still needs here (expert-parallel dispatch over a `model`
+# axis, the weight gathers of pure FSDP): multi-card placement.
+MESH_ITEM = MULTI_PROCESS_ITEM
 
 
 def moe_init(d_model: int, d_ff_expert: int, n_experts: int,
@@ -181,7 +184,10 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
         routes.append(r)
         bufs.append(_dispatch(xl, r, e_bank, capacity))
     # (g, e_bank, C, d) -> (e_bank, g*C, d): each expert's rows, group by
-    # group.
+    # group. The reference constrains these buffers to `data` / `model`
+    # shards here (`_maybe_constrain`, a GSPMD hint); the single-controller
+    # port holds them whole on one device, so under a logical mesh the
+    # constraints have nothing to act on and are left out.
     expert_in = torch.stack(bufs, 1).reshape(e_bank, g * capacity, d)
 
     h = torch.bmm(expert_in, p["w_gate"].to(xt.dtype))
@@ -210,7 +216,8 @@ def moe_apply_shard_map(p: dict, x: torch.Tensor, *, top_k: int,
     """The manual expert-parallel MoE (each model shard runs its own
     experts, one sum over the shards). Without a mesh it is `moe_apply`
     with one dispatch group, as the reference's is without a `model`
-    axis; a mesh waits for the port's sharding."""
+    axis. Over a mesh each `model` shard would hold its own experts on
+    its own card, which the single-controller port does not place yet."""
     if mesh is not None:
         raise NotImplementedError(
             f"expert-parallel MoE over a device mesh is not ported yet "

@@ -1,6 +1,7 @@
-"""Runtime: the straggler and occupancy-skew signals, and the fault
-injectors (the guard's event faults, the serve and checkpoint faults).
-Sharding and elastic restart wait for ROADMAP queue 1 item 8's sharded
-half."""
-from . import faults, straggler
-__all__ = ["faults", "straggler"]
+"""Runtime: the straggler and occupancy-skew signals, the fault injectors
+(the guard's event faults, the serve and checkpoint faults), the
+sharding rules with sharded event execution (`sharding`) and elastic
+restart onto a smaller mesh (`elastic`). Placement across several cards
+is `launch.mesh.MULTI_PROCESS_ITEM`."""
+from . import elastic, faults, sharding, straggler
+__all__ = ["elastic", "faults", "sharding", "straggler"]

@@ -24,8 +24,8 @@ what the stack trusts:
                          writer) — restore must detect and walk back
   dropped_shard          a data-shard group disappears mid-training —
                          recovered via `elastic.shrunk_mesh` +
-                         `reshard_restore`, which wait for ROADMAP queue 1
-                         item 8's sharded half (no injector here yet)
+                         `reshard_restore` (no injector: the drill drops
+                         the groups from the mesh it shrinks)
 
 `FAULT_CLASSES` names the full set, in the reference's order. The first
 three classes are detected by the guard (`kernels.dispatch.use_guard`),

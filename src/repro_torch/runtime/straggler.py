@@ -9,10 +9,11 @@ tracks per-step wall times with an EMA, flags steps beyond
     pipeline makes this free of coordination beyond the shard index);
   * step-skip voting — if the same host flags `patience` consecutive
     steps, the launcher checkpoints and excludes it at the next elastic
-    restart (`runtime.elastic`, which waits for ROADMAP queue 1 item 8).
+    restart (`runtime.elastic`).
 
 A stdlib-only copy of `repro.runtime.straggler`: the serve scheduler's
-replica dispatch reads `occupancy_imbalance`.
+replica dispatch and `runtime.sharding.event_op_sharded`'s report read
+`occupancy_imbalance`.
 """
 from __future__ import annotations
 

@@ -84,9 +84,11 @@ def test_declared_chains_mirror_the_reference():
     text = dispatch.table()
     for op in dispatch.op_names():
         assert op in text
-    assert "cuda-packed(p30,grad,packed,->cuda)" in text
-    assert "cuda-packed-pipe(p31,grad,packed,->cuda-packed)" in text
-    assert "cuda-pipe(p26,grad,->cuda)" in text
+    # `mesh`: the backend declares a mesh capability (`Backend.mesh_aware`).
+    assert "cuda-packed(p30,grad,mesh,packed,->cuda)" in text
+    assert "cuda-packed-pipe(p31,grad,mesh,packed,->cuda-packed)" in text
+    assert "cuda-pipe(p26,grad,mesh,->cuda)" in text
+    assert "jnp(p0,manual,grad)" in text      # econv's event scatter
 
 
 @pytest.mark.parametrize("op,name,nxt", _chain_edges())

@@ -241,8 +241,10 @@ def test_shard_map_without_a_mesh_is_moe_apply_and_a_mesh_raises(spiking):
                                lif_cfg=LIFConfig())
     _check("bf16", got, want)
     assert torch.equal(got, plain)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tmoe.moe_apply_shard_map(tp, tx, top_k=K, mesh=object())
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, 2), ("data", "model"), devices="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 8b"):
+        tmoe.moe_apply_shard_map(tp, tx, top_k=K, mesh=mesh)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

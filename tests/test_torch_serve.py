@@ -332,17 +332,20 @@ def test_slot_pool_scales_to_many_slots():
 
 # --------------------------------------------------- devices, mesh, faults
 def test_server_defaults_to_cuda_and_refuses_a_mesh():
+    """The card by default; a mesh is taken (it steers resolution), and a
+    value that is not a mesh is refused before any weights are drawn."""
     import inspect
     assert inspect.signature(Server).parameters["device"].default == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Server(CFG)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
         Server(CFG, mesh=object(), **CPU)
     for make in (steps.make_prefill, steps.make_serve_step,
                  steps.make_prefill_state):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        with pytest.raises(TypeError, match="launch.mesh.Mesh"):
             make(CFG, True, mesh=object())
+        assert make(CFG, True, mesh=8).__wrapped__ is not None
 
 
 def test_nan_params_and_nan_decode_state_poison_copies():
@@ -467,16 +470,18 @@ def test_cli_serves_on_the_cpu(argv, monkeypatch, capsys):
         assert "admission load signal: occ_per_shard=" in out
 
 
-def test_cli_refuses_cuda_without_a_card_and_a_mesh(monkeypatch):
+def test_cli_refuses_cuda_without_a_card_and_a_mesh(monkeypatch, capsys):
     from repro_torch.launch import serve
     base = ["serve", "--arch", "tinyllama-1.1b", "--reduced"]
     if not torch.cuda.is_available():
         monkeypatch.setattr("sys.argv", base)
         with pytest.raises(RuntimeError, match="CUDA"):
             serve.main()
-    monkeypatch.setattr("sys.argv", base + ["--device", "cpu", "--mesh"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        serve.main()
+    monkeypatch.setattr("sys.argv", base + ["--device", "cpu", "--mesh",
+                                            "--requests", "1",
+                                            "--max-new", "2"])
+    serve.main()
+    assert "kernel backends (mesh-aware) on cpu" in capsys.readouterr().out
 
 
 def test_straggler_monitor_matches_the_reference(monkeypatch):

@@ -337,12 +337,13 @@ def test_loss_fn_and_every_gradient_leaf_match_jax(trees, spiking, backend,
 
 
 def test_loss_fn_refuses_pure_fsdp_and_frontend_labels():
-    """pure_fsdp waits for the mesh (item 8). Frontend positions are ported
+    """pure_fsdp waits for multi-card placement (item 8b). Frontend
+    positions are ported
     since the VLM: they get label -1, so the loss is the mean over the
     token positions alone, as the reference's."""
     tp = tlm.init_params(TCFG, device="cpu")
     b = _tbatch(_batch(0))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 8b"):
         tlm.loss_fn(TCFG.replace(pure_fsdp=True), tp, b, True)
     cfg = TCFG.replace(n_frontend_tokens=4)
     tp["frontend_proj"] = torch.eye(TCFG.d_model, dtype=torch.bfloat16)
@@ -533,8 +534,11 @@ def test_microbatches_accumulate_in_f32_and_average():
 
 
 def test_make_train_step_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    """A value that is not a mesh is refused; a mesh wraps the step in
+    mesh-aware resolution."""
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
         tsteps.make_train_step(TCFG, mesh=object())
+    assert tsteps.make_train_step(TCFG, mesh=8).__wrapped__ is not None
 
 
 # ------------------------------------------------------------- the loop
@@ -578,8 +582,12 @@ def test_resume_past_a_deleted_checkpoint_reproduces_the_losses(tmp_path):
 
 
 def test_train_loop_refuses_a_mesh_and_a_missing_card():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        ttrain.train_loop(TINY, steps=1, mesh=object(), device="cpu")
+    """A mesh over two devices needs a data-parallel all-reduce the port
+    does not have yet (item 8b); a logical mesh on one device trains."""
+    from repro_torch.launch.mesh import make_mesh
+    two = make_mesh((2, 1), ("data", "model"), devices=["cpu", "meta"])
+    with pytest.raises(NotImplementedError, match="queue 1 item 8b"):
+        ttrain.train_loop(TINY, steps=1, mesh=two, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ttrain.train_loop(TINY, steps=1)
