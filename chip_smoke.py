@@ -199,7 +199,12 @@ Phases, each printed on its own line:
       one. Its lines carry the card's name and power limit;
   (n) LM training at TinyLlama-1.1B width (`train_loop`, the bf16
       residual fire and surrogate backward, a step against `ref`, a
-      dense step, a resume);
+      dense step, a resume); the two routes' gradients within
+      GRAD_GAP_LIMITS of each other per leaf, each route's distance to
+      an f32 yardstick (the same step on an f32 copy of the params on
+      `ref`) printed beside it (`grad_yardstick` lines); the kernel
+      route with `ref`'s fire backward within WITNESS_LIMIT of `ref`'s
+      gradients (`grad_fire_witness`);
   (o) the attention-family configs: (o1) qwen2-moe-a2.7b at full width
       and depth (24 layers, d 2048, 60 routed experts top-4 and 4 shared,
       bf16 weights from seed 0), a spiking `prefill` of MOE_BATCH x
@@ -215,8 +220,15 @@ Phases, each printed on its own line:
       MoE decode step couples its slots); (o3) whisper-medium's
       `forward_hidden` over 1500 stub frames: WHISPER_LAUNCHES (24
       encoder `sdsa`), equal to `ref`, the encoder's `sdsa` on its own
-      spikes against its plain version; (o4) REDUCED_ARCHS' prefill and
-      decode steps in both modes, equal to `ref`;
+      spikes against its plain version, and 4 greedy decode steps after
+      a chunked prefill, tokens equal to `ref`'s (its decode reads a zero
+      cross state, as the reference's); (o4) REDUCED_ARCHS' prefill and
+      decode steps in both modes, equal to `ref`; (o5) qwen3-4b,
+      phi-3-vision-4.2b (with its stub patch embeddings) and
+      internlm2-20b uncut, one after another: a spiking prefill of 8 x
+      128 and 4 greedy decode steps after a chunked prefill, on the
+      kernels and on `ref`, logits and tokens bit for bit, exact
+      launches, peak under 80 GB;
   (p) the SSM configs (`models/ssm.py`): (p1) xlstm-350m uncut (24
       layers, d 1024, 222,763,264 parameters), dense, spiking at the
       config's lif_vth = 1.0 (silent: the first fire's spike rate printed
@@ -289,13 +301,42 @@ Phases, each printed on its own line:
       reference's elastic drill at its `drill` config: saves at 3, 6, 9,
       the newest torn, (4, 2) shrunk to (2, 2), restored at step 6,
       resumed within 0.05 of the healthy run;
+  (s) LM training across the families: (s1) xlstm-350m uncut (24
+      layers, d 1024; `remat="full"` with a checkpoint a block nested in
+      each 8-block group's) at 8 x XLSTM_TRAIN_SEQ tokens: `train_loop`
+      for 3 steps dense and spiking at XLSTM_FIRING_VTH, exact launches
+      (`lm_train_launches`); one `make_train_step` step on the kernels
+      and on `ref`, step 0's loss bit for bit, every gradient finite and
+      non-zero except the sLSTM's unread `ln2` / `mlp` (zero), the
+      gradient gap and the f32 yardstick as (n); the step's span, host
+      enqueue and peak; `loss_fn`'s backward under remat "full" and
+      "none", bit for bit, both peaks; (s2) qwen2-moe-a2.7b at full
+      width, its depth cut to MOE_TRAIN_LAYERS = 4 (2,904,541,184
+      parameters; the full 14.32B with f32 AdamW moments needs about
+      172 GB): `train_loop` for 3 steps, its peak under 70 GB; step 0 on
+      the kernels (twice: gradients bit for bit) and on `ref` (loss bit
+      for bit, the gap, the yardstick and the fire witness as (n)),
+      dropped assignments, launches,
+      span, enqueue and peak; rows 2 and 3 bf16 on the shared experts'
+      training drive; (s3) jamba-1.5-large-398b's full-width period as
+      (p3) builds it: `loss_fn`'s backward under remat "full" (nested)
+      and "none" at JAMBA_TRAIN_BATCH x 128, bit for bit, peaks under 80
+      GB; the reduced jamba with its MoE through `train_loop` and a step
+      against `ref` (loss bit for bit); (s4) each timed step of (n) and
+      (s) priced by `launch.flops.step_cost`: `flops` (the reference's
+      count), `executed_flops` (`executed_train_flops`: with the nested
+      remat's second recompute), `model_flops_6nd`, `train_mfu` and
+      `train_hw_flops_share` (over `executed_flops`) at the H100 SXM's
+      dense bf16 tensor-core peak (989 TFLOP/s);
   (d) one JSON line listing every kernel with its launches on the main
       paths ((c) and (h) for inference kernels, (f) for the training
       ones, (i) for the APEC ones, (j) for the packed ones, (k), (m) and
       (o) and (p) for the LM ones, (l) adding its hybrid forwards' and APEC
       calls', (n) the training fires', (q) its guarded forwards' and
       fault calls', (r) its mesh forwards', sharded calls', serving and
-      training; the serial kernels 11, 13, 15 and 17 by their override
+      training, (s) its training loops' and steps' fires and SDSA, (o5)
+      and whisper's decode the bf16 fire; the serial kernels 11, 13, 15
+      and 17 by their override
       calls), error and times (rows 16 and 18: kernels 16 and 18).
 Each phase prints its wall time on a `phase_time` line.
 The last line is {"ok": true, "device": {...}}. Any failed check exits
@@ -3702,23 +3743,112 @@ LM_TRAIN_DRIVES = (("train_hidden", LM_TRAIN_BATCH * LM_TRAIN_SEQ * 5632),
                    ("ragged_offset1", 100003))
 
 
+def block_fires(cfg, spec) -> int:
+    """LIF fires one spiking block makes in a forward, from the model's
+    code: an attention block fires its input, q, k and v; Mamba its
+    input; mLSTM and sLSTM their raw residual; an MLP FFN its input and
+    hidden drive; an MoE FFN its input, the routed experts' hidden drive
+    and, with shared experts, theirs."""
+    n = 4 if spec.kind == "attn" else 1
+    if spec.ffn == "mlp":
+        n += 2
+    elif spec.ffn == "moe":
+        n += 2 + (1 if cfg.moe.n_shared else 0)
+    return n
+
+
+# The whole-model gradient gap between the two bf16 routes
+# (`gradient_gap`), gated per config at twice the worst leaf read on an
+# NVIDIA H100 80GB HBM3 at 700 W: TinyLlama's steps 1.263% apart
+# at `embed`, qwen2-moe's 0.650% at `blocks.0.attn.w_v`; xlstm-350m's
+# routes agree bit for bit, and must go on doing so. The forward is bit
+# for bit and each fire's backward on the same inputs lies within one
+# bf16 ulp of `ref`'s (`lm_train_same_input_vjp`); `fire_witness` runs
+# the kernel route with `ref`'s fire backward on the kernel forward's
+# own drives and holds it to `ref`'s gradients within WITNESS_LIMIT: it
+# gave them bit for bit on every leaf, TinyLlama and qwen2-moe,
+# so the routes part only in the fires' backward, whose one-ulp
+# differences the whole-model backward carries to the gaps above.
+# The distances of both routes to an f32 yardstick are printed only:
+# each route sits 0.41-19 from it (the f32 forward rounds its drives
+# elsewhere and spikes differently), too far for a gap of a few percent
+# between the routes to show.
+GRAD_GAP_LIMITS = {"tinyllama": 2 * 0.01263, "qwen2-moe": 2 * 0.00650,
+                   "xlstm-350m": 0.0}
+WITNESS_LIMIT = 0.0
+# (what, config, batch, seq, spiking, [step seconds]) of the training
+# steps (n) and (s) time, priced by (s4).
+STEP_COSTS: list = []
+
+
 def lm_train_launches(cfg) -> dict:
     """Kernel launches a spiking training step makes, from the model's
-    code: each layer fires FIRE_NAMES through the residual kernel and
-    runs one causal SDSA; `remat` "full" or "dots" runs the forward again
-    in the backward; every fire's surrogate backward runs once, SDSA's
-    backward replays `ref` (no launch). No primal fire."""
-    again = 1 if cfg.remat == "none" else 2
-    fires = len(FIRE_NAMES) * cfg.n_layers
-    return {"lif_fwd_bf16": again * fires, "lif_bwd_bf16": fires,
-            "sdsa_causal": again * cfg.n_layers}
+    code: each block's fires (`block_fires`) through the residual kernel
+    and one causal SDSA an attention block. `remat` "dots", and "full"
+    on a one-block pattern, run the forward again in the backward; "full"
+    on a longer pattern nests a checkpoint a block inside the group's,
+    and the group's recompute stops at its last block's input (a
+    non-reentrant checkpoint stops once it has what it saved), after
+    which each block recomputes itself: every block but the last runs
+    three times, the last twice. Every fire's surrogate backward runs
+    once, SDSA's backward replays `ref` (no launch). No primal fire."""
+    from repro_torch.models import lm
+    pattern, n_groups = lm.layer_pattern(cfg)
+    fires = [block_fires(cfg, spec) for spec in pattern]
+    attn = [int(spec.kind == "attn") for spec in pattern]
+
+    def runs(per_block):
+        if cfg.remat == "none":
+            return sum(per_block)
+        if cfg.remat == "full" and len(pattern) > 1:
+            return 3 * sum(per_block) - per_block[-1]
+        return 2 * sum(per_block)
+    return {"lif_fwd_bf16": n_groups * runs(fires),
+            "lif_bwd_bf16": n_groups * sum(fires),
+            "sdsa_causal": n_groups * runs(attn)}
+
+
+def train_fire_case(torch, label, x, g, plain_reps=3):
+    """Rows 2 and 3 bf16 on the drive `x` (T, P) and cotangent `g` against
+    their plain versions, bit for bit (spikes, vres, dx): the `kernel`
+    lines' records by name, with times and byte bounds."""
+    from repro_torch.kernels import lif_scan
+    kw = dict(decay=0.5, v_th=1.0, soft_reset=True)
+    s, vres = lif_scan.lif_fwd(x, **kw)
+    dx = lif_scan.lif_bwd(vres, g, **kw)
+    ps, pvres = lif_scan.lif_fwd_plain(x, **kw)
+    pdx = lif_scan.lif_bwd_plain(pvres, g, **kw)
+    torch.cuda.synchronize()
+    check(s.dtype == dx.dtype == torch.bfloat16 and
+          vres.dtype == torch.float32, f"{label}: dtypes {s.dtype}, "
+          f"{vres.dtype}, {dx.dtype}")
+    check(torch.equal(s, ps) and torch.equal(vres, pvres),
+          f"lif_fwd_bf16 kernel disagrees with its plain version ({label})")
+    check(torch.equal(dx, pdx),
+          f"lif_bwd_bf16 kernel disagrees with its plain version ({label})")
+    elems = x.numel()
+    recs = {}
+    for name, fn, plain, flops in (
+            ("lif_fwd_bf16", lambda: lif_scan.lif_fwd(x, **kw),
+             lambda: lif_scan.lif_fwd_plain(x, **kw), 5),
+            ("lif_bwd_bf16", lambda: lif_scan.lif_bwd(vres, g, **kw),
+             lambda: lif_scan.lif_bwd_plain(vres, g, **kw), 11)):
+        # 2 + 2 + 4 bytes an element: fwd reads x, writes s and vres;
+        # bwd reads vres and g, writes dx.
+        b_ms, by = bound_ms(8 * elems, flops * elems)
+        rec = dict(max_abs_err=0.0, ms=cuda_ms(torch, fn),
+                   device_ms=graph_ms(torch, fn),
+                   plain_ms=cuda_ms(torch, plain, reps=plain_reps),
+                   bound_ms=b_ms, bound_by=by, library_ms=None,
+                   shape=list(x.shape))
+        emit("kernel", name=name, case=label, **rec)
+        recs[name] = rec
+    return recs
 
 
 def phase_lm_train_kernels(torch, device, results):
     """(n1): rows 2 and 3 on bf16 drives against their plain versions,
     bit for bit (spikes, vres, dx), with times and byte bounds."""
-    from repro_torch.kernels import lif_scan
-    kw = dict(decay=0.5, v_th=1.0, soft_reset=True)
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     for label, p in LM_TRAIN_DRIVES:
         off = 1 if label.startswith("ragged") else 0
@@ -3726,44 +3856,17 @@ def phase_lm_train_kernels(torch, device, results):
              * 0.8 + 0.6).bfloat16()[off:].view(2, p)
         g = torch.randn((2 * p + off,), generator=gen, device=device) \
             .bfloat16()[off:].view(2, p)
-        s, vres = lif_scan.lif_fwd(x, **kw)
-        dx = lif_scan.lif_bwd(vres, g, **kw)
-        ps, pvres = lif_scan.lif_fwd_plain(x, **kw)
-        pdx = lif_scan.lif_bwd_plain(pvres, g, **kw)
-        torch.cuda.synchronize()
-        check(s.dtype == dx.dtype == torch.bfloat16 and
-              vres.dtype == torch.float32, f"{label}: dtypes {s.dtype}, "
-              f"{vres.dtype}, {dx.dtype}")
-        check(torch.equal(s, ps) and torch.equal(vres, pvres),
-              f"lif_fwd_bf16 kernel disagrees with its plain version "
-              f"({label})")
-        check(torch.equal(dx, pdx),
-              f"lif_bwd_bf16 kernel disagrees with its plain version "
-              f"({label})")
-        elems = x.numel()
-        for name, fn, plain, flops in (
-                ("lif_fwd_bf16", lambda: lif_scan.lif_fwd(x, **kw),
-                 lambda: lif_scan.lif_fwd_plain(x, **kw), 5),
-                ("lif_bwd_bf16", lambda: lif_scan.lif_bwd(vres, g, **kw),
-                 lambda: lif_scan.lif_bwd_plain(vres, g, **kw), 11)):
-            # 2 + 2 + 4 bytes an element: fwd reads x, writes s and vres;
-            # bwd reads vres and g, writes dx.
-            b_ms, by = bound_ms(8 * elems, flops * elems)
-            rec = dict(max_abs_err=0.0, ms=cuda_ms(torch, fn),
-                       device_ms=graph_ms(torch, fn),
-                       plain_ms=cuda_ms(torch, plain, reps=3),
-                       bound_ms=b_ms, bound_by=by, library_ms=None,
-                       shape=[2, p])
-            emit("kernel", name=name, case=label, **rec)
-            if label == "train_hidden":
-                results[name] = rec
+        recs = train_fire_case(torch, label, x, g)
+        if label == "train_hidden":
+            results.update(recs)
 
 
 @contextlib.contextmanager
 def counted_steps(torch, steps_mod):
     """While active, every step function `make_train_step` returns
     records each call's launches (the counters read before and after
-    it) and its metrics."""
+    it), its metrics and its wall seconds (the card synchronised before
+    and after)."""
     from repro_torch.kernels import launch_counts
     orig = steps_mod.make_train_step
     log: list = []
@@ -3772,10 +3875,14 @@ def counted_steps(torch, steps_mod):
         step = orig(*args, **kwargs)
 
         def counted(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             before = launch_counts()
             out = step(*a)
             after = launch_counts()
-            log.append(({k: after[k] - before[k] for k in after}, out[-1]))
+            torch.cuda.synchronize()
+            log.append(({k: after[k] - before[k] for k in after}, out[-1],
+                        time.perf_counter() - t0))
             return out
         return counted
 
@@ -3803,10 +3910,11 @@ def captured_grads(adamw):
         adamw.update = orig
 
 
-def lm_train_step_breakdown(torch, cfg, params, opt, batch):
-    """One spiking step as `make_train_step` runs it, its parts bracketed
-    by CUDA events: device span, host enqueue, forward (loss) / backward
-    (`autograd.grad`) / optimizer ms, and the peak of allocated memory."""
+def lm_train_step_breakdown(torch, cfg, params, opt, batch, spiking=True):
+    """One step as `make_train_step` runs it, its parts bracketed by CUDA
+    events: device span, host enqueue, forward (loss) / backward
+    (`autograd.grad`, zeros for a leaf the loss never reads) / optimizer
+    ms, and the peak of allocated memory."""
     from repro_torch.models import lm
     from repro_torch.optim import adamw
     leaves = adamw.leaves(params)
@@ -3815,9 +3923,10 @@ def lm_train_step_breakdown(torch, cfg, params, opt, batch):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ev[0].record()
-    loss = lm.loss_fn(cfg, params, batch, True)
+    loss = lm.loss_fn(cfg, params, batch, spiking)
     ev[1].record()
-    grads = torch.autograd.grad(loss, leaves)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
     ev[2].record()
     adamw.update(list(grads), opt, leaves, adamw.AdamWConfig(lr=LR))
     ev[3].record()
@@ -3831,46 +3940,240 @@ def lm_train_step_breakdown(torch, cfg, params, opt, batch):
                 max_memory_allocated=torch.cuda.max_memory_allocated())
 
 
-def phase_lm_train_loop(torch, device, cfg, card):
-    """(n2): `train_loop` at full width on the kernels, gated per step."""
+def train_loop_checked(torch, device, cfg, card, what, spiking=True,
+                       batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+                       steps=LM_TRAIN_STEPS):
+    """`train_loop` for `steps` steps on the kernels, each step's launches
+    exact (`lm_train_launches`; none dense) and its loss and gradient
+    norm finite; its peak memory. Returns (launch totals, the loop's
+    output, each step's wall seconds)."""
     from repro_torch.launch import steps as steps_mod
     from repro_torch.launch import train
     from repro_torch.kernels import reset_launch_counts, launch_counts
-    per_step = lm_train_launches(cfg)
+    per_step = lm_train_launches(cfg) if spiking else {}
     reset_launch_counts()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with counted_steps(torch, steps_mod) as log:
-        out = train.train_loop(cfg, steps=LM_TRAIN_STEPS,
-                               batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
-                               seed=SEED, log_every=1, device=device)
+        out = train.train_loop(cfg, steps=steps, batch=batch, seq=seq,
+                               seed=SEED, log_every=1, spiking=spiking,
+                               device=device)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     totals = launch_counts()
-    check(len(log) == LM_TRAIN_STEPS, f"train_loop ran {len(log)} steps")
-    for i, (counts, metrics) in enumerate(log):
-        lm_launch_check(counts, per_step, f"training step {i}")
+    check(len(log) == steps, f"{what}: train_loop ran {len(log)} steps")
+    for i, (counts, metrics, _) in enumerate(log):
+        lm_launch_check(counts, per_step, f"{what} training step {i}")
         check(bool(torch.isfinite(metrics["loss"])) and
               bool(torch.isfinite(metrics["grad_norm"])),
-              f"training step {i}: loss {metrics['loss']}, grad norm "
-              f"{metrics['grad_norm']}")
-    emit("lm_train_loop", card=card, batch=LM_TRAIN_BATCH,
-         seq=LM_TRAIN_SEQ, steps=LM_TRAIN_STEPS, remat=cfg.remat,
-         wall_s=wall, seconds=out["seconds"], losses=out["losses"],
-         grad_norms=[m["grad_norm"].item() for _, m in log],
-         launches_per_step=per_step)
+              f"{what} training step {i}: loss {metrics['loss']}, grad "
+              f"norm {metrics['grad_norm']}")
+    step_s = [t for _, _, t in log]
+    emit("lm_train_loop", card=card, arch=cfg.name, what=what,
+         mode="spiking" if spiking else "dense", layers=cfg.n_layers,
+         batch=batch, seq=seq, steps=steps, remat=cfg.remat,
+         opt_state_dtype=cfg.opt_state_dtype,
+         microbatches=cfg.microbatches, wall_s=wall,
+         seconds=out["seconds"], step_s=step_s, losses=out["losses"],
+         grad_norms=[m["grad_norm"].item() for _, m, _ in log],
+         launches_per_step=per_step,
+         peak_bytes=torch.cuda.max_memory_allocated())
+    return totals, out, step_s
+
+
+def phase_lm_train_loop(torch, device, cfg, card):
+    """(n2): `train_loop` at full width on the kernels, gated per step."""
+    totals, out, step_s = train_loop_checked(torch, device, cfg, card,
+                                             "tinyllama")
+    STEP_COSTS.append(("n_train_loop", cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                       True, step_s))
     return totals, out
+
+
+def rel_l2(torch, names, got, want) -> dict:
+    """Per-leaf relative L2 gap |got - want| / |want|, in f32."""
+    return {n: ((a.float() - r.float()).norm() / (r.float().norm() + 1e-30))
+            .item() for n, a, r in zip(names, got, want)}
+
+
+def f32_yardstick(torch, cfg, params, batch, spiking):
+    """The gradients of one loss on an f32 copy of `params` on `ref`: the
+    yardstick both bf16 routes' gradients are measured against. Returns
+    (loss, f32 gradients in `adamw.leaves` order)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    p32 = lm._tree_map(lambda t: t.detach().float().requires_grad_(True),
+                       params)
+    leaves = adamw.leaves(p32)
+    with dispatch.use_backend(dispatch.REF):
+        loss = lm.loss_fn(cfg, p32, batch, spiking)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+    del p32, leaves
+    return loss.detach(), grads
+
+
+def gradient_gap(torch, cfg, params, batch, spiking, names, grads,
+                 ref_grads, what, card, unread=()):
+    """The two bf16 routes' gradients against each other, per leaf, gated
+    at GRAD_GAP_LIMITS[what]; each route's distance to the f32 yardstick
+    (`f32_yardstick`) printed beside it. Leaves the loss never reads
+    (`unread`, zero in every route) are left out."""
+    y_loss, y_grads = f32_yardstick(torch, cfg, params, batch, spiking)
+    keep = [i for i, n in enumerate(names) if n not in unread]
+    pick = [names[i] for i in keep]
+
+    def sel(gs):
+        return [gs[i] for i in keep]
+    inter = rel_l2(torch, pick, sel(grads), sel(ref_grads))
+    kernel = rel_l2(torch, pick, sel(grads), sel(y_grads))
+    ref = rel_l2(torch, pick, sel(ref_grads), sel(y_grads))
+    del y_grads
+    limit = GRAD_GAP_LIMITS[what]
+    worst = {k: max(v, key=v.get) for k, v in
+             (("inter", inter), ("kernel", kernel), ("ref", ref))}
+    out = dict(inter_route_max=max(inter.values()), limit=limit,
+               kernel_to_f32_max=max(kernel.values()),
+               ref_to_f32_max=max(ref.values()),
+               worst_leaf=worst, f32_loss=y_loss.item(),
+               kernel_to_f32=kernel, ref_to_f32=ref, inter_route=inter)
+    emit("grad_yardstick", card=card, what=what, arch=cfg.name,
+         mode="spiking" if spiking else "dense", **out)
+    for n in pick:
+        check(inter[n] <= limit,
+              f"{what}: the routes' gradients of {n} are {inter[n]} apart, "
+              f"over the limit {limit} (GRAD_GAP_LIMITS: twice the gap "
+              f"measured for this step)")
+    return out
+
+
+@contextlib.contextmanager
+def ref_fire_backward(torch):
+    """While active, the card route's differentiable fire (`ops.lif`, what
+    the registry's `lif_scan` runs on the card) fires on the residual
+    kernel as before but pulls its cotangent back through `ref`'s fire
+    (`lif_scan_ref` under autograd) on the same drive."""
+    from repro_torch.kernels import lif_scan, ops
+    from repro_torch.kernels.ref import lif_scan_ref
+
+    class KernelFireRefBackward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, kw):
+            ctx.save_for_backward(x)
+            ctx.kw = kw
+            return lif_scan.lif_fwd(x, decay=kw["decay"], v_th=kw["v_th"],
+                                    soft_reset=kw["soft_reset"])[0]
+
+        @staticmethod
+        def backward(ctx, g):
+            (x,) = ctx.saved_tensors
+            with torch.enable_grad():
+                xr = x.detach().requires_grad_(True)
+                (dx,) = torch.autograd.grad(lif_scan_ref(xr, **ctx.kw), xr,
+                                            g)
+            return dx, None
+
+    def fire(x, decay=0.5, v_th=1.0, soft_reset=True, surrogate_alpha=2.0):
+        kw = dict(decay=decay, v_th=v_th, soft_reset=soft_reset,
+                  surrogate_alpha=surrogate_alpha)
+        flat = x.reshape(x.shape[0], -1).contiguous()
+        return KernelFireRefBackward.apply(flat, kw).reshape(x.shape)
+    orig = ops.lif
+    ops.lif = fire
+    try:
+        yield
+    finally:
+        ops.lif = orig
+
+
+def fire_witness(torch, cfg, params, batch, spiking, names, what, card,
+                 grads, ref_grads=None):
+    """The kernel route's `loss_fn` gradients with `ref`'s fire backward
+    (`ref_fire_backward`) against `ref`'s (computed here unless given)
+    and against the kernel route's own (`grads`), per leaf: if the fires'
+    backward is where the routes part, the first gap is WITNESS_LIMIT and
+    the second the routes' gap. Printed and gated."""
+    from repro_torch.kernels import dispatch
+    if ref_grads is None:
+        _, ref_grads, counts, _ = loss_grads(torch, cfg, params, batch,
+                                             spiking, dispatch.REF)
+        check(not any(counts.values()), f"the ref pass launched {counts}")
+    with ref_fire_backward(torch):
+        loss, mixed, counts, _ = loss_grads(torch, cfg, params, batch,
+                                            spiking)
+    check(counts["lif_fwd_bf16"] > 0 and not counts["lif_bwd_bf16"],
+          f"{what}: the witness pass launched {counts}")
+    to_ref = rel_l2(torch, names, mixed, ref_grads)
+    to_kernel = rel_l2(torch, names, mixed, grads)
+    equal = [n for n, a, b in zip(names, mixed, ref_grads)
+             if torch.equal(a, b)]
+    emit("grad_fire_witness", card=card, what=what, arch=cfg.name,
+         leaves=len(names), leaves_equal_to_ref=len(equal),
+         to_ref_max=max(to_ref.values()),
+         to_ref_worst_leaf=max(to_ref, key=to_ref.get),
+         to_kernel_max=max(to_kernel.values()),
+         to_kernel_worst_leaf=max(to_kernel, key=to_kernel.get),
+         limit=WITNESS_LIMIT, to_ref=to_ref)
+    check(max(to_ref.values()) <= WITNESS_LIMIT,
+          f"{what}: with ref's fire backward the kernel route's gradients "
+          f"are {max(to_ref.values())} from ref's (over {WITNESS_LIMIT})")
+    del mixed, ref_grads
+
+
+def step_runs(torch, cfg, params, batch, spiking, routes):
+    """One `make_train_step` step from the same params for each route of
+    `routes` (None: the kernels, or a registry backend name), the params
+    restored between them: route -> (loss, gradients as the optimizer
+    received them, launches). The params are left as they started."""
+    from repro_torch.kernels import dispatch, launch_counts, \
+        reset_launch_counts
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.optim import adamw
+    start = [t.detach().clone() for t in adamw.leaves(params)]
+    opt_cfg = adamw.AdamWConfig(lr=LR, state_dtype=cfg.opt_state_dtype)
+    step_fn = steps_mod.make_train_step(cfg, opt_cfg, spiking=spiking)
+    runs = {}
+    for route in routes:
+        opt = adamw.init(params, opt_cfg)
+        reset_launch_counts()
+        with captured_grads(adamw) as grads, \
+                (contextlib.nullcontext() if route is None
+                 else dispatch.use_backend(route)):
+            _, opt, metrics = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        runs[route] = (metrics["loss"], grads[0], launch_counts())
+        del opt
+        for p, s0 in zip(adamw.leaves(params), start):
+            with torch.no_grad():
+                p.copy_(s0)
+    del start
+    return runs
+
+
+def check_step_grads(torch, names, grads, what, unread=()):
+    """Every gradient leaf finite; non-zero, except the leaves the loss
+    never reads (`unread`), which must be zero."""
+    for name, g in zip(names, grads):
+        check(bool(torch.isfinite(g).all()),
+              f"{what}: gradient of {name} not finite")
+        if name in unread:
+            check(not bool(g.any()), f"{what}: gradient of {name}, which "
+                  f"the loss never reads, is not zero")
+        else:
+            check(bool(g.any()), f"{what}: gradient of {name} is all zero")
 
 
 def phase_lm_train_vs_ref(torch, device, cfg, card):
     """(n2): one `make_train_step` step from the same params on the
     kernels and on `ref`: step 0's loss bit for bit, no all-zero gradient
-    leaf, the gradients' per-leaf relative L2 gap (printed); every
-    registry call's backward against `ref`'s on the same inputs; the
-    step's breakdown and the two ways of slicing the stacked layers."""
+    leaf, the gradients' per-leaf relative L2 gap to each other and to an
+    f32 yardstick (`gradient_gap`); every registry call's backward
+    against `ref`'s on the same inputs; the step's breakdown and the two
+    ways of slicing the stacked layers."""
     from repro_torch.data import pipeline, synthetic
-    from repro_torch.kernels import dispatch, launch_counts, \
-        reset_launch_counts
+    from repro_torch.kernels import dispatch
     from repro_torch.launch import steps as steps_mod
     from repro_torch.models import lm
     from repro_torch.optim import adamw
@@ -3881,33 +4184,15 @@ def phase_lm_train_vs_ref(torch, device, cfg, card):
     save_bytes = sum(t.numel() * t.element_size()
                      for t in adamw.leaves(params)) + \
         2 * 4 * sum(t.numel() for t in adamw.leaves(params)) + 4
-    start = [t.clone() for t in adamw.leaves(params)]
     opt_cfg = adamw.AdamWConfig(lr=LR)
     step_fn = steps_mod.make_train_step(cfg, opt_cfg)
-    runs = {}
-    for backend in (None, dispatch.REF):
-        for p, s0 in zip(adamw.leaves(params), start):
-            with torch.no_grad():
-                p.copy_(s0)
-        opt = adamw.init(params, opt_cfg)
-        reset_launch_counts()
-        with captured_grads(adamw) as grads, \
-                (contextlib.nullcontext() if backend is None
-                 else dispatch.use_backend(backend)):
-            _, opt, metrics = step_fn(params, opt, batch)
-        torch.cuda.synchronize()
-        counts = launch_counts()
-        runs[backend] = (metrics["loss"], grads[0], counts)
-        del opt
+    runs = step_runs(torch, cfg, params, batch, True, (None, dispatch.REF))
     loss, grads, counts = runs[None]
     ref_loss, ref_grads, ref_counts = runs[dispatch.REF]
     lm_launch_check(counts, lm_train_launches(cfg), "make_train_step")
     check(not any(ref_counts.values()), f"the ref step launched {ref_counts}")
-    for name, g in zip(names, grads):
-        check(bool(torch.isfinite(g).all()), f"gradient of {name} not finite")
-        check(bool((g != 0).any()), f"gradient of {name} is all zero")
-    rel = {n: ((a.float() - r.float()).norm() / (r.float().norm() + 1e-30))
-           .item() for n, a, r in zip(names, grads, ref_grads)}
+    check_step_grads(torch, names, grads, "tinyllama step")
+    rel = rel_l2(torch, names, grads, ref_grads)
     emit("lm_train_step_vs_ref", card=card, loss=loss.item(),
          ref_loss=ref_loss.item(), loss_equal=bool(torch.equal(loss,
                                                                ref_loss)),
@@ -3916,11 +4201,12 @@ def phase_lm_train_vs_ref(torch, device, cfg, card):
     check(torch.equal(loss, ref_loss),
           f"step 0's loss on the kernels {loss.item()!r} != ref's "
           f"{ref_loss.item()!r}")
+    gradient_gap(torch, cfg, params, batch, True, names, grads, ref_grads,
+                 "tinyllama", card)
+    fire_witness(torch, cfg, params, batch, True, names, "tinyllama", card,
+                 grads)
     del grads, ref_grads, runs
 
-    for p, s0 in zip(adamw.leaves(params), start):
-        with torch.no_grad():
-            p.copy_(s0)
     with shadow_vjp(torch, dispatch) as calls:
         loss = lm.loss_fn(cfg, params, batch, True)
         torch.autograd.grad(loss, adamw.leaves(params))
@@ -3934,14 +4220,16 @@ def phase_lm_train_vs_ref(torch, device, cfg, card):
         check(err <= LM_SAME_INPUT_GRAD_TOL[op],
               f"{op}'s backward on the kernels differs from ref's on the "
               f"same inputs by {err} > {LM_SAME_INPUT_GRAD_TOL[op]}")
-    del calls, start
+    del calls
 
     # The step's breakdown, then one step with the stacked layers sliced
     # one by one (`_group`) in turns with `unbind` (`_layer_views`):
     # slicing adds a zero-filled full-size gradient a layer.
     opt = adamw.init(params, opt_cfg)
-    emit("lm_train_breakdown", card=card, **lm_train_step_breakdown(
-        torch, cfg, params, opt, batch))
+    split = lm_train_step_breakdown(torch, cfg, params, opt, batch)
+    emit("lm_train_breakdown", card=card, **split)
+    STEP_COSTS.append(("n_step", cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, True,
+                       [split["device_span_ms"] / 1e3]))
     views = lm._layer_views
 
     def sliced(tree, n):
@@ -4069,6 +4357,11 @@ WHISPER_ARCH = "whisper-medium"
 WHISPER_BATCH, WHISPER_TOKENS = 2, 16
 WHISPER_LAUNCHES = {"sdsa_or": 24, "sdsa_causal": 24,
                     "lif_bf16": 24 * 6 + 24 * 10}
+# A decode step (and each position of the chunked prefill): a decoder
+# layer fires ln1, q, k, v, the cross-attention's q and q heads, ln2 and
+# the MLP's hidden drive; 4 greedy steps after the chunked prefill.
+WHISPER_STEP_LAUNCHES = {"lif_bf16": 24 * 8}
+WHISPER_DECODE_STEPS = 4
 # The other attention-family configs at their REDUCED sizes (2 layers, d
 # 64): a prefill and 4 decode steps in each mode, on the kernels and on
 # `ref`.
@@ -4321,7 +4614,9 @@ def phase_whisper(torch, device, card):
     WHISPER_TOKENS tokens with a seeded stub frontend of 1500 frames, on
     the kernels (exact launches: 24 encoder `sdsa`) and on `ref` (equal
     bit for bit); the encoder's `sdsa` on its own spikes against its
-    plain version."""
+    plain version; WHISPER_DECODE_STEPS greedy decode steps after a
+    chunked prefill (`prefill_and_decode`), launches exact, tokens equal
+    to `ref`'s."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data.synthetic import markov_tokens
     from repro_torch.kernels import dispatch, launch_counts, \
@@ -4367,9 +4662,44 @@ def phase_whisper(torch, device, card):
     sdsa_spike_case(torch, "sdsa_or", "whisper_encoder",
                     sdsa_kernel.sdsa_or_spikes,
                     sdsa_kernel.sdsa_or_spikes_plain, (q, k, v))
-    del params, drives, q, k, v
+    del drives, q, k, v
+    totals = {name: counts.get(name, 0) for name in O_KERNELS}
+    # Decoding: the prefill runs the encoder, the chunked prefill and the
+    # decode steps read the zero cross state (a reference finding).
+    want = [WHISPER_LAUNCHES,
+            {k: n * WHISPER_TOKENS for k, n in WHISPER_STEP_LAUNCHES.items()}
+            ] + [WHISPER_STEP_LAUNCHES] * WHISPER_DECODE_STEPS
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        logits, steps, toks, parts = prefill_and_decode(
+            torch, cfg, params, tokens, frontend, True, WHISPER_DECODE_STEPS,
+            counted=True)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        with dispatch.use_backend(dispatch.REF):
+            ref_logits, ref_steps, ref_toks, _ = prefill_and_decode(
+                torch, cfg, params, tokens, frontend, True,
+                WHISPER_DECODE_STEPS)
+        torch.cuda.synchronize()
+    for part, (c, w) in enumerate(zip(parts, want)):
+        lm_launch_check(c, w, f"{cfg.name} decode part {part}")
+        for name in O_KERNELS:
+            totals[name] += c.get(name, 0)
+    emit("whisper_decode", card=card, arch=cfg.name, batch=WHISPER_BATCH,
+         tokens=WHISPER_TOKENS, decode_steps=WHISPER_DECODE_STEPS,
+         kernel_s=kernel_s,
+         launches=[{k: n for k, n in c.items() if n} for c in parts],
+         prefill_equal_ref=bool(torch.equal(logits, ref_logits)),
+         decode_equal_ref=bool(torch.equal(steps, ref_steps)),
+         tokens_equal_ref=bool(torch.equal(toks, ref_toks)),
+         decoded=toks.tolist())
+    check(bool(torch.isfinite(steps).all()),
+          f"{cfg.name}: decode logits not finite")
+    check(torch.equal(toks, ref_toks),
+          f"{cfg.name}: the kernels' decoded tokens differ from ref's")
+    del params, logits, steps, ref_logits, ref_steps
     free_card(torch)
-    return {name: counts.get(name, 0) for name in O_KERNELS}
+    return totals
 
 
 def phase_reduced_archs(torch, device, card, archs=REDUCED_ARCHS):
@@ -4399,19 +4729,8 @@ def phase_reduced_archs(torch, device, card, archs=REDUCED_ARCHS):
                 device=device).bfloat16()
 
         def run(spiking):
-            logits = lm.prefill(cfg, params, tokens, spiking,
-                                frontend=frontend)
-            last, state = lm.prefill_chunked(
-                cfg, params, tokens, torch.full((2,), 12, device=device),
-                spiking, 12 + REDUCED_DECODE_STEPS)
-            steps, token = [last], last.argmax(-1)
-            pos = torch.full((2,), 12, device=device)
-            for _ in range(REDUCED_DECODE_STEPS):
-                last, state = lm.decode_step(cfg, params, state, token, pos,
-                                             spiking)
-                steps.append(last)
-                token, pos = last.argmax(-1), pos + 1
-            return logits, torch.stack(steps)
+            return prefill_and_decode(torch, cfg, params, tokens, frontend,
+                                      spiking, REDUCED_DECODE_STEPS)[:2]
 
         for spiking in (True, False):
             with torch.inference_mode():
@@ -4447,6 +4766,133 @@ def phase_reduced_archs(torch, device, card, archs=REDUCED_ARCHS):
     return totals
 
 
+def prefill_and_decode(torch, cfg, params, tokens, frontend, spiking, steps,
+                       counted=False):
+    """A `prefill` of `tokens` (with the stub `frontend` where given),
+    then `prefill_chunked` over the same tokens and `steps` greedy decode
+    steps from its state (which, as in the reference, never reads the
+    frontend): (prefill logits, the chunked prefill's and each step's
+    logits stacked, the greedy tokens, [launches of the prefill, the
+    chunked prefill and each decode step] when `counted`)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import lm
+    b, n = tokens.shape
+    device = tokens.device
+    counts = []
+
+    def mark():
+        if counted:
+            counts.append(launch_counts())
+            reset_launch_counts()
+    reset_launch_counts()
+    logits = lm.prefill(cfg, params, tokens, spiking, frontend=frontend)
+    mark()
+    last, state = lm.prefill_chunked(cfg, params, tokens,
+                                     torch.full((b,), n, device=device),
+                                     spiking, n + steps)
+    mark()
+    outs, token = [last], last.argmax(-1)
+    toks = [token]
+    pos = torch.full((b,), n, device=device)
+    for _ in range(steps):
+        last, state = lm.decode_step(cfg, params, state, token, pos, spiking)
+        mark()
+        outs.append(last)
+        token, pos = last.argmax(-1), pos + 1
+        toks.append(token)
+    return logits, torch.stack(outs), torch.stack(toks, 1), counts
+
+
+# (o5): the one-card attention-family configs at full width and depth,
+# bf16 weights from SEED: qwen3-4b (36 layers, d 2560; 4,411,424,256
+# parameters), phi-3-vision-4.2b (32 layers, d 3072, 1024 stub patch
+# embeddings prepended; 3,830,516,736) and internlm2-20b (48 layers, d
+# 6144; 19,861,149,696), one after another with the card freed between
+# them. Each layer of a spiking prefill fires ln1, q, k, v, ln2 and the
+# MLP's hidden drive and runs one causal SDSA; a decode step (and each
+# position of the chunked prefill) fires the same six.
+O5_ARCHS = ("qwen3-4b", "phi-3-vision-4.2b", "internlm2-20b")
+O5_BATCH, O5_PROMPT, O5_DECODE_STEPS = 8, 128, 4
+
+
+def phase_full_archs(torch, device, card, archs=O5_ARCHS):
+    """(o5): `archs` uncut, spiking: a `prefill` of O5_BATCH x O5_PROMPT
+    tokens and O5_DECODE_STEPS greedy decode steps after a chunked
+    prefill (`prefill_and_decode`) on the kernels and on `ref`: logits and
+    tokens bit for bit, launches exact, peak under the card's memory.
+    Returns the launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import markov_tokens
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import lm
+    totals = {name: 0 for name in O_KERNELS}
+    for arch in archs:
+        cfg = get_config(arch)
+        resident = free_card(torch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = lm.init_params(cfg, seed=SEED, device=device)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        tokens = torch.from_numpy(markov_tokens(
+            SEED + 11, 0, 0, O5_BATCH, O5_PROMPT, cfg.vocab)
+            [:, :O5_PROMPT]).long().to(device)
+        frontend = None
+        if cfg.n_frontend_tokens:
+            frontend = torch.randn(
+                (O5_BATCH, cfg.n_frontend_tokens, cfg.d_model),
+                generator=torch.Generator(device=device).manual_seed(SEED),
+                device=device).bfloat16()
+        fires = 6 * cfg.n_layers
+        want = [{"lif_bf16": fires, "sdsa_causal": cfg.n_layers},
+                {"lif_bf16": fires * O5_PROMPT}] + \
+            [{"lif_bf16": fires}] * O5_DECODE_STEPS
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, steps, toks, counts = prefill_and_decode(
+                torch, cfg, params, tokens, frontend, True,
+                O5_DECODE_STEPS, counted=True)
+            torch.cuda.synchronize()
+            kernel_s = time.perf_counter() - t0
+            with dispatch.use_backend(dispatch.REF):
+                t0 = time.perf_counter()
+                ref_logits, ref_steps, ref_toks, _ = prefill_and_decode(
+                    torch, cfg, params, tokens, frontend, True,
+                    O5_DECODE_STEPS)
+                torch.cuda.synchronize()
+                ref_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        for part, (c, w) in enumerate(zip(counts, want)):
+            lm_launch_check(c, w, f"{arch} part {part}")
+            for name in O_KERNELS:
+                totals[name] += c.get(name, 0)
+        emit("full_arch", card=card, arch=arch, layers=cfg.n_layers,
+             d_model=cfg.d_model, params=lm.param_count(cfg),
+             batch=O5_BATCH, tokens=O5_PROMPT,
+             frontend_tokens=cfg.n_frontend_tokens,
+             decode_steps=O5_DECODE_STEPS, init_s=init_s,
+             kernel_s=kernel_s, ref_s=ref_s, resident_before_bytes=resident,
+             peak_bytes=peak,
+             launches=[{k: n for k, n in c.items() if n} for c in counts],
+             finite=bool(torch.isfinite(logits).all() and
+                         torch.isfinite(steps).all()),
+             prefill_equal_ref=bool(torch.equal(logits, ref_logits)),
+             decode_equal_ref=bool(torch.equal(steps, ref_steps)),
+             tokens_equal_ref=bool(torch.equal(toks, ref_toks)),
+             decoded=toks.tolist())
+        check(bool(torch.isfinite(logits).all()) and
+              bool(torch.isfinite(steps).all()),
+              f"{arch}: logits not finite")
+        check(torch.equal(logits, ref_logits) and
+              torch.equal(steps, ref_steps) and torch.equal(toks, ref_toks),
+              f"{arch}: the kernels' logits or tokens differ from ref's")
+        check(peak < CARD_MEMORY_BYTES, f"{arch}: peak {peak} bytes")
+        del params, logits, steps, ref_logits, ref_steps
+    free_card(torch)
+    return totals
+
+
 def phase_archs(torch, device, card):
     """Phase (o): the attention-family architectures on the card. Returns
     the LM kernels' launches."""
@@ -4454,7 +4900,8 @@ def phase_archs(torch, device, card):
     for name, fn in (("o1_moe_prefill", phase_moe_prefill),
                      ("o2_moe_serve", phase_moe_serve),
                      ("o3_whisper", phase_whisper),
-                     ("o4_reduced", phase_reduced_archs)):
+                     ("o4_reduced", phase_reduced_archs),
+                     ("o5_full_archs", phase_full_archs)):
         t0 = time.perf_counter()
         for k, n in fn(torch, device, card).items():
             totals[k] += n
@@ -5872,6 +6319,376 @@ def phase_mesh(torch, device, card):
     return totals
 
 
+# ------------------------------------------------------------ phase (s)
+# LM training across the families, each block's fires on rows 2 and 3
+# bf16 and each attention block's SDSA on row 9.
+# (s1) xlstm-350m uncut (24 layers, d 1024, 222,763,264 parameters) with
+# its config's remat "full": each 8-block period one checkpoint with one
+# a block nested inside it, as the reference nests them; dense and
+# spiking at XLSTM_FIRING_VTH (at the config's 1.0 the stream is silent).
+# (s2) qwen2-moe-a2.7b at full width (d 2048, 60 routed experts top-4 of
+# 1408 and 4 shared, vocab 151,936) with its depth cut from 24 to
+# MOE_TRAIN_LAYERS layers, 2,904,541,184 parameters, so that AdamW's f32
+# moments fit one card: the full 14.32B would need about 172 GB for
+# params, gradients and moments (`train.train_state_bytes`). Its step is
+# compared by `loss_fn` and its gradients, what `make_train_step`
+# computes before AdamW, to keep the moments off the card meanwhile.
+# (s3) jamba-1.5-large-398b's full-width period as (p3) builds it (8
+# layers, MLP FFNs, 8,998,805,504 parameters, 18.0 GB): AdamW does not
+# fit beside it, so `loss_fn` and its backward only, at
+# JAMBA_TRAIN_BATCH; then the reduced jamba with its MoE FFNs through
+# `train_loop`. (s2) and (s3) at S_TRAIN_SEQ tokens a sequence, (s1) at
+# XLSTM_TRAIN_SEQ.
+S_TRAIN_BATCH, S_TRAIN_SEQ = 8, 128
+# The xLSTM's recurrences are host-bound Python loops whose time goes
+# with the steps over time, not the batch: (s1) trains on 32 tokens a
+# sequence (a step at 128 took 11.5-14.3 s on an NVIDIA H100 80GB HBM3,
+# 700 W).
+XLSTM_TRAIN_SEQ = 32
+MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_PEAK_LIMIT = 70e9
+JAMBA_TRAIN_BATCH = 4
+S_KERNELS = ("lif_fwd_bf16", "lif_bwd_bf16", "sdsa_causal")
+
+
+def loss_grads(torch, cfg, params, batch, spiking, route=None):
+    """`loss_fn` and its gradients over every leaf (zeros where it never
+    reads one), what `make_train_step` computes before AdamW, on `route`
+    (None: the kernels): (loss, gradients, launches, peak bytes)."""
+    from repro_torch.kernels import dispatch, launch_counts, \
+        reset_launch_counts
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    leaves = adamw.leaves(params)
+    for p in leaves:
+        if not p.requires_grad:
+            p.requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with (contextlib.nullcontext() if route is None
+          else dispatch.use_backend(route)):
+        loss = lm.loss_fn(cfg, params, batch, spiking)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+    torch.cuda.synchronize()
+    return (loss.detach(), grads, launch_counts(),
+            torch.cuda.max_memory_allocated())
+
+
+def remat_peaks(torch, cfg, params, batch, spiking, what, card,
+                remats=("full", "none")):
+    """`loss_fn`'s backward under each of `remats`, in order: the loss and
+    every gradient bit for bit, the launches exact, each run's peak
+    (absolute, and above what was held before it: the earlier runs'
+    gradients) under the card's memory. Returns the kernels' launches."""
+    from repro_torch.models import lm
+    totals = {name: 0 for name in S_KERNELS}
+    runs = {}
+    for remat in remats:
+        c = cfg.replace(remat=remat)
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss, grads, counts, peak = loss_grads(torch, c, params, batch,
+                                               spiking)
+        seconds = time.perf_counter() - t0
+        lm_launch_check(counts, lm_train_launches(c) if spiking else {},
+                        f"{what} remat {remat} backward")
+        add_counts(totals, counts)
+        runs[remat] = dict(loss=loss, grads=grads, peak=peak, held=held,
+                           seconds=seconds, launches={
+                               k: n for k, n in counts.items() if n})
+    first = runs[remats[0]]
+    same = {r: bool(torch.equal(v["loss"], first["loss"]) and all(
+        torch.equal(a, b) for a, b in zip(v["grads"], first["grads"])))
+        for r, v in runs.items()}
+    emit("remat_peaks", card=card, what=what, arch=cfg.name,
+         mode="spiking" if spiking else "dense", layers=cfg.n_layers,
+         batch=batch["tokens"].shape[0], seq=batch["tokens"].shape[1],
+         pattern=len(lm.layer_pattern(cfg)[0]),
+         runs={r: {k: v[k] for k in ("peak", "held", "seconds", "launches")}
+               | {"own_peak": v["peak"] - v["held"]}
+               for r, v in runs.items()}, equal=same)
+    for remat, v in runs.items():
+        check(same[remat], f"{what}: remat {remat}'s loss or gradients "
+              f"differ from remat {remats[0]}'s")
+        check(v["peak"] < CARD_MEMORY_BYTES,
+              f"{what} remat {remat}: peak {v['peak']} bytes")
+    del runs, first
+    return totals
+
+
+def train_batch_lm(torch, cfg, batch, seq, device, step=0):
+    from repro_torch.data import pipeline, synthetic
+    return pipeline.device_put_batch(synthetic.lm_batch(
+        SEED, 0, step, batch, seq, cfg.vocab), device)
+
+
+def phase_xlstm_train(torch, device, card):
+    """(s1): xlstm-350m uncut: `train_loop` dense and spiking; one
+    `make_train_step` step on the kernels and on `ref` (loss bit for bit,
+    every gradient finite and non-zero except the sLSTM's unread `ln2` /
+    `mlp`, which are zero; the gap to each other and to the f32
+    yardstick); the step's breakdown; remat "full" (nested) against
+    "none". Returns the launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    base = get_config(XLSTM_ARCH)
+    cfg = with_vth(base, XLSTM_FIRING_VTH)
+    totals = {name: 0 for name in S_KERNELS}
+    for mode_cfg, spiking in ((base, False), (cfg, True)):
+        free_card(torch)
+        counts, out, step_s = train_loop_checked(
+            torch, device, mode_cfg, card, "xlstm-350m", spiking,
+            S_TRAIN_BATCH, XLSTM_TRAIN_SEQ)
+        add_counts(totals, counts)
+        mode = "spiking" if spiking else "dense"
+        STEP_COSTS.append((f"s1_train_loop_{mode}", mode_cfg, S_TRAIN_BATCH,
+                           XLSTM_TRAIN_SEQ, spiking, step_s))
+        del out
+    free_card(torch)
+    params = lm.init_params(cfg, seed=SEED, device=device)
+    names = leaf_names(params)
+    unread = {n for n in names if n.split(".")[:3] in (
+        ["blocks", str(cfg.xlstm.slstm_index), "ln2"],
+        ["blocks", str(cfg.xlstm.slstm_index), "mlp"])}
+    check(len(unread) == 4, f"xlstm-350m: unread leaves {sorted(unread)}")
+    batch = train_batch_lm(torch, cfg, S_TRAIN_BATCH, XLSTM_TRAIN_SEQ,
+                           device)
+    runs = step_runs(torch, cfg, params, batch, True, (None, dispatch.REF))
+    loss, grads, counts = runs[None]
+    ref_loss, ref_grads, ref_counts = runs[dispatch.REF]
+    per_step = lm_train_launches(cfg)
+    lm_launch_check(counts, per_step, "xlstm-350m make_train_step")
+    add_counts(totals, counts)
+    check(not any(ref_counts.values()), f"the ref step launched {ref_counts}")
+    check_step_grads(torch, names, grads, "xlstm-350m step", unread)
+    check_step_grads(torch, names, ref_grads, "xlstm-350m ref step", unread)
+    rel = rel_l2(torch, names, grads, ref_grads)
+    emit("ssm_train_step_vs_ref", card=card, arch=cfg.name,
+         lif_vth=cfg.spiking.lif_vth, batch=S_TRAIN_BATCH,
+         seq=XLSTM_TRAIN_SEQ,
+         remat=cfg.remat, loss=loss.item(), ref_loss=ref_loss.item(),
+         loss_equal=bool(torch.equal(loss, ref_loss)),
+         launches_per_step=per_step, unread_leaves=sorted(unread),
+         unread_params=sum(t.numel() for n, t in zip(
+             names, adamw.leaves(params)) if n in unread),
+         max_grad_rel_l2=max(rel.values()),
+         worst_leaf=max(rel, key=rel.get), grad_rel_l2=rel)
+    check(torch.equal(loss, ref_loss),
+          f"xlstm-350m step 0's loss on the kernels {loss.item()!r} != "
+          f"ref's {ref_loss.item()!r}")
+    gradient_gap(torch, cfg, params, batch, True, names, grads, ref_grads,
+                 "xlstm-350m", card, unread)
+    del runs, grads, ref_grads
+    opt = adamw.init(params, adamw.AdamWConfig(lr=LR))
+    split = lm_train_step_breakdown(torch, cfg, params, opt, batch)
+    emit("ssm_train_breakdown", card=card, arch=cfg.name, **split)
+    STEP_COSTS.append(("s1_step", cfg, S_TRAIN_BATCH, XLSTM_TRAIN_SEQ,
+                       True, [split["device_span_ms"] / 1e3]))
+    del opt
+    free_card(torch)
+    add_counts(totals, remat_peaks(torch, cfg, params, batch, True,
+                                     "xlstm-350m", card))
+    del params
+    free_card(torch)
+    return totals
+
+
+def phase_moe_train(torch, device, card):
+    """(s2): qwen2-moe-a2.7b at full width, MOE_TRAIN_LAYERS layers:
+    `train_loop` spiking, its peak under MOE_TRAIN_PEAK_LIMIT; step 0's
+    `loss_fn` and gradients on the kernels twice (bit for bit) and on
+    `ref` (loss bit for bit, the gap printed and against the f32
+    yardstick), with launches, dropped assignments, span, enqueue and
+    peak; rows 2 and 3 bf16 on the shared experts' training drive, whose
+    time axis is the step's flattened tokens. Returns the launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import lm, moe
+    from repro_torch.optim import adamw
+    cfg = get_config(MOE_ARCH).replace(n_layers=MOE_TRAIN_LAYERS)
+    totals = {name: 0 for name in S_KERNELS}
+    free_card(torch)
+    counts, out, step_s = train_loop_checked(
+        torch, device, cfg, card, "qwen2-moe", True, S_TRAIN_BATCH,
+        S_TRAIN_SEQ)
+    loop_peak = torch.cuda.max_memory_allocated()
+    add_counts(totals, counts)
+    STEP_COSTS.append(("s2_train_loop", cfg, S_TRAIN_BATCH, S_TRAIN_SEQ,
+                       True, step_s))
+    del out
+    check(loop_peak < MOE_TRAIN_PEAK_LIMIT,
+          f"qwen2-moe at {cfg.n_layers} layers: train_loop's peak "
+          f"{loop_peak} bytes is not under {MOE_TRAIN_PEAK_LIMIT}")
+    free_card(torch)
+    params = lm.init_params(cfg, seed=SEED, device=device)
+    names = leaf_names(params)
+    batch = train_batch_lm(torch, cfg, S_TRAIN_BATCH, S_TRAIN_SEQ, device)
+    keys = {"shared": lambda op, a: op == "lif_scan" and a[0].dim() == 2}
+    per_step = lm_train_launches(cfg)
+    t0 = time.perf_counter()
+    with first_calls(dispatch, keys) as drives:
+        loss, grads, counts, peak = loss_grads(torch, cfg, params, batch,
+                                               True)
+    kernel_s = time.perf_counter() - t0
+    lm_launch_check(counts, per_step, "qwen2-moe training step")
+    add_counts(totals, counts)
+    loss2, grads2, _, _ = loss_grads(torch, cfg, params, batch, True)
+    repeat = bool(torch.equal(loss, loss2)) and all(
+        torch.equal(a, b) for a, b in zip(grads, grads2))
+    differing = [n for n, a, b in zip(names, grads, grads2)
+                 if not torch.equal(a, b)]
+    del grads2
+    ref_loss, ref_grads, ref_counts, _ = loss_grads(
+        torch, cfg, params, batch, True, dispatch.REF)
+    check(not any(ref_counts.values()), f"the ref step launched {ref_counts}")
+    check_step_grads(torch, names, grads, "qwen2-moe step")
+    rel = rel_l2(torch, names, grads, ref_grads)
+    with torch.no_grad(), moe_drops(torch) as drops:
+        lm.loss_fn(cfg, params, batch, True)
+    emit("moe_train_step_vs_ref", card=card, arch=cfg.name,
+         layers=cfg.n_layers, params=lm.param_count(cfg),
+         batch=S_TRAIN_BATCH, seq=S_TRAIN_SEQ, remat=cfg.remat,
+         loss=loss.item(), ref_loss=ref_loss.item(),
+         loss_equal=bool(torch.equal(loss, ref_loss)),
+         repeat_equal=repeat, repeat_differing_leaves=differing,
+         launches_per_step=per_step, kernel_step_s=kernel_s,
+         step_peak_bytes=peak, train_loop_peak_bytes=loop_peak,
+         dropped_assignments=sum(d for d, _ in drops),
+         assignments=sum(n for _, n in drops),
+         dropped_by_layer=[d for d, _ in drops],
+         max_grad_rel_l2=max(rel.values()),
+         worst_leaf=max(rel, key=rel.get), grad_rel_l2=rel)
+    check(torch.equal(loss, ref_loss),
+          f"qwen2-moe step 0's loss on the kernels {loss.item()!r} != "
+          f"ref's {ref_loss.item()!r}")
+    check(repeat, f"qwen2-moe: two kernel-route steps from the same start "
+          f"give other gradients ({differing})")
+    gradient_gap(torch, cfg, params, batch, True, names, grads, ref_grads,
+                 "qwen2-moe", card)
+    fire_witness(torch, cfg, params, batch, True, names, "qwen2-moe", card,
+                 grads, ref_grads)
+    del grads, ref_grads
+    free_card(torch)
+    opt = adamw.init(params, adamw.AdamWConfig(lr=LR))
+    split = lm_train_step_breakdown(torch, cfg, params, opt, batch)
+    emit("moe_train_breakdown", card=card, arch=cfg.name, **split)
+    STEP_COSTS.append(("s2_step", cfg, S_TRAIN_BATCH, S_TRAIN_SEQ, True,
+                       [split["device_span_ms"] / 1e3]))
+    del opt, params
+    free_card(torch)
+    x = drives["shared"][0].detach()
+    g = torch.randn(x.shape, generator=torch.Generator(
+        device=device).manual_seed(SEED + 10), device=device).bfloat16()
+    train_fire_case(torch, "moe_shared_train", x, g, plain_reps=1)
+    del drives, x, g
+    return totals
+
+
+def phase_jamba_train(torch, device, card):
+    """(s3): jamba-1.5-large-398b's full-width period, spiking: `loss_fn`'s
+    backward under remat "full" (nested) and "none", bit for bit, peaks
+    under the card's memory; the reduced jamba with its MoE FFNs through
+    `train_loop` and one step on the kernels and on `ref` (step 0's loss
+    bit for bit, gradients finite). Returns the launches."""
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import lm
+    cfg = jamba_period_config()
+    totals = {name: 0 for name in S_KERNELS}
+    free_card(torch)
+    params = lm.init_params(cfg, seed=SEED, device=device)
+    batch = train_batch_lm(torch, cfg, JAMBA_TRAIN_BATCH, S_TRAIN_SEQ,
+                           device)
+    add_counts(totals, remat_peaks(torch, cfg, params, batch, True,
+                                     "jamba period", card))
+    del params
+    free_card(torch)
+    red = get_reduced(JAMBA_ARCH)
+    counts, out, _ = train_loop_checked(torch, device, red, card,
+                                        "jamba reduced", True,
+                                        S_TRAIN_BATCH, S_TRAIN_SEQ)
+    add_counts(totals, counts)
+    del out
+    params = lm.init_params(red, seed=SEED, device=device)
+    names = leaf_names(params)
+    batch = train_batch_lm(torch, red, S_TRAIN_BATCH, S_TRAIN_SEQ, device)
+    runs = step_runs(torch, red, params, batch, True, (None, dispatch.REF))
+    loss, grads, counts = runs[None]
+    ref_loss, ref_grads, ref_counts = runs[dispatch.REF]
+    lm_launch_check(counts, lm_train_launches(red),
+                    "jamba reduced make_train_step")
+    add_counts(totals, counts)
+    check(not any(ref_counts.values()), f"the ref step launched {ref_counts}")
+    for name, a in zip(names, grads):
+        check(bool(torch.isfinite(a).all()),
+              f"jamba reduced: gradient of {name} not finite")
+    rel = rel_l2(torch, names, grads, ref_grads)
+    emit("ssm_train_step_vs_ref", card=card, arch=red.name,
+         layers=red.n_layers, batch=S_TRAIN_BATCH, seq=S_TRAIN_SEQ,
+         remat=red.remat, loss=loss.item(), ref_loss=ref_loss.item(),
+         loss_equal=bool(torch.equal(loss, ref_loss)),
+         max_grad_rel_l2=max(rel.values()),
+         worst_leaf=max(rel, key=rel.get))
+    check(torch.equal(loss, ref_loss),
+          f"jamba reduced step 0's loss on the kernels {loss.item()!r} != "
+          f"ref's {ref_loss.item()!r}")
+    del runs, grads, ref_grads, params
+    free_card(torch)
+    return totals
+
+
+def phase_step_cost(torch, card):
+    """(s4): each timed training step of (n) and (s) priced by
+    `launch.flops.step_cost` (the reference's analytic step cost):
+    `flops` (the reference's count, one recompute under remat "full"),
+    `executed_flops` (`executed_train_flops`: also the nested remat's
+    second recompute of every block but its group's last) and
+    `model_flops_6nd`, and over each step's seconds at the card's dense
+    bf16 tensor-core peak, `train_mfu` (6ND) and `train_hw_flops_share`
+    (`executed_flops`, all the step's FLOPs)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import flops
+    seen = set()
+    for what, cfg, batch, seq, spiking, secs in STEP_COSTS:
+        shape = ShapeSpec(what, seq, batch, "train")
+        cost = flops.step_cost(cfg, shape, spiking)
+        executed = flops.executed_train_flops(cfg, shape, spiking)
+        emit("step_cost", card=card, what=what, arch=cfg.name,
+             layers=cfg.n_layers, batch=batch, seq=seq,
+             mode="spiking" if spiking else "dense", remat=cfg.remat,
+             flops=cost.flops, executed_flops=executed,
+             model_flops_6nd=cost.model_flops_6nd,
+             hbm_bytes=cost.hbm_bytes, step_s=secs,
+             train_mfu=[cost.model_flops_6nd / (t * BF16_TC_FLOPS)
+                        for t in secs],
+             train_hw_flops_share=[executed / (t * BF16_TC_FLOPS)
+                                   for t in secs],
+             peak_flops_per_s=BF16_TC_FLOPS,
+             peak="H100 SXM dense bf16 tensor cores (data sheet)")
+        seen.add(what.split("_")[0])
+    check({"n", "s1", "s2"} <= seen, f"step costs for {sorted(seen)} only")
+
+
+def phase_train_families(torch, device, card):
+    """Phase (s): LM training across the families. Returns the training
+    kernels' and the causal SDSA's launches."""
+    totals = {name: 0 for name in S_KERNELS}
+    for name, fn in (("s1_xlstm_train", phase_xlstm_train),
+                     ("s2_moe_train", phase_moe_train),
+                     ("s3_jamba_train", phase_jamba_train)):
+        t0 = time.perf_counter()
+        add_counts(totals, fn(torch, device, card))
+        emit("phase_time", name=name, seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_step_cost(torch, card)
+    emit("phase_time", name="s4_step_cost", seconds=time.perf_counter() - t0)
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5955,6 +6772,11 @@ def main() -> int:
     # grid and the degraded CNN calls), the LM's serving and training
     # under a mesh.
     for name, n in timed("r_mesh", phase_mesh, torch, device, card).items():
+        totals[name] = totals.get(name, 0) + n
+    # LM training across the families: rows 2 and 3 bf16 in every block,
+    # row 9 in qwen2-moe's and jamba's attention layers.
+    for name, n in timed("s_train_families", phase_train_families, torch,
+                         device, card).items():
         totals[name] = totals.get(name, 0) + n
     emit("phase_time", name="total", seconds=time.perf_counter() - t_start)
     kernels = []

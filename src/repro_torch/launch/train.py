@@ -19,6 +19,12 @@ A checkpoint's step is the number of updates its state has taken, so a
 resumed run starts its data pipeline and schedule at that step and
 replays no batch (the reference labels its in-loop saves one lower).
 
+Before it draws anything on the card, the loop checks that the params,
+their gradients and AdamW's moments fit there (`train_state_bytes`) and
+refuses a config that does not, naming what it needs: full-depth
+qwen2-moe-a2.7b needs about 172 GB, so one card trains only its reduced
+config (`--reduced`) until training spans several cards.
+
 CLI: python -m repro_torch.launch.train --arch tinyllama-1.1b --steps 50 \\
         --reduced --batch 8 --seq 128 [--resume] [--ckpt-dir ...] \\
         [--dense] [--device cpu]
@@ -53,6 +59,26 @@ def training_mesh(dev) -> Mesh:
     return make_host_mesh(device=dev)
 
 
+def train_state_bytes(cfg: LMConfig) -> int:
+    """Bytes the training state alone needs on the device: the params,
+    their gradients (in the params' dtypes, plus an f32 sum of them when
+    `cfg.microbatches` > 1) and AdamW's two moments in
+    `cfg.opt_state_dtype`. Activations come on top."""
+    moment = 2 if cfg.opt_state_dtype == "bfloat16" else 4
+    total = 0
+    for p in adamw.leaves(lm.abstract_params(cfg)):
+        grad = p.element_size() + (4 if cfg.microbatches > 1 else 0)
+        total += p.numel() * (p.element_size() + grad + 2 * moment)
+    return total
+
+
+def _device_bytes(dev) -> Optional[int]:
+    """The card's memory, None on the CPU."""
+    if dev.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(dev).total_memory
+
+
 def train_loop(cfg: LMConfig, *, steps: int = 50, batch: int = 8,
                seq: int = 128, seed: int = 0, ckpt_dir: Optional[str] = None,
                save_every: int = 20, resume: bool = False,
@@ -65,6 +91,13 @@ def train_loop(cfg: LMConfig, *, steps: int = 50, batch: int = 8,
             f"training over a mesh of {len(mesh.distinct_devices())} "
             f"devices needs a data-parallel all-reduce "
             f"({MULTI_PROCESS_ITEM})")
+    need, have = train_state_bytes(cfg), _device_bytes(dev)
+    if have is not None and need > have:
+        raise RuntimeError(
+            f"{cfg.name}: its params, gradients and AdamW moments need "
+            f"{need / 1e9:.1f} GB, beyond the {have / 1e9:.1f} GB of {dev}; "
+            f"train its reduced config (--reduced) or place it over "
+            f"several cards ({MULTI_PROCESS_ITEM})")
     spk = cfg.spiking.enabled if spiking is None else spiking
     # Training resolves through the registry as inference does, and under
     # the mesh: gates run per data shard, and a degrade walks its chain

@@ -47,9 +47,14 @@ Training recomputes as `cfg.remat` says, one group of blocks at a time:
 "none" keeps every activation, "full" recomputes the group's forward in
 the backward (`torch.utils.checkpoint`), "dots" recomputes all but the
 matmul outputs (a selective-checkpoint policy, the port of
-`jax.checkpoint_policies.checkpoint_dots`). The three give the same loss
-and gradients bit for bit; under "full" every fire and SDSA call of the
-forward runs twice a step.
+`jax.checkpoint_policies.checkpoint_dots`). Under "full" a pattern of
+more than one block also checkpoints each block inside its group's
+checkpoint, as the reference nests them, so the backward holds one
+block's internals at a time. The three give the same loss and gradients
+bit for bit; under "full" every fire and SDSA call of the forward runs
+twice a step in a one-block pattern; in a nested one three times, and
+twice in a group's last block (its group's recompute stops at its
+input).
 """
 from __future__ import annotations
 
@@ -278,6 +283,24 @@ def param_count(cfg: LMConfig) -> int:
                _tree_leaves_with_path(abstract_params(cfg)))
 
 
+def active_param_count(cfg: LMConfig) -> int:
+    """Parameters a token uses, the reference's count: every leaf, with
+    the `w_gate` / `w_up` / `w_down` leaves under `moe` counted at
+    top_k / n_experts (its shared experts' among them, as the reference
+    counts them)."""
+    total = param_count(cfg)
+    if cfg.moe is None:
+        return total
+    experts = 0
+    for path, leaf in _tree_leaves_with_path(abstract_params(cfg)):
+        keys = path.replace("]", "").split("[")
+        if "'moe'" in keys and keys[-1] in ("'w_gate'", "'w_up'",
+                                            "'w_down'"):
+            experts += leaf.numel()
+    active_frac = cfg.moe.top_k / cfg.moe.n_experts
+    return int(total - experts * (1 - active_frac))
+
+
 # -------------------------------------------------------- full sequence
 def _ffn(cfg: LMConfig, spec: BlockSpec, p: dict, x: torch.Tensor,
          spiking: bool, decode: bool = False) -> torch.Tensor:
@@ -428,18 +451,31 @@ def _run_blocks(cfg, blocks, x, spiking, pattern, n_groups, causal,
     own K / V."""
     layers = [_layer_views(b, n_groups) for b in blocks]
 
+    # Under "full" a heterogeneous pattern (jamba's and the xLSTM's
+    # 8-block periods) also checkpoints each block inside the group's
+    # checkpoint, as the reference nests a second `jax.checkpoint`: the
+    # backward then holds one block's internals (an SSM block's per-step
+    # tensors) at a time instead of the whole group's.
+    nested = cfg.remat == "full" and len(pattern) > 1
+
+    def sub_block(spec):
+        def f(x, p):
+            kv = None
+            if enc_kv is not None:
+                kv = _project_enc_kv(cfg, p, enc_kv, spiking)
+            return _apply_block(cfg, spec, p, x, spiking, causal=causal,
+                                enc_kv=kv)
+        return _remat_wrap(cfg, f) if nested else f
+
+    subs = [sub_block(spec) for spec in pattern]
+
     # The reference gathers each group's weights here under `pure_fsdp`
     # (`_unshard_weights`, a GSPMD constraint). The single-controller port
     # holds every weight whole, so under a logical mesh there is nothing
     # to gather; pure FSDP itself is refused (`loss_fn`, MESH_ITEM).
     def group_body(x, group_params):
-        for i, spec in enumerate(pattern):
-            p = group_params[i]
-            kv = None
-            if enc_kv is not None:
-                kv = _project_enc_kv(cfg, p, enc_kv, spiking)
-            x = _apply_block(cfg, spec, p, x, spiking, causal=causal,
-                             enc_kv=kv)
+        for f, p in zip(subs, group_params):
+            x = f(x, p)
         return x
 
     body = _remat_wrap(cfg, group_body)

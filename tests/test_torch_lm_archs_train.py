@@ -67,6 +67,70 @@ def test_loss_fn_and_every_gradient_leaf_match_repro(arch, spiking):
         assert err <= bound, f"leaf {i} {b.shape}: {err} > {bound}"
 
 
+def _vth(cfg, v_th):
+    return cfg.replace(spiking=dataclasses.replace(cfg.spiking, lif_vth=v_th))
+
+
+def _grads_of(fn_loss, tp0):
+    """(loss, gradients) of the port's loss on a fresh copy of tp0, every
+    leaf a gradient (zeros where the loss never reads it)."""
+    tp = jax.tree.map(lambda t: t.clone(), tp0,
+                      is_leaf=lambda x: isinstance(x, torch.Tensor))
+    leaves = adamw.leaves(tp)
+    for p in leaves:
+        p.requires_grad_(True)
+    got = fn_loss(tp)
+    return got, torch.autograd.grad(got, leaves, allow_unused=True,
+                                    materialize_grads=True)
+
+
+def _leaves_close(grads, jgrads, tol):
+    jl = jax.tree_util.tree_leaves(jgrads)
+    assert len(jl) == len(grads)
+    for i, (a, b) in enumerate(zip(grads, jl)):
+        b = _f(b)
+        err = np.abs(_f(a) - b).max()
+        bound = tol * np.abs(b).max() + 1e-7
+        assert err <= bound, f"leaf {i} {b.shape}: {err} > {bound}"
+
+
+SSM_GRAD_CASES = [(n, s) for n in ("jamba-1.5-large-398b", "jamba-no-moe",
+                                    "xlstm-350m") for s in (True, False)] \
+    + [("xlstm-350m-vth-0.02", True)]
+
+
+@pytest.mark.parametrize(
+    "name,spiking", SSM_GRAD_CASES,
+    ids=[f"{n}-{'spiking' if s else 'dense'}" for n, s in SSM_GRAD_CASES])
+def test_ssm_loss_fn_and_every_gradient_leaf_match_repro(name, spiking):
+    """f32 trees, the SSM configs: the loss and every gradient leaf
+    against `jax.value_and_grad` within SSM_F32_TOL (each scan step
+    rounds its output to bf16, so an f32 reduction's order can move a
+    whole bf16 step). The sLSTM's `ln2` and `mlp`, which its "none" FFN
+    never applies, get zero gradients in both packages; at the xLSTM's
+    lif_vth 1.0 the spiking stream is silent, at 0.02 it fires."""
+    if name == "xlstm-350m-vth-0.02":
+        jc, tc = (_vth(c, 0.02) for c in _cfgs("xlstm-350m"))
+        jp, tp0 = _trees("xlstm-350m", "f32")
+    else:
+        jc, tc = _cfgs(name)
+        jp, tp0 = _trees(name, "f32")
+    _, jb, tb = _inputs(jc, "f32", seq=8)
+    want, jgrads = jax.value_and_grad(
+        lambda p: jlm.loss_fn(jc, p, jb, spiking))(jp)
+    got, grads = _grads_of(lambda tp: tlm.loss_fn(tc, tp, tb, spiking), tp0)
+    np.testing.assert_allclose(got.item(), float(want), rtol=SSM_F32_TOL)
+    _leaves_close(grads, jgrads, SSM_F32_TOL)
+    if tc.xlstm is not None:
+        slstm = tp0["blocks"][tc.xlstm.slstm_index]
+        ids = {id(t) for t in adamw.leaves([slstm["ln2"], slstm["mlp"]])}
+        unread = [i for i, t in enumerate(adamw.leaves(tp0)) if id(t) in ids]
+        assert len(unread) == 4        # ln2 and the MLP's three matrices
+        for i in unread:
+            assert not grads[i].any()
+            assert not np.any(_f(jax.tree_util.tree_leaves(jgrads)[i]))
+
+
 def test_train_step_gives_unread_leaves_zero_gradients():
     """Reduced qwen3 in spiking mode: SDSA never reads the qk-norm scales,
     so autograd has no gradient for them; `make_train_step` gives them
@@ -167,10 +231,6 @@ def test_moe_decode_step_couples_the_slots_in_both_packages():
     assert not np.array_equal(out[5][1], out[6][1])
 
 
-def _vth(cfg, v_th):
-    return cfg.replace(spiking=dataclasses.replace(cfg.spiking, lif_vth=v_th))
-
-
 @pytest.mark.parametrize("mode", ["dense", "spiking", "spiking-vth-0.02"])
 def test_xlstm_server_serves_the_reference_servers_tokens(mode):
     """Reduced xlstm-350m on 4 slots: the port's Server and the
@@ -240,3 +300,46 @@ def test_spiking_xlstm_stream_is_silent_at_its_threshold():
         else:
             assert first[0] > 0 and np.std(_f(want)) > 0.1
             _close(got, want, SSM_F32_TOL)
+
+
+# --------------------------------------------------------------- resume
+@pytest.mark.parametrize("arch", ("qwen2-moe-a2.7b", "xlstm-350m"))
+def test_train_loop_resume_equals_the_uninterrupted_run(arch, tmp_path):
+    """Reduced qwen2-moe and reduced xlstm-350m, on the kernel path:
+    4 steps saving every 2, the newest checkpoint deleted, a resumed run
+    from step 2 gives the uninterrupted losses and final params bit for
+    bit."""
+    import os
+    import shutil
+    from repro_torch.launch import train as ttrain
+    _, tc = _cfgs(arch)
+    d = str(tmp_path / "ck")
+    kw = dict(steps=4, batch=2, seq=16, ckpt_dir=d, save_every=2,
+              log_every=100, device="cpu")
+    with dispatch.use_backend("cuda"):
+        full = ttrain.train_loop(tc, **kw)
+        assert sorted(os.listdir(d)) == ["step_000000002", "step_000000004"]
+        shutil.rmtree(os.path.join(d, "step_000000004"))
+        resumed = ttrain.train_loop(tc, resume=True, **kw)
+    assert len(resumed["losses"]) == 2
+    assert resumed["losses"] == full["losses"][2:]
+    assert all(np.isfinite(full["losses"]))
+    for a, b in zip(adamw.leaves(resumed["params"]),
+                    adamw.leaves(full["params"])):
+        assert torch.equal(a, b)
+
+
+def test_train_loop_refuses_a_state_beyond_the_device(monkeypatch):
+    """The loop checks the params, gradients and AdamW moments against
+    the device's memory before it draws anything: full-depth qwen2-moe
+    needs about 172 GB (14.32B parameters: bf16 params and gradients,
+    f32 moments), which no one card holds."""
+    from repro_torch.configs import registry as treg
+    from repro_torch.launch import train as ttrain
+    full = treg.get_config("qwen2-moe-a2.7b")
+    assert 171e9 < ttrain.train_state_bytes(full) < 173e9
+    _, tc = _cfgs("qwen2-moe-a2.7b")
+    monkeypatch.setattr(ttrain, "_device_bytes", lambda dev: 10 ** 6)
+    with pytest.raises(RuntimeError, match="AdamW moments need .*--reduced.*item 8b"):
+        ttrain.train_loop(tc, steps=1, batch=2, seq=16, device="cpu")
+

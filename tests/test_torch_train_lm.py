@@ -409,6 +409,137 @@ def test_remat_none_full_dots_give_the_same_loss_and_grads(spiking,
         assert n == want, (remat, n)
 
 
+# Heterogeneous patterns: reduced jamba ([mamba + moe, attn + mlp]), with
+# MLP FFNs only, and reduced xlstm-350m at 4 layers (two groups of
+# [mlstm, slstm]; the spiking variant at lif_vth 0.02, which fires).
+NESTED = ("jamba-1.5-large-398b", "jamba-no-moe", "xlstm-350m")
+
+
+def _nested_cfgs(name, spiking):
+    from test_torch_lm_archs import _cfgs
+    jc, tc = _cfgs(name)
+    if tc.xlstm is not None:
+        jc, tc = jc.replace(n_layers=4), tc.replace(n_layers=4)
+        if spiking:
+            jc = jc.replace(spiking=dataclasses.replace(jc.spiking,
+                                                        lif_vth=0.02))
+            tc = tc.replace(spiking=dataclasses.replace(tc.spiking,
+                                                        lif_vth=0.02))
+    return jc, tc
+
+
+def _block_fires(cfg, spec) -> int:
+    """LIF fires one spiking block makes in a forward: an attention block
+    fires its input, q, k and v, Mamba its input, mLSTM and sLSTM their
+    raw residual; an MLP its input and hidden drive, an MoE its input,
+    the experts' hidden drive and, with shared experts, theirs."""
+    n = 4 if spec.kind == "attn" else 1
+    if spec.ffn == "mlp":
+        n += 2
+    elif spec.ffn == "moe":
+        n += 2 + (1 if cfg.moe.n_shared else 0)
+    return n
+
+
+@pytest.mark.parametrize("spiking", [True, False], ids=["spiking", "dense"])
+@pytest.mark.parametrize("name", NESTED)
+def test_nested_remat_gives_the_same_loss_and_grads(name, spiking,
+                                                    monkeypatch):
+    """Heterogeneous patterns, f32 trees: remat none / full (each block
+    checkpointed inside its group's checkpoint) / dots give the same loss
+    and gradients bit for bit in the port, and "full" is within
+    SSM_F32_TOL of the reference's nested `remat="full"`. The fires run
+    once under "none", twice under "dots"; under "full" a group's
+    recompute runs up to its last block's input (non-reentrant
+    checkpoints stop once they have what they saved) and then each block
+    recomputes itself: every block but the last fires three times, the
+    last twice. Each fire's surrogate backward runs once."""
+    from test_torch_lm_archs import SSM_F32_TOL
+    jc, tc = _nested_cfgs(name, spiking)
+    pattern, n_groups = tlm.layer_pattern(tc)
+    assert len(pattern) > 1
+    jp = jax.tree.map(lambda a: a.astype(jnp.float32),
+                      jlm.init_params(jc, jax.random.PRNGKey(7)))
+    host = _batch(2, s=8, vocab=tc.vocab)
+    counts = _count_calls(monkeypatch)
+    runs = {}
+    for remat in ("none", "full", "dots"):
+        cfg = tc.replace(remat=remat)
+        tp = params_from_numpy(_np(jp), device="cpu")
+        leaves = adamw.leaves(tp)
+        for p in leaves:
+            p.requires_grad_(True)
+        for k in counts:
+            counts[k] = 0
+        with dispatch.use_backend("cuda"):
+            loss = tlm.loss_fn(cfg, tp, _tbatch(host), spiking)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+        runs[remat] = (loss, grads, dict(counts))
+    fires = [_block_fires(tc, spec) for spec in pattern]
+    attn = [spec.kind == "attn" for spec in pattern]
+    once = {"lif_fwd": n_groups * sum(fires),
+            "causal_sdsa_or": n_groups * sum(attn)}
+    full = {"lif_fwd": n_groups * (3 * sum(fires) - fires[-1]),
+            "causal_sdsa_or": n_groups * (3 * sum(attn) - attn[-1])}
+    for remat, (loss, grads, n) in runs.items():
+        assert torch.equal(loss, runs["none"][0]), remat
+        for a, b in zip(grads, runs["none"][1]):
+            assert torch.equal(a, b), remat
+        if not spiking:
+            assert n == dict.fromkeys(n, 0), (remat, n)
+            continue
+        want = {"none": once, "full": full,
+                "dots": {k: 2 * v for k, v in once.items()}}[remat]
+        assert n == {**want, "lif_bwd": once["lif_fwd"], "lif": 0}, \
+            (remat, n)
+    jfull = jc.replace(remat="full")
+    want, jgrads = jax.value_and_grad(
+        lambda p: jlm.loss_fn(jfull, p, _jbatch(host), spiking))(jp)
+    loss, grads, _ = runs["full"]
+    np.testing.assert_allclose(loss.item(), float(want), rtol=SSM_F32_TOL)
+    jl = jax.tree_util.tree_leaves(jgrads)
+    assert len(jl) == len(grads)
+    for i, (a, b) in enumerate(zip(grads, jl)):
+        b = _f(b)
+        err = np.abs(_f(a) - b).max()
+        bound = SSM_F32_TOL * np.abs(b).max() + 1e-7
+        assert err <= bound, f"leaf {i} {b.shape}: {err} > {bound}"
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+@pytest.mark.parametrize("name", ("tinyllama-1.1b",) + NESTED)
+def test_remat_checkpoint_regions_per_group_and_block(name, remat,
+                                                      monkeypatch):
+    """`torch.utils.checkpoint.checkpoint` calls in one forward, besides
+    the loss's chunks: none under "none"; one a group under "dots" and,
+    for a one-block pattern, under "full"; under "full" a pattern of
+    more than one block adds one a block, n_groups x (1 + len(pattern))."""
+    from torch.utils import checkpoint as ckpt
+    if name == "tinyllama-1.1b":
+        tc = TCFG
+    else:
+        _, tc = _nested_cfgs(name, True)
+    cfg = tc.replace(remat=remat)
+    pattern, n_groups = tlm.layer_pattern(cfg)
+    calls = []
+    orig = ckpt.checkpoint
+
+    def counted(fn, *args, **kwargs):
+        if fn is not tlm._ce_chunk:
+            calls.append(fn)
+        return orig(fn, *args, **kwargs)
+    monkeypatch.setattr(ckpt, "checkpoint", counted)
+    tp = tlm.init_params(cfg, seed=1, device="cpu")
+    for p in adamw.leaves(tp):
+        p.requires_grad_(True)
+    tlm.loss_fn(cfg, tp, _tbatch(_batch(0, s=8, vocab=cfg.vocab)), True)
+    nested = remat == "full" and len(pattern) > 1
+    want = 0 if remat == "none" else \
+        n_groups * (1 + len(pattern)) if nested else n_groups
+    assert len(calls) == want, (name, remat, len(calls))
+
+
 @pytest.mark.parametrize("shape", [(2, 2, 3, 12, 40), (2, 1, 2, 37, 8),
                                    (2, 1, 1, 64, 16)])
 @pytest.mark.parametrize("backend", ["ref", "jnp", "cuda"])
