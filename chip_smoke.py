@@ -3291,29 +3291,60 @@ def phase_hybrid_train(torch, device):
          leaves=len(g_hyb))
 
 
-def phase_hybrid_kernel10(torch, cap):
-    """Kernel 10 where hybrid sends the models' dense calls: the
-    SpikingFormer-4-384 forward's FFN fc1 and fc2 inputs and its stage-1
-    patch matrix with their carried maps (N = 1536, 384, 96: the wide
-    path). Each: within 1e-5 * max|ref| + 1e-5 of its plain version and
-    equal bit for bit to kernels 11 and 12 on the same spikes and
-    `build_csr` of the map; device ms from a CUDA graph of kernels 10, 11
-    and 12 and cuBLAS fp32 in turns (10, 11, 12, cuBLAS, then back), and
-    the bound."""
-    from repro_torch.core.spikes import build_csr
-    from repro_torch.kernels import dispatch, spike_matmul
+def kernel10_wide_cases(torch, cap, gen, device):
+    """Kernel 10's wide shapes (N > 16), where hybrid sends the models'
+    dense calls: the SpikingFormer-4-384 forward's FFN fc1 and fc2 inputs
+    and its stage-1 patch matrix with their carried maps (`cap`, one
+    forward), clustered data with 50% occupied tiles and an all-empty
+    m-tile row at the same shapes, fc1's spikes at a ragged M, and the
+    CNNs' coded first conv (K = 27, N = 64, a multi-bit drive) at a ragged
+    M: (label, data, s, w, occ)."""
+    from repro_torch.kernels import dispatch, ops
     (s1, w1, m1), (s2, w2, m2) = cap["spike_matmul"][:2]
     s_conv, w_conv, m_conv = cap["econv"][0]
     kh, kw, ci, co = w_conv.shape
-    patches = dispatch.econv_patches(s_conv, kh, kw, 1, "SAME")
-    for label, s, occ, w in (
-            ("ffn_fc1", s1, m1, w1), ("ffn_fc2", s2, m2, w2),
-            ("econv_stage1", patches, m_conv,
-             w_conv.permute(2, 0, 1, 3).reshape(ci * kh * kw, co)
-             .contiguous())):
+    cases = []
+    for label, s, w, occ in (
+            ("ffn_fc1", s1, w1, m1), ("ffn_fc2", s2, w2, m2),
+            ("econv_stage1", dispatch.econv_patches(s_conv, kh, kw, 1, "SAME"),
+             w_conv.permute(2, 0, 1, 3).reshape(ci * kh * kw, co), m_conv)):
         s = s.reshape(-1, s.shape[-1]).float().contiguous()
         w = w.float().contiguous()
-        occ = occ.to(torch.int32).contiguous()
+        cases.append((label, "model", s, w, occ.to(torch.int32).contiguous()))
+        syn = clustered_spikes(torch, *s.shape, gen, device)
+        syn[:128] = 0                              # an all-empty m-tile row
+        cases.append((label, "clustered50", syn, w,
+                      ops.padded_occupancy(syn).to(torch.int32)))
+    s, w = cases[0][2], cases[0][3]
+    ragged = s[:s.shape[0] - 37]
+    cases.append(("ffn_fc1", "ragged_m", ragged, w,
+                  ops.padded_occupancy(ragged).to(torch.int32)))
+    m = T * B * 1024 - 37
+    coded = (torch.randint(-128, 128, (m, 27), generator=gen).float() / 127
+             * (torch.rand((m, 27), generator=gen) < 0.5)).to(device)
+    cases.append(("coded_conv", "ragged_k27", coded,
+                  (torch.randn((27, 64), generator=gen) / 27 ** 0.5)
+                  .to(device), ops.padded_occupancy(coded).to(torch.int32)))
+    return cases
+
+
+def phase_hybrid_kernel10(torch, cap):
+    """Kernel 10 where hybrid sends the models' dense calls, its wide path
+    (N > 16), at `kernel10_wide_cases`: the models' maps (every tile
+    occupied), 50% clustered maps with an empty m-tile row, a ragged M
+    and the coded conv's K = 27. Each: within 1e-5 * max|ref| + 1e-5 of
+    its plain version, equal bit for bit to kernels 11 and 12 on the same
+    spikes and `build_csr` of the map, a gated-off launch (`route` 0)
+    leaving `out` untouched and a gated-on one writing the same bits;
+    device ms from a CUDA graph of kernels 10, 11 and 12 and cuBLAS fp32
+    in turns (10, 11, 12, cuBLAS, then back), the bound, and the launch
+    the C library reports (form, n-tile width, thread tile, grid)."""
+    from repro_torch.core.spikes import build_csr
+    from repro_torch.kernels import spike_matmul
+    gen = torch.Generator().manual_seed(SEED + 10)
+    device = cap["econv"][0][1].device
+    for label, data, s, w, occ in kernel10_wide_cases(torch, cap, gen,
+                                                      device):
         m, k = s.shape
         n = w.shape[1]
         csr = build_csr(occ, 128, 128)
@@ -3329,9 +3360,23 @@ def phase_hybrid_kernel10(torch, cap):
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         tol = 1e-5 * ref.abs().max().item() + 1e-5
-        check(err <= tol, f"kernel 10 at {label} off by {err} > {tol}")
-        check(torch.equal(out, fns["k11"]()) and torch.equal(out, fns["k12"]()),
-              f"kernel 10 differs from kernels 11 / 12 at {label}")
+        case = f"{label}_{data}"
+        check(err <= tol, f"kernel 10 at {case} off by {err} > {tol}")
+        check(torch.equal(out, fns["k11"]())
+              and torch.equal(out, fns["k12"]()),
+              f"kernel 10 differs from kernels 11 / 12 at {case}")
+        if data == "clustered50":
+            check(torch.all(out[:128] == 0).item(),
+                  f"kernel 10's empty m-tile row not zero at {case}")
+        gated = torch.full_like(out, 7.0)
+        off = torch.zeros(1, dtype=torch.int32, device=device)
+        spike_matmul.spike_matmul_pred(s, w, occ, route=off, out=gated)
+        torch.cuda.synchronize()
+        check(torch.all(gated == 7.0).item(),
+              f"kernel 10 gated off wrote `out` at {case}")
+        spike_matmul.spike_matmul_pred(s, w, occ, route=off + 1, out=gated)
+        check(torch.equal(gated, out),
+              f"kernel 10 gated on differs at {case}")
         first = {name: graph_ms(torch, fn) for name, fn in fns.items()}
         second = {name: graph_ms(torch, fn)
                   for name, fn in reversed(list(fns.items()))}
@@ -3346,10 +3391,12 @@ def phase_hybrid_kernel10(torch, cap):
                                   flops),
                    library_ms=ms["cublas"], kernel11_ms=ms["k11"],
                    kernel12_ms=ms["k12"],
+                   launch=spike_matmul.pred_launch(
+                       m, k, n, aligned=s.data_ptr() % 16 == 0
+                       and w.data_ptr() % 16 == 0),
                    occupied_share=(occ > 0).float().mean().item(),
                    shape=[m, k, n])
-        emit("kernel", name="spike_matmul_pred", case=f"{label}_model",
-             **rec)
+        emit("kernel", name="spike_matmul_pred", case=case, **rec)
 
 
 def phase_hybrid(torch, device):

@@ -9,8 +9,10 @@
 //           occupied 128x128 s tile (64 KB) feeds 2*128*128*N flops,
 //           N/2 flops per byte: at N = 16 and N = 2 that is far below the
 //           fp32 ridge (~20), so reading s once is the floor. Wide N
-//           (>= 64) turns it operation-bound like the CSR kernel. fp32
-//           FMA on the CUDA cores, no TF32, for the 1e-5 parity contract.
+//           (>= 64) turns it operation-bound like the CSR kernel: the
+//           FMAs of every element of a live tile, issued one an element
+//           and column (0.144 ms at fc1 on 67 TFLOP/s). fp32 FMA on the
+//           CUDA cores, no TF32, for the bit-for-bit chain below.
 // Design, N <= 16 (SegNet's tconv1 N = 16 and tconv2 N = 2): a stream.
 //           A block owns one 128-row m-tile and all of the n-tile's BN
 //           columns (BN = 2, 4, 8 or 16, the least that covers N). It walks
@@ -41,9 +43,42 @@
 //           chain of the CSR kernels 11 and 12 (csrc/tile_mma.cuh): on the
 //           same spikes and `build_csr` of the same map the results equal
 //           theirs bit for bit, binary or multi-bit s.
-// Design, N > 16 (hybrid routing's dense side): grid (m-tile row, 128-wide
-//           n-tile), csrc/tile_fma.cuh's synchronous tile loop, the same
-//           chain.
+// Design, N > 16 (hybrid routing's dense side, APEC hybrid's two products,
+//           the guard's repair): the same chain on csrc/tile_mma.cuh's
+//           fp32 thread tile (`ThreadTile`: 8 x 8 outputs a thread at
+//           BN = 128, 4 x 12 at 96, 4 x 8 at 64, 2 x 8 at 32, spikes and
+//           weight runs read as LDS.128), the n-tile width picked for whole
+//           waves (`tile_mma::pick_bn_waves`), in one of two forms:
+//           - TMA (where s and w are 16-byte aligned and K, N multiples of
+//             4, as at every model's wide call): a persistent grid, one
+//             block an SM walking output tiles blockIdx.x, + gridDim.x.
+//             A producer warp's one thread walks each tile's map row
+//             (`RowCursor<OneGate, TileIndex>`) and, for every 32-deep slice
+//             of a live k-tile, issues two TMA box copies
+//             (cp.async.bulk.tensor) into a kWideStages ring: s's 128 x 32
+//             box with 128-byte swizzled rows and w's 32 x BN box, both
+//             completing on the stage's `full` mbarrier; it refills a stage
+//             once its `empty` mbarrier has one arrival from each consumer
+//             warp. A dead k-tile issues no copy. The 8 consumer warps wait
+//             on `full` (never on a stage no copy was issued to: they walk
+//             the same cursor), run the slice's FMAs unrolled whole, the
+//             next 4 k-columns' spike pieces loading while the current
+//             ones issue, then arrive on `empty`; the ring runs on across
+//             tiles, so one tile's store overlaps the next tile's copies,
+//             and no barrier stops the block between slices. TMA
+//             zero-fills the boxes past M, K and N (no load masks); the
+//             tensor maps are encoded per launch through the driver entry
+//             point `cuTensorMapEncodeTiled` (no link to libcuda).
+//             H100, fc1 / fc2 / stage 1 of SpikingFormer-4-384 on the
+//             model's maps: 0.223 / 0.234 / 0.277 ms, the ring 0.244 /
+//             0.251 / 0.301, cuBLAS fp32 0.214 / 0.231 / 0.340 (stream
+//             probe, in turns); thread 0 producing between its slices at
+//             two blocks an SM ran 0.255 / 0.278 / 0.331.
+//           - ring (K = 27 at the CNNs' coded conv, an unaligned operand):
+//             grid (m-tile row, n-tile), kernel 12's cp.async ring of
+//             kStages 32-deep slices, 16-byte copies where rows allow and
+//             4-byte ones elsewhere, on the map row, two blocks an SM.
+//           An m-tile row with no live k-tile stores zeros in both forms.
 // Route gate: `spike_matmul_pred_routed_forward` takes a device int
 //           `route`; every block returns at entry when it reads 0, so the
 //           launch writes nothing. Hybrid dispatch launches this kernel
@@ -51,8 +86,12 @@
 //           computed on the card from the carried map, so the route is
 //           chosen with no host read (and a CUDA graph of the call picks it
 //           from the map present at replay). A null `route` always runs.
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tile_mma.cuh"
 
@@ -263,28 +302,357 @@ int launch_stream(const float* s, const float* w, float* out, const int* occ,
 }
 
 // ----------------------------------------------------------- N > 16
-constexpr int kWideRM = 8, kWideRN = 8;
+using tile_mma::ThreadTile;
+using tile_mma::TileAcc;
 
-__global__ void __launch_bounds__(
-    tile_fma::Shape<kTile, kWideRM, kWideRN>::kThreads)
-pred_matmul_kernel(const float* __restrict__ s, const float* __restrict__ w,
-                   float* __restrict__ out, const int* __restrict__ occ,
-                   int64_t m, int64_t k, int64_t n, int64_t kt,
-                   const int* __restrict__ route) {
-  __shared__ tile_fma::Staging<kTile> st;
+template <int BN>
+__device__ __forceinline__ void zero_acc(TileAcc<BN>& acc) {
+#pragma unroll
+  for (int i = 0; i < ThreadTile<BN>::kRM; ++i)
+#pragma unroll
+    for (int q = 0; q < ThreadTile<BN>::kRuns; ++q)
+      acc[i][q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// The map row of m-tile `mt` as the ring's work list: step j is k-tile j.
+using MapCursor = tile_mma::RowCursor<tile_mma::OneGate, tile_mma::TileIndex>;
+
+__device__ __forceinline__ MapCursor map_row(const int* occ, int64_t mt,
+                                             int kt, int64_t k) {
+  return MapCursor(tile_mma::OneGate{occ + mt * kt}, tile_mma::TileIndex{},
+                   0, kt, k);
+}
+
+// ------------------------------------------------- the ring form
+// Blocks an SM: the kernel's __launch_bounds__ and its waves.
+constexpr int kRingBlocksPerSM = 2;
+
+template <int BN>
+__global__ void __launch_bounds__(tile_mma::kThreads, kRingBlocksPerSM)
+pred_ring_kernel(tile_mma::DenseSpikes<> a, const float* __restrict__ w,
+                 float* __restrict__ out, const int* __restrict__ occ,
+                 int64_t m, int64_t k, int64_t n, int kt, bool vec_w,
+                 const int* __restrict__ route) {
+  using tile_mma::WeightSlice;
   if (route != nullptr && *route == 0) return;      // the other route runs
+  extern __shared__ __align__(16) unsigned char ring[];
+  constexpr int kStage =
+      tile_mma::DenseSpikes<>::kStageBytes + WeightSlice<BN>::kStageBytes;
   const int64_t m0 = (int64_t)blockIdx.x * kTile;
-  const int64_t n0 = (int64_t)blockIdx.y * kTile;
-  const int* row = occ + (int64_t)blockIdx.x * kt;
-  tile_fma::DenseA a{s, m, k};
-  float acc[kWideRM][kWideRN];
-  tile_fma::zero(acc);
-  for (int j = 0; j < (int)kt; ++j) {    // an int index: faster than int64
-    if (row[j] <= 0) continue;                   // empty tile: gated off
-    tile_fma::accumulate_tile<kTile, kWideRM, kWideRN>(
-        st, a, w, m0, n0, (int64_t)j * kTile, k, n, acc);
+  const int64_t n0 = (int64_t)blockIdx.y * BN;
+  TileAcc<BN> acc;
+  zero_acc<BN>(acc);
+  MapCursor cur = map_row(occ, blockIdx.x, kt, k);
+  auto issue = [&](int slot) {
+    unsigned char* stage = ring + slot * kStage;
+    a.issue(stage, m0, cur.k0());
+    WeightSlice<BN>::issue(stage + tile_mma::DenseSpikes<>::kStageBytes, w,
+                           cur.k0(), n0, k, n, vec_w);
+    tile_mma::commit();
+    cur.next();
+  };
+  int issued = 0;
+  for (; issued < kStages - 1 && cur.valid(); ++issued) issue(issued);
+  for (int done = 0; done < issued; ++done) {
+    tile_mma::wait_pending(issued - done - 1);   // slice `done` has landed
+    __syncthreads();                     // ... for every thread; and every
+                                         // thread is past slice done-1
+    if (cur.valid()) issue(issued++ % kStages);   // into done-1's slot
+    const unsigned char* stage = ring + (done % kStages) * kStage;
+    tile_mma::fma_tile_slice<BN>(
+        stage, stage + tile_mma::DenseSpikes<>::kStageBytes, acc);
   }
-  tile_fma::store_tile<kTile, kWideRM, kWideRN>(out, m0, n0, m, n, acc);
+  tile_mma::store_tile<BN>(out, m0, n0, m, n, acc);
+}
+
+template <int BN>
+int launch_ring(const float* s, const float* w, float* out, const int* occ,
+                int64_t m, int64_t k, int64_t n, int64_t kt,
+                const int* route, cudaStream_t stream) {
+  constexpr int kBytes =
+      kStages * (tile_mma::DenseSpikes<>::kStageBytes +
+                 tile_mma::WeightSlice<BN>::kStageBytes);
+  auto kernel = pred_ring_kernel<BN>;
+  const cudaError_t err = tile_fma::allow_dynamic_smem(kernel, kBytes);
+  if (err != cudaSuccess) return (int)err;
+  const bool vec_s = k % 4 == 0 && (uintptr_t)s % 16 == 0;
+  const bool vec_w = n % 4 == 0 && (uintptr_t)w % 16 == 0;
+  dim3 grid((unsigned)((m + kTile - 1) / kTile), (unsigned)((n + BN - 1) / BN));
+  kernel<<<grid, tile_mma::kThreads, kBytes, stream>>>(
+      tile_mma::DenseSpikes<>{s, m, k, vec_s}, w, out, occ, m, k, n, (int)kt,
+      vec_w, route);
+  return (int)cudaGetLastError();
+}
+
+// -------------------------------------------------- the TMA form
+constexpr int kWideStages = 4;                   // TMA ring depth
+constexpr int kConsumers = tile_mma::kThreads;   // the thread tile's 256
+constexpr int kWideThreads = kConsumers + 32;    // and the producer's warp
+constexpr int kWideBlocksPerSM = 1;
+
+template <int BN>
+struct Wide {
+  static constexpr int kSpikeBytes = kTile * kSlice * 4;   // 128 x 128 B
+  static constexpr int kStageBytes = kSpikeBytes + kSlice * BN * 4;
+  // + slack to align the ring to 1024 bytes, the 128-byte swizzle's period
+  static constexpr int kBytes = kWideStages * kStageBytes + 1024;
+  static_assert(kStageBytes % 1024 == 0, "every spike box 1024-aligned");
+  static_assert(ThreadTile<BN>::kRG % 8 == 0,
+                "a thread's rows share one swizzle phase");
+};
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   tile_mma::smem_addr(bar)),
+               "r"(count));
+}
+
+// Blocks until the phase of parity `parity` has completed. Bounded: a
+// broken schedule traps (the launch fails) instead of hanging the card.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  for (long long spins = 0; !done; ++spins) {
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
+        "%2; selp.u32 %0, 1, 0, p; }"
+        : "=r"(done)
+        : "r"(tile_mma::smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (spins > (1ll << 26)) __trap();
+  }
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   tile_mma::smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   tile_mma::smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// The box of `map` at (inner, outer) into `dst`, completing on `bar`.
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
+                                        int inner, int outer, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(tile_mma::smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(inner), "r"(outer),
+      "r"(tile_mma::smem_addr(bar))
+      : "memory");
+}
+
+// acc += the stage's slice product for this consumer thread: the chain of
+// `tile_mma::fma_tile_slice` (each output one fmaf a k-column, k order) on
+// the TMA layout. Spike row r's 16-byte piece c sits at piece c ^ (r & 7)
+// of its 128-byte row (the 128-byte swizzle), so a warp's consecutive rows
+// read one piece from distinct bank groups; weight rows are BN floats.
+// The next piece's spikes load while the current piece's FMAs issue.
+template <int BN>
+__device__ __forceinline__ void fma_swizzled_slice(const unsigned char* stage,
+                                                   TileAcc<BN>& acc) {
+  using T = ThreadTile<BN>;
+  constexpr int kPieces = kSlice / 4;
+  const int cg = threadIdx.x % T::kG, rg = threadIdx.x / T::kG;
+  const float* a = reinterpret_cast<const float*>(stage) + rg * kSlice;
+  const float* b =
+      reinterpret_cast<const float*>(stage + Wide<BN>::kSpikeBytes) + 4 * cg;
+  const int phase = rg & 7;
+  auto load = [&](int p, float4 (&av)[T::kRM]) {
+    const float* ap = a + 4 * (p ^ phase);
+#pragma unroll
+    for (int i = 0; i < T::kRM; ++i)
+      av[i] = *reinterpret_cast<const float4*>(ap + T::kRG * i * kSlice);
+  };
+  auto product = [&](int p, const float4 (&av)[T::kRM]) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float4 wv[T::kRuns];
+#pragma unroll
+      for (int q = 0; q < T::kRuns; ++q)
+        wv[q] = *reinterpret_cast<const float4*>(b + (4 * p + u) * BN +
+                                                 4 * T::kG * q);
+#pragma unroll
+      for (int i = 0; i < T::kRM; ++i) {
+        const float sv = tile_mma::piece_at(av[i], u);
+#pragma unroll
+        for (int q = 0; q < T::kRuns; ++q) tile_mma::fma4(sv, wv[q], acc[i][q]);
+      }
+    }
+  };
+  // Unrolled whole (the H100 ran a loop over pairs of pieces 7-19%
+  // slower): the next piece's spikes and column's weights load while the
+  // current FMAs issue.
+  float4 even[T::kRM], odd[T::kRM];
+  load(0, even);
+#pragma unroll
+  for (int p = 0; p < kPieces; p += 2) {
+    load(p + 1, odd);
+    product(p, even);
+    if (p + 2 < kPieces) load(p + 2, even);
+    product(p + 1, odd);
+  }
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kWideThreads, kWideBlocksPerSM)
+pred_tma_kernel(const __grid_constant__ CUtensorMap map_s,
+                const __grid_constant__ CUtensorMap map_w,
+                float* __restrict__ out, const int* __restrict__ occ,
+                int64_t m, int64_t k, int64_t n, int kt, int nt, int tiles,
+                const int* __restrict__ route) {
+  using W = Wide<BN>;
+  if (route != nullptr && *route == 0) return;      // the other route runs
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  __shared__ __align__(8) uint64_t full[kWideStages], empty[kWideStages];
+  unsigned char* ring =
+      wide_smem + (1024 - tile_mma::smem_addr(wide_smem) % 1024) % 1024;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kWideStages; ++i) {
+      bar_init(&full[i], 1);
+      bar_init(&empty[i], kConsumers / 32);     // one arrival a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+  // Both sides walk tiles blockIdx.x, + gridDim.x and each tile's live
+  // slices in one order; `slice` counts them across tiles, so the slice
+  // sits in stage slice % kWideStages, on that stage's (slice /
+  // kWideStages)-th fill.
+  if (threadIdx.x >= kConsumers) {                  // the producer warp
+    if (threadIdx.x != kConsumers) return;
+    int slice = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int mt = t / nt, n0 = t % nt * BN;
+      for (MapCursor cur = map_row(occ, mt, kt, k); cur.valid();
+           cur.next(), ++slice) {
+        const int slot = slice % kWideStages, fill = slice / kWideStages;
+        if (fill > 0) bar_wait(&empty[slot], (fill - 1) & 1);
+        unsigned char* stage = ring + slot * W::kStageBytes;
+        bar_expect(&full[slot], W::kStageBytes);
+        tma_box(stage, &map_s, (int)cur.k0(), mt * kTile, &full[slot]);
+        tma_box(stage + W::kSpikeBytes, &map_w, n0, (int)cur.k0(),
+                &full[slot]);
+      }
+    }
+    return;
+  }
+  int slice = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int mt = t / nt, n0 = t % nt * BN;
+    TileAcc<BN> acc;
+    zero_acc<BN>(acc);
+    for (MapCursor cur = map_row(occ, mt, kt, k); cur.valid();
+         cur.next(), ++slice) {
+      const int slot = slice % kWideStages;
+      bar_wait(&full[slot], (slice / kWideStages) & 1);
+      fma_swizzled_slice<BN>(ring + slot * W::kStageBytes, acc);
+      __syncwarp();                    // the warp's reads of the stage done
+      if (threadIdx.x % 32 == 0) bar_arrive(&empty[slot]);
+    }
+    tile_mma::store_tile<BN>(out, (int64_t)mt * kTile, n0, m, n, acc);
+  }
+}
+
+using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
+
+// The driver's tensor-map encoder, looked up once through the runtime, so
+// the library needs no link to libcuda; null where the driver has none.
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The (rows, cols) row-major f32 matrix at `base` as a tensor map of
+// (box_rows, box_cols) boxes, zeros past its edges.
+bool encode(CUtensorMap* map, const float* base, int64_t rows, int64_t cols,
+            int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled enc = tensor_map_encoder();
+  if (enc == nullptr) return false;
+  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
+  cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  cuuint32_t step[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+             const_cast<float*>(base), dims, strides, box, step,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The wide form for an (M, K) x (K, N) product: TMA when it can describe
+// both operands: 16-byte aligned bases (`aligned`), rows a multiple of 16
+// bytes, coordinates within int; else the ring.
+bool wide_tma(bool aligned, int64_t m, int64_t k, int64_t n) {
+  return aligned && k % 4 == 0 && n % 4 == 0 &&
+         m + kTile < INT32_MAX && k + kTile < INT32_MAX &&
+         n + kTile < INT32_MAX;
+}
+
+// Output tiles of the TMA form for N columns and MT m-tile rows, and the
+// persistent grid over them.
+int64_t tma_tiles(int bn, int64_t n, int64_t mt) {
+  return mt * ((n + bn - 1) / bn);
+}
+int64_t tma_grid(int64_t tiles) {
+  const int64_t slots = (int64_t)kWideBlocksPerSM * tile_mma::sm_count();
+  return tiles < slots ? tiles : slots;
+}
+
+template <int BN>
+int launch_tma(const float* s, const float* w, float* out, const int* occ,
+               int64_t m, int64_t k, int64_t n, int64_t kt, const int* route,
+               cudaStream_t stream) {
+  CUtensorMap map_s, map_w;
+  if (!encode(&map_s, s, m, k, kTile, kSlice, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode(&map_w, w, k, n, kSlice, BN, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorNotSupported;
+  auto kernel = pred_tma_kernel<BN>;
+  const cudaError_t err =
+      tile_fma::allow_dynamic_smem(kernel, Wide<BN>::kBytes);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t mt = (m + kTile - 1) / kTile, nt = (n + BN - 1) / BN;
+  const int64_t tiles = tma_tiles(BN, n, mt);
+  if (tiles >= INT32_MAX) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)tma_grid(tiles), kWideThreads, Wide<BN>::kBytes,
+           stream>>>(map_s, map_w, out, occ, m, k, n, (int)kt, (int)nt,
+                     (int)tiles, route);
+  return (int)cudaGetLastError();
+}
+
+// Calls fn(std::integral_constant<int, BN>) for an n-tile width the picker
+// gives.
+template <class Fn>
+int dispatch_bn(int bn, Fn&& fn) {
+  switch (bn) {
+    case 128: return fn(std::integral_constant<int, 128>{});
+    case 96: return fn(std::integral_constant<int, 96>{});
+    case 64: return fn(std::integral_constant<int, 64>{});
+    default: return fn(std::integral_constant<int, 32>{});
+  }
+}
+
+int pick_wide_bn(bool tma, int64_t n, int64_t mt) {
+  return tile_mma::pick_bn_waves(n, mt,
+                                 tma ? kWideBlocksPerSM : kRingBlocksPerSM);
 }
 
 int forward(const float* s, const float* w, float* out, const int* occ,
@@ -296,11 +664,47 @@ int forward(const float* s, const float* w, float* out, const int* occ,
   if (n <= 8) return launch_stream<8>(s, w, out, occ, m, k, n, kt, route, st);
   if (n <= 16)
     return launch_stream<16>(s, w, out, occ, m, k, n, kt, route, st);
-  dim3 grid((unsigned)((m + kTile - 1) / kTile),
-            (unsigned)((n + kTile - 1) / kTile));
-  pred_matmul_kernel<<<grid, tile_fma::Shape<kTile, kWideRM, kWideRN>::kThreads,
-                       0, st>>>(s, w, out, occ, m, k, n, kt, route);
-  return (int)cudaGetLastError();
+  const bool tma = wide_tma(
+      (uintptr_t)s % 16 == 0 && (uintptr_t)w % 16 == 0, m, k, n);
+  return dispatch_bn(pick_wide_bn(tma, n, (m + kTile - 1) / kTile),
+                     [&](auto bc) {
+    constexpr int BN = decltype(bc)::value;
+    return tma ? launch_tma<BN>(s, w, out, occ, m, k, n, kt, route, st)
+               : launch_ring<BN>(s, w, out, occ, m, k, n, kt, route, st);
+  });
+}
+
+// out = {form (0 stream, 1 ring, 2 TMA), BN, rows and columns a thread
+// holds (the stream: rows a lane, columns a warp), grid blocks, blocks an
+// SM, ring stages}: the launch `forward` makes for an (M, K) x (K, N)
+// product whose operands are 16-byte aligned or not (`aligned`).
+int report_launch(int64_t m, int64_t k, int64_t n, int aligned, int* out) {
+  const int64_t mt = (m + kTile - 1) / kTile;
+  if (n <= 16) {
+    const int bn = n <= 2 ? 2 : n <= 4 ? 4 : n <= 8 ? 8 : 16;
+    out[0] = 0;
+    out[1] = bn;
+    out[2] = kPredRows;
+    out[3] = bn < 4 ? bn : 4;
+    out[4] = (int)mt;
+    out[5] = 4;
+    out[6] = kStages;
+    return 0;
+  }
+  const bool tma = wide_tma(aligned != 0, m, k, n);
+  const int bn = pick_wide_bn(tma, n, mt);
+  return dispatch_bn(bn, [&](auto bc) {
+    using T = ThreadTile<decltype(bc)::value>;
+    const int64_t tiles = tma_tiles(bn, n, mt);
+    out[0] = tma ? 2 : 1;
+    out[1] = bn;
+    out[2] = T::kRM;
+    out[3] = T::kCN;
+    out[4] = (int)(tma ? tma_grid(tiles) : tiles);
+    out[5] = tma ? kWideBlocksPerSM : kRingBlocksPerSM;
+    out[6] = tma ? kWideStages : kStages;
+    return 0;
+  });
 }
 
 }  // namespace
@@ -323,4 +727,11 @@ extern "C" int spike_matmul_pred_routed_forward(const float* s,
                                                 int64_t kt, const int* route,
                                                 void* stream) {
   return forward(s, w, out, occ, m, k, n, kt, route, (cudaStream_t)stream);
+}
+
+// The launch kernel 10 makes for an (M, K) x (K, N) product (`aligned`:
+// s and w 16-byte aligned), as `report_launch` gives it.
+extern "C" int spike_matmul_pred_launch(int64_t m, int64_t k, int64_t n,
+                                        int aligned, int* out) {
+  return report_launch(m, k, n, aligned, out);
 }

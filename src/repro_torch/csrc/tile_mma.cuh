@@ -2,10 +2,11 @@
 // (csrc/spike_matmul_csr_pipe.cu): a cp.async ring of k-slices, gated by
 // the work list's per-step counts, feeding an fp32 FMA loop on f32 spikes
 // (`fma_tile_slice`) or predicated fadds on words (`add_word_slice`);
-// the ring the predicated kernel's narrow path (csrc/spike_matmul.cu)
-// walks over a map row (`TileIndex`); and the ring, loaders and weight
-// slices that the pipelined APEC matmuls (csrc/apec_matmul_csr_pipe.cu)
-// feed into csrc/tile_tc.cuh's tensor-core loop instead.
+// the ring the predicated kernel's narrow and wide ring paths
+// (csrc/spike_matmul.cu) walk over a map row (`TileIndex`); and the ring,
+// loaders and weight slices that the pipelined APEC matmuls
+// (csrc/apec_matmul_csr_pipe.cu) feed into csrc/tile_tc.cuh's tensor-core
+// loop instead.
 //
 // A block owns one 128-row m-tile x BN output columns and walks its row's
 // work-list steps row_ptr[r]..row_ptr[r+1] as kSlice-deep k-slices. Each
@@ -48,11 +49,12 @@
 // k-columns at a time (LDS.128; a warp's rows are consecutive, 36 floats
 // apart, so their pieces fall on disjoint banks) and runs RM x CN fmafs a
 // k-column: 16 FMAs a shared-memory load at BN = 128, 12 at 96, 10.7 at
-// 64, where csrc/tile_fma.cuh's 16 x 16 layout of 8 rows x BN/16 columns
-// (kernel 10's wide path) runs 4 at 128 and 3.4 at 96. On words (`add_word_slice`) one bit test of a
-// row's word predicates CN fadds (a set bit adds the weight row, fadd(acc,
-// w) = fmaf(1, w, acc); a clear one adds nothing, as fmaf(0, w, acc) =
-// acc: kernel 11's chain, with no float made of the bit). A slice's
+// 64 (kernel 10's wide path, csrc/spike_matmul.cu, runs the same tile,
+// on this ring or on a TMA ring with 128-byte swizzled spike rows). On
+// words (`add_word_slice`) one bit test of a row's word predicates CN
+// fadds (a set bit adds the weight row, fadd(acc, w) = fmaf(1, w, acc); a
+// clear one adds nothing, as fmaf(0, w, acc) = acc: kernel 11's chain,
+// with no float made of the bit). A slice's
 // 16-byte copies are unrolled, each thread stepping one pointer a pass.
 // Shared-memory rows are padded (A: 32+4 floats, B: BN+8 floats; the
 // APEC kernels pass tile_tc.cuh's pads). Ragged M, K and N are

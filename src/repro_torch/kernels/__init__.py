@@ -10,8 +10,9 @@
                                              as an event walk
                                              (csrc/event_walk.cuh)
                    csrc/spike_matmul.cu      predicated (map-gated) matmul
-                                             (its wide path on
-                                             csrc/tile_fma.cuh's tile loop)
+                                             (its wide path a TMA ring,
+                                             or csrc/tile_mma.cuh's
+                                             cp.async ring)
                    csrc/apec_matmul_csr.cu   APEC's fused residual + overlap
                                              matmul on a union work list,
                                              on f32 spikes or packed words,

@@ -87,6 +87,7 @@ SIGNATURES = {
     "apec_matmul_csr_routed_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _I64,
                                        _I64, _I64, _I64, _I64, _P, _P),
     "spike_matmul_csr_pipe_launch": (_I64, _I64, _P),
+    "spike_matmul_pred_launch": (_I64, _I64, _I64, _I, _P),
     "spike_matmul_packed_csr_pipe_launch": (_I64, _I64, _P),
     "apec_decompose_forward": (_P, _P, _P, _I64, _I64, _I64, _P),
     "apec_decompose_spikes_forward": (_P, _P, _P, _I64, _I64, _I64, _I64, _I,

@@ -8,8 +8,12 @@ per nonzero spike, csrc/event_walk.cuh) whose sums
 chain). `spike_matmul_pred(s, w, occ)` is predicated: every m-tile row
 walks all its k-tiles and the map gates each product; it launches
 `csrc/spike_matmul.cu`, which streams the live k-tiles of a row through
-a copy ring of its own for N <= 16. `spike_matmul_csr_pipe(s, w, csr)`
-is the same function, with the same sums, on the pipelined kernel
+a copy ring of its own for N <= 16, and for N > 16 through a ring of TMA
+box copies fed by a producer warp (`tma_ring_programs` / `run_tma_ring`
+are its CPU twin), or the CSR kernels' cp.async ring where TMA cannot
+describe an operand (`pred_launch` says which).
+`spike_matmul_csr_pipe(s, w, csr)` is the same function, with the same
+sums, on the pipelined kernel
 `csrc/spike_matmul_csr_pipe.cu` (a cp.async ring of 32-deep k-slices);
 its plain version walks the ring's schedule (`ring_schedule`) and checks
 it (`check_ring_trace`). `apec_matmul_csr(res, ov, w, g, csr, occ_res,
@@ -47,6 +51,8 @@ PIPE_SLICE = 32    # k depth of a ring stage (csrc/tile_mma.cuh: kSlice)
 PIPE_STAGES = 3    # ring depth (csrc/tile_mma.cuh: kStages)
 # The APEC kernels' ring depth (csrc/apec_matmul_csr_pipe.cu: kApecStages).
 APEC_PIPE_STAGES = 4
+# Kernel 10's TMA ring depth (csrc/spike_matmul.cu: kWideStages).
+WIDE_STAGES = 4
 
 
 def csr_tile_gate(csr: TileCSR, mt: int, kt: int,
@@ -389,6 +395,148 @@ def _ring_columns(csr: TileCSR, k: int, occ=None, occ_ov=None,
     return cols
 
 
+# ------------------------------------------------ kernel 10's TMA ring
+def _map_slices(row, k: int) -> list:
+    """The live slices of one map row in the cursor's order
+    (`tile_mma::RowCursor<OneGate, TileIndex>`): (k-tile, k0) for every
+    PIPE_SLICE-deep slice before K of each k-tile whose count is > 0."""
+    return [(j, j * TILE + kk) for j, o in enumerate(row) if o > 0
+            for kk in range(0, TILE, PIPE_SLICE) if j * TILE + kk < k]
+
+
+def tma_ring_programs(rows, k: int, stages: int = WIDE_STAGES,
+                      warps: int = 2) -> tuple:
+    """The two sides of kernel 10's TMA form in one block, as programs:
+    its loops in csrc/spike_matmul.cu (`pred_tma_kernel`) written out over
+    the map rows of the tiles the block walks (`rows`, in its order). The
+    producer, for the block's `slice`-th live slice, waits on the stage's
+    `empty` barrier for fill (slice // stages) - 1 (none for a stage's
+    first fill), then arms `full` and issues the slice's boxes. Each
+    consumer warp (`warps` of them; the kernel has 8) waits on `full` for
+    that fill, computes, arrives on `empty` once, and stores each tile
+    after its last slice. Ops: ("wait", barrier, slot, parity, phase
+    meant), ("issue", slot, (tile, k0)), ("compute", slot, (tile, k0)),
+    ("arrive", slot), ("store", tile). Returns (producer, [consumers])."""
+    producer, consumer, slice_ = [], [], 0
+    for t, row in enumerate(rows):
+        for _, k0 in _map_slices(row, k):
+            slot, fill = slice_ % stages, slice_ // stages
+            if fill > 0:
+                producer.append(("wait", "empty", slot, (fill - 1) & 1,
+                                 fill - 1))
+            producer.append(("issue", slot, (t, k0)))
+            consumer += [("wait", "full", slot, fill & 1, fill),
+                         ("compute", slot, (t, k0)), ("arrive", slot)]
+            slice_ += 1
+        consumer.append(("store", t))
+    return producer, [list(consumer) for _ in range(warps)]
+
+
+def run_tma_ring(producer: list, consumers: list, stages: int = WIDE_STAGES,
+                 choose=None, arrivals: int | None = None) -> dict:
+    """Runs the programs against a model of the ring's mbarriers and
+    returns, per tile, the k0 of the slices its consumers computed, in
+    order (every warp must compute the same). `choose(n)` picks which of
+    the n runnable events goes next (the producer's next op, each
+    consumer warp's next op, or the landing of an issued box pair, in that
+    order); None takes the first. A barrier's phase count `ph` rises by
+    one when its phase completes (`full`: the slice's boxes land; `empty`:
+    `arrivals` arrivals, one a consumer warp unless given); a wait with
+    parity p passes while ph % 2 != p, as `mbarrier.try_wait.parity`
+    does. Raises RuntimeError unless: every wait that passes finds exactly
+    the phase it means completed (ph == meant + 1: not an older phase, not
+    a stage that ran a lap ahead); no box is issued into a stage a warp is
+    still reading, or whose previous boxes have not landed; each compute
+    reads the slice it expects, landed; and every program ends (no wait
+    left hanging)."""
+    progs = [producer, *consumers]
+    arrivals = len(consumers) if arrivals is None else arrivals
+    ph = {(bar, s): 0 for bar in ("full", "empty") for s in range(stages)}
+    pending = [0] * stages           # arrivals on `empty` this phase
+    content = [None] * stages        # slot -> (item, landed)
+    reading = [set() for _ in range(stages)]
+    flight: list = []                # issued slots whose boxes are in flight
+    pc = [0] * len(progs)
+    out: list = [{} for _ in consumers]
+
+    def fail(what):
+        raise RuntimeError(f"TMA ring schedule broken: {what}")
+
+    def ready(side):
+        if pc[side] >= len(progs[side]):
+            return False
+        op = progs[side][pc[side]]
+        return op[0] != "wait" or ph[(op[1], op[2])] % 2 != op[3]
+    while True:
+        events = [side for side in range(len(progs)) if ready(side)]
+        events += [-1 - j for j in range(len(flight))]
+        if not events:
+            break
+        ev = events[0 if choose is None else choose(len(events))]
+        if ev < 0:                                   # a box pair lands
+            slot = flight.pop(-1 - ev)
+            content[slot] = (content[slot][0], True)
+            ph[("full", slot)] += 1
+            continue
+        op = progs[ev][pc[ev]]
+        pc[ev] += 1
+        if op[0] == "wait":
+            _, bar, slot, _, meant = op
+            if ph[(bar, slot)] != meant + 1:
+                fail(f"{'producer' if ev == 0 else f'warp {ev - 1}'} wait "
+                     f"on {bar}[{slot}] for phase {meant} passed at phase "
+                     f"count {ph[(bar, slot)]}")
+            if bar == "full":
+                reading[slot].add(ev)
+        elif op[0] == "issue":
+            slot = op[1]
+            if reading[slot]:
+                fail(f"issue into stage {slot} while warps "
+                     f"{sorted(reading[slot])} read it")
+            if slot in flight:
+                fail(f"issue into stage {slot} before its boxes landed")
+            content[slot] = (op[2], False)
+            flight.append(slot)
+        elif op[0] == "compute":
+            slot, item = op[1], op[2]
+            if ev not in reading[slot] or content[slot] != (item, True):
+                fail(f"compute of {item} found stage {slot} holding "
+                     f"{content[slot]}")
+            out[ev - 1].setdefault(item[0], []).append(item[1])
+        elif op[0] == "arrive":
+            reading[op[1]].discard(ev)
+            pending[op[1]] += 1
+            if pending[op[1]] == arrivals:
+                pending[op[1]] = 0
+                ph[("empty", op[1])] += 1
+        else:
+            out[ev - 1].setdefault(op[1], [])
+    if pc != [len(prog) for prog in progs]:
+        fail(f"hung: programs at {pc} of {[len(prog) for prog in progs]}")
+    if any(o != out[0] for o in out):
+        fail("consumer warps computed different slices")
+    return out[0]
+
+
+def tma_ring_columns(occ: torch.Tensor, k: int, blocks: int = 1,
+                     stages: int = WIDE_STAGES, choose=None) -> torch.Tensor:
+    """(MT, K) bool: the columns of each m-tile row that kernel 10's TMA
+    form computes, its rows shared out over `blocks` persistent blocks as
+    the kernel walks them (block b takes tiles b, b + blocks, ...), each
+    block's schedule run and checked (`run_tma_ring`)."""
+    mt = occ.shape[0]
+    rows = occ.tolist()
+    cols = torch.zeros((mt, k), dtype=torch.bool)
+    for b in range(blocks):
+        mine = list(range(b, mt, blocks))
+        done = run_tma_ring(*tma_ring_programs([rows[r] for r in mine], k,
+                                               stages), stages, choose)
+        for t, k0s in done.items():
+            for k0 in k0s:
+                cols[mine[t], k0:k0 + PIPE_SLICE] = True
+    return cols
+
+
 def spike_matmul_csr_pipe_plain(s: torch.Tensor, w: torch.Tensor,
                                 csr: TileCSR) -> torch.Tensor:
     """Plain version of the pipelined CSR kernel: the CPU twin of its copy
@@ -438,6 +586,32 @@ def spike_matmul_pred(s: torch.Tensor, w: torch.Tensor, occ: torch.Tensor,
         s.data_ptr(), w.data_ptr(), out.data_ptr(), occ.data_ptr(), m, k, n,
         grid[1], *gate, _build.stream()), "spike_matmul_pred")
     return out
+
+
+PRED_FORMS = ("stream", "ring", "tma")
+
+
+def pred_launch(m: int, k: int, n: int, aligned: bool = True) -> dict:
+    """The launch kernel 10 makes for an (M, K) x (K, N) product whose
+    operands are 16-byte aligned or not, as its C library reports it: the
+    form (the narrow stream for N <= 16; the TMA ring, or the cp.async
+    ring where TMA cannot describe an operand), n-tile width, the rows
+    and columns a thread holds, grid blocks, blocks an SM, ring stages,
+    and waves (tiles over the card's SMs times the blocks an SM holds).
+    Needs a card."""
+    got = (ctypes.c_int * 7)()
+    _build.check(_build.library().spike_matmul_pred_launch(
+        m, k, n, int(aligned), got), "spike_matmul_pred_launch")
+    form, bn, rows, cols, grid, per_sm, stages = got
+    tiles = -(-m // TILE) * (1 if form == 0 else -(-n // bn))
+    return {"form": PRED_FORMS[form], "bn": bn, "thread_tile": [rows, cols],
+            "grid": grid, "tiles": tiles, "per_sm": per_sm,
+            "stages": stages, "waves": tiles / (per_sm * _sm_count())}
+
+
+def _sm_count() -> int:
+    return torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
 
 
 def _apec_group_ok(g: int) -> bool:

@@ -310,9 +310,25 @@ def test_pred_plain_matches_jax_pallas_interpret(m, k, n):
     ragged tiles instead of padding) against `spike_matmul_pallas` in
     interpret mode on the zero-padded operands, with the dense pre-pass
     map and with a supplied map that gates an occupied tile off."""
+    _pred_parity(m, k, n, 1.0)
+
+
+@pytest.mark.parametrize("m,k,n", [(300, 432, 96),     # stage 1's patches
+                                   (260, 384, 1536),   # fc1
+                                   (270, 1536, 384),   # fc2
+                                   (300, 27, 64)])     # the coded conv
+def test_pred_wide_plain_matches_jax_pallas_interpret(m, k, n):
+    """The same parity on the wide path (N > 16) at the models' K and N,
+    with ragged M, K and N. The weights carry the models' 1/sqrt(K) scale:
+    the two sides sum in other orders, and at K = 1536 a unit-scale
+    output near zero differs by more than the absolute 1e-5."""
+    _pred_parity(m, k, n, k ** -0.5)
+
+
+def _pred_parity(m, k, n, w_scale):
     rng = np.random.default_rng(m + k + n)
     s = _clustered(rng, m, k)
-    w = rng.normal(size=(k, n)).astype(np.float32)
+    w = (rng.normal(size=(k, n)) * w_scale).astype(np.float32)
     mt, kt, nt = -(-m // 128), -(-k // 128), -(-n // 128)
     sp = np.pad(s, ((0, mt * 128 - m), (0, kt * 128 - k)))
     wp = np.pad(w, ((0, kt * 128 - k), (0, nt * 128 - n)))

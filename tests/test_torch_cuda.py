@@ -235,6 +235,45 @@ def test_cuda_pred_kernel_equals_kernel_12(cuda_device, m, k, n, multi_bit):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,form,offset", [
+    (64 * 128, 384, 1536, "tma", 0),   # fc1: several tiles a block
+    (64 * 128, 1536, 384, "tma", 0),   # fc2: BN = 96
+    (1000, 432, 96, "tma", 0),         # stage 1's K and N, ragged M
+    (300, 200, 60, "tma", 0),          # ragged M, K and N
+    (4000, 27, 64, "ring", 0),         # the coded conv: K = 27
+    (1000, 384, 384, "ring", 1),       # s 4 bytes off: the 4-byte ring
+])
+def test_cuda_pred_wide_forms_equal_kernels_11_and_12(cuda_device, m, k, n,
+                                                       form, offset):
+    """Kernel 10's wide path, on the TMA ring where both operands are
+    16-byte aligned with K and N multiples of 4 and on the cp.async ring
+    elsewhere, equals kernels 11 and 12 on `build_csr` of the same map bit
+    for bit, with an empty m-tile row written as zeros and a gated-off
+    launch writing nothing."""
+    rng = np.random.default_rng(m + k + n + offset)
+    s, w = _pred_case(rng, m, k, n, cuda_device, multi_bit=k == 27)
+    if offset:
+        buf = torch.empty(m * k + offset, device=cuda_device)
+        buf[offset:].copy_(s.reshape(-1))
+        s = buf[offset:].view(m, k)
+    assert spike_matmul.pred_launch(m, k, n, aligned=not offset)["form"] \
+        == form
+    occ = ops.padded_occupancy(s)
+    csr = build_csr(occ, 128, 128)
+    got = spike_matmul.spike_matmul_pred(s, w, occ)
+    assert torch.equal(got, spike_matmul.spike_matmul_csr(s, w, csr))
+    assert torch.equal(got, spike_matmul.spike_matmul_csr_pipe(s, w, csr))
+    assert torch.all(got[128:256] == 0)
+    out = torch.full_like(got, 7.0)
+    off = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    spike_matmul.spike_matmul_pred(s, w, occ, route=off, out=out)
+    torch.cuda.synchronize()
+    assert torch.all(out == 7.0)
+    spike_matmul.spike_matmul_pred(s, w, occ, route=off + 1, out=out)
+    assert torch.equal(out, got)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [
     (64 * 128, 256, 384),            # fc2's N on 64 m-tiles: BN = 96
     (4000, 432, 96),                 # stage 1's K and N

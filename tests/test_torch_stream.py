@@ -154,6 +154,146 @@ def test_pred_ring_is_the_csr_kernels_ring():
         in src
 
 
+# ------------------------------------------- kernel 10's TMA form (N > 16)
+def _wide_run(rows, k, blocks, choose=None):
+    """Per block, the twin's programs over the tiles it walks (block b:
+    tiles b, b + blocks, ...) and their checked run."""
+    out = []
+    for b in range(blocks):
+        mine = rows[b::blocks]
+        prog = spike_matmul.tma_ring_programs(mine, k)
+        out.append((mine, prog, spike_matmul.run_tma_ring(
+            *prog, choose=choose)))
+    return out
+
+
+@given(st.lists(st.lists(st.integers(0, 2), min_size=3, max_size=3),
+                min_size=1, max_size=7),
+       st.integers(0, 127), st.integers(1, 3),
+       st.lists(st.integers(0, 2), min_size=1, max_size=64))
+def test_tma_ring_computes_each_live_slice_once_in_order(rows, short,
+                                                         blocks, picks):
+    """On any map rows shared out over persistent blocks and any
+    interleaving of producer, consumers and box landings: the producer
+    issues exactly the live k-tiles' PIPE_SLICE-deep slices before K, in
+    k order, tile after tile (a dead k-tile issues no copy); every wait
+    passes on exactly the phase it means (never on a stage no copy was
+    issued to, never a lap ahead); no box lands in a stage still being
+    read; each tile's consumers compute its live slices in k order; a
+    tile with none stores its zeros."""
+    k = 3 * TILE - short
+    it = iter(picks * 64)
+
+    def choose(n):
+        return next(it, 0) % n
+    for mine, (producer, _), done in _wide_run(rows, k, blocks, choose):
+        want = [[k0 for _, k0 in spike_matmul._map_slices(r, k)]
+                for r in mine]
+        assert [op[2][1] for op in producer if op[0] == "issue"] == \
+            [k0 for ks in want for k0 in ks]
+        assert sorted(done) == list(range(len(mine)))
+        assert [done[t] for t in range(len(mine))] == want
+
+
+def _broken(producer, consumers, how):
+    """(producer, consumers, `empty`'s arrival count) of a broken ring."""
+    if how == "no_empty_wait":          # refills without asking
+        return [op for op in producer if op[:2] != ("wait", "empty")], \
+            consumers, None
+    if how == "stale_parity":           # waits on the previous lap's phase
+        return producer, [[(op[0], op[1], op[2], 1 - op[3], op[4])
+                           if op[0] == "wait" else op for op in c]
+                          for c in consumers], None
+    if how == "early_arrive":           # frees the stage before computing
+        out = []
+        for op in consumers[0]:
+            if op[0] == "compute":
+                out.append(("arrive", op[1]))
+                out.append(op)
+            elif op[0] != "arrive":
+                out.append(op)
+        return producer, [out] + consumers[1:], None
+    if how == "one_arrival":            # `empty` armed for one warp only
+        return producer, consumers, 1
+    if how == "dead_copy":              # a dead k-tile's slice issued
+        slot = producer[0][1]
+        return [("issue", slot, (0, TILE))] + producer, consumers, None
+    raise ValueError(how)
+
+
+@pytest.mark.parametrize("how", ["no_empty_wait", "stale_parity",
+                                 "early_arrive", "one_arrival", "dead_copy"])
+def test_tma_ring_refuses_a_broken_schedule(how):
+    """The twin catches a producer that refills a stage without waiting
+    for its consumers, consumers that wait on the wrong parity, a warp
+    that frees a stage before reading it, an `empty` barrier that
+    completes on one warp's arrival while the others still read, and a
+    copy of a dead k-tile."""
+    rows, k = [[2, 0, 1], [1, 1, 1], [0, 0, 0], [3, 0, 2]], 300
+    producer, consumers = spike_matmul.tma_ring_programs(rows, k)
+    spike_matmul.run_tma_ring(producer, consumers)
+    *bad, arrivals = _broken(producer, consumers, how)
+    for choose in (None, lambda n: n - 1, lambda n: n // 2,
+                   lambda n: 1 % n):
+        try:
+            spike_matmul.run_tma_ring(*bad, choose=choose, arrivals=arrivals)
+        except RuntimeError as err:
+            assert "TMA ring schedule broken" in str(err)
+            break
+    else:
+        pytest.fail(f"{how} went unnoticed")
+
+
+def test_tma_ring_writes_zeros_for_an_empty_row_and_gates_the_plain_product():
+    """An all-empty map row issues nothing and stores its tile; the
+    columns the twin computes over persistent blocks are exactly those the
+    plain version's map gate keeps, so its product is the plain one bit
+    for bit."""
+    rows, k = [[0, 0, 0]], 300
+    producer, consumers = spike_matmul.tma_ring_programs(rows, k)
+    assert producer == [] and consumers == [[("store", 0)]] * 2
+    assert spike_matmul.run_tma_ring(producer, consumers) == {0: []}
+    rng = np.random.default_rng(7)
+    m, n = 700, 40
+    s = (rng.random((m, k)) < 0.3).astype(np.float32)
+    w = rng.normal(size=(k, n)).astype(np.float32)
+    occ = torch.from_numpy(rng.integers(0, 3, size=(6, 3)).astype(np.int32))
+    occ[2] = 0
+    ts, tw = torch.from_numpy(s), torch.from_numpy(w)
+    for blocks in (1, 4):
+        cols = spike_matmul.tma_ring_columns(occ, k, blocks)
+        assert torch.equal(cols, pred_ring_columns(occ, k))
+        got = torch.matmul(ts * cols.repeat_interleave(TILE, 0)[:m], tw)
+        assert torch.equal(got, spike_matmul.spike_matmul_pred_plain(
+            ts, tw, occ))
+        assert torch.all(got[2 * TILE:3 * TILE] == 0)
+
+
+def test_tma_ring_twin_mirrors_the_kernel():
+    """The twin's ring depth is csrc/spike_matmul.cu's kWideStages; the
+    kernel walks each map row with the cursor the rings share, waits on
+    `empty` for the previous fill and on `full` for the current one with
+    the twin's parities, arms `empty` for one arrival a consumer warp
+    (each warp arrives once, after its reads) and `full` with the stage's
+    whole bytes (TMA counts a box's zero-filled elements too)."""
+    src = (CSRC / "spike_matmul.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(consts["kWideStages"]) == spike_matmul.WIDE_STAGES
+    body = src[src.index("pred_tma_kernel(const"):]
+    body = body[:body.index("\n}\n")]
+    for line in ("bar_init(&full[i], 1);",
+                 "bar_init(&empty[i], kConsumers / 32);",
+                 "if (threadIdx.x % 32 == 0) bar_arrive(&empty[slot]);",
+                 "if (fill > 0) bar_wait(&empty[slot], (fill - 1) & 1);",
+                 "bar_expect(&full[slot], W::kStageBytes);",
+                 "bar_wait(&full[slot], (slice / kWideStages) & 1);",
+                 "map_row(occ, mt, kt, k); cur.valid();"):
+        assert line in body, line
+    assert "using MapCursor = tile_mma::RowCursor<tile_mma::OneGate, " \
+        "tile_mma::TileIndex>;" in src
+    assert "constexpr int kWideThreads = kConsumers + 32;" in src
+
+
 # ------------------------------------------ kernels 12 and 14's launch
 # ThreadTile's (rows, columns) a thread holds per n-tile width
 # (csrc/tile_mma.cuh; checked against the source below).

@@ -179,6 +179,137 @@ def test_python_ring_constants_mirror_tile_mma():
     assert ((consts["kSlice"] + consts["kPadA"]) * 4) % 16 == 0
 
 
+# ------------------------------------ kernel 10's TMA form (row 10, N > 16)
+SMEM_PER_BLOCK = 232448          # the H100's dynamic shared memory a block
+SMEM_PER_SM = 233472
+
+
+def _swizzled_slice_source() -> str:
+    src = (CSRC / "spike_matmul.cu").read_text()
+    body = src[src.index("void fma_swizzled_slice("):]
+    return body[:body.index("\n}\n")]
+
+
+def _tma_swizzle(row: int, col: int) -> int:
+    """Where a 128-byte swizzled TMA box puts element (row, col) of 32
+    f32 columns: 16-byte piece col // 4 of row `row` at piece
+    (col // 4) ^ (row % 8), in a 1024-byte aligned stage."""
+    return row * 32 + 4 * ((col // 4) ^ (row % 8)) + col % 4
+
+
+def _swizzled_slice_trace(bn: int):
+    """Per thread, the (row, column, k) of every fmaf `fma_swizzled_slice`
+    runs, in its order, and the float offsets of its spike and weight
+    reads: pieces p = 0, 1, ... of 4 k-columns (the loop takes them in
+    pairs, p then p + 1); per k-column the weight runs, then the rows i
+    and runs q of the thread's tile."""
+    t = _thread_tile(bn)
+    pieces = spike_matmul.PIPE_SLICE // 4
+    for tid in range(THREADS):
+        cg, rg = tid % t["g"], tid // t["g"]
+        ops, a_reads, b_reads = [], [], []
+        for p in range(pieces):
+            for i in range(t["rm"]):
+                a_reads.append((p, i, rg * 32 + t["rg"] * i * 32
+                                + 4 * (p ^ (rg & 7))))
+            for u in range(4):
+                for q in range(t["runs"]):
+                    b_reads.append((p, u, q, (4 * p + u) * bn + 4 * cg
+                                    + 4 * t["g"] * q))
+                for i in range(t["rm"]):
+                    for q in range(t["runs"]):
+                        c = 4 * cg + 4 * t["g"] * q
+                        ops += [(rg + t["rg"] * i, c + x, 4 * p + u)
+                                for x in range(4)]
+        yield tid, ops, a_reads, b_reads
+
+
+def test_tma_slice_takes_the_thread_tile_in_k_order():
+    """`fma_swizzled_slice` runs kernel 12's thread tile: pieces of 4
+    k-columns in order (the loop takes them in pairs, loading piece p + 1
+    while p's FMAs issue), each column's weight runs as LDS.128 and one
+    fma4 a row and run."""
+    body = _swizzled_slice_source()
+    assert "using T = ThreadTile<BN>;" in body
+    assert "constexpr int kPieces = kSlice / 4;" in body
+    assert re.search(r"for \(int p = 0; p < kPieces; p \+= 2\) \{\s*"
+                     r"load\(p \+ 1, odd\);\s*product\(p, even\);\s*"
+                     r"if \(p \+ 2 < kPieces\) load\(p \+ 2, even\);\s*"
+                     r"product\(p \+ 1, odd\);", body)
+    assert "const float* ap = a + 4 * (p ^ phase);" in body
+    assert "const int phase = rg & 7;" in body
+    assert "tile_mma::fma4(sv, wv[q], acc[i][q]);" in body
+
+
+@pytest.mark.parametrize("bn", [128, 96, 64, 32])
+def test_tma_thread_tile_covers_each_output_once(bn):
+    """Every output of a 128 x BN tile belongs to one consumer thread,
+    whose chain takes each k-column of the slice once, in k order."""
+    owner = -np.ones((TILE, bn), dtype=int)
+    slice_k = spike_matmul.PIPE_SLICE
+    for tid, ops, _, _ in _swizzled_slice_trace(bn):
+        chains: dict = {}
+        for r, c, k in ops:
+            chains.setdefault((r, c), []).append(k)
+        for (r, c), ks in chains.items():
+            assert owner[r, c] == -1, f"({r}, {c}) held twice"
+            owner[r, c] = tid
+            assert ks == list(range(slice_k)), f"({r}, {c}) chain {ks}"
+    assert (owner >= 0).all()
+
+
+@pytest.mark.parametrize("bn", [128, 96, 64, 32])
+def test_tma_reads_find_the_swizzled_box_without_conflicts(bn):
+    """Each spike read of a consumer thread lands on the piece where the
+    128-byte swizzle put its row's k-columns (every row a thread holds has
+    one swizzle phase: row groups step by a multiple of 8), aligned to 16
+    bytes; a warp's spike reads (a broadcast of its consecutive rows'
+    pieces) and weight runs (G consecutive 16-byte chunks of one row)
+    take as few wavefronts as their distinct words allow."""
+    t = _thread_tile(bn)
+    assert t["rg"] % 8 == 0
+    traces = {tid: (a, b) for tid, _, a, b in _swizzled_slice_trace(bn)}
+    for tid, (a_reads, _) in traces.items():
+        rg = tid // t["g"]
+        for p, i, off in a_reads:
+            assert off % 4 == 0
+            assert off == _tma_swizzle(rg + t["rg"] * i, 4 * p)
+    for warp in range(THREADS // WARP):
+        lanes = range(WARP * warp, WARP * (warp + 1))
+        n_a = len(traces[lanes[0]][0])
+        for j in range(n_a):
+            addrs = [o + x for tid in lanes
+                     for o in [traces[tid][0][j][2]] for x in range(4)]
+            got, least = _wavefronts(addrs)
+            assert got == least, (bn, warp, j)
+        n_b = len(traces[lanes[0]][1])
+        for j in range(n_b):
+            addrs = [o + x for tid in lanes
+                     for o in [traces[tid][1][j][3]] for x in range(4)]
+            got, least = _wavefronts(addrs)
+            assert got == least, (bn, warp, j)
+
+
+def test_wide_constants_mirror_the_kernel_and_fit_the_card():
+    """The twin's TMA ring depth is kWideStages; a TMA stage (the 128 x 32
+    spike box, the 32 x BN weight box) keeps every spike box 1024-byte
+    aligned, the ring and its alignment slack fit one block an SM, and
+    the cp.async ring form fits its two blocks an SM."""
+    consts = _header_consts("spike_matmul.cu")
+    mma = _header_consts("tile_mma.cuh")
+    assert consts["kWideStages"] == spike_matmul.WIDE_STAGES
+    assert consts["kWideBlocksPerSM"] == 1 and consts["kRingBlocksPerSM"] == 2
+    for bn in (128, 96, 64, 32):
+        stage = TILE * spike_matmul.PIPE_SLICE * 4 + \
+            spike_matmul.PIPE_SLICE * bn * 4
+        assert stage % 1024 == 0
+        assert consts["kWideStages"] * stage + 1024 <= SMEM_PER_BLOCK
+        ring = mma["kStages"] * (
+            TILE * (spike_matmul.PIPE_SLICE + mma["kPadA"]) * 4
+            + spike_matmul.PIPE_SLICE * (bn + mma["kPadB"]) * 4)
+        assert consts["kRingBlocksPerSM"] * ring <= SMEM_PER_SM
+
+
 # ------------------------------------------------------------- the fire
 def _vec_rule(t: int, p: int, width: int, *offsets) -> bool:
     """csrc/lif.cu's `launch_lif` rule for 16-byte vectors: every operand

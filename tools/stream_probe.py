@@ -12,7 +12,12 @@ on a map with every tile occupied (as the model's maps nearly are) and on
 clustered data with 50% occupied tiles: kernel 10 and cuBLAS fp32 in
 turns, kernel 12 on `build_csr` of the same map (its result must equal
 kernel 10's bit for bit), the byte bound and the bytes a second kernel 10
-reaches. Kernels 12 and 14 (the pipelined CSR matmul on f32 spikes and
+reaches; then kernel 10's wide path (N > 16) at chip_smoke's
+`kernel10_wide_cases` (SpikingFormer-4-384's fc1, fc2 and stage 1 on the
+model's maps and on 50% clustered maps, a ragged M, the coded conv's K =
+27): this build, each other build's kernel 10, kernels 11 and 12 and
+cuBLAS fp32 from CUDA graphs in turns, the launch the C library reports,
+all bit for bit. Kernels 12 and 14 (the pipelined CSR matmul on f32 spikes and
 on words, csrc/spike_matmul_csr_pipe.cu) at SpikingFormer-4-384's stage
 1, fc1 and fc2 (T=4, B=32) on clustered data with 50% occupied tiles:
 each with cuBLAS fp32 in turns, the launch its C library reports, and
@@ -107,7 +112,9 @@ ENTRIES = WALK_ENTRIES + tuple(GATED_ENTRIES) + \
            "lif_bf16_forward", "lif_fwd_forward", "lif_counts_forward",
            "lif_counts_packed_forward", "lif_counts_fwd_forward") + \
     APEC_ENTRIES + DECOMPOSE_ENTRIES
-PTXAS_KERNELS = ("csr_pipe_kernel", "lif_kernel", "lif_counts_kernel",
+PTXAS_KERNELS = ("pred_tma_kernel", "pred_ring_kernel",
+                 "pred_stream_kernel", "csr_pipe_kernel", "lif_kernel",
+                 "lif_counts_kernel",
                  "sdsa_or_kernel", "sdsa_causal_kernel", "apec_walk_kernel",
                  "apec_csr_kernel", "csr_walk_kernel", "csr_matmul_kernel",
                  "apec_kernel")
@@ -270,7 +277,35 @@ def probe_counts(torch, device, this, others):
     return ok
 
 
-def probe_pred(torch, gen, device):
+def pred_call(lib, s, w, occ, out):
+    """One launch of kernel 10 at `lib`'s C entry into `out`."""
+    from repro_torch.kernels import _build
+    m, k = s.shape
+    _build.check(lib.spike_matmul_pred_forward(
+        s.data_ptr(), w.data_ptr(), out.data_ptr(), occ.data_ptr(), m, k,
+        w.shape[1], occ.shape[1], _build.stream()),
+        "spike_matmul_pred_forward")
+    return out
+
+
+def graph_turns(torch, fns: dict) -> dict:
+    """Device ms of each of `fns` from CUDA graphs (`graph_ms`), timed in
+    turns: in order, then back; each the mean of its two turns."""
+    first = {name: cs.graph_ms(torch, fn) for name, fn in fns.items()}
+    second = {name: cs.graph_ms(torch, fn)
+              for name, fn in reversed(list(fns.items()))}
+    return {name: (first[name] + second[name]) / 2 for name in fns}
+
+
+def probe_pred(torch, gen, device, this, others):
+    """Kernel 10: the narrow stream at SegNet's tconv shapes (cuBLAS in
+    turns, kernel 12 beside, equal to it), then the wide path at
+    chip_smoke's `kernel10_wide_cases`: this build, every other build's
+    kernel 10, kernels 11 and 12 on `build_csr` of the map and cuBLAS
+    fp32, device ms from CUDA graphs in turns (`graph_turns`); the launch
+    this build makes, the dense-tile FMA bound; every build equal bit for
+    bit to kernels 11 and 12 and within 1e-5 * max|ref| + 1e-5 of the
+    plain version."""
     from repro_torch.core.spikes import build_csr
     from repro_torch.kernels import ops, spike_matmul as sm
     for label, (m, k, n) in TCONV_SHAPES:
@@ -299,7 +334,47 @@ def probe_pred(torch, gen, device):
                 flush=True)
             if not same:
                 return False
-    return True
+    ok = True
+    for label, data, s, w, occ in cs.kernel10_wide_cases(
+            torch, cs.apec_capture(torch, device), gen, device):
+        m, k = s.shape
+        n = w.shape[1]
+        csr = build_csr(occ, 128, 128)
+        outs = {name: torch.empty((m, n), device=device) for name in others}
+        fns = {"this": functools.partial(sm.spike_matmul_pred, s, w, occ),
+               **{name: functools.partial(pred_call, lib, s, w, occ,
+                                          outs[name])
+                  for name, lib in others.items()},
+               "k11": functools.partial(sm.spike_matmul_csr, s, w, csr),
+               "k12": functools.partial(sm.spike_matmul_csr_pipe, s, w, csr),
+               "cublas": functools.partial(torch.matmul, s, w)}
+        got = fns["this"]()
+        ref = sm.spike_matmul_pred_plain(s, w, occ)
+        tol = 1e-5 * ref.abs().max().item() + 1e-5
+        rec = {"kernel": "spike_matmul_pred", "case": f"{label}_{data}",
+               "shape": [m, k, n], "max_abs_err":
+               (got - ref).abs().max().item(), "tolerance": tol,
+               "equal_to_kernel11": torch.equal(got, fns["k11"]()),
+               "equal_to_kernel12": torch.equal(got, fns["k12"]()),
+               "launch": sm.pred_launch(m, k, n)}
+        good = rec["max_abs_err"] <= tol and rec["equal_to_kernel11"] and \
+            rec["equal_to_kernel12"]
+        for name in others:
+            rec[name + "_equal"] = torch.equal(fns[name](), got)
+            good &= rec[name + "_equal"]
+        ms = graph_turns(torch, fns)
+        flops, _ = cs.csr_work(torch, occ, m, k, n)
+        dense_ms = flops / cs.FP32_FLOPS * 1e3
+        rec.update(ms=ms["this"], cublas_ms=ms["cublas"],
+                   kernel11_ms=ms["k11"], kernel12_ms=ms["k12"],
+                   **{name + "_ms": ms[name] for name in others},
+                   dense_fp32_ops_bound_ms=dense_ms,
+                   dense_bound_share=dense_ms / ms["this"],
+                   occupied_share=(occ > 0).float().mean().item(),
+                   ok=good)
+        print(json.dumps(rec), flush=True)
+        ok &= good
+    return ok
 
 
 def probe_csr(torch, gen, device, this, others):
@@ -895,7 +970,8 @@ def main(argv) -> int:
     gen = torch.Generator().manual_seed(cs.SEED)
     ok = True
     if "pred" in only:
-        ok &= probe_pred(torch, gen, device)
+        ok &= probe_pred(torch, gen, device, this,
+                         having(others, "spike_matmul_pred_forward"))
     if "csr" in only:
         ok &= probe_csr(torch, gen, device, this, having(
             others, "spike_matmul_csr_pipe_forward",
