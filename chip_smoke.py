@@ -328,9 +328,38 @@ Phases, each printed on its own line:
       remat's second recompute), `model_flops_6nd`, `train_mfu` and
       `train_hw_flops_share` (over `executed_flops`) at the H100 SXM's
       dense bf16 tensor-core peak (989 TFLOP/s);
+  (t) (t1) VGG11 and ResNet18 (32x32, cross-entropy) and SegNet (64x64,
+      the weighted pixel loss) trained through `launch.cnn_train` at
+      (h)'s configuration: 3 AdamW steps each on the kernels and on
+      `ref` (printed beside), exact launches a step (CNN_TRAIN_LAUNCHES:
+      row 5 and row 3 a fire, kernel 12 an econv, SegNet's two tconvs on
+      kernel 10), finite losses and gradients, no all-zero float leaf
+      (CNN_SILENT_LEAVES names any model-silent one), each op's backward
+      (fire, econv, tconv) on the step's own inputs and cotangent within
+      1e-5 * max|ref| + 1e-12 of `ref`'s and each max-pool's within it of
+      the plain first-maximum rule, the training forward's spike drift
+      within FREE_RUNNING_SPIKE_TOL; the step-0 losses printed and the
+      per-leaf gradient gap between the routes gated at
+      CNN_ROUTE_GAP_LIMITS; the flip witness (`ref` with the kernel
+      route's spikes planted at every fire) within CNN_WITNESS_LIMITS of
+      the kernel route's gradients; a breakdown (step span, host
+      enqueue, forward, backward, AdamW, per op, peak memory);
+      (t2) `ops.sdsa_status` (TPU row 7's status-only entry, its own
+      instance of `csrc/sdsa.cu`) at SpikingFormer-4-384's attention
+      (f32) and whisper's encoder fold (bf16), on the spikes and on their
+      words: one launch a call, bit for bit with the plain versions,
+      times and the byte bound; the OR form on the same views, bit for
+      bit with its plain version, timed beside it; (t3) `mlp_apply` on a dense and a packed
+      EventTensor at block 0's FFN shapes: exact launches (MLP_LAUNCHES),
+      every registry call equal to `ref` on the same inputs, the output
+      within 1e-5 * max|ref| + 1e-5 of the dense spiking form on `ref`
+      (of the down-projection of its own hidden spikes where a hidden
+      spike differs, their share within FREE_RUNNING_SPIKE_TOL); (t4) the
+      five `repro_torch.examples` mains on the card, cut (EXAMPLE_ARGS):
+      clean exits and finite numbers;
   (d) one JSON line listing every kernel with its launches on the main
       paths ((c) and (h) for inference kernels, (f) for the training
-      ones, (i) for the APEC ones, (j) for the packed ones, (k), (m) and
+      ones, (t2) for the status entry, (t1) and (t3) adding theirs, (i) for the APEC ones, (j) for the packed ones, (k), (m) and
       (o) and (p) for the LM ones, (l) adding its hybrid forwards' and APEC
       calls', (n) the training fires', (q) its guarded forwards' and
       fault calls', (r) its mesh forwards', sharded calls', serving and
@@ -488,6 +517,7 @@ SOURCES = {"lif": "src/repro_torch/csrc/lif.cu",
                "src/repro_torch/csrc/spike_matmul_csr_pipe.cu",
            "spike_matmul_pred": "src/repro_torch/csrc/spike_matmul.cu",
            "sdsa_or": "src/repro_torch/csrc/sdsa.cu",
+           "sdsa_status": "src/repro_torch/csrc/sdsa.cu",
            "apec_decompose": "src/repro_torch/csrc/apec.cu",
            "apec_decompose_spikes": "src/repro_torch/csrc/apec.cu",
            "apec_matmul_csr": "src/repro_torch/csrc/apec_matmul_csr.cu",
@@ -533,6 +563,7 @@ REPLACES = {"lif": "src/repro/kernels/lif_scan.py:36",
                 "src/repro/kernels/spike_matmul.py:318",
             "spike_matmul_pred": "src/repro/kernels/spike_matmul.py:48",
             "sdsa_or": "src/repro/kernels/sdsa_kernel.py:29",
+            "sdsa_status": "src/repro/kernels/sdsa_kernel.py:29",
             "apec_decompose": "src/repro/kernels/apec_kernel.py:21",
             "apec_decompose_spikes": "src/repro/kernels/apec_kernel.py:21",
             "apec_matmul_csr": "src/repro/kernels/spike_matmul.py:581",
@@ -1556,19 +1587,20 @@ def step_timeline(torch, dispatch):
         dispatch.dispatch = orig
 
 
-def phase_train_breakdown(torch, params, opt, cfg, device):
-    """One training step on the kernels: device span, host time, per-op
-    forward and backward device time, the optimizer update."""
+def step_breakdown(torch, leaves, loss_of, opt) -> dict:
+    """One training step on the kernels (`loss_of()`, its gradients over
+    `leaves`, AdamW): device span, host time, forward, backward and
+    optimizer device ms, per-op forward and backward device time, peak
+    memory."""
     from repro_torch.kernels import dispatch
     from repro_torch.optim import adamw, schedule
-    batch = train_batch(torch, TRAIN_STEPS, device)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ev[0].record()
     with step_timeline(torch, dispatch) as (fwd, bwd, recorded):
-        leaves = adamw.leaves(params)
-        loss = train_loss(torch, params, batch, cfg)
+        loss = loss_of()
         ev[1].record()
         grads = torch.autograd.grad(loss, leaves)
     ev[2].record()
@@ -1585,13 +1617,24 @@ def phase_train_breakdown(torch, params, opt, cfg, device):
         if id(a) in recorded and id(b) in recorded:
             per_bwd[op] = per_bwd.get(op, 0.0) + a.elapsed_time(b)
     span = ev[0].elapsed_time(ev[3])
-    emit("train_breakdown", device_span_ms=span, host_ms=host_s * 1e3,
-         forward_ms=ev[0].elapsed_time(ev[1]),
-         backward_ms=ev[1].elapsed_time(ev[2]),
-         optimizer_ms=ev[2].elapsed_time(ev[3]),
-         per_op_forward_ms=per_fwd, per_op_backward_ms=per_bwd,
-         rest_ms=span - sum(per_fwd.values()) - sum(per_bwd.values()) -
-         ev[2].elapsed_time(ev[3]), calls=len(fwd))
+    return dict(device_span_ms=span, host_ms=host_s * 1e3,
+                forward_ms=ev[0].elapsed_time(ev[1]),
+                backward_ms=ev[1].elapsed_time(ev[2]),
+                optimizer_ms=ev[2].elapsed_time(ev[3]),
+                per_op_forward_ms=per_fwd, per_op_backward_ms=per_bwd,
+                rest_ms=span - sum(per_fwd.values()) -
+                sum(per_bwd.values()) - ev[2].elapsed_time(ev[3]),
+                calls=len(fwd),
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def phase_train_breakdown(torch, params, opt, cfg, device):
+    """One training step of SpikingFormer on the kernels, broken down."""
+    from repro_torch.optim import adamw
+    batch = train_batch(torch, TRAIN_STEPS, device)
+    emit("train_breakdown", **step_breakdown(
+        torch, adamw.leaves(params),
+        lambda: train_loss(torch, params, batch, cfg), opt))
 
 
 def phase_train(torch, device):
@@ -6736,6 +6779,628 @@ def phase_train_families(torch, device, card):
     return totals
 
 
+# ------------------------------------------------------------ phase (t)
+# (t1) The paper's CNNs trained on the card through `launch.cnn_train`
+# (autograd over the float leaves, then AdamW), at (h)'s configuration:
+# T = 4, B = 32, v_th = 0.5, VGG11 and ResNet18 on 32x32 `class_images`
+# with cross-entropy, SegNet on 64x64 `seg_batch` with the weighted pixel
+# loss. Per step every fire runs row 5 (`lif_counts_fwd`: the counts fire
+# with its residual) and, backward, row 3 (`lif_bwd`); every econv kernel
+# 12; SegNet's two transposed convs kernel 10; the convs' backward replays
+# cuDNN in fp32 (`vjp="ref"`) and max-pooling sends each window's
+# cotangent to its first maximum. Every kernel not named launches 0 times.
+CNN_TRAIN_LAUNCHES = {
+    "vgg11": {"lif_counts_fwd": 8, "lif_bwd": 8, "spike_matmul_csr_pipe": 8},
+    "resnet18": {"lif_counts_fwd": 17, "lif_bwd": 17,
+                 "spike_matmul_csr_pipe": 20},
+    "segnet": {"lif_counts_fwd": 5, "lif_bwd": 5, "spike_matmul_csr_pipe": 4,
+               "spike_matmul_pred": 2},
+}
+# Float leaves whose gradient may be all zero on both routes because the
+# model is silent there, with the reason: none (every fire of the three
+# models spikes at this configuration, (h)'s `layers` lines).
+CNN_SILENT_LEAVES: dict = {}
+# Same inputs and cotangent, one op's backward, kernel route against `ref`:
+# max |delta| <= CNN_GRAD_TOL * max|ref| + CNN_GRAD_FLOOR. The floor only
+# keeps an all-zero reference from needing exact zeros: these cotangents
+# are small (max|ref| of the fires' backward 3.8e-6 on SegNet), so a floor
+# of CNN_GRAD_TOL would let a kernel returning zeros pass. The fires'
+# backward kernel and `ref`'s autograd associate the reset term
+# differently (at most 2.9e-11 apart on the H100, about 2e-7 of max|ref|).
+# `econv` and `tconv` carry `ref`'s backward (`vjp="ref"`), so their rows
+# check only that the card route's backward reaches it; max-pooling is a
+# routing of the cotangent, held to a plain first-maximum rule.
+CNN_GRAD_TOL = 1e-5
+CNN_GRAD_FLOOR = 1e-12
+# Step 0 (the same params and batch on both routes): per leaf, the
+# relative L2 gap between the kernel route's gradients and `ref`'s, gated
+# at twice the gap measured on the H100 (NVIDIA H100 80GB HBM3, 700 W:
+# VGG11 3.39e-6, ResNet18 0.2293, SegNet 5.00e-7). The routes' forwards
+# sum the convs in other orders, so a membrane at the threshold can fire
+# on one route and not the other: ResNet18's first fire parts in one
+# spike of 8.4M and its last in 0.72%, through the residual adds, and
+# every gradient below moves with them. `flip_witness` shows that these
+# flips are the whole gap.
+CNN_ROUTE_GAP_LIMITS = {"vgg11": 2 * 3.394e-6, "resnet18": 2 * 0.2294,
+                        "segnet": 2 * 5.00e-7}
+# `flip_witness`: `ref`'s forward and backward with the kernel route's
+# spikes planted at every fire (the values the kernel fired, the gradient
+# through `ref`'s own fire), against the kernel route's gradients, per
+# leaf in relative L2: what is left once the flips are gone. Gated at
+# twice the reading on the H100 (NVIDIA H100 80GB HBM3, 700 W: VGG11
+# 3.39e-6, ResNet18 1.033e-5, SegNet 5.00e-7, against ResNet18's route
+# gap of 0.2293; planted in `ref`, the kernel route's spikes move `ref`'s
+# ResNet18 gradients by 0.2293 and VGG11's and SegNet's by nothing).
+CNN_WITNESS_LIMITS = {"vgg11": 2 * 3.394e-6, "resnet18": 2 * 1.033e-5,
+                      "segnet": 2 * 5.00e-7}
+# (t2) The status-only SDSA entry (TPU row 7's `sdsa_status_pallas`) at
+# SpikingFormer-4-384's attention (T, B, H, N, dh) = (4, 32, 8, 64, 48),
+# f32, a head-transposed view whose heads join the channel axis; and at
+# whisper-medium's encoder fold (B, H, T * 1500, dh) = (2, 16, 3000, 64),
+# bf16, both contiguous, as the encoder's fold copies it, and as a
+# head-transposed view (2 rows of 16 heads' channels over 3000 tokens).
+# K and V fire at rate STATUS_RATE (their AND then covers part of the
+# channels, not all). (label, the fires' shape, dtype, transposed).
+STATUS_CASES = (("spikingformer", (T, B, 64, HEADS, DIM // HEADS),
+                 "float32", True),
+                ("whisper_fold_heads_joined", (2, 3000, 16, 64), "bfloat16",
+                 True),
+                ("whisper_fold", (2, 16, 3000, 64), "bfloat16", False))
+STATUS_RATE = 0.02
+T_KERNELS = ("sdsa_status",)
+# (t3) `mlp_apply` on an EventTensor at SpikingFormer-4-384 block 0's FFN
+# shapes ((T, B, 64, 384) spikes, 384 -> 1536 -> 384, f32): both
+# up-projections and the down-projection on the pipelined CSR kernel (12,
+# or 14 on words), the hidden fire on row 4 (or 6 packed).
+MLP_LAUNCHES = {False: {"spike_matmul_csr_pipe": 3, "lif_counts": 1},
+                True: {"spike_matmul_packed_csr_pipe": 3,
+                       "lif_counts_packed": 1}}
+# (t4) The port's examples on the card, cut: segmentation 10 steps, the
+# LM trainer's 12M variant 20 steps, serving 4 requests of 8 tokens,
+# long-context 8 decode steps at 524,288-token positions.
+EXAMPLE_ARGS = {
+    "quickstart": [],
+    "segmentation": ["--steps", "10"],
+    "train_spiking_lm": ["--small", "--steps", "20", "--batch", "4",
+                         "--seq", "64", "--ckpt-dir",
+                         str(ROOT / "build" / "example_lm_ckpt")],
+    "serve_spiking_lm": ["--requests", "4", "--max-new", "8"],
+    "long_context": ["--tokens", "8"],
+}
+
+
+def float_names(torch, params) -> list:
+    """`leaf_names` of the float leaves, in `cnn_train.float_leaves`
+    order."""
+    from repro_torch.optim import adamw
+    return [n for n, x in zip(leaf_names(params), adamw.leaves(params))
+            if isinstance(x, torch.Tensor)]
+
+
+@contextlib.contextmanager
+def record_pools(torch):
+    """While active, each `max_pool_events` of the CNNs records its input
+    spikes and, when the backward reaches it, its output cotangent."""
+    from repro_torch.core.events import EventTensor, as_spikes
+    from repro_torch.models import cnn
+    orig = cnn.max_pool_events
+    calls: list = []
+
+    def rec(et, pool):
+        out = orig(et, pool)
+        s = out.spikes if isinstance(out, EventTensor) else out
+        if s.requires_grad:
+            entry = [as_spikes(et).detach(), pool, None]
+            calls.append(entry)
+
+            def hook(g, entry=entry):
+                entry[2] = g.detach().clone()
+            s.register_hook(hook)
+        return out
+
+    cnn.max_pool_events = rec
+    try:
+        yield calls
+    finally:
+        cnn.max_pool_events = orig
+
+
+def first_max_grad(torch, x, g, pool):
+    """Plain first-maximum rule of a VALID max-pool's backward: each
+    window's cotangent to the first element, in row-major window order,
+    that equals the window's maximum."""
+    h, w, c = x.shape[-3:]
+    ho, wo = h // pool, w // pool
+    lead = x.ndim - 3
+    win = x[..., :ho * pool, :wo * pool, :].reshape(
+        x.shape[:-3] + (ho, pool, wo, pool, c))
+    win = win.permute(*range(lead), lead, lead + 2, lead + 4, lead + 1,
+                      lead + 3).reshape(x.shape[:-3] + (ho, wo, c, -1))
+    hit = win == win.amax(dim=-1, keepdim=True)
+    first = hit & (hit.int().cumsum(dim=-1) == 1)
+    d = (first.to(g.dtype) * g[..., None]).reshape(
+        x.shape[:-3] + (ho, wo, c, pool, pool))
+    d = d.permute(*range(lead), lead, lead + 3, lead + 1, lead + 4,
+                  lead + 2).reshape(x.shape[:-3] + (ho * pool, wo * pool, c))
+    out = torch.zeros_like(x)
+    out[..., :ho * pool, :wo * pool, :] = d
+    return out
+
+
+def grad_gap(a, r) -> tuple:
+    """(max |a - r|, max |r|) in f32."""
+    return ((a.float() - r.float()).abs().max().item(),
+            r.float().abs().max().item())
+
+
+def cnn_grad_bound(scale: float) -> float:
+    """The same-input backward bound at max|ref| = `scale`."""
+    return CNN_GRAD_TOL * scale + CNN_GRAD_FLOOR
+
+
+def worse(gaps: dict, op: str, gap: tuple) -> None:
+    """Keep, per op, the gap that uses most of its `cnn_grad_bound`."""
+    old = gaps.get(op)
+    if old is None or gap[0] / cnn_grad_bound(gap[1]) > \
+            old[0] / cnn_grad_bound(old[1]):
+        gaps[op] = gap
+
+
+def cnn_vjp_gaps(torch, dispatch, calls, pools) -> dict:
+    """op -> the worst (max |d_kernel - d_ref|, max |d_ref|) over its
+    recorded calls and differentiated inputs: each registry call's
+    backward replayed on its card backend and on `ref` with the recorded
+    inputs and cotangent; each max-pool's card backward against the plain
+    first-maximum rule."""
+    from repro_torch.core.events import max_pool_events
+    gaps: dict = {}
+    for op, args, kwargs, g in calls:
+        if g is None:
+            continue
+        kernel = dispatch.resolve(op, *args, **kwargs)
+        check(kernel.name == card_routes(dispatch)[op],
+              f"(t1) {op} resolved to {kernel.name}")
+        pulled = []
+        for be in (kernel, dispatch.get_backend(op, dispatch.REF)):
+            xs = [a.clone().requires_grad_(a.is_floating_point())
+                  for a in args]
+            with torch.enable_grad():
+                out = be.fn(*xs, **kwargs)
+                out = out[0] if isinstance(out, tuple) else out
+                pulled.append(torch.autograd.grad(
+                    out, [x for x in xs if x.requires_grad], g))
+        for a, r in zip(*pulled):
+            worse(gaps, op, grad_gap(a, r))
+    for x, pool, g in pools:
+        if g is None:
+            continue
+        xs = x.clone().requires_grad_(True)
+        with torch.enable_grad():
+            (d,) = torch.autograd.grad(max_pool_events(xs, pool), xs, g)
+        worse(gaps, "max_pool_events", grad_gap(d, first_max_grad(
+            torch, x, g, pool)))
+    return gaps
+
+
+@contextlib.contextmanager
+def fire_spikes(dispatch, planted=None):
+    """While active, each `lif_scan_occ` call's spikes are kept in call
+    order and yielded; with `planted`, the i-th call's spikes take the
+    values of `planted[i]` while their gradient still flows through the
+    route's own fire."""
+    orig = dispatch.dispatch
+    seen: list = []
+
+    def fire(op, *args, **kwargs):
+        out = orig(op, *args, **kwargs)
+        if op != "lif_scan_occ":
+            return out
+        s, occ, chunks = out
+        if planted is not None:
+            s = s + (planted[len(seen)] - s).detach()
+        seen.append(s.detach())
+        return s, occ, chunks
+
+    dispatch.dispatch = fire
+    try:
+        yield seen
+    finally:
+        dispatch.dispatch = orig
+
+
+def flip_witness(torch, name, cfg, params, data, names, grads, ref_grads,
+                 spikes, card) -> dict:
+    """`ref`'s loss gradients with the kernel route's fired `spikes`
+    planted at every fire, per leaf in relative L2 against the kernel
+    route's `grads` (gated at CNN_WITNESS_LIMITS) and against `ref`'s own
+    `ref_grads` (printed): if the forward's flips are where the routes
+    part, the first is at rounding level and the second near the routes'
+    gap."""
+    from repro_torch.kernels import dispatch, launch_counts, \
+        reset_launch_counts
+    from repro_torch.launch import cnn_train
+    reset_launch_counts()
+    with dispatch.use_backend(dispatch.REF), \
+            fire_spikes(dispatch, planted=spikes) as seen:
+        loss = cnn_train.loss_fn(name, cfg, params, data)
+        mixed = torch.autograd.grad(loss, cnn_train.float_leaves(params))
+    counts = {k: v for k, v in launch_counts().items() if v}
+    check(not counts and len(seen) == len(spikes),
+          f"(t1) {name}: the witness launched {counts} and planted "
+          f"{len(seen)} of {len(spikes)} fires")
+    to_kernel = rel_l2(torch, names, mixed, grads)
+    to_ref = rel_l2(torch, names, mixed, ref_grads)
+    limit = CNN_WITNESS_LIMITS[name]
+    out = dict(to_kernel_max=max(to_kernel.values()),
+               to_kernel_worst_leaf=max(to_kernel, key=to_kernel.get),
+               to_ref_max=max(to_ref.values()), limit=limit,
+               loss=loss.item(), to_kernel=to_kernel, to_ref=to_ref)
+    emit("cnn_train_flip_witness", model=name, card=card, **out)
+    for n in names:
+        check(to_kernel[n] <= limit,
+              f"(t1) {name}: with the kernel route's spikes planted, ref's "
+              f"gradient of {n} is {to_kernel[n]} from the kernel route's "
+              f"(over {limit}, CNN_WITNESS_LIMITS)")
+    return out
+
+
+def cnn_train_steps(torch, name, cfg, batches, device, backend):
+    """TRAIN_STEPS AdamW steps from fresh params on `backend` (None: the
+    automatic card routes): per step the loss, gradients, seconds and
+    launches; the final params and optimizer state."""
+    from repro_torch.kernels import dispatch, launch_counts, \
+        reset_launch_counts
+    from repro_torch.launch import cnn_train
+    from repro_torch.optim import adamw
+    ocfg = adamw.AdamWConfig(lr=LR)
+    params = cnn_train.init_params(name, cfg, SEED, device)
+    opt = adamw.init(cnn_train.float_leaves(params), ocfg)
+    run = dict(losses=[], grads=[], seconds=[], counts=[])
+    for data in batches:
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.nullcontext() if backend is None else \
+                dispatch.use_backend(backend):
+            loss, grads, opt = cnn_train.train_step(name, cfg, params, opt,
+                                                    data, ocfg)
+        torch.cuda.synchronize()
+        run["seconds"].append(time.perf_counter() - t0)
+        run["counts"].append(launch_counts())
+        run["losses"].append(loss.item())
+        run["grads"].append(grads)
+    return dict(run, params=params, opt=opt)
+
+
+def phase_cnn_train(torch, device, card):
+    """(t1): 3 AdamW steps of each paper CNN on the kernels, gated, and on
+    `ref`, printed; each op's backward on the step's own inputs; the
+    training forward's spike drift; a breakdown."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import cnn_train
+    from repro_torch.models import cnn
+    totals: dict = {}
+    for name, expected in CNN_TRAIN_LAUNCHES.items():
+        cfg = cnn_train.config(name, T, V_TH)
+        batches = [cnn_train.batch(name, cfg, SEED, i, B, device)
+                   for i in range(TRAIN_STEPS)]
+        kern = cnn_train_steps(torch, name, cfg, batches, device, None)
+        ref = cnn_train_steps(torch, name, cfg, batches, device, dispatch.REF)
+        names = float_names(torch, kern["params"])
+        for i in range(TRAIN_STEPS):
+            counts = kern["counts"][i]
+            want = {k: expected.get(k, 0) for k in counts}
+            check(counts == want, f"(t1) {name} step {i}: launches {counts} "
+                  f"!= {want}")
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            check(math.isfinite(kern["losses"][i]),
+                  f"(t1) {name} step {i}: loss {kern['losses'][i]}")
+            for leaf, g, r in zip(names, kern["grads"][i], ref["grads"][i]):
+                check(bool(torch.isfinite(g).all()),
+                      f"(t1) {name} step {i}: gradient of {leaf} not finite")
+                if not bool((g != 0).any()):
+                    check(leaf in CNN_SILENT_LEAVES.get(name, {}) and
+                          not bool((r != 0).any()),
+                          f"(t1) {name} step {i}: gradient of {leaf} is all "
+                          f"zero")
+            rel = rel_l2(torch, names, kern["grads"][i], ref["grads"][i])
+            if i == 0:
+                for n in names:
+                    check(rel[n] <= CNN_ROUTE_GAP_LIMITS[name],
+                          f"(t1) {name} step 0: the routes' gradients of "
+                          f"{n} are {rel[n]} apart, over "
+                          f"{CNN_ROUTE_GAP_LIMITS[name]} "
+                          f"(CNN_ROUTE_GAP_LIMITS: twice the gap measured)")
+            emit("cnn_train_step", model=name, step=i,
+                 loss=kern["losses"][i], ref_loss=ref["losses"][i],
+                 step_s=kern["seconds"][i], ref_step_s=ref["seconds"][i],
+                 max_grad_rel_l2=max(rel.values()), grad_rel_l2=rel,
+                 launches={k: v for k, v in counts.items() if v}, card=card)
+
+        # Each op's backward on the first step's own inputs and cotangents,
+        # and the kernel route's fired spikes for the flip witness.
+        params = cnn_train.init_params(name, cfg, SEED, device)
+        with shadow_vjp(torch, dispatch) as calls, \
+                record_pools(torch) as pools, \
+                fire_spikes(dispatch) as spikes:
+            loss = cnn_train.loss_fn(name, cfg, params, batches[0])
+            grads = torch.autograd.grad(loss,
+                                        cnn_train.float_leaves(params))
+        emit("cnn_train_recording_pass", model=name, equal_to_step_0=all(
+            torch.equal(a, b) for a, b in zip(grads, kern["grads"][0])))
+        flip_witness(torch, name, cfg, params, batches[0], names, grads,
+                     ref["grads"][0], spikes, card)
+        del grads, spikes
+        gaps = cnn_vjp_gaps(torch, dispatch, calls, pools)
+        want_ops = {"lif_scan_occ", "econv"} | (
+            {"tconv"} if name == "segnet" else set()) | (
+            {"max_pool_events"} if name == "vgg11" else set())
+        emit("cnn_train_same_input_vjp", model=name, calls=len(calls),
+             pools=len(pools), gaps={op: dict(max_abs=e, max_ref=s)
+                                     for op, (e, s) in gaps.items()},
+             tol=CNN_GRAD_TOL, floor=CNN_GRAD_FLOOR)
+        check(set(gaps) == want_ops,
+              f"(t1) {name}: backward check saw ops {sorted(gaps)}")
+        for op, (err, scale) in gaps.items():
+            check(err <= cnn_grad_bound(scale),
+                  f"(t1) {name}: {op}'s backward on the kernels differs "
+                  f"from ref's on the same inputs by {err} (max|ref| "
+                  f"{scale})")
+
+        # The training forward's spikes on the kernels against `ref`'s.
+        stats = []
+        for backend in (None, dispatch.REF):
+            with contextlib.nullcontext() if backend is None else \
+                    dispatch.use_backend(backend):
+                _, s = getattr(cnn, f"{name}_apply")(
+                    cfg, params, batches[0]["image"], collect_stats=True)
+            stats.append([x.detach() for x in s])
+        drift = [(a != r).float().mean().item() for a, r in zip(*stats)]
+        emit("cnn_train_drift", model=name, differing_share=drift,
+             spike_rates=[a.float().mean().item() for a in stats[0]])
+        for j, share in enumerate(drift):
+            check(share <= FREE_RUNNING_SPIKE_TOL,
+                  f"(t1) {name} layer {j}: {share} of training spikes "
+                  f"differ from ref's")
+        del params, stats, calls, pools
+        emit("cnn_train_breakdown", model=name, card=card,
+             **step_breakdown(torch, cnn_train.float_leaves(kern["params"]),
+                              lambda: cnn_train.loss_fn(
+                                  name, cfg, kern["params"], batches[0]),
+                              kern["opt"]))
+        del kern, ref
+        free_card(torch)
+    return totals
+
+
+def status_views(torch, gen, shape, dtype, device, transposed):
+    """K and V fires at STATUS_RATE: with `transposed`, (..., N, H, dh)
+    fires seen as (..., H, N, dh) views, else contiguous `shape`."""
+    fires = [(torch.rand(shape, generator=gen, device=device) < STATUS_RATE)
+             .to(dtype) for _ in range(2)]
+    return [x.transpose(-3, -2) for x in fires] if transposed else fires
+
+
+def phase_status(torch, device, results, card):
+    """(t2): `ops.sdsa_status` on the spikes and the status word entry,
+    bit for bit with their plain versions, one launch a call, times."""
+    from repro_torch.core.spikes import pack_spikes_padded, unpack_spikes
+    from repro_torch.kernels import launch_counts, ops, \
+        reset_launch_counts, sdsa_kernel
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    launches = 0
+    for label, shape, dt, transposed in STATUS_CASES:
+        dtype = getattr(torch, dt)
+        k, v = status_views(torch, gen, shape, dtype, device, transposed)
+        reset_launch_counts()
+        got = ops.sdsa_status(k, v)
+        torch.cuda.synchronize()
+        counts = {n: c for n, c in launch_counts().items() if c}
+        check(counts == {"sdsa_status": 1},
+              f"(t2) {label}: ops.sdsa_status launched {counts}")
+        launches += 1
+        want = sdsa_kernel.sdsa_status_spikes_plain(k, v)
+        check(got.dtype == dtype and got.shape == want.shape and
+              got.is_contiguous() and torch.equal(got, want),
+              f"(t2) {label}: status disagrees with its plain version")
+        b_ms, by = bound_ms((k.numel() + v.numel() + got.numel()) *
+                            k.element_size())
+        rec = dict(max_abs_err=0.0,
+                   ms=cuda_ms(torch, lambda: ops.sdsa_status(k, v)),
+                   device_ms=graph_ms(torch, lambda: ops.sdsa_status(k, v)),
+                   plain_ms=cuda_ms(torch, lambda: sdsa_kernel.
+                                    sdsa_status_spikes_plain(k, v), reps=5),
+                   bound_ms=b_ms, bound_by=by, library_ms=None,
+                   shape=list(k.shape), dtype=dt,
+                   ones_share=got.float().mean().item(), card=card)
+        emit("kernel", name="sdsa_status", case=label,
+             entry="sdsa_status_spikes", **rec)
+        results["sdsa_status"] = rec
+        # The OR form (row 7 with its pass 2) on the same K, V views and a
+        # Q of the same layout, as the models' attention runs it.
+        q = status_views(torch, gen, shape, dtype, device, transposed)[0]
+        full = sdsa_kernel.sdsa_or_spikes(q, k, v)
+        check(torch.equal(full, sdsa_kernel.sdsa_or_spikes_plain(q, k, v)),
+              f"(t2) {label}: the OR form disagrees with its plain version")
+        o_ms, o_by = bound_ms((q.numel() * 2 + k.numel() + v.numel()) *
+                              k.element_size())
+        emit("sdsa_or_beside_status", case=label, card=card,
+             ms=cuda_ms(torch, lambda: sdsa_kernel.sdsa_or_spikes(q, k, v)),
+             device_ms=graph_ms(torch, lambda: sdsa_kernel.sdsa_or_spikes(
+                 q, k, v)),
+             bound_ms=o_ms, bound_by=o_by, shape=list(k.shape), dtype=dt)
+        del q, full
+        n, d = k.shape[-2:]
+        kw, vw = (pack_spikes_padded(x.contiguous().reshape(-1, n, d))
+                  for x in (k, v))
+        reset_launch_counts()
+        gw = sdsa_kernel.sdsa_status_words(kw, vw)
+        torch.cuda.synchronize()
+        counts = {n_: c for n_, c in launch_counts().items() if c}
+        check(counts == {"sdsa_status": 1},
+              f"(t2) {label} words: launched {counts}")
+        ww = sdsa_kernel.sdsa_status_words_plain(kw, vw)
+        check(torch.equal(gw.view(torch.int32), ww.view(torch.int32)),
+              f"(t2) {label}: status words disagree with their plain "
+              f"version")
+        check(torch.equal(unpack_spikes(gw, dtype=dtype)[:, :d].reshape(
+            got.shape), got), f"(t2) {label}: words and spikes disagree")
+        wb_ms, wby = bound_ms((kw.numel() + vw.numel() + gw.numel()) * 4)
+        emit("kernel", name="sdsa_status", case=label + "_words",
+             entry="sdsa_status_words", max_abs_err=0.0,
+             ms=cuda_ms(torch, lambda: sdsa_kernel.sdsa_status_words(kw, vw)),
+             device_ms=graph_ms(torch, lambda: sdsa_kernel.sdsa_status_words(
+                 kw, vw)),
+             plain_ms=cuda_ms(torch, lambda: sdsa_kernel.
+                              sdsa_status_words_plain(kw, vw), reps=5),
+             bound_ms=wb_ms, bound_by=wby, library_ms=None,
+             shape=list(kw.shape), card=card)
+    return {"sdsa_status": launches}
+
+
+def phase_mlp_events(torch, device, card):
+    """(t3): `mlp_apply` on a dense and a packed EventTensor at block 0's
+    FFN shapes: exact launches, every registry call equal to `ref` on the
+    same inputs, the output against the dense spiking form on `ref`."""
+    from repro_torch.core.lif import LIFConfig
+    from repro_torch.kernels import dispatch, launch_counts, \
+        reset_launch_counts
+    from repro_torch.models import layers
+    lif_cfg = LIFConfig(v_th=V_TH)
+    p = layers.mlp_init(DIM, 4 * DIM, torch.float32,
+                        generator=torch.Generator().manual_seed(SEED),
+                        device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    drive = torch.randn((T, B, 64, DIM), generator=gen, device=device)
+    fired: list = []
+    fire_events, fire = layers.lif_fire_events, layers.lif_fire
+
+    def rec_events(h, cfg, packed=False):
+        out = fire_events(h, cfg, packed=packed)
+        fired.append(out.dense())
+        return out
+
+    def rec_fire(h, cfg):
+        out = fire(h, cfg)
+        fired.append(out)
+        return out
+
+    totals: dict = {}
+    with torch.inference_mode():
+        for packed in (False, True):
+            x = layers.lif_fire_events(drive, lif_cfg, packed=packed)
+            fired.clear()
+            reset_launch_counts()
+            layers.lif_fire_events = rec_events
+            try:
+                out = layers.mlp_apply(p, x, True, lif_cfg)
+            finally:
+                layers.lif_fire_events = fire_events
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            want = {k: MLP_LAUNCHES[packed].get(k, 0) for k in counts}
+            check(counts == want, f"(t3) packed={packed}: launches {counts} "
+                  f"!= {want}")
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            layers.lif_fire = rec_fire
+            try:
+                with dispatch.use_backend(dispatch.REF):
+                    ref_out = layers.mlp_apply(p, x.dense(), True, lif_cfg)
+            finally:
+                layers.lif_fire = fire
+            hidden, ref_hidden = fired
+            differ = (hidden != ref_hidden).float().mean().item()
+            scale = ref_out.abs().max().item()
+            err = (out - ref_out).abs().max().item()
+            # Where a hidden membrane sits within fp32 summation order of
+            # the threshold, the two routes fire differently; the kernel
+            # output is then held to the down-projection of its own hidden
+            # spikes, and the share that differs to (h)'s drift limit.
+            down = hidden @ p["w_down"]
+            held = err if differ == 0 else \
+                (out - down).abs().max().item()
+            with shadow_ref(torch, dispatch) as shadow:
+                layers.mlp_apply(p, x, True, lif_cfg)
+            ms = cuda_ms(torch, lambda: layers.mlp_apply(p, x, True, lif_cfg),
+                         reps=10)
+            with dispatch.use_backend(dispatch.REF):
+                ref_ms = cuda_ms(torch, lambda: layers.mlp_apply(
+                    p, x.dense(), True, lif_cfg), reps=10)
+            emit("mlp_events", packed=packed, shape=list(x.shape),
+                 launches={k: v for k, v in counts.items() if v},
+                 max_abs_err=err, max_ref=scale, hidden_differing=differ,
+                 held_err=held, same_input_ops=shadow, ms=ms,
+                 dense_ref_ms=ref_ms, card=card)
+            check(bool(torch.isfinite(out).all()) and
+                  out.shape == ref_out.shape, f"(t3) packed={packed}: output")
+            check(differ <= FREE_RUNNING_SPIKE_TOL,
+                  f"(t3) packed={packed}: {differ} of hidden spikes differ")
+            check(held <= 1e-5 * scale + 1e-5,
+                  f"(t3) packed={packed}: output {held} from ref's")
+            for op, e in shadow.items():
+                check(e <= SAME_INPUT_TOL[op],
+                      f"(t3) packed={packed}: {op} differs from ref on the "
+                      f"same inputs by {e}")
+    return totals
+
+
+def example_numbers(x) -> list:
+    """The numbers in an example's returned record."""
+    if isinstance(x, bool) or x is None or isinstance(x, str):
+        return []
+    if isinstance(x, (int, float)):
+        return [float(x)]
+    if isinstance(x, dict):
+        return [n for v in x.values() for n in example_numbers(v)]
+    if isinstance(x, (list, tuple)):
+        return [n for v in x for n in example_numbers(v)]
+    return []
+
+
+def phase_examples(torch, card):
+    """(t4): the five examples' `main()` on the card, cut: clean exits and
+    finite numbers."""
+    import importlib
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    for name, args in EXAMPLE_ARGS.items():
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = mod.main(args)
+        torch.cuda.synchronize()
+        nums = example_numbers(out)
+        emit("example", name=name, args=args,
+             seconds=time.perf_counter() - t0, numbers=len(nums),
+             launches={k: v for k, v in launch_counts().items() if v},
+             card=card)
+        check(bool(nums) and all(math.isfinite(n) for n in nums),
+              f"(t4) {name}: numbers not finite")
+        free_card(torch)
+
+
+def phase_t(torch, device, results, card):
+    """(t) CNN training, the status entry, the MLP on events, the
+    examples."""
+    totals: dict = {}
+    for name, fn, args in (
+            ("t1_cnn_train", phase_cnn_train, (torch, device, card)),
+            ("t2_status", phase_status, (torch, device, results, card)),
+            ("t3_mlp_events", phase_mlp_events, (torch, device, card)),
+            ("t4_examples", phase_examples, (torch, card))):
+        t0 = time.perf_counter()
+        was = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for k, v in (fn(*args) or {}).items():
+                totals[k] = totals.get(k, 0) + v
+        finally:
+            torch.backends.cudnn.deterministic = was
+        emit("phase_time", name=name, seconds=time.perf_counter() - t0)
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6825,10 +7490,16 @@ def main() -> int:
     for name, n in timed("s_train_families", phase_train_families, torch,
                          device, card).items():
         totals[name] = totals.get(name, 0) + n
+    # The CNNs' training steps launch rows 5 and 3, 12 and (SegNet) 10;
+    # the status entry its own instance of row 7; the MLP on events rows
+    # 12 / 14 and 4 / 6.
+    for name, n in timed("t_cnn_train_examples", phase_t, torch, device,
+                         results, card).items():
+        totals[name] = totals.get(name, 0) + n
     emit("phase_time", name="total", seconds=time.perf_counter() - t_start)
     kernels = []
     for name in INFERENCE_KERNELS + TRAINING_KERNELS + APEC_KERNELS + \
-            PACKED_KERNELS + LM_KERNELS + LM_TRAIN_KERNELS:
+            PACKED_KERNELS + LM_KERNELS + LM_TRAIN_KERNELS + T_KERNELS:
         r = results[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCES[name], "replaces": REPLACES[name],

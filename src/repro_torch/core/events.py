@@ -30,15 +30,81 @@ integer metadata for autograd: packed mode is an inference path.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from .econv import conv_pads
-from .spikes import (build_csr, pack_spikes_padded, packed_width,
-                     tile_occupancy, unpack_spikes_padded)
+from .spikes import (build_csr, pack_spikes, pack_spikes_padded,
+                     packed_width, popcount, tile_occupancy,
+                     unpack_spikes_padded)
 
 CHUNK = 8    # fine-map row granularity: the fire kernel's row chunk
+
+
+# ======================================================================
+# AER streams — the Sparse Core's view (Sec. III, Fig. 4)
+# ======================================================================
+# The reference event-filter semantics, for tests and for instrumentation
+# that needs exact per-word event counts. Counts are int32.
+class EventStream(NamedTuple):
+    """Padded AER stream: linear addresses + validity mask."""
+    addr: torch.Tensor   # (max_events,) int32 linear index into the flat map
+    valid: torch.Tensor  # (max_events,) bool
+
+
+def fast_event_filter(word, width: int = 32) -> torch.Tensor:
+    """Reference of the hardware fast event filter on a packed word
+    (a Python int or a uint32 / integer tensor; a tensor of words gives
+    one row a word).
+
+    Emits the bit positions of set bits in ascending order (lowest active
+    bit first — the one-hot + LUT scheme), padded with -1. Static output
+    length = `width`; positions from 32 up read zero bits."""
+    w = torch.as_tensor(word)
+    if w.dtype == torch.uint32:
+        w = w.view(torch.int32)
+    w = w.to(torch.int64) & 0xFFFFFFFF
+    positions = torch.arange(width, dtype=torch.int64, device=w.device)
+    set_mask = ((w[..., None] >> positions) & 1).bool() & (positions < 32)
+    # Set bits keep their position, clear ones sort after every set one.
+    order = torch.where(set_mask, positions, positions + width)
+    ordered = order.sort(dim=-1).values
+    return torch.where(ordered < width, ordered, -1).to(torch.int32)
+
+
+def to_event_stream(s: torch.Tensor, max_events: int) -> EventStream:
+    """Flatten a binary tensor into a padded AER stream (raster order):
+    the first `max_events` nonzero addresses, ascending, padded with -1."""
+    lin = torch.nonzero(s.reshape(-1)).reshape(-1)[:max_events]
+    addr = torch.full((max_events,), -1, dtype=torch.int32, device=s.device)
+    addr[:lin.numel()] = lin.to(torch.int32)
+    return EventStream(addr=addr, valid=addr >= 0)
+
+
+def events_per_position(s: torch.Tensor) -> torch.Tensor:
+    """(..., P, C) -> (..., P) active-channel counts per spatial position
+    ("spike events ... collected at the same spatial location", Alg. 1 l.9),
+    int32."""
+    return s.to(torch.int32).sum(dim=-1, dtype=torch.int32)
+
+
+def word_event_counts(s: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Popcount per packed 32-channel word (Spike SRAM word granularity),
+    int32; the packed axis must be a multiple of 32."""
+    return popcount(pack_spikes(s, axis=axis))
+
+
+def layer_sparsity_report(name: str, s: torch.Tensor) -> dict:
+    """Instrumentation record used by the Fig. 2 / Fig. 7 benchmarks."""
+    total = float(s.numel())
+    active = float(s.float().sum())
+    return {
+        "layer": name,
+        "total_sites": total,
+        "events": active,
+        "sparsity": 1.0 - active / max(total, 1.0),
+    }
 
 
 class EventTensor:

@@ -42,9 +42,23 @@ def lif_step(v: torch.Tensor, x: torch.Tensor,
 def lif_scan(x: torch.Tensor, cfg: LIFConfig = LIFConfig(),
              v0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Run LIF over the leading time axis. x: (T, ...) -> spikes (T, ...)."""
-    v = torch.zeros_like(x[0]) if v0 is None else v0
+    v0 = torch.zeros_like(x[0]) if v0 is None else v0
+    return lif_scan_with_state(x, v0, cfg)[1]
+
+
+def lif_scan_with_state(x: torch.Tensor, v0: torch.Tensor,
+                        cfg: LIFConfig = LIFConfig()
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Like `lif_scan` but also returns the final membrane state (serving):
+    x (T, ...) and v0 (...) -> (v after the last step, spikes (T, ...))."""
+    v = v0
     out = []
     for t in range(x.shape[0]):
         v, s = lif_step(v, x[t], cfg)
         out.append(s)
-    return torch.stack(out)
+    return v, torch.stack(out) if out else torch.empty_like(x)
+
+
+def multistep_lif(x: torch.Tensor, cfg: LIFConfig = LIFConfig()) -> torch.Tensor:
+    """LIF over axis 0 (= T micro-timesteps). Alias used by model code."""
+    return lif_scan(x, cfg)

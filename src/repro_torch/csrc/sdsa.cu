@@ -27,6 +27,13 @@
 //           reads Q once and writes Q AND status. Loads go out four tokens
 //           at a time. The word entry (the TPU row's own function) runs
 //           the same template on one-word units.
+// Status:   `sdsa_status_strided_forward` is the TPU row's status-only
+//           entry (`sdsa_status_pallas`, `kernels/ops.py::sdsa_status`):
+//           the same template with kStatus set runs pass 1 and the
+//           shared-memory OR, then the first token group writes the
+//           channel mask (ones and zeros in K's type, or the word) once
+//           a row and pass 2 is skipped. It reads K and V once and writes
+//           (..., d): bound by the bytes of K and V.
 #include "sdsa_units.cuh"
 
 namespace sdsa {
@@ -35,8 +42,9 @@ namespace {
 constexpr int kBatch = 4;   // tokens whose loads a thread issues together
 
 // grid: slices x ceil(rows / rows a block); a block = rows a block x
-// `groups` token groups x `ub` units, unit fastest.
-template <int kKind, bool kVec>
+// `groups` token groups x `ub` units, unit fastest. With kStatus, `out`
+// is described with a token stride of 0 and receives the status alone.
+template <int kKind, bool kVec, bool kStatus>
 __global__ void __launch_bounds__(kThreads)
 sdsa_or_kernel(const void* __restrict__ q, const void* __restrict__ k,
                const void* __restrict__ v, void* __restrict__ out, Layout g,
@@ -84,6 +92,10 @@ sdsa_or_kernel(const void* __restrict__ q, const void* __restrict__ k,
   const int first = rb * per_row + u;
   for (int j = 0; j < groups; ++j) status |= part[first + j * ub];
   if (!live) return;
+  if constexpr (kStatus) {
+    if (grp == 0) U::store(out, off[3] + c, U::expand(status));
+    return;
+  }
   for (int64_t n0 = grp; n0 < g.n; n0 += step) {
     Raw qr[kBatch];
 #pragma unroll
@@ -101,7 +113,7 @@ sdsa_or_kernel(const void* __restrict__ q, const void* __restrict__ k,
   }
 }
 
-template <int kKind, bool kVec>
+template <int kKind, bool kVec, bool kStatus>
 int launch(const void* q, const void* k, const void* v, void* out,
            const Layout& g, int ub, int groups, cudaStream_t stream) {
   using U = Unit<kKind, kVec>;
@@ -112,9 +124,38 @@ int launch(const void* q, const void* k, const void* v, void* out,
   const int64_t blocks =
       slices * ((rows + rows_per_block - 1) / rows_per_block);
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  sdsa_or_kernel<kKind, kVec><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  sdsa_or_kernel<kKind, kVec, kStatus>
+      <<<(unsigned)blocks, kThreads, 0, stream>>>(
       q, k, v, out, g, ub, groups, units, slices, rows);
   return (int)cudaGetLastError();
+}
+
+// Checks the descriptor and launches the instance it names.
+template <bool kStatus>
+int run(const void* q, const void* k, const void* v, void* out,
+        const int64_t* desc, void* stream) {
+  const int kind = (int)desc[0], vec = (int)desc[1];
+  const int64_t ub = desc[2], groups = desc[3];
+  const Layout g = read_layout(desc);
+  if (kind < kF32 || kind > kWords || (vec && kind == kWords) ||
+      !pow2(ub) || ub > kMaxUnitBlock || !pow2(groups) ||
+      ub * groups > kThreads || g.r1 < 1 || g.r2 < 1 || g.r3 < 1 ||
+      (kStatus && g.sn[3] != 0))
+    return (int)cudaErrorInvalidValue;
+  const void* ptrs[4] = {q, k, v, out};
+  const int64_t elem_bytes = kind == kBF16 ? 2 : 4;
+  if (vec && !vectors_fit(g, ptrs, 16 / elem_bytes, elem_bytes))
+    return (int)cudaErrorMisalignedAddress;
+  if (g.n == 0 || g.c == 0 || g.r1 * g.r2 * g.r3 == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int b = (int)ub, gr = (int)groups;
+  if (kind == kF32)
+    return vec ? launch<kF32, true, kStatus>(q, k, v, out, g, b, gr, s)
+               : launch<kF32, false, kStatus>(q, k, v, out, g, b, gr, s);
+  if (kind == kBF16)
+    return vec ? launch<kBF16, true, kStatus>(q, k, v, out, g, b, gr, s)
+               : launch<kBF16, false, kStatus>(q, k, v, out, g, b, gr, s);
+  return launch<kWords, false, kStatus>(q, k, v, out, g, b, gr, s);
 }
 
 }  // namespace
@@ -125,26 +166,14 @@ int launch(const void* q, const void* k, const void* v, void* out,
 extern "C" int sdsa_or_strided_forward(const void* q, const void* k,
                                        const void* v, void* out,
                                        const int64_t* desc, void* stream) {
-  using namespace sdsa;
-  const int kind = (int)desc[0], vec = (int)desc[1];
-  const int64_t ub = desc[2], groups = desc[3];
-  const Layout g = read_layout(desc);
-  if (kind < kF32 || kind > kWords || (vec && kind == kWords) ||
-      !pow2(ub) || ub > kMaxUnitBlock || !pow2(groups) ||
-      ub * groups > kThreads || g.r1 < 1 || g.r2 < 1 || g.r3 < 1)
-    return (int)cudaErrorInvalidValue;
-  const void* ptrs[4] = {q, k, v, out};
-  const int64_t elem_bytes = kind == kBF16 ? 2 : 4;
-  if (vec && !vectors_fit(g, ptrs, 16 / elem_bytes, elem_bytes))
-    return (int)cudaErrorMisalignedAddress;
-  if (g.n == 0 || g.c == 0 || g.r1 * g.r2 * g.r3 == 0) return 0;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int b = (int)ub, gr = (int)groups;
-  if (kind == kF32)
-    return vec ? launch<kF32, true>(q, k, v, out, g, b, gr, s)
-               : launch<kF32, false>(q, k, v, out, g, b, gr, s);
-  if (kind == kBF16)
-    return vec ? launch<kBF16, true>(q, k, v, out, g, b, gr, s)
-               : launch<kBF16, false>(q, k, v, out, g, b, gr, s);
-  return launch<kWords, false>(q, k, v, out, g, b, gr, s);
+  return sdsa::run<false>(q, k, v, out, desc, stream);
+}
+
+// The status alone: out[row, c] = OR over N of (K AND V). `desc` describes
+// (q, k, v, out) as the OR form does, q as k, and out with token stride 0
+// (its (..., d) status seen as (..., N, d)); q is not read.
+extern "C" int sdsa_status_strided_forward(const void* k, const void* v,
+                                           void* out, const int64_t* desc,
+                                           void* stream) {
+  return sdsa::run<true>(k, k, v, out, desc, stream);
 }

@@ -35,7 +35,8 @@ BUILD_DIR_ENV = "REPRO_TORCH_BUILD_DIR"
 LAUNCHES: Dict[str, int] = {"lif": 0, "lif_counts": 0, "lif_fwd": 0,
                             "lif_counts_fwd": 0, "lif_bwd": 0,
                             "spike_matmul_csr": 0, "spike_matmul_pred": 0,
-                            "sdsa_or": 0, "apec_decompose": 0,
+                            "sdsa_or": 0, "sdsa_status": 0,
+                            "apec_decompose": 0,
                             "apec_matmul_csr": 0, "lif_counts_packed": 0,
                             "spike_matmul_packed_csr": 0,
                             "apec_matmul_packed_csr": 0, "sdsa_causal": 0,
@@ -68,6 +69,7 @@ SIGNATURES = {
     "lif_backward": (_P, _P, _P, _I64, _I64, _F, _F, _I, _F, _F, _P),
     "lif_bf16_backward": (_P, _P, _P, _I64, _I64, _F, _F, _I, _F, _F, _P),
     "sdsa_or_strided_forward": (_P, _P, _P, _P, _P, _P),
+    "sdsa_status_strided_forward": (_P, _P, _P, _P, _P),
     "sdsa_causal_strided_forward": (_P, _P, _P, _P, _P, _P, _P),
     "sdsa_capture_id": (_P, _P),
     "spike_matmul_csr_forward": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64,

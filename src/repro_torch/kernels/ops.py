@@ -101,6 +101,14 @@ def sdsa_or(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return sdsa_or_words(q, k, v, sdsa_kernel.sdsa_packed)
 
 
+def sdsa_status(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Status vector only (decode prefill path): (..., N, d) binary k, v ->
+    (..., d) in k's dtype, OR over N of K AND V: `sdsa_status_spikes`, one
+    launch of the status instance on the card, its plain version on the
+    CPU."""
+    return sdsa_kernel.sdsa_status_spikes(k, v)
+
+
 def sdsa_or_words(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   kernel) -> torch.Tensor:
     """OR-form SDSA on dense binary (..., N, d) tensors through uint32

@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.lif import LIFConfig, lif_scan as _lif_scan_core
+from repro_torch.core.sdsa import kv_status_or
 
 
 def lif_scan_ref(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
@@ -36,6 +37,13 @@ def sdsa_apply_ref(q_packed: torch.Tensor,
 
 def sdsa_packed_ref(q_packed, k_packed, v_packed):
     return sdsa_apply_ref(q_packed, sdsa_status_ref(k_packed, v_packed))
+
+
+def sdsa_unpacked_ref(q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor) -> torch.Tensor:
+    """Cross-check against the dense core implementation (OR form):
+    (..., N, d) spikes x3 -> Q * (max over N of K * V)."""
+    return q * kv_status_or(k, v)[..., None, :]
 
 
 def sdsa_causal_status_ref(kv_packed: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,14 @@ Word entries (the TPU rows' own functions, held by chip_smoke (b) and
 (OR over N of K AND V); `sdsa_causal_status(kv)` returns the prefix-OR
 over the token axis of (BH, N, dw) kv words.
 
+Status entries (TPU row 7's `sdsa_status_pallas` alone, which
+`ops.sdsa_status` reaches): `sdsa_status_spikes(k, v)` takes (..., N, d)
+f32 or bf16 spikes and returns the (..., d) channel mask OR over N of
+(K != 0 AND V != 0) in k's dtype; `sdsa_status_words(k, v)` the (BH, dw)
+words OR over N of K AND V. Both run `csrc/sdsa.cu`'s kernel with its
+status flag (pass 1 and the OR of the token groups, no pass 2) and count
+as `sdsa_status`.
+
 On a CUDA tensor each entry makes one launch of its kernel
 (`csrc/sdsa.cu` counts as `sdsa_or`, `csrc/sdsa_causal.cu` as
 `sdsa_causal`) and raises on what the kernel cannot take; on a CPU tensor
@@ -29,7 +37,7 @@ import math
 import torch
 
 from . import _build
-from .ref import sdsa_causal_status_ref, sdsa_packed_ref
+from .ref import sdsa_causal_status_ref, sdsa_packed_ref, sdsa_status_ref
 
 # The kernels' block geometry (csrc/sdsa_units.cuh, csrc/sdsa_causal.cu;
 # tests/test_torch_sdsa.py reads them back from the sources).
@@ -48,6 +56,15 @@ def sdsa_or_spikes_plain(q: torch.Tensor, k: torch.Tensor,
     """Plain version of `sdsa_or_spikes`: `any` over N."""
     status = ((k != 0) & (v != 0)).any(dim=-2, keepdim=True)
     return ((q != 0) & status).to(q.dtype)
+
+
+def sdsa_status_spikes_plain(k: torch.Tensor,
+                             v: torch.Tensor) -> torch.Tensor:
+    """Plain version of `sdsa_status_spikes`: `any` over N."""
+    return ((k != 0) & (v != 0)).any(dim=-2).to(k.dtype)
+
+
+sdsa_status_words_plain = sdsa_status_ref   # plain version: AND, OR tree
 
 
 def causal_sdsa_spikes_plain(q: torch.Tensor, k: torch.Tensor,
@@ -210,7 +227,9 @@ def _prepared(causal: bool, words: bool, q, k, v, out):
     """(descriptor address, descriptor, look-back flag words) of these
     operands, built once a layout: the shape, every stride, each base's
     16-byte alignment (the vector path) and the dtype decide them. The
-    word status entry describes its (BH, N, dw) words as T = 1."""
+    word status entry describes its (BH, N, dw) words as T = 1; a status
+    `out` comes as its (..., d) status expanded over N (token stride 0)
+    and takes the OR form's plan."""
     key = (causal, words, out.dtype, out.shape, q.stride(), k.stride(),
            v.stride(), out.stride(), q.data_ptr() % 16, k.data_ptr() % 16,
            v.data_ptr() % 16, out.data_ptr() % 16)
@@ -256,6 +275,48 @@ def _launch(causal: bool, q, k, v, out, words: bool = False,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), addr,
             _build.stream()), "sdsa_or")
     return out
+
+
+def _launch_status(k, v, out, words: bool) -> torch.Tensor:
+    """One launch of csrc/sdsa.cu's status-only instance: `out` (..., d)
+    receives OR over N of K AND V."""
+    wide = out.unsqueeze(-2).expand(k.shape)
+    addr, _, _ = _prepared(False, words, k, k, v, wide)
+    _build.LAUNCHES["sdsa_status"] += 1
+    _build.check(_build.library().sdsa_status_strided_forward(
+        k.data_ptr(), v.data_ptr(), out.data_ptr(), addr, _build.stream()),
+        "sdsa_status")
+    return out
+
+
+def sdsa_status_spikes(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(..., N, d) f32 / bf16 spikes x2 -> (..., d) in k's dtype: the
+    channel mask OR over N of (K != 0 AND V != 0), as ones and zeros."""
+    _check_spikes("sdsa_status_spikes", k, v, min_ndim=2)
+    if not k.is_cuda:
+        return sdsa_status_spikes_plain(k, v)
+    _require_card("sdsa_status", k, v)
+    out = torch.empty(k.shape[:-2] + k.shape[-1:], dtype=k.dtype,
+                      device=k.device)
+    if out.numel() == 0 or k.shape[-2] == 0:
+        return out.zero_()
+    return _launch_status(k, v, out, words=False)
+
+
+def sdsa_status_words(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(BH, N, dw) uint32 words x2 -> (BH, dw) uint32: OR over N of K AND
+    V."""
+    if k.shape != v.shape or k.ndim != 3:
+        raise ValueError(f"sdsa_status_words needs two equal (BH, N, dw) "
+                         f"operands, got {k.shape}, {v.shape}")
+    if not k.is_cuda:
+        return sdsa_status_words_plain(k, v)
+    _build.require_cuda("sdsa_status", k, v, dtype=torch.uint32)
+    out = torch.empty((k.shape[0], k.shape[2]), dtype=torch.uint32,
+                      device=k.device)
+    if out.numel() == 0 or k.shape[1] == 0:
+        return out.view(torch.int32).zero_().view(torch.uint32)
+    return _launch_status(k, v, out, words=True)
 
 
 def sdsa_or_spikes(q: torch.Tensor, k: torch.Tensor,

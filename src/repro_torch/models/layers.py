@@ -164,17 +164,25 @@ def mlp_init(d_model: int, d_ff: int, dtype=torch.bfloat16, *,
                                  device=device)}
 
 
-def mlp_apply(p: dict, x: torch.Tensor, spiking: bool,
-              lif_cfg: LIFConfig | None = None) -> torch.Tensor:
-    """SwiGLU in dense mode; in spiking mode (x binary (T, ...)) the hidden
-    drive x @ w_gate + x @ w_up is fired through LIF and down-projected,
-    so every matmul sees binary activations (the LIF threshold stands in
-    for the SiLU gate). The `EventTensor` form of `repro` is not reached
-    from the LM and is not ported."""
+def mlp_apply(p: dict, x, spiking: bool,
+              lif_cfg: LIFConfig | None = None):
+    """SwiGLU in dense mode; spike-gated two-matmul MLP in spiking mode.
+
+    Spiking mode (x binary (T, ...)): the hidden drive x @ w_gate + x @
+    w_up is fired through LIF and down-projected, so every matmul sees
+    binary activations (the LIF threshold stands in for the SiLU gate).
+
+    Full-event mode (x an `EventTensor`): both up-projections read the ONE
+    carried occupancy map through the registry's `spike_matmul`, the
+    hidden fire re-emits its map (`lif_fire_events`, packed words when
+    the input is packed), and the down-projection consumes that map: no
+    occupancy pre-pass inside the block."""
     if isinstance(x, EventTensor):
-        raise NotImplementedError(
-            "mlp_apply on an EventTensor is not ported (the LM passes "
-            "dense spikes)")
+        from repro_torch.kernels import dispatch
+        h = dispatch.spike_matmul(x, p["w_gate"]) + \
+            dispatch.spike_matmul(x, p["w_up"])
+        h = lif_fire_events(h, lif_cfg, packed=x.is_packed)
+        return dispatch.spike_matmul(h, p["w_down"])
     if spiking:
         h = x @ p["w_gate"].to(x.dtype)
         h = h + x @ p["w_up"].to(x.dtype)

@@ -417,7 +417,8 @@ def test_cuda_wrappers_count_each_launch(cuda_device):
     assert launch_counts() == {"lif": 1, "lif_counts": 1, "lif_fwd": 0,
                                "lif_counts_fwd": 0, "lif_bwd": 0,
                                "spike_matmul_csr": 0, "spike_matmul_pred": 0,
-                               "sdsa_or": 0, "apec_decompose": 0,
+                               "sdsa_or": 0, "sdsa_status": 0,
+                               "apec_decompose": 0,
                                "apec_matmul_csr": 0, "lif_counts_packed": 1,
                                "spike_matmul_packed_csr": 0,
                                "apec_matmul_packed_csr": 0, "sdsa_causal": 1,
@@ -598,7 +599,8 @@ def test_cuda_training_wrappers_count_each_launch(cuda_device):
     assert launch_counts() == {"lif": 0, "lif_counts": 0, "lif_fwd": 1,
                                "lif_counts_fwd": 1, "lif_bwd": 1,
                                "spike_matmul_csr": 0, "spike_matmul_pred": 0,
-                               "sdsa_or": 0, "apec_decompose": 0,
+                               "sdsa_or": 0, "sdsa_status": 0,
+                               "apec_decompose": 0,
                                "apec_matmul_csr": 0, "lif_counts_packed": 0,
                                "spike_matmul_packed_csr": 0,
                                "apec_matmul_packed_csr": 0, "sdsa_causal": 0,
@@ -1200,6 +1202,39 @@ def test_cuda_sdsa_spike_entries_match_plain(cuda_device, name, shape,
     assert launch_counts()["sdsa_or"] == 1
     assert got.stride() == q.stride()
     assert torch.equal(got, sdsa_kernel.sdsa_or_spikes_plain(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape,dtype,p,offset", SPIKE_CASES)
+def test_cuda_sdsa_status_entries_match_plain(cuda_device, name, shape,
+                                              dtype, p, offset):
+    """The status-only instance (`ops.sdsa_status`, row 7 alone) on the
+    models' head-transposed K and V views and on their words: one launch
+    each, bit for bit with the plain versions, in k's dtype, contiguous."""
+    g = torch.Generator().manual_seed(len(name) + 1)
+    k, v = (_head_view(g, shape, p ** 0.5, dtype, cuda_device, offset)
+            for _ in range(2))
+    reset_launch_counts()
+    got = ops.sdsa_status(k, v)
+    assert launch_counts()["sdsa_status"] == 1
+    want = sdsa_kernel.sdsa_status_spikes_plain(k, v)
+    assert got.dtype == dtype and got.is_contiguous()
+    assert torch.equal(got, want)
+    n, d = shape[2], shape[4]
+    kw, vw = (pack_spikes_padded(x.contiguous().reshape(-1, n, d))
+              for x in (k, v))
+    words = sdsa_kernel.sdsa_status_words(kw, vw)
+    assert launch_counts()["sdsa_status"] == 2
+    assert torch.equal(words.view(torch.int32),
+                       sdsa_kernel.sdsa_status_words_plain(kw, vw)
+                       .view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_sdsa_status_of_no_tokens_is_zero(cuda_device):
+    k = torch.ones(2, 3, 0, 40, device=cuda_device)
+    assert torch.equal(sdsa_kernel.sdsa_status_spikes(k, k),
+                       torch.zeros(2, 3, 40, device=cuda_device))
 
 
 @pytest.mark.cuda
