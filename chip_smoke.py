@@ -7401,6 +7401,740 @@ def phase_t(torch, device, results, card):
     return totals
 
 
+# ------------------------------------------------------------ phase (u)
+# The mesh on ranks of a process group. On one card every rank shares
+# cuda:0 under `gloo` (NCCL refuses two ranks on one card); (u4) runs the
+# `nccl` path in a group of one rank.
+U_BACKEND = "gloo"
+U_SPAWN_TIMEOUT = 300
+U1_MESH, U2_MESH, U3_MESH = (2, 1), (1, 2), (4, 2)
+U1_LOSS_RTOL = 1e-3
+# (u1) step 0's per-leaf gradient gap (relative L2) between the 2-rank
+# data-parallel step and the one-process step on the same rows, gated at
+# twice the worst leaf read on an NVIDIA H100 80GB HBM3 at 700 W. The
+# ranks' forwards run 2 rows each, the one-process forward 4: other GEMM
+# shapes, and the ranks' bf16 gradients are summed once more: the first
+# card run read 1.573% at `blocks.0.attn.w_v`, with step 0's losses bit
+# for bit (PERF.md). `split_grads` is the witness of that cause.
+U1_GRAD_GAP_LIMIT = 2 * 0.01573
+U_KERNELS = ("lif_fwd_bf16", "lif_bwd_bf16", "sdsa_causal", "lif_bf16")
+DRILL_AXES = ("data", "model")
+
+
+def rank_sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def rank_peak(torch, dev) -> int:
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def rank_free(torch, dev):
+    import gc
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def fingerprint(torch, t, chunk: int = 1 << 26) -> int:
+    """A 64-bit digest of a tensor's bits computed on its device (each
+    16- or 32-bit word times an odd weight of its position, summed mod
+    2^64): two tensors that differ in one bit differ here. Chunked, so a
+    bank of billions of elements needs no host copy."""
+    x = t.detach().contiguous().view(-1)
+    bits = x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+    total = 0
+    for s in range(0, bits.numel(), chunk):
+        b = bits[s:s + chunk].long()
+        w = torch.arange(s, s + b.numel(), device=b.device,
+                         dtype=torch.int64) * 6364136223846793005 \
+            + 1442695040888963407
+        total += int((b * (w | 1)).sum().item())
+    return total % (1 << 64)
+
+
+@contextlib.contextmanager
+def timed_reduces(torch, distributed, dev):
+    """While active, every `distributed.all_reduce_` is timed (the card
+    synchronised before and after) and logged as (bytes, seconds)."""
+    orig = distributed.all_reduce_
+    log: list = []
+
+    def timed(t, *args, **kwargs):
+        rank_sync(torch, dev)
+        t0 = time.perf_counter()
+        out = orig(t, *args, **kwargs)
+        rank_sync(torch, dev)
+        log.append((t.numel() * t.element_size(), time.perf_counter() - t0))
+        return out
+
+    distributed.all_reduce_ = timed
+    try:
+        yield log
+    finally:
+        distributed.all_reduce_ = orig
+
+
+def reduce_summary(log) -> dict:
+    return dict(all_reduces=len(log), all_reduce_bytes=sum(b for b, _ in log),
+                all_reduce_ms=sum(s for _, s in log) * 1e3)
+
+
+@contextlib.contextmanager
+def rank_steps(torch, steps_mod, dev):
+    """While active, each step `make_train_step` returns logs its
+    launches, metrics, host enqueue and span seconds (the card
+    synchronised before it), and the fingerprints of the params and of
+    the gradients AdamW received."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.optim import adamw
+    orig_make, orig_update = steps_mod.make_train_step, adamw.update
+    log: list = []
+    grads_fp: list = []
+
+    def update(grads, *a, **k):
+        grads_fp.append([fingerprint(torch, g) for g in adamw.leaves(grads)])
+        return orig_update(grads, *a, **k)
+
+    def make(*args, **kwargs):
+        step = orig_make(*args, **kwargs)
+
+        def counted(params, opt, batch):
+            rank_sync(torch, dev)
+            before = launch_counts()
+            t0 = time.perf_counter()
+            out = step(params, opt, batch)
+            host = time.perf_counter() - t0
+            rank_sync(torch, dev)
+            span = time.perf_counter() - t0
+            after = launch_counts()
+            log.append(dict(
+                launches={k: after[k] - before[k] for k in after},
+                loss=out[-1]["loss"].item(),
+                grad_norm=out[-1]["grad_norm"].item(),
+                host_s=host, span_s=span,
+                params=[fingerprint(torch, p) for p in adamw.leaves(out[0])]))
+            return out
+        return counted
+
+    steps_mod.make_train_step, adamw.update = make, update
+    try:
+        yield log, grads_fp
+    finally:
+        steps_mod.make_train_step, adamw.update = orig_make, orig_update
+
+
+@contextlib.contextmanager
+def first_update(adamw):
+    """While active, the gradients of the first `adamw.update` call (one
+    step's copy, where `captured_grads` keeps every step's)."""
+    orig, got = adamw.update, []
+
+    def update(grads, *a, **k):
+        if not got:
+            got.extend(g.detach().clone() for g in adamw.leaves(grads))
+        return orig(grads, *a, **k)
+
+    adamw.update = update
+    try:
+        yield got
+    finally:
+        adamw.update = orig
+
+
+def split_grads(torch, cfg, batch, seq, dev) -> list:
+    """(u1)'s witness, on one process: step 0's gradients as the
+    data-parallel step makes them. Each data rank's rows of shard 0's
+    batch give the gradient of the global loss (their token sum over the
+    step's labelled positions) in the leaves' dtypes, and the parts are
+    summed in those dtypes, as the ranks' `all_reduce` sums them."""
+    from repro_torch.data import pipeline, synthetic
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    n = U1_MESH[0]
+    params = lm.init_params(cfg, SEED, device=dev)
+    leaves = adamw.leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    rows = batch // n
+    b = synthetic.lm_batch(SEED, 0, 0, rows, seq, cfg.vocab)
+    per = rows // n
+    terms = [lm.loss_terms(cfg, params, pipeline.device_put_batch(
+        {k: v[i * per:(i + 1) * per] for k, v in b.items()}, dev), True)
+        for i in range(n)]
+    cnt = sum(c.detach().clone() for _, c in terms)
+    total = None
+    for tot, _ in terms:
+        g = torch.autograd.grad(tot / torch.clamp(cnt, min=1.0), leaves,
+                                allow_unused=True, materialize_grads=True)
+        total = list(g) if total is None else \
+            [a + c for a, c in zip(total, g)]
+    return total
+
+
+def u1_rank(cfg, batch, seq, steps) -> dict:
+    """(u1) one rank: rank 0 first runs the one-process `train_loop` (a
+    logical mesh of U1_MESH's shape on its card, one step, the same rows)
+    and keeps its step-0 loss and gradients; then every rank runs
+    `train_loop` over the rank mesh."""
+    import torch
+    from repro_torch.launch import distributed, steps as steps_mod, train
+    from repro_torch.launch.mesh import make_mesh, make_rank_mesh
+    from repro_torch.optim import adamw
+    dev, me = distributed.device(), distributed.rank()
+    out = {"rank": me}
+    kw = dict(batch=batch, seq=seq, seed=SEED, log_every=1)
+    ref_grads = None
+    if me == 0:
+        with first_update(adamw) as got:
+            ref = train.train_loop(cfg, steps=1, device=dev, mesh=make_mesh(
+                U1_MESH, DRILL_AXES, devices=dev), **kw)
+        out["one_process_loss"] = ref["losses"][0]
+        ref_grads = list(got)
+        del ref, got
+        rank_free(torch, dev)
+        witness = split_grads(torch, cfg, batch, seq, dev)
+        rank_free(torch, dev)
+    distributed.barrier()
+    mesh = make_rank_mesh(U1_MESH, DRILL_AXES)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    with rank_steps(torch, steps_mod, dev) as (log, grads_fp), \
+            first_update(adamw) as got, \
+            timed_reduces(torch, distributed, dev) as reduces:
+        res = train.train_loop(cfg, steps=steps, mesh=mesh, **kw)
+    out.update(losses=res["losses"], steps=log, grads_fp=grads_fp,
+               peak_bytes=rank_peak(torch, dev), **reduce_summary(reduces))
+    if ref_grads is not None:
+        names = leaf_names(res["params"])
+        out["grad_gap"] = rel_l2(torch, names, got, ref_grads)
+        out["witness_gap"] = rel_l2(torch, names, witness, ref_grads)
+        out["witness_unequal"] = [n for n, a, w in zip(names, got, witness)
+                                  if not torch.equal(a, w)]
+        out["grads_finite"] = all(bool(torch.isfinite(g).all())
+                                  for g in got)
+    return out
+
+
+def phase_dp_train(torch, device, card):
+    """(u1): TinyLlama-1.1B uncut on a (data 2, model 1) rank mesh of two
+    `gloo` ranks on the card, LM_TRAIN_STEPS AdamW steps at LM_TRAIN_BATCH
+    x LM_TRAIN_SEQ: after every step the params bit for bit across
+    ranks; step 0's loss within U1_LOSS_RTOL of the one-process loop's on
+    the same rows and its per-leaf gradient gap within U1_GRAD_GAP_LIMIT;
+    finite losses and gradients; exact launches a step on every rank; the
+    sum of the ranks' peaks under the card's memory."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import distributed
+    cfg = get_config(LM_ARCH)
+    free_card(torch)
+    t0 = time.perf_counter()
+    ranks = distributed.spawn(
+        u1_rank, U1_MESH[0] * U1_MESH[1], backend=U_BACKEND, device=device,
+        timeout_s=U_SPAWN_TIMEOUT,
+        args=(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS))
+    wall = time.perf_counter() - t0
+    per_step = lm_train_launches(cfg)
+    totals: dict = {}
+    gap = ranks[0]["grad_gap"]
+    worst = max(gap, key=gap.get)
+    for r in ranks:
+        emit("dp_train_rank", card=card, rank=r["rank"], backend=U_BACKEND,
+             mesh=list(U1_MESH), losses=r["losses"],
+             step_span_s=[s["span_s"] for s in r["steps"]],
+             host_enqueue_s=[s["host_s"] for s in r["steps"]],
+             all_reduces=r["all_reduces"],
+             all_reduce_bytes=r["all_reduce_bytes"],
+             all_reduce_ms=r["all_reduce_ms"], peak_bytes=r["peak_bytes"],
+             launches_per_step=per_step)
+        for i, s in enumerate(r["steps"]):
+            lm_launch_check(s["launches"], per_step,
+                            f"(u1) rank {r['rank']} step {i}")
+            for k, v in s["launches"].items():
+                totals[k] = totals.get(k, 0) + v
+            check(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]),
+                  f"(u1) rank {r['rank']} step {i}: loss {s['loss']}, "
+                  f"grad norm {s['grad_norm']}")
+    peaks = sum(r["peak_bytes"] for r in ranks)
+    loss0, ref0 = ranks[0]["losses"][0], ranks[0]["one_process_loss"]
+    emit("dp_train", card=card, arch=cfg.name, ranks=len(ranks),
+         batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, steps=LM_TRAIN_STEPS,
+         wall_s=wall, loss0=loss0, one_process_loss0=ref0,
+         loss0_rel=abs(loss0 - ref0) / abs(ref0), grad_gap_worst=gap[worst],
+         grad_gap_worst_leaf=worst, grad_gap_limit=U1_GRAD_GAP_LIMIT,
+         peak_sum_bytes=peaks)
+    for i in range(LM_TRAIN_STEPS):
+        check(all(r["steps"][i]["params"] == ranks[0]["steps"][i]["params"]
+                  for r in ranks), f"(u1) step {i}: params differ across "
+              f"ranks")
+        check(all(r["grads_fp"][i] == ranks[0]["grads_fp"][i]
+                  for r in ranks), f"(u1) step {i}: summed gradients "
+              f"differ across ranks")
+    check(ranks[0]["grads_finite"], "(u1) step 0 gradients not finite")
+    check(abs(loss0 - ref0) <= U1_LOSS_RTOL * abs(ref0),
+          f"(u1) step 0 loss {loss0} vs one-process {ref0}")
+    # The witness: the ranks' step made on one process, its parts' bf16
+    # gradients summed once more, equals theirs bit for bit, so the gap is
+    # that sum's rounding.
+    wgap = ranks[0]["witness_gap"]
+    emit("dp_train_witness", card=card, unequal_leaves=len(
+        ranks[0]["witness_unequal"]), leaves=len(gap),
+         grad_gap_worst=wgap[max(wgap, key=wgap.get)],
+         grad_gap_worst_leaf=max(wgap, key=wgap.get))
+    check(not ranks[0]["witness_unequal"], f"(u1) the rank step's "
+          f"gradients differ from the witness's at "
+          f"{ranks[0]['witness_unequal'][:3]}")
+    check(gap[worst] <= U1_GRAD_GAP_LIMIT,
+          f"(u1) step 0 gradient gap {gap[worst]} at {worst} over "
+          f"{U1_GRAD_GAP_LIMIT}")
+    check(peaks < CARD_MEMORY_BYTES, f"(u1) ranks' peaks sum to {peaks}")
+    return totals
+
+
+@contextlib.contextmanager
+def first_moe_call(name):
+    """While active, the input and output of the first call of
+    `moe.<name>`, on the CPU."""
+    from repro_torch.models import moe
+    orig = getattr(moe, name)
+    got: list = []
+
+    def kept(p, x, **kw):
+        out = orig(p, x, **kw)
+        if not got:
+            got.extend((x.detach().cpu(), out.detach().cpu()))
+        return out
+
+    setattr(moe, name, kept)
+    try:
+        yield got
+    finally:
+        setattr(moe, name, orig)
+
+
+@contextlib.contextmanager
+def ep_drops(shard_of=None):
+    """While active, each `moe_apply_shard_map` call records the
+    assignments it drops for capacity (`moe.dropped_assignments`; a host
+    read a call): all of them, or with `shard_of(p)` -> (j, e_loc) a model
+    rank's own."""
+    from repro_torch.models import moe
+    orig = moe.moe_apply_shard_map
+    rec: list = []
+
+    def counted(p, x, **kw):
+        rec.append(moe.dropped_assignments(
+            p, x, top_k=kw["top_k"], capacity_factor=kw["capacity_factor"],
+            shard=shard_of(p) if shard_of else None))
+        return orig(p, x, **kw)
+
+    moe.moe_apply_shard_map = counted
+    try:
+        yield rec
+    finally:
+        moe.moe_apply_shard_map = orig
+
+
+@contextlib.contextmanager
+def planted_ep_rounding(m):
+    """(u2)'s witness: while active, `moe_apply` routes, keeps and drops
+    as itself but rounds its combine as the expert-parallel MoE over m
+    model positions does: each position's experts' slots summed into a
+    partial (`_combine` per position, bf16 adds), the partials summed in
+    position order. Its expert GEMMs stay whole: splitting them as each
+    position does changed no bit on an NVIDIA H100 (PERF.md)."""
+    from repro_torch.models import moe
+    orig = moe._combine
+
+    def combine(eo, r, s_loc, top_k):
+        e_loc = eo.shape[0] // m
+        sorted_ids = r.ids.reshape(-1)[r.sort_idx]
+        acc = None
+        for j in range(m):
+            part = orig(eo, r._replace(
+                keep=r.keep & (sorted_ids // e_loc == j)), s_loc, top_k)
+            acc = part if acc is None else acc + part
+        return acc
+
+    moe._combine = combine
+    try:
+        yield
+    finally:
+        moe._combine = orig
+
+
+def u2_rank(cfg, tokens_np) -> dict:
+    """(u2) one rank of the (1, 2) rank mesh: its half of the expert
+    banks (the ranks take turns drawing the whole tree from the seed and
+    keeping their part), then the spiking prefill, twice."""
+    import torch
+    from repro_torch.kernels import dispatch, launch_counts, \
+        reset_launch_counts
+    from repro_torch.launch import distributed
+    from repro_torch.launch.mesh import make_rank_mesh, use_concrete_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding
+    dev, me = distributed.device(), distributed.rank()
+    mesh = make_rank_mesh(U2_MESH, DRILL_AXES)
+    resolved = dispatch.resolved_backends(dev, mesh=mesh)
+    print(f"[u2 rank {me}] dispatch backends on {dev}: " + " ".join(
+        f"{k}={v}" for k, v in resolved.items()), flush=True)
+    whole = lm.abstract_params(cfg)
+    specs = sharding.param_specs(cfg, whole, mesh)
+    for turn in range(distributed.world_size()):
+        if turn == me:
+            full = lm.init_params(cfg, seed=SEED, device=dev)
+            params = sharding.local_params(full, specs, mesh)
+            del full
+            rank_free(torch, dev)
+        distributed.barrier()
+    sliced = sharding.sliced_leaves(whole, specs, mesh)
+    leaves = adamw.leaves(params)
+    banks = [fingerprint(torch, t) for t, s in zip(leaves, sliced) if s]
+    bank_shapes = [list(t.shape) for t, s in zip(leaves, sliced) if s]
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    tokens = torch.from_numpy(tokens_np).long().to(dev)
+    j, m = mesh.coords()["model"], mesh.shape["model"]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    with torch.inference_mode(), use_concrete_mesh(mesh):
+        reset_launch_counts()
+        rank_sync(torch, dev)
+        t0 = time.perf_counter()
+        with first_moe_call("moe_apply_shard_map") as layer0:
+            logits = lm.prefill(cfg, params, tokens, True)
+        rank_sync(torch, dev)
+        first_s = time.perf_counter() - t0
+        counts = launch_counts()
+        with timed_reduces(torch, distributed, dev) as reduces:
+            t0 = time.perf_counter()
+            again = lm.prefill(cfg, params, tokens, True)
+            rank_sync(torch, dev)
+            span_s = time.perf_counter() - t0
+        with ep_drops(lambda p: (j, p["w_gate"].shape[0])) as drops:
+            lm.prefill(cfg, params, tokens, True)
+    return dict(rank=me, j=j, model=m, resolved=resolved,
+                logits=logits.float().cpu(), repeats=bool(
+                    torch.equal(again, logits)), launches=counts,
+                dropped=drops, layer0=layer0, first_prefill_s=first_s,
+                prefill_span_s=span_s, bank_fingerprints=banks,
+                bank_shapes=bank_shapes, param_bytes=param_bytes,
+                peak_bytes=rank_peak(torch, dev), **reduce_summary(reduces))
+
+
+def phase_ep_prefill(torch, device, card):
+    """(u2): qwen2-moe-a2.7b uncut with `moe_shard_map=True` on a (data 1,
+    model 2) rank mesh of two `gloo` ranks on the card, each holding 30
+    routed experts a layer: the spiking prefill of MOE_BATCH x MOE_PROMPT
+    tokens bit for bit with the one-process logical-mesh form; the first
+    MoE layer on the same input within 2^-7 * max|ref| of `moe_apply`'s
+    ((o1)'s: the two sums of the expert partials round apart in bf16),
+    the logits' distance to `moe_apply`'s printed (the later layers'
+    fires flip on those roundings); the dropped assignments of every
+    layer equal to the logical form's and layer 0's to `moe_apply`'s;
+    the witness, `moe_apply` with the EP combine's rounding planted
+    (`planted_ep_rounding`), equal to the rank form in logits and drops;
+    each rank's banks exactly its half of the seed's, exact launches,
+    the same routes on every rank."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import markov_tokens
+    from repro_torch.launch import distributed
+    from repro_torch.launch.mesh import make_mesh, use_concrete_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding
+    base = get_config(MOE_ARCH)
+    cfg = base.replace(moe_shard_map=True)
+    free_card(torch)
+    tokens_np = markov_tokens(SEED, 0, 0, MOE_BATCH, MOE_PROMPT,
+                              base.vocab)[:, :MOE_PROMPT]
+    params = lm.init_params(cfg, seed=SEED, device=device)
+    tokens = torch.from_numpy(tokens_np).long().to(device)
+    logical = make_mesh(U2_MESH, DRILL_AXES, devices=device)
+    with torch.inference_mode():
+        with moe_drops(torch) as drops, first_moe_call("moe_apply") as layer0:
+            ref = lm.prefill(base, params, tokens, True)
+        with use_concrete_mesh(logical), ep_drops() as logical_drops:
+            want = lm.prefill(cfg, params, tokens, True)
+        with planted_ep_rounding(U2_MESH[1]), moe_drops(torch) as w_drops:
+            witness = lm.prefill(base, params, tokens, True)
+    whole = lm.abstract_params(cfg)
+    specs = sharding.param_specs(cfg, whole, logical)
+    sliced = sharding.sliced_leaves(whole, specs, logical)
+    m = U2_MESH[1]
+    halves = []
+    for j in range(m):
+        halves.append([fingerprint(torch, t.narrow(
+            1, j * (t.shape[1] // m), t.shape[1] // m))
+            for t, s in zip(adamw.leaves(params), sliced) if s])
+    ref_drops = [d for d, _ in drops]
+    assignments = sum(n for _, n in drops)
+    ref, want = ref.float().cpu(), want.float().cpu()
+    witness, w_drops = witness.float().cpu(), [d for d, _ in w_drops]
+    del params
+    free_card(torch)
+    t0 = time.perf_counter()
+    ranks = distributed.spawn(u2_rank, m, backend=U_BACKEND, device=device,
+                              timeout_s=U_SPAWN_TIMEOUT,
+                              args=(cfg, tokens_np))
+    wall = time.perf_counter() - t0
+    scale = ref.abs().max().item()
+    x0, y0 = layer0
+    y0_scale = y0.float().abs().max().item()
+    totals: dict = {}
+    for r in ranks:
+        err = (r["logits"] - ref).abs().max().item()
+        rx0, ry0 = r["layer0"]
+        y0_err = (ry0.float() - y0.float()).abs().max().item()
+        emit("ep_prefill_rank", card=card, rank=r["rank"], model=r["j"],
+             backend=U_BACKEND, first_prefill_s=r["first_prefill_s"],
+             prefill_span_s=r["prefill_span_s"],
+             all_reduces=r["all_reduces"],
+             all_reduce_bytes=r["all_reduce_bytes"],
+             all_reduce_ms=r["all_reduce_ms"], peak_bytes=r["peak_bytes"],
+             param_bytes=r["param_bytes"], bank_shapes=r["bank_shapes"][:1],
+             dropped=sum(r["dropped"]), max_abs_dlogits_moe_apply=err,
+             layer0_max_abs_dout=y0_err, layer0_max_out=y0_scale,
+             launches={k: v for k, v in r["launches"].items() if v})
+        lm_launch_check(r["launches"], MOE_PREFILL_LAUNCHES,
+                        f"(u2) rank {r['rank']} prefill")
+        for k, v in r["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+        check(r["repeats"], f"(u2) rank {r['rank']}: prefill does not "
+              f"repeat bit for bit")
+        check(torch.equal(r["logits"], want), f"(u2) rank {r['rank']}: "
+              f"logits differ from the one-process logical-mesh form by "
+              f"{(r['logits'] - want).abs().max().item()}")
+        check(torch.equal(rx0, x0), f"(u2) rank {r['rank']}: the first MoE "
+              f"layer's input differs from moe_apply's")
+        check(y0_err <= 2.0 ** -7 * y0_scale, f"(u2) rank {r['rank']}: the "
+              f"first MoE layer's output {y0_err} from moe_apply's (max "
+              f"{y0_scale})")
+        check(r["bank_fingerprints"] == halves[r["j"]],
+              f"(u2) rank {r['rank']}: its banks are not model half "
+              f"{r['j']} of the seed's")
+        check(r["resolved"] == ranks[0]["resolved"],
+              f"(u2) rank {r['rank']} resolved other routes")
+    # Per MoE layer: the ranks' own drops summed. Layer 0 routes the same
+    # rows in all three forms; from layer 1 on the rows carry the combine's
+    # rounding, which the logical form shares bit for bit and moe_apply's
+    # one sum over the k slots does not.
+    dropped = [sum(x) for x in zip(*(r["dropped"] for r in ranks))]
+    emit("ep_prefill", card=card, arch=cfg.name, batch=MOE_BATCH,
+         tokens=MOE_PROMPT, ranks=m, wall_s=wall, dropped=sum(dropped),
+         logical_dropped=sum(logical_drops),
+         moe_apply_dropped=sum(ref_drops), assignments=assignments,
+         dropped_by_layer=dropped, moe_apply_dropped_by_layer=ref_drops,
+         max_abs_dlogits_logical=(ranks[0]["logits"] - want).abs().max()
+         .item(), max_ref=scale,
+         peak_sum_bytes=sum(r["peak_bytes"] for r in ranks))
+    check(dropped == logical_drops, f"(u2) dropped {dropped} != the "
+          f"logical form's {logical_drops}")
+    # The witness: `moe_apply` with the EP form's rounding planted lands on
+    # the rank form's logits and drops, so what parts them from
+    # `moe_apply`'s is that rounding.
+    emit("ep_prefill_witness", card=card,
+         max_abs_dlogits_logical=(witness - want).abs().max().item(),
+         max_abs_dlogits_moe_apply=(witness - ref).abs().max().item(),
+         dropped=sum(w_drops))
+    check(torch.equal(witness, want), "(u2) moe_apply with the EP combine's "
+          "rounding planted differs from the rank form's logits")
+    check(w_drops == dropped, f"(u2) moe_apply with the EP combine's "
+          f"rounding planted dropped {w_drops}, the rank form {dropped}")
+    check(dropped[0] == ref_drops[0], f"(u2) layer 0 dropped {dropped[0]} "
+          f"!= moe_apply's {ref_drops[0]}")
+    return totals
+
+
+def u3_drill_rank(cfg, mesh_shape, ck_dir, resume) -> dict:
+    """(u3) one rank: the healthy drill saving at 3, 6 and 9 (rank 0
+    writes), or the restore onto the shrunk mesh and the resumed steps."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data import synthetic
+    from repro_torch.launch import distributed
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import elastic
+    dev = distributed.device()
+    mesh = make_rank_mesh(mesh_shape, DRILL_AXES)
+    batches = [synthetic.lm_batch(0, 0, t, 8, 16, cfg.vocab)
+               for t in range(DRILL_STEPS)]
+    params = lm.init_params(cfg, seed=0, device=dev)
+    fresh = (params, adamw.init(params, adamw.AdamWConfig(lr=1e-2)))
+    mgr = CheckpointManager(ck_dir, save_every=DRILL_SAVE_EVERY,
+                            writer=mesh.rank == 0)
+    if not resume:
+        losses = rank_drill_loop(cfg, mesh, *fresh, batches, 0,
+                                 DRILL_STEPS, mgr)
+        return {"losses": losses}
+    step, (p, o) = elastic.reshard_restore(cfg, mgr, fresh, mesh)
+    losses = rank_drill_loop(cfg, mesh, p, o, batches, step, DRILL_STEPS) \
+        if step is not None else []
+    return {"step": step, "losses": losses}
+
+
+def rank_drill_loop(cfg, mesh, params, opt, batches, start, stop, mgr=None):
+    """`drill_loop` on a rank mesh: each data rank its slice of the same
+    global batches, and rank 0 writing the gathered tree at each save,
+    the ranks meeting after it."""
+    from repro_torch.data import pipeline
+    from repro_torch.launch import distributed, steps as steps_mod, train
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw, schedule as sched
+    from repro_torch.runtime import sharding
+    step_fn = steps_mod.make_train_step(
+        cfg, adamw.AdamWConfig(lr=1e-2), functools.partial(
+            sched.warmup_cosine, warmup_steps=2, total_steps=DRILL_STEPS),
+        spiking=False, mesh=mesh)
+    whole = lm.abstract_params(cfg)
+    specs = sharding.state_specs(sharding.param_specs(cfg, whole, mesh))
+    losses = []
+    for t in range(start, stop):
+        rows = train.rank_rows(batches[t]["tokens"].shape[0], mesh)
+        batch = {k: v[rows] for k, v in batches[t].items()}
+        params, opt, metrics = step_fn(
+            params, opt, pipeline.device_put_batch(batch, mesh.device))
+        losses.append(float(metrics["loss"]))
+        if mgr and mgr.should_save(t + 1):
+            mgr.save(t + 1, leaves=sharding.full_leaves((params, opt), specs,
+                                                        mesh))
+            mgr.wait()
+            distributed.barrier()
+    return losses
+
+
+def phase_rank_drill(torch, device, card):
+    """(u3): the reference's elastic drill (its `drill` config, dense) on
+    a (4, 2) rank mesh of 8 `gloo` ranks on the card saving at 3, 6 and
+    9; step 9's snapshot torn; `reshard_restore` onto the (2, 2) mesh of
+    4 ranks walks back to step 6 on every rank and the resumed losses
+    track the healthy run within DRILL_TOL."""
+    import shutil
+    import tempfile
+    from repro_torch.configs.base import LMConfig, SpikingConfig
+    from repro_torch.launch import distributed
+    from repro_torch.runtime import elastic, faults
+    cfg = LMConfig(name="drill", family="dense", n_layers=2, d_model=32,
+                   n_heads=4, n_kv_heads=2, d_ff=64, vocab=64,
+                   spiking=SpikingConfig(t_steps=1), remat="none",
+                   loss_chunk=16)
+    plan = elastic.shrunk_mesh(U3_MESH, DRILL_AXES, n_failed_data_groups=2)
+    free_card(torch)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rank_drill_")
+    try:
+        t0 = time.perf_counter()
+        healthy = distributed.spawn(
+            u3_drill_rank, U3_MESH[0] * U3_MESH[1], backend=U_BACKEND,
+            device=device, timeout_s=U_SPAWN_TIMEOUT,
+            args=(cfg, U3_MESH, tmp, False))
+        healthy_s = time.perf_counter() - t0
+        saved = sorted(os.listdir(tmp))
+        faults.truncate_checkpoint(os.path.join(tmp, "step_000000009"))
+        t0 = time.perf_counter()
+        resumed = distributed.spawn(
+            u3_drill_rank, plan.mesh_shape[0] * plan.mesh_shape[1],
+            backend=U_BACKEND, device=device, timeout_s=U_SPAWN_TIMEOUT,
+            args=(cfg, plan.mesh_shape, tmp, True))
+        resumed_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    h = healthy[0]["losses"]
+    emit("rank_drill", card=card, backend=U_BACKEND, mesh=list(U3_MESH),
+         shrunk=list(plan.mesh_shape), saved=saved, healthy=h,
+         restored_steps=[r["step"] for r in resumed],
+         resumed=resumed[0]["losses"], healthy_s=healthy_s,
+         resumed_s=resumed_s)
+    check(all(r["losses"] == h for r in healthy),
+          "(u3) healthy losses differ across ranks")
+    check(saved == ["step_000000003", "step_000000006", "step_000000009"],
+          f"(u3) saved {saved}")
+    check(all(r["step"] == 6 for r in resumed),
+          f"(u3) restored {[r['step'] for r in resumed]}, not step 6")
+    for r in resumed:
+        check(len(r["losses"]) == 4 and all(
+            math.isfinite(v) and abs(v - x) <= DRILL_TOL * (1 + abs(x))
+            for v, x in zip(r["losses"], h[6:])),
+            f"(u3) resumed {r['losses']} off healthy {h[6:]}")
+
+
+def phase_nccl_rank(torch, device, card):
+    """(u4): (u1)'s first step at TinyLlama-1.1B width in a one-rank
+    `nccl` group on the card (the step's all-reduces run NCCL's one-rank
+    path): its loss and every param bit for bit with the
+    non-distributed step's, from the same draw and rows."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import pipeline, synthetic
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import distributed, steps as steps_mod
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw, schedule as sched
+    cfg = get_config(LM_ARCH)
+    free_card(torch)
+    rows = LM_TRAIN_BATCH // U1_MESH[0]
+    batch = pipeline.device_put_batch(synthetic.lm_batch(
+        SEED, 0, 0, rows, LM_TRAIN_SEQ, cfg.vocab), device)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, state_dtype=cfg.opt_state_dtype)
+    schedule = functools.partial(sched.warmup_cosine, warmup_steps=2,
+                                 total_steps=LM_TRAIN_STEPS)
+
+    def one_step(mesh):
+        params = lm.init_params(cfg, SEED, device=device)
+        opt = adamw.init(params, opt_cfg)
+        step = steps_mod.make_train_step(cfg, opt_cfg, schedule,
+                                         spiking=True, mesh=mesh)
+        reset_launch_counts()
+        params, opt, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        fps = [fingerprint(torch, p) for p in adamw.leaves(params)]
+        loss = metrics["loss"].clone()
+        del params, opt, metrics
+        free_card(torch)
+        return loss, fps, counts
+
+    plain_loss, plain_fps, plain_counts = one_step(None)
+    t0 = time.perf_counter()
+    with distributed.single_rank("nccl", device) as dev:
+        check(dev == device, f"(u4) the nccl rank runs on {dev}")
+        mesh = make_rank_mesh((1, 1), DRILL_AXES)
+        with timed_reduces(torch, distributed, dev) as reduces:
+            loss, fps, counts = one_step(mesh)
+    wall = time.perf_counter() - t0
+    emit("nccl_rank", card=card, backend="nccl", loss=loss.item(),
+         plain_loss=plain_loss.item(), params_equal=fps == plain_fps,
+         wall_s=wall, launches={k: v for k, v in counts.items() if v},
+         **reduce_summary(reduces))
+    lm_launch_check(counts, lm_train_launches(cfg), "(u4) nccl step")
+    check(reduces and torch.equal(loss, plain_loss),
+          f"(u4) loss {loss.item()} vs {plain_loss.item()}")
+    check(fps == plain_fps, "(u4) params differ from the plain step's")
+    check(counts == plain_counts, "(u4) launches differ from the plain "
+          "step's")
+    return counts
+
+
+def phase_u(torch, device, card):
+    """(u) the mesh on ranks of a process group: data-parallel training,
+    expert-parallel MoE prefill, the elastic drill across ranks, and one
+    `nccl` rank."""
+    totals: dict = {}
+    for name, fn in (("u1_dp_train", phase_dp_train),
+                     ("u2_ep_prefill", phase_ep_prefill),
+                     ("u3_rank_drill", phase_rank_drill),
+                     ("u4_nccl_rank", phase_nccl_rank)):
+        t0 = time.perf_counter()
+        counts = fn(torch, device, card) or {}
+        emit("phase_time", name=name, seconds=time.perf_counter() - t0,
+             launches={k: v for k, v in counts.items() if v})
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7495,6 +8229,12 @@ def main() -> int:
     # 12 / 14 and 4 / 6.
     for name, n in timed("t_cnn_train_examples", phase_t, torch, device,
                          results, card).items():
+        totals[name] = totals.get(name, 0) + n
+    # Ranks of a process group on the card: the data-parallel TinyLlama
+    # steps launch rows 2 and 3 bf16 and row 9 on every rank, the
+    # expert-parallel qwen2-moe prefill row 1 bf16 and row 9, the nccl
+    # rank's step rows 2, 3 bf16 and 9 (counted inside the ranks).
+    for name, n in timed("u_ranks", phase_u, torch, device, card).items():
         totals[name] = totals.get(name, 0) + n
     emit("phase_time", name="total", seconds=time.perf_counter() - t_start)
     kernels = []

@@ -93,11 +93,16 @@ def _decode(arr: np.ndarray, name: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def save(directory: str, step: int, tree: Any,
-         wait: bool = True) -> threading.Thread:
+def save(directory: str, step: int, tree: Any = None,
+         wait: bool = True, *, leaves=None) -> threading.Thread:
     """Write a checkpoint. wait=False returns once every leaf is copied to
-    host memory, and writes on a thread (async save)."""
-    host = [_host(leaf) for leaf in _flatten(tree)]   # copy before async
+    host memory, and writes on a thread (async save). `leaves` in place
+    of `tree`: its leaves in `_flatten` order as an iterable, each copied
+    to host memory as it comes (a leaf made for the save, such as a
+    gathered expert bank, is then freed before the next is made)."""
+    if leaves is None:
+        leaves = _flatten(tree)
+    host = [_host(leaf) for leaf in leaves]   # copy before async
     ckpt_dir = os.path.join(directory, f"step_{step:09d}")
     tmp_dir = ckpt_dir + ".tmp"
 
@@ -154,10 +159,14 @@ def is_committed(ckpt_dir: str) -> bool:
     return os.path.exists(os.path.join(ckpt_dir, _COMMIT))
 
 
-def restore(ckpt_dir: str, target_tree: Any, device=None) -> Any:
+def restore(ckpt_dir: str, target_tree: Any, device=None,
+            cuts: Optional[list] = None) -> Any:
     """Load into the structure of `target_tree`: fresh tensors in the
     stored dtypes, on `device` (None: each target leaf's own device, the
-    CPU for a non-tensor leaf).
+    CPU for a non-tensor leaf). The target's leaves give shapes alone,
+    so `meta` tensors will do. `cuts`: per leaf in `_flatten` order, a
+    function applied to the whole leaf on the host before it moves to
+    `device` (a rank's part of it), or None to keep it whole.
 
     Raises on checksum mismatch, truncation, or structural drift: every
     corruption mode surfaces as one of `CORRUPTION_ERRORS`, never a
@@ -171,7 +180,9 @@ def restore(ckpt_dir: str, target_tree: Any, device=None) -> Any:
             f"checkpoint has {len(manifest['leaves'])} leaves, target has "
             f"{len(leaves)}: structure drift")
     out = []
-    for i, (meta, tgt) in enumerate(zip(manifest["leaves"], leaves)):
+    cuts = cuts if cuts is not None else [None] * len(leaves)
+    for i, (meta, tgt, cut) in enumerate(zip(manifest["leaves"], leaves,
+                                             cuts)):
         path = os.path.join(ckpt_dir, meta["file"])
         expected_bytes = meta.get("nbytes")
         if expected_bytes is not None \
@@ -194,6 +205,8 @@ def restore(ckpt_dir: str, target_tree: Any, device=None) -> Any:
             raise ValueError(
                 f"leaf {i} shape {tuple(value.shape)} != target "
                 f"{tuple(np.shape(tgt))}")
+        if cut is not None:
+            value = cut(value)
         dev = device if device is not None else (
             tgt.device if isinstance(tgt, torch.Tensor) else "cpu")
         out.append(value.to(dev))

@@ -1,5 +1,10 @@
 """Rolling checkpoint manager: retention, auto-resume, corruption skip;
-the port of `repro.checkpoint.manager`."""
+the port of `repro.checkpoint.manager`.
+
+Across the ranks of a process group one rank writes (`writer=True` on
+rank 0 alone; the others' `save` does nothing) and every rank reads:
+`restore_latest(group=)` has the ranks agree on one step, walking back
+past a snapshot that any of them cannot read."""
 from __future__ import annotations
 
 import os
@@ -15,11 +20,13 @@ _STEP_RE = re.compile(r"^step_(\d{9})$")
 
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3,
-                 save_every: int = 100, async_save: bool = True):
+                 save_every: int = 100, async_save: bool = True,
+                 writer: bool = True):
         self.dir = directory
         self.keep = keep
         self.save_every = save_every
         self.async_save = async_save
+        self.writer = writer
         self._pending: Optional[threading.Thread] = None
         os.makedirs(directory, exist_ok=True)
 
@@ -40,13 +47,21 @@ class CheckpointManager:
     def should_save(self, step: int) -> bool:
         return step > 0 and step % self.save_every == 0
 
-    def save(self, step: int, tree: Any):
+    def save(self, step: int, tree: Any = None, *, leaves=None):
+        """Save `tree`, or the iterable `leaves` of one in checkpoint
+        order (`checkpointer.save`). A rank that does not write still
+        walks `leaves` to its end: every rank takes part in the gather
+        that makes each leaf (`runtime.sharding.full_leaves`)."""
+        if not self.writer:
+            for _ in leaves or ():
+                pass
+            return
         self.wait()     # never overlap two saves
         # gc BEFORE launching the async write (must not race the new .tmp
         # dir); trim to keep-1 so the incoming checkpoint lands at `keep`.
         self._gc(reserve=1)
         self._pending = checkpointer.save(
-            self.dir, step, tree, wait=not self.async_save)
+            self.dir, step, tree, wait=not self.async_save, leaves=leaves)
 
     def wait(self):
         if self._pending is not None:
@@ -66,19 +81,56 @@ class CheckpointManager:
                           ignore_errors=True)
 
     # ------------------------------------------------------------ restore
-    def restore_latest(self, target_tree: Any, device=None,
+    def _restore(self, step: int, target_tree: Any, device, cuts=None):
+        """The tree of `step`, or None where it is corrupt (logged)."""
+        path = os.path.join(self.dir, f"step_{step:09d}")
+        try:
+            return checkpointer.restore(path, target_tree, device, cuts)
+        except checkpointer.CORRUPTION_ERRORS as e:   # corrupt -> older
+            print(f"[ckpt] skipping step {step}: {e}")
+            return None
+
+    def restore_latest(self, target_tree: Any, device=None, *, group=None,
+                       cuts: Optional[list] = None,
                        ) -> tuple[Optional[int], Any]:
         """Walk newest-first to the newest VALID snapshot; any corruption
         (a truncated, byte-flipped or vanished leaf, a mangled manifest:
         `checkpointer.CORRUPTION_ERRORS`) skips to an older checkpoint,
         logged, never fatal. The tree is fresh tensors on `device` (see
         `checkpointer.restore`); with no valid snapshot, (None,
-        target_tree)."""
-        for step in reversed(self.steps()):
-            path = os.path.join(self.dir, f"step_{step:09d}")
-            try:
-                tree = checkpointer.restore(path, target_tree, device)
-                return step, tree
-            except checkpointer.CORRUPTION_ERRORS as e:  # corrupt -> older
-                print(f"[ckpt] skipping step {step}: {e}")
-        return None, target_tree
+        target_tree). `cuts`: per leaf, what of it to keep
+        (`checkpointer.restore`).
+
+        `group` (a process group, or `torch.distributed.group.WORLD`):
+        every rank of it calls this, and all take the same step: the
+        oldest of the ranks' newest valid snapshots, walking back further
+        while any rank cannot read the agreed one."""
+        if group is None:
+            for step in reversed(self.steps()):
+                tree = self._restore(step, target_tree, device, cuts)
+                if tree is not None:
+                    return step, tree
+            return None, target_tree
+        from repro_torch.launch import distributed
+        import torch.distributed as dist
+        below = None
+        while True:
+            step, tree = None, None
+            for s in reversed(self.steps()):
+                if below is not None and s >= below:
+                    continue
+                tree = self._restore(s, target_tree, device, cuts)
+                if tree is not None:
+                    step = s
+                    break
+            agreed = distributed.reduce_int(
+                -1 if step is None else step, group, dist.ReduceOp.MIN)
+            if agreed < 0:
+                return None, target_tree
+            if agreed != step:
+                tree = self._restore(agreed, target_tree, device, cuts)
+            ok = distributed.reduce_int(int(tree is not None), group,
+                                        dist.ReduceOp.MIN)
+            if ok:
+                return agreed, tree
+            below = agreed

@@ -15,6 +15,7 @@ Every C entry point returns `cudaGetLastError()` after its launch, and
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -145,7 +146,11 @@ def _sources_key(sources, csrc: Path) -> str:
 def build(verbose: bool = False, csrc: Path = CSRC) -> Path:
     """Compile every source of `csrc` (one `nvcc` per file, all started
     together), link one shared library, and return its path. Reuses a
-    library built from identical sources."""
+    library built from identical sources. Processes that ask for the same
+    build (the ranks of a process group) take turns on a file lock beside
+    the build directory: the first builds, the others then find the
+    library. The lock is the kernel's (`fcntl`): it goes with a process
+    that dies, so no stale lock survives a cut-off build."""
     sources = sorted(csrc.glob("*.cu"))
     out_dir = build_dir() / _sources_key(sources, csrc)
     lib_path = out_dir / "librepro_torch_kernels.so"
@@ -153,6 +158,19 @@ def build(verbose: bool = False, csrc: Path = CSRC) -> Path:
         BUILD_INFO.update(path=str(lib_path), seconds=0.0, cached=True)
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir.parent / (out_dir.name + ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if lib_path.exists():          # built while this one waited
+                BUILD_INFO.update(path=str(lib_path), seconds=0.0,
+                                  cached=True)
+                return lib_path
+            return _compile(sources, out_dir, lib_path, verbose)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _compile(sources, out_dir: Path, lib_path: Path, verbose: bool) -> Path:
     nvcc = _nvcc()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:

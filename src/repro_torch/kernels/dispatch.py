@@ -471,11 +471,16 @@ def ambient_mesh():
 def data_shard_count(mesh) -> int:
     """Number of data shards the row axis splits over: the product of the
     batch-parallel (`pod`, `data`) axes; the `model` axis shards features
-    and heads, never event rows. Ints pass through; no mesh -> 1."""
+    and heads, never event rows. Ints pass through; no mesh -> 1. A rank
+    mesh (`launch.mesh.RankMesh`) counts 1: each rank's tensors already
+    are its own shard."""
     if mesh is None:
         return 1
     if isinstance(mesh, int):
         return max(1, mesh)
+    from repro_torch.launch.mesh import RankMesh
+    if isinstance(mesh, RankMesh):
+        return 1
     shape = getattr(mesh, "shape", None)
     if hasattr(shape, "get"):
         n = 1

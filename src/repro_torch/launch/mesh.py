@@ -10,9 +10,15 @@ per-shard executor: it splits the leading row axis into contiguous equal
 slices, runs the body on each slice on its position's device, and
 concatenates the results in shard order on the caller's device.
 
-Multi-process placement (`torch.distributed`, tensor-parallel or FSDP
-parameter placement, a multi-pod mesh) is not here yet:
-`MULTI_PROCESS_ITEM` names its ROADMAP entry.
+A `RankMesh` (`make_rank_mesh`) is the other kind: its positions are the
+ranks of a `torch.distributed` process group (`launch.distributed`), one
+process each, row-major as JAX lays devices out. Each rank holds its own
+data shard's rows and its own slice of the expert banks; `axis_group`
+gives the sub-group over which a rank reduces along one axis. The
+data-parallel training step, the expert-parallel MoE and the elastic
+restore run over it. What is still missing (tensor-parallel and FSDP
+placement of the other leaves, pure FSDP, sharded event ops on their own
+ranks, a multi-pod mesh) is `MULTI_PROCESS_ITEM`.
 
 The hardware constants below are the roofline denominators of the port,
 one NVIDIA H100 SXM (NVIDIA H100 80GB HBM3, 700 W), from NVIDIA's H100
@@ -33,7 +39,14 @@ PEAK_FLOPS_TF32 = 495e12        # FLOP/s, TF32 tensor cores, dense
 HBM_BW = 3.35e12                # bytes/s, HBM3
 NVLINK_BW_PER_CARD = 900e9      # bytes/s, NVLink 4, all 18 links of a card
 
-MULTI_PROCESS_ITEM = "ROADMAP queue 1 item 8b (multi-card placement)"
+MULTI_PROCESS_ITEM = ("ROADMAP queue 1 item 8b (tensor-parallel and FSDP "
+                      "placement, pure FSDP, sharded event ops on their own "
+                      "ranks, the multi-pod mesh, an MoE whose tokens a "
+                      "data rank's rows cut)")
+# What a one-process mesh over several distinct devices is told to use.
+RANK_MESH_HINT = ("run one process a device over a process group instead: "
+                  "launch.mesh.make_rank_mesh (launch.distributed.spawn or "
+                  "torchrun)")
 
 
 class Mesh:
@@ -141,15 +154,98 @@ def make_host_mesh(model: int = 1, *, device="cuda") -> Mesh:
     return make_mesh((n // model, model), ("data", "model"), devices=devs)
 
 
+class RankMesh(Mesh):
+    """A mesh whose positions are the ranks of the process group, one
+    process each, in row-major order. `rank` and `device` are this
+    process's; `devices` is None (a rank knows no other rank's device).
+    `axis_group(axis)` is the sub-group of the ranks that share every
+    other coordinate with this one."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 rank: int, device: torch.device, groups: Dict[str, object]):
+        super().__init__(shape, axis_names, None)
+        self.rank = rank
+        self.device = device
+        self._groups = groups
+
+    def coords(self, rank: Optional[int] = None) -> Dict[str, int]:
+        """Axis name -> coordinate of `rank` (this rank by default)."""
+        r = self.rank if rank is None else rank
+        idx = np.unravel_index(r, tuple(self.shape.values()))
+        return dict(zip(self.axis_names, (int(i) for i in idx)))
+
+    def axis_group(self, axis: str):
+        """The process group of the ranks along `axis` through this one."""
+        return self._groups[axis]
+
+    def shard_devices(self, axes: Sequence[str]):
+        raise NotImplementedError(
+            f"a rank mesh runs one shard a process; sharded event ops on "
+            f"their own ranks are not ported yet ({MULTI_PROCESS_ITEM})")
+
+    def __repr__(self) -> str:
+        return f"RankMesh({self.shape}, rank {self.rank} on {self.device})"
+
+
+def make_rank_mesh(shape: Sequence[int], axes: Sequence[str]) -> RankMesh:
+    """The mesh of `shape` over `axes` whose positions are the ranks of the
+    initialized process group (`launch.distributed.init`): prod(shape)
+    must equal the world size. Every rank must call it, with the same
+    arguments: each axis's sub-groups are created by every rank in the
+    same order (`torch.distributed.new_group` is collective), or the
+    ranks deadlock."""
+    import torch.distributed as dist
+    from repro_torch.launch import distributed
+    if not distributed.is_initialized():
+        raise RuntimeError("a rank mesh needs an initialized process group "
+                           "(launch.distributed.init or spawn)")
+    shape = tuple(int(n) for n in shape)
+    axes = tuple(axes)
+    world = distributed.world_size()
+    if math.prod(shape) != world:
+        raise ValueError(f"a mesh of shape {shape} needs {math.prod(shape)} "
+                         f"ranks, the group has {world}")
+    me = distributed.rank()
+    grid = np.arange(world).reshape(shape)
+    groups: Dict[str, object] = {}
+    for i, axis in enumerate(axes):
+        # Every line of ranks along `axis`, in one fixed order.
+        lines = np.moveaxis(grid, i, -1).reshape(-1, shape[i])
+        for line in lines:
+            ranks = [int(r) for r in line]
+            g = dist.new_group(ranks)
+            if me in ranks:
+                groups[axis] = g
+    return RankMesh(shape, axes, me, distributed.device(), groups)
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The single-host (data, model) mesh over the visible cards. The
-    reference's multi-pod (pod, data, model) mesh spans several hosts,
-    which one process cannot drive: it raises."""
+    """With a process group initialized, the (data, model) rank mesh of
+    its ranks, all on `data` (every rank must call it); otherwise the
+    single-host (data, model) mesh over the visible cards. The
+    reference's multi-pod (pod, data, model) mesh spans several hosts:
+    it raises."""
     if multi_pod:
         raise NotImplementedError(
-            f"a multi-pod mesh spans several hosts, which the "
-            f"single-controller port cannot drive ({MULTI_PROCESS_ITEM})")
+            f"a multi-pod mesh spans several hosts, which the port cannot "
+            f"drive yet ({MULTI_PROCESS_ITEM})")
+    from repro_torch.launch import distributed
+    if distributed.is_initialized():
+        return make_rank_mesh((distributed.world_size(), 1),
+                              ("data", "model"))
     return make_host_mesh()
+
+
+def refuse_distinct_devices(mesh: Mesh, what: str) -> None:
+    """Raise where a one-process (logical) mesh spans several devices:
+    `what` needs a rank mesh there."""
+    if isinstance(mesh, RankMesh):
+        return
+    devices = mesh.distinct_devices()
+    if len(devices) > 1:
+        raise NotImplementedError(
+            f"{what} over a one-process mesh of {len(devices)} devices is "
+            f"not supported: {RANK_MESH_HINT}")
 
 
 def use_concrete_mesh(mesh: Optional[Mesh]):

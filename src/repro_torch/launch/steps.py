@@ -4,8 +4,12 @@ and the bucketed prefill that admits a request.
 Each closes over the config and returns a plain function on tensors
 (there is no jit cache to share: the same function object serves every
 caller). With `mesh=` each resolves its kernels mesh-aware
-(`_under_mesh`); the mesh steers resolution only, and placing params or
-slots on several cards is `launch.mesh.MULTI_PROCESS_ITEM`.
+(`_under_mesh`), and the mesh is the ambient one an expert-parallel MoE
+reads. On a one-process mesh it steers resolution only. On a rank mesh
+(`launch.mesh.RankMesh`) the training step is data-parallel: the loss
+is the global one over every data rank's rows, and the gradients are
+summed over the `data` group (see `make_train_step`). Placing params
+beyond the expert banks is `launch.mesh.MULTI_PROCESS_ITEM`.
 """
 from __future__ import annotations
 
@@ -60,11 +64,30 @@ def make_train_step(
     axis 0, their f32 gradients and losses are summed in order and
     divided by m. `metrics` holds `loss` and `grad_norm` as device
     tensors: nothing is read to the host inside the step. `mesh`: the
-    step resolves its kernels mesh-aware (`_under_mesh`)."""
+    step resolves its kernels mesh-aware (`_under_mesh`).
+
+    On a rank mesh each rank passes its own rows and its `local_params`
+    tree. Each microbatch's loss is divided by its labelled positions
+    summed over the `data` group (labels of -1 make counts differ by
+    rank), so the gradients summed over that group are those of the
+    global loss; `metrics["loss"]` is that global loss. The clip's
+    global norm counts a replicated leaf once and sums an expert bank's
+    squares over the `model` group. Collectives: `all_reduce` alone."""
     if opt_cfg is None:
         opt_cfg = adamw.AdamWConfig(state_dtype=cfg.opt_state_dtype)
     spk = cfg.spiking.enabled if spiking is None else spiking
     m = max(1, cfg.microbatches)
+    from repro_torch.launch.mesh import RankMesh
+    ranked = isinstance(mesh, RankMesh)
+    if ranked:
+        from repro_torch.launch import distributed
+        data_group = mesh.axis_group("data") if "data" in mesh.shape \
+            else None
+        sliced: list = []            # per leaf: an expert bank's slice?
+
+    def data_sum(t):
+        return distributed.all_reduce_(t, data_group) \
+            if data_group is not None else t
 
     def grads_of(params, batch):
         leaves = adamw.leaves(params)
@@ -73,6 +96,14 @@ def make_train_step(
                 p.requires_grad_(True)
 
         def one(mb):
+            if ranked:
+                tot, cnt = lm.loss_terms(cfg, params, mb, spk)
+                cnt = data_sum(cnt.detach().clone())
+                loss = tot / torch.clamp(cnt, min=1.0)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
+                return data_sum(tot.detach().clone()) / \
+                    torch.clamp(cnt, min=1.0), grads
             loss = lm.loss_fn(cfg, params, mb, spk)
             # a leaf the mode never reads (qk-norm scales under SDSA) gets
             # zeros, as jax.grad gives it
@@ -92,17 +123,47 @@ def make_train_step(
                 loss = loss + l_i
                 grads = [a + g for a, g in zip(grads, g_i)]
             loss, grads = loss / m, [g / m for g in grads]
+        if ranked:
+            grads = [data_sum(g) for g in grads]
         return loss, adamw.unflatten(params, grads)
+
+    def norm_of(params, grads):
+        """The clip's global norm: `adamw.global_norm` off a rank mesh;
+        on one, the replicated leaves' squares plus the expert banks'
+        summed over the `model` group."""
+        if not ranked:
+            return adamw.global_norm(grads)
+        if not sliced:
+            # the specs of the whole tree: a rank's own banks may no
+            # longer divide the model axis
+            from repro_torch.runtime import sharding
+            whole = lm.abstract_params(cfg)
+            sliced.extend(sharding.sliced_leaves(
+                whole, sharding.param_specs(cfg, whole, mesh), mesh))
+        flat = adamw.leaves(grads)
+        rep = [g for g, s in zip(flat, sliced) if not s]
+        own = [g for g, s in zip(flat, sliced) if s]
+        sq = sum(torch.sum(torch.square(x.float())) for x in rep)
+        if own:
+            sq = sq + distributed.all_reduce_(
+                sum(torch.sum(torch.square(x.float())) for x in own),
+                mesh.axis_group("model"))
+        return torch.sqrt(sq)
 
     if not grad_compression:
         def train_step(params, opt_state, batch):
             loss, grads = grads_of(params, batch)
+            gnorm = norm_of(params, grads)
             lr_scale = schedule_fn(opt_state.step)
             new_params, new_opt = adamw.update(grads, opt_state, params,
-                                               opt_cfg, lr_scale)
-            metrics = {"loss": loss, "grad_norm": adamw.global_norm(grads)}
+                                               opt_cfg, lr_scale, gnorm)
+            metrics = {"loss": loss, "grad_norm": gnorm}
             return new_params, new_opt, metrics
         return _under_mesh(train_step, mesh)
+    if ranked:
+        raise NotImplementedError(
+            "gradient compression over a rank mesh is not ported "
+            "(the data-parallel step sums uncompressed gradients)")
 
     def train_step_ef(params, opt_state, ef_state, batch):
         loss, grads = grads_of(params, batch)

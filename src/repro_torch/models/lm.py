@@ -301,6 +301,32 @@ def active_param_count(cfg: LMConfig) -> int:
     return int(total - experts * (1 - active_frac))
 
 
+def refuse_rank_cut(cfg: LMConfig, mesh, spiking: bool) -> None:
+    """Raise where a rank mesh would run another MoE than the one-process
+    model (the reference's): `moe_apply` over ranks (its dispatch groups
+    span the global rows, and a `model` rank holds part of the banks), or,
+    over `data` ranks, a spiking MoE whose fires scan the flattened
+    tokens as their time axis (T > 1, or shared experts), which a rank
+    cuts at its own rows. Nothing is refused off a rank mesh."""
+    from repro_torch.launch.mesh import MULTI_PROCESS_ITEM, RankMesh
+    if cfg.moe is None or not isinstance(mesh, RankMesh):
+        return
+    n_data = mesh.shape.get("pod", 1) * mesh.shape.get("data", 1)
+    if not cfg.moe_shard_map and mesh.size > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: moe_apply over a rank mesh {dict(mesh.shape)} is "
+            f"not the one-process MoE; set moe_shard_map=True (the "
+            f"expert-parallel MoE, capacity per data shard as the "
+            f"reference's)")
+    if n_data > 1 and spiking and (cfg.spiking.t_steps > 1
+                                   or cfg.moe.n_shared):
+        raise NotImplementedError(
+            f"{cfg.name}: a spiking MoE with T={cfg.spiking.t_steps} and "
+            f"{cfg.moe.n_shared} shared experts over {n_data} data ranks: "
+            f"its fires scan the flattened tokens, which a rank cuts at "
+            f"its own rows ({MULTI_PROCESS_ITEM})")
+
+
 # -------------------------------------------------------- full sequence
 def _ffn(cfg: LMConfig, spec: BlockSpec, p: dict, x: torch.Tensor,
          spiking: bool, decode: bool = False) -> torch.Tensor:
@@ -318,8 +344,12 @@ def _ffn(cfg: LMConfig, spec: BlockSpec, p: dict, x: torch.Tensor,
               spiking=spiking, lif_cfg=lif)
     if decode:
         h = h[..., None, :]
+    # the ambient mesh, as the reference reads `current_mesh()`
+    from repro_torch.launch.mesh import current_mesh
+    mesh = current_mesh()
+    refuse_rank_cut(cfg, mesh, spiking)
     if cfg.moe_shard_map:
-        out = moe_lib.moe_apply_shard_map(p["moe"], h, **kw)
+        out = moe_lib.moe_apply_shard_map(p["moe"], h, mesh=mesh, **kw)
     else:
         # the reference's decode routes one group, whatever the config
         groups = 1 if decode else cfg.moe_dispatch_groups
@@ -583,6 +613,15 @@ def chunked_ce_loss(hidden: torch.Tensor, w_head: torch.Tensor,
     sequence chunks, each recomputed in the backward (memory = chunk x
     vocab). Labels below 0 carry no loss. A chunk that does not divide N
     falls back to one chunk of N (tiny shapes)."""
+    tot, cnt = chunked_ce_terms(hidden, w_head, labels, chunk)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def chunked_ce_terms(hidden: torch.Tensor, w_head: torch.Tensor,
+                     labels: torch.Tensor, chunk: int):
+    """`chunked_ce_loss`'s two sums, f32 scalars: the labelled positions'
+    lse - target and their count (a data-parallel step divides the sum
+    of the first over its ranks by the sum of the second)."""
     b, n, d = hidden.shape
     if n % chunk:
         chunk = n
@@ -599,7 +638,7 @@ def chunked_ce_loss(hidden: torch.Tensor, w_head: torch.Tensor,
             s, c = _ce_chunk(h_c[i], w_head, l_c[i])
         tot = tot + s
         cnt = cnt + c
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot, cnt
 
 
 def loss_fn(cfg: LMConfig, params: dict, batch: Dict[str, torch.Tensor],
@@ -607,6 +646,14 @@ def loss_fn(cfg: LMConfig, params: dict, batch: Dict[str, torch.Tensor],
     """Mean next-token cross-entropy of `batch` {"tokens", "labels"}, both
     (B, N) integers, and an optional "frontend" (B, F, D): a VLM's
     prepended frontend positions carry no loss (their labels are -1)."""
+    tot, cnt = loss_terms(cfg, params, batch, spiking)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_terms(cfg: LMConfig, params: dict, batch: Dict[str, torch.Tensor],
+               spiking: bool):
+    """`loss_fn`'s (sum of the labelled positions' losses, their count),
+    f32 scalars (`chunked_ce_terms`)."""
     if cfg.pure_fsdp:
         raise NotImplementedError(
             f"{cfg.name}: pure_fsdp (the per-layer weight gather of a "
@@ -617,8 +664,8 @@ def loss_fn(cfg: LMConfig, params: dict, batch: Dict[str, torch.Tensor],
     if cfg.n_frontend_tokens and "frontend" in batch:
         pad = labels.new_full((labels.shape[0], cfg.n_frontend_tokens), -1)
         labels = torch.cat([pad, labels], dim=1)
-    return chunked_ce_loss(hidden, params["lm_head"], labels,
-                           cfg.loss_chunk)
+    return chunked_ce_terms(hidden, params["lm_head"], labels,
+                            cfg.loss_chunk)
 
 
 # ---------------------------------------------------------------- serving

@@ -35,8 +35,8 @@ from repro_torch.core.lif import LIFConfig
 from repro_torch.launch.mesh import MULTI_PROCESS_ITEM
 from .layers import bank_init, dense_init, lif_fire, mlp_apply, mlp_init
 
-# What a mesh still needs here (expert-parallel dispatch over a `model`
-# axis, the weight gathers of pure FSDP): multi-card placement.
+# What a mesh still needs here (the weight gathers of pure FSDP, placement
+# beyond the expert banks): the rest of ROADMAP queue 1 item 8b.
 MESH_ITEM = MULTI_PROCESS_ITEM
 
 
@@ -95,11 +95,14 @@ class Routing(NamedTuple):
 
 
 def route(router: torch.Tensor, xl: torch.Tensor, *, top_k: int,
-          capacity: int, e_bank: int, normalize_weights: bool = True
-          ) -> Routing:
+          capacity: int, e_bank: int, normalize_weights: bool = True,
+          shard: Optional[tuple] = None) -> Routing:
     """Top-k routing of the tokens xl (s, d) and their rank-within-expert
     capacity check. A dropped slot's `dest` is the sink row
-    ``e_bank * capacity`` past the buffer."""
+    ``e_bank * capacity`` past the buffer. `shard` (j, e_loc): keep only
+    the slots of experts ``[j * e_loc, (j + 1) * e_loc)`` (the reference's
+    `mine` mask), with `dest` a row of that shard's bank of `e_loc`
+    experts (`e_bank` is then ignored)."""
     e = router.shape[-1]
     with _ieee_f32():
         logits = xl.float() @ router.float()
@@ -116,8 +119,14 @@ def route(router: torch.Tensor, xl: torch.Tensor, *, top_k: int,
     rank = torch.arange(sorted_ids.numel(), device=xl.device) \
         - starts[sorted_ids]
     keep = rank < capacity
-    dest = torch.where(keep, sorted_ids * capacity + rank,
-                       torch.full_like(rank, e_bank * capacity))
+    if shard is None:
+        dest = torch.where(keep, sorted_ids * capacity + rank,
+                           torch.full_like(rank, e_bank * capacity))
+    else:
+        j, e_loc = shard
+        keep = keep & (sorted_ids // e_loc == j)         # my experts only
+        dest = torch.where(keep, (sorted_ids % e_loc) * capacity + rank,
+                           torch.full_like(rank, e_loc * capacity))
     return Routing(ids, weights, sort_idx, sort_idx // top_k, dest, keep)
 
 
@@ -207,31 +216,152 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
     return combined.reshape(orig_shape)
 
 
+class _ModelCopy(torch.autograd.Function):
+    """Identity forward; the backward sums the cotangent over the `model`
+    group: a replicated operand (the input rows, the router) whose
+    cotangent each model rank holds only its own experts' part of."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.launch import distributed
+        return distributed.all_reduce_(g.contiguous().clone(),
+                                       ctx.group), None
+
+
+class _ModelSum(torch.autograd.Function):
+    """The EP combine: the partial outputs summed over the `model` group
+    (`all_reduce`); the backward passes the output cotangent through, as
+    every model rank holds the whole of it."""
+
+    @staticmethod
+    def forward(ctx, partial, group):
+        from repro_torch.launch import distributed
+        return distributed.all_reduce_(partial.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _ep_block(xl: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
+              wu: torch.Tensor, wd: torch.Tensor, *, j: int, e_loc: int,
+              top_k: int, capacity: int, normalize_weights: bool,
+              spiking: bool, lif_cfg: Optional[LIFConfig]) -> torch.Tensor:
+    """The reference's shard_map `block` for model position j: route the
+    rows xl (s_loc, d) on the whole router, keep the slots of the j-th
+    `e_loc` experts, run those experts' FFNs on their banks (wg, wu, wd:
+    e_loc experts each) and combine into this position's partial output
+    (s_loc, d) in xl's dtype."""
+    s_loc = xl.shape[0]
+    r = route(router, xl, top_k=top_k, capacity=capacity, e_bank=e_loc,
+              normalize_weights=normalize_weights, shard=(j, e_loc))
+    expert_in = _dispatch(xl, r, e_loc, capacity)
+    h = torch.bmm(expert_in, wg.to(xl.dtype))
+    u = torch.bmm(expert_in, wu.to(xl.dtype))
+    if spiking:
+        h = lif_fire((h + u)[None], lif_cfg)[0]
+    else:
+        h = torch.nn.functional.silu(h.float()).to(xl.dtype) * u
+    eo = torch.bmm(h, wd.to(xl.dtype))
+    return _combine(eo, r, s_loc, top_k)
+
+
 def moe_apply_shard_map(p: dict, x: torch.Tensor, *, top_k: int,
                         capacity_factor: float = 1.25,
                         normalize_weights: bool = True,
                         spiking: bool = False,
                         lif_cfg: Optional[LIFConfig] = None,
                         mesh=None) -> torch.Tensor:
-    """The manual expert-parallel MoE (each model shard runs its own
-    experts, one sum over the shards). Without a mesh it is `moe_apply`
-    with one dispatch group, as the reference's is without a `model`
-    axis. Over a mesh each `model` shard would hold its own experts on
-    its own card, which the single-controller port does not place yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"expert-parallel MoE over a device mesh is not ported yet "
-            f"({MESH_ITEM})")
-    return moe_apply(p, x, top_k=top_k, capacity_factor=capacity_factor,
-                     normalize_weights=normalize_weights, spiking=spiking,
-                     lif_cfg=lif_cfg)
+    """The manual expert-parallel MoE, the reference's
+    `moe_apply_shard_map`: every `model` position holds every token of its
+    data shard, keeps the slots routed to its own `e_loc` experts, runs
+    their FFNs, and the partial outputs are summed over `model`; the
+    shared experts run outside, on every token.
+
+    `mesh` None or without a `model` axis (or not a `launch.mesh.Mesh`):
+    `moe_apply` with one dispatch group. On a rank mesh
+    (`launch.mesh.RankMesh`) this process is one model position: x holds
+    its data shard's rows (capacity from them), the banks are its own
+    `local_params` slice (or the whole bank, sliced here), and the sum is
+    an `all_reduce` over `axis_group("model")` whose backward passes the
+    cotangent through; the input rows' and the router's cotangents are
+    summed over the same group, so the gradients are `moe_apply`'s. On a
+    one-process mesh the same block runs once per data shard and model
+    position, the partials summed in position order (the yardstick of the
+    rank form, bit for bit with it on two ranks)."""
+    from repro_torch.launch.mesh import Mesh, RankMesh, \
+        refuse_distinct_devices
+    kw = dict(top_k=top_k, normalize_weights=normalize_weights,
+              spiking=spiking, lif_cfg=lif_cfg)
+    if not isinstance(mesh, Mesh) or "model" not in mesh.shape:
+        return moe_apply(p, x, capacity_factor=capacity_factor, **kw)
+    refuse_distinct_devices(mesh, "expert-parallel MoE")
+    orig_shape = x.shape
+    d = x.shape[-1]
+    xt = x.reshape(-1, d)
+    s = xt.shape[0]
+    e = p["router"].shape[-1]
+    m = mesh.shape["model"]
+    rank_mesh = isinstance(mesh, RankMesh)
+    names = ("w_gate", "w_up", "w_down")
+    # A bank narrower than the router is a rank's `local_params` slice; a
+    # whole bank is cut here, rows [j * e_loc, (j + 1) * e_loc).
+    local = rank_mesh and p["w_gate"].shape[0] < e
+    if not local and p["w_gate"].shape[0] % m:
+        raise ValueError(f"{p['w_gate'].shape[0]} experts do not split "
+                         f"over model={m}")
+    e_loc = p["w_gate"].shape[0] // (1 if local else m)
+
+    def banks(j):
+        return tuple(p[k] if local else p[k][j * e_loc:(j + 1) * e_loc]
+                     for k in names)
+    if rank_mesh:
+        n_b, j0 = 1, mesh.coords()["model"]
+    else:
+        n_b = 1
+        for a in ("pod", "data"):
+            n_b *= mesh.shape.get(a, 1)
+        if s % n_b:
+            raise ValueError(f"{s} rows do not split into {n_b} data "
+                             f"shards")
+    s_loc = s // n_b
+    capacity = capacity_of(s_loc, top_k, e, capacity_factor)
+    if rank_mesh:
+        group = mesh.axis_group("model")
+        xl = _ModelCopy.apply(xt, group)
+        router = _ModelCopy.apply(p["router"], group)
+        partial = _ep_block(xl, router, *banks(j0), j=j0, e_loc=e_loc,
+                            capacity=capacity, **kw)
+        out = _ModelSum.apply(partial, group)
+    else:
+        outs = []
+        for xl in xt.reshape(n_b, s_loc, d):
+            acc = None
+            for j in range(m):
+                part = _ep_block(xl, p["router"], *banks(j), j=j,
+                                 e_loc=e_loc, capacity=capacity, **kw)
+                acc = part if acc is None else acc + part
+            outs.append(acc)
+        out = torch.cat(outs)
+    if "shared" in p:
+        out = out + mlp_apply(p["shared"], xt, spiking=spiking,
+                              lif_cfg=lif_cfg).reshape(s, d)
+    return out.reshape(orig_shape)
 
 
 def dropped_assignments(p: dict, x: torch.Tensor, *, top_k: int,
                         capacity_factor: float = 1.25,
-                        dispatch_groups: int = 1) -> int:
+                        dispatch_groups: int = 1,
+                        shard: Optional[tuple] = None) -> int:
     """How many (token, expert) assignments `moe_apply` on x drops for
-    capacity (a host read; for reports, not on the model's path)."""
+    capacity (a host read; for reports, not on the model's path).
+    `shard` (j, e_loc): only those to experts [j * e_loc, (j + 1) *
+    e_loc), one model rank's share of the expert-parallel MoE's drops."""
     d = x.shape[-1]
     xt = x.reshape(-1, d)
     g = max(1, dispatch_groups)
@@ -240,9 +370,16 @@ def dropped_assignments(p: dict, x: torch.Tensor, *, top_k: int,
     s_loc = xt.shape[0] // g
     capacity = capacity_of(s_loc, top_k, p["router"].shape[-1],
                            capacity_factor)
-    return sum(int((~route(p["router"], xl, top_k=top_k, capacity=capacity,
-                           e_bank=p["w_gate"].shape[0]).keep).sum())
-               for xl in xt.reshape(g, s_loc, d))
+    total = 0
+    for xl in xt.reshape(g, s_loc, d):
+        r = route(p["router"], xl, top_k=top_k, capacity=capacity,
+                  e_bank=p["w_gate"].shape[0])
+        dropped = ~r.keep
+        if shard is not None:
+            j, e_loc = shard
+            dropped &= r.ids.reshape(-1)[r.sort_idx] // e_loc == j
+        total += int(dropped.sum())
+    return total
 
 
 def aux_load_balance_loss(logits: torch.Tensor, ids: torch.Tensor,

@@ -91,11 +91,15 @@ def global_norm(tree: Any) -> torch.Tensor:
 @torch.no_grad()
 def update(grads: Any, state: AdamWState, params: Any,
            cfg: AdamWConfig = AdamWConfig(),
-           lr_scale: torch.Tensor | float = 1.0) -> Tuple[Any, AdamWState]:
+           lr_scale: torch.Tensor | float = 1.0,
+           gnorm: torch.Tensor | None = None) -> Tuple[Any, AdamWState]:
     """Returns (params, new_state), with params and moments updated in
-    place. lr_scale: schedule multiplier."""
+    place. lr_scale: schedule multiplier. `gnorm`: the clip's global norm
+    where `grads` is one rank's part of a larger tree (a data-parallel
+    step over expert-parallel banks); None takes `global_norm(grads)`."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     clip = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                        max=1.0)
     b1c = 1.0 - cfg.b1 ** step.float()

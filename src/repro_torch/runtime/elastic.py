@@ -10,6 +10,11 @@ hosts have failed: the `model` axis is kept (tensor-parallel
 divisibility) and the `data` axis shrinks, so the global batch per step
 is kept by raising the microbatch count (the plan's `microbatch_scale`).
 This recovers the `dropped_shard` fault class (`runtime.faults`).
+
+Onto a rank mesh (`launch.mesh.RankMesh`) every rank restores the same
+snapshot (`CheckpointManager.restore_latest(group=)`) onto its own
+device, each leaf cut to the rank's part of it as it is read
+(`sharding.leaf_cuts`), so no whole expert bank reaches the device.
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ from typing import Any, Optional, Tuple
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import LMConfig
-from repro_torch.launch.mesh import MULTI_PROCESS_ITEM, Mesh
+from repro_torch.launch.mesh import Mesh, RankMesh, refuse_distinct_devices
 from . import sharding
 
 
@@ -53,18 +58,25 @@ def reshard_restore(cfg: LMConfig, mgr: CheckpointManager,
     than the one that saved it is fine): (step, tree), or (None,
     target_tree) when no snapshot is valid. The param specs of the new
     mesh are computed and validated; the tree is restored onto the
-    mesh's device. A mesh over several cards raises: placing shards on
-    them is `MULTI_PROCESS_ITEM`."""
-    devices = new_mesh.distinct_devices()
-    if len(devices) != 1:
-        raise NotImplementedError(
-            f"restoring onto a mesh over {len(devices)} devices needs "
-            f"multi-card placement ({MULTI_PROCESS_ITEM})")
-    params = target_tree[0] if isinstance(target_tree, tuple) \
-        else target_tree
+    mesh's device. On a rank mesh every rank calls this: all restore the
+    same step, each onto its own device, and keep their `local_params`
+    part of it. The target tree is the whole one, and its leaves give
+    shapes alone (`meta` tensors will do). A one-process mesh over
+    several devices raises, naming the rank mesh."""
+    refuse_distinct_devices(new_mesh, "restoring")
+    pair = isinstance(target_tree, tuple) and not hasattr(target_tree,
+                                                          "_fields")
+    params = target_tree[0] if pair else target_tree
     specs = sharding.param_specs(cfg, params, new_mesh)
     problems = sharding.validate_specs(params, specs, new_mesh)
     if problems:
         raise ValueError(f"param specs do not fit {new_mesh}: "
                          f"{problems[:3]}")
-    return mgr.restore_latest(target_tree, devices[0])
+    if not isinstance(new_mesh, RankMesh):
+        return mgr.restore_latest(target_tree,
+                                  new_mesh.distinct_devices()[0])
+    import torch.distributed as dist
+    tree_specs = sharding.state_specs(specs) if pair else specs
+    return mgr.restore_latest(
+        target_tree, new_mesh.device, group=dist.group.WORLD,
+        cuts=sharding.leaf_cuts(target_tree, tree_specs, new_mesh))

@@ -11,17 +11,23 @@ shard heads; stacked block params get a leading None. A spec is a
 `PartitionSpec`: a tuple with one entry per dim, each an axis name, a
 tuple of axis names, or None.
 
-The port is single-controller: `named` and `replicated` return placement
-descriptors that record a spec against a mesh, and nothing here moves a
-tensor to act on them yet (multi-card placement is
-`launch.mesh.MULTI_PROCESS_ITEM`). What runs per shard today is the event
-execution: `event_op_sharded` splits a matmul-form op's rows over the
+`named` and `replicated` return placement descriptors that record a spec
+against a mesh. On a rank mesh (`launch.mesh.RankMesh`) one kind of spec
+is placed: `local_params` keeps each rank's slice of the expert banks
+that `param_specs` puts on `model` (expert parallelism) and replicates
+every other leaf; `full_leaves` gathers the full tree back and
+`leaf_cuts` cuts it again, one leaf at a time, as a checkpoint is
+written and read. The tensor-parallel and FSDP specs of the other leaves
+are still recorded and not placed (`launch.mesh.MULTI_PROCESS_ITEM`).
+What runs per shard on a one-process mesh is the event execution:
+`event_op_sharded` splits a matmul-form op's rows over the
 batch-parallel axes and launches the resolved kernel once per shard, on
 that shard's slice and work list.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import warnings
 from typing import Any, Dict, Optional, Tuple
@@ -326,6 +332,133 @@ def validate_specs(abstract_tree: Any, spec_tree: Any, mesh: Mesh) -> list:
             if leaf.shape[dim] < size:
                 problems.append((path, tuple(leaf.shape), dim, ax, size))
     return problems
+
+
+# ------------------------------------------- expert banks on a rank mesh
+EXPERT_BANKS = ("w_gate", "w_up", "w_down")
+
+
+def _bank_dim(path: Tuple[str, ...], spec) -> Optional[int]:
+    """The expert dim of an MoE expert bank that `spec` puts on `model`
+    alone (expert parallelism), else None."""
+    if len(path) < 2 or path[-1] not in EXPERT_BANKS or path[-2] != "moe":
+        return None                     # (a shared expert's MLP is not)
+    dim = 1 if "blocks" in path else 0
+    return dim if len(spec) > dim and spec[dim] == "model" else None
+
+
+def _zip_specs(fn, tree, specs, path: Tuple[str, ...] = ()):
+    """`fn(path, leaf, spec)` over a tree and its matching spec tree (a
+    `PartitionSpec` is a leaf of the spec tree)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _zip_specs(fn, v, specs[k], path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_zip_specs(fn, v, sp, path + (f,))
+                            for f, v, sp in zip(tree._fields, tree, specs)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip_specs(fn, v, sp, path + (str(i),))
+                          for i, (v, sp) in enumerate(zip(tree, specs)))
+    return fn(path, tree, specs)
+
+
+def state_specs(param_spec_tree: Any) -> Any:
+    """The specs of a (params, `AdamWState`) training state: the moments
+    as their params, the step replicated."""
+    from repro_torch.optim.adamw import AdamWState
+    return (param_spec_tree, AdamWState(step=P(), mu=param_spec_tree,
+                                        nu=param_spec_tree))
+
+
+def _cut_of(path: Tuple[str, ...], spec, mesh, rank: Optional[int] = None):
+    """The function that cuts the whole leaf at `path` to rank `rank`'s
+    part of it (its model rows of an expert bank, a copy), or None for a
+    replicated leaf."""
+    m = mesh.shape.get("model", 1)
+    dim = _bank_dim(path, spec) if m > 1 else None
+    if dim is None:
+        return None
+    j = mesh.coords(rank)["model"]
+
+    def cut(leaf: torch.Tensor) -> torch.Tensor:
+        if leaf.shape[dim] % m:
+            raise ValueError(f"{'.'.join(path)}: {leaf.shape[dim]} experts "
+                             f"do not split over model={m}")
+        e_loc = leaf.shape[dim] // m
+        return leaf.narrow(dim, j * e_loc, e_loc).clone()
+    return cut
+
+
+def local_params(tree: Any, specs: Any, mesh, rank: Optional[int] = None
+                 ) -> Any:
+    """Rank `rank`'s part of `tree` (params, or any tree of their shape
+    such as a training state with `state_specs`) on a rank mesh: of each
+    expert bank whose spec puts its expert dim on `model`, rows ``[j *
+    e_loc, (j + 1) * e_loc)`` for the rank's model coordinate j (a copy,
+    so the full bank can be freed); every other leaf as it is
+    (replicated). The tensor-parallel and FSDP specs of the other leaves
+    are not placed."""
+    def one(path, leaf, spec):
+        cut = _cut_of(path, spec, mesh, rank)
+        return leaf if cut is None else cut(leaf)
+    return _zip_specs(one, tree, specs)
+
+
+def leaf_cuts(tree: Any, specs: Any, mesh) -> list:
+    """Per leaf of the whole tree `tree`, in `optim.adamw.leaves` order
+    (a checkpoint's): the function that cuts it to this rank's
+    `local_params` part, or None where the leaf is replicated. A restore
+    applies each as its leaf is read, so no whole bank reaches the
+    device."""
+    from repro_torch.optim.adamw import leaves
+    return leaves(_zip_specs(lambda path, leaf, spec: _cut_of(path, spec,
+                                                              mesh),
+                             tree, specs))
+
+
+def sliced_leaves(tree: Any, specs: Any, mesh) -> list:
+    """Per leaf of `tree`, in `optim.adamw.leaves` order (dict keys
+    sorted): whether `local_params` slices it on `mesh`."""
+    m = mesh.shape.get("model", 1)
+    flags = _zip_specs(lambda path, leaf, spec: m > 1 and
+                       _bank_dim(path, spec) is not None, tree, specs)
+    from repro_torch.optim.adamw import leaves
+    return list(leaves(flags))
+
+
+def _whole(path: Tuple[str, ...], leaf: torch.Tensor, spec, mesh
+           ) -> torch.Tensor:
+    """`leaf` gathered whole along the `model` group where it is a sliced
+    expert bank (an `all_reduce` into a zeroed bank with this rank's rows
+    filled), else `leaf` itself."""
+    from repro_torch.launch import distributed
+    m = mesh.shape.get("model", 1)
+    dim = _bank_dim(path, spec) if m > 1 else None
+    if dim is None:
+        return leaf
+    e_loc = leaf.shape[dim]
+    shape = list(leaf.shape)
+    shape[dim] = e_loc * m
+    full = leaf.new_zeros(shape)
+    full.narrow(dim, mesh.coords()["model"] * e_loc, e_loc).copy_(leaf)
+    return distributed.all_reduce_(full, mesh.axis_group("model"))
+
+
+def full_leaves(tree: Any, specs: Any, mesh):
+    """The inverse of `local_params` on the rank mesh `mesh`, one leaf at
+    a time in `optim.adamw.leaves` order (a checkpoint's): each sliced
+    expert bank gathered whole along the `model` group when it is
+    reached, every other leaf as it is. A rank holds one whole bank
+    beyond its own part at a time. Every rank of the mesh walks it to its
+    end, in the same order."""
+    from repro_torch.optim.adamw import leaves
+    for gather in leaves(_zip_specs(
+            lambda path, leaf, spec: functools.partial(_whole, path, leaf,
+                                                       spec, mesh),
+            tree, specs)):
+        yield gather()
 
 
 # ----------------------------------------------- event ops under the mesh

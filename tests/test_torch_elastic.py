@@ -107,14 +107,27 @@ def test_elastic_drill_walks_back_past_a_torn_snapshot(tmp_path):
 
 
 def test_reshard_restore_refuses_a_mesh_over_two_devices(tmp_path):
+    """A one-process mesh over two devices raises, naming the rank mesh;
+    a logical mesh on one device and a rank mesh (here the one rank of a
+    `gloo` group) restore: every rank the same step, its own part."""
     mgr = CheckpointManager(str(tmp_path / "ck"))
     two = make_mesh((2, 1), ("data", "model"), devices=["cpu", "meta"])
     params = lm.init_params(DRILL, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8b"):
+    with pytest.raises(NotImplementedError, match="make_rank_mesh"):
         elastic.reshard_restore(DRILL, mgr, params, two)
     one = make_mesh((2, 1), ("data", "model"), devices="cpu")
     assert elastic.reshard_restore(DRILL, mgr, params, one) == (None,
                                                                 params)
+    from repro_torch.launch import distributed
+    from repro_torch.launch.mesh import make_rank_mesh
+    mgr.save(4, params)
+    mgr.wait()
+    with distributed.single_rank("gloo", "cpu"):
+        ranks = make_rank_mesh((1, 1), ("data", "model"))
+        step, got = elastic.reshard_restore(DRILL, mgr, params, ranks)
+    assert step == 4
+    for a, b in zip(adamw.leaves(got), adamw.leaves(params)):
+        assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()
 
 
 # ----------------------------------------------------- mesh-aware launchers

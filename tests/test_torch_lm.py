@@ -111,7 +111,7 @@ def test_unported_configs_and_modes_raise_with_their_roadmap_items():
     attention family, jamba's Mamba / attention hybrid and xLSTM's mLSTM /
     sLSTM blocks (full and reduced). What is still unported raises naming
     its ROADMAP item: `pure_fsdp`'s per-layer gather of a sharded mesh
-    (item 8b, multi-card placement)."""
+    (item 8b, the placement still to port)."""
     pattern, n = tlm.layer_pattern(treg.get_reduced("qwen2-moe-a2.7b"))
     assert [tuple(b) for b in pattern] == [("attn", "moe")] and n == 2
     for arch in ("jamba-1.5-large-398b", "xlstm-350m"):

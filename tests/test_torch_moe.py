@@ -241,10 +241,19 @@ def test_shard_map_without_a_mesh_is_moe_apply_and_a_mesh_raises(spiking):
                                lif_cfg=LIFConfig())
     _check("bf16", got, want)
     assert torch.equal(got, plain)
-    from repro_torch.launch.mesh import make_mesh
-    mesh = make_mesh((1, 2), ("data", "model"), devices="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8b"):
-        tmoe.moe_apply_shard_map(tp, tx, top_k=K, mesh=mesh)
+    # A one-process mesh over two devices raises, naming the rank mesh; a
+    # rank mesh (the one rank of a `gloo` group, one model position) runs
+    # the expert-parallel block, which is `moe_apply` there, bit for bit.
+    from repro_torch.launch import distributed
+    from repro_torch.launch.mesh import make_mesh, make_rank_mesh
+    two = make_mesh((1, 2), ("data", "model"), devices=["cpu", "meta"])
+    with pytest.raises(NotImplementedError, match="make_rank_mesh"):
+        tmoe.moe_apply_shard_map(tp, tx, top_k=K, mesh=two)
+    with distributed.single_rank("gloo", "cpu"), torch.inference_mode():
+        ranks = make_rank_mesh((1, 1), ("data", "model"))
+        ranked = tmoe.moe_apply_shard_map(tp, tx, top_k=K, spiking=spiking,
+                                          lif_cfg=LIFConfig(), mesh=ranks)
+    assert torch.equal(ranked, plain)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -337,7 +337,7 @@ def test_loss_fn_and_every_gradient_leaf_match_jax(trees, spiking, backend,
 
 
 def test_loss_fn_refuses_pure_fsdp_and_frontend_labels():
-    """pure_fsdp waits for multi-card placement (item 8b). Frontend
+    """pure_fsdp waits for the rest of item 8b's placement. Frontend
     positions are ported
     since the VLM: they get label -1, so the loss is the mean over the
     token positions alone, as the reference's."""
@@ -713,12 +713,23 @@ def test_resume_past_a_deleted_checkpoint_reproduces_the_losses(tmp_path):
 
 
 def test_train_loop_refuses_a_mesh_and_a_missing_card():
-    """A mesh over two devices needs a data-parallel all-reduce the port
-    does not have yet (item 8b); a logical mesh on one device trains."""
-    from repro_torch.launch.mesh import make_mesh
+    """A one-process mesh over two devices raises, naming the rank mesh;
+    a rank mesh trains (here the one rank of a `gloo` group, the same
+    step as the meshless loop's, bit for bit)."""
+    from repro_torch.launch import distributed
+    from repro_torch.launch.mesh import make_mesh, make_rank_mesh
     two = make_mesh((2, 1), ("data", "model"), devices=["cpu", "meta"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 8b"):
+    with pytest.raises(NotImplementedError, match="make_rank_mesh"):
         ttrain.train_loop(TINY, steps=1, mesh=two, device="cpu")
+    kw = dict(steps=2, batch=2, seq=16, log_every=100)
+    want = ttrain.train_loop(TINY, device="cpu", **kw)
+    with distributed.single_rank("gloo", "cpu"):
+        got = ttrain.train_loop(TINY, mesh=make_rank_mesh(
+            (1, 1), ("data", "model")), **kw)
+    assert got["losses"] == want["losses"]
+    for a, b in zip(adamw.leaves(got["params"]),
+                    adamw.leaves(want["params"])):
+        assert torch.equal(a, b)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ttrain.train_loop(TINY, steps=1)
