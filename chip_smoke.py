@@ -30,7 +30,9 @@ Phases, each printed on its own line:
       width, thread tile, grid, waves, as its C library reports it);
   (e) the training kernels (LIF forward with residual, with and without
       counts, and the surrogate backward) at the stage-1 drive, equal to
-      their plain versions bit for bit, with the same times;
+      their plain versions bit for bit, with the same times; the
+      backward also with the hard reset and at long T on few neurons
+      (LONG_T_DRIVE, on the slab ring), each with the layout it took;
   (c) SpikingFormer-4-384 inference (T=4, v_th=0.5, random weights from a
       seed) on 4 batches of 32 images through the port's entry points
       under `torch.inference_mode()`, once on the kernels and once under
@@ -1001,10 +1003,17 @@ def phase_csr(torch, gen, device, results):
 
 
 # ------------------------------------------------------------ phase (e)
+# Row 3 at long T on few neurons in f32: qwen2-moe's shared-expert shape
+# (the step's 2048 tokens as the time axis, 5632 neurons).
+LONG_T_DRIVE = (2048, 5632)
+
+
 def phase_train_kernels(torch, gen, device, results):
     """The training kernels at the stage-1 drive (T, B*32*32, 96): each
     must equal its plain version bit for bit (both round every operation
-    on its own, in the same order)."""
+    on its own, in the same order). Row 3 also on the hard reset and at
+    LONG_T_DRIVE, each `kernel` line with the layout the backward's
+    switch took (`lif_scan.bwd_launch`)."""
     from repro_torch.kernels import lif_scan
     kw = dict(decay=0.5, v_th=V_TH, soft_reset=True)
     x = (0.6 * torch.randn((T, B * 1024, 96), generator=gen) + 0.2).to(device)
@@ -1034,7 +1043,36 @@ def phase_train_kernels(torch, gen, device, results):
                              plain_ms=cuda_ms(torch, plain, reps=5),
                              bound_ms=b_ms, bound_by=by, library_ms=None,
                              shape=list(x.shape))
+        if name == "lif_bwd":
+            results[name]["launch"] = lif_scan.bwd_launch(*x2.shape, False)
         emit("kernel", name=name, **results[name])
+    # Row 3 beyond the stage-1 case: the hard reset on the same drive, and
+    # long T on few neurons (qwen2-moe's shared-expert shape in f32), where
+    # the switch takes the slab ring.
+    hard = dict(kw, soft_reset=False)
+    _, vres_h = lif_scan.lif_fwd_plain(x2, **hard)
+    xl = (0.6 * torch.randn(LONG_T_DRIVE, generator=gen) + 0.2).to(device)
+    gl = torch.randn(LONG_T_DRIVE, generator=gen).to(device)
+    _, vres_l = lif_scan.lif_fwd_plain(xl, **kw)
+    for label, vr, gc, ckw, reps in (
+            ("stage1_hard", vres_h, g.reshape(T, -1), hard, 5),
+            ("long_t", vres_l, gl, kw, 1)):
+        dx = lif_scan.lif_bwd(vr, gc, **ckw)
+        want = lif_scan.lif_bwd_plain(vr, gc, **ckw)
+        torch.cuda.synchronize()
+        err = (dx - want).abs().max().item()
+        check(torch.equal(dx, want), f"lif_bwd kernel disagrees with its "
+              f"plain version ({label}, max |d| {err})")
+        b_ms, by = bound_ms(3 * 4 * gc.numel(), 11 * gc.numel())
+        emit("kernel", name="lif_bwd", case=label, max_abs_err=err,
+             ms=cuda_ms(torch, lambda: lif_scan.lif_bwd(vr, gc, **ckw)),
+             device_ms=graph_ms(torch, lambda: lif_scan.lif_bwd(vr, gc,
+                                                                **ckw)),
+             plain_ms=cuda_ms(torch, lambda: lif_scan.lif_bwd_plain(
+                 vr, gc, **ckw), reps=reps, warmup=1),
+             bound_ms=b_ms, bound_by=by, library_ms=None,
+             shape=list(gc.shape),
+             launch=lif_scan.bwd_launch(*gc.shape, False))
 
 
 # ------------------------------------------------------------ phase (c)
@@ -3931,6 +3969,9 @@ def train_fire_case(torch, label, x, g, plain_reps=3):
                    plain_ms=cuda_ms(torch, plain, reps=plain_reps),
                    bound_ms=b_ms, bound_by=by, library_ms=None,
                    shape=list(x.shape))
+        if name == "lif_bwd_bf16":
+            rec["launch"] = lif_scan.bwd_launch(
+                x.shape[0], elems // x.shape[0], True)
         emit("kernel", name=name, case=label, **rec)
         recs[name] = rec
     return recs

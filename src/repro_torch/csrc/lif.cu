@@ -41,6 +41,12 @@
 //           it takes 0.041, a device copy of its bytes 0.037, and the
 //           packed fire 0.027, as long as a sum of the drive (0.025:
 //           the read alone; tools/stream_probe.py, the same card).
+//           The backward at qwen2-moe's shared-expert drive (2048, 5632)
+//           bf16 has 0.0275 ms of bytes: the stream took 0.99 (704
+//           threads on 6 SMs), the slab ring below 0.059; at the stage-1
+//           cotangent (4, 32768*96) f32 the stream takes 0.0525 against
+//           0.0451, a thread a neuron with 4-byte loads took 0.0668
+//           (tools/stream_probe.py in turns, the same card).
 // Design:   each thread keeps its membrane potential (backward: the
 //           membrane cotangent u) in registers across the T loop, so the
 //           state never touches device memory (the TPU kernels kept it
@@ -53,11 +59,32 @@
 //           thread, so the grid fills all 132 SMs in waves of blocks. A
 //           drive whose rows are not all 16-byte aligned, or the ragged
 //           tail of P, takes a scalar path in the same kernel, the same
-//           steps one element at a time. The f32 backward is one thread
-//           a neuron; the bf16 backward (`lif_bwd_bf16_kernel`) is the
-//           forward's stream run backwards: a thread owns one 16-byte
-//           vector of the cotangent (8 neurons) and the two of vres
-//           beside it, and issues the loads of its latest steps first.
+//           steps one element at a time. The backward is one template
+//           over g's element type (f32 or bf16; vres and u f32) with two
+//           layouts, picked before the launch from T, P and the SM count:
+//           - the stream (`lif_bwd_stream_kernel`), the forward's stream
+//             run backwards: a thread owns one 16-byte vector of g (4 f32
+//             or 8 bf16 neurons) and the vres vectors beside it, and
+//             issues the loads of its latest steps first. It takes short
+//             T on many neurons (SpikingFormer's and the CNNs' T = 4, the
+//             LM's T = 2).
+//           - the slab ring, for long T on few neurons (qwen2-moe's shared
+//             experts fire over the step's 2048 tokens as their time axis,
+//             P = 5632): the stream gave 704 threads on 6 SMs, each
+//             walking 2048 dependent steps with 4 steps' loads in flight.
+//             A block owns 32 neurons, a lane each, so P / 32 blocks
+//             cover the SMs; a producer warp copies chunks of 32 steps of
+//             vres and g, the latest first, into a ring of 64 KB of
+//             shared-memory stages by TMA boxes on mbarriers
+//             (`lif_bwd_ring_kernel<E, true>`, csrc/tma_ring.cuh); eight
+//             warps compute each stage's u-free terms (the surrogate's
+//             division among them) in place, and one walker warp carries
+//             u through the stage in reversed time. Where TMA cannot
+//             describe an operand, the producer's lanes fill the same
+//             ring by cp.async (`lif_bwd_ring_kernel<E, false>`).
+//           The recurrence is not re-associated: every neuron's steps
+//           are `lif_bwd_step`'s operations, each rounded on its own, in
+//           time order, in both layouts.
 //           Neighbouring threads own neighbouring neurons (or
 //           vectors), so every load and store is coalesced. The residual
 //           mode is a template flag: the same step, plus one store of the
@@ -109,6 +136,7 @@
 #include <stdint.h>
 
 #include "tile_mma.cuh"
+#include "tma_ring.cuh"
 
 namespace {
 
@@ -436,57 +464,69 @@ lif_counts_kernel(const float* __restrict__ x, float* __restrict__ s,
 //   sg     = (alpha/2) / (1 + (pi/2*alpha * (v - v_th))^2)
 //   dreset = 1 - v_th*sg (soft)  |  (1 - S) - v*sg (hard)
 //   dv     = g*sg + u*dreset;  dx = dv;  u = decay*dv
-__device__ __forceinline__ float lif_bwd_step(float& u, float v, float g,
-                                              float decay, float v_th,
+// in two parts: the terms g*sg and dreset, which do not depend on u, and
+// the carry through u. The slab ring computes them on other warps than
+// the one that walks u; rounded the same, each part alone.
+__device__ __forceinline__ void lif_bwd_terms(float v, float g, float v_th,
                                               bool soft_reset,
                                               float half_alpha,
-                                              float half_pi_alpha) {
+                                              float half_pi_alpha,
+                                              float& gsg, float& dreset) {
   const float d = __fmul_rn(half_pi_alpha, __fsub_rn(v, v_th));
   const float sg = __fdiv_rn(half_alpha, __fadd_rn(1.0f, __fmul_rn(d, d)));
-  float dreset;
   if (soft_reset) {
     dreset = __fsub_rn(1.0f, __fmul_rn(v_th, sg));
   } else {
     const float s = v >= v_th ? 1.0f : 0.0f;
     dreset = __fsub_rn(__fsub_rn(1.0f, s), __fmul_rn(v, sg));
   }
-  const float dv = __fadd_rn(__fmul_rn(g, sg), __fmul_rn(u, dreset));
+  gsg = __fmul_rn(g, sg);
+}
+
+__device__ __forceinline__ float lif_bwd_carry(float& u, float gsg,
+                                               float dreset, float decay) {
+  const float dv = __fadd_rn(gsg, __fmul_rn(u, dreset));
   u = __fmul_rn(decay, dv);
   return dv;
 }
 
-// vres, g, dx: (T, P) contiguous f32, one thread a neuron.
-__global__ void lif_bwd_kernel(const float* __restrict__ vres,
-                               const float* __restrict__ g,
-                               float* __restrict__ dx, int64_t t_steps,
-                               int64_t p, float decay, float v_th,
-                               bool soft_reset, float half_alpha,
-                               float half_pi_alpha) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < p;
-       i += stride) {
-    float u = 0.0f;
-    for (int64_t t = t_steps - 1; t >= 0; --t) {
-      const int64_t off = t * p + i;
-      dx[off] = lif_bwd_step(u, vres[off], g[off], decay, v_th, soft_reset,
-                             half_alpha, half_pi_alpha);
-    }
-  }
+__device__ __forceinline__ float lif_bwd_step(float& u, float v, float g,
+                                              float decay, float v_th,
+                                              bool soft_reset,
+                                              float half_alpha,
+                                              float half_pi_alpha) {
+  float gsg, dreset;
+  lif_bwd_terms(v, g, v_th, soft_reset, half_alpha, half_pi_alpha, gsg,
+                dreset);
+  return lif_bwd_carry(u, gsg, dreset, decay);
 }
 
-// vres f32, g and dx bf16: (T, P) contiguous. The forward's stream run
-// backwards: a thread owns one 16-byte vector of g (8 neurons) and the
-// two 16-byte vectors of vres beside it, issues the loads of up to
+// The backward's scalars: the decay, the threshold, the reset rule and
+// the surrogate's alpha / 2 and pi/2 * alpha.
+struct BwdArgs {
+  float decay, v_th, half_alpha, half_pi_alpha;
+  bool soft_reset;
+};
+
+__device__ __forceinline__ float bwd_step(float& u, float v, float g,
+                                          const BwdArgs& a) {
+  return lif_bwd_step(u, v, g, a.decay, a.v_th, a.soft_reset, a.half_alpha,
+                      a.half_pi_alpha);
+}
+
+// The stream. vres f32, g and dx of element type E: (T, P) contiguous. A
+// thread owns one 16-byte vector of g (V = 4 f32 or 8 bf16 neurons) and
+// the V / 4 16-byte vectors of vres beside it, issues the loads of up to
 // kGroup steps (the latest first) before their arithmetic, carries the
-// membrane cotangent u in f32 registers and rounds each step's dx once,
-// at its 16-byte store. `vec` and the scalar path as in `lif_kernel`.
+// membrane cotangent u in f32 registers and stores each step's dx as one
+// 16-byte store (bf16 rounded once, there). `vec` and the scalar path as
+// in `lif_kernel`.
+template <typename E>
 __global__ void __launch_bounds__(kFireThreads)
-lif_bwd_bf16_kernel(const float* __restrict__ vres,
-                    const __nv_bfloat16* __restrict__ g,
-                    __nv_bfloat16* __restrict__ dx, int64_t t_steps,
-                    int64_t p, float decay, float v_th, bool soft_reset,
-                    float half_alpha, float half_pi_alpha, bool vec) {
-  using L = Lanes<__nv_bfloat16>;
+lif_bwd_stream_kernel(const float* __restrict__ vres, const E* __restrict__ g,
+                      E* __restrict__ dx, int64_t t_steps, int64_t p,
+                      BwdArgs a, bool vec) {
+  using L = Lanes<E>;
   constexpr int V = L::kN;
   const int64_t nvec = (p + V - 1) / V;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
@@ -514,11 +554,9 @@ lif_bwd_bf16_kernel(const float* __restrict__ vres,
           uint32_t out[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
           for (int i = 0; i < V; ++i)
-            L::put(out, i, lif_bwd_step(u[i],
-                                        __uint_as_float(vin[k][i / 4][i % 4]),
-                                        L::get(gin[k], i), decay, v_th,
-                                        soft_reset, half_alpha,
-                                        half_pi_alpha));
+            L::put(out, i, bwd_step(u[i],
+                                    __uint_as_float(vin[k][i / 4][i % 4]),
+                                    L::get(gin[k], i), a));
           store16(dx + (t1 - 1 - k) * p + n0, out);
         }
       }
@@ -528,12 +566,209 @@ lif_bwd_bf16_kernel(const float* __restrict__ vres,
         for (int i = 0; i < V; ++i) {
           if (n0 + i >= p) break;
           const int64_t off = t * p + n0 + i;
-          dx[off] = narrow<__nv_bfloat16>(
-              lif_bwd_step(u[i], vres[off], widen(g[off]), decay, v_th,
-                           soft_reset, half_alpha, half_pi_alpha));
+          dx[off] = narrow<E>(bwd_step(u[i], vres[off], widen(g[off]), a));
         }
       }
     }
+  }
+}
+
+// The slab ring. A block owns a slab of kSlab neurons and walks their T
+// steps in chunks of kSlabSteps, the latest chunk first, through a ring
+// of shared-memory stages; a stage holds one chunk's (kSlabSteps, kSlab)
+// box of vres (f32) and of g (E), row r step t0 + r, column c neuron
+// n0 + c. Three roles, a warp or more each:
+//   - the producer warp fills a free stage: one thread issues two TMA
+//     boxes on the stage's `full` mbarrier (`kTma`), or, where TMA cannot
+//     describe an operand, each lane copies its column by 4-byte
+//     cp.async (bf16 g, which can sit at any 2-byte offset, below
+//     cp.async's least copy, by loads and shared stores) and arrives;
+//   - kTermWarps term warps compute each element's u-free terms (g*sg and
+//     dreset, the surrogate's division included) in place and arrive on
+//     `ready`: the division's slow-path branch stops the compiler from
+//     overlapping one step's chain with the next, so one warp doing it all
+//     spent ~170 cycles a step, and the 32 x 32 elements of a stage are
+//     independent;
+//   - the walker warp, a lane a neuron with u in its register, runs each
+//     stage's carries in reversed time (two shared loads and three
+//     dependent operations a step, unrolled), stores dx straight to device
+//     memory (a warp's 32 neurons one 64- or 128-byte run a step) and
+//     arrives on `empty`.
+// Lane l reads and writes column l of a row: consecutive words, or halves
+// of one word, so no bank conflict. Rows past T and columns past P arrive
+// as zeros; they get terms but are neither walked nor stored.
+constexpr int kSlab = 32;          // neurons a block
+constexpr int kSlabSteps = 32;     // steps a stage (Tc)
+constexpr int kTermWarps = 8;      // warps computing a stage's terms
+constexpr int kRingThreads = 32 * (kTermWarps + 2);   // + walker, producer
+constexpr int kRingBytes = 64 * 1024;
+template <typename E>
+struct Slab {
+  static constexpr int kVresBytes = kSlabSteps * kSlab * 4;   // then dreset
+  static constexpr int kGBytes = kSlabSteps * kSlab * (int)sizeof(E);
+  // g*sg in place of an f32 g; after a bf16 g, which is half its width
+  static constexpr int kGsgOffset =
+      sizeof(E) == 4 ? kVresBytes : kVresBytes + kGBytes;
+  static constexpr int kStageBytes = kGsgOffset + kSlabSteps * kSlab * 4;
+  static constexpr int kStages = kRingBytes / kStageBytes;   // 8 f32, 6 bf16
+  static constexpr int kBytes = kStages * kStageBytes;
+  static_assert(kVresBytes % 128 == 0 && kStageBytes % 128 == 0,
+                "every TMA box 128-byte aligned");
+  static_assert(kSlabSteps % kTermWarps == 0, "whole rows a term warp");
+};
+
+__host__ __device__ __forceinline__ int slab_chunks(int64_t t_steps) {
+  return (int)((t_steps + kSlabSteps - 1) / kSlabSteps);
+}
+
+// The cp.async fill of one stage by the producer warp: lane l copies
+// column l of chunk rows [t0, t0 + kSlabSteps), zeros past T and P, then
+// arrives on `full` as its copies land (and, for a bf16 g, once more after
+// its shared stores).
+template <typename E>
+__device__ __forceinline__ void fill_async(unsigned char* stage,
+                                           const float* __restrict__ vres,
+                                           const E* __restrict__ g,
+                                           int64_t t0, int64_t t_steps,
+                                           int64_t p, int64_t col, bool live,
+                                           int lane, uint64_t* full) {
+  float* vs = reinterpret_cast<float*>(stage) + lane;
+  E* gs = reinterpret_cast<E*>(stage + Slab<E>::kVresBytes) + lane;
+#pragma unroll 8
+  for (int r = 0; r < kSlabSteps; ++r) {
+    const bool in = live && t0 + r < t_steps;
+    const int64_t off = in ? (t0 + r) * p + col : 0;
+    tile_mma::cp4(vs + r * kSlab, vres + off, in);
+    if constexpr (sizeof(E) == 4) tile_mma::cp4(gs + r * kSlab, g + off, in);
+  }
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   tma_ring::smem_addr(full))
+               : "memory");
+  if constexpr (sizeof(E) != 4) {
+    E gq[kSlabSteps];
+#pragma unroll
+    for (int r = 0; r < kSlabSteps; ++r)
+      gq[r] = live && t0 + r < t_steps ? g[(t0 + r) * p + col]
+                                       : narrow<E>(0.0f);
+#pragma unroll
+    for (int r = 0; r < kSlabSteps; ++r) gs[r * kSlab] = gq[r];
+    tma_ring::bar_arrive(full);
+  }
+}
+
+// Chunk i (walk order) is chunk chunks - 1 - i in time, in stage
+// i % kStages on that stage's (i / kStages)-th fill. The tensor maps are
+// read only where kTma.
+template <typename E, bool kTma>
+__global__ void __launch_bounds__(kRingThreads, 2)
+lif_bwd_ring_kernel(const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_g,
+                    const float* __restrict__ vres, const E* __restrict__ g,
+                    E* __restrict__ dx, int64_t t_steps, int64_t p,
+                    BwdArgs a) {
+  using S = Slab<E>;
+  constexpr int kFillArrivals = kTma ? 1 : sizeof(E) == 4 ? 32 : 64;
+  extern __shared__ __align__(128) unsigned char slab_smem[];
+  __shared__ __align__(8) uint64_t full[S::kStages], ready[S::kStages],
+      empty[S::kStages];
+  unsigned char* ring =
+      slab_smem + (128 - tma_ring::smem_addr(slab_smem) % 128) % 128;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int chunks = slab_chunks(t_steps);
+  const int64_t n0 = (int64_t)blockIdx.x * kSlab, col = n0 + lane;
+  const bool live = col < p;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S::kStages; ++i) {
+      tma_ring::bar_init(&full[i], kFillArrivals);
+      tma_ring::bar_init(&ready[i], kTermWarps);   // a term warp's lane 0
+      tma_ring::bar_init(&empty[i], 1);            // the walker's lane 0
+    }
+    tma_ring::bar_init_fence();
+  }
+  __syncthreads();
+  auto stage_of = [&](int i) {
+    return ring + i % S::kStages * S::kStageBytes;
+  };
+  auto first = [&](int i) { return (int64_t)(chunks - 1 - i) * kSlabSteps; };
+  if (warp == kTermWarps + 1) {                     // the producer
+    for (int i = 0; i < chunks; ++i) {
+      const int slot = i % S::kStages, fill = i / S::kStages;
+      if constexpr (kTma) {
+        if (lane != 0) return;
+        if (fill > 0) tma_ring::bar_wait(&empty[slot], (fill - 1) & 1);
+        tma_ring::bar_expect(&full[slot], S::kVresBytes + S::kGBytes);
+        tma_ring::tma_box(stage_of(i), &map_v, (int)n0, (int)first(i),
+                          &full[slot]);
+        tma_ring::tma_box(stage_of(i) + S::kVresBytes, &map_g, (int)n0,
+                          (int)first(i), &full[slot]);
+      } else {
+        if (fill > 0) tma_ring::bar_wait(&empty[slot], (fill - 1) & 1);
+        fill_async<E>(stage_of(i), vres, g, first(i), t_steps, p, col, live,
+                      lane, &full[slot]);
+      }
+    }
+    return;
+  }
+  if (warp > 0) {                                   // a term warp
+    constexpr int kRows = kSlabSteps / kTermWarps;
+    for (int i = 0; i < chunks; ++i) {
+      const int slot = i % S::kStages;
+      tma_ring::bar_wait(&full[slot], (i / S::kStages) & 1);
+      unsigned char* stage = stage_of(i);
+      float* vs = reinterpret_cast<float*>(stage) + lane;
+      const E* gs = reinterpret_cast<const E*>(stage + S::kVresBytes) + lane;
+      float* gsg = reinterpret_cast<float*>(stage + S::kGsgOffset) + lane;
+      float v[kRows], gv[kRows], q[kRows], dres[kRows];
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        const int r = warp - 1 + k * kTermWarps;
+        v[k] = vs[r * kSlab];
+        gv[k] = widen(gs[r * kSlab]);
+      }
+#pragma unroll
+      for (int k = 0; k < kRows; ++k)
+        lif_bwd_terms(v[k], gv[k], a.v_th, a.soft_reset, a.half_alpha,
+                      a.half_pi_alpha, q[k], dres[k]);
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        const int r = warp - 1 + k * kTermWarps;
+        vs[r * kSlab] = dres[k];
+        gsg[r * kSlab] = q[k];
+      }
+      // The stage is refilled by TMA (the async proxy) after the walk.
+      if constexpr (kTma)
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncwarp();
+      if (lane == 0) tma_ring::bar_arrive(&ready[slot]);
+    }
+    return;
+  }
+  float u = 0.0f;                                   // the walker
+  for (int i = 0; i < chunks; ++i) {
+    const int slot = i % S::kStages;
+    tma_ring::bar_wait(&ready[slot], (i / S::kStages) & 1);
+    const unsigned char* stage = stage_of(i);
+    const float* dres = reinterpret_cast<const float*>(stage) + lane;
+    const float* gsg =
+        reinterpret_cast<const float*>(stage + S::kGsgOffset) + lane;
+    const int64_t t0 = first(i);
+    const int rows =
+        t_steps - t0 < kSlabSteps ? (int)(t_steps - t0) : kSlabSteps;
+    E* out = dx + (t0 + rows - 1) * p + col;
+    auto carry = [&](int r) {
+      const float d = lif_bwd_carry(u, gsg[r * kSlab], dres[r * kSlab],
+                                    a.decay);
+      if (live) *out = narrow<E>(d);
+      out -= p;
+    };
+    if (rows == kSlabSteps) {
+#pragma unroll
+      for (int r = kSlabSteps - 1; r >= 0; --r) carry(r);
+    } else {
+      for (int r = rows - 1; r >= 0; --r) carry(r);
+    }
+    __syncwarp();                      // the warp's reads of the stage done
+    if (lane == 0) tma_ring::bar_arrive(&empty[slot]);
   }
 }
 
@@ -629,6 +864,129 @@ int report_counts_launch(int64_t rows, int64_t k, int* out) {
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ backward
+// Layouts of the backward (the report's codes).
+constexpr int kStream = 0, kTmaRing = 1, kAsyncRing = 2;
+
+// The switch, from the sweep of the layouts on the H100
+// (tools/lif_bwd_sweep.py; PERF.md, PR 38): the slab ring from
+// kRingMinSteps steps on, where the stream would have fewer 16-byte
+// vectors an SM than kRingVecsPerStep a step, up to kRingMaxVecsPerSM;
+// the stream elsewhere. Below 16 steps a ring block's set-up outweighs
+// its walk; with many vectors an SM the stream's threads hide their own
+// latency and both layouts move bytes at about the same rate.
+constexpr int64_t kRingMinSteps = 16;
+constexpr int64_t kRingVecsPerStep = 2;
+constexpr int64_t kRingMaxVecsPerSM = 256;
+
+template <typename E>
+bool ring_pays(int64_t t_steps, int64_t p) {
+  constexpr int V = Lanes<E>::kN;
+  const int64_t per_sm = t_steps * kRingVecsPerStep < kRingMaxVecsPerSM
+                             ? t_steps * kRingVecsPerStep
+                             : kRingMaxVecsPerSM;
+  return t_steps >= kRingMinSteps &&
+         (p + V - 1) / V < per_sm * tile_mma::sm_count();
+}
+
+// TMA describes both operands: bases 16-byte aligned (`aligned`), row
+// pitches multiples of 16 bytes, box coordinates within int.
+template <typename E>
+bool tma_describes(bool aligned, int64_t t_steps, int64_t p) {
+  return aligned && p % (int64_t)(16 / sizeof(E)) == 0 && p % 4 == 0 &&
+         p <= INT32_MAX && t_steps <= INT32_MAX - kSlabSteps;
+}
+
+template <typename E>
+int auto_layout(int64_t t_steps, int64_t p, bool aligned) {
+  if (!ring_pays<E>(t_steps, p)) return kStream;
+  return tma_describes<E>(aligned, t_steps, p) ? kTmaRing : kAsyncRing;
+}
+
+template <typename E>
+struct TmaType;
+template <>
+struct TmaType<float> {
+  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
+template <>
+struct TmaType<__nv_bfloat16> {
+  static constexpr CUtensorMapDataType kType =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+
+int64_t slabs(int64_t p) { return (p + kSlab - 1) / kSlab; }
+constexpr int kRingSlack = 128;    // to align the ring to 128 bytes
+
+template <typename E>
+int launch_bwd(const float* vres, const E* g, E* dx, int64_t t_steps,
+               int64_t p, const BwdArgs& a, int layout, cudaStream_t st) {
+  using S = Slab<E>;
+  if (layout == kStream) {
+    constexpr int V = Lanes<E>::kN;
+    const bool vec = (p % V == 0 || t_steps == 1) && aligned16(vres) &&
+                     aligned16(g) && aligned16(dx);
+    lif_bwd_stream_kernel<E>
+        <<<flat_blocks((p + V - 1) / V, kFireThreads), kFireThreads, 0, st>>>(
+            vres, g, dx, t_steps, p, a, vec);
+  } else if (layout == kTmaRing || layout == kAsyncRing) {
+    // A failed encode is an error, never a quiet change of layout.
+    CUtensorMap map_v{}, map_g{};
+    const bool tma = layout == kTmaRing;
+    if (tma &&
+        (!tma_describes<E>(aligned16(vres) && aligned16(g), t_steps, p) ||
+         !tma_ring::encode(&map_v, vres, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                           t_steps, p, kSlabSteps, kSlab,
+                           CU_TENSOR_MAP_SWIZZLE_NONE) ||
+         !tma_ring::encode(&map_g, g, TmaType<E>::kType, (int)sizeof(E),
+                           t_steps, p, kSlabSteps, kSlab,
+                           CU_TENSOR_MAP_SWIZZLE_NONE)))
+      return (int)cudaErrorNotSupported;
+    auto kernel = tma ? lif_bwd_ring_kernel<E, true>
+                      : lif_bwd_ring_kernel<E, false>;
+    const int bytes = S::kBytes + kRingSlack;
+    const cudaError_t err = tile_fma::allow_dynamic_smem(kernel, bytes);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(unsigned)slabs(p), kRingThreads, bytes, st>>>(
+        map_v, map_g, vres, g, dx, t_steps, p, a);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// layout < 0: the switch's choice for these shapes and pointers.
+template <typename E>
+int backward(const float* vres, const E* g, E* dx, int64_t t_steps,
+             int64_t p, float decay, float v_th, int soft_reset,
+             float half_alpha, float half_pi_alpha, int layout,
+             void* stream) {
+  if (p <= 0 || t_steps <= 0) return (int)cudaGetLastError();
+  if (layout < 0)
+    layout = auto_layout<E>(t_steps, p, aligned16(vres) && aligned16(g));
+  const BwdArgs a{decay, v_th, half_alpha, half_pi_alpha, soft_reset != 0};
+  return launch_bwd<E>(vres, g, dx, t_steps, p, a, layout,
+                       (cudaStream_t)stream);
+}
+
+// out = {layout, neurons a thread's vector (stream) or a block (ring),
+// threads a block, grid, steps a load group (stream) or a stage (ring),
+// stages (0 for the stream), SMs}.
+template <typename E>
+int report_bwd_launch(int64_t t_steps, int64_t p, int* out) {
+  constexpr int V = Lanes<E>::kN;
+  const int layout = auto_layout<E>(t_steps, p, true);
+  const bool ring = layout != kStream;
+  out[0] = layout;
+  out[1] = ring ? kSlab : V;
+  out[2] = ring ? kRingThreads : kFireThreads;
+  out[3] = ring ? (int)slabs(p) : flat_blocks((p + V - 1) / V, kFireThreads);
+  out[4] = ring ? kSlabSteps : kGroup;
+  out[5] = ring ? Slab<E>::kStages : 0;
+  out[6] = tile_mma::sm_count();
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int lif_forward(const float* x, float* s, int64_t t_steps,
@@ -704,18 +1062,13 @@ extern "C" int lif_counts_launch(int64_t rows, int64_t k, int mode,
   }
 }
 
+// vres, g, dx: (T, P) f32.
 extern "C" int lif_backward(const float* vres, const float* g, float* dx,
                             int64_t t_steps, int64_t p, float decay,
                             float v_th, int soft_reset, float half_alpha,
                             float half_pi_alpha, void* stream) {
-  if (p > 0) {
-    const int threads = 256;
-    lif_bwd_kernel<<<flat_blocks(p, threads), threads, 0,
-                     (cudaStream_t)stream>>>(
-        vres, g, dx, t_steps, p, decay, v_th, soft_reset != 0, half_alpha,
-        half_pi_alpha);
-  }
-  return (int)cudaGetLastError();
+  return backward<float>(vres, g, dx, t_steps, p, decay, v_th, soft_reset,
+                         half_alpha, half_pi_alpha, -1, stream);
 }
 
 // vres: (T, P) f32; g, dx: (T, P) bf16.
@@ -724,14 +1077,36 @@ extern "C" int lif_bf16_backward(const float* vres, const __nv_bfloat16* g,
                                  int64_t p, float decay, float v_th,
                                  int soft_reset, float half_alpha,
                                  float half_pi_alpha, void* stream) {
-  if (p > 0 && t_steps > 0) {
-    constexpr int V = Lanes<__nv_bfloat16>::kN;
-    const bool vec = (p % V == 0 || t_steps == 1) && aligned16(vres) &&
-                     aligned16(g) && aligned16(dx);
-    lif_bwd_bf16_kernel<<<flat_blocks((p + V - 1) / V, kFireThreads),
-                          kFireThreads, 0, (cudaStream_t)stream>>>(
-        vres, g, dx, t_steps, p, decay, v_th, soft_reset != 0, half_alpha,
-        half_pi_alpha, vec);
-  }
-  return (int)cudaGetLastError();
+  return backward<__nv_bfloat16>(vres, g, dx, t_steps, p, decay, v_th,
+                                 soft_reset, half_alpha, half_pi_alpha, -1,
+                                 stream);
+}
+
+// The backward in the named layout (0 the stream, 1 the TMA ring, 2 the
+// cp.async ring) whatever the switch would pick; g and dx bf16 where
+// `bf16`, else f32. The TMA ring on operands it cannot describe fails
+// with cudaErrorNotSupported.
+extern "C" int lif_bwd_forced(const float* vres, const void* g, void* dx,
+                              int64_t t_steps, int64_t p, float decay,
+                              float v_th, int soft_reset, float half_alpha,
+                              float half_pi_alpha, int bf16, int layout,
+                              void* stream) {
+  if (layout < 0) return (int)cudaErrorInvalidValue;
+  return bf16 ? backward<__nv_bfloat16>(
+                    vres, static_cast<const __nv_bfloat16*>(g),
+                    static_cast<__nv_bfloat16*>(dx), t_steps, p, decay, v_th,
+                    soft_reset, half_alpha, half_pi_alpha, layout, stream)
+              : backward<float>(vres, static_cast<const float*>(g),
+                                static_cast<float*>(dx), t_steps, p, decay,
+                                v_th, soft_reset, half_alpha, half_pi_alpha,
+                                layout, stream);
+}
+
+// The launch the backward makes for T steps of P neurons (bf16 or f32 g)
+// on 16-byte aligned operands: out = {layout, width, threads, grid, steps,
+// stages, SMs} (7 ints) as `report_bwd_launch` gives them.
+extern "C" int lif_bwd_launch(int64_t t_steps, int64_t p, int bf16,
+                              int* out) {
+  return bf16 ? report_bwd_launch<__nv_bfloat16>(t_steps, p, out)
+              : report_bwd_launch<float>(t_steps, p, out);
 }

@@ -68,7 +68,9 @@
 //             and no barrier stops the block between slices. TMA
 //             zero-fills the boxes past M, K and N (no load masks); the
 //             tensor maps are encoded per launch through the driver entry
-//             point `cuTensorMapEncodeTiled` (no link to libcuda).
+//             point `cuTensorMapEncodeTiled` (no link to libcuda). The
+//             barriers, box copies and encoder are csrc/tma_ring.cuh's,
+//             shared with the LIF backward's slab ring (csrc/lif.cu).
 //             H100, fc1 / fc2 / stage 1 of SpikingFormer-4-384 on the
 //             model's maps: 0.223 / 0.234 / 0.277 ms, the ring 0.244 /
 //             0.251 / 0.301, cuBLAS fp32 0.214 / 0.231 / 0.340 (stream
@@ -86,14 +88,13 @@
 //           computed on the card from the carried map, so the route is
 //           chosen with no host read (and a CUDA graph of the call picks it
 //           from the map present at replay). A null `route` always runs.
-#include <cuda.h>
-#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 #include "tile_mma.cuh"
+#include "tma_ring.cuh"
 
 namespace {
 
@@ -401,50 +402,11 @@ struct Wide {
                 "a thread's rows share one swizzle phase");
 };
 
-__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
-                   tile_mma::smem_addr(bar)),
-               "r"(count));
-}
-
-// Blocks until the phase of parity `parity` has completed. Bounded: a
-// broken schedule traps (the launch fails) instead of hanging the card.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  for (long long spins = 0; !done; ++spins) {
-    asm volatile(
-        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
-        "%2; selp.u32 %0, 1, 0, p; }"
-        : "=r"(done)
-        : "r"(tile_mma::smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (spins > (1ll << 26)) __trap();
-  }
-}
-
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   tile_mma::smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_expect(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   tile_mma::smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// The box of `map` at (inner, outer) into `dst`, completing on `bar`.
-__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
-                                        int inner, int outer, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(tile_mma::smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(inner), "r"(outer),
-      "r"(tile_mma::smem_addr(bar))
-      : "memory");
-}
+using tma_ring::bar_arrive;
+using tma_ring::bar_expect;
+using tma_ring::bar_init;
+using tma_ring::bar_wait;
+using tma_ring::tma_box;
 
 // acc += the stage's slice product for this consumer thread: the chain of
 // `tile_mma::fma_tile_slice` (each output one fmaf a k-column, k order) on
@@ -516,8 +478,7 @@ pred_tma_kernel(const __grid_constant__ CUtensorMap map_s,
       bar_init(&full[i], 1);
       bar_init(&empty[i], kConsumers / 32);     // one arrival a warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    tma_ring::bar_init_fence();
   }
   __syncthreads();
   // Both sides walk tiles blockIdx.x, + gridDim.x and each tile's live
@@ -559,44 +520,7 @@ pred_tma_kernel(const __grid_constant__ CUtensorMap map_s,
   }
 }
 
-using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
-
-// The driver's tensor-map encoder, looked up once through the runtime, so
-// the library needs no link to libcuda; null where the driver has none.
-EncodeTiled tensor_map_encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// The (rows, cols) row-major f32 matrix at `base` as a tensor map of
-// (box_rows, box_cols) boxes, zeros past its edges.
-bool encode(CUtensorMap* map, const float* base, int64_t rows, int64_t cols,
-            int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled enc = tensor_map_encoder();
-  if (enc == nullptr) return false;
-  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
-  cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  cuuint32_t step[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
-             const_cast<float*>(base), dims, strides, box, step,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
+using tma_ring::encode;
 
 // The wide form for an (M, K) x (K, N) product: TMA when it can describe
 // both operands: 16-byte aligned bases (`aligned`), rows a multiple of 16

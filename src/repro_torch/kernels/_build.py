@@ -69,6 +69,9 @@ SIGNATURES = {
     "lif_counts_launch": (_I64, _I64, _I, _P),
     "lif_backward": (_P, _P, _P, _I64, _I64, _F, _F, _I, _F, _F, _P),
     "lif_bf16_backward": (_P, _P, _P, _I64, _I64, _F, _F, _I, _F, _F, _P),
+    "lif_bwd_forced": (_P, _P, _P, _I64, _I64, _F, _F, _I, _F, _F, _I, _I,
+                       _P),
+    "lif_bwd_launch": (_I64, _I64, _I, _P),
     "sdsa_or_strided_forward": (_P, _P, _P, _P, _P, _P),
     "sdsa_status_strided_forward": (_P, _P, _P, _P, _P),
     "sdsa_causal_strided_forward": (_P, _P, _P, _P, _P, _P, _P),

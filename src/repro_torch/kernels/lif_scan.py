@@ -10,9 +10,10 @@ spike tensor, forward only (`repro`'s `lif_scan_occ_packed_pallas`).
 `lif_fwd` (f32 or bf16, as `lif`) and `lif_counts_fwd` are
 the same with the pre-reset membrane residual `vres` (T, ...) f32 added,
 and `lif_bwd(vres, g)` is the reversed-time ATan surrogate backward (g and
-dx f32 or bf16, the membrane cotangent carried in f32). On a
-CUDA tensor each wrapper launches `csrc/lif.cu`; on a CPU tensor it runs
-its plain version.
+dx f32 or bf16, the membrane cotangent carried in f32; a 16-byte stream
+at short T, a slab ring at long T on few neurons, `bwd_launch` reports
+which). On a CUDA tensor each wrapper launches `csrc/lif.cu`; on a CPU
+tensor it runs its plain version.
 
 `LIFScanSG` and `LIFScanOccSG` are the differentiable fires (the port of
 `lif_scan_pallas_sg` / `lif_scan_occ_pallas_sg`): their `run` takes the
@@ -286,12 +287,31 @@ def lif_counts_fwd(x: torch.Tensor, *, decay: float = 0.5, v_th: float = 1.0,
     return s, counts, vres
 
 
-def lif_bwd(vres: torch.Tensor, g: torch.Tensor, *, decay: float = 0.5,
-            v_th: float = 1.0, soft_reset: bool = True,
-            surrogate_alpha: float = 2.0) -> torch.Tensor:
-    """vres: (T, ...) f32, g: (T, ...) f32 or bf16 -> dx, the drive's
-    cotangent in g's dtype. A bf16 g launches the bf16 instance (u in f32,
-    dx rounded once), counted apart as ``lif_bwd_bf16``."""
+# The backward's layouts (csrc/lif.cu): the 16-byte stream, the slab ring
+# filled by TMA, the same ring filled by cp.async.
+BWD_LAYOUTS = ("stream", "tma_ring", "async_ring")
+
+
+def bwd_launch(t: int, p: int, bf16: bool) -> dict:
+    """The launch the backward makes for T steps of P neurons (a bf16 or
+    f32 cotangent, 16-byte aligned operands), as its C library reports it:
+    the layout the switch picks, `width` (neurons a thread's vector in the
+    stream, a block in the ring), threads a block, the grid, `steps` (a
+    load group in the stream, a ring stage), ring stages, SMs. Needs a
+    card."""
+    got = (ctypes.c_int * 7)()
+    _build.check(_build.library().lif_bwd_launch(t, p, int(bf16), got),
+                 "lif_bwd_launch")
+    layout, width, threads, grid, steps, stages, sms = got
+    return {"layout": BWD_LAYOUTS[layout], "width": width,
+            "threads": threads, "grid": grid, "steps": steps,
+            "stages": stages, "sms": sms}
+
+
+def _bwd(vres, g, layout, decay, v_th, soft_reset, surrogate_alpha):
+    """The backward in `layout` (-1: the switch's pick), one launch
+    counted as ``lif_bwd`` or, for a bf16 g, ``lif_bwd_bf16``; the plain
+    version on CPU tensors."""
     if vres.shape != g.shape:
         raise ValueError(f"lif_bwd: vres {tuple(vres.shape)} and g "
                          f"{tuple(g.shape)} differ")
@@ -308,13 +328,40 @@ def lif_bwd(vres: torch.Tensor, g: torch.Tensor, *, decay: float = 0.5,
     dx = torch.empty_like(g)
     t, p = _flat(g)
     lib = _build.library()
-    entry = lib.lif_bf16_backward if bf16 else lib.lif_backward
+    args = (vres.data_ptr(), g.data_ptr(), dx.data_ptr(), t, p, float(decay),
+            float(v_th), int(soft_reset), surrogate_alpha / 2.0,
+            0.5 * math.pi * surrogate_alpha)
     _build.LAUNCHES[name] += 1
-    _build.check(entry(
-        vres.data_ptr(), g.data_ptr(), dx.data_ptr(), t, p, float(decay),
-        float(v_th), int(soft_reset), surrogate_alpha / 2.0,
-        0.5 * math.pi * surrogate_alpha, _build.stream()), name)
+    if layout < 0:
+        entry = lib.lif_bf16_backward if bf16 else lib.lif_backward
+        code = entry(*args, _build.stream())
+    else:
+        code = lib.lif_bwd_forced(*args, int(bf16), layout, _build.stream())
+    _build.check(code, name)
     return dx
+
+
+def lif_bwd(vres: torch.Tensor, g: torch.Tensor, *, decay: float = 0.5,
+            v_th: float = 1.0, soft_reset: bool = True,
+            surrogate_alpha: float = 2.0) -> torch.Tensor:
+    """vres: (T, ...) f32, g: (T, ...) f32 or bf16 -> dx, the drive's
+    cotangent in g's dtype. A bf16 g launches the bf16 instance (u in f32,
+    dx rounded once), counted apart as ``lif_bwd_bf16``. The layout is the
+    one `bwd_launch` reports for the shape (the cp.async ring where the
+    slab ring's TMA cannot describe an operand)."""
+    return _bwd(vres, g, -1, decay, v_th, soft_reset, surrogate_alpha)
+
+
+def lif_bwd_forced(vres: torch.Tensor, g: torch.Tensor, layout: str, *,
+                   decay: float = 0.5, v_th: float = 1.0,
+                   soft_reset: bool = True,
+                   surrogate_alpha: float = 2.0) -> torch.Tensor:
+    """`lif_bwd` in the named layout (one of BWD_LAYOUTS), whatever the
+    switch would pick: the card tests and the layout sweep hold each
+    layout against the plain version. ``tma_ring`` on operands TMA cannot
+    describe raises. On a CPU tensor, the plain version."""
+    return _bwd(vres, g, BWD_LAYOUTS.index(layout), decay, v_th, soft_reset,
+                surrogate_alpha)
 
 
 # ------------------------------------------------- differentiable fires

@@ -697,6 +697,130 @@ def test_cuda_bf16_fire_under_grad_takes_the_bf16_residual_kernels(
     assert torch.equal(dx, lif_scan.lif_bwd_plain(vres, torch.ones_like(x)))
 
 
+# Row 3's layouts: T across one and many 32-step ring stages (ragged
+# ones too), P under one slab, at qwen2-moe's shared experts, ragged past
+# them (the TMA ring cannot describe its rows) and at 6144 slabs.
+BWD_STEPS = (1, 3, 4, 257, 2048)
+BWD_NEURONS = (37, 5632, 5635, 64 * 1024 * 3)
+
+
+def _bwd_operands(device, t, p, dtype, offset=0):
+    """vres (f32, around the threshold) and g of `dtype`, (T, P), their
+    data `offset` elements into their buffers."""
+    gen = torch.Generator(device=device).manual_seed(7919 * t + p + offset)
+    vres = torch.randn(t * p + offset, generator=gen, device=device) * 1.3 \
+        + 0.5
+    g = torch.randn(t * p + offset, generator=gen, device=device).to(dtype)
+    return vres[offset:].view(t, p), g[offset:].view(t, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", lif_scan.BWD_LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("p", BWD_NEURONS)
+@pytest.mark.parametrize("t", BWD_STEPS)
+def test_cuda_bwd_layouts_match_plain(cuda_device, t, p, dtype, layout):
+    """Row 3 in each layout (the stream, the slab ring by TMA, the same
+    ring by cp.async) equals its plain version bit for bit, f32 and bf16
+    cotangents, soft and hard reset, alpha 2 and 3. The TMA ring refuses
+    rows whose pitch is not a multiple of 16 bytes, where the switch
+    takes the cp.async ring."""
+    vres, g = _bwd_operands(cuda_device, t, p, dtype)
+    if layout == "tma_ring" and p % (16 // g.element_size()) != 0:
+        with pytest.raises(RuntimeError, match="lif_bwd"):
+            lif_scan.lif_bwd_forced(vres, g, layout)
+        return
+    for soft in (True, False):
+        for alpha in (2.0, 3.0):
+            kw = dict(decay=0.5, v_th=1.0, soft_reset=soft,
+                      surrogate_alpha=alpha)
+            dx = lif_scan.lif_bwd_forced(vres, g, layout, **kw)
+            assert dx.dtype == dtype
+            assert torch.equal(dx, lif_scan.lif_bwd_plain(vres, g, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("t,p", [(2048, 5632), (257, 37)])
+def test_cuda_bwd_unaligned_views_take_the_async_ring(cuda_device, t, p,
+                                                      dtype):
+    """Views whose data start one element past a 16-byte boundary: the
+    TMA ring refuses them, and the switch's pick (the ring at these
+    lengths) runs on the cp.async ring, bit for bit with the plain
+    version, as does the cp.async ring forced and the stream's scalar
+    path."""
+    vres, g = _bwd_operands(cuda_device, t, p, dtype, offset=1)
+    assert vres.data_ptr() % 16 and g.data_ptr() % 16
+    assert lif_scan.bwd_launch(t, p, dtype == torch.bfloat16)["layout"] \
+        != "stream"
+    with pytest.raises(RuntimeError, match="lif_bwd"):
+        lif_scan.lif_bwd_forced(vres, g, "tma_ring")
+    for soft in (True, False):
+        kw = dict(decay=0.5, v_th=1.0, soft_reset=soft, surrogate_alpha=3.0)
+        want = lif_scan.lif_bwd_plain(vres, g, **kw)
+        assert torch.equal(lif_scan.lif_bwd(vres, g, **kw), want)
+        for layout in ("async_ring", "stream"):
+            assert torch.equal(
+                lif_scan.lif_bwd_forced(vres, g, layout, **kw), want)
+
+
+@pytest.mark.cuda
+def test_cuda_bwd_switch_takes_the_ring_at_long_t_on_few_neurons(
+        cuda_device):
+    """The switch's picks as the C library reports them: the TMA slab
+    ring for qwen2-moe's shared-expert backward (2048, 5632), 32 neurons
+    a block (ten warps: the walker, eight term warps, the producer), 176
+    blocks, 32-step stages, 64 KB of ring (60 KB in bf16); the stream for
+    SpikingFormer's stage-1 cotangent (4, 32*1024*96) and the LM's hidden
+    fire (2, 8*128*5632). Each call is one launch, counted by dtype,
+    whatever the layout."""
+    for bf16, stages in ((True, 6), (False, 8)):
+        ring = lif_scan.bwd_launch(2048, 5632, bf16)
+        assert ring == {"layout": "tma_ring", "width": 32, "threads": 320,
+                        "grid": 176, "steps": 32, "stages": stages,
+                        "sms": ring["sms"]}
+    stream = lif_scan.bwd_launch(4, 32 * 1024 * 96, False)
+    assert (stream["layout"], stream["width"], stream["threads"]) == \
+        ("stream", 4, 128)
+    assert lif_scan.bwd_launch(2, 8 * 128 * 5632, True)["layout"] == "stream"
+    vres, g = _bwd_operands(cuda_device, 40, 5632, torch.bfloat16)
+    reset_launch_counts()
+    for layout in lif_scan.BWD_LAYOUTS:
+        lif_scan.lif_bwd_forced(vres, g, layout)
+    lif_scan.lif_bwd(vres, g.float())
+    counts = launch_counts()
+    assert (counts["lif_bwd_bf16"], counts["lif_bwd"]) == (3, 1)
+    assert sum(counts.values()) == 4
+
+
+@pytest.mark.cuda
+def test_cuda_bwd_kernels_do_not_spill(cuda_device, tmp_path):
+    """Every instance of row 3's kernels (the stream, the ring with a TMA
+    and with a cp.async producer, f32 and bf16) compiles without a
+    register spill (ptxas's report, the library's own flags)."""
+    import re
+    import subprocess
+
+    from repro_torch.kernels import _build
+    log = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-c", str(_build.CSRC / "lif.cu"),
+         "-o", str(tmp_path / "lif.o")], capture_output=True, text=True,
+        check=True)
+    entry, entries = None, 0
+    for line in (log.stdout + log.stderr).splitlines():
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            entry = found.group(1) if "lif_bwd_" in found.group(1) else None
+        elif entry and "spill" in line:
+            assert re.search(r"\b0 bytes spill stores, 0 bytes spill loads",
+                             line), (entry, line)
+            entries += 1
+            entry = None
+    assert entries == 3 * 2          # stream, TMA ring, cp.async ring x 2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("p,dw,g", [(64, 12, 2), (256, 14, 4), (64, 13, 8),
                                     (96, 4, 8), (30, 5, 3), (32, 1, 2),

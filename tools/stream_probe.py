@@ -34,7 +34,11 @@ LIF fire
 32*1024*96) f32, plain and residual, and the LM's hidden drives (2,
 8*5632) and (2, 8*1024*5632) bf16: back-to-back calls (`ms`), the kernel
 alone in a CUDA graph (`device_ms`), the byte bound and a device copy of
-the same bytes (`Tensor.copy_`). The counts fires (csrc/lif.cu
+the same bytes (`Tensor.copy_`). Row 3's surrogate backward (csrc/lif.cu,
+both instances, `probe_bwd`) at the stage-1 cotangent, the LM's hidden
+fires and qwen2-moe's shared-expert drive (2048, 5632): `ms`,
+`device_ms`, the byte bound and the layout the switch picks, each other
+build's entry in turns from CUDA graphs. The counts fires (csrc/lif.cu
 `lif_counts_kernel`: rows 4, 6 and 5) at chip_smoke's FIRE_DRIVES, each
 with its launch, `device_ms`, the byte bound, a device copy moving as
 many bytes and a sum of the drive (`read_ms`, its bytes read once). The
@@ -77,6 +81,7 @@ then one JSON line per case; exits nonzero on a mismatch."""
 import ctypes
 import functools
 import json
+import math
 import re
 import sys
 from pathlib import Path
@@ -97,6 +102,8 @@ APEC_ENTRIES = ("apec_matmul_csr_forward", "apec_matmul_packed_csr_forward")
 # entry (absent from older builds).
 DECOMPOSE_ENTRIES = ("apec_decompose_forward",
                      "apec_decompose_spikes_forward")
+# Row 3's two C entries, f32 and bf16 cotangents (likewise).
+BWD_ENTRIES = ("lif_backward", "lif_bf16_backward")
 # The serial CSR kernels 11 and 13 (likewise).
 WALK_ENTRIES = ("spike_matmul_csr_forward",
                 "spike_matmul_packed_csr_forward")
@@ -111,9 +118,10 @@ ENTRIES = WALK_ENTRIES + tuple(GATED_ENTRIES) + \
            "spike_matmul_packed_csr_pipe_forward", "lif_forward",
            "lif_bf16_forward", "lif_fwd_forward", "lif_counts_forward",
            "lif_counts_packed_forward", "lif_counts_fwd_forward") + \
-    APEC_ENTRIES + DECOMPOSE_ENTRIES
+    APEC_ENTRIES + DECOMPOSE_ENTRIES + BWD_ENTRIES
 PTXAS_KERNELS = ("pred_tma_kernel", "pred_ring_kernel",
                  "pred_stream_kernel", "csr_pipe_kernel", "lif_kernel",
+                 "lif_bwd_",
                  "lif_counts_kernel",
                  "sdsa_or_kernel", "sdsa_causal_kernel", "apec_walk_kernel",
                  "apec_csr_kernel", "csr_walk_kernel", "csr_matmul_kernel",
@@ -537,6 +545,64 @@ def probe_fires(torch, device, this, others):
             ok &= same
         rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         print(json.dumps(rec), flush=True)
+    return ok
+
+
+def bwd_call(lib, entry, vres, g, dx):
+    from repro_torch.kernels import _build
+    t, p = g.shape
+    _build.check(getattr(lib, entry)(
+        vres.data_ptr(), g.data_ptr(), dx.data_ptr(), t, p, LIF_KW["decay"],
+        LIF_KW["v_th"], LIF_KW["soft_reset"], 1.0, 0.5 * math.pi * 2.0,
+        _build.stream()), entry)
+    return dx
+
+
+def probe_bwd(torch, device, this, others):
+    """Row 3's surrogate backward (csrc/lif.cu) at SpikingFormer's stage-1
+    cotangent (4, 32*1024*96) f32, the LM's hidden fires (2, 8*5632)
+    decode, (2, 8*128*5632) training and (2, 8*1024*5632) prefill in
+    bf16, and qwen2-moe's shared-expert drive (2048, 5632) T = 2048, bf16
+    and f32 (alpha 2): back-to-back calls (`ms`), the kernel alone in a
+    CUDA graph (`device_ms`), the byte bound, the launch the C library
+    reports; each other build's entry from CUDA graphs in turns with this
+    one's (`graph_turns`), the same bits."""
+    from repro_torch.kernels import lif_scan
+    dgen = torch.Generator(device=device).manual_seed(cs.SEED + 3)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = (("lif_backward", "stage1_f32", (cs.T, cs.B * 1024 * 96), f32),
+             ("lif_backward", "shared_expert_f32", (2048, 5632), f32),
+             ("lif_bf16_backward", "decode_hidden",
+              (2, cs.LM_BATCH * 5632), bf16),
+             ("lif_bf16_backward", "train_hidden",
+              (2, cs.LM_TRAIN_BATCH * cs.LM_TRAIN_SEQ * 5632), bf16),
+             ("lif_bf16_backward", "prefill_hidden",
+              (2, cs.LM_BATCH * cs.LM_PROMPT * 5632), bf16),
+             ("lif_bf16_backward", "shared_expert", (2048, 5632), bf16))
+    ok = True
+    for entry, label, shape, dt in cases:
+        vres = torch.randn(shape, generator=dgen, device=device) * 0.8 + 0.6
+        g = torch.randn(shape, generator=dgen, device=device).to(dt)
+        run = {name: functools.partial(bwd_call, lib, entry, vres, g,
+                                       torch.empty_like(g))
+               for name, lib in (("this", this), *others.items())}
+        n_bytes = g.numel() * (4 + 2 * g.element_size())
+        rec = {"kernel": entry, "case": label, "shape": list(shape),
+               "launch": lif_scan.bwd_launch(*shape, dt == bf16),
+               "ms": cs.cuda_ms(torch, run["this"]),
+               "device_ms": cs.graph_ms(torch, run["this"]),
+               "bound_ms": n_bytes / cs.HBM_BYTES_PER_S * 1e3}
+        for name in others:
+            both = graph_turns(torch, {"this": run["this"],
+                                       name: run[name]})
+            same = torch.equal(run["this"](), run[name]())
+            rec[name] = {"device_ms": both[name],
+                         "this_device_ms": both["this"], "equal": same}
+            ok &= same
+        rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+        print(json.dumps(rec), flush=True)
+        del vres, g, run
+        torch.cuda.empty_cache()
     return ok
 
 
@@ -981,6 +1047,7 @@ def main(argv) -> int:
     if "fires" in only:
         ok &= probe_fires(torch, device, this, having(
             others, "lif_forward", "lif_fwd_forward", "lif_bf16_forward"))
+        ok &= probe_bwd(torch, device, this, having(others, *BWD_ENTRIES))
     if "counts" in only:
         ok &= probe_counts(torch, device, this, having(
             others, *(entry for entry, _ in COUNTS_ENTRIES)))
