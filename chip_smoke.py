@@ -227,7 +227,8 @@ Phases, each printed on its own line:
       cross state, as the reference's); (o4) REDUCED_ARCHS' prefill and
       decode steps in both modes, equal to `ref`; (o5) qwen3-4b,
       phi-3-vision-4.2b (with its stub patch embeddings) and
-      internlm2-20b uncut, one after another: a spiking prefill of 8 x
+      internlm2-20b at full width, 4 layers each (O5_LAYERS), one after
+      another: a spiking prefill of 8 x
       128 and 4 greedy decode steps after a chunked prefill, on the
       kernels and on `ref`, logits and tokens bit for bit, exact
       launches, peak under 80 GB;
@@ -359,6 +360,20 @@ Phases, each printed on its own line:
       spike differs, their share within FREE_RUNNING_SPIKE_TOL); (t4) the
       five `repro_torch.examples` mains on the card, cut (EXAMPLE_ARGS):
       clean exits and finite numbers;
+  (u) ranks of a process group on the card under `gloo` (phase_u's
+      doc): data-parallel TinyLlama, the expert-parallel qwen2-moe
+      prefill, the elastic drill across ranks, one `nccl` rank;
+  (v) every leaf placed on ranks by `param_specs` (phase_v's doc):
+      (v1) TinyLlama-1.1B uncut on a (1, 2) tensor-parallel rank mesh, a
+      prefill and three steps beside the one-process run and its witness
+      (`placement.witness`), the fire split over the hidden width bit
+      for bit; (v2) the same with `pure_fsdp` on (2, 1), each rank's
+      peak beside (u1)'s; (v3) qwen3-4b on (1, 2), a prefill and decode
+      steps bit for bit with the witness; (v4) a TP / FSDP state saved
+      on (2, 2) and restored onto (1, 4); per rank the params held, the
+      all-gathers, reduce-scatters and all-reduces a step (calls, bytes,
+      ms), exact launches; each line with the card's name and power
+      limit;
   (d) one JSON line listing every kernel with its launches on the main
       paths ((c) and (h) for inference kernels, (f) for the training
       ones, (t2) for the status entry, (t1) and (t3) adding theirs, (i) for the APEC ones, (j) for the packed ones, (k), (m) and
@@ -4474,9 +4489,9 @@ MOE_BATCH, MOE_PROMPT = 8, 128
 MOE_FIRE_NAMES = ("ln1", "q", "k", "v", "ln2", "experts", "shared")
 MOE_PREFILL_LAUNCHES = {"lif_bf16": 7 * 24, "sdsa_causal": 24}
 MOE_DECODE_LAUNCHES = {"lif_bf16": 7 * 24}
-# The scheduler's traffic: 4 requests of 5-16 prompt tokens, 8 new each,
-# in two waves into 4 slots.
-MOE_SERVE_SLOTS, MOE_SERVE_REQUESTS, MOE_SERVE_NEW = 4, 4, 8
+# The scheduler's traffic: 4 requests of 5-16 prompt tokens, 4 new each
+# (the script's time), in two waves into 4 slots.
+MOE_SERVE_SLOTS, MOE_SERVE_REQUESTS, MOE_SERVE_NEW = 4, 4, 4
 MOE_SERVE_WAVES = ((2, 2), (2, 0))
 MOE_SOLO = (0, 3)
 # whisper-medium (arXiv:2212.04356): 24 encoder and 24 decoder layers, d
@@ -4934,31 +4949,33 @@ def prefill_and_decode(torch, cfg, params, tokens, frontend, spiking, steps,
     return logits, torch.stack(outs), torch.stack(toks, 1), counts
 
 
-# (o5): the one-card attention-family configs at full width and depth,
-# bf16 weights from SEED: qwen3-4b (36 layers, d 2560; 4,411,424,256
-# parameters), phi-3-vision-4.2b (32 layers, d 3072, 1024 stub patch
-# embeddings prepended; 3,830,516,736) and internlm2-20b (48 layers, d
-# 6144; 19,861,149,696), one after another with the card freed between
+# (o5): the one-card attention-family configs at full width, their depth
+# cut to O5_LAYERS layers (the script's time; (v3) serves qwen3-4b at its
+# full 36), bf16 weights from SEED: qwen3-4b (d 2560; 4,411,424,256
+# parameters at 36 layers), phi-3-vision-4.2b (d 3072, 1024 stub patch
+# embeddings prepended; 3,830,516,736 at 32) and internlm2-20b (d 6144;
+# 19,861,149,696 at 48), one after another with the card freed between
 # them. Each layer of a spiking prefill fires ln1, q, k, v, ln2 and the
 # MLP's hidden drive and runs one causal SDSA; a decode step (and each
 # position of the chunked prefill) fires the same six.
 O5_ARCHS = ("qwen3-4b", "phi-3-vision-4.2b", "internlm2-20b")
 O5_BATCH, O5_PROMPT, O5_DECODE_STEPS = 8, 128, 4
+O5_LAYERS = 4
 
 
 def phase_full_archs(torch, device, card, archs=O5_ARCHS):
-    """(o5): `archs` uncut, spiking: a `prefill` of O5_BATCH x O5_PROMPT
-    tokens and O5_DECODE_STEPS greedy decode steps after a chunked
-    prefill (`prefill_and_decode`) on the kernels and on `ref`: logits and
-    tokens bit for bit, launches exact, peak under the card's memory.
-    Returns the launches."""
+    """(o5): `archs` at full width and O5_LAYERS layers, spiking: a
+    `prefill` of O5_BATCH x O5_PROMPT tokens and O5_DECODE_STEPS greedy
+    decode steps after a chunked prefill (`prefill_and_decode`) on the
+    kernels and on `ref`: logits and tokens bit for bit, launches exact,
+    peak under the card's memory. Returns the launches."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data.synthetic import markov_tokens
     from repro_torch.kernels import dispatch
     from repro_torch.models import lm
     totals = {name: 0 for name in O_KERNELS}
     for arch in archs:
-        cfg = get_config(arch)
+        cfg = get_config(arch).replace(n_layers=O5_LAYERS)
         resident = free_card(torch)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -5051,7 +5068,9 @@ def phase_archs(torch, device, card):
 XLSTM_ARCH = "xlstm-350m"
 XLSTM_LAUNCHES = {"lif_bf16": 24}
 XLSTM_FIRING_VTH = 0.02
-XLSTM_DECODE_STEPS = 16
+# Each of (p1)'s six runs (three variants on two routes) decodes this
+# many host-bound steps; 8 since (v) joined the script (16 before).
+XLSTM_DECODE_STEPS = 8
 # jamba-1.5-large-398b (arXiv:2403.19887) at its full widths over one
 # period: 8 layers, 7 Mamba and the attention layer at index 3, each with
 # its 24576-wide MLP (d 8192, d_inner 16384, d_state 16, 64 heads with 8
@@ -6472,10 +6491,10 @@ def phase_mesh(torch, device, card):
 # XLSTM_TRAIN_SEQ.
 S_TRAIN_BATCH, S_TRAIN_SEQ = 8, 128
 # The xLSTM's recurrences are host-bound Python loops whose time goes
-# with the steps over time, not the batch: (s1) trains on 32 tokens a
-# sequence (a step at 128 took 11.5-14.3 s on an NVIDIA H100 80GB HBM3,
-# 700 W).
-XLSTM_TRAIN_SEQ = 32
+# with the steps over time, not the batch: (s1) trains on 16 tokens a
+# sequence, for the script's time (a step at 128 took 11.5-14.3 s, at 32
+# 3.8-6.0 s, on an NVIDIA H100 80GB HBM3, 700 W).
+XLSTM_TRAIN_SEQ = 16
 MOE_TRAIN_LAYERS = 4
 MOE_TRAIN_PEAK_LIMIT = 70e9
 JAMBA_TRAIN_BATCH = 4
@@ -7460,6 +7479,7 @@ U1_LOSS_RTOL = 1e-3
 U1_GRAD_GAP_LIMIT = 2 * 0.01573
 U_KERNELS = ("lif_fwd_bf16", "lif_bwd_bf16", "sdsa_causal", "lif_bf16")
 DRILL_AXES = ("data", "model")
+U1_PEAKS: list = []             # (u1)'s ranks' peaks, beside (v2)'s
 
 
 def rank_sync(torch, dev):
@@ -7698,6 +7718,7 @@ def phase_dp_train(torch, device, card):
                   f"(u1) rank {r['rank']} step {i}: loss {s['loss']}, "
                   f"grad norm {s['grad_norm']}")
     peaks = sum(r["peak_bytes"] for r in ranks)
+    U1_PEAKS[:] = [r["peak_bytes"] for r in ranks]
     loss0, ref0 = ranks[0]["losses"][0], ranks[0]["one_process_loss"]
     emit("dp_train", card=card, arch=cfg.name, ranks=len(ranks),
          batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, steps=LM_TRAIN_STEPS,
@@ -7805,6 +7826,16 @@ def planted_ep_rounding(m):
         moe._combine = orig
 
 
+def bank_leaves(whole, specs) -> list:
+    """Per leaf of `whole`, in `adamw.leaves` order: whether it is an
+    expert bank its spec splits over `model` (expert parallelism)."""
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding
+    return adamw.leaves(sharding._zip_specs(
+        lambda path, leaf, spec: sharding._bank_dim(path, spec) is not None,
+        whole, specs))
+
+
 def u2_rank(cfg, tokens_np) -> dict:
     """(u2) one rank of the (1, 2) rank mesh: its half of the expert
     banks (the ranks take turns drawing the whole tree from the seed and
@@ -7831,7 +7862,7 @@ def u2_rank(cfg, tokens_np) -> dict:
             del full
             rank_free(torch, dev)
         distributed.barrier()
-    sliced = sharding.sliced_leaves(whole, specs, mesh)
+    sliced = bank_leaves(whole, specs)
     leaves = adamw.leaves(params)
     banks = [fingerprint(torch, t) for t, s in zip(leaves, sliced) if s]
     bank_shapes = [list(t.shape) for t, s in zip(leaves, sliced) if s]
@@ -7868,8 +7899,11 @@ def u2_rank(cfg, tokens_np) -> dict:
 def phase_ep_prefill(torch, device, card):
     """(u2): qwen2-moe-a2.7b uncut with `moe_shard_map=True` on a (data 1,
     model 2) rank mesh of two `gloo` ranks on the card, each holding 30
-    routed experts a layer: the spiking prefill of MOE_BATCH x MOE_PROMPT
-    tokens bit for bit with the one-process logical-mesh form; the first
+    routed experts a layer (and its half of the attention heads and the
+    shared experts' d_ff, every one-process form below running those per
+    model position, `placement.witness`): the spiking prefill of
+    MOE_BATCH x MOE_PROMPT tokens bit for bit with the one-process
+    logical-mesh form; the first
     MoE layer on the same input within 2^-7 * max|ref| of `moe_apply`'s
     ((o1)'s: the two sums of the expert partials round apart in bf16),
     the logits' distance to `moe_apply`'s printed (the later layers'
@@ -7883,7 +7917,7 @@ def phase_ep_prefill(torch, device, card):
     from repro_torch.data.synthetic import markov_tokens
     from repro_torch.launch import distributed
     from repro_torch.launch.mesh import make_mesh, use_concrete_mesh
-    from repro_torch.models import lm
+    from repro_torch.models import lm, placement
     from repro_torch.optim import adamw
     from repro_torch.runtime import sharding
     base = get_config(MOE_ARCH)
@@ -7894,16 +7928,21 @@ def phase_ep_prefill(torch, device, card):
     params = lm.init_params(cfg, seed=SEED, device=device)
     tokens = torch.from_numpy(tokens_np).long().to(device)
     logical = make_mesh(U2_MESH, DRILL_AXES, devices=device)
-    with torch.inference_mode():
+    # The ranks' attention and shared experts are tensor-parallel too
+    # (phase (v)): every one-process form here runs them per model
+    # position on the logical mesh (`placement.witness`), so what the
+    # forms below differ in is the MoE alone.
+    with torch.inference_mode(), use_concrete_mesh(logical), \
+            placement.witness():
         with moe_drops(torch) as drops, first_moe_call("moe_apply") as layer0:
             ref = lm.prefill(base, params, tokens, True)
-        with use_concrete_mesh(logical), ep_drops() as logical_drops:
+        with ep_drops() as logical_drops:
             want = lm.prefill(cfg, params, tokens, True)
         with planted_ep_rounding(U2_MESH[1]), moe_drops(torch) as w_drops:
             witness = lm.prefill(base, params, tokens, True)
     whole = lm.abstract_params(cfg)
     specs = sharding.param_specs(cfg, whole, logical)
-    sliced = sharding.sliced_leaves(whole, specs, logical)
+    sliced = bank_leaves(whole, specs)
     m = U2_MESH[1]
     halves = []
     for j in range(m):
@@ -8008,8 +8047,10 @@ def u3_drill_rank(cfg, mesh_shape, ck_dir, resume) -> dict:
     mgr = CheckpointManager(ck_dir, save_every=DRILL_SAVE_EVERY,
                             writer=mesh.rank == 0)
     if not resume:
-        losses = rank_drill_loop(cfg, mesh, *fresh, batches, 0,
-                                 DRILL_STEPS, mgr)
+        from repro_torch.runtime import sharding
+        specs = sharding.state_specs(sharding.param_specs(cfg, params, mesh))
+        losses = rank_drill_loop(cfg, mesh, *sharding.local_params(
+            fresh, specs, mesh), batches, 0, DRILL_STEPS, mgr)
         return {"losses": losses}
     step, (p, o) = elastic.reshard_restore(cfg, mgr, fresh, mesh)
     losses = rank_drill_loop(cfg, mesh, p, o, batches, step, DRILL_STEPS) \
@@ -8176,6 +8217,650 @@ def phase_u(torch, device, card):
     return totals
 
 
+# ------------------------------------------------------------ phase (v)
+# Every leaf placed on ranks by `param_specs`: tensor-parallel, FSDP and
+# pure-FSDP placement, on ranks that share cuda:0 under `gloo` as (u)'s.
+# One 2-rank world runs (v1)-(v3), one 4-rank world (v4).
+V_TP_MESH, V_FSDP_MESH = (1, 2), (2, 1)
+V_SAVE_MESH, V_RESTORE_MESH = (2, 2), (1, 4)
+V_SERVE_ARCH = "qwen3-4b"
+V_BATCH, V_PROMPT, V_DECODE_STEPS = 8, 128, 4
+V_STATE_TOKENS = 32             # (v3)'s decode state: the prompt's first
+# Step 0's gaps to the one-process step on the same rows, gated at twice
+# the readings of the first card runs (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md). (v1) the tensor-parallel step: the loss's relative gap, and
+# the worst leaf's relative L2 gradient gap, which reads above 1 because
+# its row-split partials, rounded to bf16 before they are summed, flip
+# spikes from block 0 on; what holds its products to the unsharded ones
+# is the same prefill in f32 (`block_drift`), where that rounding is
+# 2^16 times finer: the worst block's max|d| / max|x| read 1.0045e-7.
+# (v2) the pure-FSDP step: its loss read equal to the one-process loss
+# (gated equal), its worst gradient gap 1.5754% ((u1)'s: its bf16
+# gradient parts summed by the reduce-scatter).
+V1_LOSS_GAP_LIMIT = 2 * 0.0016254511
+V1_GRAD_GAP_LIMIT = 2 * 1.2765648
+V1_F32_DRIFT_LIMIT = 2 * 1.0044689e-7
+V2_GRAD_GAP_LIMIT = 2 * 0.015753871
+V_COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter")
+
+
+@contextlib.contextmanager
+def timed_collectives(torch, distributed, dev):
+    """While active, every call of the three collective wrappers of
+    `distributed` is timed (the card synchronised before and after) and
+    logged as (name, bytes of its result, seconds)."""
+    names = {"all_reduce": "all_reduce_", "all_gather": "all_gather",
+             "reduce_scatter": "reduce_scatter"}
+    origs = {k: getattr(distributed, v) for k, v in names.items()}
+    log: list = []
+
+    def timed(name):
+        def call(*args, **kwargs):
+            rank_sync(torch, dev)
+            t0 = time.perf_counter()
+            out = origs[name](*args, **kwargs)
+            rank_sync(torch, dev)
+            log.append((name, out.numel() * out.element_size(),
+                        time.perf_counter() - t0))
+            return out
+        return call
+
+    for k, v in names.items():
+        setattr(distributed, v, timed(k))
+    try:
+        yield log
+    finally:
+        for k, v in names.items():
+            setattr(distributed, v, origs[k])
+
+
+def collective_summary(log, steps: int = 1) -> dict:
+    """Per collective: calls, bytes and ms, over `steps` (a step's mean)."""
+    out = {}
+    for name in V_COLLECTIVES:
+        got = [(b, t) for n, b, t in log if n == name]
+        out[name] = {"calls": len(got) / steps,
+                     "bytes": sum(b for b, _ in got) / steps,
+                     "ms": sum(t for _, t in got) * 1e3 / steps}
+    return out
+
+
+def v_fire_split(torch, device, card, cfg):
+    """(v1)'s fire check on the card: the bf16 fire of TinyLlama-1.1B's
+    MLP drive (T x 8 x 128 tokens x d_ff) and of its query heads' drive,
+    whole and as two halves of the hidden width (a tensor-parallel rank's
+    part), the halves joined bit for bit the whole fire: LIF is
+    elementwise over neurons."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.layers import lif_fire
+    from repro_torch.models.lm import lif_cfg_of
+    lif = lif_cfg_of(cfg)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    t = cfg.spiking.t_steps
+    for name, width in (("mlp", cfg.d_ff), ("q", cfg.n_heads * cfg.head_dim)):
+        drive = (1.5 * torch.randn((t, V_BATCH * V_PROMPT, width),
+                                   generator=gen, device=device)).bfloat16()
+        with torch.inference_mode():
+            reset_launch_counts()
+            whole = lif_fire(drive, lif)
+            halves = [lif_fire(h.contiguous(), lif)
+                      for h in drive.chunk(2, dim=-1)]
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in launch_counts().items() if v}
+        joined = torch.cat(halves, dim=-1)
+        emit("tp_fire_split", card=card, drive=name, shape=list(drive.shape),
+             spikes=int(whole.float().sum().item()),
+             equal=bool(torch.equal(joined, whole)), launches=counts)
+        check(torch.equal(joined, whole), f"(v1) the {name} fire split in "
+              f"two differs from the whole fire")
+        check(counts.get("lif_bf16", 0) == 3, f"(v1) the {name} fire "
+              f"launched {counts}")
+
+
+def block_drift(torch, cfg, params, tokens, logical) -> dict:
+    """The prefill's block outputs, unsharded against the witness (its
+    row-split partials rounded before they are summed): per block, the
+    share of elements that differ and max|d| / max|x|; and the two
+    prefills' last-position logits."""
+    from repro_torch.launch.mesh import use_concrete_mesh
+    from repro_torch.models import lm, placement
+    orig, seen = lm._apply_block, []
+
+    def kept(*args, **kwargs):
+        x = orig(*args, **kwargs)
+        seen.append(x.detach().clone())
+        return x
+
+    lm._apply_block = kept
+    try:
+        with torch.inference_mode():
+            plain = lm.prefill(cfg, params, tokens, True)
+            n = len(seen)
+            with use_concrete_mesh(logical), placement.witness():
+                wit = lm.prefill(cfg, params, tokens, True)
+    finally:
+        lm._apply_block = orig
+    share, rel = [], []
+    for a, b in zip(seen[:n], seen[n:]):
+        share.append((a != b).float().mean().item())
+        rel.append(((a.float() - b.float()).abs().max() /
+                    a.float().abs().max().clamp_min(1e-30)).item())
+    return {"share_unequal": share, "max_rel_gap": rel,
+            "argmax_share_equal": (plain.argmax(-1) == wit.argmax(-1))
+            .float().mean().item(),
+            "logits_max_abs_gap": (plain - wit).abs().max().item(),
+            "logits_max": plain.abs().max().item()}
+
+
+def _v_tp_train(torch, cfg, mesh, dev, me, out):
+    """(v1) on this rank: rank 0's one-process references (the unsharded
+    prefill and step 0, and their `placement.witness` forms), then the
+    prefill and LM_TRAIN_STEPS `train_loop` steps on the rank mesh."""
+    from repro_torch.data.synthetic import markov_tokens
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import distributed, steps as steps_mod, train
+    from repro_torch.launch.mesh import make_mesh, use_concrete_mesh
+    from repro_torch.models import lm, placement
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding
+    tokens = torch.from_numpy(markov_tokens(
+        SEED, 0, 0, V_BATCH, V_PROMPT, cfg.vocab)[:, :V_PROMPT]).long() \
+        .to(dev)
+    kw = dict(batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, seed=SEED,
+              log_every=100)
+    whole = lm.abstract_params(cfg)
+    specs = sharding.param_specs(cfg, whole, mesh)
+    refs = {}
+    if me == 0:
+        logical = make_mesh(V_TP_MESH, DRILL_AXES, devices=dev)
+        params = lm.init_params(cfg, SEED, device=dev)
+        with torch.inference_mode():
+            reset_launch_counts()
+            refs["logits"] = lm.prefill(cfg, params, tokens, True).cpu()
+            rank_sync(torch, dev)
+            refs["launches"] = launch_counts()
+            with use_concrete_mesh(logical), placement.witness():
+                refs["witness_logits"] = lm.prefill(cfg, params, tokens,
+                                                    True).cpu()
+        # Where the unsharded and the tensor-parallel arithmetic part: a
+        # bf16 rounding of the row-split partials in block 0, spike flips
+        # from there on; in f32 the same split rounds 2^16 times finer.
+        refs["drift"] = block_drift(torch, cfg, params, tokens, logical)
+        refs["drift_f32"] = block_drift(
+            torch, cfg, lm._tree_map(lambda t: t.float(), params), tokens,
+            logical)
+        del params
+        with first_update(adamw) as got:
+            ref = train.train_loop(cfg, steps=1, device=dev, **kw)
+        refs["loss0"] = ref["losses"][0]
+        refs["grads"] = [g.clone() for g in adamw.leaves(
+            sharding.local_params(adamw.unflatten(whole, got), specs, mesh))]
+        del ref, got
+        rank_free(torch, dev)
+        with first_update(adamw) as got, placement.witness():
+            wit = train.train_loop(cfg, steps=1, device=dev, mesh=logical,
+                                   **kw)
+        refs["witness_loss0"] = wit["losses"][0]
+        refs["witness_grads"] = adamw.leaves(sharding.local_params(
+            adamw.unflatten(whole, got), specs, mesh))
+        del wit, got
+        rank_free(torch, dev)
+    distributed.barrier()
+    for turn in range(distributed.world_size()):
+        if turn == me:
+            full = lm.init_params(cfg, SEED, device=dev)
+            params = sharding.local_params(full, specs, mesh)
+            del full
+            rank_free(torch, dev)
+        distributed.barrier()
+    with torch.inference_mode(), use_concrete_mesh(mesh):
+        reset_launch_counts()
+        rank_sync(torch, dev)
+        t0 = time.perf_counter()
+        logits = lm.prefill(cfg, params, tokens, True)
+        rank_sync(torch, dev)
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = launch_counts()
+    del params
+    rank_free(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    with rank_steps(torch, steps_mod, dev) as (log, grads_fp), \
+            first_update(adamw) as got, \
+            timed_collectives(torch, distributed, dev) as coll:
+        res = train.train_loop(cfg, steps=LM_TRAIN_STEPS, mesh=mesh, **kw)
+    out.update(prefill_s=prefill_s, prefill_launches=prefill_launches,
+               losses=res["losses"], steps=log, grads_fp=grads_fp,
+               peak_bytes=rank_peak(torch, dev),
+               collectives=collective_summary(coll, LM_TRAIN_STEPS),
+               held_bytes=sum(t.numel() * t.element_size()
+                              for t in adamw.leaves(res["params"])))
+    if me == 0:
+        names = leaf_names(res["params"])
+        out.update(
+            logits_equal_witness=bool(torch.equal(logits.cpu(),
+                                                  refs["witness_logits"])),
+            logits_gap=(logits.cpu() - refs["logits"]).abs().max().item(),
+            logits_max=refs["logits"].abs().max().item(),
+            tokens_equal_one_process=float(
+                (logits.cpu().argmax(-1) == refs["logits"].argmax(-1))
+                .float().mean()),
+            one_process_launches=refs["launches"],
+            drift=refs["drift"], drift_f32=refs["drift_f32"],
+            loss0_ref=refs["loss0"], witness_loss0=refs["witness_loss0"],
+            grad_gap=rel_l2(torch, names, got, refs["grads"]),
+            witness_unequal=[n for n, a, w in zip(
+                names, got, refs["witness_grads"]) if not torch.equal(a, w)],
+            grads_finite=all(bool(torch.isfinite(g).all()) for g in got))
+    del res
+    rank_free(torch, dev)
+
+
+def _v_fsdp_train(torch, cfg, mesh, dev, me, out):
+    """(v2) on this rank: rank 0's one-process step 0 on the same rows and
+    (u1)'s `split_grads` witness, then LM_TRAIN_STEPS pure-FSDP steps."""
+    from repro_torch.launch import distributed, steps as steps_mod, train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding
+    kw = dict(batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, seed=SEED,
+              log_every=100)
+    whole = lm.abstract_params(cfg)
+    specs = sharding.param_specs(cfg, whole, mesh)
+    refs = {}
+    if me == 0:
+        with first_update(adamw) as got:
+            ref = train.train_loop(cfg, steps=1, device=dev, mesh=make_mesh(
+                V_FSDP_MESH, DRILL_AXES, devices=dev), **kw)
+        refs["loss0"] = ref["losses"][0]
+        refs["grads"] = adamw.leaves(sharding.local_params(
+            adamw.unflatten(whole, got), specs, mesh))
+        del ref, got
+        rank_free(torch, dev)
+        refs["witness"] = adamw.leaves(sharding.local_params(
+            adamw.unflatten(whole, split_grads(torch, cfg, LM_TRAIN_BATCH,
+                                               LM_TRAIN_SEQ, dev)),
+            specs, mesh))
+        rank_free(torch, dev)
+    distributed.barrier()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    with rank_steps(torch, steps_mod, dev) as (log, grads_fp), \
+            first_update(adamw) as got, \
+            timed_collectives(torch, distributed, dev) as coll:
+        res = train.train_loop(cfg, steps=LM_TRAIN_STEPS, mesh=mesh, **kw)
+    out.update(losses=res["losses"], steps=log, grads_fp=grads_fp,
+               peak_bytes=rank_peak(torch, dev),
+               collectives=collective_summary(coll, LM_TRAIN_STEPS),
+               held_bytes=sum(t.numel() * t.element_size()
+                              for t in adamw.leaves(res["params"])))
+    if me == 0:
+        names = leaf_names(res["params"])
+        out.update(loss0_ref=refs["loss0"],
+                   grad_gap=rel_l2(torch, names, got, refs["grads"]),
+                   witness_unequal=[n for n, a, w in zip(
+                       names, got, refs["witness"]) if not torch.equal(a, w)],
+                   grads_finite=all(bool(torch.isfinite(g).all())
+                                    for g in got))
+    del res
+    rank_free(torch, dev)
+
+
+def _v_serve(torch, cfg, mesh, dev, me, out):
+    """(v3) on this rank: rank 0's one-process prefill and decode steps,
+    unsharded and as `placement.witness`, then the ranks' own."""
+    from repro_torch.data.synthetic import markov_tokens
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import distributed
+    from repro_torch.launch.mesh import make_mesh, use_concrete_mesh
+    from repro_torch.models import lm, placement
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding
+    tokens = torch.from_numpy(markov_tokens(
+        SEED, 0, 0, V_BATCH, V_PROMPT, cfg.vocab)[:, :V_PROMPT]).long() \
+        .to(dev)
+
+    def serve(params):
+        """Prefill logits, then the decode state over the prompt's first
+        V_STATE_TOKENS tokens and V_DECODE_STEPS greedy steps from the
+        prefill's next token: (logits, tokens, prefill launches, a decode
+        step's launches, state head counts, seconds)."""
+        reset_launch_counts()
+        rank_sync(torch, dev)
+        t0 = time.perf_counter()
+        logits = lm.prefill(cfg, params, tokens, True)
+        rank_sync(torch, dev)
+        prefill_s = time.perf_counter() - t0
+        pre = launch_counts()
+        _, state = lm.prefill_with_state(cfg, params,
+                                         tokens[:, :V_STATE_TOKENS], True)
+        tok, toks = logits.argmax(-1), []
+        step_launches = None
+        for i in range(V_DECODE_STEPS):
+            reset_launch_counts()
+            lg, state = lm.decode_step(cfg, params, state, tok,
+                                       V_STATE_TOKENS + i, True)
+            rank_sync(torch, dev)
+            step_launches = step_launches or launch_counts()
+            tok = lg.argmax(-1)
+            toks.append(tok)
+        heads = sorted({int(st.sdsa.status.shape[2]) for st in state
+                        if st.sdsa is not None})
+        return (logits.float().cpu(), torch.stack(toks).cpu(), pre,
+                step_launches, heads, prefill_s)
+
+    whole = lm.abstract_params(cfg)
+    specs = sharding.param_specs(cfg, whole, mesh)
+    refs = {}
+    for turn in range(distributed.world_size()):
+        if turn == me:
+            full = lm.init_params(cfg, SEED, device=dev)
+            if me == 0:
+                with torch.inference_mode():
+                    refs["plain"] = serve(full)
+                    with use_concrete_mesh(make_mesh(
+                            V_TP_MESH, DRILL_AXES, devices=dev)), \
+                            placement.witness():
+                        refs["witness"] = serve(full)
+            params = sharding.local_params(full, specs, mesh)
+            del full
+            rank_free(torch, dev)
+        distributed.barrier()
+    with torch.inference_mode(), use_concrete_mesh(mesh), \
+            timed_collectives(torch, distributed, dev) as coll:
+        got = serve(params)
+    out.update(logits=got[0], tokens=got[1], prefill_launches=got[2],
+               step_launches=got[3], heads=got[4], prefill_s=got[5],
+               collectives=collective_summary(coll),
+               held_bytes=sum(t.numel() * t.element_size() for t in
+                              adamw.leaves(params)))
+    if me == 0:
+        out.update(witness=refs["witness"][:2], plain=refs["plain"][:2],
+                   plain_launches=refs["plain"][2:4],
+                   plain_heads=refs["plain"][4])
+    del params
+    rank_free(torch, dev)
+
+
+def v_rank(cfg, serve_cfg) -> dict:
+    """(v1)-(v3) on one rank of the 2-rank world."""
+    import torch
+    from repro_torch.launch import distributed
+    from repro_torch.launch.mesh import make_rank_mesh
+    dev, me = distributed.device(), distributed.rank()
+    out = {"rank": me}
+    for key, fn, c, shape in (
+            ("v1", _v_tp_train, cfg, V_TP_MESH),
+            ("v2", _v_fsdp_train, cfg.replace(pure_fsdp=True), V_FSDP_MESH),
+            ("v3", _v_serve, serve_cfg, V_TP_MESH)):
+        mesh = make_rank_mesh(shape, DRILL_AXES)
+        out[key] = {"coords": mesh.coords()}
+        t0 = time.perf_counter()
+        fn(torch, c, mesh, dev, me, out[key])
+        out[key]["wall_s"] = time.perf_counter() - t0
+        distributed.barrier()
+    return out
+
+
+def v4_rank(cfg, ck_dir) -> dict:
+    """(v4) on one rank of the 4-rank world: two drill steps on the (2, 2)
+    rank mesh, the state saved with its TP and FSDP shards gathered by
+    rank 0, then restored onto the (1, 4) mesh (each leaf cut as it is
+    read), beside the whole snapshot cut by `local_params`."""
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data import synthetic
+    from repro_torch.launch import distributed
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import elastic, sharding
+    dev = distributed.device()
+    save_mesh = make_rank_mesh(V_SAVE_MESH, DRILL_AXES)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    fresh = (params, adamw.init(params, adamw.AdamWConfig(lr=1e-2)))
+    specs = sharding.state_specs(sharding.param_specs(cfg, params,
+                                                      save_mesh))
+    mgr = CheckpointManager(ck_dir, save_every=2,
+                            writer=save_mesh.rank == 0)
+    batches = [synthetic.lm_batch(0, 0, t, 8, 16, cfg.vocab)
+               for t in range(2)]
+    losses = rank_drill_loop(cfg, save_mesh, *sharding.local_params(
+        fresh, specs, save_mesh), batches, 0, 2, mgr)
+    mesh = make_rank_mesh(V_RESTORE_MESH, DRILL_AXES)
+    whole = lm.abstract_params(cfg)
+    target = (whole, adamw.init(whole))
+    t0 = time.perf_counter()
+    step, restored = elastic.reshard_restore(cfg, mgr, target, mesh)
+    restore_s = time.perf_counter() - t0
+    _, snap = mgr.restore_latest(target, dev)
+    new_specs = sharding.state_specs(sharding.param_specs(cfg, whole, mesh))
+    want = sharding.local_params(snap, new_specs, mesh)
+    gathered = list(sharding.full_leaves(restored, new_specs, mesh))
+    return {"rank": mesh.rank, "losses": losses, "step": step,
+            "restore_s": restore_s,
+            "shards_equal": all(torch.equal(a, b) for a, b in zip(
+                adamw.leaves(restored), adamw.leaves(want))),
+            "whole_equal": all(torch.equal(a, b) for a, b in zip(
+                gathered, adamw.leaves(snap))),
+            "cut_leaves": sum(sharding.sliced_leaves(
+                target, new_specs, mesh)),
+            "leaves": len(adamw.leaves(target))}
+
+
+def phase_v(torch, device, card):
+    """(v) every leaf placed on ranks: (v1) TinyLlama-1.1B uncut on a
+    (data 1, model 2) tensor-parallel rank mesh, a prefill of V_BATCH x
+    V_PROMPT and LM_TRAIN_STEPS `train_loop` steps beside the one-process
+    run; (v2) the same model with `pure_fsdp=True` on (data 2, model 1);
+    (v3) qwen3-4b uncut on (1, 2), a spiking prefill and V_DECODE_STEPS
+    decode steps; (v4) the drill config with fsdp saved from (2, 2) and
+    restored onto (1, 4). Gates: the split fire bit for bit; logits,
+    tokens and (v1)'s step-0 gradients bit for bit with the one-process
+    witness (`placement.witness`; (v2): `split_grads`); step 0's loss and
+    per-leaf gradient gaps to the one-process step within twice their
+    readings ((v2)'s loss equal), and (v1)'s f32 prefill within twice
+    its block drift's reading of the unsharded one; exact launches a step on every rank; replicated params
+    bit for bit across ranks; the restored shards exact."""
+    import shutil
+    import tempfile
+    from repro_torch.configs.base import LMConfig, SpikingConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import distributed
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.models import lm
+    from repro_torch.runtime import sharding
+    totals: dict = {}
+    cfg, serve_cfg = get_config(LM_ARCH), get_config(V_SERVE_ARCH)
+    t0 = time.perf_counter()
+    v_fire_split(torch, device, card, cfg)
+    emit("phase_time", name="v1_fire_split",
+         seconds=time.perf_counter() - t0)
+    free_card(torch)
+    t0 = time.perf_counter()
+    ranks = distributed.spawn(v_rank, 2, backend=U_BACKEND, device=device,
+                              timeout_s=2 * U_SPAWN_TIMEOUT,
+                              args=(cfg, serve_cfg))
+    wall = time.perf_counter() - t0
+    per_step = lm_train_launches(cfg)
+    r0 = ranks[0]
+    # (v1)
+    v1 = [r["v1"] for r in ranks]
+    gap = v1[0]["grad_gap"]
+    worst = max(gap, key=gap.get)
+    loss_gap = abs(v1[0]["losses"][0] - v1[0]["loss0_ref"]) / \
+        abs(v1[0]["loss0_ref"])
+    for r in ranks:
+        v = r["v1"]
+        emit("tp_train_rank", card=card, rank=r["rank"],
+             mesh=list(V_TP_MESH), coords=v["coords"], losses=v["losses"],
+             held_bytes=v["held_bytes"], peak_bytes=v["peak_bytes"],
+             prefill_s=v["prefill_s"],
+             step_span_s=[s["span_s"] for s in v["steps"]],
+             collectives_per_step=v["collectives"],
+             launches_per_step=per_step, wall_s=v["wall_s"])
+        lm_launch_check(v["prefill_launches"], v1[0]["one_process_launches"],
+                        f"(v1) rank {r['rank']} prefill")
+        for i, s in enumerate(v["steps"]):
+            lm_launch_check(s["launches"], per_step,
+                            f"(v1) rank {r['rank']} step {i}")
+            for k, n in s["launches"].items():
+                totals[k] = totals.get(k, 0) + n
+            check(math.isfinite(s["loss"]), f"(v1) step {i} loss {s['loss']}")
+        for k, n in v["prefill_launches"].items():
+            totals[k] = totals.get(k, 0) + n
+        check(v["losses"] == v1[0]["losses"], "(v1) losses differ across "
+              "ranks")
+    emit("tp_train", card=card, arch=cfg.name, ranks=2, wall_s=wall,
+         prefill=[V_BATCH, V_PROMPT], batch=LM_TRAIN_BATCH,
+         seq=LM_TRAIN_SEQ, loss0=v1[0]["losses"][0],
+         one_process_loss0=v1[0]["loss0_ref"], loss0_rel_gap=loss_gap,
+         loss0_gap_limit=V1_LOSS_GAP_LIMIT, grad_gap_worst=gap[worst],
+         grad_gap_worst_leaf=worst, grad_gap_limit=V1_GRAD_GAP_LIMIT,
+         witness_loss0=v1[0]["witness_loss0"],
+         witness_unequal_leaves=len(v1[0]["witness_unequal"]),
+         logits_equal_witness=v1[0]["logits_equal_witness"],
+         logits_max_abs_gap_one_process=v1[0]["logits_gap"],
+         logits_max=v1[0]["logits_max"],
+         argmax_share_equal_one_process=v1[0]["tokens_equal_one_process"],
+         replicated_peak_bytes=U1_PEAKS)
+    for dt in ("drift", "drift_f32"):
+        d = v1[0][dt]
+        emit("tp_block_drift", card=card, dtype="f32" if dt == "drift_f32"
+             else "bf16", blocks=len(d["share_unequal"]),
+             max_rel_gap_limit=V1_F32_DRIFT_LIMIT if dt == "drift_f32"
+             else None,
+             share_unequal=d["share_unequal"], max_rel_gap=d["max_rel_gap"],
+             argmax_share_equal=d["argmax_share_equal"],
+             logits_max_abs_gap=d["logits_max_abs_gap"],
+             logits_max=d["logits_max"])
+    check(v1[0]["logits_equal_witness"], "(v1) prefill logits differ from "
+          "the one-process witness's")
+    check(v1[0]["grads_finite"], "(v1) step 0 gradients not finite")
+    check(not v1[0]["witness_unequal"], f"(v1) step 0 gradients differ from "
+          f"the witness's at {v1[0]['witness_unequal'][:3]}")
+    check(v1[0]["losses"][0] == v1[0]["witness_loss0"], "(v1) step 0 loss "
+          "differs from the witness's")
+    check(loss_gap <= V1_LOSS_GAP_LIMIT, f"(v1) step 0 loss gap {loss_gap}")
+    check(gap[worst] <= V1_GRAD_GAP_LIMIT, f"(v1) step 0 gradient gap "
+          f"{gap[worst]} at {worst}")
+    f32_drift = max(v1[0]["drift_f32"]["max_rel_gap"])
+    check(f32_drift <= V1_F32_DRIFT_LIMIT, f"(v1) the f32 tensor-parallel "
+          f"prefill's worst block is {f32_drift} of max|x| from the "
+          f"unsharded one's")
+    check(v1[0]["drift_f32"]["argmax_share_equal"] == 1.0, "(v1) the f32 "
+          "tensor-parallel prefill's tokens differ from the unsharded one's")
+    # (v2)
+    v2 = [r["v2"] for r in ranks]
+    gap2 = v2[0]["grad_gap"]
+    worst2 = max(gap2, key=gap2.get)
+    loss_gap2 = abs(v2[0]["losses"][0] - v2[0]["loss0_ref"]) / \
+        abs(v2[0]["loss0_ref"])
+    for r in ranks:
+        v = r["v2"]
+        emit("fsdp_train_rank", card=card, rank=r["rank"],
+             mesh=list(V_FSDP_MESH), losses=v["losses"],
+             held_bytes=v["held_bytes"], peak_bytes=v["peak_bytes"],
+             replicated_peak_bytes=U1_PEAKS[r["rank"]] if U1_PEAKS else None,
+             step_span_s=[s["span_s"] for s in v["steps"]],
+             collectives_per_step=v["collectives"], wall_s=v["wall_s"])
+        for i, s in enumerate(v["steps"]):
+            lm_launch_check(s["launches"], per_step,
+                            f"(v2) rank {r['rank']} step {i}")
+            for k, n in s["launches"].items():
+                totals[k] = totals.get(k, 0) + n
+        check(v["losses"] == v2[0]["losses"], "(v2) losses differ across "
+              "ranks")
+    emit("fsdp_train", card=card, arch=cfg.name, ranks=2,
+         loss0=v2[0]["losses"][0], one_process_loss0=v2[0]["loss0_ref"],
+         loss0_rel_gap=loss_gap2, loss0_gap_limit=0.0,
+         grad_gap_worst=gap2[worst2], grad_gap_worst_leaf=worst2,
+         grad_gap_limit=V2_GRAD_GAP_LIMIT,
+         witness_unequal_leaves=len(v2[0]["witness_unequal"]))
+    check(v2[0]["grads_finite"], "(v2) step 0 gradients not finite")
+    check(not v2[0]["witness_unequal"], f"(v2) step 0 gradients differ from "
+          f"split_grads' at {v2[0]['witness_unequal'][:3]}")
+    check(v2[0]["losses"][0] == v2[0]["loss0_ref"], f"(v2) step 0 loss "
+          f"{v2[0]['losses'][0]} differs from the one-process step's "
+          f"{v2[0]['loss0_ref']}")
+    check(gap2[worst2] <= V2_GRAD_GAP_LIMIT, f"(v2) step 0 gradient gap "
+          f"{gap2[worst2]} at {worst2}")
+    for key, mesh_shape, c in (("v1", V_TP_MESH, cfg),
+                               ("v2", V_FSDP_MESH,
+                                cfg.replace(pure_fsdp=True))):
+        whole = lm.abstract_params(c)
+        sliced = sharding.sliced_leaves(whole, sharding.param_specs(
+            c, whole, abstract_mesh(mesh_shape, DRILL_AXES)),
+            abstract_mesh(mesh_shape, DRILL_AXES))
+        for i in range(LM_TRAIN_STEPS):
+            fps = [[f for f, s in zip(r[key]["steps"][i]["params"], sliced)
+                    if not s] for r in ranks]
+            check(all(f == fps[0] for f in fps), f"({key}) step {i}: "
+                  f"replicated params differ across ranks")
+    # (v3)
+    v3 = [r["v3"] for r in ranks]
+    w_logits, w_tokens = v3[0]["witness"]
+    p_logits, p_tokens = v3[0]["plain"]
+    pre_want, step_want = v3[0]["plain_launches"]
+    for r in ranks:
+        v = r["v3"]
+        emit("tp_serve_rank", card=card, rank=r["rank"], arch=serve_cfg.name,
+             held_bytes=v["held_bytes"], heads=v["heads"],
+             prefill_s=v["prefill_s"], collectives=v["collectives"],
+             prefill_launches={k: n for k, n in
+                               v["prefill_launches"].items() if n},
+             wall_s=v["wall_s"])
+        check(torch.equal(v["logits"], w_logits), f"(v3) rank {r['rank']}: "
+              f"prefill logits differ from the witness's")
+        check(torch.equal(v["tokens"], w_tokens), f"(v3) rank {r['rank']}: "
+              f"tokens differ from the witness's")
+        check(v["heads"] == [serve_cfg.n_heads // V_TP_MESH[1]],
+              f"(v3) rank {r['rank']} holds {v['heads']} heads of state")
+        lm_launch_check(v["prefill_launches"], pre_want,
+                        f"(v3) rank {r['rank']} prefill")
+        lm_launch_check(v["step_launches"], step_want,
+                        f"(v3) rank {r['rank']} decode step")
+        for k, n in v["prefill_launches"].items():
+            totals[k] = totals.get(k, 0) + n
+    emit("tp_serve", card=card, arch=serve_cfg.name, ranks=2,
+         prefill=[V_BATCH, V_PROMPT], decode_steps=V_DECODE_STEPS,
+         tokens_equal_witness=True,
+         tokens_share_equal_one_process=float(
+             (v3[0]["tokens"] == p_tokens).float().mean()),
+         logits_max_abs_gap_one_process=(v3[0]["logits"] - p_logits).abs()
+         .max().item(), logits_max=p_logits.abs().max().item(),
+         one_process_heads=v3[0]["plain_heads"])
+    # (v4)
+    drill = LMConfig(name="drill", family="dense", n_layers=2, d_model=32,
+                     n_heads=4, n_kv_heads=2, d_ff=64, vocab=64,
+                     spiking=SpikingConfig(t_steps=1), remat="none",
+                     loss_chunk=16, fsdp=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_v4_")
+    try:
+        t0 = time.perf_counter()
+        restored = distributed.spawn(
+            v4_rank, 4, backend=U_BACKEND, device=device,
+            timeout_s=U_SPAWN_TIMEOUT, args=(drill, tmp))
+        v4_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("reshard_restore", card=card, saved_on=list(V_SAVE_MESH),
+         restored_on=list(V_RESTORE_MESH), wall_s=v4_s,
+         steps=[r["step"] for r in restored],
+         losses=restored[0]["losses"],
+         restore_s=[r["restore_s"] for r in restored],
+         cut_leaves=restored[0]["cut_leaves"], leaves=restored[0]["leaves"])
+    for r in restored:
+        check(r["step"] == 2, f"(v4) rank {r['rank']} restored {r['step']}")
+        check(r["shards_equal"], f"(v4) rank {r['rank']}: restored shards "
+              f"differ from the snapshot's cut")
+        check(r["whole_equal"], f"(v4) rank {r['rank']}: the restored state "
+              f"gathered whole differs from the snapshot")
+    check(restored[0]["cut_leaves"] > 0, "(v4) nothing was cut")
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8276,6 +8961,12 @@ def main() -> int:
     # expert-parallel qwen2-moe prefill row 1 bf16 and row 9, the nccl
     # rank's step rows 2, 3 bf16 and 9 (counted inside the ranks).
     for name, n in timed("u_ranks", phase_u, torch, device, card).items():
+        totals[name] = totals.get(name, 0) + n
+    # Every leaf placed on ranks: the tensor-parallel TinyLlama prefill and
+    # steps, the pure-FSDP steps and the tensor-parallel qwen3-4b prefill
+    # launch rows 1, 2 and 3 bf16 and row 9 at a rank's shapes.
+    for name, n in timed("v_placement", phase_v, torch, device,
+                         card).items():
         totals[name] = totals.get(name, 0) + n
     emit("phase_time", name="total", seconds=time.perf_counter() - t_start)
     kernels = []

@@ -18,11 +18,13 @@ every device. The port runs one process a rank over `torch.distributed`:
     it raise with the stacks of the ranks still running. Every process it
     starts is ended before it returns.
 
-Collectives: of the two that ``gloo`` implements on CUDA tensors,
-`broadcast` and `all_reduce`, the port's multi-process paths use
-`all_reduce` alone (`all_reduce_`), so one card can rehearse them under
-``gloo``. An all-gather is an `all_reduce` into a zeroed buffer with each
-rank's slot filled (`runtime.sharding.full_leaves`).
+Collectives: every multi-process path of the port goes through three
+wrappers, `all_reduce_`, `all_gather` and `reduce_scatter`. Under
+``nccl`` each is NCCL's own collective. ``gloo`` implements only
+`broadcast` and `all_reduce` on CUDA tensors, so under ``gloo`` an
+all-gather is one `broadcast` from each rank, and a reduce-scatter an
+`all_reduce` of which the rank keeps its block: one card can rehearse
+every path under ``gloo``, and the CPU tests run the same code.
 """
 from __future__ import annotations
 
@@ -155,6 +157,49 @@ def all_reduce_(t: torch.Tensor, group=None, op=dist.ReduceOp.SUM
     port reduces through here."""
     dist.all_reduce(t, op=op, group=group)
     return t
+
+
+def all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The blocks of `t` that the ranks of `group` hold, joined along
+    `dim` in group-rank order (a new tensor; `t` itself where the group
+    has one rank). Every rank's block has `t`'s shape. Under ``gloo``
+    each rank's block is a `broadcast` from that rank."""
+    size = dist.get_world_size(group)
+    if size == 1:
+        return t
+    dim = dim % t.dim()
+    shape = list(t.shape)
+    shape[dim] *= size
+    stacked = t.new_empty((size,) + tuple(t.shape))
+    if backend() == "nccl":
+        dist.all_gather_into_tensor(stacked, t.contiguous(), group=group)
+    else:
+        me = dist.get_rank(group)
+        stacked[me].copy_(t)
+        for r in range(size):
+            dist.broadcast(stacked[r], dist.get_global_rank(group, r),
+                           group=group)
+    out = stacked.movedim(0, dim).reshape(shape)
+    return out
+
+
+def reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """`t` summed over the ranks of `group`, of which this rank keeps its
+    block along `dim` (the dim's size over the group's, in group-rank
+    order): a new tensor, `t` itself where the group has one rank."""
+    size = dist.get_world_size(group)
+    if size == 1:
+        return t
+    dim = dim % t.dim()
+    n = t.shape[dim] // size
+    if backend() == "nccl":
+        front = t.movedim(dim, 0).contiguous()
+        out = front.new_empty((n,) + tuple(front.shape[1:]))
+        dist.reduce_scatter_tensor(out, front, group=group)
+        return out.movedim(0, dim).contiguous()
+    full = t.contiguous().clone()
+    dist.all_reduce(full, group=group)
+    return full.narrow(dim, dist.get_rank(group) * n, n).clone()
 
 
 def reduce_int(value: int, group=None, op=dist.ReduceOp.MIN) -> int:

@@ -13,12 +13,14 @@ concatenates the results in shard order on the caller's device.
 A `RankMesh` (`make_rank_mesh`) is the other kind: its positions are the
 ranks of a `torch.distributed` process group (`launch.distributed`), one
 process each, row-major as JAX lays devices out. Each rank holds its own
-data shard's rows and its own slice of the expert banks; `axis_group`
+data shard's rows and its own shard of every leaf; `axis_group`
 gives the sub-group over which a rank reduces along one axis. The
-data-parallel training step, the expert-parallel MoE and the elastic
-restore run over it. What is still missing (tensor-parallel and FSDP
-placement of the other leaves, pure FSDP, sharded event ops on their own
-ranks, a multi-pod mesh) is `MULTI_PROCESS_ITEM`.
+data-parallel training step, the expert-parallel MoE, the
+tensor-parallel and FSDP placement of every other leaf
+(`runtime.sharding.local_params`, `models.placement`) and the elastic
+restore run over it. What is still missing (sharded event ops on their
+own ranks, a multi-pod mesh, an MoE whose tokens a data rank cuts) is
+`MULTI_PROCESS_ITEM`.
 
 The hardware constants below are the roofline denominators of the port,
 one NVIDIA H100 SXM (NVIDIA H100 80GB HBM3, 700 W), from NVIDIA's H100
@@ -27,6 +29,7 @@ data sheet: dense rates, without sparsity.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -39,9 +42,8 @@ PEAK_FLOPS_TF32 = 495e12        # FLOP/s, TF32 tensor cores, dense
 HBM_BW = 3.35e12                # bytes/s, HBM3
 NVLINK_BW_PER_CARD = 900e9      # bytes/s, NVLink 4, all 18 links of a card
 
-MULTI_PROCESS_ITEM = ("ROADMAP queue 1 item 8b (tensor-parallel and FSDP "
-                      "placement, pure FSDP, sharded event ops on their own "
-                      "ranks, the multi-pod mesh, an MoE whose tokens a "
+MULTI_PROCESS_ITEM = ("ROADMAP queue 1 item 8b (sharded event ops on their "
+                      "own ranks, the multi-pod mesh, an MoE whose tokens a "
                       "data rank's rows cut)")
 # What a one-process mesh over several distinct devices is told to use.
 RANK_MESH_HINT = ("run one process a device over a process group instead: "
@@ -159,7 +161,8 @@ class RankMesh(Mesh):
     process each, in row-major order. `rank` and `device` are this
     process's; `devices` is None (a rank knows no other rank's device).
     `axis_group(axis)` is the sub-group of the ranks that share every
-    other coordinate with this one."""
+    other coordinate with this one; `axes_group(axes)` the same over
+    several axes (its ranks row-major over them, in mesh order)."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
                  rank: int, device: torch.device, groups: Dict[str, object]):
@@ -177,6 +180,16 @@ class RankMesh(Mesh):
     def axis_group(self, axis: str):
         """The process group of the ranks along `axis` through this one."""
         return self._groups[axis]
+
+    def axes_group(self, axes: Sequence[str]):
+        """The process group of the ranks along every axis of `axes`
+        through this one; a group rank is the row-major index over those
+        axes in mesh order."""
+        key = tuple(a for a in self.axis_names if a in axes)
+        if len(key) != len(set(axes)):
+            raise ValueError(f"axes {tuple(axes)} are not all axes of "
+                             f"{self.axis_names}")
+        return self._groups[key[0] if len(key) == 1 else key]
 
     def shard_devices(self, axes: Sequence[str]):
         raise NotImplementedError(
@@ -207,15 +220,22 @@ def make_rank_mesh(shape: Sequence[int], axes: Sequence[str]) -> RankMesh:
                          f"ranks, the group has {world}")
     me = distributed.rank()
     grid = np.arange(world).reshape(shape)
-    groups: Dict[str, object] = {}
-    for i, axis in enumerate(axes):
-        # Every line of ranks along `axis`, in one fixed order.
-        lines = np.moveaxis(grid, i, -1).reshape(-1, shape[i])
-        for line in lines:
-            ranks = [int(r) for r in line]
+    groups: Dict[object, object] = {}
+    # Every nonempty set of axes, single axes first, each in mesh order.
+    subsets = [c for k in range(1, len(axes) + 1)
+               for c in itertools.combinations(range(len(axes)), k)]
+    for sub in subsets:
+        rest = [i for i in range(len(axes)) if i not in sub]
+        # Every block of ranks spanning `sub`, in one fixed order, its
+        # ranks row-major over `sub`.
+        blocks = np.transpose(grid, rest + list(sub)).reshape(
+            -1, math.prod(shape[i] for i in sub))
+        key = axes[sub[0]] if len(sub) == 1 else tuple(axes[i] for i in sub)
+        for block in blocks:
+            ranks = [int(r) for r in block]
             g = dist.new_group(ranks)
             if me in ranks:
-                groups[axis] = g
+                groups[key] = g
     return RankMesh(shape, axes, me, distributed.device(), groups)
 
 

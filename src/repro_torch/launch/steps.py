@@ -6,10 +6,11 @@ Each closes over the config and returns a plain function on tensors
 caller). With `mesh=` each resolves its kernels mesh-aware
 (`_under_mesh`), and the mesh is the ambient one an expert-parallel MoE
 reads. On a one-process mesh it steers resolution only. On a rank mesh
-(`launch.mesh.RankMesh`) the training step is data-parallel: the loss
-is the global one over every data rank's rows, and the gradients are
-summed over the `data` group (see `make_train_step`). Placing params
-beyond the expert banks is `launch.mesh.MULTI_PROCESS_ITEM`.
+(`launch.mesh.RankMesh`) each rank holds its `local_params` shard of
+every leaf and the model runs on them (`models.placement`); the training
+step is data-parallel over the batch axes: the loss is the global one
+over every batch rank's rows, and each gradient is summed over the batch
+ranks that do not split its leaf (see `make_train_step`).
 """
 from __future__ import annotations
 
@@ -67,12 +68,15 @@ def make_train_step(
     step resolves its kernels mesh-aware (`_under_mesh`).
 
     On a rank mesh each rank passes its own rows and its `local_params`
-    tree. Each microbatch's loss is divided by its labelled positions
-    summed over the `data` group (labels of -1 make counts differ by
-    rank), so the gradients summed over that group are those of the
-    global loss; `metrics["loss"]` is that global loss. The clip's
-    global norm counts a replicated leaf once and sums an expert bank's
-    squares over the `model` group. Collectives: `all_reduce` alone."""
+    tree. The batch axes are (pod, data), and `model` too under
+    `pure_fsdp`. Each microbatch's loss is divided by its labelled
+    positions summed over the batch ranks (labels of -1 make counts
+    differ by rank), so the gradients summed over them are those of the
+    global loss; `metrics["loss"]` is that global loss. A leaf gathered
+    over a batch axis has its gradient reduce-scattered there by the
+    gather's backward; each gradient is then all-reduced over the batch
+    axes its leaf is not split over. The clip's global norm sums each
+    leaf's squares over the ranks of the axes it is split over."""
     if opt_cfg is None:
         opt_cfg = adamw.AdamWConfig(state_dtype=cfg.opt_state_dtype)
     spk = cfg.spiking.enabled if spiking is None else spiking
@@ -81,13 +85,27 @@ def make_train_step(
     ranked = isinstance(mesh, RankMesh)
     if ranked:
         from repro_torch.launch import distributed
-        data_group = mesh.axis_group("data") if "data" in mesh.shape \
-            else None
-        sliced: list = []            # per leaf: an expert bank's slice?
+        names = ("pod", "data", "model") if cfg.pure_fsdp \
+            else ("pod", "data")
+        # every batch axis of the mesh, one position or more: a group of
+        # one rank still runs its collectives (NCCL's one-rank path)
+        batch_axes = tuple(a for a in names if a in mesh.shape)
+        split: list = []             # per leaf: the axes it is split over
 
-    def data_sum(t):
-        return distributed.all_reduce_(t, data_group) \
-            if data_group is not None else t
+    def batch_sum(t, axes=None):
+        axes = batch_axes if axes is None else axes
+        return distributed.all_reduce_(t, mesh.axes_group(axes)) \
+            if axes else t
+
+    def leaf_axes() -> list:
+        if not split:
+            # the specs of the whole tree: a rank's own leaves may no
+            # longer divide the mesh
+            from repro_torch.runtime import sharding
+            whole = lm.abstract_params(cfg)
+            split.extend(sharding.leaf_split_axes(
+                whole, sharding.param_specs(cfg, whole, mesh), mesh))
+        return split
 
     def grads_of(params, batch):
         leaves = adamw.leaves(params)
@@ -98,11 +116,11 @@ def make_train_step(
         def one(mb):
             if ranked:
                 tot, cnt = lm.loss_terms(cfg, params, mb, spk)
-                cnt = data_sum(cnt.detach().clone())
+                cnt = batch_sum(cnt.detach().clone())
                 loss = tot / torch.clamp(cnt, min=1.0)
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                             materialize_grads=True)
-                return data_sum(tot.detach().clone()) / \
+                return batch_sum(tot.detach().clone()) / \
                     torch.clamp(cnt, min=1.0), grads
             loss = lm.loss_fn(cfg, params, mb, spk)
             # a leaf the mode never reads (qk-norm scales under SDSA) gets
@@ -124,30 +142,28 @@ def make_train_step(
                 grads = [a + g for a, g in zip(grads, g_i)]
             loss, grads = loss / m, [g / m for g in grads]
         if ranked:
-            grads = [data_sum(g) for g in grads]
+            grads = [batch_sum(g, tuple(a for a in batch_axes
+                                        if a not in axes))
+                     for g, axes in zip(grads, leaf_axes())]
         return loss, adamw.unflatten(params, grads)
 
     def norm_of(params, grads):
         """The clip's global norm: `adamw.global_norm` off a rank mesh;
-        on one, the replicated leaves' squares plus the expert banks'
-        summed over the `model` group."""
+        on one, each leaf's squares summed over the ranks of the axes it
+        is split over (a replicated leaf counted once)."""
         if not ranked:
             return adamw.global_norm(grads)
-        if not sliced:
-            # the specs of the whole tree: a rank's own banks may no
-            # longer divide the model axis
-            from repro_torch.runtime import sharding
-            whole = lm.abstract_params(cfg)
-            sliced.extend(sharding.sliced_leaves(
-                whole, sharding.param_specs(cfg, whole, mesh), mesh))
-        flat = adamw.leaves(grads)
-        rep = [g for g, s in zip(flat, sliced) if not s]
-        own = [g for g, s in zip(flat, sliced) if s]
-        sq = sum(torch.sum(torch.square(x.float())) for x in rep)
-        if own:
-            sq = sq + distributed.all_reduce_(
-                sum(torch.sum(torch.square(x.float())) for x in own),
-                mesh.axis_group("model"))
+        by_axes: dict = {}
+        for g, axes in zip(adamw.leaves(grads), leaf_axes()):
+            by_axes.setdefault(axes, []).append(
+                torch.sum(torch.square(g.float())))
+        sq = None
+        for axes in sorted(by_axes, key=lambda a: (len(a), sorted(a))):
+            part = sum(by_axes[axes])
+            if axes:
+                part = distributed.all_reduce_(
+                    part, mesh.axes_group(tuple(axes)))
+            sq = part if sq is None else sq + part
         return torch.sqrt(sq)
 
     if not grad_compression:

@@ -14,16 +14,19 @@ as no mesh does. The param specs are computed and validated against the
 mesh, and the data pipeline splits over its `data` axis. A one-process
 mesh over several devices is refused, naming the rank mesh.
 
-Over a rank mesh (`launch.mesh.RankMesh`, one process a rank) the loop
-is data-parallel: every rank draws the params from the seed and keeps
-its `local_params` part (its slice of the expert banks), the step sums
-the gradients over the `data` group (`steps.make_train_step`), and the
-batch is the reference's: shard 0's ``batch // n_data`` rows, of which
-each data rank takes its contiguous slice where the count divides and
-all of them where it does not (as `batch_axes` replicates). Rank 0
-writes each checkpoint, the full tree gathered over `model`, and the
-ranks meet at a barrier after it; every rank resumes from the same
-snapshot.
+Over a rank mesh (`launch.mesh.RankMesh`, one process a rank) every
+rank draws the params from the seed and keeps its `local_params` shard
+of every leaf (tensor-parallel `model` dims, FSDP `data` dims, pure
+FSDP's whole-mesh dims, the expert banks); the model runs on the shards
+(`models.placement`) and the step is data-parallel over the batch axes
+(`steps.make_train_step`). The batch is the reference's: shard 0's
+``batch // n_data`` rows, of which each batch rank (each data rank; each
+rank of the mesh under `pure_fsdp`) takes its contiguous slice where the
+count divides and all of them where it does not (as `batch_axes`
+replicates). Rank 0 writes each checkpoint, each leaf gathered whole
+from its shards, and the ranks meet at a barrier after it; every rank
+resumes from the same snapshot, each leaf cut to its shard as it is
+read.
 
 A checkpoint's step is the number of updates its state has taken, so a
 resumed run starts its data pipeline and schedule at that step and
@@ -48,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import math
 import os
 import time
 from typing import Optional
@@ -82,7 +86,7 @@ def train_state_bytes(cfg: LMConfig, mesh: Optional[Mesh] = None) -> int:
     `cfg.microbatches` > 1) and AdamW's two moments in
     `cfg.opt_state_dtype`. Activations come on top. On a rank mesh, a
     rank's own leaves (`sharding.local_params`): a checkpoint's save and
-    restore hold one whole expert bank beyond them at a time (rank 0's
+    restore hold one whole leaf beyond them at a time (rank 0's
     save copies the whole state to host memory)."""
     moment = 2 if cfg.opt_state_dtype == "bfloat16" else 4
     total = 0
@@ -96,13 +100,17 @@ def train_state_bytes(cfg: LMConfig, mesh: Optional[Mesh] = None) -> int:
     return total
 
 
-def rank_rows(rows: int, mesh: RankMesh) -> slice:
-    """A data rank's rows of a step's `rows`: its contiguous slice where
-    the data axis divides them, all of them where it does not."""
-    n = mesh.shape.get("data", 1)
+def rank_rows(rows: int, mesh: RankMesh, pure_fsdp: bool = False
+              ) -> slice:
+    """A batch rank's rows of a step's `rows`: its contiguous slice where
+    the batch axes (data; data and model under `pure_fsdp`) divide them,
+    all of them where they do not."""
+    axes = tuple(a for a in (("data", "model") if pure_fsdp else ("data",))
+                 if a in mesh.shape)
+    n = math.prod(mesh.shape[a] for a in axes)
     if rows % n:
         return slice(None)
-    c = mesh.coords()["data"] if n > 1 else 0
+    c = sharding.shard_index(mesh, axes)
     per = rows // n
     return slice(c * per, (c + 1) * per)
 
@@ -130,9 +138,9 @@ def train_loop(cfg: LMConfig, *, steps: int = 50, batch: int = 8,
         raise RuntimeError(
             f"{cfg.name}: its params, gradients and AdamW moments need "
             f"{need / 1e9:.1f} GB, beyond the {have / 1e9:.1f} GB of {dev}; "
-            f"train its reduced config (--reduced), split its experts "
-            f"over more ranks (a rank mesh's model axis), or wait for "
-            f"the placement of its other leaves ({MULTI_PROCESS_ITEM})")
+            f"train its reduced config (--reduced), or split it over more "
+            f"ranks (a rank mesh's model axis, fsdp or pure_fsdp; "
+            f"{MULTI_PROCESS_ITEM} for what is not placed yet)")
     # Training resolves through the registry as inference does, and under
     # the mesh: gates run per data shard, and a degrade walks its chain
     # and names itself ("backend<-requested").
@@ -199,7 +207,8 @@ def train_loop(cfg: LMConfig, *, steps: int = 50, batch: int = 8,
     # its slice of them (`rank_rows`).
     n_shards = mesh.shape.get("data", 1)
     local_b = max(1, batch // n_shards)
-    rows = rank_rows(local_b, mesh) if ranked else slice(None)
+    rows = rank_rows(local_b, mesh, cfg.pure_fsdp) if ranked \
+        else slice(None)
 
     def make_batch(shard, step):
         b = synthetic.lm_batch(seed, shard, step, local_b, seq, cfg.vocab)

@@ -68,12 +68,11 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import LMConfig
 from repro_torch.core.lif import LIFConfig
 from . import moe as moe_lib
+from . import placement
 from . import ssm
 from . import transformer as tfm
-from .layers import (dense_init, embed_init, lif_fire, mlp_apply, mlp_init,
-                     rmsnorm, rmsnorm_init)
-
-MESH_ITEM = moe_lib.MESH_ITEM
+from .layers import (dense_init, embed_init, lif_fire, mlp_init, rmsnorm,
+                     rmsnorm_init)
 
 
 # ------------------------------------------------------------ pattern plan
@@ -312,6 +311,11 @@ def refuse_rank_cut(cfg: LMConfig, mesh, spiking: bool) -> None:
     if cfg.moe is None or not isinstance(mesh, RankMesh):
         return
     n_data = mesh.shape.get("pod", 1) * mesh.shape.get("data", 1)
+    if cfg.pure_fsdp and mesh.shape.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: pure_fsdp puts the batch on model ranks too, "
+            f"where the expert-parallel MoE needs every token of a data "
+            f"shard on each of them ({MULTI_PROCESS_ITEM})")
     if not cfg.moe_shard_map and mesh.size > 1:
         raise NotImplementedError(
             f"{cfg.name}: moe_apply over a rank mesh {dict(mesh.shape)} is "
@@ -334,11 +338,13 @@ def _ffn(cfg: LMConfig, spec: BlockSpec, p: dict, x: torch.Tensor,
     spiking, fired) input. In decode the MoE routes the step's T x B
     tokens together, as one sequence position each."""
     lif = lif_cfg_of(cfg)
+    pl = placement.of(cfg)
     h = rmsnorm(p["ln2"], x)
     if spiking:
         h = lif_fire(h, lif)
     if spec.ffn == "mlp":
-        return x + mlp_apply(p["mlp"], h, spiking=spiking, lif_cfg=lif)
+        return x + placement.mlp(pl, p["mlp"], h, cfg.d_ff, spiking=spiking,
+                                 lif_cfg=lif)
     m = cfg.moe
     kw = dict(top_k=m.top_k, capacity_factor=m.capacity_factor,
               spiking=spiking, lif_cfg=lif)
@@ -348,6 +354,11 @@ def _ffn(cfg: LMConfig, spec: BlockSpec, p: dict, x: torch.Tensor,
     from repro_torch.launch.mesh import current_mesh
     mesh = current_mesh()
     refuse_rank_cut(cfg, mesh, spiking)
+    if pl.tp and m.n_shared:
+        # the shared experts' MLP over the model positions
+        kw["shared_mlp"] = functools.partial(
+            placement.mlp, pl, width=m.n_shared * m.d_ff_expert,
+            spiking=spiking, lif_cfg=lif)
     if cfg.moe_shard_map:
         out = moe_lib.moe_apply_shard_map(p["moe"], h, mesh=mesh, **kw)
     else:
@@ -373,16 +384,19 @@ def _apply_block(cfg: LMConfig, spec: BlockSpec, p: dict, x: torch.Tensor,
     if spec.kind == "attn":
         if spiking:
             s = lif_fire(rmsnorm(p["ln1"], x), lif)
-            a = tfm.attention_sdsa(
-                p["attn"], s, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                d_head=cfg.head_dim, lif_cfg=lif,
-                mode=cfg.spiking.sdsa_mode, causal=causal)
+            a = _attention(cfg, p["attn"], s, lambda pp, xx, h, kv:
+                           tfm.attention_sdsa(
+                               pp, xx, n_heads=h, n_kv=kv,
+                               d_head=cfg.head_dim, lif_cfg=lif,
+                               mode=cfg.spiking.sdsa_mode, causal=causal))
         else:
-            a = tfm.attention_dense(
-                p["attn"], rmsnorm(p["ln1"], x), n_heads=cfg.n_heads,
-                n_kv=cfg.n_kv_heads, d_head=cfg.head_dim, causal=causal,
-                window=cfg.sliding_window, qk_norm=cfg.qk_norm,
-                rope_theta=cfg.rope_theta)
+            a = _attention(cfg, p["attn"], rmsnorm(p["ln1"], x),
+                           lambda pp, xx, h, kv: tfm.attention_dense(
+                               pp, xx, n_heads=h, n_kv=kv,
+                               d_head=cfg.head_dim, causal=causal,
+                               window=cfg.sliding_window,
+                               qk_norm=cfg.qk_norm,
+                               rope_theta=cfg.rope_theta))
         x = x + a
         if enc_kv is not None and "cross_attn" in p:
             x = x + _cross_attn_full(cfg, p, x, enc_kv, spiking)
@@ -409,6 +423,25 @@ def _apply_block(cfg: LMConfig, spec: BlockSpec, p: dict, x: torch.Tensor,
     if spec.ffn == "none":
         return x
     return _ffn(cfg, spec, p, x, spiking)
+
+
+def _attention(cfg: LMConfig, p: dict, x: torch.Tensor, fn, state=None):
+    """``fn(p, x, n_heads, n_kv[, state])``, an attention block's output
+    (and new decode state), over the model positions where the query and
+    KV heads both split evenly: each runs its own heads
+    (`placement.row_parallel`); elsewhere every head at once."""
+    pl = placement.of(cfg)
+    if not pl.heads():
+        if state is None:
+            return fn(p, x, cfg.n_heads, cfg.n_kv_heads)
+        return fn(p, x, cfg.n_heads, cfg.n_kv_heads, state)
+    h, kv = cfg.n_heads // pl.m, cfg.n_kv_heads // pl.m
+    if state is None:
+        return placement.row_parallel(pl, lambda xx, pp: fn(pp, xx, h, kv),
+                                      x, p, placement.ATTN_CUTS)
+    return placement.row_parallel(
+        pl, lambda xx, pp, st: fn(pp, xx, h, kv, st), x, p,
+        placement.ATTN_CUTS, state=state)
 
 
 def _cross_attn_full(cfg: LMConfig, p: dict, x: torch.Tensor, enc_kv,
@@ -455,15 +488,19 @@ def _save_dots(ctx, op, *args, **kwargs):
             else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _remat_wrap(cfg: LMConfig, fn):
+def _remat_wrap(cfg: LMConfig, fn, gathers: bool = False):
     """`fn` recomputed in the backward as `cfg.remat` says (see the module
-    doc). Where autograd records nothing (serving) it runs as it is."""
-    if cfg.remat == "none":
-        return fn
-    if cfg.remat not in ("full", "dots"):
+    doc); `gathers` (a group that gathers placed weights) recomputes it
+    whole whatever `cfg.remat` says, so its gathered weights are not
+    kept for the backward. Where autograd records nothing (serving) it
+    runs as it is."""
+    if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"remat must be none, full or dots, got "
                          f"{cfg.remat!r}")
-    kw = {} if cfg.remat == "full" else {"context_fn": functools.partial(
+    mode = "full" if gathers else cfg.remat
+    if mode == "none":
+        return fn
+    kw = {} if mode == "full" else {"context_fn": functools.partial(
         ckpt.create_selective_checkpoint_contexts, _save_dots)}
 
     @functools.wraps(fn)
@@ -475,11 +512,13 @@ def _remat_wrap(cfg: LMConfig, fn):
 
 
 def _run_blocks(cfg, blocks, x, spiking, pattern, n_groups, causal,
-                enc_kv=None):
+                enc_kv=None, prefix: Tuple[str, ...] = ("blocks",)):
     """The groups of blocks in order; with `enc_kv` (the encoder's output)
     each attention block with a cross-attention first projects it to its
-    own K / V."""
+    own K / V. `prefix`: the blocks' path in the param tree (their specs'
+    on a rank mesh)."""
     layers = [_layer_views(b, n_groups) for b in blocks]
+    pl = placement.of(cfg)
 
     # Under "full" a heterogeneous pattern (jamba's and the xLSTM's
     # 8-block periods) also checkpoints each block inside the group's
@@ -499,16 +538,20 @@ def _run_blocks(cfg, blocks, x, spiking, pattern, n_groups, causal,
 
     subs = [sub_block(spec) for spec in pattern]
 
-    # The reference gathers each group's weights here under `pure_fsdp`
-    # (`_unshard_weights`, a GSPMD constraint). The single-controller port
-    # holds every weight whole, so under a logical mesh there is nothing
-    # to gather; pure FSDP itself is refused (`loss_fn`, MESH_ITEM).
-    def group_body(x, group_params):
-        for f, p in zip(subs, group_params):
-            x = f(x, p)
-        return x
+    # On a rank mesh each group gathers its placed weights here, inside
+    # the group's recompute, as the reference's `_unshard_weights` does
+    # under `pure_fsdp` (`placement.Placement.gathered`). A recompute runs
+    # under the forward's mesh, whatever is ambient in the backward.
+    in_scope = placement.scope()
 
-    body = _remat_wrap(cfg, group_body)
+    def group_body(x, group_params):
+        def run(x):
+            for i, (f, p) in enumerate(zip(subs, group_params)):
+                x = f(x, pl.gathered(p, prefix + (str(i),), layer=True))
+            return x
+        return in_scope(run, x)
+
+    body = _remat_wrap(cfg, group_body, gathers=pl.gathers(prefix))
     for g in range(n_groups):
         x = body(x, [per[g] for per in layers])
     return x
@@ -548,15 +591,18 @@ def _encoder_forward(cfg: LMConfig, params: dict,
         raise ValueError("an encoder-decoder arch needs frontend "
                          "embeddings")
     enc = params["encoder"]
-    x = frontend @ params["frontend_proj"].to(frontend.dtype)
+    pl = placement.of(cfg)
+    proj = pl.gathered(params["frontend_proj"], ("frontend_proj",))
+    x = frontend @ proj.to(frontend.dtype)
     if spiking:
         x = x[None].expand((cfg.spiking.t_steps,) + tuple(x.shape))
     x = _run_blocks(cfg, enc["blocks"], x, spiking,
                     [BlockSpec("attn", "mlp")], cfg.n_encoder_layers,
-                    causal=False)
+                    causal=False, prefix=("encoder", "blocks"))
     if spiking:
         x = _rate_decode(x)
-    return rmsnorm(enc["final_norm"], x)
+    return rmsnorm(pl.gathered(enc["final_norm"],
+                               ("encoder", "final_norm")), x)
 
 
 def forward_hidden(cfg: LMConfig, params: dict, tokens: torch.Tensor,
@@ -569,9 +615,12 @@ def forward_hidden(cfg: LMConfig, params: dict, tokens: torch.Tensor,
     the hidden state is (B, F + N, D); an encoder-decoder runs its
     encoder on them and every decoder layer cross-attends to its output."""
     pattern, n_groups = layer_pattern(cfg)
-    x = params["embed"][tokens]                              # (B, N, D)
+    pl = placement.of(cfg)
+    x = placement.embed(pl, pl.gathered(params["embed"], ("embed",)),
+                        tokens)                              # (B, N, D)
     if frontend is not None and not cfg.encoder_decoder:
-        fe = frontend @ params["frontend_proj"].to(frontend.dtype)
+        proj = pl.gathered(params["frontend_proj"], ("frontend_proj",))
+        fe = frontend @ proj.to(frontend.dtype)
         x = torch.cat([fe.to(x.dtype), x], dim=1)
     if spiking:
         x = x[None].expand((cfg.spiking.t_steps,) + tuple(x.shape))
@@ -582,25 +631,31 @@ def forward_hidden(cfg: LMConfig, params: dict, tokens: torch.Tensor,
                     causal, enc_kv)
     if spiking:
         x = _rate_decode(x)
-    return rmsnorm(params["final_norm"], x)
+    return rmsnorm(pl.gathered(params["final_norm"], ("final_norm",)), x)
 
 
-def _logits(params: dict, h: torch.Tensor) -> torch.Tensor:
-    return (h @ params["lm_head"].to(h.dtype)).float()
+def _logits(cfg: LMConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
+    """f32 logits of h: whole vocab rows (`placement.logits`)."""
+    pl = placement.of(cfg)
+    return placement.logits(pl, pl.gathered(params["lm_head"],
+                                            ("lm_head",)), h)
 
 
 def prefill(cfg: LMConfig, params: dict, tokens: torch.Tensor, spiking: bool,
             frontend: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence prefill: last-position logits (B, vocab) f32."""
     hidden = forward_hidden(cfg, params, tokens, spiking, frontend=frontend)
-    return _logits(params, hidden[:, -1, :])
+    return _logits(cfg, params, hidden[:, -1, :])
 
 
 # ------------------------------------------------------------------- loss
-def _ce_chunk(hh: torch.Tensor, w_head: torch.Tensor, ll: torch.Tensor):
+def _ce_chunk(hh: torch.Tensor, w_head: torch.Tensor, ll: torch.Tensor,
+              logits_fn=None):
     """(sum of lse - target over the chunk's labelled positions, their
-    count), both f32; f32 logits from ``hh @ w_head`` in hh's dtype."""
-    logits = (hh @ w_head.to(hh.dtype)).float()
+    count), both f32; f32 logits from ``hh @ w_head`` in hh's dtype, or
+    from ``logits_fn(w_head, hh)``."""
+    logits = (hh @ w_head.to(hh.dtype)).float() if logits_fn is None \
+        else logits_fn(w_head, hh)
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, ll.clamp_min(0).long()[..., None])[..., 0]
     mask = (ll >= 0).float()
@@ -618,10 +673,11 @@ def chunked_ce_loss(hidden: torch.Tensor, w_head: torch.Tensor,
 
 
 def chunked_ce_terms(hidden: torch.Tensor, w_head: torch.Tensor,
-                     labels: torch.Tensor, chunk: int):
+                     labels: torch.Tensor, chunk: int, logits_fn=None):
     """`chunked_ce_loss`'s two sums, f32 scalars: the labelled positions'
     lse - target and their count (a data-parallel step divides the sum
-    of the first over its ranks by the sum of the second)."""
+    of the first over its ranks by the sum of the second). `logits_fn`
+    (w_head, h) -> f32 logits replaces ``h @ w_head``."""
     b, n, d = hidden.shape
     if n % chunk:
         chunk = n
@@ -633,9 +689,9 @@ def chunked_ce_terms(hidden: torch.Tensor, w_head: torch.Tensor,
     for i in range(nc):
         if torch.is_grad_enabled():
             s, c = ckpt.checkpoint(_ce_chunk, h_c[i], w_head, l_c[i],
-                                   use_reentrant=False)
+                                   logits_fn, use_reentrant=False)
         else:
-            s, c = _ce_chunk(h_c[i], w_head, l_c[i])
+            s, c = _ce_chunk(h_c[i], w_head, l_c[i], logits_fn)
         tot = tot + s
         cnt = cnt + c
     return tot, cnt
@@ -653,19 +709,22 @@ def loss_fn(cfg: LMConfig, params: dict, batch: Dict[str, torch.Tensor],
 def loss_terms(cfg: LMConfig, params: dict, batch: Dict[str, torch.Tensor],
                spiking: bool):
     """`loss_fn`'s (sum of the labelled positions' losses, their count),
-    f32 scalars (`chunked_ce_terms`)."""
-    if cfg.pure_fsdp:
-        raise NotImplementedError(
-            f"{cfg.name}: pure_fsdp (the per-layer weight gather of a "
-            f"sharded mesh) is not ported yet ({MESH_ITEM})")
+    f32 scalars (`chunked_ce_terms`). On a rank mesh the LM head is
+    gathered once for every chunk (the reference's pure-FSDP `loss_fn`
+    gathers it so), and a vocab split over `model` gives each chunk its
+    logits' whole rows (`placement.logits`)."""
     hidden = forward_hidden(cfg, params, batch["tokens"], spiking,
                             frontend=batch.get("frontend"))
     labels = batch["labels"]
     if cfg.n_frontend_tokens and "frontend" in batch:
         pad = labels.new_full((labels.shape[0], cfg.n_frontend_tokens), -1)
         labels = torch.cat([pad, labels], dim=1)
-    return chunked_ce_terms(hidden, params["lm_head"], labels,
-                            cfg.loss_chunk)
+    pl = placement.of(cfg)
+    w_head = pl.gathered(params["lm_head"], ("lm_head",))
+    logits_fn = None if not pl.splits(cfg.vocab) else \
+        functools.partial(placement.logits, pl)
+    return chunked_ce_terms(hidden, w_head, labels, cfg.loss_chunk,
+                            logits_fn)
 
 
 # ---------------------------------------------------------------- serving
@@ -692,13 +751,17 @@ def init_state(cfg: LMConfig, spec: BlockSpec, b: int, s: int,
             (n_groups,) + tuple(x.shape)).contiguous(), tree)
     dev = resolve_device(device)
     st = LayerState()
+    # A rank whose attention runs its own heads holds their state alone
+    # (the split `sharding.decode_state_specs` gives).
+    pl = placement.of(cfg)
+    m = pl.m if pl.ranked and pl.heads() else 1
     if spec.kind == "attn":
         if spiking:
             st = st._replace(sdsa=stack(tfm.sdsa_state_init(
-                b, cfg.n_heads, cfg.head_dim, device=dev)))
+                b, cfg.n_heads // m, cfg.head_dim, device=dev)))
         else:
             st = st._replace(kv=stack(tfm.kv_cache_init(
-                b, s, cfg.n_kv_heads, cfg.head_dim, device=dev)))
+                b, s, cfg.n_kv_heads // m, cfg.head_dim, device=dev)))
     elif spec.kind == "mamba":
         hy = cfg.hybrid
         st = st._replace(mamba=stack(ssm.mamba_state_init(
@@ -767,9 +830,11 @@ def _attn_decode(cfg, p, st: LayerState, x, pos, spiking):
     lif = lif_cfg_of(cfg)
     if spiking:
         s = lif_fire(rmsnorm(p["ln1"], x), lif)              # (T, B, D)
-        a, new_sdsa = tfm.attention_sdsa_decode(
-            p["attn"], s, st.sdsa, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-            d_head=cfg.head_dim, lif_cfg=lif, mode=cfg.spiking.sdsa_mode)
+        a, new_sdsa = _attention(
+            cfg, p["attn"], s, lambda pp, xx, h, kv, sd:
+            tfm.attention_sdsa_decode(
+                pp, xx, sd, n_heads=h, n_kv=kv, d_head=cfg.head_dim,
+                lif_cfg=lif, mode=cfg.spiking.sdsa_mode), state=st.sdsa)
         x = x + a
         st = st._replace(sdsa=new_sdsa)
         if st.cross_status is not None:
@@ -781,12 +846,13 @@ def _attn_decode(cfg, p, st: LayerState, x, pos, spiking):
             out = out.reshape(tuple(q.shape[:-1]) + (-1,))
             x = x + out @ pa["w_o"].to(x.dtype)
         return x, st
-    a, new_kv = tfm.attention_dense_decode(
-        p["attn"], rmsnorm(p["ln1"], x), st.kv, pos,
-        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
-        window=cfg.sliding_window, qk_norm=cfg.qk_norm,
-        rope_theta=cfg.rope_theta,
-        masked_cache_update=cfg.decode_masked_update)
+    a, new_kv = _attention(
+        cfg, p["attn"], rmsnorm(p["ln1"], x), lambda pp, xx, h, kv, cache:
+        tfm.attention_dense_decode(
+            pp, xx, cache, pos, n_heads=h, n_kv=kv, d_head=cfg.head_dim,
+            window=cfg.sliding_window, qk_norm=cfg.qk_norm,
+            rope_theta=cfg.rope_theta,
+            masked_cache_update=cfg.decode_masked_update), state=st.kv)
     x = x + a
     st = st._replace(kv=new_kv)
     if st.cross_kv is not None:
@@ -807,22 +873,25 @@ def decode_step(cfg: LMConfig, params: dict, state: list,
     caches, spiking mode folds the token's K AND V into each layer's O(d)
     SDSA status."""
     pattern, n_groups = layer_pattern(cfg)
+    pl = placement.of(cfg)
     pos = torch.broadcast_to(torch.as_tensor(pos, device=token.device),
                              token.shape)
-    x = params["embed"][token]                               # (B, D)
+    x = placement.embed(pl, pl.gathered(params["embed"], ("embed",)),
+                        token)                               # (B, D)
     if spiking:
         x = x[None].expand((cfg.spiking.t_steps,) + tuple(x.shape))
     per_group: List[List[LayerState]] = [[] for _ in pattern]
     for g in range(n_groups):
         for i, spec in enumerate(pattern):
-            x, st = _apply_block_decode(cfg, spec,
-                                        _group(params["blocks"][i], g),
-                                        _group(state[i], g), x, pos, spiking)
+            p = pl.gathered(_group(params["blocks"][i], g),
+                            ("blocks", str(i)), layer=True)
+            x, st = _apply_block_decode(cfg, spec, p, _group(state[i], g),
+                                        x, pos, spiking)
             per_group[i].append(st)
     if spiking:
         x = _rate_decode(x)
-    h = rmsnorm(params["final_norm"], x)
-    return _logits(params, h), [_stack(sts) for sts in per_group]
+    h = rmsnorm(pl.gathered(params["final_norm"], ("final_norm",)), x)
+    return _logits(cfg, params, h), [_stack(sts) for sts in per_group]
 
 
 def prefill_with_state(cfg: LMConfig, params: dict, tokens: torch.Tensor,

@@ -27,17 +27,13 @@ Bit-level choices that keep the port on the reference's values:
 from __future__ import annotations
 
 import contextlib
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from repro_torch.core.lif import LIFConfig
-from repro_torch.launch.mesh import MULTI_PROCESS_ITEM
+from . import placement
 from .layers import bank_init, dense_init, lif_fire, mlp_apply, mlp_init
-
-# What a mesh still needs here (the weight gathers of pure FSDP, placement
-# beyond the expert banks): the rest of ROADMAP queue 1 item 8b.
-MESH_ITEM = MULTI_PROCESS_ITEM
 
 
 def moe_init(d_model: int, d_ff_expert: int, n_experts: int,
@@ -167,14 +163,16 @@ def _combine(eo: torch.Tensor, r: Routing, s_loc: int,
 def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25, normalize_weights: bool = True,
               spiking: bool = False, lif_cfg: Optional[LIFConfig] = None,
-              dispatch_groups: int = 1) -> torch.Tensor:
+              dispatch_groups: int = 1,
+              shared_mlp: Optional[Callable] = None) -> torch.Tensor:
     """x (..., N, D) -> (..., N, D); every leading axis (T included) is
     flattened into the routed tokens.
 
     `dispatch_groups` g > 1 routes the tokens in g equal groups, each with
     its own capacity (the reference's data-shard-local dispatch; one
     device here, the same arithmetic); a token count g does not divide
-    falls back to one group."""
+    falls back to one group. `shared_mlp(p, x)` replaces `mlp_apply` for
+    the shared experts (as in `moe_apply_shard_map`)."""
     orig_shape = x.shape
     d = x.shape[-1]
     xt = x.reshape(-1, d)
@@ -211,41 +209,11 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
     combined = torch.cat([_combine(out_g[i], routes[i], s_loc, top_k)
                           for i in range(g)])
     if "shared" in p:
-        combined = combined + mlp_apply(
-            p["shared"], xt, spiking=spiking, lif_cfg=lif_cfg).reshape(s, d)
+        shared = mlp_apply(p["shared"], xt, spiking=spiking,
+                           lif_cfg=lif_cfg) if shared_mlp is None \
+            else shared_mlp(p["shared"], xt)
+        combined = combined + shared.reshape(s, d)
     return combined.reshape(orig_shape)
-
-
-class _ModelCopy(torch.autograd.Function):
-    """Identity forward; the backward sums the cotangent over the `model`
-    group: a replicated operand (the input rows, the router) whose
-    cotangent each model rank holds only its own experts' part of."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        from repro_torch.launch import distributed
-        return distributed.all_reduce_(g.contiguous().clone(),
-                                       ctx.group), None
-
-
-class _ModelSum(torch.autograd.Function):
-    """The EP combine: the partial outputs summed over the `model` group
-    (`all_reduce`); the backward passes the output cotangent through, as
-    every model rank holds the whole of it."""
-
-    @staticmethod
-    def forward(ctx, partial, group):
-        from repro_torch.launch import distributed
-        return distributed.all_reduce_(partial.contiguous().clone(), group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
 
 
 def _ep_block(xl: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
@@ -276,7 +244,9 @@ def moe_apply_shard_map(p: dict, x: torch.Tensor, *, top_k: int,
                         normalize_weights: bool = True,
                         spiking: bool = False,
                         lif_cfg: Optional[LIFConfig] = None,
-                        mesh=None) -> torch.Tensor:
+                        mesh=None,
+                        shared_mlp: Optional[Callable] = None
+                        ) -> torch.Tensor:
     """The manual expert-parallel MoE, the reference's
     `moe_apply_shard_map`: every `model` position holds every token of its
     data shard, keeps the slots routed to its own `e_loc` experts, runs
@@ -292,8 +262,11 @@ def moe_apply_shard_map(p: dict, x: torch.Tensor, *, top_k: int,
     cotangent through; the input rows' and the router's cotangents are
     summed over the same group, so the gradients are `moe_apply`'s. On a
     one-process mesh the same block runs once per data shard and model
-    position, the partials summed in position order (the yardstick of the
-    rank form, bit for bit with it on two ranks)."""
+    position, the partials summed in f32 in position order
+    (`placement.position_sum`: the yardstick of the rank form, bit for
+    bit with it on two ranks). `shared_mlp(p, x)`
+    replaces `mlp_apply` for the shared experts (`placement.mlp`: their
+    d_ff split over the model positions)."""
     from repro_torch.launch.mesh import Mesh, RankMesh, \
         refuse_distinct_devices
     kw = dict(top_k=top_k, normalize_weights=normalize_weights,
@@ -333,24 +306,29 @@ def moe_apply_shard_map(p: dict, x: torch.Tensor, *, top_k: int,
     capacity = capacity_of(s_loc, top_k, e, capacity_factor)
     if rank_mesh:
         group = mesh.axis_group("model")
-        xl = _ModelCopy.apply(xt, group)
-        router = _ModelCopy.apply(p["router"], group)
+        xl = placement.ReplicaCopy.apply(xt, group)
+        router = placement.ReplicaCopy.apply(p["router"], group)
         partial = _ep_block(xl, router, *banks(j0), j=j0, e_loc=e_loc,
                             capacity=capacity, **kw)
-        out = _ModelSum.apply(partial, group)
+        out = placement.PartialSum.apply(partial, group)
     else:
+        # Each position takes its own copy of its operands
+        # (`placement.Split`) as a rank's pass `ReplicaCopy`: the backward
+        # sums their cotangents as the ranks do.
         outs = []
         for xl in xt.reshape(n_b, s_loc, d):
-            acc = None
-            for j in range(m):
-                part = _ep_block(xl, p["router"], *banks(j), j=j,
-                                 e_loc=e_loc, capacity=capacity, **kw)
-                acc = part if acc is None else acc + part
-            outs.append(acc)
+            outs.append(placement.position_sum(
+                _ep_block(xj, rj, *banks(j), j=j, e_loc=e_loc,
+                          capacity=capacity, **kw)
+                for j, (xj, rj) in enumerate(zip(
+                    placement.Split.apply(xl, m),
+                    placement.Split.apply(p["router"], m)))))
         out = torch.cat(outs)
     if "shared" in p:
-        out = out + mlp_apply(p["shared"], xt, spiking=spiking,
-                              lif_cfg=lif_cfg).reshape(s, d)
+        shared = mlp_apply(p["shared"], xt, spiking=spiking,
+                           lif_cfg=lif_cfg) if shared_mlp is None \
+            else shared_mlp(p["shared"], xt)
+        out = out + shared.reshape(s, d)
     return out.reshape(orig_shape)
 
 

@@ -14,7 +14,8 @@ This recovers the `dropped_shard` fault class (`runtime.faults`).
 Onto a rank mesh (`launch.mesh.RankMesh`) every rank restores the same
 snapshot (`CheckpointManager.restore_latest(group=)`) onto its own
 device, each leaf cut to the rank's part of it as it is read
-(`sharding.leaf_cuts`), so no whole expert bank reaches the device.
+(`sharding.leaf_cuts`), so no whole leaf of a split kind reaches the
+device.
 """
 from __future__ import annotations
 

@@ -12,13 +12,14 @@ shard heads; stacked block params get a leading None. A spec is a
 tuple of axis names, or None.
 
 `named` and `replicated` return placement descriptors that record a spec
-against a mesh. On a rank mesh (`launch.mesh.RankMesh`) one kind of spec
-is placed: `local_params` keeps each rank's slice of the expert banks
-that `param_specs` puts on `model` (expert parallelism) and replicates
-every other leaf; `full_leaves` gathers the full tree back and
-`leaf_cuts` cuts it again, one leaf at a time, as a checkpoint is
-written and read. The tensor-parallel and FSDP specs of the other leaves
-are still recorded and not placed (`launch.mesh.MULTI_PROCESS_ITEM`).
+against a mesh. On a rank mesh (`launch.mesh.RankMesh`) every spec is
+placed: `local_params` keeps each rank's shard of every leaf, the one
+JAX's `NamedSharding` puts on the same mesh position (tensor-parallel
+`model` dims, FSDP `data` dims, pure FSDP's whole-mesh dims, the expert
+banks); `full_leaves` gathers the full tree back and `leaf_cuts` cuts it
+again, one leaf at a time, as a checkpoint is written and read. The
+products and collectives that run on those shards are
+`models.placement`'s.
 What runs per shard on a one-process mesh is the event execution:
 `event_op_sharded` splits a matmul-form op's rows over the
 batch-parallel axes and launches the resolved kernel once per shard, on
@@ -60,8 +61,8 @@ P = PartitionSpec
 
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
-    """A spec recorded against a mesh. The single-controller port does not
-    place tensors by it yet (see the module doc)."""
+    """A spec recorded against a mesh (`local_params` places a tree by the
+    specs on a rank mesh; see the module doc)."""
     mesh: Mesh
     spec: PartitionSpec
 
@@ -299,8 +300,8 @@ def decode_state_specs(cfg: LMConfig, state: Any, mesh: Mesh) -> Any:
 
 # ---------------------------------------------------------------- helpers
 def named(mesh: Mesh, spec_tree: Any) -> Any:
-    """The spec tree as `NamedSharding` descriptors on `mesh` (recorded,
-    not acted on: see the module doc)."""
+    """The spec tree as `NamedSharding` descriptors on `mesh` (records;
+    `local_params` places by the specs themselves)."""
     if isinstance(spec_tree, PartitionSpec):
         return NamedSharding(mesh, spec_tree)
     if isinstance(spec_tree, dict):
@@ -334,8 +335,49 @@ def validate_specs(abstract_tree: Any, spec_tree: Any, mesh: Mesh) -> list:
     return problems
 
 
-# ------------------------------------------- expert banks on a rank mesh
+# ------------------------------------------------ leaves on a rank mesh
 EXPERT_BANKS = ("w_gate", "w_up", "w_down")
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The axis names of one spec entry: () for None."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def splits(spec, mesh) -> list:
+    """(dim, axes, shards) of every dim that `spec` splits over more than
+    one position of `mesh`; the axes of a dim must come in mesh order (a
+    shard's index is row-major over them, as JAX lays it out)."""
+    out = []
+    for dim, entry in enumerate(spec):
+        axes = entry_axes(entry)
+        k = math.prod(mesh.shape[a] for a in axes)
+        if k > 1:
+            if list(axes) != [a for a in mesh.axis_names if a in axes]:
+                raise ValueError(f"spec {spec}: axes {axes} are not in the "
+                                 f"mesh's order {mesh.axis_names}")
+            out.append((dim, axes, k))
+    return out
+
+
+def shard_index(mesh, axes: Tuple[str, ...], rank: Optional[int] = None
+                ) -> int:
+    """Rank `rank`'s shard index along a dim split over `axes`: its
+    coordinates row-major over them."""
+    c = mesh.coords(rank)
+    i = 0
+    for a in axes:
+        i = i * mesh.shape[a] + c[a]
+    return i
+
+
+def split_axes(spec, mesh) -> frozenset:
+    """The mesh axes (of more than one position) that `spec` splits a leaf
+    over."""
+    return frozenset(a for _, axes, _ in splits(spec, mesh) for a in axes
+                     if mesh.shape[a] > 1)
 
 
 def _bank_dim(path: Tuple[str, ...], spec) -> Optional[int]:
@@ -374,32 +416,37 @@ def state_specs(param_spec_tree: Any) -> Any:
 
 def _cut_of(path: Tuple[str, ...], spec, mesh, rank: Optional[int] = None):
     """The function that cuts the whole leaf at `path` to rank `rank`'s
-    part of it (its model rows of an expert bank, a copy), or None for a
-    replicated leaf."""
-    m = mesh.shape.get("model", 1)
-    dim = _bank_dim(path, spec) if m > 1 else None
-    if dim is None:
+    shard of it by `spec` (a contiguous copy), or None for a leaf that
+    no axis of more than one position splits. A dim its shard count does
+    not divide raises, as JAX refuses such a placement."""
+    cuts = splits(spec, mesh)
+    if not cuts:
         return None
-    j = mesh.coords(rank)["model"]
+    idx = [(dim, k, shard_index(mesh, axes, rank)) for dim, axes, k in cuts]
 
     def cut(leaf: torch.Tensor) -> torch.Tensor:
-        if leaf.shape[dim] % m:
-            raise ValueError(f"{'.'.join(path)}: {leaf.shape[dim]} experts "
-                             f"do not split over model={m}")
-        e_loc = leaf.shape[dim] // m
-        return leaf.narrow(dim, j * e_loc, e_loc).clone()
+        for dim, k, i in idx:
+            n = leaf.shape[dim]
+            if n % k:
+                raise ValueError(
+                    f"{'.'.join(path)}: dim {dim} of {tuple(leaf.shape)} "
+                    f"does not split into {k} shards ({spec})")
+            leaf = leaf.narrow(dim, i * (n // k), n // k)
+        return leaf.clone(memory_format=torch.contiguous_format)
     return cut
 
 
 def local_params(tree: Any, specs: Any, mesh, rank: Optional[int] = None
                  ) -> Any:
     """Rank `rank`'s part of `tree` (params, or any tree of their shape
-    such as a training state with `state_specs`) on a rank mesh: of each
-    expert bank whose spec puts its expert dim on `model`, rows ``[j *
-    e_loc, (j + 1) * e_loc)`` for the rank's model coordinate j (a copy,
-    so the full bank can be freed); every other leaf as it is
-    (replicated). The tensor-parallel and FSDP specs of the other leaves
-    are not placed."""
+    such as a training state with `state_specs`, or a decode state with
+    `decode_state_specs`) on a rank mesh: every leaf cut by its spec, the
+    shard JAX's `NamedSharding` places on the same mesh position (a
+    dim's shard index row-major over its axes; the tensor-parallel
+    `model` dims, the FSDP `data` dims, pure FSDP's (data, model) dims
+    and the expert banks alike). Each cut leaf is a contiguous copy, so
+    the whole leaf can be freed; a leaf no axis splits is kept as it is
+    (replicated)."""
     def one(path, leaf, spec):
         cut = _cut_of(path, spec, mesh, rank)
         return leaf if cut is None else cut(leaf)
@@ -410,49 +457,46 @@ def leaf_cuts(tree: Any, specs: Any, mesh) -> list:
     """Per leaf of the whole tree `tree`, in `optim.adamw.leaves` order
     (a checkpoint's): the function that cuts it to this rank's
     `local_params` part, or None where the leaf is replicated. A restore
-    applies each as its leaf is read, so no whole bank reaches the
-    device."""
+    applies each as its leaf is read, so no whole leaf of a split kind
+    reaches the device."""
     from repro_torch.optim.adamw import leaves
     return leaves(_zip_specs(lambda path, leaf, spec: _cut_of(path, spec,
                                                               mesh),
                              tree, specs))
 
 
+def leaf_split_axes(tree: Any, specs: Any, mesh) -> list:
+    """Per leaf of `tree`, in `optim.adamw.leaves` order: the axes its
+    `local_params` part is split over (empty where it is replicated)."""
+    from repro_torch.optim.adamw import leaves
+    return leaves(_zip_specs(lambda path, leaf, spec: split_axes(spec, mesh),
+                             tree, specs))
+
+
 def sliced_leaves(tree: Any, specs: Any, mesh) -> list:
     """Per leaf of `tree`, in `optim.adamw.leaves` order (dict keys
-    sorted): whether `local_params` slices it on `mesh`."""
-    m = mesh.shape.get("model", 1)
-    flags = _zip_specs(lambda path, leaf, spec: m > 1 and
-                       _bank_dim(path, spec) is not None, tree, specs)
-    from repro_torch.optim.adamw import leaves
-    return list(leaves(flags))
+    sorted): whether `local_params` cuts it on `mesh`."""
+    return [bool(a) for a in leaf_split_axes(tree, specs, mesh)]
 
 
 def _whole(path: Tuple[str, ...], leaf: torch.Tensor, spec, mesh
            ) -> torch.Tensor:
-    """`leaf` gathered whole along the `model` group where it is a sliced
-    expert bank (an `all_reduce` into a zeroed bank with this rank's rows
-    filled), else `leaf` itself."""
+    """`leaf`, this rank's `local_params` part, gathered whole: each split
+    dim in turn along the group of its axes (`distributed.all_gather`);
+    a replicated leaf as it is."""
     from repro_torch.launch import distributed
-    m = mesh.shape.get("model", 1)
-    dim = _bank_dim(path, spec) if m > 1 else None
-    if dim is None:
-        return leaf
-    e_loc = leaf.shape[dim]
-    shape = list(leaf.shape)
-    shape[dim] = e_loc * m
-    full = leaf.new_zeros(shape)
-    full.narrow(dim, mesh.coords()["model"] * e_loc, e_loc).copy_(leaf)
-    return distributed.all_reduce_(full, mesh.axis_group("model"))
+    for dim, axes, _ in splits(spec, mesh):
+        leaf = distributed.all_gather(leaf, dim, mesh.axes_group(axes))
+    return leaf
 
 
 def full_leaves(tree: Any, specs: Any, mesh):
     """The inverse of `local_params` on the rank mesh `mesh`, one leaf at
-    a time in `optim.adamw.leaves` order (a checkpoint's): each sliced
-    expert bank gathered whole along the `model` group when it is
-    reached, every other leaf as it is. A rank holds one whole bank
-    beyond its own part at a time. Every rank of the mesh walks it to its
-    end, in the same order."""
+    a time in `optim.adamw.leaves` order (a checkpoint's): each cut leaf
+    gathered whole over the ranks of its axes when it is reached, every
+    other leaf as it is. A rank holds one whole leaf beyond its own part
+    at a time. Every rank of the mesh walks it to its end, in the same
+    order."""
     from repro_torch.optim.adamw import leaves
     for gather in leaves(_zip_specs(
             lambda path, leaf, spec: functools.partial(_whole, path, leaf,

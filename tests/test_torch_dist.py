@@ -49,7 +49,7 @@ from repro_torch.launch import distributed
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch import train as ttrain
 from repro_torch.launch.mesh import make_mesh, make_rank_mesh
-from repro_torch.models import lm
+from repro_torch.models import lm, placement
 from repro_torch.models import moe as tmoe
 from repro_torch.models.layers import params_from_numpy
 from repro_torch.optim import adamw, schedule as sched
@@ -79,12 +79,16 @@ TOL = 1e-5
 # Step-0 gradients of the data-parallel step against the one-process run,
 # relative L2 per leaf. A bf16 leaf's gradient is rounded to bf16 on each
 # rank and again when the ranks' parts are summed: within 2^-8 (the drill
-# reads at most 3.1e-3). The MoE's bf16 expert outputs are summed over
-# the model ranks in `all_reduce`'s order, not position order, and that
-# rounding reaches every leaf upstream, its f32 norm scales and router
-# too: within 2^-6 (the reduced qwen2-moe reads at most 9.6e-3, on the
-# (1, 4) mesh). f32 leaves of the drill: TOL.
+# reads at most 3.1e-3). The MoE's bf16 gradients are summed over its
+# data ranks the same way, and that rounding reaches every leaf upstream,
+# its f32 norm scales and router too: within 2^-6 (the reduced qwen2-moe
+# reads at most 2.8e-3 on (2, 2); on (1, 4), where only model ranks sum
+# its f32 partials, 5.2e-8). f32 leaves of the drill: TOL.
 BF16_GRAD_TOL, MOE_GRAD_TOL = 2.0 ** -8, 2.0 ** -6
+# Step 0's loss on a mesh with model ranks against the plain one-process
+# run (not the witness), relative: the bf16 rounding of the row-split
+# partials (at most 2.0e-4 read, the reduced qwen2-moe on (2, 2)).
+TP_PLAIN_LOSS_TOL = 2.0 ** -8
 MODEL_AXES = ("data", "model")
 
 
@@ -149,12 +153,23 @@ def _dp_train(cfg, mesh, spiking=None) -> dict:
     finally:
         steps_mod.make_train_step = orig
     params, whole = out["params"], lm.abstract_params(cfg)
-    sliced = sharding.sliced_leaves(
-        whole, sharding.param_specs(cfg, whole, mesh), mesh)
+    specs = sharding.param_specs(cfg, whole, mesh)
+    sliced = sharding.sliced_leaves(whole, specs, mesh)
+    banks = adamw.leaves(sharding._zip_specs(
+        lambda path, leaf, spec: sharding._bank_dim(path, spec) is not None,
+        whole, specs))
+    # per leaf, the (dim, start, size) rows of the blocks of its whole
+    # value this rank holds (`local_params`' cut)
+    blocks = adamw.leaves(sharding._zip_specs(
+        lambda path, leaf, spec: np.array([
+            (d, sharding.shard_index(mesh, axes) * (leaf.shape[d] // k),
+             leaf.shape[d] // k)
+            for d, axes, k in sharding.splits(spec, mesh)],
+            dtype=np.int64).reshape(-1, 3), whole, specs))
     return {"losses": out["losses"], "digests": digests, "sliced": sliced,
-            "grads": grads, "j": mesh.coords()["model"],
-            "banks": [tuple(t.shape) for t, s in
-                      zip(adamw.leaves(params), sliced) if s]}
+            "grads": grads, "blocks": blocks,
+            "banks": [tuple(t.shape) for t, b in
+                      zip(adamw.leaves(params), banks) if b]}
 
 
 @contextlib.contextmanager
@@ -214,7 +229,10 @@ def _drill_fresh():
 def _drill_healthy(mesh, ck_dir) -> list:
     mgr = CheckpointManager(ck_dir, save_every=3,
                             writer=mesh.rank == 0)
-    *_, losses = drill_loop(DRILL, mesh, *_drill_fresh(), _drill_batches(),
+    whole = lm.abstract_params(DRILL)
+    specs = sharding.state_specs(sharding.param_specs(DRILL, whole, mesh))
+    state = sharding.local_params(_drill_fresh(), specs, mesh)
+    *_, losses = drill_loop(DRILL, mesh, *state, _drill_batches(),
                             0, 10, mgr=mgr)
     return losses
 
@@ -292,7 +310,9 @@ def _four_ranks(moe_np, x, ck_dir) -> dict:
             spiking=SpikingConfig(t_steps=2),
             moe=dataclasses.replace(MOE.moe, n_shared=0)), mesh, None),
         "moe_apply_data": _refusal(plain, mesh, False),
-        "moe_apply_model": _refusal(plain, ep, False)}
+        "moe_apply_model": _refusal(plain, ep, False),
+        "pure_fsdp_moe": _refusal(MOE.replace(pure_fsdp=True), ep, False),
+        "tp2d": _refusal(DRILL.replace(tp2d=True), mesh, False)}
     return out
 
 
@@ -409,10 +429,14 @@ def four_ranks(moe_case, tmp_path_factory):
                 jax_grad_gaps=ref["grad_gaps"], ck_dir=ck_dir)
 
 
-def _one_process(cfg, shape, spiking):
-    """The one-process logical-mesh run: (losses, step-0 gradients)."""
+def _one_process(cfg, shape, spiking, witness=False):
+    """The one-process logical-mesh run: (losses, step-0 gradients). With
+    `witness`, its tensor-parallel products run per model position and
+    their partials are summed in position order (`placement.witness`),
+    as the ranks' all-reduce sums them."""
     mesh = make_mesh(shape, MODEL_AXES, devices="cpu")
-    with first_grads() as grads:
+    with first_grads() as grads, \
+            placement.witness() if witness else contextlib.nullcontext():
         out = ttrain.train_loop(cfg, mesh=mesh, device="cpu",
                                 spiking=spiking, **TRAIN_KW)
     return out["losses"], grads
@@ -420,26 +444,49 @@ def _one_process(cfg, shape, spiking):
 
 def _check_dp(ranks, cfg, shape, spiking=None, steps=None):
     """Losses within TOL of the one-process run (the first `steps`, all by
-    default), step-0 gradients within TOL relative L2 per leaf (an expert
-    bank's rows of the rank's model coordinate), replicated leaves bit
-    for bit across ranks after every step."""
+    default; on a mesh with model ranks, of its `witness` form, the plain
+    run holding step 0's loss within TP_PLAIN_LOSS_TOL), step-0 gradients
+    within TOL relative L2 per leaf (a cut leaf joined whole from the
+    ranks' `local_params` blocks of it, every block held by each rank of
+    its coordinates), replicated leaves bit for bit across ranks after
+    every step."""
     want, want_grads = _one_process(cfg, shape, spiking)
+    if shape[1] > 1:
+        # The ranks run attention, the MLPs and the MoE's combine tensor-
+        # or expert-parallel: each row-split product's partials round to
+        # bf16 before the all-reduce sums them, which the plain run's
+        # whole products do not, and its losses part from theirs by up to
+        # 2.0e-4 relative at step 0 (the reduced qwen2-moe on (2, 2)).
+        # The plain run holds their step-0 loss within TP_PLAIN_LOSS_TOL;
+        # the witness, the same partials summed on one process, is the
+        # reference of every check below.
+        for r in ranks:
+            assert abs(r["losses"][0] - want[0]) <= \
+                TP_PLAIN_LOSS_TOL * abs(want[0]), (r["losses"][0], want[0])
+        want, want_grads = _one_process(cfg, shape, spiking, witness=True)
     kinds = [t.dtype for t in adamw.leaves(lm.abstract_params(cfg))]
     steps = steps or len(want)
     for r in ranks:
         np.testing.assert_allclose(r["losses"][:steps], want[:steps],
                                    rtol=TOL, atol=0)
         assert len(r["digests"]) == TRAIN_KW["steps"]
-        for i, (g, w, s) in enumerate(zip(r["grads"], want_grads,
-                                          r["sliced"])):
-            if s:
-                rows = g.shape[1]
-                w = w[:, r["j"] * rows:(r["j"] + 1) * rows]
-            tol = MOE_GRAD_TOL if cfg is MOE else \
-                TOL if kinds[i] == torch.float32 else BF16_GRAD_TOL
-            assert np.abs(w).max() == 0 or _rel_l2(g, w) <= tol, \
-                f"leaf {i}: step-0 gradient {_rel_l2(g, w)} from the " \
-                f"one-process run's"
+    for i, w in enumerate(want_grads):
+        g, seen = np.zeros_like(w), np.zeros(w.shape, dtype=bool)
+        for r in ranks:
+            at = [slice(None)] * w.ndim
+            for dim, start, size in r["blocks"][i]:
+                at[dim] = slice(start, start + size)
+            block = g[tuple(at)]
+            assert not seen[tuple(at)].any() or np.array_equal(
+                block, r["grads"][i]), f"leaf {i}: a block differs " \
+                f"across the ranks that hold it"
+            g[tuple(at)], seen[tuple(at)] = r["grads"][i], True
+        assert seen.all()
+        tol = MOE_GRAD_TOL if cfg is MOE else \
+            TOL if kinds[i] == torch.float32 else BF16_GRAD_TOL
+        assert np.abs(w).max() == 0 or _rel_l2(g, w) <= tol, \
+            f"leaf {i}: step-0 gradient {_rel_l2(g, w)} from the " \
+            f"one-process run's"
     for step in range(TRAIN_KW["steps"]):
         for r in ranks[1:]:
             for i, (a, b) in enumerate(zip(ranks[0]["digests"][step],
@@ -467,15 +514,20 @@ def test_data_parallel_training_on_four_ranks(four_ranks, case):
         "moe_dense": ("dp_moe", MOE, (2, 2), False),
         "moe_ep": ("ep_moe", MOE, (1, 4), None)}[case]
     ranks = [r[key] for r in four_ranks["ranks"]]
-    # The MoE's expert outputs are bf16: the 4 model ranks' partials sum
-    # in `all_reduce`'s order, not position order, and its bf16 gradients
-    # in theirs, so step 0 agrees to TOL and AdamW's first update, lr *
-    # sign(g), parts the trajectories after it (gradients near 0 flip).
+    # The MoE's bf16 gradients sum over the ranks in `all_reduce`'s order,
+    # not position order, so step 0 agrees to TOL and AdamW's first
+    # update, lr * sign(g), parts the trajectories after it (gradients
+    # near 0 flip).
     _check_dp(ranks, cfg, shape, spiking, steps=1 if cfg is MOE else None)
     if cfg is MOE:
         m = shape[1]
-        full = [tuple(t.shape) for t, s in zip(
-            adamw.leaves(lm.abstract_params(MOE)), ranks[0]["sliced"]) if s]
+        whole = lm.abstract_params(MOE)
+        specs = sharding.param_specs(MOE, whole, make_mesh(
+            shape, MODEL_AXES, devices="cpu"))
+        full = [tuple(t.shape) for t, b in zip(
+            adamw.leaves(whole), adamw.leaves(sharding._zip_specs(
+                lambda path, leaf, spec: sharding._bank_dim(path, spec)
+                is not None, whole, specs))) if b]
         assert len(full) == 3 and all(
             r["banks"] == [(g, e // m) + tuple(rest) for g, e, *rest in full]
             for r in ranks)
@@ -575,11 +627,14 @@ def test_rank_checkpoint_resumes_the_run_with_split_expert_banks(
     ("spiking_shared", "2 shared experts over 2 data ranks.*item 8b"),
     ("spiking_t2", "T=2 and 0 shared experts over 2 data ranks.*item 8b"),
     ("moe_apply_data", "moe_shard_map=True"),
-    ("moe_apply_model", "moe_shard_map=True")])
+    ("moe_apply_model", "moe_shard_map=True"),
+    ("pure_fsdp_moe", "pure_fsdp puts the batch on model ranks.*item 8b"),
+    ("tp2d", "tp2d .* is not placed on a rank mesh")])
 def test_rank_mesh_refuses_an_moe_its_ranks_would_change(four_ranks, case,
                                                         match):
     """An MoE that a rank's rows or banks would make another model than
-    the one-process run's is refused on every rank, before any step."""
+    the one-process run's is refused on every rank, before any step; so
+    are pure FSDP's batch over model ranks with an MoE, and `tp2d`."""
     for r in four_ranks["ranks"]:
         assert r["refused"][case] is not None, case
         assert re.search(match, r["refused"][case]), r["refused"][case]

@@ -110,8 +110,10 @@ def test_unported_configs_and_modes_raise_with_their_roadmap_items():
     """Every config's layer pattern builds as the reference's: the
     attention family, jamba's Mamba / attention hybrid and xLSTM's mLSTM /
     sLSTM blocks (full and reduced). What is still unported raises naming
-    its ROADMAP item: `pure_fsdp`'s per-layer gather of a sharded mesh
-    (item 8b, the placement still to port)."""
+    its ROADMAP item. `pure_fsdp` is ported (item 8b's placement): off a
+    rank mesh it has nothing to gather, and its loss is the plain one bit
+    for bit (its per-group gather runs on ranks,
+    tests/test_torch_dist_place.py)."""
     pattern, n = tlm.layer_pattern(treg.get_reduced("qwen2-moe-a2.7b"))
     assert [tuple(b) for b in pattern] == [("attn", "moe")] and n == 2
     for arch in ("jamba-1.5-large-398b", "xlstm-350m"):
@@ -130,8 +132,9 @@ def test_unported_configs_and_modes_raise_with_their_roadmap_items():
     cfg = TCFG.replace(pure_fsdp=True)
     tp = tlm.init_params(TCFG, seed=0, device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 8b"):
-        tlm.loss_fn(cfg, tp, {"tokens": toks, "labels": toks}, True)
+    batch = {"tokens": toks, "labels": toks}
+    assert torch.equal(tlm.loss_fn(cfg, tp, batch, True),
+                       tlm.loss_fn(TCFG, tp, batch, True))
 
 
 def test_init_params_defaults_to_cuda_and_matches_repro_tree(jparams):

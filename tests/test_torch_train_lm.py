@@ -337,14 +337,15 @@ def test_loss_fn_and_every_gradient_leaf_match_jax(trees, spiking, backend,
 
 
 def test_loss_fn_refuses_pure_fsdp_and_frontend_labels():
-    """pure_fsdp waits for the rest of item 8b's placement. Frontend
+    """pure_fsdp is placed on ranks now (item 8b): off a rank mesh it
+    gathers nothing and its loss is the plain one bit for bit. Frontend
     positions are ported
     since the VLM: they get label -1, so the loss is the mean over the
     token positions alone, as the reference's."""
     tp = tlm.init_params(TCFG, device="cpu")
     b = _tbatch(_batch(0))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8b"):
-        tlm.loss_fn(TCFG.replace(pure_fsdp=True), tp, b, True)
+    assert torch.equal(tlm.loss_fn(TCFG.replace(pure_fsdp=True), tp, b, True),
+                       tlm.loss_fn(TCFG, tp, b, True))
     cfg = TCFG.replace(n_frontend_tokens=4)
     tp["frontend_proj"] = torch.eye(TCFG.d_model, dtype=torch.bfloat16)
     fe = torch.randn(2, 4, TCFG.d_model,
