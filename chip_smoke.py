@@ -374,6 +374,17 @@ Phases, each printed on its own line:
       all-gathers, reduce-scatters and all-reduces a step (calls, bytes,
       ms), exact launches; each line with the card's name and power
       limit;
+  (w) the MoE configs on rank meshes as configured (phase_w's doc):
+      (w1) qwen2-moe-a2.7b uncut (`moe_apply`, T = 2, four shared
+      experts) on a (2, 2) rank mesh, a prefill of 8 x 128 and four
+      decode steps, every layer's drops, the first MoE layer, logits
+      and tokens bit for bit with the one-process witness; (w2) its
+      full width at the depth reckoned from (s2), three steps on (2, 2);
+      (w3) the same with `pure_fsdp` on (1, 2); step 0's gaps within
+      twice their readings, the step's forward bit for bit with the
+      witness, each leaf's blocks equal across ranks; per rank the
+      params held, peaks, collectives (calls, bytes, ms), exact
+      launches;
   (d) one JSON line listing every kernel with its launches on the main
       paths ((c) and (h) for inference kernels, (f) for the training
       ones, (t2) for the status entry, (t1) and (t3) adding theirs, (i) for the APEC ones, (j) for the packed ones, (k), (m) and
@@ -381,7 +392,8 @@ Phases, each printed on its own line:
       calls', (n) the training fires', (q) its guarded forwards' and
       fault calls', (r) its mesh forwards', sharded calls', serving and
       training, (s) its training loops' and steps' fires and SDSA, (o5)
-      and whisper's decode the bf16 fire; the serial kernels 11, 13, 15
+      and whisper's decode the bf16 fire, (u), (v) and (w) their ranks'
+      fires and SDSA; the serial kernels 11, 13, 15
       and 17 by their override
       calls), error and times (rows 16 and 18: kernels 16 and 18).
 Each phase prints its wall time on a `phase_time` line.
@@ -8861,6 +8873,575 @@ def phase_v(torch, device, card):
     return totals
 
 
+# ------------------------------------------------------------ phase (w)
+# The MoE configs on rank meshes as the registry configures them:
+# qwen2-moe-a2.7b's `moe_apply` (T = 2, four shared experts, one dispatch
+# group) on ranks that share cuda:0 under `gloo` as (u)'s and (v)'s, each
+# routing the global tokens the batch ranks gather. One 4-rank world runs
+# (w1) and (w2), one 2-rank world (w3); the one-process references run
+# first, on the card alone, and wait on the host.
+W_MESH, W_FSDP_MESH = (2, 2), (1, 2)
+W_BATCH, W_PROMPT, W_DECODE_STEPS = 8, 128, 4
+# The decode state: the prompt's first W_STATE_TOKENS tokens, (v3)'s
+# count. `prefill_with_state` is a decode step a token (about 0.5 s a
+# step on the four ranks, PERF.md), so the whole prompt's 128 would add
+# about a minute.
+W_STATE_TOKENS = 32
+W_TRAIN_STEPS, W_TRAIN_SEQ = 3, 128
+# (w2)'s depth: the deepest whose four ranks' peaks sum under
+# W_PEAK_BUDGET, reckoned from (s2)'s reading: qwen2-moe-a2.7b at 4
+# layers, 8 x 128, peaked at 60 GB on one process.
+W_PEAK_BUDGET = 70e9
+S2_LAYERS, S2_PEAK = 4, 60e9
+# Step 0's gaps to the unsharded one-process step on the same rows (the
+# loss's relative gap; the worst leaf's relative L2 gradient gap), gated
+# at twice the readings of the first card run (NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md). (w2): 5.5789e-5 and 0.20821 at the
+# router, the tensor-parallel partials' bf16 rounding flipping spikes and
+# routes as (v1)'s do (its forward is the witness's bit for bit); (w3):
+# 7.9927e-8 and 0.0064201, the ranks' sums of their loss and bf16
+# gradient parts. `parts_grads` is the witness of both causes: the
+# ranks' step 0 bit for bit.
+W2_LOSS_GAP_LIMIT = 2 * 5.5789e-5
+W2_GRAD_GAP_LIMIT = 2 * 0.20821
+W3_LOSS_GAP_LIMIT = 2 * 7.9927e-8
+W3_GRAD_GAP_LIMIT = 2 * 0.0064201
+
+
+def w_train_depth(torch, cfg) -> dict:
+    """(w2)'s depth, reckoned from (s2)'s peak: a one-process layer's
+    activations at 8 x 128 are (s2)'s peak less its training state
+    (`train_state_bytes`), over its layers; a (2, 2) rank holds its own
+    training state (its `local_params`) and, counted at the one-process
+    size, a layer's activations a layer. The deepest depth whose four
+    ranks' sum stays under W_PEAK_BUDGET."""
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.launch.train import train_state_bytes
+    s2_state = train_state_bytes(cfg.replace(n_layers=S2_LAYERS))
+    act = (S2_PEAK - s2_state) / S2_LAYERS
+    n = W_MESH[0] * W_MESH[1]
+    rows = []
+    for layers in range(1, cfg.n_layers + 1):
+        c = cfg.replace(n_layers=layers)
+        state = [train_state_bytes(c, RankMesh(W_MESH, DRILL_AXES, r,
+                                               torch.device("cpu"), {}))
+                 for r in range(n)]
+        rows.append({"layers": layers, "rank_state_bytes": max(state),
+                     "sum_bytes": sum(state) + n * layers * act})
+        if rows[-1]["sum_bytes"] > W_PEAK_BUDGET:
+            break
+    fits = [r["layers"] for r in rows if r["sum_bytes"] <= W_PEAK_BUDGET]
+    return {"layers": max(fits) if fits else 1, "s2_state_bytes": s2_state,
+            "activation_bytes_per_layer": act, "budget_bytes": W_PEAK_BUDGET,
+            "reckoned": rows}
+
+
+@contextlib.contextmanager
+def route_drops():
+    """While active, the assignments each `moe.route` call drops for
+    capacity (a host read a call): on a rank, those of the global
+    tokens' routing, which every rank routes alike."""
+    from repro_torch.models import moe
+    orig, rec = moe.route, []
+
+    def counted(*args, **kwargs):
+        r = orig(*args, **kwargs)
+        rec.append(int((~r.keep).sum()))
+        return r
+
+    moe.route = counted
+    try:
+        yield rec
+    finally:
+        moe.route = orig
+
+
+@contextlib.contextmanager
+def first_hidden():
+    """While active, the output of the first `lm.forward_hidden` call, on
+    the CPU (a training step's final hidden state)."""
+    from repro_torch.models import lm
+    orig, got = lm.forward_hidden, []
+
+    def kept(*args, **kwargs):
+        h = orig(*args, **kwargs)
+        if not got:
+            got.append(h.detach().cpu())
+        return h
+
+    lm.forward_hidden = kept
+    try:
+        yield got
+    finally:
+        lm.forward_hidden = orig
+
+
+def w_serve(torch, cfg, params, tokens, dev) -> dict:
+    """The spiking prefill of `tokens` three times (the launches, drops
+    and first MoE layer; a clean span; the collectives timed), then the
+    decode state over the prompt's first W_STATE_TOKENS tokens and
+    W_DECODE_STEPS greedy steps from the state's next token, under the
+    ambient mesh."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import distributed
+    from repro_torch.models import lm
+    out = {}
+    with torch.inference_mode():
+        reset_launch_counts()
+        rank_sync(torch, dev)
+        t0 = time.perf_counter()
+        with first_moe_call("moe_apply") as layer0, route_drops() as drops:
+            logits = lm.prefill(cfg, params, tokens, True)
+        rank_sync(torch, dev)
+        out.update(first_prefill_s=time.perf_counter() - t0,
+                   prefill_launches=launch_counts(), drops=drops,
+                   layer0=layer0)
+        t0 = time.perf_counter()
+        again = lm.prefill(cfg, params, tokens, True)
+        rank_sync(torch, dev)
+        out["prefill_span_s"] = time.perf_counter() - t0
+        if distributed.is_initialized():
+            with timed_collectives(torch, distributed, dev) as coll:
+                lm.prefill(cfg, params, tokens, True)
+            out["collectives"] = collective_summary(coll)
+        t0 = time.perf_counter()
+        lg, state = lm.prefill_with_state(cfg, params,
+                                          tokens[:, :W_STATE_TOKENS], True)
+        rank_sync(torch, dev)
+        out["state_s"] = time.perf_counter() - t0
+        tok, toks, step_launches, step_s = lg.argmax(-1), [], None, []
+        for i in range(W_DECODE_STEPS):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            lg, state = lm.decode_step(cfg, params, state, tok,
+                                       W_STATE_TOKENS + i, True)
+            rank_sync(torch, dev)
+            step_s.append(time.perf_counter() - t0)
+            step_launches = step_launches or launch_counts()
+            tok = lg.argmax(-1)
+            toks.append(tok)
+    out.update(logits=logits.float().cpu(),
+               repeats=bool(torch.equal(again, logits)),
+               tokens=torch.stack(toks).cpu(), step_launches=step_launches,
+               decode_step_s=step_s)
+    return out
+
+
+def w1_refs(torch, cfg, tokens_np, device) -> dict:
+    """(w1)'s one-process runs on the card, unsharded and as the witness
+    on a logical W_MESH (`placement.witness`: the tensor-parallel products
+    per model position, each position's experts on their whole buffers),
+    their results on the host."""
+    from repro_torch.launch.mesh import make_mesh, use_concrete_mesh
+    from repro_torch.models import lm, placement
+    params = lm.init_params(cfg, seed=SEED, device=device)
+    tokens = torch.from_numpy(tokens_np).long().to(device)
+    plain = w_serve(torch, cfg, params, tokens, device)
+    with use_concrete_mesh(make_mesh(W_MESH, DRILL_AXES, devices=device)), \
+            placement.witness():
+        witness = w_serve(torch, cfg, params, tokens, device)
+    del params
+    free_card(torch)
+    return {"plain": plain, "witness": witness}
+
+
+def parts_grads(torch, cfg, mesh_shape, dev) -> dict:
+    """The witness of (w2) / (w3)'s step 0, the ranks' arithmetic on one
+    process: each batch rank's loss terms on its rows of the step's
+    W_BATCH rows run in a thread of `placement.witness_parts`, each with
+    its own copy of every leaf (`placement.Split`: the copies' gradients
+    summed in f32 in rank order, as the ranks' all-reduce sums them),
+    under `placement.witness` on a (1, model) mesh; every MoE layer
+    routes the threads' rows joined, as the ranks' does, and one backward
+    runs through all of them. It runs with `remat="none"`: the backward
+    runs on one thread, where a recompute could not join the threads'
+    rows, and a recompute gives the forward's values bit for bit, so the
+    ranks' `remat` changes no gradient bit. Its loss and gradients, on
+    the host."""
+    from repro_torch.data import pipeline, synthetic
+    from repro_torch.launch.mesh import make_mesh, use_concrete_mesh
+    from repro_torch.models import lm, placement
+    from repro_torch.optim import adamw
+    n = mesh_shape[0] * (mesh_shape[1] if cfg.pure_fsdp else 1)
+    cfg = cfg.replace(remat="none")
+    params = lm.init_params(cfg, SEED, device=dev)
+    leaves = adamw.leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    copies = [placement.Split.apply(p, n) for p in leaves]
+    b = synthetic.lm_batch(SEED, 0, 0, W_BATCH, W_TRAIN_SEQ, cfg.vocab)
+    per = W_BATCH // n
+
+    def part(i):
+        mine = adamw.unflatten(params, [c[i] for c in copies])
+        return lm.loss_terms(cfg, mine, pipeline.device_put_batch(
+            {k: v[i * per:(i + 1) * per] for k, v in b.items()}, dev), True)
+    with placement.witness(), use_concrete_mesh(make_mesh(
+            (1, mesh_shape[1]), DRILL_AXES, devices=dev)):
+        terms = placement.witness_parts(part, n)
+        cnt = torch.clamp(sum(c.detach() for _, c in terms), min=1.0)
+        grads = torch.autograd.grad([t / cnt for t, _ in terms], leaves,
+                                    allow_unused=True,
+                                    materialize_grads=True)
+    out = {"loss0": float(sum(t.detach() for t, _ in terms) / cnt),
+           "grads": [g.cpu() for g in grads]}
+    del params, leaves, copies, terms, grads
+    free_card(torch)
+    return out
+
+
+def w_train_refs(torch, cfg, mesh_shape, batch, device, grads_path,
+                 witness: bool) -> dict:
+    """Step 0 of `train_loop` on one process over a logical mesh of
+    `mesh_shape` (the ranks' batch: shard 0's rows of `batch`): its loss
+    and final hidden state; with `witness`, the hidden state of the same
+    step under `placement.witness`. Its gradients and `parts_grads`'
+    are written to `grads_path`."""
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import placement
+    from repro_torch.optim import adamw
+    logical = make_mesh(mesh_shape, DRILL_AXES, devices=device)
+    kw = dict(batch=batch, seq=W_TRAIN_SEQ, seed=SEED, log_every=100,
+              steps=1, device=device, mesh=logical)
+    with first_update(adamw) as got, first_hidden() as hid:
+        ref = train.train_loop(cfg, **kw)
+    grads = {"unsharded": [g.cpu() for g in got]}
+    out = {"loss0": ref["losses"][0], "hidden": hid[0]}
+    del ref, got
+    free_card(torch)
+    parts = parts_grads(torch, cfg, mesh_shape, device)
+    grads["parts"], out["parts_loss0"] = parts["grads"], parts["loss0"]
+    torch.save(grads, grads_path)
+    del grads, parts
+    if witness:
+        with placement.witness(), first_hidden() as hid:
+            train.train_loop(cfg, **kw)
+        out["witness_hidden"] = hid[0]
+        free_card(torch)
+    return out
+
+
+def w_train(torch, cfg, mesh, dev, batch, grads_path, out):
+    """W_TRAIN_STEPS `train_loop` steps of `cfg` on this rank of `mesh`:
+    launches, losses and params' fingerprints a step, the peak, the
+    collectives a step, step 0's final hidden state (own rows) and, on
+    rank 0, each leaf's step-0 gradient gathered whole and held to the
+    one-process step's and to `parts_grads`' at `grads_path`."""
+    from repro_torch.launch import distributed, steps as steps_mod, train
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with rank_steps(torch, steps_mod, dev) as (log, _), \
+            first_update(adamw) as got, first_hidden() as hid, \
+            timed_collectives(torch, distributed, dev) as coll:
+        res = train.train_loop(cfg, steps=W_TRAIN_STEPS, mesh=mesh,
+                               batch=batch, seq=W_TRAIN_SEQ, seed=SEED,
+                               log_every=100)
+    out.update(loop_s=time.perf_counter() - t0, losses=res["losses"],
+               steps=log, peak_bytes=rank_peak(torch, dev),
+               collectives=collective_summary(coll, W_TRAIN_STEPS),
+               hidden=hid[0], coords=mesh.coords(),
+               held_bytes=sum(t.numel() * t.element_size()
+                              for t in adamw.leaves(res["params"])),
+               grads_finite=all(bool(torch.isfinite(g).all()) for g in got))
+    del res
+    rank_free(torch, dev)
+    whole = lm.abstract_params(cfg)
+    specs = sharding.param_specs(cfg, whole, mesh)
+    ref = torch.load(grads_path, mmap=True) if mesh.rank == 0 else None
+    gaps, unequal = {}, []
+    for i, (name, g) in enumerate(zip(leaf_names(whole), sharding.full_leaves(
+            adamw.unflatten(whole, got), specs, mesh))):
+        if ref is not None:
+            r = ref["unsharded"][i].to(dev).float()
+            gaps[name] = ((g.float() - r).norm() /
+                          (r.norm() + 1e-30)).item()
+            if not torch.equal(g, ref["parts"][i].to(dev)):
+                unequal.append(name)
+    out.update(grad_gap=gaps, parts_unequal=unequal)
+    del got, ref
+    rank_free(torch, dev)
+
+
+def w_rank(cfg, train_cfg, tokens_np, grads_path) -> dict:
+    """(w1) and (w2) on one rank of the 4-rank world, on the W_MESH rank
+    mesh: its part of the seed's params, cut as they are drawn
+    (`sharding.local_init`), serving its rows of the pool; then
+    `train_cfg`'s steps."""
+    import torch
+    from repro_torch.launch import distributed, train
+    from repro_torch.launch.mesh import make_rank_mesh, use_concrete_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding
+    dev, me = distributed.device(), distributed.rank()
+    mesh = make_rank_mesh(W_MESH, DRILL_AXES)
+    out = {"rank": me, "coords": mesh.coords(), "w1": {}, "w2": {}}
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = sharding.local_init(cfg, SEED, mesh, dev)
+    rows = train.rank_rows(W_BATCH, mesh)
+    tokens = torch.from_numpy(tokens_np[rows]).long().to(dev)
+    with use_concrete_mesh(mesh):
+        out["w1"] = w_serve(torch, cfg, params, tokens, dev)
+    out["w1"].update(rows=(rows.start, rows.stop),
+                     peak_bytes=rank_peak(torch, dev),
+                     held_bytes=sum(t.numel() * t.element_size()
+                                    for t in adamw.leaves(params)),
+                     wall_s=time.perf_counter() - t0)
+    del params
+    rank_free(torch, dev)
+    distributed.barrier()
+    t0 = time.perf_counter()
+    w_train(torch, train_cfg, mesh, dev, 2 * W_BATCH, grads_path, out["w2"])
+    out["w2"]["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def w3_rank(cfg, grads_path) -> dict:
+    """(w3) on one rank of the 2-rank world: `cfg`'s pure-FSDP steps on
+    the W_FSDP_MESH rank mesh."""
+    import torch
+    from repro_torch.launch import distributed
+    from repro_torch.launch.mesh import make_rank_mesh
+    dev = distributed.device()
+    mesh = make_rank_mesh(W_FSDP_MESH, DRILL_AXES)
+    out = {"rank": distributed.rank()}
+    t0 = time.perf_counter()
+    w_train(torch, cfg, mesh, dev, W_BATCH, grads_path, out)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def w_check_train(torch, key, ranks, refs, cfg, mesh_shape, local_b,
+                  totals, card, limits):
+    """(w2) / (w3)'s gates on the ranks' `w_train` results: exact
+    launches a step on every rank, finite equal losses across ranks,
+    step 0's loss and every gradient bit for bit with `parts_grads`', its
+    loss and worst gradient gaps to the unsharded step within `limits`,
+    the final hidden state of step 0 bit for bit with the witness's rows,
+    and after the last step each leaf's blocks equal on every rank that
+    holds them."""
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import RankMesh, abstract_mesh
+    from repro_torch.models import lm
+    from repro_torch.runtime import sharding
+    per_step = lm_train_launches(cfg)
+    r0 = ranks[0]
+    gap = r0["grad_gap"]
+    worst = max(gap, key=gap.get)
+    loss_gap = abs(r0["losses"][0] - refs["loss0"]) / abs(refs["loss0"])
+    witness = refs.get("witness_hidden", refs["hidden"])
+    equal_rows = []
+    for r in ranks:
+        emit(f"{key}_rank", card=card, rank=r["rank"], mesh=list(mesh_shape),
+             coords=r["coords"], layers=cfg.n_layers, losses=r["losses"],
+             held_bytes=r["held_bytes"], peak_bytes=r["peak_bytes"],
+             loop_s=r["loop_s"], step_span_s=[s["span_s"] for s in r["steps"]],
+             step_host_s=[s["host_s"] for s in r["steps"]],
+             collectives_per_step=r["collectives"],
+             launches_per_step=per_step, wall_s=r["wall_s"])
+        for i, s in enumerate(r["steps"]):
+            lm_launch_check(s["launches"], per_step,
+                            f"({key}) rank {r['rank']} step {i}")
+            add_counts(totals, s["launches"])
+            check(math.isfinite(s["loss"]), f"({key}) step {i} loss "
+                  f"{s['loss']}")
+        check(r["losses"] == r0["losses"], f"({key}) losses differ across "
+              f"ranks")
+        check(r["grads_finite"], f"({key}) rank {r['rank']}: step 0 "
+              f"gradients not finite")
+        rows = train.rank_rows(local_b, RankMesh(
+            mesh_shape, DRILL_AXES, r["rank"], torch.device("cpu"), {}),
+            cfg.pure_fsdp)
+        equal_rows.append(bool(torch.equal(r["hidden"], witness[rows])))
+    emit(key, card=card, arch=cfg.name, layers=cfg.n_layers,
+         mesh=list(mesh_shape), ranks=len(ranks), rows_per_step=local_b,
+         seq=W_TRAIN_SEQ, loss0=r0["losses"][0],
+         one_process_loss0=refs["loss0"], loss0_rel_gap=loss_gap,
+         parts_loss0=refs["parts_loss0"],
+         parts_unequal_leaves=len(r0["parts_unequal"]),
+         loss0_gap_limit=limits[0], grad_gap_worst=gap[worst],
+         grad_gap_worst_leaf=worst, grad_gap_limit=limits[1],
+         hidden_equal_witness=equal_rows,
+         witness_equal_unsharded=bool(torch.equal(witness, refs["hidden"])),
+         peak_sum_bytes=sum(r["peak_bytes"] for r in ranks))
+    check(all(equal_rows), f"({key}) step 0's final hidden state differs "
+          f"from the one-process witness's on ranks "
+          f"{[i for i, e in enumerate(equal_rows) if not e]}")
+    check(r0["losses"][0] == refs["parts_loss0"], f"({key}) step 0 loss "
+          f"{r0['losses'][0]} differs from parts_grads' "
+          f"{refs['parts_loss0']}")
+    check(not r0["parts_unequal"], f"({key}) step 0 gradients differ from "
+          f"parts_grads' at {r0['parts_unequal'][:3]}")
+    check(loss_gap <= limits[0], f"({key}) step 0 loss gap {loss_gap}")
+    check(gap[worst] <= limits[1], f"({key}) step 0 gradient gap "
+          f"{gap[worst]} at {worst}")
+    whole = lm.abstract_params(cfg)
+    mesh = abstract_mesh(mesh_shape, DRILL_AXES)
+    axes = sharding.leaf_split_axes(whole, sharding.param_specs(
+        cfg, whole, mesh), mesh)
+    names = leaf_names(whole)
+    for i, split in enumerate(axes):
+        held: dict = {}
+        for r in ranks:
+            held.setdefault(tuple(r["coords"][a] for a in sorted(split)),
+                            set()).add(r["steps"][-1]["params"][i])
+        check(all(len(v) == 1 for v in held.values()), f"({key}) after "
+              f"{W_TRAIN_STEPS} steps the ranks holding {names[i]}'s "
+              f"blocks hold other bits")
+
+
+def phase_w(torch, device, card):
+    """(w) the MoE configs on rank meshes as the registry configures them:
+    (w1) qwen2-moe-a2.7b uncut and as configured (`moe_apply`, T = 2, four
+    shared experts, one dispatch group) on a (data 2, model 2) rank mesh
+    of four `gloo` ranks, each holding 30 routed experts a layer, half
+    the attention heads, half the shared experts' d_ff and half the
+    vocab: a spiking prefill of W_BATCH x W_PROMPT and W_DECODE_STEPS
+    decode steps on the pool's slots, split over the data ranks; (w2)
+    the same model at full width, cut to the depth `w_train_depth`
+    reckons, W_TRAIN_STEPS `train_loop` steps of 8 x 128 rows on the same
+    mesh; (w3) that model with `pure_fsdp=True` on (1, 2). Gates: (w1)
+    every layer's dropped assignments equal to the one-process run's,
+    the first MoE layer's output bit for bit with the one-process
+    `moe_apply`'s (its witness form, whose shared experts run per model
+    position), logits and tokens bit for bit with the witness, exact
+    launches on every rank; (w2), (w3) `w_check_train`. Returns the
+    launches."""
+    import shutil
+    import tempfile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import markov_tokens
+    from repro_torch.launch import distributed
+    cfg = get_config(MOE_ARCH)
+    totals: dict = {}
+    depth = w_train_depth(torch, cfg)
+    emit("moe_rank_train_depth", card=card, **depth)
+    train_cfg = cfg.replace(n_layers=depth["layers"])
+    fsdp_cfg = train_cfg.replace(pure_fsdp=True)
+    tokens_np = markov_tokens(SEED, 0, 0, W_BATCH, W_PROMPT,
+                              cfg.vocab)[:, :W_PROMPT]
+
+    def parent_free():
+        """free_card after dropping the cuBLAS workspaces, whose segments
+        `empty_cache` cannot release: the four ranks need all but a few
+        GB of the card (PERF.md PR 40 runs 6-7: this process kept 2.49 GB
+        reserved for 134 MB allocated after the refs)."""
+        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        if clear is not None:
+            clear()
+        return free_card(torch), torch.cuda.memory_reserved()
+    held = [("start", *parent_free())]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_w_")
+    try:
+        t0 = time.perf_counter()
+        refs1 = w1_refs(torch, cfg, tokens_np, device)
+        held.append(("w1_refs", *parent_free()))
+        w2_path, w3_path = (os.path.join(tmp, f"{k}.pt") for k in
+                            ("w2", "w3"))
+        refs2 = w_train_refs(torch, train_cfg, W_MESH, 2 * W_BATCH, device,
+                             w2_path, witness=True)
+        held.append(("w2_refs", *parent_free()))
+        refs3 = w_train_refs(torch, fsdp_cfg, W_FSDP_MESH, W_BATCH, device,
+                             w3_path, witness=False)
+        held.append(("w3_refs", *parent_free()))
+        # what this process holds on the card while the ranks run
+        emit("w_parent_bytes", card=card, **{
+            f"{k}_{n}": v for k, a, r in held
+            for n, v in (("allocated", a), ("reserved", r))})
+        refs_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = distributed.spawn(w_rank, W_MESH[0] * W_MESH[1],
+                                  backend=U_BACKEND, device=device,
+                                  timeout_s=2 * U_SPAWN_TIMEOUT,
+                                  args=(cfg, train_cfg, tokens_np, w2_path))
+        world4_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks3 = distributed.spawn(w3_rank, W_FSDP_MESH[1],
+                                   backend=U_BACKEND, device=device,
+                                   timeout_s=U_SPAWN_TIMEOUT,
+                                   args=(fsdp_cfg, w3_path))
+        world2_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("phase_time", name="w_one_process_refs", seconds=refs_s)
+    emit("phase_time", name="w1_w2_ranks", seconds=world4_s)
+    emit("phase_time", name="w3_ranks", seconds=world2_s)
+    # (w1)
+    plain, wit = refs1["plain"], refs1["witness"]
+    x0, y0 = wit["layer0"]
+    _, p_y0 = plain["layer0"]
+    for r in ranks:
+        v = r["w1"]
+        rows = slice(*v["rows"])
+        rx0, ry0 = v["layer0"]
+        emit("moe_rank_serve_rank", card=card, rank=r["rank"],
+             coords=r["coords"], held_bytes=v["held_bytes"],
+             peak_bytes=v["peak_bytes"], first_prefill_s=v["first_prefill_s"],
+             prefill_span_s=v["prefill_span_s"], state_s=v["state_s"],
+             decode_step_s=v["decode_step_s"],
+             collectives_per_prefill=v["collectives"],
+             dropped=sum(v["drops"]), wall_s=v["wall_s"],
+             layer0_max_abs_dout_plain=(ry0.float() - p_y0[:, rows].float())
+             .abs().max().item(),
+             prefill_launches={k: n for k, n in v["prefill_launches"].items()
+                               if n})
+        lm_launch_check(v["prefill_launches"], MOE_PREFILL_LAUNCHES,
+                        f"(w1) rank {r['rank']} prefill")
+        lm_launch_check(v["step_launches"], MOE_DECODE_LAUNCHES,
+                        f"(w1) rank {r['rank']} decode step")
+        add_counts(totals, v["prefill_launches"])
+        add_counts(totals, v["step_launches"])
+        check(v["repeats"], f"(w1) rank {r['rank']}: the prefill does not "
+              f"repeat bit for bit")
+        check(v["drops"] == wit["drops"], f"(w1) rank {r['rank']} dropped "
+              f"{v['drops']}, the one-process run {wit['drops']}")
+        check(torch.equal(rx0, x0[:, rows]), f"(w1) rank {r['rank']}: the "
+              f"first MoE layer's input differs from the one-process one's")
+        check(torch.equal(ry0, y0[:, rows]), f"(w1) rank {r['rank']}: the "
+              f"first MoE layer's output differs from moe_apply's by "
+              f"{(ry0.float() - y0[:, rows].float()).abs().max().item()}")
+        check(torch.equal(v["logits"], wit["logits"][rows]), f"(w1) rank "
+              f"{r['rank']}: logits differ from the witness's by "
+              f"{(v['logits'] - wit['logits'][rows]).abs().max().item()}")
+        check(torch.equal(v["tokens"], wit["tokens"][:, rows]), f"(w1) rank "
+              f"{r['rank']}: decoded tokens differ from the witness's")
+    peaks = [r["w1"]["peak_bytes"] for r in ranks]
+    emit("moe_rank_serve", card=card, arch=cfg.name, mesh=list(W_MESH),
+         ranks=len(ranks), batch=W_BATCH, prompt=W_PROMPT,
+         decode_steps=W_DECODE_STEPS, dropped=sum(wit["drops"]),
+         unsharded_dropped=sum(plain["drops"]),
+         assignments=W_BATCH * W_PROMPT * cfg.spiking.t_steps
+         * cfg.moe.top_k * cfg.n_layers, dropped_by_layer=wit["drops"],
+         unsharded_dropped_by_layer=plain["drops"],
+         logits_max_abs_gap_unsharded=(wit["logits"] - plain["logits"])
+         .abs().max().item(), logits_max=plain["logits"].abs().max().item(),
+         tokens_share_equal_unsharded=float(
+             (wit["tokens"] == plain["tokens"]).float().mean()),
+         one_process_prefill_s=plain["first_prefill_s"],
+         one_process_prefill_span_s=plain["prefill_span_s"],
+         one_process_decode_step_s=plain["decode_step_s"],
+         peak_sum_bytes=sum(peaks), peak_bytes=peaks,
+         card_bytes=CARD_MEMORY_BYTES)
+    check(wit["drops"][0] == plain["drops"][0], "(w1) the witness's first "
+          "MoE layer drops other assignments than the unsharded run's")
+    check(sum(peaks) < CARD_MEMORY_BYTES, f"(w1) the four ranks' peaks sum "
+          f"to {sum(peaks)} bytes")
+    # (w2), (w3)
+    w_check_train(torch, "w2", [r["w2"] | {"rank": r["rank"]} for r in ranks],
+                  refs2, train_cfg, W_MESH, W_BATCH, totals, card,
+                  (W2_LOSS_GAP_LIMIT, W2_GRAD_GAP_LIMIT))
+    w_check_train(torch, "w3", ranks3, refs3, fsdp_cfg, W_FSDP_MESH,
+                  W_BATCH, totals, card,
+                  (W3_LOSS_GAP_LIMIT, W3_GRAD_GAP_LIMIT))
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8966,6 +9547,12 @@ def main() -> int:
     # steps, the pure-FSDP steps and the tensor-parallel qwen3-4b prefill
     # launch rows 1, 2 and 3 bf16 and row 9 at a rank's shapes.
     for name, n in timed("v_placement", phase_v, torch, device,
+                         card).items():
+        totals[name] = totals.get(name, 0) + n
+    # The MoE configs on rank meshes: qwen2-moe-a2.7b's prefill, decode
+    # and training steps on (2, 2) and its pure-FSDP steps on (1, 2)
+    # launch rows 1, 2 and 3 bf16 and row 9 at a rank's shapes.
+    for name, n in timed("w_moe_ranks", phase_w, torch, device,
                          card).items():
         totals[name] = totals.get(name, 0) + n
     emit("phase_time", name="total", seconds=time.perf_counter() - t_start)

@@ -15,12 +15,12 @@ ranks of a `torch.distributed` process group (`launch.distributed`), one
 process each, row-major as JAX lays devices out. Each rank holds its own
 data shard's rows and its own shard of every leaf; `axis_group`
 gives the sub-group over which a rank reduces along one axis. The
-data-parallel training step, the expert-parallel MoE, the
-tensor-parallel and FSDP placement of every other leaf
+data-parallel training step, both MoE forms (routing the global tokens
+that the batch ranks gather, their banks expert- or tensor-parallel),
+the tensor-parallel and FSDP placement of every other leaf
 (`runtime.sharding.local_params`, `models.placement`) and the elastic
 restore run over it. What is still missing (sharded event ops on their
-own ranks, a multi-pod mesh, an MoE whose tokens a data rank cuts) is
-`MULTI_PROCESS_ITEM`.
+own ranks, a multi-pod mesh) is `MULTI_PROCESS_ITEM`.
 
 The hardware constants below are the roofline denominators of the port,
 one NVIDIA H100 SXM (NVIDIA H100 80GB HBM3, 700 W), from NVIDIA's H100
@@ -43,8 +43,7 @@ HBM_BW = 3.35e12                # bytes/s, HBM3
 NVLINK_BW_PER_CARD = 900e9      # bytes/s, NVLink 4, all 18 links of a card
 
 MULTI_PROCESS_ITEM = ("ROADMAP queue 1 item 8b (sharded event ops on their "
-                      "own ranks, the multi-pod mesh, an MoE whose tokens a "
-                      "data rank's rows cut)")
+                      "own ranks, the multi-pod mesh)")
 # What a one-process mesh over several distinct devices is told to use.
 RANK_MESH_HINT = ("run one process a device over a process group instead: "
                   "launch.mesh.make_rank_mesh (launch.distributed.spawn or "

@@ -15,18 +15,20 @@ mesh, and the data pipeline splits over its `data` axis. A one-process
 mesh over several devices is refused, naming the rank mesh.
 
 Over a rank mesh (`launch.mesh.RankMesh`, one process a rank) every
-rank draws the params from the seed and keeps its `local_params` shard
-of every leaf (tensor-parallel `model` dims, FSDP `data` dims, pure
-FSDP's whole-mesh dims, the expert banks); the model runs on the shards
-(`models.placement`) and the step is data-parallel over the batch axes
-(`steps.make_train_step`). The batch is the reference's: shard 0's
-``batch // n_data`` rows, of which each batch rank (each data rank; each
-rank of the mesh under `pure_fsdp`) takes its contiguous slice where the
-count divides and all of them where it does not (as `batch_axes`
-replicates). Rank 0 writes each checkpoint, each leaf gathered whole
-from its shards, and the ranks meet at a barrier after it; every rank
-resumes from the same snapshot, each leaf cut to its shard as it is
-read.
+rank draws its `local_params` shard of every leaf from the seed, each
+leaf cut as it is drawn (`sharding.local_init`: tensor-parallel `model`
+dims, FSDP `data` dims, pure FSDP's whole-mesh dims, the expert banks);
+the model runs on the shards (`models.placement`) and the step is
+data-parallel over the batch axes (`steps.make_train_step`). The batch
+is the reference's: shard 0's ``batch // n_data`` rows, of which each
+batch rank (each data rank; each rank of the mesh under `pure_fsdp`)
+takes its contiguous slice (its block of each microbatch, `rank_rows`)
+where the count divides and all of them where it does not (as
+`batch_axes` replicates; an MoE, which routes the rows the ranks hold
+together, refuses that). Rank 0 writes each checkpoint, each leaf
+gathered whole from its shards, and the ranks meet at a barrier after
+it; every rank resumes from the same snapshot, each leaf cut to its
+shard as it is read.
 
 A checkpoint's step is the number of updates its state has taken, so a
 resumed run starts its data pipeline and schedule at that step and
@@ -56,6 +58,7 @@ import os
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -66,7 +69,7 @@ from repro_torch.data import pipeline, synthetic
 from repro_torch.launch import distributed, steps as steps_mod
 from repro_torch.launch.mesh import MULTI_PROCESS_ITEM, Mesh, RankMesh, \
     make_host_mesh, refuse_distinct_devices
-from repro_torch.models import lm
+from repro_torch.models import lm, placement
 from repro_torch.optim import adamw, schedule as sched
 from repro_torch.runtime import sharding
 from repro_torch.runtime.straggler import StragglerMonitor
@@ -100,17 +103,28 @@ def train_state_bytes(cfg: LMConfig, mesh: Optional[Mesh] = None) -> int:
     return total
 
 
-def rank_rows(rows: int, mesh: RankMesh, pure_fsdp: bool = False
-              ) -> slice:
+def rank_rows(rows: int, mesh: RankMesh, pure_fsdp: bool = False,
+              microbatches: int = 1):
     """A batch rank's rows of a step's `rows`: its contiguous slice where
     the batch axes (data; data and model under `pure_fsdp`) divide them,
-    all of them where they do not."""
+    all of them where they do not. With `microbatches` m > 1 whose
+    blocks they divide, the rank's block of each of the m microbatches
+    in turn (an index array), so that the ranks' i-th microbatches,
+    joined in rank order, are the reference's i-th: the global rows
+    ``[i * rows / m, (i + 1) * rows / m)``, which an MoE routes
+    together."""
     axes = tuple(a for a in (("data", "model") if pure_fsdp else ("data",))
                  if a in mesh.shape)
     n = math.prod(mesh.shape[a] for a in axes)
     if rows % n:
         return slice(None)
     c = sharding.shard_index(mesh, axes)
+    m = max(1, microbatches)
+    if m > 1 and n > 1 and rows % (n * m) == 0:
+        per = rows // (n * m)
+        return np.concatenate([np.arange(i * (rows // m) + c * per,
+                                         i * (rows // m) + (c + 1) * per)
+                               for i in range(m)])
     per = rows // n
     return slice(c * per, (c + 1) * per)
 
@@ -132,7 +146,6 @@ def train_loop(cfg: LMConfig, *, steps: int = 50, batch: int = 8,
     mesh = mesh if mesh is not None else training_mesh(dev)
     refuse_distinct_devices(mesh, "training")
     spk = cfg.spiking.enabled if spiking is None else spiking
-    lm.refuse_rank_cut(cfg, mesh, spk)
     need, have = train_state_bytes(cfg, mesh), _device_bytes(dev)
     if have is not None and need > have:
         raise RuntimeError(
@@ -152,13 +165,13 @@ def train_loop(cfg: LMConfig, *, steps: int = 50, batch: int = 8,
             dispatch.resolved_backends(dev, mesh=mesh).items())
         print(f"{who} dispatch backends on {dev} (mesh-aware): {resolved}")
 
-    params = lm.init_params(cfg, seed, device=dev)
-    pspecs = sharding.param_specs(cfg, params, mesh)
-    problems = sharding.validate_specs(params, pspecs, mesh)
+    whole = lm.abstract_params(cfg)
+    pspecs = sharding.param_specs(cfg, whole, mesh)
+    problems = sharding.validate_specs(whole, pspecs, mesh)
     if problems:
         raise ValueError(f"param specs do not fit {mesh}: {problems[:3]}")
-    if ranked:
-        params = sharding.local_params(params, pspecs, mesh)
+    params = sharding.local_init(cfg, seed, mesh, dev) if ranked \
+        else lm.init_params(cfg, seed, device=dev)
     opt_cfg = adamw.AdamWConfig(lr=lr, state_dtype=cfg.opt_state_dtype)
     opt_state = adamw.init(params, opt_cfg)
     schedule_fn = functools.partial(
@@ -192,7 +205,6 @@ def train_loop(cfg: LMConfig, *, steps: int = 50, batch: int = 8,
             # the whole tree's shapes alone: each leaf is cut to this
             # rank's part as it is read
             from repro_torch.runtime import elastic
-            whole = lm.abstract_params(cfg)
             latest, restored = elastic.reshard_restore(
                 cfg, mgr, (whole, adamw.init(whole, opt_cfg)), mesh)
         else:
@@ -207,8 +219,16 @@ def train_loop(cfg: LMConfig, *, steps: int = 50, batch: int = 8,
     # its slice of them (`rank_rows`).
     n_shards = mesh.shape.get("data", 1)
     local_b = max(1, batch // n_shards)
-    rows = rank_rows(local_b, mesh, cfg.pure_fsdp) if ranked \
-        else slice(None)
+    rows = rank_rows(local_b, mesh, cfg.pure_fsdp, cfg.microbatches) \
+        if ranked else slice(None)
+    if ranked and cfg.moe is not None and isinstance(rows, slice) \
+            and rows == slice(None) \
+            and placement.batch_group(mesh, cfg.pure_fsdp) is not None:
+        raise ValueError(
+            f"{cfg.name}: {local_b} rows do not split over the batch ranks "
+            f"of {dict(mesh.shape)}; its MoE routes the rows the batch "
+            f"ranks hold together, and each holding all of them would "
+            f"route every row once a rank")
 
     def make_batch(shard, step):
         b = synthetic.lm_batch(seed, shard, step, local_b, seq, cfg.vocab)

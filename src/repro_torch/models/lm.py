@@ -214,16 +214,20 @@ def _block_init(cfg: LMConfig, spec: BlockSpec, generator: torch.Generator,
 
 
 def _stack_init(cfg: LMConfig, pattern: List[BlockSpec], n_groups: int,
-                generator: torch.Generator, device, cross: bool) -> list:
+                generator: torch.Generator, device, cross: bool,
+                cut=None, prefix: Tuple[str, ...] = ("blocks",)) -> list:
     """Per pattern position, its n_groups layers' params stacked on a
     leading axis. Each layer is drawn, copied into its slice and freed,
     so the peak is the stack plus one layer (an MoE's expert banks are
-    most of a model)."""
+    most of a model); with `cut` (see `init_params`) the stack holds each
+    layer's kept part."""
     out = []
-    for spec in pattern:
+    for i, spec in enumerate(pattern):
         stacked = None
         for g in range(n_groups):
             layer = _block_init(cfg, spec, generator, device, cross)
+            if cut is not None:
+                layer = cut(prefix + (str(i),), layer, True)
             if stacked is None:
                 stacked = _tree_map(lambda x: x.new_empty(
                     (n_groups,) + tuple(x.shape)), layer)
@@ -233,7 +237,8 @@ def _stack_init(cfg: LMConfig, pattern: List[BlockSpec], n_groups: int,
     return out
 
 
-def init_params(cfg: LMConfig, seed: int = 0, device="cuda") -> dict:
+def init_params(cfg: LMConfig, seed: int = 0, device="cuda",
+                cut=None) -> dict:
     """Random params from `seed`, in `repro`'s dtypes (bf16 matrices, f32
     norm scales and router) and stacked layout. The weights are drawn on
     `device` by a `torch.Generator` that lives there (a billion values
@@ -241,31 +246,43 @@ def init_params(cfg: LMConfig, seed: int = 0, device="cuda") -> dict:
     weights on every run on one kind of device, and different ones on
     the CPU and the card; parity with `repro` goes through
     `params_from_numpy` instead. On the `meta` device nothing is drawn:
-    the tree's shapes and dtypes only."""
+    the tree's shapes and dtypes only.
+
+    `cut(prefix, tree, layer)` keeps a part of each subtree as it is
+    drawn (`prefix` its path, `layer` whether it is one layer of a
+    stacked block, without the group axis): the same values, and a peak
+    of the kept tree plus one layer (`runtime.sharding.local_init`, a
+    rank's `local_params` of the seed's tree)."""
     dev = resolve_device(device)
     pattern, n_groups = layer_pattern(cfg)
     gen = torch.Generator(device="cpu" if dev.type == "meta" else dev) \
         .manual_seed(seed)
+
+    def kept(prefix, tree):
+        return tree if cut is None else cut(prefix, tree, False)
     p = {
-        "embed": embed_init(cfg.vocab, cfg.d_model, generator=gen,
-                            device=dev),
+        "embed": kept(("embed",), embed_init(
+            cfg.vocab, cfg.d_model, generator=gen, device=dev)),
         "blocks": _stack_init(cfg, pattern, n_groups, gen, dev,
-                              cross=cfg.encoder_decoder),
-        "final_norm": rmsnorm_init(cfg.d_model, dev),
-        "lm_head": dense_init(cfg.d_model, cfg.vocab, torch.bfloat16,
-                              generator=gen, device=dev),
+                              cross=cfg.encoder_decoder, cut=cut),
+        "final_norm": kept(("final_norm",), rmsnorm_init(cfg.d_model, dev)),
+        "lm_head": kept(("lm_head",), dense_init(
+            cfg.d_model, cfg.vocab, torch.bfloat16, generator=gen,
+            device=dev)),
     }
     if cfg.encoder_decoder:
         p["encoder"] = {
             "blocks": _stack_init(cfg, [BlockSpec("attn", "mlp")],
                                   cfg.n_encoder_layers, gen, dev,
-                                  cross=False),
-            "final_norm": rmsnorm_init(cfg.d_model, dev)}
+                                  cross=False, cut=cut,
+                                  prefix=("encoder", "blocks")),
+            "final_norm": kept(("encoder", "final_norm"),
+                               rmsnorm_init(cfg.d_model, dev))}
     if cfg.n_frontend_tokens or cfg.encoder_seq:
         # The stub frontend's projection of precomputed embeddings.
-        p["frontend_proj"] = dense_init(cfg.d_model, cfg.d_model,
-                                        torch.bfloat16, generator=gen,
-                                        device=dev)
+        p["frontend_proj"] = kept(("frontend_proj",), dense_init(
+            cfg.d_model, cfg.d_model, torch.bfloat16, generator=gen,
+            device=dev))
     return p
 
 
@@ -300,37 +317,6 @@ def active_param_count(cfg: LMConfig) -> int:
     return int(total - experts * (1 - active_frac))
 
 
-def refuse_rank_cut(cfg: LMConfig, mesh, spiking: bool) -> None:
-    """Raise where a rank mesh would run another MoE than the one-process
-    model (the reference's): `moe_apply` over ranks (its dispatch groups
-    span the global rows, and a `model` rank holds part of the banks), or,
-    over `data` ranks, a spiking MoE whose fires scan the flattened
-    tokens as their time axis (T > 1, or shared experts), which a rank
-    cuts at its own rows. Nothing is refused off a rank mesh."""
-    from repro_torch.launch.mesh import MULTI_PROCESS_ITEM, RankMesh
-    if cfg.moe is None or not isinstance(mesh, RankMesh):
-        return
-    n_data = mesh.shape.get("pod", 1) * mesh.shape.get("data", 1)
-    if cfg.pure_fsdp and mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: pure_fsdp puts the batch on model ranks too, "
-            f"where the expert-parallel MoE needs every token of a data "
-            f"shard on each of them ({MULTI_PROCESS_ITEM})")
-    if not cfg.moe_shard_map and mesh.size > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: moe_apply over a rank mesh {dict(mesh.shape)} is "
-            f"not the one-process MoE; set moe_shard_map=True (the "
-            f"expert-parallel MoE, capacity per data shard as the "
-            f"reference's)")
-    if n_data > 1 and spiking and (cfg.spiking.t_steps > 1
-                                   or cfg.moe.n_shared):
-        raise NotImplementedError(
-            f"{cfg.name}: a spiking MoE with T={cfg.spiking.t_steps} and "
-            f"{cfg.moe.n_shared} shared experts over {n_data} data ranks: "
-            f"its fires scan the flattened tokens, which a rank cuts at "
-            f"its own rows ({MULTI_PROCESS_ITEM})")
-
-
 # -------------------------------------------------------- full sequence
 def _ffn(cfg: LMConfig, spec: BlockSpec, p: dict, x: torch.Tensor,
          spiking: bool, decode: bool = False) -> torch.Tensor:
@@ -350,21 +336,23 @@ def _ffn(cfg: LMConfig, spec: BlockSpec, p: dict, x: torch.Tensor,
               spiking=spiking, lif_cfg=lif)
     if decode:
         h = h[..., None, :]
-    # the ambient mesh, as the reference reads `current_mesh()`
-    from repro_torch.launch.mesh import current_mesh
-    mesh = current_mesh()
-    refuse_rank_cut(cfg, mesh, spiking)
     if pl.tp and m.n_shared:
         # the shared experts' MLP over the model positions
         kw["shared_mlp"] = functools.partial(
             placement.mlp, pl, width=m.n_shared * m.d_ff_expert,
             spiking=spiking, lif_cfg=lif)
+    # On a rank mesh both forms route the global batch, each rank's rows
+    # gathered in the reference's token order (`moe_lib.moe_apply`).
     if cfg.moe_shard_map:
-        out = moe_lib.moe_apply_shard_map(p["moe"], h, mesh=mesh, **kw)
+        # the ambient mesh, as the reference reads `current_mesh()`
+        from repro_torch.launch.mesh import current_mesh
+        out = moe_lib.moe_apply_shard_map(p["moe"], h, mesh=current_mesh(),
+                                          placed=pl, **kw)
     else:
         # the reference's decode routes one group, whatever the config
         groups = 1 if decode else cfg.moe_dispatch_groups
-        out = moe_lib.moe_apply(p["moe"], h, dispatch_groups=groups, **kw)
+        out = moe_lib.moe_apply(p["moe"], h, dispatch_groups=groups,
+                                placed=pl, **kw)
     return x + (out[..., 0, :] if decode else out)
 
 

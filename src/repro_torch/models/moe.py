@@ -23,6 +23,11 @@ Bit-level choices that keep the port on the reference's values:
   * the combine adds each token's k weighted expert outputs in rising
     expert id, one rounding per add, as the reference's scatter-add in
     sorted order does, and with no atomics, so a run repeats bit for bit.
+
+On a rank mesh both forms compute the reference's MoE of the global
+batch: each rank's rows are gathered in the reference's token order,
+every rank routes all of them alike and keeps its own rows of the
+output (`moe_apply`'s doc).
 """
 from __future__ import annotations
 
@@ -91,14 +96,12 @@ class Routing(NamedTuple):
 
 
 def route(router: torch.Tensor, xl: torch.Tensor, *, top_k: int,
-          capacity: int, e_bank: int, normalize_weights: bool = True,
-          shard: Optional[tuple] = None) -> Routing:
+          capacity: int, e_bank: int,
+          normalize_weights: bool = True) -> Routing:
     """Top-k routing of the tokens xl (s, d) and their rank-within-expert
     capacity check. A dropped slot's `dest` is the sink row
-    ``e_bank * capacity`` past the buffer. `shard` (j, e_loc): keep only
-    the slots of experts ``[j * e_loc, (j + 1) * e_loc)`` (the reference's
-    `mine` mask), with `dest` a row of that shard's bank of `e_loc`
-    experts (`e_bank` is then ignored)."""
+    ``e_bank * capacity`` past the buffer (`_shard` keeps one model
+    position's experts of it)."""
     e = router.shape[-1]
     with _ieee_f32():
         logits = xl.float() @ router.float()
@@ -115,14 +118,8 @@ def route(router: torch.Tensor, xl: torch.Tensor, *, top_k: int,
     rank = torch.arange(sorted_ids.numel(), device=xl.device) \
         - starts[sorted_ids]
     keep = rank < capacity
-    if shard is None:
-        dest = torch.where(keep, sorted_ids * capacity + rank,
-                           torch.full_like(rank, e_bank * capacity))
-    else:
-        j, e_loc = shard
-        keep = keep & (sorted_ids // e_loc == j)         # my experts only
-        dest = torch.where(keep, (sorted_ids % e_loc) * capacity + rank,
-                           torch.full_like(rank, e_loc * capacity))
+    dest = torch.where(keep, sorted_ids * capacity + rank,
+                       torch.full_like(rank, e_bank * capacity))
     return Routing(ids, weights, sort_idx, sort_idx // top_k, dest, keep)
 
 
@@ -160,11 +157,41 @@ def _combine(eo: torch.Tensor, r: Routing, s_loc: int,
     return acc
 
 
+def _shard(r: Routing, j: int, e_loc: int, capacity: int) -> Routing:
+    """`r` (a routing over the whole bank) kept to experts ``[j * e_loc,
+    (j + 1) * e_loc)``, the reference's `mine` mask: `keep` only their
+    kept slots, `dest` a row of a bank of those `e_loc` experts (the sink
+    row ``e_loc * capacity`` elsewhere). The rows of kept slots keep
+    their rank within their expert, so the shard's buffer is those
+    experts' rows of the whole one."""
+    sorted_ids = r.ids.reshape(-1)[r.sort_idx]
+    keep = r.keep & (sorted_ids // e_loc == j)
+    dest = torch.where(keep, r.dest - j * e_loc * capacity,
+                       torch.full_like(r.dest, e_loc * capacity))
+    return r._replace(keep=keep, dest=dest)
+
+
+def _expert_ffn(expert_in: torch.Tensor, banks: dict, spiking: bool,
+                lif_cfg: Optional[LIFConfig]) -> torch.Tensor:
+    """The experts' FFNs on their buffers (e, C, d), each its own GEMMs on
+    its whole buffer: the gate and up products, the LIF fire at T = 1 of
+    their sum (spiking) or SwiGLU, and the down product."""
+    dt = expert_in.dtype
+    h = torch.bmm(expert_in, banks["w_gate"].to(dt))
+    u = torch.bmm(expert_in, banks["w_up"].to(dt))
+    if spiking:
+        h = lif_fire((h + u)[None], lif_cfg)[0]
+    else:
+        h = torch.nn.functional.silu(h.float()).to(dt) * u
+    return torch.bmm(h, banks["w_down"].to(dt))
+
+
 def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25, normalize_weights: bool = True,
               spiking: bool = False, lif_cfg: Optional[LIFConfig] = None,
               dispatch_groups: int = 1,
-              shared_mlp: Optional[Callable] = None) -> torch.Tensor:
+              shared_mlp: Optional[Callable] = None,
+              placed=None) -> torch.Tensor:
     """x (..., N, D) -> (..., N, D); every leading axis (T included) is
     flattened into the routed tokens.
 
@@ -172,38 +199,86 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
     its own capacity (the reference's data-shard-local dispatch; one
     device here, the same arithmetic); a token count g does not divide
     falls back to one group. `shared_mlp(p, x)` replaces `mlp_apply` for
-    the shared experts (as in `moe_apply_shard_map`)."""
-    orig_shape = x.shape
+    the shared experts (`placement.mlp`: their d_ff split over the model
+    positions).
+
+    `placed` (a `placement.Placement`) runs it on a rank mesh as the
+    one-process MoE on the global batch: x holds this rank's rows of it
+    along dim -3 (the batch axis of the LM's (T, B, N, D), (B, N, D) and
+    decode inputs), which every batch rank all-gathers in the
+    reference's (T, B, N) order (`placement.global_rows`); routing,
+    capacity, the stable sort, the drops, the dispatch groups, the
+    combine and the shared experts' fire along the flattened token axis
+    then run on the global tokens, the same on every rank, and each rank
+    keeps its own rows of the output (`placement.own_rows`). The routed
+    experts run as `param_specs` splits their banks
+    (`Placement.experts`): each model rank's own experts on their whole
+    (C, d) buffers, their outputs all-gathered over `model` (expert
+    parallelism: bit for bit the one-process MoE); or each rank's
+    columns of every expert's d_ff, the partial outputs summed over
+    `model` in f32 (`placement.row_parallel`); or whole. Under `pure_fsdp`
+    every rank holds other rows and runs the whole MoE. Under `witness`
+    on a one-process mesh each model position runs its experts (or its
+    columns) as a rank does."""
+    rows = placed.rows if placed is not None else None
+    xg = placement.global_rows(x, rows)
     d = x.shape[-1]
-    xt = x.reshape(-1, d)
+    xt = xg.reshape(-1, d)
     s = xt.shape[0]
-    e_bank = p["w_gate"].shape[0]
+    split = placed.experts() if placed is not None else None
+    # a rank's own experts are 1/m of the bank
+    e_bank = p["w_gate"].shape[0] * (
+        placed.m if split == "experts" and placed.ranked else 1)
     g = max(1, dispatch_groups)
     if s % g:
         g = 1
     s_loc = s // g
     capacity = capacity_of(s_loc, top_k, p["router"].shape[-1],
                            capacity_factor)
-    routes, bufs = [], []
-    for xl in xt.reshape(g, s_loc, d):
-        r = route(p["router"], xl, top_k=top_k, capacity=capacity,
-                  e_bank=e_bank, normalize_weights=normalize_weights)
-        routes.append(r)
-        bufs.append(_dispatch(xl, r, e_bank, capacity))
-    # (g, e_bank, C, d) -> (e_bank, g*C, d): each expert's rows, group by
-    # group. The reference constrains these buffers to `data` / `model`
-    # shards here (`_maybe_constrain`, a GSPMD hint); the single-controller
-    # port holds them whole on one device, so under a logical mesh the
-    # constraints have nothing to act on and are left out.
-    expert_in = torch.stack(bufs, 1).reshape(e_bank, g * capacity, d)
+    routes = [route(p["router"], xl, top_k=top_k, capacity=capacity,
+                    e_bank=e_bank, normalize_weights=normalize_weights)
+              for xl in xt.reshape(g, s_loc, d)]
+    names = ("w_gate", "w_up", "w_down")
 
-    h = torch.bmm(expert_in, p["w_gate"].to(xt.dtype))
-    u = torch.bmm(expert_in, p["w_up"].to(xt.dtype))
-    if spiking:
-        h = lif_fire((h + u)[None], lif_cfg)[0]
+    def expert_in(xx, rr, e):
+        """(e, g*C, d): each expert's rows, group by group (the
+        reference's (g, e, C, d) -> (e, g*C, d) regroup). The reference
+        constrains these buffers to `data` / `model` shards
+        (`_maybe_constrain`, a GSPMD hint); the port places them itself:
+        whole on one process, a model rank's own experts on a rank
+        mesh."""
+        bufs = [_dispatch(xl, r, e, capacity)
+                for xl, r in zip(xx.reshape(g, s_loc, d), rr)]
+        return torch.stack(bufs, 1).reshape(e, g * capacity, d)
+
+    if split == "experts":
+        # Each model position's own experts on their whole buffers; the
+        # dispatch of the tokens into them enters as the position's own
+        # copy (its cotangent summed over the positions).
+        m = placed.m
+        e_loc = e_bank // m
+        if placed.ranked:
+            j = placed.mesh.coords()["model"]
+            copies = {j: placement.ReplicaCopy.apply(xt, placed.group)}
+        else:
+            copies = dict(enumerate(placement.Split.apply(xt, m)))
+        outs = []
+        for j, xj in copies.items():
+            banks = {k: p[k] if placed.ranked
+                     else p[k][j * e_loc:(j + 1) * e_loc] for k in names}
+            outs.append(_expert_ffn(expert_in(
+                xj, [_shard(r, j, e_loc, capacity) for r in routes],
+                e_loc), banks, spiking, lif_cfg))
+        expert_out = placement.gather_blocks(outs[0], 0, placed.group) \
+            if placed.ranked else torch.cat(outs)
+    elif split == "ffn":
+        expert_out = placement.row_parallel(
+            placed, lambda xx, pp: _expert_ffn(xx, pp, spiking, lif_cfg),
+            expert_in(xt, routes, e_bank), {k: p[k] for k in names},
+            placement.MLP_CUTS)
     else:
-        h = torch.nn.functional.silu(h.float()).to(xt.dtype) * u
-    expert_out = torch.bmm(h, p["w_down"].to(xt.dtype))
+        expert_out = _expert_ffn(expert_in(xt, routes, e_bank), p, spiking,
+                                 lif_cfg)
 
     out_g = expert_out.reshape(e_bank, g, capacity, d).transpose(0, 1)
     combined = torch.cat([_combine(out_g[i], routes[i], s_loc, top_k)
@@ -213,7 +288,7 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
                            lif_cfg=lif_cfg) if shared_mlp is None \
             else shared_mlp(p["shared"], xt)
         combined = combined + shared.reshape(s, d)
-    return combined.reshape(orig_shape)
+    return placement.own_rows(combined.reshape(xg.shape), rows)
 
 
 def _ep_block(xl: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
@@ -226,16 +301,12 @@ def _ep_block(xl: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
     e_loc experts each) and combine into this position's partial output
     (s_loc, d) in xl's dtype."""
     s_loc = xl.shape[0]
-    r = route(router, xl, top_k=top_k, capacity=capacity, e_bank=e_loc,
-              normalize_weights=normalize_weights, shard=(j, e_loc))
-    expert_in = _dispatch(xl, r, e_loc, capacity)
-    h = torch.bmm(expert_in, wg.to(xl.dtype))
-    u = torch.bmm(expert_in, wu.to(xl.dtype))
-    if spiking:
-        h = lif_fire((h + u)[None], lif_cfg)[0]
-    else:
-        h = torch.nn.functional.silu(h.float()).to(xl.dtype) * u
-    eo = torch.bmm(h, wd.to(xl.dtype))
+    r = _shard(route(router, xl, top_k=top_k, capacity=capacity,
+                     e_bank=router.shape[-1],
+                     normalize_weights=normalize_weights), j, e_loc, capacity)
+    eo = _expert_ffn(_dispatch(xl, r, e_loc, capacity),
+                     {"w_gate": wg, "w_up": wu, "w_down": wd}, spiking,
+                     lif_cfg)
     return _combine(eo, r, s_loc, top_k)
 
 
@@ -245,42 +316,53 @@ def moe_apply_shard_map(p: dict, x: torch.Tensor, *, top_k: int,
                         spiking: bool = False,
                         lif_cfg: Optional[LIFConfig] = None,
                         mesh=None,
-                        shared_mlp: Optional[Callable] = None
-                        ) -> torch.Tensor:
+                        shared_mlp: Optional[Callable] = None,
+                        placed=None) -> torch.Tensor:
     """The manual expert-parallel MoE, the reference's
-    `moe_apply_shard_map`: every `model` position holds every token of its
-    data shard, keeps the slots routed to its own `e_loc` experts, runs
-    their FFNs, and the partial outputs are summed over `model`; the
-    shared experts run outside, on every token.
+    `moe_apply_shard_map`: the flattened tokens split into contiguous
+    data shards over (pod, data); every `model` position holds every
+    token of its data shard, keeps the slots routed to its own `e_loc`
+    experts, runs their FFNs, and the partial outputs are summed over
+    `model`; the shared experts run outside, on every token.
 
     `mesh` None or without a `model` axis (or not a `launch.mesh.Mesh`):
     `moe_apply` with one dispatch group. On a rank mesh
-    (`launch.mesh.RankMesh`) this process is one model position: x holds
-    its data shard's rows (capacity from them), the banks are its own
-    `local_params` slice (or the whole bank, sliced here), and the sum is
-    an `all_reduce` over `axis_group("model")` whose backward passes the
-    cotangent through; the input rows' and the router's cotangents are
-    summed over the same group, so the gradients are `moe_apply`'s. On a
+    (`launch.mesh.RankMesh`) this process is one (data, model) position:
+    x holds its rows of the global batch along dim -3, all-gathered over
+    the batch ranks (`placed.rows`; the (pod, data) ranks where `placed`
+    is None) into the reference's flattened (T, B, N) tokens, of which
+    the rank routes the reference's data shard, the contiguous chunk its
+    (pod, data) coordinates index (capacity from it). Its banks are its
+    own `local_params` slice (or the whole bank, sliced here); the sum
+    is an `all_reduce` over `axis_group("model")`; the data shards'
+    outputs are all-gathered over (pod, data) and each rank keeps its own
+    rows. Its gradients are `moe_apply`'s: the shard's rows and the
+    router enter through `ReplicaCopy` over `model` (where, under
+    `pure_fsdp`, the model ranks hold other rows, the output does
+    instead, and the batch gathers' reduce-scatters sum the rest). On a
     one-process mesh the same block runs once per data shard and model
     position, the partials summed in f32 in position order
     (`placement.position_sum`: the yardstick of the rank form, bit for
-    bit with it on two ranks). `shared_mlp(p, x)`
-    replaces `mlp_apply` for the shared experts (`placement.mlp`: their
-    d_ff split over the model positions)."""
+    bit with it on two model ranks). `shared_mlp(p, x)` replaces
+    `mlp_apply` for the shared experts (`placement.mlp`: their d_ff
+    split over the model positions)."""
     from repro_torch.launch.mesh import Mesh, RankMesh, \
         refuse_distinct_devices
     kw = dict(top_k=top_k, normalize_weights=normalize_weights,
               spiking=spiking, lif_cfg=lif_cfg)
     if not isinstance(mesh, Mesh) or "model" not in mesh.shape:
-        return moe_apply(p, x, capacity_factor=capacity_factor, **kw)
+        return moe_apply(p, x, capacity_factor=capacity_factor,
+                         shared_mlp=shared_mlp, placed=placed, **kw)
     refuse_distinct_devices(mesh, "expert-parallel MoE")
-    orig_shape = x.shape
+    rank_mesh = isinstance(mesh, RankMesh)
+    pure = placed is not None and placed.cfg.pure_fsdp
+    rows = placed.rows if placed is not None else placement.batch_group(mesh)
+    xg = placement.global_rows(x, rows)
     d = x.shape[-1]
-    xt = x.reshape(-1, d)
+    xt = xg.reshape(-1, d)
     s = xt.shape[0]
     e = p["router"].shape[-1]
     m = mesh.shape["model"]
-    rank_mesh = isinstance(mesh, RankMesh)
     names = ("w_gate", "w_up", "w_down")
     # A bank narrower than the router is a rank's `local_params` slice; a
     # whole bank is cut here, rows [j * e_loc, (j + 1) * e_loc).
@@ -293,24 +375,29 @@ def moe_apply_shard_map(p: dict, x: torch.Tensor, *, top_k: int,
     def banks(j):
         return tuple(p[k] if local else p[k][j * e_loc:(j + 1) * e_loc]
                      for k in names)
-    if rank_mesh:
-        n_b, j0 = 1, mesh.coords()["model"]
-    else:
-        n_b = 1
-        for a in ("pod", "data"):
-            n_b *= mesh.shape.get(a, 1)
-        if s % n_b:
-            raise ValueError(f"{s} rows do not split into {n_b} data "
-                             f"shards")
+    shard_axes = [a for a in ("pod", "data") if a in mesh.shape]
+    n_b = 1
+    for a in shard_axes:
+        n_b *= mesh.shape[a]
+    if s % n_b:
+        raise ValueError(f"{s} rows do not split into {n_b} data shards")
     s_loc = s // n_b
     capacity = capacity_of(s_loc, top_k, e, capacity_factor)
     if rank_mesh:
         group = mesh.axis_group("model")
-        xl = placement.ReplicaCopy.apply(xt, group)
-        router = placement.ReplicaCopy.apply(p["router"], group)
-        partial = _ep_block(xl, router, *banks(j0), j=j0, e_loc=e_loc,
-                            capacity=capacity, **kw)
-        out = placement.PartialSum.apply(partial, group)
+        c, i = mesh.coords(), 0
+        for a in shard_axes:
+            i = i * mesh.shape[a] + c[a]
+        xl, router = xt[i * s_loc:(i + 1) * s_loc], p["router"]
+        if not pure:
+            xl = placement.ReplicaCopy.apply(xl, group)
+            router = placement.ReplicaCopy.apply(router, group)
+        partial = _ep_block(xl, router, *banks(c["model"]), j=c["model"],
+                            e_loc=e_loc, capacity=capacity, **kw)
+        out = placement.global_rows(placement.PartialSum.apply(
+            partial, group), placement.batch_group(mesh), dim=0)
+        if pure:
+            out = placement.ReplicaCopy.apply(out, group)
     else:
         # Each position takes its own copy of its operands
         # (`placement.Split`) as a rank's pass `ReplicaCopy`: the backward
@@ -329,7 +416,7 @@ def moe_apply_shard_map(p: dict, x: torch.Tensor, *, top_k: int,
                            lif_cfg=lif_cfg) if shared_mlp is None \
             else shared_mlp(p["shared"], xt)
         out = out + shared.reshape(s, d)
-    return out.reshape(orig_shape)
+    return placement.own_rows(out.reshape(xg.shape), rows)
 
 
 def dropped_assignments(p: dict, x: torch.Tensor, *, top_k: int,

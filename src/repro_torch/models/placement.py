@@ -18,8 +18,14 @@ module runs the LM on those shards. `of(cfg)` reads the ambient mesh
     summed over `model` in rank order, the Megatron pair). The embedding
     looks up its own vocab rows (the others zero) and sums over `model`;
     the LM head computes its own vocab columns and all-gathers them, so
-    the loss and the served logits see whole rows. The expert banks stay
-    on `moe_apply_shard_map`'s expert parallelism;
+    the loss and the served logits see whole rows. An MoE's expert banks
+    run each rank's own experts, or each rank's columns of every
+    expert's d_ff, as their specs split them (`Placement.experts`,
+    `models.moe`);
+  * an MoE routes the global batch: each rank's rows are all-gathered
+    over the batch ranks in the reference's row order (`global_rows`,
+    whose backward is a reduce-scatter) and each rank keeps its own rows
+    of the output (`own_rows`);
   * every other split dim is gathered where it is used (`gathered`): an
     FSDP `data` dim, pure FSDP's whole-mesh dim, and the `model` dims of
     leaves whose consumer runs whole on every model rank (the SSM blocks,
@@ -44,12 +50,23 @@ same way. On two model ranks the rank run's all-reduce sums the same
 two partials in f32 (a sum of two has one order), so the two agree bit
 for bit; on more, the all-reduce's order is the backend's, and the two
 agree wherever the f32 sum is exact, which it nearly always is.
+
+`witness_parts(fn, n)` is the yardstick of n batch ranks whose MoE
+routes their rows together: `fn(i)`, batch rank i's forward on its own
+rows, runs in one thread of this process each; every MoE layer joins
+the threads' rows in rank order (`global_rows`) and each thread keeps
+its own rows of its own MoE's output (`own_rows`). The threads' graphs
+meet only there, as the ranks' do, so one backward through them runs
+each rank's products on its own rows, and the cotangent of a thread's
+MoE input is every thread's summed in f32, as the ranks' reduce-scatter
+sums it.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Callable, Dict, Tuple
+import threading
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -73,6 +90,58 @@ def witness():
         yield
     finally:
         _WITNESS.pop()
+
+
+class _Part:
+    """Batch rank `i` of `witness_parts`' threads: `join` stands for the
+    all-gather of `global_rows`, `own` for `own_rows`."""
+
+    def __init__(self, i: int, slots: list, gate: threading.Barrier):
+        self.i, self.slots, self.gate = i, slots, gate
+
+    def join(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        # a copy of x for each thread, so that x's cotangent is their sum
+        # in f32 in thread order (`Split`), as the reduce-scatter sums it
+        self.slots[self.i] = Split.apply(x, len(self.slots))
+        self.gate.wait()
+        out = torch.cat([s[self.i] for s in self.slots], dim)
+        self.gate.wait()                 # every thread has read the slots
+        return out
+
+    def own(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        n = x.shape[dim] // len(self.slots)
+        return x.narrow(dim, self.i * n, n)
+
+
+_PART = threading.local()
+
+
+def witness_parts(fn: Callable, n: int) -> list:
+    """[fn(0), ..., fn(n - 1)], each run in its own thread as batch rank i
+    of n (see the module doc). The ambient mesh and `witness` are the
+    caller's, shared by the threads. `fn` must not checkpoint an MoE
+    layer (`remat="none"`): the backward runs on one thread, where a
+    recompute cannot join the threads' rows."""
+    # a thread that fails aborts the barrier; the timeout ends a hang
+    slots, gate = [None] * n, threading.Barrier(n, timeout=600.0)
+    out: list = [None] * n
+    errors: list = []
+
+    def run(i):
+        _PART.view = _Part(i, slots, gate)
+        try:
+            out[i] = fn(i)
+        except BaseException as e:      # noqa: BLE001 (re-raised below)
+            errors.append(e)
+            gate.abort()
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
 
 
 # ------------------------------------------------------------ collectives
@@ -187,6 +256,45 @@ class _GatherLeaf(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.i * ctx.n, ctx.n), None, None, None
 
 
+class _GatherRows(torch.autograd.Function):
+    """The batch ranks' rows all-gathered along `dim` over `group`, in
+    group-rank order (the reference's global row order). The backward
+    reduce-scatters the cotangent, summed in f32: each rank's own rows
+    get the sum of every rank's cotangent of them."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        from repro_torch.launch import distributed
+        ctx.dim, ctx.group = dim, group
+        return distributed.all_gather(x.contiguous(), dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.launch import distributed
+        part = distributed.reduce_scatter(g.float(), ctx.dim, ctx.group)
+        return part.to(g.dtype), None, None
+
+
+class _OwnRows(torch.autograd.Function):
+    """This rank's block of the global rows along `dim` (the inverse of
+    `_GatherRows`). The backward puts the cotangent at those rows and
+    zeros at every other rank's."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        import torch.distributed as dist
+        n = x.shape[dim] // dist.get_world_size(group)
+        ctx.dim, ctx.shape = dim, x.shape
+        ctx.start = dist.get_rank(group) * n
+        return x.narrow(dim, ctx.start, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.new_zeros(ctx.shape)
+        out.narrow(ctx.dim, ctx.start, g.shape[ctx.dim]).copy_(g)
+        return out, None, None
+
+
 def _chunk(t: torch.Tensor, dim: int, j: int, m: int) -> torch.Tensor:
     """Block j of m of `t` along `dim`, contiguous (as a rank holds it)."""
     n = t.shape[dim] // m
@@ -224,7 +332,10 @@ class Placement:
         self.tp = self.m > 1 and not cfg.pure_fsdp
         self.mesh = mesh if self.ranked else None
         self.group = None
+        self.rows = None
         self.table: Dict[Tuple[str, ...], tuple] = {}
+        self.shape = (tuple(mesh.axis_names), tuple(mesh.shape.values())) \
+            if isinstance(mesh, Mesh) else None
         self.batch = frozenset()
         if self.ranked:
             if cfg.tp2d and mesh.size > 1:
@@ -233,18 +344,33 @@ class Placement:
                     f"at once) is not placed on a rank mesh")
             if "model" in mesh.shape:
                 self.group = mesh.axis_group("model")
-            names = ("pod", "data", "model") if cfg.pure_fsdp \
-                else ("pod", "data")
-            self.batch = frozenset(a for a in names
-                                   if mesh.shape.get(a, 1) > 1)
+            self.batch = frozenset(_batch_axes(mesh, cfg.pure_fsdp))
+            self.rows = batch_group(mesh, cfg.pure_fsdp)
             if mesh.size > 1:
-                self.table = _spec_table(cfg, tuple(mesh.axis_names),
-                                         tuple(mesh.shape.values()))
+                self.table = _spec_table(cfg, *self.shape)
+        else:
+            self.rows = getattr(_PART, "view", None)
 
     def heads(self) -> bool:
         """Whether attention runs each model rank's own heads."""
         return (self.tp and self.cfg.n_heads % self.m == 0
                 and self.cfg.n_kv_heads % self.m == 0)
+
+    def experts(self) -> Optional[str]:
+        """How the routed experts' banks split over the model positions,
+        read from their `param_specs` spec: ``"experts"`` (expert
+        parallelism: `model` on the expert dim), ``"ffn"`` (tensor
+        parallelism inside every expert: `model` on d_ff), or None (whole
+        on every position)."""
+        if not self.tp or self.cfg.moe is None:
+            return None
+        from repro_torch.runtime import sharding
+        for path, spec in _spec_table(self.cfg, *self.shape).items():
+            if path[-2:] == ("moe", "w_gate"):
+                if sharding._bank_dim(path, spec) is not None:
+                    return "experts"
+                return "ffn" if "model" in spec else None
+        return None
 
     def splits(self, width: int) -> bool:
         """Whether a product pair of hidden width `width` (an MLP's d_ff,
@@ -259,17 +385,16 @@ class Placement:
         gathered whole."""
         if not self.tp:
             return False
-        from repro_torch.runtime import sharding
         name, parent = path[-1], (path[-2] if len(path) > 1 else "")
         if parent == "attn" and name in _ATTN:
             return self.heads()
-        if parent in ("mlp", "shared") and name in _MLP:
+        if parent in ("mlp", "shared", "moe") and name in _MLP:
             return True
         if path == ("embed",):
             return spec[0] == "model"
         if path == ("lm_head",):
             return spec[1] == "model"
-        return sharding._bank_dim(path, spec) is not None
+        return False
 
     def gathered(self, tree, prefix: Tuple[str, ...], layer: bool = False):
         """`tree` (the leaves at `prefix`; one layer's views of stacked
@@ -311,6 +436,54 @@ class Placement:
                    for _ in sharding.splits(spec[1:], self.mesh)):
                 return True
         return False
+
+
+def _batch_axes(mesh, pure_fsdp: bool) -> Tuple[str, ...]:
+    """The axes of more than one position that carry a model step's
+    batch: (pod, data), and `model` too under `pure_fsdp`."""
+    names = ("pod", "data", "model") if pure_fsdp else ("pod", "data")
+    return tuple(a for a in names if mesh.shape.get(a, 1) > 1)
+
+
+def batch_group(mesh, pure_fsdp: bool = False):
+    """On a rank mesh, the process group of the ranks that hold the other
+    batch rows of this one's model step (`_batch_axes`); None off a rank
+    mesh, or where no batch axis has more than one position."""
+    from repro_torch.launch.mesh import RankMesh
+    if not isinstance(mesh, RankMesh):
+        return None
+    axes = _batch_axes(mesh, pure_fsdp)
+    return mesh.axes_group(axes) if axes else None
+
+
+def global_rows(x: torch.Tensor, group, dim: int = -3) -> torch.Tensor:
+    """The global batch of which this rank holds the block `x` along
+    `dim`: every rank's block of `group` (`batch_group`) joined in rank
+    order, the reference's row order; its gradient is the sum of every
+    rank's cotangent of this rank's rows. `x` itself where `group` is
+    None (one batch rank); `witness_parts`' join on its threads."""
+    if group is None:
+        return x
+    if isinstance(group, _Part):
+        return group.join(x, dim)
+    return _GatherRows.apply(x, dim, group)
+
+
+def gather_blocks(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' blocks of `group` all-gathered along `dim`, for a whole
+    that every rank then uses alike: the backward keeps this rank's block
+    of the cotangent, the same on every rank."""
+    return _GatherLeaf.apply(x, dim, group, False)
+
+
+def own_rows(x: torch.Tensor, group, dim: int = -3) -> torch.Tensor:
+    """The inverse of `global_rows`: this rank's block of the global
+    rows `x` along `dim`, whose cotangent the other rows do not see."""
+    if group is None:
+        return x
+    if isinstance(group, _Part):
+        return group.own(x, dim)
+    return _OwnRows.apply(x, dim, group)
 
 
 def of(cfg: LMConfig) -> Placement:

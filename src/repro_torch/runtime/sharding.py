@@ -453,6 +453,25 @@ def local_params(tree: Any, specs: Any, mesh, rank: Optional[int] = None
     return _zip_specs(one, tree, specs)
 
 
+def local_init(cfg: LMConfig, seed: int, mesh, device="cuda") -> Any:
+    """This rank's `local_params` of `lm.init_params(cfg, seed, device)`
+    on the rank mesh `mesh`, bit for bit, with each leaf cut as it is
+    drawn: the rank holds its own part of the tree and one whole layer
+    beside it, never the whole tree."""
+    from repro_torch.models import lm
+    table = dict(_spec_leaves(param_specs(cfg, lm.abstract_params(cfg),
+                                          mesh)))
+
+    def cut(prefix, tree, layer):
+        def one(path, leaf):
+            full = prefix + path
+            spec = table[full][1:] if layer else table[full]
+            fn = _cut_of(full, spec, mesh)
+            return leaf if fn is None else fn(leaf)
+        return _map_with_path(one, tree)
+    return lm.init_params(cfg, seed, device, cut=cut)
+
+
 def leaf_cuts(tree: Any, specs: Any, mesh) -> list:
     """Per leaf of the whole tree `tree`, in `optim.adamw.leaves` order
     (a checkpoint's): the function that cuts it to this rank's

@@ -22,8 +22,9 @@ Gates:
     on 2 ranks;
   * the elastic drill across ranks (4 ranks on (2, 2), shrunk to 2 on
     (1, 2)) walks back to step 6 and tracks the healthy run within 0.05;
-  * a checkpoint of split expert banks resumes the run bit for bit, and
-    an MoE that ranks would change is refused.
+  * a checkpoint of split expert banks resumes the run bit for bit;
+  * the MoE configs a rank mesh once refused train on it as the
+    one-process run does, and `tp2d` is refused.
 """
 import contextlib
 import dataclasses
@@ -62,13 +63,23 @@ DRILL = LMConfig(name="drill", family="dense", n_layers=2, d_model=32,
                  n_heads=4, n_kv_heads=2, d_ff=64, vocab=64,
                  spiking=SpikingConfig(t_steps=1), remat="none",
                  loss_chunk=16)
-# The reduced qwen2-moe through the EP MoE, T = 1 (a data rank's rows are
-# then the same tokens the one-process form's data shard routes). Spiking,
-# its shared experts' fire scans the flattened token axis as its time axis
-# (the reference's), which a data rank cuts at its own rows: over data > 1
-# it trains dense, spiking over the (1, 4) mesh.
-MOE = treg.get_reduced("qwen2-moe-a2.7b").replace(
-    spiking=SpikingConfig(t_steps=1), moe_shard_map=True)
+# The reduced qwen2-moe through the EP MoE, at its own T = 2 with its two
+# shared experts (each rank routes the reference's data shard of the
+# flattened global tokens, and the shared experts fire along all of them).
+MOE = treg.get_reduced("qwen2-moe-a2.7b").replace(moe_shard_map=True)
+# The configs a rank mesh refused before the MoE routed the global tokens
+# (a T = 1 MoE with shared experts and a T = 2 one without, spiking over
+# data ranks; `moe_apply` over data and model ranks; pure FSDP with an MoE
+# over model ranks), each now trained on its mesh: key -> (config, mesh,
+# spiking).
+ONCE_REFUSED = {
+    "spiking_shared": (MOE.replace(spiking=SpikingConfig(t_steps=1)),
+                       (2, 2), None),
+    "spiking_t2": (MOE.replace(moe=dataclasses.replace(MOE.moe, n_shared=0)),
+                   (2, 2), None),
+    "moe_apply_data": (MOE.replace(moe_shard_map=False), (2, 2), False),
+    "moe_apply_model": (MOE.replace(moe_shard_map=False), (1, 4), False),
+    "pure_fsdp_moe": (MOE.replace(pure_fsdp=True), (1, 4), False)}
 TRAIN_KW = dict(steps=3, batch=8, seq=16, log_every=100)
 # The reference's `shard_map_moe` case: d 32, d_ff 16 an expert, 8
 # experts, top-2, x (4, 16, 32).
@@ -82,12 +93,14 @@ TOL = 1e-5
 # reads at most 3.1e-3). The MoE's bf16 gradients are summed over its
 # data ranks the same way, and that rounding reaches every leaf upstream,
 # its f32 norm scales and router too: within 2^-6 (the reduced qwen2-moe
-# reads at most 2.8e-3 on (2, 2); on (1, 4), where only model ranks sum
-# its f32 partials, 5.2e-8). f32 leaves of the drill: TOL.
+# and its once-refused variants read at most 1.12e-2, pure FSDP on
+# (1, 4); without pure FSDP on (1, 4), where only model ranks sum its f32
+# partials, 4.1e-8). f32 leaves of the drill: TOL.
 BF16_GRAD_TOL, MOE_GRAD_TOL = 2.0 ** -8, 2.0 ** -6
 # Step 0's loss on a mesh with model ranks against the plain one-process
 # run (not the witness), relative: the bf16 rounding of the row-split
-# partials (at most 2.0e-4 read, the reduced qwen2-moe on (2, 2)).
+# partials (at most 1.37e-3 read, the T = 1 MoE with shared experts on
+# (2, 2)).
 TP_PLAIN_LOSS_TOL = 2.0 ** -8
 MODEL_AXES = ("data", "model")
 
@@ -303,16 +316,11 @@ def _four_ranks(moe_np, x, ck_dir) -> dict:
     out["dp_moe"] = _dp_train(MOE, mesh, spiking=False)
     out["ep_moe"] = _dp_train(MOE, ep)
     out["healthy"] = _drill_healthy(mesh, ck_dir)
-    plain = MOE.replace(moe_shard_map=False)
-    out["refused"] = {
-        "spiking_shared": _refusal(MOE, mesh, None),
-        "spiking_t2": _refusal(MOE.replace(
-            spiking=SpikingConfig(t_steps=2),
-            moe=dataclasses.replace(MOE.moe, n_shared=0)), mesh, None),
-        "moe_apply_data": _refusal(plain, mesh, False),
-        "moe_apply_model": _refusal(plain, ep, False),
-        "pure_fsdp_moe": _refusal(MOE.replace(pure_fsdp=True), ep, False),
-        "tp2d": _refusal(DRILL.replace(tp2d=True), mesh, False)}
+    out["once_refused"] = {
+        key: _dp_train(cfg, mesh if shape == (2, 2) else ep, spiking)
+        for key, (cfg, shape, spiking) in ONCE_REFUSED.items()}
+    out["refused"] = {"tp2d": _refusal(DRILL.replace(tp2d=True), mesh,
+                                       False)}
     return out
 
 
@@ -456,7 +464,8 @@ def _check_dp(ranks, cfg, shape, spiking=None, steps=None):
         # or expert-parallel: each row-split product's partials round to
         # bf16 before the all-reduce sums them, which the plain run's
         # whole products do not, and its losses part from theirs by up to
-        # 2.0e-4 relative at step 0 (the reduced qwen2-moe on (2, 2)).
+        # 1.37e-3 relative at step 0 (the T = 1 MoE with shared experts
+        # on (2, 2)).
         # The plain run holds their step-0 loss within TP_PLAIN_LOSS_TOL;
         # the witness, the same partials summed on one process, is the
         # reference of every check below.
@@ -482,7 +491,7 @@ def _check_dp(ranks, cfg, shape, spiking=None, steps=None):
                 f"across the ranks that hold it"
             g[tuple(at)], seen[tuple(at)] = r["grads"][i], True
         assert seen.all()
-        tol = MOE_GRAD_TOL if cfg is MOE else \
+        tol = MOE_GRAD_TOL if cfg.moe is not None else \
             TOL if kinds[i] == torch.float32 else BF16_GRAD_TOL
         assert np.abs(w).max() == 0 or _rel_l2(g, w) <= tol, \
             f"leaf {i}: step-0 gradient {_rel_l2(g, w)} from the " \
@@ -624,20 +633,26 @@ def test_rank_checkpoint_resumes_the_run_with_split_expert_banks(
 
 
 @pytest.mark.parametrize("case, match", [
-    ("spiking_shared", "2 shared experts over 2 data ranks.*item 8b"),
-    ("spiking_t2", "T=2 and 0 shared experts over 2 data ranks.*item 8b"),
-    ("moe_apply_data", "moe_shard_map=True"),
-    ("moe_apply_model", "moe_shard_map=True"),
-    ("pure_fsdp_moe", "pure_fsdp puts the batch on model ranks.*item 8b"),
     ("tp2d", "tp2d .* is not placed on a rank mesh")])
 def test_rank_mesh_refuses_an_moe_its_ranks_would_change(four_ranks, case,
                                                         match):
-    """An MoE that a rank's rows or banks would make another model than
-    the one-process run's is refused on every rank, before any step; so
-    are pure FSDP's batch over model ranks with an MoE, and `tp2d`."""
+    """`tp2d` is refused on every rank, before any step. The MoE configs
+    a rank mesh once refused here now train on it (the next test)."""
     for r in four_ranks["ranks"]:
         assert r["refused"][case] is not None, case
         assert re.search(match, r["refused"][case]), r["refused"][case]
+
+
+@pytest.mark.parametrize("case", list(ONCE_REFUSED))
+def test_rank_mesh_trains_the_moe_configs_it_once_refused(four_ranks, case):
+    """The MoE configs a rank mesh once refused (their fires scan the
+    flattened tokens, `moe_apply`'s dispatch spans the global rows, pure
+    FSDP puts the batch on model ranks) train on it as the one-process
+    run does (`_check_dp`: step 0's loss and gradients, the replicated
+    leaves across ranks)."""
+    cfg, shape, spiking = ONCE_REFUSED[case]
+    _check_dp([r["once_refused"][case] for r in four_ranks["ranks"]], cfg,
+              shape, spiking, steps=1)
 
 
 def test_nccl_without_a_card_raises_and_no_backend_is_switched():

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Run chip_smoke's phases (u) and (v) alone on the card: the build, then
-each of their parts in turn, every gate as chip_smoke holds it.
+"""Run chip_smoke's phases (u), (v) and (w) alone on the card: the build,
+then each of their parts in turn, every gate as chip_smoke holds it.
 
-    python3 tools/rank_probe.py [u1] [u2] [u3] [u4] [v]
+    python3 tools/rank_probe.py [u1] [u2] [u3] [u4] [v] [w]
 
 (u1) data-parallel TinyLlama-1.1B on two `gloo` ranks with its gradient
 witness, (u2) the expert-parallel qwen2-moe-a2.7b prefill on two ranks
@@ -10,8 +10,10 @@ with its rounding witness, (u3) the elastic drill across 8 ranks, (u4)
 one `nccl` rank, (v) every leaf placed on ranks (tensor-parallel
 TinyLlama-1.1B prefill and steps, its pure-FSDP steps, the
 tensor-parallel qwen3-4b prefill and decode, the TP / FSDP reshard;
-(v2) prints (u1)'s peaks beside its own when u1 ran first); all of them
-when none is named. Prints chip_smoke's
+(v2) prints (u1)'s peaks beside its own when u1 ran first), (w) the
+qwen2-moe-a2.7b configs on rank meshes as configured (its prefill and
+decode on four ranks, its training steps on four and, pure FSDP, on
+two); all of them when none is named. Prints chip_smoke's
 JSON lines and, last, `PROBE OK` or `PROBE FAILED`; exits 1 if any part
 failed.
 """
@@ -34,7 +36,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     parts = {"u1": cs.phase_dp_train, "u2": cs.phase_ep_prefill,
              "u3": cs.phase_rank_drill, "u4": cs.phase_nccl_rank,
-             "v": cs.phase_v}
+             "v": cs.phase_v, "w": cs.phase_w}
     names = sys.argv[1:] or list(parts)
     ok = True
     for name in names:
