@@ -385,6 +385,16 @@ Phases, each printed on its own line:
       witness, each leaf's blocks equal across ranks; per rank the
       params held, peaks, collectives (calls, bytes, ms), exact
       launches;
+  (x) the data-parallel side on ranks (phase_x's doc): (x1)
+      `event_op_sharded` with one shard a rank on four `gloo` ranks at
+      SpikingFormer-4-384's fc1 / fc2 / stage-1 shapes, kernels 12, 14,
+      19 + 18, 19 + 16, one rebalanced call and a ragged grid (kernel 10
+      by the chain): each rank's rows and report equal to the one-process
+      call's, one launch a rank, the summed dw; (x2) TinyLlama-1.1B on
+      the multi-pod (pod 2, data 1, model 2) mesh with compressed
+      gradients, bit for bit with (data 2, model 2) in the same world,
+      wire, scales and EF equal to one-process compression of the
+      gathered sum, exact launches, peaks;
   (d) one JSON line listing every kernel with its launches on the main
       paths ((c) and (h) for inference kernels, (f) for the training
       ones, (t2) for the status entry, (t1) and (t3) adding theirs, (i) for the APEC ones, (j) for the packed ones, (k), (m) and
@@ -392,8 +402,9 @@ Phases, each printed on its own line:
       calls', (n) the training fires', (q) its guarded forwards' and
       fault calls', (r) its mesh forwards', sharded calls', serving and
       training, (s) its training loops' and steps' fires and SDSA, (o5)
-      and whisper's decode the bf16 fire, (u), (v) and (w) their ranks'
-      fires and SDSA; the serial kernels 11, 13, 15
+      and whisper's decode the bf16 fire, (u), (v), (w) and (x) their
+      ranks' fires, SDSA and sharded event kernels; the serial kernels
+      11, 13, 15
       and 17 by their override
       calls), error and times (rows 16 and 18: kernels 16 and 18).
 Each phase prints its wall time on a `phase_time` line.
@@ -9442,6 +9453,422 @@ def phase_w(torch, device, card):
     return totals
 
 
+
+# ------------------------------------------------------------ phase (x)
+# The data-parallel side on ranks: sharded event ops with one shard a
+# rank, compressed gradients over the batch ranks, the multi-pod mesh.
+X_RANKS = 4
+X_MESH = (X_RANKS, 1)
+# 960 rows a rank: (r2)'s ragged per-shard rows (7680 over 4 ranks is
+# 1920 a rank, 15 whole tiles, no ragged grid).
+X_RAGGED_ROWS = X_RANKS * 960
+# The rebalanced call: the hot band piles the occupied tiles on rank 0.
+X_REBALANCED = ("ffn_fc1", "clustered50_hotband")
+X2_POD_MESH, X2_POD_AXES = (2, 1, 2), ("pod", "data", "model")
+X2_WITNESS_MESH = (2, 2)
+X2_STEPS = 2
+
+
+def x1_calls(operands) -> list:
+    """(key, operand index, op, packed, variant) of (x1): every op and
+    payload static on each operand set, the rebalanced call, and the
+    ragged grid on the first set's first X_RAGGED_ROWS rows."""
+    calls = []
+    for i, (label, data, *_rest) in enumerate(operands):
+        for op in ("spike_matmul", "apec_matmul"):
+            for packed in (False, True):
+                calls.append((f"{op}|{int(packed)}|{label}|{data}|static",
+                              i, op, packed, "static"))
+        if (label, data) == X_REBALANCED:
+            calls.append((f"spike_matmul|0|{label}|{data}|rebalanced",
+                          i, "spike_matmul", False, "rebalanced"))
+    calls.append(("spike_matmul|0|ragged", 0, "spike_matmul", False,
+                  "ragged"))
+    return calls
+
+
+def x1_call(torch, mesh, op, packed, variant, s, w, occ):
+    """One (x1) call on `mesh` (logical or a rank's): its output and
+    report. `s` dense spikes (packed here for a packed call), `occ` the
+    carried map on the card (the ragged call's map is dropped)."""
+    from repro_torch.core.spikes import pack_spikes_padded
+    from repro_torch.runtime import sharding
+    kw = {"packed_k": s.shape[-1]} if packed else {}
+    if op == "apec_matmul":
+        kw["g"] = MESH_APEC_G
+    payload = pack_spikes_padded(s) if packed else s
+    with torch.inference_mode():
+        return sharding.event_op_sharded(
+            mesh, op, payload, w, occupancy=occ, with_report=True,
+            rebalance=variant == "rebalanced", **kw)
+
+
+def x1_grad_case(torch, s, w, occ, op, mesh, g):
+    """dw of `op` through `event_op_sharded` on `mesh` (None: the
+    unsharded dispatch) against the cotangent `g`."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.runtime import sharding
+    kw = {"g": MESH_APEC_G} if op == "apec_matmul" else {}
+    wr = w.clone().requires_grad_(True)
+    out = dispatch.dispatch(op, s, wr, occupancy=occ, **kw) if mesh is None \
+        else sharding.event_op_sharded(mesh, op, s, wr, occupancy=occ, **kw)
+    return torch.autograd.grad((out * g).sum(), wr)[0]
+
+
+def x1_cotangent(torch, rows, n, device):
+    return torch.randn((rows, n), generator=torch.Generator().manual_seed(
+        SEED)).to(device)
+
+
+def x1_refs(torch, device, tmp) -> dict:
+    """(x1)'s one-process side: every call on a logical mesh of X_RANKS
+    positions on the card (each rank's rows' fingerprints, the report),
+    the unsharded dw of both ops, and each rank's operands written to
+    `tmp` (its rows of the spikes and of the map, the weights)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(X_MESH, DRILL_AXES, devices=device)
+    operands = mesh_operands(torch, device)
+    calls = x1_calls(operands)
+    refs = {"calls": calls, "fp": {}, "rep": {}, "rows": {}}
+    for key, i, op, packed, variant in calls:
+        _, _, s, w, occ = operands[i]
+        if variant == "ragged":
+            s = s[:X_RAGGED_ROWS].contiguous()
+            occ = ops.padded_occupancy(s)
+        out, rep = x1_call(torch, mesh, op, packed, variant, s, w, occ)
+        per = out.shape[0] // X_RANKS
+        refs["fp"][key] = [fingerprint(torch, out[r * per:(r + 1) * per])
+                           for r in range(X_RANKS)]
+        refs["rep"][key] = rep
+        refs["rows"][key] = out.shape[0]
+    # the weight gradient through the shards against the unsharded one
+    _, _, s, w, occ = (t.clone() if hasattr(t, "clone") else t
+                       for t in operands[0])
+    g = x1_cotangent(torch, s.shape[0], w.shape[1], device)
+    refs["dw"] = {op: x1_grad_case(torch, s, w, occ, op, None, g).cpu()
+                  for op in ("spike_matmul", "apec_matmul")}
+    for r in range(X_RANKS):
+        mine = {}
+        for i, (_, _, s, w, occ) in enumerate(operands):
+            per, mt = s.shape[0] // X_RANKS, occ.shape[0] // X_RANKS
+            mine[i] = (s[r * per:(r + 1) * per].cpu(), w.cpu(),
+                       occ[r * mt:(r + 1) * mt].cpu())
+        s = operands[0][2][:X_RAGGED_ROWS]
+        per = X_RAGGED_ROWS // X_RANKS
+        mine["ragged"] = s[r * per:(r + 1) * per].cpu()
+        torch.save(mine, os.path.join(tmp, f"x1_rank{r}.pt"))
+    del operands
+    return refs
+
+
+def x1_rank_part(torch, tmp, calls, out):
+    """(x1) on this rank: every call on its own rows on the rank mesh,
+    its launches, output fingerprint and report; the dw of both ops."""
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    from repro_torch.launch import distributed
+    from repro_torch.launch.mesh import make_rank_mesh
+    dev, me = distributed.device(), distributed.rank()
+    mesh = make_rank_mesh(X_MESH, DRILL_AXES)
+    mine = torch.load(os.path.join(tmp, f"x1_rank{me}.pt"),
+                      map_location=dev)
+    got = {}
+    t0 = time.perf_counter()
+    for key, i, op, packed, variant in calls:
+        s, w, occ = mine[i]
+        if variant == "ragged":
+            s = mine["ragged"]
+            occ = ops.padded_occupancy(s)
+        distributed.barrier()
+        rank_sync(torch, dev)
+        reset_launch_counts()
+        c0 = time.perf_counter()
+        y, rep = x1_call(torch, mesh, op, packed, variant, s, w, occ)
+        rank_sync(torch, dev)
+        got[key] = dict(fp=fingerprint(torch, y), rep=rep,
+                        launches=launch_counts(),
+                        s=time.perf_counter() - c0)
+    calls_s = time.perf_counter() - t0
+    s, w, occ = mine[0]
+    g = x1_cotangent(torch, s.shape[0] * X_RANKS, w.shape[1], dev)
+    per = s.shape[0]
+    dw = {op: x1_grad_case(torch, s.clone(), w, occ, op, mesh,
+                           g[me * per:(me + 1) * per]).cpu()
+          for op in ("spike_matmul", "apec_matmul")}
+    out["x1"] = dict(calls=got, dw=dw, calls_s=calls_s)
+    del mine
+    rank_free(torch, dev)
+
+
+# Elements a chunk of the one-process compression check (f32 temporaries
+# of 128 MB each): a stacked leaf of 22 blocks holds 253M.
+X2_CHECK_CHUNK = 1 << 25
+
+
+@contextlib.contextmanager
+def x2_compress_check(torch, mesh, specs, steps: int):
+    """While active, the first `steps` calls of `grad_compress.compress`
+    are held, leaf by leaf, to `grad_compress.compress` run in one
+    process on the whole summed gradient and EF state: every rank
+    gathers each leaf whole (`sharding.full_leaves`) and rank 0 compares
+    wire, scale and EF bit for bit, the leaf compressed in chunks of
+    X2_CHECK_CHUNK elements on its whole max (`compress`'s `whole_max`;
+    elementwise, so the same bits as one call). Yields the mismatches
+    (step, leaf, part) and the seconds the checks took."""
+    from repro_torch.launch import distributed
+    from repro_torch.optim import adamw, grad_compress
+    from repro_torch.runtime import sharding
+    orig = grad_compress.compress
+    bad: list = []
+    seconds = [0.0]
+    calls = [0]
+
+    def compress(grads, ef, whole_max=None):
+        wire, scales, new = orig(grads, ef, whole_max)
+        if calls[0] < steps:
+            t0 = time.perf_counter()
+            gens = [sharding.full_leaves(tree, specs, mesh)
+                    for tree in (grads, ef.error, wire, new.error)]
+            for k, ((g, e, q, n2), sc) in enumerate(zip(
+                    zip(*gens), adamw.leaves(scales))):
+                if distributed.rank() == 0:
+                    chunks = list(zip(g.reshape(-1).split(X2_CHECK_CHUNK),
+                                      e.reshape(-1).split(X2_CHECK_CHUNK)))
+                    amax = torch.stack([(gc.float() + ec.float()).abs().max()
+                                        for gc, ec in chunks]).max()
+                    parts = [orig([gc], grad_compress.EFState([ec]),
+                                  lambda _: [amax]) for gc, ec in chunks]
+                    wire1 = torch.cat([w1[0] for w1, _, _ in parts])
+                    ef1 = torch.cat([e1.error[0] for _, _, e1 in parts])
+                    for part, a, b in (("wire", q.reshape(-1), wire1),
+                                       ("ef", n2.reshape(-1), ef1),
+                                       ("scale", sc, parts[0][1][0])):
+                        if not torch.equal(a, b):
+                            bad.append((calls[0], k, part))
+                    del parts, wire1, ef1
+                del g, e, q, n2
+            seconds[0] += time.perf_counter() - t0
+        calls[0] += 1
+        return wire, scales, new
+
+    grad_compress.compress = compress
+    try:
+        yield bad, seconds
+    finally:
+        grad_compress.compress = orig
+
+
+def x2_run(torch, cfg, mesh, check: bool) -> dict:
+    """X2_STEPS compressed steps of `cfg` at LM_TRAIN_BATCH x LM_TRAIN_SEQ
+    on this rank of `mesh`, from `sharding.local_init`: losses, grad
+    norms, launches and span a step, fingerprints of the params and EF
+    state after, the peak; with `check`, `x2_compress_check`."""
+    from repro_torch.data import pipeline, synthetic
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import distributed, steps as steps_mod, train
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw, grad_compress
+    from repro_torch.runtime import sharding
+    dev = distributed.device()
+    whole = lm.abstract_params(cfg)
+    specs = sharding.param_specs(cfg, whole, mesh)
+    params = sharding.local_init(cfg, SEED, mesh, dev)
+    opt_cfg = adamw.AdamWConfig(state_dtype=cfg.opt_state_dtype)
+    opt = adamw.init(params, opt_cfg)
+    ef = grad_compress.init(params)
+    step = steps_mod.make_train_step(cfg, opt_cfg, spiking=True,
+                                     grad_compression=True, mesh=mesh)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    rows = train.rank_rows(LM_TRAIN_BATCH, mesh)
+    log = []
+    with contextlib.ExitStack() as stack:
+        bad, check_s = stack.enter_context(x2_compress_check(
+            torch, mesh, specs, X2_STEPS if check else 0))
+        for t in range(X2_STEPS):
+            b = synthetic.lm_batch(SEED, 0, t, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                   cfg.vocab)
+            batch = pipeline.device_put_batch(
+                {k: v[rows] for k, v in b.items()}, dev)
+            rank_sync(torch, dev)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            params, opt, ef, metrics = step(params, opt, ef, batch)
+            rank_sync(torch, dev)
+            log.append(dict(loss=metrics["loss"].item(),
+                            grad_norm=metrics["grad_norm"].item(),
+                            launches=launch_counts(),
+                            span_s=time.perf_counter() - t0))
+    out = dict(steps=log, bad=list(bad), check_s=check_s[0],
+               peak_bytes=rank_peak(torch, dev), rows=str(rows),
+               coords=mesh.coords(),
+               params=[fingerprint(torch, p) for p in adamw.leaves(params)],
+               ef=[fingerprint(torch, e) for e in adamw.leaves(ef.error)])
+    del params, opt, ef, step
+    rank_free(torch, dev)
+    return out
+
+
+def x_rank(tmp, calls, cfg) -> dict:
+    """(x) on one rank of four: (x1), then (x2) on the multi-pod mesh
+    (`make_production_mesh` would give (2, 2, 1): its (2, 1, 2) form is
+    built here, a model axis for TinyLlama's tensor-parallel leaves) and
+    on its (data 2, model 2) witness."""
+    import torch
+    from repro_torch.launch import distributed
+    from repro_torch.launch.mesh import make_production_mesh, \
+        make_rank_mesh
+    out = {"rank": distributed.rank()}
+    x1_rank_part(torch, tmp, calls, out)
+    production = make_production_mesh(multi_pod=True)
+    out["production_shape"] = dict(production.shape)
+    pod = make_rank_mesh(X2_POD_MESH, X2_POD_AXES)
+    witness = make_rank_mesh(X2_WITNESS_MESH, DRILL_AXES)
+    t0 = time.perf_counter()
+    out["pod"] = x2_run(torch, cfg, pod, check=True)
+    out["witness"] = x2_run(torch, cfg, witness, check=False)
+    out["x2_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_x(torch, device, card):
+    """(x) the data-parallel side of rank meshes, X_RANKS `gloo` ranks on
+    the card in one world. (x1) `event_op_sharded` with one shard a rank
+    at SpikingFormer-4-384's full-width shapes (stage 1 (131072 x 432) .
+    (432 x 96), fc1, fc2; (r2)'s operands on the model's maps and the
+    50%-clustered hot band): dense `spike_matmul` (kernel 12), packed
+    (14), APEC dense (19 spikes + 18) and packed (19 + 16) on each, one
+    rebalanced call (X_REBALANCED, the map on the card read once) and the
+    ragged grid (960 rows a rank: kernel 10 by the chain). Gates: each
+    rank's rows bit for bit with the same rows of the one-process call on
+    a logical mesh of X_RANKS positions; one launch a rank of the
+    resolved kernels and none of any other; every rank's report equal to
+    the one-process report; the ranks' summed dw within MESH_TOL of the
+    unsharded one. (x2) TinyLlama-1.1B uncut on the multi-pod (pod 2,
+    data 1, model 2) mesh, `grad_compression=True`, LM_TRAIN_BATCH x
+    LM_TRAIN_SEQ for X2_STEPS steps, beside the same run on (data 2,
+    model 2) in the same world (the batch group is the same ranks in the
+    same order). Gates: losses, params and EF state bit for bit with that
+    witness; each rank's wire, scales and EF blocks bit for bit with
+    one-process compression of the gathered summed gradient at every
+    step; exact launches a step on every rank; the ranks' peaks summed
+    under the card. Returns the launches."""
+    import shutil
+    import tempfile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import distributed
+    cfg = get_config(LM_ARCH)
+    totals: dict = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_x_")
+    try:
+        t0 = time.perf_counter()
+        refs = x1_refs(torch, device, tmp)
+        free_card(torch)
+        refs_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = distributed.spawn(x_rank, X_RANKS, backend=U_BACKEND,
+                                  device=device,
+                                  timeout_s=2 * U_SPAWN_TIMEOUT,
+                                  args=(tmp, refs["calls"], cfg))
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("phase_time", name="x_one_process_refs", seconds=refs_s)
+    emit("phase_time", name="x_ranks", seconds=ranks_s)
+    # (x1)
+    for key, _, op, packed, variant in refs["calls"]:
+        want = {k: 1 for k in MESH_SHARD_LAUNCHES[(op, packed)]} \
+            if variant != "ragged" else {"spike_matmul_pred": 1}
+        rep = refs["rep"][key]
+        for r in ranks:
+            c = r["x1"]["calls"][key]
+            check(c["fp"] == refs["fp"][key][r["rank"]],
+                  f"(x1) {key}: rank {r['rank']}'s rows differ from the "
+                  f"one-process call's")
+            check(c["launches"] == {k: want.get(k, 0)
+                                    for k in c["launches"]},
+                  f"(x1) {key}: rank {r['rank']} launched {c['launches']}, "
+                  f"not {want}")
+            check(c["rep"] == rep, f"(x1) {key}: rank {r['rank']}'s report "
+                  f"{c['rep']} is not the one-process report {rep}")
+            add_counts(totals, c["launches"])
+        imb = rep["occupancy"]
+        emit("x1_sharded", card=card, call=key, rows=refs["rows"][key],
+             ranks=X_RANKS, attribution=rep["attribution"],
+             occupancy_source=rep["occupancy_source"],
+             host_reads=rep["host_reads"], moved_bytes=rep["moved_bytes"],
+             per_shard=list(imb.per_shard), imbalance=imb.imbalance,
+             pre_per_shard=list(imb.pre_per_shard),
+             pre_imbalance=imb.pre_imbalance,
+             rank_s=[r["x1"]["calls"][key]["s"] for r in ranks],
+             launches_a_rank=ranks[0]["x1"]["calls"][key]["launches"])
+        if variant == "rebalanced":
+            check(bool(imb.pre_per_shard) and imb.imbalance
+                  < imb.pre_imbalance and rep["moved_bytes"] > 0
+                  and rep["host_reads"] == 1,
+                  f"(x1) {key}: the plan did not engage ({rep})")
+        if variant == "ragged":
+            check(rep["attribution"] == "cuda-pred<-cuda-pipe",
+                  f"(x1) ragged: {rep['attribution']}")
+    for op, want in refs["dw"].items():
+        got = sum(r["x1"]["dw"][op] for r in ranks)
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        emit("x1_grad", card=card, op=op, case="ffn_fc1_model",
+             max_rel_dw=rel)
+        check(rel <= MESH_TOL, f"(x1) {op}: the ranks' summed dw is off "
+              f"the unsharded one by {rel}")
+    emit("x1_ranks", card=card, calls=len(refs["calls"]),
+         calls_s=[r["x1"]["calls_s"] for r in ranks])
+    # (x2)
+    per_step = lm_train_launches(cfg)
+    peaks = []
+    for r in ranks:
+        check(r["production_shape"] == {"pod": 2, "data": 2, "model": 1},
+              f"(x2) make_production_mesh(multi_pod=True) gave "
+              f"{r['production_shape']}")
+        pod, wit = r["pod"], r["witness"]
+        for k, st in enumerate(pod["steps"]):
+            lm_launch_check(st["launches"], per_step,
+                            f"(x2) rank {r['rank']} pod step {k}")
+            add_counts(totals, st["launches"])
+        for k, st in enumerate(wit["steps"]):
+            lm_launch_check(st["launches"], per_step,
+                            f"(x2) rank {r['rank']} witness step {k}")
+            add_counts(totals, st["launches"])
+        losses = [st["loss"] for st in pod["steps"]]
+        check(losses == [st["loss"] for st in wit["steps"]]
+              and all(math.isfinite(x) for x in losses),
+              f"(x2) rank {r['rank']}: losses {losses} against the "
+              f"witness's {[st['loss'] for st in wit['steps']]}")
+        check(pod["params"] == wit["params"], f"(x2) rank {r['rank']}: "
+              f"params differ from the witness's")
+        check(pod["ef"] == wit["ef"], f"(x2) rank {r['rank']}: the EF "
+              f"state differs from the witness's")
+        check(pod["rows"] == wit["rows"], f"(x2) rank {r['rank']}: rows "
+              f"{pod['rows']} against {wit['rows']}")
+        peaks.append(max(pod["peak_bytes"], wit["peak_bytes"]))
+        emit("x2_rank", card=card, rank=r["rank"], coords=pod["coords"],
+             rows=pod["rows"], losses=losses,
+             grad_norms=[st["grad_norm"] for st in pod["steps"]],
+             step_s=[st["span_s"] for st in pod["steps"]],
+             witness_step_s=[st["span_s"] for st in wit["steps"]],
+             compress_check_s=pod["check_s"], peak_bytes=pod["peak_bytes"],
+             witness_peak_bytes=wit["peak_bytes"], x2_s=r["x2_s"])
+    bad = ranks[0]["pod"]["bad"]
+    check(not bad, f"(x2) wire / scale / EF off one-process compression "
+          f"at (step, leaf, part) {bad[:6]}")
+    losses = {tuple(st["loss"] for st in r["pod"]["steps"]) for r in ranks}
+    check(len(losses) == 1, f"(x2) the ranks' losses differ: {losses}")
+    emit("x2_multi_pod", card=card, arch=cfg.name, mesh=list(X2_POD_MESH),
+         witness_mesh=list(X2_WITNESS_MESH), batch=LM_TRAIN_BATCH,
+         seq=LM_TRAIN_SEQ, steps=X2_STEPS, losses=list(losses.pop()),
+         checked_steps=X2_STEPS, mismatches=len(bad),
+         peak_sum_bytes=sum(peaks), card_bytes=CARD_MEMORY_BYTES)
+    check(sum(peaks) < CARD_MEMORY_BYTES, f"(x2) the four ranks' peaks sum "
+          f"to {sum(peaks)} bytes")
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -9553,6 +9980,12 @@ def main() -> int:
     # and training steps on (2, 2) and its pure-FSDP steps on (1, 2)
     # launch rows 1, 2 and 3 bf16 and row 9 at a rank's shapes.
     for name, n in timed("w_moe_ranks", phase_w, torch, device,
+                         card).items():
+        totals[name] = totals.get(name, 0) + n
+    # The data-parallel side on ranks: each rank's sharded calls launch
+    # rows 12, 14, 16, 18, 19 and (the ragged grid) 10 once; the
+    # compressed multi-pod steps rows 2, 3 bf16 and 9 on every rank.
+    for name, n in timed("x_event_ranks", phase_x, torch, device,
                          card).items():
         totals[name] = totals.get(name, 0) + n
     emit("phase_time", name="total", seconds=time.perf_counter() - t_start)

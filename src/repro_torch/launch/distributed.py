@@ -18,13 +18,15 @@ every device. The port runs one process a rank over `torch.distributed`:
     it raise with the stacks of the ranks still running. Every process it
     starts is ended before it returns.
 
-Collectives: every multi-process path of the port goes through three
-wrappers, `all_reduce_`, `all_gather` and `reduce_scatter`. Under
-``nccl`` each is NCCL's own collective. ``gloo`` implements only
-`broadcast` and `all_reduce` on CUDA tensors, so under ``gloo`` an
-all-gather is one `broadcast` from each rank, and a reduce-scatter an
-`all_reduce` of which the rank keeps its block: one card can rehearse
-every path under ``gloo``, and the CPU tests run the same code.
+Collectives: every multi-process path of the port goes through four
+wrappers, `all_reduce_`, `all_gather`, `reduce_scatter` and `exchange`.
+Under ``nccl`` each is NCCL's own collective (`exchange` an
+`all_to_all`). ``gloo`` implements only `broadcast` and `all_reduce` on
+CUDA tensors, so under ``gloo`` an all-gather is one `broadcast` from
+each rank, a reduce-scatter an `all_reduce` of which the rank keeps its
+block, and an exchange one `broadcast` of each rank's outgoing blocks:
+one card can rehearse every path under ``gloo``, and the CPU tests run
+the same code.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ import contextlib
 import datetime
 import faulthandler
 import io
+import math
 import os
 import signal
 import socket
@@ -200,6 +203,45 @@ def reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     full = t.contiguous().clone()
     dist.all_reduce(full, group=group)
     return full.narrow(dim, dist.get_rank(group) * n, n).clone()
+
+
+def exchange(sends: Sequence[torch.Tensor], shapes: Sequence[Sequence],
+             group) -> list:
+    """Point-to-point blocks over `group`: `sends[d]` is the block this
+    rank sends to group rank d (its own block to itself stays here), and
+    `shapes[r][d]` the shape of the block rank r sends to rank d, which
+    every rank knows. Returns the blocks this rank receives, one per group
+    rank in order (dtype and device of `sends`; a dtype both backends
+    move: uint32 words go as their int32 view). Under ``nccl`` one
+    `all_to_all`; under ``gloo`` each rank with anything to send
+    broadcasts its outgoing blocks joined, and each receiver keeps its
+    own."""
+    size = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    like = sends[me]
+    if size == 1:
+        return [like]
+    if backend() == "nccl":
+        outs = [like.new_empty(tuple(shapes[r][me])) for r in range(size)]
+        dist.all_to_all(outs, [t.contiguous() for t in sends], group=group)
+        return outs
+    recv = [like.new_empty(tuple(shapes[r][me])) for r in range(size)]
+    recv[me] = like
+    for r in range(size):
+        sizes = [math.prod(shapes[r][d]) if d != r else 0
+                 for d in range(size)]
+        if not sum(sizes):
+            continue
+        if r == me:
+            buf = torch.cat([sends[d].reshape(-1) for d in range(size)
+                             if d != me])
+        else:
+            buf = like.new_empty(sum(sizes))
+        dist.broadcast(buf, dist.get_global_rank(group, r), group=group)
+        if r != me:
+            at = sum(sizes[:me])
+            recv[r] = buf[at:at + sizes[me]].reshape(tuple(shapes[r][me]))
+    return recv
 
 
 def reduce_int(value: int, group=None, op=dist.ReduceOp.MIN) -> int:

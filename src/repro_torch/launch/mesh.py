@@ -15,12 +15,15 @@ ranks of a `torch.distributed` process group (`launch.distributed`), one
 process each, row-major as JAX lays devices out. Each rank holds its own
 data shard's rows and its own shard of every leaf; `axis_group`
 gives the sub-group over which a rank reduces along one axis. The
-data-parallel training step, both MoE forms (routing the global tokens
-that the batch ranks gather, their banks expert- or tensor-parallel),
-the tensor-parallel and FSDP placement of every other leaf
-(`runtime.sharding.local_params`, `models.placement`) and the elastic
-restore run over it. What is still missing (sharded event ops on their
-own ranks, a multi-pod mesh) is `MULTI_PROCESS_ITEM`.
+data-parallel training step (its gradients compressed after the batch
+sum where asked), both MoE forms (routing the global tokens that the
+batch ranks gather, their banks expert- or tensor-parallel), the
+tensor-parallel and FSDP placement of every other leaf
+(`runtime.sharding.local_params`, `models.placement`), sharded event
+execution with one shard a rank (`runtime.sharding.event_op_sharded`)
+and the elastic restore run over it, on a (data, model) mesh or the
+multi-pod (pod, data, model) one (`make_production_mesh`). What is still
+missing is `MULTI_PROCESS_ITEM`.
 
 The hardware constants below are the roofline denominators of the port,
 one NVIDIA H100 SXM (NVIDIA H100 80GB HBM3, 700 W), from NVIDIA's H100
@@ -42,8 +45,9 @@ PEAK_FLOPS_TF32 = 495e12        # FLOP/s, TF32 tensor cores, dense
 HBM_BW = 3.35e12                # bytes/s, HBM3
 NVLINK_BW_PER_CARD = 900e9      # bytes/s, NVLink 4, all 18 links of a card
 
-MULTI_PROCESS_ITEM = ("ROADMAP queue 1 item 8b (sharded event ops on their "
-                      "own ranks, the multi-pod mesh)")
+MULTI_PROCESS_ITEM = ("ROADMAP queue 1 item 8b (tp2d on ranks, "
+                      "tensor-parallel SSM blocks, the sequence-split KV "
+                      "cache, configs wider than one card)")
 # What a one-process mesh over several distinct devices is told to use.
 RANK_MESH_HINT = ("run one process a device over a process group instead: "
                   "launch.mesh.make_rank_mesh (launch.distributed.spawn or "
@@ -190,10 +194,11 @@ class RankMesh(Mesh):
                              f"{self.axis_names}")
         return self._groups[key[0] if len(key) == 1 else key]
 
-    def shard_devices(self, axes: Sequence[str]):
-        raise NotImplementedError(
-            f"a rank mesh runs one shard a process; sharded event ops on "
-            f"their own ranks are not ported yet ({MULTI_PROCESS_ITEM})")
+    def shard_devices(self, axes: Sequence[str]) -> Tuple[torch.device]:
+        """This rank's one device: a rank runs its own shard, whatever
+        `axes` the rows split over (`runtime.sharding.event_op_sharded`
+        hands it its own rows)."""
+        return (self.device,)
 
     def __repr__(self) -> str:
         return f"RankMesh({self.shape}, rank {self.rank} on {self.device})"
@@ -239,16 +244,25 @@ def make_rank_mesh(shape: Sequence[int], axes: Sequence[str]) -> RankMesh:
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """With a process group initialized, the (data, model) rank mesh of
-    its ranks, all on `data` (every rank must call it); otherwise the
-    single-host (data, model) mesh over the visible cards. The
-    reference's multi-pod (pod, data, model) mesh spans several hosts:
-    it raises."""
-    if multi_pod:
-        raise NotImplementedError(
-            f"a multi-pod mesh spans several hosts, which the port cannot "
-            f"drive yet ({MULTI_PROCESS_ITEM})")
+    """With a process group of W ranks initialized, the (data, model)
+    rank mesh (W, 1), or with `multi_pod` the (pod, data, model) rank
+    mesh (2, W / 2, 1): two pods, the batch over (pod, data) pod-major,
+    as the reference lays out its (2, 16, 16). Every rank must call it.
+    Without a process group, the single-host (data, model) mesh over the
+    visible cards; a multi-pod mesh needs ranks and raises there, as it
+    does for an odd W (two pods of equal size)."""
     from repro_torch.launch import distributed
+    if multi_pod:
+        if not distributed.is_initialized():
+            raise RuntimeError(
+                "a multi-pod mesh runs one process a rank: initialize a "
+                "process group first (launch.distributed.init or spawn)")
+        world = distributed.world_size()
+        if world % 2:
+            raise ValueError(
+                f"a multi-pod mesh splits the ranks into two pods of equal "
+                f"size; the group has {world} ranks, an odd number")
+        return make_rank_mesh((2, world // 2, 1), ("pod", "data", "model"))
     if distributed.is_initialized():
         return make_rank_mesh((distributed.world_size(), 1),
                               ("data", "model"))

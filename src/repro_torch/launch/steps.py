@@ -75,8 +75,26 @@ def make_train_step(
     global loss; `metrics["loss"]` is that global loss. A leaf gathered
     over a batch axis has its gradient reduce-scattered there by the
     gather's backward; each gradient is then all-reduced over the batch
-    axes its leaf is not split over. The clip's global norm sums each
-    leaf's squares over the ranks of the axes it is split over."""
+    axes its leaf is not split over. Every such sum runs in the wider
+    type and is rounded once (`placement.group_sum`), so it has the same
+    bits in any order. The clip's global norm sums each leaf's squares
+    over the ranks of the axes it is split over.
+
+    `grad_compression=True` adds the error-feedback state:
+    train_step(params, opt_state, ef_state, batch). The step's gradient
+    (on a rank mesh, after the batch sum) is compressed to int8 values
+    with one scale a leaf (`optim.grad_compress`), decompressed, and
+    clipped by `norm_of` the decompressed gradients, which is
+    `metrics["grad_norm"]`. On a rank mesh each leaf's scale reads the
+    max |g + e| over the whole leaf: the rank's max all-reduced with MAX
+    over the axes the leaf is split over (`leaf_axes`; none for a
+    replicated leaf), so every rank's wire, scales and error-feedback
+    blocks are the reference's compression of the summed gradient, bit
+    for bit. `ef_state` is `grad_compress.init` of the rank's
+    `local_params`, placed as its leaves. This does not cut the bytes on
+    the wire: the batch sum runs before the compression, as the
+    reference's numbers demand (its jitted step compresses the summed
+    gradient), and quantising before the sum would change them."""
     if opt_cfg is None:
         opt_cfg = adamw.AdamWConfig(state_dtype=cfg.opt_state_dtype)
     spk = cfg.spiking.enabled if spiking is None else spiking
@@ -93,9 +111,12 @@ def make_train_step(
         split: list = []             # per leaf: the axes it is split over
 
     def batch_sum(t, axes=None):
+        """t summed over the batch ranks of `axes` (all by default), a
+        new tensor: in the wider type, rounded once (`group_sum`), so the
+        sum has the same bits in any order the backend picks."""
+        from repro_torch.models.placement import group_sum
         axes = batch_axes if axes is None else axes
-        return distributed.all_reduce_(t, mesh.axes_group(axes)) \
-            if axes else t
+        return group_sum(t, mesh.axes_group(axes)) if axes else t
 
     def leaf_axes() -> list:
         if not split:
@@ -116,11 +137,11 @@ def make_train_step(
         def one(mb):
             if ranked:
                 tot, cnt = lm.loss_terms(cfg, params, mb, spk)
-                cnt = batch_sum(cnt.detach().clone())
+                cnt = batch_sum(cnt.detach())
                 loss = tot / torch.clamp(cnt, min=1.0)
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                             materialize_grads=True)
-                return batch_sum(tot.detach().clone()) / \
+                return batch_sum(tot.detach()) / \
                     torch.clamp(cnt, min=1.0), grads
             loss = lm.loss_fn(cfg, params, mb, spk)
             # a leaf the mode never reads (qk-norm scales under SDSA) gets
@@ -142,9 +163,12 @@ def make_train_step(
                 grads = [a + g for a, g in zip(grads, g_i)]
             loss, grads = loss / m, [g / m for g in grads]
         if ranked:
-            grads = [batch_sum(g, tuple(a for a in batch_axes
-                                        if a not in axes))
-                     for g, axes in zip(grads, leaf_axes())]
+            # one leaf at a time, each unsummed gradient freed as its sum
+            # (a new tensor) replaces it
+            grads = list(grads)
+            for i, axes in enumerate(leaf_axes()):
+                grads[i] = batch_sum(grads[i], tuple(
+                    a for a in batch_axes if a not in axes))
         return loss, adamw.unflatten(params, grads)
 
     def norm_of(params, grads):
@@ -166,6 +190,24 @@ def make_train_step(
             sq = part if sq is None else sq + part
         return torch.sqrt(sq)
 
+    def whole_max(amax: list) -> list:
+        """Each leaf's max |g + e| over the whole leaf: the rank's own
+        max all-reduced with MAX over the axes the leaf is split over,
+        one all-reduce a set of axes."""
+        out = list(amax)
+        by_axes: dict = {}
+        for i, axes in enumerate(leaf_axes()):
+            if axes:
+                by_axes.setdefault(axes, []).append(i)
+        for axes in sorted(by_axes, key=lambda a: (len(a), sorted(a))):
+            idx = by_axes[axes]
+            both = distributed.all_reduce_(
+                torch.stack([amax[i] for i in idx]),
+                mesh.axes_group(tuple(axes)), torch.distributed.ReduceOp.MAX)
+            for k, i in enumerate(idx):
+                out[i] = both[k]
+        return out
+
     if not grad_compression:
         def train_step(params, opt_state, batch):
             loss, grads = grads_of(params, batch)
@@ -176,19 +218,17 @@ def make_train_step(
             metrics = {"loss": loss, "grad_norm": gnorm}
             return new_params, new_opt, metrics
         return _under_mesh(train_step, mesh)
-    if ranked:
-        raise NotImplementedError(
-            "gradient compression over a rank mesh is not ported "
-            "(the data-parallel step sums uncompressed gradients)")
 
     def train_step_ef(params, opt_state, ef_state, batch):
         loss, grads = grads_of(params, batch)
-        wire, scales, new_ef = grad_compress.compress(grads, ef_state)
+        wire, scales, new_ef = grad_compress.compress(
+            grads, ef_state, whole_max if ranked else None)
         grads = grad_compress.decompress(wire, scales)
+        gnorm = norm_of(params, grads)
         lr_scale = schedule_fn(opt_state.step)
         new_params, new_opt = adamw.update(grads, opt_state, params, opt_cfg,
-                                           lr_scale)
-        metrics = {"loss": loss, "grad_norm": adamw.global_norm(grads)}
+                                           lr_scale, gnorm)
+        metrics = {"loss": loss, "grad_norm": gnorm}
         return new_params, new_opt, new_ef, metrics
     return _under_mesh(train_step_ef, mesh)
 

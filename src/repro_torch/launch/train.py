@@ -21,9 +21,9 @@ dims, FSDP `data` dims, pure FSDP's whole-mesh dims, the expert banks);
 the model runs on the shards (`models.placement`) and the step is
 data-parallel over the batch axes (`steps.make_train_step`). The batch
 is the reference's: shard 0's ``batch // n_data`` rows, of which each
-batch rank (each data rank; each rank of the mesh under `pure_fsdp`)
-takes its contiguous slice (its block of each microbatch, `rank_rows`)
-where the count divides and all of them where it does not (as
+batch rank (each (pod, data) rank, pod-major, on a multi-pod mesh too;
+each rank of the mesh under `pure_fsdp`) takes its contiguous slice
+(its block of each microbatch, `rank_rows`) where the count divides and all of them where it does not (as
 `batch_axes` replicates; an MoE, which routes the rows the ranks hold
 together, refuses that). Rank 0 writes each checkpoint, each leaf
 gathered whole from its shards, and the ranks meet at a barrier after
@@ -106,15 +106,16 @@ def train_state_bytes(cfg: LMConfig, mesh: Optional[Mesh] = None) -> int:
 def rank_rows(rows: int, mesh: RankMesh, pure_fsdp: bool = False,
               microbatches: int = 1):
     """A batch rank's rows of a step's `rows`: its contiguous slice where
-    the batch axes (data; data and model under `pure_fsdp`) divide them,
-    all of them where they do not. With `microbatches` m > 1 whose
-    blocks they divide, the rank's block of each of the m microbatches
-    in turn (an index array), so that the ranks' i-th microbatches,
-    joined in rank order, are the reference's i-th: the global rows
-    ``[i * rows / m, (i + 1) * rows / m)``, which an MoE routes
-    together."""
-    axes = tuple(a for a in (("data", "model") if pure_fsdp else ("data",))
-                 if a in mesh.shape)
+    the batch axes (pod and data; and model under `pure_fsdp`) divide
+    them, all of them where they do not. The slices run pod-major, as
+    `steps.make_train_step` and `placement` order the batch ranks. With
+    `microbatches` m > 1 whose blocks they divide, the rank's block of
+    each of the m microbatches in turn (an index array), so that the
+    ranks' i-th microbatches, joined in rank order, are the reference's
+    i-th: the global rows ``[i * rows / m, (i + 1) * rows / m)``, which
+    an MoE routes together."""
+    names = ("pod", "data", "model") if pure_fsdp else ("pod", "data")
+    axes = tuple(a for a in names if a in mesh.shape)
     n = math.prod(mesh.shape[a] for a in axes)
     if rows % n:
         return slice(None)

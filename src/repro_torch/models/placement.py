@@ -44,12 +44,13 @@ module runs the LM on those shards. `of(cfg)` reads the ambient mesh
 `witness()` is the yardstick of the row-split products: on a one-process
 mesh with a `model` axis of m positions, each tensor-parallel pair runs
 once per model position on that position's cut of the whole weights and
-the partial outputs are summed in f32 in position order, rounded once
-(`position_sum`); a decode state is cut and re-joined on its heads the
-same way. On two model ranks the rank run's all-reduce sums the same
-two partials in f32 (a sum of two has one order), so the two agree bit
-for bit; on more, the all-reduce's order is the backend's, and the two
-agree wherever the f32 sum is exact, which it nearly always is.
+the partial outputs are summed in a wider type (`wide`: f32 for bf16,
+f64 for f32) in position order, rounded once (`position_sum`); a decode
+state is cut and re-joined on its heads the same way. The ranks'
+all-reduces sum in the same wider type (`group_sum`), in an order the
+backend picks; a sum of a few terms in the wider type is nearly always
+exact, so the two agree bit for bit in any order (on two ranks always:
+a sum of two has one order).
 
 `witness_parts(fn, n)` is the yardstick of n batch ranks whose MoE
 routes their rows together: `fn(i)`, batch rank i's forward on its own
@@ -58,8 +59,8 @@ the threads' rows in rank order (`global_rows`) and each thread keeps
 its own rows of its own MoE's output (`own_rows`). The threads' graphs
 meet only there, as the ranks' do, so one backward through them runs
 each rank's products on its own rows, and the cotangent of a thread's
-MoE input is every thread's summed in f32, as the ranks' reduce-scatter
-sums it.
+MoE input is every thread's summed in the wider type, as the ranks'
+reduce-scatter sums it.
 """
 from __future__ import annotations
 
@@ -101,7 +102,8 @@ class _Part:
 
     def join(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         # a copy of x for each thread, so that x's cotangent is their sum
-        # in f32 in thread order (`Split`), as the reduce-scatter sums it
+        # in the wider type in thread order (`Split`), as the
+        # reduce-scatter sums it
         self.slots[self.i] = Split.apply(x, len(self.slots))
         self.gate.wait()
         out = torch.cat([s[self.i] for s in self.slots], dim)
@@ -145,28 +147,45 @@ def witness_parts(fn: Callable, n: int) -> list:
 
 
 # ------------------------------------------------------------ collectives
+def wide(dtype: torch.dtype) -> torch.dtype:
+    """The type a sum of `dtype` terms over ranks runs in: f64 for f32
+    (and f64), f32 for bf16 and the other narrow types."""
+    return torch.float64 if dtype in (torch.float32, torch.float64) \
+        else torch.float32
+
+
 def group_sum(t: torch.Tensor, group) -> torch.Tensor:
     """`t` summed over the ranks of `group` (an all-reduce), as a new
-    tensor of `t`'s dtype. The sum runs in f32 and is rounded once: a
-    bf16 all-reduce would round after every addition, in an order the
-    backend picks, while the f32 sum of a few bf16 partials is nearly
-    always exact, and so the same bits in every order. It moves twice a
-    bf16 tensor's bytes."""
+    tensor of `t`'s dtype. The sum runs in the wider type (`wide`) and is
+    rounded once: an all-reduce in `t`'s dtype would round after every
+    addition, in an order the backend picks, while the wider sum of a
+    few partials is nearly always exact, and so the same bits in every
+    order. It moves twice the tensor's bytes."""
     from repro_torch.launch import distributed
-    acc = t.to(torch.float32, memory_format=torch.contiguous_format,
+    acc = t.to(wide(t.dtype), memory_format=torch.contiguous_format,
                copy=True)
+    if acc.dtype == torch.float64 and acc.is_cuda \
+            and distributed.backend() == "gloo":
+        # `gloo` stages card tensors in host memory anyway. A run that
+        # all-reduced f64 card tensors over four `gloo` ranks on the H100
+        # lost a rank, and runs with this host path did not; the cause is
+        # open (PERF.md, ROADMAP queue 3)
+        return distributed.all_reduce_(acc.cpu(), group).to(t.device,
+                                                            t.dtype)
     return distributed.all_reduce_(acc, group).to(t.dtype)
 
 
 def position_sum(parts) -> torch.Tensor:
     """The one-process form of `group_sum`: `parts` (one per model
-    position) summed in position order in f32 and rounded once to their
-    dtype; None parts (no cotangent) count as zeros."""
+    position or batch thread) summed in position order in the wider type
+    and rounded once to their dtype; None parts (no cotangent) count as
+    zeros."""
     acc, dtype = None, None
     for part in parts:
         if part is not None:
             dtype = part.dtype
-            acc = part.float() if acc is None else acc + part.float()
+            acc = part.to(wide(dtype)) if acc is None \
+                else acc + part.to(wide(dtype))
     return acc if acc is None else acc.to(dtype)
 
 
@@ -235,8 +254,9 @@ class _GatherLast(torch.autograd.Function):
 class _GatherLeaf(torch.autograd.Function):
     """A leaf's shard all-gathered along `dim` over `group`. The backward
     reduce-scatters the cotangent where the group's ranks ran other batch
-    rows (`summed`), and keeps this rank's block where they ran the same
-    rows (the same cotangent on each)."""
+    rows (`summed`; in the wider type, rounded once, as `group_sum`), and
+    keeps this rank's block where they ran the same rows (the same
+    cotangent on each)."""
 
     @staticmethod
     def forward(ctx, w, dim, group, summed):
@@ -250,8 +270,8 @@ class _GatherLeaf(torch.autograd.Function):
     def backward(ctx, g):
         from repro_torch.launch import distributed
         if ctx.summed:
-            return (distributed.reduce_scatter(g.contiguous(), ctx.dim,
-                                               ctx.group),
+            return (distributed.reduce_scatter(g.to(wide(g.dtype)), ctx.dim,
+                                               ctx.group).to(g.dtype),
                     None, None, None)
         return g.narrow(ctx.dim, ctx.i * ctx.n, ctx.n), None, None, None
 
@@ -259,8 +279,9 @@ class _GatherLeaf(torch.autograd.Function):
 class _GatherRows(torch.autograd.Function):
     """The batch ranks' rows all-gathered along `dim` over `group`, in
     group-rank order (the reference's global row order). The backward
-    reduce-scatters the cotangent, summed in f32: each rank's own rows
-    get the sum of every rank's cotangent of them."""
+    reduce-scatters the cotangent, summed in the wider type (`wide`):
+    each rank's own rows get the sum of every rank's cotangent of
+    them."""
 
     @staticmethod
     def forward(ctx, x, dim, group):
@@ -271,7 +292,8 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         from repro_torch.launch import distributed
-        part = distributed.reduce_scatter(g.float(), ctx.dim, ctx.group)
+        part = distributed.reduce_scatter(g.to(wide(g.dtype)), ctx.dim,
+                                          ctx.group)
         return part.to(g.dtype), None, None
 
 
@@ -339,9 +361,11 @@ class Placement:
         self.batch = frozenset()
         if self.ranked:
             if cfg.tp2d and mesh.size > 1:
+                from repro_torch.launch.mesh import MULTI_PROCESS_ITEM
                 raise NotImplementedError(
                     f"{cfg.name}: tp2d (weights split over data and model "
-                    f"at once) is not placed on a rank mesh")
+                    f"at once) is not placed on a rank mesh yet "
+                    f"({MULTI_PROCESS_ITEM})")
             if "model" in mesh.shape:
                 self.group = mesh.axis_group("model")
             self.batch = frozenset(_batch_axes(mesh, cfg.pure_fsdp))

@@ -8,11 +8,16 @@ wire format is int8-valued numbers carried in bf16 (exact summation for
 up to 256 data shards), half the all-reduce bytes of f32.
 
 The transform is pure: the error buffers live beside the optimizer state,
-and `compress` returns new trees (nothing is written in place).
+and `compress` returns new trees (nothing is written in place). On a
+rank mesh the train step compresses the gradient after the batch sum,
+as the reference's numbers demand, so the wire crosses no collective and
+saves no bytes there; each leaf's scale must read the whole leaf's max,
+so `compress` takes the function that reduces the ranks' maxima
+(`launch.steps`).
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,18 +34,33 @@ def init(params: Any) -> EFState:
         for p in leaves(params)]))
 
 
-def _one(g: torch.Tensor, e: torch.Tensor):
-    g32 = g.float() + e.float()
-    scale = torch.clamp(g32.abs().max(), min=1e-12) / 127.0
+def _fed(g: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    return g.float() + e.float()
+
+
+def _one(g: torch.Tensor, e: torch.Tensor, amax: torch.Tensor):
+    g32 = _fed(g, e)
+    scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(g32 / scale), -127, 127)
     err = g32 - q * scale
     return q.to(torch.bfloat16), scale, err.to(torch.bfloat16)
 
 
-def compress(grads: Any, ef: EFState) -> Tuple[Any, Any, EFState]:
+def compress(grads: Any, ef: EFState,
+             whole_max: Optional[Callable[[list], list]] = None
+             ) -> Tuple[Any, Any, EFState]:
     """Returns (wire grads: bf16 holding int8 values, per-leaf f32 scales,
-    new error-feedback state)."""
-    out = [_one(g, e) for g, e in zip(leaves(grads), leaves(ef.error))]
+    new error-feedback state). Each leaf's scale is its max |g + e| over
+    127; `whole_max`, where given, maps the per-leaf maxima of this
+    process's blocks to those of the whole leaves (a rank mesh's MAX
+    all-reduce)."""
+    pairs = list(zip(leaves(grads), leaves(ef.error)))
+    # g + e is formed again for the quantisation: one leaf's f32 copy at a
+    # time, never the whole tree's
+    amax = [_fed(g, e).abs().max() for g, e in pairs]
+    if whole_max is not None:
+        amax = whole_max(amax)
+    out = [_one(g, e, m) for (g, e), m in zip(pairs, amax)]
     wire, scales, err = (unflatten(grads, [o[i] for o in out])
                          for i in range(3))
     return wire, scales, EFState(error=err)

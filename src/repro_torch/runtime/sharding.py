@@ -649,6 +649,66 @@ def _csr_stack_map(stack, n_shards: int) -> torch.Tensor:
     return torch.cat(maps)
 
 
+def _gathered_map(occ: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' maps of `group` joined in shard order, on the host: one
+    all-gather where the map lies (the control device for a map on the
+    host), then one read of a map on the card."""
+    from repro_torch.launch import distributed
+    dev = occ.device if occ.device.type != "cpu" \
+        else distributed.control_device()
+    return distributed.all_gather(occ.to(dev), 0, group).cpu()
+
+
+def _moved_rows(plan) -> int:
+    """Tile rows the plan hands to a shard other than the one that owns
+    them under the static split."""
+    perm = torch.as_tensor(plan.perm, dtype=torch.int64)
+    rps = len(perm) // plan.n_shards
+    return int((perm // rps != torch.arange(len(perm)) // rps).sum())
+
+
+def _route_tiles(x: torch.Tensor, plan, me: int, group,
+                 back: bool = False) -> torch.Tensor:
+    """A rank's tile rows moved by `plan` over `group` (`me` its shard):
+    `x` holds one entry a tile row (a 128-row block of spikes or outputs,
+    or a row of the map). Forward, the rank's own tile rows in, the tile
+    rows its shard computes out (in the plan's order); `back`, the
+    computed ones in, its own out. Only the rows the plan moves cross
+    between ranks (`distributed.exchange`)."""
+    from repro_torch.launch import distributed
+    n = plan.n_shards
+    rps = len(plan.perm) // n
+    perm = torch.as_tensor(plan.perm, dtype=torch.int64)
+    owner = (perm // rps).view(n, rps)       # [shard, slot] -> owner
+    slot = (perm % rps).view(n, rps)         # [shard, slot] -> its row there
+    unit = tuple(x.shape[1:])
+    home, kind = x.device, x.dtype
+    if kind == torch.uint32:   # words move (and are indexed) as int32
+        x = x.view(torch.int32)
+    if home.type == "cpu":     # a map on the host: NCCL moves card memory
+        x = x.to(distributed.control_device())
+    dev = x.device
+    mine = [(owner[d] == me) for d in range(n)]     # my rows shard d takes
+    computed_from = [owner[me] == o for o in range(n)]
+    if not back:
+        sends = [x[slot[d][mine[d]].to(dev)] for d in range(n)]
+        shapes = [[(int((owner[d] == r).sum()),) + unit for d in range(n)]
+                  for r in range(n)]
+        recv = distributed.exchange(sends, shapes, group)
+        out = x.new_empty(x.shape)
+        for o in range(n):
+            out[computed_from[o].to(dev)] = recv[o]
+        return out.to(home).view(kind)
+    sends = [x[computed_from[o].to(dev)] for o in range(n)]
+    shapes = [[(int((owner[r] == o).sum()),) + unit for o in range(n)]
+              for r in range(n)]
+    recv = distributed.exchange(sends, shapes, group)
+    out = x.new_empty(x.shape)
+    for d in range(n):
+        out[slot[d][mine[d]].to(dev)] = recv[d]
+    return out.to(home).view(kind)
+
+
 def event_op_sharded(mesh: Mesh, op: str, s, w, *, csr_stack=None,
                      occupancy=None, with_report: bool = False,
                      rebalance: Optional[bool] = None, **kwargs):
@@ -663,6 +723,17 @@ def event_op_sharded(mesh: Mesh, op: str, s, w, *, csr_stack=None,
     declared chain, attributed ``<chosen><-<requested>``). The resolved
     kernel then launches once per shard, on that shard's slice and work
     list; no shard is stitched into a global launch.
+
+    On a rank mesh (`launch.mesh.RankMesh`) a shard is a rank: each rank
+    passes its own rows of `s` (every batch axis, `pod` then `data`,
+    splits the rows; ranks along `model` hold the same rows and compute
+    the same output) and its own slice of what comes with them: its rows
+    of the carried map, its own entry of a `csr_stack` (stacked or not),
+    or an `EventTensor` of its rows. It resolves as the one-process call
+    on the whole rows would, launches the resolved kernel once on its own
+    rows on `mesh.device`, and returns its own output rows. A map on the
+    host is all-gathered over the batch ranks (it is small), so each
+    rank's work list is the one-process call's list of its shard.
 
     `s` may be an `EventTensor` (or `occupancy=` a carried map). A carried
     map on the host compacts straight into per-shard trimmed work lists
@@ -691,7 +762,10 @@ def event_op_sharded(mesh: Mesh, op: str, s, w, *, csr_stack=None,
     `host_reads`: a sync); False never rebalances. Shards of one 128-row
     tile row each cannot be balanced better, so they are never planned
     (and nothing is read). As in `repro`, only `spike_matmul`'s work-list
-    route rebalances.
+    route rebalances. On ranks the plan comes from the all-gathered map,
+    and only the tile rows it moves cross between ranks: each goes to the
+    rank that computes it and its output back to the rank that owns it
+    (`distributed.exchange`).
 
     Under `dispatch.use_guard("audit" | "repair")` every shard runs the
     guarded backend on its own slice of the map (a `csr_stack` as the map
@@ -699,25 +773,33 @@ def event_op_sharded(mesh: Mesh, op: str, s, w, *, csr_stack=None,
     repaired as the unsharded one is: a map on the host raises or repairs
     on the host's read, one on the card poisons or repairs on the card.
     The host-built work lists are not used then (each shard's backend
-    compacts its own slice); rebalancing permutes the map with the rows.
+    compacts its own slice); rebalancing moves the map with the rows.
 
     Differentiable: a `torch.autograd.Function` whose backward is the
-    matmul rule of the pinned backends, per shard.
+    matmul rule of the pinned backends, per shard. On a rank mesh `ds` is
+    the rank's own rows' and `dw` the rank's partial, from its own rows,
+    as for every rank-local op of the port: the train step's batch sum
+    adds the partials.
 
     `with_report=True` also returns the routing report: backend,
     attribution, `n_shards`, `occupancy_source` (carried / csr_stack /
-    rederived), `host_reads` of the map, and `occupancy`, the per-shard
-    occupied-tile `OccupancyImbalance` (the plan's pre / post counts when
-    rebalanced, else each shard's own pre-pass of its spikes, one host
-    read of the counts) with each shard's hybrid route under hybrid.
+    rederived), `host_reads` of the map, `moved_bytes` (the bytes of the
+    tile rows a plan hands to another shard and of their outputs sent
+    back: on ranks what crosses between them; 0 without a plan), and
+    `occupancy`, the per-shard occupied-tile `OccupancyImbalance` (the
+    plan's pre / post counts when rebalanced, else each shard's own
+    pre-pass of its spikes, one host read of the counts; on ranks one
+    all-gather of each rank's count) with each shard's hybrid route under
+    hybrid. Every rank gets the same report, the one-process call's.
     """
     from repro_torch.core.events import EventTensor
     from repro_torch.core.spikes import (CSR_FIELDS, TileCSR,
                                          rebalance_shard_plan,
                                          shard_occupancy_to_csr,
+                                         stack_shard_csrs,
                                          unstack_shard_csrs)
     from repro_torch.kernels import dispatch, ops
-    from repro_torch.launch.mesh import shard_map
+    from repro_torch.launch.mesh import RankMesh, shard_map
 
     if op not in ("spike_matmul", "apec_matmul"):
         raise ValueError(f"event_op_sharded runs the matmul-form ops "
@@ -732,18 +814,25 @@ def event_op_sharded(mesh: Mesh, op: str, s, w, *, csr_stack=None,
             s = s.spikes
     packed_k = kwargs.get("packed_k")
 
-    axes = event_rows_axes(mesh, s.shape[0])
+    ranked = isinstance(mesh, RankMesh)
+    # On ranks every batch axis splits the rows: each holds its own.
+    axes = tuple(a for a in ("pod", "data") if a in mesh.shape) if ranked \
+        else event_rows_axes(mesh, s.shape[0])
     n_shards = math.prod(mesh.shape[a] for a in axes) if axes else 1
     rows = math.prod(s.shape[:-1])
+    shard_rows = rows if ranked else rows // n_shards
+    group = mesh.axes_group(axes) if ranked and n_shards > 1 else None
+    me = shard_index(mesh, axes) if group is not None else 0
     plan = None          # set iff occupancy-weighted rebalancing engages
     host_reads = 0
+    map_moves = False    # the map's rows move with a plan (guarded)
 
     def per_shard_routes(attribution, counts):
         """Each shard's hybrid route ("event" / "dense"), from its own
         occupied-tile count on the calibrated predicate: the decision the
         per-shard body makes, named per shard for the report."""
         from repro_torch.core import costmodel
-        mt_l = -(-(rows // n_shards) // TILE)
+        mt_l = -(-shard_rows // TILE)
         kt = -(-(packed_k or int(s.shape[-1])) // TILE)
         return tuple(
             "event" if costmodel.event_route_wins(
@@ -751,19 +840,33 @@ def event_op_sharded(mesh: Mesh, op: str, s, w, *, csr_stack=None,
                     costmodel.pow2_bucket(c), mt_l * kt), mt_l, kt)
             else "dense" for c in counts)
 
-    def report(backend, attribution, occupancy_source):
+    def shard_counts() -> list:
+        if group is None:
+            return per_shard_occupied_tiles(s, n_shards, packed_k=packed_k)
+        from repro_torch.launch import distributed
+        own = _shard_counts(s, 1, packed_k).to(distributed.control_device())
+        return [int(c) for c in distributed.all_gather(own, 0, group)
+                .tolist()]
+
+    def report(backend, attribution, occupancy_source, out):
         if not with_report:
             return None
         from repro_torch.runtime.straggler import occupancy_imbalance
+        moved = 0
+        if plan is not None:
+            tile_bytes = TILE * (s.shape[-1] * s.element_size()
+                                 + out.shape[-1] * out.element_size())
+            if map_moves:
+                tile_bytes += occupancy.shape[-1] * occupancy.element_size()
+            moved = _moved_rows(plan) * tile_bytes
         rep = {"op": op, "backend": backend, "attribution": attribution,
                "n_shards": n_shards, "occupancy": None,
                "occupancy_source": occupancy_source,
-               "host_reads": host_reads}
+               "host_reads": host_reads, "moved_bytes": moved}
         if n_shards > 1:
             # Routes come from the static split's counts, as in `repro`.
             hybrid = "hybrid" in attribution
-            counts = per_shard_occupied_tiles(s, n_shards, packed_k=packed_k) \
-                if plan is None or hybrid else None
+            counts = shard_counts() if plan is None or hybrid else None
             routes = per_shard_routes(attribution, counts) if hybrid else ()
             if plan is not None:
                 rep["occupancy"] = occupancy_imbalance(
@@ -777,30 +880,50 @@ def event_op_sharded(mesh: Mesh, op: str, s, w, *, csr_stack=None,
         raise ValueError(
             f"csr_stack is a spike_matmul pass-through; op {op!r} builds "
             f"its own (union) work list in its wrapper")
+    if csr_stack is not None and ranked and csr_stack.row_ptr.dim() == 1:
+        csr_stack = stack_shard_csrs([csr_stack])      # the rank's own
+    held = 1 if ranked else n_shards     # the shards this process runs
     stack_audited = False
     if csr_stack is not None and n_shards > 1 \
             and dispatch.guard_mode() != "off":
         # The guard audits maps: the stacked lists become the map they
         # name, and the call takes the guarded map route below.
         occupancy, csr_stack, stack_audited = \
-            _csr_stack_map(csr_stack, n_shards), None, True
-    if n_shards > 1 and occupancy is not None and (
-            rows % n_shards or (rows // n_shards) % TILE
-            or occupancy.shape[0] % n_shards):
+            _csr_stack_map(csr_stack, held), None, True
+    ragged = (rows % TILE) if ranked else (
+        rows % n_shards or (rows // n_shards) % TILE
+        or (occupancy is not None and occupancy.shape[0] % n_shards))
+    if n_shards > 1 and occupancy is not None and ragged:
         # A map splits into congruent per-shard maps only where every
         # shard owns whole 128-row tiles (the CSR mesh gate's condition).
         # Dropped before resolution: hybrid routes on the map.
         warnings.warn(
             f"exspike sharding: carried occupancy dropped for {op!r} — "
-            f"{rows} rows over {n_shards} shards do not split into whole "
-            f"128-row tiles; shards re-derive locally",
+            f"{rows * (n_shards // held)} rows over {n_shards} shards do "
+            f"not split into whole 128-row tiles; shards re-derive locally",
             RuntimeWarning, stacklevel=2)
         occupancy = None
+    on_card = occupancy is not None and dispatch._device_routed(occupancy)
+    # On ranks a map on the host is gathered whole (one small all-gather):
+    # the one-process call resolves, plans and builds its lists on it.
+    whole_map = _gathered_map(occupancy, group) \
+        if group is not None and occupancy is not None and not on_card \
+        else occupancy
     res_kwargs = dict(kwargs)
+    res_s = s
+    if group is not None:
+        # Stand-ins of the whole rows' shapes (resolution reads shapes,
+        # dtypes and devices; a map on the card is not gathered for it).
+        res_s = s.narrow(0, 0, 1).expand((s.shape[0] * n_shards,)
+                                         + tuple(s.shape[1:]))
+        if on_card:
+            whole_map = occupancy.narrow(0, 0, 1).expand(
+                (occupancy.shape[0] * n_shards,)
+                + tuple(occupancy.shape[1:]))
     if occupancy is not None:
-        res_kwargs["occupancy"] = occupancy
+        res_kwargs["occupancy"] = whole_map
     be, attribution = dispatch.resolve_with_attribution(
-        op, s, w, mesh=n_shards, **res_kwargs)
+        op, res_s, w, mesh=n_shards, **res_kwargs)
     static = {"packed_k": packed_k} if packed_k is not None else {}
     # The guard wraps `be.fn` (outermost) whenever a map is carried; the
     # per-shard work lists below would go around it.
@@ -816,21 +939,22 @@ def event_op_sharded(mesh: Mesh, op: str, s, w, *, csr_stack=None,
             out = be.fn(s, w, occupancy=occupancy.to(s.device), **kwargs)
         else:
             out = be.fn(s, w, **kwargs)
-        return (out, report(be.name, attribution, occupancy_source)) \
+        return (out, report(be.name, attribution, occupancy_source, out)) \
             if with_report else out
 
     family = _CSR_FAMILY["packed" if packed_k is not None else "dense"]
     csrs = None
-    on_card = occupancy is not None and dispatch._device_routed(occupancy)
     if occupancy is not None and csr_stack is None \
             and op == "spike_matmul" and be.name in family:
-        occ_host = None if on_card else occupancy
+        occ_host = None if on_card else whole_map
         wanted = rebalance if rebalance is not None else not on_card
         # A caller's lists keep the caller's split, audited or not.
         if wanted and not stack_audited and s.dim() == 2 \
-                and occupancy.shape[0] // n_shards > 1:
+                and occupancy.shape[0] // held > 1:
             if on_card:
-                occ_host = occupancy.cpu()       # the one read: a sync
+                # the one read: a sync (on ranks, of the gathered map)
+                occ_host = _gathered_map(occupancy, group) \
+                    if group is not None else occupancy.cpu()
                 host_reads += 1
             plan = rebalance_shard_plan(occ_host, n_shards)
             if plan.identity or not plan.improves:
@@ -839,6 +963,8 @@ def event_op_sharded(mesh: Mesh, op: str, s, w, *, csr_stack=None,
             csrs = shard_occupancy_to_csr(occ_host, n_shards,
                                           tiling=(TILE, TILE), plan=plan)
             occupancy = None
+            if group is not None:
+                csrs = csrs[me:me + 1]
 
     if csr_stack is not None:
         if be.name not in family:
@@ -852,16 +978,16 @@ def event_op_sharded(mesh: Mesh, op: str, s, w, *, csr_stack=None,
                 else "rederived"
         else:
             csrs = unstack_shard_csrs(csr_stack)
-            if len(csrs) != n_shards:
+            if len(csrs) != held:
                 raise ValueError(f"csr_stack holds {len(csrs)} shards, "
-                                 f"the mesh splits {n_shards}")
+                                 f"the mesh splits {held} here")
 
     # Host-built lists and the plan's permutations go to the card in one
     # transfer.
     host = [] if csrs is None else \
         [getattr(c, f) for c in csrs for f in CSR_FIELDS
          if getattr(c, f).device.type == "cpu"]
-    if plan is not None:
+    if plan is not None and group is None:
         host += [plan.perm, plan.inverse()]
     moved = iter(_upload(host, s.device))
     if csrs is not None:
@@ -888,11 +1014,13 @@ def event_op_sharded(mesh: Mesh, op: str, s, w, *, csr_stack=None,
         # so the guard takes the host's semantics, as unsharded.
         occ = occupancy
         if plan is not None:
+            map_moves = True
             occ = _permute_tile_rows(
-                occ, torch.as_tensor(plan.perm, device=occ.device))
+                occ, torch.as_tensor(plan.perm, device=occ.device)) \
+                if group is None else _route_tiles(occ, plan, me, group)
 
         def body_occ(i, sl, wl):
-            per = occ.shape[0] // n_shards
+            per = occ.shape[0] // held
             local = occ[i * per:(i + 1) * per]
             if on_card or not guarded:
                 local = local.to(sl.device)
@@ -903,12 +1031,26 @@ def event_op_sharded(mesh: Mesh, op: str, s, w, *, csr_stack=None,
             return be.fn(sl, wl, **kwargs)
         run = shard_map(body_plain, mesh=mesh, axes=axes)
 
-    if plan is not None:
+    if group is not None:
+        # One shard here: the rank's own rows, or the tile rows a plan
+        # hands it (moved in, run, outputs moved back to their owners).
+        def run_rank(s_, w_):
+            if plan is None:
+                return run(s_, w_)
+            tiles = s_.reshape((-1, TILE) + tuple(s_.shape[1:]))
+            got = run(_route_tiles(tiles, plan, me, group)
+                      .reshape(s_.shape), w_)
+            back = _route_tiles(got.reshape((-1, TILE)
+                                            + tuple(got.shape[1:])),
+                                plan, me, group, back=True)
+            return back.reshape(got.shape)
+        out = _ShardedMatmul.apply(run_rank, static, 1, s, w)
+    elif plan is not None:
         perm, inverse = moved
         s_run = _permute_tile_rows(s, perm)
         out = _ShardedMatmul.apply(run, static, n_shards, s_run, w)
         out = _permute_tile_rows(out, inverse)
     else:
         out = _ShardedMatmul.apply(run, static, n_shards, s, w)
-    return (out, report(be.name, attribution, occupancy_source)) \
+    return (out, report(be.name, attribution, occupancy_source, out)) \
         if with_report else out

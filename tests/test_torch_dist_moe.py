@@ -43,11 +43,12 @@ Yardsticks, each on every case and mesh:
     leaf) of the one-process step: the loss's f32 sum runs over the
     ranks' parts, and each rank's bf16 gradient is rounded before the
     ranks' sum of it (the f32 step below is the witness of that cause);
-    where two batch ranks hold the rows of `moe_apply`, the loss and
-    every gradient bit for bit with `parts_step`, the ranks' arithmetic
-    on one process (each batch rank's forward in a thread, their MoE
-    layers joined: `placement.witness_parts`), the witness of the bf16
-    gaps;
+    where batch ranks hold the rows of `moe_apply` (two data ranks, or
+    pure FSDP's two and four), the loss and every gradient bit for bit
+    with `parts_step`, the ranks' arithmetic on one process (each batch
+    rank's forward in a thread, their MoE layers joined:
+    `placement.witness_parts`), the witness of the bf16 gaps: the ranks'
+    sums run in the wider type, rounded once, as the witness's do;
   * after two steps, every rank that holds a block of a leaf holds the
     same bits as the others that hold it;
   * `sharding.local_init` (each leaf cut as it is drawn) gives each rank
@@ -449,20 +450,23 @@ def parts_step(name, shape) -> dict:
         grads = torch.autograd.grad([t / cnt for t, _ in terms], leaves,
                                     allow_unused=True,
                                     materialize_grads=True)
-    return {"loss": float(sum(t.detach() for t, _ in terms) / cnt),
+    # the loss's sum over the batch ranks in f64, rounded once, as the
+    # ranks' `group_sum` runs it
+    loss = sum(t.detach().double() for t, _ in terms).float()
+    return {"loss": float(loss / cnt),
             "grads": [g.float().numpy() for g in grads]}
 
 
 def parted(shape, name) -> bool:
-    """Whether two batch ranks of `shape` hold other rows of `name`'s
-    `moe_apply`: `parts_step` is then its yardstick bit for bit, every
-    sum over the ranks being of two terms, which has one rounding. (On
-    four batch ranks, pure FSDP on (2, 2), `gloo`'s bf16 reduce-scatter
-    rounds in an order of its own: 0.28% from `parts_step` at worst, a
-    gap `check_step` bounds.)"""
+    """Whether batch ranks of `shape` hold other rows of `name`'s
+    `moe_apply`: `parts_step` is then its yardstick bit for bit. Every
+    sum over the ranks runs in the wider type (f32 for bf16 gradients,
+    f64 for f32 ones and the loss) and is rounded once, so its bits do
+    not depend on the order `gloo` picks: on two batch ranks and on pure
+    FSDP's four on (2, 2) alike."""
     cfg = config(name)
     n = shape[0] * (shape[1] if cfg.pure_fsdp else 1)
-    return not cfg.moe_shard_map and n == 2
+    return not cfg.moe_shard_map and n > 1
 
 
 def _rel_l2(a, b) -> float:

@@ -361,7 +361,8 @@ def test_mesh_factories_and_constants():
     assert a.devices is None and dict(a.shape) == dict(j.shape)
     host = tmesh.make_host_mesh(device="cpu")
     assert host.shape == {"data": 1, "model": 1}
-    with pytest.raises(NotImplementedError, match="queue 1 item 8b"):
+    # the multi-pod mesh runs on ranks (tests/test_torch_dist_compress.py)
+    with pytest.raises(RuntimeError, match="process group"):
         tmesh.make_production_mesh(multi_pod=True)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -2,7 +2,7 @@
 """Run chip_smoke's phases (u), (v) and (w) alone on the card: the build,
 then each of their parts in turn, every gate as chip_smoke holds it.
 
-    python3 tools/rank_probe.py [u1] [u2] [u3] [u4] [v] [w]
+    python3 tools/rank_probe.py [u1] [u2] [u3] [u4] [v] [w] [x]
 
 (u1) data-parallel TinyLlama-1.1B on two `gloo` ranks with its gradient
 witness, (u2) the expert-parallel qwen2-moe-a2.7b prefill on two ranks
@@ -13,7 +13,9 @@ tensor-parallel qwen3-4b prefill and decode, the TP / FSDP reshard;
 (v2) prints (u1)'s peaks beside its own when u1 ran first), (w) the
 qwen2-moe-a2.7b configs on rank meshes as configured (its prefill and
 decode on four ranks, its training steps on four and, pure FSDP, on
-two); all of them when none is named. Prints chip_smoke's
+two), (x) sharded event ops with one shard a rank and compressed
+gradients on the multi-pod mesh (four ranks); all of them when none is
+named. Prints chip_smoke's
 JSON lines and, last, `PROBE OK` or `PROBE FAILED`; exits 1 if any part
 failed.
 """
@@ -36,7 +38,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     parts = {"u1": cs.phase_dp_train, "u2": cs.phase_ep_prefill,
              "u3": cs.phase_rank_drill, "u4": cs.phase_nccl_rank,
-             "v": cs.phase_v, "w": cs.phase_w}
+             "v": cs.phase_v, "w": cs.phase_w, "x": cs.phase_x}
     names = sys.argv[1:] or list(parts)
     ok = True
     for name in names:
